@@ -1,0 +1,84 @@
+"""A small FastSpeech 2 in both packages, on the same weights.
+
+Builds the JAX model in fp32, takes its parameter tree's shapes from
+``jax.eval_shape`` (no compile), fills it with numpy random values in
+which biases, norm scales and BatchNorm running statistics are all
+non-trivial, and loads the same values into the PyTorch port through
+``state_dict_from_flax``. Used by tests/test_torch_port_*.py.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from transformer_tts_tpu.config import HParams as JaxHParams
+from transformer_tts_tpu.ops.masks import pad_mask as jax_pad_mask
+from transformer_tts_tpu.train.trainer import (
+    build_fastspeech2 as jax_build_fastspeech2)
+from transformer_tts_tpu_torch.compat.from_jax import state_dict_from_flax
+from transformer_tts_tpu_torch.config import HParams
+from transformer_tts_tpu_torch.models.fastspeech2 import build_fastspeech2
+
+SMALL = dict(vocab_size=40, mel_dim=16, d_model_encoder=32,
+             d_model_decoder=32, n_layer_encoder=2, n_layer_decoder=2,
+             n_head_encoder=2, n_head_decoder=2,
+             ff_conv_kernel_size_encoder=5, ff_conv_kernel_size_decoder=1,
+             amp=False, dropout=0.0, dropout_postnet=0.0,
+             dropout_variance_adaptor=0.0)
+
+# predictor biases that put random-weight outputs in a useful range:
+# ~3 frames per phone, pitch and energy inside their bins
+DURATION_BIAS = math.log(1.0 + 3.0)
+PITCH_BIAS = 200.0
+ENERGY_BIAS = 100.0
+
+
+def _random_params(shapes, rs):
+    def leaf(path, x):
+        name = path[-1].key
+        if name == "kernel":        # Dense (in, out) or Conv (k, in, out)
+            bound = 1.0 / math.sqrt(int(np.prod(x.shape[:-1])))
+            return rs.uniform(-bound, bound, x.shape).astype(np.float32)
+        if name == "embedding":
+            return rs.randn(*x.shape).astype(np.float32)
+        base = 0.0 if name in ("bias", "mean") else 1.0
+        return (base + 0.1 * rs.randn(*x.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def build_pair(seed=0, **overrides):
+    """-> (hp, jax_model, variables, port_model) on the same weights."""
+    cfg = dict(SMALL, **overrides)
+    jhp = JaxHParams(**cfg)
+    hp = HParams(**cfg)
+    jmodel = jax_build_fastspeech2(jhp)
+    b, l, t = 2, 8, 32
+    text = jnp.ones((b, l), jnp.int32)
+    src_mask = jax_pad_mask(jnp.ones((b, l), jnp.int32))
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(seed), text, src_mask, t,
+        jnp.full((b, l), 4, jnp.int32), jnp.zeros((b, t)),
+        jnp.zeros((b, t)), train=False))
+    rs = np.random.RandomState(seed)
+    params = _random_params(shapes["params"], rs)
+    bstats = _random_params(shapes.get("batch_stats", {}), rs)
+    va = params["variance_adaptor"]
+    for name, bias in (("duration", DURATION_BIAS), ("pitch", PITCH_BIAS),
+                       ("energy", ENERGY_BIAS)):
+        if f"{name}_predictor" in va:
+            va[f"{name}_predictor"]["linear_layer"]["bias"][:] = bias
+    variables = {"params": params, "batch_stats": bstats}
+
+    model = build_fastspeech2(hp, device="cpu")
+    model.load_state_dict(state_dict_from_flax(params, bstats, hp))
+    model.eval()
+    return hp, jmodel, variables, model
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)

@@ -1,0 +1,122 @@
+"""FastSpeech 2 synthesis CLI of the PyTorch port (the port of the FS2
+branch of transformer_tts_tpu/cli/synthesize.py).
+
+``python -m transformer_tts_tpu_torch.cli.synthesize --load_name DIR
+      [--test_script s.txt] [--save out_dir] [--max_frames 2048]
+      [--batch_size N] [--use_prenet] [--pitch_perturbation]
+      [--duration_perturbation] [--device cuda]``
+
+``DIR`` holds ``hparams.py`` and a port checkpoint (``model.pt``, see
+train/checkpoint.py). For each utterance of the script it writes
+``<idx>.npy`` (the de-normalized mel, float32, cut to its length) and
+``<idx>_alignment.npy`` (predicted durations), and prints the elapsed
+synthesis time. It runs on the CUDA device unless ``--device cpu`` is
+given, and raises when that device is missing. The AR, integrate,
+post-model, vocoder and waveform paths come with later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import sys
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--load_name", type=str, required=True,
+                        help="directory with hparams.py and model.pt")
+    parser.add_argument("--test_script", type=str, default=None)
+    parser.add_argument("--save", type=str, default="./generated")
+    parser.add_argument("--max_frames", type=int, default=2048)
+    parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--use_prenet", action="store_true",
+                        help="save the pre-postnet mel")
+    parser.add_argument("--pitch_perturbation", action="store_true")
+    parser.add_argument("--duration_perturbation", action="store_true")
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--post_model", type=str, default=None)
+    parser.add_argument("--vocoder", type=str, default=None)
+    parser.add_argument("--wav", action="store_true")
+    args = parser.parse_args(argv)
+
+    import torch
+    from transformer_tts_tpu_torch.config import is_nar_model, load_hparams
+    from transformer_tts_tpu_torch.data.batching import collate
+    from transformer_tts_tpu_torch.data.dataset import ScriptDataset
+    from transformer_tts_tpu_torch.data.readers import Normalizer
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        sample_perturbation, synthesize_fastspeech2)
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_fastspeech2, later_slice)
+    from transformer_tts_tpu_torch.train.checkpoint import load_checkpoint
+
+    if args.post_model is not None:
+        later_slice("--post_model", "mel-to-mel post-processing")
+    if args.wav or args.vocoder is not None:
+        later_slice("--wav / --vocoder", "features and vocoder")
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but torch finds no CUDA device "
+                           "(pass --device cpu to synthesize on the CPU)")
+    hp = load_hparams(os.path.join(args.load_name, "hparams.py"))
+    if args.test_script:
+        hp.test_script = args.test_script
+    if not is_nar_model(hp.model):
+        later_slice(f"the AR model {hp.model!r}", "AR Transformer-TTS")
+    if hp.architecture == "text-mel-mel":
+        later_slice("text-mel-mel integrate synthesis",
+                    "mel-to-mel post-processing")
+    os.makedirs(args.save, exist_ok=True)
+
+    model = build_fastspeech2(hp, device=device)
+    load_checkpoint(model, args.load_name)
+    mean, var = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim).arrays()
+    if mean is not None:
+        mean = torch.as_tensor(mean, dtype=torch.float32, device=device)
+        var = torch.as_tensor(var, dtype=torch.float32, device=device)
+
+    dataset = ScriptDataset(hp.test_script, hp)
+    prng = random.Random(77)
+    start_time = time.time()
+    elapsed = 0.0
+    bs = max(1, args.batch_size)
+    for lo in range(0, len(dataset), bs):
+        chunk = list(range(lo, min(lo + bs, len(dataset))))
+        batch = collate([dataset[i] for i in chunk], hp)
+        text = torch.as_tensor(batch["text"], device=device)
+        pos_text = torch.as_tensor(batch["pos_text"], device=device)
+        p_scale = sample_perturbation(prng) \
+            if args.pitch_perturbation else 1.0
+        d_scale = sample_perturbation(prng) \
+            if args.duration_perturbation else 1.0
+        t0 = time.time()
+        mel, mel_len, durations = synthesize_fastspeech2(
+            model, text, pos_text, args.max_frames, mean, var,
+            pitch_scale=p_scale, duration_scale=d_scale,
+            use_prenet=args.use_prenet)
+        # the copies to the host wait for the device
+        mel_np = mel.float().cpu().numpy()
+        lens = mel_len.cpu().tolist()
+        durations = durations.cpu().numpy()
+        elapsed += time.time() - t0
+
+        for j, idx in enumerate(chunk):
+            out_name = os.path.join(args.save, f"{idx}.npy")
+            np.save(out_name, mel_np[j, :lens[j]])
+            np.save(os.path.join(args.save, f"{idx}_alignment.npy"),
+                    durations[j])
+            print(f"save {out_name} ({lens[j]} frames)")
+        sys.stdout.flush()
+
+    print(f"elapsed time = {elapsed}")
+    print(f"total time = {time.time() - start_time}")
+
+
+if __name__ == "__main__":
+    main()

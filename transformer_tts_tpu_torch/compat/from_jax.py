@@ -1,0 +1,116 @@
+"""Carry the JAX package's FastSpeech 2 weights into the port.
+
+``state_dict_from_flax(params, batch_stats, hp)`` takes the flax parameter
+and batch-statistics trees (nested dicts of numpy arrays) and returns the
+port's ``state_dict``, under the reference torch repo's parameter names.
+It inverts transformer_tts_tpu/compat/torch_import.py:60-194:
+
+  flax Dense kernel (in, out)        -> Linear.weight (out, in)
+  flax Conv kernel (k, in, out)      -> Conv1d.weight (out, in, k)
+  flax Embed embedding               -> Embedding.weight
+  flax LayerNorm/BatchNorm scale/bias -> weight/bias
+  flax batch_stats mean/var          -> running_mean/running_var
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _get(tree: Mapping, path):
+    node = tree
+    for p in path:
+        node = node[p]
+    return np.asarray(node, dtype=np.float32)
+
+
+class _Writer:
+    def __init__(self, params: Mapping, batch_stats: Mapping):
+        self.params = params
+        self.batch_stats = batch_stats
+        self.out: Dict[str, torch.Tensor] = {}
+
+    def _put(self, name: str, array: np.ndarray):
+        self.out[name] = torch.from_numpy(np.ascontiguousarray(array))
+
+    def linear(self, path, name):
+        self._put(f"{name}.weight", _get(self.params, path + ("kernel",)).T)
+        self._put(f"{name}.bias", _get(self.params, path + ("bias",)))
+
+    def conv1d(self, path, name):
+        self._put(f"{name}.weight",
+                  _get(self.params, path + ("kernel",)).transpose(2, 1, 0))
+        self._put(f"{name}.bias", _get(self.params, path + ("bias",)))
+
+    def embed(self, path, name):
+        self._put(f"{name}.weight", _get(self.params, path + ("embedding",)))
+
+    def layer_norm(self, path, name):
+        self._put(f"{name}.weight", _get(self.params, path + ("scale",)))
+        self._put(f"{name}.bias", _get(self.params, path + ("bias",)))
+
+    def batch_norm(self, path, name):
+        self.layer_norm(path, name)
+        self._put(f"{name}.running_mean",
+                  _get(self.batch_stats, path + ("mean",)))
+        self._put(f"{name}.running_var",
+                  _get(self.batch_stats, path + ("var",)))
+        self.out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    def encoder_stack(self, prefix: str, n_layers: int, embedding: bool):
+        p = (prefix,)
+        if embedding:
+            self.embed(p + ("embed",), f"{prefix}.embed")
+        else:
+            self.linear(p + ("embed",), f"{prefix}.embed")
+        self._put(f"{prefix}.pe.alpha", _get(self.params, p + ("pe", "alpha")))
+        for i in range(n_layers):
+            lp, ln = p + (f"layers_{i}",), f"{prefix}.layers.{i}"
+            self.layer_norm(lp + ("norm_1",), f"{ln}.norm_1")
+            self.layer_norm(lp + ("norm_2",), f"{ln}.norm_2")
+            for part in ("q_linear", "k_linear", "v_linear", "out"):
+                self.linear(lp + ("attn", part), f"{ln}.attn.{part}")
+            self.conv1d(lp + ("ff", "f_1"), f"{ln}.ff.f_1")
+            self.conv1d(lp + ("ff", "f_2"), f"{ln}.ff.f_2")
+            self.layer_norm(lp + ("ff", "layer_norm"), f"{ln}.ff.layer_norm")
+        self.layer_norm(p + ("norm",), f"{prefix}.norm")
+
+    def variance_predictor(self, path, name):
+        self.conv1d(path + ("conv1",), f"{name}.conv1")
+        self.conv1d(path + ("conv2",), f"{name}.conv2")
+        self.layer_norm(path + ("layer_norm1",), f"{name}.layer_norm1")
+        self.layer_norm(path + ("layer_norm2",), f"{name}.layer_norm2")
+        self.linear(path + ("linear_layer",), f"{name}.linear_layer")
+
+
+def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
+                         hp) -> Dict[str, torch.Tensor]:
+    """Flax FastSpeech 2 (transformer stacks) trees -> port ``state_dict``."""
+    w = _Writer(params, batch_stats)
+    w.encoder_stack("encoder", hp.n_layer_encoder, embedding=True)
+    w.encoder_stack("decoder", hp.n_layer_decoder, embedding=False)
+    va = ("variance_adaptor",)
+    w.variance_predictor(va + ("duration_predictor",),
+                         "variance_adaptor.duration_predictor")
+    for kind, on in (("pitch", hp.pitch_pred), ("energy", hp.energy_pred)):
+        if on:
+            w.variance_predictor(va + (f"{kind}_predictor",),
+                                 f"variance_adaptor.{kind}_predictor")
+            w.embed(va + (f"{kind}_embedding",),
+                    f"variance_adaptor.{kind}_embedding")
+    if hp.postnet_pred:
+        pn = ("postnet",)
+        w.linear(pn + ("out",), "postnet.out")
+        w.conv1d(pn + ("conv1",), "postnet.conv1")
+        w.conv1d(pn + ("conv2",), "postnet.conv2")
+        w.batch_norm(pn + ("pre_batchnorm",), "postnet.pre_batchnorm")
+        for i in range(3):
+            w.conv1d(pn + (f"conv_list_{i}",), f"postnet.conv_list.{i}")
+            w.batch_norm(pn + (f"batch_norm_list_{i}",),
+                         f"postnet.batch_norm_list.{i}")
+    else:
+        w.linear(("out",), "out")
+    return w.out

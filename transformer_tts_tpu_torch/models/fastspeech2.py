@@ -1,0 +1,205 @@
+"""FastSpeech 2, non-autoregressive text -> mel (the port of
+transformer_tts_tpu/models/fastspeech2.py:39-256 with transformer stacks,
+and of ``build_fastspeech2``, transformer_tts_tpu/train/trainer.py:55-119).
+
+Encoder over text -> VarianceAdaptor -> "decoder" (a second Encoder stack
+with a Linear input, over mel frames) -> PostConvNet (pre, post) or a plain
+Linear head. The caller gives ``max_frames``, the mel length the variance
+adaptor expands to; frames past the realized length are masked.
+
+``amp`` runs the forward under bf16 autocast (the JAX package's
+``dtype=bfloat16`` with fp32 parameters). Conformer stacks, speakers,
+SQ-VAE, hop-size embeddings, the mel-to-mel post model and the CTC tap
+raise ``NotImplementedError``: they come with later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from transformer_tts_tpu_torch.config import HParams
+from transformer_tts_tpu_torch.models.encoder import Encoder
+from transformer_tts_tpu_torch.models.postnets import PostConvNet
+from transformer_tts_tpu_torch.models.variance_adaptor import VarianceAdaptor
+
+
+class FastSpeech2Output(NamedTuple):
+    mel_pre: torch.Tensor                    # (B, T, mel)
+    mel_post: Optional[torch.Tensor]         # (B, T, mel) or None
+    log_duration: torch.Tensor               # (B, L)
+    pitch: Optional[torch.Tensor]            # (B, T)
+    energy: Optional[torch.Tensor]           # (B, T)
+    mel_len: torch.Tensor                    # (B,)
+    mel_pos: torch.Tensor                    # (B, T)
+    mel_mask: torch.Tensor                   # (B, 1, T)
+    variance_adaptor_output: torch.Tensor    # (B, T, D)
+    text_dur_predicted: torch.Tensor         # (B, T, D)
+    attn_enc: Optional[torch.Tensor]
+    attn_dec: Optional[torch.Tensor]
+
+
+class FastSpeech2(nn.Module):
+    def __init__(self, vocab_size: int = 152, mel_dim: int = 80,
+                 d_model_encoder: int = 384, n_layer_encoder: int = 6,
+                 n_head_encoder: int = 4, ff_conv_kernel_size_encoder: int = 5,
+                 concat_after_encoder: bool = False,
+                 d_model_decoder: int = 384, n_layer_decoder: int = 6,
+                 n_head_decoder: int = 4, ff_conv_kernel_size_decoder: int = 1,
+                 concat_after_decoder: bool = False, reduction_rate: int = 1,
+                 postnet_pred: bool = True, dropout: float = 0.1,
+                 dropout_postnet: float = 0.5,
+                 dropout_variance_adaptor: float = 0.5, n_bins: int = 256,
+                 f0_min: float = 71.0, f0_max: float = 795.8,
+                 energy_min: float = 0.0, energy_max: float = 315.0,
+                 log_offset: float = 1.0, pitch_pred: bool = True,
+                 energy_pred: bool = True, f0_stats: Optional[tuple] = None,
+                 energy_stats: Optional[tuple] = None,
+                 use_flash: bool = False, amp: bool = False):
+        super().__init__()
+        self.log_offset = log_offset
+        self.amp = amp
+        self.encoder = Encoder(
+            vocab_size, d_model_encoder, n_layer_encoder, n_head_encoder,
+            ff_conv_kernel_size_encoder, concat_after_encoder, dropout,
+            embedding=True, use_flash=use_flash)
+        self.variance_adaptor = VarianceAdaptor(
+            d_model_encoder, n_bins, f0_min, f0_max, energy_min, energy_max,
+            log_offset, pitch_pred, energy_pred, dropout_variance_adaptor,
+            f0_stats, energy_stats)
+        self.decoder = Encoder(
+            d_model_encoder, d_model_decoder, n_layer_decoder,
+            n_head_decoder, ff_conv_kernel_size_decoder, concat_after_decoder,
+            dropout, embedding=False, use_flash=use_flash)
+        if postnet_pred:
+            self.postnet = PostConvNet(d_model_decoder, mel_dim,
+                                       reduction_rate, dropout_postnet)
+        else:
+            self.out = nn.Linear(d_model_decoder, mel_dim * reduction_rate)
+        self.postnet_pred = postnet_pred
+
+    def forward(self, text, src_mask, max_frames: int, d_target=None,
+                p_target=None, e_target=None, mel_mask=None, *,
+                collect_attn: bool = False, pitch_scale: float = 1.0,
+                duration_scale: float = 1.0) -> FastSpeech2Output:
+        """``text`` (B, L) ids, ``src_mask`` (B, 1, L) bool; the targets
+        teacher-force durations (B, L), pitch and energy (B, T)."""
+        with torch.autocast(text.device.type, dtype=torch.bfloat16,
+                            enabled=self.amp):
+            e_outputs, attn_enc = self.encoder(text, src_mask,
+                                               collect_attn=collect_attn)
+            va = self.variance_adaptor(
+                e_outputs, src_mask, max_frames, d_target, p_target,
+                e_target, mel_mask, pitch_scale=pitch_scale,
+                duration_scale=duration_scale)
+            d_output, attn_dec = self.decoder(va.x, va.mel_mask,
+                                              collect_attn=collect_attn)
+            if self.postnet_pred:
+                mel_pre, mel_post = self.postnet(d_output)
+            else:
+                mel_pre, mel_post = self.out(d_output), None
+        return FastSpeech2Output(
+            mel_pre=mel_pre, mel_post=mel_post, log_duration=va.log_duration,
+            pitch=va.pitch, energy=va.energy, mel_len=va.mel_len,
+            mel_pos=va.mel_pos, mel_mask=va.mel_mask,
+            variance_adaptor_output=va.x,
+            text_dur_predicted=va.text_dur_predicted,
+            attn_enc=attn_enc, attn_dec=attn_dec)
+
+
+def later_slice(feature: str, slice_name: str):
+    """Raise for a feature that a later slice of the port brings."""
+    raise NotImplementedError(
+        f"{feature} is not ported yet: it comes with the {slice_name} "
+        "slice of the PyTorch port (ROADMAP.md Queue 1)")
+
+
+def _check_supported(hp: HParams) -> None:
+    for key in ("encoder_type", "decoder_type"):
+        if getattr(hp, key).lower() != "transformer":
+            later_slice(f"{key}={getattr(hp, key)!r}",
+                        "conformer" if getattr(hp, key).lower()
+                        == "conformer" else "other model families")
+    if hp.is_multi_speaker or hp.spk_emb_architecture or hp.accent_emb:
+        later_slice("speaker and accent conditioning (spk)",
+                    "other model families")
+    if hp.use_sq_vae:
+        later_slice("the SQ-VAE bottleneck (sq)", "other model families")
+    if hp.use_hop:
+        later_slice("hop-size embeddings (hop)", "other model families")
+    if hp.architecture == "text-mel-mel" or hp.version is not None:
+        later_slice("the mel-to-mel post model (post_model)",
+                    "mel-to-mel post-processing")
+    if hp.CTC_training:
+        later_slice("the CTC tap (ctc)", "training")
+    if hp.use_pos or hp.use_rnn_length:
+        later_slice("use_pos / use_rnn_length in the variance adaptor",
+                    "other model families")
+
+
+def _variance_stats(mean, std):
+    if mean is None or std is None:
+        return None
+    return (float(mean), float(std))
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator``: Linear/Conv weights uniform in
+    +-1/sqrt(fan_in) (torch's default range), embeddings N(0, 1), biases 0,
+    norm scales and ``alpha`` 1. BatchNorm running statistics stay (0, 1).
+    """
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Linear, nn.Conv1d)):
+                w = module.weight
+                bound = 1.0 / math.sqrt(w[0].numel())
+                w.copy_(torch.rand(w.shape, generator=generator) * 2 * bound
+                        - bound)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.Embedding):
+                module.weight.copy_(torch.randn(module.weight.shape,
+                                                generator=generator))
+            elif isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+        for name, p in model.named_parameters():
+            if name.endswith("pe.alpha"):
+                p.fill_(1.0)
+
+
+def build_fastspeech2(hp: HParams, *, device="cuda",
+                      seed: int = 0) -> FastSpeech2:
+    """FastSpeech2 from the hparams contract, with random weights from
+    ``seed``, on ``device``."""
+    _check_supported(hp)
+    model = FastSpeech2(
+        vocab_size=hp.vocab_size, mel_dim=hp.mel_dim,
+        d_model_encoder=hp.d_model_encoder,
+        n_layer_encoder=hp.n_layer_encoder,
+        n_head_encoder=hp.n_head_encoder,
+        ff_conv_kernel_size_encoder=hp.ff_conv_kernel_size_encoder,
+        concat_after_encoder=hp.concat_after_encoder,
+        d_model_decoder=hp.d_model_decoder,
+        n_layer_decoder=hp.n_layer_decoder,
+        n_head_decoder=hp.n_head_decoder,
+        ff_conv_kernel_size_decoder=hp.ff_conv_kernel_size_decoder,
+        concat_after_decoder=hp.concat_after_decoder,
+        reduction_rate=1 if hp.model.lower() == "fastspeech2"
+        else hp.reduction_rate,
+        postnet_pred=hp.postnet_pred, dropout=hp.dropout,
+        dropout_postnet=hp.dropout_postnet,
+        dropout_variance_adaptor=hp.dropout_variance_adaptor,
+        n_bins=hp.nbins, f0_min=hp.f0_min, f0_max=hp.f0_max,
+        energy_min=hp.energy_min, energy_max=hp.energy_max,
+        log_offset=hp.log_offset, pitch_pred=hp.pitch_pred,
+        energy_pred=hp.energy_pred,
+        f0_stats=_variance_stats(hp.f0_mean, hp.f0_std),
+        energy_stats=_variance_stats(hp.energy_mean, hp.energy_std),
+        use_flash=hp.use_flash_attention,
+        amp=hp.amp)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
