@@ -3,27 +3,35 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card (an H100 for the sm_90a kernel) and ``nvcc``; exits
+Needs one CUDA card (an H100 for the sm_90a kernels) and ``nvcc``; exits
 non-zero, printing no result, without them. Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every kernel of the path from the sources in the checkout;
-3. K1 (csrc/flash_attention_fwd.cu) against its plain PyTorch version on
-   the card: fp32 at 1e-4 on O and lse (TF32 off), bf16 against the plain
-   version in fp32 on the same bf16 inputs at 2e-2 on O and 1e-3 on lse,
-   rows with no valid key exactly 0; kernel, plain and SDPA times;
-4. the flagship FastSpeech 2 (d 384, 6+6 layers, 4 heads of 96, random
-   weights from seed 0):
-   (a) teacher-forced forward, card fp32 (kernel path) against the CPU
-       fp32 at 1e-3 max abs on mel_post, and card bf16 amp against the CPU
-       fp32 at 5e-2 * max(1, max|ref|) (bf16 keeps ~3 significant digits
-       through 12 layers and the postnet);
+2. build: every kernel of the two paths (K1, K4), in parallel, from the
+   sources in the checkout;
+3. each kernel against its plain PyTorch version on the card: fp32 at 1e-4
+   on O and lse (TF32 off), bf16 against the plain version in fp32 on the
+   same bf16 inputs at 2e-2 on O and 1e-3 on lse, rows with no valid key
+   exactly 0; kernel, plain and library times at the synthesis shapes.
+   K1 (csrc/flash_attention_fwd.cu): flash attention; K4
+   (csrc/flash_relpos_fwd.cu): relative-position flash attention;
+4. for each flagship, the transformer FastSpeech 2 and the conformer one
+   of egs/fastspeech2_conformer_ljspeech.py (d 384, 6+6 layers, 4 heads
+   of 96, random weights from seed 0):
+   (a) teacher-forced forward (B=2, L=128, T=768), card fp32 (kernel
+       path) against the CPU fp32 at 1e-3 max abs on mel_post, and card
+       bf16 amp against the CPU fp32 at 5e-2 * max(1, max|ref|) (bf16
+       keeps ~3 significant digits through 12 layers and the postnet);
    (b) synthesize_fastspeech2 with predicted durations at B=1 / 768 frames
        and B=8 / 2048 frames: the main path, whose kernel launches are
-       counted (6 per call, one per decoder layer), with ms and RTF;
+       counted with every count set to 0 just before it (6 launches of
+       the path's kernel per call, one per decoder layer, and none of the
+       other), with ms and RTF;
    (c) the synthesis CLI as a subprocess on a 3-line script;
-5. attention-path timing, kernel against masked-fill, at T in
-   {128, 256, 768, 2048}.
+5. each kernel at its main path's own captured input (the first decoder
+   layer of the B=8 call): kernel, plain and library ms, bound and error;
+6. attention-path timing, kernel against masked-fill, at T in
+   {128, 256, 768, 2048}, for both attention modules.
 
 It then prints the kernels line (JSON), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +59,14 @@ PEAK_BYTES = 3.35e12          # HBM3
 HOP_SECONDS = 256 / 22050     # one mel frame of audio
 DEVICE = "cuda"
 FLAGSHIP = {}                 # HParams overrides; empty = the defaults
+# the two flagships: HParams overrides of the stacks, and the kernel that
+# carries each one's decoder attention
+PATHS = {
+    "transformer": ({}, "K1"),
+    "conformer": ({"encoder_type": "conformer",
+                   "decoder_type": "conformer"}, "K4"),
+}
+TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
 
 
 def fail(msg: str):
@@ -86,108 +102,162 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def attention_bound_ms(q, k, v, k_len) -> tuple:
-    """Least time for the kernel's work on these inputs: the larger of
-    its operations over the peak rate and its bytes over HBM's rate."""
-    b, h, t_q, d = q.shape
-    keys = k_len.clamp(max=k.shape[2]).double().sum().item()
-    flops = 4.0 * h * t_q * keys * d
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) \
-        * q.element_size() + b * h * t_q * 4 + k_len.numel() * 4
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+def kernels():
+    """Id -> (wrapper, plain version, the wrapper's name in
+    ops/attention.py, source, TPU kernel it replaces)."""
+    from transformer_tts_tpu_torch.ops import flash_attention as k1
+    from transformer_tts_tpu_torch.ops import flash_relpos as k4
+    return {
+        "K1": (k1.flash_attention, k1.flash_attention_fwd_reference,
+               k1.KERNEL, "transformer_tts_tpu_torch/csrc/"
+               "flash_attention_fwd.cu",
+               "transformer_tts_tpu/ops/flash_attention.py:90"),
+        "K4": (k4.flash_relpos_attention,
+               k4.flash_relpos_attention_fwd_reference, k4.KERNEL,
+               "transformer_tts_tpu_torch/csrc/flash_relpos_fwd.cu",
+               "transformer_tts_tpu/ops/flash_relpos.py:212"),
+    }
+
+
+def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+    """Least time for the work: the larger of its operations over the
+    peak rate and its bytes over HBM's rate."""
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
 
-# ---- phase 3: K1 against its plain version ----------------------------------
+def kernel_bound_ms(kid, tensors, k_len) -> tuple:
+    """K1: 4*H*T_q*sum_b(k_len[b])*d operations, q, k, v, o moved once;
+    K4: 6*H*T*sum_b(k_len[b])*d operations (q_u.K^T, q_v.P^T, P.V), q_u,
+    q_v, k, v, o and p moved once; both also lse and k_len."""
+    q, k = tensors[0], tensors[1 if kid == "K1" else 2]
+    b, h, t_q, d = q.shape
+    keys = k_len.clamp(max=k.shape[2]).double().sum().item()
+    per_key = 6.0 if kid == "K4" else 4.0
+    moved = sum(x.numel() for x in tensors) + q.numel()     # inputs, o
+    nbytes = moved * q.element_size() + b * h * t_q * 4 + k_len.numel() * 4
+    return bound_ms(per_key * h * t_q * keys * d, nbytes, q.dtype)
 
-def k1_errors(q, k, v, k_len):
+
+# ---- phase 3: the kernels against their plain versions ----------------------
+
+def kernel_errors(kid, tensors, k_len):
     """(err_o, err_lse) of the kernel against the fp32 plain version on the
     same inputs; fails unless rows with no valid key are exactly 0."""
-    from transformer_tts_tpu_torch.ops.flash_attention import (
-        NEG_INF, flash_attention, flash_attention_fwd_reference)
-    sm_scale = q.shape[-1] ** -0.5
-    o, lse = flash_attention(q, k, v, k_len, sm_scale=sm_scale)
+    from transformer_tts_tpu_torch.ops.flash_attention import NEG_INF
+    kernel, plain = kernels()[kid][:2]
+    sm_scale = tensors[0].shape[-1] ** -0.5
+    o, lse = kernel(*tensors, k_len, sm_scale=sm_scale)
     torch.cuda.synchronize()
-    ro, rlse = flash_attention_fwd_reference(q.float(), k.float(), v.float(),
-                                             k_len, sm_scale)
+    ro, rlse = plain(*(x.float() for x in tensors), k_len, sm_scale)
     empty = (k_len == 0)
     check(bool((o[empty] == 0).all()) and
           bool((lse[empty] == np.float32(NEG_INF)).all()),
-          "K1: rows with no valid key are not exactly 0 / -1e30")
+          f"{kid}: rows with no valid key are not exactly 0 / -1e30")
     valid = ~empty
     err_o = (o.float() - ro)[valid].abs().max().item()
     err_lse = (lse - rlse)[valid].abs().max().item()
     return err_o, err_lse
 
 
+def kernel_inputs(kid, gen, b, h, t_q, t_k, d):
+    """Random inputs of the kernel's shapes, on the card, in fp32."""
+    if kid == "K1":
+        shapes = [(b, h, t_q, d), (b, h, t_k, d), (b, h, t_k, d)]
+    else:                               # q_u, q_v, k, v, p
+        shapes = [(b, h, t_q, d)] * 4 + [(h, t_q, d)]
+    return [torch.randn(s, generator=gen).to(DEVICE) for s in shapes]
+
+
 def phase_kernel_vs_plain(gen):
-    cases = [  # (B, H, T_q, T_k, d, k_len)
-        (1, 4, 768, 768, 96, [768]),
-        (8, 4, 2048, 2048, 96, [2048, 0, 1000, 1, 2047, 64, 65, 1500]),
-        (2, 4, 1000, 1000, 96, [1000, 333]),                  # ragged T
-        (2, 4, 300, 700, 96, [700, 0]),                       # T_q != T_k
-    ]
-    tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
-    for b, h, t_q, t_k, d, k_len in cases:
-        q = torch.randn(b, h, t_q, d, generator=gen).to(DEVICE)
-        k = torch.randn(b, h, t_k, d, generator=gen).to(DEVICE)
-        v = torch.randn(b, h, t_k, d, generator=gen).to(DEVICE)
-        kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
-        for dtype, (tol_o, tol_lse) in tols.items():
-            err_o, err_lse = k1_errors(q.to(dtype), k.to(dtype),
-                                       v.to(dtype), kl)
-            print(f"K1 vs plain ({b},{h},{t_q},{t_k},{d}) "
-                  f"{str(dtype)[6:]} k_len={k_len}: max|dO|={err_o:.3g} "
-                  f"(tol {tol_o}) max|dlse|={err_lse:.3g} (tol {tol_lse})")
-            check(err_o <= tol_o and err_lse <= tol_lse,
-                  f"K1 disagrees with its plain version at {(b, h, t_q, d)} "
-                  f"{dtype}")
-    for b, t in ((1, 768), (8, 2048)):      # the synthesis shapes, all keys
-        q, k, v = (torch.randn(b, 4, t, 96, generator=gen).to(DEVICE)
-                   .to(torch.bfloat16) for _ in range(3))
-        res = kernel_timings(q, k, v, torch.full(
-            (b,), t, dtype=torch.int32, device=DEVICE))
-        print(f"K1 ({b},4,{t},96) bf16 all keys: kernel {res['ms']:.4f} ms, "
-              f"plain {res['plain_ms']:.4f} ms, SDPA "
-              f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']})")
-
-
-def kernel_timings(q, k, v, k_len) -> dict:
-    """Kernel, plain version and SDPA times on the same inputs, the bound
-    and the kernel's error against the fp32 plain version."""
-    import torch.nn.functional as F
-    from transformer_tts_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_fwd_reference)
-    sm_scale = q.shape[-1] ** -0.5
-    mask = (torch.arange(k.shape[2], device=q.device)[None, :]
-            < k_len[:, None])[:, None, None, :]
-    launches = flash_attention.launches
-    res = {
-        "ms": time_ms(lambda: flash_attention(q, k, v, k_len,
-                                              sm_scale=sm_scale)),
-        "plain_ms": time_ms(lambda: flash_attention_fwd_reference(
-            q, k, v, k_len, sm_scale)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=sm_scale)),
+    cases = {  # (B, H, T_q, T_k, d, k_len)
+        "K1": [(1, 4, 768, 768, 96, [768]),
+               (8, 4, 2048, 2048, 96, [2048, 0, 1000, 1, 2047, 64, 65,
+                                       1500]),
+               (2, 4, 1000, 1000, 96, [1000, 333]),         # ragged T
+               (2, 4, 300, 700, 96, [700, 0])],              # T_q != T_k
+        "K4": [(1, 4, 768, 768, 96, [768]),
+               (8, 4, 2048, 2048, 96, [2048, 0, 1, 64, 65, 2047, 1000,
+                                       1500]),
+               (2, 4, 1000, 1000, 96, [1000, 333]),         # ragged T
+               (2, 4, 257, 257, 96, [257, 3])],             # just over 256
     }
-    res["bound_ms"], res["bound_by"] = attention_bound_ms(q, k, v, k_len)
-    res["max_abs_err"] = k1_errors(q, k, v, k_len)[0]
+    for kid, kid_cases in cases.items():
+        for b, h, t_q, t_k, d, k_len in kid_cases:
+            tensors = kernel_inputs(kid, gen, b, h, t_q, t_k, d)
+            kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
+            for dtype, (tol_o, tol_lse) in TOLS.items():
+                err_o, err_lse = kernel_errors(
+                    kid, [x.to(dtype) for x in tensors], kl)
+                print(f"{kid} vs plain ({b},{h},{t_q},{t_k},{d}) "
+                      f"{str(dtype)[6:]} k_len={k_len}: max|dO|={err_o:.3g} "
+                      f"(tol {tol_o}) max|dlse|={err_lse:.3g} "
+                      f"(tol {tol_lse})")
+                check(err_o <= tol_o and err_lse <= tol_lse,
+                      f"{kid} disagrees with its plain version at "
+                      f"{(b, h, t_q, d)} {dtype}")
+        for b, t in ((1, 768), (8, 2048)):     # the synthesis shapes
+            tensors = [x.to(torch.bfloat16)
+                       for x in kernel_inputs(kid, gen, b, 4, t, t, 96)]
+            res = kernel_timings(kid, tensors, torch.full(
+                (b,), t, dtype=torch.int32, device=DEVICE))
+            print(f"{kid} ({b},4,{t},96) bf16 all keys: kernel "
+                  f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+                  f"library {res['library_ms']:.4f} ms, bound "
+                  f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+
+
+def relpos_bias(q_v, p, k_len, sm_scale):
+    """rel_shift(q_v P^T) * sm_scale with -inf past k_len, in q_v's dtype:
+    the additive mask of K4's library yardstick."""
+    from transformer_tts_tpu_torch.ops.flash_relpos import rel_shift
+    bias = rel_shift(torch.matmul(q_v, p.transpose(-1, -2))) * sm_scale
+    valid = (torch.arange(q_v.shape[2], device=q_v.device)[None, :]
+             < k_len[:, None])[:, None, None, :]
+    return bias.masked_fill(~valid, float("-inf"))
+
+
+def kernel_timings(kid, tensors, k_len) -> dict:
+    """Kernel, plain version and library times on the same inputs, the
+    bound and the kernel's error against the fp32 plain version. K1's
+    library call is SDPA with the key mask; K4's is SDPA with the
+    relative bias precomputed, whose build is timed apart (bias_ms)."""
+    import torch.nn.functional as F
+    kernel, plain = kernels()[kid][:2]
+    sm_scale = tensors[0].shape[-1] ** -0.5
+    launches = kernel.launches
+    res = {
+        "ms": time_ms(lambda: kernel(*tensors, k_len, sm_scale=sm_scale)),
+        "plain_ms": time_ms(lambda: plain(*tensors, k_len, sm_scale)),
+    }
+    if kid == "K1":
+        q, k, v = tensors
+        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
+                < k_len[:, None])[:, None, None, :]
+    else:
+        q, q_v, k, v, p = tensors
+        mask = relpos_bias(q_v, p, k_len, sm_scale)
+        res["bias_ms"] = time_ms(lambda: relpos_bias(q_v, p, k_len,
+                                                     sm_scale))
+    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=sm_scale))
+    res["bound_ms"], res["bound_by"] = kernel_bound_ms(kid, tensors, k_len)
+    res["max_abs_err"] = kernel_errors(kid, tensors, k_len)[0]
     # these launches are not launches of the main path
-    flash_attention.launches = launches
+    kernel.launches = launches
     return res
 
 
-# ---- phase 4: the full-width slice ------------------------------------------
+# ---- phase 4: the full-width slices -----------------------------------------
 
-def flagship_model(device, amp: bool, seed: int = 0):
+def flagship_model(device, amp: bool, stacks: dict, seed: int = 0):
     from transformer_tts_tpu_torch.config import HParams
     from transformer_tts_tpu_torch.models.fastspeech2 import (
         build_fastspeech2)
     # d 384, 6+6 layers, 4 heads, vocab 152, mel 80
-    hp = HParams(**dict(FLAGSHIP, amp=amp))
+    hp = HParams(**dict(FLAGSHIP, **stacks, amp=amp))
     model = build_fastspeech2(hp, device=device, seed=seed).eval()
     with torch.no_grad():
         # random weights then give ~6 frames per phone
@@ -204,9 +274,9 @@ def text_batch(gen, batch: int, length: int, min_len: int, vocab: int):
     return torch.where(pos > 0, text, torch.zeros_like(text)), pos
 
 
-def phase_teacher_forced(gen):
+def phase_teacher_forced(gen, name, stacks):
     from transformer_tts_tpu_torch.ops.masks import pad_mask
-    hp, cpu_model = flagship_model("cpu", amp=False)
+    hp, cpu_model = flagship_model("cpu", amp=False, stacks=stacks)
     text, pos = text_batch(gen, 2, 128, 100, hp.vocab_size)
     t = 768
     d = torch.randint(2, 8, text.shape, generator=gen) * (text != 0)
@@ -216,54 +286,54 @@ def phase_teacher_forced(gen):
 
     with torch.no_grad():
         ref = cpu_model(*inputs)
-    _, model = flagship_model(DEVICE, amp=False)
+    _, model = flagship_model(DEVICE, amp=False, stacks=stacks)
     cuda_inputs = [x.to(DEVICE) if torch.is_tensor(x) else x for x in inputs]
-    results = {}
     for amp in (False, True):
         model.amp = amp
         with torch.no_grad():
             out = model(*cuda_inputs)
         check(torch.equal(out.mel_len.cpu(), ref.mel_len),
-              "teacher-forced mel_len differs between card and CPU")
+              f"{name} teacher-forced mel_len differs between card and CPU")
         errs = []
         for b, n in enumerate(ref.mel_len.tolist()):
             diff = out.mel_post[b, :n].float().cpu() - ref.mel_post[b, :n]
             errs.append(diff.abs().max().item())
         peak = ref.mel_post.abs().max().item()
         tol = 5e-2 * max(1.0, peak) if amp else 1e-3
-        name = "bf16 amp" if amp else "fp32"
-        print(f"teacher-forced forward B=2 L=128 T={t}: card {name} vs CPU "
-              f"fp32: max|d mel_post| = {max(errs):.3g} (tol {tol:.3g}, "
-              f"max|ref| = {peak:.3g}, frames {ref.mel_len.tolist()})")
-        check(max(errs) <= tol, f"card {name} forward disagrees with CPU")
-        results[name] = max(errs)
-    return results
+        label = "bf16 amp" if amp else "fp32"
+        print(f"{name} teacher-forced forward B=2 L=128 T={t}: card {label} "
+              f"vs CPU fp32: max|d mel_post| = {max(errs):.3g} (tol "
+              f"{tol:.3g}, max|ref| = {peak:.3g}, frames "
+              f"{ref.mel_len.tolist()})")
+        check(max(errs) <= tol, f"{name}: card {label} forward disagrees "
+                                f"with CPU")
 
 
 @contextmanager
-def capture_kernel_inputs(store: list):
-    """Keep a copy of the first flash_attention call's inputs per call of
+def capture_kernel_inputs(kid, store: list):
+    """Keep a copy of the first call's inputs of kernel ``kid`` per call of
     the main path; launches still count in the real function."""
     from transformer_tts_tpu_torch.ops import attention
-    real = attention.flash_attention
+    name = kernels()[kid][0].__name__
+    real = getattr(attention, name)
 
-    def recording(q, k, v, k_len, **kw):
+    def recording(*args, **kw):
         if len(store) < 1:
-            store.append((q.clone(), k.clone(), v.clone(), k_len.clone()))
-        return real(q, k, v, k_len, **kw)
+            store.append(tuple(x.clone() for x in args))
+        return real(*args, **kw)
 
-    attention.flash_attention = recording
+    setattr(attention, name, recording)
     try:
         yield
     finally:
-        attention.flash_attention = real
+        setattr(attention, name, real)
 
 
-def phase_synthesis(gen):
+def phase_synthesis(gen, name, stacks, kid):
     from transformer_tts_tpu_torch.infer.synthesize import (
         synthesize_fastspeech2)
-    from transformer_tts_tpu_torch.ops.flash_attention import flash_attention
-    hp, model = flagship_model(DEVICE, amp=True)
+    wrappers = {k: v[0] for k, v in kernels().items()}
+    hp, model = flagship_model(DEVICE, amp=True, stacks=stacks)
     cases = [(1, 768), (8, 2048)]
     batches = []
     for batch, max_frames in cases:
@@ -271,25 +341,31 @@ def phase_synthesis(gen):
         batches.append((text.to(DEVICE), pos.to(DEVICE), max_frames))
 
     captured = []
-    flash_attention.launches = 0            # the main path starts here
-    per_call = []
-    with capture_kernel_inputs(captured):
+    for w in wrappers.values():             # the main path starts here
+        w.launches = 0
+    per_call = {k: [] for k in wrappers}
+    with capture_kernel_inputs(kid, captured):
         for text, pos, max_frames in batches:
             captured.clear()
-            before = flash_attention.launches
+            before = {k: w.launches for k, w in wrappers.items()}
             mel, mel_len, dur = synthesize_fastspeech2(model, text, pos,
                                                        max_frames)
             torch.cuda.synchronize()
-            per_call.append(flash_attention.launches - before)
+            for k, w in wrappers.items():
+                per_call[k].append(w.launches - before[k])
             check(mel.shape == (text.shape[0], max_frames, hp.mel_dim),
-                  f"mel shape {tuple(mel.shape)}")
-            check(bool(torch.isfinite(mel.float()).all()), "non-finite mel")
-            check(int(mel_len.min()) > 0, "empty mel_len")
-    launches = flash_attention.launches     # the main path ends here
-    print(f"main path: K1 launches per synthesis call {per_call} "
-          f"(expect {hp.n_layer_decoder} each), total {launches}")
-    check(all(n == hp.n_layer_decoder for n in per_call),
-          "K1 did not launch once per decoder layer")
+                  f"{name}: mel shape {tuple(mel.shape)}")
+            check(bool(torch.isfinite(mel.float()).all()),
+                  f"{name}: non-finite mel")
+            check(int(mel_len.min()) > 0, f"{name}: empty mel_len")
+    launches = {k: w.launches for k, w in wrappers.items()}  # it ends here
+    print(f"{name} main path: launches per synthesis call "
+          f"{json.dumps(per_call)} (expect {hp.n_layer_decoder} of {kid} "
+          f"each, none of the others), total {json.dumps(launches)}")
+    check(all(n == hp.n_layer_decoder for n in per_call[kid]),
+          f"{name}: {kid} did not launch once per decoder layer")
+    check(all(n == 0 for k, n in launches.items() if k != kid),
+          f"{name}: a kernel of another path launched")
     main_inputs = captured[0]               # the B=8 / 2048-frame call
 
     for text, pos, max_frames in batches:
@@ -307,28 +383,29 @@ def phase_synthesis(gen):
         ms = statistics.median(walls)
         audio_s = mel_len.sum().item() * HOP_SECONDS
         rtf = ms / 1e3 / audio_s
-        print(f"synthesize_fastspeech2 B={text.shape[0]} L=128 "
+        print(f"{name} synthesize_fastspeech2 B={text.shape[0]} L=128 "
               f"max_frames={max_frames} bf16 amp: {ms:.3f} ms/call "
               f"(median of 10), {mel_len.sum().item()} frames = "
               f"{audio_s:.3f} s audio, RTF {rtf:.6f}")
-    flash_attention.launches = launches
-    return hp, model, launches, main_inputs
+    return hp, model, launches[kid], main_inputs
 
 
-def phase_cli(hp, model):
+def phase_cli(name, stacks, hp, model):
     from transformer_tts_tpu_torch.train.checkpoint import save_checkpoint
-    model_dir = os.path.join(WORK, "model")
-    out_dir = os.path.join(WORK, "generated")
+    work = os.path.join(WORK, name)
+    model_dir = os.path.join(work, "model")
+    out_dir = os.path.join(work, "generated")
     os.makedirs(model_dir, exist_ok=True)
     save_checkpoint(model, model_dir)
-    script = os.path.join(WORK, "test.txt")
+    script = os.path.join(work, "test.txt")
     rs = np.random.RandomState(0)
     lines = [" ".join(str(i) for i in rs.randint(1, hp.vocab_size, n))
              for n in (40, 90, 128)]
     with open(script, "w") as fh:
         fh.write("".join(f"utt{i}.npy|{s}\n" for i, s in enumerate(lines)))
     with open(os.path.join(model_dir, "hparams.py"), "w") as fh:
-        for key, value in dict(FLAGSHIP, test_script=script).items():
+        for key, value in dict(FLAGSHIP, **stacks,
+                               test_script=script).items():
             fh.write(f"{key} = {value!r}\n")
     proc = subprocess.run(
         [sys.executable, "-m", "transformer_tts_tpu_torch.cli.synthesize",
@@ -336,7 +413,7 @@ def phase_cli(hp, model):
          "2048", "--device", DEVICE], cwd=ROOT, capture_output=True,
         text=True, timeout=600)
     print(proc.stdout.strip())
-    check(proc.returncode == 0, f"CLI exit {proc.returncode}: "
+    check(proc.returncode == 0, f"{name} CLI exit {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
     for i, n_text in enumerate((40, 90, 128)):
         mel = np.load(os.path.join(out_dir, f"{i}.npy"))
@@ -344,35 +421,44 @@ def phase_cli(hp, model):
         check(mel.dtype == np.float32 and mel.ndim == 2
               and mel.shape[1] == hp.mel_dim
               and 0 < mel.shape[0] <= 2048
-              and bool(np.isfinite(mel).all()), f"CLI mel {i} {mel.shape}")
+              and bool(np.isfinite(mel).all()),
+              f"{name} CLI mel {i} {mel.shape}")
         check(mel.shape[0] == min(2048, int(align.sum()))
-              and align.shape[0] >= n_text, f"CLI alignment {i}")
-    print("CLI: 3 utterances written and checked")
+              and align.shape[0] >= n_text, f"{name} CLI alignment {i}")
+    print(f"{name} CLI: 3 utterances written and checked")
 
 
-# ---- phase 5: attention paths -------------------------------------------------
+# ---- phase 6: attention paths -----------------------------------------------
 
 def phase_attention_paths(gen):
-    from transformer_tts_tpu_torch.ops.attention import scaled_dot_attention
+    from transformer_tts_tpu_torch.ops import attention
     from transformer_tts_tpu_torch.ops.flash_attention import flash_attention
-    launches = flash_attention.launches
+    from transformer_tts_tpu_torch.ops.flash_relpos import (
+        flash_relpos_attention)
+    launches = flash_attention.launches, flash_relpos_attention.launches
     for t in (128, 256, 768, 2048):
-        q, k, v = (torch.randn(8, 4, t, 96, generator=gen).to(DEVICE)
-                   .to(torch.bfloat16) for _ in range(3))
+        q_u, q_v, k, v, p = (x.to(torch.bfloat16) for x in
+                             kernel_inputs("K4", gen, 8, 4, t, t, 96))
         k_len = torch.full((8,), t, dtype=torch.int32, device=DEVICE)
         mask = torch.ones(8, 1, t, dtype=torch.bool, device=DEVICE)
-        kernel = time_ms(lambda: flash_attention(q, k, v, k_len))
-        masked = time_ms(lambda: scaled_dot_attention(q, k, v, mask))
-        print(f"attention B=8 H=4 d=96 bf16 T={t}: kernel path "
-              f"{kernel:.4f} ms, masked-fill path {masked:.4f} ms")
-    flash_attention.launches = launches
+        times = [
+            time_ms(lambda: flash_attention(q_u, k, v, k_len)),
+            time_ms(lambda: attention.scaled_dot_attention(q_u, k, v, mask)),
+            time_ms(lambda: flash_relpos_attention(q_u, q_v, k, v, p,
+                                                   k_len)),
+            time_ms(lambda: attention.relative_dot_attention(
+                q_u, q_v, k, v, p[None], mask))]
+        print(f"attention B=8 H=4 d=96 bf16 T={t}: K1 path {times[0]:.4f} "
+              f"ms, masked-fill path {times[1]:.4f} ms; K4 path "
+              f"{times[2]:.4f} ms, relative masked-fill path "
+              f"{times[3]:.4f} ms")
+    flash_attention.launches, flash_relpos_attention.launches = launches
 
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     from transformer_tts_tpu_torch.ops import cuda_build
-    from transformer_tts_tpu_torch.ops.flash_attention import KERNEL
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -381,36 +467,51 @@ def main():
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
 
+    registry = kernels()
+    names = [entry[2] for entry in registry.values()]
     t0 = time.time()
-    cuda_build.build([KERNEL])
-    print(f"build: {time.time() - t0:.1f} s")
-    for line in cuda_build.BUILD_LOGS.get(KERNEL, "").splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    cuda_build.build(names)
+    print(f"build of {names}: {time.time() - t0:.1f} s")
+    for name in names:
+        for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
 
     gen = torch.Generator().manual_seed(0)
     phase_kernel_vs_plain(gen)
-    phase_teacher_forced(gen)
-    hp, model, launches, main_inputs = phase_synthesis(gen)
-    phase_cli(hp, model)
+    main_runs = {}
+    for name, (stacks, kid) in PATHS.items():
+        phase_teacher_forced(gen, name, stacks)
+        hp, model, launches, main_inputs = phase_synthesis(gen, name,
+                                                           stacks, kid)
+        phase_cli(name, stacks, hp, model)
+        main_runs[kid] = (launches, main_inputs)
+        del model
+        torch.cuda.empty_cache()
 
-    shape = tuple(main_inputs[0].shape)
-    res = kernel_timings(*main_inputs)
-    print(f"K1 at the main path's input {shape} bf16, k_len "
-          f"{main_inputs[3].tolist()}: kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f} ms, SDPA {res['library_ms']:.4f} ms, "
-          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    lines = []
+    for kid, (launches, main_inputs) in main_runs.items():
+        tensors, k_len = list(main_inputs[:-1]), main_inputs[-1]
+        res = kernel_timings(kid, tensors, k_len)
+        print(f"{kid} at the main path's input "
+              f"{tuple(tensors[0].shape)} {str(tensors[0].dtype)[6:]}, "
+              f"k_len {k_len.tolist()}: kernel {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} "
+              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+              f"max|dO| {res['max_abs_err']:.3g}")
+        if "bias_ms" in res:
+            print(f"{kid} library yardstick leaves out building its bias: "
+                  f"{res['bias_ms']:.4f} ms")
+        _, _, name, source, replaces = registry[kid]
+        lines.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
     phase_attention_paths(gen)
 
-    kernels = [{
-        "name": KERNEL, "route": "cuda",
-        "source": "transformer_tts_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "transformer_tts_tpu/ops/flash_attention.py:90",
-        "launches": launches, "max_abs_err": res["max_abs_err"],
-        "ms": res["ms"], "plain_ms": res["plain_ms"],
-        "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-        "library_ms": res["library_ms"]}]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,10 +124,10 @@ def test_synthesize_kernel_path_matches_jax_on_valid_frames(pair,
                                                             monkeypatch):
     # max_frames >= 256: the port's decoder attention goes to
     # flash_attention (its plain version on the CPU) while JAX on the CPU
-    # runs the masked-fill path. They differ only on padded query rows
-    # (0 against the uniform average); with decoder FFN k=1 and a causal
-    # postnet those rows never reach a valid frame. Text stays < 256 so
-    # the encoder's k=5 conv sees no such rows.
+    # runs the masked-fill path. They differ only on rows with no valid
+    # key, a batch row with k_len = 0 (0 against the uniform average);
+    # padded query rows still attend to the valid keys and agree on both
+    # paths. Every row here has frames; the check covers valid frames.
     calls = []
     real = port_attention.flash_attention
     monkeypatch.setattr(port_attention, "flash_attention",
@@ -193,7 +193,7 @@ def test_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags, match):
 
 
 @pytest.mark.parametrize("option", [
-    {"encoder_type": "conformer"}, {"decoder_type": "tacotron2"},
+    {"use_pos": True}, {"decoder_type": "tacotron2"},
     {"use_sq_vae": True}, {"use_hop": True},
     {"is_multi_speaker": True, "spk_emb_architecture": "encoder"},
     {"CTC_training": True}, {"architecture": "text-mel-mel"}])

@@ -29,6 +29,10 @@ SMALL = dict(vocab_size=40, mel_dim=16, d_model_encoder=32,
              amp=False, dropout=0.0, dropout_postnet=0.0,
              dropout_variance_adaptor=0.0)
 
+# the conformer FastSpeech 2 of egs/fastspeech2_conformer_ljspeech.py at
+# SMALL's size
+CONFORMER = dict(encoder_type="conformer", decoder_type="conformer")
+
 # predictor biases that put random-weight outputs in a useful range:
 # ~3 frames per phone, pitch and energy inside their bins
 DURATION_BIAS = math.log(1.0 + 3.0)

@@ -3,13 +3,15 @@
 ``state_dict_from_flax(params, batch_stats, hp)`` takes the flax parameter
 and batch-statistics trees (nested dicts of numpy arrays) and returns the
 port's ``state_dict``, under the reference torch repo's parameter names.
-It inverts transformer_tts_tpu/compat/torch_import.py:60-194:
+It inverts transformer_tts_tpu/compat/torch_import.py:60-194 and, for
+conformer stacks, ``convert_conformer_encoder_state_dict`` (:351-410):
 
   flax Dense kernel (in, out)        -> Linear.weight (out, in)
   flax Conv kernel (k, in, out)      -> Conv1d.weight (out, in, k)
   flax Embed embedding               -> Embedding.weight
   flax LayerNorm/BatchNorm scale/bias -> weight/bias
   flax batch_stats mean/var          -> running_mean/running_var
+  flax depthwise Conv kernel (k, 1, d) -> Conv1d(groups=d).weight (d, 1, k)
 """
 
 from __future__ import annotations
@@ -36,9 +38,10 @@ class _Writer:
     def _put(self, name: str, array: np.ndarray):
         self.out[name] = torch.from_numpy(np.ascontiguousarray(array))
 
-    def linear(self, path, name):
+    def linear(self, path, name, bias=True):
         self._put(f"{name}.weight", _get(self.params, path + ("kernel",)).T)
-        self._put(f"{name}.bias", _get(self.params, path + ("bias",)))
+        if bias:
+            self._put(f"{name}.bias", _get(self.params, path + ("bias",)))
 
     def conv1d(self, path, name):
         self._put(f"{name}.weight",
@@ -78,6 +81,41 @@ class _Writer:
             self.layer_norm(lp + ("ff", "layer_norm"), f"{ln}.ff.layer_norm")
         self.layer_norm(p + ("norm",), f"{prefix}.norm")
 
+    def conformer_stack(self, prefix: str, n_layers: int, embedding: bool):
+        p = (prefix,)
+        if embedding:
+            self.embed(p + ("embed",), f"{prefix}.embed")
+        else:
+            self.linear(p + ("embed",), f"{prefix}.embed")
+        for i in range(n_layers):
+            lp, ln = p + (f"layers_{i}",), f"{prefix}.layers.{i}"
+            for ff in ("ff_1", "ff_2"):
+                self.layer_norm(lp + (ff, "layer_norm"),
+                                f"{ln}.{ff}.layer_norm")
+                self.linear(lp + (ff, "linear1"), f"{ln}.{ff}.linear1")
+                self.linear(lp + (ff, "linear2"), f"{ln}.{ff}.linear2")
+            self.layer_norm(lp + ("norm",), f"{ln}.norm")
+            a, an = lp + ("attn",), f"{ln}.attn"
+            for part in ("q_linear", "k_linear", "v_linear", "out"):
+                self.linear(a + (part,), f"{an}.{part}")
+            self.linear(a + ("linear_pos",), f"{an}.linear_pos", bias=False)
+            for bias in ("pos_bias_u", "pos_bias_v"):
+                self._put(f"{an}.{bias}", _get(self.params, a + (bias,)))
+            c, cn = lp + ("conv_module",), f"{ln}.conv_module"
+            self.layer_norm(c + ("layer_norm",), f"{cn}.layer_norm")
+            self.conv1d(c + ("pointwise_conv1",), f"{cn}.pointwise_conv1")
+            self.conv1d(c + ("depthwise_conv",), f"{cn}.depth_conv1.conv")
+            self.conv1d(c + ("depthwise_out",), f"{cn}.depth_conv1.conv_out")
+            self.batch_norm(c + ("batch_norm",), f"{cn}.batch_norm")
+            self.conv1d(c + ("pointwise_conv2",), f"{cn}.pointwise_conv2")
+        self.layer_norm(p + ("norm",), f"{prefix}.norm")
+
+    def stack(self, stack_type: str, prefix: str, n_layers: int,
+              embedding: bool):
+        writer = (self.conformer_stack if stack_type.lower() == "conformer"
+                  else self.encoder_stack)
+        writer(prefix, n_layers, embedding)
+
     def variance_predictor(self, path, name):
         self.conv1d(path + ("conv1",), f"{name}.conv1")
         self.conv1d(path + ("conv2",), f"{name}.conv2")
@@ -88,10 +126,11 @@ class _Writer:
 
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
                          hp) -> Dict[str, torch.Tensor]:
-    """Flax FastSpeech 2 (transformer stacks) trees -> port ``state_dict``."""
+    """Flax FastSpeech 2 (transformer or conformer stacks) trees -> port
+    ``state_dict``."""
     w = _Writer(params, batch_stats)
-    w.encoder_stack("encoder", hp.n_layer_encoder, embedding=True)
-    w.encoder_stack("decoder", hp.n_layer_decoder, embedding=False)
+    w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True)
+    w.stack(hp.decoder_type, "decoder", hp.n_layer_decoder, embedding=False)
     va = ("variance_adaptor",)
     w.variance_predictor(va + ("duration_predictor",),
                          "variance_adaptor.duration_predictor")

@@ -1,14 +1,16 @@
 """FastSpeech 2, non-autoregressive text -> mel (the port of
-transformer_tts_tpu/models/fastspeech2.py:39-256 with transformer stacks,
-and of ``build_fastspeech2``, transformer_tts_tpu/train/trainer.py:55-119).
+transformer_tts_tpu/models/fastspeech2.py:39-256 with transformer or
+conformer stacks, and of ``build_fastspeech2``,
+transformer_tts_tpu/train/trainer.py:55-119).
 
-Encoder over text -> VarianceAdaptor -> "decoder" (a second Encoder stack
+Encoder over text -> VarianceAdaptor -> "decoder" (a second encoder stack
 with a Linear input, over mel frames) -> PostConvNet (pre, post) or a plain
-Linear head. The caller gives ``max_frames``, the mel length the variance
-adaptor expands to; frames past the realized length are masked.
+Linear head; ``encoder_type`` / ``decoder_type`` pick each stack. The
+caller gives ``max_frames``, the mel length the variance adaptor expands
+to; frames past the realized length are masked.
 
 ``amp`` runs the forward under bf16 autocast (the JAX package's
-``dtype=bfloat16`` with fp32 parameters). Conformer stacks, speakers,
+``dtype=bfloat16`` with fp32 parameters). Tacotron 2 decoders, speakers,
 SQ-VAE, hop-size embeddings, the mel-to-mel post model and the CTC tap
 raise ``NotImplementedError``: they come with later slices.
 """
@@ -22,7 +24,8 @@ import torch
 from torch import nn
 
 from transformer_tts_tpu_torch.config import HParams
-from transformer_tts_tpu_torch.models.encoder import Encoder
+from transformer_tts_tpu_torch.models.encoder import (
+    ConformerEncoder, Encoder)
 from transformer_tts_tpu_torch.models.postnets import PostConvNet
 from transformer_tts_tpu_torch.models.variance_adaptor import VarianceAdaptor
 
@@ -42,6 +45,14 @@ class FastSpeech2Output(NamedTuple):
     attn_dec: Optional[torch.Tensor]
 
 
+def _stack(encoder_type: str, **kw) -> nn.Module:
+    if encoder_type.lower() == "conformer":
+        kw.pop("concat_after")
+        kw.pop("ff_kernel_size")
+        return ConformerEncoder(**kw)
+    return Encoder(**kw)
+
+
 class FastSpeech2(nn.Module):
     def __init__(self, vocab_size: int = 152, mel_dim: int = 80,
                  d_model_encoder: int = 384, n_layer_encoder: int = 6,
@@ -49,7 +60,9 @@ class FastSpeech2(nn.Module):
                  concat_after_encoder: bool = False,
                  d_model_decoder: int = 384, n_layer_decoder: int = 6,
                  n_head_decoder: int = 4, ff_conv_kernel_size_decoder: int = 1,
-                 concat_after_decoder: bool = False, reduction_rate: int = 1,
+                 concat_after_decoder: bool = False,
+                 encoder_type: str = "transformer",
+                 decoder_type: str = "transformer", reduction_rate: int = 1,
                  postnet_pred: bool = True, dropout: float = 0.1,
                  dropout_postnet: float = 0.5,
                  dropout_variance_adaptor: float = 0.5, n_bins: int = 256,
@@ -62,18 +75,22 @@ class FastSpeech2(nn.Module):
         super().__init__()
         self.log_offset = log_offset
         self.amp = amp
-        self.encoder = Encoder(
-            vocab_size, d_model_encoder, n_layer_encoder, n_head_encoder,
-            ff_conv_kernel_size_encoder, concat_after_encoder, dropout,
+        self.encoder = _stack(
+            encoder_type, vocab_size=vocab_size, d_model=d_model_encoder,
+            n_layers=n_layer_encoder, heads=n_head_encoder,
+            ff_kernel_size=ff_conv_kernel_size_encoder,
+            concat_after=concat_after_encoder, dropout=dropout,
             embedding=True, use_flash=use_flash)
         self.variance_adaptor = VarianceAdaptor(
             d_model_encoder, n_bins, f0_min, f0_max, energy_min, energy_max,
             log_offset, pitch_pred, energy_pred, dropout_variance_adaptor,
             f0_stats, energy_stats)
-        self.decoder = Encoder(
-            d_model_encoder, d_model_decoder, n_layer_decoder,
-            n_head_decoder, ff_conv_kernel_size_decoder, concat_after_decoder,
-            dropout, embedding=False, use_flash=use_flash)
+        self.decoder = _stack(
+            decoder_type, vocab_size=d_model_encoder,
+            d_model=d_model_decoder, n_layers=n_layer_decoder,
+            heads=n_head_decoder, ff_kernel_size=ff_conv_kernel_size_decoder,
+            concat_after=concat_after_decoder, dropout=dropout,
+            embedding=False, use_flash=use_flash)
         if postnet_pred:
             self.postnet = PostConvNet(d_model_decoder, mel_dim,
                                        reduction_rate, dropout_postnet)
@@ -119,10 +136,9 @@ def later_slice(feature: str, slice_name: str):
 
 def _check_supported(hp: HParams) -> None:
     for key in ("encoder_type", "decoder_type"):
-        if getattr(hp, key).lower() != "transformer":
+        if getattr(hp, key).lower() not in ("transformer", "conformer"):
             later_slice(f"{key}={getattr(hp, key)!r}",
-                        "conformer" if getattr(hp, key).lower()
-                        == "conformer" else "other model families")
+                        "other model families")
     if hp.is_multi_speaker or hp.spk_emb_architecture or hp.accent_emb:
         later_slice("speaker and accent conditioning (spk)",
                     "other model families")
@@ -149,7 +165,9 @@ def _variance_stats(mean, std):
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``: Linear/Conv weights uniform in
     +-1/sqrt(fan_in) (torch's default range), embeddings N(0, 1), biases 0,
-    norm scales and ``alpha`` 1. BatchNorm running statistics stay (0, 1).
+    norm scales and ``alpha`` 1, the conformer's ``pos_bias_u/v``
+    Xavier-uniform as flax initialises them. BatchNorm running statistics
+    stay (0, 1).
     """
     with torch.no_grad():
         for module in model.modules():
@@ -169,6 +187,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         for name, p in model.named_parameters():
             if name.endswith("pe.alpha"):
                 p.fill_(1.0)
+            elif name.endswith(("pos_bias_u", "pos_bias_v")):
+                bound = math.sqrt(6.0 / sum(p.shape))
+                p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
+                        - bound)
 
 
 def build_fastspeech2(hp: HParams, *, device="cuda",
@@ -188,6 +210,7 @@ def build_fastspeech2(hp: HParams, *, device="cuda",
         n_head_decoder=hp.n_head_decoder,
         ff_conv_kernel_size_decoder=hp.ff_conv_kernel_size_decoder,
         concat_after_decoder=hp.concat_after_decoder,
+        encoder_type=hp.encoder_type, decoder_type=hp.decoder_type,
         reduction_rate=1 if hp.model.lower() == "fastspeech2"
         else hp.reduction_rate,
         postnet_pred=hp.postnet_pred, dropout=hp.dropout,

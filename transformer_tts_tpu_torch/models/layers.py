@@ -1,9 +1,12 @@
-"""Pre-norm transformer encoder block (the port of ``EncoderLayer``,
-transformer_tts_tpu/models/layers.py:53-85).
+"""Encoder blocks (the port of ``EncoderLayer`` and
+``ConformerEncoderLayer``, transformer_tts_tpu/models/layers.py:53-128).
 
-norm -> self-attention -> +residual; norm -> conv FFN -> +residual.
-Speaker conditioning (``SpeakerBias``) is multi-speaker and comes with a
-later slice.
+Transformer: norm -> self-attention -> +residual; norm -> conv FFN ->
++residual. Conformer: x + 0.5 * FF1(x); h = norm(x); h + conv(h) ->
+relative self-attention -> +residual (around the conv too); x + FF2(x),
+not halved.
+Speaker conditioning (``SpeakerBias``, the conformer's ``multi_emb``) is
+multi-speaker and comes with a later slice.
 """
 
 from __future__ import annotations
@@ -13,8 +16,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from transformer_tts_tpu_torch.ops.attention import MultiHeadAttention
-from transformer_tts_tpu_torch.ops.feedforward import ConvFeedForward, LN_EPS
+from transformer_tts_tpu_torch.ops.attention import (
+    MultiHeadAttention, RelativeMultiHeadAttention)
+from transformer_tts_tpu_torch.ops.feedforward import (
+    LN_EPS, ConformerConvModule, ConformerFeedForward, ConvFeedForward)
 
 
 class EncoderLayer(nn.Module):
@@ -37,4 +42,29 @@ class EncoderLayer(nn.Module):
                               k_len=k_len)
         x = x + self.dropout(out)
         x = x + self.dropout(self.ff(self.norm_2(x)))
+        return x, attn
+
+
+class ConformerEncoderLayer(nn.Module):
+    def __init__(self, d_model: int, heads: int, dropout: float = 0.1,
+                 use_flash: bool = False):
+        super().__init__()
+        self.ff_1 = ConformerFeedForward(d_model, 2 * d_model, dropout)
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.conv_module = ConformerConvModule(d_model, dropout=dropout)
+        self.attn = RelativeMultiHeadAttention(heads, d_model, dropout,
+                                               use_flash=use_flash)
+        self.ff_2 = ConformerFeedForward(d_model, 2 * d_model, dropout)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x, pos_emb, mask, *, collect_attn: bool = False,
+                k_len: Optional[torch.Tensor] = None):
+        x = x + 0.5 * self.ff_1(x)
+        res = x
+        h = self.norm(x)
+        h = h + self.conv_module(h)
+        out, attn = self.attn(h, h, h, pos_emb, mask,
+                              collect_attn=collect_attn, k_len=k_len)
+        x = res + self.dropout(out)
+        x = x + self.dropout(self.ff_2(x))
         return x, attn

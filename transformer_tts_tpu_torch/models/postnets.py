@@ -14,13 +14,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from transformer_tts_tpu_torch.ops.feedforward import Conv1dBTC
+from transformer_tts_tpu_torch.ops.feedforward import Conv1dBTC, batch_norm
 
 CAUSAL = (4, 0)
-
-
-def _batch_norm(channels: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(channels, eps=1e-5, momentum=0.01)
 
 
 class PostConvNet(nn.Module):
@@ -30,11 +26,11 @@ class PostConvNet(nn.Module):
         out_dim = mel_dim * reduction_rate
         self.out = nn.Linear(num_hidden, out_dim)
         self.conv1 = Conv1dBTC(out_dim, num_hidden, 5, CAUSAL)
-        self.pre_batchnorm = _batch_norm(num_hidden)
+        self.pre_batchnorm = batch_norm(num_hidden)
         self.conv_list = nn.ModuleList(
             Conv1dBTC(num_hidden, num_hidden, 5, CAUSAL) for _ in range(3))
         self.batch_norm_list = nn.ModuleList(
-            _batch_norm(num_hidden) for _ in range(3))
+            batch_norm(num_hidden) for _ in range(3))
         self.conv2 = Conv1dBTC(num_hidden, out_dim, 5, CAUSAL)
         self.dropout = nn.Dropout(dropout)
 

@@ -1,7 +1,7 @@
 """Multi-head attention (the port of transformer_tts_tpu/ops/attention.py:
-``scaled_dot_attention`` and ``MultiHeadAttention``, without KV cache,
-precomputed K/V, causal masks or relative positions, which come with the
-AR and conformer slices).
+``scaled_dot_attention``, ``MultiHeadAttention`` and the conformer's
+``RelativeMultiHeadAttention``, without KV cache, precomputed K/V or
+causal masks, which come with the AR slice).
 
 * logits = QK^T / sqrt(d_k) in fp32 (bf16 inputs under amp), masked
   logits filled with -1e4, softmax in fp32, probabilities cast to the value
@@ -9,7 +9,9 @@ AR and conformer slices).
 * separate q/k/v projections and the optional ``concat_after``;
 * attention over at least ``FLASH_MIN_KEY_LEN`` keys with a prefix key
   mask given as ``k_len`` goes to the flash-attention kernel
-  (ops/flash_attention.py), when no attention maps are asked for.
+  (ops/flash_attention.py), when no attention maps are asked for;
+* relative-position self-attention under the same rule goes to K4
+  (ops/flash_relpos.py); its masked path fills with -2^15 after scaling.
 """
 
 from __future__ import annotations
@@ -21,8 +23,11 @@ import torch
 from torch import nn
 
 from transformer_tts_tpu_torch.ops.flash_attention import flash_attention
+from transformer_tts_tpu_torch.ops.flash_relpos import (
+    flash_relpos_attention, rel_shift)
 
 NEG_FILL = -1e4
+NEG_FILL_REL = -(2.0 ** 15)
 
 # Least key length sent to the kernel. The JAX package chose 256 on a TPU;
 # the port keeps it for parity until a measurement on the card sets it
@@ -44,6 +49,27 @@ def scaled_dot_attention(
     scores = scores / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None], NEG_FILL)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout is not None:
+        probs = dropout(probs)
+    context = torch.matmul(probs.to(v.dtype), v)
+    return context, probs
+
+
+def relative_dot_attention(
+    q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    p: torch.Tensor, mask: Optional[torch.Tensor], *,
+    dropout: Optional[nn.Module] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """softmax((q_u K^T + rel_shift(q_v P^T))/sqrt(d_k))V, the masked path
+    of ``RelativeMultiHeadAttention``; p (1 or B, H, T, d_k), masked
+    logits filled with -2^15. Returns (context, probs (B, H, T_q, T_k))."""
+    with torch.autocast(q_u.device.type, enabled=False):
+        ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
+        bd = torch.matmul(q_v.float(), p.float().transpose(-1, -2))
+    scores = (ac + rel_shift(bd)) / math.sqrt(q_u.shape[-1])
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None], NEG_FILL_REL)
     probs = torch.softmax(scores, dim=-1)
     if dropout is not None:
         probs = dropout(probs)
@@ -105,4 +131,73 @@ class MultiHeadAttention(nn.Module):
         concat = context.transpose(1, 2).reshape(b, -1, self.d_model)
         if self.concat_after:
             concat = torch.cat([q_in.to(concat.dtype), concat], dim=-1)
+        return self.out(concat), (probs if collect_attn else None)
+
+
+class RelativeMultiHeadAttention(nn.Module):
+    """Transformer-XL relative MHA of the conformer, with the K4 dispatch
+    rule: logits (q_u K^T + rel_shift(q_v P^T)) / sqrt(d_k), where
+    q_u = q + pos_bias_u, q_v = q + pos_bias_v and P = linear_pos(pos_emb).
+    """
+
+    def __init__(self, heads: int, d_model: int, dropout: float = 0.1,
+                 use_flash: bool = False):
+        super().__init__()
+        self.heads = heads
+        self.d_model = d_model
+        self.use_flash = use_flash
+        d_k = d_model // heads
+        self.q_linear = nn.Linear(d_model, d_model)
+        self.k_linear = nn.Linear(d_model, d_model)
+        self.v_linear = nn.Linear(d_model, d_model)
+        self.linear_pos = nn.Linear(d_model, d_model, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(heads, d_k))
+        self.pos_bias_v = nn.Parameter(torch.zeros(heads, d_k))
+        self.out = nn.Linear(d_model, d_model)
+        self.dropout = nn.Dropout(dropout)
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, d_model) -> (B, T, H, d_k)."""
+        return x.reshape(x.shape[0], -1, self.heads,
+                         self.d_model // self.heads)
+
+    def forward(self, q_in, k_in, v_in, pos_emb, mask=None, *,
+                collect_attn: bool = False,
+                k_len: Optional[torch.Tensor] = None):
+        """``pos_emb`` (1 or B, T, d_model). Returns (output (B, T_q,
+        d_model), probs or None)."""
+        b = q_in.shape[0]
+        q = self._split(self.q_linear(q_in))
+        k = self._split(self.k_linear(k_in)).transpose(1, 2)
+        v = self._split(self.v_linear(v_in)).transpose(1, 2)
+        p = self._split(self.linear_pos(pos_emb)).transpose(1, 2)
+        # the biases take q's dtype, so under autocast q_u and q_v stay
+        # bf16 beside k and v, as in the JAX package
+        q_u = (q + self.pos_bias_u.to(q.dtype)).transpose(1, 2)
+        q_v = (q + self.pos_bias_v.to(q.dtype)).transpose(1, 2)
+
+        flash_ok = (self.use_flash and not collect_attn
+                    and k_len is not None
+                    and k.shape[2] >= FLASH_MIN_KEY_LEN
+                    and q_u.shape == k.shape          # self-attention only
+                    and p.shape[0] == 1)              # shared position table
+        if k_len is not None and mask is not None and mask.shape[1] != 1:
+            raise ValueError(
+                "k_len stands for a prefix key mask; a structured (B, T, T) "
+                "mask needs k_len=None")
+        if flash_ok:
+            if self.training and self.dropout.p > 0.0:
+                raise NotImplementedError(
+                    "attention-prob dropout inside the relative-position "
+                    "kernel comes with the conformer training slice (K5)")
+            context, _ = flash_relpos_attention(
+                q_u.contiguous(), q_v.contiguous(), k.contiguous(),
+                v.contiguous(), p[0].contiguous(),
+                k_len.to(torch.int32).contiguous())
+            probs = None
+        else:
+            context, probs = relative_dot_attention(
+                q_u, q_v, k, v, p, mask, dropout=self.dropout)
+
+        concat = context.transpose(1, 2).reshape(b, -1, self.d_model)
         return self.out(concat), (probs if collect_attn else None)

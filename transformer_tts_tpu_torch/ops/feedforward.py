@@ -1,9 +1,15 @@
-"""Convolutions on (B, T, C) and the conv feed-forward block (the port of
-transformer_tts_tpu/ops/feedforward.py:27-44).
+"""Convolutions on (B, T, C) and the feed-forward blocks (the port of
+transformer_tts_tpu/ops/feedforward.py:27-95).
 
 ``ConvFeedForward`` keeps the reference's ordering: Conv1d(d -> 4d), ReLU,
 Conv1d(4d -> d), the residual added inside the module, then dropout, then
 LayerNorm. ``EncoderLayer`` adds a second residual around it.
+
+The conformer's blocks: ``ConformerFeedForward`` (LN, Linear(d -> 2d),
+Swish, dropout, Linear, dropout) and ``ConformerConvModule`` (LN,
+pointwise conv d -> 2d and GLU, depthwise conv k=31 and its extra 1x1,
+BatchNorm, ReLU, pointwise conv, dropout). BatchNorm follows flax: eps
+1e-5, momentum 0.99 (torch ``momentum=0.01``).
 """
 
 from __future__ import annotations
@@ -16,6 +22,11 @@ from torch import nn
 
 # flax's LayerNorm epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
+
+
+def batch_norm(channels: int) -> nn.BatchNorm1d:
+    """BatchNorm1d with flax's defaults."""
+    return nn.BatchNorm1d(channels, eps=1e-5, momentum=0.01)
 
 
 class Conv1dBTC(nn.Conv1d):
@@ -51,3 +62,52 @@ class ConvFeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.f_2(torch.relu(self.f_1(x)))
         return self.layer_norm(self.dropout(h + x))
+
+
+class ConformerFeedForward(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.1):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.linear1 = nn.Linear(d_model, d_ff)
+        self.linear2 = nn.Linear(d_ff, d_model)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.linear1(self.layer_norm(x))
+        x = self.dropout(x * torch.sigmoid(x))
+        return self.dropout(self.linear2(x))
+
+
+class DepthwiseConv(nn.Module):
+    """Depthwise conv ("SAME" padding for an odd kernel) and the extra
+    1x1 conv after it, on (B, C, T)."""
+
+    def __init__(self, channels: int, kernel_size: int):
+        super().__init__()
+        self.conv = nn.Conv1d(channels, channels, kernel_size,
+                              padding=(kernel_size - 1) // 2,
+                              groups=channels)
+        self.conv_out = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_out(self.conv(x))
+
+
+class ConformerConvModule(nn.Module):
+    def __init__(self, d_model: int, kernel_size: int = 31,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.pointwise_conv1 = nn.Conv1d(d_model, 2 * d_model, 1)
+        self.depth_conv1 = DepthwiseConv(d_model, kernel_size)
+        self.batch_norm = batch_norm(d_model)
+        self.pointwise_conv2 = nn.Conv1d(d_model, d_model, 1)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, d_model) -> (B, T, d_model)."""
+        x = self.pointwise_conv1(self.layer_norm(x).transpose(1, 2))
+        out, gate = x.chunk(2, dim=1)
+        x = self.depth_conv1(out * torch.sigmoid(gate))
+        x = self.pointwise_conv2(torch.relu(self.batch_norm(x)))
+        return self.dropout(x.transpose(1, 2))

@@ -51,17 +51,27 @@ def flash_attention_fwd_reference(
     fp32) and the probabilities are cast to the value dtype before P.V, as
     the TPU kernel and ``reference_attention`` do.
     """
-    t_k = k.shape[2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    valid = (torch.arange(t_k, device=q.device)[None, :]
-             < k_len.to(q.device)[:, None])[:, None, None, :]
+    with torch.autocast(q.device.type, enabled=False):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+        return masked_softmax_pv(s, v, k_len, q.dtype)
+
+
+def masked_softmax_pv(
+    s: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
+    out_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) from fp32 scaled logits ``s`` (B, H, T_q, T_k): keys at or
+    past ``k_len[b]`` excluded exactly, a row with no valid key giving
+    o = 0 and lse = -1e30. Shared by the kernels' plain versions."""
+    valid = (torch.arange(s.shape[-1], device=s.device)[None, :]
+             < k_len.to(s.device)[:, None])[:, None, None, :]
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), torch.zeros((), device=q.device))
+    p = torch.where(valid, torch.exp(s - m), torch.zeros((), device=s.device))
     l = p.sum(dim=-1, keepdim=True)
-    safe_l = torch.where(l > 0, l, torch.ones((), device=q.device))
+    safe_l = torch.where(l > 0, l, torch.ones((), device=s.device))
     p = (p / safe_l).to(v.dtype)
-    o = torch.matmul(p.float(), v.float()).to(q.dtype)
+    o = torch.matmul(p.float(), v.float()).to(out_dtype)
     lse = (m + torch.log(safe_l))[..., 0]
     return o, lse
 
