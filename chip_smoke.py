@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FastSpeech 2 synthesis on one CUDA card.
+"""Drive the PyTorch port's FastSpeech 2 synthesis and training on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -7,14 +8,19 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and ``nvcc``; exits
 non-zero, printing no result, without them. Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every kernel of the two paths (K1, K4), in parallel, from the
-   sources in the checkout;
-3. each kernel against its plain PyTorch version on the card: fp32 at 1e-4
-   on O and lse (TF32 off), bf16 against the plain version in fp32 on the
-   same bf16 inputs at 2e-2 on O and 1e-3 on lse, rows with no valid key
-   exactly 0; kernel, plain and library times at the synthesis shapes.
-   K1 (csrc/flash_attention_fwd.cu): flash attention; K4
-   (csrc/flash_relpos_fwd.cu): relative-position flash attention;
+2. build: every kernel of the paths (K1 and K1-d, K2, K4), in parallel,
+   from the sources in the checkout;
+3. each kernel against its plain PyTorch version on the card, TF32 off:
+   K1 (csrc/flash_attention_fwd.cu) and K4 (csrc/flash_relpos_fwd.cu):
+   fp32 at 1e-4 on O and lse, bf16 against the plain version in fp32 on
+   the same bf16 inputs at 2e-2 on O and 1e-3 on lse, rows with no valid
+   key exactly 0; kernel, plain and library times at the synthesis shapes.
+   K1-d (dropout 0.1) and K2 (csrc/flash_attention_bwd.cu, at dropout 0
+   and 0.1 on the same seed) at k_len in {0, 1, 65, T}, T = 1000,
+   T_q = 300 != T_k = 700, and the train step's (16, 4, 1024, 96) with
+   its batch's mel lengths as k_len: O, dq, dk, dv at 1e-4 (fp32) and
+   2e-2 (bf16) times that tensor's own max|ref|, lse as K1; dk and dv
+   exactly 0 for keys at or past k_len;
 4. for each flagship, the transformer FastSpeech 2 and the conformer one
    of egs/fastspeech2_conformer_ljspeech.py (d 384, 6+6 layers, 4 heads
    of 96, random weights from seed 0):
@@ -23,14 +29,36 @@ non-zero, printing no result, without them. Phases, each fatal on failure:
        bf16 amp against the CPU fp32 at 5e-2 * max(1, max|ref|) (bf16
        keeps ~3 significant digits through 12 layers and the postnet);
    (b) synthesize_fastspeech2 with predicted durations at B=1 / 768 frames
-       and B=8 / 2048 frames: the main path, whose kernel launches are
+       and B=8 / 2048 frames: a main path, whose kernel launches are
        counted with every count set to 0 just before it (6 launches of
        the path's kernel per call, one per decoder layer, and none of the
-       other), with ms and RTF;
+       others), with ms and RTF;
    (c) the synthesis CLI as a subprocess on a 3-line script;
-5. each kernel at its main path's own captured input (the first decoder
-   layer of the B=8 call): kernel, plain and library ms, bound and error;
-6. attention-path timing, kernel against masked-fill, at T in
+5. training, the transformer flagship at full width (bf16 amp, dropout
+   0.1, Noam warmup 4000, clip 1.0):
+   (a) one step on the card against one on the CPU from the same weights,
+       fp32 with every dropout 0 (B=2, L=128, mel bucket 768, so the
+       decoder takes K1 and K2) and warmup_step 10, so that Adam's first
+       update is ~lr * sign(g): the loss; each gradient at 2e-2 of its own
+       max|g|, 5e-3 for the decoder attention weights (key and
+       pre-BatchNorm conv biases, zero but for rounding, below 1e-5 of the
+       largest); each update against the CPU's where
+       the gradients' signs are sure; BatchNorm statistics; then bf16 amp
+       on the card against the CPU's loss, grad_norm and the decoder
+       attention weights' gradient norms;
+   (b) the train step, the main path of training, on a fixed batch (B=16,
+       text bucket 128, mel bucket 1024, 600-1000 frames per row): 3
+       warm-up steps, then 10 timed with CUDA events, every launch count
+       set to 0 just before (6 K1-d, 6 K2 dq and 6 K2 dk/dv per step, no
+       K1 or K4); ms/step, mel frames/s, peak memory; the loss finite;
+       then 20 steps with warmup_step 100 whose loss must fall;
+   (c) cli/train.py for 3 steps on a synthetic corpus (32 utterances of
+       300-900 frames) and cli/synthesize.py on the checkpoint it saved;
+6. each kernel at its main path's own captured input (K1, K4: the first
+   decoder layer of the B=8 synthesis call; K1-d, K2: the first decoder
+   layer of the train step, held there against their plain versions as
+   in 3): kernel, plain and library ms, bound, error;
+7. attention-path timing, kernel against masked-fill, at T in
    {128, 256, 768, 2048}, for both attention modules.
 
 It then prints the kernels line (JSON), the nvidia-smi line, and last
@@ -117,6 +145,40 @@ def kernels():
                "transformer_tts_tpu_torch/csrc/flash_relpos_fwd.cu",
                "transformer_tts_tpu/ops/flash_relpos.py:212"),
     }
+
+
+def train_kernels():
+    """Id -> (object holding the launch count, its attribute, the entry's
+    name in the kernels line, source, TPU kernel it replaces) for the
+    kernels of the training path."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    fwd = "transformer_tts_tpu_torch/csrc/flash_attention_fwd.cu"
+    bwd = "transformer_tts_tpu_torch/csrc/flash_attention_bwd.cu"
+    jax_fa = "transformer_tts_tpu/ops/flash_attention.py"
+    return {
+        "K1-d": (fa.flash_attention, "dropout_launches",
+                 "flash_attention_fwd dropout", fwd, f"{jax_fa}:90"),
+        "K2-dq": (fa.flash_attention_bwd_dq, "launches",
+                  "flash_attention_bwd dq", bwd, f"{jax_fa}:266"),
+        "K2-dkdv": (fa.flash_attention_bwd_dkdv, "launches",
+                    "flash_attention_bwd dk/dv", bwd, f"{jax_fa}:344"),
+    }
+
+
+def counters() -> dict:
+    """Id -> (object, attribute) of every kernel's launch count."""
+    out = {kid: (entry[0], "launches") for kid, entry in kernels().items()}
+    out.update({kid: entry[:2] for kid, entry in train_kernels().items()})
+    return out
+
+
+def read_counts() -> dict:
+    return {kid: getattr(obj, attr) for kid, (obj, attr) in counters().items()}
+
+
+def set_counts(values: dict):
+    for kid, (obj, attr) in counters().items():
+        setattr(obj, attr, values.get(kid, 0))
 
 
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
@@ -207,6 +269,94 @@ def phase_kernel_vs_plain(gen):
                   f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
                   f"library {res['library_ms']:.4f} ms, bound "
                   f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+
+
+# ---- phase 3, continued: the training kernels -------------------------------
+
+DROPOUT_SEED = -123456789       # an int32 whose uint32 bits wrap
+# fp32: products in FMAs, sums in another order; bf16: dS and P keep
+# rounded to bf16 before their products, as the TPU kernels do
+REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def max_err(got, ref) -> tuple:
+    """(max |got - ref|, max |ref|) in fp32."""
+    return ((got.float() - ref.float()).abs().max().item(),
+            ref.float().abs().max().item())
+
+
+def check_train_kernels(q, k, v, do, k_len, rate, seed=DROPOUT_SEED,
+                        label="") -> tuple:
+    """K1/K1-d and K2 on (q, k, v, do) against the plain versions in fp32
+    on the same inputs. O, dq, dk and dv must agree within REL_TOL times
+    that tensor's own max |ref| (the gradients reaching the decoder's
+    attention in training are ~1e-7), lse within TOLS' absolute limit; dk
+    and dv exactly 0 for keys at or past k_len. Returns ({name: max abs
+    err}, {name: max |ref|}, o). Launch counts are left as they were."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    counts = read_counts()
+    sm_scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        o, lse = fa.flash_attention(q, k, v, k_len, dropout_rate=rate,
+                                    dropout_seed=seed)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, k_len,
+                                       sm_scale=sm_scale, dropout_rate=rate,
+                                       dropout_seed=seed)
+        torch.cuda.synchronize()
+        f = [x.float() for x in (q, k, v)]
+        ro, rlse = fa.flash_attention_fwd_reference(*f, k_len, sm_scale,
+                                                    rate, seed)
+        ref = fa.flash_attention_bwd_reference(*f, o.float(), lse,
+                                               do.float(), k_len, sm_scale,
+                                               rate, seed)
+    set_counts(counts)
+    empty = k_len == 0
+    check(bool((o[empty] == 0).all()), f"K1-d{label}: a row with no valid "
+                                       f"key is not 0")
+    errs, peaks = {}, {}
+    errs["o"], peaks["o"] = max_err(o[~empty], ro[~empty])
+    errs["lse"], peaks["lse"] = max_err(lse[~empty], rlse[~empty])
+    rel = REL_TOL[q.dtype]
+    check(errs["o"] <= rel * peaks["o"] and errs["lse"] <= TOLS[q.dtype][1],
+          f"K1-d{label} disagrees with its plain version: {errs} against "
+          f"max|ref| {peaks}")
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        errs[name], peaks[name] = max_err(got, want)
+        check(errs[name] <= rel * peaks[name],
+              f"K2 {name}{label} disagrees with its plain version: "
+              f"{errs[name]} > {rel} * max|ref| {peaks[name]}")
+    for name, g in (("dk", grads[1]), ("dv", grads[2])):
+        for b, n in enumerate(k_len.tolist()):
+            check(bool((g[b, :, n:] == 0).all()),
+                  f"K2 {name}{label} is not exactly 0 for keys at or past "
+                  f"k_len")
+    return errs, peaks, o
+
+
+def phase_train_kernels_vs_plain(gen, train_k_len):
+    """K1-d and K2 against their plain versions: k_len in {0, 1, 65, T},
+    ragged T = 1000, T_q = 300 != T_k = 700, and the train step's shape
+    (16, 4, 1024, 96) with its batch's mel lengths as k_len; fp32 (TF32
+    off) and bf16; dropout 0 and 0.1 on the same seed."""
+    b_train, _, t_train, _ = TRAIN_BATCH
+    cases = [(4, 4, 1000, 1000, 96, [1000, 0, 1, 65]),
+             (2, 4, 300, 700, 96, [700, 65]),
+             (b_train, 4, t_train, t_train, 96, train_k_len.tolist())]
+    for b, h, t_q, t_k, d, k_len in cases:
+        q, do = (torch.randn(b, h, t_q, d, generator=gen).to(DEVICE)
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, t_k, d, generator=gen).to(DEVICE)
+                for _ in range(2))
+        kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.1):
+                errs, peaks, _ = check_train_kernels(
+                    *(x.to(dtype) for x in (q, k, v, do)), kl, rate)
+                print(f"K1-d/K2 vs plain ({b},{h},{t_q},{t_k},{d}) "
+                      f"{str(dtype)[6:]} rate {rate} k_len="
+                      f"{k_len if b <= 4 else 'the train batch'}: "
+                      + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
+                                 f"{peaks[n]:.3g})" for n, e in errs.items()))
 
 
 def relpos_bias(q_v, p, k_len, sm_scale):
@@ -310,29 +460,28 @@ def phase_teacher_forced(gen, name, stacks):
 
 
 @contextmanager
-def capture_kernel_inputs(kid, store: list):
-    """Keep a copy of the first call's inputs of kernel ``kid`` per call of
-    the main path; launches still count in the real function."""
-    from transformer_tts_tpu_torch.ops import attention
-    name = kernels()[kid][0].__name__
-    real = getattr(attention, name)
+def capture_calls(module, name: str, store: list):
+    """Append (args, kwargs) of every call of ``module.name`` to ``store``,
+    the tensors as detached copies; the call still goes to the real
+    function, whose launches count."""
+    real = getattr(module, name)
 
     def recording(*args, **kw):
-        if len(store) < 1:
-            store.append(tuple(x.clone() for x in args))
+        store.append((tuple(x.detach().clone() if torch.is_tensor(x) else x
+                            for x in args), dict(kw)))
         return real(*args, **kw)
 
-    setattr(attention, name, recording)
+    setattr(module, name, recording)
     try:
         yield
     finally:
-        setattr(attention, name, real)
+        setattr(module, name, real)
 
 
 def phase_synthesis(gen, name, stacks, kid):
     from transformer_tts_tpu_torch.infer.synthesize import (
         synthesize_fastspeech2)
-    wrappers = {k: v[0] for k, v in kernels().items()}
+    from transformer_tts_tpu_torch.ops import attention
     hp, model = flagship_model(DEVICE, amp=True, stacks=stacks)
     cases = [(1, 768), (8, 2048)]
     batches = []
@@ -341,24 +490,23 @@ def phase_synthesis(gen, name, stacks, kid):
         batches.append((text.to(DEVICE), pos.to(DEVICE), max_frames))
 
     captured = []
-    for w in wrappers.values():             # the main path starts here
-        w.launches = 0
-    per_call = {k: [] for k in wrappers}
-    with capture_kernel_inputs(kid, captured):
+    set_counts({})                          # the main path starts here
+    per_call = {k: [] for k in counters()}
+    with capture_calls(attention, kernels()[kid][0].__name__, captured):
         for text, pos, max_frames in batches:
             captured.clear()
-            before = {k: w.launches for k, w in wrappers.items()}
+            before = read_counts()
             mel, mel_len, dur = synthesize_fastspeech2(model, text, pos,
                                                        max_frames)
             torch.cuda.synchronize()
-            for k, w in wrappers.items():
-                per_call[k].append(w.launches - before[k])
+            for k, n in read_counts().items():
+                per_call[k].append(n - before[k])
             check(mel.shape == (text.shape[0], max_frames, hp.mel_dim),
                   f"{name}: mel shape {tuple(mel.shape)}")
             check(bool(torch.isfinite(mel.float()).all()),
                   f"{name}: non-finite mel")
             check(int(mel_len.min()) > 0, f"{name}: empty mel_len")
-    launches = {k: w.launches for k, w in wrappers.items()}  # it ends here
+    launches = read_counts()                # it ends here
     print(f"{name} main path: launches per synthesis call "
           f"{json.dumps(per_call)} (expect {hp.n_layer_decoder} of {kid} "
           f"each, none of the others), total {json.dumps(launches)}")
@@ -366,7 +514,7 @@ def phase_synthesis(gen, name, stacks, kid):
           f"{name}: {kid} did not launch once per decoder layer")
     check(all(n == 0 for k, n in launches.items() if k != kid),
           f"{name}: a kernel of another path launched")
-    main_inputs = captured[0]               # the B=8 / 2048-frame call
+    main_inputs = captured[0][0]    # the B=8 / 2048-frame call's layer 0
 
     for text, pos, max_frames in batches:
         def call():
@@ -428,7 +576,442 @@ def phase_cli(name, stacks, hp, model):
     print(f"{name} CLI: 3 utterances written and checked")
 
 
-# ---- phase 6: attention paths -----------------------------------------------
+# ---- phase 5: training ------------------------------------------------------
+
+TRAIN_BATCH = (16, 128, 1024, (600, 1000))   # B, text bucket, mel bucket,
+                                             # range of frames per row
+CPU_STEP_BATCH = (2, 128, 768, (500, 760))
+CLI_CORPUS = (32, (300, 900), 8)             # utterances, frames, batch
+
+
+def train_batch(gen, hp, b, text_len, mel_len, frames, device):
+    """A collated training batch: text lengths from text_len down to half
+    of it, durations per row summing to a total drawn from ``frames``,
+    random mel, f0 and energy on the valid frames, the collate's pads."""
+    lens = torch.linspace(text_len, text_len // 2, b).round().long()
+    text = torch.zeros(b, text_len, dtype=torch.int32)
+    dur = torch.zeros(b, text_len, dtype=torch.int32)
+    totals = torch.randint(frames[0], frames[1] + 1, (b,), generator=gen)
+    for i, (n, total) in enumerate(zip(lens.tolist(), totals.tolist())):
+        text[i, :n] = torch.randint(1, hp.vocab_size, (n,), generator=gen,
+                                    dtype=torch.int32)
+        w = torch.rand(n, generator=gen) + 0.5
+        d = (w / w.sum() * total).floor().int()
+        d[: total - int(d.sum())] += 1
+        dur[i, :n] = d
+    pos = torch.arange(1, text_len + 1)[None]
+    pos_text = torch.where(text != 0, pos, 0).int()
+    pos_mel = torch.where(torch.arange(1, mel_len + 1)[None]
+                          <= totals[:, None],
+                          torch.arange(1, mel_len + 1)[None], 0).int()
+    valid = pos_mel > 0
+    mel = torch.where(valid[..., None],
+                      torch.randn(b, mel_len, hp.mel_dim, generator=gen),
+                      torch.full((), -5.0))
+    f0 = torch.where(valid, torch.rand(b, mel_len, generator=gen) * 740 + 60,
+                     0.0)
+    energy = torch.where(valid, torch.rand(b, mel_len, generator=gen) * 315,
+                         0.0)
+    batch = dict(text=text, pos_text=pos_text, mel=mel, pos_mel=pos_mel,
+                 alignment=dur, f0=f0, energy=energy)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def train_hparams(**overrides):
+    """The transformer flagship (d 384, 6+6 layers, 4 heads of 96, bf16
+    amp, dropout 0.1, Noam with warmup 4000, clip 1.0) with overrides."""
+    from transformer_tts_tpu_torch.config import HParams
+    return HParams(**dict(FLAGSHIP, **overrides))
+
+
+ADAM_EPS = 1e-9
+# gradients, card fp32 against CPU fp32, each within this share of its own
+# max|g|: sums run in other orders, and a ReLU whose input lies within
+# rounding of 0 takes the other branch on one side, which moves its
+# layer's weight gradient by up to ~1/sqrt(B*T) of max|g| (B*T = 1536
+# here). The decoder attention weights, fed by K2 directly, hold tighter.
+GRAD_TOL, ATTN_GRAD_TOL = 2e-2, 5e-3
+
+
+def zero_in_exact_arithmetic(name: str) -> bool:
+    """Gradients that cancel to 0, leaving rounding noise: a key bias (it
+    adds one constant to each softmax row) and the postnet's conv biases
+    before a BatchNorm (its batch mean takes them out)."""
+    return name.endswith("k_linear.bias") or (
+        name.startswith("postnet.") and name.endswith(".bias")
+        and (".conv1." in name or ".conv_list." in name))
+
+
+def decoder_attention(hp) -> tuple:
+    """Names of the decoder attention's weights, whose gradients come
+    through K2."""
+    return tuple(f"decoder.layers.{i}.attn.{m}.weight"
+                 for i in range(hp.n_layer_decoder)
+                 for m in ("q_linear", "k_linear", "v_linear", "out"))
+
+
+def ulp(x: torch.Tensor) -> torch.Tensor:
+    a = x.abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def phase_card_vs_cpu(gen):
+    """One train step on the card and on the CPU from the same weights:
+    the flagship in fp32 with every dropout 0, where the decoder takes K1
+    and K2; then the same step with bf16 amp on the card. warmup_step 10
+    makes Adam's first update lr * g / (|g| + 1e-9) ~ lr * sign(g) with
+    lr = 1.6e-3, far above fp32's rounding of the weights, so the updates
+    show every gradient's sign, however small the gradient."""
+    from transformer_tts_tpu_torch.train.trainer import (
+        init_fastspeech2_state, make_fastspeech2_train_step)
+    b, text_len, mel_len, frames = CPU_STEP_BATCH
+    fp32 = dict(amp=False, dropout=0.0, dropout_postnet=0.0,
+                dropout_variance_adaptor=0.0, warmup_step=10)
+    hp = train_hparams(**fp32)
+    batch = train_batch(gen, hp, b, text_len, mel_len, frames, "cpu")
+    ref = init_fastspeech2_state(hp, device="cpu")
+    weights = {k: v.clone() for k, v in ref.model.state_dict().items()}
+    ref, ref_logs = make_fastspeech2_train_step(hp, device="cpu")(ref, batch)
+    lr = ref.optimizer.schedule(0)
+    counts = read_counts()
+    results = {}
+    for amp in (False, True):
+        hp = train_hparams(**dict(fp32, amp=amp))
+        state = init_fastspeech2_state(hp, device=DEVICE)
+        state.model.load_state_dict(weights)
+        state, logs = make_fastspeech2_train_step(hp, device=DEVICE)(
+            state, batch)
+        torch.cuda.synchronize()
+        results[amp] = (state, logs)
+    launched = {k: n - counts[k] for k, n in read_counts().items()}
+    check(launched["K1"] > 0 and launched["K2-dq"] > 0
+          and launched["K2-dkdv"] > 0,
+          f"the card's step did not take K1 and K2: {launched}")
+    set_counts(counts)
+
+    state, logs = results[False]
+    loss, ref_loss = float(logs["loss_total"]), float(ref_logs["loss_total"])
+    # fp32 on both sides (TF32 off): sums in other orders through 12 layers
+    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss),
+          f"card fp32 loss {loss} vs CPU {ref_loss}")
+    cpu_params = dict(ref.model.named_parameters())
+    # the .grad the optimizer left: clipped in place, on both sides alike
+    top = max(p.grad.abs().max().item() for p in cpu_params.values())
+    grad_rel, update_rel, settled_share, noise_peak = {}, {}, {}, 0.0
+    for name, p in state.model.named_parameters():
+        g, g_ref = p.grad.cpu(), cpu_params[name].grad
+        old = weights[name]
+        step = p.detach().cpu() - old
+        ref_step = cpu_params[name].detach() - old
+        rounding = 2 * ulp(old.abs() + lr)
+        check(bool((step.abs() <= lr * (1 + 1e-4) + rounding).all()),
+              f"{name}: an update larger than lr")
+        err, peak = max_err(g, g_ref)
+        if zero_in_exact_arithmetic(name):
+            # noise on both sides, which Adam's first step turns into any
+            # update in [-lr, lr]
+            noise_peak = max(noise_peak, peak, g.abs().max().item())
+            continue
+        grad_rel[name] = err / peak if peak > 0 else float(err > 0)
+        # Adam's first update, lr * g / (|g| + eps): where |g| > 4 err the
+        # two gradients share their sign, and where g^2 > 2e3 eps err the
+        # two updates lie within lr * eps * err / (g g') <= 1e-3 lr
+        settled = g_ref.abs() > max(4 * err, math.sqrt(2e3 * ADAM_EPS * err))
+        settled_share[name] = settled.float().mean().item()
+        update_rel[name] = ((step - ref_step).abs() - rounding)[
+            settled].max().item() / lr if settled.any() else 0.0
+    stats_rel = 0.0
+    cpu_buffers = dict(ref.model.named_buffers())
+    for name, v in state.model.named_buffers():
+        if "running" in name:
+            err, peak = max_err(v.cpu(), cpu_buffers[name])
+            stats_rel = max(stats_rel, err / max(peak, 1e-30))
+    attn = decoder_attention(hp)
+    worst = sorted(grad_rel, key=grad_rel.get)[-3:]
+    attn_worst = max(attn, key=grad_rel.get)
+    attn_peaks = [cpu_params[n].grad.abs().max().item() for n in attn]
+    attn_share = min(settled_share[n] for n in attn)
+    print(f"train step B={b} L={text_len} T={mel_len} card fp32 vs CPU fp32:"
+          f" loss {loss:.6f} vs {ref_loss:.6f}; gradients, each against its "
+          f"own max|g| (tol {GRAD_TOL}): worst "
+          + ", ".join(f"{n} {grad_rel[n]:.3g}" for n in worst)
+          + f"; of the decoder attention weights (tol {ATTN_GRAD_TOL}) "
+          f"{attn_worst} {grad_rel[attn_worst]:.3g}, their max|g| "
+          f"{min(attn_peaks):.3g}"
+          f"..{max(attn_peaks):.3g} (largest gradient {top:.3g}); "
+          f"key and pre-BatchNorm conv biases, zero but for rounding, "
+          f"at most {noise_peak:.3g} (tol {1e-5 * top:.3g}); "
+          f"updates at lr {lr:.4g}: worst |d update| / lr "
+          f"{max(update_rel.values()):.3g} (tol 1e-3) where the signs are "
+          f"sure, at least {attn_share:.1%} of each decoder attention "
+          f"weight; BatchNorm statistics {stats_rel:.3g} of their own "
+          f"max|ref| (tol 1e-3); card launches {json.dumps(launched)}")
+    check(max(grad_rel.values()) <= GRAD_TOL
+          and grad_rel[attn_worst] <= ATTN_GRAD_TOL
+          and noise_peak <= 1e-5 * top,
+          f"card gradients disagree with the CPU's: worst {worst}")
+    check(max(update_rel.values()) <= 1e-3 and attn_share >= 0.5,
+          "card updates disagree with the CPU's")
+    check(stats_rel <= 1e-3, "card BatchNorm statistics disagree")
+
+    state, logs = results[True]
+    loss, norm = float(logs["loss_total"]), float(logs["grad_norm"])
+    ref_norm = float(ref_logs["grad_norm"])
+    norms = {n: (dict(state.model.named_parameters())[n].grad.float()
+                 .norm().item(), cpu_params[n].grad.norm().item())
+             for n in attn}
+    norm_rel = max(abs(x - y) / y for x, y in norms.values())
+    print(f"train step card bf16 amp vs CPU fp32: loss {loss:.6f} vs "
+          f"{ref_loss:.6f} (tol 2e-2 relative), grad_norm {norm:.6f} vs "
+          f"{ref_norm:.6f} (tol 5 %), the decoder attention weights' "
+          f"gradient norms within {norm_rel:.3g} (tol 5 %)")
+    # bf16 keeps ~3 significant digits through 12 layers and the postnet
+    check(abs(loss - ref_loss) <= 2e-2 * abs(ref_loss)
+          and abs(norm - ref_norm) <= 0.05 * ref_norm
+          and norm_rel <= 0.05,
+          "card bf16 amp step disagrees with the CPU's")
+
+
+def phase_train_step(batch):
+    """The main path's training: the transformer flagship at full width,
+    bf16 amp, dropout 0.1, on a fixed batch (TRAIN_BATCH); 3 warm-up
+    steps, then 10 timed ones with every launch count set to 0 just
+    before; then 20 steps with warmup_step 100 whose loss must fall."""
+    from transformer_tts_tpu_torch.ops import attention
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    from transformer_tts_tpu_torch.train.trainer import (
+        init_fastspeech2_state, make_fastspeech2_train_step)
+    b, text_len, mel_len, _ = TRAIN_BATCH
+    hp = train_hparams()
+    state = init_fastspeech2_state(hp, device=DEVICE)
+    step = make_fastspeech2_train_step(hp, device=DEVICE)
+    fwd_calls, bwd_calls = [], []
+    for i in range(3):
+        if i == 2:      # the last warm-up step's kernel inputs
+            with capture_calls(attention, "flash_attention", fwd_calls), \
+                    capture_calls(fa, "flash_attention_bwd", bwd_calls):
+                state, logs = step(state, batch)
+        else:
+            state, logs = step(state, batch)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    set_counts({})                          # the main path starts here
+    per_step, times, losses = [], [], []
+    for _ in range(10):
+        before = read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs = step(state, batch)
+        end.record()
+        losses.append(logs["loss_total"])
+        per_step.append({k: n - before[k] for k, n in read_counts().items()})
+        times.append((start, end))
+    torch.cuda.synchronize()
+    launches = read_counts()                # it ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(s.elapsed_time(e) for s, e in times)
+    losses = torch.stack(losses).float().cpu()
+    frames_valid = int((batch["pos_mel"] > 0).sum())
+    print(f"train step B={b} L={text_len} T={mel_len} bf16 amp dropout "
+          f"0.1: {ms:.3f} ms/step (median of 10), {frames_valid} valid mel "
+          f"frames = {frames_valid / ms * 1e3:.0f} frames/s "
+          f"({b * mel_len / ms * 1e3:.0f} bucket frames/s), peak memory "
+          f"{peak_gb:.2f} GB; losses {[round(x, 4) for x in losses.tolist()]}")
+    print(f"train main path: launches per step {json.dumps(per_step[0])} "
+          f"(expect K1-d {hp.n_layer_decoder}, K2-dq {hp.n_layer_decoder}, "
+          f"K2-dkdv {hp.n_layer_decoder}, K1 0, K4 0), total "
+          f"{json.dumps(launches)}")
+    want = {"K1": 0, "K4": 0, "K1-d": hp.n_layer_decoder,
+            "K2-dq": hp.n_layer_decoder, "K2-dkdv": hp.n_layer_decoder}
+    check(all(c == want for c in per_step),
+          f"train step launches {per_step} differ from {want}")
+    check(bool(torch.isfinite(losses).all()), "non-finite train loss")
+    check(len(fwd_calls) == hp.n_layer_decoder
+          and len(bwd_calls) == hp.n_layer_decoder,
+          "kernel path calls per step")
+    fwd_inputs = fwd_calls[0]         # the first decoder layer's forward
+    bwd_inputs = bwd_calls[-1]        # and its backward, which runs last
+    del state, step
+    torch.cuda.empty_cache()
+
+    hp = train_hparams(warmup_step=100)
+    state = init_fastspeech2_state(hp, device=DEVICE)
+    step = make_fastspeech2_train_step(hp, device=DEVICE)
+    curve = []
+    for _ in range(20):
+        state, logs = step(state, batch)
+        curve.append(logs["loss_total"])
+    curve = torch.stack(curve).float().cpu().tolist()
+    print(f"20 steps on one batch, warmup_step 100: loss {curve[0]:.4f} -> "
+          f"{curve[-1]:.4f} ({[round(x, 3) for x in curve]})")
+    check(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0],
+          "the loss did not fall over 20 steps")
+    del state, step
+    torch.cuda.empty_cache()
+    return launches, fwd_inputs, bwd_inputs
+
+
+def write_train_corpus(gen, hp, root):
+    """A synthetic corpus at flagship width: mels with alignment, f0 and
+    energy siblings, and a script file."""
+    n_utts, (lo, hi), _ = CLI_CORPUS
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    for i in range(n_utts):
+        frames = int(torch.randint(lo, hi + 1, (), generator=gen))
+        n_text = max(1, frames // 6)
+        dur = torch.full((n_text,), frames // n_text, dtype=torch.int32)
+        dur[: frames - int(dur.sum())] += 1
+        base = os.path.join(root, f"utt{i}.npy")
+        np.save(base, torch.randn(frames, hp.mel_dim,
+                                  generator=gen).numpy())
+        np.save(base.replace(".npy", "_alignment.npy"), dur.numpy())
+        np.save(base.replace(".npy", "_f0.npy"),
+                (torch.rand(frames, generator=gen) * 740 + 60).numpy())
+        np.save(base.replace(".npy", "_energy.npy"),
+                (torch.rand(frames, generator=gen) * 315).numpy())
+        ids = torch.randint(1, hp.vocab_size, (n_text,), generator=gen)
+        lines.append(f"{base}|{' '.join(map(str, ids.tolist()))}")
+    script = os.path.join(root, "train.txt")
+    with open(script, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return script
+
+
+def phase_train_cli(gen):
+    """cli/train.py for 3 steps on a synthetic corpus, then cli/synthesize.py
+    on the checkpoint it saved."""
+    hp = train_hparams()
+    work = os.path.join(WORK, "train")
+    script = write_train_corpus(gen, hp, os.path.join(work, "corpus"))
+    save_dir = os.path.join(work, "checkpoints")
+    hp_file = os.path.join(work, "hparams.py")
+    with open(hp_file, "w") as fh:
+        for key, value in dict(FLAGSHIP, train_script=script,
+                               save_dir=save_dir, batch_size=CLI_CORPUS[2],
+                               max_epoch=1, save_per_epoch=1).items():
+            fh.write(f"{key} = {value!r}\n")
+    proc = subprocess.run(
+        [sys.executable, "-m", "transformer_tts_tpu_torch.cli.train",
+         "--hp_file", hp_file, "--max_steps", "3", "--device", DEVICE],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    steps = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("epoch 1 step")]
+    print("\n".join(steps))
+    check(proc.returncode == 0, f"train CLI exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check(len(steps) == 3, "train CLI did not log 3 steps")
+    load_dir = os.path.join(save_dir, "epoch_1")
+    check(os.path.exists(os.path.join(load_dir, "model.pt"))
+          and os.path.exists(os.path.join(load_dir, "hparams.py")),
+          "train CLI saved no checkpoint")
+    test_script = os.path.join(work, "test.txt")
+    with open(script) as src, open(test_script, "w") as dst:
+        dst.write("".join(src.readlines()[:3]))
+    out_dir = os.path.join(work, "generated")
+    proc = subprocess.run(
+        [sys.executable, "-m", "transformer_tts_tpu_torch.cli.synthesize",
+         "--load_name", load_dir, "--test_script", test_script, "--save",
+         out_dir, "--max_frames", "2048", "--device", DEVICE], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"synthesis CLI on the trained checkpoint "
+          f"exit {proc.returncode}: {proc.stderr[-2000:]}")
+    for i in range(3):
+        mel = np.load(os.path.join(out_dir, f"{i}.npy"))
+        check(mel.ndim == 2 and mel.shape[1] == hp.mel_dim
+              and mel.shape[0] > 0 and bool(np.isfinite(mel).all()),
+              f"synthesis from the trained checkpoint: mel {i} {mel.shape}")
+    print(f"train CLI: 3 steps, checkpoint {os.path.relpath(load_dir, ROOT)}"
+          f"; synthesis CLI read it and wrote 3 mels")
+
+
+def train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
+    """K1-d, K2-dq and K2-dkdv at the train step's captured input: kernel,
+    plain and library ms, the bound, and each kernel against its fp32
+    plain version there (``check_train_kernels``: O, dq, dk and dv within
+    2e-2 of their own max |ref| in bf16), with the O the step's forward
+    gave equal bit for bit to a second launch on the same seed. The
+    library calls are SDPA with the key mask and the same dropout rate,
+    forward and backward (the backward one gives dq, dk and dv together,
+    the yardstick of both K2 entries)."""
+    import torch.nn.functional as F
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    counts = read_counts()
+    (q, k, v, k_len), fkw = fwd_inputs
+    (bq, bk, bv, o, lse, do, bk_len), bkw = bwd_inputs
+    rate, seed = fkw["dropout_rate"], fkw["dropout_seed"]
+    check(all(torch.equal(x, y) for x, y in ((q, bq), (k, bk), (v, bv),
+                                            (k_len, bk_len)))
+          and (bkw["dropout_rate"], bkw["dropout_seed"]) == (rate, seed),
+          "the captured backward is not the captured forward's")
+    errs, peaks, o_again = check_train_kernels(q, k, v, do, k_len, rate,
+                                               seed, " (train step input)")
+    check(torch.equal(o_again, o), "K1-d gave another O on the same input "
+                                   "and seed than in the train step")
+    sm_scale = q.shape[-1] ** -0.5
+    mask = (torch.arange(k.shape[2], device=q.device)[None, :]
+            < k_len[:, None])[:, None, None, :]
+    b, h, t_q, d = q.shape
+    keys = k_len.clamp(max=k.shape[2]).double().sum().item()
+    el = q.element_size()
+    with torch.no_grad():
+        res = {"K1-d": {
+            "ms": time_ms(lambda: fa.flash_attention(
+                q, k, v, k_len, dropout_rate=rate, dropout_seed=seed)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
+                q, k, v, k_len, sm_scale, rate, seed)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=rate, scale=sm_scale)),
+            "max_abs_err": errs["o"], "max_abs_ref": peaks["o"]}}
+        res["K1-d"]["bound_ms"], res["K1-d"]["bound_by"] = bound_ms(
+            4 * h * t_q * keys * d, (4 * q.numel()) * el + b * h * t_q * 4,
+            q.dtype)
+        k1_ms = time_ms(lambda: fa.flash_attention(q, k, v, k_len))
+
+        delta = fa.bwd_delta(o, do)
+        args = (q, k, v, do, lse, delta, k_len)
+        kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed)
+        in_bytes = 4 * q.numel() * el + 2 * b * h * t_q * 4   # q,k,v,dO
+        res["K2-dq"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_dq_reference(
+                *args, sm_scale, rate, seed)),
+            "max_abs_err": errs["dq"], "max_abs_ref": peaks["dq"]}
+        res["K2-dq"]["bound_ms"], res["K2-dq"]["bound_by"] = bound_ms(
+            6 * h * t_q * keys * d, in_bytes + q.numel() * el, q.dtype)
+        res["K2-dkdv"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(*args, **kw)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_dkdv_reference(
+                *args, sm_scale, rate, seed)),
+            "max_abs_err": max(errs["dk"], errs["dv"]),
+            "max_abs_ref": max(peaks["dk"], peaks["dv"])}
+        res["K2-dkdv"]["bound_ms"], res["K2-dkdv"]["bound_by"] = bound_ms(
+            8 * h * t_q * keys * d, in_bytes + 2 * q.numel() * el, q.dtype)
+        pair_bound = bound_ms(10 * h * t_q * keys * d,
+                              8 * q.numel() * el, q.dtype)
+    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                        dropout_p=rate, scale=sm_scale)
+    library_bwd = time_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do, retain_graph=True))
+    res["K2-dq"]["library_ms"] = res["K2-dkdv"]["library_ms"] = library_bwd
+    set_counts(counts)
+    print(f"K1-d/K2 vs plain at the train step's input: "
+          + " ".join(f"max|d{n}|={e:.3g} (max|ref| {peaks[n]:.3g})"
+                     for n, e in errs.items())
+          + "; O equal to the step's")
+    print(f"K1 (dropout 0) at the same input: {k1_ms:.4f} ms against "
+          f"K1-d's {res['K1-d']['ms']:.4f} ms")
+    print(f"K2 as a pair at that input: dq + dk/dv "
+          f"{res['K2-dq']['ms'] + res['K2-dkdv']['ms']:.4f} ms against the "
+          f"bound of the five products, {pair_bound[0]:.4f} ms "
+          f"({pair_bound[1]}); SDPA backward {library_bwd:.4f} ms")
+    return res
+
+
+# ---- phase 7: attention paths -----------------------------------------------
 
 def phase_attention_paths(gen):
     from transformer_tts_tpu_torch.ops import attention
@@ -455,6 +1038,14 @@ def phase_attention_paths(gen):
     flash_attention.launches, flash_relpos_attention.launches = launches
 
 
+def kernels_line_entry(name, source, replaces, launches, res) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
@@ -468,7 +1059,8 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     registry = kernels()
-    names = [entry[2] for entry in registry.values()]
+    names = sorted({entry[2] for entry in registry.values()}
+                   | {"flash_attention_bwd"})
     t0 = time.time()
     cuda_build.build(names)
     print(f"build of {names}: {time.time() - t0:.1f} s")
@@ -479,6 +1071,10 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     phase_kernel_vs_plain(gen)
+    b, text_len, mel_len, frames = TRAIN_BATCH
+    batch = train_batch(gen, train_hparams(), b, text_len, mel_len, frames,
+                        DEVICE)
+    phase_train_kernels_vs_plain(gen, (batch["pos_mel"] > 0).sum(1))
     main_runs = {}
     for name, (stacks, kid) in PATHS.items():
         phase_teacher_forced(gen, name, stacks)
@@ -488,6 +1084,9 @@ def main():
         main_runs[kid] = (launches, main_inputs)
         del model
         torch.cuda.empty_cache()
+    phase_card_vs_cpu(gen)
+    train_launches, fwd_inputs, bwd_inputs = phase_train_step(batch)
+    phase_train_cli(gen)
 
     lines = []
     for kid, (launches, main_inputs) in main_runs.items():
@@ -503,12 +1102,21 @@ def main():
             print(f"{kid} library yardstick leaves out building its bias: "
                   f"{res['bias_ms']:.4f} ms")
         _, _, name, source, replaces = registry[kid]
-        lines.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+        lines.append(kernels_line_entry(name, source, replaces, launches,
+                                        res))
+    train_res = train_kernel_timings(fwd_inputs, bwd_inputs)
+    (q, _, _, k_len), kw = fwd_inputs
+    for kid, (_, _, name, source, replaces) in train_kernels().items():
+        res = train_res[kid]
+        print(f"{kid} at the train step's input {tuple(q.shape)} "
+              f"{str(q.dtype)[6:]} rate {kw['dropout_rate']}, k_len "
+              f"{k_len.tolist()}: kernel {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} "
+              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+              f"max abs err {res['max_abs_err']:.3g} (max|ref| "
+              f"{res['max_abs_ref']:.3g})")
+        lines.append(kernels_line_entry(name, source, replaces,
+                                        train_launches[kid], res))
     phase_attention_paths(gen)
 
     print(json.dumps({"kernels": lines}))

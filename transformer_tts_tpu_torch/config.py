@@ -2,7 +2,7 @@
 
 The port's own copy of the JAX package's config contract
 (transformer_tts_tpu/config.py): the same defaults dict, ``HParams``
-(``from_file``, ``as_dict``, ``snapshot``), ``load_hparams`` and
+(``from_file``, ``override``, ``as_dict``, ``snapshot``), ``load_hparams`` and
 ``is_nar_model``, so an ``hparams.py`` written for one package loads in
 the other. Keys that only the JAX package reads (``mesh_shape``,
 ``prng_impl``, ``remat``, ...) are kept so such files load unchanged; the
@@ -270,6 +270,16 @@ class HParams:
             self.spk_emb_dim_postprocess = 512
         if self.mel_dim_post is None:
             self.mel_dim_post = self.mel_dim
+
+    def override(self, **kwargs: Any) -> "HParams":
+        """CLI overrides (the reference's ``overwrite_hparams``); a later
+        ``snapshot`` then writes the values, not the source file."""
+        for key, value in kwargs.items():
+            if value is not None:
+                setattr(self, key, value)
+        if kwargs:
+            self._source_file = None
+        return self
 
     def as_dict(self) -> Dict[str, Any]:
         return {k: v for k, v in vars(self).items() if not k.startswith("_")}

@@ -1,0 +1,387 @@
+// Flash-attention backward for Hopper (sm_90a): non-causal, prefix key mask,
+// optional attention-prob dropout (K2).
+//
+// Replaces the TPU kernels `_dq_kernel` and `_dkdv_kernel` driven by
+// `_flash_bwd` (transformer_tts_tpu/ops/flash_attention.py:266-550) with
+// causal=False and no bias: the backward of FastSpeech 2 training.
+//
+// What it computes, per batch-head bh = b*H + h, from the forward's lse and
+// delta = rowsum(dO * O) (fp32, computed by the caller as `_flash_bwd` does):
+//   P[r][c]  = exp(q[r].k[c] * sm_scale - lse[r])   for keys c < k_len[b]
+//   dP[r][c] = (dO[r] . v[c]) * keep(r, c)
+//   dS[r][c] = P (dP - delta[r]) * sm_scale
+//   dq = dS K,  dk = dS^T Q,  dv = (P keep)^T dO
+// with dS and P*keep cast to the input dtype before their products, as the
+// TPU kernels do. keep(r, c) is the forward's `_keep_mask` hash (1/(1-rate)
+// or 0), rebuilt here from the global coordinates, never stored. Rows with
+// no valid key (lse = -1e30) give P = 0 through the key mask; dk and dv are
+// exactly 0 for keys at or past k_len[b]. No atomics: each output row is
+// written by one block, so the gradients are deterministic.
+//
+// Bound on the card: 10*B*H*T_q*k_len*d operations (five products) against
+// Q, K, V, O, dO, dQ, dK and dV moved once; at the decoder's training shapes
+// (d = 96, T ~ 1024) that is ~1 byte per 300 operations in bf16, so the
+// tensor cores bound it.
+//
+// Design (simple first version; wgmma, TMA and register-resident
+// accumulators come later):
+//   * the dq kernel: one 128-thread block per (64 q rows, bh), a loop over
+//     the 64-key tiles below k_len[b]; per tile S = Q K^T and dP = dO V^T
+//     into shared memory, dS elementwise, then dq += dS K;
+//   * the dk/dv kernel: one block per (64 keys, bh), a loop over every
+//     64-row q tile; per tile S and dP, then (P keep)^T and dS^T written
+//     transposed into shared memory, dv += (P keep)^T dO and dk += dS^T Q.
+//     A block whose keys all lie at or past k_len[b] writes zeros;
+//   * the products, the tile loads and the dropout hash are K1's, from
+//     flash_common.cuh: WMMA (bf16 in, fp32 accumulate) for bf16 and FMAs
+//     in fp32 for fp32, so fp32 matches the fp32 reference to rounding; the
+//     fp32 accumulators live in shared memory; the ragged edges in T_q, T_k
+//     and d are masked in the loads and stores, with no padding copies in
+//     device memory.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::BT;
+using flash::from_float;
+using flash::keep_bit;
+using flash::load_tile;
+using flash::NTHREADS;
+using flash::Products;
+using flash::round_up;
+
+// Shared-memory geometry, identical on host and device.
+//   dp   : depth padded for the products (16 for WMMA, 1 for FMAs)
+//   ld_in: row stride of the four 64 x d input tiles (elements of T)
+//   ld_s : row stride of the two fp32 64 x 64 tiles (S and dP)
+//   ld_p : row stride of the 64 x 64 tiles in T (dS, and P keep in dk/dv)
+//   ld_o : row stride of the fp32 64 x dp accumulators
+// n_p and n_acc are 1 for the dq kernel and 2 for the dk/dv kernel.
+template <typename T> struct Geom {
+  int dp, ld_in, ld_s, ld_p, ld_o;
+  size_t off_in[4], off_s, off_dp, off_p[2], off_acc[2], off_stats, bytes;
+  __host__ __device__ Geom(int d, int n_p, int n_acc) {
+    const bool wmma = sizeof(T) == 2;
+    dp = wmma ? round_up(d, 16) : d;
+    // WMMA wants a stride that is a multiple of 8 (16-bit) or 4 (fp32);
+    // the FMA path wants an odd stride so that rows fall in other banks.
+    ld_in = wmma ? dp + 8 : d + 1;
+    ld_s = wmma ? BT + 4 : BT + 1;
+    ld_p = wmma ? BT + 8 : BT + 1;
+    ld_o = wmma ? dp + 4 : d + 1;
+    const size_t in_bytes = round_up(BT * ld_in * (int)sizeof(T), 128);
+    const size_t s_bytes = round_up(BT * ld_s * 4, 128);
+    const size_t p_bytes = round_up(BT * ld_p * (int)sizeof(T), 128);
+    const size_t acc_bytes = round_up(BT * ld_o * 4, 128);
+    size_t off = 0;
+    for (int i = 0; i < 4; ++i, off += in_bytes) off_in[i] = off;
+    off_s = off;
+    off += s_bytes;
+    off_dp = off;
+    off += s_bytes;
+    for (int i = 0; i < 2; ++i) {
+      off_p[i] = off;
+      if (i < n_p) off += p_bytes;
+    }
+    for (int i = 0; i < 2; ++i) {
+      off_acc[i] = off;
+      if (i < n_acc) off += acc_bytes;
+    }
+    off_stats = off;
+    bytes = off + 2 * BT * 4;
+  }
+};
+
+__device__ void zero_fp32(float* dst, int n) {
+  for (int idx = threadIdx.x; idx < n; idx += NTHREADS) dst[idx] = 0.f;
+}
+
+// lse and delta of q rows [q0, q0+BT) into shared memory (0 past T_q)
+__device__ void load_stats(float* s_lse, float* s_delta, const float* lse,
+                           const float* delta, size_t base, int q0,
+                           int T_q) {
+  if (threadIdx.x < BT) {
+    const int row = q0 + threadIdx.x;
+    s_lse[threadIdx.x] = row < T_q ? lse[base + row] : 0.f;
+    s_delta[threadIdx.x] = row < T_q ? delta[base + row] : 0.f;
+  }
+}
+
+// rows [row0, row0+BT) of a (rows_valid, d) output from an fp32 tile
+template <typename T>
+__device__ void store_tile(T* dst, const float* src, int ld, int row0,
+                           int rows_valid, int d) {
+  for (int idx = threadIdx.x; idx < BT * d; idx += NTHREADS) {
+    const int r = idx / d, c = idx - r * d;
+    if (row0 + r < rows_valid)
+      dst[(size_t)(row0 + r) * d + c] = from_float<T>(src[r * ld + c]);
+  }
+}
+
+struct Dropout {
+  int on;
+  uint32_t threshold;
+  float keep_scale;
+  uint32_t seed;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int32_t* __restrict__ k_len, T* __restrict__ dq,
+                    int H, int T_q, int T_k, int d, float sm_scale,
+                    Dropout drop) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Geom<T> g(d, 1, 1);
+  T* sQ = reinterpret_cast<T*>(smem + g.off_in[0]);
+  T* sDO = reinterpret_cast<T*>(smem + g.off_in[1]);
+  T* sK = reinterpret_cast<T*>(smem + g.off_in[2]);
+  T* sV = reinterpret_cast<T*>(smem + g.off_in[3]);
+  float* sS = reinterpret_cast<float*>(smem + g.off_s);
+  float* sDP = reinterpret_cast<float*>(smem + g.off_dp);
+  T* sDS = reinterpret_cast<T*>(smem + g.off_p[0]);
+  float* sAcc = reinterpret_cast<float*>(smem + g.off_acc[0]);
+  float* sLse = reinterpret_cast<float*>(smem + g.off_stats);
+  float* sDelta = sLse + BT;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BT;
+  const int bh = blockIdx.y;
+  int klen = k_len[bh / H];
+  klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
+
+  const size_t qbase = (size_t)bh * T_q * d, kbase = (size_t)bh * T_k * d;
+  load_tile(sQ, g.ld_in, q + qbase, q0, T_q, d, g.dp);
+  load_tile(sDO, g.ld_in, dout + qbase, q0, T_q, d, g.dp);
+  zero_fp32(sAcc, BT * g.ld_o);
+  load_stats(sLse, sDelta, lse, delta, (size_t)bh * T_q, q0, T_q);
+
+  const int n_tiles = (klen + BT - 1) / BT;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BT;
+    __syncthreads();  // previous tile's readers of sK/sV/sDS are done
+    load_tile(sK, g.ld_in, k + kbase, k0, T_k, d, g.dp);
+    load_tile(sV, g.ld_in, v + kbase, k0, T_k, d, g.dp);
+    __syncthreads();
+
+    Products<T>::abt(sQ, g.ld_in, sK, g.ld_in, sS, g.ld_s, d);
+    Products<T>::abt(sDO, g.ld_in, sV, g.ld_in, sDP, g.ld_s, d);
+    __syncthreads();
+
+    for (int idx = tid; idx < BT * BT; idx += NTHREADS) {
+      const int r = idx / BT, c = idx - r * BT;
+      float ds = 0.f;
+      if (q0 + r < T_q && k0 + c < klen) {
+        const float p = expf(sS[r * g.ld_s + c] * sm_scale - sLse[r]);
+        float dp = sDP[r * g.ld_s + c];
+        if (drop.on)
+          dp = keep_bit(drop.seed, (uint32_t)bh, (uint32_t)(q0 + r),
+                        (uint32_t)(k0 + c), drop.threshold)
+                   ? dp * drop.keep_scale
+                   : 0.f;
+        ds = p * (dp - sDelta[r]) * sm_scale;
+      }
+      sDS[r * g.ld_p + c] = from_float<T>(ds);
+    }
+    __syncthreads();
+
+    Products<T>::ab(sDS, g.ld_p, sK, g.ld_in, sAcc, g.ld_o, d, true);
+  }
+  __syncthreads();
+  store_tile(dq + qbase, sAcc, g.ld_o, q0, T_q, d);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int32_t* __restrict__ k_len, T* __restrict__ dk,
+                      T* __restrict__ dv, int H, int T_q, int T_k, int d,
+                      float sm_scale, Dropout drop) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Geom<T> g(d, 2, 2);
+  T* sK = reinterpret_cast<T*>(smem + g.off_in[0]);
+  T* sV = reinterpret_cast<T*>(smem + g.off_in[1]);
+  T* sQ = reinterpret_cast<T*>(smem + g.off_in[2]);
+  T* sDO = reinterpret_cast<T*>(smem + g.off_in[3]);
+  float* sS = reinterpret_cast<float*>(smem + g.off_s);
+  float* sDP = reinterpret_cast<float*>(smem + g.off_dp);
+  T* sPT = reinterpret_cast<T*>(smem + g.off_p[0]);    // (P keep)^T
+  T* sDST = reinterpret_cast<T*>(smem + g.off_p[1]);   // dS^T
+  float* sDK = reinterpret_cast<float*>(smem + g.off_acc[0]);
+  float* sDV = reinterpret_cast<float*>(smem + g.off_acc[1]);
+  float* sLse = reinterpret_cast<float*>(smem + g.off_stats);
+  float* sDelta = sLse + BT;
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BT;
+  const int bh = blockIdx.y;
+  int klen = k_len[bh / H];
+  klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
+
+  const size_t qbase = (size_t)bh * T_q * d, kbase = (size_t)bh * T_k * d;
+  if (k0 >= klen) {  // every key of the tile is masked: dk = dv = 0
+    for (int idx = tid; idx < BT * d; idx += NTHREADS) {
+      const int r = idx / d, c = idx - r * d;
+      if (k0 + r < T_k) {
+        dk[kbase + (size_t)(k0 + r) * d + c] = from_float<T>(0.f);
+        dv[kbase + (size_t)(k0 + r) * d + c] = from_float<T>(0.f);
+      }
+    }
+    return;
+  }
+
+  load_tile(sK, g.ld_in, k + kbase, k0, T_k, d, g.dp);
+  load_tile(sV, g.ld_in, v + kbase, k0, T_k, d, g.dp);
+  zero_fp32(sDK, BT * g.ld_o);
+  zero_fp32(sDV, BT * g.ld_o);
+
+  const int n_tiles = (T_q + BT - 1) / BT;
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int q0 = qt * BT;
+    __syncthreads();  // previous tile's readers of sQ/sDO/sPT/sDST are done
+    load_tile(sQ, g.ld_in, q + qbase, q0, T_q, d, g.dp);
+    load_tile(sDO, g.ld_in, dout + qbase, q0, T_q, d, g.dp);
+    load_stats(sLse, sDelta, lse, delta, (size_t)bh * T_q, q0, T_q);
+    __syncthreads();
+
+    // S[q row][key] and dP[q row][key]
+    Products<T>::abt(sQ, g.ld_in, sK, g.ld_in, sS, g.ld_s, d);
+    Products<T>::abt(sDO, g.ld_in, sV, g.ld_in, sDP, g.ld_s, d);
+    __syncthreads();
+
+    for (int idx = tid; idx < BT * BT; idx += NTHREADS) {
+      const int r = idx / BT, c = idx - r * BT;   // q row r, key c
+      float pk = 0.f, ds = 0.f;
+      if (q0 + r < T_q && k0 + c < klen) {
+        const float p = expf(sS[r * g.ld_s + c] * sm_scale - sLse[r]);
+        float dp = sDP[r * g.ld_s + c];
+        pk = p;
+        if (drop.on) {
+          const bool kept = keep_bit(drop.seed, (uint32_t)bh,
+                                     (uint32_t)(q0 + r), (uint32_t)(k0 + c),
+                                     drop.threshold);
+          pk = kept ? p * drop.keep_scale : 0.f;
+          dp = kept ? dp * drop.keep_scale : 0.f;
+        }
+        ds = p * (dp - sDelta[r]) * sm_scale;
+      }
+      sPT[c * g.ld_p + r] = from_float<T>(pk);
+      sDST[c * g.ld_p + r] = from_float<T>(ds);
+    }
+    __syncthreads();
+
+    Products<T>::ab(sPT, g.ld_p, sDO, g.ld_in, sDV, g.ld_o, d, true);
+    Products<T>::ab(sDST, g.ld_p, sQ, g.ld_in, sDK, g.ld_o, d, true);
+  }
+  __syncthreads();
+  store_tile(dk + kbase, sDK, g.ld_o, k0, T_k, d);
+  store_tile(dv + kbase, sDV, g.ld_o, k0, T_k, d);
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, const int32_t* k_len,
+              void* dq, int B, int H, int T_q, int T_k, int d,
+              float sm_scale, Dropout drop, cudaStream_t stream) {
+  const Geom<T> g(d, 1, 1);
+  int err = set_smem(flash_bwd_dq_kernel<T>, g.bytes);
+  if (err != 0) return err;
+  dim3 grid((T_q + BT - 1) / BT, B * H);
+  flash_bwd_dq_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      k_len, static_cast<T*>(dq), H, T_q, T_k, d, sm_scale, drop);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkdv(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                const int32_t* k_len, void* dk, void* dv, int B, int H,
+                int T_q, int T_k, int d, float sm_scale, Dropout drop,
+                cudaStream_t stream) {
+  const Geom<T> g(d, 2, 2);
+  int err = set_smem(flash_bwd_dkdv_kernel<T>, g.bytes);
+  if (err != 0) return err;
+  dim3 grid((T_k + BT - 1) / BT, B * H);
+  flash_bwd_dkdv_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      k_len, static_cast<T*>(dk), static_cast<T*>(dv), H, T_q, T_k, d,
+      sm_scale, drop);
+  return (int)cudaGetLastError();
+}
+
+bool bad_sizes(int d, int T_q, int T_k) {
+  return d <= 0 || d > 128 || d % 8 != 0 || T_q <= 0 || T_k <= 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. q/dout (B,H,T_q,d), k/v (B,H,T_k,d),
+// lse and delta (B,H,T_q) fp32, k_len (B,) int32, dq like q, dk/dv like k,
+// all contiguous on the device. dropout != 0 turns on the keep mask with
+// `threshold` (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and
+// `seed` (the int32 seed's bits), the forward's values. Each returns the
+// cudaError_t of its launch (0 = success), including a refusal of the
+// shared memory it needs.
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, const void* k_len, void* dq,
+                           int B, int H, int T_q, int T_k, int d,
+                           float sm_scale, int dropout,
+                           unsigned int threshold, float keep_scale,
+                           unsigned int seed, int dtype, void* stream) {
+  if (bad_sizes(d, T_q, T_k)) return (int)cudaErrorInvalidValue;
+  const Dropout drop{dropout, threshold, keep_scale, seed};
+  auto s = static_cast<cudaStream_t>(stream);
+  auto l = static_cast<const float*>(lse);
+  auto dl = static_cast<const float*>(delta);
+  auto kl = static_cast<const int32_t*>(k_len);
+  if (dtype == 0)
+    return launch_dq<float>(q, k, v, dout, l, dl, kl, dq, B, H, T_q, T_k, d,
+                            sm_scale, drop, s);
+  if (dtype == 1)
+    return launch_dq<__nv_bfloat16>(q, k, v, dout, l, dl, kl, dq, B, H, T_q,
+                                    T_k, d, sm_scale, drop, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, const void* k_len, void* dk,
+                             void* dv, int B, int H, int T_q, int T_k, int d,
+                             float sm_scale, int dropout,
+                             unsigned int threshold, float keep_scale,
+                             unsigned int seed, int dtype, void* stream) {
+  if (bad_sizes(d, T_q, T_k)) return (int)cudaErrorInvalidValue;
+  const Dropout drop{dropout, threshold, keep_scale, seed};
+  auto s = static_cast<cudaStream_t>(stream);
+  auto l = static_cast<const float*>(lse);
+  auto dl = static_cast<const float*>(delta);
+  auto kl = static_cast<const int32_t*>(k_len);
+  if (dtype == 0)
+    return launch_dkdv<float>(q, k, v, dout, l, dl, kl, dk, dv, B, H, T_q,
+                              T_k, d, sm_scale, drop, s);
+  if (dtype == 1)
+    return launch_dkdv<__nv_bfloat16>(q, k, v, dout, l, dl, kl, dk, dv, B,
+                                      H, T_q, T_k, d, sm_scale, drop, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

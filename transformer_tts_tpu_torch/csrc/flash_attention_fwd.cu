@@ -1,15 +1,24 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal, prefix key mask.
 //
 // Replaces the TPU kernel `_fwd_kernel` driven by `_flash_fwd`
-// (transformer_tts_tpu/ops/flash_attention.py:90-263) with causal=False,
-// no bias and no dropout: the path FastSpeech 2 synthesis runs.
+// (transformer_tts_tpu/ops/flash_attention.py:90-263) with causal=False and
+// no bias: K1 (no dropout, the path FastSpeech 2 synthesis runs) and K1-d
+// (attention-prob dropout, the path its training runs).
 //
 // What it computes, per batch-head bh = b*H + h and query row r:
 //   s[c]   = (q[r] . k[c]) * sm_scale         for keys c < k_len[b]
-//   o[r]   = sum_c softmax(s)[c] * v[c]        (input dtype)
+//   o[r]   = sum_c softmax(s)[c] * keep(r, c) * v[c]   (input dtype)
 //   lse[r] = max_c s[c] + log(sum_c exp(s[c] - max))   (fp32)
 // Keys c >= k_len[b] are excluded exactly. A row with no valid key gives
 // o = 0 and lse = -1e30 + log(1), as the TPU kernel does.
+//
+// Dropout (`_keep_mask`, :59-87): keep(r, c) is 1/(1 - rate) or 0 from a
+// murmur3 fmix32 hash of seed + bh*0x9E3779B9 + r*0x85EBCA6B +
+// c*0xC2B2AE35 (global positions, uint32 arithmetic), kept iff the hash is
+// >= int(rate * 2^32). The softmax normaliser sums the probabilities before
+// dropout; only the numerator's P is dropped, and in bf16 P times the keep
+// scale is cast to bf16 before P.V as without dropout. With dropout off the
+// kernel takes the K1 code path unchanged.
 //
 // Bound on the card: 4*B*H*T_q*T_k*d operations against Q, K, V and O read
 // or written once. At the synthesis shapes (d = 96, T = 768..2048) that is
@@ -21,39 +30,29 @@
 //     tiles takes the place of the TPU kernel's sequential k grid axis;
 //   * the q tile, each k/v tile, the score tile S, the probability tile P
 //     and the fp32 output accumulator live in shared memory;
-//   * the two products are specialised by type: bf16 runs them on the
-//     tensor cores through WMMA (bf16 in, fp32 accumulate, P cast to bf16
-//     before P.V like the TPU kernel); fp32 runs them as plain FMAs in fp32
-//     so the result matches the fp32 reference to rounding;
+//   * the two products, the tile loads and the dropout hash come from
+//     flash_common.cuh, shared with the backward: WMMA for bf16 (P cast to
+//     bf16 before P.V like the TPU kernel), FMAs for fp32 so the result
+//     matches the fp32 reference to rounding;
 //   * running max, running sum and accumulator are fp32; k tiles at or past
 //     k_len are skipped since they contribute nothing; the ragged edges in
 //     T_q, T_k and d are masked in the loads and stores, with no padding
 //     copies in device memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per k tile
-constexpr int NTHREADS = 128;   // 4 warps; warp w owns q rows 16w..16w+15
+using flash::from_float;
+using flash::keep_bit;
+using flash::load_tile;
+using flash::NTHREADS;
+using flash::Products;
+using flash::round_up;
+
+constexpr int BQ = flash::BT;   // query rows per block
+constexpr int BK = flash::BT;   // keys per k tile
 constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
 
 // Shared-memory geometry, identical on host and device.
 //   dp   : depth padded for the products (16 for WMMA, 1 for FMAs)
@@ -85,133 +84,13 @@ template <typename T> struct Geom {
   }
 };
 
-// S[BQ][BK] = Q K^T and O_tile[BQ][d] = P V, specialised by type.
-template <typename T> struct Products;
-
-template <> struct Products<float> {
-  // thread t: rows 4*(t/8)..+3, columns (t%8) + 8*j
-  __device__ static void qk(const float* sQ, const float* sK, float* sS,
-                            const Geom<float>& g, int d) {
-    const int t = threadIdx.x;
-    const int r0 = (t >> 3) * 4, c0 = t & 7;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(r0 + i) * g.ld_in + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = sK[(c0 + 8 * j) * g.ld_in + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], kv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sS[(r0 + i) * g.ld_s + c0 + 8 * j] = acc[i][j];
-  }
-
-  // thread t: rows 4*(t/8)..+3, columns (t%8) + 8*j for j < d/8 (d <= 128)
-  __device__ static void pv(const float* sP, const float* sV, float* sT,
-                            const Geom<float>& g, int d) {
-    const int t = threadIdx.x;
-    const int r0 = (t >> 3) * 4, c0 = t & 7;
-    const int nj = d >> 3;
-    float acc[4][16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(r0 + i) * g.ld_p + c];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (j < nj) {
-          float vv = sV[c * g.ld_in + c0 + 8 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (j < nj) sT[(r0 + i) * g.ld_s + c0 + 8 * j] = acc[i][j];
-  }
-};
-
-template <> struct Products<__nv_bfloat16> {
-  using bf16 = __nv_bfloat16;
-  // warp w: S rows 16w..16w+15, all BK columns
-  __device__ static void qk(const bf16* sQ, const bf16* sK, float* sS,
-                            const Geom<bf16>& g, int /*d*/) {
-    using namespace nvcuda;
-    const int w = threadIdx.x >> 5;
-    for (int nb = 0; nb < BK / 16; ++nb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kb = 0; kb < g.dp / 16; ++kb) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, sQ + 16 * w * g.ld_in + 16 * kb, g.ld_in);
-        // B[k][n] = K[n][k]: K stored row-major is B column-major
-        wmma::load_matrix_sync(b, sK + 16 * nb * g.ld_in + 16 * kb, g.ld_in);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sS + 16 * w * g.ld_s + 16 * nb, acc, g.ld_s,
-                              wmma::mem_row_major);
-    }
-  }
-
-  // warp w: O_tile rows 16w..16w+15, dp columns
-  __device__ static void pv(const bf16* sP, const bf16* sV, float* sT,
-                            const Geom<bf16>& g, int /*d*/) {
-    using namespace nvcuda;
-    const int w = threadIdx.x >> 5;
-    for (int nb = 0; nb < g.dp / 16; ++nb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kb = 0; kb < BK / 16; ++kb) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, sP + 16 * w * g.ld_p + 16 * kb, g.ld_p);
-        wmma::load_matrix_sync(b, sV + 16 * kb * g.ld_in + 16 * nb, g.ld_in);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sT + 16 * w * g.ld_s + 16 * nb, acc, g.ld_s,
-                              wmma::mem_row_major);
-    }
-  }
-};
-
-// rows [row0, row0+BQ) x columns [0, width) of a (rows_valid, d) matrix into
-// shared memory; zero past rows_valid and past d
-template <typename T>
-__device__ void load_tile(T* dst, int ld, const T* src, int row0,
-                          int rows_valid, int d, int width) {
-  for (int idx = threadIdx.x; idx < BQ * width; idx += NTHREADS) {
-    const int r = idx / width, c = idx - r * width;
-    const int row = row0 + r;
-    T val = from_float<T>(0.f);
-    if (row < rows_valid && c < d) val = src[(size_t)row * d + c];
-    dst[r * ld + c] = val;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int32_t* __restrict__ k_len,
                  T* __restrict__ o, float* __restrict__ lse, int H, int T_q,
-                 int T_k, int d, float sm_scale) {
+                 int T_k, int d, float sm_scale, int dropout,
+                 uint32_t threshold, float keep_scale, uint32_t seed) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geom<T> g(d);
   T* sQ = reinterpret_cast<T*>(smem);
@@ -256,7 +135,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile(sV, g.ld_in, vb, k0, T_k, d, g.dp);
     __syncthreads();
 
-    Products<T>::qk(sQ, sK, sS, g, d);
+    Products<T>::abt(sQ, g.ld_in, sK, g.ld_in, sS, g.ld_s, d);   // S = Q K^T
     __syncthreads();
 
     // online-softmax update of row srow over columns shalf*32 .. +31
@@ -277,7 +156,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float s = srow_s[c] * sm_scale;
         const float p = (cbase + c < klen) ? expf(s - m_new) : 0.f;
         sum += p;
-        prow[c] = from_float<T>(p);
+        if (dropout) {
+          const bool kept = keep_bit(seed, (uint32_t)bh,
+                                     (uint32_t)(q0 + srow),
+                                     (uint32_t)(cbase + c), threshold);
+          prow[c] = from_float<T>(kept ? p * keep_scale : 0.f);
+        } else {
+          prow[c] = from_float<T>(p);
+        }
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       const float alpha = expf(m_prev - m_new);
@@ -290,7 +176,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    Products<T>::pv(sP, sV, sS, g, d);
+    Products<T>::ab(sP, g.ld_p, sV, g.ld_in, sS, g.ld_s, d, false);  // P V
     __syncthreads();
 
     for (int idx = tid; idx < BQ * d; idx += NTHREADS) {
@@ -319,7 +205,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int32_t* k_len,
            void* o, float* lse, int B, int H, int T_q, int T_k, int d,
-           float sm_scale, cudaStream_t stream) {
+           float sm_scale, int dropout, uint32_t threshold, float keep_scale,
+           uint32_t seed, cudaStream_t stream) {
   const Geom<T> g(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -329,7 +216,7 @@ int launch(const void* q, const void* k, const void* v, const int32_t* k_len,
   flash_fwd_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), k_len, static_cast<T*>(o), lse, H, T_q, T_k,
-      d, sm_scale);
+      d, sm_scale, dropout, threshold, keep_scale, seed);
   return (int)cudaGetLastError();
 }
 
@@ -339,21 +226,26 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q (B,H,T_q,d), k/v (B,H,T_k,d),
 // o like q, lse (B,H,T_q) fp32, k_len (B,) int32, all contiguous on the
-// device. Returns the cudaError_t of the launch (0 = success).
+// device. dropout != 0 turns on the keep mask with `threshold`
+// (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and `seed` (the
+// int32 seed's bits). Returns the cudaError_t of the launch (0 = success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* k_len, void* o, void* lse, int B, int H,
-                        int T_q, int T_k, int d, float sm_scale, int dtype,
-                        void* stream) {
+                        int T_q, int T_k, int d, float sm_scale, int dropout,
+                        unsigned int threshold, float keep_scale,
+                        unsigned int seed, int dtype, void* stream) {
   if (d <= 0 || d > 128 || d % 8 != 0 || T_q <= 0 || T_k <= 0)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto kl = static_cast<const int32_t*>(k_len);
   auto l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch<float>(q, k, v, kl, o, l, B, H, T_q, T_k, d, sm_scale, s);
+    return launch<float>(q, k, v, kl, o, l, B, H, T_q, T_k, d, sm_scale,
+                         dropout, threshold, keep_scale, seed, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, kl, o, l, B, H, T_q, T_k, d,
-                                 sm_scale, s);
+                                 sm_scale, dropout, threshold, keep_scale,
+                                 seed, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,15 @@
-"""Collation of synthesis inputs (the port of the test-mode part of
-``collate``, transformer_tts_tpu/data/batching.py:25-101).
+"""Collation to bucket shapes (the port of ``pick_bucket``,
+``pick_batch_bucket`` and ``collate``, transformer_tts_tpu/data/
+batching.py:25-197, for FastSpeech 2).
 
-Text is padded with 0 to the smallest of ``hp.text_buckets`` that holds
-the longest utterance, as the JAX package pads it, so both packages see
-the same padded length; ``pos_text`` is 1-based and 0 on padding.
+Text pads with 0 to the smallest of ``hp.text_buckets`` that holds the
+longest utterance and, in training, mels pad to the smallest of
+``hp.length_buckets``, as the JAX package pads them, so shapes repeat from
+step to step and both packages see the same padded lengths. ``pos_text``
+and ``pos_mel`` are 1-based and 0 on padding. Pad values: mel -0.5 when
+normalised, else -5.0; f0, energy and alignment 0. With ``pad_batch`` the
+batch grows to a power of two with empty rows; durations that overflow the
+mel bucket are cut at its edge.
 """
 
 from __future__ import annotations
@@ -11,6 +17,9 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+MEL_PAD_NORMALIZED = -0.5
+MEL_PAD_RAW = -5.0
 
 
 def pick_bucket(value: int, buckets: Sequence[int]) -> int:
@@ -22,9 +31,32 @@ def pick_bucket(value: int, buckets: Sequence[int]) -> int:
     return -(-value // 128) * 128
 
 
-def collate(samples: List[dict], hp) -> Dict[str, np.ndarray]:
-    """-> {text (B, L), pos_text (B, L), text_length (B,)} int32 arrays."""
-    b = len(samples)
+def pick_batch_bucket(n: int, buckets: Sequence[int] = (1, 2, 4, 8, 16, 32,
+                                                        64, 128)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return -(-n // 128) * 128
+
+
+def _clip_durations(alignment: np.ndarray, mel_len: int) -> None:
+    """Cut each row's durations where their sum passes ``mel_len``."""
+    for i in np.flatnonzero(alignment.sum(axis=1) > mel_len):
+        d = alignment[i]                      # a view: edits stay
+        cum = np.cumsum(d)
+        d[cum > mel_len] = 0
+        edge = np.searchsorted(cum, mel_len, side="left")
+        if edge < len(d):
+            d[edge] = mel_len - (cum[edge - 1] if edge > 0 else 0)
+
+
+def collate(samples: List[dict], hp, *,
+            pad_batch: bool = False) -> Dict[str, np.ndarray]:
+    """-> {text, pos_text, text_length} int32 arrays, and for training
+    samples also mel (B, T, mel_dim), pos_mel, mel_length, alignment, f0
+    and energy."""
+    n_real = len(samples)
+    b = pick_batch_bucket(n_real) if pad_batch else n_real
     text_len = pick_bucket(max(s["text_length"] for s in samples),
                            hp.text_buckets)
     text = np.zeros((b, text_len), np.int32)
@@ -33,6 +65,33 @@ def collate(samples: List[dict], hp) -> Dict[str, np.ndarray]:
         n = s["text_length"]
         text[i, :n] = s["text"]
         pos_text[i, :n] = np.arange(1, n + 1)
-    return {"text": text, "pos_text": pos_text,
-            "text_length": np.array([s["text_length"] for s in samples],
-                                    np.int32)}
+    out = {"text": text, "pos_text": pos_text,
+           "text_length": np.array([s["text_length"] for s in samples]
+                                   + [0] * (b - n_real), np.int32)}
+    if "mel" not in samples[0]:
+        return out
+
+    mel_len = pick_bucket(max(s["mel_length"] for s in samples),
+                          hp.length_buckets)
+    mel_pad = MEL_PAD_NORMALIZED if hp.mean_file is not None else MEL_PAD_RAW
+    mel = np.full((b, mel_len, samples[0]["mel"].shape[1]), mel_pad,
+                  np.float32)
+    pos_mel = np.zeros((b, mel_len), np.int32)
+    for i, s in enumerate(samples):
+        n = min(s["mel_length"], mel_len)
+        mel[i, :n] = s["mel"][:n]
+        pos_mel[i, :n] = np.arange(1, n + 1)
+    out.update(mel=mel, pos_mel=pos_mel, mel_length=np.array(
+        [s["mel_length"] for s in samples] + [0] * (b - n_real), np.int32))
+    for key, dtype in (("alignment", np.int32), ("f0", np.float32),
+                       ("energy", np.float32)):
+        if key in samples[0]:
+            length = text_len if key == "alignment" else mel_len
+            arr = np.zeros((b, length), dtype)
+            for i, s in enumerate(samples):
+                v = np.asarray(s[key], dtype)[:length]
+                arr[i, :len(v)] = v
+            out[key] = arr
+    if "alignment" in out:
+        _clip_durations(out["alignment"], mel_len)
+    return out

@@ -1,16 +1,23 @@
-"""Script files for synthesis (the port of ``parse_script`` and the
-test-mode part of ``TTSDataset``, transformer_tts_tpu/data/dataset.py).
+"""Script-file datasets (the port of ``parse_script`` and ``TTSDataset``,
+transformer_tts_tpu/data/dataset.py:39-267, for FastSpeech 2).
 
 Script format: ``mel_path|text_ids[|...]`` per line, pipe-separated, with
-space-separated integer ids. SentencePiece text and the training-time
-targets (alignment, f0, energy, speakers) come with later slices.
+space-separated integer ids. ``ScriptDataset`` gives the text of each line
+(synthesis); ``TTSDataset`` adds, for training, the normalised mel and the
+sibling files of ``X.npy``: ``X{tail_alignment}.npy`` (per-phone
+durations), ``X_f0.npy`` and ``X_energy.npy``. SentencePiece text,
+speakers, accents and the AR models' go frame come with later slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import os
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from transformer_tts_tpu_torch.config import is_nar_model
+from transformer_tts_tpu_torch.data.readers import Normalizer, load_mel
 
 
 def parse_script(path: str) -> List[List[str]]:
@@ -44,3 +51,56 @@ class ScriptDataset:
         row = self.rows[idx]
         text = encode_text(row[1].strip())
         return {"mel_name": row[0], "text": text, "text_length": len(text)}
+
+
+class TTSDataset(ScriptDataset):
+    """FastSpeech 2 training samples: text, the normalised mel and its
+    length, and the alignment, f0 and energy targets the hparams ask
+    for."""
+
+    def __init__(self, script_path: str, hp):
+        super().__init__(script_path, hp)
+        from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
+        if not is_nar_model(hp.model):
+            later_slice(f"training data for the AR model {hp.model!r}",
+                        "AR Transformer-TTS")
+        if hp.is_multi_speaker or hp.accent_emb or hp.use_hop:
+            later_slice("speaker, accent and hop-size inputs",
+                        "other model families")
+        self.hp = hp
+        self.normalizer = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim)
+
+    def _sibling(self, mel_name: str, tail: str, dtype) -> np.ndarray:
+        return np.load(mel_name.replace(".npy", tail)).astype(dtype)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        hp = self.hp
+        sample = super().__getitem__(idx)
+        mel_name = sample["mel_name"]
+        mel = self.normalizer(load_mel(mel_name, hp.mel_dim))
+        sample["mel"] = mel.astype(np.float32)
+        sample["mel_length"] = mel.shape[0]
+        sample["alignment"] = self._sibling(
+            mel_name, hp.tail_alignment + ".npy", np.int32)
+        if hp.pitch_pred:
+            sample["f0"] = self._sibling(mel_name, "_f0.npy", np.float32)
+        if hp.energy_pred:
+            sample["energy"] = self._sibling(mel_name, "_energy.npy",
+                                             np.float32)
+        return sample
+
+    def mel_lengths(self, cache_file: Optional[str] = None) -> np.ndarray:
+        """Per-utterance mel lengths, from the .npy headers alone (cached
+        in ``cache_file`` when given)."""
+        if cache_file and os.path.exists(cache_file):
+            lengths = np.load(cache_file)
+            if len(lengths) != len(self):
+                raise ValueError(
+                    f"lengths file {cache_file} has {len(lengths)} entries "
+                    f"for a {len(self)}-utterance script")
+            return lengths
+        lengths = np.array([np.load(row[0], mmap_mode="r").shape[0]
+                            for row in self.rows])
+        if cache_file:
+            np.save(cache_file, lengths)
+        return lengths

@@ -51,12 +51,12 @@ class _Stack(nn.Module):
             return mask[:, 0, :].sum(-1).to(torch.int32)
         return None
 
-    def _layers(self, x, mask, collect_attn, *pos):
+    def _layers(self, x, mask, collect_attn, *pos, generator=None):
         k_len = self._key_lengths(mask)
         attns = []
         for layer in self.layers:
             x, attn = layer(x, *pos, mask, collect_attn=collect_attn,
-                            k_len=k_len)
+                            k_len=k_len, generator=generator)
             if collect_attn:
                 attns.append(attn)
         x = self.norm(x)
@@ -75,10 +75,13 @@ class Encoder(_Stack):
                           concat_after=concat_after, use_flash=use_flash)
              for _ in range(n_layers)))
 
-    def forward(self, src, mask, *, collect_attn: bool = False):
+    def forward(self, src, mask, *, collect_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         """``src`` (B, T) ids or (B, T, C) features; ``mask`` (B, 1, T)
-        bool. Returns (x (B, T, d_model), attn (B, N, H, T, T) or None)."""
-        return self._layers(self.pe(self._input(src)), mask, collect_attn)
+        bool; ``generator`` seeds the kernel path's dropout. Returns
+        (x (B, T, d_model), attn (B, N, H, T, T) or None)."""
+        return self._layers(self.pe(self._input(src)), mask, collect_attn,
+                            generator=generator)
 
 
 class ConformerEncoder(_Stack):
@@ -92,7 +95,9 @@ class ConformerEncoder(_Stack):
                                    use_flash=use_flash)
              for _ in range(n_layers)))
 
-    def forward(self, src, mask, *, collect_attn: bool = False):
+    def forward(self, src, mask, *, collect_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         """As ``Encoder.forward``."""
         x, pos_emb = self.pe(self._input(src))
-        return self._layers(x, mask, collect_attn, pos_emb)
+        return self._layers(x, mask, collect_attn, pos_emb,
+                            generator=generator)

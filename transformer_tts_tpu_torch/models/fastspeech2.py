@@ -10,9 +10,12 @@ caller gives ``max_frames``, the mel length the variance adaptor expands
 to; frames past the realized length are masked.
 
 ``amp`` runs the forward under bf16 autocast (the JAX package's
-``dtype=bfloat16`` with fp32 parameters). Tacotron 2 decoders, speakers,
-SQ-VAE, hop-size embeddings, the mel-to-mel post model and the CTC tap
-raise ``NotImplementedError``: they come with later slices.
+``dtype=bfloat16`` with fp32 parameters). In train mode the caller's
+``generator`` seeds the kernel path's attention dropout and the scheduled
+sampling; the other dropouts draw from torch's default generators.
+Tacotron 2 decoders, speakers, SQ-VAE, hop-size embeddings, the mel-to-mel
+post model and the CTC tap raise ``NotImplementedError``: they come with
+later slices.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ class FastSpeech2(nn.Module):
                  log_offset: float = 1.0, pitch_pred: bool = True,
                  energy_pred: bool = True, f0_stats: Optional[tuple] = None,
                  energy_stats: Optional[tuple] = None,
+                 p_scheduled_sampling: float = 0.0,
                  use_flash: bool = False, amp: bool = False):
         super().__init__()
         self.log_offset = log_offset
@@ -84,7 +88,7 @@ class FastSpeech2(nn.Module):
         self.variance_adaptor = VarianceAdaptor(
             d_model_encoder, n_bins, f0_min, f0_max, energy_min, energy_max,
             log_offset, pitch_pred, energy_pred, dropout_variance_adaptor,
-            f0_stats, energy_stats)
+            f0_stats, energy_stats, p_scheduled_sampling)
         self.decoder = _stack(
             decoder_type, vocab_size=d_model_encoder,
             d_model=d_model_decoder, n_layers=n_layer_decoder,
@@ -101,19 +105,23 @@ class FastSpeech2(nn.Module):
     def forward(self, text, src_mask, max_frames: int, d_target=None,
                 p_target=None, e_target=None, mel_mask=None, *,
                 collect_attn: bool = False, pitch_scale: float = 1.0,
-                duration_scale: float = 1.0) -> FastSpeech2Output:
+                duration_scale: float = 1.0,
+                generator: Optional[torch.Generator] = None
+                ) -> FastSpeech2Output:
         """``text`` (B, L) ids, ``src_mask`` (B, 1, L) bool; the targets
         teacher-force durations (B, L), pitch and energy (B, T)."""
         with torch.autocast(text.device.type, dtype=torch.bfloat16,
                             enabled=self.amp):
             e_outputs, attn_enc = self.encoder(text, src_mask,
-                                               collect_attn=collect_attn)
+                                               collect_attn=collect_attn,
+                                               generator=generator)
             va = self.variance_adaptor(
                 e_outputs, src_mask, max_frames, d_target, p_target,
                 e_target, mel_mask, pitch_scale=pitch_scale,
-                duration_scale=duration_scale)
+                duration_scale=duration_scale, generator=generator)
             d_output, attn_dec = self.decoder(va.x, va.mel_mask,
-                                              collect_attn=collect_attn)
+                                              collect_attn=collect_attn,
+                                              generator=generator)
             if self.postnet_pred:
                 mel_pre, mel_post = self.postnet(d_output)
             else:
@@ -150,7 +158,7 @@ def _check_supported(hp: HParams) -> None:
         later_slice("the mel-to-mel post model (post_model)",
                     "mel-to-mel post-processing")
     if hp.CTC_training:
-        later_slice("the CTC tap (ctc)", "training")
+        later_slice("the CTC tap (ctc)", "other model families")
     if hp.use_pos or hp.use_rnn_length:
         later_slice("use_pos / use_rnn_length in the variance adaptor",
                     "other model families")
@@ -222,6 +230,7 @@ def build_fastspeech2(hp: HParams, *, device="cuda",
         energy_pred=hp.energy_pred,
         f0_stats=_variance_stats(hp.f0_mean, hp.f0_std),
         energy_stats=_variance_stats(hp.energy_mean, hp.energy_std),
+        p_scheduled_sampling=hp.p_scheduled_sampling,
         use_flash=hp.use_flash_attention,
         amp=hp.amp)
     init_parameters(model, torch.Generator().manual_seed(seed))

@@ -36,10 +36,11 @@ class EncoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x, mask, *, collect_attn: bool = False,
-                k_len: Optional[torch.Tensor] = None):
+                k_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         h = self.norm_1(x)
         out, attn = self.attn(h, h, h, mask, collect_attn=collect_attn,
-                              k_len=k_len)
+                              k_len=k_len, generator=generator)
         x = x + self.dropout(out)
         x = x + self.dropout(self.ff(self.norm_2(x)))
         return x, attn
@@ -58,7 +59,10 @@ class ConformerEncoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x, pos_emb, mask, *, collect_attn: bool = False,
-                k_len: Optional[torch.Tensor] = None):
+                k_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` is accepted for the stack's sake; the relative
+        kernel path has no dropout yet (K5)."""
         x = x + 0.5 * self.ff_1(x)
         res = x
         h = self.norm(x)

@@ -1,7 +1,7 @@
 """Variance adaptor: duration, pitch and energy prediction plus length
 regulation (the port of transformer_tts_tpu/models/variance_adaptor.py:
-36-189, without scheduled sampling, which is training-only, and without
-``use_pos``/``use_rnn_length``, which come with a later slice).
+36-189, without ``use_pos``/``use_rnn_length``, which come with the other
+model families).
 
 * ``VariancePredictor``: (Conv1d(k=3) -> ReLU -> LayerNorm -> dropout) x 2
   -> Linear -> one value per position, 0 where the mask is False.
@@ -12,6 +12,10 @@ regulation (the port of transformer_tts_tpu/models/variance_adaptor.py:
   energy bins ``linspace(energy_min, energy_max, nbins-1)``, in fp32;
   ``torch.bucketize(right=False)`` equals ``jnp.searchsorted``'s default
   side left.
+* Scheduled sampling (train mode, ``p_scheduled_sampling`` > 0): per
+  utterance, with probability p, the pitch embedding reads the
+  prediction instead of the target; the draws come from the caller's
+  ``generator`` (a CPU generator), as ``uniform(B, 1) < p``.
 """
 
 from __future__ import annotations
@@ -76,9 +80,11 @@ class VarianceAdaptor(nn.Module):
                  energy_max: float = 315.0, log_offset: float = 1.0,
                  pitch_pred: bool = True, energy_pred: bool = True,
                  dropout: float = 0.5, f0_stats: Optional[tuple] = None,
-                 energy_stats: Optional[tuple] = None):
+                 energy_stats: Optional[tuple] = None,
+                 p_scheduled_sampling: float = 0.0):
         super().__init__()
         self.log_offset = log_offset
+        self.p_scheduled_sampling = p_scheduled_sampling
         # optional (mean, std): the predictors then work in standardized
         # units and are de-standardized before the bucketized embeddings
         self.f0_stats = f0_stats
@@ -110,8 +116,9 @@ class VarianceAdaptor(nn.Module):
 
     def forward(self, x, src_mask, max_frames: int, duration_target=None,
                 pitch_target=None, energy_target=None, mel_mask=None, *,
-                pitch_scale: float = 1.0,
-                duration_scale: float = 1.0) -> VarianceAdaptorOutput:
+                pitch_scale: float = 1.0, duration_scale: float = 1.0,
+                generator: Optional[torch.Generator] = None
+                ) -> VarianceAdaptorOutput:
         log_d = self.duration_predictor(x, src_mask)
         if duration_target is not None:
             durations = duration_target.long()
@@ -131,10 +138,19 @@ class VarianceAdaptor(nn.Module):
         out = x
         if self.pitch_predictor is not None:
             pitch = self.pitch_predictor(x, mel_mask)
+            pitch_raw = self._destandardize(pitch, self.f0_stats)
             if pitch_target is not None:
                 src = pitch_target
+                p = self.p_scheduled_sampling
+                if self.training and p > 0.0:
+                    swap = torch.rand((x.shape[0], 1),
+                                      generator=generator) < p
+                    if x.device.type == "cuda":   # copy without a wait
+                        swap = swap.pin_memory()
+                    src = torch.where(swap.to(x.device, non_blocking=True),
+                                      pitch_raw, src)
             else:
-                src = self._destandardize(pitch, self.f0_stats) * pitch_scale
+                src = pitch_raw * pitch_scale
             idx = torch.bucketize(src.float(), self.pitch_bins)
             out = out + self.pitch_embedding(idx)
         if self.energy_predictor is not None:

@@ -8,8 +8,10 @@ causal masks, which come with the AR slice).
   dtype before P.V;
 * separate q/k/v projections and the optional ``concat_after``;
 * attention over at least ``FLASH_MIN_KEY_LEN`` keys with a prefix key
-  mask given as ``k_len`` goes to the flash-attention kernel
-  (ops/flash_attention.py), when no attention maps are asked for;
+  mask given as ``k_len`` goes to the flash-attention kernels
+  (ops/flash_attention.py), when no attention maps are asked for; in
+  train mode their attention-prob dropout runs inside the kernel, with a
+  fresh int32 seed per call drawn from the caller's ``generator``;
 * relative-position self-attention under the same rule goes to K4
   (ops/flash_relpos.py); its masked path fills with -2^15 after scaling.
 """
@@ -101,8 +103,14 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, q_in, k_in, v_in, mask=None, *,
                 collect_attn: bool = False,
-                k_len: Optional[torch.Tensor] = None):
-        """Returns (output (B, T_q, d_model), probs or None)."""
+                k_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """Returns (output (B, T_q, d_model), probs or None).
+
+        ``generator`` (a CPU generator, so drawing never waits for the
+        card) seeds the kernel path's dropout; None draws from torch's
+        default CPU generator.
+        """
         b = q_in.shape[0]
         q = self._heads(self.q_linear(q_in))
         k = self._heads(self.k_linear(k_in))
@@ -116,13 +124,16 @@ class MultiHeadAttention(nn.Module):
                 "k_len stands for a prefix key mask; a structured (B, T, T) "
                 "mask needs k_len=None")
         if flash_ok:
+            rate, seed = 0.0, 0
             if self.training and self.dropout.p > 0.0:
-                raise NotImplementedError(
-                    "attention-prob dropout inside the kernel (K1-d) comes "
-                    "with the training slice of the port")
+                rate = self.dropout.p
+                seed = int(torch.randint(-2 ** 31, 2 ** 31, (),
+                                         generator=generator))
             context, _ = flash_attention(q.contiguous(), k.contiguous(),
                                          v.contiguous(),
-                                         k_len.to(torch.int32).contiguous())
+                                         k_len.to(torch.int32).contiguous(),
+                                         dropout_rate=rate,
+                                         dropout_seed=seed)
             probs = None
         else:
             context, probs = scaled_dot_attention(q, k, v, mask,

@@ -4,7 +4,9 @@ Every source under ``transformer_tts_tpu_torch/csrc/`` is a ``.cu`` file
 with a plain C interface (no PyTorch headers), so ``nvcc`` builds each in
 seconds. A library is built at its first use into ``build/torch_kernels/``
 at the root of the checkout, under a name that carries a hash of its
-source, so an edited source is rebuilt and an unchanged one is reused.
+source and of the shared headers (``csrc/*.cuh``, found by ``nvcc`` beside
+the source), so an edited source or header is rebuilt and an unchanged one
+is reused.
 Several sources build in parallel: one ``nvcc`` process each, all started
 together (:func:`build`).
 
@@ -41,8 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

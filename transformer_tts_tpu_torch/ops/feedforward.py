@@ -9,7 +9,10 @@ The conformer's blocks: ``ConformerFeedForward`` (LN, Linear(d -> 2d),
 Swish, dropout, Linear, dropout) and ``ConformerConvModule`` (LN,
 pointwise conv d -> 2d and GLU, depthwise conv k=31 and its extra 1x1,
 BatchNorm, ReLU, pointwise conv, dropout). BatchNorm follows flax: eps
-1e-5, momentum 0.99 (torch ``momentum=0.01``).
+1e-5, momentum 0.99 (torch ``momentum=0.01``); in train mode it normalises
+with the batch's statistics over every frame, padded ones included, and
+moves the running variance towards the *biased* batch variance, as flax
+does (torch's own BatchNorm moves it towards the unbiased one).
 """
 
 from __future__ import annotations
@@ -24,9 +27,33 @@ from torch import nn
 LN_EPS = 1e-6
 
 
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` on (B, C, T) with flax's train-mode statistics:
+    mean and variance in fp32 over (B, T), the variance as
+    max(0, E[x^2] - E[x]^2) (flax's fast variance, biased), and the running
+    statistics moved by ``momentum`` towards those values. Eval mode is
+    torch's, with the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        return y.to(x.dtype)
+
+
 def batch_norm(channels: int) -> nn.BatchNorm1d:
-    """BatchNorm1d with flax's defaults."""
-    return nn.BatchNorm1d(channels, eps=1e-5, momentum=0.01)
+    """BatchNorm1d with flax's defaults and train-mode statistics."""
+    return FlaxBatchNorm1d(channels, eps=1e-5, momentum=0.01)
 
 
 class Conv1dBTC(nn.Conv1d):

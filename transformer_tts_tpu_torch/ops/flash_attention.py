@@ -1,29 +1,44 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain version.
+"""Flash attention: the hand-written Hopper kernels and their plain versions.
 
-``flash_attention`` replaces the TPU kernel ``_fwd_kernel`` driven by
-``_flash_fwd`` (transformer_tts_tpu/ops/flash_attention.py:90-263) on the
-path synthesis runs: non-causal, no bias, no dropout. It computes
+The port of transformer_tts_tpu/ops/flash_attention.py on the paths the
+FastSpeech 2 models run: non-causal, no bias, a prefix key mask given as
+``k_len``, and attention-prob dropout from a counter hash.
 
-    o   = softmax(q k^T * sm_scale, keys c < k_len[b]) v
+    o   = (softmax(q k^T * sm_scale, keys c < k_len[b]) * keep) v
     lse = row logsumexp of the masked, scaled logits (fp32)
 
-without writing the (B, H, T_q, T_k) scores to device memory. Keys at or
-past ``k_len[b]`` are excluded exactly; a row with no valid key gives
-o = 0 and lse = -1e30 (the TPU kernel's convention; the masked-fill path
-of ``ops/attention.scaled_dot_attention`` gives the uniform average there
-instead, on query rows that only padding reads).
+``keep`` is ``keep_mask``: a murmur3 hash of the global (batch-head, query,
+key) coordinates and a per-call seed, kept with probability 1 - rate and
+scaled by 1/(1 - rate); the softmax normaliser sums the probabilities
+before dropout. Keys at or past ``k_len[b]`` are excluded exactly; a row
+with no valid key gives o = 0 and lse = -1e30 (the TPU kernel's
+convention; the masked-fill path of ``ops/attention.scaled_dot_attention``
+gives the uniform average there instead, on query rows that only padding
+reads).
 
-Kernel: ``csrc/flash_attention_fwd.cu``, CUDA C++ for sm_90a, fp32 and
-bf16. Its bound on an H100 is the tensor-core rate: 4*B*H*T_q*T_k*d
-operations over 989 TFLOP/s (bf16) against Q, K, V and O moved once over
-3.35 TB/s, ~0.9 us at (1, 4, 768, 96) and ~52 us at (8, 4, 2048, 96).
-Design: one 128-thread block per 64 query rows of one batch-head, a loop
-over 64-key tiles staged in shared memory, fp32 running max, sum and
-accumulator, WMMA tensor-core products for bf16 and FMA products for fp32;
-see the source for the details. PERF.md holds its measured times.
+Kernels, CUDA C++ for sm_90a in fp32 and bf16, bound by the tensor-core
+rate at the decoder's shapes:
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises.
+* K1 and K1-d, ``csrc/flash_attention_fwd.cu``: the forward
+  (``_fwd_kernel``, :90-174), without and with dropout. 4*H*T_q*sum(k_len)*d
+  operations against Q, K, V and O moved once.
+* K2, ``csrc/flash_attention_bwd.cu``: the FlashAttention-2 backward
+  (``_dq_kernel`` :266, ``_dkdv_kernel`` :344), P rebuilt from lse and the
+  keep mask from the hash, ``delta = rowsum(dO*O)`` a torch reduction as in
+  ``_flash_bwd``. 10*H*T_q*sum(k_len)*d operations (five products) against
+  Q, K, V, O, dO, dQ, dK and dV moved once.
+
+Design of both: one 128-thread block per 64-row tile and batch-head, a loop
+over 64-row tiles of the other sequence staged in shared memory, fp32
+statistics and accumulators, WMMA tensor-core products for bf16 and FMA
+products for fp32; see the sources. PERF.md holds their measured times.
+
+``flash_attention`` is differentiable in q, k and v through
+``FlashAttention``. On a CPU tensor every wrapper computes the plain
+version; on a CUDA tensor it launches its kernel or raises. The launch
+counts are ``flash_attention.launches`` (K1), ``.dropout_launches`` (K1-d),
+``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkdv.launches``
+(K2).
 """
 
 from __future__ import annotations
@@ -32,49 +47,206 @@ import ctypes
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
 KERNEL = "flash_attention_fwd"
+BWD_KERNEL = "flash_attention_bwd"
 MAX_HEAD_DIM = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_U32 = 0xFFFFFFFF
+
+
+# ---- the dropout hash -------------------------------------------------------
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 ``x`` in [0, 2^32): the product is split
+    in 16-bit halves so that no int64 product overflows."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def keep_bits(seed: int, bh, row, col, dropout_rate: float) -> torch.Tensor:
+    """Bool keep mask of the counter hash, broadcast over the int64 tensors
+    ``bh``, ``row`` and ``col`` (global batch-head, query and key indices).
+
+    x = seed + bh*0x9E3779B9 + row*0x85EBCA6B + col*0xC2B2AE35, then
+    murmur3 fmix32, all in uint32 arithmetic (int64 masked to 32 bits, as
+    torch's int32 ``>>`` is arithmetic); kept iff x >= int(rate * 2^32).
+    The kernels' copy, shared by K1-d and K2, is ``keep_bit`` in
+    ``csrc/flash_common.cuh``.
+    """
+    x = (int(seed) & _U32) + _mul_u32(bh, 0x9E3779B9)
+    x = (x + _mul_u32(row, 0x85EBCA6B)) & _U32
+    x = (x + _mul_u32(col, 0xC2B2AE35)) & _U32
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul_u32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x >= int(dropout_rate * (2 ** 32))
+
+
+def keep_mask(seed: int, bh: int, q_offset: int, k_offset: int, shape,
+              dropout_rate: float, device=None) -> torch.Tensor:
+    """The (keep / (1 - rate)) fp32 tile of ``shape`` = (rows, cols) whose
+    first element is (q_offset, k_offset): the port of ``_keep_mask``."""
+    rows = torch.arange(shape[0], dtype=torch.int64, device=device)
+    cols = torch.arange(shape[1], dtype=torch.int64, device=device)
+    bh = torch.tensor(int(bh), dtype=torch.int64, device=device)
+    keep = keep_bits(seed, bh, (q_offset + rows)[:, None],
+                     (k_offset + cols)[None, :], dropout_rate)
+    return keep.to(torch.float32) / (1.0 - dropout_rate)
+
+
+def _full_keep_mask(b: int, h: int, t_q: int, t_k: int, seed: int,
+                    dropout_rate: float, device) -> torch.Tensor:
+    """(B, H, T_q, T_k) keep scale with bh = b*H + h."""
+    bh = torch.arange(b * h, dtype=torch.int64, device=device)
+    rows = torch.arange(t_q, dtype=torch.int64, device=device)
+    cols = torch.arange(t_k, dtype=torch.int64, device=device)
+    keep = keep_bits(seed, bh.view(b, h, 1, 1), rows.view(t_q, 1),
+                     cols.view(1, t_k), dropout_rate)
+    return keep.to(torch.float32) / (1.0 - dropout_rate)
+
+
+def _dropout_args(dropout_rate: float, dropout_seed: int):
+    """(flag, threshold, keep scale, seed) as the kernels take them: the
+    threshold int(rate * 2^32) as JAX computes it, the scale 1/(1-rate) in
+    fp32 and the int32 seed as its uint32 bits."""
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
+    if dropout_rate == 0.0:
+        return 0, 0, 1.0, 0
+    scale = float(np.float32(1.0) / np.float32(1.0 - dropout_rate))
+    return (1, int(dropout_rate * (2 ** 32)), scale,
+            int(dropout_seed) & _U32)
+
+
+# ---- plain versions ---------------------------------------------------------
+
+def _valid_keys(t_k: int, k_len: torch.Tensor, device) -> torch.Tensor:
+    """(B, 1, 1, T_k) bool, True for keys c < k_len[b]."""
+    return (torch.arange(t_k, device=device)[None, :]
+            < k_len.to(device)[:, None])[:, None, None, :]
 
 
 def flash_attention_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
-    sm_scale: float,
+    sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: the same (o, lse).
+    """Plain PyTorch version of K1 and K1-d: the same (o, lse).
 
     Products take the inputs' values in fp32 (a bf16 product is exact in
-    fp32) and the probabilities are cast to the value dtype before P.V, as
-    the TPU kernel and ``reference_attention`` do.
+    fp32) and the probabilities, times the keep scale, are cast to the
+    value dtype before P.V, as the TPU kernel and ``reference_attention``
+    do.
     """
     with torch.autocast(q.device.type, enabled=False):
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-        return masked_softmax_pv(s, v, k_len, q.dtype)
+        keep = None
+        if dropout_rate > 0.0:
+            b, h, t_q, t_k = s.shape
+            keep = _full_keep_mask(b, h, t_q, t_k, dropout_seed,
+                                   dropout_rate, s.device)
+        return masked_softmax_pv(s, v, k_len, q.dtype, keep=keep)
 
 
 def masked_softmax_pv(
     s: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
-    out_dtype: torch.dtype,
+    out_dtype: torch.dtype, keep: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) from fp32 scaled logits ``s`` (B, H, T_q, T_k): keys at or
     past ``k_len[b]`` excluded exactly, a row with no valid key giving
-    o = 0 and lse = -1e30. Shared by the kernels' plain versions."""
-    valid = (torch.arange(s.shape[-1], device=s.device)[None, :]
-             < k_len.to(s.device)[:, None])[:, None, None, :]
+    o = 0 and lse = -1e30; ``keep`` (the dropout scale) multiplies the
+    normalised probabilities. Shared by the kernels' plain versions."""
+    valid = _valid_keys(s.shape[-1], k_len, s.device)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros((), device=s.device))
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l > 0, l, torch.ones((), device=s.device))
-    p = (p / safe_l).to(v.dtype)
-    o = torch.matmul(p.float(), v.float()).to(out_dtype)
+    p = p / safe_l
+    if keep is not None:
+        p = p * keep
+    o = torch.matmul(p.to(v.dtype).float(), v.float()).to(out_dtype)
     lse = (m + torch.log(safe_l))[..., 0]
     return o, lse
 
+
+def _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
+               dropout_seed):
+    """(dS, P keep) in fp32, each rounded through the dtype the TPU kernels
+    cast it to before its products (q's and dO's)."""
+    with torch.autocast(q.device.type, enabled=False):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+        valid = _valid_keys(s.shape[-1], k_len, s.device)
+        p = torch.where(valid, torch.exp(s - lse[..., None]),
+                        torch.zeros((), device=s.device))
+        dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+        p_kept = p
+        if dropout_rate > 0.0:
+            b, h, t_q, t_k = s.shape
+            keep = _full_keep_mask(b, h, t_q, t_k, dropout_seed,
+                                   dropout_rate, s.device)
+            dp = dp * keep
+            p_kept = p * keep
+        ds = p * (dp - delta[..., None]) * sm_scale
+        return ds.to(q.dtype).float(), p_kept.to(do.dtype).float()
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (B, H, T_q): the torch reduction that
+    ``_flash_bwd`` leaves to XLA."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_attention_dq_reference(q, k, v, do, lse, delta, k_len, sm_scale,
+                                 dropout_rate=0.0, dropout_seed=0):
+    """Plain version of K2's dq kernel: dq = dS K."""
+    ds, _ = _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale,
+                       dropout_rate, dropout_seed)
+    with torch.autocast(q.device.type, enabled=False):
+        return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_attention_dkdv_reference(q, k, v, do, lse, delta, k_len, sm_scale,
+                                   dropout_rate=0.0, dropout_seed=0):
+    """Plain version of K2's dk/dv kernel: dk = dS^T Q, dv = (P keep)^T dO."""
+    ds, p_kept = _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale,
+                            dropout_rate, dropout_seed)
+    with torch.autocast(q.device.type, enabled=False):
+        dk = torch.matmul(ds.transpose(-1, -2), q.float())
+        dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor,
+    sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2: (dq, dk, dv) in the inputs' dtypes.
+
+    The formula of ``_dq_kernel``/``_dkdv_kernel`` written in tensors, not
+    autograd: P = exp(S - lse) on valid keys, dP = dO V^T times the keep
+    scale, delta = rowsum(dO*O) in fp32, dS = P (dP - delta) sm_scale;
+    dq = dS K, dk = dS^T Q, dv = (P keep)^T dO, with dS and P keep cast to
+    the input dtype before their products, as the TPU kernels do.
+    """
+    ds, p_kept = _bwd_terms(q, k, v, do, lse, bwd_delta(o, do), k_len,
+                            sm_scale, dropout_rate, dropout_seed)
+    with torch.autocast(q.device.type, enabled=False):
+        dq = torch.matmul(ds, k.float())
+        dk = torch.matmul(ds.transpose(-1, -2), q.float())
+        dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---- the kernel wrappers ----------------------------------------------------
 
 def _check_cuda_inputs(q, k, v, k_len):
     if q.dtype not in _DTYPE_CODE:
@@ -103,47 +275,205 @@ def _check_cuda_inputs(q, k, v, k_len):
             raise ValueError(f"{name} must be contiguous")
 
 
-def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
-    *, sm_scale: Optional[float] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) of masked attention; q (B,H,T_q,d), k/v (B,H,T_k,d).
-
-    ``k_len`` (B,) int32 is the number of valid keys per batch row;
-    ``sm_scale`` defaults to 1/sqrt(d). ``o`` has q's dtype, ``lse``
-    (B, H, T_q) is fp32.
-    """
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_fwd_reference(q, k, v, k_len, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, "
-                         f"not {q.device}")
+def _check_bwd_inputs(q, k, v, do, lse, delta, k_len):
     _check_cuda_inputs(q, k, v, k_len)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of shape (B, H, T_q)")
+    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _on_card(q: torch.Tensor, name: str) -> bool:
+    """False for a CPU tensor (the plain version runs); True for a CUDA
+    one (the kernel runs); raises for any other device."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    return True
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed):
+    """(o, lse): K1 (rate 0) or K1-d on the card, the plain version on the
+    CPU."""
+    if not _on_card(q, "flash_attention"):
+        return flash_attention_fwd_reference(q, k, v, k_len, sm_scale,
+                                             dropout_rate, dropout_seed)
+    _check_cuda_inputs(q, k, v, k_len)
+    flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        k_len.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                        b, h, t_q, k.shape[2], d, float(sm_scale),
-                        _DTYPE_CODE[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed with cudaError {err}")
-    flash_attention.launches += 1
+        err = _fwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            k_len.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                            b, h, t_q, k.shape[2], d, float(sm_scale), flag,
+                            threshold, scale, seed, _DTYPE_CODE[q.dtype],
+                            stream)
+    _raise_on(err, KERNEL)
+    if flag:
+        flash_attention.dropout_launches += 1
+    else:
+        flash_attention.launches += 1
     return o, lse
 
 
+def _bwd_launch(name, q, k, v, do, lse, delta, k_len, outs, sm_scale,
+                dropout_rate, dropout_seed):
+    flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
+    b, h, t_q, d = q.shape
+    fn = getattr(_bwd_kernels(), name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), k_len.data_ptr(),
+                 *(x.data_ptr() for x in outs), b, h, t_q, k.shape[2], d,
+                 float(sm_scale), flag, threshold, scale, seed,
+                 _DTYPE_CODE[q.dtype], stream)
+    _raise_on(err, name)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, *, sm_scale,
+                           dropout_rate=0.0, dropout_seed=0) -> torch.Tensor:
+    """dq from the forward's lse and ``delta``: K2's dq kernel on the card,
+    its plain version on the CPU."""
+    if not _on_card(q, "flash_attention_bwd_dq"):
+        return flash_attention_dq_reference(q, k, v, do, lse, delta, k_len,
+                                            sm_scale, dropout_rate,
+                                            dropout_seed)
+    _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, k_len,
+                (dq,), sm_scale, dropout_rate, dropout_seed)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, *, sm_scale,
+                             dropout_rate=0.0, dropout_seed=0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) from the forward's lse and ``delta``: K2's dk/dv kernel on
+    the card, its plain version on the CPU."""
+    if not _on_card(q, "flash_attention_bwd_dkdv"):
+        return flash_attention_dkdv_reference(q, k, v, do, lse, delta, k_len,
+                                              sm_scale, dropout_rate,
+                                              dropout_seed)
+    _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, k_len,
+                (dk, dv), sm_scale, dropout_rate, dropout_seed)
+    flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkdv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor, *,
+    sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``:
+    delta, then K2's two kernels on the card; the plain version on the
+    CPU."""
+    if not _on_card(q, "flash_attention_bwd"):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, k_len,
+                                             sm_scale, dropout_rate,
+                                             dropout_seed)
+    if o.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"o must match q: {tuple(o.shape)} {o.dtype}")
+    delta = bwd_delta(o, do)
+    kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, **kw)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """(o, lse) with gradients for q, k and v from K2 (its plain version on
+    the CPU), recomputing P and the keep mask; no gradient for k_len, the
+    scale, the rate or the seed, and none through lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_len, sm_scale, dropout_rate, dropout_seed):
+        o, lse = _forward(q, k, v, k_len, sm_scale, dropout_rate,
+                          dropout_seed)
+        ctx.save_for_backward(q, k, v, o, lse, k_len)
+        ctx.args = (sm_scale, dropout_rate, dropout_seed)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, k_len = ctx.saved_tensors
+        sm_scale, dropout_rate, dropout_seed = ctx.args
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.to(q.dtype).contiguous(), k_len,
+            sm_scale=sm_scale, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
+    *, sm_scale: Optional[float] = None, dropout_rate: float = 0.0,
+    dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of masked attention; q (B,H,T_q,d), k/v (B,H,T_k,d).
+
+    ``k_len`` (B,) int32 is the number of valid keys per batch row;
+    ``sm_scale`` defaults to 1/sqrt(d). ``dropout_rate`` > 0 drops
+    attention probabilities with the hash seeded by ``dropout_seed`` (an
+    int32; the backward rebuilds the same mask). ``o`` has q's dtype and
+    carries gradients to q, k and v; ``lse`` (B, H, T_q) is fp32.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttention.apply(q, k, v, k_len, float(sm_scale),
+                                float(dropout_rate), int(dropout_seed))
+
+
 flash_attention.launches = 0
+flash_attention.dropout_launches = 0
 
 
-def _kernel():
+def _fwd_kernel():
     from transformer_tts_tpu_torch.ops import cuda_build
     fn = cuda_build.load(KERNEL).flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+                          ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_kernels():
+    from transformer_tts_tpu_torch.ops import cuda_build
+    lib = cuda_build.load(BWD_KERNEL)
+    tail = ([ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+               ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
+    for name, n_out in (("flash_attention_bwd_dq", 1),
+                        ("flash_attention_bwd_dkdv", 2)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * (7 + n_out) + tail
+            fn.restype = ctypes.c_int
+    return lib

@@ -1,19 +1,32 @@
-"""Port checkpoints: a ``torch.save`` of the model's ``state_dict``.
+"""Port checkpoints (the port of transformer_tts_tpu/train/checkpoint.py:
+``list_epochs``, ``should_save`` :36-62, ``save_checkpoint`` and
+``restore_checkpoint`` :87-155, in torch's format).
 
-``save_checkpoint(model, dir)`` writes ``dir/model.pt``;
-``load_checkpoint(model, dir)`` reads it back into ``model`` on the
-model's device. The training-time policy (periodic saves, pruning,
-averaging) comes with the training slice.
+``save_checkpoint(model, dir)`` writes ``dir/model.pt`` (a ``torch.save``
+of the ``state_dict``, on the CPU) and ``load_checkpoint(model, dir)``
+reads it back onto the model's device; the synthesis CLI loads that file.
+
+Training saves one directory per epoch, ``save_dir/epoch_N/``, holding
+``model.pt``, the ``hparams.py`` snapshot beside it (so the directory is a
+synthesis ``--load_name``) and ``train_state.pt``: the step, the epoch, the
+generator's state and, when ``with_optimizer``, the optimizer's state.
+``restore_train_checkpoint`` resumes from one; an epoch saved without the
+optimizer keeps the fresh one, as in the JAX package. Pruning and
+averaging come with ``cli/average_checkpoints`` (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import os
+import re
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 CHECKPOINT_NAME = "model.pt"
+TRAIN_STATE_NAME = "train_state.pt"
+_EPOCH_RE = re.compile(r"^epoch_(\d+)$")
 
 
 def save_checkpoint(model: nn.Module, save_dir: str) -> str:
@@ -30,3 +43,58 @@ def load_checkpoint(model: nn.Module, load_dir: str) -> nn.Module:
     state = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(state)
     return model
+
+
+def epoch_dir(save_dir: str, epoch: int) -> str:
+    return os.path.join(os.path.abspath(save_dir), f"epoch_{epoch}")
+
+
+def list_epochs(save_dir: str) -> List[int]:
+    if not os.path.isdir(save_dir):
+        return []
+    return sorted(int(m.group(1)) for m in map(_EPOCH_RE.match,
+                                               os.listdir(save_dir)) if m)
+
+
+def should_save(epoch: int, max_epoch: int, save_per_epoch: int) -> bool:
+    """The reference's retention rule for 1-based ``epoch``: the last 10
+    epochs, and a 10-epoch window up to every multiple of
+    ``save_per_epoch``."""
+    if epoch >= max_epoch - 10:
+        return True
+    m = epoch % save_per_epoch
+    return m >= save_per_epoch - 10 or m == 0
+
+
+def save_train_checkpoint(save_dir: str, state, epoch: int, hp, *,
+                          with_optimizer: bool = True) -> str:
+    """Save a ``TrainState`` as ``save_dir/epoch_<epoch>/``."""
+    path = epoch_dir(save_dir, epoch)
+    save_checkpoint(state.model, path)
+    hp.snapshot(path)
+    payload = {"step": state.step, "epoch": epoch,
+               "generator": state.generator.get_state()}
+    if with_optimizer:
+        payload["optimizer"] = state.optimizer.state_dict()
+    torch.save(payload, os.path.join(path, TRAIN_STATE_NAME))
+    return path
+
+
+def restore_train_checkpoint(save_dir: str, state,
+                             epoch: Optional[int] = None) -> Tuple[object,
+                                                                   int]:
+    """Load ``epoch`` (default: the newest) into ``state``; returns
+    (state, epoch)."""
+    epochs = list_epochs(save_dir)
+    if not epochs:
+        raise FileNotFoundError(f"no checkpoints under {save_dir}")
+    epoch = epoch if epoch is not None else epochs[-1]
+    path = epoch_dir(save_dir, epoch)
+    load_checkpoint(state.model, path)
+    payload = torch.load(os.path.join(path, TRAIN_STATE_NAME),
+                         map_location="cpu", weights_only=False)
+    state.step = payload["step"]
+    state.generator.set_state(payload["generator"])
+    if "optimizer" in payload:
+        state.optimizer.load_state_dict(payload["optimizer"])
+    return state, payload["epoch"]
