@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FastSpeech 2 synthesis and training on one CUDA
-card.
+"""Drive the PyTorch port's FastSpeech 2 and AR Transformer-TTS synthesis
+and training on one CUDA card.
 
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and ``nvcc``; exits
-non-zero, printing no result, without them. Phases, each fatal on failure:
+non-zero, printing no result, without them. Phases, each fatal on failure
+and each printing its wall time:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every kernel of the paths (K1 and K1-d, K2, K4), in parallel,
-   from the sources in the checkout;
+2. build: every kernel of the paths (K1 and K1-d with K3's forward, K2
+   with K3's backward, K4), in parallel, from the sources in the checkout;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    K1 (csrc/flash_attention_fwd.cu) and K4 (csrc/flash_relpos_fwd.cu):
    fp32 at 1e-4 on O and lse, bf16 against the plain version in fp32 on
@@ -20,10 +21,13 @@ non-zero, printing no result, without them. Phases, each fatal on failure:
    T_q = 300 != T_k = 700, and the train step's (16, 4, 1024, 96) with
    its batch's mel lengths as k_len: O, dq, dk, dv at 1e-4 (fp32) and
    2e-2 (bf16) times that tensor's own max|ref|, lse as K1; dk and dv
-   exactly 0 for keys at or past k_len;
-4. for each flagship, the transformer FastSpeech 2 and the conformer one
-   of egs/fastspeech2_conformer_ljspeech.py (d 384, 6+6 layers, 4 heads
-   of 96, random weights from seed 0):
+   exactly 0 for keys at or past k_len. K3, the causal mode of the same
+   kernels, likewise at the AR train step's (16, 4, 511, 96) with k_len
+   1, 65, T and the AR batch's decoder groups, and at T_q != T_k both
+   ways;
+4. for each FastSpeech 2 flagship, the transformer one and the conformer
+   one of egs/fastspeech2_conformer_ljspeech.py (d 384, 6+6 layers, 4
+   heads of 96, random weights from seed 0):
    (a) teacher-forced forward (B=2, L=128, T=768), card fp32 (kernel
        path) against the CPU fp32 at 1e-3 max abs on mel_post, and card
        bf16 amp against the CPU fp32 at 5e-2 * max(1, max|ref|) (bf16
@@ -34,8 +38,8 @@ non-zero, printing no result, without them. Phases, each fatal on failure:
        the path's kernel per call, one per decoder layer, and none of the
        others), with ms and RTF;
    (c) the synthesis CLI as a subprocess on a 3-line script;
-5. training, the transformer flagship at full width (bf16 amp, dropout
-   0.1, Noam warmup 4000, clip 1.0):
+5. training, the transformer FastSpeech 2 flagship at full width (bf16
+   amp, dropout 0.1, Noam warmup 4000, clip 1.0):
    (a) one step on the card against one on the CPU from the same weights,
        fp32 with every dropout 0 (B=2, L=128, mel bucket 768, so the
        decoder takes K1 and K2) and warmup_step 10, so that Adam's first
@@ -50,19 +54,34 @@ non-zero, printing no result, without them. Phases, each fatal on failure:
        text bucket 128, mel bucket 1024, 600-1000 frames per row): 3
        warm-up steps, then 10 timed with CUDA events, every launch count
        set to 0 just before (6 K1-d, 6 K2 dq and 6 K2 dk/dv per step, no
-       K1 or K4); ms/step, mel frames/s, peak memory; the loss finite;
-       then 20 steps with warmup_step 100 whose loss must fall;
+       other kernel); ms/step, mel frames/s, peak memory; the loss
+       finite; then 20 steps with warmup_step 100 whose loss must fall;
    (c) cli/train.py for 3 steps on a synthetic corpus (32 utterances of
        300-900 frames) and cli/synthesize.py on the checkpoint it saved;
-6. each kernel at its main path's own captured input (K1, K4: the first
-   decoder layer of the B=8 synthesis call; K1-d, K2: the first decoder
-   layer of the train step, held there against their plain versions as
-   in 3): kernel, plain and library ms, bound, error;
-7. attention-path timing, kernel against masked-fill, at T in
+6. the AR Transformer-TTS flagship of egs/transformer_tts_ljspeech.py
+   (the same widths, r 2, prenet dropout 0.5), each path counted from 0:
+   (a) the teacher-forced eval forward over 300 decoder groups, 6 K3-f
+       launches and nothing else, card fp32 against the CPU at 1e-3 and
+       bf16 amp at 5e-2 of max(1, max|ref|);
+   (b) the KV-cached decode loop for 300 steps, no kernel launched, each
+       step's group against the teacher-forced forward of the frames it
+       fed itself (on K3-f) at 1e-3 of max(1, max|ref|);
+   (c) synthesize_transformer_tts at B=1 and B=8, 500 decode steps, no
+       kernel launched: ms per call and per step, RTF;
+   (d)-(f) training as in 5: the card-vs-CPU step (383 decoder groups on
+       K3-f and K3's backward), the timed step (6 K3-d, 6 K3 dq and 6 K3
+       dk/dv per step, no other kernel), the two CLIs;
+7. each kernel at its main path's own captured input (K1, K4: the first
+   decoder layer of the B=8 synthesis call; K1-d and K2, K3-d and K3's
+   backward: the first decoder layer of the FastSpeech 2 and the AR train
+   step, held there against their plain versions as in 3; K3-f: the
+   first decoder layer of 6(a)'s bf16 forward): kernel, plain and library
+   ms, bound (for K3 over the causal pairs the inputs attend), error;
+8. attention-path timing, kernel against masked-fill, at T in
    {128, 256, 768, 2048}, for both attention modules.
 
-It then prints the kernels line (JSON), the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+It then prints the phases' wall times, the kernels line (JSON), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -162,6 +181,16 @@ def train_kernels():
                   "flash_attention_bwd dq", bwd, f"{jax_fa}:266"),
         "K2-dkdv": (fa.flash_attention_bwd_dkdv, "launches",
                     "flash_attention_bwd dk/dv", bwd, f"{jax_fa}:344"),
+        # K3: the causal mode of the same kernels (the AR decoder)
+        "K3-f": (fa.flash_attention, "causal_launches",
+                 "flash_attention_fwd causal", fwd, f"{jax_fa}:138"),
+        "K3-d": (fa.flash_attention, "causal_dropout_launches",
+                 "flash_attention_fwd causal dropout", fwd, f"{jax_fa}:138"),
+        "K3-dq": (fa.flash_attention_bwd_dq, "causal_launches",
+                  "flash_attention_bwd causal dq", bwd, f"{jax_fa}:306"),
+        "K3-dkdv": (fa.flash_attention_bwd_dkdv, "causal_launches",
+                    "flash_attention_bwd causal dk/dv", bwd,
+                    f"{jax_fa}:379"),
     }
 
 
@@ -286,50 +315,52 @@ def max_err(got, ref) -> tuple:
 
 
 def check_train_kernels(q, k, v, do, k_len, rate, seed=DROPOUT_SEED,
-                        label="") -> tuple:
-    """K1/K1-d and K2 on (q, k, v, do) against the plain versions in fp32
-    on the same inputs. O, dq, dk and dv must agree within REL_TOL times
-    that tensor's own max |ref| (the gradients reaching the decoder's
-    attention in training are ~1e-7), lse within TOLS' absolute limit; dk
-    and dv exactly 0 for keys at or past k_len. Returns ({name: max abs
-    err}, {name: max |ref|}, o). Launch counts are left as they were."""
+                        label="", causal=False) -> tuple:
+    """K1/K1-d and K2 (with ``causal`` K3's forward and backward) on
+    (q, k, v, do) against the plain versions in fp32 on the same inputs.
+    O, dq, dk and dv must agree within REL_TOL times that tensor's own
+    max |ref| (the gradients reaching the decoder's attention in training
+    are ~1e-7), lse within TOLS' absolute limit; dk and dv exactly 0 for
+    keys at or past k_len. Returns ({name: max abs err}, {name: max |ref|},
+    o). Launch counts are left as they were."""
     from transformer_tts_tpu_torch.ops import flash_attention as fa
+    fwd, bwd = ("K3", "K3") if causal else ("K1-d", "K2")
     counts = read_counts()
     sm_scale = q.shape[-1] ** -0.5
     with torch.no_grad():
         o, lse = fa.flash_attention(q, k, v, k_len, dropout_rate=rate,
-                                    dropout_seed=seed)
+                                    dropout_seed=seed, causal=causal)
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, k_len,
                                        sm_scale=sm_scale, dropout_rate=rate,
-                                       dropout_seed=seed)
+                                       dropout_seed=seed, causal=causal)
         torch.cuda.synchronize()
         f = [x.float() for x in (q, k, v)]
         ro, rlse = fa.flash_attention_fwd_reference(*f, k_len, sm_scale,
-                                                    rate, seed)
+                                                    rate, seed, causal)
         ref = fa.flash_attention_bwd_reference(*f, o.float(), lse,
                                                do.float(), k_len, sm_scale,
-                                               rate, seed)
+                                               rate, seed, causal)
     set_counts(counts)
     empty = k_len == 0
-    check(bool((o[empty] == 0).all()), f"K1-d{label}: a row with no valid "
+    check(bool((o[empty] == 0).all()), f"{fwd}{label}: a row with no valid "
                                        f"key is not 0")
     errs, peaks = {}, {}
     errs["o"], peaks["o"] = max_err(o[~empty], ro[~empty])
     errs["lse"], peaks["lse"] = max_err(lse[~empty], rlse[~empty])
     rel = REL_TOL[q.dtype]
     check(errs["o"] <= rel * peaks["o"] and errs["lse"] <= TOLS[q.dtype][1],
-          f"K1-d{label} disagrees with its plain version: {errs} against "
+          f"{fwd}{label} disagrees with its plain version: {errs} against "
           f"max|ref| {peaks}")
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
         errs[name], peaks[name] = max_err(got, want)
         check(errs[name] <= rel * peaks[name],
-              f"K2 {name}{label} disagrees with its plain version: "
+              f"{bwd} {name}{label} disagrees with its plain version: "
               f"{errs[name]} > {rel} * max|ref| {peaks[name]}")
     for name, g in (("dk", grads[1]), ("dv", grads[2])):
         for b, n in enumerate(k_len.tolist()):
             check(bool((g[b, :, n:] == 0).all()),
-                  f"K2 {name}{label} is not exactly 0 for keys at or past "
-                  f"k_len")
+                  f"{bwd} {name}{label} is not exactly 0 for keys at or "
+                  f"past k_len")
     return errs, peaks, o
 
 
@@ -355,6 +386,40 @@ def phase_train_kernels_vs_plain(gen, train_k_len):
                 print(f"K1-d/K2 vs plain ({b},{h},{t_q},{t_k},{d}) "
                       f"{str(dtype)[6:]} rate {rate} k_len="
                       f"{k_len if b <= 4 else 'the train batch'}: "
+                      + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
+                                 f"{peaks[n]:.3g})" for n, e in errs.items()))
+
+
+AR_GROUPS = 511                 # decoder groups at the 1024-frame bucket
+
+
+def phase_causal_kernels_vs_plain(gen, ar_k_len):
+    """K3 (the causal forward at rates 0 and 0.1, its dq and dk/dv)
+    against its plain versions: (16, 4, 511, 96), the AR train step's
+    shape, with k_len in {1, 65, T} and the rest of the rows the AR
+    batch's decoder groups; T_q != T_k both ways; fp32 (TF32 off) and
+    bf16, O, dq, dk and dv each within REL_TOL of its own max|ref|, lse
+    as K1's; dk and dv exactly 0 past k_len."""
+    b_train = TRAIN_BATCH[0]
+    k_len = ([AR_GROUPS, 1, 65] + ar_k_len.tolist())[:b_train]
+    cases = [(b_train, 4, AR_GROUPS, AR_GROUPS, 96, k_len),
+             (2, 4, 300, 700, 96, [700, 65]),
+             (2, 4, 700, 300, 96, [300, 1])]
+    for b, h, t_q, t_k, d, kl in cases:
+        q, do = (torch.randn(b, h, t_q, d, generator=gen).to(DEVICE)
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, t_k, d, generator=gen).to(DEVICE)
+                for _ in range(2))
+        kl = torch.tensor(kl, dtype=torch.int32, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.1):
+                errs, peaks, _ = check_train_kernels(
+                    *(x.to(dtype) for x in (q, k, v, do)), kl, rate,
+                    causal=True)
+                cases_k = (kl.tolist() if b <= 4
+                           else "1, 65, T and the AR batch's")
+                print(f"K3 vs plain ({b},{h},{t_q},{t_k},{d}) "
+                      f"{str(dtype)[6:]} rate {rate} k_len={cases_k}: "
                       + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
                                  f"{peaks[n]:.3g})" for n, e in errs.items()))
 
@@ -624,6 +689,63 @@ def train_hparams(**overrides):
     return HParams(**dict(FLAGSHIP, **overrides))
 
 
+def ar_hparams(**overrides):
+    """The AR Transformer-TTS flagship of egs/transformer_tts_ljspeech.py
+    (the defaults with model = "Transformer": d 384, 6+6 layers, 4 heads
+    of 96, FFN kernels 5/1, r 2, bf16 amp, dropout 0.1, prenet dropout
+    0.5, Noam with warmup 4000, clip 1.0, positive_weight 5) with
+    overrides."""
+    return train_hparams(**dict(overrides, model="Transformer"))
+
+
+def ar_train_batch(gen, hp, b, text_len, mel_len, frames, device):
+    """A collated AR batch: text as ``train_batch``'s; per row a zero go
+    frame, then random mel, a count of frames (go frame included) drawn
+    from ``frames``; pos_mel over that count rounded up to r, the mel pad
+    -5.0 and stop_token 1.0 past the row's frames, as the collate pads."""
+    r = hp.reduction_rate
+    lens = torch.linspace(text_len, text_len // 2, b).round().long()
+    text = torch.zeros(b, text_len, dtype=torch.int32)
+    mel = torch.full((b, mel_len, hp.mel_dim), -5.0)
+    stop = torch.ones(b, mel_len)
+    totals = torch.randint(frames[0], frames[1] + 1, (b,), generator=gen)
+    for i, (n, total) in enumerate(zip(lens.tolist(), totals.tolist())):
+        text[i, :n] = torch.randint(1, hp.vocab_size, (n,), generator=gen,
+                                    dtype=torch.int32)
+        mel[i, 0] = 0.0
+        mel[i, 1:total] = torch.randn(total - 1, hp.mel_dim, generator=gen)
+        stop[i, :total] = 0.0
+    rounded = -(-totals // r) * r
+    pos = torch.arange(1, mel_len + 1)[None]
+    pos_text = torch.where(text != 0, torch.arange(1, text_len + 1)[None],
+                           0).int()
+    pos_mel = torch.where(pos <= rounded[:, None], pos, 0).int()
+    batch = dict(text=text, pos_text=pos_text, mel=mel, pos_mel=pos_mel,
+                 stop_token=stop)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def trainer(kind: str) -> dict:
+    """A flagship's training: its hparams, state, step and batch makers,
+    the overrides that zero its dropouts, the name of its decoder's
+    kernel-path attention, and the ids of the kernels that carry it
+    (forward at rate 0, forward with dropout, dq, dk/dv)."""
+    from transformer_tts_tpu_torch.train import trainer as tr
+    if kind == "fastspeech2":
+        return dict(hparams=train_hparams, init=tr.init_fastspeech2_state,
+                    make_step=tr.make_fastspeech2_train_step,
+                    batch=train_batch, attn="attn",
+                    no_dropout=dict(dropout=0.0, dropout_postnet=0.0,
+                                    dropout_variance_adaptor=0.0),
+                    kernels=("K1", "K1-d", "K2-dq", "K2-dkdv"))
+    return dict(hparams=ar_hparams, init=tr.init_transformer_state,
+                make_step=tr.make_transformer_train_step,
+                batch=ar_train_batch, attn="attn_1",
+                no_dropout=dict(dropout=0.0, dropout_prenet=0.0,
+                                dropout_postnet=0.0),
+                kernels=("K3-f", "K3-d", "K3-dq", "K3-dkdv"))
+
+
 ADAM_EPS = 1e-9
 # gradients, card fp32 against CPU fp32, each within this share of its own
 # max|g|: sums run in other orders, and a ReLU whose input lies within
@@ -642,10 +764,10 @@ def zero_in_exact_arithmetic(name: str) -> bool:
         and (".conv1." in name or ".conv_list." in name))
 
 
-def decoder_attention(hp) -> tuple:
-    """Names of the decoder attention's weights, whose gradients come
-    through K2."""
-    return tuple(f"decoder.layers.{i}.attn.{m}.weight"
+def decoder_attention(hp, attn: str) -> tuple:
+    """Names of the decoder kernel-path attention's weights, whose
+    gradients come through K2 (FastSpeech 2) or K3 (the AR model)."""
+    return tuple(f"decoder.layers.{i}.{attn}.{m}.weight"
                  for i in range(hp.n_layer_decoder)
                  for m in ("q_linear", "k_linear", "v_linear", "out"))
 
@@ -655,38 +777,38 @@ def ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.nextafter(a, torch.full_like(a, math.inf)) - a
 
 
-def phase_card_vs_cpu(gen):
+def phase_card_vs_cpu(gen, kind):
     """One train step on the card and on the CPU from the same weights:
     the flagship in fp32 with every dropout 0, where the decoder takes K1
-    and K2; then the same step with bf16 amp on the card. warmup_step 10
-    makes Adam's first update lr * g / (|g| + 1e-9) ~ lr * sign(g) with
-    lr = 1.6e-3, far above fp32's rounding of the weights, so the updates
-    show every gradient's sign, however small the gradient."""
-    from transformer_tts_tpu_torch.train.trainer import (
-        init_fastspeech2_state, make_fastspeech2_train_step)
+    and K2 (FastSpeech 2) or K3 and its backward (the AR model, 383
+    decoder groups); then the same step with bf16 amp on the card.
+    warmup_step 10 makes Adam's first update lr * g / (|g| + 1e-9) ~
+    lr * sign(g) with lr = 1.6e-3, far above fp32's rounding of the
+    weights, so the updates show every gradient's sign, however small the
+    gradient."""
+    spec = trainer(kind)
     b, text_len, mel_len, frames = CPU_STEP_BATCH
-    fp32 = dict(amp=False, dropout=0.0, dropout_postnet=0.0,
-                dropout_variance_adaptor=0.0, warmup_step=10)
-    hp = train_hparams(**fp32)
-    batch = train_batch(gen, hp, b, text_len, mel_len, frames, "cpu")
-    ref = init_fastspeech2_state(hp, device="cpu")
+    fp32 = dict(spec["no_dropout"], amp=False, warmup_step=10)
+    hp = spec["hparams"](**fp32)
+    batch = spec["batch"](gen, hp, b, text_len, mel_len, frames, "cpu")
+    ref = spec["init"](hp, device="cpu")
     weights = {k: v.clone() for k, v in ref.model.state_dict().items()}
-    ref, ref_logs = make_fastspeech2_train_step(hp, device="cpu")(ref, batch)
+    ref, ref_logs = spec["make_step"](hp, device="cpu")(ref, batch)
     lr = ref.optimizer.schedule(0)
     counts = read_counts()
     results = {}
     for amp in (False, True):
-        hp = train_hparams(**dict(fp32, amp=amp))
-        state = init_fastspeech2_state(hp, device=DEVICE)
+        hp = spec["hparams"](**dict(fp32, amp=amp))
+        state = spec["init"](hp, device=DEVICE)
         state.model.load_state_dict(weights)
-        state, logs = make_fastspeech2_train_step(hp, device=DEVICE)(
-            state, batch)
+        state, logs = spec["make_step"](hp, device=DEVICE)(state, batch)
         torch.cuda.synchronize()
         results[amp] = (state, logs)
     launched = {k: n - counts[k] for k, n in read_counts().items()}
-    check(launched["K1"] > 0 and launched["K2-dq"] > 0
-          and launched["K2-dkdv"] > 0,
-          f"the card's step did not take K1 and K2: {launched}")
+    fwd, _, dq, dkdv = spec["kernels"]
+    check(launched[fwd] > 0 and launched[dq] > 0 and launched[dkdv] > 0,
+          f"{kind}: the card's step did not take {fwd}, {dq} and {dkdv}: "
+          f"{launched}")
     set_counts(counts)
 
     state, logs = results[False]
@@ -726,12 +848,13 @@ def phase_card_vs_cpu(gen):
         if "running" in name:
             err, peak = max_err(v.cpu(), cpu_buffers[name])
             stats_rel = max(stats_rel, err / max(peak, 1e-30))
-    attn = decoder_attention(hp)
+    attn = decoder_attention(hp, spec["attn"])
     worst = sorted(grad_rel, key=grad_rel.get)[-3:]
     attn_worst = max(attn, key=grad_rel.get)
     attn_peaks = [cpu_params[n].grad.abs().max().item() for n in attn]
     attn_share = min(settled_share[n] for n in attn)
-    print(f"train step B={b} L={text_len} T={mel_len} card fp32 vs CPU fp32:"
+    print(f"{kind} train step B={b} L={text_len} T={mel_len} card fp32 vs "
+          f"CPU fp32:"
           f" loss {loss:.6f} vs {ref_loss:.6f}; gradients, each against its "
           f"own max|g| (tol {GRAD_TOL}): worst "
           + ", ".join(f"{n} {grad_rel[n]:.3g}" for n in worst)
@@ -749,10 +872,10 @@ def phase_card_vs_cpu(gen):
     check(max(grad_rel.values()) <= GRAD_TOL
           and grad_rel[attn_worst] <= ATTN_GRAD_TOL
           and noise_peak <= 1e-5 * top,
-          f"card gradients disagree with the CPU's: worst {worst}")
+          f"{kind}: card gradients disagree with the CPU's: worst {worst}")
     check(max(update_rel.values()) <= 1e-3 and attn_share >= 0.5,
-          "card updates disagree with the CPU's")
-    check(stats_rel <= 1e-3, "card BatchNorm statistics disagree")
+          f"{kind}: card updates disagree with the CPU's")
+    check(stats_rel <= 1e-3, f"{kind}: card BatchNorm statistics disagree")
 
     state, logs = results[True]
     loss, norm = float(logs["loss_total"]), float(logs["grad_norm"])
@@ -761,7 +884,7 @@ def phase_card_vs_cpu(gen):
                  .norm().item(), cpu_params[n].grad.norm().item())
              for n in attn}
     norm_rel = max(abs(x - y) / y for x, y in norms.values())
-    print(f"train step card bf16 amp vs CPU fp32: loss {loss:.6f} vs "
+    print(f"{kind} train step card bf16 amp vs CPU fp32: loss {loss:.6f} vs "
           f"{ref_loss:.6f} (tol 2e-2 relative), grad_norm {norm:.6f} vs "
           f"{ref_norm:.6f} (tol 5 %), the decoder attention weights' "
           f"gradient norms within {norm_rel:.3g} (tol 5 %)")
@@ -769,22 +892,21 @@ def phase_card_vs_cpu(gen):
     check(abs(loss - ref_loss) <= 2e-2 * abs(ref_loss)
           and abs(norm - ref_norm) <= 0.05 * ref_norm
           and norm_rel <= 0.05,
-          "card bf16 amp step disagrees with the CPU's")
+          f"{kind}: card bf16 amp step disagrees with the CPU's")
 
 
-def phase_train_step(batch):
-    """The main path's training: the transformer flagship at full width,
-    bf16 amp, dropout 0.1, on a fixed batch (TRAIN_BATCH); 3 warm-up
-    steps, then 10 timed ones with every launch count set to 0 just
-    before; then 20 steps with warmup_step 100 whose loss must fall."""
+def phase_train_step(batch, kind):
+    """The main path of a flagship's training at full width, bf16 amp,
+    dropout 0.1, on a fixed batch (TRAIN_BATCH); 3 warm-up steps, then 10
+    timed ones with every launch count set to 0 just before; then 20
+    steps with warmup_step 100 whose loss must fall."""
     from transformer_tts_tpu_torch.ops import attention
     from transformer_tts_tpu_torch.ops import flash_attention as fa
-    from transformer_tts_tpu_torch.train.trainer import (
-        init_fastspeech2_state, make_fastspeech2_train_step)
+    spec = trainer(kind)
     b, text_len, mel_len, _ = TRAIN_BATCH
-    hp = train_hparams()
-    state = init_fastspeech2_state(hp, device=DEVICE)
-    step = make_fastspeech2_train_step(hp, device=DEVICE)
+    hp = spec["hparams"]()
+    state = spec["init"](hp, device=DEVICE)
+    step = spec["make_step"](hp, device=DEVICE)
     fwd_calls, bwd_calls = [], []
     for i in range(3):
         if i == 2:      # the last warm-up step's kernel inputs
@@ -814,40 +936,40 @@ def phase_train_step(batch):
     ms = statistics.median(s.elapsed_time(e) for s, e in times)
     losses = torch.stack(losses).float().cpu()
     frames_valid = int((batch["pos_mel"] > 0).sum())
-    print(f"train step B={b} L={text_len} T={mel_len} bf16 amp dropout "
-          f"0.1: {ms:.3f} ms/step (median of 10), {frames_valid} valid mel "
-          f"frames = {frames_valid / ms * 1e3:.0f} frames/s "
+    print(f"{kind} train step B={b} L={text_len} T={mel_len} bf16 amp "
+          f"dropout 0.1: {ms:.3f} ms/step (median of 10), {frames_valid} "
+          f"valid mel frames = {frames_valid / ms * 1e3:.0f} frames/s "
           f"({b * mel_len / ms * 1e3:.0f} bucket frames/s), peak memory "
           f"{peak_gb:.2f} GB; losses {[round(x, 4) for x in losses.tolist()]}")
-    print(f"train main path: launches per step {json.dumps(per_step[0])} "
-          f"(expect K1-d {hp.n_layer_decoder}, K2-dq {hp.n_layer_decoder}, "
-          f"K2-dkdv {hp.n_layer_decoder}, K1 0, K4 0), total "
+    want = {k: 0 for k in counters()}
+    want.update({k: hp.n_layer_decoder for k in spec["kernels"][1:]})
+    print(f"{kind} train main path: launches per step "
+          f"{json.dumps(per_step[0])} (expect {json.dumps(want)}), total "
           f"{json.dumps(launches)}")
-    want = {"K1": 0, "K4": 0, "K1-d": hp.n_layer_decoder,
-            "K2-dq": hp.n_layer_decoder, "K2-dkdv": hp.n_layer_decoder}
     check(all(c == want for c in per_step),
-          f"train step launches {per_step} differ from {want}")
-    check(bool(torch.isfinite(losses).all()), "non-finite train loss")
+          f"{kind} train step launches {per_step} differ from {want}")
+    check(bool(torch.isfinite(losses).all()), f"{kind}: non-finite loss")
     check(len(fwd_calls) == hp.n_layer_decoder
           and len(bwd_calls) == hp.n_layer_decoder,
-          "kernel path calls per step")
+          f"{kind}: kernel path calls per step")
     fwd_inputs = fwd_calls[0]         # the first decoder layer's forward
     bwd_inputs = bwd_calls[-1]        # and its backward, which runs last
     del state, step
     torch.cuda.empty_cache()
 
-    hp = train_hparams(warmup_step=100)
-    state = init_fastspeech2_state(hp, device=DEVICE)
-    step = make_fastspeech2_train_step(hp, device=DEVICE)
+    hp = spec["hparams"](warmup_step=100)
+    state = spec["init"](hp, device=DEVICE)
+    step = spec["make_step"](hp, device=DEVICE)
     curve = []
     for _ in range(20):
         state, logs = step(state, batch)
         curve.append(logs["loss_total"])
     curve = torch.stack(curve).float().cpu().tolist()
-    print(f"20 steps on one batch, warmup_step 100: loss {curve[0]:.4f} -> "
-          f"{curve[-1]:.4f} ({[round(x, 3) for x in curve]})")
+    print(f"{kind}: 20 steps on one batch, warmup_step 100: loss "
+          f"{curve[0]:.4f} -> {curve[-1]:.4f} "
+          f"({[round(x, 3) for x in curve]})")
     check(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0],
-          "the loss did not fall over 20 steps")
+          f"{kind}: the loss did not fall over 20 steps")
     del state, step
     torch.cuda.empty_cache()
     return launches, fwd_inputs, bwd_inputs
@@ -880,16 +1002,16 @@ def write_train_corpus(gen, hp, root):
     return script
 
 
-def phase_train_cli(gen):
+def phase_train_cli(gen, kind):
     """cli/train.py for 3 steps on a synthetic corpus, then cli/synthesize.py
     on the checkpoint it saved."""
-    hp = train_hparams()
-    work = os.path.join(WORK, "train")
+    hp = trainer(kind)["hparams"]()
+    work = os.path.join(WORK, f"train_{kind}")
     script = write_train_corpus(gen, hp, os.path.join(work, "corpus"))
     save_dir = os.path.join(work, "checkpoints")
     hp_file = os.path.join(work, "hparams.py")
     with open(hp_file, "w") as fh:
-        for key, value in dict(FLAGSHIP, train_script=script,
+        for key, value in dict(FLAGSHIP, model=hp.model, train_script=script,
                                save_dir=save_dir, batch_size=CLI_CORPUS[2],
                                max_epoch=1, save_per_epoch=1).items():
             fh.write(f"{key} = {value!r}\n")
@@ -900,13 +1022,13 @@ def phase_train_cli(gen):
     steps = [ln for ln in proc.stdout.splitlines()
              if ln.startswith("epoch 1 step")]
     print("\n".join(steps))
-    check(proc.returncode == 0, f"train CLI exit {proc.returncode}: "
+    check(proc.returncode == 0, f"{kind} train CLI exit {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
-    check(len(steps) == 3, "train CLI did not log 3 steps")
+    check(len(steps) == 3, f"{kind} train CLI did not log 3 steps")
     load_dir = os.path.join(save_dir, "epoch_1")
     check(os.path.exists(os.path.join(load_dir, "model.pt"))
           and os.path.exists(os.path.join(load_dir, "hparams.py")),
-          "train CLI saved no checkpoint")
+          f"{kind} train CLI saved no checkpoint")
     test_script = os.path.join(work, "test.txt")
     with open(script) as src, open(test_script, "w") as dst:
         dst.write("".join(src.readlines()[:3]))
@@ -916,102 +1038,344 @@ def phase_train_cli(gen):
          "--load_name", load_dir, "--test_script", test_script, "--save",
          out_dir, "--max_frames", "2048", "--device", DEVICE], cwd=ROOT,
         capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"synthesis CLI on the trained checkpoint "
-          f"exit {proc.returncode}: {proc.stderr[-2000:]}")
+    check(proc.returncode == 0, f"{kind} synthesis CLI on the trained "
+          f"checkpoint exit {proc.returncode}: {proc.stderr[-2000:]}")
+    frames = []
     for i in range(3):
         mel = np.load(os.path.join(out_dir, f"{i}.npy"))
+        frames.append(mel.shape[0])
         check(mel.ndim == 2 and mel.shape[1] == hp.mel_dim
               and mel.shape[0] > 0 and bool(np.isfinite(mel).all()),
-              f"synthesis from the trained checkpoint: mel {i} {mel.shape}")
-    print(f"train CLI: 3 steps, checkpoint {os.path.relpath(load_dir, ROOT)}"
-          f"; synthesis CLI read it and wrote 3 mels")
+              f"{kind} synthesis from the trained checkpoint: mel {i} "
+              f"{mel.shape}")
+    print(f"{kind} train CLI: 3 steps, checkpoint "
+          f"{os.path.relpath(load_dir, ROOT)}; synthesis CLI read it and "
+          f"wrote 3 mels of {frames} frames")
 
 
-def train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
-    """K1-d, K2-dq and K2-dkdv at the train step's captured input: kernel,
+# ---- phase 6: the AR Transformer-TTS ----------------------------------------
+
+AR_TF = (2, 128, 300)           # B, text bucket, decoder groups (>= 256)
+AR_DECODE_STEPS = 300
+AR_SYNTH_BATCHES = (1, 8)
+AR_STOP_BIAS = -30.0            # no row stops: every call decodes 500 groups
+
+
+def ar_model(device, amp: bool, seed: int = 0):
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
+    hp = ar_hparams(amp=amp)
+    return hp, build_transformer_tts(hp, device=device, seed=seed).eval()
+
+
+def group_positions(lengths, t: int):
+    pos = torch.arange(1, t + 1)[None]
+    return torch.where(pos <= torch.as_tensor(lengths)[:, None], pos, 0)
+
+
+def phase_ar_teacher_forced(gen):
+    """The AR flagship's teacher-forced forward in eval mode over
+    AR_TF's 300 decoder groups, whose masked self-attention takes K3 at
+    rate 0 (K3-f): card fp32 against the CPU's fp32 at 1e-3 of max(1,
+    max|ref|) on mel_post and the stop logits, card bf16 amp at 5e-2 of
+    it; each forward a path of its own, counted from 0 (6 K3-f launches,
+    nothing else). Returns the bf16 forward's launches and its first
+    decoder layer's kernel input, the input K3-f is timed at."""
+    from transformer_tts_tpu_torch.ops import attention
+    from transformer_tts_tpu_torch.ops.masks import create_masks
+    b, text_len, t = AR_TF
+    hp, cpu_model = ar_model("cpu", amp=False)
+    text, pos_text = text_batch(gen, b, text_len, 100, hp.vocab_size)
+    trg = torch.randn(b, t, hp.mel_dim, generator=gen)
+    pos_mel = group_positions([t, t - 60], t)
+    masks = create_masks(pos_text, pos_mel, model="transformer")
+    inputs = (text.long(), trg, *masks)
+    with torch.no_grad():
+        ref = cpu_model(*inputs)
+    del cpu_model
+    _, model = ar_model(DEVICE, amp=False)
+    cuda_inputs = [x.to(DEVICE) for x in inputs]
+    captured = []
+    for amp in (False, True):
+        model.amp = amp
+        set_counts({})                      # this path starts here
+        with torch.no_grad(), capture_calls(attention, "flash_attention",
+                                            captured if amp else []):
+            out = model(*cuda_inputs)
+        torch.cuda.synchronize()
+        launched = read_counts()            # and ends here
+        want = {k: 0 for k in counters()}
+        want["K3-f"] = hp.n_layer_decoder
+        check(launched == want, f"AR eval forward launches {launched}, "
+                                f"expected {want}")
+        errs = {}
+        for name in ("mel_post", "stop_token"):
+            want_t = getattr(ref, name)
+            errs[name] = max_err(getattr(out, name).cpu(), want_t)
+        peak = max(p for _, p in errs.values())
+        tol = (5e-2 if amp else 1e-3) * max(1.0, peak)
+        label = "bf16 amp" if amp else "fp32"
+        print(f"AR teacher-forced forward B={b} L={text_len} T_dec={t}: "
+              f"card {label} vs CPU fp32: max|d mel_post| = "
+              f"{errs['mel_post'][0]:.3g}, max|d stop| = "
+              f"{errs['stop_token'][0]:.3g} (tol {tol:.3g}, max|ref| "
+              f"{peak:.3g}); launches {json.dumps(launched)}")
+        check(all(e <= tol for e, _ in errs.values()),
+              f"AR: card {label} forward disagrees with the CPU")
+    set_counts({})
+    return launched, captured[0]
+
+
+def phase_ar_decode_vs_forward(gen):
+    """The KV-cached decode loop of synthesize_transformer_tts (fp32, no
+    stop) for AR_DECODE_STEPS steps, counted from 0: no kernel launches;
+    then the teacher-forced forward of the frames the loop fed itself,
+    on the card (its self-attention on K3-f): each step's group must
+    equal the forward's row within 1e-3 of max(1, max|ref|)."""
+    from transformer_tts_tpu_torch.infer.synthesize import _ar_body, _ar_init
+    from transformer_tts_tpu_torch.ops.masks import create_masks, pad_mask
+    b, text_len, _ = AR_TF
+    steps = AR_DECODE_STEPS
+    hp, model = ar_model(DEVICE, amp=False)
+    text, pos_text = (x.to(DEVICE) for x in text_batch(
+        gen, b, text_len, 100, hp.vocab_size))
+    text = text.long()
+    src_mask = pad_mask(pos_text)
+    set_counts({})                          # the decode starts here
+    with torch.inference_mode():
+        e_outputs, _ = model.encode(text, src_mask)
+        cross = model.precompute_cross_kv(e_outputs)
+        carry = _ar_init(model, b, steps, DEVICE)
+        body = _ar_body(model, e_outputs, src_mask, cross, 2.0)
+        fed = []
+        for _ in range(steps):
+            fed.append(carry["prev"])
+            carry = body(carry)
+    torch.cuda.synchronize()
+    launched = read_counts()                # and ends here
+    check(not any(launched.values()),
+          f"the AR decode launched a kernel: {launched}")
+    trg = torch.cat(fed, 1)
+    pos_mel = group_positions([steps] * b, steps).to(DEVICE)
+    with torch.no_grad():
+        out = model(text, trg, *create_masks(pos_text, pos_mel,
+                                             model="transformer"))
+    set_counts({})
+    err, peak = max_err(carry["groups"], out.mel_pre)
+    tol = 1e-3 * max(1.0, peak)
+    print(f"AR KV-cached decode, {steps} steps B={b} fp32: launches "
+          f"{json.dumps(launched)}; every group against the teacher-forced "
+          f"forward of the fed-back frames: max|d| = {err:.3g} (tol "
+          f"{tol:.3g}, max|ref| {peak:.3g})")
+    check(err <= tol, "the AR decode disagrees with the teacher-forced "
+                      "forward")
+
+
+def phase_ar_synthesis(gen):
+    """synthesize_transformer_tts at the flagship's width, bf16 amp,
+    max_steps 500, at B=1 and B=8, the stop head's bias at AR_STOP_BIAS
+    so that every row decodes all 500 groups (the longest call); counted
+    from 0: no kernel launches. ms per call (median of 3 after one
+    warm-up), per decode step, and RTF."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        MAX_AR_STEPS, synthesize_transformer_tts)
+    hp, model = ar_model(DEVICE, amp=True)
+    with torch.no_grad():
+        model.stop_token.bias.fill_(AR_STOP_BIAS)
+    batches = []
+    for batch in AR_SYNTH_BATCHES:
+        text, pos = text_batch(gen, batch, 128, 48, hp.vocab_size)
+        batches.append((text.long().to(DEVICE), pos.to(DEVICE)))
+    frames = MAX_AR_STEPS * hp.reduction_rate
+    set_counts({})                          # the path starts here
+    for text, pos in batches:
+        mel, lengths = synthesize_transformer_tts(model, text, pos)
+        torch.cuda.synchronize()
+        check(mel.shape == (text.shape[0], frames, hp.mel_dim)
+              and bool(torch.isfinite(mel).all())
+              and bool((lengths == frames).all()),
+              f"AR synthesis: mel {tuple(mel.shape)}, lengths "
+              f"{lengths.tolist()}")
+    launched = read_counts()                # and ends here
+    check(not any(launched.values()),
+          f"AR synthesis launched a kernel: {launched}")
+    for text, pos in batches:
+        def call():
+            out = synthesize_transformer_tts(model, text, pos)
+            torch.cuda.synchronize()
+            return out
+        call()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, lengths = call()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(walls)
+        audio_s = lengths.sum().item() * HOP_SECONDS
+        print(f"AR synthesize_transformer_tts B={text.shape[0]} L=128 "
+              f"max_steps {MAX_AR_STEPS} bf16 amp: {ms:.3f} ms/call "
+              f"(median of 3), {ms / MAX_AR_STEPS:.4f} ms per decode step, "
+              f"{lengths.sum().item()} frames = {audio_s:.3f} s audio, RTF "
+              f"{ms / 1e3 / audio_s:.6f}; launches {json.dumps(launched)}")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---- phase 7: the kernels at their main paths' inputs -----------------------
+
+def attended_pairs(t_q: int, k_len, causal: bool) -> float:
+    """The (query row, key) pairs the attention computes for these
+    inputs: T_q * sum_b k_len[b], or with ``causal`` sum_b sum_{r<T_q}
+    min(r + 1, k_len[b]) -- about half."""
+    kl = k_len.double()
+    if not causal:
+        return t_q * kl.sum().item()
+    rows = torch.arange(1, t_q + 1, dtype=torch.float64, device=kl.device)
+    return torch.minimum(rows[None, :], kl[:, None]).sum().item()
+
+
+def sdpa_mask(t_q: int, t_k: int, k_len, causal: bool):
+    """The boolean mask of the SDPA yardstick: keys < k_len[b], and with
+    ``causal`` keys <= the row (the decoder's pad-and-causal mask)."""
+    cols = torch.arange(t_k, device=k_len.device)
+    mask = (cols[None, :] < k_len[:, None])[:, None, None, :]
+    if causal:
+        rows = torch.arange(t_q, device=k_len.device)
+        mask = mask & (cols[None, :] <= rows[:, None])[None, None]
+    return mask
+
+
+def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
+    """The training kernels at the train step's captured input -- K1-d,
+    K2-dq and K2-dkdv, or with ``causal`` K3-d, K3-dq and K3-dkdv: kernel,
     plain and library ms, the bound, and each kernel against its fp32
     plain version there (``check_train_kernels``: O, dq, dk and dv within
     2e-2 of their own max |ref| in bf16), with the O the step's forward
     gave equal bit for bit to a second launch on the same seed. The
-    library calls are SDPA with the key mask and the same dropout rate,
-    forward and backward (the backward one gives dq, dk and dv together,
-    the yardstick of both K2 entries)."""
+    library calls are SDPA with the key mask (with ``causal`` the pad-and-
+    causal mask) and the same dropout rate, forward and backward (the
+    backward one gives dq, dk and dv together, the yardstick of both
+    backward entries). The bounds count the (row, key) pairs these inputs
+    attend (``attended_pairs``)."""
     import torch.nn.functional as F
     from transformer_tts_tpu_torch.ops import flash_attention as fa
+    fwd_id, dq_id, dkdv_id = (("K3-d", "K3-dq", "K3-dkdv") if causal
+                              else ("K1-d", "K2-dq", "K2-dkdv"))
     counts = read_counts()
     (q, k, v, k_len), fkw = fwd_inputs
     (bq, bk, bv, o, lse, do, bk_len), bkw = bwd_inputs
     rate, seed = fkw["dropout_rate"], fkw["dropout_seed"]
     check(all(torch.equal(x, y) for x, y in ((q, bq), (k, bk), (v, bv),
                                             (k_len, bk_len)))
-          and (bkw["dropout_rate"], bkw["dropout_seed"]) == (rate, seed),
+          and (bkw["dropout_rate"], bkw["dropout_seed"]) == (rate, seed)
+          and fkw.get("causal", False) == causal
+          and bkw.get("causal", False) == causal,
           "the captured backward is not the captured forward's")
     errs, peaks, o_again = check_train_kernels(q, k, v, do, k_len, rate,
-                                               seed, " (train step input)")
-    check(torch.equal(o_again, o), "K1-d gave another O on the same input "
-                                   "and seed than in the train step")
+                                               seed, " (train step input)",
+                                               causal=causal)
+    check(torch.equal(o_again, o), f"{fwd_id} gave another O on the same "
+                                   f"input and seed than in the train step")
     sm_scale = q.shape[-1] ** -0.5
-    mask = (torch.arange(k.shape[2], device=q.device)[None, :]
-            < k_len[:, None])[:, None, None, :]
     b, h, t_q, d = q.shape
-    keys = k_len.clamp(max=k.shape[2]).double().sum().item()
+    mask = sdpa_mask(t_q, k.shape[2], k_len.clamp(max=k.shape[2]), causal)
+    pairs = attended_pairs(t_q, k_len.clamp(max=k.shape[2]), causal)
     el = q.element_size()
     with torch.no_grad():
-        res = {"K1-d": {
+        res = {fwd_id: {
             "ms": time_ms(lambda: fa.flash_attention(
-                q, k, v, k_len, dropout_rate=rate, dropout_seed=seed)),
+                q, k, v, k_len, dropout_rate=rate, dropout_seed=seed,
+                causal=causal)),
             "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
-                q, k, v, k_len, sm_scale, rate, seed)),
+                q, k, v, k_len, sm_scale, rate, seed, causal)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, dropout_p=rate, scale=sm_scale)),
             "max_abs_err": errs["o"], "max_abs_ref": peaks["o"]}}
-        res["K1-d"]["bound_ms"], res["K1-d"]["bound_by"] = bound_ms(
-            4 * h * t_q * keys * d, (4 * q.numel()) * el + b * h * t_q * 4,
+        res[fwd_id]["bound_ms"], res[fwd_id]["bound_by"] = bound_ms(
+            4 * h * pairs * d, (4 * q.numel()) * el + b * h * t_q * 4,
             q.dtype)
-        k1_ms = time_ms(lambda: fa.flash_attention(q, k, v, k_len))
+        rate0_ms = time_ms(lambda: fa.flash_attention(q, k, v, k_len,
+                                                      causal=causal))
 
         delta = fa.bwd_delta(o, do)
         args = (q, k, v, do, lse, delta, k_len)
-        kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed)
+        kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
+                  causal=causal)
         in_bytes = 4 * q.numel() * el + 2 * b * h * t_q * 4   # q,k,v,dO
-        res["K2-dq"] = {
+        res[dq_id] = {
             "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw)),
             "plain_ms": time_ms(lambda: fa.flash_attention_dq_reference(
-                *args, sm_scale, rate, seed)),
+                *args, sm_scale, rate, seed, causal)),
             "max_abs_err": errs["dq"], "max_abs_ref": peaks["dq"]}
-        res["K2-dq"]["bound_ms"], res["K2-dq"]["bound_by"] = bound_ms(
-            6 * h * t_q * keys * d, in_bytes + q.numel() * el, q.dtype)
-        res["K2-dkdv"] = {
+        res[dq_id]["bound_ms"], res[dq_id]["bound_by"] = bound_ms(
+            6 * h * pairs * d, in_bytes + q.numel() * el, q.dtype)
+        res[dkdv_id] = {
             "ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(*args, **kw)),
             "plain_ms": time_ms(lambda: fa.flash_attention_dkdv_reference(
-                *args, sm_scale, rate, seed)),
+                *args, sm_scale, rate, seed, causal)),
             "max_abs_err": max(errs["dk"], errs["dv"]),
             "max_abs_ref": max(peaks["dk"], peaks["dv"])}
-        res["K2-dkdv"]["bound_ms"], res["K2-dkdv"]["bound_by"] = bound_ms(
-            8 * h * t_q * keys * d, in_bytes + 2 * q.numel() * el, q.dtype)
-        pair_bound = bound_ms(10 * h * t_q * keys * d,
-                              8 * q.numel() * el, q.dtype)
+        res[dkdv_id]["bound_ms"], res[dkdv_id]["bound_by"] = bound_ms(
+            8 * h * pairs * d, in_bytes + 2 * q.numel() * el, q.dtype)
+        pair_bound = bound_ms(10 * h * pairs * d, 8 * q.numel() * el,
+                              q.dtype)
     lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
     lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
                                         dropout_p=rate, scale=sm_scale)
     library_bwd = time_ms(lambda: torch.autograd.grad(
         lo, (lq, lk, lv), do, retain_graph=True))
-    res["K2-dq"]["library_ms"] = res["K2-dkdv"]["library_ms"] = library_bwd
+    res[dq_id]["library_ms"] = res[dkdv_id]["library_ms"] = library_bwd
     set_counts(counts)
-    print(f"K1-d/K2 vs plain at the train step's input: "
+    print(f"{fwd_id}/{dq_id}/{dkdv_id} vs plain at the train step's input: "
           + " ".join(f"max|d{n}|={e:.3g} (max|ref| {peaks[n]:.3g})"
                      for n, e in errs.items())
           + "; O equal to the step's")
-    print(f"K1 (dropout 0) at the same input: {k1_ms:.4f} ms against "
-          f"K1-d's {res['K1-d']['ms']:.4f} ms")
-    print(f"K2 as a pair at that input: dq + dk/dv "
-          f"{res['K2-dq']['ms'] + res['K2-dkdv']['ms']:.4f} ms against the "
+    print(f"{fwd_id} at rate 0 on the same input: {rate0_ms:.4f} ms against "
+          f"{res[fwd_id]['ms']:.4f} ms with dropout")
+    print(f"{dq_id} + {dkdv_id} as a pair at that input: "
+          f"{res[dq_id]['ms'] + res[dkdv_id]['ms']:.4f} ms against the "
           f"bound of the five products, {pair_bound[0]:.4f} ms "
           f"({pair_bound[1]}); SDPA backward {library_bwd:.4f} ms")
     return res
 
 
-# ---- phase 7: attention paths -----------------------------------------------
+def causal_forward_timings(inputs) -> dict:
+    """K3-f at its path's captured input (the first decoder layer of the
+    teacher-forced eval forward): kernel, plain and library (SDPA with
+    the pad-and-causal mask) ms, the bound over the attended pairs, and
+    O's error against the fp32 plain version on the same inputs."""
+    import torch.nn.functional as F
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    (q, k, v, k_len), kw = inputs
+    check(kw.get("causal") is True and kw.get("dropout_rate", 0.0) == 0.0,
+          "the captured eval forward is not K3-f's")
+    counts = read_counts()
+    sm_scale = q.shape[-1] ** -0.5
+    b, h, t_q, d = q.shape
+    mask = sdpa_mask(t_q, k.shape[2], k_len, True)
+    with torch.no_grad():
+        o, _ = fa.flash_attention(q, k, v, k_len, causal=True)
+        ro, _ = fa.flash_attention_fwd_reference(
+            *(x.float() for x in (q, k, v)), k_len, sm_scale, causal=True)
+        err, peak = max_err(o, ro)
+        check(err <= REL_TOL[q.dtype] * peak,
+              f"K3-f at its path's input: {err} against max|ref| {peak}")
+        res = {
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, k_len,
+                                                     causal=True)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
+                q, k, v, k_len, sm_scale, causal=True)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=sm_scale)),
+            "max_abs_err": err, "max_abs_ref": peak}
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        4 * h * attended_pairs(t_q, k_len, True) * d,
+        4 * q.numel() * q.element_size() + b * h * t_q * 4, q.dtype)
+    set_counts(counts)
+    return res
+
+
+# ---- phase 8: attention paths -----------------------------------------------
 
 def phase_attention_paths(gen):
     from transformer_tts_tpu_torch.ops import attention
@@ -1046,11 +1410,24 @@ def kernels_line_entry(name, source, replaces, launches, res) -> dict:
             "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
 
 
+PHASE_TIMES = []
+
+
+@contextmanager
+def phase(name: str):
+    """Print the wall time of the phase ``name`` once it ends."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_TIMES.append((name, time.perf_counter() - t0))
+    print(f"[phase {name}: {PHASE_TIMES[-1][1]:.1f} s]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     from transformer_tts_tpu_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -1061,64 +1438,97 @@ def main():
     registry = kernels()
     names = sorted({entry[2] for entry in registry.values()}
                    | {"flash_attention_bwd"})
-    t0 = time.time()
-    cuda_build.build(names)
-    print(f"build of {names}: {time.time() - t0:.1f} s")
+    with phase("build"):
+        cuda_build.build(names)
     for name in names:
         for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
 
     gen = torch.Generator().manual_seed(0)
-    phase_kernel_vs_plain(gen)
     b, text_len, mel_len, frames = TRAIN_BATCH
     batch = train_batch(gen, train_hparams(), b, text_len, mel_len, frames,
                         DEVICE)
-    phase_train_kernels_vs_plain(gen, (batch["pos_mel"] > 0).sum(1))
+    ar_hp = ar_hparams()
+    ar_batch = ar_train_batch(gen, ar_hp, b, text_len, mel_len, frames,
+                              DEVICE)
+    r = ar_hp.reduction_rate
+    ar_groups = (ar_batch["pos_mel"][:, :-r:r] > 0).sum(1)
+    with phase("kernels vs plain"):
+        phase_kernel_vs_plain(gen)
+        phase_train_kernels_vs_plain(gen, (batch["pos_mel"] > 0).sum(1))
+    with phase("K3 vs plain"):
+        phase_causal_kernels_vs_plain(gen, ar_groups)
     main_runs = {}
     for name, (stacks, kid) in PATHS.items():
-        phase_teacher_forced(gen, name, stacks)
-        hp, model, launches, main_inputs = phase_synthesis(gen, name,
-                                                           stacks, kid)
-        phase_cli(name, stacks, hp, model)
-        main_runs[kid] = (launches, main_inputs)
-        del model
-        torch.cuda.empty_cache()
-    phase_card_vs_cpu(gen)
-    train_launches, fwd_inputs, bwd_inputs = phase_train_step(batch)
-    phase_train_cli(gen)
+        with phase(f"{name} synthesis"):
+            phase_teacher_forced(gen, name, stacks)
+            hp, model, launches, main_inputs = phase_synthesis(
+                gen, name, stacks, kid)
+            phase_cli(name, stacks, hp, model)
+            main_runs[kid] = (launches, main_inputs)
+            del model
+            torch.cuda.empty_cache()
+    with phase("fastspeech2 training"):
+        phase_card_vs_cpu(gen, "fastspeech2")
+        train_launches, fwd_inputs, bwd_inputs = phase_train_step(
+            batch, "fastspeech2")
+        phase_train_cli(gen, "fastspeech2")
+    with phase("AR eval forward and decode"):
+        k3f_launches, k3f_inputs = phase_ar_teacher_forced(gen)
+        phase_ar_decode_vs_forward(gen)
+    with phase("AR synthesis"):
+        phase_ar_synthesis(gen)
+    with phase("AR training"):
+        phase_card_vs_cpu(gen, "ar")
+        ar_launches, ar_fwd_inputs, ar_bwd_inputs = phase_train_step(
+            ar_batch, "ar")
+        phase_train_cli(gen, "ar")
 
     lines = []
-    for kid, (launches, main_inputs) in main_runs.items():
-        tensors, k_len = list(main_inputs[:-1]), main_inputs[-1]
-        res = kernel_timings(kid, tensors, k_len)
-        print(f"{kid} at the main path's input "
-              f"{tuple(tensors[0].shape)} {str(tensors[0].dtype)[6:]}, "
-              f"k_len {k_len.tolist()}: kernel {res['ms']:.4f} ms, plain "
-              f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} "
-              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
-              f"max|dO| {res['max_abs_err']:.3g}")
-        if "bias_ms" in res:
-            print(f"{kid} library yardstick leaves out building its bias: "
-                  f"{res['bias_ms']:.4f} ms")
-        _, _, name, source, replaces = registry[kid]
-        lines.append(kernels_line_entry(name, source, replaces, launches,
-                                        res))
-    train_res = train_kernel_timings(fwd_inputs, bwd_inputs)
-    (q, _, _, k_len), kw = fwd_inputs
-    for kid, (_, _, name, source, replaces) in train_kernels().items():
-        res = train_res[kid]
-        print(f"{kid} at the train step's input {tuple(q.shape)} "
-              f"{str(q.dtype)[6:]} rate {kw['dropout_rate']}, k_len "
-              f"{k_len.tolist()}: kernel {res['ms']:.4f} ms, plain "
-              f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} "
-              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
-              f"max abs err {res['max_abs_err']:.3g} (max|ref| "
-              f"{res['max_abs_ref']:.3g})")
-        lines.append(kernels_line_entry(name, source, replaces,
-                                        train_launches[kid], res))
-    phase_attention_paths(gen)
+    with phase("kernels at their main paths' inputs"):
+        for kid, (launches, main_inputs) in main_runs.items():
+            tensors, k_len = list(main_inputs[:-1]), main_inputs[-1]
+            res = kernel_timings(kid, tensors, k_len)
+            print(f"{kid} at the main path's input "
+                  f"{tuple(tensors[0].shape)} {str(tensors[0].dtype)[6:]}, "
+                  f"k_len {k_len.tolist()}: kernel {res['ms']:.4f} ms, "
+                  f"plain {res['plain_ms']:.4f} ms, library "
+                  f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
+                  f"ms ({res['bound_by']}), max|dO| {res['max_abs_err']:.3g}")
+            if "bias_ms" in res:
+                print(f"{kid} library yardstick leaves out building its "
+                      f"bias: {res['bias_ms']:.4f} ms")
+            _, _, name, source, replaces = registry[kid]
+            lines.append(kernels_line_entry(name, source, replaces,
+                                            launches, res))
+        runs = {}                 # id -> (result, launches, its input)
+        for kid, res in train_kernel_timings(fwd_inputs,
+                                             bwd_inputs).items():
+            runs[kid] = (res, train_launches[kid], fwd_inputs)
+        for kid, res in train_kernel_timings(ar_fwd_inputs, ar_bwd_inputs,
+                                             causal=True).items():
+            runs[kid] = (res, ar_launches[kid], ar_fwd_inputs)
+        runs["K3-f"] = (causal_forward_timings(k3f_inputs),
+                        k3f_launches["K3-f"], k3f_inputs)
+        for kid, (_, _, name, source, replaces) in train_kernels().items():
+            res, launches, ((q, _, _, k_len), kw) = runs[kid]
+            print(f"{kid} at its path's input {tuple(q.shape)} "
+                  f"{str(q.dtype)[6:]} rate {kw.get('dropout_rate', 0.0)}, "
+                  f"k_len {k_len.tolist()}: kernel {res['ms']:.4f} ms, "
+                  f"plain {res['plain_ms']:.4f} ms, library "
+                  f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
+                  f"ms ({res['bound_by']}), max abs err "
+                  f"{res['max_abs_err']:.3g} (max|ref| "
+                  f"{res['max_abs_ref']:.3g}), launches {launches}")
+            lines.append(kernels_line_entry(name, source, replaces,
+                                            launches, res))
+    with phase("attention paths"):
+        phase_attention_paths(gen)
 
+    print("phase wall times: " + ", ".join(
+        f"{name} {sec:.1f} s" for name, sec in PHASE_TIMES)
+        + f"; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -181,7 +181,7 @@ def test_cli_raises_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("hp_extra,flags,match", [
-    ({"model": "Transformer"}, [], "AR"),
+    ({"model": "Transformer", "gst": True}, [], "AR"),
     ({}, ["--post_model", "x"], "post-processing"),
     ({}, ["--wav"], "vocoder")])
 def test_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags, match):

@@ -243,7 +243,8 @@ def test_postconvnet_matches_jax(pair):
 
 # ---- the port stands alone -------------------------------------------------
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "transformer_tts_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "transformer_tts_tpu")
 
 
 def _imported_roots(path):
@@ -259,6 +260,11 @@ def _imported_roots(path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((REPO / "transformer_tts_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    names = {str(f.relative_to(REPO)) for f in files}
+    for module in ("models/transformer_tts.py", "models/decoder.py",
+                   "models/prenets.py", "models/layers.py",
+                   "infer/synthesize.py", "train/trainer.py"):
+        assert f"transformer_tts_tpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imported_roots(f)
            if name.split(".")[0] in FORBIDDEN]

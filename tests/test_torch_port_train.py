@@ -45,7 +45,8 @@ from transformer_tts_tpu_torch.ops.feedforward import batch_norm
 from transformer_tts_tpu_torch.ops.masks import create_masks
 from transformer_tts_tpu_torch.train import checkpoint, losses, schedule
 from transformer_tts_tpu_torch.train.trainer import (
-    TrainState, init_fastspeech2_state, make_fastspeech2_train_step)
+    TrainState, init_fastspeech2_state, make_fastspeech2_train_step,
+    make_transformer_train_step)
 
 from torch_port_pair import SMALL, build_pair, to_np
 
@@ -395,11 +396,49 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"remat": True}, "remaining tools"), ({"fix_mask": 3}, "AR")])
+    ({"remat": True}, "remaining tools"),
+    ({"model": "Transformer", "gst": True}, "AR")])
 def test_train_options_of_later_slices_raise(option, match):
+    hp = HParams(**dict(SMALL, **option))
+    make = (make_transformer_train_step if hp.model == "Transformer"
+            else make_fastspeech2_train_step)
     with pytest.raises(NotImplementedError, match=match):
-        make_fastspeech2_train_step(HParams(**dict(SMALL, **option)),
-                                    device="cpu")
+        make(hp, device="cpu")
+
+
+def test_fix_mask_train_step_loss_matches_jax():
+    # the band-diagonal src_mask reaches the encoder, which keeps it on the
+    # masked path, as in the JAX package
+    extra = dict(fix_mask=5, warmup_step=10)
+    hp, jmodel, variables, model = build_pair(**extra)
+    jhp = JaxHParams(**dict(SMALL, **extra))
+    batch = _train_batch(t=64, frames=(1, 5))
+    tx = jax_schedule.build_optimizer(
+        jhp.optimizer, jhp.d_model_decoder, jhp.warmup_factor,
+        jhp.warmup_step, jhp.learning_rate, jhp.clip, jhp.accum_grad)
+    jstate = JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=variables["params"],
+        opt_state=tx.init(variables["params"]),
+        batch_stats=variables["batch_stats"], vq_stats={}, tx=tx)
+    _, jlogs = jax_train_step(jmodel, jhp, donate=False)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(0))
+
+    def port_step(hp, model):
+        opt = schedule.build_optimizer(
+            model.parameters(), hp.optimizer, hp.d_model_decoder,
+            hp.warmup_factor, hp.warmup_step, hp.learning_rate, hp.clip,
+            hp.accum_grad)
+        state = TrainState(model, opt, torch.Generator().manual_seed(0))
+        return make_fastspeech2_train_step(hp, device="cpu")(state,
+                                                             batch)[1]
+
+    logs = port_step(hp, model)
+    for key, value in jlogs.items():
+        np.testing.assert_allclose(float(logs[key]), float(value),
+                                   rtol=1e-4, err_msg=key)
+    unbanded = port_step(*build_pair(warmup_step=10)[::3])
+    assert float(unbanded["loss_total"]) != float(logs["loss_total"])
 
 
 # ---- data and checkpoints ---------------------------------------------------
@@ -549,7 +588,7 @@ def test_train_cli_raises_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("hp_extra,flags,match", [
-    ({"model": "Transformer"}, [], "AR"),
+    ({"model": "Transformer", "gst": True}, [], "AR"),
     ({"model": "SQFastSpeech2"}, [], "other model families"),
     ({"architecture": "mel-mel"}, [], "post-processing"),
     ({"architecture": "text-mel-mel"}, [], "post-processing"),

@@ -1,4 +1,5 @@
-"""A small FastSpeech 2 in both packages, on the same weights.
+"""A small FastSpeech 2, or AR Transformer-TTS, in both packages, on the
+same weights.
 
 Builds the JAX model in fp32, takes its parameter tree's shapes from
 ``jax.eval_shape`` (no compile), fills it with numpy random values in
@@ -15,12 +16,17 @@ import numpy as np
 import torch
 
 from transformer_tts_tpu.config import HParams as JaxHParams
-from transformer_tts_tpu.ops.masks import pad_mask as jax_pad_mask
+from transformer_tts_tpu.models.transformer_tts import (
+    build_transformer_tts as jax_build_transformer_tts)
+from transformer_tts_tpu.ops.masks import (
+    create_masks as jax_create_masks, pad_mask as jax_pad_mask)
 from transformer_tts_tpu.train.trainer import (
     build_fastspeech2 as jax_build_fastspeech2)
 from transformer_tts_tpu_torch.compat.from_jax import state_dict_from_flax
 from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.models.fastspeech2 import build_fastspeech2
+from transformer_tts_tpu_torch.models.transformer_tts import (
+    build_transformer_tts)
 
 SMALL = dict(vocab_size=40, mel_dim=16, d_model_encoder=32,
              d_model_decoder=32, n_layer_encoder=2, n_layer_decoder=2,
@@ -32,6 +38,10 @@ SMALL = dict(vocab_size=40, mel_dim=16, d_model_encoder=32,
 # the conformer FastSpeech 2 of egs/fastspeech2_conformer_ljspeech.py at
 # SMALL's size
 CONFORMER = dict(encoder_type="conformer", decoder_type="conformer")
+
+# the AR Transformer-TTS of egs/transformer_tts_ljspeech.py at SMALL's
+# size, every dropout 0
+AR = dict(model="Transformer", reduction_rate=2, dropout_prenet=0.0)
 
 # predictor biases that put random-weight outputs in a useful range:
 # ~3 frames per phone, pitch and energy inside their bins
@@ -77,6 +87,33 @@ def build_pair(seed=0, **overrides):
     variables = {"params": params, "batch_stats": bstats}
 
     model = build_fastspeech2(hp, device="cpu")
+    model.load_state_dict(state_dict_from_flax(params, bstats, hp))
+    model.eval()
+    return hp, jmodel, variables, model
+
+
+def build_ar_pair(seed=0, **overrides):
+    """-> (hp, jax_model, variables, port_model) of the AR model on the
+    same weights."""
+    cfg = dict(SMALL, **AR, **overrides)
+    jhp = JaxHParams(**cfg)
+    hp = HParams(**cfg)
+    jmodel = jax_build_transformer_tts(jhp)
+    b, l, t = 2, 8, 6
+    pos_text = jnp.tile(jnp.arange(1, l + 1)[None], (b, 1))
+    pos_mel = jnp.tile(jnp.arange(1, t + 1)[None], (b, 1))
+    src_mask, trg_mask = jax_create_masks(pos_text, pos_mel,
+                                          model="transformer")
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(seed), jnp.ones((b, l), jnp.int32),
+        jnp.zeros((b, t, cfg["mel_dim"])), src_mask, trg_mask,
+        train=False))
+    rs = np.random.RandomState(seed)
+    params = _random_params(shapes["params"], rs)
+    bstats = _random_params(shapes.get("batch_stats", {}), rs)
+    variables = {"params": params, "batch_stats": bstats}
+
+    model = build_transformer_tts(hp, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, bstats, hp))
     model.eval()
     return hp, jmodel, variables, model

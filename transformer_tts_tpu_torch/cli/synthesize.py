@@ -1,5 +1,6 @@
-"""FastSpeech 2 synthesis CLI of the PyTorch port (the port of the FS2
-branch of transformer_tts_tpu/cli/synthesize.py).
+"""Synthesis CLI of the PyTorch port (the port of the FastSpeech 2 and
+KV-cached AR Transformer-TTS branches of transformer_tts_tpu/cli/
+synthesize.py).
 
 ``python -m transformer_tts_tpu_torch.cli.synthesize --load_name DIR
       [--test_script s.txt] [--save out_dir] [--max_frames 2048]
@@ -7,12 +8,15 @@ branch of transformer_tts_tpu/cli/synthesize.py).
       [--duration_perturbation] [--device cuda]``
 
 ``DIR`` holds ``hparams.py`` and a port checkpoint (``model.pt``, see
-train/checkpoint.py). For each utterance of the script it writes
-``<idx>.npy`` (the de-normalized mel, float32, cut to its length) and
-``<idx>_alignment.npy`` (predicted durations), and prints the elapsed
-synthesis time. It runs on the CUDA device unless ``--device cpu`` is
-given, and raises when that device is missing. The AR, integrate,
-post-model, vocoder and waveform paths come with later slices.
+train/checkpoint.py); ``hp.model`` picks FastSpeech 2 or the AR
+Transformer-TTS (``--max_frames``, ``--use_prenet`` and the perturbations
+are FastSpeech 2's; the AR decode runs up to 500 frame groups). For each
+utterance of the script it writes ``<idx>.npy`` (the de-normalized mel,
+float32, cut to its length) and, for FastSpeech 2, ``<idx>_alignment.npy``
+(predicted durations), and prints the elapsed synthesis time. It runs on
+the CUDA device unless ``--device cpu`` is given, and raises when that
+device is missing. The integrate, post-model, vocoder and waveform paths
+come with later slices.
 """
 
 from __future__ import annotations
@@ -50,9 +54,12 @@ def main(argv=None):
     from transformer_tts_tpu_torch.data.dataset import ScriptDataset
     from transformer_tts_tpu_torch.data.readers import Normalizer
     from transformer_tts_tpu_torch.infer.synthesize import (
-        sample_perturbation, synthesize_fastspeech2)
+        sample_perturbation, synthesize_fastspeech2,
+        synthesize_transformer_tts)
     from transformer_tts_tpu_torch.models.fastspeech2 import (
         build_fastspeech2, later_slice)
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
     from transformer_tts_tpu_torch.train.checkpoint import load_checkpoint
 
     if args.post_model is not None:
@@ -67,14 +74,14 @@ def main(argv=None):
     hp = load_hparams(os.path.join(args.load_name, "hparams.py"))
     if args.test_script:
         hp.test_script = args.test_script
-    if not is_nar_model(hp.model):
-        later_slice(f"the AR model {hp.model!r}", "AR Transformer-TTS")
+    is_ar = not is_nar_model(hp.model)
     if hp.architecture == "text-mel-mel":
         later_slice("text-mel-mel integrate synthesis",
                     "mel-to-mel post-processing")
     os.makedirs(args.save, exist_ok=True)
 
-    model = build_fastspeech2(hp, device=device)
+    model = (build_transformer_tts if is_ar else build_fastspeech2)(
+        hp, device=device)
     load_checkpoint(model, args.load_name)
     mean, var = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim).arrays()
     if mean is not None:
@@ -96,21 +103,27 @@ def main(argv=None):
         d_scale = sample_perturbation(prng) \
             if args.duration_perturbation else 1.0
         t0 = time.time()
-        mel, mel_len, durations = synthesize_fastspeech2(
-            model, text, pos_text, args.max_frames, mean, var,
-            pitch_scale=p_scale, duration_scale=d_scale,
-            use_prenet=args.use_prenet)
+        if is_ar:
+            mel, mel_len = synthesize_transformer_tts(model, text, pos_text,
+                                                      mean, var)
+            durations = None
+        else:
+            mel, mel_len, durations = synthesize_fastspeech2(
+                model, text, pos_text, args.max_frames, mean, var,
+                pitch_scale=p_scale, duration_scale=d_scale,
+                use_prenet=args.use_prenet)
+            durations = durations.cpu().numpy()
         # the copies to the host wait for the device
         mel_np = mel.float().cpu().numpy()
         lens = mel_len.cpu().tolist()
-        durations = durations.cpu().numpy()
         elapsed += time.time() - t0
 
         for j, idx in enumerate(chunk):
             out_name = os.path.join(args.save, f"{idx}.npy")
             np.save(out_name, mel_np[j, :lens[j]])
-            np.save(os.path.join(args.save, f"{idx}_alignment.npy"),
-                    durations[j])
+            if durations is not None:
+                np.save(os.path.join(args.save, f"{idx}_alignment.npy"),
+                        durations[j])
             print(f"save {out_name} ({lens[j]} frames)")
         sys.stdout.flush()
 

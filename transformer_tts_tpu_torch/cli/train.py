@@ -1,5 +1,5 @@
-"""FastSpeech 2 training CLI of the PyTorch port (the port of the
-text-mel FastSpeech 2 branch of transformer_tts_tpu/cli/train.py:29-317).
+"""Training CLI of the PyTorch port (the port of the text-mel FastSpeech 2
+and AR Transformer-TTS branches of transformer_tts_tpu/cli/train.py:29-317).
 
 ``python -m transformer_tts_tpu_torch.cli.train --hp_file hparams.py
       [--set KEY=VALUE ...] [--max_steps N] [--device cuda]``
@@ -11,8 +11,10 @@ an assertion on a non-finite loss, a checkpoint under
 optimizer at multiples of ``save_per_epoch``), and resume from
 ``hp.loaded_dir``/``hp.loaded_epoch``. Each checkpoint directory holds
 ``hparams.py`` and ``model.pt``, so ``cli/synthesize.py --load_name`` reads
-it. It runs on the CUDA device unless ``--device cpu`` is given. The AR,
-SQ-VAE, mel-to-mel and text-mel-mel trainers and ``--multihost`` raise
+it. ``hp.model`` picks the trainer: FastSpeech 2, or the AR
+Transformer-TTS (``model = "Transformer"``). It runs on the CUDA device
+unless ``--device cpu`` is given. The SQ-VAE, mel-to-mel and text-mel-mel
+trainers, the AR model's later-slice options and ``--multihost`` raise
 ``NotImplementedError``, naming their slices.
 """
 
@@ -39,9 +41,12 @@ def _overrides(pairs) -> dict:
     return out
 
 
-def _check_branch(hp, args):
+def _check_branch(hp, args) -> bool:
+    """Raise for a trainer of a later slice; True for the AR trainer."""
     from transformer_tts_tpu_torch.config import is_nar_model
     from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        check_supported)
     if args.multihost:
         later_slice("--multihost (multi-process data parallelism)",
                     "parallelism")
@@ -56,13 +61,16 @@ def _check_branch(hp, args):
                             "fastspeech2_sq"):
         later_slice("the SQ-VAE FastSpeech 2 trainer",
                     "other model families")
-    if not is_nar_model(hp.model):
-        later_slice(f"the AR trainer for {hp.model!r}", "AR Transformer-TTS")
+    if is_nar_model(hp.model):
+        return False
+    check_supported(hp)
+    return True
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Train FastSpeech 2 (PyTorch port)")
+        description="Train FastSpeech 2 or the AR Transformer-TTS "
+                    "(PyTorch port)")
     parser.add_argument("--hp_file", type=str, required=True)
     parser.add_argument("--max_steps", type=int, default=None,
                         help="stop after N steps")
@@ -77,11 +85,10 @@ def main(argv=None):
     from transformer_tts_tpu_torch.data.dataset import TTSDataset
     from transformer_tts_tpu_torch.data.loader import DataLoader
     from transformer_tts_tpu_torch.train import checkpoint as ckpt
-    from transformer_tts_tpu_torch.train.trainer import (
-        init_fastspeech2_state, make_fastspeech2_train_step)
+    from transformer_tts_tpu_torch.train import trainer
 
     hp = load_hparams(args.hp_file).override(**_overrides(args.set))
-    _check_branch(hp, args)
+    is_ar = _check_branch(hp, args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device "
@@ -89,8 +96,12 @@ def main(argv=None):
     hp.log_config()
 
     loader = DataLoader(TTSDataset(hp.train_script, hp), hp)
-    state = init_fastspeech2_state(hp, device=device)
-    step_fn = make_fastspeech2_train_step(hp, device=device)
+    if is_ar:
+        state = trainer.init_transformer_state(hp, device=device)
+        step_fn = trainer.make_transformer_train_step(hp, device=device)
+    else:
+        state = trainer.init_fastspeech2_state(hp, device=device)
+        step_fn = trainer.make_fastspeech2_train_step(hp, device=device)
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"params = {n_params / 1e6:.2f}M")
 

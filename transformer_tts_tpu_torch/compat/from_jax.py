@@ -1,10 +1,13 @@
-"""Carry the JAX package's FastSpeech 2 weights into the port.
+"""Carry the JAX package's FastSpeech 2 and AR Transformer-TTS weights into
+the port.
 
 ``state_dict_from_flax(params, batch_stats, hp)`` takes the flax parameter
 and batch-statistics trees (nested dicts of numpy arrays) and returns the
 port's ``state_dict``, under the reference torch repo's parameter names.
-It inverts transformer_tts_tpu/compat/torch_import.py:60-194 and, for
-conformer stacks, ``convert_conformer_encoder_state_dict`` (:351-410):
+It inverts transformer_tts_tpu/compat/torch_import.py:60-194, for
+conformer stacks ``convert_conformer_encoder_state_dict`` (:351-410) and,
+for the AR model (``hp.model`` not a NAR family),
+``convert_transformer_state_dict`` (:300-348):
 
   flax Dense kernel (in, out)        -> Linear.weight (out, in)
   flax Conv kernel (k, in, out)      -> Conv1d.weight (out, in, k)
@@ -20,6 +23,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from transformer_tts_tpu_torch.config import is_nar_model
 
 
 def _get(tree: Mapping, path):
@@ -74,8 +79,7 @@ class _Writer:
             lp, ln = p + (f"layers_{i}",), f"{prefix}.layers.{i}"
             self.layer_norm(lp + ("norm_1",), f"{ln}.norm_1")
             self.layer_norm(lp + ("norm_2",), f"{ln}.norm_2")
-            for part in ("q_linear", "k_linear", "v_linear", "out"):
-                self.linear(lp + ("attn", part), f"{ln}.attn.{part}")
+            self.mha(lp + ("attn",), f"{ln}.attn")
             self.conv1d(lp + ("ff", "f_1"), f"{ln}.ff.f_1")
             self.conv1d(lp + ("ff", "f_2"), f"{ln}.ff.f_2")
             self.layer_norm(lp + ("ff", "layer_norm"), f"{ln}.ff.layer_norm")
@@ -116,6 +120,38 @@ class _Writer:
                   else self.encoder_stack)
         writer(prefix, n_layers, embedding)
 
+    def mha(self, path, name):
+        for part in ("q_linear", "k_linear", "v_linear", "out"):
+            self.linear(path + (part,), f"{name}.{part}")
+
+    def ar_decoder(self, n_layers: int):
+        p = ("decoder",)
+        self.linear(p + ("decoder_prenet", "fc1"),
+                    "decoder.decoder_prenet.layer.fc1")
+        self.linear(p + ("decoder_prenet", "fc2"),
+                    "decoder.decoder_prenet.layer.fc2")
+        self._put("decoder.pe.alpha", _get(self.params, p + ("pe", "alpha")))
+        for i in range(n_layers):
+            lp, ln = p + (f"layers_{i}",), f"decoder.layers.{i}"
+            for norm in ("norm_1", "norm_2", "norm_3"):
+                self.layer_norm(lp + (norm,), f"{ln}.{norm}")
+            self.mha(lp + ("attn_1",), f"{ln}.attn_1")
+            self.mha(lp + ("attn_2",), f"{ln}.attn_2")
+            self.conv1d(lp + ("ff", "f_1"), f"{ln}.ff.f_1")
+            self.conv1d(lp + ("ff", "f_2"), f"{ln}.ff.f_2")
+            self.layer_norm(lp + ("ff", "layer_norm"), f"{ln}.ff.layer_norm")
+        self.layer_norm(p + ("norm",), "decoder.norm")
+
+    def postnet_convs(self):
+        pn = ("postnet",)
+        self.conv1d(pn + ("conv1",), "postnet.conv1")
+        self.conv1d(pn + ("conv2",), "postnet.conv2")
+        self.batch_norm(pn + ("pre_batchnorm",), "postnet.pre_batchnorm")
+        for i in range(3):
+            self.conv1d(pn + (f"conv_list_{i}",), f"postnet.conv_list.{i}")
+            self.batch_norm(pn + (f"batch_norm_list_{i}",),
+                            f"postnet.batch_norm_list.{i}")
+
     def variance_predictor(self, path, name):
         self.conv1d(path + ("conv1",), f"{name}.conv1")
         self.conv1d(path + ("conv2",), f"{name}.conv2")
@@ -124,11 +160,24 @@ class _Writer:
         self.linear(path + ("linear_layer",), f"{name}.linear_layer")
 
 
+def _transformer_tts(w: _Writer, hp) -> Dict[str, torch.Tensor]:
+    w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True)
+    if hp.d_model_encoder != hp.d_model_decoder:
+        w.linear(("linear",), "linear")
+    w.ar_decoder(hp.n_layer_decoder)
+    w.linear(("out",), "out")
+    w.linear(("stop_token",), "stop_token")
+    w.postnet_convs()           # the AR postnet has no "out" Linear
+    return w.out
+
+
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
                          hp) -> Dict[str, torch.Tensor]:
-    """Flax FastSpeech 2 (transformer or conformer stacks) trees -> port
-    ``state_dict``."""
+    """Flax FastSpeech 2 (transformer or conformer stacks) or AR
+    Transformer-TTS trees -> port ``state_dict``."""
     w = _Writer(params, batch_stats)
+    if not is_nar_model(hp.model):
+        return _transformer_tts(w, hp)
     w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True)
     w.stack(hp.decoder_type, "decoder", hp.n_layer_decoder, embedding=False)
     va = ("variance_adaptor",)
@@ -141,15 +190,8 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
             w.embed(va + (f"{kind}_embedding",),
                     f"variance_adaptor.{kind}_embedding")
     if hp.postnet_pred:
-        pn = ("postnet",)
-        w.linear(pn + ("out",), "postnet.out")
-        w.conv1d(pn + ("conv1",), "postnet.conv1")
-        w.conv1d(pn + ("conv2",), "postnet.conv2")
-        w.batch_norm(pn + ("pre_batchnorm",), "postnet.pre_batchnorm")
-        for i in range(3):
-            w.conv1d(pn + (f"conv_list_{i}",), f"postnet.conv_list.{i}")
-            w.batch_norm(pn + (f"batch_norm_list_{i}",),
-                         f"postnet.batch_norm_list.{i}")
+        w.linear(("postnet", "out"), "postnet.out")
+        w.postnet_convs()
     else:
         w.linear(("out",), "out")
     return w.out

@@ -1,9 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a): non-causal, prefix key mask,
-// optional attention-prob dropout (K2).
+// Flash-attention backward for Hopper (sm_90a): prefix key mask, optional
+// attention-prob dropout, non-causal (K2) or causal (K3).
 //
 // Replaces the TPU kernels `_dq_kernel` and `_dkdv_kernel` driven by
-// `_flash_bwd` (transformer_tts_tpu/ops/flash_attention.py:266-550) with
-// causal=False and no bias: the backward of FastSpeech 2 training.
+// `_flash_bwd` (transformer_tts_tpu/ops/flash_attention.py:266-550) with no
+// bias: with causal=False the backward of FastSpeech 2 training (K2), with
+// causal=True that of the AR Transformer-TTS decoder's masked
+// self-attention (K3).
 //
 // What it computes, per batch-head bh = b*H + h, from the forward's lse and
 // delta = rowsum(dO * O) (fp32, computed by the caller as `_flash_bwd` does):
@@ -18,6 +20,13 @@
 // exactly 0 for keys at or past k_len[b]. No atomics: each output row is
 // written by one block, so the gradients are deterministic.
 //
+// Causal (K3): P, dP and dS exist only for c <= r (global, top-left-aligned
+// indices, each row its own q0 + r). The dq kernel stops its key-tile loop
+// after the tile holding key q0 + BT - 1 (the TPU kernel's skip at
+// :329-335); the dk/dv kernel starts its q-tile loop at the tile holding
+// row k0, k0 / BT (BQ = BK = BT), the first that sees any of its keys
+// (:406-407) -- starting one later would drop the diagonal tile.
+//
 // Bound on the card: 10*B*H*T_q*k_len*d operations (five products) against
 // Q, K, V, O, dO, dQ, dK and dV moved once; at the decoder's training shapes
 // (d = 96, T ~ 1024) that is ~1 byte per 300 operations in bf16, so the
@@ -28,8 +37,9 @@
 //   * the dq kernel: one 128-thread block per (64 q rows, bh), a loop over
 //     the 64-key tiles below k_len[b]; per tile S = Q K^T and dP = dO V^T
 //     into shared memory, dS elementwise, then dq += dS K;
-//   * the dk/dv kernel: one block per (64 keys, bh), a loop over every
-//     64-row q tile; per tile S and dP, then (P keep)^T and dS^T written
+//   * the dk/dv kernel: one block per (64 keys, bh), a loop over the
+//     64-row q tiles (from k0 / BT when causal); per tile S and dP, then
+//     (P keep)^T and dS^T written
 //     transposed into shared memory, dv += (P keep)^T dO and dk += dS^T Q.
 //     A block whose keys all lie at or past k_len[b] writes zeros;
 //   * the products, the tile loads and the dropout hash are K1's, from
@@ -126,6 +136,12 @@ struct Dropout {
   uint32_t seed;
 };
 
+// key `col` counts for query `row` (global indices)
+__device__ __forceinline__ bool attends(int row, int col, int klen,
+                                        int causal) {
+  return col < klen && (!causal || col <= row);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -134,7 +150,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta,
                     const int32_t* __restrict__ k_len, T* __restrict__ dq,
                     int H, int T_q, int T_k, int d, float sm_scale,
-                    Dropout drop) {
+                    Dropout drop, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geom<T> g(d, 1, 1);
   T* sQ = reinterpret_cast<T*>(smem + g.off_in[0]);
@@ -160,7 +176,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero_fp32(sAcc, BT * g.ld_o);
   load_stats(sLse, sDelta, lse, delta, (size_t)bh * T_q, q0, T_q);
 
-  const int n_tiles = (klen + BT - 1) / BT;
+  int n_tiles = (klen + BT - 1) / BT;
+  if (causal) {  // the last tile holding a key that row q0 + BT - 1 sees
+    const int diag = (q0 + BT - 1) / BT + 1;
+    n_tiles = n_tiles < diag ? n_tiles : diag;
+  }
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // previous tile's readers of sK/sV/sDS are done
@@ -175,7 +195,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BT * BT; idx += NTHREADS) {
       const int r = idx / BT, c = idx - r * BT;
       float ds = 0.f;
-      if (q0 + r < T_q && k0 + c < klen) {
+      if (q0 + r < T_q && attends(q0 + r, k0 + c, klen, causal)) {
         const float p = expf(sS[r * g.ld_s + c] * sm_scale - sLse[r]);
         float dp = sDP[r * g.ld_s + c];
         if (drop.on)
@@ -203,7 +223,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta,
                       const int32_t* __restrict__ k_len, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int T_q, int T_k, int d,
-                      float sm_scale, Dropout drop) {
+                      float sm_scale, Dropout drop, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geom<T> g(d, 2, 2);
   T* sK = reinterpret_cast<T*>(smem + g.off_in[0]);
@@ -243,7 +263,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero_fp32(sDV, BT * g.ld_o);
 
   const int n_tiles = (T_q + BT - 1) / BT;
-  for (int qt = 0; qt < n_tiles; ++qt) {
+  // causal: the first q tile holding a row >= k0 (rows below see no key
+  // of this block); k0 is a multiple of BT, so that tile starts at k0
+  const int qt0 = causal ? k0 / BT : 0;
+  for (int qt = qt0; qt < n_tiles; ++qt) {
     const int q0 = qt * BT;
     __syncthreads();  // previous tile's readers of sQ/sDO/sPT/sDST are done
     load_tile(sQ, g.ld_in, q + qbase, q0, T_q, d, g.dp);
@@ -259,7 +282,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BT * BT; idx += NTHREADS) {
       const int r = idx / BT, c = idx - r * BT;   // q row r, key c
       float pk = 0.f, ds = 0.f;
-      if (q0 + r < T_q && k0 + c < klen) {
+      if (q0 + r < T_q && attends(q0 + r, k0 + c, klen, causal)) {
         const float p = expf(sS[r * g.ld_s + c] * sm_scale - sLse[r]);
         float dp = sDP[r * g.ld_s + c];
         pk = p;
@@ -295,7 +318,7 @@ template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const int32_t* k_len,
               void* dq, int B, int H, int T_q, int T_k, int d,
-              float sm_scale, Dropout drop, cudaStream_t stream) {
+              float sm_scale, Dropout drop, int causal, cudaStream_t stream) {
   const Geom<T> g(d, 1, 1);
   int err = set_smem(flash_bwd_dq_kernel<T>, g.bytes);
   if (err != 0) return err;
@@ -303,7 +326,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_dq_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      k_len, static_cast<T*>(dq), H, T_q, T_k, d, sm_scale, drop);
+      k_len, static_cast<T*>(dq), H, T_q, T_k, d, sm_scale, drop, causal);
   return (int)cudaGetLastError();
 }
 
@@ -312,7 +335,7 @@ int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 const int32_t* k_len, void* dk, void* dv, int B, int H,
                 int T_q, int T_k, int d, float sm_scale, Dropout drop,
-                cudaStream_t stream) {
+                int causal, cudaStream_t stream) {
   const Geom<T> g(d, 2, 2);
   int err = set_smem(flash_bwd_dkdv_kernel<T>, g.bytes);
   if (err != 0) return err;
@@ -321,7 +344,7 @@ int launch_dkdv(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       k_len, static_cast<T*>(dk), static_cast<T*>(dv), H, T_q, T_k, d,
-      sm_scale, drop);
+      sm_scale, drop, causal);
   return (int)cudaGetLastError();
 }
 
@@ -337,7 +360,8 @@ extern "C" {
 // lse and delta (B,H,T_q) fp32, k_len (B,) int32, dq like q, dk/dv like k,
 // all contiguous on the device. dropout != 0 turns on the keep mask with
 // `threshold` (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and
-// `seed` (the int32 seed's bits), the forward's values. Each returns the
+// `seed` (the int32 seed's bits), the forward's values; causal != 0 is K3
+// (keys past the query row masked), as in the forward. Each returns the
 // cudaError_t of its launch (0 = success), including a refusal of the
 // shared memory it needs.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -346,7 +370,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            int B, int H, int T_q, int T_k, int d,
                            float sm_scale, int dropout,
                            unsigned int threshold, float keep_scale,
-                           unsigned int seed, int dtype, void* stream) {
+                           unsigned int seed, int causal, int dtype,
+                           void* stream) {
   if (bad_sizes(d, T_q, T_k)) return (int)cudaErrorInvalidValue;
   const Dropout drop{dropout, threshold, keep_scale, seed};
   auto s = static_cast<cudaStream_t>(stream);
@@ -355,10 +380,10 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   auto kl = static_cast<const int32_t*>(k_len);
   if (dtype == 0)
     return launch_dq<float>(q, k, v, dout, l, dl, kl, dq, B, H, T_q, T_k, d,
-                            sm_scale, drop, s);
+                            sm_scale, drop, causal, s);
   if (dtype == 1)
     return launch_dq<__nv_bfloat16>(q, k, v, dout, l, dl, kl, dq, B, H, T_q,
-                                    T_k, d, sm_scale, drop, s);
+                                    T_k, d, sm_scale, drop, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -368,7 +393,8 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                              void* dv, int B, int H, int T_q, int T_k, int d,
                              float sm_scale, int dropout,
                              unsigned int threshold, float keep_scale,
-                             unsigned int seed, int dtype, void* stream) {
+                             unsigned int seed, int causal, int dtype,
+                             void* stream) {
   if (bad_sizes(d, T_q, T_k)) return (int)cudaErrorInvalidValue;
   const Dropout drop{dropout, threshold, keep_scale, seed};
   auto s = static_cast<cudaStream_t>(stream);
@@ -377,10 +403,11 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
   auto kl = static_cast<const int32_t*>(k_len);
   if (dtype == 0)
     return launch_dkdv<float>(q, k, v, dout, l, dl, kl, dk, dv, B, H, T_q,
-                              T_k, d, sm_scale, drop, s);
+                              T_k, d, sm_scale, drop, causal, s);
   if (dtype == 1)
     return launch_dkdv<__nv_bfloat16>(q, k, v, dout, l, dl, kl, dk, dv, B,
-                                      H, T_q, T_k, d, sm_scale, drop, s);
+                                      H, T_q, T_k, d, sm_scale, drop, causal,
+                                      s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,12 +1,16 @@
-// Flash-attention forward for Hopper (sm_90a): non-causal, prefix key mask.
+// Flash-attention forward for Hopper (sm_90a): prefix key mask, optionally
+// causal.
 //
 // Replaces the TPU kernel `_fwd_kernel` driven by `_flash_fwd`
-// (transformer_tts_tpu/ops/flash_attention.py:90-263) with causal=False and
-// no bias: K1 (no dropout, the path FastSpeech 2 synthesis runs) and K1-d
-// (attention-prob dropout, the path its training runs).
+// (transformer_tts_tpu/ops/flash_attention.py:90-263) with no bias: K1 (no
+// dropout, the path FastSpeech 2 synthesis runs), K1-d (attention-prob
+// dropout, the path its training runs) and, with `causal`, K3's forward
+// (the AR Transformer-TTS decoder's masked self-attention in training:
+// K3-d with dropout, K3-f without).
 //
 // What it computes, per batch-head bh = b*H + h and query row r:
 //   s[c]   = (q[r] . k[c]) * sm_scale         for keys c < k_len[b]
+//                                             (and c <= r when causal)
 //   o[r]   = sum_c softmax(s)[c] * keep(r, c) * v[c]   (input dtype)
 //   lse[r] = max_c s[c] + log(sum_c exp(s[c] - max))   (fp32)
 // Keys c >= k_len[b] are excluded exactly. A row with no valid key gives
@@ -20,9 +24,17 @@
 // scale is cast to bf16 before P.V as without dropout. With dropout off the
 // kernel takes the K1 code path unchanged.
 //
+// Causal (K3): the mask is c <= r in global, top-left-aligned indices (row
+// r of q against key c of k, T_q != T_k allowed), as the TPU kernel's
+// `col <= row`; each row compares its own global index q0 + row. The key
+// tile loop stops after the tile holding key q0 + BQ - 1, the TPU kernel's
+// block skip (:161-165); tiles past it hold no key any row of the block
+// sees. A padded query row (r >= k_len) still sees every valid key.
+//
 // Bound on the card: 4*B*H*T_q*T_k*d operations against Q, K, V and O read
-// or written once. At the synthesis shapes (d = 96, T = 768..2048) that is
-// ~1 byte per 200..500 operations in bf16, so the tensor cores bound it.
+// or written once (causal: 4*H*d per valid (row, key) pair, about half).
+// At the synthesis shapes (d = 96, T = 768..2048) that is ~1 byte per
+// 200..500 operations in bf16, so the tensor cores bound it.
 //
 // Design (simple first version; wgmma, TMA and warp specialisation come
 // later):
@@ -90,7 +102,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int32_t* __restrict__ k_len,
                  T* __restrict__ o, float* __restrict__ lse, int H, int T_q,
                  int T_k, int d, float sm_scale, int dropout,
-                 uint32_t threshold, float keep_scale, uint32_t seed) {
+                 uint32_t threshold, float keep_scale, uint32_t seed,
+                 int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geom<T> g(d);
   T* sQ = reinterpret_cast<T*>(smem);
@@ -127,7 +140,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int srow = tid >> 1;
   const int shalf = tid & 1;
 
-  const int n_tiles = (klen + BK - 1) / BK;
+  int n_tiles = (klen + BK - 1) / BK;
+  if (causal) {  // the last tile holding a key that row q0 + BQ - 1 sees
+    const int diag = (q0 + BQ - 1) / BK + 1;
+    n_tiles = n_tiles < diag ? n_tiles : diag;
+  }
+  // global row of this thread's softmax row: the causal bound is per row
+  const int grow = q0 + srow;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // previous tile's readers of sK/sV/sS are done
@@ -145,7 +164,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float tmax = NEG_INF;
       for (int c = 0; c < 32; ++c) {
         const float s = srow_s[c] * sm_scale;
-        if (cbase + c < klen) tmax = fmaxf(tmax, s);
+        const int col = cbase + c;
+        if (col < klen && (!causal || col <= grow)) tmax = fmaxf(tmax, s);
       }
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
       const float m_prev = sM[srow];
@@ -154,12 +174,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* prow = sP + srow * g.ld_p + shalf * 32;
       for (int c = 0; c < 32; ++c) {
         const float s = srow_s[c] * sm_scale;
-        const float p = (cbase + c < klen) ? expf(s - m_new) : 0.f;
+        const int col = cbase + c;
+        const bool valid = col < klen && (!causal || col <= grow);
+        const float p = valid ? expf(s - m_new) : 0.f;
         sum += p;
         if (dropout) {
-          const bool kept = keep_bit(seed, (uint32_t)bh,
-                                     (uint32_t)(q0 + srow),
-                                     (uint32_t)(cbase + c), threshold);
+          const bool kept = keep_bit(seed, (uint32_t)bh, (uint32_t)grow,
+                                     (uint32_t)col, threshold);
           prow[c] = from_float<T>(kept ? p * keep_scale : 0.f);
         } else {
           prow[c] = from_float<T>(p);
@@ -206,7 +227,7 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const int32_t* k_len,
            void* o, float* lse, int B, int H, int T_q, int T_k, int d,
            float sm_scale, int dropout, uint32_t threshold, float keep_scale,
-           uint32_t seed, cudaStream_t stream) {
+           uint32_t seed, int causal, cudaStream_t stream) {
   const Geom<T> g(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -216,7 +237,7 @@ int launch(const void* q, const void* k, const void* v, const int32_t* k_len,
   flash_fwd_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), k_len, static_cast<T*>(o), lse, H, T_q, T_k,
-      d, sm_scale, dropout, threshold, keep_scale, seed);
+      d, sm_scale, dropout, threshold, keep_scale, seed, causal);
   return (int)cudaGetLastError();
 }
 
@@ -228,12 +249,14 @@ extern "C" {
 // o like q, lse (B,H,T_q) fp32, k_len (B,) int32, all contiguous on the
 // device. dropout != 0 turns on the keep mask with `threshold`
 // (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and `seed` (the
-// int32 seed's bits). Returns the cudaError_t of the launch (0 = success).
+// int32 seed's bits). causal != 0 masks keys past the query row (K3).
+// Returns the cudaError_t of the launch (0 = success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* k_len, void* o, void* lse, int B, int H,
                         int T_q, int T_k, int d, float sm_scale, int dropout,
                         unsigned int threshold, float keep_scale,
-                        unsigned int seed, int dtype, void* stream) {
+                        unsigned int seed, int causal, int dtype,
+                        void* stream) {
   if (d <= 0 || d > 128 || d % 8 != 0 || T_q <= 0 || T_k <= 0)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -241,11 +264,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   auto l = static_cast<float*>(lse);
   if (dtype == 0)
     return launch<float>(q, k, v, kl, o, l, B, H, T_q, T_k, d, sm_scale,
-                         dropout, threshold, keep_scale, seed, s);
+                         dropout, threshold, keep_scale, seed, causal, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, kl, o, l, B, H, T_q, T_k, d,
                                  sm_scale, dropout, threshold, keep_scale,
-                                 seed, s);
+                                 seed, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,15 +1,18 @@
 """Collation to bucket shapes (the port of ``pick_bucket``,
 ``pick_batch_bucket`` and ``collate``, transformer_tts_tpu/data/
-batching.py:25-197, for FastSpeech 2).
+batching.py:25-197, for FastSpeech 2 and the AR Transformer-TTS).
 
 Text pads with 0 to the smallest of ``hp.text_buckets`` that holds the
 longest utterance and, in training, mels pad to the smallest of
 ``hp.length_buckets``, as the JAX package pads them, so shapes repeat from
 step to step and both packages see the same padded lengths. ``pos_text``
 and ``pos_mel`` are 1-based and 0 on padding. Pad values: mel -0.5 when
-normalised, else -5.0; f0, energy and alignment 0. With ``pad_batch`` the
-batch grows to a power of two with empty rows; durations that overflow the
-mel bucket are cut at its edge.
+normalised, else -5.0; f0, energy and alignment 0; the stop token is 0 on
+a row's mel frames and 1.0 past them. For the AR models the mel bucket is
+a multiple of ``reduction_rate`` and ``pos_mel`` covers the length
+rounded up to it. With ``pad_batch`` the batch grows to a power of two
+with empty rows; durations that overflow the mel bucket are cut at its
+edge.
 """
 
 from __future__ import annotations
@@ -22,13 +25,15 @@ MEL_PAD_NORMALIZED = -0.5
 MEL_PAD_RAW = -5.0
 
 
-def pick_bucket(value: int, buckets: Sequence[int]) -> int:
-    """Smallest bucket >= value; past the largest, round up to a multiple
-    of 128."""
+def pick_bucket(value: int, buckets: Sequence[int], *,
+                multiple: int = 1) -> int:
+    """Smallest bucket >= value that is a multiple of ``multiple``; past
+    the largest, round up to a multiple of max(128, multiple)."""
     for b in sorted(buckets):
-        if value <= b:
+        if value <= b and b % multiple == 0:
             return b
-    return -(-value // 128) * 128
+    step = max(128, multiple)
+    return -(-value // step) * step
 
 
 def pick_batch_bucket(n: int, buckets: Sequence[int] = (1, 2, 4, 8, 16, 32,
@@ -53,8 +58,10 @@ def _clip_durations(alignment: np.ndarray, mel_len: int) -> None:
 def collate(samples: List[dict], hp, *,
             pad_batch: bool = False) -> Dict[str, np.ndarray]:
     """-> {text, pos_text, text_length} int32 arrays, and for training
-    samples also mel (B, T, mel_dim), pos_mel, mel_length, alignment, f0
-    and energy."""
+    samples also mel (B, T, mel_dim), pos_mel, mel_length, stop_token and
+    (FastSpeech 2) alignment, f0 and energy."""
+    from transformer_tts_tpu_torch.config import is_nar_model
+    r = 1 if is_nar_model(hp.model) else hp.reduction_rate
     n_real = len(samples)
     b = pick_batch_bucket(n_real) if pad_batch else n_real
     text_len = pick_bucket(max(s["text_length"] for s in samples),
@@ -72,16 +79,20 @@ def collate(samples: List[dict], hp, *,
         return out
 
     mel_len = pick_bucket(max(s["mel_length"] for s in samples),
-                          hp.length_buckets)
+                          hp.length_buckets, multiple=r)
+    mel_len = -(-mel_len // r) * r
     mel_pad = MEL_PAD_NORMALIZED if hp.mean_file is not None else MEL_PAD_RAW
     mel = np.full((b, mel_len, samples[0]["mel"].shape[1]), mel_pad,
                   np.float32)
     pos_mel = np.zeros((b, mel_len), np.int32)
+    stop = np.ones((b, mel_len), np.float32)
     for i, s in enumerate(samples):
+        m = s["mel"][:mel_len]
+        mel[i, :len(m)] = m
+        stop[i, :len(m)] = 0.0
         n = min(s["mel_length"], mel_len)
-        mel[i, :n] = s["mel"][:n]
         pos_mel[i, :n] = np.arange(1, n + 1)
-    out.update(mel=mel, pos_mel=pos_mel, mel_length=np.array(
+    out.update(mel=mel, pos_mel=pos_mel, stop_token=stop, mel_length=np.array(
         [s["mel_length"] for s in samples] + [0] * (b - n_real), np.int32))
     for key, dtype in (("alignment", np.int32), ("f0", np.float32),
                        ("energy", np.float32)):

@@ -1,12 +1,17 @@
 """Script-file datasets (the port of ``parse_script`` and ``TTSDataset``,
-transformer_tts_tpu/data/dataset.py:39-267, for FastSpeech 2).
+transformer_tts_tpu/data/dataset.py:39-267, for FastSpeech 2 and the AR
+Transformer-TTS).
 
 Script format: ``mel_path|text_ids[|...]`` per line, pipe-separated, with
 space-separated integer ids. ``ScriptDataset`` gives the text of each line
-(synthesis); ``TTSDataset`` adds, for training, the normalised mel and the
-sibling files of ``X.npy``: ``X{tail_alignment}.npy`` (per-phone
-durations), ``X_f0.npy`` and ``X_energy.npy``. SentencePiece text,
-speakers, accents and the AR models' go frame come with later slices.
+(synthesis); ``TTSDataset`` adds, for training, the normalised mel and,
+for FastSpeech 2, the sibling files of ``X.npy``: ``X{tail_alignment}.npy``
+(per-phone durations), ``X_f0.npy`` and ``X_energy.npy``. For the AR
+models a zero go frame is put before the mel and the length is rounded up
+to a multiple of ``reduction_rate`` (the collate pads the rest); they read
+no sibling file, which the AR step would not use (the JAX package loads
+f0 and energy there when ``pitch_pred``/``energy_pred`` are set, and drops
+them). SentencePiece text, speakers and accents come with later slices.
 """
 
 from __future__ import annotations
@@ -53,17 +58,19 @@ class ScriptDataset:
         return {"mel_name": row[0], "text": text, "text_length": len(text)}
 
 
+def round_up(x: int, multiple: int) -> int:
+    return -(-x // multiple) * multiple
+
+
 class TTSDataset(ScriptDataset):
-    """FastSpeech 2 training samples: text, the normalised mel and its
-    length, and the alignment, f0 and energy targets the hparams ask
+    """Training samples: text, the normalised mel and its length, and for
+    FastSpeech 2 the alignment, f0 and energy targets the hparams ask
     for."""
 
     def __init__(self, script_path: str, hp):
         super().__init__(script_path, hp)
         from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
-        if not is_nar_model(hp.model):
-            later_slice(f"training data for the AR model {hp.model!r}",
-                        "AR Transformer-TTS")
+        self.is_ar = not is_nar_model(hp.model)
         if hp.is_multi_speaker or hp.accent_emb or hp.use_hop:
             later_slice("speaker, accent and hop-size inputs",
                         "other model families")
@@ -78,6 +85,13 @@ class TTSDataset(ScriptDataset):
         sample = super().__getitem__(idx)
         mel_name = sample["mel_name"]
         mel = self.normalizer(load_mel(mel_name, hp.mel_dim))
+        if self.is_ar:
+            mel = np.concatenate([np.zeros((1, hp.mel_dim), np.float32),
+                                  mel], axis=0)
+            sample["mel"] = mel.astype(np.float32)
+            sample["mel_length"] = round_up(mel.shape[0],
+                                            hp.reduction_rate)
+            return sample
         sample["mel"] = mel.astype(np.float32)
         sample["mel_length"] = mel.shape[0]
         sample["alignment"] = self._sibling(
@@ -101,6 +115,8 @@ class TTSDataset(ScriptDataset):
             return lengths
         lengths = np.array([np.load(row[0], mmap_mode="r").shape[0]
                             for row in self.rows])
+        if self.is_ar:          # the go frame, rounded up to r
+            lengths = round_up(lengths + 1, self.hp.reduction_rate)
         if cache_file:
             np.save(cache_file, lengths)
         return lengths

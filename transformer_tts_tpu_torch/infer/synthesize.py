@@ -1,24 +1,31 @@
-"""FastSpeech 2 synthesis (the port of ``denormalize``,
-``sample_perturbation`` and ``synthesize_fastspeech2``,
-transformer_tts_tpu/infer/synthesize.py:39-87).
+"""Synthesis (the port of ``denormalize``, ``sample_perturbation``,
+``synthesize_fastspeech2`` and the AR decode of ``_ar_check``, ``_ar_init``,
+``_ar_body`` and ``synthesize_transformer_tts``,
+transformer_tts_tpu/infer/synthesize.py:39-87 and :186-301).
 
-One non-autoregressive forward in eval mode; the optional pitch/duration
-perturbation factors come from {0.8, 0.9, 1.0, 1.1, 1.2}; the mel is
-de-normalized as ``mel * sqrt(var) + mean`` on the device. The AR decode
-loop comes with the AR slice of the port.
+FastSpeech 2: one non-autoregressive forward in eval mode; the optional
+pitch/duration perturbation factors come from {0.8, 0.9, 1.0, 1.1, 1.2};
+the mel is de-normalized as ``mel * sqrt(var) + mean`` on the device.
+
+AR Transformer-TTS: the KV-cached decode loop (see
+``synthesize_transformer_tts``); the cache keeps every attention of the
+loop on the masked path, so it launches no kernel.
 """
 
 from __future__ import annotations
 
 import random
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from transformer_tts_tpu_torch.models.fastspeech2 import FastSpeech2
+from transformer_tts_tpu_torch.models.transformer_tts import TransformerTTS
 from transformer_tts_tpu_torch.ops.masks import pad_mask
 
 PERTURBATION_CHOICES = (0.8, 0.9, 1.0, 1.1, 1.2)
+MAX_AR_STEPS = 500          # decode steps (frame groups) per utterance
+DONE_CHECK_EVERY = 8        # decode steps between the host's stop checks
 
 
 def sample_perturbation(rng: Optional[random.Random] = None) -> float:
@@ -55,3 +62,104 @@ def synthesize_fastspeech2(
     durations = torch.where(src_mask[:, 0, :], durations,
                             torch.zeros_like(durations))
     return mel, out.mel_len, durations.to(torch.int32)
+
+
+def _ar_check(model: TransformerTTS) -> None:
+    """The incremental decode is causal only with a 1-wide decoder FFN
+    (its conv is SAME-padded)."""
+    if model.ff_conv_kernel_size_decoder != 1:
+        raise ValueError(
+            "incremental decode requires ff_conv_kernel_size_decoder == 1 "
+            "(the decoder conv-FFN is SAME-padded and only causal at k=1)")
+
+
+def _ar_init(model: TransformerTTS, b: int, max_steps: int,
+             device) -> Dict[str, object]:
+    """The decode loop's carry: the step (a device scalar), the input
+    frame, per-layer (k, v) caches (B, H, max_steps, d_k) in the
+    projections' dtype, the fp32 frame groups, ``done`` and ``length``."""
+    heads = model.n_head_decoder
+    d_k = model.d_model_decoder // heads
+    dtype = model.cache_dtype
+    caches = tuple(
+        tuple(torch.zeros(b, heads, max_steps, d_k, dtype=dtype,
+                          device=device) for _ in range(2))
+        for _ in range(model.n_layer_decoder))
+    return dict(
+        step=torch.zeros((), dtype=torch.long, device=device),
+        prev=torch.zeros(b, 1, model.mel_dim, dtype=dtype, device=device),
+        caches=caches,
+        groups=torch.zeros(b, max_steps, model.mel_dim * model.reduction_rate,
+                           device=device),
+        done=torch.zeros(b, dtype=torch.bool, device=device),
+        length=torch.full((b,), max_steps, dtype=torch.long, device=device))
+
+
+def _ar_body(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
+             stop_threshold: float):
+    """One decode step on the carry, in place: the group at ``step``, the
+    stop rule (the mean of the r stop probabilities above
+    ``stop_threshold``; ``length`` is set at a row's first stop), and the
+    next input, the first frame of the predicted group."""
+    mel_dim = model.mel_dim
+
+    def body(c):
+        step = c["step"]
+        group, stop = model.decode_step(c["prev"], e_outputs, src_mask,
+                                        c["caches"], step, cross_kvs)
+        c["groups"].index_copy_(1, step.reshape(1), group.float())
+        p_stop = torch.sigmoid(stop.float())[:, 0]            # (B, r)
+        stop_now = p_stop.mean(dim=-1) > stop_threshold
+        newly_done = stop_now & ~c["done"]
+        c["length"] = torch.where(newly_done, step + 1, c["length"])
+        c["done"] = c["done"] | stop_now
+        c["prev"] = group[:, :, :mel_dim].to(c["prev"].dtype)
+        c["step"] = step + 1
+        return c
+
+    return body
+
+
+@torch.inference_mode()
+def synthesize_transformer_tts(
+    model: TransformerTTS, text: torch.Tensor, pos_text: torch.Tensor,
+    mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
+    *, max_steps: int = MAX_AR_STEPS, stop_threshold: float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KV-cached AR synthesis; returns (mel (B, max_steps*r, mel) fp32,
+    lengths (B,) in frames).
+
+    The encoder and the cross-attention K/V run once; then one
+    ``decode_step`` per frame group, on static shapes, up to ``max_steps``
+    groups. The JAX package's ``while_loop`` stops as soon as every row
+    has stopped; here the host reads ``done`` only every
+    ``DONE_CHECK_EVERY`` steps, so as not to wait for the card at each
+    one, and may run up to ``DONE_CHECK_EVERY - 1`` steps more. Those
+    change no output: a row's length is fixed at its first stop, the
+    frames past it are zeroed, and the causal postnet (run once over all
+    ``max_steps`` groups, as in JAX) lets no later frame reach an earlier
+    one. Frames past a row's length are 0; with ``mean``/``var`` the rest
+    are de-normalized.
+    """
+    _ar_check(model)
+    model.eval()
+    b, r, mel_dim = text.shape[0], model.reduction_rate, model.mel_dim
+    src_mask = pad_mask(pos_text)
+    e_outputs, _ = model.encode(text, src_mask)
+    cross_kvs = model.precompute_cross_kv(e_outputs)
+    carry = _ar_init(model, b, max_steps, text.device)
+    body = _ar_body(model, e_outputs, src_mask, cross_kvs, stop_threshold)
+    for step in range(max_steps):
+        if (step and step % DONE_CHECK_EVERY == 0
+                and bool(carry["done"].all())):
+            break
+        carry = body(carry)
+    post = model.apply_postnet(carry["groups"].to(model.cache_dtype))
+    mel = post.float().reshape(b, max_steps * r, mel_dim)
+    lengths = carry["length"] * r
+    valid = (torch.arange(max_steps * r, device=mel.device)[None, :]
+             < lengths[:, None])[:, :, None]
+    if mean is not None and var is not None:
+        mel = denormalize(mel, mean, var)
+    mel = torch.where(valid, mel, torch.zeros((), device=mel.device))
+    return mel, lengths

@@ -1,0 +1,90 @@
+"""The AR mel decoder stack (the port of ``Decoder``,
+transformer_tts_tpu/models/decoder.py:26-107).
+
+DecoderPreNet -> alpha-scaled positional encoding (from the decode step's
+row in the cached mode) -> N x DecoderLayer -> LayerNorm. Two modes:
+
+* the whole sequence (teacher forcing): with ``use_flash`` the masked
+  self-attention takes K3 with ``self_k_len``, the last row of the
+  (B, T, T) pad-and-causal mask (= each row's number of decoder groups),
+  and the cross-attention takes K1/K2 over ``cross_k_len`` when the text
+  bucket reaches ``FLASH_MIN_KEY_LEN``;
+* one decode step with per-layer KV caches (``caches``, ``cache_index``)
+  and the cross-attention K/V of ``precompute_cross_kv``: no kernel, as
+  the cache turns it off (the JAX package's rule).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from transformer_tts_tpu_torch.models.layers import DecoderLayer
+from transformer_tts_tpu_torch.models.prenets import DecoderPreNet
+from transformer_tts_tpu_torch.ops.feedforward import LN_EPS
+from transformer_tts_tpu_torch.ops.positional import PositionalEncoder
+
+
+class Decoder(nn.Module):
+    def __init__(self, mel_dim: int, d_model: int, n_layers: int,
+                 heads: int, ff_kernel_size: int, concat_after: bool = False,
+                 dropout: float = 0.1, dropout_prenet: float = 0.5,
+                 use_flash: bool = False):
+        super().__init__()
+        self.use_flash = use_flash
+        self.decoder_prenet = DecoderPreNet(mel_dim, d_model,
+                                            dropout=dropout_prenet)
+        self.pe = PositionalEncoder(d_model, dropout)
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, heads, ff_kernel_size, dropout,
+                         concat_after=concat_after, use_flash=use_flash)
+            for _ in range(n_layers))
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def precompute_cross_kv(self, e_outputs: torch.Tensor):
+        """Per-layer (k, v) cross-attention tensors, computed once."""
+        return tuple(layer.cross_kv(e_outputs) for layer in self.layers)
+
+    def _key_lengths(self, src_mask, trg_mask):
+        """(self_k_len, cross_k_len) for the kernel paths, or None."""
+        if not self.use_flash:
+            return None, None
+        cross = self_len = None
+        if src_mask is not None and src_mask.shape[1] == 1:
+            cross = src_mask[:, 0, :].sum(-1).to(torch.int32)
+        if trg_mask is not None and trg_mask.dim() == 3 \
+                and trg_mask.shape[1] == trg_mask.shape[2]:
+            # the last row of the pad-and-causal mask is the pad mask
+            self_len = trg_mask[:, -1, :].sum(-1).to(torch.int32)
+        return self_len, cross
+
+    def forward(self, trg, e_outputs, src_mask, trg_mask, *,
+                collect_attn: bool = False, caches=None, cache_index=None,
+                pos_offset=0, cross_kvs=None,
+                generator: Optional[torch.Generator] = None):
+        """``trg`` (B, T, mel) -> (x (B, T, d_model), self-attention maps,
+        cross-attention maps), the maps (B, N, H, T, T_k) only with
+        ``collect_attn``. With ``caches`` (a tuple of per-layer (k, v)
+        caches, updated in place; ``trg`` then the (B, 1, mel) step input
+        and ``trg_mask`` hiding the cache rows past ``cache_index``) no
+        kernel runs."""
+        x = self.pe(self.decoder_prenet(trg), offset=pos_offset)
+        self_k_len, cross_k_len = (None, None) if caches is not None \
+            else self._key_lengths(src_mask, trg_mask)
+        attns_self, attns_cross = [], []
+        for i, layer in enumerate(self.layers):
+            x, a1, a2 = layer(
+                x, e_outputs, src_mask, trg_mask, collect_attn=collect_attn,
+                self_cache=caches[i] if caches is not None else None,
+                cross_cache=cross_kvs[i] if cross_kvs is not None else None,
+                cache_index=cache_index, self_k_len=self_k_len,
+                cross_k_len=cross_k_len, generator=generator)
+            if collect_attn:
+                attns_self.append(a1)
+                attns_cross.append(a2)
+        x = self.norm(x)
+        a_self = torch.stack(attns_self, 1) if collect_attn else None
+        a_cross = torch.stack(attns_cross, 1) if collect_attn else None
+        return x, a_self, a_cross

@@ -1,0 +1,198 @@
+"""The autoregressive Transformer-TTS (the port of ``TransformerTTS`` and
+``build_transformer_tts``, transformer_tts_tpu/models/transformer_tts.py:
+55-291).
+
+Text encoder (transformer or conformer stack) -> AR decoder over frame
+groups of ``reduction_rate`` frames -> ``out`` (d -> mel*r, the pre mel)
+and ``stop_token`` (d -> r logits) -> the causal conv postnet in its AR
+mode (``prev_version=False``: the pre mel in, the post mel out). Outputs
+keep the grouped layout: mel (B, t, mel*r) and stop logits (B, t, r).
+
+* ``forward``: the teacher-forced pass of training (train mode) and of
+  an eval forward; the decoder's masked self-attention takes K3.
+* ``encode``, ``precompute_cross_kv``, ``decode_step`` and
+  ``apply_postnet``: the pieces the KV-cached decode loop
+  (infer/synthesize.synthesize_transformer_tts) drives; no kernel runs
+  in ``decode_step``.
+
+``amp`` runs each under bf16 autocast, as FastSpeech 2 does. The
+Tacotron 2 decoder, GST, speakers and the discrete output mode raise
+``NotImplementedError`` with the other model families.
+"""
+
+from __future__ import annotations
+
+from contextlib import AbstractContextManager
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from transformer_tts_tpu_torch.config import HParams
+from transformer_tts_tpu_torch.models.decoder import Decoder
+from transformer_tts_tpu_torch.models.fastspeech2 import (
+    _stack, init_parameters, later_slice)
+from transformer_tts_tpu_torch.models.postnets import PostConvNet
+
+
+class TransformerTTSOutput(NamedTuple):
+    mel_pre: torch.Tensor                    # (B, t, mel*r)
+    mel_post: torch.Tensor                   # (B, t, mel*r)
+    stop_token: torch.Tensor                 # (B, t, r) logits
+    attn_enc: Optional[torch.Tensor]
+    attn_dec_dec: Optional[torch.Tensor]
+    attn_dec_enc: Optional[torch.Tensor]
+
+
+class TransformerTTS(nn.Module):
+    def __init__(self, vocab_size: int = 152, mel_dim: int = 80,
+                 d_model_encoder: int = 384, n_layer_encoder: int = 6,
+                 n_head_encoder: int = 4, ff_conv_kernel_size_encoder: int = 5,
+                 concat_after_encoder: bool = False,
+                 d_model_decoder: int = 384, n_layer_decoder: int = 6,
+                 n_head_decoder: int = 4, ff_conv_kernel_size_decoder: int = 1,
+                 concat_after_decoder: bool = False,
+                 encoder_type: str = "transformer", reduction_rate: int = 2,
+                 dropout: float = 0.1, dropout_prenet: float = 0.5,
+                 dropout_postnet: float = 0.5,
+                 use_flash: bool = False, amp: bool = False):
+        super().__init__()
+        self.mel_dim = mel_dim
+        self.reduction_rate = reduction_rate
+        self.n_layer_decoder = n_layer_decoder
+        self.n_head_decoder = n_head_decoder
+        self.d_model_decoder = d_model_decoder
+        self.ff_conv_kernel_size_decoder = ff_conv_kernel_size_decoder
+        self.amp = amp
+        self.encoder = _stack(
+            encoder_type, vocab_size=vocab_size, d_model=d_model_encoder,
+            n_layers=n_layer_encoder, heads=n_head_encoder,
+            ff_kernel_size=ff_conv_kernel_size_encoder,
+            concat_after=concat_after_encoder, dropout=dropout,
+            embedding=True, use_flash=use_flash)
+        self.linear = (nn.Linear(d_model_encoder, d_model_decoder)
+                       if d_model_encoder != d_model_decoder else None)
+        self.decoder = Decoder(
+            mel_dim, d_model_decoder, n_layer_decoder, n_head_decoder,
+            ff_conv_kernel_size_decoder, concat_after=concat_after_decoder,
+            dropout=dropout, dropout_prenet=dropout_prenet,
+            use_flash=use_flash)
+        self.out = nn.Linear(d_model_decoder, mel_dim * reduction_rate)
+        self.stop_token = nn.Linear(d_model_decoder, reduction_rate)
+        self.postnet = PostConvNet(d_model_decoder, mel_dim, reduction_rate,
+                                   dropout_postnet, prev_version=False)
+
+    def _autocast(self, x: torch.Tensor) -> AbstractContextManager:
+        return torch.autocast(x.device.type, dtype=torch.bfloat16,
+                              enabled=self.amp)
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        """The dtype of the decode loop's KV caches and fed-back frames:
+        the projections' output dtype."""
+        return torch.bfloat16 if self.amp else torch.float32
+
+    def encode(self, src, src_mask, *, collect_attn: bool = False,
+               generator: Optional[torch.Generator] = None):
+        """(e_outputs (B, L, d_model_decoder), encoder maps or None)."""
+        with self._autocast(src):
+            e_outputs, attn_enc = self.encoder(
+                src, src_mask, collect_attn=collect_attn,
+                generator=generator)
+            if self.linear is not None:
+                e_outputs = self.linear(e_outputs)
+        return e_outputs, attn_enc
+
+    def precompute_cross_kv(self, e_outputs):
+        """Per-decoder-layer cross-attention (k, v), constant over a
+        decode."""
+        with self._autocast(e_outputs):
+            return self.decoder.precompute_cross_kv(e_outputs)
+
+    def decode_step(self, prev_frame, e_outputs, src_mask, caches,
+                    cache_index, cross_kvs=None):
+        """One AR step: (B, 1, mel) input frame -> (group (B, 1, mel*r),
+        stop logits (B, 1, r)). ``caches``: per layer (k, v), each
+        (B, H, max_steps, d_k), written in place at ``cache_index`` (an int
+        or a 0-d integer tensor on the caches' device); the step attends to
+        cache rows <= ``cache_index``."""
+        max_steps = caches[0][0].shape[2]
+        device = caches[0][0].device
+        index = torch.as_tensor(cache_index, device=device).reshape(1)
+        cols = torch.arange(max_steps, device=device)
+        trg_mask = (cols <= index)[None, None, :].expand(
+            prev_frame.shape[0], 1, max_steps)
+        with self._autocast(prev_frame):
+            d, _, _ = self.decoder(
+                prev_frame, e_outputs, src_mask, trg_mask, caches=caches,
+                cache_index=index, pos_offset=index, cross_kvs=cross_kvs)
+            return self.out(d), self.stop_token(d)
+
+    def apply_postnet(self, mel_pre):
+        with self._autocast(mel_pre):
+            return self.postnet(mel_pre)
+
+    def forward(self, src, trg, src_mask, trg_mask, *,
+                collect_attn: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> TransformerTTSOutput:
+        """Teacher-forced forward. ``trg`` (B, t, mel) is the reduced
+        decoder input (the go frame and every r-th frame), ``trg_mask``
+        its (B, t, t) pad-and-causal mask; in train mode ``generator``
+        seeds the kernel path's attention dropout."""
+        e_outputs, attn_enc = self.encode(src, src_mask,
+                                          collect_attn=collect_attn,
+                                          generator=generator)
+        with self._autocast(src):
+            d_output, attn_dd, attn_de = self.decoder(
+                trg, e_outputs, src_mask, trg_mask,
+                collect_attn=collect_attn, generator=generator)
+            mel_pre = self.out(d_output)
+            stop = self.stop_token(d_output)
+            mel_post = self.postnet(mel_pre)
+        return TransformerTTSOutput(
+            mel_pre=mel_pre, mel_post=mel_post, stop_token=stop,
+            attn_enc=attn_enc, attn_dec_dec=attn_dd, attn_dec_enc=attn_de)
+
+
+def check_supported(hp: HParams) -> None:
+    """Raise for the AR options that later slices bring."""
+    if hp.decoder_type.lower() == "tacotron2":
+        later_slice("decoder_type='tacotron2' of the AR model",
+                    "other model families")
+    if hp.encoder_type.lower() not in ("transformer", "conformer"):
+        later_slice(f"encoder_type={hp.encoder_type!r} of the AR model",
+                    "other model families")
+    if hp.gst:
+        later_slice("GST (gst) of the AR model", "other model families")
+    if hp.is_multi_speaker or hp.spk_emb_architecture:
+        later_slice("speaker conditioning of the AR model",
+                    "other model families")
+    if hp.output_type:
+        later_slice("the discrete output mode (output_type) of the AR "
+                    "model", "other model families")
+
+
+def build_transformer_tts(hp: HParams, *, device="cuda",
+                          seed: int = 0) -> TransformerTTS:
+    """TransformerTTS from the hparams contract, with random weights from
+    ``seed`` (as ``build_fastspeech2``), on ``device``."""
+    check_supported(hp)
+    model = TransformerTTS(
+        vocab_size=hp.vocab_size, mel_dim=hp.mel_dim,
+        d_model_encoder=hp.d_model_encoder,
+        n_layer_encoder=hp.n_layer_encoder,
+        n_head_encoder=hp.n_head_encoder,
+        ff_conv_kernel_size_encoder=hp.ff_conv_kernel_size_encoder,
+        concat_after_encoder=hp.concat_after_encoder,
+        d_model_decoder=hp.d_model_decoder,
+        n_layer_decoder=hp.n_layer_decoder,
+        n_head_decoder=hp.n_head_decoder,
+        ff_conv_kernel_size_decoder=hp.ff_conv_kernel_size_decoder,
+        concat_after_decoder=hp.concat_after_decoder,
+        encoder_type=hp.encoder_type, reduction_rate=hp.reduction_rate,
+        dropout=hp.dropout, dropout_prenet=hp.dropout_prenet,
+        dropout_postnet=hp.dropout_postnet,
+        use_flash=hp.use_flash_attention, amp=hp.amp)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(device)

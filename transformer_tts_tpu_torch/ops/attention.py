@@ -1,7 +1,7 @@
 """Multi-head attention (the port of transformer_tts_tpu/ops/attention.py:
-``scaled_dot_attention``, ``MultiHeadAttention`` and the conformer's
-``RelativeMultiHeadAttention``, without KV cache, precomputed K/V or
-causal masks, which come with the AR slice).
+``scaled_dot_attention``, ``MultiHeadAttention`` with its KV cache,
+precomputed K/V and causal dispatch, and the conformer's
+``RelativeMultiHeadAttention``).
 
 * logits = QK^T / sqrt(d_k) in fp32 (bf16 inputs under amp), masked
   logits filled with -1e4, softmax in fp32, probabilities cast to the value
@@ -9,9 +9,16 @@ causal masks, which come with the AR slice).
 * separate q/k/v projections and the optional ``concat_after``;
 * attention over at least ``FLASH_MIN_KEY_LEN`` keys with a prefix key
   mask given as ``k_len`` goes to the flash-attention kernels
-  (ops/flash_attention.py), when no attention maps are asked for; in
-  train mode their attention-prob dropout runs inside the kernel, with a
-  fresh int32 seed per call drawn from the caller's ``generator``;
+  (ops/flash_attention.py), when no attention maps are asked for and no
+  KV cache is in play; in train mode their attention-prob dropout runs
+  inside the kernel, with a fresh int32 seed per call drawn from the
+  caller's ``generator``. ``causal=True`` (the AR decoder's masked
+  self-attention, whose (B, T, T) pad-and-causal mask ``k_len`` then
+  stands for) takes the causal kernels, K3;
+* the AR decode step's KV cache: static (B, H, max_steps, d_k) tensors
+  into which the step's k/v row is written in place at ``cache_index``;
+  the caller masks the rows past it. The cache always takes the masked
+  path, as in the JAX package;
 * relative-position self-attention under the same rule goes to K4
   (ops/flash_relpos.py); its masked path fills with -2^15 after scaling.
 """
@@ -101,28 +108,58 @@ class MultiHeadAttention(nn.Module):
         return x.reshape(b, -1, self.heads,
                          self.d_model // self.heads).transpose(1, 2)
 
+    def project_kv(self, k_in: torch.Tensor, v_in: torch.Tensor):
+        """(k, v) head tensors (B, H, T, d_k): the cross-attention K/V that
+        the AR decode loop computes once."""
+        return self._heads(self.k_linear(k_in)), self._heads(
+            self.v_linear(v_in))
+
     def forward(self, q_in, k_in, v_in, mask=None, *,
                 collect_attn: bool = False,
                 k_len: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                causal: bool = False,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache_index=None,
+                precomputed_kv: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None):
         """Returns (output (B, T_q, d_model), probs or None).
 
         ``generator`` (a CPU generator, so drawing never waits for the
         card) seeds the kernel path's dropout; None draws from torch's
-        default CPU generator.
+        default CPU generator. ``cache`` = (k_cache, v_cache), each
+        (B, H, max_steps, d_k): the new k/v rows are written into them in
+        place at ``cache_index`` (an int or a (1,) integer tensor on their
+        device), so the caller's tensors hold the update, and attention
+        runs over the whole static cache, ``mask`` hiding the rows past the
+        index. ``precomputed_kv`` replaces the k/v projections.
         """
         b = q_in.shape[0]
         q = self._heads(self.q_linear(q_in))
-        k = self._heads(self.k_linear(k_in))
-        v = self._heads(self.v_linear(v_in))
+        if precomputed_kv is not None:
+            k, v = precomputed_kv
+        else:
+            k, v = self.project_kv(k_in, v_in)
+        if cache is not None:
+            if cache_index is None:
+                raise ValueError("a cache needs cache_index")
+            k_cache, v_cache = cache
+            index = torch.as_tensor(cache_index, device=k_cache.device)
+            index = index.reshape(-1) + torch.arange(k.shape[2],
+                                                     device=k_cache.device)
+            k_cache.index_copy_(2, index, k.to(k_cache.dtype))
+            v_cache.index_copy_(2, index, v.to(v_cache.dtype))
+            k, v = k_cache, v_cache
 
-        flash_ok = (self.use_flash and not collect_attn
+        flash_ok = (self.use_flash and not collect_attn and cache is None
                     and k_len is not None
                     and k.shape[2] >= FLASH_MIN_KEY_LEN)
-        if flash_ok and mask is not None and mask.shape[1] != 1:
+        if flash_ok and mask is not None and mask.shape[1] != 1 \
+                and not causal:
             raise ValueError(
                 "k_len stands for a prefix key mask; a structured (B, T, T) "
-                "mask needs k_len=None")
+                "mask needs causal=True (the pad-and-causal mask) or "
+                "k_len=None")
         if flash_ok:
             rate, seed = 0.0, 0
             if self.training and self.dropout.p > 0.0:
@@ -133,7 +170,7 @@ class MultiHeadAttention(nn.Module):
                                          v.contiguous(),
                                          k_len.to(torch.int32).contiguous(),
                                          dropout_rate=rate,
-                                         dropout_seed=seed)
+                                         dropout_seed=seed, causal=causal)
             probs = None
         else:
             context, probs = scaled_dot_attention(q, k, v, mask,

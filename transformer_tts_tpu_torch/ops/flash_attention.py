@@ -1,11 +1,17 @@
 """Flash attention: the hand-written Hopper kernels and their plain versions.
 
 The port of transformer_tts_tpu/ops/flash_attention.py on the paths the
-FastSpeech 2 models run: non-causal, no bias, a prefix key mask given as
-``k_len``, and attention-prob dropout from a counter hash.
+FastSpeech 2 and AR Transformer-TTS models run: no bias, a prefix key mask
+given as ``k_len``, optionally causal, and attention-prob dropout from a
+counter hash.
 
-    o   = (softmax(q k^T * sm_scale, keys c < k_len[b]) * keep) v
+    o   = (softmax(q k^T * sm_scale, keys c < k_len[b]
+                   [and c <= r with causal]) * keep) v
     lse = row logsumexp of the masked, scaled logits (fp32)
+
+``causal`` masks in global, top-left-aligned indices (query row r sees
+keys c <= r, T_q != T_k allowed), as the TPU kernels do; a padded query
+row (r >= k_len[b]) still sees every valid key.
 
 ``keep`` is ``keep_mask``: a murmur3 hash of the global (batch-head, query,
 key) coordinates and a per-call seed, kept with probability 1 - rate and
@@ -27,6 +33,12 @@ rate at the decoder's shapes:
   keep mask from the hash, ``delta = rowsum(dO*O)`` a torch reduction as in
   ``_flash_bwd``. 10*H*T_q*sum(k_len)*d operations (five products) against
   Q, K, V, O, dO, dQ, dK and dV moved once.
+* K3, the causal mode of the same two sources (``causal=True``, :138-143,
+  :306-310, :379-383): the element mask gains c <= r, the forward and dq
+  stop their key-tile loops at the diagonal tile (the block skips at
+  :161-165 and :329-335), dk/dv starts its q-tile loop at the tile holding
+  row k0 (:406-407). The work is counted per valid (row, key) pair,
+  sum_b sum_r min(r + 1, k_len[b]), about half of the non-causal count.
 
 Design of both: one 128-thread block per 64-row tile and batch-head, a loop
 over 64-row tiles of the other sequence staged in shared memory, fp32
@@ -37,8 +49,10 @@ products for fp32; see the sources. PERF.md holds their measured times.
 ``FlashAttention``. On a CPU tensor every wrapper computes the plain
 version; on a CUDA tensor it launches its kernel or raises. The launch
 counts are ``flash_attention.launches`` (K1), ``.dropout_launches`` (K1-d),
-``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkdv.launches``
-(K2).
+``.causal_launches`` (K3's forward at rate 0, K3-f) and
+``.causal_dropout_launches`` (K3-d); ``flash_attention_bwd_dq.launches``
+and ``flash_attention_bwd_dkdv.launches`` (K2) and the same functions'
+``.causal_launches`` (K3's dq and dk/dv).
 """
 
 from __future__ import annotations
@@ -128,17 +142,25 @@ def _dropout_args(dropout_rate: float, dropout_seed: int):
 
 # ---- plain versions ---------------------------------------------------------
 
-def _valid_keys(t_k: int, k_len: torch.Tensor, device) -> torch.Tensor:
-    """(B, 1, 1, T_k) bool, True for keys c < k_len[b]."""
-    return (torch.arange(t_k, device=device)[None, :]
-            < k_len.to(device)[:, None])[:, None, None, :]
+def _valid_keys(t_q: int, t_k: int, k_len: torch.Tensor, causal: bool,
+                device) -> torch.Tensor:
+    """(B, 1, 1, T_k) bool, True for keys c < k_len[b]; with ``causal``
+    (B, 1, T_q, T_k), also c <= r for query row r."""
+    cols = torch.arange(t_k, device=device)
+    valid = (cols[None, :] < k_len.to(device)[:, None])[:, None, None, :]
+    if causal:
+        rows = torch.arange(t_q, device=device)
+        valid = valid & (cols[None, :] <= rows[:, None])[None, None]
+    return valid
 
 
 def flash_attention_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
+    causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1 and K1-d: the same (o, lse).
+    """Plain PyTorch version of K1 and K1-d, and with ``causal`` of K3's
+    forward: the same (o, lse).
 
     Products take the inputs' values in fp32 (a bf16 product is exact in
     fp32) and the probabilities, times the keep scale, are cast to the
@@ -152,18 +174,21 @@ def flash_attention_fwd_reference(
             b, h, t_q, t_k = s.shape
             keep = _full_keep_mask(b, h, t_q, t_k, dropout_seed,
                                    dropout_rate, s.device)
-        return masked_softmax_pv(s, v, k_len, q.dtype, keep=keep)
+        return masked_softmax_pv(s, v, k_len, q.dtype, keep=keep,
+                                 causal=causal)
 
 
 def masked_softmax_pv(
     s: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
     out_dtype: torch.dtype, keep: Optional[torch.Tensor] = None,
+    causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) from fp32 scaled logits ``s`` (B, H, T_q, T_k): keys at or
-    past ``k_len[b]`` excluded exactly, a row with no valid key giving
-    o = 0 and lse = -1e30; ``keep`` (the dropout scale) multiplies the
-    normalised probabilities. Shared by the kernels' plain versions."""
-    valid = _valid_keys(s.shape[-1], k_len, s.device)
+    past ``k_len[b]`` (and with ``causal`` past the row) excluded exactly,
+    a row with no valid key giving o = 0 and lse = -1e30; ``keep`` (the
+    dropout scale) multiplies the normalised probabilities. Shared by the
+    kernels' plain versions."""
+    valid = _valid_keys(s.shape[-2], s.shape[-1], k_len, causal, s.device)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros((), device=s.device))
@@ -178,12 +203,13 @@ def masked_softmax_pv(
 
 
 def _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
-               dropout_seed):
+               dropout_seed, causal):
     """(dS, P keep) in fp32, each rounded through the dtype the TPU kernels
     cast it to before its products (q's and dO's)."""
     with torch.autocast(q.device.type, enabled=False):
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-        valid = _valid_keys(s.shape[-1], k_len, s.device)
+        valid = _valid_keys(s.shape[-2], s.shape[-1], k_len, causal,
+                            s.device)
         p = torch.where(valid, torch.exp(s - lse[..., None]),
                         torch.zeros((), device=s.device))
         dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
@@ -205,19 +231,22 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_dq_reference(q, k, v, do, lse, delta, k_len, sm_scale,
-                                 dropout_rate=0.0, dropout_seed=0):
-    """Plain version of K2's dq kernel: dq = dS K."""
+                                 dropout_rate=0.0, dropout_seed=0,
+                                 causal=False):
+    """Plain version of K2's (with ``causal`` K3's) dq kernel: dq = dS K."""
     ds, _ = _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale,
-                       dropout_rate, dropout_seed)
+                       dropout_rate, dropout_seed, causal)
     with torch.autocast(q.device.type, enabled=False):
         return torch.matmul(ds, k.float()).to(q.dtype)
 
 
 def flash_attention_dkdv_reference(q, k, v, do, lse, delta, k_len, sm_scale,
-                                   dropout_rate=0.0, dropout_seed=0):
-    """Plain version of K2's dk/dv kernel: dk = dS^T Q, dv = (P keep)^T dO."""
+                                   dropout_rate=0.0, dropout_seed=0,
+                                   causal=False):
+    """Plain version of K2's (with ``causal`` K3's) dk/dv kernel:
+    dk = dS^T Q, dv = (P keep)^T dO."""
     ds, p_kept = _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale,
-                            dropout_rate, dropout_seed)
+                            dropout_rate, dropout_seed, causal)
     with torch.autocast(q.device.type, enabled=False):
         dk = torch.matmul(ds.transpose(-1, -2), q.float())
         dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
@@ -228,8 +257,10 @@ def flash_attention_bwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
+    causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K2: (dq, dk, dv) in the inputs' dtypes.
+    """Plain PyTorch version of K2 (with ``causal`` of K3's backward):
+    (dq, dk, dv) in the inputs' dtypes.
 
     The formula of ``_dq_kernel``/``_dkdv_kernel`` written in tensors, not
     autograd: P = exp(S - lse) on valid keys, dP = dO V^T times the keep
@@ -238,7 +269,7 @@ def flash_attention_bwd_reference(
     the input dtype before their products, as the TPU kernels do.
     """
     ds, p_kept = _bwd_terms(q, k, v, do, lse, bwd_delta(o, do), k_len,
-                            sm_scale, dropout_rate, dropout_seed)
+                            sm_scale, dropout_rate, dropout_seed, causal)
     with torch.autocast(q.device.type, enabled=False):
         dq = torch.matmul(ds, k.float())
         dk = torch.matmul(ds.transpose(-1, -2), q.float())
@@ -304,12 +335,13 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
 
 
-def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed):
-    """(o, lse): K1 (rate 0) or K1-d on the card, the plain version on the
-    CPU."""
+def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal):
+    """(o, lse): K1 (rate 0) or K1-d, with ``causal`` K3-f or K3-d, on the
+    card; the plain version on the CPU."""
     if not _on_card(q, "flash_attention"):
         return flash_attention_fwd_reference(q, k, v, k_len, sm_scale,
-                                             dropout_rate, dropout_seed)
+                                             dropout_rate, dropout_seed,
+                                             causal)
     _check_cuda_inputs(q, k, v, k_len)
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
@@ -320,18 +352,17 @@ def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed):
         err = _fwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             k_len.data_ptr(), o.data_ptr(), lse.data_ptr(),
                             b, h, t_q, k.shape[2], d, float(sm_scale), flag,
-                            threshold, scale, seed, _DTYPE_CODE[q.dtype],
-                            stream)
+                            threshold, scale, seed, int(causal),
+                            _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, KERNEL)
-    if flag:
-        flash_attention.dropout_launches += 1
-    else:
-        flash_attention.launches += 1
+    counter = (("causal_" if causal else "")
+               + ("dropout_launches" if flag else "launches"))
+    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
     return o, lse
 
 
 def _bwd_launch(name, q, k, v, do, lse, delta, k_len, outs, sm_scale,
-                dropout_rate, dropout_seed):
+                dropout_rate, dropout_seed, causal):
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
     fn = getattr(_bwd_kernels(), name)
@@ -340,103 +371,115 @@ def _bwd_launch(name, q, k, v, do, lse, delta, k_len, outs, sm_scale,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), k_len.data_ptr(),
                  *(x.data_ptr() for x in outs), b, h, t_q, k.shape[2], d,
-                 float(sm_scale), flag, threshold, scale, seed,
+                 float(sm_scale), flag, threshold, scale, seed, int(causal),
                  _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, name)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                           dropout_rate=0.0, dropout_seed=0) -> torch.Tensor:
-    """dq from the forward's lse and ``delta``: K2's dq kernel on the card,
-    its plain version on the CPU."""
+                           dropout_rate=0.0, dropout_seed=0,
+                           causal=False) -> torch.Tensor:
+    """dq from the forward's lse and ``delta``: K2's dq kernel (K3's with
+    ``causal``) on the card, its plain version on the CPU."""
     if not _on_card(q, "flash_attention_bwd_dq"):
         return flash_attention_dq_reference(q, k, v, do, lse, delta, k_len,
                                             sm_scale, dropout_rate,
-                                            dropout_seed)
+                                            dropout_seed, causal)
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
     dq = torch.empty_like(q)
     _bwd_launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, k_len,
-                (dq,), sm_scale, dropout_rate, dropout_seed)
-    flash_attention_bwd_dq.launches += 1
+                (dq,), sm_scale, dropout_rate, dropout_seed, causal)
+    if causal:
+        flash_attention_bwd_dq.causal_launches += 1
+    else:
+        flash_attention_bwd_dq.launches += 1
     return dq
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                             dropout_rate=0.0, dropout_seed=0
+                             dropout_rate=0.0, dropout_seed=0, causal=False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) from the forward's lse and ``delta``: K2's dk/dv kernel on
-    the card, its plain version on the CPU."""
+    """(dk, dv) from the forward's lse and ``delta``: K2's dk/dv kernel
+    (K3's with ``causal``) on the card, its plain version on the CPU."""
     if not _on_card(q, "flash_attention_bwd_dkdv"):
         return flash_attention_dkdv_reference(q, k, v, do, lse, delta, k_len,
                                               sm_scale, dropout_rate,
-                                              dropout_seed)
+                                              dropout_seed, causal)
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, k_len,
-                (dk, dv), sm_scale, dropout_rate, dropout_seed)
-    flash_attention_bwd_dkdv.launches += 1
+                (dk, dv), sm_scale, dropout_rate, dropout_seed, causal)
+    if causal:
+        flash_attention_bwd_dkdv.causal_launches += 1
+    else:
+        flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 
 
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkdv.launches = 0
+for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
+    _wrapper.launches = 0           # K2
+    _wrapper.causal_launches = 0    # K3
 
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor, *,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
+    causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``:
-    delta, then K2's two kernels on the card; the plain version on the
-    CPU."""
+    delta, then K2's (with ``causal`` K3's) two kernels on the card; the
+    plain version on the CPU."""
     if not _on_card(q, "flash_attention_bwd"):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, k_len,
                                              sm_scale, dropout_rate,
-                                             dropout_seed)
+                                             dropout_seed, causal)
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o must match q: {tuple(o.shape)} {o.dtype}")
     delta = bwd_delta(o, do)
     kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed)
+              dropout_seed=dropout_seed, causal=causal)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, **kw)
     dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, **kw)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """(o, lse) with gradients for q, k and v from K2 (its plain version on
-    the CPU), recomputing P and the keep mask; no gradient for k_len, the
-    scale, the rate or the seed, and none through lse."""
+    """(o, lse) with gradients for q, k and v from K2 or K3 (their plain
+    versions on the CPU), recomputing P and the keep mask; no gradient for
+    k_len, the scale, the rate, the seed or the causal flag, and none
+    through lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, k_len, sm_scale, dropout_rate, dropout_seed):
+    def forward(ctx, q, k, v, k_len, sm_scale, dropout_rate, dropout_seed,
+                causal):
         o, lse = _forward(q, k, v, k_len, sm_scale, dropout_rate,
-                          dropout_seed)
+                          dropout_seed, causal)
         ctx.save_for_backward(q, k, v, o, lse, k_len)
-        ctx.args = (sm_scale, dropout_rate, dropout_seed)
+        ctx.args = (sm_scale, dropout_rate, dropout_seed, causal)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, k_len = ctx.saved_tensors
-        sm_scale, dropout_rate, dropout_seed = ctx.args
+        sm_scale, dropout_rate, dropout_seed, causal = ctx.args
         dq, dk, dv = flash_attention_bwd(
             q, k, v, o, lse, do.to(q.dtype).contiguous(), k_len,
             sm_scale=sm_scale, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed)
-        return dq, dk, dv, None, None, None, None
+            dropout_seed=dropout_seed, causal=causal)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
     *, sm_scale: Optional[float] = None, dropout_rate: float = 0.0,
-    dropout_seed: int = 0,
+    dropout_seed: int = 0, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of masked attention; q (B,H,T_q,d), k/v (B,H,T_k,d).
 
     ``k_len`` (B,) int32 is the number of valid keys per batch row;
+    ``causal`` also masks keys past the query row (K3);
     ``sm_scale`` defaults to 1/sqrt(d). ``dropout_rate`` > 0 drops
     attention probabilities with the hash seeded by ``dropout_seed`` (an
     int32; the backward rebuilds the same mask). ``o`` has q's dtype and
@@ -445,11 +488,14 @@ def flash_attention(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, k_len, float(sm_scale),
-                                float(dropout_rate), int(dropout_seed))
+                                float(dropout_rate), int(dropout_seed),
+                                bool(causal))
 
 
-flash_attention.launches = 0
-flash_attention.dropout_launches = 0
+flash_attention.launches = 0                    # K1
+flash_attention.dropout_launches = 0            # K1-d
+flash_attention.causal_launches = 0             # K3-f
+flash_attention.causal_dropout_launches = 0     # K3-d
 
 
 def _fwd_kernel():
@@ -459,7 +505,7 @@ def _fwd_kernel():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -469,7 +515,7 @@ def _bwd_kernels():
     lib = cuda_build.load(BWD_KERNEL)
     tail = ([ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
-               ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
+               ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     for name, n_out in (("flash_attention_bwd_dq", 1),
                         ("flash_attention_bwd_dkdv", 2)):
         fn = getattr(lib, name)

@@ -3,7 +3,8 @@ transformer_tts_tpu/ops/positional.py:28-93).
 
 ``sinusoid_table`` keeps the reference's doubled exponent: column j gets
 angle ``pos / 10000**(2j/d)``, sin for even j and cos for odd j, computed
-in fp32. ``PositionalEncoder`` adds it scaled by a learnable ``alpha``.
+in fp32. ``PositionalEncoder`` adds it scaled by a learnable ``alpha``,
+from row 0 or, in the AR decode loop, from the step's row.
 
 ``relative_sinusoid_table`` is the standard table of the conformer's
 Transformer-XL attention: columns 2i and 2i+1 hold sin and cos of
@@ -46,7 +47,12 @@ def relative_sinusoid_table(max_len: int, d_model: int,
 
 
 class PositionalEncoder(nn.Module):
-    """x + alpha * PE[:T], then dropout."""
+    """x + alpha * PE[offset : offset + T], then dropout.
+
+    ``offset`` (an int or a 0-d integer tensor on the table's device) is
+    the AR decode step's position: the step's single row takes table row
+    ``offset``. A tensor offset keeps the step free of host values.
+    """
 
     def __init__(self, d_model: int, dropout: float = 0.1,
                  max_len: int = MAX_ABS_POSITIONS):
@@ -57,8 +63,13 @@ class PositionalEncoder(nn.Module):
         self.register_buffer("table", sinusoid_table(max_len, d_model),
                              persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pe = self.table[: x.shape[1]]
+    def forward(self, x: torch.Tensor, offset=0) -> torch.Tensor:
+        t = x.shape[1]
+        if isinstance(offset, torch.Tensor):
+            pe = self.table.index_select(
+                0, offset.reshape(1) + torch.arange(t, device=offset.device))
+        else:
+            pe = self.table[offset: offset + t]
         return self.dropout(x + self.alpha * pe[None])
 
 

@@ -1,6 +1,8 @@
-"""FastSpeech 2 losses (the port of transformer_tts_tpu/train/losses.py:
-``l1`` :24-31, ``channel_wise_l1`` :34-40, ``duration_loss`` :43-48 and
-``fastspeech2_loss`` :132-261 with the flagship's options).
+"""FastSpeech 2 and AR Transformer-TTS losses (the port of
+transformer_tts_tpu/train/losses.py: ``l1`` :24-31, ``channel_wise_l1``
+:34-40, ``duration_loss`` :43-48, ``stop_token_loss`` :51-68,
+``fastspeech2_loss`` :132-261 with the flagship's options and
+``transformer_tts_loss`` :264-281).
 
 L1 on mel_pre and mel_post, L1 of the predicted log durations against
 log(d + log_offset), and L1 on f0 and energy, all in fp32. ``masked=False``
@@ -8,7 +10,8 @@ log(d + log_offset), and L1 on f0 and energy, all in fp32. ``masked=False``
 frames too; ``f0_stats``/``energy_stats`` standardise those targets and
 average them over valid frames. The SSIM loss, the discrete
 (``output_type='softmax'``) mode and the SQ-VAE come with the other model
-families.
+families. The AR loss is L1 on the pre and post mel and the stop token's
+BCE with a positive-class weight, in the stable ``logaddexp`` form.
 """
 
 from __future__ import annotations
@@ -44,6 +47,40 @@ def duration_loss(log_d_pred: torch.Tensor, d_target: torch.Tensor,
                   log_offset: float = 1.0) -> torch.Tensor:
     """L1(log_d_pred, log(d_target + log_offset))."""
     return l1(log_d_pred, torch.log(d_target.float() + log_offset), mask)
+
+
+def stop_token_loss(logits: torch.Tensor, target: torch.Tensor,
+                    pos_weight: float = 5.0,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BCE-with-logits with weight ``pos_weight`` on the positive class,
+    in fp32: pos_weight * z * -log(sigmoid(x)) + (1 - z) *
+    -log(1 - sigmoid(x)), each term a ``logaddexp``. The target is 1.0 at
+    stop frames and on padding."""
+    x, z = logits.float(), target.float()
+    zero = torch.zeros((), device=x.device)
+    per = (pos_weight * z * torch.logaddexp(zero, -x)
+           + (1.0 - z) * torch.logaddexp(zero, x))
+    if mask is None:
+        return per.mean()
+    mask = mask.expand(per.shape).float()
+    return (per * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def transformer_tts_loss(mel_pre: torch.Tensor, mel_post: torch.Tensor,
+                         stop_logits: torch.Tensor, mel_target: torch.Tensor,
+                         stop_target: torch.Tensor, *,
+                         positive_weight: float = 5.0,
+                         mask: Optional[torch.Tensor] = None):
+    """(total, logs): L1(pre) + L1(post) + the weighted stop BCE, under the
+    JAX package's keys loss_frame_before, loss_frame_after, loss_token and
+    loss_total."""
+    fmask = mask[..., None] if mask is not None else None
+    pre = l1(mel_pre, mel_target, fmask)
+    post = l1(mel_post, mel_target, fmask)
+    stop = stop_token_loss(stop_logits, stop_target, positive_weight, mask)
+    total = pre + post + stop
+    return total, {"loss_frame_before": pre, "loss_frame_after": post,
+                   "loss_token": stop, "loss_total": total}
 
 
 def _standardise(values, stats, mel_mask, vmask):

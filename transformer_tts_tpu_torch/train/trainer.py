@@ -1,6 +1,8 @@
-"""FastSpeech 2 train state and train step (the port of
-transformer_tts_tpu/train/trainer.py: ``init_fastspeech2_state`` :122-162
-and ``make_fastspeech2_train_step`` :186-260).
+"""Train states and train steps of FastSpeech 2 and the AR Transformer-TTS
+(the port of transformer_tts_tpu/train/trainer.py: ``init_fastspeech2_state``
+:122-162, ``make_fastspeech2_train_step`` :186-260,
+``init_transformer_state`` :294-329, ``_guided_attention_loss`` :332-354
+and ``make_transformer_train_step`` :357-428).
 
 The step: forward in train mode (bf16 autocast when ``hp.amp``, with no
 GradScaler, as the JAX package runs bf16 without loss scaling) -> the
@@ -11,9 +13,18 @@ does not wait for the card; ``grad_norm`` is the norm before clipping.
 Randomness: the state's ``generator`` (a CPU ``torch.Generator`` seeded
 from ``hp.seed``, so a draw never syncs the card) gives the reference
 init, a fresh seed for each in-kernel attention dropout and the scheduled-
-sampling draws. The plain ``nn.Dropout`` layers take no generator, so
-``init_fastspeech2_state`` seeds torch's default generators once from
+sampling draws. The plain ``nn.Dropout`` layers (the AR prenet's among
+them) take no generator, so ``init_fastspeech2_state`` and
+``init_transformer_state`` seed torch's default generators once from
 ``hp.seed`` for them.
+
+The AR step is teacher-forced: the decoder reads ``mel[:, :-r:r]`` (the go
+frame and every r-th frame, ``pos_mel[:, :-r:r]`` its positions) and
+predicts each next group of r frames against ``mel[:, r:]`` and
+``stop_token[:, r:]``. Its masked self-attention takes K3 (the kernel
+path needs T_dec >= ``FLASH_MIN_KEY_LEN``);
+``guided_attention_weight > 0`` asks for the attention maps, which puts
+every attention on the masked path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,23 +33,28 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.models.fastspeech2 import (
-    FastSpeech2, _variance_stats, build_fastspeech2, later_slice)
+    _variance_stats, build_fastspeech2, later_slice)
+from transformer_tts_tpu_torch.models.transformer_tts import (
+    build_transformer_tts, check_supported as check_ar_supported)
 from transformer_tts_tpu_torch.ops.masks import create_masks
-from transformer_tts_tpu_torch.train.losses import fastspeech2_loss
+from transformer_tts_tpu_torch.train.losses import (
+    fastspeech2_loss, transformer_tts_loss)
 from transformer_tts_tpu_torch.train.schedule import (
     Optimizer, apply_reference_init, build_optimizer)
 
-BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "alignment", "f0",
-              "energy")
+FS2_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "alignment", "f0",
+                  "energy")
+AR_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "stop_token")
 
 
 class TrainState:
     """The model, its optimizer, the step count and the generator."""
 
-    def __init__(self, model: FastSpeech2, optimizer: Optimizer,
+    def __init__(self, model: nn.Module, optimizer: Optimizer,
                  generator: torch.Generator, step: int = 0):
         self.model = model
         self.optimizer = optimizer
@@ -50,18 +66,12 @@ def _check_supported(hp: HParams) -> None:
     if hp.remat:
         later_slice("whole-forward rematerialisation (remat)",
                     "remaining tools")
-    if hp.fix_mask:
-        later_slice("band masks (fix_mask)", "AR Transformer-TTS")
 
 
-def init_fastspeech2_state(hp: HParams, *, device="cuda") -> TrainState:
-    """A FastSpeech 2 ``TrainState`` on ``device``: weights from
-    ``hp.seed``, the reference init when ``hp.reference_init``, and the
-    optimizer of ``hp.optimizer``. Seeds torch's default generators (the
-    plain dropouts') from ``hp.seed``."""
+def _init_state(build, hp: HParams, device) -> TrainState:
     _check_supported(hp)
     torch.manual_seed(hp.seed)
-    model = build_fastspeech2(hp, device=device, seed=hp.seed)
+    model = build(hp, device=device, seed=hp.seed)
     generator = torch.Generator().manual_seed(hp.seed)
     if hp.reference_init:
         apply_reference_init(model, generator)
@@ -72,13 +82,27 @@ def init_fastspeech2_state(hp: HParams, *, device="cuda") -> TrainState:
     return TrainState(model, optimizer, generator)
 
 
-def batch_to(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """The step's arrays of a collated batch, as tensors on ``device``.
-    Host arrays bound for the card go through pinned memory, so the copy
-    is queued without waiting for the card."""
+def init_fastspeech2_state(hp: HParams, *, device="cuda") -> TrainState:
+    """A FastSpeech 2 ``TrainState`` on ``device``: weights from
+    ``hp.seed``, the reference init when ``hp.reference_init``, and the
+    optimizer of ``hp.optimizer``. Seeds torch's default generators (the
+    plain dropouts') from ``hp.seed``."""
+    return _init_state(build_fastspeech2, hp, device)
+
+
+def init_transformer_state(hp: HParams, *, device="cuda") -> TrainState:
+    """The AR Transformer-TTS ``TrainState``, as
+    ``init_fastspeech2_state``."""
+    return _init_state(build_transformer_tts, hp, device)
+
+
+def batch_to(batch: Dict, device, keys) -> Dict[str, torch.Tensor]:
+    """The step's arrays (``keys``) of a collated batch, as tensors on
+    ``device``. Host arrays bound for the card go through pinned memory,
+    so the copy is queued without waiting for the card."""
     on_card = torch.device(device).type == "cuda"
     out = {}
-    for key in BATCH_KEYS:
+    for key in keys:
         value = batch.get(key)
         if value is None:
             continue
@@ -99,8 +123,9 @@ def make_fastspeech2_train_step(hp: HParams, *, device="cuda"):
     energy_stats = _variance_stats(hp.energy_mean, hp.energy_std)
 
     def step_fn(state: TrainState, batch: Dict):
-        b = batch_to(batch, device)
-        src_mask, mel_mask = create_masks(b["pos_text"], b["pos_mel"])
+        b = batch_to(batch, device, FS2_BATCH_KEYS)
+        src_mask, mel_mask = create_masks(b["pos_text"], b["pos_mel"],
+                                          fix_mask=hp.fix_mask)
         model = state.model.train()
         out = model(b["text"], src_mask, b["mel"].shape[1], b["alignment"],
                     b.get("f0"), b.get("energy"), mel_mask,
@@ -112,11 +137,77 @@ def make_fastspeech2_train_step(hp: HParams, *, device="cuda"):
             log_offset=hp.log_offset, channel_wise=hp.channel_wise,
             channel_weight=hp.channel_weight, output_type=hp.output_type,
             f0_stats=f0_stats, energy_stats=energy_stats)
-        state.optimizer.zero_grad()
-        total.backward()
-        logs = {k: v.detach() for k, v in logs.items()}
-        logs["grad_norm"] = state.optimizer.step()
-        state.step += 1
-        return state, logs
+        return _update(state, total, logs)
+
+    return step_fn
+
+
+def _update(state: TrainState, total: torch.Tensor, logs: Dict):
+    """Backward, clip and optimizer update; ``step += 1``."""
+    state.optimizer.zero_grad()
+    total.backward()
+    logs = {k: v.detach() for k, v in logs.items()}
+    logs["grad_norm"] = state.optimizer.step()
+    state.step += 1
+    return state, logs
+
+
+def _guided_attention_loss(attn: torch.Tensor, text_len: torch.Tensor,
+                           query_len: torch.Tensor,
+                           sigma: float) -> torch.Tensor:
+    """The diagonal attention prior on the cross-attention maps ``attn``
+    (B, layers, H, T_q, L), averaged over layers and heads, or (B, T_q,
+    L): the mean over valid (t, l) of A[t, l] * (1 - exp(-(l/L - t/T)^2 /
+    (2 sigma^2))), 1-based t and l."""
+    a = attn.float()
+    if a.dim() == 5:
+        a = a.mean(dim=(1, 2))
+    t_q, n_text = a.shape[-2:]
+    t_idx = (torch.arange(t_q, device=a.device) + 1.0)[None, :, None]
+    l_idx = (torch.arange(n_text, device=a.device) + 1.0)[None, None, :]
+    ql = query_len.float().clamp(min=1.0)[:, None, None]
+    tl = text_len.float().clamp(min=1.0)[:, None, None]
+    w = 1.0 - torch.exp(-((l_idx / tl - t_idx / ql) ** 2)
+                        / (2.0 * sigma ** 2))
+    valid = (t_idx <= ql) & (l_idx <= tl)
+    return (a * w * valid).sum() / valid.sum().clamp(min=1).float()
+
+
+def make_transformer_train_step(hp: HParams, *, device="cuda"):
+    """``step_fn(state, batch) -> (state, logs)`` of the AR model for
+    collated batches (text, pos_text, mel with the go frame first and a
+    length a multiple of r, pos_mel, stop_token 1.0 past each row's
+    frames), padded to bucket shapes; the arrays go to ``device``."""
+    check_ar_supported(hp)
+    _check_supported(hp)
+    r = hp.reduction_rate
+    ga_w = float(hp.guided_attention_weight or 0.0)
+    ga_sigma = float(hp.guided_attention_sigma)
+
+    def step_fn(state: TrainState, batch: Dict):
+        b = batch_to(batch, device, AR_BATCH_KEYS)
+        mel = b["mel"]
+        n, _, mel_dim = mel.shape
+        src_mask, trg_mask = create_masks(b["pos_text"],
+                                          b["pos_mel"][:, :-r:r],
+                                          model="transformer")
+        model = state.model.train()
+        out = model(b["text"], mel[:, :-r:r], src_mask, trg_mask,
+                    collect_attn=ga_w > 0, generator=state.generator)
+        t = out.mel_pre.shape[1]
+        total, logs = transformer_tts_loss(
+            out.mel_pre.reshape(n, t * r, mel_dim),
+            out.mel_post.reshape(n, t * r, mel_dim),
+            out.stop_token.reshape(n, t * r), mel[:, r:],
+            b["stop_token"][:, r:], positive_weight=hp.positive_weight)
+        if ga_w > 0:
+            q_len = (b["pos_mel"] != 0).sum(1) // r
+            t_len = (b["pos_text"] != 0).sum(1)
+            ga = _guided_attention_loss(out.attn_dec_enc, t_len, q_len,
+                                        ga_sigma)
+            logs["loss_guided_attention"] = ga
+            total = total + ga_w * ga
+            logs["loss_total"] = total
+        return _update(state, total, logs)
 
     return step_fn
