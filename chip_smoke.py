@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FastSpeech 2 and AR Transformer-TTS synthesis
-and training on one CUDA card.
+"""Drive the PyTorch port's FastSpeech 2 (transformer and conformer) and AR
+Transformer-TTS synthesis and training on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ and each printing its wall time:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel of the paths (K1 and K1-d with K3's forward, K2
-   with K3's backward, K4), in parallel, from the sources in the checkout;
+   with K3's backward, K4 and K4-d, K5), in parallel, from the sources in
+   the checkout;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    K1 (csrc/flash_attention_fwd.cu) and K4 (csrc/flash_relpos_fwd.cu):
    fp32 at 1e-4 on O and lse, bf16 against the plain version in fp32 on
@@ -24,7 +25,13 @@ and each printing its wall time:
    exactly 0 for keys at or past k_len. K3, the causal mode of the same
    kernels, likewise at the AR train step's (16, 4, 511, 96) with k_len
    1, 65, T and the AR batch's decoder groups, and at T_q != T_k both
-   ways;
+   ways. K4-d (csrc/flash_relpos_fwd.cu with dropout) and K5
+   (csrc/flash_relpos_bwd.cu, dq and dk/dv/dP) at dropout 0 and 0.1 on
+   the same seed, at k_len in {0, 1, 65, T}, T = 1000, and the conformer
+   train step's (16, 4, 1024, 96) with its batch's mel lengths: O, dq_u,
+   dq_v, dk, dv and dP at 1e-4 (fp32) and 2e-2 (bf16) of each tensor's
+   own max|ref|, dk and dv exactly 0 past k_len, O bit for bit the same
+   on a second call;
 4. for each FastSpeech 2 flagship, the transformer one and the conformer
    one of egs/fastspeech2_conformer_ljspeech.py (d 384, 6+6 layers, 4
    heads of 96, random weights from seed 0):
@@ -46,10 +53,10 @@ and each printing its wall time:
        update is ~lr * sign(g): the loss; each gradient at 2e-2 of its own
        max|g|, 5e-3 for the decoder attention weights (key and
        pre-BatchNorm conv biases, zero but for rounding, below 1e-5 of the
-       largest); each update against the CPU's where
-       the gradients' signs are sure; BatchNorm statistics; then bf16 amp
-       on the card against the CPU's loss, grad_norm and the decoder
-       attention weights' gradient norms;
+       largest); each update against the CPU's where the two gradients
+       bound their difference below 1e-3 lr; BatchNorm statistics; then
+       bf16 amp on the card against the CPU's loss, grad_norm and the
+       decoder attention weights' gradient norms;
    (b) the train step, the main path of training, on a fixed batch (B=16,
        text bucket 128, mel bucket 1024, 600-1000 frames per row): 3
        warm-up steps, then 10 timed with CUDA events, every launch count
@@ -58,6 +65,11 @@ and each printing its wall time:
        finite; then 20 steps with warmup_step 100 whose loss must fall;
    (c) cli/train.py for 3 steps on a synthetic corpus (32 utterances of
        300-900 frames) and cli/synthesize.py on the checkpoint it saved;
+   (d)-(f) the conformer flagship's training likewise: the card-vs-CPU
+       step (decoder on K4 and K5; its decoder self-attention weights,
+       linear_pos and the position biases at the attention tolerance,
+       each with a non-zero card gradient), the timed step (6 K4-d, 6 K5
+       dq and 6 K5 dk/dv per step, no other kernel), the two CLIs;
 6. the AR Transformer-TTS flagship of egs/transformer_tts_ljspeech.py
    (the same widths, r 2, prenet dropout 0.5), each path counted from 0:
    (a) the teacher-forced eval forward over 300 decoder groups, 6 K3-f
@@ -74,9 +86,13 @@ and each printing its wall time:
 7. each kernel at its main path's own captured input (K1, K4: the first
    decoder layer of the B=8 synthesis call; K1-d and K2, K3-d and K3's
    backward: the first decoder layer of the FastSpeech 2 and the AR train
-   step, held there against their plain versions as in 3; K3-f: the
-   first decoder layer of 6(a)'s bf16 forward): kernel, plain and library
-   ms, bound (for K3 over the causal pairs the inputs attend), error;
+   step, held there against their plain versions as in 3; K4-d and K5:
+   the first decoder layer of the conformer train step, likewise, the
+   library yardstick SDPA with the relative bias (for K5 its backward
+   with the bias's gradient, the rel_shift adjoint and two products);
+   K3-f: the first decoder layer of 6(a)'s bf16 forward): kernel, plain
+   and library ms, bound (for K3 over the causal pairs the inputs
+   attend), error;
 8. attention-path timing, kernel against masked-fill, at T in
    {128, 256, 768, 2048}, for both attention modules.
 
@@ -171,9 +187,13 @@ def train_kernels():
     name in the kernels line, source, TPU kernel it replaces) for the
     kernels of the training path."""
     from transformer_tts_tpu_torch.ops import flash_attention as fa
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
     fwd = "transformer_tts_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd = "transformer_tts_tpu_torch/csrc/flash_attention_bwd.cu"
+    rp_fwd = "transformer_tts_tpu_torch/csrc/flash_relpos_fwd.cu"
+    rp_bwd = "transformer_tts_tpu_torch/csrc/flash_relpos_bwd.cu"
     jax_fa = "transformer_tts_tpu/ops/flash_attention.py"
+    jax_rp = "transformer_tts_tpu/ops/flash_relpos.py"
     return {
         "K1-d": (fa.flash_attention, "dropout_launches",
                  "flash_attention_fwd dropout", fwd, f"{jax_fa}:90"),
@@ -191,6 +211,15 @@ def train_kernels():
         "K3-dkdv": (fa.flash_attention_bwd_dkdv, "causal_launches",
                     "flash_attention_bwd causal dk/dv", bwd,
                     f"{jax_fa}:379"),
+        # the conformer decoder: K4 with dropout, and its backward K5 (the
+        # TPU's _dq_kernel and _dkdv_kernel; _fused_bwd_kernel :510 is the
+        # same function at one k block)
+        "K4-d": (fr.flash_relpos_attention, "dropout_launches",
+                 "flash_relpos_fwd dropout", rp_fwd, f"{jax_rp}:212"),
+        "K5-dq": (fr.flash_relpos_attention_bwd_dq, "launches",
+                  "flash_relpos_bwd dq", rp_bwd, f"{jax_rp}:360"),
+        "K5-dkdv": (fr.flash_relpos_attention_bwd_dkdv, "launches",
+                    "flash_relpos_bwd dk/dv/dP", rp_bwd, f"{jax_rp}:431"),
     }
 
 
@@ -420,6 +449,85 @@ def phase_causal_kernels_vs_plain(gen, ar_k_len):
                            else "1, 65, T and the AR batch's")
                 print(f"K3 vs plain ({b},{h},{t_q},{t_k},{d}) "
                       f"{str(dtype)[6:]} rate {rate} k_len={cases_k}: "
+                      + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
+                                 f"{peaks[n]:.3g})" for n, e in errs.items()))
+
+
+RELPOS_GRADS = ("dq_u", "dq_v", "dk", "dv", "dp")
+
+
+def check_relpos_train_kernels(q_u, q_v, k, v, p, do, k_len, rate,
+                               seed=DROPOUT_SEED, label="") -> tuple:
+    """K4 (rate 0) or K4-d and K5 on (q_u, q_v, k, v, p, do) against their
+    plain versions in fp32 on the same inputs: O, dq_u, dq_v, dk, dv and
+    dp each within REL_TOL of its own max|ref|, lse within TOLS' absolute
+    limit; dk and dv exactly 0 for keys at or past k_len; O bit for bit
+    the same on a second call with the same seed. Returns ({name: max abs
+    err}, {name: max|ref|}, o). Launch counts are left as they were."""
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
+    counts = read_counts()
+    sm_scale = q_u.shape[-1] ** -0.5
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
+    with torch.no_grad():
+        o, lse = fr.flash_relpos_attention(q_u, q_v, k, v, p, k_len, **kw)
+        o_again, _ = fr.flash_relpos_attention(q_u, q_v, k, v, p, k_len,
+                                               **kw)
+        grads = fr.flash_relpos_attention_bwd(q_u, q_v, k, v, p, o, lse, do,
+                                              k_len, sm_scale=sm_scale, **kw)
+        torch.cuda.synchronize()
+        f = [x.float() for x in (q_u, q_v, k, v, p)]
+        ro, rlse = fr.flash_relpos_attention_fwd_reference(
+            *f, k_len, sm_scale, rate, seed)
+        ref = fr.flash_relpos_attention_bwd_reference(
+            *f, o.float(), lse, do.float(), k_len, sm_scale, rate, seed)
+    set_counts(counts)
+    fwd = "K4-d" if rate > 0 else "K4"
+    check(torch.equal(o, o_again), f"{fwd}{label}: another O on a second "
+                                   f"call with the same seed")
+    empty = k_len == 0
+    check(bool((o[empty] == 0).all()), f"{fwd}{label}: a row with no valid "
+                                       f"key is not 0")
+    errs, peaks = {}, {}
+    errs["o"], peaks["o"] = max_err(o[~empty], ro[~empty])
+    errs["lse"], peaks["lse"] = max_err(lse[~empty], rlse[~empty])
+    rel = REL_TOL[q_u.dtype]
+    check(errs["o"] <= rel * peaks["o"] and errs["lse"] <= TOLS[q_u.dtype][1],
+          f"{fwd}{label} disagrees with its plain version: {errs} against "
+          f"max|ref| {peaks}")
+    for name, got, want in zip(RELPOS_GRADS, grads, ref):
+        errs[name], peaks[name] = max_err(got, want)
+        check(errs[name] <= rel * peaks[name],
+              f"K5 {name}{label} disagrees with its plain version: "
+              f"{errs[name]} > {rel} * max|ref| {peaks[name]}")
+    for name, g in (("dk", grads[2]), ("dv", grads[3])):
+        for b, n in enumerate(k_len.tolist()):
+            check(bool((g[b, :, n:] == 0).all()),
+                  f"K5 {name}{label} is not exactly 0 for keys at or past "
+                  f"k_len")
+    return errs, peaks, o
+
+
+def phase_relpos_kernels_vs_plain(gen, train_k_len):
+    """K4-d and K5 against their plain versions: k_len in {0, 1, 65, T}
+    at T = 1000 (not a multiple of the tiles), and the conformer train
+    step's shape (16, 4, 1024, 96) with its batch's mel lengths as k_len;
+    fp32 (TF32 off) and bf16; dropout 0 and 0.1 on the same seed."""
+    b_train, _, t_train, _ = TRAIN_BATCH
+    cases = [(4, 4, 1000, 96, [1000, 0, 1, 65]),
+             (b_train, 4, t_train, 96, train_k_len.tolist())]
+    for b, h, t, d, k_len in cases:
+        q_u, q_v, k, v, do = (torch.randn(b, h, t, d, generator=gen)
+                              .to(DEVICE) for _ in range(5))
+        p = torch.randn(h, t, d, generator=gen).to(DEVICE)
+        kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.1):
+                errs, peaks, _ = check_relpos_train_kernels(
+                    *(x.to(dtype) for x in (q_u, q_v, k, v, p, do)), kl,
+                    rate)
+                print(f"K4-d/K5 vs plain ({b},{h},{t},{d}) "
+                      f"{str(dtype)[6:]} rate {rate} k_len="
+                      f"{k_len if b <= 4 else 'the train batch'}: "
                       + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
                                  f"{peaks[n]:.3g})" for n, e in errs.items()))
 
@@ -725,25 +833,47 @@ def ar_train_batch(gen, hp, b, text_len, mel_len, frames, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
+def conformer_hparams(**overrides):
+    """The conformer flagship of egs/fastspeech2_conformer_ljspeech.py:
+    the transformer flagship's widths and training defaults with both
+    stacks conformer, with overrides."""
+    return train_hparams(**dict(overrides, **PATHS["conformer"][0]))
+
+
 def trainer(kind: str) -> dict:
     """A flagship's training: its hparams, state, step and batch makers,
     the overrides that zero its dropouts, the name of its decoder's
-    kernel-path attention, and the ids of the kernels that carry it
-    (forward at rate 0, forward with dropout, dq, dk/dv)."""
+    kernel-path attention, the ids of the kernels that carry it (forward
+    at rate 0, forward with dropout, dq, dk/dv), and the (module, name)
+    of the kernel path's forward and backward entries, whose calls the
+    timed step captures."""
+    from transformer_tts_tpu_torch.ops import attention
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
     from transformer_tts_tpu_torch.train import trainer as tr
+    fs2_no_dropout = dict(dropout=0.0, dropout_postnet=0.0,
+                          dropout_variance_adaptor=0.0)
+    calls = dict(fwd_call=(attention, "flash_attention"),
+                 bwd_call=(fa, "flash_attention_bwd"))
     if kind == "fastspeech2":
         return dict(hparams=train_hparams, init=tr.init_fastspeech2_state,
                     make_step=tr.make_fastspeech2_train_step,
-                    batch=train_batch, attn="attn",
-                    no_dropout=dict(dropout=0.0, dropout_postnet=0.0,
-                                    dropout_variance_adaptor=0.0),
-                    kernels=("K1", "K1-d", "K2-dq", "K2-dkdv"))
+                    batch=train_batch, attn="attn", no_dropout=fs2_no_dropout,
+                    kernels=("K1", "K1-d", "K2-dq", "K2-dkdv"), **calls)
+    if kind == "conformer":
+        return dict(hparams=conformer_hparams,
+                    init=tr.init_fastspeech2_state,
+                    make_step=tr.make_fastspeech2_train_step,
+                    batch=train_batch, attn="attn", no_dropout=fs2_no_dropout,
+                    kernels=("K4", "K4-d", "K5-dq", "K5-dkdv"),
+                    fwd_call=(attention, "flash_relpos_attention"),
+                    bwd_call=(fr, "flash_relpos_attention_bwd"))
     return dict(hparams=ar_hparams, init=tr.init_transformer_state,
                 make_step=tr.make_transformer_train_step,
                 batch=ar_train_batch, attn="attn_1",
                 no_dropout=dict(dropout=0.0, dropout_prenet=0.0,
                                 dropout_postnet=0.0),
-                kernels=("K3-f", "K3-d", "K3-dq", "K3-dkdv"))
+                kernels=("K3-f", "K3-d", "K3-dq", "K3-dkdv"), **calls)
 
 
 ADAM_EPS = 1e-9
@@ -757,19 +887,27 @@ GRAD_TOL, ATTN_GRAD_TOL = 2e-2, 5e-3
 
 def zero_in_exact_arithmetic(name: str) -> bool:
     """Gradients that cancel to 0, leaving rounding noise: a key bias (it
-    adds one constant to each softmax row) and the postnet's conv biases
-    before a BatchNorm (its batch mean takes them out)."""
+    adds one constant to each softmax row) and the conv biases before a
+    BatchNorm (its batch mean takes them out): the postnet's and, in the
+    conformer, each conv module's depthwise conv and the 1x1 conv after
+    it."""
     return name.endswith("k_linear.bias") or (
         name.startswith("postnet.") and name.endswith(".bias")
-        and (".conv1." in name or ".conv_list." in name))
+        and (".conv1." in name or ".conv_list." in name)) or (
+        ".conv_module.depth_conv1." in name and name.endswith(".bias"))
 
 
 def decoder_attention(hp, attn: str) -> tuple:
     """Names of the decoder kernel-path attention's weights, whose
-    gradients come through K2 (FastSpeech 2) or K3 (the AR model)."""
-    return tuple(f"decoder.layers.{i}.{attn}.{m}.weight"
-                 for i in range(hp.n_layer_decoder)
-                 for m in ("q_linear", "k_linear", "v_linear", "out"))
+    gradients come through K2 (FastSpeech 2), K3 (the AR model) or K5 (the
+    conformer, whose relative attention adds linear_pos and the two
+    position biases)."""
+    members = ["q_linear.weight", "k_linear.weight", "v_linear.weight",
+               "out.weight"]
+    if hp.decoder_type.lower() == "conformer":
+        members += ["linear_pos.weight", "pos_bias_u", "pos_bias_v"]
+    return tuple(f"decoder.layers.{i}.{attn}.{m}"
+                 for i in range(hp.n_layer_decoder) for m in members)
 
 
 def ulp(x: torch.Tensor) -> torch.Tensor:
@@ -780,8 +918,10 @@ def ulp(x: torch.Tensor) -> torch.Tensor:
 def phase_card_vs_cpu(gen, kind):
     """One train step on the card and on the CPU from the same weights:
     the flagship in fp32 with every dropout 0, where the decoder takes K1
-    and K2 (FastSpeech 2) or K3 and its backward (the AR model, 383
-    decoder groups); then the same step with bf16 amp on the card.
+    and K2 (FastSpeech 2), K4 and K5 (the conformer) or K3 and its
+    backward (the AR model, 383 decoder groups); then the same step with
+    bf16 amp on the card. Every decoder attention weight's card gradient
+    must be non-zero.
     warmup_step 10 makes Adam's first update lr * g / (|g| + 1e-9) ~
     lr * sign(g) with lr = 1.6e-3, far above fp32's rounding of the
     weights, so the updates show every gradient's sign, however small the
@@ -835,10 +975,14 @@ def phase_card_vs_cpu(gen, kind):
             noise_peak = max(noise_peak, peak, g.abs().max().item())
             continue
         grad_rel[name] = err / peak if peak > 0 else float(err > 0)
-        # Adam's first update, lr * g / (|g| + eps): where |g| > 4 err the
-        # two gradients share their sign, and where g^2 > 2e3 eps err the
-        # two updates lie within lr * eps * err / (g g') <= 1e-3 lr
-        settled = g_ref.abs() > max(4 * err, math.sqrt(2e3 * ADAM_EPS * err))
+        # Adam's first update is lr * f(g), f(x) = x / (|x| + eps), whose
+        # slope eps / (|x| + eps)^2 is largest where |x| is least; between
+        # two gradients within err of each other |x| >= m = max(|g| - err,
+        # 0), so their updates lie within lr * err * eps / (m + eps)^2.
+        # Where that bound is <= 1e-3 lr (a gradient far above err, or err
+        # far below eps), the updates must agree to 1e-3 lr.
+        least = (g_ref.abs() - err).clamp(min=0.0)
+        settled = err * ADAM_EPS / (least + ADAM_EPS) ** 2 <= 1e-3
         settled_share[name] = settled.float().mean().item()
         update_rel[name] = ((step - ref_step).abs() - rounding)[
             settled].max().item() / lr if settled.any() else 0.0
@@ -852,6 +996,10 @@ def phase_card_vs_cpu(gen, kind):
     worst = sorted(grad_rel, key=grad_rel.get)[-3:]
     attn_worst = max(attn, key=grad_rel.get)
     attn_peaks = [cpu_params[n].grad.abs().max().item() for n in attn]
+    card_params = dict(state.model.named_parameters())
+    dead = [n for n in attn if not bool((card_params[n].grad != 0).any())]
+    check(not dead, f"{kind}: decoder attention weights with no card "
+                    f"gradient: {dead}")
     attn_share = min(settled_share[n] for n in attn)
     print(f"{kind} train step B={b} L={text_len} T={mel_len} card fp32 vs "
           f"CPU fp32:"
@@ -865,8 +1013,9 @@ def phase_card_vs_cpu(gen, kind):
           f"key and pre-BatchNorm conv biases, zero but for rounding, "
           f"at most {noise_peak:.3g} (tol {1e-5 * top:.3g}); "
           f"updates at lr {lr:.4g}: worst |d update| / lr "
-          f"{max(update_rel.values()):.3g} (tol 1e-3) where the signs are "
-          f"sure, at least {attn_share:.1%} of each decoder attention "
+          f"{max(update_rel.values()):.3g} (tol 1e-3) where the gradients "
+          f"bound it below 1e-3, at least {attn_share:.1%} of each decoder "
+          f"attention "
           f"weight; BatchNorm statistics {stats_rel:.3g} of their own "
           f"max|ref| (tol 1e-3); card launches {json.dumps(launched)}")
     check(max(grad_rel.values()) <= GRAD_TOL
@@ -899,9 +1048,9 @@ def phase_train_step(batch, kind):
     """The main path of a flagship's training at full width, bf16 amp,
     dropout 0.1, on a fixed batch (TRAIN_BATCH); 3 warm-up steps, then 10
     timed ones with every launch count set to 0 just before; then 20
-    steps with warmup_step 100 whose loss must fall."""
-    from transformer_tts_tpu_torch.ops import attention
-    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    steps with warmup_step 100 whose loss must fall. Returns the timed
+    run's launch counts and the kernel path's forward and backward inputs
+    of the first decoder layer in the last warm-up step."""
     spec = trainer(kind)
     b, text_len, mel_len, _ = TRAIN_BATCH
     hp = spec["hparams"]()
@@ -910,8 +1059,8 @@ def phase_train_step(batch, kind):
     fwd_calls, bwd_calls = [], []
     for i in range(3):
         if i == 2:      # the last warm-up step's kernel inputs
-            with capture_calls(attention, "flash_attention", fwd_calls), \
-                    capture_calls(fa, "flash_attention_bwd", bwd_calls):
+            with capture_calls(*spec["fwd_call"], fwd_calls), \
+                    capture_calls(*spec["bwd_call"], bwd_calls):
                 state, logs = step(state, batch)
         else:
             state, logs = step(state, batch)
@@ -1011,9 +1160,12 @@ def phase_train_cli(gen, kind):
     save_dir = os.path.join(work, "checkpoints")
     hp_file = os.path.join(work, "hparams.py")
     with open(hp_file, "w") as fh:
-        for key, value in dict(FLAGSHIP, model=hp.model, train_script=script,
-                               save_dir=save_dir, batch_size=CLI_CORPUS[2],
-                               max_epoch=1, save_per_epoch=1).items():
+        for key, value in dict(FLAGSHIP, model=hp.model,
+                               encoder_type=hp.encoder_type,
+                               decoder_type=hp.decoder_type,
+                               train_script=script, save_dir=save_dir,
+                               batch_size=CLI_CORPUS[2], max_epoch=1,
+                               save_per_epoch=1).items():
             fh.write(f"{key} = {value!r}\n")
     proc = subprocess.run(
         [sys.executable, "-m", "transformer_tts_tpu_torch.cli.train",
@@ -1339,6 +1491,112 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
     return res
 
 
+def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
+    """K4-d, K5-dq and K5-dkdv at the conformer train step's captured
+    input (the first decoder layer): kernel, plain and library ms, the
+    bound, and each kernel against its fp32 plain version there
+    (``check_relpos_train_kernels``), with the O the step's forward gave
+    equal bit for bit to a second launch on the same seed. Library: SDPA
+    with the relative bias precomputed and the same dropout for K4-d;
+    for K5 SDPA's backward with that bias requiring grad, plus the
+    rel_shift adjoint of dbias and the two products that take it to dq_v
+    and dP, each part timed, their sum the yardstick of both entries.
+    Bounds per attended (row, key) pair: K4-d 6*H*d, K5 dq 10*H*d, dk/dv/dP
+    12*H*d operations, against the bytes moved once."""
+    import torch.nn.functional as F
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
+    counts = read_counts()
+    (q_u, q_v, k, v, p, k_len), fkw = fwd_inputs
+    (bq_u, bq_v, bk, bv, bp, o, lse, do, bk_len), bkw = bwd_inputs
+    rate, seed = fkw["dropout_rate"], fkw["dropout_seed"]
+    check(all(torch.equal(x, y) for x, y in ((q_u, bq_u), (q_v, bq_v),
+                                            (k, bk), (v, bv), (p, bp),
+                                            (k_len, bk_len)))
+          and (bkw["dropout_rate"], bkw["dropout_seed"]) == (rate, seed),
+          "the captured relative backward is not the captured forward's")
+    errs, peaks, o_again = check_relpos_train_kernels(
+        q_u, q_v, k, v, p, do, k_len, rate, seed, " (train step input)")
+    check(torch.equal(o_again, o), "K4-d gave another O on the same input "
+                                   "and seed than in the train step")
+    sm_scale = q_u.shape[-1] ** -0.5
+    b, h, t, d = q_u.shape
+    pairs = attended_pairs(t, k_len, False)
+    el = q_u.element_size()
+    plane = q_u.numel() * el
+    in_bytes = 5 * plane + p.numel() * el + 2 * b * h * t * 4
+    bias = relpos_bias(q_v, p, k_len, sm_scale)
+    kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed)
+    with torch.no_grad():
+        res = {"K4-d": {
+            "ms": time_ms(lambda: fr.flash_relpos_attention(
+                q_u, q_v, k, v, p, k_len, dropout_rate=rate,
+                dropout_seed=seed)),
+            "plain_ms": time_ms(
+                lambda: fr.flash_relpos_attention_fwd_reference(
+                    q_u, q_v, k, v, p, k_len, sm_scale, rate, seed)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q_u, k, v, attn_mask=bias, dropout_p=rate, scale=sm_scale)),
+            "max_abs_err": errs["o"], "max_abs_ref": peaks["o"]}}
+        res["K4-d"]["bound_ms"], res["K4-d"]["bound_by"] = bound_ms(
+            6 * h * pairs * d, 5 * plane + p.numel() * el + b * h * t * 4,
+            q_u.dtype)
+        rate0_ms = time_ms(lambda: fr.flash_relpos_attention(
+            q_u, q_v, k, v, p, k_len))
+
+        args = (q_u, q_v, k, v, p, do, lse, fr.bwd_delta(o, do), k_len)
+        res["K5-dq"] = {
+            "ms": time_ms(lambda: fr.flash_relpos_attention_bwd_dq(*args,
+                                                                   **kw)),
+            "plain_ms": time_ms(lambda: fr.flash_relpos_dq_reference(
+                *args, sm_scale, rate, seed)),
+            "max_abs_err": max(errs["dq_u"], errs["dq_v"]),
+            "max_abs_ref": max(peaks["dq_u"], peaks["dq_v"])}
+        res["K5-dq"]["bound_ms"], res["K5-dq"]["bound_by"] = bound_ms(
+            10 * h * pairs * d, in_bytes + 2 * plane, q_u.dtype)
+        res["K5-dkdv"] = {
+            "ms": time_ms(lambda: fr.flash_relpos_attention_bwd_dkdv(*args,
+                                                                     **kw)),
+            "plain_ms": time_ms(lambda: fr.flash_relpos_dkdv_reference(
+                *args, sm_scale, rate, seed)),
+            "max_abs_err": max(errs[n] for n in ("dk", "dv", "dp")),
+            "max_abs_ref": max(peaks[n] for n in ("dk", "dv", "dp"))}
+        res["K5-dkdv"]["bound_ms"], res["K5-dkdv"]["bound_by"] = bound_ms(
+            12 * h * pairs * d, in_bytes + 2 * plane + p.numel() * el,
+            q_u.dtype)
+        pair_bound = bound_ms(16 * h * pairs * d,
+                              in_bytes + 4 * plane + p.numel() * el,
+                              q_u.dtype)
+    lq, lk, lv, lbias = (x.detach().clone().requires_grad_()
+                         for x in (q_u, k, v, bias))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lbias,
+                                        dropout_p=rate, scale=sm_scale)
+    parts = {"sdpa_bwd": time_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv, lbias), do, retain_graph=True))}
+    dbias = torch.autograd.grad(lo, lbias, do, retain_graph=True)[0]
+    with torch.no_grad():
+        parts["rel_shift_adjoint"] = time_ms(
+            lambda: fr.rel_shift_adjoint(dbias))
+        g = fr.rel_shift_adjoint(dbias)
+        parts["products"] = time_ms(lambda: (
+            torch.matmul(g, p), torch.einsum("bhij,bhid->hjd", g, q_v)))
+    res["K5-dq"]["library_ms"] = res["K5-dkdv"]["library_ms"] = sum(
+        parts.values())
+    set_counts(counts)
+    print("K4-d/K5-dq/K5-dkdv vs plain at the conformer train step's input: "
+          + " ".join(f"max|d{n}|={e:.3g} (max|ref| {peaks[n]:.3g})"
+                     for n, e in errs.items())
+          + "; O equal to the step's")
+    print(f"K4 at rate 0 on the same input: {rate0_ms:.4f} ms against "
+          f"{res['K4-d']['ms']:.4f} ms with dropout")
+    print(f"K5-dq + K5-dkdv as a pair at that input: "
+          f"{res['K5-dq']['ms'] + res['K5-dkdv']['ms']:.4f} ms against the "
+          f"bound of the pair, {pair_bound[0]:.4f} ms ({pair_bound[1]}); "
+          f"library yardstick "
+          + " + ".join(f"{n} {v:.4f}" for n, v in parts.items())
+          + f" = {sum(parts.values()):.4f} ms")
+    return res
+
+
 def causal_forward_timings(inputs) -> dict:
     """K3-f at its path's captured input (the first decoder layer of the
     teacher-forced eval forward): kernel, plain and library (SDPA with
@@ -1437,7 +1695,7 @@ def main():
 
     registry = kernels()
     names = sorted({entry[2] for entry in registry.values()}
-                   | {"flash_attention_bwd"})
+                   | {"flash_attention_bwd", "flash_relpos_bwd"})
     with phase("build"):
         cuda_build.build(names)
     for name in names:
@@ -1459,6 +1717,8 @@ def main():
         phase_train_kernels_vs_plain(gen, (batch["pos_mel"] > 0).sum(1))
     with phase("K3 vs plain"):
         phase_causal_kernels_vs_plain(gen, ar_groups)
+    with phase("K4-d and K5 vs plain"):
+        phase_relpos_kernels_vs_plain(gen, (batch["pos_mel"] > 0).sum(1))
     main_runs = {}
     for name, (stacks, kid) in PATHS.items():
         with phase(f"{name} synthesis"):
@@ -1474,6 +1734,11 @@ def main():
         train_launches, fwd_inputs, bwd_inputs = phase_train_step(
             batch, "fastspeech2")
         phase_train_cli(gen, "fastspeech2")
+    with phase("conformer training"):
+        phase_card_vs_cpu(gen, "conformer")
+        conf_launches, conf_fwd_inputs, conf_bwd_inputs = phase_train_step(
+            batch, "conformer")
+        phase_train_cli(gen, "conformer")
     with phase("AR eval forward and decode"):
         k3f_launches, k3f_inputs = phase_ar_teacher_forced(gen)
         phase_ar_decode_vs_forward(gen)
@@ -1511,8 +1776,12 @@ def main():
             runs[kid] = (res, ar_launches[kid], ar_fwd_inputs)
         runs["K3-f"] = (causal_forward_timings(k3f_inputs),
                         k3f_launches["K3-f"], k3f_inputs)
+        for kid, res in relpos_train_kernel_timings(
+                conf_fwd_inputs, conf_bwd_inputs).items():
+            runs[kid] = (res, conf_launches[kid], conf_fwd_inputs)
         for kid, (_, _, name, source, replaces) in train_kernels().items():
-            res, launches, ((q, _, _, k_len), kw) = runs[kid]
+            res, launches, (args, kw) = runs[kid]
+            q, k_len = args[0], args[-1]
             print(f"{kid} at its path's input {tuple(q.shape)} "
                   f"{str(q.dtype)[6:]} rate {kw.get('dropout_rate', 0.0)}, "
                   f"k_len {k_len.tolist()}: kernel {res['ms']:.4f} ms, "

@@ -11,6 +11,8 @@ against the plain version. The CUDA kernel itself is held against the
 plain version on the card by chip_smoke.py.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from transformer_tts_tpu.compat.torch_import import (
     convert_conformer_encoder_state_dict)
+from transformer_tts_tpu.config import HParams as JaxHParams
 from transformer_tts_tpu.infer.synthesize import (
     synthesize_fastspeech2 as jax_synthesize)
 from transformer_tts_tpu.models.encoder import (
@@ -35,19 +38,30 @@ from transformer_tts_tpu.ops.feedforward import (
 from transformer_tts_tpu.ops.flash_relpos import (
     flash_relpos_attention as jax_flash_relpos, reference_relpos_attention)
 from transformer_tts_tpu.ops.masks import pad_mask as jax_pad_mask
+from transformer_tts_tpu.train import schedule as jax_schedule
+from transformer_tts_tpu.train.trainer import (
+    TrainState as JaxTrainState,
+    make_fastspeech2_train_step as jax_train_step)
 from transformer_tts_tpu_torch.cli import synthesize as cli
+from transformer_tts_tpu_torch.cli import train as train_cli
+from transformer_tts_tpu_torch.compat.from_jax import state_dict_from_flax
 from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.infer.synthesize import (
     synthesize_fastspeech2)
 from transformer_tts_tpu_torch.models.fastspeech2 import build_fastspeech2
 from transformer_tts_tpu_torch.ops import attention as port_attention
-from transformer_tts_tpu_torch.ops import positional
+from transformer_tts_tpu_torch.ops import flash_relpos, positional
 from transformer_tts_tpu_torch.ops.flash_relpos import (
     check_relpos_inputs, flash_relpos_attention,
     flash_relpos_attention_fwd_reference)
 from transformer_tts_tpu_torch.ops.masks import pad_mask
+from transformer_tts_tpu_torch.train import schedule
 from transformer_tts_tpu_torch.train.checkpoint import save_checkpoint
+from transformer_tts_tpu_torch.train.trainer import (
+    TrainState, make_fastspeech2_train_step)
 
+from test_torch_port_train import (
+    _corpus, _jax_grads, _train_batch, _write_hp)
 from torch_port_pair import CONFORMER, SMALL, build_pair, to_np
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -336,15 +350,77 @@ def test_relative_attention_kernel_path_matches_jax(pair, monkeypatch):
     _close(ours, ref)
 
 
-def test_kernel_path_dropout_in_train_mode_raises():
+def _train_attention(dropout, seed):
     attn = port_attention.RelativeMultiHeadAttention(
-        2, 32, dropout=0.1, use_flash=True).train()
+        2, 32, dropout=dropout, use_flash=True)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for prm in attn.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=gen) * 0.3)
+    return attn.train()
+
+
+def _attention_grads(attn, k_len, generator=None):
     t = port_attention.FLASH_MIN_KEY_LEN
-    x = torch.zeros(1, t, 32)
+    x = torch.as_tensor(_features(9, t=t))
     pe = positional.relative_sinusoid_table(t, 32)[None]
-    with pytest.raises(NotImplementedError, match="K5"):
-        attn(x, x, x, pe, torch.ones(1, 1, t, dtype=torch.bool),
-             k_len=torch.tensor([t]))
+    mask = torch.as_tensor(_prefix_mask(t, [t, 100]))
+    w = torch.as_tensor(np.random.RandomState(10).randn(2, t, 32)
+                        .astype(np.float32))
+    out, _ = attn(x, x, x, pe, mask, k_len=k_len, generator=generator)
+    names = ("q_linear.weight", "k_linear.weight", "v_linear.weight",
+             "linear_pos.weight", "pos_bias_u", "pos_bias_v")
+    params = dict(attn.named_parameters())
+    grads = torch.autograd.grad((out * w).sum(), [params[n] for n in names])
+    return out.detach(), dict(zip(names, grads))
+
+
+def test_kernel_path_in_train_mode_gives_the_masked_paths_gradients(
+        monkeypatch):
+    # the kernel path's gradient comes from FlashRelposAttention's backward
+    # (K5's plain version here, the kernels on the card), not from autograd
+    # through the forward: every decoder self-attention parameter gets the
+    # masked path's gradient
+    calls = []
+    real = flash_relpos.flash_relpos_attention_bwd
+    monkeypatch.setattr(flash_relpos, "flash_relpos_attention_bwd",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    attn = _train_attention(0.0, 0)
+    t = port_attention.FLASH_MIN_KEY_LEN
+    out, grads = _attention_grads(attn, torch.tensor([t, 100]))
+    ref_out, ref_grads = _attention_grads(attn, None)
+    assert calls == [1]
+    _close(out, ref_out)
+    for name, g in grads.items():
+        want = ref_grads[name].numpy()
+        scale = max(1.0, float(np.abs(want).max()))
+        assert float(g.abs().max()) > 0, name
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
+
+
+def test_kernel_path_dropout_seed_comes_from_the_generator(monkeypatch):
+    seen = []
+    real = port_attention.flash_relpos_attention
+
+    def recording(*args, **kw):
+        seen.append((kw["dropout_rate"], kw["dropout_seed"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(port_attention, "flash_relpos_attention", recording)
+    t = port_attention.FLASH_MIN_KEY_LEN
+    k_len = torch.tensor([t, 100])
+    runs = [_attention_grads(_train_attention(0.1, 0), k_len,
+                             torch.Generator().manual_seed(s))
+            for s in (3, 3, 4)]
+    assert [r for r, _ in seen] == [0.1] * 3
+    assert seen[0][1] == seen[1][1] != seen[2][1]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for name, g in runs[0][1].items():
+        assert torch.equal(g, runs[1][1][name]), name
+    assert not torch.equal(runs[0][0], runs[2][0])
+    no_dropout, _ = _attention_grads(_train_attention(0.0, 0), k_len)
+    assert not torch.allclose(runs[0][0], no_dropout)
 
 
 def test_autocast_hands_the_kernel_one_dtype(monkeypatch):
@@ -515,3 +591,106 @@ def test_cli_synthesizes_conformer_on_cpu(tmp_path, monkeypatch):
         assert 0 < mel.shape[0] == min(256, int(align.sum()))
         assert np.isfinite(mel).all()
         assert not align[n_text:].any()
+
+
+# ---- training ---------------------------------------------------------------
+
+def test_conformer_train_step_matches_jax(monkeypatch):
+    # every dropout 0 and a mel bucket of 256, so the port's decoder takes
+    # K4's and K5's plain versions (JAX on the CPU its masked path)
+    calls = []
+    real = port_attention.flash_relpos_attention
+    monkeypatch.setattr(port_attention, "flash_relpos_attention",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    warmup = 10
+    hp, jmodel, variables, model = build_pair(warmup_step=warmup,
+                                              **CONFORMER)
+    jhp = JaxHParams(**dict(SMALL, **CONFORMER, warmup_step=warmup))
+    batch = _train_batch()
+    tx = jax_schedule.build_optimizer(
+        jhp.optimizer, jhp.d_model_decoder, jhp.warmup_factor,
+        jhp.warmup_step, jhp.learning_rate, jhp.clip, jhp.accum_grad)
+    jstate = JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=variables["params"],
+        opt_state=tx.init(variables["params"]),
+        batch_stats=variables["batch_stats"], vq_stats={}, tx=tx)
+    new_jstate, jlogs = jax_train_step(jmodel, jhp, donate=False)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(0))
+    host = lambda tree: jax.tree.map(np.array, tree)  # noqa: E731
+    jgrads = state_dict_from_flax(host(_jax_grads(jmodel, variables, batch)),
+                                  variables["batch_stats"], hp)
+    jnew = state_dict_from_flax(host(new_jstate.params),
+                                host(new_jstate.batch_stats), hp)
+
+    opt = schedule.build_optimizer(
+        model.parameters(), hp.optimizer, hp.d_model_decoder,
+        hp.warmup_factor, hp.warmup_step, hp.learning_rate, hp.clip,
+        hp.accum_grad)
+    state = TrainState(model, opt, torch.Generator().manual_seed(0))
+    old = {k: v.clone() for k, v in model.state_dict().items()}
+    state, logs = make_fastspeech2_train_step(hp, device="cpu")(state,
+                                                                  batch)
+    assert state.step == 1
+    assert len(calls) == SMALL["n_layer_decoder"]   # the decoder's kernel
+    for key, value in jlogs.items():
+        np.testing.assert_allclose(float(logs[key]), float(value),
+                                   rtol=1e-4, err_msg=key)
+    clip = min(1.0, 1.0 / float(jlogs["grad_norm"]))
+    lr = schedule.noam_schedule(SMALL["d_model_decoder"], 1.0, warmup)(0)
+    for name, p in model.named_parameters():
+        want = jgrads[name].numpy() * clip
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
+        # Adam's first step on gradients that are rounding noise (key
+        # biases, conv biases before a BatchNorm) is any value in [-lr, lr]
+        new, ref = p.detach().numpy(), jnew[name].numpy()
+        settled = np.abs(want) > 1e-7
+        np.testing.assert_allclose(new[settled], ref[settled], rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+        moved = np.abs(new - old[name].numpy())
+        ulp = np.spacing(np.abs(old[name].numpy()))
+        assert np.all(moved <= lr * 1.0001 + 2 * ulp), name
+    attn = [f"decoder.layers.{i}.attn.{m}"
+            for i in range(SMALL["n_layer_decoder"])
+            for m in ("q_linear.weight", "k_linear.weight", "v_linear.weight",
+                      "linear_pos.weight", "pos_bias_u", "pos_bias_v")]
+    for name in attn:                    # K5's gradients reach every one
+        assert float(dict(model.named_parameters())[name].grad.abs().max()) \
+            > 0, name
+    for name, value in model.state_dict().items():
+        if "running" in name:                    # BatchNorm statistics
+            np.testing.assert_allclose(value.numpy(), jnew[name].numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_conformer_train_cli_then_synthesis_cli(tmp_path, capsys,
+                                                monkeypatch):
+    # a 256-frame mel bucket: the decoder takes K4-d and K5's plain
+    # versions with dropout 0.1, each step drawing its seeds
+    seen = []
+    real = port_attention.flash_relpos_attention
+
+    def recording(*args, **kw):
+        seen.append(kw["dropout_rate"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(port_attention, "flash_relpos_attention", recording)
+    script, _ = _corpus(tmp_path)
+    hp_path, save_dir = _write_hp(tmp_path, script, **CONFORMER)
+    train_cli.main(["--hp_file", hp_path, "--device", "cpu", "--max_steps",
+                    "2", "--set", "dropout=0.1", "--set",
+                    "length_buckets=(256,)"])
+    printed = capsys.readouterr().out
+    assert "epoch 1 step 1 " in printed and "epoch 1 step 2 " in printed
+    assert seen == [0.1] * (2 * SMALL["n_layer_decoder"])
+    load_dir = os.path.join(save_dir, "epoch_1")
+    assert "decoder_type = 'conformer'" in open(
+        os.path.join(load_dir, "hparams.py")).read()
+    out_dir = tmp_path / "gen"
+    cli.main(["--load_name", load_dir, "--test_script", script, "--save",
+              str(out_dir), "--max_frames", "64", "--device", "cpu"])
+    for idx in range(6):
+        mel = np.load(out_dir / f"{idx}.npy")
+        assert mel.shape[1] == 16 and np.isfinite(mel).all()

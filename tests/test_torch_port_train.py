@@ -44,6 +44,7 @@ from transformer_tts_tpu_torch.ops import attention as port_attention
 from transformer_tts_tpu_torch.ops.feedforward import batch_norm
 from transformer_tts_tpu_torch.ops.masks import create_masks
 from transformer_tts_tpu_torch.train import checkpoint, losses, schedule
+from transformer_tts_tpu_torch.train import trainer as trainer_module
 from transformer_tts_tpu_torch.train.trainer import (
     TrainState, init_fastspeech2_state, make_fastspeech2_train_step,
     make_transformer_train_step)
@@ -540,10 +541,10 @@ def test_train_checkpoint_round_trip(tmp_path):
 # ---- the CLIs ---------------------------------------------------------------
 
 def _write_hp(tmp_path, script, **extra):
-    cfg = dict(SMALL, batch_size=2, max_epoch=2, save_per_epoch=1,
-               warmup_step=10, train_script=script,
-               save_dir=str(tmp_path / "ckpt"), text_buckets=(8, 16),
-               length_buckets=(32, 64), **extra)
+    cfg = dict(dict(SMALL, batch_size=2, max_epoch=2, save_per_epoch=1,
+                    warmup_step=10, train_script=script,
+                    save_dir=str(tmp_path / "ckpt"), text_buckets=(8, 16),
+                    length_buckets=(32, 64)), **extra)
     path = tmp_path / "hparams.py"
     path.write_text("".join(f"{k} = {v!r}\n" for k, v in cfg.items()))
     return str(path), cfg["save_dir"]
@@ -592,10 +593,52 @@ def test_train_cli_raises_without_a_card(tmp_path):
     ({"model": "SQFastSpeech2"}, [], "other model families"),
     ({"architecture": "mel-mel"}, [], "post-processing"),
     ({"architecture": "text-mel-mel"}, [], "post-processing"),
-    ({}, ["--multihost"], "parallelism")])
+    ({}, ["--multihost"], "parallelism"),
+    ({"debug_nans": True}, [], "remaining switches"),
+    ({"profile_dir": "profile"}, [], "remaining switches"),
+    ({"tb_images": True}, [], "remaining switches")])
 def test_train_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags,
                                                match):
     script, _ = _corpus(tmp_path)
     hp_path, _ = _write_hp(tmp_path, script, **hp_extra)
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(["--hp_file", hp_path, "--device", "cpu", *flags])
+
+
+def test_train_cli_starts_from_pretrain_model(tmp_path, monkeypatch):
+    # the model that takes the first step holds the pretrained checkpoint's
+    # weights and BatchNorm statistics, not a fresh init's
+    script, _ = _corpus(tmp_path)
+    hp_path, save_dir = _write_hp(tmp_path, script, max_epoch=1)
+    train_cli.main(["--hp_file", hp_path, "--device", "cpu",
+                    "--max_steps", "2"])
+    pretrained = os.path.join(save_dir, "epoch_1")
+    saved = torch.load(os.path.join(pretrained, checkpoint.CHECKPOINT_NAME),
+                       weights_only=True)
+    fresh = init_fastspeech2_state(HParams(**SMALL), device="cpu")
+    assert any(not torch.equal(v, fresh.model.state_dict()[k])
+               for k, v in saved.items() if "running" in k)
+
+    first = []
+    real = trainer_module.make_fastspeech2_train_step
+
+    def recording_step(hp, device):
+        step = real(hp, device=device)
+
+        def step_fn(state, batch):
+            if not first:
+                first.append({k: v.clone()
+                              for k, v in state.model.state_dict().items()})
+            return step(state, batch)
+        return step_fn
+
+    monkeypatch.setattr(trainer_module, "make_fastspeech2_train_step",
+                        recording_step)
+    hp_path, _ = _write_hp(tmp_path, script, max_epoch=1,
+                           pretrain_model=pretrained,
+                           save_dir=str(tmp_path / "finetune"))
+    train_cli.main(["--hp_file", hp_path, "--device", "cpu",
+                    "--max_steps", "1"])
+    assert sorted(first[0]) == sorted(saved)
+    for key, value in saved.items():
+        assert torch.equal(first[0][key], value), key

@@ -8,13 +8,17 @@ An epoch loop over the script's bucketed batches with one log line per
 step (printed one step late, so the print does not hold the card back),
 an assertion on a non-finite loss, a checkpoint under
 ``save_dir/epoch_N/`` at the epochs ``should_save`` picks (with the
-optimizer at multiples of ``save_per_epoch``), and resume from
-``hp.loaded_dir``/``hp.loaded_epoch``. Each checkpoint directory holds
+optimizer at multiples of ``save_per_epoch``), a fine-tune's start from
+``hp.pretrain_model`` (a port checkpoint directory: its weights and
+BatchNorm statistics, loaded before any resume, as the JAX CLI's
+:153-158 does), and resume from ``hp.loaded_dir``/``hp.loaded_epoch``.
+Each checkpoint directory holds
 ``hparams.py`` and ``model.pt``, so ``cli/synthesize.py --load_name`` reads
 it. ``hp.model`` picks the trainer: FastSpeech 2, or the AR
 Transformer-TTS (``model = "Transformer"``). It runs on the CUDA device
 unless ``--device cpu`` is given. The SQ-VAE, mel-to-mel and text-mel-mel
-trainers, the AR model's later-slice options and ``--multihost`` raise
+trainers, the AR model's later-slice options, ``--multihost`` and the
+switches ``debug_nans``, ``profile_dir`` and ``tb_images`` raise
 ``NotImplementedError``, naming their slices.
 """
 
@@ -50,6 +54,9 @@ def _check_branch(hp, args) -> bool:
     if args.multihost:
         later_slice("--multihost (multi-process data parallelism)",
                     "parallelism")
+    for switch in ("debug_nans", "profile_dir", "tb_images"):
+        if getattr(hp, switch):
+            later_slice(f"hp.{switch}", "CLIs' remaining switches")
     if hp.architecture == "mel-mel":
         later_slice("the mel-to-mel trainer", "mel-to-mel post-processing")
     if hp.architecture == "text-mel-mel":
@@ -106,6 +113,9 @@ def main(argv=None):
     print(f"params = {n_params / 1e6:.2f}M")
 
     start_epoch = 0
+    if hp.pretrain_model is not None:
+        ckpt.load_checkpoint(state.model, hp.pretrain_model)
+        print(f"loaded pretrain params from {hp.pretrain_model}")
     if hp.loaded_epoch is not None:
         load_dir = hp.loaded_dir or hp.save_dir
         state, start_epoch = ckpt.restore_train_checkpoint(

@@ -212,7 +212,9 @@ _DEFAULTS: Dict[str, Any] = {
     # flash-attention kernel: attention over at least FLASH_MIN_KEY_LEN
     # keys goes to it (ops/attention.py); O(T) score storage, not O(T^2)
     "use_flash_attention": True,
-    # read only by the JAX package (kept so its hparams files load here)
+    # kept so the JAX package's hparams files load here: the port reads
+    # log_every and raises for remat, debug_nans and profile_dir when set
+    # (their slices come later)
     "mesh_shape": None,
     "remat": False,
     "debug_nans": False,

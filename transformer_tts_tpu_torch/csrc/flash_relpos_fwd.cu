@@ -2,8 +2,9 @@
 // conformer's Transformer-XL self-attention with a prefix key mask.
 //
 // Replaces the TPU kernel `_fwd_kernel` driven by `_relpos_fwd`
-// (transformer_tts_tpu/ops/flash_relpos.py:212-322) with no dropout: the
-// path conformer FastSpeech 2 synthesis runs.
+// (transformer_tts_tpu/ops/flash_relpos.py:212-322): K4 without dropout
+// (the path conformer FastSpeech 2 synthesis runs) and K4-d with the
+// attention-prob dropout of :253-255 (the path its training runs).
 //
 // What it computes, per batch-head bh = b*H + h and query row i < T:
 //   s[j]   = (q_u[i] . k[j] + bd[i, j]) * sm_scale   for keys j < k_len[b]
@@ -15,6 +16,13 @@
 //            = 0                         j == i+1
 //            = q_v[i+1] . P[j-i-2]       j >= i+2
 // A row with no valid key gives o = 0 and lse = -1e30, as K1 does.
+//
+// Dropout (K4-d): o[i] = sum_j softmax(s)[j] * keep(i, j) * v[j], with
+// keep the `_keep_mask` hash of K1-d (`keep_bit` of flash_common.cuh) at
+// bh = b*H + h and the global (row, key), 1/(1 - rate) or 0. The
+// normaliser sums the probabilities before dropout; only the numerator's
+// probability tile is dropped, after the row sum and before P.V. With
+// dropout off the kernel takes K4's code path unchanged.
 //
 // Bound on the card: 6*H*T*sum_b(k_len[b])*d operations (q_u.K^T, the bias
 // product and P.V over the valid keys) against q_u, q_v, k, v, o and P
@@ -43,31 +51,19 @@
 //     in fp32 for fp32 (no TF32, so fp32 holds 1e-4 against the plain
 //     version); running max, sum and accumulator in fp32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::from_float;
+using flash::keep_bit;
+using flash::round_up;
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per k tile
 constexpr int WP = BQ + BK;     // P-window rows (BQ + BK - 1 used)
 constexpr int NTHREADS = 128;   // 4 warps; warp w owns q rows 16w..16w+15
 constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
 
 // Shared-memory geometry, identical on host and device.
 //   dp   : depth padded for the products (16 for WMMA, 1 for FMAs)
@@ -234,7 +230,8 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
                   const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ p, const int32_t* __restrict__ k_len,
                   T* __restrict__ o, float* __restrict__ lse, int H,
-                  int T_len, int d, float sm_scale) {
+                  int T_len, int d, float sm_scale, int dropout,
+                  uint32_t threshold, float keep_scale, uint32_t seed) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geom<T> g(d);
   T* sQu = reinterpret_cast<T*>(smem);
@@ -326,7 +323,13 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
         const float s = srow_s[c] * sm_scale;
         const float pr = (cbase + c < klen) ? expf(s - m_new) : 0.f;
         sum += pr;
-        prow[c] = from_float<T>(pr);
+        if (dropout) {
+          const bool kept = keep_bit(seed, (uint32_t)bh, (uint32_t)(q0 + srow),
+                                     (uint32_t)(cbase + c), threshold);
+          prow[c] = from_float<T>(kept ? pr * keep_scale : 0.f);
+        } else {
+          prow[c] = from_float<T>(pr);
+        }
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       const float alpha = expf(m_prev - m_new);
@@ -368,7 +371,9 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
 template <typename T>
 int launch(const void* q_u, const void* q_v, const void* k, const void* v,
            const void* p, const int32_t* k_len, void* o, float* lse, int B,
-           int H, int T_len, int d, float sm_scale, cudaStream_t stream) {
+           int H, int T_len, int d, float sm_scale, int dropout,
+           uint32_t threshold, float keep_scale, uint32_t seed,
+           cudaStream_t stream) {
   const Geom<T> g(d);
   cudaError_t err = cudaFuncSetAttribute(
       relpos_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -379,7 +384,7 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
       static_cast<const T*>(q_u), static_cast<const T*>(q_v),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(p), k_len, static_cast<T*>(o), lse, H, T_len, d,
-      sm_scale);
+      sm_scale, dropout, threshold, keep_scale, seed);
   return (int)cudaGetLastError();
 }
 
@@ -389,13 +394,17 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q_u, q_v, k, v, o (B,H,T,d), p (H,T,d),
 // lse (B,H,T) fp32, k_len (B,) int32, all contiguous on the device.
-// Returns the cudaError_t of the launch (0 = success); a launch that needs
-// more shared memory than a block may have (fp32 with d > 104) is refused
+// dropout != 0 turns on the keep mask (K4-d) with `threshold`
+// (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and `seed` (the
+// int32 seed's bits), as flash_attention_fwd takes them. Returns the
+// cudaError_t of the launch (0 = success); a launch that needs more shared
+// memory than a block may have (fp32 with d > 104) is refused
 // with the error of cudaFuncSetAttribute.
 int flash_relpos_fwd(const void* q_u, const void* q_v, const void* k,
                      const void* v, const void* p, const void* k_len, void* o,
                      void* lse, int B, int H, int T_len, int d, float sm_scale,
-                     int dtype, void* stream) {
+                     int dropout, unsigned int threshold, float keep_scale,
+                     unsigned int seed, int dtype, void* stream) {
   if (d <= 0 || d > 128 || d % 8 != 0 || T_len <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -403,10 +412,11 @@ int flash_relpos_fwd(const void* q_u, const void* q_v, const void* k,
   auto l = static_cast<float*>(lse);
   if (dtype == 0)
     return launch<float>(q_u, q_v, k, v, p, kl, o, l, B, H, T_len, d,
-                         sm_scale, s);
+                         sm_scale, dropout, threshold, keep_scale, seed, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q_u, q_v, k, v, p, kl, o, l, B, H, T_len, d,
-                                 sm_scale, s);
+                                 sm_scale, dropout, threshold, keep_scale,
+                                 seed, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -65,14 +65,15 @@ class ConformerEncoderLayer(nn.Module):
     def forward(self, x, pos_emb, mask, *, collect_attn: bool = False,
                 k_len: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
-        """``generator`` is accepted for the stack's sake; the relative
-        kernel path has no dropout yet (K5)."""
+        """``generator`` seeds the relative kernel path's dropout
+        (K4-d)."""
         x = x + 0.5 * self.ff_1(x)
         res = x
         h = self.norm(x)
         h = h + self.conv_module(h)
         out, attn = self.attn(h, h, h, pos_emb, mask,
-                              collect_attn=collect_attn, k_len=k_len)
+                              collect_attn=collect_attn, k_len=k_len,
+                              generator=generator)
         x = res + self.dropout(out)
         x = x + self.dropout(self.ff_2(x))
         return x, attn

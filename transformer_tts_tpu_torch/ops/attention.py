@@ -19,8 +19,10 @@ precomputed K/V and causal dispatch, and the conformer's
   into which the step's k/v row is written in place at ``cache_index``;
   the caller masks the rows past it. The cache always takes the masked
   path, as in the JAX package;
-* relative-position self-attention under the same rule goes to K4
-  (ops/flash_relpos.py); its masked path fills with -2^15 after scaling.
+* relative-position self-attention under the same rule goes to K4, or
+  in train mode with dropout to K4-d, and back through K5
+  (ops/flash_relpos.py), its seed drawn as for ``MultiHeadAttention``; its
+  masked path fills with -2^15 after scaling.
 """
 
 from __future__ import annotations
@@ -42,6 +44,17 @@ NEG_FILL_REL = -(2.0 ** 15)
 # the port keeps it for parity until a measurement on the card sets it
 # (chip_smoke.py times both paths at T in {128, 256, 768, 2048}).
 FLASH_MIN_KEY_LEN = 256
+
+
+def _kernel_dropout(module: nn.Module, generator: Optional[torch.Generator]
+                    ) -> Tuple[float, int]:
+    """(rate, seed) of the kernel path's in-kernel dropout: the module's
+    rate and a fresh int32 seed from ``generator`` in train mode, else
+    (0.0, 0)."""
+    if not (module.training and module.dropout.p > 0.0):
+        return 0.0, 0
+    return module.dropout.p, int(torch.randint(-2 ** 31, 2 ** 31, (),
+                                               generator=generator))
 
 
 def scaled_dot_attention(
@@ -161,11 +174,7 @@ class MultiHeadAttention(nn.Module):
                 "mask needs causal=True (the pad-and-causal mask) or "
                 "k_len=None")
         if flash_ok:
-            rate, seed = 0.0, 0
-            if self.training and self.dropout.p > 0.0:
-                rate = self.dropout.p
-                seed = int(torch.randint(-2 ** 31, 2 ** 31, (),
-                                         generator=generator))
+            rate, seed = _kernel_dropout(self, generator)
             context, _ = flash_attention(q.contiguous(), k.contiguous(),
                                          v.contiguous(),
                                          k_len.to(torch.int32).contiguous(),
@@ -211,9 +220,11 @@ class RelativeMultiHeadAttention(nn.Module):
 
     def forward(self, q_in, k_in, v_in, pos_emb, mask=None, *,
                 collect_attn: bool = False,
-                k_len: Optional[torch.Tensor] = None):
-        """``pos_emb`` (1 or B, T, d_model). Returns (output (B, T_q,
-        d_model), probs or None)."""
+                k_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """``pos_emb`` (1 or B, T, d_model); ``generator`` seeds the kernel
+        path's dropout, as in ``MultiHeadAttention``. Returns (output (B,
+        T_q, d_model), probs or None)."""
         b = q_in.shape[0]
         q = self._split(self.q_linear(q_in))
         k = self._split(self.k_linear(k_in)).transpose(1, 2)
@@ -234,14 +245,12 @@ class RelativeMultiHeadAttention(nn.Module):
                 "k_len stands for a prefix key mask; a structured (B, T, T) "
                 "mask needs k_len=None")
         if flash_ok:
-            if self.training and self.dropout.p > 0.0:
-                raise NotImplementedError(
-                    "attention-prob dropout inside the relative-position "
-                    "kernel comes with the conformer training slice (K5)")
+            rate, seed = _kernel_dropout(self, generator)
             context, _ = flash_relpos_attention(
                 q_u.contiguous(), q_v.contiguous(), k.contiguous(),
                 v.contiguous(), p[0].contiguous(),
-                k_len.to(torch.int32).contiguous())
+                k_len.to(torch.int32).contiguous(), dropout_rate=rate,
+                dropout_seed=seed)
             probs = None
         else:
             context, probs = relative_dot_attention(

@@ -1,35 +1,52 @@
-"""Relative-position flash-attention forward: the hand-written Hopper kernel
-and its plain version.
+"""Relative-position flash attention: the hand-written Hopper kernels and
+their plain versions.
 
 ``flash_relpos_attention`` replaces the TPU kernel ``_fwd_kernel`` driven
 by ``_relpos_fwd`` (transformer_tts_tpu/ops/flash_relpos.py:212-322), the
 conformer's Transformer-XL self-attention. It computes
 
     s   = (q_u k^T + rel_shift(q_v P^T)) * sm_scale, keys c < k_len[b]
-    o   = softmax(s) v
+    o   = (softmax(s) * keep) v
     lse = row logsumexp of s (fp32)
 
 with P (H, T, d) the projected position table shared over the batch,
 without writing the (B, H, T, T) logits or the bias to device memory.
 Keys at or past ``k_len[b]`` are excluded exactly; a row with no valid
 key gives o = 0 and lse = -1e30, as K1 (ops/flash_attention.py) does.
+``keep`` is K1-d's counter-hash keep mask at bh = b*H + h (the TPU
+kernel's ``_keep_mask`` at :253-255); the normaliser sums the
+probabilities before dropout.
 
 ``rel_shift`` is the reference's pad-and-reshape shift. On one tile the
-kernel builds its result from the three-branch identity instead
+kernels build its result from the three-branch identity instead
 (transformer_tts_tpu/ops/flash_relpos.py:17-23):
 
     bd[i, j] = q_v[i]   . P[T-1-(i-j)]   for j <= i
              = 0                         for j == i+1
              = q_v[i+1] . P[j-i-2]       for j >= i+2
 
-Kernel: ``csrc/flash_relpos_fwd.cu``, CUDA C++ for sm_90a, fp32 and bf16.
-Its bound on an H100 is the tensor-core rate: 6*H*T*sum(k_len)*d
-operations (q_u.K^T, q_v.P^T and P.V over the valid keys) over
-989 TFLOP/s in bf16, against q_u, q_v, k, v, o and P moved once over
-3.35 TB/s. PERF.md holds its measured times.
+Kernels, CUDA C++ for sm_90a in fp32 and bf16:
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises.
+* K4 (rate 0) and K4-d (dropout), ``csrc/flash_relpos_fwd.cu``. Bound by
+  the tensor-core rate: 6*H*T*sum(k_len)*d operations (q_u.K^T, q_v.P^T
+  and P.V over the valid keys) over 989 TFLOP/s in bf16, against q_u,
+  q_v, k, v, o and P moved once over 3.35 TB/s.
+* K5, ``csrc/flash_relpos_bwd.cu``: the backward (``_fused_bwd_kernel``
+  :510, ``_dq_kernel`` :360, ``_dkdv_kernel`` :431, driven by
+  ``_relpos_bwd`` :597) as two kernels in the FlashAttention-2 shape of
+  K2: a dq kernel (dq_u, dq_v and dq_vs, the share of q_v's shifted copy,
+  which the wrapper adds one row down) with 10*H*d operations per
+  attended (row, key) pair, and a dk/dv/dP kernel (dP summed over the
+  batch with fp32 atomics into an (H, T, d) buffer) with 12*H*d.
+  ``delta = rowsum(dO * O)`` is a torch reduction, as for K2.
+
+``flash_relpos_attention`` is differentiable in q_u, q_v, k, v and p
+through ``FlashRelposAttention``. On a CPU tensor every wrapper computes
+the plain version; on a CUDA tensor it launches its kernel or raises. The
+launch counts are ``flash_relpos_attention.launches`` (K4),
+``.dropout_launches`` (K4-d), ``flash_relpos_attention_bwd_dq.launches``
+and ``flash_relpos_attention_bwd_dkdv.launches`` (K5). PERF.md holds their
+measured times.
 """
 
 from __future__ import annotations
@@ -41,9 +58,12 @@ from typing import Optional, Tuple
 import torch
 
 from transformer_tts_tpu_torch.ops.flash_attention import (
-    _DTYPE_CODE, _check_cuda_inputs, masked_softmax_pv)
+    _DTYPE_CODE, _check_bwd_inputs, _check_cuda_inputs, _dropout_args,
+    _full_keep_mask, _on_card, _raise_on, _valid_keys, bwd_delta,
+    masked_softmax_pv)
 
 KERNEL = "flash_relpos_fwd"
+BWD_KERNEL = "flash_relpos_bwd"
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -54,26 +74,133 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
     return padded.reshape(b, h, t2 + 1, t1)[:, :, 1:].reshape(b, h, t1, t2)
 
 
+def rel_shift_adjoint(y: torch.Tensor) -> torch.Tensor:
+    """The transpose of ``rel_shift``: the gradient of its input for the
+    gradient ``y`` of its output. The pad-reshape undone step by step:
+    reshape to (T_pos, T_q), prepend a zero row, reshape to
+    (T_q, T_pos + 1), drop the first (pad) column."""
+    b, h, t1, t2 = y.shape
+    rows = torch.cat([y.new_zeros(b, h, 1, t1),
+                      y.reshape(b, h, t2, t1)], dim=2)
+    return rows.reshape(b, h, t1, t2 + 1)[..., 1:]
+
+
+# ---- plain versions ---------------------------------------------------------
+
+def _scores(q_u, q_v, k, p, sm_scale):
+    """(q_u k^T + rel_shift(q_v P^T)) * sm_scale in fp32."""
+    ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
+    bd = rel_shift(torch.matmul(q_v.float(), p.float().transpose(-1, -2)))
+    return (ac + bd) * sm_scale
+
+
+def _keep(shape, dropout_rate, dropout_seed, device):
+    if dropout_rate <= 0.0:
+        return None
+    b, h, t_q, t_k = shape
+    return _full_keep_mask(b, h, t_q, t_k, dropout_seed, dropout_rate,
+                           device)
+
+
 def flash_relpos_attention_fwd_reference(
     q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p: torch.Tensor, k_len: torch.Tensor, sm_scale: float,
+    dropout_rate: float = 0.0, dropout_seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: the same (o, lse).
+    """Plain PyTorch version of K4 and K4-d: the same (o, lse).
 
     The bias is ``rel_shift`` of the full q_v P^T, not the kernel's
     per-tile three-branch identity, so each checks the other. Products
-    take the inputs' values in fp32; the probabilities are cast to v's
-    dtype before P.V, as ``flash_attention_fwd_reference`` does.
+    take the inputs' values in fp32; the probabilities, times the keep
+    scale, are cast to v's dtype before P.V, as
+    ``flash_attention_fwd_reference`` does.
     """
     with torch.autocast(q_u.device.type, enabled=False):
-        ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
-        bd = rel_shift(torch.matmul(q_v.float(),
-                                    p.float().transpose(-1, -2)))
-        return masked_softmax_pv((ac + bd) * sm_scale, v, k_len, q_u.dtype)
+        s = _scores(q_u, q_v, k, p, sm_scale)
+        keep = _keep(s.shape, dropout_rate, dropout_seed, s.device)
+        return masked_softmax_pv(s, v, k_len, q_u.dtype, keep=keep)
 
+
+def _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
+               dropout_rate, dropout_seed):
+    """(dS, P keep) in fp32, each rounded through the input dtype as the
+    kernels cast it before its products: dS = P (dO V^T keep - delta)
+    sm_scale with P = exp(s - lse) on valid keys."""
+    s = _scores(q_u, q_v, k, p, sm_scale)
+    valid = _valid_keys(s.shape[-2], s.shape[-1], k_len, False, s.device)
+    prob = torch.where(valid, torch.exp(s - lse[..., None]),
+                       torch.zeros((), device=s.device))
+    dp_attn = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    p_kept = prob
+    keep = _keep(s.shape, dropout_rate, dropout_seed, s.device)
+    if keep is not None:
+        dp_attn = dp_attn * keep
+        p_kept = prob * keep
+    ds = prob * (dp_attn - delta[..., None]) * sm_scale
+    return ds.to(q_u.dtype).float(), p_kept.to(do.dtype).float()
+
+
+def flash_relpos_dq_reference(q_u, q_v, k, v, p, do, lse, delta, k_len,
+                              sm_scale, dropout_rate=0.0, dropout_seed=0):
+    """Plain version of K5's dq kernel: dq_u = dS K, dq_v = G P with
+    G = rel_shift_adjoint(dS) (q_v's shifted copy's share included)."""
+    with torch.autocast(q_u.device.type, enabled=False):
+        ds, _ = _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len,
+                           sm_scale, dropout_rate, dropout_seed)
+        dq_u = torch.matmul(ds, k.float())
+        dq_v = torch.matmul(rel_shift_adjoint(ds), p.float())
+    return dq_u.to(q_u.dtype), dq_v.to(q_v.dtype)
+
+
+def flash_relpos_dkdv_reference(q_u, q_v, k, v, p, do, lse, delta, k_len,
+                                sm_scale, dropout_rate=0.0, dropout_seed=0):
+    """Plain version of K5's dk/dv/dP kernel: dk = dS^T q_u,
+    dv = (P keep)^T dO, dP = sum_b G^T q_v."""
+    with torch.autocast(q_u.device.type, enabled=False):
+        ds, p_kept = _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len,
+                                sm_scale, dropout_rate, dropout_seed)
+        dk = torch.matmul(ds.transpose(-1, -2), q_u.float())
+        dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
+        dp = torch.einsum("bhij,bhid->hjd", rel_shift_adjoint(ds),
+                          q_v.float())
+    return dk.to(k.dtype), dv.to(v.dtype), dp.to(p.dtype)
+
+
+def flash_relpos_attention_bwd_reference(
+    q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    p: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    k_len: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0,
+    dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K5: (dq_u, dq_v, dk, dv, dp), dp (H, T, d)
+    summed over the batch, in the inputs' dtypes.
+
+    The formula of the TPU kernels written in tensors, not autograd: s
+    recomputed with the full ``rel_shift``, P = exp(s - lse) on valid
+    keys, dS = P (dO V^T keep - delta) sm_scale with delta = rowsum(dO O);
+    dq_u = dS K, dk = dS^T q_u, dv = (P keep)^T dO; G =
+    rel_shift_adjoint(dS), dq_v = G P, dp = sum_b G^T q_v. dS and P keep
+    are cast to the input dtype before their products, as the TPU kernels
+    do.
+    """
+    with torch.autocast(q_u.device.type, enabled=False):
+        ds, p_kept = _bwd_terms(q_u, q_v, k, v, p, do, lse,
+                                bwd_delta(o, do), k_len, sm_scale,
+                                dropout_rate, dropout_seed)
+        g = rel_shift_adjoint(ds)
+        dq_u = torch.matmul(ds, k.float())
+        dq_v = torch.matmul(g, p.float())
+        dk = torch.matmul(ds.transpose(-1, -2), q_u.float())
+        dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
+        dp = torch.einsum("bhij,bhid->hjd", g, q_v.float())
+    return (dq_u.to(q_u.dtype), dq_v.to(q_v.dtype), dk.to(k.dtype),
+            dv.to(v.dtype), dp.to(p.dtype))
+
+
+# ---- the kernel wrappers ----------------------------------------------------
 
 def check_relpos_inputs(q_u, q_v, k, v, p, k_len):
-    """Raise on what the kernel cannot take."""
+    """Raise on what the kernels cannot take."""
     _check_cuda_inputs(q_u, k, v, k_len)
     b, h, t, d = q_u.shape
     if k.shape != q_u.shape:
@@ -91,25 +218,20 @@ def check_relpos_inputs(q_u, q_v, k, v, p, k_len):
             raise ValueError(f"{name} must be contiguous")
 
 
-def flash_relpos_attention(
-    q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    p: torch.Tensor, k_len: torch.Tensor, *, sm_scale: Optional[float] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) of relative-position self-attention.
-
-    q_u, q_v, k, v (B, H, T, d) of one dtype; p (H, T, d); ``k_len`` (B,)
-    int32 valid keys per batch row; ``sm_scale`` defaults to 1/sqrt(d).
-    ``o`` has q_u's dtype, ``lse`` (B, H, T) is fp32.
-    """
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q_u.shape[-1])
-    if q_u.device.type == "cpu":
-        return flash_relpos_attention_fwd_reference(q_u, q_v, k, v, p, k_len,
-                                                    sm_scale)
-    if q_u.device.type != "cuda":
-        raise ValueError(f"flash_relpos_attention runs on cpu or cuda, "
-                         f"not {q_u.device}")
+def _check_relpos_bwd_inputs(q_u, q_v, k, v, p, do, lse, delta, k_len):
     check_relpos_inputs(q_u, q_v, k, v, p, k_len)
+    _check_bwd_inputs(q_u, k, v, do, lse, delta, k_len)
+
+
+def _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
+             dropout_seed):
+    """(o, lse): K4 (rate 0) or K4-d on the card, the plain version on the
+    CPU."""
+    if not _on_card(q_u, "flash_relpos_attention"):
+        return flash_relpos_attention_fwd_reference(
+            q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed)
+    check_relpos_inputs(q_u, q_v, k, v, p, k_len)
+    flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t, d = q_u.shape
     o = torch.empty_like(q_u)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q_u.device)
@@ -118,14 +240,147 @@ def flash_relpos_attention(
         err = _kernel()(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(),
                         v.data_ptr(), p.data_ptr(), k_len.data_ptr(),
                         o.data_ptr(), lse.data_ptr(), b, h, t, d,
-                        float(sm_scale), _DTYPE_CODE[q_u.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed with cudaError {err}")
-    flash_relpos_attention.launches += 1
+                        float(sm_scale), flag, threshold, scale, seed,
+                        _DTYPE_CODE[q_u.dtype], stream)
+    _raise_on(err, KERNEL)
+    if flag:
+        flash_relpos_attention.dropout_launches += 1
+    else:
+        flash_relpos_attention.launches += 1
     return o, lse
 
 
-flash_relpos_attention.launches = 0
+def _bwd_launch(name, args, outs, sm_scale, dropout_rate, dropout_seed):
+    q_u = args[0]
+    flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
+    b, h, t, d = q_u.shape
+    fn = getattr(_bwd_kernels(), name)
+    with torch.cuda.device(q_u.device):
+        stream = torch.cuda.current_stream(q_u.device).cuda_stream
+        err = fn(*(x.data_ptr() for x in args),
+                 *(x.data_ptr() for x in outs), b, h, t, d,
+                 float(sm_scale), flag, threshold, scale, seed,
+                 _DTYPE_CODE[q_u.dtype], stream)
+    _raise_on(err, name)
+
+
+def flash_relpos_attention_bwd_dq(q_u, q_v, k, v, p, do, lse, delta, k_len,
+                                  *, sm_scale, dropout_rate=0.0,
+                                  dropout_seed=0):
+    """(dq_u, dq_v): K5's dq kernel on the card, its plain version on the
+    CPU. The kernel writes q_v's own share and its shifted copy's share
+    (dq_vs, row i standing for q_v row i + 1) in fp32; the wrapper adds
+    the second one row down, as JAX's pad and slice of ``q_vs`` do."""
+    args = (q_u, q_v, k, v, p, do, lse, delta, k_len)
+    if not _on_card(q_u, "flash_relpos_attention_bwd_dq"):
+        return flash_relpos_dq_reference(*args, sm_scale, dropout_rate,
+                                         dropout_seed)
+    _check_relpos_bwd_inputs(*args)
+    dq_u = torch.empty_like(q_u)
+    dq_v = torch.empty(q_v.shape, dtype=torch.float32, device=q_v.device)
+    dq_vs = torch.empty_like(dq_v)
+    _bwd_launch("flash_relpos_bwd_dq", args, (dq_u, dq_v, dq_vs), sm_scale,
+                dropout_rate, dropout_seed)
+    flash_relpos_attention_bwd_dq.launches += 1
+    dq_v[:, :, 1:] += dq_vs[:, :, :-1]
+    return dq_u, dq_v.to(q_v.dtype)
+
+
+def flash_relpos_attention_bwd_dkdv(q_u, q_v, k, v, p, do, lse, delta,
+                                    k_len, *, sm_scale, dropout_rate=0.0,
+                                    dropout_seed=0):
+    """(dk, dv, dp): K5's dk/dv/dP kernel on the card, its plain version
+    on the CPU. dP (H, T, d) is summed over the batch in fp32 with atomics
+    and cast to p's dtype."""
+    args = (q_u, q_v, k, v, p, do, lse, delta, k_len)
+    if not _on_card(q_u, "flash_relpos_attention_bwd_dkdv"):
+        return flash_relpos_dkdv_reference(*args, sm_scale, dropout_rate,
+                                           dropout_seed)
+    _check_relpos_bwd_inputs(*args)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dp = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    _bwd_launch("flash_relpos_bwd_dkdv", args, (dk, dv, dp), sm_scale,
+                dropout_rate, dropout_seed)
+    flash_relpos_attention_bwd_dkdv.launches += 1
+    return dk, dv, dp.to(p.dtype)
+
+
+flash_relpos_attention_bwd_dq.launches = 0
+flash_relpos_attention_bwd_dkdv.launches = 0
+
+
+def flash_relpos_attention_bwd(
+    q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    p: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    k_len: torch.Tensor, *, sm_scale: float, dropout_rate: float = 0.0,
+    dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, ...]:
+    """(dq_u, dq_v, dk, dv, dp) of ``flash_relpos_attention`` for the
+    output gradient ``do``: delta, then K5's two kernels on the card; the
+    plain version on the CPU."""
+    if not _on_card(q_u, "flash_relpos_attention_bwd"):
+        return flash_relpos_attention_bwd_reference(
+            q_u, q_v, k, v, p, o, lse, do, k_len, sm_scale, dropout_rate,
+            dropout_seed)
+    if o.shape != q_u.shape or o.dtype != q_u.dtype:
+        raise ValueError(f"o must match q_u: {tuple(o.shape)} {o.dtype}")
+    args = (q_u, q_v, k, v, p, do, lse, bwd_delta(o, do), k_len)
+    kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    dq_u, dq_v = flash_relpos_attention_bwd_dq(*args, **kw)
+    dk, dv, dp = flash_relpos_attention_bwd_dkdv(*args, **kw)
+    return dq_u, dq_v, dk, dv, dp
+
+
+class FlashRelposAttention(torch.autograd.Function):
+    """(o, lse) with gradients for q_u, q_v, k, v and p from K5 (its plain
+    backward on the CPU), recomputing P and the keep mask; no gradient for
+    k_len, the scale, the rate or the seed, and none through lse."""
+
+    @staticmethod
+    def forward(ctx, q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
+                dropout_seed):
+        o, lse = _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
+                          dropout_seed)
+        ctx.save_for_backward(q_u, q_v, k, v, p, o, lse, k_len)
+        ctx.args = (sm_scale, dropout_rate, dropout_seed)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q_u, q_v, k, v, p, o, lse, k_len = ctx.saved_tensors
+        sm_scale, dropout_rate, dropout_seed = ctx.args
+        grads = flash_relpos_attention_bwd(
+            q_u, q_v, k, v, p, o, lse, do.to(q_u.dtype).contiguous(), k_len,
+            sm_scale=sm_scale, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed)
+        return (*grads, None, None, None, None)
+
+
+def flash_relpos_attention(
+    q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    p: torch.Tensor, k_len: torch.Tensor, *, sm_scale: Optional[float] = None,
+    dropout_rate: float = 0.0, dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of relative-position self-attention.
+
+    q_u, q_v, k, v (B, H, T, d) of one dtype; p (H, T, d); ``k_len`` (B,)
+    int32 valid keys per batch row; ``sm_scale`` defaults to 1/sqrt(d).
+    ``dropout_rate`` > 0 drops attention probabilities with the hash
+    seeded by ``dropout_seed`` (an int32; the backward rebuilds the same
+    mask). ``o`` has q_u's dtype and carries gradients to q_u, q_v, k, v
+    and p; ``lse`` (B, H, T) is fp32.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q_u.shape[-1])
+    return FlashRelposAttention.apply(q_u, q_v, k, v, p, k_len,
+                                      float(sm_scale), float(dropout_rate),
+                                      int(dropout_seed))
+
+
+flash_relpos_attention.launches = 0             # K4
+flash_relpos_attention.dropout_launches = 0     # K4-d
 
 
 def _kernel():
@@ -133,6 +388,22 @@ def _kernel():
     fn = cuda_build.load(KERNEL).flash_relpos_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+                          ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_kernels():
+    from transformer_tts_tpu_torch.ops import cuda_build
+    lib = cuda_build.load(BWD_KERNEL)
+    tail = ([ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+               ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
+    for name in ("flash_relpos_bwd_dq", "flash_relpos_bwd_dkdv"):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * (9 + 3) + tail
+            fn.restype = ctypes.c_int
+    return lib
