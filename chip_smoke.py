@@ -9,9 +9,9 @@ non-zero, printing no result, without them. Phases, each fatal on failure
 and each printing its wall time:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every kernel of the paths (K1 and K1-d with K3's forward, K2
-   with K3's backward, K4 and K4-d, K5), in parallel, from the sources in
-   the checkout;
+2. build: every kernel of the paths (K1 and K1-d with K3's and K6's
+   forward, K2 with K3's and K6's backward, K4 and K4-d, K5), in
+   parallel, from the sources in the checkout;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    K1 (csrc/flash_attention_fwd.cu) and K4 (csrc/flash_relpos_fwd.cu):
    fp32 at 1e-4 on O and lse, bf16 against the plain version in fp32 on
@@ -31,7 +31,11 @@ and each printing its wall time:
    train step's (16, 4, 1024, 96) with its batch's mel lengths: O, dq_u,
    dq_v, dk, dv and dP at 1e-4 (fp32) and 2e-2 (bf16) of each tensor's
    own max|ref|, dk and dv exactly 0 past k_len, O bit for bit the same
-   on a second call;
+   on a second call. K6/K6-d (the bias argument of
+   csrc/flash_attention_fwd.cu) and K6's backward (dq with dbias, dk/dv,
+   csrc/flash_attention_bwd.cu) likewise at k_len in {0, 1, 65, T}, T =
+   1000, and T_q = 300 != T_k = 700: O, dq, dk, dv and dbias, dbias, dk
+   and dv exactly 0 past k_len;
 4. for each FastSpeech 2 flagship, the transformer one and the conformer
    one of egs/fastspeech2_conformer_ljspeech.py (d 384, 6+6 layers, 4
    heads of 96, random weights from seed 0):
@@ -62,14 +66,17 @@ and each printing its wall time:
        warm-up steps, then 10 timed with CUDA events, every launch count
        set to 0 just before (6 K1-d, 6 K2 dq and 6 K2 dk/dv per step, no
        other kernel); ms/step, mel frames/s, peak memory; the loss
-       finite; then 20 steps with warmup_step 100 whose loss must fall;
+       finite; 3 steps under torch.profiler, printing the top 10 device
+       operations (run in phase 9); then 20 steps with warmup_step 100
+       whose loss must fall;
    (c) cli/train.py for 3 steps on a synthetic corpus (32 utterances of
        300-900 frames) and cli/synthesize.py on the checkpoint it saved;
    (d)-(f) the conformer flagship's training likewise: the card-vs-CPU
        step (decoder on K4 and K5; its decoder self-attention weights,
        linear_pos and the position biases at the attention tolerance,
        each with a non-zero card gradient), the timed step (6 K4-d, 6 K5
-       dq and 6 K5 dk/dv per step, no other kernel), the two CLIs;
+       dq and 6 K5 dk/dv per step, no other kernel) and its profile, the
+       two CLIs;
 6. the AR Transformer-TTS flagship of egs/transformer_tts_ljspeech.py
    (the same widths, r 2, prenet dropout 0.5), each path counted from 0:
    (a) the teacher-forced eval forward over 300 decoder groups, 6 K3-f
@@ -78,8 +85,12 @@ and each printing its wall time:
    (b) the KV-cached decode loop for 300 steps, no kernel launched, each
        step's group against the teacher-forced forward of the frames it
        fed itself (on K3-f) at 1e-3 of max(1, max|ref|);
-   (c) synthesize_transformer_tts at B=1 and B=8, 500 decode steps, no
-       kernel launched: ms per call and per step, RTF;
+   (c) synthesize_transformer_tts at B=1 and B=8, 500 decode steps, the
+       decode replayed from its CUDA graph, no kernel launched: the
+       graph's mel and lengths bit for bit the eager loop's, with no row
+       stopping and with a stop bias at which rows stop at different
+       steps; ms per call and per step and RTF of both; one graphed call
+       under the profiler (run in phase 9);
    (d)-(f) training as in 5: the card-vs-CPU step (383 decoder groups on
        K3-f and K3's backward), the timed step (6 K3-d, 6 K3 dq and 6 K3
        dk/dv per step, no other kernel), the two CLIs;
@@ -92,9 +103,17 @@ and each printing its wall time:
    with the bias's gradient, the rel_shift adjoint and two products);
    K3-f: the first decoder layer of 6(a)'s bf16 forward): kernel, plain
    and library ms, bound (for K3 over the causal pairs the inputs
-   attend), error;
+   attend), error. K6, K6-d and K6's backward at the conformer step's
+   input with the bias rel_shift(q_v P^T) built in device memory: the
+   path that launches them is the route A/B of the conformer's attention
+   core (route 1 K4-d and K5, route 2 the bias then K6), counted from 0,
+   O and the five gradients of the two routes within 2e-2 of each one's
+   max|ref|, and the routes' forward and forward+backward times;
 8. attention-path timing, kernel against masked-fill, at T in
-   {128, 256, 768, 2048}, for both attention modules.
+   {128, 256, 768, 2048}, for both attention modules;
+9. the profiles of 5(b), 5(e), 6(c) and 6(e), each on a state or model
+   built anew, after every timed phase: a profiler pass slows the host
+   work of the rest of its process.
 
 It then prints the phases' wall times, the kernels line (JSON), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -110,6 +129,7 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
+from functools import partial
 
 import numpy as np
 import torch
@@ -223,10 +243,33 @@ def train_kernels():
     }
 
 
+def bias_kernels():
+    """Id -> (object holding the launch count, its attribute, the entry's
+    name in the kernels line, source, TPU kernel it replaces) for K6, the
+    additive-bias mode of K1's and K2's sources, which no model path runs:
+    chip_smoke drives it on the conformer's route that builds the relative
+    bias in device memory (phase 7's route A/B)."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    fwd = "transformer_tts_tpu_torch/csrc/flash_attention_fwd.cu"
+    bwd = "transformer_tts_tpu_torch/csrc/flash_attention_bwd.cu"
+    jax_fa = "transformer_tts_tpu/ops/flash_attention.py"
+    return {
+        "K6": (fa.flash_attention_with_bias, "launches",
+               "flash_attention_fwd bias", fwd, f"{jax_fa}:132"),
+        "K6-d": (fa.flash_attention_with_bias, "dropout_launches",
+                 "flash_attention_fwd bias dropout", fwd, f"{jax_fa}:132"),
+        "K6-dq": (fa.flash_attention_bwd_dq, "bias_launches",
+                  "flash_attention_bwd dq+dbias", bwd, f"{jax_fa}:323"),
+        "K6-dkdv": (fa.flash_attention_bwd_dkdv, "bias_launches",
+                    "flash_attention_bwd bias dk/dv", bwd, f"{jax_fa}:374"),
+    }
+
+
 def counters() -> dict:
     """Id -> (object, attribute) of every kernel's launch count."""
     out = {kid: (entry[0], "launches") for kid, entry in kernels().items()}
     out.update({kid: entry[:2] for kid, entry in train_kernels().items()})
+    out.update({kid: entry[:2] for kid, entry in bias_kernels().items()})
     return out
 
 
@@ -532,6 +575,90 @@ def phase_relpos_kernels_vs_plain(gen, train_k_len):
                                  f"{peaks[n]:.3g})" for n, e in errs.items()))
 
 
+BIAS_GRADS = ("dq", "dk", "dv", "dbias")
+
+
+def check_bias_kernels(q, k, v, bias, do, k_len, rate, seed=DROPOUT_SEED,
+                       label="") -> tuple:
+    """K6 (rate 0) or K6-d and K6's backward on (q, k, v, bias, do) against
+    their plain versions in fp32 on the same inputs: O, dq, dk, dv and
+    dbias each within REL_TOL of its own max|ref|, lse within TOLS'
+    absolute limit; dbias, dk and dv exactly 0 for keys at or past k_len
+    (dbias on every row); O bit for bit the same on a second call with
+    the same seed. Returns ({name: max abs err}, {name: max|ref|}, o).
+    Launch counts are left as they were."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    counts = read_counts()
+    sm_scale = q.shape[-1] ** -0.5
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
+    with torch.no_grad():
+        o, lse = fa.flash_attention_with_bias(q, k, v, bias, k_len, **kw)
+        o_again, _ = fa.flash_attention_with_bias(q, k, v, bias, k_len, **kw)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, k_len,
+                                       sm_scale=sm_scale, bias=bias, **kw)
+        torch.cuda.synchronize()
+        f = [x.float() for x in (q, k, v)]
+        ro, rlse = fa.flash_attention_fwd_reference(
+            *f, k_len, sm_scale, rate, seed, bias=bias.float())
+        ref = fa.flash_attention_bwd_reference(
+            *f, o.float(), lse, do.float(), k_len, sm_scale, rate, seed,
+            bias=bias.float())
+    set_counts(counts)
+    fwd = "K6-d" if rate > 0 else "K6"
+    check(torch.equal(o, o_again), f"{fwd}{label}: another O on a second "
+                                   f"call with the same seed")
+    empty = k_len == 0
+    check(bool((o[empty] == 0).all()), f"{fwd}{label}: a row with no valid "
+                                       f"key is not 0")
+    errs, peaks = {}, {}
+    errs["o"], peaks["o"] = max_err(o[~empty], ro[~empty])
+    errs["lse"], peaks["lse"] = max_err(lse[~empty], rlse[~empty])
+    rel = REL_TOL[q.dtype]
+    check(errs["o"] <= rel * peaks["o"] and errs["lse"] <= TOLS[q.dtype][1],
+          f"{fwd}{label} disagrees with its plain version: {errs} against "
+          f"max|ref| {peaks}")
+    for name, got, want in zip(BIAS_GRADS, grads, ref):
+        errs[name], peaks[name] = max_err(got, want)
+        check(errs[name] <= rel * peaks[name],
+              f"K6 {name}{label} disagrees with its plain version: "
+              f"{errs[name]} > {rel} * max|ref| {peaks[name]}")
+    check(grads[3].dtype == bias.dtype, f"K6 dbias{label} is not in the "
+                                        f"bias's dtype")
+    for name, g, axis in (("dk", grads[1], 2), ("dv", grads[2], 2),
+                          ("dbias", grads[3], 3)):
+        for b, n in enumerate(k_len.tolist()):
+            check(bool((g[b].narrow(axis - 1, n, g.shape[axis] - n) == 0)
+                       .all()),
+                  f"K6 {name}{label} is not exactly 0 for keys at or past "
+                  f"k_len")
+    return errs, peaks, o
+
+
+def phase_bias_kernels_vs_plain(gen):
+    """K6/K6-d and K6's backward (dq with dbias, dk/dv) against their plain
+    versions: k_len in {0, 1, 65, T} at T = 1000, and T_q = 300 != T_k =
+    700 (whose T_k takes the bf16 bias tiles element by element: 700 is
+    not a multiple of 8); fp32 (TF32 off) and bf16; dropout 0 and 0.1 on
+    the same seed; a random bias of scale 2."""
+    cases = [(4, 4, 1000, 1000, 96, [1000, 0, 1, 65]),
+             (2, 4, 300, 700, 96, [700, 65])]
+    for b, h, t_q, t_k, d, k_len in cases:
+        q, do = (torch.randn(b, h, t_q, d, generator=gen).to(DEVICE)
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, t_k, d, generator=gen).to(DEVICE)
+                for _ in range(2))
+        bias = (2 * torch.randn(b, h, t_q, t_k, generator=gen)).to(DEVICE)
+        kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.1):
+                errs, peaks, _ = check_bias_kernels(
+                    *(x.to(dtype) for x in (q, k, v, bias, do)), kl, rate)
+                print(f"K6 vs plain ({b},{h},{t_q},{t_k},{d}) "
+                      f"{str(dtype)[6:]} rate {rate} k_len={k_len}: "
+                      + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
+                                 f"{peaks[n]:.3g})" for n, e in errs.items()))
+
+
 def relpos_bias(q_v, p, k_len, sm_scale):
     """rel_shift(q_v P^T) * sm_scale with -inf past k_len, in q_v's dtype:
     the additive mask of K4's library yardstick."""
@@ -747,6 +874,56 @@ def phase_cli(name, stacks, hp, model):
         check(mel.shape[0] == min(2048, int(align.sum()))
               and align.shape[0] >= n_text, f"{name} CLI alignment {i}")
     print(f"{name} CLI: 3 utterances written and checked")
+
+
+# ---- the profile ------------------------------------------------------------
+
+# CUPTI's own activity records, which are no work of the program
+CUPTI_OVERHEAD = ("Lazy Function Loading", "Activity Buffer Request")
+# profiles queued by the phases, each building what it profiles anew, run
+# after every timed phase: a profiler pass slows the host work of the rest
+# of its process (train_step_ab.py times steps before and after one), so
+# no timing may follow one, and nothing is held on the card meanwhile
+PROFILES = []
+
+
+def print_profile(label: str, fn, n: int, ms_per_run: float):
+    """Run ``fn`` ``n`` times under torch.profiler (CPU and CUDA activity)
+    and print the ten device operations (kernels, copies, memsets) with
+    the most self time on the card, each with its share of the device
+    time and its launches per run; user annotations (whose device range
+    covers kernels counted already) and CUPTI's overhead records are left
+    out. The device's busy time per run stands against ``ms_per_run``,
+    the same work's time measured without the profiler in this run, for
+    the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and device_us(e) > 0
+           and not getattr(e, "is_user_annotation", False)
+           and e.key not in CUPTI_OVERHEAD]
+    busy_ms = sum(device_us(e) for e in ops) / 1e3 / n
+    check(busy_ms > 0, f"{label}: the profile holds no device time")
+    print(f"profile of {label}, {n} run(s): device busy {busy_ms:.3f} ms "
+          f"per run against {ms_per_run:.3f} ms measured without the "
+          f"profiler ({max(0.0, 1 - busy_ms / ms_per_run):.1%} idle); top 10 "
+          f"device operations (ms per run, share of device time, launches "
+          f"per run):")
+    for e in sorted(ops, key=device_us, reverse=True)[:10]:
+        ms = device_us(e) / 1e3 / n
+        print(f"  {ms:9.4f} ms {ms / busy_ms:6.1%} {e.count / n:8.1f}x "
+              f"{e.key[:110]}")
 
 
 # ---- phase 5: training ------------------------------------------------------
@@ -1103,6 +1280,7 @@ def phase_train_step(batch, kind):
           f"{kind}: kernel path calls per step")
     fwd_inputs = fwd_calls[0]         # the first decoder layer's forward
     bwd_inputs = bwd_calls[-1]        # and its backward, which runs last
+    PROFILES.append(partial(profile_train_step, kind, batch, ms))
     del state, step
     torch.cuda.empty_cache()
 
@@ -1122,6 +1300,19 @@ def phase_train_step(batch, kind):
     del state, step
     torch.cuda.empty_cache()
     return launches, fwd_inputs, bwd_inputs
+
+
+def profile_train_step(kind, batch, ms_per_step):
+    """``print_profile`` of 3 train steps of ``kind`` on ``batch``, from a
+    fresh state after 3 warm-up steps."""
+    spec = trainer(kind)
+    hp = spec["hparams"]()
+    state = spec["init"](hp, device=DEVICE)
+    step = spec["make_step"](hp, device=DEVICE)
+    for _ in range(3):
+        state, _ = step(state, batch)
+    print_profile(f"the {kind} train step", partial(step, state, batch), 3,
+                  ms_per_step)
 
 
 def write_train_corpus(gen, hp, root):
@@ -1301,8 +1492,8 @@ def phase_ar_decode_vs_forward(gen):
         body = _ar_body(model, e_outputs, src_mask, cross, 2.0)
         fed = []
         for _ in range(steps):
-            fed.append(carry["prev"])
-            carry = body(carry)
+            fed.append(carry["prev"].clone())   # the step writes in place
+            body(carry)
     torch.cuda.synchronize()
     launched = read_counts()                # and ends here
     check(not any(launched.values()),
@@ -1323,12 +1514,76 @@ def phase_ar_decode_vs_forward(gen):
                       "forward")
 
 
+def ar_call_ms(call, reps: int) -> tuple:
+    """(median ms of ``reps`` calls, the first call's output); each call
+    ends in a synchronize. The model and the graph are warm by then."""
+    walls, first = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        first = out if first is None else first
+    return statistics.median(walls), first
+
+
+@contextmanager
+def stop_logits(model, store: list):
+    """While the block runs, append to ``store`` (once it ends) the
+    (steps, B, r) stop logits, without the stop head's bias, of the eager
+    decode steps it runs: the head's input times its weight, both in the
+    dtype the head computes in, in float64. A row's stop changes nothing
+    the loop feeds back, so the trajectory holds for any bias. (The hooks
+    fire in the eager loop only; a graph replays no Python.)"""
+    seen = []
+    hook = model.stop_token.register_forward_hook(
+        lambda mod, inp, out: seen.append(inp[0][:, 0]))
+    try:
+        yield
+    finally:
+        hook.remove()
+    dtype = model.cache_dtype           # what the head computes in
+    x = torch.stack(seen).to(dtype).double()             # (steps, B, d)
+    w = model.stop_token.weight.detach().to(dtype).double()
+    store.append(torch.einsum("sbd,rd->sbr", x, w).cpu().numpy())
+
+
+def stopping_bias(logits: np.ndarray, max_steps: int) -> float:
+    """A stop-head bias at which every row stops before ``max_steps``, at
+    as many different steps as the candidates offer, preferring none in
+    the first block: a row stops at its first step whose mean stop
+    probability, sigmoid(logit + bias) over the r frames, is above 0.5.
+    The candidates lie midway between the levels at which a step's mean
+    logit crosses 0, so rounding does not move a stop."""
+    levels = np.unique(-logits.mean(-1))
+    mids = (levels[1:] + levels[:-1]) / 2
+    mids = mids[np.linspace(0, len(mids) - 1, min(len(mids), 1000))
+                .round().astype(int)]
+    best, best_key = None, None
+    for beta in mids:
+        p = (1.0 / (1.0 + np.exp(-(logits + beta)))).mean(-1)  # (steps, B)
+        over = p > 0.5
+        if not over.any(0).all():
+            continue
+        first = over.argmax(0) + 1
+        key = (len(set(first.tolist())), first.min() > 8)
+        if best_key is None or key > best_key:
+            best, best_key = float(beta), key
+    check(best is not None, "no stop bias makes every row stop")
+    return best
+
+
 def phase_ar_synthesis(gen):
     """synthesize_transformer_tts at the flagship's width, bf16 amp,
-    max_steps 500, at B=1 and B=8, the stop head's bias at AR_STOP_BIAS
-    so that every row decodes all 500 groups (the longest call); counted
-    from 0: no kernel launches. ms per call (median of 3 after one
-    warm-up), per decode step, and RTF."""
+    max_steps 500, B=1 and B=8: the main path replays the decode's CUDA
+    graph, its launches counted from 0 (none). The stop head's bias at
+    AR_STOP_BIAS makes every row decode all 500 groups (the longest call);
+    a second bias, chosen from both eager runs' stop logits, makes every
+    row stop early, B=8's rows at different steps. At both biases and both batch sizes the
+    graph's mel and lengths must equal the eager loop's bit for bit. Times
+    at AR_STOP_BIAS, the graph's the median of 3 calls, the eager loop's
+    of one (~10 ms a step): ms per call and per decode step, RTF; then
+    one graphed B=8 call under the profiler."""
     from transformer_tts_tpu_torch.infer.synthesize import (
         MAX_AR_STEPS, synthesize_transformer_tts)
     hp, model = ar_model(DEVICE, amp=True)
@@ -1341,8 +1596,11 @@ def phase_ar_synthesis(gen):
     frames = MAX_AR_STEPS * hp.reduction_rate
     set_counts({})                          # the path starts here
     for text, pos in batches:
+        t0 = time.perf_counter()
         mel, lengths = synthesize_transformer_tts(model, text, pos)
         torch.cuda.synchronize()
+        print(f"AR synthesis B={text.shape[0]}: first graphed call (warm-up "
+              f"and capture) {(time.perf_counter() - t0) * 1e3:.1f} ms")
         check(mel.shape == (text.shape[0], frames, hp.mel_dim)
               and bool(torch.isfinite(mel).all())
               and bool((lengths == frames).all()),
@@ -1351,26 +1609,68 @@ def phase_ar_synthesis(gen):
     launched = read_counts()                # and ends here
     check(not any(launched.values()),
           f"AR synthesis launched a kernel: {launched}")
+
+    results, logits = {}, []
     for text, pos in batches:
-        def call():
-            out = synthesize_transformer_tts(model, text, pos)
-            torch.cuda.synchronize()
-            return out
-        call()
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            _, lengths = call()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(walls)
+        b = text.shape[0]
+        results[b, "graph"] = ar_call_ms(
+            lambda: synthesize_transformer_tts(model, text, pos), 3)
+        with stop_logits(model, logits):
+            results[b, "eager"] = ar_call_ms(
+                lambda: synthesize_transformer_tts(model, text, pos,
+                                                   eager=True), 1)
+        (g_mel, g_len), (e_mel, e_len) = (results[b, n][1]
+                                          for n in ("graph", "eager"))
+        check(torch.equal(g_mel, e_mel) and torch.equal(g_len, e_len),
+              f"AR B={b}: the graph's mel or lengths differ from the eager "
+              f"loop's")
+    stop_bias = stopping_bias(np.concatenate(logits, axis=1), MAX_AR_STEPS)
+    with torch.no_grad():
+        model.stop_token.bias.fill_(stop_bias)
+    for text, pos in batches:
+        g_mel, g_len = synthesize_transformer_tts(model, text, pos)
+        e_mel, e_len = synthesize_transformer_tts(model, text, pos,
+                                                  eager=True)
+        print(f"AR B={text.shape[0]} stop bias {stop_bias:.4f}: lengths "
+              f"graph {g_len.tolist()}, eager {e_len.tolist()}")
+        check(torch.equal(g_mel, e_mel) and torch.equal(g_len, e_len),
+              f"AR B={text.shape[0]} with stops: the graph differs from "
+              f"the eager loop")
+        check(int(g_len.max()) < frames
+              and (text.shape[0] == 1 or len(set(g_len.tolist())) > 1),
+              f"AR: the stop bias did not stop the rows early at different "
+              f"steps: {g_len.tolist()}")
+    with torch.no_grad():
+        model.stop_token.bias.fill_(AR_STOP_BIAS)
+
+    for (b, name), (ms, (_, lengths)) in sorted(results.items()):
         audio_s = lengths.sum().item() * HOP_SECONDS
-        print(f"AR synthesize_transformer_tts B={text.shape[0]} L=128 "
-              f"max_steps {MAX_AR_STEPS} bf16 amp: {ms:.3f} ms/call "
-              f"(median of 3), {ms / MAX_AR_STEPS:.4f} ms per decode step, "
+        print(f"AR synthesize_transformer_tts B={b} L=128 max_steps "
+              f"{MAX_AR_STEPS} bf16 amp, {name}: {ms:.3f} ms/call "
+              f"({'median of 3' if name == 'graph' else 'one call'}), "
+              f"{ms / MAX_AR_STEPS:.4f} ms per decode step, "
               f"{lengths.sum().item()} frames = {audio_s:.3f} s audio, RTF "
-              f"{ms / 1e3 / audio_s:.6f}; launches {json.dumps(launched)}")
+              f"{ms / 1e3 / audio_s:.6f}")
+    text, pos = batches[-1]
+    PROFILES.append(partial(profile_ar_synthesis, (text, pos),
+                            results[text.shape[0], "graph"][0]))
     del model
     torch.cuda.empty_cache()
+
+
+def profile_ar_synthesis(batch, ms_per_call):
+    """``print_profile`` of one graphed ``synthesize_transformer_tts`` call
+    on ``batch`` (text, positions) at AR_STOP_BIAS, after the call that
+    captures its graphs."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_transformer_tts)
+    _, model = ar_model(DEVICE, amp=True)
+    with torch.no_grad():
+        model.stop_token.bias.fill_(AR_STOP_BIAS)
+    call = partial(synthesize_transformer_tts, model, *batch)
+    call()
+    print_profile(f"AR graphed synthesis B={batch[0].shape[0]}, one call",
+                  call, 1, ms_per_call)
 
 
 # ---- phase 7: the kernels at their main paths' inputs -----------------------
@@ -1597,6 +1897,179 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
     return res
 
 
+def relpos_route(route: int, q_u, q_v, k, v, p, k_len, rate, seed):
+    """The conformer's relative attention core, (o, lse): route 1 the
+    relative kernels (K4/K4-d, and K5 behind autograd); route 2 the bias
+    rel_shift(q_v P^T) built in device memory (unscaled, unmasked, in
+    q_v's dtype), then K6/K6-d (and K6's backward, the bias's gradient
+    going back through rel_shift and the product by autograd)."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
+    if route == 1:
+        return fr.flash_relpos_attention(q_u, q_v, k, v, p, k_len, **kw)
+    return fa.flash_attention_with_bias(q_u, k, v, relpos_route_bias(q_v, p),
+                                        k_len, **kw)
+
+
+def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
+    """K6 at the conformer train step's captured input (the first decoder
+    layer: q_u, q_v, k, v, P, the batch's mel lengths, dropout 0.1 on the
+    step's seed, dO from its backward), with the bias of route 2.
+
+    The path that launches K6 is chip_smoke's route A/B: route 2 once
+    forward at rate 0 (1 K6) and once forward and backward at the step's
+    rate (1 K6-d, 1 dq+dbias, 1 dk/dv), counted from 0, nothing else
+    launched. Then each entry against its fp32 plain version at that
+    input (``check_bias_kernels``), kernel, plain and library ms and the
+    bound: operations per attended (row, key) pair 4*H*d forward, 6*H*d
+    dq, 8*H*d dk/dv; bytes q, k, v (and dO) read once, the bias read over
+    the valid keys, o (dq, or dk and dv) written once, dbias written whole.
+    Library: SDPA with relpos_bias (the bias scaled and -inf-filled past
+    k_len) as its mask, with the step's dropout for K6-d; for the backward
+    entries SDPA's backward with the mask's gradient. Last the A/B of the
+    two routes, forward and forward+backward. That the routes compute the
+    same function is held in fp32, both routes on the card on the input's
+    values: O and all five gradients of route 2 within 2e-2 of route 1's
+    own max|ref|. In bf16 each route's differences from route 1's fp32
+    results are printed: the conformer's gradients there are ~1e-7 sums
+    that cancel, and a bf16 rounding of O moves delta = rowsum(dO O) in
+    each route's backward by a few percent of them. Returns ({id:
+    result}, {id: launches})."""
+    import torch.nn.functional as F
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    (q_u, q_v, k, v, p, k_len), fkw = fwd_inputs
+    do = bwd_inputs[0][7]
+    rate, seed = fkw["dropout_rate"], fkw["dropout_seed"]
+    names = ("o",) + tuple(f"d{n}" for n in ("q_u", "q_v", "k", "v", "p"))
+    xs = [x.detach().clone().requires_grad_() for x in (q_u, q_v, k, v, p)]
+    xs32 = [x.detach().float().requires_grad_() for x in xs]
+
+    def fwd_bwd(route, leaves=xs):
+        o, _ = relpos_route(route, *leaves, k_len, rate, seed)
+        return (o, *torch.autograd.grad(o, leaves, do.to(o.dtype)))
+
+    set_counts({})                          # the path starts here
+    with torch.no_grad():
+        relpos_route(2, q_u, q_v, k, v, p, k_len, 0.0, 0)
+    bf16_2 = fwd_bwd(2)
+    torch.cuda.synchronize()
+    launches = read_counts()                # and ends here
+    want = {kid: 0 for kid in counters()}
+    want.update({kid: 1 for kid in bias_kernels()})
+    check(launches == want, f"the route A/B's K6 launches {launches}, "
+                            f"expected {want}")
+    counts = read_counts()
+    bf16_1 = fwd_bwd(1)
+    fp32_1, fp32_2 = fwd_bwd(1, xs32), fwd_bwd(2, xs32)
+    torch.cuda.synchronize()
+    agree = {}
+    for name, r1, r2, x1, x2 in zip(names, fp32_1, fp32_2, bf16_1, bf16_2):
+        peak = r1.abs().max().item()
+        agree[name] = (max_err(r2, r1)[0] / peak,
+                       max_err(x1, r1)[0] / peak, max_err(x2, r1)[0] / peak)
+        check(agree[name][0] <= 2e-2,
+              f"the two conformer routes disagree on {name} in fp32: "
+              f"{agree[name][0]:.3g} of max|ref| {peak:.3g}")
+
+    sm_scale = q_u.shape[-1] ** -0.5
+    b, h, t, d = q_u.shape
+    with torch.no_grad():
+        bias = relpos_route_bias(q_v, p)
+        errs0, peaks0, _ = check_bias_kernels(
+            q_u, k, v, bias, do, k_len, 0.0, 0, " (conformer step input)")
+        errs, peaks, _ = check_bias_kernels(q_u, k, v, bias, do, k_len, rate,
+                                            seed, " (conformer step input)")
+    pairs = attended_pairs(t, k_len, False)
+    el = q_u.element_size()
+    plane = q_u.numel() * el
+    bias_in = h * pairs * el                # the bias over the valid keys
+    stats = b * h * t * 4
+    mask = relpos_bias(q_v, p, k_len, sm_scale)
+    res = {}
+    with torch.no_grad():
+        for kid, r, e, pk in (("K6", 0.0, errs0, peaks0),
+                              ("K6-d", rate, errs, peaks)):
+            res[kid] = {
+                "ms": time_ms(lambda: fa.flash_attention_with_bias(
+                    q_u, k, v, bias, k_len, dropout_rate=r,
+                    dropout_seed=seed)),
+                "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
+                    q_u, k, v, k_len, sm_scale, r, seed, bias=bias)),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    q_u, k, v, attn_mask=mask, dropout_p=r, scale=sm_scale)),
+                "max_abs_err": e["o"], "max_abs_ref": pk["o"]}
+            res[kid]["bound_ms"], res[kid]["bound_by"] = bound_ms(
+                4 * h * pairs * d, 4 * plane + bias_in + stats, q_u.dtype)
+        o, lse = fa.flash_attention_with_bias(q_u, k, v, bias, k_len,
+                                              dropout_rate=rate,
+                                              dropout_seed=seed)
+        args = (q_u, k, v, do, lse, fa.bwd_delta(o, do), k_len)
+        kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
+                  bias=bias)
+        in_bytes = 4 * plane + 2 * stats + bias_in
+        res["K6-dq"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_dq_reference(
+                *args, sm_scale, rate, seed, bias=bias)),
+            "max_abs_err": max(errs["dq"], errs["dbias"]),
+            "max_abs_ref": max(peaks["dq"], peaks["dbias"])}
+        res["K6-dq"]["bound_ms"], res["K6-dq"]["bound_by"] = bound_ms(
+            6 * h * pairs * d, in_bytes + plane + bias.numel() * el,
+            q_u.dtype)
+        res["K6-dkdv"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(*args, **kw)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_dkdv_reference(
+                *args, sm_scale, rate, seed, bias=bias)),
+            "max_abs_err": max(errs["dk"], errs["dv"]),
+            "max_abs_ref": max(peaks["dk"], peaks["dv"])}
+        res["K6-dkdv"]["bound_ms"], res["K6-dkdv"]["bound_by"] = bound_ms(
+            8 * h * pairs * d, in_bytes + 2 * plane, q_u.dtype)
+    lq, lk, lv, lmask = (x.detach().clone().requires_grad_()
+                         for x in (q_u, k, v, mask))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lmask,
+                                        dropout_p=rate, scale=sm_scale)
+    library_bwd = time_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv, lmask), do, retain_graph=True))
+    res["K6-dq"]["library_ms"] = res["K6-dkdv"]["library_ms"] = library_bwd
+
+    ab = {}
+    with torch.no_grad():
+        ab["bias build"] = time_ms(lambda: relpos_route_bias(q_v, p))
+        for route in (1, 2):
+            ab[f"route {route} forward"] = time_ms(lambda: relpos_route(
+                route, q_u, q_v, k, v, p, k_len, rate, seed))
+    for route in (1, 2):
+        ab[f"route {route} forward+backward"] = time_ms(
+            lambda: fwd_bwd(route))
+    set_counts(counts)
+    for r, e, pk in ((0.0, errs0, peaks0), (rate, errs, peaks)):
+        print(f"K6 vs plain at the conformer train step's input, bias "
+              f"rel_shift(q_v P^T) {str(q_u.dtype)[6:]}, rate {r}: "
+              + " ".join(f"max|d{n}|={x:.3g} (max|ref| {pk[n]:.3g})"
+                         for n, x in e.items()))
+    print("conformer routes at that input, each difference a share of "
+          "route 1's fp32 max|ref|: route 2 against route 1 in fp32 (tol "
+          "2e-2); route 1 and route 2 in bf16 against route 1 in fp32: "
+          + ", ".join(f"{n} {a:.2e} | {b1:.2e} {b2:.2e}"
+                      for n, (a, b1, b2) in agree.items()))
+    print("conformer route A/B (route 1: K4-d, K5 behind autograd; route "
+          "2: the bias in device memory, K6-d, K6's backward, the "
+          "rel_shift adjoint and the products by autograd), dropout "
+          f"{rate}: " + ", ".join(f"{n} {v:.4f} ms" for n, v in ab.items()))
+    print(f"K6 backward as a pair at that input: "
+          f"{res['K6-dq']['ms'] + res['K6-dkdv']['ms']:.4f} ms; SDPA "
+          f"backward with the mask's gradient {library_bwd:.4f} ms")
+    return res, launches
+
+
+def relpos_route_bias(q_v, p):
+    """Route 2's bias: rel_shift(q_v P^T), unscaled and unmasked, in q_v's
+    dtype, contiguous (K6's input)."""
+    from transformer_tts_tpu_torch.ops.flash_relpos import rel_shift
+    return rel_shift(torch.matmul(q_v, p.transpose(-1, -2))).contiguous()
+
+
 def causal_forward_timings(inputs) -> dict:
     """K3-f at its path's captured input (the first decoder layer of the
     teacher-forced eval forward): kernel, plain and library (SDPA with
@@ -1719,6 +2192,8 @@ def main():
         phase_causal_kernels_vs_plain(gen, ar_groups)
     with phase("K4-d and K5 vs plain"):
         phase_relpos_kernels_vs_plain(gen, (batch["pos_mel"] > 0).sum(1))
+    with phase("K6 vs plain"):
+        phase_bias_kernels_vs_plain(gen)
     main_runs = {}
     for name, (stacks, kid) in PATHS.items():
         with phase(f"{name} synthesis"):
@@ -1792,8 +2267,26 @@ def main():
                   f"{res['max_abs_ref']:.3g}), launches {launches}")
             lines.append(kernels_line_entry(name, source, replaces,
                                             launches, res))
+        bias_res, bias_launches = bias_kernel_timings(conf_fwd_inputs,
+                                                      conf_bwd_inputs)
+        q, k_len = conf_fwd_inputs[0][0], conf_fwd_inputs[0][-1]
+        for kid, (_, _, name, source, replaces) in bias_kernels().items():
+            res = bias_res[kid]
+            print(f"{kid} at the conformer step's input {tuple(q.shape)} "
+                  f"{str(q.dtype)[6:]}, k_len {k_len.tolist()}: kernel "
+                  f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+                  f"library {res['library_ms']:.4f} ms, bound "
+                  f"{res['bound_ms']:.4f} ms ({res['bound_by']}), max abs "
+                  f"err {res['max_abs_err']:.3g} (max|ref| "
+                  f"{res['max_abs_ref']:.3g}), launches in the route A/B "
+                  f"{bias_launches[kid]}")
+            lines.append(kernels_line_entry(name, source, replaces,
+                                            bias_launches[kid], res))
     with phase("attention paths"):
         phase_attention_paths(gen)
+    with phase("profiles"):
+        for run_profile in PROFILES:
+            run_profile()
 
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in PHASE_TIMES)

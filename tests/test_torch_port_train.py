@@ -593,10 +593,7 @@ def test_train_cli_raises_without_a_card(tmp_path):
     ({"model": "SQFastSpeech2"}, [], "other model families"),
     ({"architecture": "mel-mel"}, [], "post-processing"),
     ({"architecture": "text-mel-mel"}, [], "post-processing"),
-    ({}, ["--multihost"], "parallelism"),
-    ({"debug_nans": True}, [], "remaining switches"),
-    ({"profile_dir": "profile"}, [], "remaining switches"),
-    ({"tb_images": True}, [], "remaining switches")])
+    ({}, ["--multihost"], "parallelism")])
 def test_train_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags,
                                                match):
     script, _ = _corpus(tmp_path)

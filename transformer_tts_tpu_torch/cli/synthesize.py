@@ -3,15 +3,21 @@ KV-cached AR Transformer-TTS branches of transformer_tts_tpu/cli/
 synthesize.py).
 
 ``python -m transformer_tts_tpu_torch.cli.synthesize --load_name DIR
-      [--test_script s.txt] [--save out_dir] [--max_frames 2048]
-      [--batch_size N] [--use_prenet] [--pitch_perturbation]
-      [--duration_perturbation] [--device cuda]``
+      [--hp_file h.py] [--epoch N] [--test_script s.txt] [--save out_dir]
+      [--max_frames 2048] [--batch_size N] [--use_prenet]
+      [--pitch_perturbation] [--duration_perturbation] [--device cuda]``
 
-``DIR`` holds ``hparams.py`` and a port checkpoint (``model.pt``, see
-train/checkpoint.py); ``hp.model`` picks FastSpeech 2 or the AR
-Transformer-TTS (``--max_frames``, ``--use_prenet`` and the perturbations
-are FastSpeech 2's; the AR decode runs up to 500 frame groups). For each
-utterance of the script it writes ``<idx>.npy`` (the de-normalized mel,
+``DIR`` and the hparams resolve as in the JAX CLI (:97-103, :122): an
+``epoch_N`` or ``average_N`` directory is the checkpoint itself and takes
+its hparams from its parent (the training CLI's ``save_dir``); any other
+``DIR`` takes them from itself and, when it holds ``epoch_N``
+subdirectories, loads ``--epoch N`` or else the newest; a directory
+without them (``hparams.py`` beside ``model.pt``) is the checkpoint.
+``--hp_file`` replaces the resolved hparams file. The checkpoint is the
+port's (``model.pt``, see train/checkpoint.py); ``hp.model`` picks
+FastSpeech 2 or the AR Transformer-TTS (``--max_frames``,
+``--use_prenet`` and the perturbations are FastSpeech 2's; the AR decode
+runs up to 500 frame groups). For each utterance of the script it writes ``<idx>.npy`` (the de-normalized mel,
 float32, cut to its length) and, for FastSpeech 2, ``<idx>_alignment.npy``
 (predicted durations), and prints the elapsed synthesis time. It runs on
 the CUDA device unless ``--device cpu`` is given, and raises when that
@@ -33,7 +39,10 @@ import numpy as np
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--load_name", type=str, required=True,
-                        help="directory with hparams.py and model.pt")
+                        help="checkpoint dir (save_dir, epoch_N, or a "
+                             "directory with hparams.py and model.pt)")
+    parser.add_argument("--hp_file", type=str, default=None)
+    parser.add_argument("--epoch", type=int, default=None)
     parser.add_argument("--test_script", type=str, default=None)
     parser.add_argument("--save", type=str, default="./generated")
     parser.add_argument("--max_frames", type=int, default=2048)
@@ -60,7 +69,8 @@ def main(argv=None):
         build_fastspeech2, later_slice)
     from transformer_tts_tpu_torch.models.transformer_tts import (
         build_transformer_tts)
-    from transformer_tts_tpu_torch.train.checkpoint import load_checkpoint
+    from transformer_tts_tpu_torch.train.checkpoint import (
+        load_checkpoint, resolve_checkpoint)
 
     if args.post_model is not None:
         later_slice("--post_model", "mel-to-mel post-processing")
@@ -71,7 +81,13 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device "
                            "(pass --device cpu to synthesize on the CPU)")
-    hp = load_hparams(os.path.join(args.load_name, "hparams.py"))
+    load_dir = args.load_name
+    if os.path.basename(os.path.normpath(load_dir)).startswith(
+            ("epoch_", "average_")):
+        hp_dir = os.path.dirname(os.path.normpath(load_dir))
+    else:
+        hp_dir = load_dir
+    hp = load_hparams(args.hp_file or os.path.join(hp_dir, "hparams.py"))
     if args.test_script:
         hp.test_script = args.test_script
     is_ar = not is_nar_model(hp.model)
@@ -82,7 +98,7 @@ def main(argv=None):
 
     model = (build_transformer_tts if is_ar else build_fastspeech2)(
         hp, device=device)
-    load_checkpoint(model, args.load_name)
+    load_checkpoint(model, resolve_checkpoint(load_dir, args.epoch))
     mean, var = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim).arrays()
     if mean is not None:
         mean = torch.as_tensor(mean, dtype=torch.float32, device=device)

@@ -12,14 +12,31 @@ optimizer at multiples of ``save_per_epoch``), a fine-tune's start from
 ``hp.pretrain_model`` (a port checkpoint directory: its weights and
 BatchNorm statistics, loaded before any resume, as the JAX CLI's
 :153-158 does), and resume from ``hp.loaded_dir``/``hp.loaded_epoch``.
-Each checkpoint directory holds
-``hparams.py`` and ``model.pt``, so ``cli/synthesize.py --load_name`` reads
-it. ``hp.model`` picks the trainer: FastSpeech 2, or the AR
+The hparams (with the ``--set`` overrides) are written to
+``save_dir/hparams.py`` at the start, and each checkpoint directory holds
+its own ``hparams.py`` beside ``model.pt``, so ``cli/synthesize.py
+--load_name`` reads either ``save_dir`` (with ``--epoch``) or an epoch's
+directory. ``hp.model`` picks the trainer: FastSpeech 2, or the AR
 Transformer-TTS (``model = "Transformer"``). It runs on the CUDA device
-unless ``--device cpu`` is given. The SQ-VAE, mel-to-mel and text-mel-mel
-trainers, the AR model's later-slice options, ``--multihost`` and the
-switches ``debug_nans``, ``profile_dir`` and ``tb_images`` raise
-``NotImplementedError``, naming their slices.
+unless ``--device cpu`` is given.
+
+Observability and safety, as the JAX CLI (:89-92, :176-232, :243-314):
+the logged steps' scalars (and steps/s) go to
+``save_dir/log_dir/train.jsonl`` and TensorBoard events there;
+``tb_images`` (FastSpeech 2) adds every ``save_attention_per_step`` steps
+one ``collect_attn=True`` eval forward's first encoder and decoder
+attention maps and the predicted and target mels as images;
+``profile_dir`` traces the whole run with ``torch.profiler`` into a Chrome
+trace there; SIGTERM or SIGINT stops the loop after the current step and
+saves a checkpoint of that epoch with its optimizer (the preemption
+checkpoint). ``debug_nans`` is the nearest counterpart of
+``jax_debug_nans``: ``torch.autograd.set_detect_anomaly(True)`` for the
+backward, and forward hooks on every module that raise
+``FloatingPointError`` naming the first module whose output holds a NaN
+or an infinity (each hook waits for the card: a debugging mode). The
+SQ-VAE, mel-to-mel and text-mel-mel trainers, the AR model's later-slice
+options and ``--multihost`` raise ``NotImplementedError``, naming their
+slices.
 """
 
 from __future__ import annotations
@@ -27,8 +44,11 @@ from __future__ import annotations
 import argparse
 import ast
 import math
+import os
+import signal
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 
 
 def _overrides(pairs) -> dict:
@@ -54,9 +74,6 @@ def _check_branch(hp, args) -> bool:
     if args.multihost:
         later_slice("--multihost (multi-process data parallelism)",
                     "parallelism")
-    for switch in ("debug_nans", "profile_dir", "tb_images"):
-        if getattr(hp, switch):
-            later_slice(f"hp.{switch}", "CLIs' remaining switches")
     if hp.architecture == "mel-mel":
         later_slice("the mel-to-mel trainer", "mel-to-mel post-processing")
     if hp.architecture == "text-mel-mel":
@@ -72,6 +89,110 @@ def _check_branch(hp, args) -> bool:
         return False
     check_supported(hp)
     return True
+
+
+def _tensors(value):
+    """The tensors of a module's output (nested tuples, lists, dicts)."""
+    import torch
+    if torch.is_tensor(value):
+        yield value
+    elif isinstance(value, (tuple, list)):
+        for x in value:
+            yield from _tensors(x)
+    elif isinstance(value, dict):
+        for x in value.values():
+            yield from _tensors(x)
+
+
+@contextmanager
+def debug_nans(model):
+    """Anomaly detection for the backward and a forward hook on every
+    module of ``model`` that raises ``FloatingPointError`` naming the
+    first module (in the order they finish) whose output holds a NaN or
+    an infinity; both undone on exit."""
+    import torch
+
+    def hook_for(name):
+        def hook(module, inputs, output):
+            for t in _tensors(output):
+                if t.is_floating_point() and not bool(
+                        torch.isfinite(t).all()):
+                    raise FloatingPointError(
+                        f"non-finite output of module "
+                        f"{name or '<model>'} ({type(module).__name__})")
+        return hook
+
+    handles = [m.register_forward_hook(hook_for(n))
+               for n, m in model.named_modules()]
+    was_on = torch.is_anomaly_enabled()
+    torch.autograd.set_detect_anomaly(True)
+    try:
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(was_on)
+        for h in handles:
+            h.remove()
+
+
+@contextmanager
+def preemption_guard():
+    """{"stop": bool} set by SIGTERM or SIGINT while the block runs; the
+    previous handlers come back on exit."""
+    flag = {"stop": False}
+
+    def request_stop(signum, frame):
+        print(f"signal {signum}: checkpointing and stopping...")
+        flag["stop"] = True
+
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            previous[sig] = signal.signal(sig, request_stop)
+        except ValueError:          # not the main thread
+            pass
+    try:
+        yield flag
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+
+def make_image_dump(hp, device, metrics):
+    """``dump(step, state, batch)``: one ``collect_attn=True`` eval forward
+    of the FastSpeech 2 model on the batch, teacher-forced as in training,
+    logging the first layer's first head of the encoder and decoder
+    attention and the predicted and target mels of the first row as
+    TensorBoard images (JAX CLI :182-215)."""
+    import torch
+    from transformer_tts_tpu_torch.ops.masks import create_masks
+    from transformer_tts_tpu_torch.train.trainer import (
+        FS2_BATCH_KEYS, batch_to)
+
+    def image(x):
+        return x.detach().float().cpu().numpy()
+
+    def dump(step, state, batch):
+        b = batch_to(batch, device, FS2_BATCH_KEYS)
+        src_mask, mel_mask = create_masks(b["pos_text"], b["pos_mel"],
+                                          fix_mask=hp.fix_mask)
+        model = state.model
+        model.eval()
+        try:
+            with torch.no_grad():
+                out = model(b["text"], src_mask, b["mel"].shape[1],
+                            b["alignment"], b.get("f0"), b.get("energy"),
+                            mel_mask, collect_attn=True)
+        finally:
+            model.train()
+        mel = out.mel_post if out.mel_post is not None else out.mel_pre
+        metrics.log_image(step, "attention/encoder_l0_h0",
+                          image(out.attn_enc[0, 0, 0]))
+        metrics.log_image(step, "attention/decoder_l0_h0",
+                          image(out.attn_dec[0, 0, 0]))
+        metrics.log_image(step, "mel/predicted", image(mel[0].T))
+        metrics.log_image(step, "mel/target", image(b["mel"][0].T))
+
+    return dump
 
 
 def main(argv=None):
@@ -101,6 +222,7 @@ def main(argv=None):
         raise RuntimeError("--device cuda, but torch finds no CUDA device "
                            "(pass --device cpu to train on the CPU)")
     hp.log_config()
+    hp.snapshot(hp.save_dir)
 
     loader = DataLoader(TTSDataset(hp.train_script, hp), hp)
     if is_ar:
@@ -123,18 +245,45 @@ def main(argv=None):
         print(f"resumed from {load_dir} epoch {start_epoch} "
               f"(step {state.step})")
 
+    from transformer_tts_tpu_torch.utils import (
+        MetricsLogger, StepTimer, start_profiler, stop_profiler)
+    metrics = MetricsLogger(os.path.join(hp.save_dir, hp.log_dir))
+    timer = StepTimer()
+    dump_images = (make_image_dump(hp, device, metrics)
+                   if hp.tb_images and not is_ar else None)
+
     def emit(pending):
-        """Print one step's logs; the float() calls wait for the card, so
-        this runs after the next step has been queued."""
+        """Print and record one step's logs; the float() calls wait for
+        the card, so this runs after the next step has been queued."""
         epoch, step, t0, logs = pending
         values = {k: float(v) for k, v in sorted(logs.items())}
         parts = " ".join(f"{k}={v:.4f}" for k, v in values.items())
         print(f"epoch {epoch + 1} step {step} {parts} "
               f"({time.time() - t0:.3f}s)")
         sys.stdout.flush()
+        metrics.log(step, steps_per_sec=timer.steps_per_sec, **values)
         if not math.isfinite(values["loss_total"]):
             raise AssertionError("loss is nan")
 
+    with (debug_nans(state.model) if hp.debug_nans else nullcontext()), \
+            preemption_guard() as preempted:
+        prof = start_profiler(hp.profile_dir) if hp.profile_dir else None
+        try:
+            _epochs(hp, args, loader, state, step_fn, start_epoch, emit,
+                    timer, dump_images, preempted)
+        finally:
+            if prof is not None:
+                path = stop_profiler(prof, hp.profile_dir)
+                print(f"profile written to {path}")
+            metrics.close()
+    print("training finished")
+
+
+def _epochs(hp, args, loader, state, step_fn, start_epoch, emit, timer,
+            dump_images, preempted):
+    """The epoch loop: steps, one-step-lagged logs, images, the epoch's
+    checkpoint, and the preemption checkpoint when a signal came."""
+    from transformer_tts_tpu_torch.train import checkpoint as ckpt
     pending = None
     done = False
     for epoch in range(start_epoch, hp.max_epoch):
@@ -142,12 +291,16 @@ def main(argv=None):
         for batch in loader:
             t0 = time.time()
             state, logs = step_fn(state, batch)
+            timer.tick()
+            if (dump_images is not None
+                    and state.step % hp.save_attention_per_step == 0):
+                dump_images(state.step, state, batch)
             if pending is not None:
                 emit(pending)
             pending = ((epoch, state.step, t0, logs)
                        if state.step % hp.log_every == 0 else None)
             done = bool(args.max_steps) and state.step >= args.max_steps
-            if done:
+            if done or preempted["stop"]:
                 break
         if pending is not None:
             emit(pending)
@@ -158,9 +311,13 @@ def main(argv=None):
                 with_optimizer=(epoch + 1) % hp.save_per_epoch == 0)
             print(f"saved {path}")
         print(f"epoch {epoch + 1} done in {time.time() - t_epoch:.1f}s")
+        if preempted["stop"]:
+            ckpt.save_train_checkpoint(hp.save_dir, state, epoch + 1, hp)
+            print(f"preemption checkpoint saved at epoch {epoch + 1} "
+                  f"(step {state.step})")
+            break
         if done:
             break
-    print("training finished")
 
 
 if __name__ == "__main__":

@@ -212,9 +212,10 @@ _DEFAULTS: Dict[str, Any] = {
     # flash-attention kernel: attention over at least FLASH_MIN_KEY_LEN
     # keys goes to it (ops/attention.py); O(T) score storage, not O(T^2)
     "use_flash_attention": True,
-    # kept so the JAX package's hparams files load here: the port reads
-    # log_every and raises for remat, debug_nans and profile_dir when set
-    # (their slices come later)
+    # kept so the JAX package's hparams files load here: the port's
+    # training CLI reads log_every, debug_nans (anomaly detection and
+    # non-finite-output hooks) and profile_dir (a torch.profiler trace),
+    # and raises for remat when set (its slice comes later)
     "mesh_shape": None,
     "remat": False,
     "debug_nans": False,

@@ -1,24 +1,36 @@
 // Flash-attention backward for Hopper (sm_90a): prefix key mask, optional
-// attention-prob dropout, non-causal (K2) or causal (K3).
+// attention-prob dropout, non-causal (K2) or causal (K3), optionally with
+// an additive bias and its gradient (K6).
 //
 // Replaces the TPU kernels `_dq_kernel` and `_dkdv_kernel` driven by
-// `_flash_bwd` (transformer_tts_tpu/ops/flash_attention.py:266-550) with no
-// bias: with causal=False the backward of FastSpeech 2 training (K2), with
+// `_flash_bwd` (transformer_tts_tpu/ops/flash_attention.py:266-550): without
+// a bias, with causal=False the backward of FastSpeech 2 training (K2), with
 // causal=True that of the AR Transformer-TTS decoder's masked
-// self-attention (K3).
+// self-attention (K3); with a bias, K6's backward (`has_bias`: the dq
+// kernel's :277-281, :301-302 and :323-334, called at :479; the dk/dv
+// kernel's :349-353 and :374-375, called at :520), the VJP `_flash_b` of
+// `flash_attention_with_bias` (:585-614, non-causal).
 //
 // What it computes, per batch-head bh = b*H + h, from the forward's lse and
 // delta = rowsum(dO * O) (fp32, computed by the caller as `_flash_bwd` does):
-//   P[r][c]  = exp(q[r].k[c] * sm_scale - lse[r])   for keys c < k_len[b]
+//   P[r][c]  = exp((q[r].k[c] + bias[r][c]) * sm_scale - lse[r])
+//                                                   for keys c < k_len[b]
 //   dP[r][c] = (dO[r] . v[c]) * keep(r, c)
 //   dS[r][c] = P (dP - delta[r]) * sm_scale
-//   dq = dS K,  dk = dS^T Q,  dv = (P keep)^T dO
+//   dq = dS K,  dk = dS^T Q,  dv = (P keep)^T dO,  dbias = dS
 // with dS and P*keep cast to the input dtype before their products, as the
-// TPU kernels do. keep(r, c) is the forward's `_keep_mask` hash (1/(1-rate)
-// or 0), rebuilt here from the global coordinates, never stored. Rows with
-// no valid key (lse = -1e30) give P = 0 through the key mask; dk and dv are
-// exactly 0 for keys at or past k_len[b]. No atomics: each output row is
-// written by one block, so the gradients are deterministic.
+// TPU kernels do (bias 0 without one). dbias is the gradient of the
+// pre-scale logits, dS in fp32 cast to the bias's dtype (q's): the dq
+// kernel writes it tile by tile beside dq. It is exactly 0 at every key
+// at or past k_len[b] (P is 0 there), on every row of a batch row with
+// k_len = 0, and on every tile the key loop skips: the dq kernel writes
+// those tiles' zeros itself after its loop, so the wrapper allocates dbias
+// uninitialised and no other kernel touches it. keep(r, c) is the
+// forward's `_keep_mask` hash (1/(1-rate) or 0), rebuilt here from the
+// global coordinates, never stored. Rows with no valid key (lse = -1e30)
+// give P = 0 through the key mask; dk and dv are exactly 0 for keys at or
+// past k_len[b]. No atomics: each output row is written by one block, so
+// the gradients are deterministic.
 //
 // Causal (K3): P, dP and dS exist only for c <= r (global, top-left-aligned
 // indices, each row its own q0 + r). The dq kernel stops its key-tile loop
@@ -30,7 +42,9 @@
 // Bound on the card: 10*B*H*T_q*k_len*d operations (five products) against
 // Q, K, V, O, dO, dQ, dK and dV moved once; at the decoder's training shapes
 // (d = 96, T ~ 1024) that is ~1 byte per 300 operations in bf16, so the
-// tensor cores bound it.
+// tensor cores bound it. K6 adds the bias read by both kernels over the
+// valid keys and the whole dbias written once: at T = 1024, d = 96 those
+// two planes outweigh every other byte, and bytes bound K6's backward.
 //
 // Design (simple first version; wgmma, TMA and register-resident
 // accumulators come later):
@@ -42,6 +56,11 @@
 //     (P keep)^T and dS^T written
 //     transposed into shared memory, dv += (P keep)^T dO and dk += dS^T Q.
 //     A block whose keys all lie at or past k_len[b] writes zeros;
+//   * K6: both kernels add the bias tile into S in shared memory right
+//     after Q K^T (`add_bias`, 16-byte loads where aligned), as the
+//     forward does; the dq kernel stores each dS tile (already in the
+//     input dtype for the dS K product) to dbias with 16-byte stores
+//     (`store_bias_tile`), then zeros for the tiles past its loop;
 //   * the products, the tile loads and the dropout hash are K1's, from
 //     flash_common.cuh: WMMA (bf16 in, fp32 accumulate) for bf16 and FMAs
 //     in fp32 for fp32, so fp32 matches the fp32 reference to rounding; the
@@ -53,6 +72,7 @@
 
 namespace {
 
+using flash::add_bias;
 using flash::BT;
 using flash::from_float;
 using flash::keep_bit;
@@ -60,6 +80,7 @@ using flash::load_tile;
 using flash::NTHREADS;
 using flash::Products;
 using flash::round_up;
+using flash::store_bias_tile;
 
 // Shared-memory geometry, identical on host and device.
 //   dp   : depth padded for the products (16 for WMMA, 1 for FMAs)
@@ -145,11 +166,13 @@ __device__ __forceinline__ bool attends(int row, int col, int klen,
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const T* __restrict__ v, const T* __restrict__ bias,
+                    const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const int32_t* __restrict__ k_len, T* __restrict__ dq,
-                    int H, int T_q, int T_k, int d, float sm_scale,
+                    T* __restrict__ dbias, int H, int T_q, int T_k, int d,
+                    float sm_scale,
                     Dropout drop, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geom<T> g(d, 1, 1);
@@ -171,6 +194,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
 
   const size_t qbase = (size_t)bh * T_q * d, kbase = (size_t)bh * T_k * d;
+  const size_t bbase = (size_t)bh * T_q * T_k;
+  const T* bb = bias ? bias + bbase : nullptr;
+  T* dbb = dbias ? dbias + bbase : nullptr;
   load_tile(sQ, g.ld_in, q + qbase, q0, T_q, d, g.dp);
   load_tile(sDO, g.ld_in, dout + qbase, q0, T_q, d, g.dp);
   zero_fp32(sAcc, BT * g.ld_o);
@@ -191,6 +217,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Products<T>::abt(sQ, g.ld_in, sK, g.ld_in, sS, g.ld_s, d);
     Products<T>::abt(sDO, g.ld_in, sV, g.ld_in, sDP, g.ld_s, d);
     __syncthreads();
+    if (bb) {  // K6: S += bias tile, before the scale
+      add_bias(sS, g.ld_s, bb, q0, T_q, k0, T_k);
+      __syncthreads();
+    }
 
     for (int idx = tid; idx < BT * BT; idx += NTHREADS) {
       const int r = idx / BT, c = idx - r * BT;
@@ -209,8 +239,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+    // dbias = dS: both this store and the product only read sDS
+    if (dbb) store_bias_tile(dbb, sDS, g.ld_p, q0, T_q, k0, T_k);
     Products<T>::ab(sDS, g.ld_p, sK, g.ld_in, sAcc, g.ld_o, d, true);
   }
+  // the tiles the loop skipped (past k_len, or past the diagonal when
+  // causal) get dbias = 0; a batch row with k_len = 0 skips them all
+  if (dbb)
+    for (int kt = n_tiles; kt * BT < T_k; ++kt)
+      store_bias_tile(dbb, static_cast<const T*>(nullptr), 0, q0, T_q,
+                      kt * BT, T_k);
   __syncthreads();
   store_tile(dq + qbase, sAcc, g.ld_o, q0, T_q, d);
 }
@@ -218,7 +256,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const T* __restrict__ v, const T* __restrict__ bias,
+                      const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       const int32_t* __restrict__ k_len, T* __restrict__ dk,
@@ -246,6 +285,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
 
   const size_t qbase = (size_t)bh * T_q * d, kbase = (size_t)bh * T_k * d;
+  const T* bb = bias ? bias + (size_t)bh * T_q * T_k : nullptr;
   if (k0 >= klen) {  // every key of the tile is masked: dk = dv = 0
     for (int idx = tid; idx < BT * d; idx += NTHREADS) {
       const int r = idx / d, c = idx - r * d;
@@ -278,6 +318,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Products<T>::abt(sQ, g.ld_in, sK, g.ld_in, sS, g.ld_s, d);
     Products<T>::abt(sDO, g.ld_in, sV, g.ld_in, sDP, g.ld_s, d);
     __syncthreads();
+    if (bb) {  // K6: S += bias tile (rows q0.., keys k0..), before the scale
+      add_bias(sS, g.ld_s, bb, q0, T_q, k0, T_k);
+      __syncthreads();
+    }
 
     for (int idx = tid; idx < BT * BT; idx += NTHREADS) {
       const int r = idx / BT, c = idx - r * BT;   // q row r, key c
@@ -315,9 +359,10 @@ int set_smem(Kernel kernel, size_t bytes) {
 }
 
 template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, const int32_t* k_len,
-              void* dq, int B, int H, int T_q, int T_k, int d,
+int launch_dq(const void* q, const void* k, const void* v, const void* bias,
+              const void* dout, const float* lse, const float* delta,
+              const int32_t* k_len, void* dq, void* dbias, int B, int H,
+              int T_q, int T_k, int d,
               float sm_scale, Dropout drop, int causal, cudaStream_t stream) {
   const Geom<T> g(d, 1, 1);
   int err = set_smem(flash_bwd_dq_kernel<T>, g.bytes);
@@ -325,14 +370,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid((T_q + BT - 1) / BT, B * H);
   flash_bwd_dq_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      k_len, static_cast<T*>(dq), H, T_q, T_k, d, sm_scale, drop, causal);
+      static_cast<const T*>(v), static_cast<const T*>(bias),
+      static_cast<const T*>(dout), lse, delta, k_len, static_cast<T*>(dq),
+      static_cast<T*>(dbias), H, T_q, T_k, d, sm_scale, drop, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dkdv(const void* q, const void* k, const void* v,
-                const void* dout, const float* lse, const float* delta,
+                const void* bias, const void* dout, const float* lse,
+                const float* delta,
                 const int32_t* k_len, void* dk, void* dv, int B, int H,
                 int T_q, int T_k, int d, float sm_scale, Dropout drop,
                 int causal, cudaStream_t stream) {
@@ -342,9 +389,9 @@ int launch_dkdv(const void* q, const void* k, const void* v,
   dim3 grid((T_k + BT - 1) / BT, B * H);
   flash_bwd_dkdv_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      k_len, static_cast<T*>(dk), static_cast<T*>(dv), H, T_q, T_k, d,
-      sm_scale, drop, causal);
+      static_cast<const T*>(v), static_cast<const T*>(bias),
+      static_cast<const T*>(dout), lse, delta, k_len, static_cast<T*>(dk),
+      static_cast<T*>(dv), H, T_q, T_k, d, sm_scale, drop, causal);
   return (int)cudaGetLastError();
 }
 
@@ -361,13 +408,16 @@ extern "C" {
 // all contiguous on the device. dropout != 0 turns on the keep mask with
 // `threshold` (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and
 // `seed` (the int32 seed's bits), the forward's values; causal != 0 is K3
-// (keys past the query row masked), as in the forward. Each returns the
-// cudaError_t of its launch (0 = success), including a refusal of the
-// shared memory it needs.
+// (keys past the query row masked), as in the forward. bias is null (K2,
+// K3) or the forward's (B,H,T_q,T_k) additive term in q's dtype (K6);
+// dbias, null or like bias, receives dS. Each returns the cudaError_t of
+// its launch (0 = success), including a refusal of the shared memory it
+// needs.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, const void* k_len, void* dq,
-                           int B, int H, int T_q, int T_k, int d,
+                           const void* bias, const void* dout,
+                           const void* lse, const void* delta,
+                           const void* k_len, void* dq, void* dbias, int B,
+                           int H, int T_q, int T_k, int d,
                            float sm_scale, int dropout,
                            unsigned int threshold, float keep_scale,
                            unsigned int seed, int causal, int dtype,
@@ -379,16 +429,18 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   auto dl = static_cast<const float*>(delta);
   auto kl = static_cast<const int32_t*>(k_len);
   if (dtype == 0)
-    return launch_dq<float>(q, k, v, dout, l, dl, kl, dq, B, H, T_q, T_k, d,
-                            sm_scale, drop, causal, s);
+    return launch_dq<float>(q, k, v, bias, dout, l, dl, kl, dq, dbias, B, H,
+                            T_q, T_k, d, sm_scale, drop, causal, s);
   if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, l, dl, kl, dq, B, H, T_q,
-                                    T_k, d, sm_scale, drop, causal, s);
+    return launch_dq<__nv_bfloat16>(q, k, v, bias, dout, l, dl, kl, dq,
+                                    dbias, B, H, T_q, T_k, d, sm_scale, drop,
+                                    causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
 int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
+                             const void* bias, const void* dout,
+                             const void* lse,
                              const void* delta, const void* k_len, void* dk,
                              void* dv, int B, int H, int T_q, int T_k, int d,
                              float sm_scale, int dropout,
@@ -402,12 +454,12 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
   auto dl = static_cast<const float*>(delta);
   auto kl = static_cast<const int32_t*>(k_len);
   if (dtype == 0)
-    return launch_dkdv<float>(q, k, v, dout, l, dl, kl, dk, dv, B, H, T_q,
-                              T_k, d, sm_scale, drop, causal, s);
+    return launch_dkdv<float>(q, k, v, bias, dout, l, dl, kl, dk, dv, B, H,
+                              T_q, T_k, d, sm_scale, drop, causal, s);
   if (dtype == 1)
-    return launch_dkdv<__nv_bfloat16>(q, k, v, dout, l, dl, kl, dk, dv, B,
-                                      H, T_q, T_k, d, sm_scale, drop, causal,
-                                      s);
+    return launch_dkdv<__nv_bfloat16>(q, k, v, bias, dout, l, dl, kl, dk, dv,
+                                      B, H, T_q, T_k, d, sm_scale, drop,
+                                      causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

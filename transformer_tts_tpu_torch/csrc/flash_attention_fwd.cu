@@ -1,20 +1,25 @@
 // Flash-attention forward for Hopper (sm_90a): prefix key mask, optionally
-// causal.
+// causal, optionally with an additive bias.
 //
 // Replaces the TPU kernel `_fwd_kernel` driven by `_flash_fwd`
-// (transformer_tts_tpu/ops/flash_attention.py:90-263) with no bias: K1 (no
-// dropout, the path FastSpeech 2 synthesis runs), K1-d (attention-prob
+// (transformer_tts_tpu/ops/flash_attention.py:90-263): without a bias K1
+// (no dropout, the path FastSpeech 2 synthesis runs), K1-d (attention-prob
 // dropout, the path its training runs) and, with `causal`, K3's forward
 // (the AR Transformer-TTS decoder's masked self-attention in training:
-// K3-d with dropout, K3-f without).
+// K3-d with dropout, K3-f without); with a bias, K6 and K6-d (`has_bias`,
+// :101-106 and :132-134, called at :230 with the bias spec :224-227; the
+// public op `flash_attention_with_bias`, :655-677, non-causal).
 //
 // What it computes, per batch-head bh = b*H + h and query row r:
-//   s[c]   = (q[r] . k[c]) * sm_scale         for keys c < k_len[b]
+//   s[c]   = (q[r] . k[c] + bias[r][c]) * sm_scale   for keys c < k_len[b]
 //                                             (and c <= r when causal)
 //   o[r]   = sum_c softmax(s)[c] * keep(r, c) * v[c]   (input dtype)
 //   lse[r] = max_c s[c] + log(sum_c exp(s[c] - max))   (fp32)
-// Keys c >= k_len[b] are excluded exactly. A row with no valid key gives
-// o = 0 and lse = -1e30 + log(1), as the TPU kernel does.
+// bias (B,H,T_q,T_k) in the inputs' dtype is added in fp32 BEFORE the
+// scale, as the TPU kernel and the reference's (ac + bd) / sqrt(d_k) do;
+// without one it is 0. Keys c >= k_len[b] are excluded exactly. A row with
+// no valid key gives o = 0 and lse = -1e30 + log(1), as the TPU kernel
+// does.
 //
 // Dropout (`_keep_mask`, :59-87): keep(r, c) is 1/(1 - rate) or 0 from a
 // murmur3 fmix32 hash of seed + bh*0x9E3779B9 + r*0x85EBCA6B +
@@ -34,7 +39,9 @@
 // Bound on the card: 4*B*H*T_q*T_k*d operations against Q, K, V and O read
 // or written once (causal: 4*H*d per valid (row, key) pair, about half).
 // At the synthesis shapes (d = 96, T = 768..2048) that is ~1 byte per
-// 200..500 operations in bf16, so the tensor cores bound it.
+// 200..500 operations in bf16, so the tensor cores bound it. K6 also reads
+// the bias over the valid keys, T_q*k_len elements per batch-head, which
+// outweighs Q, K, V and O together at T = 1024 and d = 96: bytes bound K6.
 //
 // Design (simple first version; wgmma, TMA and warp specialisation come
 // later):
@@ -46,15 +53,19 @@
 //     flash_common.cuh, shared with the backward: WMMA for bf16 (P cast to
 //     bf16 before P.V like the TPU kernel), FMAs for fp32 so the result
 //     matches the fp32 reference to rounding;
+//   * K6 adds each bias tile into S in shared memory right after Q K^T
+//     (`add_bias`: 16-byte loads where aligned, each bias element read
+//     once), so the softmax pass is K1's;
 //   * running max, running sum and accumulator are fp32; k tiles at or past
-//     k_len are skipped since they contribute nothing; the ragged edges in
-//     T_q, T_k and d are masked in the loads and stores, with no padding
-//     copies in device memory.
+//     k_len are skipped since they contribute nothing (nor is their bias
+//     read); the ragged edges in T_q, T_k and d are masked in the loads and
+//     stores, with no padding copies in device memory.
 
 #include "flash_common.cuh"
 
 namespace {
 
+using flash::add_bias;
 using flash::from_float;
 using flash::keep_bit;
 using flash::load_tile;
@@ -99,7 +110,8 @@ template <typename T> struct Geom {
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int32_t* __restrict__ k_len,
+                 const T* __restrict__ v, const T* __restrict__ bias,
+                 const int32_t* __restrict__ k_len,
                  T* __restrict__ o, float* __restrict__ lse, int H, int T_q,
                  int T_k, int d, float sm_scale, int dropout,
                  uint32_t threshold, float keep_scale, uint32_t seed,
@@ -125,6 +137,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + (size_t)bh * T_q * d;
   const T* kb = k + (size_t)bh * T_k * d;
   const T* vb = v + (size_t)bh * T_k * d;
+  const T* bb = bias ? bias + (size_t)bh * T_q * T_k : nullptr;
 
   load_tile(sQ, g.ld_in, qb, q0, T_q, d, g.dp);
   for (int idx = tid; idx < BQ * d; idx += NTHREADS) {
@@ -156,6 +169,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     Products<T>::abt(sQ, g.ld_in, sK, g.ld_in, sS, g.ld_s, d);   // S = Q K^T
     __syncthreads();
+    if (bb) {  // K6: S += bias tile, before the scale
+      add_bias(sS, g.ld_s, bb, q0, T_q, k0, T_k);
+      __syncthreads();
+    }
 
     // online-softmax update of row srow over columns shalf*32 .. +31
     {
@@ -224,10 +241,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int32_t* k_len,
-           void* o, float* lse, int B, int H, int T_q, int T_k, int d,
-           float sm_scale, int dropout, uint32_t threshold, float keep_scale,
-           uint32_t seed, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           const int32_t* k_len, void* o, float* lse, int B, int H, int T_q,
+           int T_k, int d, float sm_scale, int dropout, uint32_t threshold,
+           float keep_scale, uint32_t seed, int causal, cudaStream_t stream) {
   const Geom<T> g(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -236,8 +253,9 @@ int launch(const void* q, const void* k, const void* v, const int32_t* k_len,
   dim3 grid((T_q + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), k_len, static_cast<T*>(o), lse, H, T_q, T_k,
-      d, sm_scale, dropout, threshold, keep_scale, seed, causal);
+      static_cast<const T*>(v), static_cast<const T*>(bias), k_len,
+      static_cast<T*>(o), lse, H, T_q, T_k, d, sm_scale, dropout, threshold,
+      keep_scale, seed, causal);
   return (int)cudaGetLastError();
 }
 
@@ -250,23 +268,26 @@ extern "C" {
 // device. dropout != 0 turns on the keep mask with `threshold`
 // (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and `seed` (the
 // int32 seed's bits). causal != 0 masks keys past the query row (K3).
+// bias is null (K1, K1-d, K3) or a contiguous (B,H,T_q,T_k) additive term
+// in q's dtype, added before sm_scale (K6, K6-d).
 // Returns the cudaError_t of the launch (0 = success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        const void* k_len, void* o, void* lse, int B, int H,
-                        int T_q, int T_k, int d, float sm_scale, int dropout,
-                        unsigned int threshold, float keep_scale,
-                        unsigned int seed, int causal, int dtype,
-                        void* stream) {
+                        const void* bias, const void* k_len, void* o,
+                        void* lse, int B, int H, int T_q, int T_k, int d,
+                        float sm_scale, int dropout, unsigned int threshold,
+                        float keep_scale, unsigned int seed, int causal,
+                        int dtype, void* stream) {
   if (d <= 0 || d > 128 || d % 8 != 0 || T_q <= 0 || T_k <= 0)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto kl = static_cast<const int32_t*>(k_len);
   auto l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch<float>(q, k, v, kl, o, l, B, H, T_q, T_k, d, sm_scale,
-                         dropout, threshold, keep_scale, seed, causal, s);
+    return launch<float>(q, k, v, bias, kl, o, l, B, H, T_q, T_k, d,
+                         sm_scale, dropout, threshold, keep_scale, seed,
+                         causal, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, kl, o, l, B, H, T_q, T_k, d,
+    return launch<__nv_bfloat16>(q, k, v, bias, kl, o, l, B, H, T_q, T_k, d,
                                  sm_scale, dropout, threshold, keep_scale,
                                  seed, causal, s);
   return (int)cudaErrorInvalidValue;

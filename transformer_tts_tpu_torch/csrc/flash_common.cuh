@@ -1,9 +1,10 @@
-// Device helpers shared by the flash-attention forward (K1, K1-d,
-// flash_attention_fwd.cu) and backward (K2, flash_attention_bwd.cu): the
-// tile size, conversions, tile loads, the two tile products and the
-// dropout hash. The backward rebuilds the forward's keep mask, so both
-// must take `keep_bit` from here; ops/flash_attention.keep_bits is its
-// plain version, held to JAX's `_keep_mask` by the tests.
+// Device helpers shared by the flash-attention forward (K1, K1-d, K6,
+// flash_attention_fwd.cu) and backward (K2, K6's, flash_attention_bwd.cu):
+// the tile size, conversions, tile loads, the two tile products, the
+// additive bias's tile load and the dbias tile store, and the dropout
+// hash. The backward rebuilds the forward's keep mask, so both must take
+// `keep_bit` from here; ops/flash_attention.keep_bits is its plain
+// version, held to JAX's `_keep_mask` by the tests.
 
 #pragma once
 
@@ -26,8 +27,91 @@ from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+template <typename T> __device__ __forceinline__ float to_float(T x);
+template <> __device__ __forceinline__ float to_float<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ float
+to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
+}
+
+// K6's additive bias: S[r][c] += bias[row0 + r][col0 + c] over the BT x BT
+// fp32 score tile in shared memory (row stride lds), for rows < rows_valid
+// and columns < cols_valid of the (rows_valid, cols_valid) bias plane; the
+// rest of the tile is left as it is (the key mask or the row bound takes
+// it out). Each element is read once. Where cols_valid is a multiple of
+// the 16-byte vector (8 bf16, 4 fp32) and the plane starts on a 16-byte
+// boundary, a thread moves 16 bytes at a time, neighbouring threads on
+// neighbouring chunks of a row; every chunk then lies wholly inside or
+// wholly past the plane's edge. Otherwise it moves single elements.
+template <typename T>
+__device__ void add_bias(float* S, int lds, const T* bias, int row0,
+                         int rows_valid, int col0, int cols_valid) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = cols_valid % VEC == 0 &&
+                   (reinterpret_cast<uintptr_t>(bias) & 15) == 0;
+  if (vec) {
+    constexpr int CHUNKS = BT / VEC;
+    for (int idx = threadIdx.x; idx < BT * CHUNKS; idx += NTHREADS) {
+      const int r = idx / CHUNKS, c = (idx - r * CHUNKS) * VEC;
+      const int row = row0 + r, col = col0 + c;
+      if (row < rows_valid && col < cols_valid) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            bias + (size_t)row * cols_valid + col);
+        const T* x = reinterpret_cast<const T*>(&raw);
+        float* s = S + r * lds + c;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s[e] += to_float<T>(x[e]);
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < BT * BT; idx += NTHREADS) {
+      const int r = idx / BT, c = idx - r * BT;
+      const int row = row0 + r, col = col0 + c;
+      if (row < rows_valid && col < cols_valid)
+        S[r * lds + c] += to_float<T>(bias[(size_t)row * cols_valid + col]);
+    }
+  }
+}
+
+// The dbias tile: dst[row0 + r][col0 + c] = src[r][c] (src a BT x BT tile
+// in shared memory, row stride lds; zeros when src is null) for rows <
+// rows_valid and columns < cols_valid of the (rows_valid, cols_valid)
+// plane, with 16-byte stores under the same rule as add_bias.
+template <typename T>
+__device__ void store_bias_tile(T* dst, const T* src, int lds, int row0,
+                                int rows_valid, int col0, int cols_valid) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = cols_valid % VEC == 0 &&
+                   (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+  if (vec) {
+    constexpr int CHUNKS = BT / VEC;
+    for (int idx = threadIdx.x; idx < BT * CHUNKS; idx += NTHREADS) {
+      const int r = idx / CHUNKS, c = (idx - r * CHUNKS) * VEC;
+      const int row = row0 + r, col = col0 + c;
+      if (row < rows_valid && col < cols_valid) {
+        uint4 raw;
+        T* x = reinterpret_cast<T*>(&raw);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          x[e] = src ? src[r * lds + c + e] : from_float<T>(0.f);
+        *reinterpret_cast<uint4*>(dst + (size_t)row * cols_valid + col) = raw;
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < BT * BT; idx += NTHREADS) {
+      const int r = idx / BT, c = idx - r * BT;
+      const int row = row0 + r, col = col0 + c;
+      if (row < rows_valid && col < cols_valid)
+        dst[(size_t)row * cols_valid + col] =
+            src ? src[r * lds + c] : from_float<T>(0.f);
+    }
+  }
 }
 
 // The keep bit of `_keep_mask` (transformer_tts_tpu/ops/flash_attention.py

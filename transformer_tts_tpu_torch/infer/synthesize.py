@@ -9,13 +9,20 @@ the mel is de-normalized as ``mel * sqrt(var) + mean`` on the device.
 
 AR Transformer-TTS: the KV-cached decode loop (see
 ``synthesize_transformer_tts``); the cache keeps every attention of the
-loop on the masked path, so it launches no kernel.
+loop on the masked path, so it launches no kernel. Every decode step
+writes its carry in place (fixed addresses), so on a CUDA device the loop
+runs as a CUDA graph of ``DONE_CHECK_EVERY`` steps, captured once per
+(model, batch size, text length, ``max_steps``, dtype, stop threshold)
+and replayed, the counterpart of the JAX package's compiled
+``while_loop``; the eager loop (``ar_decode``) is what the graph captures,
+runs on the CPU, and is the graph's reference on the card.
 """
 
 from __future__ import annotations
 
 import random
-from typing import Dict, Optional, Tuple
+import weakref
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -95,12 +102,25 @@ def _ar_init(model: TransformerTTS, b: int, max_steps: int,
         length=torch.full((b,), max_steps, dtype=torch.long, device=device))
 
 
+def _ar_reset(carry: Dict[str, object], max_steps: int) -> None:
+    """Put a carry back to ``_ar_init``'s values, in place."""
+    for tensor in (carry["step"], carry["prev"], carry["groups"],
+                   carry["done"]):
+        tensor.zero_()
+    for kv in carry["caches"]:
+        for cache in kv:
+            cache.zero_()
+    carry["length"].fill_(max_steps)
+
+
 def _ar_body(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
              stop_threshold: float):
     """One decode step on the carry, in place: the group at ``step``, the
     stop rule (the mean of the r stop probabilities above
     ``stop_threshold``; ``length`` is set at a row's first stop), and the
-    next input, the first frame of the predicted group."""
+    next input, the first frame of the predicted group. Every update
+    writes into the carry's own tensors, so a captured step reads and
+    writes fixed addresses."""
     mel_dim = model.mel_dim
 
     def body(c):
@@ -111,13 +131,116 @@ def _ar_body(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
         p_stop = torch.sigmoid(stop.float())[:, 0]            # (B, r)
         stop_now = p_stop.mean(dim=-1) > stop_threshold
         newly_done = stop_now & ~c["done"]
-        c["length"] = torch.where(newly_done, step + 1, c["length"])
-        c["done"] = c["done"] | stop_now
-        c["prev"] = group[:, :, :mel_dim].to(c["prev"].dtype)
-        c["step"] = step + 1
+        c["length"].copy_(torch.where(newly_done, step + 1, c["length"]))
+        c["done"].logical_or_(stop_now)
+        c["prev"].copy_(group[:, :, :mel_dim])
+        step.add_(1)
         return c
 
     return body
+
+
+def _run_blocks(run_block: Callable[[int], None], done: torch.Tensor,
+                max_steps: int) -> None:
+    """``max_steps`` decode steps as blocks of ``DONE_CHECK_EVERY`` (the
+    last one shorter when the block does not divide ``max_steps``), the
+    host reading ``done`` before every block but the first and stopping
+    once every row is done."""
+    for first in range(0, max_steps, DONE_CHECK_EVERY):
+        if first and bool(done.all()):
+            break
+        run_block(min(DONE_CHECK_EVERY, max_steps - first))
+
+
+def ar_decode(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
+              max_steps: int, stop_threshold: float) -> Dict[str, object]:
+    """The eager decode loop: a fresh carry, then ``_ar_body`` step by step
+    under ``_run_blocks``. Returns the carry (``groups``, ``length``)."""
+    carry = _ar_init(model, e_outputs.shape[0], max_steps, e_outputs.device)
+    body = _ar_body(model, e_outputs, src_mask, cross_kvs, stop_threshold)
+
+    def run_block(n):
+        for _ in range(n):
+            body(carry)
+
+    _run_blocks(run_block, carry["done"], max_steps)
+    return carry
+
+
+class _ARGraph:
+    """The decode loop as CUDA graphs on one carry: a block of
+    ``DONE_CHECK_EVERY`` steps and, when that does not divide
+    ``max_steps``, the tail block, sharing one memory pool. The encoder
+    outputs, the mask and the cross K/V are copied into static tensors
+    before each decode. Built by warming the step up on a side stream,
+    then capturing; a failed capture raises."""
+
+    def __init__(self, model: TransformerTTS, e_outputs, src_mask,
+                 cross_kvs, max_steps: int, stop_threshold: float):
+        self.max_steps = max_steps
+        self.e_outputs = e_outputs.clone()
+        self.src_mask = src_mask.clone()
+        self.cross_kvs = tuple(tuple(x.clone() for x in kv)
+                               for kv in cross_kvs)
+        self.carry = _ar_init(model, e_outputs.shape[0], max_steps,
+                              e_outputs.device)
+        body = _ar_body(model, self.e_outputs, self.src_mask,
+                        self.cross_kvs, stop_threshold)
+        side = torch.cuda.Stream(e_outputs.device)
+        side.wait_stream(torch.cuda.current_stream(e_outputs.device))
+        with torch.cuda.stream(side):
+            for _ in range(min(3, max_steps)):
+                body(self.carry)
+        torch.cuda.current_stream(e_outputs.device).wait_stream(side)
+        self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        pool = None
+        for n in sorted({min(DONE_CHECK_EVERY, max_steps),
+                         max_steps % DONE_CHECK_EVERY} - {0}, reverse=True):
+            _ar_reset(self.carry, max_steps)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                for _ in range(n):
+                    body(self.carry)
+            pool = graph.pool()
+            self.graphs[n] = graph
+
+    def decode(self, e_outputs, src_mask, cross_kvs) -> Dict[str, object]:
+        self.e_outputs.copy_(e_outputs)
+        self.src_mask.copy_(src_mask)
+        for static, fresh in zip(self.cross_kvs, cross_kvs):
+            for s, f in zip(static, fresh):
+                s.copy_(f)
+        _ar_reset(self.carry, self.max_steps)
+        _run_blocks(lambda n: self.graphs[n].replay(), self.carry["done"],
+                    self.max_steps)
+        return self.carry
+
+
+# model -> {(B, text length, max_steps, dtype, threshold, device): graph}
+_AR_GRAPHS: "weakref.WeakKeyDictionary[TransformerTTS, dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def ar_decode_graphed(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
+                      max_steps: int, stop_threshold: float
+                      ) -> Dict[str, object]:
+    """``ar_decode`` replayed from CUDA graphs (CUDA tensors only): the
+    same steps, the same host checks of ``done``, the same carry. The
+    graphs are kept for later calls at the same batch size, text length,
+    ``max_steps``, dtype and stop threshold, as JAX keeps one compiled
+    ``while_loop`` per shape. The returned carry is the graph's own, valid
+    until the next decode at that key."""
+    if e_outputs.device.type != "cuda":
+        raise ValueError(f"the graphed decode runs on CUDA tensors, not "
+                         f"{e_outputs.device}")
+    key = (e_outputs.shape[0], e_outputs.shape[1], max_steps,
+           model.cache_dtype, float(stop_threshold), e_outputs.device)
+    graphs = _AR_GRAPHS.setdefault(model, {})
+    graph = graphs.get(key)
+    if graph is None:
+        graph = graphs[key] = _ARGraph(model, e_outputs, src_mask,
+                                       cross_kvs, max_steps, stop_threshold)
+    return graph.decode(e_outputs, src_mask, cross_kvs)
 
 
 @torch.inference_mode()
@@ -125,21 +248,24 @@ def synthesize_transformer_tts(
     model: TransformerTTS, text: torch.Tensor, pos_text: torch.Tensor,
     mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
     *, max_steps: int = MAX_AR_STEPS, stop_threshold: float = 0.5,
+    eager: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cached AR synthesis; returns (mel (B, max_steps*r, mel) fp32,
     lengths (B,) in frames).
 
     The encoder and the cross-attention K/V run once; then one
     ``decode_step`` per frame group, on static shapes, up to ``max_steps``
-    groups. The JAX package's ``while_loop`` stops as soon as every row
-    has stopped; here the host reads ``done`` only every
-    ``DONE_CHECK_EVERY`` steps, so as not to wait for the card at each
-    one, and may run up to ``DONE_CHECK_EVERY - 1`` steps more. Those
-    change no output: a row's length is fixed at its first stop, the
-    frames past it are zeroed, and the causal postnet (run once over all
-    ``max_steps`` groups, as in JAX) lets no later frame reach an earlier
-    one. Frames past a row's length are 0; with ``mean``/``var`` the rest
-    are de-normalized.
+    groups: on a CUDA device replayed from CUDA graphs
+    (``ar_decode_graphed``), on the CPU, or with ``eager=True``, the eager
+    loop (``ar_decode``, the graph's reference). The JAX package's
+    ``while_loop`` stops as soon as every row has stopped; here the host
+    reads ``done`` only every ``DONE_CHECK_EVERY`` steps, so as not to
+    wait for the card at each one, and may run up to ``DONE_CHECK_EVERY -
+    1`` steps more. Those change no output: a row's length is fixed at its
+    first stop, the frames past it are zeroed, and the causal postnet (run
+    once over all ``max_steps`` groups, as in JAX) lets no later frame
+    reach an earlier one. Frames past a row's length are 0; with
+    ``mean``/``var`` the rest are de-normalized.
     """
     _ar_check(model)
     model.eval()
@@ -147,13 +273,10 @@ def synthesize_transformer_tts(
     src_mask = pad_mask(pos_text)
     e_outputs, _ = model.encode(text, src_mask)
     cross_kvs = model.precompute_cross_kv(e_outputs)
-    carry = _ar_init(model, b, max_steps, text.device)
-    body = _ar_body(model, e_outputs, src_mask, cross_kvs, stop_threshold)
-    for step in range(max_steps):
-        if (step and step % DONE_CHECK_EVERY == 0
-                and bool(carry["done"].all())):
-            break
-        carry = body(carry)
+    decode = (ar_decode if eager or text.device.type == "cpu"
+              else ar_decode_graphed)
+    carry = decode(model, e_outputs, src_mask, cross_kvs, max_steps,
+                   stop_threshold)
     post = model.apply_postnet(carry["groups"].to(model.cache_dtype))
     mel = post.float().reshape(b, max_steps * r, mel_dim)
     lengths = carry["length"] * r

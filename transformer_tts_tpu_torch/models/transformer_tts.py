@@ -13,7 +13,8 @@ keep the grouped layout: mel (B, t, mel*r) and stop logits (B, t, r).
 * ``encode``, ``precompute_cross_kv``, ``decode_step`` and
   ``apply_postnet``: the pieces the KV-cached decode loop
   (infer/synthesize.synthesize_transformer_tts) drives; no kernel runs
-  in ``decode_step``.
+  in ``decode_step``, which reads no host value, so the loop captures it
+  in a CUDA graph.
 
 ``amp`` runs each under bf16 autocast, as FastSpeech 2 does. The
 Tacotron 2 decoder, GST, speakers and the discrete output mode raise
@@ -83,8 +84,12 @@ class TransformerTTS(nn.Module):
                                    dropout_postnet, prev_version=False)
 
     def _autocast(self, x: torch.Tensor) -> AbstractContextManager:
+        """bf16 autocast when ``amp``. While a CUDA graph is being captured
+        (the decode loop's), autocast keeps no cache of cast weights: a
+        cast made in the capture must be replayed, not reused."""
+        capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
         return torch.autocast(x.device.type, dtype=torch.bfloat16,
-                              enabled=self.amp)
+                              enabled=self.amp, cache_enabled=not capturing)
 
     @property
     def cache_dtype(self) -> torch.dtype:

@@ -1,11 +1,11 @@
 """Flash attention: the hand-written Hopper kernels and their plain versions.
 
-The port of transformer_tts_tpu/ops/flash_attention.py on the paths the
-FastSpeech 2 and AR Transformer-TTS models run: no bias, a prefix key mask
-given as ``k_len``, optionally causal, and attention-prob dropout from a
-counter hash.
+The port of transformer_tts_tpu/ops/flash_attention.py: a prefix key mask
+given as ``k_len``, optionally causal, optionally an additive bias on the
+logits (``flash_attention_with_bias``, non-causal), and attention-prob
+dropout from a counter hash.
 
-    o   = (softmax(q k^T * sm_scale, keys c < k_len[b]
+    o   = (softmax((q k^T [+ bias]) * sm_scale, keys c < k_len[b]
                    [and c <= r with causal]) * keep) v
     lse = row logsumexp of the masked, scaled logits (fp32)
 
@@ -39,6 +39,15 @@ rate at the decoder's shapes:
   :161-165 and :329-335), dk/dv starts its q-tile loop at the tile holding
   row k0 (:406-407). The work is counted per valid (row, key) pair,
   sum_b sum_r min(r + 1, k_len[b]), about half of the non-causal count.
+* K6 and K6-d, the ``bias`` argument of the same two sources (``has_bias``:
+  :101-106 and :132-134 of ``_fwd_kernel``, :277-281, :301-302 and
+  :323-334 of ``_dq_kernel``, :349-353 and :374-375 of ``_dkdv_kernel``;
+  the VJP ``_flash_b`` :585-614 of ``flash_attention_with_bias``
+  :655-677): a (B, H, T_q, T_k) bias in q's dtype added to q k^T in fp32
+  before the scale; the dq kernel also writes dbias = dS (the pre-scale
+  logit gradient, in the bias's dtype, exactly 0 past ``k_len`` and on
+  every tile it skips). Bound by the bytes of the bias read over the
+  valid keys and, in the backward, the dbias written.
 
 Design of both: one 128-thread block per 64-row tile and batch-head, a loop
 over 64-row tiles of the other sequence staged in shared memory, fp32
@@ -46,13 +55,16 @@ statistics and accumulators, WMMA tensor-core products for bf16 and FMA
 products for fp32; see the sources. PERF.md holds their measured times.
 
 ``flash_attention`` is differentiable in q, k and v through
-``FlashAttention``. On a CPU tensor every wrapper computes the plain
-version; on a CUDA tensor it launches its kernel or raises. The launch
-counts are ``flash_attention.launches`` (K1), ``.dropout_launches`` (K1-d),
-``.causal_launches`` (K3's forward at rate 0, K3-f) and
+``FlashAttention``, ``flash_attention_with_bias`` in q, k, v and the bias
+through ``FlashAttentionBias``. On a CPU tensor every wrapper computes the
+plain version; on a CUDA tensor it launches its kernel or raises. The
+launch counts are ``flash_attention.launches`` (K1), ``.dropout_launches``
+(K1-d), ``.causal_launches`` (K3's forward at rate 0, K3-f) and
 ``.causal_dropout_launches`` (K3-d); ``flash_attention_bwd_dq.launches``
-and ``flash_attention_bwd_dkdv.launches`` (K2) and the same functions'
-``.causal_launches`` (K3's dq and dk/dv).
+and ``flash_attention_bwd_dkdv.launches`` (K2), the same functions'
+``.causal_launches`` (K3's dq and dk/dv) and ``.bias_launches`` (K6's dq
+and dbias, K6's dk/dv); ``flash_attention_with_bias.launches`` (K6) and
+``.dropout_launches`` (K6-d).
 """
 
 from __future__ import annotations
@@ -154,13 +166,22 @@ def _valid_keys(t_q: int, t_k: int, k_len: torch.Tensor, causal: bool,
     return valid
 
 
+def _logits(q, k, bias, sm_scale):
+    """(q k^T + bias) * sm_scale in fp32, the bias (if any) added before
+    the scale as ``_fwd_kernel`` does."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        s = s + bias.float()
+    return s * sm_scale
+
+
 def flash_attention_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
-    causal: bool = False,
+    causal: bool = False, bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1 and K1-d, and with ``causal`` of K3's
-    forward: the same (o, lse).
+    """Plain PyTorch version of K1 and K1-d, with ``causal`` of K3's
+    forward and with ``bias`` of K6 and K6-d: the same (o, lse).
 
     Products take the inputs' values in fp32 (a bf16 product is exact in
     fp32) and the probabilities, times the keep scale, are cast to the
@@ -168,7 +189,7 @@ def flash_attention_fwd_reference(
     do.
     """
     with torch.autocast(q.device.type, enabled=False):
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+        s = _logits(q, k, bias, sm_scale)
         keep = None
         if dropout_rate > 0.0:
             b, h, t_q, t_k = s.shape
@@ -203,11 +224,12 @@ def masked_softmax_pv(
 
 
 def _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
-               dropout_seed, causal):
+               dropout_seed, causal, bias=None):
     """(dS, P keep) in fp32, each rounded through the dtype the TPU kernels
-    cast it to before its products (q's and dO's)."""
+    cast it to before its products (q's and dO's). dS is also K6's dbias,
+    the gradient of the pre-scale logits: 0 wherever P is."""
     with torch.autocast(q.device.type, enabled=False):
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+        s = _logits(q, k, bias, sm_scale)
         valid = _valid_keys(s.shape[-2], s.shape[-1], k_len, causal,
                             s.device)
         p = torch.where(valid, torch.exp(s - lse[..., None]),
@@ -232,21 +254,23 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_dq_reference(q, k, v, do, lse, delta, k_len, sm_scale,
                                  dropout_rate=0.0, dropout_seed=0,
-                                 causal=False):
-    """Plain version of K2's (with ``causal`` K3's) dq kernel: dq = dS K."""
+                                 causal=False, bias=None):
+    """Plain version of K2's (with ``causal`` K3's) dq kernel: dq = dS K;
+    with ``bias``, K6's: (dq, dbias = dS in the bias's dtype)."""
     ds, _ = _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale,
-                       dropout_rate, dropout_seed, causal)
+                       dropout_rate, dropout_seed, causal, bias)
     with torch.autocast(q.device.type, enabled=False):
-        return torch.matmul(ds, k.float()).to(q.dtype)
+        dq = torch.matmul(ds, k.float()).to(q.dtype)
+    return dq if bias is None else (dq, ds.to(bias.dtype))
 
 
 def flash_attention_dkdv_reference(q, k, v, do, lse, delta, k_len, sm_scale,
                                    dropout_rate=0.0, dropout_seed=0,
-                                   causal=False):
-    """Plain version of K2's (with ``causal`` K3's) dk/dv kernel:
-    dk = dS^T Q, dv = (P keep)^T dO."""
+                                   causal=False, bias=None):
+    """Plain version of K2's (with ``causal`` K3's, with ``bias`` K6's)
+    dk/dv kernel: dk = dS^T Q, dv = (P keep)^T dO."""
     ds, p_kept = _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale,
-                            dropout_rate, dropout_seed, causal)
+                            dropout_rate, dropout_seed, causal, bias)
     with torch.autocast(q.device.type, enabled=False):
         dk = torch.matmul(ds.transpose(-1, -2), q.float())
         dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
@@ -257,24 +281,28 @@ def flash_attention_bwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
-    causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    causal: bool = False, bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K2 (with ``causal`` of K3's backward):
-    (dq, dk, dv) in the inputs' dtypes.
+    (dq, dk, dv) in the inputs' dtypes; with ``bias`` of K6's backward:
+    (dq, dk, dv, dbias), dbias in the bias's dtype.
 
     The formula of ``_dq_kernel``/``_dkdv_kernel`` written in tensors, not
-    autograd: P = exp(S - lse) on valid keys, dP = dO V^T times the keep
-    scale, delta = rowsum(dO*O) in fp32, dS = P (dP - delta) sm_scale;
-    dq = dS K, dk = dS^T Q, dv = (P keep)^T dO, with dS and P keep cast to
-    the input dtype before their products, as the TPU kernels do.
+    autograd: P = exp(S - lse) on valid keys (S with the bias added before
+    the scale), dP = dO V^T times the keep scale, delta = rowsum(dO*O) in
+    fp32, dS = P (dP - delta) sm_scale; dq = dS K, dk = dS^T Q, dv = (P
+    keep)^T dO, dbias = dS, with dS and P keep cast to the input dtype
+    before their products, as the TPU kernels do.
     """
     ds, p_kept = _bwd_terms(q, k, v, do, lse, bwd_delta(o, do), k_len,
-                            sm_scale, dropout_rate, dropout_seed, causal)
+                            sm_scale, dropout_rate, dropout_seed, causal,
+                            bias)
     with torch.autocast(q.device.type, enabled=False):
         dq = torch.matmul(ds, k.float())
         dk = torch.matmul(ds.transpose(-1, -2), q.float())
         dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    return grads if bias is None else (*grads, ds.to(bias.dtype))
 
 
 # ---- the kernel wrappers ----------------------------------------------------
@@ -320,6 +348,22 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, k_len):
             raise ValueError(f"{name} must be contiguous")
 
 
+def check_bias(q: torch.Tensor, k: torch.Tensor,
+               bias: torch.Tensor) -> None:
+    """K6's bias: contiguous, on q's device, in q's dtype, of shape
+    (B, H, T_q, T_k); no broadcasting, as in the JAX package."""
+    want = (*q.shape[:3], k.shape[2])
+    if tuple(bias.shape) != want:
+        raise ValueError(f"bias must be (B, H, T_q, T_k) = {want}, not "
+                         f"{tuple(bias.shape)}")
+    if bias.dtype != q.dtype:
+        raise TypeError(f"bias is {bias.dtype}, q {q.dtype}")
+    if bias.device != q.device:
+        raise ValueError(f"bias is on {bias.device}, q on {q.device}")
+    if not bias.is_contiguous():
+        raise ValueError("bias must be contiguous")
+
+
 def _on_card(q: torch.Tensor, name: str) -> bool:
     """False for a CPU tensor (the plain version runs); True for a CUDA
     one (the kernel runs); raises for any other device."""
@@ -335,14 +379,21 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
 
 
-def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal):
-    """(o, lse): K1 (rate 0) or K1-d, with ``causal`` K3-f or K3-d, on the
-    card; the plain version on the CPU."""
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
+             bias=None):
+    """(o, lse): K1 (rate 0) or K1-d, with ``causal`` K3-f or K3-d, with
+    ``bias`` K6 or K6-d, on the card; the plain version on the CPU."""
     if not _on_card(q, "flash_attention"):
         return flash_attention_fwd_reference(q, k, v, k_len, sm_scale,
                                              dropout_rate, dropout_seed,
-                                             causal)
+                                             causal, bias)
     _check_cuda_inputs(q, k, v, k_len)
+    if bias is not None:
+        check_bias(q, k, bias)
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
     o = torch.empty_like(q)
@@ -350,98 +401,115 @@ def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            k_len.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                            b, h, t_q, k.shape[2], d, float(sm_scale), flag,
-                            threshold, scale, seed, int(causal),
-                            _DTYPE_CODE[q.dtype], stream)
+                            _ptr(bias), k_len.data_ptr(), o.data_ptr(),
+                            lse.data_ptr(), b, h, t_q, k.shape[2], d,
+                            float(sm_scale), flag, threshold, scale, seed,
+                            int(causal), _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, KERNEL)
+    wrapper = flash_attention if bias is None else flash_attention_with_bias
     counter = (("causal_" if causal else "")
                + ("dropout_launches" if flag else "launches"))
-    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     return o, lse
 
 
-def _bwd_launch(name, q, k, v, do, lse, delta, k_len, outs, sm_scale,
+def _bwd_launch(name, q, k, v, bias, do, lse, delta, k_len, outs, sm_scale,
                 dropout_rate, dropout_seed, causal):
+    """Launch one backward kernel; ``outs`` may hold None (no dbias)."""
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
     fn = getattr(_bwd_kernels(), name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), k_len.data_ptr(),
-                 *(x.data_ptr() for x in outs), b, h, t_q, k.shape[2], d,
-                 float(sm_scale), flag, threshold, scale, seed, int(causal),
-                 _DTYPE_CODE[q.dtype], stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 k_len.data_ptr(), *(_ptr(x) for x in outs), b, h, t_q,
+                 k.shape[2], d, float(sm_scale), flag, threshold, scale,
+                 seed, int(causal), _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, name)
 
 
+def _count_bwd(wrapper, bias, causal):
+    """One more launch on the backward wrapper's counter for its mode."""
+    counter = ("bias_launches" if bias is not None
+               else "causal_launches" if causal else "launches")
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                           dropout_rate=0.0, dropout_seed=0,
-                           causal=False) -> torch.Tensor:
+                           dropout_rate=0.0, dropout_seed=0, causal=False,
+                           bias=None):
     """dq from the forward's lse and ``delta``: K2's dq kernel (K3's with
-    ``causal``) on the card, its plain version on the CPU."""
+    ``causal``) on the card, its plain version on the CPU. With ``bias``
+    K6's: (dq, dbias), dbias like the bias, written whole by the kernel
+    (zeros past ``k_len`` included), so it is allocated uninitialised."""
     if not _on_card(q, "flash_attention_bwd_dq"):
         return flash_attention_dq_reference(q, k, v, do, lse, delta, k_len,
                                             sm_scale, dropout_rate,
-                                            dropout_seed, causal)
+                                            dropout_seed, causal, bias)
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
     dq = torch.empty_like(q)
-    _bwd_launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, k_len,
-                (dq,), sm_scale, dropout_rate, dropout_seed, causal)
-    if causal:
-        flash_attention_bwd_dq.causal_launches += 1
-    else:
-        flash_attention_bwd_dq.launches += 1
-    return dq
+    dbias = None
+    if bias is not None:
+        check_bias(q, k, bias)
+        dbias = torch.empty_like(bias)
+    _bwd_launch("flash_attention_bwd_dq", q, k, v, bias, do, lse, delta,
+                k_len, (dq, dbias), sm_scale, dropout_rate, dropout_seed,
+                causal)
+    _count_bwd(flash_attention_bwd_dq, bias, causal)
+    return dq if bias is None else (dq, dbias)
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                             dropout_rate=0.0, dropout_seed=0, causal=False
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+                             dropout_rate=0.0, dropout_seed=0, causal=False,
+                             bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from the forward's lse and ``delta``: K2's dk/dv kernel
-    (K3's with ``causal``) on the card, its plain version on the CPU."""
+    (K3's with ``causal``, K6's with ``bias``) on the card, its plain
+    version on the CPU."""
     if not _on_card(q, "flash_attention_bwd_dkdv"):
         return flash_attention_dkdv_reference(q, k, v, do, lse, delta, k_len,
                                               sm_scale, dropout_rate,
-                                              dropout_seed, causal)
+                                              dropout_seed, causal, bias)
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
+    if bias is not None:
+        check_bias(q, k, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, k_len,
-                (dk, dv), sm_scale, dropout_rate, dropout_seed, causal)
-    if causal:
-        flash_attention_bwd_dkdv.causal_launches += 1
-    else:
-        flash_attention_bwd_dkdv.launches += 1
+    _bwd_launch("flash_attention_bwd_dkdv", q, k, v, bias, do, lse, delta,
+                k_len, (dk, dv), sm_scale, dropout_rate, dropout_seed, causal)
+    _count_bwd(flash_attention_bwd_dkdv, bias, causal)
     return dk, dv
 
 
 for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
     _wrapper.launches = 0           # K2
     _wrapper.causal_launches = 0    # K3
+    _wrapper.bias_launches = 0      # K6
 
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor, *,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
-    causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    causal: bool = False, bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``:
     delta, then K2's (with ``causal`` K3's) two kernels on the card; the
-    plain version on the CPU."""
+    plain version on the CPU. With ``bias``, K6's: (dq, dk, dv, dbias)."""
     if not _on_card(q, "flash_attention_bwd"):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, k_len,
                                              sm_scale, dropout_rate,
-                                             dropout_seed, causal)
+                                             dropout_seed, causal, bias)
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o must match q: {tuple(o.shape)} {o.dtype}")
     delta = bwd_delta(o, do)
     kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed, causal=causal)
+              dropout_seed=dropout_seed, causal=causal, bias=bias)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, **kw)
     dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, **kw)
-    return dq, dk, dv
+    if bias is None:
+        return dq, dk, dv
+    dq, dbias = dq
+    return dq, dk, dv, dbias
 
 
 class FlashAttention(torch.autograd.Function):
@@ -498,11 +566,64 @@ flash_attention.causal_launches = 0             # K3-f
 flash_attention.causal_dropout_launches = 0     # K3-d
 
 
+class FlashAttentionBias(torch.autograd.Function):
+    """(o, lse) of K6/K6-d with gradients for q, k, v and the bias from
+    K6's backward (its plain backward, not autograd, on the CPU), as
+    ``_flash_b``'s VJP: dbias in the bias's dtype; none for k_len, the
+    scale, the rate or the seed, and none through lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, k_len, sm_scale, dropout_rate,
+                dropout_seed):
+        o, lse = _forward(q, k, v, k_len, sm_scale, dropout_rate,
+                          dropout_seed, False, bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse, k_len)
+        ctx.args = (sm_scale, dropout_rate, dropout_seed)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, bias, o, lse, k_len = ctx.saved_tensors
+        sm_scale, dropout_rate, dropout_seed = ctx.args
+        dq, dk, dv, dbias = flash_attention_bwd(
+            q, k, v, o, lse, do.to(q.dtype).contiguous(), k_len,
+            sm_scale=sm_scale, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed, bias=bias)
+        return dq, dk, dv, dbias, None, None, None, None
+
+
+def flash_attention_with_bias(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    k_len: torch.Tensor, *, sm_scale: Optional[float] = None,
+    dropout_rate: float = 0.0, dropout_seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of softmax((q k^T + bias) * sm_scale, keys c < k_len[b]) v,
+    differentiable in q, k, v and ``bias`` (the port of
+    ``flash_attention_with_bias``; non-causal).
+
+    ``bias`` (B, H, T_q, T_k), contiguous, in q's dtype, is added in fp32
+    before the scale (the relative-position term of the conformer's
+    attention built in device memory, ``rel_shift(q_v P^T)``); its gradient
+    is the pre-scale logit gradient. ``sm_scale`` defaults to 1/sqrt(d);
+    ``dropout_rate`` and ``dropout_seed`` as in ``flash_attention``.
+    """
+    check_bias(q, k, bias)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionBias.apply(q, k, v, bias, k_len, float(sm_scale),
+                                    float(dropout_rate), int(dropout_seed))
+
+
+flash_attention_with_bias.launches = 0          # K6
+flash_attention_with_bias.dropout_launches = 0  # K6-d
+
+
 def _fwd_kernel():
     from transformer_tts_tpu_torch.ops import cuda_build
     fn = cuda_build.load(KERNEL).flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
                           ctypes.c_int, ctypes.c_void_p])
@@ -516,10 +637,9 @@ def _bwd_kernels():
     tail = ([ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
                ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    for name, n_out in (("flash_attention_bwd_dq", 1),
-                        ("flash_attention_bwd_dkdv", 2)):
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
         fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * (7 + n_out) + tail
+        if fn.argtypes is None:   # 8 inputs (bias nullable), 2 outputs
+            fn.argtypes = [ctypes.c_void_p] * 10 + tail
             fn.restype = ctypes.c_int
     return lib

@@ -11,7 +11,9 @@ Training saves one directory per epoch, ``save_dir/epoch_N/``, holding
 synthesis ``--load_name``) and ``train_state.pt``: the step, the epoch, the
 generator's state and, when ``with_optimizer``, the optimizer's state.
 ``restore_train_checkpoint`` resumes from one; an epoch saved without the
-optimizer keeps the fresh one, as in the JAX package. Pruning and
+optimizer keeps the fresh one, as in the JAX package.
+``resolve_checkpoint`` picks the directory a synthesis ``--load_name``
+(with ``--epoch``) names, as the JAX package's ``_resolve_path``. Pruning and
 averaging come with ``cli/average_checkpoints`` (ROADMAP Queue 1 item 10).
 """
 
@@ -54,6 +56,21 @@ def list_epochs(save_dir: str) -> List[int]:
         return []
     return sorted(int(m.group(1)) for m in map(_EPOCH_RE.match,
                                                os.listdir(save_dir)) if m)
+
+
+def resolve_checkpoint(path_or_dir: str,
+                       epoch: Optional[int] = None) -> str:
+    """The checkpoint directory a synthesis ``--load_name`` names (the JAX
+    package's ``_resolve_path``): with ``epoch``, or for a directory whose
+    name is not ``epoch_N``/``average_N``, its ``epoch_<epoch>`` (default
+    the newest) when it holds any; else the directory itself."""
+    name = os.path.basename(os.path.normpath(path_or_dir))
+    if epoch is not None or not name.startswith(("epoch_", "average_")):
+        epochs = list_epochs(path_or_dir)
+        if epochs:
+            return epoch_dir(path_or_dir,
+                             epoch if epoch is not None else epochs[-1])
+    return path_or_dir
 
 
 def should_save(epoch: int, max_epoch: int, save_per_epoch: int) -> bool:
