@@ -9,20 +9,27 @@ non-zero, printing no result, without them. Phases, each fatal on failure
 and each printing its wall time:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every kernel of the paths (K1 and K1-d with K3's and K6's
-   forward, K2 with K3's and K6's backward, K4 and K4-d, K5), in
+2. build: every kernel of the paths (the Hopper design of the main
+   path's attention: K1/K1-d csrc/flash_fwd_sm90.cu and the fused K2
+   csrc/flash_bwd_sm90.cu; the simple K1 and K1-d with K3's and K6's
+   forward, K2 with K3's and K6's backward; K4 and K4-d, K5), in
    parallel, from the sources in the checkout;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    K1 (csrc/flash_attention_fwd.cu) and K4 (csrc/flash_relpos_fwd.cu):
    fp32 at 1e-4 on O and lse, bf16 against the plain version in fp32 on
    the same bf16 inputs at 2e-2 on O and 1e-3 on lse, rows with no valid
-   key exactly 0; kernel, plain and library times at the synthesis shapes.
+   key exactly 0, O bit for bit the same on a second launch; kernel,
+   plain and library times at the synthesis shapes. K1-90, the Hopper
+   design (csrc/flash_fwd_sm90.cu), likewise in bf16 (and at d = 64).
    K1-d (dropout 0.1) and K2 (csrc/flash_attention_bwd.cu, at dropout 0
    and 0.1 on the same seed) at k_len in {0, 1, 65, T}, T = 1000,
    T_q = 300 != T_k = 700, and the train step's (16, 4, 1024, 96) with
-   its batch's mel lengths as k_len: O, dq, dk, dv at 1e-4 (fp32) and
-   2e-2 (bf16) times that tensor's own max|ref|, lse as K1; dk and dv
-   exactly 0 for keys at or past k_len. K3, the causal mode of the same
+   k_len in {0, 1, 65, T}, with T_q = 768, and with its batch's mel
+   lengths as k_len: O, dq, dk, dv at 1e-4 (fp32) and 2e-2 (bf16) times
+   that tensor's own max|ref|, lse as K1; dk and dv exactly 0 for keys
+   at or past k_len; in bf16 on both designs, the Hopper one (K1-d-90
+   and the fused K2-90, csrc/flash_bwd_sm90.cu), whose launches must go
+   to its kernels, and the simple one. K3, the causal mode of the same
    kernels, likewise at the AR train step's (16, 4, 511, 96) with k_len
    1, 65, T and the AR batch's decoder groups, and at T_q != T_k both
    ways. K4-d (csrc/flash_relpos_fwd.cu with dropout) and K5
@@ -46,8 +53,9 @@ and each printing its wall time:
    (b) synthesize_fastspeech2 with predicted durations at B=1 / 768 frames
        and B=8 / 2048 frames: a main path, whose kernel launches are
        counted with every count set to 0 just before it (6 launches of
-       the path's kernel per call, one per decoder layer, and none of the
-       others), with ms and RTF;
+       the path's kernel per call, one per decoder layer -- K1-90 for the
+       transformer, K4 for the conformer -- and none of the others), with
+       ms and RTF;
    (c) the synthesis CLI as a subprocess on a 3-line script;
 5. training, the transformer FastSpeech 2 flagship at full width (bf16
    amp, dropout 0.1, Noam warmup 4000, clip 1.0):
@@ -64,8 +72,8 @@ and each printing its wall time:
    (b) the train step, the main path of training, on a fixed batch (B=16,
        text bucket 128, mel bucket 1024, 600-1000 frames per row): 3
        warm-up steps, then 10 timed with CUDA events, every launch count
-       set to 0 just before (6 K1-d, 6 K2 dq and 6 K2 dk/dv per step, no
-       other kernel); ms/step, mel frames/s, peak memory; the loss
+       set to 0 just before (6 K1-d-90 and 6 K2-90 per step, no other
+       kernel); ms/step, mel frames/s, peak memory; the loss
        finite; 3 steps under torch.profiler, printing the top 10 device
        operations (run in phase 9); then 20 steps with warmup_step 100
        whose loss must fall;
@@ -94,8 +102,9 @@ and each printing its wall time:
    (d)-(f) training as in 5: the card-vs-CPU step (383 decoder groups on
        K3-f and K3's backward), the timed step (6 K3-d, 6 K3 dq and 6 K3
        dk/dv per step, no other kernel), the two CLIs;
-7. each kernel at its main path's own captured input (K1, K4: the first
-   decoder layer of the B=8 synthesis call; K1-d and K2, K3-d and K3's
+7. each kernel at its main path's own captured input (K1-90, K4: the
+   first decoder layer of the B=8 synthesis call; K1-d-90 and K2-90, K3-d
+   and K3's
    backward: the first decoder layer of the FastSpeech 2 and the AR train
    step, held there against their plain versions as in 3; K4-d and K5:
    the first decoder layer of the conformer train step, likewise, the
@@ -103,7 +112,8 @@ and each printing its wall time:
    with the bias's gradient, the rel_shift adjoint and two products);
    K3-f: the first decoder layer of 6(a)'s bf16 forward): kernel, plain
    and library ms, bound (for K3 over the causal pairs the inputs
-   attend), error. K6, K6-d and K6's backward at the conformer step's
+   attend), error. The simple design's K1, K1-d, K2 dq and K2 dk/dv on
+   the same inputs, the same-run A/B ("A/B at ..." lines). K6, K6-d and K6's backward at the conformer step's
    input with the bias rel_shift(q_v P^T) built in device memory: the
    path that launches them is the route A/B of the conformer's attention
    core (route 1 K4-d and K5, route 2 the bias then K6), counted from 0,
@@ -111,9 +121,11 @@ and each printing its wall time:
    max|ref|, and the routes' forward and forward+backward times;
 8. attention-path timing, kernel against masked-fill, at T in
    {128, 256, 768, 2048}, for both attention modules;
-9. the profiles of 5(b), 5(e), 6(c) and 6(e), each on a state or model
-   built anew, after every timed phase: a profiler pass slows the host
-   work of the rest of its process.
+9. the profiles of 5(b), 5(e), 6(c) (B=1 and B=8: device operations per
+   decode step, the copies among them, the bf16 weight copies the graph
+   reads) and 6(e), each on a state or model built anew, after every
+   timed phase: a profiler pass slows the host work of the rest of its
+   process.
 
 It then prints the phases' wall times, the kernels line (JSON), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -145,7 +157,7 @@ FLAGSHIP = {}                 # HParams overrides; empty = the defaults
 # the two flagships: HParams overrides of the stacks, and the kernel that
 # carries each one's decoder attention
 PATHS = {
-    "transformer": ({}, "K1"),
+    "transformer": ({}, "K1-90"),
     "conformer": ({"encoder_type": "conformer",
                    "decoder_type": "conformer"}, "K4"),
 }
@@ -169,14 +181,24 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# a spin of ~2.5 ms at the H100's clock: the host enqueues the timed work
+# meanwhile, so the events around it time the device alone
+HOLD_CYCLES = 5_000_000
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up.
+    Before each, a spin kernel (``torch.cuda._sleep``) holds the stream
+    while the host enqueues ``fn``'s launches: the events time the
+    device's work, not the host's launch latency, which a kernel of
+    ~0.1 ms would not hide."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -185,20 +207,40 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def simple_flash_attention(q, k, v, k_len, *, sm_scale, dropout_rate=0.0,
+                           dropout_seed=0):
+    """K1/K1-d on the simple design (csrc/flash_attention_fwd.cu) in every
+    mode, the bf16 main path's included: the baseline of the same-run A/B
+    against the Hopper design. Counts on ``flash_attention.launches`` and
+    ``.dropout_launches``."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    return fa._forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed,
+                       False, design="simple")
+
+
 def kernels():
-    """Id -> (wrapper, plain version, the wrapper's name in
-    ops/attention.py, source, TPU kernel it replaces)."""
+    """Id -> (call, plain version, the kernel's name, source, TPU kernel it
+    replaces, (object, attribute) of its launch count). K1 is the simple
+    design, which the main path no longer takes in bf16; K1-90 the Hopper
+    design that it takes (``flash_attention``, the name the model calls
+    in ops/attention.py)."""
     from transformer_tts_tpu_torch.ops import flash_attention as k1
     from transformer_tts_tpu_torch.ops import flash_relpos as k4
+    jax_k1 = "transformer_tts_tpu/ops/flash_attention.py:90"
     return {
-        "K1": (k1.flash_attention, k1.flash_attention_fwd_reference,
+        "K1": (simple_flash_attention, k1.flash_attention_fwd_reference,
                k1.KERNEL, "transformer_tts_tpu_torch/csrc/"
-               "flash_attention_fwd.cu",
-               "transformer_tts_tpu/ops/flash_attention.py:90"),
+               "flash_attention_fwd.cu", jax_k1,
+               (k1.flash_attention, "launches")),
+        "K1-90": (k1.flash_attention, k1.flash_attention_fwd_reference,
+                  k1.SM90_KERNEL, "transformer_tts_tpu_torch/csrc/"
+                  "flash_fwd_sm90.cu", jax_k1,
+                  (k1.flash_attention, "sm90_launches")),
         "K4": (k4.flash_relpos_attention,
                k4.flash_relpos_attention_fwd_reference, k4.KERNEL,
                "transformer_tts_tpu_torch/csrc/flash_relpos_fwd.cu",
-               "transformer_tts_tpu/ops/flash_relpos.py:212"),
+               "transformer_tts_tpu/ops/flash_relpos.py:212",
+               (k4.flash_relpos_attention, "launches")),
     }
 
 
@@ -210,11 +252,20 @@ def train_kernels():
     from transformer_tts_tpu_torch.ops import flash_relpos as fr
     fwd = "transformer_tts_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd = "transformer_tts_tpu_torch/csrc/flash_attention_bwd.cu"
+    fwd90 = "transformer_tts_tpu_torch/csrc/flash_fwd_sm90.cu"
+    bwd90 = "transformer_tts_tpu_torch/csrc/flash_bwd_sm90.cu"
     rp_fwd = "transformer_tts_tpu_torch/csrc/flash_relpos_fwd.cu"
     rp_bwd = "transformer_tts_tpu_torch/csrc/flash_relpos_bwd.cu"
     jax_fa = "transformer_tts_tpu/ops/flash_attention.py"
     jax_rp = "transformer_tts_tpu/ops/flash_relpos.py"
     return {
+        # the FastSpeech 2 step's kernels: the Hopper design, then the
+        # simple one (the A/B's baseline; the fp32 card-vs-CPU step's)
+        "K1-d-90": (fa.flash_attention, "sm90_dropout_launches",
+                    "flash_fwd_sm90 dropout", fwd90, f"{jax_fa}:90"),
+        "K2-90": (fa.flash_attention_bwd_sm90, "launches",
+                  "flash_bwd_sm90 (dq, dk, dv fused)", bwd90,
+                  f"{jax_fa}:266"),
         "K1-d": (fa.flash_attention, "dropout_launches",
                  "flash_attention_fwd dropout", fwd, f"{jax_fa}:90"),
         "K2-dq": (fa.flash_attention_bwd_dq, "launches",
@@ -267,7 +318,7 @@ def bias_kernels():
 
 def counters() -> dict:
     """Id -> (object, attribute) of every kernel's launch count."""
-    out = {kid: (entry[0], "launches") for kid, entry in kernels().items()}
+    out = {kid: entry[5] for kid, entry in kernels().items()}
     out.update({kid: entry[:2] for kid, entry in train_kernels().items()})
     out.update({kid: entry[:2] for kid, entry in bias_kernels().items()})
     return out
@@ -295,7 +346,7 @@ def kernel_bound_ms(kid, tensors, k_len) -> tuple:
     """K1: 4*H*T_q*sum_b(k_len[b])*d operations, q, k, v, o moved once;
     K4: 6*H*T*sum_b(k_len[b])*d operations (q_u.K^T, q_v.P^T, P.V), q_u,
     q_v, k, v, o and p moved once; both also lse and k_len."""
-    q, k = tensors[0], tensors[1 if kid == "K1" else 2]
+    q, k = tensors[0], tensors[2 if kid == "K4" else 1]
     b, h, t_q, d = q.shape
     keys = k_len.clamp(max=k.shape[2]).double().sum().item()
     per_key = 6.0 if kid == "K4" else 4.0
@@ -308,12 +359,19 @@ def kernel_bound_ms(kid, tensors, k_len) -> tuple:
 
 def kernel_errors(kid, tensors, k_len):
     """(err_o, err_lse) of the kernel against the fp32 plain version on the
-    same inputs; fails unless rows with no valid key are exactly 0."""
+    same inputs; fails unless rows with no valid key are exactly 0 and a
+    second launch gives O bit for bit."""
     from transformer_tts_tpu_torch.ops.flash_attention import NEG_INF
     kernel, plain = kernels()[kid][:2]
+    obj, attr = kernels()[kid][5]
+    before = getattr(obj, attr)
     sm_scale = tensors[0].shape[-1] ** -0.5
     o, lse = kernel(*tensors, k_len, sm_scale=sm_scale)
+    again, _ = kernel(*tensors, k_len, sm_scale=sm_scale)
     torch.cuda.synchronize()
+    check(getattr(obj, attr) - before == 2,
+          f"{kid}: the launches went to another kernel than {kid}'s")
+    check(torch.equal(o, again), f"{kid}: a second launch gave another O")
     ro, rlse = plain(*(x.float() for x in tensors), k_len, sm_scale)
     empty = (k_len == 0)
     check(bool((o[empty] == 0).all()) and
@@ -327,7 +385,7 @@ def kernel_errors(kid, tensors, k_len):
 
 def kernel_inputs(kid, gen, b, h, t_q, t_k, d):
     """Random inputs of the kernel's shapes, on the card, in fp32."""
-    if kid == "K1":
+    if kid != "K4":
         shapes = [(b, h, t_q, d), (b, h, t_k, d), (b, h, t_k, d)]
     else:                               # q_u, q_v, k, v, p
         shapes = [(b, h, t_q, d)] * 4 + [(h, t_q, d)]
@@ -335,12 +393,15 @@ def kernel_inputs(kid, gen, b, h, t_q, t_k, d):
 
 
 def phase_kernel_vs_plain(gen):
+    k1_cases = [(1, 4, 768, 768, 96, [768]),
+                (8, 4, 2048, 2048, 96, [2048, 0, 1000, 1, 2047, 64, 65,
+                                        1500]),
+                (2, 4, 1000, 1000, 96, [1000, 333]),        # ragged T
+                (2, 4, 300, 700, 96, [700, 0])]             # T_q != T_k
     cases = {  # (B, H, T_q, T_k, d, k_len)
-        "K1": [(1, 4, 768, 768, 96, [768]),
-               (8, 4, 2048, 2048, 96, [2048, 0, 1000, 1, 2047, 64, 65,
-                                       1500]),
-               (2, 4, 1000, 1000, 96, [1000, 333]),         # ragged T
-               (2, 4, 300, 700, 96, [700, 0])],              # T_q != T_k
+        "K1": k1_cases,
+        # the Hopper design takes bf16 only (fp32 goes to K1), and d = 64
+        "K1-90": k1_cases + [(2, 4, 257, 257, 64, [257, 3])],
         "K4": [(1, 4, 768, 768, 96, [768]),
                (8, 4, 2048, 2048, 96, [2048, 0, 1, 64, 65, 2047, 1000,
                                        1500]),
@@ -352,6 +413,8 @@ def phase_kernel_vs_plain(gen):
             tensors = kernel_inputs(kid, gen, b, h, t_q, t_k, d)
             kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
             for dtype, (tol_o, tol_lse) in TOLS.items():
+                if kid == "K1-90" and dtype != torch.bfloat16:
+                    continue
                 err_o, err_lse = kernel_errors(
                     kid, [x.to(dtype) for x in tensors], kl)
                 print(f"{kid} vs plain ({b},{h},{t_q},{t_k},{d}) "
@@ -387,25 +450,45 @@ def max_err(got, ref) -> tuple:
 
 
 def check_train_kernels(q, k, v, do, k_len, rate, seed=DROPOUT_SEED,
-                        label="", causal=False) -> tuple:
+                        label="", causal=False, design=None) -> tuple:
     """K1/K1-d and K2 (with ``causal`` K3's forward and backward) on
-    (q, k, v, do) against the plain versions in fp32 on the same inputs.
-    O, dq, dk and dv must agree within REL_TOL times that tensor's own
-    max |ref| (the gradients reaching the decoder's attention in training
-    are ~1e-7), lse within TOLS' absolute limit; dk and dv exactly 0 for
-    keys at or past k_len. Returns ({name: max abs err}, {name: max |ref|},
-    o). Launch counts are left as they were."""
+    (q, k, v, do) against the plain versions in fp32 on the same inputs,
+    on the design ``flash_attention`` picks for the mode, or with
+    ``design="simple"`` on the simple kernels (the A/B's baseline); the
+    Hopper design's launches must have gone to its kernels. O, dq, dk and
+    dv must agree within REL_TOL times that tensor's own max |ref| (the
+    gradients reaching the decoder's attention in training are ~1e-7),
+    lse within TOLS' absolute limit; dk and dv exactly 0 for keys at or
+    past k_len. Returns ({name: max abs err}, {name: max |ref|}, o).
+    Launch counts are left as they were."""
     from transformer_tts_tpu_torch.ops import flash_attention as fa
-    fwd, bwd = ("K3", "K3") if causal else ("K1-d", "K2")
+    chosen = design or fa.select_design(q.dtype, causal, False, q.shape[-1])
+    fwd, bwd = (("K3", "K3") if causal else ("K1-d", "K2")
+                if chosen == "simple" else ("K1-d-90", "K2-90"))
     counts = read_counts()
     sm_scale = q.shape[-1] ** -0.5
+    kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
+              causal=causal)
     with torch.no_grad():
-        o, lse = fa.flash_attention(q, k, v, k_len, dropout_rate=rate,
-                                    dropout_seed=seed, causal=causal)
-        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, k_len,
-                                       sm_scale=sm_scale, dropout_rate=rate,
-                                       dropout_seed=seed, causal=causal)
+        if design == "simple":
+            o, lse = simple_flash_attention(
+                q, k, v, k_len, sm_scale=sm_scale, dropout_rate=rate,
+                dropout_seed=seed)
+            delta = fa.bwd_delta(o, do)
+            args = (q, k, v, do, lse, delta, k_len)
+            grads = (fa.flash_attention_bwd_dq(*args, **kw),
+                     *fa.flash_attention_bwd_dkdv(*args, **kw))
+        else:
+            o, lse = fa.flash_attention(q, k, v, k_len, dropout_rate=rate,
+                                        dropout_seed=seed, causal=causal)
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do, k_len, **kw)
         torch.cuda.synchronize()
+        if chosen == "sm90":
+            moved = {kid: n - counts[kid] for kid, n in read_counts().items()
+                     if n != counts[kid]}
+            want = {"K1-d-90" if rate else "K1-90": 1, "K2-90": 1}
+            check(moved == want, f"{fwd}/{bwd}{label}: launches {moved}, "
+                                 f"not {want}")
         f = [x.float() for x in (q, k, v)]
         ro, rlse = fa.flash_attention_fwd_reference(*f, k_len, sm_scale,
                                                     rate, seed, causal)
@@ -439,11 +522,16 @@ def check_train_kernels(q, k, v, do, k_len, rate, seed=DROPOUT_SEED,
 def phase_train_kernels_vs_plain(gen, train_k_len):
     """K1-d and K2 against their plain versions: k_len in {0, 1, 65, T},
     ragged T = 1000, T_q = 300 != T_k = 700, and the train step's shape
-    (16, 4, 1024, 96) with its batch's mel lengths as k_len; fp32 (TF32
-    off) and bf16; dropout 0 and 0.1 on the same seed."""
+    (16, 4, 1024, 96) with k_len in {0, 1, 65, T}, with T_q = 768 != T_k,
+    and with its batch's mel lengths as k_len; fp32 (TF32 off, the simple
+    kernels) and bf16 (the Hopper design, then the simple one); dropout 0
+    and 0.1 on the same seed."""
     b_train, _, t_train, _ = TRAIN_BATCH
+    edge = [t_train, 0, 1, 65] * (b_train // 4)
     cases = [(4, 4, 1000, 1000, 96, [1000, 0, 1, 65]),
              (2, 4, 300, 700, 96, [700, 65]),
+             (b_train, 4, t_train, t_train, 96, edge),
+             (b_train, 4, 768, t_train, 96, edge),
              (b_train, 4, t_train, t_train, 96, train_k_len.tolist())]
     for b, h, t_q, t_k, d, k_len in cases:
         q, do = (torch.randn(b, h, t_q, d, generator=gen).to(DEVICE)
@@ -451,15 +539,20 @@ def phase_train_kernels_vs_plain(gen, train_k_len):
         k, v = (torch.randn(b, h, t_k, d, generator=gen).to(DEVICE)
                 for _ in range(2))
         kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, design in ((torch.float32, None), (torch.bfloat16, None),
+                              (torch.bfloat16, "simple")):
             for rate in (0.0, 0.1):
                 errs, peaks, _ = check_train_kernels(
-                    *(x.to(dtype) for x in (q, k, v, do)), kl, rate)
-                print(f"K1-d/K2 vs plain ({b},{h},{t_q},{t_k},{d}) "
+                    *(x.to(dtype) for x in (q, k, v, do)), kl, rate,
+                    design=design)
+                name = ("K1-d/K2 simple" if dtype == torch.float32
+                        or design else "K1-d/K2 sm90")
+                print(f"{name} vs plain ({b},{h},{t_q},{t_k},{d}) "
                       f"{str(dtype)[6:]} rate {rate} k_len="
-                      f"{k_len if b <= 4 else 'the train batch'}: "
-                      + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
-                                 f"{peaks[n]:.3g})" for n, e in errs.items()))
+                      f"{k_len if len(set(k_len)) <= 4 else 'the train batch'}"
+                      ": " + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
+                                      f"{peaks[n]:.3g})"
+                                      for n, e in errs.items()))
 
 
 AR_GROUPS = 511                 # decoder groups at the 1024-frame bucket
@@ -677,12 +770,12 @@ def kernel_timings(kid, tensors, k_len) -> dict:
     import torch.nn.functional as F
     kernel, plain = kernels()[kid][:2]
     sm_scale = tensors[0].shape[-1] ** -0.5
-    launches = kernel.launches
+    counts = read_counts()
     res = {
         "ms": time_ms(lambda: kernel(*tensors, k_len, sm_scale=sm_scale)),
         "plain_ms": time_ms(lambda: plain(*tensors, k_len, sm_scale)),
     }
-    if kid == "K1":
+    if kid != "K4":
         q, k, v = tensors
         mask = (torch.arange(k.shape[2], device=q.device)[None, :]
                 < k_len[:, None])[:, None, None, :]
@@ -695,8 +788,7 @@ def kernel_timings(kid, tensors, k_len) -> dict:
         q, k, v, attn_mask=mask, scale=sm_scale))
     res["bound_ms"], res["bound_by"] = kernel_bound_ms(kid, tensors, k_len)
     res["max_abs_err"] = kernel_errors(kid, tensors, k_len)[0]
-    # these launches are not launches of the main path
-    kernel.launches = launches
+    set_counts(counts)      # these launches are not the main path's
     return res
 
 
@@ -835,7 +927,7 @@ def phase_synthesis(gen, name, stacks, kid):
               f"max_frames={max_frames} bf16 amp: {ms:.3f} ms/call "
               f"(median of 10), {mel_len.sum().item()} frames = "
               f"{audio_s:.3f} s audio, RTF {rtf:.6f}")
-    return hp, model, launches[kid], main_inputs
+    return hp, model, launches, main_inputs
 
 
 def phase_cli(name, stacks, hp, model):
@@ -924,6 +1016,7 @@ def print_profile(label: str, fn, n: int, ms_per_run: float):
         ms = device_us(e) / 1e3 / n
         print(f"  {ms:9.4f} ms {ms / busy_ms:6.1%} {e.count / n:8.1f}x "
               f"{e.key[:110]}")
+    return ops
 
 
 # ---- phase 5: training ------------------------------------------------------
@@ -1020,10 +1113,11 @@ def conformer_hparams(**overrides):
 def trainer(kind: str) -> dict:
     """A flagship's training: its hparams, state, step and batch makers,
     the overrides that zero its dropouts, the name of its decoder's
-    kernel-path attention, the ids of the kernels that carry it (forward
-    at rate 0, forward with dropout, dq, dk/dv), and the (module, name)
-    of the kernel path's forward and backward entries, whose calls the
-    timed step captures."""
+    kernel-path attention, the ids of the kernels that carry it in fp32
+    (forward at rate 0, forward with dropout, dq, dk/dv: the card-vs-CPU
+    step's) and in the bf16 train step (``step_kernels``: each launches
+    once per decoder layer), and the (module, name) of the kernel path's
+    forward and backward entries, whose calls the timed step captures."""
     from transformer_tts_tpu_torch.ops import attention
     from transformer_tts_tpu_torch.ops import flash_attention as fa
     from transformer_tts_tpu_torch.ops import flash_relpos as fr
@@ -1036,13 +1130,15 @@ def trainer(kind: str) -> dict:
         return dict(hparams=train_hparams, init=tr.init_fastspeech2_state,
                     make_step=tr.make_fastspeech2_train_step,
                     batch=train_batch, attn="attn", no_dropout=fs2_no_dropout,
-                    kernels=("K1", "K1-d", "K2-dq", "K2-dkdv"), **calls)
+                    kernels=("K1", "K1-d", "K2-dq", "K2-dkdv"),
+                    step_kernels=("K1-d-90", "K2-90"), **calls)
     if kind == "conformer":
         return dict(hparams=conformer_hparams,
                     init=tr.init_fastspeech2_state,
                     make_step=tr.make_fastspeech2_train_step,
                     batch=train_batch, attn="attn", no_dropout=fs2_no_dropout,
                     kernels=("K4", "K4-d", "K5-dq", "K5-dkdv"),
+                    step_kernels=("K4-d", "K5-dq", "K5-dkdv"),
                     fwd_call=(attention, "flash_relpos_attention"),
                     bwd_call=(fr, "flash_relpos_attention_bwd"))
     return dict(hparams=ar_hparams, init=tr.init_transformer_state,
@@ -1050,7 +1146,8 @@ def trainer(kind: str) -> dict:
                 batch=ar_train_batch, attn="attn_1",
                 no_dropout=dict(dropout=0.0, dropout_prenet=0.0,
                                 dropout_postnet=0.0),
-                kernels=("K3-f", "K3-d", "K3-dq", "K3-dkdv"), **calls)
+                kernels=("K3-f", "K3-d", "K3-dq", "K3-dkdv"),
+                step_kernels=("K3-d", "K3-dq", "K3-dkdv"), **calls)
 
 
 ADAM_EPS = 1e-9
@@ -1113,19 +1210,25 @@ def phase_card_vs_cpu(gen, kind):
     ref, ref_logs = spec["make_step"](hp, device="cpu")(ref, batch)
     lr = ref.optimizer.schedule(0)
     counts = read_counts()
-    results = {}
+    results, launched = {}, {}
     for amp in (False, True):
         hp = spec["hparams"](**dict(fp32, amp=amp))
         state = spec["init"](hp, device=DEVICE)
         state.model.load_state_dict(weights)
+        before = read_counts()
         state, logs = spec["make_step"](hp, device=DEVICE)(state, batch)
         torch.cuda.synchronize()
+        launched[amp] = {k: n - before[k] for k, n in read_counts().items()}
         results[amp] = (state, logs)
-    launched = {k: n - counts[k] for k, n in read_counts().items()}
     fwd, _, dq, dkdv = spec["kernels"]
-    check(launched[fwd] > 0 and launched[dq] > 0 and launched[dkdv] > 0,
-          f"{kind}: the card's step did not take {fwd}, {dq} and {dkdv}: "
-          f"{launched}")
+    check(all(launched[False][k] > 0 for k in (fwd, dq, dkdv)),
+          f"{kind}: the card's fp32 step did not take {fwd}, {dq} and "
+          f"{dkdv}: {launched[False]}")
+    if kind == "fastspeech2":     # bf16, no dropout: the Hopper design
+        check(launched[True]["K1-90"] > 0 and launched[True]["K2-90"] > 0
+              and not any(launched[True][k] for k in (fwd, dq, dkdv)),
+              f"{kind}: the card's bf16 step did not take K1-90 and K2-90 "
+              f"alone: {launched[True]}")
     set_counts(counts)
 
     state, logs = results[False]
@@ -1268,7 +1371,7 @@ def phase_train_step(batch, kind):
           f"({b * mel_len / ms * 1e3:.0f} bucket frames/s), peak memory "
           f"{peak_gb:.2f} GB; losses {[round(x, 4) for x in losses.tolist()]}")
     want = {k: 0 for k in counters()}
-    want.update({k: hp.n_layer_decoder for k in spec["kernels"][1:]})
+    want.update({k: hp.n_layer_decoder for k in spec["step_kernels"]})
     print(f"{kind} train main path: launches per step "
           f"{json.dumps(per_step[0])} (expect {json.dumps(want)}), total "
           f"{json.dumps(launches)}")
@@ -1573,6 +1676,56 @@ def stopping_bias(logits: np.ndarray, max_steps: int) -> float:
     return best
 
 
+def weight_casts(model, run) -> int:
+    """Casts (``aten.to``, ``aten._to_copy``) of the model's parameters to
+    another dtype while ``run()`` runs, seen by a TorchDispatchMode:
+    autocast's casts of the weights."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    params = {p.data_ptr(): p.dtype for p in model.parameters()}
+    casts = (torch.ops.aten.to, torch.ops.aten._to_copy)
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.overloadpacket in casts
+                    and args[0].data_ptr() in params
+                    and out.dtype != params[args[0].data_ptr()]):
+                self.n += 1
+            return out
+
+    with Count() as count:
+        run()
+    return count.n
+
+
+def phase_ar_decode_weight_casts(model, text, pos):
+    """One eager decode step on the card: the weight casts autocast makes
+    with the fp32 parameters, and with the graph's bf16 copies
+    (``DecodeWeights``) swapped in, as the graph captures the step: none."""
+    from transformer_tts_tpu_torch.infer import synthesize as synth
+    from transformer_tts_tpu_torch.ops.masks import pad_mask
+    src_mask = pad_mask(pos)
+    with torch.inference_mode():
+        e_outputs, _ = model.encode(text, src_mask)
+        cross = model.precompute_cross_kv(e_outputs)
+        weights = synth.DecodeWeights(model)
+
+        def step():
+            synth.ar_decode(model, e_outputs, src_mask, cross, 1, 0.5)
+        plain = weight_casts(model, step)
+        with weights.swapped_in():
+            swapped = weight_casts(model, step)
+    print(f"AR decode step B={text.shape[0]}: {plain} weight casts with the "
+          f"fp32 parameters, {swapped} with the {len(weights.slots)} bf16 "
+          f"copies the graph reads")
+    check(plain > 0 and swapped == 0,
+          f"AR decode step: {swapped} weight casts with the bf16 copies in")
+
+
 def phase_ar_synthesis(gen):
     """synthesize_transformer_tts at the flagship's width, bf16 amp,
     max_steps 500, B=1 and B=8: the main path replays the decode's CUDA
@@ -1642,6 +1795,8 @@ def phase_ar_synthesis(gen):
               f"steps: {g_len.tolist()}")
     with torch.no_grad():
         model.stop_token.bias.fill_(AR_STOP_BIAS)
+    for text, pos in batches:
+        phase_ar_decode_weight_casts(model, text, pos)
 
     for (b, name), (ms, (_, lengths)) in sorted(results.items()):
         audio_s = lengths.sum().item() * HOP_SECONDS
@@ -1651,9 +1806,9 @@ def phase_ar_synthesis(gen):
               f"{ms / MAX_AR_STEPS:.4f} ms per decode step, "
               f"{lengths.sum().item()} frames = {audio_s:.3f} s audio, RTF "
               f"{ms / 1e3 / audio_s:.6f}")
-    text, pos = batches[-1]
-    PROFILES.append(partial(profile_ar_synthesis, (text, pos),
-                            results[text.shape[0], "graph"][0]))
+    for text, pos in batches:
+        PROFILES.append(partial(profile_ar_synthesis, (text, pos),
+                                results[text.shape[0], "graph"][0]))
     del model
     torch.cuda.empty_cache()
 
@@ -1661,16 +1816,28 @@ def phase_ar_synthesis(gen):
 def profile_ar_synthesis(batch, ms_per_call):
     """``print_profile`` of one graphed ``synthesize_transformer_tts`` call
     on ``batch`` (text, positions) at AR_STOP_BIAS, after the call that
-    captures its graphs."""
-    from transformer_tts_tpu_torch.infer.synthesize import (
-        synthesize_transformer_tts)
+    captures its graphs; then the device operations per decode step (all
+    of the call's over its MAX_AR_STEPS steps; the encoder and postnet add
+    a few dozen), the copy kernels among them, and the bf16 weight copies
+    the graph reads in place of as many per-step casts."""
+    from transformer_tts_tpu_torch.infer import synthesize as synth
     _, model = ar_model(DEVICE, amp=True)
     with torch.no_grad():
         model.stop_token.bias.fill_(AR_STOP_BIAS)
-    call = partial(synthesize_transformer_tts, model, *batch)
+    call = partial(synth.synthesize_transformer_tts, model, *batch)
     call()
-    print_profile(f"AR graphed synthesis B={batch[0].shape[0]}, one call",
-                  call, 1, ms_per_call)
+    b = batch[0].shape[0]
+    ops = print_profile(f"AR graphed synthesis B={b}, one call", call, 1,
+                        ms_per_call)
+    steps = synth.MAX_AR_STEPS
+    per_step = sum(e.count for e in ops) / steps
+    copies = sum(e.count for e in ops if "copy" in e.key.lower()) / steps
+    slots = sum(len(g.weights.slots)
+                for g in synth._AR_GRAPHS[model].values())
+    print(f"AR graphed synthesis B={b}: {per_step:.1f} device operations "
+          f"per decode step, {copies:.1f} of them copy kernels; the graph "
+          f"reads {slots} bf16 weight copies (DecodeWeights) instead of "
+          f"casting them at every step")
 
 
 # ---- phase 7: the kernels at their main paths' inputs -----------------------
@@ -1698,21 +1865,21 @@ def sdpa_mask(t_q: int, t_k: int, k_len, causal: bool):
 
 
 def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
-    """The training kernels at the train step's captured input -- K1-d,
-    K2-dq and K2-dkdv, or with ``causal`` K3-d, K3-dq and K3-dkdv: kernel,
-    plain and library ms, the bound, and each kernel against its fp32
-    plain version there (``check_train_kernels``: O, dq, dk and dv within
-    2e-2 of their own max |ref| in bf16), with the O the step's forward
-    gave equal bit for bit to a second launch on the same seed. The
-    library calls are SDPA with the key mask (with ``causal`` the pad-and-
-    causal mask) and the same dropout rate, forward and backward (the
-    backward one gives dq, dk and dv together, the yardstick of both
-    backward entries). The bounds count the (row, key) pairs these inputs
+    """The training kernels at the train step's captured input -- the
+    FastSpeech 2 step's K1-d-90 and K2-90 (the Hopper design it runs) and,
+    in the same run, the simple design's K1-d, K2-dq and K2-dkdv on the
+    same input (the A/B); or with ``causal`` K3-d, K3-dq and K3-dkdv:
+    kernel, plain and library ms, the bound, and each kernel against its
+    fp32 plain version there (``check_train_kernels``: O, dq, dk and dv
+    within 2e-2 of their own max |ref| in bf16), with the O the step's
+    forward gave equal bit for bit to a second launch on the same seed.
+    The library calls are SDPA with the key mask (with ``causal`` the
+    pad-and-causal mask) and the same dropout rate, forward and backward
+    (the backward one gives dq, dk and dv together, the yardstick of every
+    backward entry). The bounds count the (row, key) pairs these inputs
     attend (``attended_pairs``)."""
     import torch.nn.functional as F
     from transformer_tts_tpu_torch.ops import flash_attention as fa
-    fwd_id, dq_id, dkdv_id = (("K3-d", "K3-dq", "K3-dkdv") if causal
-                              else ("K1-d", "K2-dq", "K2-dkdv"))
     counts = read_counts()
     (q, k, v, k_len), fkw = fwd_inputs
     (bq, bk, bv, o, lse, do, bk_len), bkw = bwd_inputs
@@ -1723,71 +1890,119 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
           and fkw.get("causal", False) == causal
           and bkw.get("causal", False) == causal,
           "the captured backward is not the captured forward's")
-    errs, peaks, o_again = check_train_kernels(q, k, v, do, k_len, rate,
-                                               seed, " (train step input)",
-                                               causal=causal)
-    check(torch.equal(o_again, o), f"{fwd_id} gave another O on the same "
-                                   f"input and seed than in the train step")
     sm_scale = q.shape[-1] ** -0.5
     b, h, t_q, d = q.shape
     mask = sdpa_mask(t_q, k.shape[2], k_len.clamp(max=k.shape[2]), causal)
     pairs = attended_pairs(t_q, k_len.clamp(max=k.shape[2]), causal)
     el = q.element_size()
+    fwd_bound = bound_ms(4 * h * pairs * d,
+                         (4 * q.numel()) * el + b * h * t_q * 4, q.dtype)
+    in_bytes = 4 * q.numel() * el + 2 * b * h * t_q * 4   # q,k,v,dO
+    pair_bound = bound_ms(10 * h * pairs * d, 8 * q.numel() * el, q.dtype)
+    kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed)
+    res = {}
     with torch.no_grad():
-        res = {fwd_id: {
-            "ms": time_ms(lambda: fa.flash_attention(
-                q, k, v, k_len, dropout_rate=rate, dropout_seed=seed,
-                causal=causal)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
-                q, k, v, k_len, sm_scale, rate, seed, causal)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, dropout_p=rate, scale=sm_scale)),
-            "max_abs_err": errs["o"], "max_abs_ref": peaks["o"]}}
-        res[fwd_id]["bound_ms"], res[fwd_id]["bound_by"] = bound_ms(
-            4 * h * pairs * d, (4 * q.numel()) * el + b * h * t_q * 4,
-            q.dtype)
-        rate0_ms = time_ms(lambda: fa.flash_attention(q, k, v, k_len,
-                                                      causal=causal))
-
+        library_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=rate, scale=sm_scale))
+        plain_fwd = time_ms(lambda: fa.flash_attention_fwd_reference(
+            q, k, v, k_len, sm_scale, rate, seed, causal))
         delta = fa.bwd_delta(o, do)
         args = (q, k, v, do, lse, delta, k_len)
-        kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
-                  causal=causal)
-        in_bytes = 4 * q.numel() * el + 2 * b * h * t_q * 4   # q,k,v,dO
-        res[dq_id] = {
-            "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_dq_reference(
-                *args, sm_scale, rate, seed, causal)),
-            "max_abs_err": errs["dq"], "max_abs_ref": peaks["dq"]}
-        res[dq_id]["bound_ms"], res[dq_id]["bound_by"] = bound_ms(
-            6 * h * pairs * d, in_bytes + q.numel() * el, q.dtype)
-        res[dkdv_id] = {
-            "ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(*args, **kw)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_dkdv_reference(
-                *args, sm_scale, rate, seed, causal)),
-            "max_abs_err": max(errs["dk"], errs["dv"]),
-            "max_abs_ref": max(peaks["dk"], peaks["dv"])}
-        res[dkdv_id]["bound_ms"], res[dkdv_id]["bound_by"] = bound_ms(
-            8 * h * pairs * d, in_bytes + 2 * q.numel() * el, q.dtype)
-        pair_bound = bound_ms(10 * h * pairs * d, 8 * q.numel() * el,
-                              q.dtype)
+        plain_dq = time_ms(lambda: fa.flash_attention_dq_reference(
+            *args, sm_scale, rate, seed, causal))
+        plain_dkdv = time_ms(lambda: fa.flash_attention_dkdv_reference(
+            *args, sm_scale, rate, seed, causal))
+        designs = (("simple",) if causal else ("sm90", "simple"))
+        for design in designs:
+            errs, peaks, o_again = check_train_kernels(
+                q, k, v, do, k_len, rate, seed, " (train step input)",
+                causal=causal,
+                design="simple" if design == "simple" and not causal
+                else None)
+            if design == "sm90" or causal:     # what the step itself ran
+                check(torch.equal(o_again, o),
+                      f"{design}: another O on the same input and seed than "
+                      f"in the train step")
+            if causal:
+                fwd_id, ids = "K3-d", ("K3-dq", "K3-dkdv")
+            elif design == "simple":
+                fwd_id, ids = "K1-d", ("K2-dq", "K2-dkdv")
+            else:
+                fwd_id, ids = "K1-d-90", ("K2-90",)
+            if design == "simple" and not causal:
+                fwd_call = partial(simple_flash_attention, q, k, v, k_len,
+                                   **kw)
+            else:
+                fwd_call = partial(fa.flash_attention, q, k, v, k_len,
+                                   dropout_rate=rate, dropout_seed=seed,
+                                   causal=causal)
+            res[fwd_id] = {
+                "ms": time_ms(fwd_call), "plain_ms": plain_fwd,
+                "library_ms": library_fwd, "max_abs_err": errs["o"],
+                "max_abs_ref": peaks["o"]}
+            res[fwd_id]["bound_ms"], res[fwd_id]["bound_by"] = fwd_bound
+            print(f"{fwd_id}/{'/'.join(ids)} vs plain at the train step's "
+                  f"input: " + " ".join(
+                      f"max|d{n}|={e:.3g} (max|ref| {peaks[n]:.3g})"
+                      for n, e in errs.items()))
+            if design == "sm90":
+                res["K2-90"] = {
+                    "ms": time_ms(lambda: fa.flash_attention_bwd_sm90(
+                        *args, **kw)),
+                    "plain_ms": plain_dq + plain_dkdv,
+                    "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
+                    "max_abs_ref": max(peaks[n] for n in ("dq", "dk", "dv"))}
+                res["K2-90"]["bound_ms"], res["K2-90"]["bound_by"] = (
+                    pair_bound)
+                continue
+            dq_id, dkdv_id = ids
+            bkw = dict(kw, causal=causal)
+            res[dq_id] = {
+                "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args,
+                                                                **bkw)),
+                "plain_ms": plain_dq,
+                "max_abs_err": errs["dq"], "max_abs_ref": peaks["dq"]}
+            res[dq_id]["bound_ms"], res[dq_id]["bound_by"] = bound_ms(
+                6 * h * pairs * d, in_bytes + q.numel() * el, q.dtype)
+            res[dkdv_id] = {
+                "ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(*args,
+                                                                  **bkw)),
+                "plain_ms": plain_dkdv,
+                "max_abs_err": max(errs["dk"], errs["dv"]),
+                "max_abs_ref": max(peaks["dk"], peaks["dv"])}
+            res[dkdv_id]["bound_ms"], res[dkdv_id]["bound_by"] = bound_ms(
+                8 * h * pairs * d, in_bytes + 2 * q.numel() * el, q.dtype)
+        rate0 = time_ms(lambda: fa.flash_attention(q, k, v, k_len,
+                                                   causal=causal))
     lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
     lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
                                         dropout_p=rate, scale=sm_scale)
     library_bwd = time_ms(lambda: torch.autograd.grad(
         lo, (lq, lk, lv), do, retain_graph=True))
-    res[dq_id]["library_ms"] = res[dkdv_id]["library_ms"] = library_bwd
+    for kid in res:
+        if kid not in (("K3-d",) if causal else ("K1-d", "K1-d-90")):
+            res[kid]["library_ms"] = library_bwd
     set_counts(counts)
-    print(f"{fwd_id}/{dq_id}/{dkdv_id} vs plain at the train step's input: "
-          + " ".join(f"max|d{n}|={e:.3g} (max|ref| {peaks[n]:.3g})"
-                     for n, e in errs.items())
-          + "; O equal to the step's")
-    print(f"{fwd_id} at rate 0 on the same input: {rate0_ms:.4f} ms against "
-          f"{res[fwd_id]['ms']:.4f} ms with dropout")
-    print(f"{dq_id} + {dkdv_id} as a pair at that input: "
-          f"{res[dq_id]['ms'] + res[dkdv_id]['ms']:.4f} ms against the "
-          f"bound of the five products, {pair_bound[0]:.4f} ms "
-          f"({pair_bound[1]}); SDPA backward {library_bwd:.4f} ms")
+    if causal:
+        print(f"K3-d at rate 0 on the same input: {rate0:.4f} ms against "
+              f"{res['K3-d']['ms']:.4f} ms with dropout")
+        print(f"K3-dq + K3-dkdv as a pair at that input: "
+              f"{res['K3-dq']['ms'] + res['K3-dkdv']['ms']:.4f} ms against "
+              f"the bound of the five products, {pair_bound[0]:.4f} ms "
+              f"({pair_bound[1]}); SDPA backward {library_bwd:.4f} ms")
+        return res
+    simple_pair = res["K2-dq"]["ms"] + res["K2-dkdv"]["ms"]
+    print(f"A/B at the FastSpeech 2 train step's input {tuple(q.shape)} "
+          f"rate {rate}: forward, Hopper design (K1-d-90) "
+          f"{res['K1-d-90']['ms']:.4f} ms against the simple design (K1-d) "
+          f"{res['K1-d']['ms']:.4f} ms ({res['K1-d']['ms'] / res['K1-d-90']['ms']:.2f}x), "
+          f"SDPA {library_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms; "
+          f"K1-90 at rate 0 {rate0:.4f} ms; backward, fused (K2-90) "
+          f"{res['K2-90']['ms']:.4f} ms against the simple pair "
+          f"{simple_pair:.4f} ms ({simple_pair / res['K2-90']['ms']:.2f}x), "
+          f"SDPA backward {library_bwd:.4f} ms, bound of the five products "
+          f"{pair_bound[0]:.4f} ms ({pair_bound[1]}); saving per decoder "
+          f"layer {res['K1-d']['ms'] - res['K1-d-90']['ms'] + simple_pair - res['K2-90']['ms']:.4f} ms")
     return res
 
 
@@ -2113,7 +2328,7 @@ def phase_attention_paths(gen):
     from transformer_tts_tpu_torch.ops.flash_attention import flash_attention
     from transformer_tts_tpu_torch.ops.flash_relpos import (
         flash_relpos_attention)
-    launches = flash_attention.launches, flash_relpos_attention.launches
+    counts = read_counts()
     for t in (128, 256, 768, 2048):
         q_u, q_v, k, v, p = (x.to(torch.bfloat16) for x in
                              kernel_inputs("K4", gen, 8, 4, t, t, 96))
@@ -2126,11 +2341,11 @@ def phase_attention_paths(gen):
                                                    k_len)),
             time_ms(lambda: attention.relative_dot_attention(
                 q_u, q_v, k, v, p[None], mask))]
-        print(f"attention B=8 H=4 d=96 bf16 T={t}: K1 path {times[0]:.4f} "
-              f"ms, masked-fill path {times[1]:.4f} ms; K4 path "
-              f"{times[2]:.4f} ms, relative masked-fill path "
+        print(f"attention B=8 H=4 d=96 bf16 T={t}: K1 path (the Hopper "
+              f"design) {times[0]:.4f} ms, masked-fill path {times[1]:.4f} "
+              f"ms; K4 path {times[2]:.4f} ms, relative masked-fill path "
               f"{times[3]:.4f} ms")
-    flash_attention.launches, flash_relpos_attention.launches = launches
+    set_counts(counts)
 
 
 def kernels_line_entry(name, source, replaces, launches, res) -> dict:
@@ -2168,12 +2383,15 @@ def main():
 
     registry = kernels()
     names = sorted({entry[2] for entry in registry.values()}
-                   | {"flash_attention_bwd", "flash_relpos_bwd"})
+                   | {"flash_attention_bwd", "flash_relpos_bwd",
+                      "flash_bwd_sm90"})
     with phase("build"):
         cuda_build.build(names)
+    print("build seconds (all started together): " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in cuda_build.BUILD_SECONDS.items()))
     for name in names:
         for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "wgmma" in line:
                 print(f"  ptxas {name}:", line.strip())
 
     gen = torch.Generator().manual_seed(0)
@@ -2227,21 +2445,35 @@ def main():
 
     lines = []
     with phase("kernels at their main paths' inputs"):
-        for kid, (launches, main_inputs) in main_runs.items():
+        for path_kid, (launches, main_inputs) in main_runs.items():
             tensors, k_len = list(main_inputs[:-1]), main_inputs[-1]
-            res = kernel_timings(kid, tensors, k_len)
-            print(f"{kid} at the main path's input "
-                  f"{tuple(tensors[0].shape)} {str(tensors[0].dtype)[6:]}, "
-                  f"k_len {k_len.tolist()}: kernel {res['ms']:.4f} ms, "
-                  f"plain {res['plain_ms']:.4f} ms, library "
-                  f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
-                  f"ms ({res['bound_by']}), max|dO| {res['max_abs_err']:.3g}")
-            if "bias_ms" in res:
-                print(f"{kid} library yardstick leaves out building its "
-                      f"bias: {res['bias_ms']:.4f} ms")
-            _, _, name, source, replaces = registry[kid]
-            lines.append(kernels_line_entry(name, source, replaces,
-                                            launches, res))
+            # the transformer's path runs K1-90; the simple K1 is timed on
+            # the same input for the A/B
+            ab = {}
+            for kid in ((path_kid, "K1") if path_kid == "K1-90"
+                        else (path_kid,)):
+                res = ab[kid] = kernel_timings(kid, tensors, k_len)
+                print(f"{kid} at the main path's input "
+                      f"{tuple(tensors[0].shape)} "
+                      f"{str(tensors[0].dtype)[6:]}, k_len "
+                      f"{k_len.tolist()}: kernel {res['ms']:.4f} ms, plain "
+                      f"{res['plain_ms']:.4f} ms, library "
+                      f"{res['library_ms']:.4f} ms, bound "
+                      f"{res['bound_ms']:.4f} ms ({res['bound_by']}), "
+                      f"max|dO| {res['max_abs_err']:.3g}, launches "
+                      f"{launches[kid]}")
+                if "bias_ms" in res:
+                    print(f"{kid} library yardstick leaves out building its "
+                          f"bias: {res['bias_ms']:.4f} ms")
+                _, _, name, source, replaces, _ = registry[kid]
+                lines.append(kernels_line_entry(name, source, replaces,
+                                                launches[kid], res))
+            if len(ab) == 2:
+                print(f"A/B at the B=8 synthesis call's first decoder "
+                      f"layer: K1-90 {ab['K1-90']['ms']:.4f} ms against the "
+                      f"simple K1 {ab['K1']['ms']:.4f} ms "
+                      f"({ab['K1']['ms'] / ab['K1-90']['ms']:.2f}x), SDPA "
+                      f"{ab['K1-90']['library_ms']:.4f} ms")
         runs = {}                 # id -> (result, launches, its input)
         for kid, res in train_kernel_timings(fwd_inputs,
                                              bwd_inputs).items():

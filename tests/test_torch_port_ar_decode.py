@@ -159,3 +159,117 @@ def test_autocast_keeps_its_weight_cache_outside_a_capture(model):
     finally:
         model.amp = False
     assert np.isfinite(float(x.sum()))
+
+
+def _amp_decode(model, text, pos_text, steps, weights=None):
+    src_mask = pad_mask(pos_text)
+    e_outputs, _ = model.encode(text, src_mask)
+    cross = model.precompute_cross_kv(e_outputs)
+    if weights is None:
+        return synth.ar_decode(model, e_outputs, src_mask, cross, steps, 2.0)
+    with weights.swapped_in():
+        return synth.ar_decode(model, e_outputs, src_mask, cross, steps, 2.0)
+
+
+def test_bf16_decode_weights_give_autocasts_bits(model):
+    # the graph's weights: bf16 copies swapped in, so autocast casts none
+    # of them; the decode must be the eager loop's bit for bit
+    text, pos_text = (torch.as_tensor(x) for x in _text(6))
+    model.amp = True
+    try:
+        with torch.inference_mode():
+            weights = synth.DecodeWeights(model)
+            ref = _amp_decode(model, text.long(), pos_text, 6)
+            got = _amp_decode(model, text.long(), pos_text, 6, weights)
+    finally:
+        model.amp = False
+    assert ref["groups"].abs().max() > 0
+    assert torch.equal(got["groups"], ref["groups"])
+    assert torch.equal(got["length"], ref["length"])
+
+
+def test_bf16_decode_weights_cover_the_step_and_refresh_in_place(model):
+    model.amp = True
+    try:
+        with torch.inference_mode():
+            weights = synth.DecodeWeights(model)
+    finally:
+        model.amp = False
+    linear = [m for part in (model.decoder, model.out, model.stop_token)
+              for m in part.modules()
+              if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d))]
+    assert {id(m) for m, _, _ in weights.slots} == {id(m) for m in linear}
+    assert all(c.dtype == torch.bfloat16 for _, _, c in weights.slots)
+    assert not any(isinstance(m, torch.nn.LayerNorm)
+                   for m, _, _ in weights.slots)
+    before = [m._parameters[n] for m, n, _ in weights.slots]
+    with weights.swapped_in():
+        assert model.stop_token.bias.dtype == torch.bfloat16
+    assert [m._parameters[n] for m, n, _ in weights.slots] == before
+    slot = next(s for s in weights.slots if s[0] is model.stop_token
+                and s[1] == "bias")
+    address = slot[2].data_ptr()
+    old = model.stop_token.bias.detach().clone()
+    try:
+        with torch.no_grad():
+            model.stop_token.bias.fill_(-3.0)
+        with torch.inference_mode():
+            weights.refresh()
+        assert slot[2].data_ptr() == address      # the graph's address
+        assert torch.equal(slot[2], torch.full_like(slot[2], -3.0))
+    finally:
+        with torch.no_grad():
+            model.stop_token.bias.copy_(old)
+    with torch.inference_mode():
+        weights.refresh()
+    assert torch.equal(slot[2], old.to(torch.bfloat16))
+
+
+def test_fp32_model_keeps_no_decode_weight_copies(model):
+    assert not model.amp
+    assert synth.DecodeWeights(model).slots == []
+
+
+def _weight_casts(model, run) -> int:
+    """Casts (``aten.to``, ``aten._to_copy``) of the model's parameters to
+    another dtype while ``run()`` runs: autocast's casts of the weights."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    params = {p.data_ptr(): p.dtype for p in model.parameters()}
+    casts = (torch.ops.aten.to, torch.ops.aten._to_copy)
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.overloadpacket in casts
+                    and args[0].data_ptr() in params
+                    and out.dtype != params[args[0].data_ptr()]):
+                self.n += 1
+            return out
+
+    with Count() as count:
+        run()
+    return count.n
+
+
+def test_decode_step_casts_no_weight_with_the_copies_in(model):
+    text, pos_text = (torch.as_tensor(x) for x in _text(4))
+    src_mask = pad_mask(pos_text)
+    model.amp = True
+    try:
+        with torch.inference_mode():
+            e_outputs, _ = model.encode(text.long(), src_mask)
+            cross = model.precompute_cross_kv(e_outputs)
+            weights = synth.DecodeWeights(model)
+
+            def step():
+                synth.ar_decode(model, e_outputs, src_mask, cross, 1, 2.0)
+            plain = _weight_casts(model, step)
+            with weights.swapped_in():
+                swapped = _weight_casts(model, step)
+    finally:
+        model.amp = False
+    assert plain > 0 and swapped == 0

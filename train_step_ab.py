@@ -33,8 +33,12 @@ def measure(root: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cuda_build.build(["flash_attention_fwd", "flash_attention_bwd",
-                      "flash_relpos_fwd", "flash_relpos_bwd"])
+    # every kernel source the checkout has (the parent may lack the newer)
+    cuda_build.build([n for n in ("flash_attention_fwd",
+                                  "flash_attention_bwd", "flash_fwd_sm90",
+                                  "flash_bwd_sm90", "flash_relpos_fwd",
+                                  "flash_relpos_bwd")
+                      if (cuda_build.CSRC / f"{n}.cu").exists()])
     gen = torch.Generator().manual_seed(0)
     b, text_len, mel_len, frames = cs.TRAIN_BATCH
     fs2 = cs.train_batch(gen, cs.train_hparams(), b, text_len, mel_len,

@@ -15,16 +15,20 @@ runs as a CUDA graph of ``DONE_CHECK_EVERY`` steps, captured once per
 (model, batch size, text length, ``max_steps``, dtype, stop threshold)
 and replayed, the counterpart of the JAX package's compiled
 ``while_loop``; the eager loop (``ar_decode``) is what the graph captures,
-runs on the CPU, and is the graph's reference on the card.
+runs on the CPU, and is the graph's reference on the card. Under bf16
+amp the graph reads bf16 copies of the step's matmul and conv weights
+(``DecodeWeights``), so it replays no cast of them at every step.
 """
 
 from __future__ import annotations
 
 import random
 import weakref
-from typing import Callable, Dict, Optional, Tuple
+from contextlib import contextmanager
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch import nn
 
 from transformer_tts_tpu_torch.models.fastspeech2 import FastSpeech2
 from transformer_tts_tpu_torch.models.transformer_tts import TransformerTTS
@@ -167,13 +171,65 @@ def ar_decode(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
     return carry
 
 
+class DecodeWeights:
+    """bf16 copies of the weights and biases of every ``nn.Linear`` and
+    ``nn.Conv1d`` that ``decode_step`` runs (the decoder, ``out``,
+    ``stop_token``), for a bf16-amp model: with them swapped in, autocast
+    finds those operands in bf16 already and casts nothing, where it would
+    otherwise cast each fp32 weight at every step. The copies round as
+    autocast does (``Tensor.to``), so the results are the same bits.
+    LayerNorm's parameters stay fp32, as autocast runs LayerNorm in fp32.
+
+    ``refresh`` re-copies, into the same tensors (a captured graph keeps
+    their addresses), when a parameter changed since the last copy: a new
+    tensor in its place, or an in-place write (its ``_version``)."""
+
+    def __init__(self, model: TransformerTTS):
+        self.slots: List[Tuple[nn.Module, str, torch.Tensor]] = []
+        if model.amp:
+            for part in (model.decoder, model.out, model.stop_token):
+                for mod in part.modules():
+                    if isinstance(mod, (nn.Linear, nn.Conv1d)):
+                        self.slots += [
+                            (mod, name, p.detach().to(torch.bfloat16))
+                            for name, p in mod._parameters.items()
+                            if p is not None]
+        self.stamp = self._stamp()
+
+    def _stamp(self):
+        return [(id(p), p.data_ptr(), p._version)
+                for p in (mod._parameters[name] for mod, name, _ in
+                          self.slots)]
+
+    def refresh(self) -> None:
+        stamp = self._stamp()
+        if stamp != self.stamp:
+            for mod, name, copy in self.slots:
+                copy.copy_(mod._parameters[name].detach())
+            self.stamp = stamp
+
+    @contextmanager
+    def swapped_in(self):
+        """The bf16 copies in place of the parameters, for a capture."""
+        saved = [mod._parameters[name] for mod, name, _ in self.slots]
+        try:
+            for mod, name, copy in self.slots:
+                mod._parameters[name] = copy
+            yield
+        finally:
+            for (mod, name, _), p in zip(self.slots, saved):
+                mod._parameters[name] = p
+
+
 class _ARGraph:
     """The decode loop as CUDA graphs on one carry: a block of
     ``DONE_CHECK_EVERY`` steps and, when that does not divide
     ``max_steps``, the tail block, sharing one memory pool. The encoder
     outputs, the mask and the cross K/V are copied into static tensors
-    before each decode. Built by warming the step up on a side stream,
-    then capturing; a failed capture raises."""
+    before each decode, and the bf16 weight copies (``DecodeWeights``)
+    refreshed if a weight changed. Built by warming the step up on a side
+    stream, then capturing, both with the copies swapped in; a failed
+    capture raises."""
 
     def __init__(self, model: TransformerTTS, e_outputs, src_mask,
                  cross_kvs, max_steps: int, stop_threshold: float):
@@ -186,9 +242,10 @@ class _ARGraph:
                               e_outputs.device)
         body = _ar_body(model, self.e_outputs, self.src_mask,
                         self.cross_kvs, stop_threshold)
+        self.weights = DecodeWeights(model)
         side = torch.cuda.Stream(e_outputs.device)
         side.wait_stream(torch.cuda.current_stream(e_outputs.device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), self.weights.swapped_in():
             for _ in range(min(3, max_steps)):
                 body(self.carry)
         torch.cuda.current_stream(e_outputs.device).wait_stream(side)
@@ -198,7 +255,8 @@ class _ARGraph:
                          max_steps % DONE_CHECK_EVERY} - {0}, reverse=True):
             _ar_reset(self.carry, max_steps)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
+            with self.weights.swapped_in(), \
+                    torch.cuda.graph(graph, pool=pool):
                 for _ in range(n):
                     body(self.carry)
             pool = graph.pool()
@@ -210,6 +268,7 @@ class _ARGraph:
         for static, fresh in zip(self.cross_kvs, cross_kvs):
             for s, f in zip(static, fresh):
                 s.copy_(f)
+        self.weights.refresh()
         _ar_reset(self.carry, self.max_steps)
         _run_blocks(lambda n: self.graphs[n].replay(), self.carry["done"],
                     self.max_steps)

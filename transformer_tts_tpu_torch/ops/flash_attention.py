@@ -54,16 +54,29 @@ over 64-row tiles of the other sequence staged in shared memory, fp32
 statistics and accumulators, WMMA tensor-core products for bf16 and FMA
 products for fp32; see the sources. PERF.md holds their measured times.
 
+The main path's mode -- bf16, non-causal, no bias, d in ``SM90_HEAD_DIMS``,
+16-byte aligned inputs -- has a second design written for Hopper
+(``select_design`` picks it; nothing falls back from one to the other):
+
+* K1 and K1-d, ``csrc/flash_fwd_sm90.cu``: TMA loads into a ring of
+  mbarrier-guarded stages, a producer warpgroup and two consumer
+  warpgroups, ``wgmma`` products with the softmax and O in registers.
+* K2, ``csrc/flash_bwd_sm90.cu``: one fused kernel per 128 keys, five
+  products per tile pair, dK and dV in registers, dq summed with fp32
+  atomics into a zeroed accumulator (``flash_attention_bwd_sm90``).
+
 ``flash_attention`` is differentiable in q, k and v through
 ``FlashAttention``, ``flash_attention_with_bias`` in q, k, v and the bias
 through ``FlashAttentionBias``. On a CPU tensor every wrapper computes the
 plain version; on a CUDA tensor it launches its kernel or raises. The
 launch counts are ``flash_attention.launches`` (K1), ``.dropout_launches``
-(K1-d), ``.causal_launches`` (K3's forward at rate 0, K3-f) and
+(K1-d), ``.sm90_launches`` and ``.sm90_dropout_launches`` (the Hopper
+design's K1 and K1-d), ``.causal_launches`` (K3's forward at rate 0, K3-f) and
 ``.causal_dropout_launches`` (K3-d); ``flash_attention_bwd_dq.launches``
 and ``flash_attention_bwd_dkdv.launches`` (K2), the same functions'
 ``.causal_launches`` (K3's dq and dk/dv) and ``.bias_launches`` (K6's dq
-and dbias, K6's dk/dv); ``flash_attention_with_bias.launches`` (K6) and
+and dbias, K6's dk/dv); ``flash_attention_bwd_sm90.launches`` (the Hopper
+design's fused K2); ``flash_attention_with_bias.launches`` (K6) and
 ``.dropout_launches`` (K6-d).
 """
 
@@ -79,7 +92,10 @@ import torch
 NEG_INF = -1e30
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
+SM90_KERNEL = "flash_fwd_sm90"
+SM90_BWD_KERNEL = "flash_bwd_sm90"
 MAX_HEAD_DIM = 128
+SM90_HEAD_DIMS = (64, 96)       # head dims the Hopper design takes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _U32 = 0xFFFFFFFF
@@ -383,10 +399,34 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def select_design(dtype: torch.dtype, causal: bool, has_bias: bool, d: int,
+                  aligned: bool = True) -> str:
+    """The kernel design for a mode on the card: "sm90" (flash_fwd_sm90.cu
+    and flash_bwd_sm90.cu) for bf16, non-causal, no bias, d in
+    ``SM90_HEAD_DIMS`` and 16-byte aligned inputs (the TMA maps' rule);
+    "simple" (flash_attention_fwd.cu and flash_attention_bwd.cu) for every
+    other mode: fp32, causal (K3), a bias (K6), another d."""
+    if (dtype == torch.bfloat16 and not causal and not has_bias
+            and d in SM90_HEAD_DIMS and aligned):
+        return "sm90"
+    return "simple"
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _design(q, k, v, causal, bias, extra=()) -> str:
+    return select_design(q.dtype, causal, bias is not None, q.shape[-1],
+                         _aligned(q, k, v, *extra))
+
+
 def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
-             bias=None):
+             bias=None, design=None):
     """(o, lse): K1 (rate 0) or K1-d, with ``causal`` K3-f or K3-d, with
-    ``bias`` K6 or K6-d, on the card; the plain version on the CPU."""
+    ``bias`` K6 or K6-d, on the card; the plain version on the CPU. The
+    design is ``select_design``'s; ``design="simple"`` forces the simple
+    kernel in the Hopper design's mode (the same-run A/B's baseline)."""
     if not _on_card(q, "flash_attention"):
         return flash_attention_fwd_reference(q, k, v, k_len, sm_scale,
                                              dropout_rate, dropout_seed,
@@ -394,20 +434,30 @@ def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
     _check_cuda_inputs(q, k, v, k_len)
     if bias is not None:
         check_bias(q, k, bias)
+    chosen = ("simple" if design == "simple"
+              else _design(q, k, v, causal, bias))
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            _ptr(bias), k_len.data_ptr(), o.data_ptr(),
-                            lse.data_ptr(), b, h, t_q, k.shape[2], d,
-                            float(sm_scale), flag, threshold, scale, seed,
-                            int(causal), _DTYPE_CODE[q.dtype], stream)
-    _raise_on(err, KERNEL)
+        if chosen == "sm90":
+            err = _sm90_fwd()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), b, h, t_q, k.shape[2], d,
+                float(sm_scale), flag, threshold, scale, seed, stream)
+        else:
+            err = _fwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                _ptr(bias), k_len.data_ptr(), o.data_ptr(),
+                                lse.data_ptr(), b, h, t_q, k.shape[2], d,
+                                float(sm_scale), flag, threshold, scale,
+                                seed, int(causal), _DTYPE_CODE[q.dtype],
+                                stream)
+    _raise_on(err, SM90_KERNEL if chosen == "sm90" else KERNEL)
     wrapper = flash_attention if bias is None else flash_attention_with_bias
-    counter = (("causal_" if causal else "")
+    counter = (("sm90_" if chosen == "sm90" else "")
+               + ("causal_" if causal else "")
                + ("dropout_launches" if flag else "launches"))
     setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     return o, lse
@@ -486,6 +536,45 @@ for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
     _wrapper.bias_launches = 0      # K6
 
 
+def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
+                             dropout_rate=0.0, dropout_seed=0
+                             ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) from the forward's lse and ``delta``: the Hopper
+    design's fused K2 (csrc/flash_bwd_sm90.cu; bf16, non-causal, no bias)
+    on the card, the plain dq and dk/dv on the CPU. dq is summed in an fp32
+    accumulator zeroed here, with atomics in the kernel, then cast to q's
+    dtype: unlike dk and dv it varies from run to run in its last bits."""
+    if not _on_card(q, "flash_attention_bwd_sm90"):
+        dq = flash_attention_dq_reference(q, k, v, do, lse, delta, k_len,
+                                          sm_scale, dropout_rate,
+                                          dropout_seed)
+        return (dq, *flash_attention_dkdv_reference(
+            q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
+            dropout_seed))
+    _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
+    if _design(q, k, v, False, None, (do,)) != "sm90":
+        raise ValueError("flash_attention_bwd_sm90 takes bf16, d in "
+                         f"{SM90_HEAD_DIMS}, 16-byte aligned inputs")
+    flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
+    b, h, t_q, d = q.shape
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _sm90_bwd()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), k_len.data_ptr(),
+            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t_q,
+            k.shape[2], d, float(sm_scale), flag, threshold, scale, seed,
+            stream)
+    _raise_on(err, SM90_BWD_KERNEL)
+    flash_attention_bwd_sm90.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+flash_attention_bwd_sm90.launches = 0
+
+
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor, *,
@@ -493,7 +582,9 @@ def flash_attention_bwd(
     causal: bool = False, bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``:
-    delta, then K2's (with ``causal`` K3's) two kernels on the card; the
+    delta, then on the card the kernels of ``select_design``'s choice --
+    the Hopper design's fused K2 (``flash_attention_bwd_sm90``) or the
+    simple pair, K2's (with ``causal`` K3's) dq and dk/dv kernels; the
     plain version on the CPU. With ``bias``, K6's: (dq, dk, dv, dbias)."""
     if not _on_card(q, "flash_attention_bwd"):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, k_len,
@@ -502,6 +593,11 @@ def flash_attention_bwd(
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o must match q: {tuple(o.shape)} {o.dtype}")
     delta = bwd_delta(o, do)
+    if _design(q, k, v, causal, bias, (do,)) == "sm90":
+        return flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len,
+                                        sm_scale=sm_scale,
+                                        dropout_rate=dropout_rate,
+                                        dropout_seed=dropout_seed)
     kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed, causal=causal, bias=bias)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, **kw)
@@ -562,6 +658,8 @@ def flash_attention(
 
 flash_attention.launches = 0                    # K1
 flash_attention.dropout_launches = 0            # K1-d
+flash_attention.sm90_launches = 0               # K1, the Hopper design
+flash_attention.sm90_dropout_launches = 0       # K1-d, the Hopper design
 flash_attention.causal_launches = 0             # K3-f
 flash_attention.causal_dropout_launches = 0     # K3-d
 
@@ -643,3 +741,26 @@ def _bwd_kernels():
             fn.argtypes = [ctypes.c_void_p] * 10 + tail
             fn.restype = ctypes.c_int
     return lib
+
+
+def _sm90_entry(name: str, pointers: int):
+    """The Hopper design's entry point ``name`` (its library built on first
+    use): ``pointers`` device pointers, then B, H, T_q, T_k and d, then the
+    scale, the dropout flag, threshold, keep scale and seed, and the
+    stream."""
+    from transformer_tts_tpu_torch.ops import cuda_build
+    fn = getattr(cuda_build.load(name), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+                          ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _sm90_fwd():    # q, k, v, k_len, o, lse
+    return _sm90_entry(SM90_KERNEL, 6)
+
+
+def _sm90_bwd():    # q, k, v, do, lse, delta, k_len, dq_acc, dk, dv
+    return _sm90_entry(SM90_BWD_KERNEL, 10)
