@@ -9,11 +9,11 @@ non-zero, printing no result, without them. Phases, each fatal on failure
 and each printing its wall time:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every kernel of the paths (the Hopper design of the main
-   path's attention: K1/K1-d csrc/flash_fwd_sm90.cu and the fused K2
-   csrc/flash_bwd_sm90.cu; the simple K1 and K1-d with K3's and K6's
-   forward, K2 with K3's and K6's backward; K4 and K4-d, K5), in
-   parallel, from the sources in the checkout;
+2. build: every kernel of the paths (the Hopper design of the models'
+   attention: K1/K1-d and K3-f/K3-d csrc/flash_fwd_sm90.cu and the fused
+   K2 and K3 backward csrc/flash_bwd_sm90.cu; the simple K1 and K1-d with
+   K3's and K6's forward, K2 with K3's and K6's backward; K4 and K4-d,
+   K5), in parallel, from the sources in the checkout;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    K1 (csrc/flash_attention_fwd.cu) and K4 (csrc/flash_relpos_fwd.cu):
    fp32 at 1e-4 on O and lse, bf16 against the plain version in fp32 on
@@ -29,10 +29,12 @@ and each printing its wall time:
    that tensor's own max|ref|, lse as K1; dk and dv exactly 0 for keys
    at or past k_len; in bf16 on both designs, the Hopper one (K1-d-90
    and the fused K2-90, csrc/flash_bwd_sm90.cu), whose launches must go
-   to its kernels, and the simple one. K3, the causal mode of the same
-   kernels, likewise at the AR train step's (16, 4, 511, 96) with k_len
-   1, 65, T and the AR batch's decoder groups, and at T_q != T_k both
-   ways. K4-d (csrc/flash_relpos_fwd.cu with dropout) and K5
+   to its kernels, and the simple one; every launch on its id's counter
+   and O bit for bit on a second launch. K3, the causal mode of the same
+   kernels, likewise (the Hopper design's K3-f-90, K3-d-90 and the fused
+   K3-90, and the simple one) at the AR train step's (16, 4, 511, 96)
+   with k_len T, 0, 1, 65 and the AR batch's decoder groups, at T_q !=
+   T_k both ways and at d = 64. K4-d (csrc/flash_relpos_fwd.cu with dropout) and K5
    (csrc/flash_relpos_bwd.cu, dq and dk/dv/dP) at dropout 0 and 0.1 on
    the same seed, at k_len in {0, 1, 65, T}, T = 1000, and the conformer
    train step's (16, 4, 1024, 96) with its batch's mel lengths: O, dq_u,
@@ -88,8 +90,9 @@ and each printing its wall time:
 6. the AR Transformer-TTS flagship of egs/transformer_tts_ljspeech.py
    (the same widths, r 2, prenet dropout 0.5), each path counted from 0:
    (a) the teacher-forced eval forward over 300 decoder groups, 6 K3-f
-       launches and nothing else, card fp32 against the CPU at 1e-3 and
-       bf16 amp at 5e-2 of max(1, max|ref|);
+       launches in fp32 and 6 K3-f-90 in bf16 amp and nothing else, card
+       fp32 against the CPU at 1e-3 and bf16 amp at 5e-2 of max(1,
+       max|ref|);
    (b) the KV-cached decode loop for 300 steps, no kernel launched, each
        step's group against the teacher-forced forward of the frames it
        fed itself (on K3-f) at 1e-3 of max(1, max|ref|);
@@ -100,27 +103,31 @@ and each printing its wall time:
        steps; ms per call and per step and RTF of both; one graphed call
        under the profiler (run in phase 9);
    (d)-(f) training as in 5: the card-vs-CPU step (383 decoder groups on
-       K3-f and K3's backward), the timed step (6 K3-d, 6 K3 dq and 6 K3
-       dk/dv per step, no other kernel), the two CLIs;
+       the simple K3-f and K3's backward in fp32, on K3-f-90 and K3-90
+       alone in bf16), the timed step (6 K3-d-90 and 6 K3-90 per step, no
+       other kernel), the two CLIs;
 7. each kernel at its main path's own captured input (K1-90, K4: the
-   first decoder layer of the B=8 synthesis call; K1-d-90 and K2-90, K3-d
-   and K3's
-   backward: the first decoder layer of the FastSpeech 2 and the AR train
-   step, held there against their plain versions as in 3; K4-d and K5:
+   first decoder layer of the B=8 synthesis call; K1-d-90 and K2-90,
+   K3-d-90 and K3-90: the first decoder layer of the FastSpeech 2 and the
+   AR train step, held there against their plain versions as in 3; K4-d
+   and K5:
    the first decoder layer of the conformer train step, likewise, the
    library yardstick SDPA with the relative bias (for K5 its backward
    with the bias's gradient, the rel_shift adjoint and two products);
-   K3-f: the first decoder layer of 6(a)'s bf16 forward): kernel, plain
+   K3-f-90: the first decoder layer of 6(a)'s bf16 forward): kernel, plain
    and library ms, bound (for K3 over the causal pairs the inputs
-   attend), error. The simple design's K1, K1-d, K2 dq and K2 dk/dv on
-   the same inputs, the same-run A/B ("A/B at ..." lines). K6, K6-d and K6's backward at the conformer step's
+   attend), error. The simple design's K1, K1-d, K2 dq and K2 dk/dv, K3-f,
+   K3-d, K3 dq and K3 dk/dv on the same inputs, the same-run A/B ("A/B
+   at ..." lines). K6, K6-d and K6's backward at the conformer step's
    input with the bias rel_shift(q_v P^T) built in device memory: the
    path that launches them is the route A/B of the conformer's attention
    core (route 1 K4-d and K5, route 2 the bias then K6), counted from 0,
    O and the five gradients of the two routes within 2e-2 of each one's
    max|ref|, and the routes' forward and forward+backward times;
 8. attention-path timing, kernel against masked-fill, at T in
-   {128, 256, 768, 2048}, for both attention modules;
+   {128, 256, 768, 2048}, for both attention modules, and for the AR
+   decoder's causal self-attention at T in {128, 256, 511, 1024, 2048},
+   forward and forward with backward;
 9. the profiles of 5(b), 5(e), 6(c) (B=1 and B=8: device operations per
    decode step, the copies among them, the bf16 weight copies the graph
    reads) and 6(e), each on a state or model built anew, after every
@@ -208,14 +215,15 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def simple_flash_attention(q, k, v, k_len, *, sm_scale, dropout_rate=0.0,
-                           dropout_seed=0):
-    """K1/K1-d on the simple design (csrc/flash_attention_fwd.cu) in every
-    mode, the bf16 main path's included: the baseline of the same-run A/B
-    against the Hopper design. Counts on ``flash_attention.launches`` and
-    ``.dropout_launches``."""
+                           dropout_seed=0, causal=False):
+    """K1/K1-d (with ``causal`` K3-f/K3-d) on the simple design
+    (csrc/flash_attention_fwd.cu) in every mode, the bf16 main paths'
+    included: the baseline of the same-run A/B against the Hopper design.
+    Counts on ``flash_attention.launches`` and ``.dropout_launches`` (with
+    ``causal`` ``.causal_launches`` and ``.causal_dropout_launches``)."""
     from transformer_tts_tpu_torch.ops import flash_attention as fa
     return fa._forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed,
-                       False, design="simple")
+                       causal, design="simple")
 
 
 def kernels():
@@ -272,7 +280,16 @@ def train_kernels():
                   "flash_attention_bwd dq", bwd, f"{jax_fa}:266"),
         "K2-dkdv": (fa.flash_attention_bwd_dkdv, "launches",
                     "flash_attention_bwd dk/dv", bwd, f"{jax_fa}:344"),
-        # K3: the causal mode of the same kernels (the AR decoder)
+        # K3, the causal mode of the same kernels (the AR decoder): the
+        # Hopper design the AR paths run in bf16, then the simple one (the
+        # A/B's baseline; the fp32 card-vs-CPU step's)
+        "K3-f-90": (fa.flash_attention, "sm90_causal_launches",
+                    "flash_fwd_sm90 causal", fwd90, f"{jax_fa}:90"),
+        "K3-d-90": (fa.flash_attention, "sm90_causal_dropout_launches",
+                    "flash_fwd_sm90 causal dropout", fwd90, f"{jax_fa}:90"),
+        "K3-90": (fa.flash_attention_bwd_sm90, "causal_launches",
+                  "flash_bwd_sm90 causal (dq, dk, dv fused)", bwd90,
+                  f"{jax_fa}:266"),
         "K3-f": (fa.flash_attention, "causal_launches",
                  "flash_attention_fwd causal", fwd, f"{jax_fa}:138"),
         "K3-d": (fa.flash_attention, "causal_dropout_launches",
@@ -449,46 +466,66 @@ def max_err(got, ref) -> tuple:
             ref.float().abs().max().item())
 
 
+def train_kernel_ids(design: str, causal: bool, rate: float) -> tuple:
+    """(forward id, backward ids) of the kernels a design runs for a mode:
+    the Hopper design's K1/K1-d (K3-f/K3-d) and fused K2 (K3's), or the
+    simple design's forward and its dq and dk/dv pair."""
+    if design == "sm90":
+        if causal:
+            return ("K3-d-90" if rate else "K3-f-90"), ("K3-90",)
+        return ("K1-d-90" if rate else "K1-90"), ("K2-90",)
+    if causal:
+        return ("K3-d" if rate else "K3-f"), ("K3-dq", "K3-dkdv")
+    return ("K1-d" if rate else "K1"), ("K2-dq", "K2-dkdv")
+
+
 def check_train_kernels(q, k, v, do, k_len, rate, seed=DROPOUT_SEED,
                         label="", causal=False, design=None) -> tuple:
     """K1/K1-d and K2 (with ``causal`` K3's forward and backward) on
     (q, k, v, do) against the plain versions in fp32 on the same inputs,
     on the design ``flash_attention`` picks for the mode, or with
     ``design="simple"`` on the simple kernels (the A/B's baseline); the
-    Hopper design's launches must have gone to its kernels. O, dq, dk and
-    dv must agree within REL_TOL times that tensor's own max |ref| (the
-    gradients reaching the decoder's attention in training are ~1e-7),
-    lse within TOLS' absolute limit; dk and dv exactly 0 for keys at or
-    past k_len. Returns ({name: max abs err}, {name: max |ref|}, o).
-    Launch counts are left as they were."""
+    launches must have gone to that design's kernels for the mode (the
+    forward twice, each backward kernel once), and a second forward launch
+    must give O bit for bit. O, dq, dk and dv must agree within REL_TOL
+    times that tensor's own max |ref| (the gradients reaching the
+    decoder's attention in training are ~1e-7), lse within TOLS' absolute
+    limit; dk and dv exactly 0 for keys at or past k_len. Returns ({name:
+    max abs err}, {name: max |ref|}, o). Launch counts are left as they
+    were."""
     from transformer_tts_tpu_torch.ops import flash_attention as fa
-    chosen = design or fa.select_design(q.dtype, causal, False, q.shape[-1])
-    fwd, bwd = (("K3", "K3") if causal else ("K1-d", "K2")
-                if chosen == "simple" else ("K1-d-90", "K2-90"))
+    chosen = design or fa.select_design(q.dtype, False, q.shape[-1])
+    fwd, bwd_ids = train_kernel_ids(chosen, causal, rate)
+    bwd = "/".join(bwd_ids)
     counts = read_counts()
     sm_scale = q.shape[-1] ** -0.5
     kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
               causal=causal)
     with torch.no_grad():
         if design == "simple":
-            o, lse = simple_flash_attention(
-                q, k, v, k_len, sm_scale=sm_scale, dropout_rate=rate,
-                dropout_seed=seed)
+            forward = partial(simple_flash_attention, q, k, v, k_len,
+                              sm_scale=sm_scale, dropout_rate=rate,
+                              dropout_seed=seed, causal=causal)
+            o, lse = forward()
             delta = fa.bwd_delta(o, do)
             args = (q, k, v, do, lse, delta, k_len)
             grads = (fa.flash_attention_bwd_dq(*args, **kw),
                      *fa.flash_attention_bwd_dkdv(*args, **kw))
         else:
-            o, lse = fa.flash_attention(q, k, v, k_len, dropout_rate=rate,
-                                        dropout_seed=seed, causal=causal)
+            forward = partial(fa.flash_attention, q, k, v, k_len,
+                              dropout_rate=rate, dropout_seed=seed,
+                              causal=causal)
+            o, lse = forward()
             grads = fa.flash_attention_bwd(q, k, v, o, lse, do, k_len, **kw)
+        again, _ = forward()
         torch.cuda.synchronize()
-        if chosen == "sm90":
-            moved = {kid: n - counts[kid] for kid, n in read_counts().items()
-                     if n != counts[kid]}
-            want = {"K1-d-90" if rate else "K1-90": 1, "K2-90": 1}
-            check(moved == want, f"{fwd}/{bwd}{label}: launches {moved}, "
-                                 f"not {want}")
+        check(torch.equal(o, again), f"{fwd}{label}: a second launch gave "
+                                     f"another O")
+        moved = {kid: n - counts[kid] for kid, n in read_counts().items()
+                 if n != counts[kid]}
+        want = {fwd: 2, **{kid: 1 for kid in bwd_ids}}
+        check(moved == want, f"{fwd}/{bwd}{label}: launches {moved}, "
+                             f"not {want}")
         f = [x.float() for x in (q, k, v)]
         ro, rlse = fa.flash_attention_fwd_reference(*f, k_len, sm_scale,
                                                     rate, seed, causal)
@@ -561,29 +598,36 @@ AR_GROUPS = 511                 # decoder groups at the 1024-frame bucket
 def phase_causal_kernels_vs_plain(gen, ar_k_len):
     """K3 (the causal forward at rates 0 and 0.1, its dq and dk/dv)
     against its plain versions: (16, 4, 511, 96), the AR train step's
-    shape, with k_len in {1, 65, T} and the rest of the rows the AR
-    batch's decoder groups; T_q != T_k both ways; fp32 (TF32 off) and
-    bf16, O, dq, dk and dv each within REL_TOL of its own max|ref|, lse
-    as K1's; dk and dv exactly 0 past k_len."""
+    shape, with k_len in {T, 0, 1, 65} and the rest of the rows the AR
+    batch's decoder groups; T_q != T_k both ways; d = 64; fp32 (TF32 off,
+    the simple kernels) and bf16 on both designs (the Hopper one, K3-f-90
+    or K3-d-90 and the fused K3-90, then the simple one), O, dq, dk and
+    dv each within REL_TOL of its own max|ref|, lse as K1's; dk and dv
+    exactly 0 past k_len; O bit for bit on a second launch; each launch
+    on its id's counter."""
     b_train = TRAIN_BATCH[0]
-    k_len = ([AR_GROUPS, 1, 65] + ar_k_len.tolist())[:b_train]
+    k_len = ([AR_GROUPS, 0, 1, 65] + ar_k_len.tolist())[:b_train]
     cases = [(b_train, 4, AR_GROUPS, AR_GROUPS, 96, k_len),
              (2, 4, 300, 700, 96, [700, 65]),
-             (2, 4, 700, 300, 96, [300, 1])]
+             (2, 4, 700, 300, 96, [300, 1]),
+             (4, 4, 300, 300, 64, [300, 0, 1, 65])]
     for b, h, t_q, t_k, d, kl in cases:
         q, do = (torch.randn(b, h, t_q, d, generator=gen).to(DEVICE)
                  for _ in range(2))
         k, v = (torch.randn(b, h, t_k, d, generator=gen).to(DEVICE)
                 for _ in range(2))
         kl = torch.tensor(kl, dtype=torch.int32, device=DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, design in ((torch.float32, None), (torch.bfloat16, None),
+                              (torch.bfloat16, "simple")):
             for rate in (0.0, 0.1):
                 errs, peaks, _ = check_train_kernels(
                     *(x.to(dtype) for x in (q, k, v, do)), kl, rate,
-                    causal=True)
+                    causal=True, design=design)
+                name = ("K3 simple" if dtype == torch.float32 or design
+                        else "K3 sm90")
                 cases_k = (kl.tolist() if b <= 4
-                           else "1, 65, T and the AR batch's")
-                print(f"K3 vs plain ({b},{h},{t_q},{t_k},{d}) "
+                           else "T, 0, 1, 65 and the AR batch's")
+                print(f"{name} vs plain ({b},{h},{t_q},{t_k},{d}) "
                       f"{str(dtype)[6:]} rate {rate} k_len={cases_k}: "
                       + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
                                  f"{peaks[n]:.3g})" for n, e in errs.items()))
@@ -1115,8 +1159,10 @@ def trainer(kind: str) -> dict:
     the overrides that zero its dropouts, the name of its decoder's
     kernel-path attention, the ids of the kernels that carry it in fp32
     (forward at rate 0, forward with dropout, dq, dk/dv: the card-vs-CPU
-    step's) and in the bf16 train step (``step_kernels``: each launches
-    once per decoder layer), and the (module, name) of the kernel path's
+    step's), in bf16 with no dropout where they differ (``bf16_kernels``,
+    the Hopper design's forward and fused backward), and in the bf16
+    train step (``step_kernels``: each launches once per decoder layer),
+    and the (module, name) of the kernel path's
     forward and backward entries, whose calls the timed step captures."""
     from transformer_tts_tpu_torch.ops import attention
     from transformer_tts_tpu_torch.ops import flash_attention as fa
@@ -1131,6 +1177,7 @@ def trainer(kind: str) -> dict:
                     make_step=tr.make_fastspeech2_train_step,
                     batch=train_batch, attn="attn", no_dropout=fs2_no_dropout,
                     kernels=("K1", "K1-d", "K2-dq", "K2-dkdv"),
+                    bf16_kernels=("K1-90", "K2-90"),
                     step_kernels=("K1-d-90", "K2-90"), **calls)
     if kind == "conformer":
         return dict(hparams=conformer_hparams,
@@ -1138,6 +1185,7 @@ def trainer(kind: str) -> dict:
                     make_step=tr.make_fastspeech2_train_step,
                     batch=train_batch, attn="attn", no_dropout=fs2_no_dropout,
                     kernels=("K4", "K4-d", "K5-dq", "K5-dkdv"),
+                    bf16_kernels=None,
                     step_kernels=("K4-d", "K5-dq", "K5-dkdv"),
                     fwd_call=(attention, "flash_relpos_attention"),
                     bwd_call=(fr, "flash_relpos_attention_bwd"))
@@ -1147,7 +1195,8 @@ def trainer(kind: str) -> dict:
                 no_dropout=dict(dropout=0.0, dropout_prenet=0.0,
                                 dropout_postnet=0.0),
                 kernels=("K3-f", "K3-d", "K3-dq", "K3-dkdv"),
-                step_kernels=("K3-d", "K3-dq", "K3-dkdv"), **calls)
+                bf16_kernels=("K3-f-90", "K3-90"),
+                step_kernels=("K3-d-90", "K3-90"), **calls)
 
 
 ADAM_EPS = 1e-9
@@ -1193,9 +1242,11 @@ def phase_card_vs_cpu(gen, kind):
     """One train step on the card and on the CPU from the same weights:
     the flagship in fp32 with every dropout 0, where the decoder takes K1
     and K2 (FastSpeech 2), K4 and K5 (the conformer) or K3 and its
-    backward (the AR model, 383 decoder groups); then the same step with
-    bf16 amp on the card. Every decoder attention weight's card gradient
-    must be non-zero.
+    backward (the AR model, 383 decoder groups) on the simple design; then
+    the same step with bf16 amp on the card, which FastSpeech 2 and the
+    AR model must take on the Hopper design alone (K1-90 and K2-90, K3-f-90
+    and K3-90). Every decoder attention weight's card gradient must be
+    non-zero.
     warmup_step 10 makes Adam's first update lr * g / (|g| + 1e-9) ~
     lr * sign(g) with lr = 1.6e-3, far above fp32's rounding of the
     weights, so the updates show every gradient's sign, however small the
@@ -1224,11 +1275,12 @@ def phase_card_vs_cpu(gen, kind):
     check(all(launched[False][k] > 0 for k in (fwd, dq, dkdv)),
           f"{kind}: the card's fp32 step did not take {fwd}, {dq} and "
           f"{dkdv}: {launched[False]}")
-    if kind == "fastspeech2":     # bf16, no dropout: the Hopper design
-        check(launched[True]["K1-90"] > 0 and launched[True]["K2-90"] > 0
+    if spec["bf16_kernels"]:      # bf16, no dropout: the Hopper design
+        h_fwd, h_bwd = spec["bf16_kernels"]
+        check(launched[True][h_fwd] > 0 and launched[True][h_bwd] > 0
               and not any(launched[True][k] for k in (fwd, dq, dkdv)),
-              f"{kind}: the card's bf16 step did not take K1-90 and K2-90 "
-              f"alone: {launched[True]}")
+              f"{kind}: the card's bf16 step did not take {h_fwd} and "
+              f"{h_bwd} alone: {launched[True]}")
     set_counts(counts)
 
     state, logs = results[False]
@@ -1522,11 +1574,12 @@ def group_positions(lengths, t: int):
 def phase_ar_teacher_forced(gen):
     """The AR flagship's teacher-forced forward in eval mode over
     AR_TF's 300 decoder groups, whose masked self-attention takes K3 at
-    rate 0 (K3-f): card fp32 against the CPU's fp32 at 1e-3 of max(1,
-    max|ref|) on mel_post and the stop logits, card bf16 amp at 5e-2 of
-    it; each forward a path of its own, counted from 0 (6 K3-f launches,
-    nothing else). Returns the bf16 forward's launches and its first
-    decoder layer's kernel input, the input K3-f is timed at."""
+    rate 0: card fp32 against the CPU's fp32 at 1e-3 of max(1, max|ref|)
+    on mel_post and the stop logits, card bf16 amp at 5e-2 of it; each
+    forward a path of its own, counted from 0 (6 launches of the simple
+    K3-f in fp32, of the Hopper design's K3-f-90 in bf16, nothing else).
+    Returns the bf16 forward's launches and its first decoder layer's
+    kernel input, the input K3-f-90 and K3-f are timed at."""
     from transformer_tts_tpu_torch.ops import attention
     from transformer_tts_tpu_torch.ops.masks import create_masks
     b, text_len, t = AR_TF
@@ -1551,7 +1604,7 @@ def phase_ar_teacher_forced(gen):
         torch.cuda.synchronize()
         launched = read_counts()            # and ends here
         want = {k: 0 for k in counters()}
-        want["K3-f"] = hp.n_layer_decoder
+        want["K3-f-90" if amp else "K3-f"] = hp.n_layer_decoder
         check(launched == want, f"AR eval forward launches {launched}, "
                                 f"expected {want}")
         errs = {}
@@ -1866,13 +1919,14 @@ def sdpa_mask(t_q: int, t_k: int, k_len, causal: bool):
 
 def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
     """The training kernels at the train step's captured input -- the
-    FastSpeech 2 step's K1-d-90 and K2-90 (the Hopper design it runs) and,
-    in the same run, the simple design's K1-d, K2-dq and K2-dkdv on the
-    same input (the A/B); or with ``causal`` K3-d, K3-dq and K3-dkdv:
-    kernel, plain and library ms, the bound, and each kernel against its
-    fp32 plain version there (``check_train_kernels``: O, dq, dk and dv
-    within 2e-2 of their own max |ref| in bf16), with the O the step's
-    forward gave equal bit for bit to a second launch on the same seed.
+    FastSpeech 2 step's K1-d-90 and K2-90 (the Hopper design it runs) or,
+    with ``causal``, the AR step's K3-d-90 and K3-90 and, in the same run,
+    the simple design's forward and dq and dk/dv pair on the same input
+    (K1-d, K2-dq, K2-dkdv; K3-d, K3-dq, K3-dkdv: the A/B): kernel, plain
+    and library ms, the bound, and each kernel against its fp32 plain
+    version there (``check_train_kernels``: O, dq, dk and dv within 2e-2
+    of their own max |ref| in bf16), with the O the step's forward gave
+    equal bit for bit to a second launch on the same seed.
     The library calls are SDPA with the key mask (with ``causal`` the
     pad-and-causal mask) and the same dropout rate, forward and backward
     (the backward one gives dq, dk and dv together, the yardstick of every
@@ -1895,12 +1949,19 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
     mask = sdpa_mask(t_q, k.shape[2], k_len.clamp(max=k.shape[2]), causal)
     pairs = attended_pairs(t_q, k_len.clamp(max=k.shape[2]), causal)
     el = q.element_size()
+    klen_bytes = k_len.numel() * 4
     fwd_bound = bound_ms(4 * h * pairs * d,
-                         (4 * q.numel()) * el + b * h * t_q * 4, q.dtype)
-    in_bytes = 4 * q.numel() * el + 2 * b * h * t_q * 4   # q,k,v,dO
-    pair_bound = bound_ms(10 * h * pairs * d, 8 * q.numel() * el, q.dtype)
+                         (2 * q.numel() + k.numel() + v.numel()) * el
+                         + b * h * t_q * 4 + klen_bytes, q.dtype)  # o, lse
+    # read: q, k, v, dO, lse, delta, k_len; written: dq (bf16), dk, dv
+    in_bytes = ((q.numel() + k.numel() + v.numel() + do.numel()) * el
+                + 2 * b * h * t_q * 4 + klen_bytes)
+    dkdv_bytes = (k.numel() + v.numel()) * el
+    pair_bound = bound_ms(10 * h * pairs * d,
+                          in_bytes + q.numel() * el + dkdv_bytes, q.dtype)
     kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed)
-    res = {}
+    bkw = dict(kw, causal=causal)
+    res, fwd_ids = {}, []
     with torch.no_grad():
         library_fwd = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=rate, scale=sm_scale))
@@ -1912,26 +1973,20 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
             *args, sm_scale, rate, seed, causal))
         plain_dkdv = time_ms(lambda: fa.flash_attention_dkdv_reference(
             *args, sm_scale, rate, seed, causal))
-        designs = (("simple",) if causal else ("sm90", "simple"))
-        for design in designs:
+        for design in ("sm90", "simple"):
             errs, peaks, o_again = check_train_kernels(
                 q, k, v, do, k_len, rate, seed, " (train step input)",
-                causal=causal,
-                design="simple" if design == "simple" and not causal
+                causal=causal, design="simple" if design == "simple"
                 else None)
-            if design == "sm90" or causal:     # what the step itself ran
+            if design == "sm90":                # what the step itself ran
                 check(torch.equal(o_again, o),
                       f"{design}: another O on the same input and seed than "
                       f"in the train step")
-            if causal:
-                fwd_id, ids = "K3-d", ("K3-dq", "K3-dkdv")
-            elif design == "simple":
-                fwd_id, ids = "K1-d", ("K2-dq", "K2-dkdv")
-            else:
-                fwd_id, ids = "K1-d-90", ("K2-90",)
-            if design == "simple" and not causal:
+            fwd_id, ids = train_kernel_ids(design, causal, rate)
+            fwd_ids.append(fwd_id)
+            if design == "simple":
                 fwd_call = partial(simple_flash_attention, q, k, v, k_len,
-                                   **kw)
+                                   causal=causal, **kw)
             else:
                 fwd_call = partial(fa.flash_attention, q, k, v, k_len,
                                    dropout_rate=rate, dropout_seed=seed,
@@ -1946,17 +2001,16 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
                       f"max|d{n}|={e:.3g} (max|ref| {peaks[n]:.3g})"
                       for n, e in errs.items()))
             if design == "sm90":
-                res["K2-90"] = {
+                res[ids[0]] = {
                     "ms": time_ms(lambda: fa.flash_attention_bwd_sm90(
-                        *args, **kw)),
+                        *args, **bkw)),
                     "plain_ms": plain_dq + plain_dkdv,
                     "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
                     "max_abs_ref": max(peaks[n] for n in ("dq", "dk", "dv"))}
-                res["K2-90"]["bound_ms"], res["K2-90"]["bound_by"] = (
+                res[ids[0]]["bound_ms"], res[ids[0]]["bound_by"] = (
                     pair_bound)
                 continue
             dq_id, dkdv_id = ids
-            bkw = dict(kw, causal=causal)
             res[dq_id] = {
                 "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args,
                                                                 **bkw)),
@@ -1971,7 +2025,7 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
                 "max_abs_err": max(errs["dk"], errs["dv"]),
                 "max_abs_ref": max(peaks["dk"], peaks["dv"])}
             res[dkdv_id]["bound_ms"], res[dkdv_id]["bound_by"] = bound_ms(
-                8 * h * pairs * d, in_bytes + 2 * q.numel() * el, q.dtype)
+                8 * h * pairs * d, in_bytes + dkdv_bytes, q.dtype)
         rate0 = time_ms(lambda: fa.flash_attention(q, k, v, k_len,
                                                    causal=causal))
     lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -1980,29 +2034,26 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
     library_bwd = time_ms(lambda: torch.autograd.grad(
         lo, (lq, lk, lv), do, retain_graph=True))
     for kid in res:
-        if kid not in (("K3-d",) if causal else ("K1-d", "K1-d-90")):
+        if kid not in fwd_ids:
             res[kid]["library_ms"] = library_bwd
     set_counts(counts)
-    if causal:
-        print(f"K3-d at rate 0 on the same input: {rate0:.4f} ms against "
-              f"{res['K3-d']['ms']:.4f} ms with dropout")
-        print(f"K3-dq + K3-dkdv as a pair at that input: "
-              f"{res['K3-dq']['ms'] + res['K3-dkdv']['ms']:.4f} ms against "
-              f"the bound of the five products, {pair_bound[0]:.4f} ms "
-              f"({pair_bound[1]}); SDPA backward {library_bwd:.4f} ms")
-        return res
-    simple_pair = res["K2-dq"]["ms"] + res["K2-dkdv"]["ms"]
-    print(f"A/B at the FastSpeech 2 train step's input {tuple(q.shape)} "
-          f"rate {rate}: forward, Hopper design (K1-d-90) "
-          f"{res['K1-d-90']['ms']:.4f} ms against the simple design (K1-d) "
-          f"{res['K1-d']['ms']:.4f} ms ({res['K1-d']['ms'] / res['K1-d-90']['ms']:.2f}x), "
-          f"SDPA {library_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms; "
-          f"K1-90 at rate 0 {rate0:.4f} ms; backward, fused (K2-90) "
-          f"{res['K2-90']['ms']:.4f} ms against the simple pair "
-          f"{simple_pair:.4f} ms ({simple_pair / res['K2-90']['ms']:.2f}x), "
+    (fwd90, (bwd90,)), (fwd, pair) = (train_kernel_ids(x, causal, rate)
+                                      for x in ("sm90", "simple"))
+    simple_pair = res[pair[0]]["ms"] + res[pair[1]]["ms"]
+    print(f"A/B at the {'AR' if causal else 'FastSpeech 2'} train step's "
+          f"input {tuple(q.shape)} rate {rate}: forward, Hopper design "
+          f"({fwd90}) {res[fwd90]['ms']:.4f} ms against the simple design "
+          f"({fwd}) {res[fwd]['ms']:.4f} ms "
+          f"({res[fwd]['ms'] / res[fwd90]['ms']:.2f}x), SDPA "
+          f"{library_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+          f"({fwd_bound[1]}); "
+          f"{train_kernel_ids('sm90', causal, 0.0)[0]} at rate 0 "
+          f"{rate0:.4f} ms; backward, fused ({bwd90}) "
+          f"{res[bwd90]['ms']:.4f} ms against the simple pair "
+          f"{simple_pair:.4f} ms ({simple_pair / res[bwd90]['ms']:.2f}x), "
           f"SDPA backward {library_bwd:.4f} ms, bound of the five products "
           f"{pair_bound[0]:.4f} ms ({pair_bound[1]}); saving per decoder "
-          f"layer {res['K1-d']['ms'] - res['K1-d-90']['ms'] + simple_pair - res['K2-90']['ms']:.4f} ms")
+          f"layer {res[fwd]['ms'] - res[fwd90]['ms'] + simple_pair - res[bwd90]['ms']:.4f} ms")
     return res
 
 
@@ -2286,10 +2337,12 @@ def relpos_route_bias(q_v, p):
 
 
 def causal_forward_timings(inputs) -> dict:
-    """K3-f at its path's captured input (the first decoder layer of the
-    teacher-forced eval forward): kernel, plain and library (SDPA with
-    the pad-and-causal mask) ms, the bound over the attended pairs, and
-    O's error against the fp32 plain version on the same inputs."""
+    """K3-f-90 and, on the same input, the simple design's K3-f (the A/B)
+    at their path's captured input (the first decoder layer of the
+    teacher-forced bf16 eval forward): kernel, plain and library (SDPA
+    with the pad-and-causal mask) ms, the bound over the attended pairs,
+    and O's error against the fp32 plain version on the same inputs, with
+    O bit for bit on a second launch."""
     import torch.nn.functional as F
     from transformer_tts_tpu_torch.ops import flash_attention as fa
     (q, k, v, k_len), kw = inputs
@@ -2299,37 +2352,71 @@ def causal_forward_timings(inputs) -> dict:
     sm_scale = q.shape[-1] ** -0.5
     b, h, t_q, d = q.shape
     mask = sdpa_mask(t_q, k.shape[2], k_len, True)
+    calls = {"K3-f-90": partial(fa.flash_attention, q, k, v, k_len,
+                                causal=True),
+             "K3-f": partial(simple_flash_attention, q, k, v, k_len,
+                             sm_scale=sm_scale, causal=True)}
+    bound = bound_ms(4 * h * attended_pairs(t_q, k_len, True) * d,
+                     4 * q.numel() * q.element_size() + b * h * t_q * 4,
+                     q.dtype)
+    out = {}
     with torch.no_grad():
-        o, _ = fa.flash_attention(q, k, v, k_len, causal=True)
         ro, _ = fa.flash_attention_fwd_reference(
             *(x.float() for x in (q, k, v)), k_len, sm_scale, causal=True)
-        err, peak = max_err(o, ro)
-        check(err <= REL_TOL[q.dtype] * peak,
-              f"K3-f at its path's input: {err} against max|ref| {peak}")
-        res = {
-            "ms": time_ms(lambda: fa.flash_attention(q, k, v, k_len,
-                                                     causal=True)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
-                q, k, v, k_len, sm_scale, causal=True)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=sm_scale)),
-            "max_abs_err": err, "max_abs_ref": peak}
-    res["bound_ms"], res["bound_by"] = bound_ms(
-        4 * h * attended_pairs(t_q, k_len, True) * d,
-        4 * q.numel() * q.element_size() + b * h * t_q * 4, q.dtype)
+        plain_ms = time_ms(lambda: fa.flash_attention_fwd_reference(
+            q, k, v, k_len, sm_scale, causal=True))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=sm_scale))
+        for kid, call in calls.items():
+            o, _ = call()
+            again, _ = call()
+            err, peak = max_err(o, ro)
+            check(torch.equal(o, again) and err <= REL_TOL[q.dtype] * peak,
+                  f"{kid} at its path's input: {err} against max|ref| "
+                  f"{peak}, or another O on a second launch")
+            out[kid] = {"ms": time_ms(call), "plain_ms": plain_ms,
+                        "library_ms": library_ms, "max_abs_err": err,
+                        "max_abs_ref": peak}
+            out[kid]["bound_ms"], out[kid]["bound_by"] = bound
     set_counts(counts)
-    return res
+    print(f"A/B at the AR eval forward's first decoder layer "
+          f"{tuple(q.shape)}: K3-f-90 {out['K3-f-90']['ms']:.4f} ms against "
+          f"the simple K3-f {out['K3-f']['ms']:.4f} ms "
+          f"({out['K3-f']['ms'] / out['K3-f-90']['ms']:.2f}x), SDPA "
+          f"{library_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return out
 
 
 # ---- phase 8: attention paths -----------------------------------------------
 
+ATTENTION_PATH_T = (128, 256, 768, 2048)
+CAUSAL_PATH_T = (128, 256, AR_GROUPS, 1024, 2048)
+
+
+def forward_backward_ms(fn, tensors, do) -> float:
+    """Device ms of ``fn(*tensors)`` (its first output) and the gradients
+    of ``(out * do).sum()`` with respect to every tensor."""
+    leaves = [x.detach().clone().requires_grad_() for x in tensors]
+
+    def run():
+        out = fn(*leaves)[0]
+        torch.autograd.grad(out, leaves, do)
+    return time_ms(run)
+
+
 def phase_attention_paths(gen):
+    """Kernel path against masked-fill path at B=8, H=4, d=96 in bf16: the
+    transformer's (K1-90) and the conformer's (K4) forward at T in
+    ATTENTION_PATH_T; then the AR decoder's causal self-attention at T in
+    CAUSAL_PATH_T, forward (K3-f-90) and forward with
+    backward (K3-f-90 and K3-90), against the masked-fill path on the
+    pad-and-causal mask."""
     from transformer_tts_tpu_torch.ops import attention
     from transformer_tts_tpu_torch.ops.flash_attention import flash_attention
     from transformer_tts_tpu_torch.ops.flash_relpos import (
         flash_relpos_attention)
     counts = read_counts()
-    for t in (128, 256, 768, 2048):
+    for t in ATTENTION_PATH_T:
         q_u, q_v, k, v, p = (x.to(torch.bfloat16) for x in
                              kernel_inputs("K4", gen, 8, 4, t, t, 96))
         k_len = torch.full((8,), t, dtype=torch.int32, device=DEVICE)
@@ -2345,6 +2432,22 @@ def phase_attention_paths(gen):
               f"design) {times[0]:.4f} ms, masked-fill path {times[1]:.4f} "
               f"ms; K4 path {times[2]:.4f} ms, relative masked-fill path "
               f"{times[3]:.4f} ms")
+    for t in CAUSAL_PATH_T:
+        q, k, v, do = (torch.randn(8, 4, t, 96, generator=gen).to(
+            DEVICE, torch.bfloat16) for _ in range(4))
+        k_len = torch.full((8,), t, dtype=torch.int32, device=DEVICE)
+        mask = sdpa_mask(t, t, k_len, True)[:, 0]      # (B, T, T)
+        kernel = partial(flash_attention, k_len=k_len, causal=True)
+        masked = partial(attention.scaled_dot_attention, mask=mask)
+        with torch.no_grad():
+            fwd = [time_ms(lambda: kernel(q, k, v)),
+                   time_ms(lambda: masked(q, k, v))]
+        both = [forward_backward_ms(kernel, (q, k, v), do),
+                forward_backward_ms(masked, (q, k, v), do)]
+        print(f"causal attention B=8 H=4 d=96 bf16 T={t}: forward, K3 path "
+              f"(K3-f-90) {fwd[0]:.4f} ms, masked-fill path {fwd[1]:.4f} "
+              f"ms; forward and backward, K3 path (K3-f-90 + K3-90) "
+              f"{both[0]:.4f} ms, masked-fill path {both[1]:.4f} ms")
     set_counts(counts)
 
 
@@ -2481,8 +2584,8 @@ def main():
         for kid, res in train_kernel_timings(ar_fwd_inputs, ar_bwd_inputs,
                                              causal=True).items():
             runs[kid] = (res, ar_launches[kid], ar_fwd_inputs)
-        runs["K3-f"] = (causal_forward_timings(k3f_inputs),
-                        k3f_launches["K3-f"], k3f_inputs)
+        for kid, res in causal_forward_timings(k3f_inputs).items():
+            runs[kid] = (res, k3f_launches[kid], k3f_inputs)
         for kid, res in relpos_train_kernel_timings(
                 conf_fwd_inputs, conf_bwd_inputs).items():
             runs[kid] = (res, conf_launches[kid], conf_fwd_inputs)

@@ -1,33 +1,38 @@
 // Flash-attention backward redesigned for Hopper (sm_90a): bf16, prefix key
-// mask, optional attention-prob dropout, non-causal, no bias -- K2, the
-// backward of FastSpeech 2 training, as one fused kernel.
+// mask, optional causal mask, optional attention-prob dropout, no bias --
+// K2, the backward of FastSpeech 2 training, and with `causal` K3's, the
+// backward of the AR model's training, as one fused kernel.
 //
 // Replaces the TPU kernels `_dq_kernel` (transformer_tts_tpu/ops/
 // flash_attention.py:266) and `_dkdv_kernel` (:344) driven by `_flash_bwd`
-// (:417), in the mode the FastSpeech 2 decoder trains. The other modes
-// (fp32, causal K3, bias K6) stay on the simple pair of kernels,
+// (:417, calls :479, :520), non-causal and causal (the predicates
+// :307-310 and :380-383, the block skips :329-335 and :406-407). The
+// other modes (fp32, bias K6) stay on the simple pair of kernels,
 // flash_attention_bwd.cu; ops/flash_attention.select_design picks one.
 //
 // What it computes is flash_attention_bwd.cu's, per batch-head bh, from the
 // forward's lse and delta = rowsum(dO * O) (fp32, the torch reduction
 // `bwd_delta`, as `_flash_bwd` leaves it to XLA):
-//   P[r][c]  = exp(q[r].k[c] * sm_scale - lse[r])      for keys c < k_len[b]
+//   P[r][c]  = exp(q[r].k[c] * sm_scale - lse[r])
+//                                   for keys c < k_len[b] [and c <= r]
 //   dP[r][c] = (dO[r] . v[c]) * keep(r, c)
 //   dS[r][c] = P (dP - delta[r]) * sm_scale
 //   dq = dS K,  dk = dS^T Q,  dv = (P keep)^T dO
 // with dS and P*keep cast to bf16 before their products, as the TPU kernels
 // do. keep(r, c) is the forward's hash (`keep_bit`, flash_common.cuh),
 // rebuilt from the global coordinates, never stored. dk and dv are exactly
-// 0 for keys at or past k_len[b]; query rows at or past T_q are masked.
+// 0 for keys at or past k_len[b] (with causal also for keys no row
+// reaches, c >= T_q); query rows at or past T_q are masked.
 //
 // dq is summed over key blocks with fp32 atomic adds into a zeroed
 // (B,H,T_q,d) accumulator, which the wrapper casts to bf16: its order of
 // summation changes from run to run, so dq is not deterministic in its last
 // bits. dk and dv are (one CTA owns each key row's sums).
 //
-// Bound on the card: 10*B*H*T_q*sum(k_len)*d operations (five products)
+// Bound on the card: 10*B*H*(attended pairs)*d operations (five products)
 // against Q, K, V, dO, dQ, dK and dV moved once -- ~300 operations a byte
-// at the train step's (16, 4, 1024, 96), so the tensor cores bound it. The
+// at the train step's (16, 4, 1024, 96), so the tensor cores bound it;
+// causal at the AR step's T = 511 half the pairs, and the bytes do. The
 // simple pair ran seven products per tile pair (each kernel rebuilt S and
 // dP), loaded one element per thread synchronously, kept every
 // accumulator in shared memory and stored P^T and dS^T with 4-way bank
@@ -50,7 +55,16 @@
 //   * dS^T goes once to shared memory (swizzled, conflict-free 4-byte
 //     stores), then dQ_partial = dS K by wgmma with both operands
 //     MN-major, added into the fp32 accumulator with 8-byte atomics: five
-//     products per tile pair instead of seven.
+//     products per tile pair instead of seven;
+//   * causal: the q-tile loop starts at the tile holding row k0 (rows
+//     before it see none of the CTA's keys). A warpgroup's 64 keys start
+//     on a tile boundary, so its first tile is its diagonal tile, the only
+//     one that needs c <= r; the second warpgroup's diagonal is one tile
+//     later, and it waits for that first tile and releases it unread, so
+//     every stage's empty barrier still counts its 8 warps per phase. A
+//     CTA whose keys all lie at or past T_q writes zeros and stops. The
+//     grid runs (bh, key block) in that order: the first key blocks, which
+//     meet the most q tiles, start first.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -64,6 +78,9 @@ using namespace sm90;
 constexpr int BKC = 128;         // keys per CTA
 constexpr int WG_KEYS = 64;      // keys per consumer warpgroup
 constexpr int BQ = 64;           // query rows per tile
+// The causal mask is applied on a warpgroup's diagonal tile only: right
+// while each warpgroup's keys start and end on one query tile's boundaries.
+static_assert(BQ == WG_KEYS, "the causal mask needs BQ == WG_KEYS");
 constexpr int STAGES = 2;
 constexpr int NTHREADS = 384;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -83,7 +100,7 @@ template <int D> struct Geom {
   static constexpr int ALLOC = BYTES + 1024;
 };
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -97,13 +114,15 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       float sm_scale, int dropout, uint32_t threshold,
                       float keep_scale, uint32_t seed) {
   using G = Geom<D>;
-  const int k0 = blockIdx.x * BKC;
-  const int bh = blockIdx.y;
+  // causal: grid (bh, key block), so the longest CTAs start first
+  const int k0 = (CAUSAL ? (int)blockIdx.y : (int)blockIdx.x) * BKC;
+  const int bh = CAUSAL ? (int)blockIdx.x : (int)blockIdx.y;
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
   const size_t kv_base = (size_t)bh * T_k;
 
-  if (k0 >= klen) {                     // no valid key: dk = dv = 0
+  // no valid key, or (causal) no row that reaches one: dk = dv = 0
+  if (k0 >= klen || (CAUSAL && k0 >= T_q)) {
     const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
     for (int idx = threadIdx.x; idx < BKC * D / 2; idx += NTHREADS) {
       const int r = idx / (D / 2), c = 2 * (idx % (D / 2));
@@ -129,6 +148,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full + STAGES;
 
   const int n_qt = (T_q + BQ - 1) / BQ;
+  const int it0 = CAUSAL ? k0 / BQ : 0;   // the q tile holding row k0
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int lane = tid % 32;
@@ -157,8 +177,8 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       k0 + half * WG_KEYS, bh);
         }
     }
-    for (int it = 0; it < n_qt; ++it) {
-      const int s = it % STAGES, n = it / STAGES;
+    for (int it = it0; it < n_qt; ++it) {
+      const int s = (it - it0) % STAGES, n = (it - it0) / STAGES;
       if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
       float* rows = sRows + s * 2 * BQ;
       for (int r = lane; r < BQ; r += 32) {
@@ -198,10 +218,20 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
+  // causal: this wg's first q tile is its diagonal tile, the one holding
+  // row k0 + 64 w; the CTA's tiles before it are released unread
+  const int first = CAUSAL ? (k0 + w * WG_KEYS) / BQ : 0;
   mbar_wait(kv_full, 0);
-  for (int it = 0; it < n_qt; ++it) {
-    const int s = it % STAGES, n = it / STAGES;
+  for (int it = it0; it < first && it < n_qt; ++it) {
+    const int s = (it - it0) % STAGES;
+    mbar_wait(&full[s], ((it - it0) / STAGES) & 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  for (int it = first; it < n_qt; ++it) {
+    const int s = (it - it0) % STAGES, n = (it - it0) / STAGES;
     const int q0 = it * BQ;
+    const bool diag = CAUSAL && it == first;
     const uint8_t* q_tile = sQ + s * G::TILE;
     const uint8_t* do_tile = sDO + s * G::TILE;
     const float* rows = sRows + s * 2 * BQ;
@@ -236,7 +266,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 32; ++i) {
       const int key = key0 + 8 * ((i / 2) % 2);
       const int qc = 8 * (i / 4) + quad_col + (i % 2);
-      st[i] = key < klen && q0 + qc < T_q
+      st[i] = key < klen && q0 + qc < T_q && (!diag || key <= q0 + qc)
                   ? exp2f(st[i] * scale_log2 - rows[qc]) : 0.f;
     }
     wgmma_wait<0>();
@@ -344,7 +374,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const int32_t* k_len,
            float* dq_acc, void* dk, void* dv, int B, int H, int T_q, int T_k,
@@ -358,11 +388,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if (r == CUDA_SUCCESS) r = make_map(&tm_v, v, D, T_k, B * H, WG_KEYS);
   if (r != CUDA_SUCCESS) return MAP_ERROR + (int)r;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::ALLOC);
+      flash_bwd_sm90_kernel<D, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::ALLOC);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T_k + BKC - 1) / BKC, B * H);
-  flash_bwd_sm90_kernel<D><<<grid, NTHREADS, G::ALLOC, stream>>>(
+  const int k_blocks = (T_k + BKC - 1) / BKC;
+  if (CAUSAL && k_blocks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid = CAUSAL ? dim3(B * H, k_blocks) : dim3(k_blocks, B * H);
+  flash_bwd_sm90_kernel<D, CAUSAL><<<grid, NTHREADS, G::ALLOC, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, k_len, dq_acc,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T_q, T_k, sm_scale,
       dropout, threshold, keep_scale, seed);
@@ -376,15 +408,16 @@ extern "C" {
 // bf16 q, dout (B,H,T_q,d), k/v (B,H,T_k,d), fp32 lse and delta (B,H,T_q),
 // int32 k_len (B,), all contiguous on the device with 16-byte aligned
 // bases; d in {64, 96}. dq_acc (B,H,T_q,d) fp32 must hold zeros: the
-// kernel adds dq into it. dk, dv like k, written whole. Dropout arguments
-// as flash_fwd_sm90's. Returns the cudaError_t of the launch (0 =
-// success), or MAP_ERROR + the CUresult of a map that could not be encoded.
+// kernel adds dq into it. dk, dv like k, written whole. Dropout and
+// causal arguments as flash_fwd_sm90's. Returns the cudaError_t of the
+// launch (0 = success), or MAP_ERROR + the CUresult of a map that could
+// not be encoded.
 int flash_bwd_sm90(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    const void* k_len, void* dq_acc, void* dk, void* dv,
                    int B, int H, int T_q, int T_k, int d, float sm_scale,
                    int dropout, unsigned int threshold, float keep_scale,
-                   unsigned int seed, void* stream) {
+                   unsigned int seed, int causal, void* stream) {
   if (T_q <= 0 || T_k <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
@@ -392,11 +425,21 @@ int flash_bwd_sm90(const void* q, const void* k, const void* v,
   auto kl = static_cast<const int32_t*>(k_len);
   auto acc = static_cast<float*>(dq_acc);
   if (d == 64)
-    return launch<64>(q, k, v, dout, l, dl, kl, acc, dk, dv, B, H, T_q, T_k,
-                      sm_scale, dropout, threshold, keep_scale, seed, s);
+    return causal
+        ? launch<64, true>(q, k, v, dout, l, dl, kl, acc, dk, dv, B, H, T_q,
+                           T_k, sm_scale, dropout, threshold, keep_scale,
+                           seed, s)
+        : launch<64, false>(q, k, v, dout, l, dl, kl, acc, dk, dv, B, H,
+                            T_q, T_k, sm_scale, dropout, threshold,
+                            keep_scale, seed, s);
   if (d == 96)
-    return launch<96>(q, k, v, dout, l, dl, kl, acc, dk, dv, B, H, T_q, T_k,
-                      sm_scale, dropout, threshold, keep_scale, seed, s);
+    return causal
+        ? launch<96, true>(q, k, v, dout, l, dl, kl, acc, dk, dv, B, H, T_q,
+                           T_k, sm_scale, dropout, threshold, keep_scale,
+                           seed, s)
+        : launch<96, false>(q, k, v, dout, l, dl, kl, acc, dk, dv, B, H,
+                            T_q, T_k, sm_scale, dropout, threshold,
+                            keep_scale, seed, s);
   return (int)cudaErrorInvalidValue;
 }
 

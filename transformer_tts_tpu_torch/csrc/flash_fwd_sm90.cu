@@ -1,31 +1,36 @@
 // Flash-attention forward redesigned for Hopper (sm_90a): bf16, prefix key
-// mask, optional attention-prob dropout, non-causal, no bias -- K1 (rate 0,
-// FastSpeech 2 synthesis) and K1-d (rate > 0, its training).
+// mask, optional causal mask, optional attention-prob dropout, no bias --
+// K1 (rate 0, FastSpeech 2 synthesis), K1-d (rate > 0, its training), and
+// with `causal` K3-f (rate 0, the AR model's eval forward) and K3-d (its
+// training).
 //
 // Replaces the TPU kernel `_fwd_kernel` (transformer_tts_tpu/ops/
-// flash_attention.py:90) driven by `_flash_fwd` (:230), in the mode the
-// FastSpeech 2 decoder runs. The other modes (fp32, causal K3, bias K6)
-// stay on the simple kernel, flash_attention_fwd.cu; ops/flash_attention
-// .select_design picks one by an explicit rule.
+// flash_attention.py:90) driven by `_flash_fwd` (:230), non-causal and
+// causal (the predicate :139-142, the block skip :161-165). The other
+// modes (fp32, bias K6) stay on the simple kernel, flash_attention_fwd.cu;
+// ops/flash_attention.select_design picks one by an explicit rule.
 //
 // What it computes is flash_attention_fwd.cu's, per batch-head bh = b*H + h
 // and query row r:
-//   s[c]   = q[r] . k[c] * sm_scale                 for keys c < k_len[b]
+//   s[c]   = q[r] . k[c] * sm_scale     for keys c < k_len[b] [and c <= r]
 //   o[r]   = sum_c softmax(s)[c] * keep(r, c) * v[c]        (bf16)
 //   lse[r] = max_c s[c] + log(sum_c exp(s[c] - max))        (fp32)
-// Keys c >= k_len[b] are excluded exactly; the softmax normaliser sums the
-// probabilities before dropout; the unnormalised, running-max-relative P
-// times the keep scale is cast to bf16 before P.V, as the TPU kernel does;
-// a row with no valid key gives o = 0 and lse = -1e30. keep(r, c) is
-// `keep_bit` of flash_common.cuh (the one copy of `_keep_mask`'s hash).
-// Deterministic: a second call on the same inputs and seed gives the same
-// bits.
+// Keys c >= k_len[b] are excluded exactly; with `causal` also keys c > r,
+// in global, top-left-aligned indices (T_q != T_k allowed). The softmax
+// normaliser sums the probabilities before dropout; the unnormalised,
+// running-max-relative P times the keep scale is cast to bf16 before P.V,
+// as the TPU kernel does; a row with no valid key gives o = 0 and lse =
+// -1e30. keep(r, c) is `keep_bit` of flash_common.cuh (the one copy of
+// `_keep_mask`'s hash). Deterministic: a second call on the same inputs
+// and seed gives the same bits.
 //
-// Bound on the card: 4*B*H*T_q*sum(k_len)*d operations against Q, K, V and
-// O moved once -- at d = 96 and T ~ 1000 some 200-500 operations a byte,
-// so the tensor cores bound it (0.018 ms at the B=8 / 2048-frame synthesis
-// input). The simple kernel ran at ~2 % of that: one element per thread per
-// load, synchronous, every intermediate through shared memory, WMMA.
+// Bound on the card: 4*B*H*(attended pairs)*d operations against Q, K, V
+// and O moved once -- at d = 96 and T ~ 1000 some 200-500 operations a
+// byte, so the tensor cores bound it (0.018 ms at the B=8 / 2048-frame
+// synthesis input); causal at the AR step's T = 511 half the pairs, and
+// the bytes bound it. The simple kernel ran at ~2 % of that: one element
+// per thread per load, synchronous, every intermediate through shared
+// memory, WMMA.
 //
 // Design:
 //   * a CTA per (128 query rows, bh): warpgroup 0 is the producer (one
@@ -46,6 +51,14 @@
 //     (the S accumulator's fragment is the A fragment) and V from shared
 //     memory with the transpose bit (V is key-major); O stays in
 //     registers (48 a thread at d = 96);
+//   * causal: a warpgroup's 64 rows start on a tile boundary, so its key
+//     tiles end at its diagonal tile, the only one that needs c <= r. The
+//     CTA loads the tiles of its second warpgroup (one more than the
+//     first's, or as many where k_len or T_q ends first); the first
+//     warpgroup waits for each tile past its diagonal and releases it
+//     unread, so every stage's empty barrier still counts its 8 warps per
+//     phase. The grid runs (bh, q block) with the q blocks in reverse: the
+//     longest CTAs start first and the short ones fill the last wave;
 //   * epilogue: O / l in bf16 and lse in fp32 from registers, rows past
 //     T_q masked.
 
@@ -61,6 +74,9 @@ using namespace sm90;
 constexpr int BQ = 128;          // query rows per CTA
 constexpr int WG_ROWS = 64;      // query rows per consumer warpgroup
 constexpr int BK = 64;           // keys per tile
+// The causal mask is applied on a warpgroup's diagonal tile only: right
+// while each warpgroup's rows start and end on one key tile's boundaries.
+static_assert(BK == WG_ROWS, "the causal mask needs BK == WG_ROWS");
 constexpr int STAGES = 3;
 constexpr int NTHREADS = 384;    // producer warpgroup + 2 consumers
 constexpr float NEG_INF = -1e30f;
@@ -78,7 +94,19 @@ template <int D> struct Geom {
   static constexpr int ALLOC = BYTES + 1024;        // room to align to 1024
 };
 
-template <int D>
+// key tiles of consumer warpgroup w (0 or 1) of the CTA at query row q0:
+// every tile below k_len; with CAUSAL only up to its diagonal tile (its 64
+// rows start on a tile boundary) and no further than the tile of row
+// T_q - 1. The CTA loads warpgroup 1's count, the larger.
+template <bool CAUSAL>
+__device__ __forceinline__ int wg_tiles(int w, int q0, int T_q, int klen) {
+  const int n = (klen + BK - 1) / BK;
+  if (!CAUSAL) return n;
+  const int rows_end = min(q0 + (w + 1) * WG_ROWS, T_q);
+  return min(n, (rows_end + BK - 1) / BK);
+}
+
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -97,11 +125,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  // causal: grid (bh, q block), the last q block (the most key tiles) first
+  const int q0 =
+      (CAUSAL ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.x) * BQ;
+  const int bh = CAUSAL ? (int)blockIdx.x : (int)blockIdx.y;
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
-  const int n_tiles = (klen + BK - 1) / BK;
+  const int n_tiles = wg_tiles<CAUSAL>(1, q0, T_q, klen);
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
 
@@ -143,6 +173,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row0 = q0 + w * WG_ROWS + warp * 16 + lane / 4;  // and row0 + 8
   const int quad_col = 2 * (lane % 4);
   const uint8_t* q_base = sQ + w * G::Q_WG;
+  const int my_tiles = wg_tiles<CAUSAL>(w, q0, T_q, klen);
+  const int diag = (q0 + w * WG_ROWS) / BK;   // the tile of this wg's rows
 
   float acc_o[D / 2];
 #pragma unroll
@@ -151,7 +183,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   float l[2] = {0.f, 0.f};              // this thread's share of the sum
 
   mbar_wait(q_full, 0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = 0; kt < my_tiles; ++kt) {
     const int s = kt % STAGES, n = kt / STAGES;
     const uint8_t* k_tile = sK + s * G::KV_TILE;
     const uint8_t* v_tile = sV + s * G::KV_TILE;
@@ -172,14 +204,21 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<0>();
     fence_regs(acc_s);
 
-    // the online softmax over this tile, rows row0 and row0 + 8
+    // the online softmax over this tile, rows row0 and row0 + 8, which
+    // see the keys below lim[0] and lim[1]: k_len, and on the diagonal
+    // tile with CAUSAL also c <= row
     const int k0 = kt * BK;
+    int lim[2] = {klen, klen};
+    if (CAUSAL && kt == diag) {
+      lim[0] = min(klen, row0 + 1);
+      lim[1] = min(klen, row0 + 9);
+    }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int col = k0 + 8 * (i / 4) + quad_col + (i % 2);
       const float x = acc_s[i] * scale_log2;
-      acc_s[i] = col < klen ? x : NEG_INF;
+      acc_s[i] = col < lim[(i / 2) % 2] ? x : NEG_INF;
       mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], acc_s[i]);
     }
     float alpha[2];
@@ -199,7 +238,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       float p[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        p[e] = col + e < klen ? exp2f(acc_s[i + e] - m[h]) : 0.f;
+        p[e] = col + e < lim[h] ? exp2f(acc_s[i + e] - m[h]) : 0.f;
         l[h] += p[e];
         if (dropout)
           p[e] = keep_bit(seed, (uint32_t)bh, (uint32_t)(row0 + 8 * h),
@@ -221,6 +260,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<0>();
     fence_regs(acc_o);
     fence_regs(frag);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  // causal: the tiles the CTA loads past this wg's diagonal (at most one),
+  // released unread once loaded, so each empty barrier's phase completes
+  for (int kt = my_tiles; kt < n_tiles; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
@@ -248,7 +295,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const int32_t* k_len,
            void* o, float* lse, int B, int H, int T_q, int T_k,
            float sm_scale, int dropout, uint32_t threshold, float keep_scale,
@@ -260,11 +307,13 @@ int launch(const void* q, const void* k, const void* v, const int32_t* k_len,
   if (r == CUDA_SUCCESS) r = make_map(&tm_v, v, D, T_k, B * H, BK);
   if (r != CUDA_SUCCESS) return MAP_ERROR + (int)r;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::ALLOC);
+      flash_fwd_sm90_kernel<D, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::ALLOC);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T_q + BQ - 1) / BQ, B * H);
-  flash_fwd_sm90_kernel<D><<<grid, NTHREADS, G::ALLOC, stream>>>(
+  const int q_blocks = (T_q + BQ - 1) / BQ;
+  if (CAUSAL && q_blocks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid = CAUSAL ? dim3(B * H, q_blocks) : dim3(q_blocks, B * H);
+  flash_fwd_sm90_kernel<D, CAUSAL><<<grid, NTHREADS, G::ALLOC, stream>>>(
       tm_q, tm_k, tm_v, k_len, static_cast<bf16*>(o), lse, H, T_q, T_k,
       sm_scale * LOG2E, dropout, threshold, keep_scale, seed);
   return (int)cudaGetLastError();
@@ -278,23 +327,30 @@ extern "C" {
 // (B,) int32, all contiguous on the device with 16-byte aligned bases;
 // d in {64, 96}. dropout != 0 turns on the keep mask with `threshold`
 // (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and `seed` (the
-// int32 seed's bits). Returns the cudaError_t of the launch (0 = success),
-// or MAP_ERROR + the CUresult of a tensor map that could not be encoded.
+// int32 seed's bits). causal != 0 also masks keys past the query row.
+// Returns the cudaError_t of the launch (0 = success), or MAP_ERROR + the
+// CUresult of a tensor map that could not be encoded.
 int flash_fwd_sm90(const void* q, const void* k, const void* v,
                    const void* k_len, void* o, void* lse, int B, int H,
                    int T_q, int T_k, int d, float sm_scale, int dropout,
                    unsigned int threshold, float keep_scale,
-                   unsigned int seed, void* stream) {
+                   unsigned int seed, int causal, void* stream) {
   if (T_q <= 0 || T_k <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto kl = static_cast<const int32_t*>(k_len);
   auto l = static_cast<float*>(lse);
   if (d == 64)
-    return launch<64>(q, k, v, kl, o, l, B, H, T_q, T_k, sm_scale, dropout,
-                      threshold, keep_scale, seed, s);
+    return causal
+        ? launch<64, true>(q, k, v, kl, o, l, B, H, T_q, T_k, sm_scale,
+                           dropout, threshold, keep_scale, seed, s)
+        : launch<64, false>(q, k, v, kl, o, l, B, H, T_q, T_k, sm_scale,
+                            dropout, threshold, keep_scale, seed, s);
   if (d == 96)
-    return launch<96>(q, k, v, kl, o, l, B, H, T_q, T_k, sm_scale, dropout,
-                      threshold, keep_scale, seed, s);
+    return causal
+        ? launch<96, true>(q, k, v, kl, o, l, B, H, T_q, T_k, sm_scale,
+                           dropout, threshold, keep_scale, seed, s)
+        : launch<96, false>(q, k, v, kl, o, l, B, H, T_q, T_k, sm_scale,
+                            dropout, threshold, keep_scale, seed, s);
   return (int)cudaErrorInvalidValue;
 }
 

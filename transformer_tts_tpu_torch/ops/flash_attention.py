@@ -54,16 +54,22 @@ over 64-row tiles of the other sequence staged in shared memory, fp32
 statistics and accumulators, WMMA tensor-core products for bf16 and FMA
 products for fp32; see the sources. PERF.md holds their measured times.
 
-The main path's mode -- bf16, non-causal, no bias, d in ``SM90_HEAD_DIMS``,
-16-byte aligned inputs -- has a second design written for Hopper
+The models' mode -- bf16, no bias, d in ``SM90_HEAD_DIMS``, 16-byte
+aligned inputs, causal or not -- has a second design written for Hopper
 (``select_design`` picks it; nothing falls back from one to the other):
 
-* K1 and K1-d, ``csrc/flash_fwd_sm90.cu``: TMA loads into a ring of
-  mbarrier-guarded stages, a producer warpgroup and two consumer
-  warpgroups, ``wgmma`` products with the softmax and O in registers.
-* K2, ``csrc/flash_bwd_sm90.cu``: one fused kernel per 128 keys, five
-  products per tile pair, dK and dV in registers, dq summed with fp32
-  atomics into a zeroed accumulator (``flash_attention_bwd_sm90``).
+* K1 and K1-d, with ``causal`` K3-f and K3-d, ``csrc/flash_fwd_sm90.cu``:
+  TMA loads into a ring of mbarrier-guarded stages, a producer warpgroup
+  and two consumer warpgroups, ``wgmma`` products with the softmax and O
+  in registers; causal, each warpgroup stops at its diagonal key tile.
+* K2, with ``causal`` K3's backward, ``csrc/flash_bwd_sm90.cu``: one fused
+  kernel per 128 keys, five products per tile pair, dK and dV in
+  registers, dq summed with fp32 atomics into a zeroed accumulator
+  (``flash_attention_bwd_sm90``); causal, the q-tile loop starts at the
+  tile holding the block's first key.
+
+fp32 and the bias (K6) stay on the simple design, which also stays
+reachable for the same-run A/B (``design="simple"``).
 
 ``flash_attention`` is differentiable in q, k and v through
 ``FlashAttention``, ``flash_attention_with_bias`` in q, k, v and the bias
@@ -72,11 +78,14 @@ plain version; on a CUDA tensor it launches its kernel or raises. The
 launch counts are ``flash_attention.launches`` (K1), ``.dropout_launches``
 (K1-d), ``.sm90_launches`` and ``.sm90_dropout_launches`` (the Hopper
 design's K1 and K1-d), ``.causal_launches`` (K3's forward at rate 0, K3-f) and
-``.causal_dropout_launches`` (K3-d); ``flash_attention_bwd_dq.launches``
+``.causal_dropout_launches`` (K3-d), ``.sm90_causal_launches`` and
+``.sm90_causal_dropout_launches`` (the Hopper design's K3-f and K3-d);
+``flash_attention_bwd_dq.launches``
 and ``flash_attention_bwd_dkdv.launches`` (K2), the same functions'
 ``.causal_launches`` (K3's dq and dk/dv) and ``.bias_launches`` (K6's dq
 and dbias, K6's dk/dv); ``flash_attention_bwd_sm90.launches`` (the Hopper
-design's fused K2); ``flash_attention_with_bias.launches`` (K6) and
+design's fused K2) and ``.causal_launches`` (its fused K3 backward);
+``flash_attention_with_bias.launches`` (K6) and
 ``.dropout_launches`` (K6-d).
 """
 
@@ -399,15 +408,15 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def select_design(dtype: torch.dtype, causal: bool, has_bias: bool, d: int,
+def select_design(dtype: torch.dtype, has_bias: bool, d: int,
                   aligned: bool = True) -> str:
     """The kernel design for a mode on the card: "sm90" (flash_fwd_sm90.cu
-    and flash_bwd_sm90.cu) for bf16, non-causal, no bias, d in
-    ``SM90_HEAD_DIMS`` and 16-byte aligned inputs (the TMA maps' rule);
+    and flash_bwd_sm90.cu) for bf16, no bias, d in ``SM90_HEAD_DIMS`` and
+    16-byte aligned inputs (the TMA maps' rule), causal (K3) or not;
     "simple" (flash_attention_fwd.cu and flash_attention_bwd.cu) for every
-    other mode: fp32, causal (K3), a bias (K6), another d."""
-    if (dtype == torch.bfloat16 and not causal and not has_bias
-            and d in SM90_HEAD_DIMS and aligned):
+    other mode: fp32, a bias (K6), another d."""
+    if (dtype == torch.bfloat16 and not has_bias and d in SM90_HEAD_DIMS
+            and aligned):
         return "sm90"
     return "simple"
 
@@ -416,8 +425,8 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _design(q, k, v, causal, bias, extra=()) -> str:
-    return select_design(q.dtype, causal, bias is not None, q.shape[-1],
+def _design(q, k, v, bias, extra=()) -> str:
+    return select_design(q.dtype, bias is not None, q.shape[-1],
                          _aligned(q, k, v, *extra))
 
 
@@ -435,7 +444,7 @@ def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
     if bias is not None:
         check_bias(q, k, bias)
     chosen = ("simple" if design == "simple"
-              else _design(q, k, v, causal, bias))
+              else _design(q, k, v, bias))
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
     o = torch.empty_like(q)
@@ -446,7 +455,8 @@ def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
             err = _sm90_fwd()(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
                 o.data_ptr(), lse.data_ptr(), b, h, t_q, k.shape[2], d,
-                float(sm_scale), flag, threshold, scale, seed, stream)
+                float(sm_scale), flag, threshold, scale, seed, int(causal),
+                stream)
         else:
             err = _fwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 _ptr(bias), k_len.data_ptr(), o.data_ptr(),
@@ -537,22 +547,23 @@ for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
 
 
 def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                             dropout_rate=0.0, dropout_seed=0
+                             dropout_rate=0.0, dropout_seed=0, causal=False
                              ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) from the forward's lse and ``delta``: the Hopper
-    design's fused K2 (csrc/flash_bwd_sm90.cu; bf16, non-causal, no bias)
-    on the card, the plain dq and dk/dv on the CPU. dq is summed in an fp32
-    accumulator zeroed here, with atomics in the kernel, then cast to q's
-    dtype: unlike dk and dv it varies from run to run in its last bits."""
+    design's fused K2 (with ``causal`` K3's backward; csrc/flash_bwd_sm90.cu,
+    bf16, no bias) on the card, the plain dq and dk/dv on the CPU. dq is
+    summed in an fp32 accumulator zeroed here, with atomics in the kernel,
+    then cast to q's dtype: unlike dk and dv it varies from run to run in
+    its last bits."""
     if not _on_card(q, "flash_attention_bwd_sm90"):
         dq = flash_attention_dq_reference(q, k, v, do, lse, delta, k_len,
                                           sm_scale, dropout_rate,
-                                          dropout_seed)
+                                          dropout_seed, causal)
         return (dq, *flash_attention_dkdv_reference(
             q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
-            dropout_seed))
+            dropout_seed, causal))
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
-    if _design(q, k, v, False, None, (do,)) != "sm90":
+    if _design(q, k, v, None, (do,)) != "sm90":
         raise ValueError("flash_attention_bwd_sm90 takes bf16, d in "
                          f"{SM90_HEAD_DIMS}, 16-byte aligned inputs")
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
@@ -566,13 +577,14 @@ def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
             lse.data_ptr(), delta.data_ptr(), k_len.data_ptr(),
             dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t_q,
             k.shape[2], d, float(sm_scale), flag, threshold, scale, seed,
-            stream)
+            int(causal), stream)
     _raise_on(err, SM90_BWD_KERNEL)
-    flash_attention_bwd_sm90.launches += 1
+    _count_bwd(flash_attention_bwd_sm90, None, causal)
     return dq_acc.to(q.dtype), dk, dv
 
 
-flash_attention_bwd_sm90.launches = 0
+flash_attention_bwd_sm90.launches = 0           # K2, the Hopper design
+flash_attention_bwd_sm90.causal_launches = 0    # K3's, the Hopper design
 
 
 def flash_attention_bwd(
@@ -583,8 +595,8 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``:
     delta, then on the card the kernels of ``select_design``'s choice --
-    the Hopper design's fused K2 (``flash_attention_bwd_sm90``) or the
-    simple pair, K2's (with ``causal`` K3's) dq and dk/dv kernels; the
+    the Hopper design's fused K2 or K3 (``flash_attention_bwd_sm90``) or
+    the simple pair, K2's (with ``causal`` K3's) dq and dk/dv kernels; the
     plain version on the CPU. With ``bias``, K6's: (dq, dk, dv, dbias)."""
     if not _on_card(q, "flash_attention_bwd"):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, k_len,
@@ -593,11 +605,12 @@ def flash_attention_bwd(
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o must match q: {tuple(o.shape)} {o.dtype}")
     delta = bwd_delta(o, do)
-    if _design(q, k, v, causal, bias, (do,)) == "sm90":
+    if _design(q, k, v, bias, (do,)) == "sm90":
         return flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len,
                                         sm_scale=sm_scale,
                                         dropout_rate=dropout_rate,
-                                        dropout_seed=dropout_seed)
+                                        dropout_seed=dropout_seed,
+                                        causal=causal)
     kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed, causal=causal, bias=bias)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, **kw)
@@ -662,6 +675,8 @@ flash_attention.sm90_launches = 0               # K1, the Hopper design
 flash_attention.sm90_dropout_launches = 0       # K1-d, the Hopper design
 flash_attention.causal_launches = 0             # K3-f
 flash_attention.causal_dropout_launches = 0     # K3-d
+flash_attention.sm90_causal_launches = 0        # K3-f, the Hopper design
+flash_attention.sm90_causal_dropout_launches = 0  # K3-d, the Hopper design
 
 
 class FlashAttentionBias(torch.autograd.Function):
@@ -746,14 +761,15 @@ def _bwd_kernels():
 def _sm90_entry(name: str, pointers: int):
     """The Hopper design's entry point ``name`` (its library built on first
     use): ``pointers`` device pointers, then B, H, T_q, T_k and d, then the
-    scale, the dropout flag, threshold, keep scale and seed, and the
-    stream."""
+    scale, the dropout flag, threshold, keep scale and seed, the causal
+    flag, and the stream."""
     from transformer_tts_tpu_torch.ops import cuda_build
     fn = getattr(cuda_build.load(name), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-                          ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p])
+                          ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
