@@ -12,8 +12,11 @@ and each printing its wall time:
 2. build: every kernel of the paths (the Hopper design of the models'
    attention: K1/K1-d and K3-f/K3-d csrc/flash_fwd_sm90.cu and the fused
    K2 and K3 backward csrc/flash_bwd_sm90.cu; the simple K1 and K1-d with
-   K3's and K6's forward, K2 with K3's and K6's backward; K4 and K4-d,
-   K5), in parallel, from the sources in the checkout;
+   K3's and K6's forward, K2 with K3's and K6's backward; the Hopper
+   design of the conformer's relative attention, K4/K4-d
+   csrc/flash_relpos_fwd_sm90.cu and the fused K5
+   csrc/flash_relpos_bwd_sm90.cu; the simple K4 and K4-d, K5), in
+   parallel, from the sources in the checkout;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    K1 (csrc/flash_attention_fwd.cu) and K4 (csrc/flash_relpos_fwd.cu):
    fp32 at 1e-4 on O and lse, bf16 against the plain version in fp32 on
@@ -34,14 +37,18 @@ and each printing its wall time:
    kernels, likewise (the Hopper design's K3-f-90, K3-d-90 and the fused
    K3-90, and the simple one) at the AR train step's (16, 4, 511, 96)
    with k_len T, 0, 1, 65 and the AR batch's decoder groups, at T_q !=
-   T_k both ways and at d = 64. K4-d (csrc/flash_relpos_fwd.cu with dropout) and K5
-   (csrc/flash_relpos_bwd.cu, dq and dk/dv/dP) at dropout 0 and 0.1 on
-   the same seed, at k_len in {0, 1, 65, T}, T = 1000, and the conformer
-   train step's (16, 4, 1024, 96) with its batch's mel lengths: O, dq_u,
-   dq_v, dk, dv and dP at 1e-4 (fp32) and 2e-2 (bf16) of each tensor's
-   own max|ref|, dk and dv exactly 0 past k_len, O bit for bit the same
-   on a second call. K6/K6-d (the bias argument of
-   csrc/flash_attention_fwd.cu) and K6's backward (dq with dbias, dk/dv,
+   T_k both ways and at d = 64. K4/K4-d (csrc/flash_relpos_fwd.cu, with
+   dropout) and K5 (csrc/flash_relpos_bwd.cu, dq and dk/dv/dP), and in
+   bf16 their Hopper design K4-90/K4-d-90 and the fused K5-90
+   (csrc/flash_relpos_fwd_sm90.cu, csrc/flash_relpos_bwd_sm90.cu), at
+   dropout 0 and 0.1 on the same seed, at k_len in {0, 1, 65, T}, T in
+   {1024, 1000, 511}, d in {64, 96} (bf16, both designs; fp32 at T =
+   1000, d = 96), and the conformer train step's (16, 4, 1024, 96) with
+   its batch's mel lengths: O, dq_u, dq_v, dk, dv and dP at 1e-4 (fp32)
+   and 2e-2 (bf16) of each tensor's own max|ref|, dk and dv exactly 0
+   past k_len, O bit for bit the same on a second call, each launch on
+   its id's counter. K4-90 also as K4 at the synthesis shapes. K6/K6-d
+   (the bias argument of csrc/flash_attention_fwd.cu) and K6's backward (dq with dbias, dk/dv,
    csrc/flash_attention_bwd.cu) likewise at k_len in {0, 1, 65, T}, T =
    1000, and T_q = 300 != T_k = 700: O, dq, dk, dv and dbias, dbias, dk
    and dv exactly 0 past k_len;
@@ -56,7 +63,7 @@ and each printing its wall time:
        and B=8 / 2048 frames: a main path, whose kernel launches are
        counted with every count set to 0 just before it (6 launches of
        the path's kernel per call, one per decoder layer -- K1-90 for the
-       transformer, K4 for the conformer -- and none of the others), with
+       transformer, K4-90 for the conformer -- and none of the others), with
        ms and RTF;
    (c) the synthesis CLI as a subprocess on a 3-line script;
 5. training, the transformer FastSpeech 2 flagship at full width (bf16
@@ -82,10 +89,11 @@ and each printing its wall time:
    (c) cli/train.py for 3 steps on a synthetic corpus (32 utterances of
        300-900 frames) and cli/synthesize.py on the checkpoint it saved;
    (d)-(f) the conformer flagship's training likewise: the card-vs-CPU
-       step (decoder on K4 and K5; its decoder self-attention weights,
+       step (decoder on K4 and K5 in fp32, on K4-90 and K5-90 alone in
+       bf16; its decoder self-attention weights,
        linear_pos and the position biases at the attention tolerance,
-       each with a non-zero card gradient), the timed step (6 K4-d, 6 K5
-       dq and 6 K5 dk/dv per step, no other kernel) and its profile, the
+       each with a non-zero card gradient), the timed step (6 K4-d-90 and
+       6 K5-90 per step, no other kernel) and its profile, the
        two CLIs;
 6. the AR Transformer-TTS flagship of egs/transformer_tts_ljspeech.py
    (the same widths, r 2, prenet dropout 0.5), each path counted from 0:
@@ -106,26 +114,27 @@ and each printing its wall time:
        the simple K3-f and K3's backward in fp32, on K3-f-90 and K3-90
        alone in bf16), the timed step (6 K3-d-90 and 6 K3-90 per step, no
        other kernel), the two CLIs;
-7. each kernel at its main path's own captured input (K1-90, K4: the
+7. each kernel at its main path's own captured input (K1-90, K4-90: the
    first decoder layer of the B=8 synthesis call; K1-d-90 and K2-90,
    K3-d-90 and K3-90: the first decoder layer of the FastSpeech 2 and the
-   AR train step, held there against their plain versions as in 3; K4-d
-   and K5:
-   the first decoder layer of the conformer train step, likewise, the
-   library yardstick SDPA with the relative bias (for K5 its backward
-   with the bias's gradient, the rel_shift adjoint and two products);
+   AR train step, held there against their plain versions as in 3;
+   K4-d-90 and K5-90: the first decoder layer of the conformer train
+   step, likewise, the library
+   yardstick SDPA with the relative bias (for K5 its backward with the
+   bias's gradient, the rel_shift adjoint and two products);
    K3-f-90: the first decoder layer of 6(a)'s bf16 forward): kernel, plain
    and library ms, bound (for K3 over the causal pairs the inputs
    attend), error. The simple design's K1, K1-d, K2 dq and K2 dk/dv, K3-f,
-   K3-d, K3 dq and K3 dk/dv on the same inputs, the same-run A/B ("A/B
-   at ..." lines). K6, K6-d and K6's backward at the conformer step's
-   input with the bias rel_shift(q_v P^T) built in device memory: the
-   path that launches them is the route A/B of the conformer's attention
-   core (route 1 K4-d and K5, route 2 the bias then K6), counted from 0,
-   O and the five gradients of the two routes within 2e-2 of each one's
-   max|ref|, and the routes' forward and forward+backward times;
+   K3-d, K3 dq and K3 dk/dv, K4, K4-d, K5 dq and K5 dk/dv/dP on the same
+   inputs, the same-run A/B ("A/B at ..." lines). K6, K6-d and K6's
+   backward at the conformer step's input with the bias rel_shift(q_v
+   P^T) built in device memory: the path that launches them is the route
+   A/B of the conformer's attention core (route 1 K4-d-90 and K5-90,
+   route 2 the bias then K6), counted from 0, O and the five gradients
+   of the two routes within 2e-2 of each one's max|ref|, and the routes' forward and forward+backward times;
 8. attention-path timing, kernel against masked-fill, at T in
-   {128, 256, 768, 2048}, for both attention modules, and for the AR
+   {128, 256, 768, 2048} for the transformer's attention, {128, 256,
+   512, 1024, 2048} for the conformer's (K4-90), and for the AR
    decoder's causal self-attention at T in {128, 256, 511, 1024, 2048},
    forward and forward with backward;
 9. the profiles of 5(b), 5(e), 6(c) (B=1 and B=8: device operations per
@@ -166,7 +175,7 @@ FLAGSHIP = {}                 # HParams overrides; empty = the defaults
 PATHS = {
     "transformer": ({}, "K1-90"),
     "conformer": ({"encoder_type": "conformer",
-                   "decoder_type": "conformer"}, "K4"),
+                   "decoder_type": "conformer"}, "K4-90"),
 }
 TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
 
@@ -226,12 +235,24 @@ def simple_flash_attention(q, k, v, k_len, *, sm_scale, dropout_rate=0.0,
                        causal, design="simple")
 
 
+def simple_flash_relpos_attention(q_u, q_v, k, v, p, k_len, *, sm_scale,
+                                  dropout_rate=0.0, dropout_seed=0):
+    """K4/K4-d on the simple design (csrc/flash_relpos_fwd.cu) in every
+    mode, the bf16 main paths' included: the baseline of the same-run A/B
+    against the Hopper design. Counts on ``flash_relpos_attention.launches``
+    and ``.dropout_launches``."""
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
+    return fr._forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
+                       dropout_seed, design="simple")
+
+
 def kernels():
     """Id -> (call, plain version, the kernel's name, source, TPU kernel it
-    replaces, (object, attribute) of its launch count). K1 is the simple
-    design, which the main path no longer takes in bf16; K1-90 the Hopper
-    design that it takes (``flash_attention``, the name the model calls
-    in ops/attention.py)."""
+    replaces, (object, attribute) of its launch count). K1 and K4 are the
+    simple design, which the main paths no longer take in bf16; K1-90 and
+    K4-90 the Hopper design that they take (``flash_attention`` and
+    ``flash_relpos_attention``, the names the models call in
+    ops/attention.py)."""
     from transformer_tts_tpu_torch.ops import flash_attention as k1
     from transformer_tts_tpu_torch.ops import flash_relpos as k4
     jax_k1 = "transformer_tts_tpu/ops/flash_attention.py:90"
@@ -244,11 +265,16 @@ def kernels():
                   k1.SM90_KERNEL, "transformer_tts_tpu_torch/csrc/"
                   "flash_fwd_sm90.cu", jax_k1,
                   (k1.flash_attention, "sm90_launches")),
-        "K4": (k4.flash_relpos_attention,
+        "K4": (simple_flash_relpos_attention,
                k4.flash_relpos_attention_fwd_reference, k4.KERNEL,
                "transformer_tts_tpu_torch/csrc/flash_relpos_fwd.cu",
                "transformer_tts_tpu/ops/flash_relpos.py:212",
                (k4.flash_relpos_attention, "launches")),
+        "K4-90": (k4.flash_relpos_attention,
+                  k4.flash_relpos_attention_fwd_reference, k4.SM90_KERNEL,
+                  "transformer_tts_tpu_torch/csrc/flash_relpos_fwd_sm90.cu",
+                  "transformer_tts_tpu/ops/flash_relpos.py:212",
+                  (k4.flash_relpos_attention, "sm90_launches")),
     }
 
 
@@ -264,6 +290,8 @@ def train_kernels():
     bwd90 = "transformer_tts_tpu_torch/csrc/flash_bwd_sm90.cu"
     rp_fwd = "transformer_tts_tpu_torch/csrc/flash_relpos_fwd.cu"
     rp_bwd = "transformer_tts_tpu_torch/csrc/flash_relpos_bwd.cu"
+    rp_fwd90 = "transformer_tts_tpu_torch/csrc/flash_relpos_fwd_sm90.cu"
+    rp_bwd90 = "transformer_tts_tpu_torch/csrc/flash_relpos_bwd_sm90.cu"
     jax_fa = "transformer_tts_tpu/ops/flash_attention.py"
     jax_rp = "transformer_tts_tpu/ops/flash_relpos.py"
     return {
@@ -299,9 +327,16 @@ def train_kernels():
         "K3-dkdv": (fa.flash_attention_bwd_dkdv, "causal_launches",
                     "flash_attention_bwd causal dk/dv", bwd,
                     f"{jax_fa}:379"),
-        # the conformer decoder: K4 with dropout, and its backward K5 (the
-        # TPU's _dq_kernel and _dkdv_kernel; _fused_bwd_kernel :510 is the
-        # same function at one k block)
+        # the conformer decoder: K4 with dropout, and its backward K5, on
+        # the Hopper design it runs in bf16 (the fused K5-90: the TPU's
+        # _fused_bwd_kernel, _dq_kernel and _dkdv_kernel in one), then on
+        # the simple one (the A/B's baseline; the fp32 card-vs-CPU step's)
+        "K4-d-90": (fr.flash_relpos_attention, "sm90_dropout_launches",
+                    "flash_relpos_fwd_sm90 dropout", rp_fwd90,
+                    f"{jax_rp}:212"),
+        "K5-90": (fr.flash_relpos_attention_bwd_sm90, "launches",
+                  "flash_relpos_bwd_sm90 (dq_u, dq_v, dk, dv, dP fused)",
+                  rp_bwd90, f"{jax_rp}:510"),
         "K4-d": (fr.flash_relpos_attention, "dropout_launches",
                  "flash_relpos_fwd dropout", rp_fwd, f"{jax_rp}:212"),
         "K5-dq": (fr.flash_relpos_attention_bwd_dq, "launches",
@@ -363,10 +398,11 @@ def kernel_bound_ms(kid, tensors, k_len) -> tuple:
     """K1: 4*H*T_q*sum_b(k_len[b])*d operations, q, k, v, o moved once;
     K4: 6*H*T*sum_b(k_len[b])*d operations (q_u.K^T, q_v.P^T, P.V), q_u,
     q_v, k, v, o and p moved once; both also lse and k_len."""
-    q, k = tensors[0], tensors[2 if kid == "K4" else 1]
+    relpos = kid.startswith("K4")
+    q, k = tensors[0], tensors[2 if relpos else 1]
     b, h, t_q, d = q.shape
     keys = k_len.clamp(max=k.shape[2]).double().sum().item()
-    per_key = 6.0 if kid == "K4" else 4.0
+    per_key = 6.0 if relpos else 4.0
     moved = sum(x.numel() for x in tensors) + q.numel()     # inputs, o
     nbytes = moved * q.element_size() + b * h * t_q * 4 + k_len.numel() * 4
     return bound_ms(per_key * h * t_q * keys * d, nbytes, q.dtype)
@@ -402,7 +438,7 @@ def kernel_errors(kid, tensors, k_len):
 
 def kernel_inputs(kid, gen, b, h, t_q, t_k, d):
     """Random inputs of the kernel's shapes, on the card, in fp32."""
-    if kid != "K4":
+    if not kid.startswith("K4"):
         shapes = [(b, h, t_q, d), (b, h, t_k, d), (b, h, t_k, d)]
     else:                               # q_u, q_v, k, v, p
         shapes = [(b, h, t_q, d)] * 4 + [(h, t_q, d)]
@@ -415,22 +451,24 @@ def phase_kernel_vs_plain(gen):
                                         1500]),
                 (2, 4, 1000, 1000, 96, [1000, 333]),        # ragged T
                 (2, 4, 300, 700, 96, [700, 0])]             # T_q != T_k
+    k4_cases = [(1, 4, 768, 768, 96, [768]),
+                (8, 4, 2048, 2048, 96, [2048, 0, 1, 64, 65, 2047, 1000,
+                                        1500]),
+                (2, 4, 1000, 1000, 96, [1000, 333]),        # ragged T
+                (2, 4, 257, 257, 96, [257, 3])]             # just over 256
     cases = {  # (B, H, T_q, T_k, d, k_len)
         "K1": k1_cases,
         # the Hopper design takes bf16 only (fp32 goes to K1), and d = 64
         "K1-90": k1_cases + [(2, 4, 257, 257, 64, [257, 3])],
-        "K4": [(1, 4, 768, 768, 96, [768]),
-               (8, 4, 2048, 2048, 96, [2048, 0, 1, 64, 65, 2047, 1000,
-                                       1500]),
-               (2, 4, 1000, 1000, 96, [1000, 333]),         # ragged T
-               (2, 4, 257, 257, 96, [257, 3])],             # just over 256
+        "K4": k4_cases,
+        "K4-90": k4_cases + [(2, 4, 511, 511, 64, [511, 65])],
     }
     for kid, kid_cases in cases.items():
         for b, h, t_q, t_k, d, k_len in kid_cases:
             tensors = kernel_inputs(kid, gen, b, h, t_q, t_k, d)
             kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
             for dtype, (tol_o, tol_lse) in TOLS.items():
-                if kid == "K1-90" and dtype != torch.bfloat16:
+                if kid.endswith("-90") and dtype != torch.bfloat16:
                     continue
                 err_o, err_lse = kernel_errors(
                     kid, [x.to(dtype) for x in tensors], kl)
@@ -636,32 +674,55 @@ def phase_causal_kernels_vs_plain(gen, ar_k_len):
 RELPOS_GRADS = ("dq_u", "dq_v", "dk", "dv", "dp")
 
 
+def relpos_kernel_ids(design: str, rate: float) -> tuple:
+    """(forward id, backward ids) of the relative kernels a design runs:
+    the Hopper design's K4-90/K4-d-90 and fused K5-90, or the simple
+    design's K4/K4-d and its dq and dk/dv/dP pair."""
+    if design == "sm90":
+        return ("K4-d-90" if rate else "K4-90"), ("K5-90",)
+    return ("K4-d" if rate else "K4"), ("K5-dq", "K5-dkdv")
+
+
 def check_relpos_train_kernels(q_u, q_v, k, v, p, do, k_len, rate,
-                               seed=DROPOUT_SEED, label="") -> tuple:
+                               seed=DROPOUT_SEED, label="",
+                               design=None) -> tuple:
     """K4 (rate 0) or K4-d and K5 on (q_u, q_v, k, v, p, do) against their
-    plain versions in fp32 on the same inputs: O, dq_u, dq_v, dk, dv and
-    dp each within REL_TOL of its own max|ref|, lse within TOLS' absolute
-    limit; dk and dv exactly 0 for keys at or past k_len; O bit for bit
-    the same on a second call with the same seed. Returns ({name: max abs
-    err}, {name: max|ref|}, o). Launch counts are left as they were."""
+    plain versions in fp32 on the same inputs, on the design
+    ``flash_relpos_attention`` picks for the mode, or with
+    ``design="simple"`` on the simple kernels (the A/B's baseline): the
+    launches must have gone to that design's kernels (the forward twice,
+    each backward kernel once); O, dq_u, dq_v, dk, dv and dp each within
+    REL_TOL of its own max|ref|, lse within TOLS' absolute limit; dk and
+    dv exactly 0 for keys at or past k_len; O bit for bit the same on a
+    second call with the same seed. Returns ({name: max abs err}, {name:
+    max|ref|}, o). Launch counts are left as they were."""
     from transformer_tts_tpu_torch.ops import flash_relpos as fr
+    chosen = design or fr._design(q_u, q_v, k, v, p, (do,))
+    fwd, bwd_ids = relpos_kernel_ids(chosen, rate)
+    bwd = "/".join(bwd_ids)
     counts = read_counts()
     sm_scale = q_u.shape[-1] ** -0.5
     kw = dict(dropout_rate=rate, dropout_seed=seed)
+    call = (partial(simple_flash_relpos_attention, sm_scale=sm_scale)
+            if design == "simple" else fr.flash_relpos_attention)
     with torch.no_grad():
-        o, lse = fr.flash_relpos_attention(q_u, q_v, k, v, p, k_len, **kw)
-        o_again, _ = fr.flash_relpos_attention(q_u, q_v, k, v, p, k_len,
-                                               **kw)
+        o, lse = call(q_u, q_v, k, v, p, k_len, **kw)
+        o_again, _ = call(q_u, q_v, k, v, p, k_len, **kw)
         grads = fr.flash_relpos_attention_bwd(q_u, q_v, k, v, p, o, lse, do,
-                                              k_len, sm_scale=sm_scale, **kw)
+                                              k_len, sm_scale=sm_scale,
+                                              design=design, **kw)
         torch.cuda.synchronize()
+        moved = {kid: n - counts[kid] for kid, n in read_counts().items()
+                 if n != counts[kid]}
+        want = {fwd: 2, **{kid: 1 for kid in bwd_ids}}
+        check(moved == want, f"{fwd}/{bwd}{label}: launches {moved}, not "
+                             f"{want}")
         f = [x.float() for x in (q_u, q_v, k, v, p)]
         ro, rlse = fr.flash_relpos_attention_fwd_reference(
             *f, k_len, sm_scale, rate, seed)
         ref = fr.flash_relpos_attention_bwd_reference(
             *f, o.float(), lse, do.float(), k_len, sm_scale, rate, seed)
     set_counts(counts)
-    fwd = "K4-d" if rate > 0 else "K4"
     check(torch.equal(o, o_again), f"{fwd}{label}: another O on a second "
                                    f"call with the same seed")
     empty = k_len == 0
@@ -677,35 +738,46 @@ def check_relpos_train_kernels(q_u, q_v, k, v, p, do, k_len, rate,
     for name, got, want in zip(RELPOS_GRADS, grads, ref):
         errs[name], peaks[name] = max_err(got, want)
         check(errs[name] <= rel * peaks[name],
-              f"K5 {name}{label} disagrees with its plain version: "
+              f"{bwd} {name}{label} disagrees with its plain version: "
               f"{errs[name]} > {rel} * max|ref| {peaks[name]}")
     for name, g in (("dk", grads[2]), ("dv", grads[3])):
         for b, n in enumerate(k_len.tolist()):
             check(bool((g[b, :, n:] == 0).all()),
-                  f"K5 {name}{label} is not exactly 0 for keys at or past "
-                  f"k_len")
+                  f"{bwd} {name}{label} is not exactly 0 for keys at or "
+                  f"past k_len")
     return errs, peaks, o
 
 
+RELPOS_T = (1024, 1000, 511)    # E's window alignment depends on T mod 64
+
+
 def phase_relpos_kernels_vs_plain(gen, train_k_len):
-    """K4-d and K5 against their plain versions: k_len in {0, 1, 65, T}
-    at T = 1000 (not a multiple of the tiles), and the conformer train
-    step's shape (16, 4, 1024, 96) with its batch's mel lengths as k_len;
-    fp32 (TF32 off) and bf16; dropout 0 and 0.1 on the same seed."""
+    """K4/K4-d and K5 against their plain versions: k_len in {0, 1, 65, T}
+    at T in RELPOS_T and d in {64, 96}, in bf16 on both designs (the
+    Hopper one, K4-90 or K4-d-90 and the fused K5-90, then the simple
+    one); at T = 1000, d = 96 also fp32 (TF32 off, the simple kernels);
+    and the conformer train step's shape (16, 4, 1024, 96) with its
+    batch's mel lengths as k_len in fp32 and on both bf16 designs;
+    dropout 0 and 0.1 on the same seed."""
     b_train, _, t_train, _ = TRAIN_BATCH
-    cases = [(4, 4, 1000, 96, [1000, 0, 1, 65]),
-             (b_train, 4, t_train, 96, train_k_len.tolist())]
+    cases = [(4, 4, t, d, [t, 0, 1, 65]) for t in RELPOS_T for d in (96, 64)]
+    cases.append((b_train, 4, t_train, 96, train_k_len.tolist()))
     for b, h, t, d, k_len in cases:
         q_u, q_v, k, v, do = (torch.randn(b, h, t, d, generator=gen)
                               .to(DEVICE) for _ in range(5))
         p = torch.randn(h, t, d, generator=gen).to(DEVICE)
         kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
+        modes = [(torch.bfloat16, None), (torch.bfloat16, "simple")]
+        if (t, d) == (1000, 96) or b > 4:
+            modes.insert(0, (torch.float32, None))
+        for dtype, design in modes:
             for rate in (0.0, 0.1):
                 errs, peaks, _ = check_relpos_train_kernels(
                     *(x.to(dtype) for x in (q_u, q_v, k, v, p, do)), kl,
-                    rate)
-                print(f"K4-d/K5 vs plain ({b},{h},{t},{d}) "
+                    rate, design=design)
+                name = ("K4/K5 simple" if dtype == torch.float32 or design
+                        else "K4/K5 sm90")
+                print(f"{name} vs plain ({b},{h},{t},{d}) "
                       f"{str(dtype)[6:]} rate {rate} k_len="
                       f"{k_len if b <= 4 else 'the train batch'}: "
                       + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
@@ -819,7 +891,7 @@ def kernel_timings(kid, tensors, k_len) -> dict:
         "ms": time_ms(lambda: kernel(*tensors, k_len, sm_scale=sm_scale)),
         "plain_ms": time_ms(lambda: plain(*tensors, k_len, sm_scale)),
     }
-    if kid != "K4":
+    if not kid.startswith("K4"):
         q, k, v = tensors
         mask = (torch.arange(k.shape[2], device=q.device)[None, :]
                 < k_len[:, None])[:, None, None, :]
@@ -1185,8 +1257,8 @@ def trainer(kind: str) -> dict:
                     make_step=tr.make_fastspeech2_train_step,
                     batch=train_batch, attn="attn", no_dropout=fs2_no_dropout,
                     kernels=("K4", "K4-d", "K5-dq", "K5-dkdv"),
-                    bf16_kernels=None,
-                    step_kernels=("K4-d", "K5-dq", "K5-dkdv"),
+                    bf16_kernels=("K4-90", "K5-90"),
+                    step_kernels=("K4-d-90", "K5-90"),
                     fwd_call=(attention, "flash_relpos_attention"),
                     bwd_call=(fr, "flash_relpos_attention_bwd"))
     return dict(hparams=ar_hparams, init=tr.init_transformer_state,
@@ -1243,10 +1315,10 @@ def phase_card_vs_cpu(gen, kind):
     the flagship in fp32 with every dropout 0, where the decoder takes K1
     and K2 (FastSpeech 2), K4 and K5 (the conformer) or K3 and its
     backward (the AR model, 383 decoder groups) on the simple design; then
-    the same step with bf16 amp on the card, which FastSpeech 2 and the
-    AR model must take on the Hopper design alone (K1-90 and K2-90, K3-f-90
-    and K3-90). Every decoder attention weight's card gradient must be
-    non-zero.
+    the same step with bf16 amp on the card, which every flagship must
+    take on the Hopper design alone (K1-90 and K2-90, K4-90 and K5-90,
+    K3-f-90 and K3-90). Every decoder attention weight's card gradient
+    must be non-zero.
     warmup_step 10 makes Adam's first update lr * g / (|g| + 1e-9) ~
     lr * sign(g) with lr = 1.6e-3, far above fp32's rounding of the
     weights, so the updates show every gradient's sign, however small the
@@ -2005,8 +2077,7 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
                     "ms": time_ms(lambda: fa.flash_attention_bwd_sm90(
                         *args, **bkw)),
                     "plain_ms": plain_dq + plain_dkdv,
-                    "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
-                    "max_abs_ref": max(peaks[n] for n in ("dq", "dk", "dv"))}
+                    **worst_err(errs, peaks, ("dq", "dk", "dv"))}
                 res[ids[0]]["bound_ms"], res[ids[0]]["bound_by"] = (
                     pair_bound)
                 continue
@@ -2022,8 +2093,7 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
                 "ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(*args,
                                                                   **bkw)),
                 "plain_ms": plain_dkdv,
-                "max_abs_err": max(errs["dk"], errs["dv"]),
-                "max_abs_ref": max(peaks["dk"], peaks["dv"])}
+                **worst_err(errs, peaks, ("dk", "dv"))}
             res[dkdv_id]["bound_ms"], res[dkdv_id]["bound_by"] = bound_ms(
                 8 * h * pairs * d, in_bytes + dkdv_bytes, q.dtype)
         rate0 = time_ms(lambda: fa.flash_attention(q, k, v, k_len,
@@ -2058,17 +2128,20 @@ def train_kernel_timings(fwd_inputs, bwd_inputs, causal=False) -> dict:
 
 
 def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
-    """K4-d, K5-dq and K5-dkdv at the conformer train step's captured
-    input (the first decoder layer): kernel, plain and library ms, the
-    bound, and each kernel against its fp32 plain version there
+    """The relative kernels at the conformer train step's captured input
+    (the first decoder layer): K4-d-90 and the fused K5-90 (the Hopper
+    design it runs) and, in the same run, the simple design's K4-d, K5-dq
+    and K5-dkdv on the same input (the A/B): kernel, plain and library
+    ms, the bound, and each design against its fp32 plain version there
     (``check_relpos_train_kernels``), with the O the step's forward gave
     equal bit for bit to a second launch on the same seed. Library: SDPA
-    with the relative bias precomputed and the same dropout for K4-d;
-    for K5 SDPA's backward with that bias requiring grad, plus the
-    rel_shift adjoint of dbias and the two products that take it to dq_v
-    and dP, each part timed, their sum the yardstick of both entries.
-    Bounds per attended (row, key) pair: K4-d 6*H*d, K5 dq 10*H*d, dk/dv/dP
-    12*H*d operations, against the bytes moved once."""
+    with the relative bias precomputed and the same dropout for the
+    forwards; for the backwards SDPA's backward with that bias requiring
+    grad, plus the rel_shift adjoint of dbias and the two products that
+    take it to dq_v and dP, each part timed, their sum the yardstick of
+    every backward entry. Bounds per attended (row, key) pair: the forward 6*H*d, K5-dq
+    10*H*d, K5-dkdv 12*H*d, the fused K5-90 16*H*d operations, against
+    the bytes moved once."""
     import torch.nn.functional as F
     from transformer_tts_tpu_torch.ops import flash_relpos as fr
     counts = read_counts()
@@ -2080,10 +2153,15 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
                                             (k_len, bk_len)))
           and (bkw["dropout_rate"], bkw["dropout_seed"]) == (rate, seed),
           "the captured relative backward is not the captured forward's")
-    errs, peaks, o_again = check_relpos_train_kernels(
-        q_u, q_v, k, v, p, do, k_len, rate, seed, " (train step input)")
-    check(torch.equal(o_again, o), "K4-d gave another O on the same input "
-                                   "and seed than in the train step")
+    checked = {}
+    for design in ("sm90", "simple"):
+        checked[design] = check_relpos_train_kernels(
+            q_u, q_v, k, v, p, do, k_len, rate, seed,
+            f" (train step input, {design})",
+            design=None if design == "sm90" else "simple")
+    check(torch.equal(checked["sm90"][2], o), "K4-d-90 gave another O on "
+                                              "the same input and seed "
+                                              "than in the train step")
     sm_scale = q_u.shape[-1] ** -0.5
     b, h, t, d = q_u.shape
     pairs = attended_pairs(t, k_len, False)
@@ -2092,31 +2170,50 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
     in_bytes = 5 * plane + p.numel() * el + 2 * b * h * t * 4
     bias = relpos_bias(q_v, p, k_len, sm_scale)
     kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed)
+    fwd_bound = bound_ms(6 * h * pairs * d,
+                         5 * plane + p.numel() * el + b * h * t * 4,
+                         q_u.dtype)
+    pair_bound = bound_ms(16 * h * pairs * d,
+                          in_bytes + 4 * plane + p.numel() * el, q_u.dtype)
+    res = {}
     with torch.no_grad():
-        res = {"K4-d": {
-            "ms": time_ms(lambda: fr.flash_relpos_attention(
-                q_u, q_v, k, v, p, k_len, dropout_rate=rate,
-                dropout_seed=seed)),
-            "plain_ms": time_ms(
-                lambda: fr.flash_relpos_attention_fwd_reference(
-                    q_u, q_v, k, v, p, k_len, sm_scale, rate, seed)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q_u, k, v, attn_mask=bias, dropout_p=rate, scale=sm_scale)),
-            "max_abs_err": errs["o"], "max_abs_ref": peaks["o"]}}
-        res["K4-d"]["bound_ms"], res["K4-d"]["bound_by"] = bound_ms(
-            6 * h * pairs * d, 5 * plane + p.numel() * el + b * h * t * 4,
-            q_u.dtype)
-        rate0_ms = time_ms(lambda: fr.flash_relpos_attention(
-            q_u, q_v, k, v, p, k_len))
+        plain_fwd = time_ms(lambda: fr.flash_relpos_attention_fwd_reference(
+            q_u, q_v, k, v, p, k_len, sm_scale, rate, seed))
+        library_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q_u, k, v, attn_mask=bias, dropout_p=rate, scale=sm_scale))
+        rate0 = {}
+        for kid, design, call in (
+                ("K4-d-90", "sm90", fr.flash_relpos_attention),
+                ("K4-d", "simple", partial(simple_flash_relpos_attention,
+                                           sm_scale=sm_scale))):
+            errs, peaks, _ = checked[design]
+            res[kid] = {
+                "ms": time_ms(lambda: call(q_u, q_v, k, v, p, k_len,
+                                           dropout_rate=rate,
+                                           dropout_seed=seed)),
+                "plain_ms": plain_fwd, "library_ms": library_fwd,
+                "max_abs_err": errs["o"], "max_abs_ref": peaks["o"]}
+            res[kid]["bound_ms"], res[kid]["bound_by"] = fwd_bound
+            rate0[kid] = time_ms(lambda: call(q_u, q_v, k, v, p, k_len))
 
         args = (q_u, q_v, k, v, p, do, lse, fr.bwd_delta(o, do), k_len)
+        errs, peaks, _ = checked["sm90"]
+        res["K5-90"] = {
+            "ms": time_ms(lambda: fr.flash_relpos_attention_bwd_sm90(
+                *args, **kw)),
+            "plain_ms": time_ms(
+                lambda: fr.flash_relpos_attention_bwd_reference(
+                    q_u, q_v, k, v, p, o, lse, do, k_len, sm_scale, rate,
+                    seed)),
+            **worst_err(errs, peaks, RELPOS_GRADS)}
+        res["K5-90"]["bound_ms"], res["K5-90"]["bound_by"] = pair_bound
+        errs, peaks, _ = checked["simple"]
         res["K5-dq"] = {
             "ms": time_ms(lambda: fr.flash_relpos_attention_bwd_dq(*args,
                                                                    **kw)),
             "plain_ms": time_ms(lambda: fr.flash_relpos_dq_reference(
                 *args, sm_scale, rate, seed)),
-            "max_abs_err": max(errs["dq_u"], errs["dq_v"]),
-            "max_abs_ref": max(peaks["dq_u"], peaks["dq_v"])}
+            **worst_err(errs, peaks, ("dq_u", "dq_v"))}
         res["K5-dq"]["bound_ms"], res["K5-dq"]["bound_by"] = bound_ms(
             10 * h * pairs * d, in_bytes + 2 * plane, q_u.dtype)
         res["K5-dkdv"] = {
@@ -2124,14 +2221,10 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
                                                                      **kw)),
             "plain_ms": time_ms(lambda: fr.flash_relpos_dkdv_reference(
                 *args, sm_scale, rate, seed)),
-            "max_abs_err": max(errs[n] for n in ("dk", "dv", "dp")),
-            "max_abs_ref": max(peaks[n] for n in ("dk", "dv", "dp"))}
+            **worst_err(errs, peaks, ("dk", "dv", "dp"))}
         res["K5-dkdv"]["bound_ms"], res["K5-dkdv"]["bound_by"] = bound_ms(
             12 * h * pairs * d, in_bytes + 2 * plane + p.numel() * el,
             q_u.dtype)
-        pair_bound = bound_ms(16 * h * pairs * d,
-                              in_bytes + 4 * plane + p.numel() * el,
-                              q_u.dtype)
     lq, lk, lv, lbias = (x.detach().clone().requires_grad_()
                          for x in (q_u, k, v, bias))
     lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lbias,
@@ -2145,19 +2238,25 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
         g = fr.rel_shift_adjoint(dbias)
         parts["products"] = time_ms(lambda: (
             torch.matmul(g, p), torch.einsum("bhij,bhid->hjd", g, q_v)))
-    res["K5-dq"]["library_ms"] = res["K5-dkdv"]["library_ms"] = sum(
-        parts.values())
+    for kid in ("K5-90", "K5-dq", "K5-dkdv"):
+        res[kid]["library_ms"] = sum(parts.values())
     set_counts(counts)
-    print("K4-d/K5-dq/K5-dkdv vs plain at the conformer train step's input: "
-          + " ".join(f"max|d{n}|={e:.3g} (max|ref| {peaks[n]:.3g})"
-                     for n, e in errs.items())
-          + "; O equal to the step's")
-    print(f"K4 at rate 0 on the same input: {rate0_ms:.4f} ms against "
-          f"{res['K4-d']['ms']:.4f} ms with dropout")
-    print(f"K5-dq + K5-dkdv as a pair at that input: "
-          f"{res['K5-dq']['ms'] + res['K5-dkdv']['ms']:.4f} ms against the "
-          f"bound of the pair, {pair_bound[0]:.4f} ms ({pair_bound[1]}); "
-          f"library yardstick "
+    for design, (errs, peaks, _) in checked.items():
+        print(f"K4-d/K5 {design} vs plain at the conformer train step's "
+              "input: " + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
+                                   f"{peaks[n]:.3g})" for n, e in errs.items())
+              + ("; O equal to the step's" if design == "sm90" else ""))
+    print(f"A/B at the conformer train step's first decoder layer, rate "
+          f"{rate}: K4-d-90 {res['K4-d-90']['ms']:.4f} ms against the simple "
+          f"K4-d {res['K4-d']['ms']:.4f} ms "
+          f"({res['K4-d']['ms'] / res['K4-d-90']['ms']:.2f}x); at rate 0 "
+          f"K4-90 {rate0['K4-d-90']:.4f} ms against K4 {rate0['K4-d']:.4f} "
+          f"ms; SDPA with the bias built {library_fwd:.4f} ms")
+    simple_pair = res["K5-dq"]["ms"] + res["K5-dkdv"]["ms"]
+    print(f"A/B of K5 at that input: the fused K5-90 {res['K5-90']['ms']:.4f} "
+          f"ms against the simple pair K5-dq + K5-dkdv {simple_pair:.4f} ms "
+          f"({simple_pair / res['K5-90']['ms']:.2f}x); the bound of the "
+          f"pair {pair_bound[0]:.4f} ms ({pair_bound[1]}); library yardstick "
           + " + ".join(f"{n} {v:.4f}" for n, v in parts.items())
           + f" = {sum(parts.values()):.4f} ms")
     return res
@@ -2165,7 +2264,8 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
 
 def relpos_route(route: int, q_u, q_v, k, v, p, k_len, rate, seed):
     """The conformer's relative attention core, (o, lse): route 1 the
-    relative kernels (K4/K4-d, and K5 behind autograd); route 2 the bias
+    relative kernels (K4/K4-d, and K5 behind autograd: in bf16 the Hopper
+    design's K4-90/K4-d-90 and K5-90); route 2 the bias
     rel_shift(q_v P^T) built in device memory (unscaled, unmasked, in
     q_v's dtype), then K6/K6-d (and K6's backward, the bias's gradient
     going back through rel_shift and the product by autograd)."""
@@ -2278,8 +2378,7 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
             "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw)),
             "plain_ms": time_ms(lambda: fa.flash_attention_dq_reference(
                 *args, sm_scale, rate, seed, bias=bias)),
-            "max_abs_err": max(errs["dq"], errs["dbias"]),
-            "max_abs_ref": max(peaks["dq"], peaks["dbias"])}
+            **worst_err(errs, peaks, ("dq", "dbias"))}
         res["K6-dq"]["bound_ms"], res["K6-dq"]["bound_by"] = bound_ms(
             6 * h * pairs * d, in_bytes + plane + bias.numel() * el,
             q_u.dtype)
@@ -2287,8 +2386,7 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
             "ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(*args, **kw)),
             "plain_ms": time_ms(lambda: fa.flash_attention_dkdv_reference(
                 *args, sm_scale, rate, seed, bias=bias)),
-            "max_abs_err": max(errs["dk"], errs["dv"]),
-            "max_abs_ref": max(peaks["dk"], peaks["dv"])}
+            **worst_err(errs, peaks, ("dk", "dv"))}
         res["K6-dkdv"]["bound_ms"], res["K6-dkdv"]["bound_by"] = bound_ms(
             8 * h * pairs * d, in_bytes + 2 * plane, q_u.dtype)
     lq, lk, lv, lmask = (x.detach().clone().requires_grad_()
@@ -2319,8 +2417,8 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
           "2e-2); route 1 and route 2 in bf16 against route 1 in fp32: "
           + ", ".join(f"{n} {a:.2e} | {b1:.2e} {b2:.2e}"
                       for n, (a, b1, b2) in agree.items()))
-    print("conformer route A/B (route 1: K4-d, K5 behind autograd; route "
-          "2: the bias in device memory, K6-d, K6's backward, the "
+    print("conformer route A/B (route 1: K4-d-90, K5-90 behind autograd; "
+          "route 2: the bias in device memory, K6-d, K6's backward, the "
           "rel_shift adjoint and the products by autograd), dropout "
           f"{rate}: " + ", ".join(f"{n} {v:.4f} ms" for n, v in ab.items()))
     print(f"K6 backward as a pair at that input: "
@@ -2390,6 +2488,7 @@ def causal_forward_timings(inputs) -> dict:
 # ---- phase 8: attention paths -----------------------------------------------
 
 ATTENTION_PATH_T = (128, 256, 768, 2048)
+RELPOS_PATH_T = (128, 256, 512, 1024, 2048)
 CAUSAL_PATH_T = (128, 256, AR_GROUPS, 1024, 2048)
 
 
@@ -2406,32 +2505,39 @@ def forward_backward_ms(fn, tensors, do) -> float:
 
 def phase_attention_paths(gen):
     """Kernel path against masked-fill path at B=8, H=4, d=96 in bf16: the
-    transformer's (K1-90) and the conformer's (K4) forward at T in
-    ATTENTION_PATH_T; then the AR decoder's causal self-attention at T in
-    CAUSAL_PATH_T, forward (K3-f-90) and forward with
-    backward (K3-f-90 and K3-90), against the masked-fill path on the
-    pad-and-causal mask."""
+    transformer's forward (K1-90) at T in ATTENTION_PATH_T; the
+    conformer's forward (K4-90) at T in RELPOS_PATH_T; then the AR
+    decoder's causal self-attention at T in CAUSAL_PATH_T, forward
+    (K3-f-90) and forward with backward (K3-f-90 and K3-90), against the
+    masked-fill path on the pad-and-causal mask."""
     from transformer_tts_tpu_torch.ops import attention
     from transformer_tts_tpu_torch.ops.flash_attention import flash_attention
     from transformer_tts_tpu_torch.ops.flash_relpos import (
         flash_relpos_attention)
     counts = read_counts()
     for t in ATTENTION_PATH_T:
+        q, k, v = (x.to(torch.bfloat16) for x in
+                   kernel_inputs("K1", gen, 8, 4, t, t, 96))
+        k_len = torch.full((8,), t, dtype=torch.int32, device=DEVICE)
+        mask = torch.ones(8, 1, t, dtype=torch.bool, device=DEVICE)
+        times = [time_ms(lambda: flash_attention(q, k, v, k_len)),
+                 time_ms(lambda: attention.scaled_dot_attention(q, k, v,
+                                                                mask))]
+        print(f"attention B=8 H=4 d=96 bf16 T={t}: K1 path (the Hopper "
+              f"design) {times[0]:.4f} ms, masked-fill path {times[1]:.4f} "
+              f"ms")
+    for t in RELPOS_PATH_T:
         q_u, q_v, k, v, p = (x.to(torch.bfloat16) for x in
                              kernel_inputs("K4", gen, 8, 4, t, t, 96))
         k_len = torch.full((8,), t, dtype=torch.int32, device=DEVICE)
         mask = torch.ones(8, 1, t, dtype=torch.bool, device=DEVICE)
-        times = [
-            time_ms(lambda: flash_attention(q_u, k, v, k_len)),
-            time_ms(lambda: attention.scaled_dot_attention(q_u, k, v, mask)),
-            time_ms(lambda: flash_relpos_attention(q_u, q_v, k, v, p,
-                                                   k_len)),
-            time_ms(lambda: attention.relative_dot_attention(
-                q_u, q_v, k, v, p[None], mask))]
-        print(f"attention B=8 H=4 d=96 bf16 T={t}: K1 path (the Hopper "
-              f"design) {times[0]:.4f} ms, masked-fill path {times[1]:.4f} "
-              f"ms; K4 path {times[2]:.4f} ms, relative masked-fill path "
-              f"{times[3]:.4f} ms")
+        times = [time_ms(lambda: flash_relpos_attention(q_u, q_v, k, v, p,
+                                                        k_len)),
+                 time_ms(lambda: attention.relative_dot_attention(
+                     q_u, q_v, k, v, p[None], mask))]
+        print(f"relative attention B=8 H=4 d=96 bf16 T={t}: K4 path (the "
+              f"Hopper design, K4-90) {times[0]:.4f} ms, relative "
+              f"masked-fill path {times[1]:.4f} ms")
     for t in CAUSAL_PATH_T:
         q, k, v, do = (torch.randn(8, 4, t, 96, generator=gen).to(
             DEVICE, torch.bfloat16) for _ in range(4))
@@ -2449,6 +2555,22 @@ def phase_attention_paths(gen):
               f"ms; forward and backward, K3 path (K3-f-90 + K3-90) "
               f"{both[0]:.4f} ms, masked-fill path {both[1]:.4f} ms")
     set_counts(counts)
+
+
+def worst_err(errs: dict, peaks: dict, names) -> dict:
+    """The error of the entry's worst output among ``names``, the one
+    with the largest err / max|ref|: its max abs error, its own max|ref|
+    and its name (``worst``), so the pair describes one tensor."""
+    def share(n):
+        if peaks[n]:
+            return errs[n] / peaks[n]
+        return float("inf") if errs[n] else 0.0
+    n = max(names, key=share)
+    return {"max_abs_err": errs[n], "max_abs_ref": peaks[n], "worst": n}
+
+
+def of_tensor(res: dict) -> str:
+    return f", of {res['worst']}" if "worst" in res else ""
 
 
 def kernels_line_entry(name, source, replaces, launches, res) -> dict:
@@ -2487,7 +2609,7 @@ def main():
     registry = kernels()
     names = sorted({entry[2] for entry in registry.values()}
                    | {"flash_attention_bwd", "flash_relpos_bwd",
-                      "flash_bwd_sm90"})
+                      "flash_bwd_sm90", "flash_relpos_bwd_sm90"})
     with phase("build"):
         cuda_build.build(names)
     print("build seconds (all started together): " + ", ".join(
@@ -2511,7 +2633,7 @@ def main():
         phase_train_kernels_vs_plain(gen, (batch["pos_mel"] > 0).sum(1))
     with phase("K3 vs plain"):
         phase_causal_kernels_vs_plain(gen, ar_groups)
-    with phase("K4-d and K5 vs plain"):
+    with phase("K4 and K5 vs plain"):
         phase_relpos_kernels_vs_plain(gen, (batch["pos_mel"] > 0).sum(1))
     with phase("K6 vs plain"):
         phase_bias_kernels_vs_plain(gen)
@@ -2550,11 +2672,11 @@ def main():
     with phase("kernels at their main paths' inputs"):
         for path_kid, (launches, main_inputs) in main_runs.items():
             tensors, k_len = list(main_inputs[:-1]), main_inputs[-1]
-            # the transformer's path runs K1-90; the simple K1 is timed on
-            # the same input for the A/B
+            # the transformer's path runs K1-90, the conformer's K4-90; the
+            # simple K1 and K4 are timed on the same input for the A/B
+            simple = path_kid[:-len("-90")]
             ab = {}
-            for kid in ((path_kid, "K1") if path_kid == "K1-90"
-                        else (path_kid,)):
+            for kid in (path_kid, simple):
                 res = ab[kid] = kernel_timings(kid, tensors, k_len)
                 print(f"{kid} at the main path's input "
                       f"{tuple(tensors[0].shape)} "
@@ -2571,12 +2693,11 @@ def main():
                 _, _, name, source, replaces, _ = registry[kid]
                 lines.append(kernels_line_entry(name, source, replaces,
                                                 launches[kid], res))
-            if len(ab) == 2:
-                print(f"A/B at the B=8 synthesis call's first decoder "
-                      f"layer: K1-90 {ab['K1-90']['ms']:.4f} ms against the "
-                      f"simple K1 {ab['K1']['ms']:.4f} ms "
-                      f"({ab['K1']['ms'] / ab['K1-90']['ms']:.2f}x), SDPA "
-                      f"{ab['K1-90']['library_ms']:.4f} ms")
+            print(f"A/B at the B=8 synthesis call's first decoder "
+                  f"layer: {path_kid} {ab[path_kid]['ms']:.4f} ms against "
+                  f"the simple {simple} {ab[simple]['ms']:.4f} ms "
+                  f"({ab[simple]['ms'] / ab[path_kid]['ms']:.2f}x), SDPA "
+                  f"{ab[path_kid]['library_ms']:.4f} ms")
         runs = {}                 # id -> (result, launches, its input)
         for kid, res in train_kernel_timings(fwd_inputs,
                                              bwd_inputs).items():
@@ -2599,7 +2720,8 @@ def main():
                   f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
                   f"ms ({res['bound_by']}), max abs err "
                   f"{res['max_abs_err']:.3g} (max|ref| "
-                  f"{res['max_abs_ref']:.3g}), launches {launches}")
+                  f"{res['max_abs_ref']:.3g}{of_tensor(res)}), launches "
+                  f"{launches}")
             lines.append(kernels_line_entry(name, source, replaces,
                                             launches, res))
         bias_res, bias_launches = bias_kernel_timings(conf_fwd_inputs,
@@ -2613,7 +2735,8 @@ def main():
                   f"library {res['library_ms']:.4f} ms, bound "
                   f"{res['bound_ms']:.4f} ms ({res['bound_by']}), max abs "
                   f"err {res['max_abs_err']:.3g} (max|ref| "
-                  f"{res['max_abs_ref']:.3g}), launches in the route A/B "
+                  f"{res['max_abs_ref']:.3g}{of_tensor(res)}), launches in "
+                  f"the route A/B "
                   f"{bias_launches[kid]}")
             lines.append(kernels_line_entry(name, source, replaces,
                                             bias_launches[kid], res))

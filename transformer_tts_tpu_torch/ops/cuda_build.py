@@ -2,8 +2,8 @@
 
 Every source under ``transformer_tts_tpu_torch/csrc/`` is a ``.cu`` file
 with a plain C interface (no PyTorch headers), so ``nvcc`` builds each in
-seconds; the Hopper design's two sources also link libcuda (``-lcuda``,
-for their TMA tensor maps). A library is built at its first use into
+seconds; the Hopper design's four sources also link libcuda
+(``-lcuda``, for their TMA tensor maps). A library is built at its first use into
 ``build/torch_kernels/`` at the root of the checkout, under a name that
 carries a hash of its source and of the shared headers (``csrc/*.cuh``,
 found by ``nvcc`` beside the source), so an edited source or header is
@@ -32,7 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # libraries a source links beyond the CUDA runtime: the Hopper design
 # encodes its TMA tensor maps with libcuda's cuTensorMapEncodeTiled
-LINK_FLAGS = {"flash_fwd_sm90": ("-lcuda",), "flash_bwd_sm90": ("-lcuda",)}
+LINK_FLAGS = {name: ("-lcuda",) for name in (
+    "flash_fwd_sm90", "flash_bwd_sm90", "flash_relpos_fwd_sm90",
+    "flash_relpos_bwd_sm90")}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}     # name -> nvcc output (ptxas usage)

@@ -40,13 +40,33 @@ Kernels, CUDA C++ for sm_90a in fp32 and bf16:
   batch with fp32 atomics into an (H, T, d) buffer) with 12*H*d.
   ``delta = rowsum(dO * O)`` is a torch reduction, as for K2.
 
+The models' mode -- bf16, d in ``SM90_HEAD_DIMS``, 16-byte aligned inputs
+-- has a second design written for Hopper (``flash_attention.select_design``
+picks it, as for K1/K2; nothing falls back from one to the other):
+
+* K4 and K4-d, ``csrc/flash_relpos_fwd_sm90.cu``: TMA loads into
+  mbarrier-guarded rings (K/V tiles, and 64-row slices of the position
+  table E = [P; 0; P], ``position_table``), a producer warpgroup and two
+  consumer warpgroups, ``wgmma`` products; the bias of a tile is one
+  product against a 128-row window of E, skewed through shared memory.
+* K5, ``csrc/flash_relpos_bwd_sm90.cu``: one fused kernel per 128 keys,
+  dK and dV in registers, dq_u, dq_v and dE summed with fp32 atomics into
+  zeroed accumulators (``flash_relpos_attention_bwd_sm90``); dP =
+  dE[:T] + dE[T+1:] (``dp_from_table``).
+
+fp32 stays on the simple design, which also stays reachable for the
+same-run A/B (``design="simple"``).
+
 ``flash_relpos_attention`` is differentiable in q_u, q_v, k, v and p
 through ``FlashRelposAttention``. On a CPU tensor every wrapper computes
 the plain version; on a CUDA tensor it launches its kernel or raises. The
 launch counts are ``flash_relpos_attention.launches`` (K4),
-``.dropout_launches`` (K4-d), ``flash_relpos_attention_bwd_dq.launches``
-and ``flash_relpos_attention_bwd_dkdv.launches`` (K5). PERF.md holds their
-measured times.
+``.dropout_launches`` (K4-d), ``.sm90_launches`` and
+``.sm90_dropout_launches`` (the Hopper design's K4 and K4-d),
+``flash_relpos_attention_bwd_dq.launches`` and
+``flash_relpos_attention_bwd_dkdv.launches`` (K5),
+``flash_relpos_attention_bwd_sm90.launches`` (the Hopper design's fused
+K5). PERF.md holds their measured times.
 """
 
 from __future__ import annotations
@@ -58,12 +78,14 @@ from typing import Optional, Tuple
 import torch
 
 from transformer_tts_tpu_torch.ops.flash_attention import (
-    _DTYPE_CODE, _check_bwd_inputs, _check_cuda_inputs, _dropout_args,
-    _full_keep_mask, _on_card, _raise_on, _valid_keys, bwd_delta,
-    masked_softmax_pv)
+    _DTYPE_CODE, _aligned, _check_bwd_inputs, _check_cuda_inputs,
+    _dropout_args, _full_keep_mask, _on_card, _raise_on, _valid_keys,
+    bwd_delta, masked_softmax_pv, select_design)
 
 KERNEL = "flash_relpos_fwd"
 BWD_KERNEL = "flash_relpos_bwd"
+SM90_KERNEL = "flash_relpos_fwd_sm90"
+SM90_BWD_KERNEL = "flash_relpos_bwd_sm90"
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -83,6 +105,23 @@ def rel_shift_adjoint(y: torch.Tensor) -> torch.Tensor:
     rows = torch.cat([y.new_zeros(b, h, 1, t1),
                       y.reshape(b, h, t2, t1)], dim=2)
     return rows.reshape(b, h, t1, t2 + 1)[..., 1:]
+
+
+def position_table(p: torch.Tensor) -> torch.Tensor:
+    """E = [P; 0; P], (H, 2T+1, d) in p's dtype: with m = j - i + T - 1,
+    rel_shift(q_v P^T)[i, j] = q_v[i] . E[m] for m <= T - 1 (j <= i), 0 for
+    m = T, q_v[i+1] . E[m] for m >= T + 1 (j >= i + 2). The Hopper
+    kernels' one position table for both branches (the port's
+    counterpart of the TPU's padded ``_build_p_big``)."""
+    h, _, d = p.shape
+    return torch.cat([p, p.new_zeros(h, 1, d), p], dim=1).contiguous()
+
+
+def dp_from_table(de: torch.Tensor) -> torch.Tensor:
+    """dP from the gradient of ``position_table``'s output: the sum of
+    its two copies' rows, dE[..., :T, :] + dE[..., T+1:, :]."""
+    t = (de.shape[-2] - 1) // 2
+    return de[..., :t, :] + de[..., t + 1:, :]
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -223,30 +262,50 @@ def _check_relpos_bwd_inputs(q_u, q_v, k, v, p, do, lse, delta, k_len):
     _check_bwd_inputs(q_u, k, v, do, lse, delta, k_len)
 
 
+def _design(q_u, q_v, k, v, p, extra=()) -> str:
+    """``select_design``'s choice for these inputs (no bias): "sm90" for
+    bf16, d in SM90_HEAD_DIMS and 16-byte aligned inputs, else
+    "simple"."""
+    return select_design(q_u.dtype, False, q_u.shape[-1],
+                         _aligned(q_u, q_v, k, v, p, *extra))
+
+
 def _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-             dropout_seed):
+             dropout_seed, design=None):
     """(o, lse): K4 (rate 0) or K4-d on the card, the plain version on the
-    CPU."""
+    CPU. The design is ``select_design``'s; ``design="simple"`` forces the
+    simple kernel in the Hopper design's mode (the same-run A/B's
+    baseline)."""
     if not _on_card(q_u, "flash_relpos_attention"):
         return flash_relpos_attention_fwd_reference(
             q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed)
     check_relpos_inputs(q_u, q_v, k, v, p, k_len)
+    chosen = ("simple" if design == "simple"
+              else _design(q_u, q_v, k, v, p))
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t, d = q_u.shape
     o = torch.empty_like(q_u)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q_u.device)
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
-        err = _kernel()(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), p.data_ptr(), k_len.data_ptr(),
-                        o.data_ptr(), lse.data_ptr(), b, h, t, d,
-                        float(sm_scale), flag, threshold, scale, seed,
-                        _DTYPE_CODE[q_u.dtype], stream)
-    _raise_on(err, KERNEL)
-    if flag:
-        flash_relpos_attention.dropout_launches += 1
-    else:
-        flash_relpos_attention.launches += 1
+        if chosen == "sm90":
+            e = position_table(p)
+            err = _sm90_fwd()(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(),
+                              v.data_ptr(), e.data_ptr(), k_len.data_ptr(),
+                              o.data_ptr(), lse.data_ptr(), b, h, t, d,
+                              float(sm_scale), flag, threshold, scale, seed,
+                              stream)
+        else:
+            err = _kernel()(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), p.data_ptr(), k_len.data_ptr(),
+                            o.data_ptr(), lse.data_ptr(), b, h, t, d,
+                            float(sm_scale), flag, threshold, scale, seed,
+                            _DTYPE_CODE[q_u.dtype], stream)
+    _raise_on(err, SM90_KERNEL if chosen == "sm90" else KERNEL)
+    counter = (("sm90_" if chosen == "sm90" else "")
+               + ("dropout_launches" if flag else "launches"))
+    setattr(flash_relpos_attention, counter,
+            getattr(flash_relpos_attention, counter) + 1)
     return o, lse
 
 
@@ -309,15 +368,64 @@ flash_relpos_attention_bwd_dq.launches = 0
 flash_relpos_attention_bwd_dkdv.launches = 0
 
 
+def flash_relpos_attention_bwd_sm90(q_u, q_v, k, v, p, do, lse, delta,
+                                    k_len, *, sm_scale, dropout_rate=0.0,
+                                    dropout_seed=0
+                                    ) -> Tuple[torch.Tensor, ...]:
+    """(dq_u, dq_v, dk, dv, dp): the Hopper design's fused K5
+    (csrc/flash_relpos_bwd_sm90.cu, bf16) on the card, the plain dq and
+    dk/dv/dP on the CPU. dq_u, dq_v and dE (the gradient of
+    ``position_table``'s E) are summed in fp32 accumulators zeroed here,
+    with atomics in the kernel, then cast: unlike dk and dv they vary from
+    run to run in their last bits. dE is one plane per head that the whole
+    batch adds into."""
+    args = (q_u, q_v, k, v, p, do, lse, delta, k_len)
+    if not _on_card(q_u, "flash_relpos_attention_bwd_sm90"):
+        return (*flash_relpos_dq_reference(*args, sm_scale, dropout_rate,
+                                           dropout_seed),
+                *flash_relpos_dkdv_reference(*args, sm_scale, dropout_rate,
+                                             dropout_seed))
+    _check_relpos_bwd_inputs(*args)
+    if _design(q_u, q_v, k, v, p, (do,)) != "sm90":
+        raise ValueError("flash_relpos_attention_bwd_sm90 takes bf16, d in "
+                         "(64, 96), 16-byte aligned inputs")
+    flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
+    b, h, t, d = q_u.shape
+    e = position_table(p)
+    f32 = dict(dtype=torch.float32, device=q_u.device)
+    dqu_acc = torch.zeros(q_u.shape, **f32)
+    dqv_acc = torch.zeros(q_u.shape, **f32)
+    de_acc = torch.zeros(e.shape, **f32)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q_u.device):
+        stream = torch.cuda.current_stream(q_u.device).cuda_stream
+        err = _sm90_bwd()(
+            q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
+            e.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            k_len.data_ptr(), dqu_acc.data_ptr(), dqv_acc.data_ptr(),
+            de_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
+            float(sm_scale), flag, threshold, scale, seed, stream)
+    _raise_on(err, SM90_BWD_KERNEL)
+    flash_relpos_attention_bwd_sm90.launches += 1
+    return (dqu_acc.to(q_u.dtype), dqv_acc.to(q_v.dtype), dk, dv,
+            dp_from_table(de_acc).to(p.dtype))
+
+
+flash_relpos_attention_bwd_sm90.launches = 0    # K5, the Hopper design
+
+
 def flash_relpos_attention_bwd(
     q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
     k_len: torch.Tensor, *, sm_scale: float, dropout_rate: float = 0.0,
-    dropout_seed: int = 0,
+    dropout_seed: int = 0, design: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dq_u, dq_v, dk, dv, dp) of ``flash_relpos_attention`` for the
-    output gradient ``do``: delta, then K5's two kernels on the card; the
-    plain version on the CPU."""
+    output gradient ``do``: delta, then on the card the kernels of
+    ``select_design``'s choice -- the Hopper design's fused K5
+    (``flash_relpos_attention_bwd_sm90``) or the simple pair, K5's dq and
+    dk/dv/dP kernels (``design="simple"`` forces the pair); the plain
+    version on the CPU."""
     if not _on_card(q_u, "flash_relpos_attention_bwd"):
         return flash_relpos_attention_bwd_reference(
             q_u, q_v, k, v, p, o, lse, do, k_len, sm_scale, dropout_rate,
@@ -327,6 +435,8 @@ def flash_relpos_attention_bwd(
     args = (q_u, q_v, k, v, p, do, lse, bwd_delta(o, do), k_len)
     kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
+    if design != "simple" and _design(q_u, q_v, k, v, p, (do,)) == "sm90":
+        return flash_relpos_attention_bwd_sm90(*args, **kw)
     dq_u, dq_v = flash_relpos_attention_bwd_dq(*args, **kw)
     dk, dv, dp = flash_relpos_attention_bwd_dkdv(*args, **kw)
     return dq_u, dq_v, dk, dv, dp
@@ -381,6 +491,8 @@ def flash_relpos_attention(
 
 flash_relpos_attention.launches = 0             # K4
 flash_relpos_attention.dropout_launches = 0     # K4-d
+flash_relpos_attention.sm90_launches = 0        # K4, the Hopper design
+flash_relpos_attention.sm90_dropout_launches = 0  # K4-d, the Hopper design
 
 
 def _kernel():
@@ -407,3 +519,27 @@ def _bwd_kernels():
             fn.argtypes = [ctypes.c_void_p] * (9 + 3) + tail
             fn.restype = ctypes.c_int
     return lib
+
+
+def _sm90_entry(name: str, pointers: int):
+    """The Hopper design's entry point ``name`` (its library built on first
+    use): ``pointers`` device pointers, then B, H, T and d, then the
+    scale, the dropout flag, threshold, keep scale and seed, and the
+    stream."""
+    from transformer_tts_tpu_torch.ops import cuda_build
+    fn = getattr(cuda_build.load(name), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+                          ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _sm90_fwd():    # q_u, q_v, k, v, e, k_len, o, lse
+    return _sm90_entry(SM90_KERNEL, 8)
+
+
+def _sm90_bwd():    # q_u, q_v, k, v, e, do, lse, delta, k_len, dq_u, dq_v,
+    # dE accumulators, dk, dv
+    return _sm90_entry(SM90_BWD_KERNEL, 14)
