@@ -10,8 +10,9 @@ and each printing its wall time:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel of the paths (the Hopper design of the models'
-   attention: K1/K1-d and K3-f/K3-d csrc/flash_fwd_sm90.cu and the fused
-   K2 and K3 backward csrc/flash_bwd_sm90.cu; the simple K1 and K1-d with
+   attention: K1/K1-d, K3-f/K3-d and K6/K6-d csrc/flash_fwd_sm90.cu and
+   the fused K2, K3 and K6 backward csrc/flash_bwd_sm90.cu; the simple K1
+   and K1-d with
    K3's and K6's forward, K2 with K3's and K6's backward; the Hopper
    design of the conformer's relative attention, K4/K4-d
    csrc/flash_relpos_fwd_sm90.cu and the fused K5
@@ -48,10 +49,16 @@ and each printing its wall time:
    and 2e-2 (bf16) of each tensor's own max|ref|, dk and dv exactly 0
    past k_len, O bit for bit the same on a second call, each launch on
    its id's counter. K4-90 also as K4 at the synthesis shapes. K6/K6-d
-   (the bias argument of csrc/flash_attention_fwd.cu) and K6's backward (dq with dbias, dk/dv,
-   csrc/flash_attention_bwd.cu) likewise at k_len in {0, 1, 65, T}, T =
-   1000, and T_q = 300 != T_k = 700: O, dq, dk, dv and dbias, dbias, dk
-   and dv exactly 0 past k_len;
+   and K6's backward likewise, in bf16 on both designs (the Hopper one's
+   K6-90/K6-d-90 and fused K6-bwd-90, the bias mode of
+   csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu; the simple one's
+   bias argument of csrc/flash_attention_fwd.cu and
+   csrc/flash_attention_bwd.cu, dq with dbias and dk/dv) at k_len in {0,
+   1, 65, T}, T in {1000, 1024}, d in {64, 96}, fp32 at T = 1000, d = 96;
+   and T_q = 300 != T_k = 700, where the rule sends bf16 to the simple
+   kernels (T_k is not a multiple of 8): O, dq, dk, dv and dbias, dbias,
+   dk and dv exactly 0 past k_len, O, dk, dv and dbias bit for bit on a
+   second launch, each launch on its id's counter;
 4. for each FastSpeech 2 flagship, the transformer one and the conformer
    one of egs/fastspeech2_conformer_ljspeech.py (d 384, 6+6 layers, 4
    heads of 96, random weights from seed 0):
@@ -126,12 +133,15 @@ and each printing its wall time:
    and library ms, bound (for K3 over the causal pairs the inputs
    attend), error. The simple design's K1, K1-d, K2 dq and K2 dk/dv, K3-f,
    K3-d, K3 dq and K3 dk/dv, K4, K4-d, K5 dq and K5 dk/dv/dP on the same
-   inputs, the same-run A/B ("A/B at ..." lines). K6, K6-d and K6's
-   backward at the conformer step's input with the bias rel_shift(q_v
-   P^T) built in device memory: the path that launches them is the route
-   A/B of the conformer's attention core (route 1 K4-d-90 and K5-90,
-   route 2 the bias then K6), counted from 0, O and the five gradients
-   of the two routes within 2e-2 of each one's max|ref|, and the routes' forward and forward+backward times;
+   inputs, the same-run A/B ("A/B at ..." lines). K6-90, K6-d-90 and the
+   fused K6-bwd-90 at the conformer step's input with the bias
+   rel_shift(q_v P^T) built in device memory, and the simple K6, K6-d,
+   K6-dq and K6-dkdv on the same input (the A/B): the path that launches
+   them is the route A/B of the conformer's attention core (route 1
+   K4-d-90 and K5-90, route 2 the bias then K6-d-90 and K6-bwd-90),
+   counted from 0, O and the five gradients of the two routes within 2e-2
+   of each one's max|ref|, and the routes' forward and forward+backward
+   times;
 8. attention-path timing, kernel against masked-fill, at T in
    {128, 256, 768, 2048} for the transformer's attention, {128, 256,
    512, 1024, 2048} for the conformer's (K4-90), and for the AR
@@ -351,12 +361,23 @@ def bias_kernels():
     name in the kernels line, source, TPU kernel it replaces) for K6, the
     additive-bias mode of K1's and K2's sources, which no model path runs:
     chip_smoke drives it on the conformer's route that builds the relative
-    bias in device memory (phase 7's route A/B)."""
+    bias in device memory (phase 7's route A/B). The Hopper design's K6-90,
+    K6-d-90 and fused K6-bwd-90 run that route in bf16; the simple design's
+    K6, K6-d, K6-dq and K6-dkdv run fp32 and the same-run A/B."""
     from transformer_tts_tpu_torch.ops import flash_attention as fa
     fwd = "transformer_tts_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd = "transformer_tts_tpu_torch/csrc/flash_attention_bwd.cu"
+    fwd90 = "transformer_tts_tpu_torch/csrc/flash_fwd_sm90.cu"
+    bwd90 = "transformer_tts_tpu_torch/csrc/flash_bwd_sm90.cu"
     jax_fa = "transformer_tts_tpu/ops/flash_attention.py"
     return {
+        "K6-90": (fa.flash_attention_with_bias, "sm90_launches",
+                  "flash_fwd_sm90 bias", fwd90, f"{jax_fa}:132"),
+        "K6-d-90": (fa.flash_attention_with_bias, "sm90_dropout_launches",
+                    "flash_fwd_sm90 bias dropout", fwd90, f"{jax_fa}:132"),
+        "K6-bwd-90": (fa.flash_attention_bwd_sm90, "bias_launches",
+                      "flash_bwd_sm90 bias (dq, dk, dv, dbias fused)", bwd90,
+                      f"{jax_fa}:323"),
         "K6": (fa.flash_attention_with_bias, "launches",
                "flash_attention_fwd bias", fwd, f"{jax_fa}:132"),
         "K6-d": (fa.flash_attention_with_bias, "dropout_launches",
@@ -787,25 +808,65 @@ def phase_relpos_kernels_vs_plain(gen, train_k_len):
 BIAS_GRADS = ("dq", "dk", "dv", "dbias")
 
 
+def bias_kernel_ids(design: str, rate: float) -> tuple:
+    """(forward id, backward ids) of the K6 kernels a design runs: the
+    Hopper design's K6-90/K6-d-90 and fused K6-bwd-90, or the simple
+    design's K6/K6-d and its dq+dbias and dk/dv pair."""
+    if design == "sm90":
+        return ("K6-d-90" if rate else "K6-90"), ("K6-bwd-90",)
+    return ("K6-d" if rate else "K6"), ("K6-dq", "K6-dkdv")
+
+
 def check_bias_kernels(q, k, v, bias, do, k_len, rate, seed=DROPOUT_SEED,
-                       label="") -> tuple:
+                       label="", design=None) -> tuple:
     """K6 (rate 0) or K6-d and K6's backward on (q, k, v, bias, do) against
-    their plain versions in fp32 on the same inputs: O, dq, dk, dv and
-    dbias each within REL_TOL of its own max|ref|, lse within TOLS'
-    absolute limit; dbias, dk and dv exactly 0 for keys at or past k_len
-    (dbias on every row); O bit for bit the same on a second call with
-    the same seed. Returns ({name: max abs err}, {name: max|ref|}, o).
-    Launch counts are left as they were."""
+    their plain versions in fp32 on the same inputs, on the design
+    ``flash_attention_with_bias`` picks for the mode, or with
+    ``design="simple"`` on the simple kernels (the A/B's baseline): the
+    forward and the backward each run twice, and the launches must have
+    gone to that design's kernels. O, dq, dk, dv and dbias each within
+    REL_TOL of its own max|ref|, lse within TOLS' absolute limit; dbias,
+    dk and dv exactly 0 for keys at or past k_len (dbias on every row); O,
+    dk, dv and dbias bit for bit the same on the second call with the same
+    seed (dq sums with atomics in the Hopper design). Returns ({name: max
+    abs err}, {name: max|ref|}, o). Launch counts are left as they
+    were."""
     from transformer_tts_tpu_torch.ops import flash_attention as fa
+    chosen = design or fa._design(q, k, v, bias, (do,))
+    fwd, bwd_ids = bias_kernel_ids(chosen, rate)
+    bwd = "/".join(bwd_ids)
     counts = read_counts()
     sm_scale = q.shape[-1] ** -0.5
     kw = dict(dropout_rate=rate, dropout_seed=seed)
+    bkw = dict(sm_scale=sm_scale, bias=bias, **kw)
     with torch.no_grad():
-        o, lse = fa.flash_attention_with_bias(q, k, v, bias, k_len, **kw)
-        o_again, _ = fa.flash_attention_with_bias(q, k, v, bias, k_len, **kw)
-        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, k_len,
-                                       sm_scale=sm_scale, bias=bias, **kw)
+        if design == "simple":
+            forward = partial(fa._forward, q, k, v, k_len, sm_scale, rate,
+                              seed, False, bias, design="simple")
+        else:
+            forward = partial(fa.flash_attention_with_bias, q, k, v, bias,
+                              k_len, **kw)
+        o, lse = forward()
+        o_again, _ = forward()
+        if design == "simple":
+            delta = fa.bwd_delta(o, do)
+            args = (q, k, v, do, lse, delta, k_len)
+
+            def backward():
+                dq, dbias = fa.flash_attention_bwd_dq(*args, **bkw)
+                return (dq, *fa.flash_attention_bwd_dkdv(*args, **bkw),
+                        dbias)
+        else:
+            backward = partial(fa.flash_attention_bwd, q, k, v, o, lse, do,
+                               k_len, **bkw)
+        grads = backward()
+        again = backward()
         torch.cuda.synchronize()
+        moved = {kid: n - counts[kid] for kid, n in read_counts().items()
+                 if n != counts[kid]}
+        want = {fwd: 2, **{kid: 2 for kid in bwd_ids}}
+        check(moved == want, f"{fwd}/{bwd}{label}: launches {moved}, not "
+                             f"{want}")
         f = [x.float() for x in (q, k, v)]
         ro, rlse = fa.flash_attention_fwd_reference(
             *f, k_len, sm_scale, rate, seed, bias=bias.float())
@@ -813,9 +874,11 @@ def check_bias_kernels(q, k, v, bias, do, k_len, rate, seed=DROPOUT_SEED,
             *f, o.float(), lse, do.float(), k_len, sm_scale, rate, seed,
             bias=bias.float())
     set_counts(counts)
-    fwd = "K6-d" if rate > 0 else "K6"
     check(torch.equal(o, o_again), f"{fwd}{label}: another O on a second "
                                    f"call with the same seed")
+    for name, a, b in zip(BIAS_GRADS[1:], grads[1:], again[1:]):
+        check(torch.equal(a, b), f"{bwd} {name}{label}: another result on "
+                                 f"a second call")
     empty = k_len == 0
     check(bool((o[empty] == 0).all()), f"{fwd}{label}: a row with no valid "
                                        f"key is not 0")
@@ -829,28 +892,37 @@ def check_bias_kernels(q, k, v, bias, do, k_len, rate, seed=DROPOUT_SEED,
     for name, got, want in zip(BIAS_GRADS, grads, ref):
         errs[name], peaks[name] = max_err(got, want)
         check(errs[name] <= rel * peaks[name],
-              f"K6 {name}{label} disagrees with its plain version: "
+              f"{bwd} {name}{label} disagrees with its plain version: "
               f"{errs[name]} > {rel} * max|ref| {peaks[name]}")
-    check(grads[3].dtype == bias.dtype, f"K6 dbias{label} is not in the "
+    check(grads[3].dtype == bias.dtype, f"{bwd} dbias{label} is not in the "
                                         f"bias's dtype")
     for name, g, axis in (("dk", grads[1], 2), ("dv", grads[2], 2),
                           ("dbias", grads[3], 3)):
         for b, n in enumerate(k_len.tolist()):
             check(bool((g[b].narrow(axis - 1, n, g.shape[axis] - n) == 0)
                        .all()),
-                  f"K6 {name}{label} is not exactly 0 for keys at or past "
+                  f"{bwd} {name}{label} is not exactly 0 for keys at or past "
                   f"k_len")
     return errs, peaks, o
 
 
+BIAS_T = (1000, 1024)   # a ragged last key tile, then none
+
+
 def phase_bias_kernels_vs_plain(gen):
-    """K6/K6-d and K6's backward (dq with dbias, dk/dv) against their plain
-    versions: k_len in {0, 1, 65, T} at T = 1000, and T_q = 300 != T_k =
-    700 (whose T_k takes the bf16 bias tiles element by element: 700 is
-    not a multiple of 8); fp32 (TF32 off) and bf16; dropout 0 and 0.1 on
-    the same seed; a random bias of scale 2."""
-    cases = [(4, 4, 1000, 1000, 96, [1000, 0, 1, 65]),
-             (2, 4, 300, 700, 96, [700, 65])]
+    """K6/K6-d and K6's backward against their plain versions: k_len in
+    {0, 1, 65, T} at T = 1000 and 1024, d in {64, 96}, in bf16 on both
+    designs (the Hopper one, K6-90 or K6-d-90 and the fused K6-bwd-90,
+    then the simple one, K6 or K6-d and dq+dbias, dk/dv); at T = 1000, d =
+    96 also fp32 (TF32 off, the simple kernels); and T_q = 300 != T_k =
+    700, whose T_k is not a multiple of 8, so the rule sends bf16 to the
+    simple kernels (which read its bias tiles element by element), fp32
+    and bf16; dropout 0 and 0.1 on the same seed; a random bias of scale
+    2."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    cases = [(4, 4, t, t, d, [t, 0, 1, 65]) for t in BIAS_T
+             for d in (96, 64)]
+    cases.append((2, 4, 300, 700, 96, [700, 65]))
     for b, h, t_q, t_k, d, k_len in cases:
         q, do = (torch.randn(b, h, t_q, d, generator=gen).to(DEVICE)
                  for _ in range(2))
@@ -858,11 +930,23 @@ def phase_bias_kernels_vs_plain(gen):
                 for _ in range(2))
         bias = (2 * torch.randn(b, h, t_q, t_k, generator=gen)).to(DEVICE)
         kl = torch.tensor(k_len, dtype=torch.int32, device=DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
+        rule = fa._design(*(x.to(torch.bfloat16) for x in (q, k, v)),
+                          bias.to(torch.bfloat16))
+        check(rule == ("sm90" if t_k % 8 == 0 else "simple"),
+              f"the design rule sends a bf16 bias of T_k = {t_k} to {rule}")
+        modes = [(torch.bfloat16, None)]
+        if rule == "sm90":
+            modes.append((torch.bfloat16, "simple"))
+        if (t_q, d) == (BIAS_T[0], 96) or rule == "simple":
+            modes.insert(0, (torch.float32, None))
+        for dtype, design in modes:
             for rate in (0.0, 0.1):
                 errs, peaks, _ = check_bias_kernels(
-                    *(x.to(dtype) for x in (q, k, v, bias, do)), kl, rate)
-                print(f"K6 vs plain ({b},{h},{t_q},{t_k},{d}) "
+                    *(x.to(dtype) for x in (q, k, v, bias, do)), kl, rate,
+                    design=design)
+                name = ("K6 sm90" if dtype == torch.bfloat16 and not design
+                        and rule == "sm90" else "K6 simple")
+                print(f"{name} vs plain ({b},{h},{t_q},{t_k},{d}) "
                       f"{str(dtype)[6:]} rate {rate} k_len={k_len}: "
                       + " ".join(f"max|d{n}|={e:.3g} (max|ref| "
                                  f"{peaks[n]:.3g})" for n, e in errs.items()))
@@ -1305,6 +1389,54 @@ def decoder_attention(hp, attn: str) -> tuple:
                  for i in range(hp.n_layer_decoder) for m in members)
 
 
+# a ReLU input within this share of its call's max|x| lies within rounding
+# of 0, where card and CPU may take either branch: the one such tie read
+# out of an AR step had |x| = 1.5e-7 against max|x| = 7.27 (2.1e-8)
+RELU_TIE = 1e-7
+# at most this many ReLU inputs of one train step may take the card's
+# branch on the CPU
+RELU_FLIPS = 8
+
+
+@contextmanager
+def relu_branches(record=None, follow=None):
+    """Within the block, ``torch.relu`` (every ReLU of the models) either
+    appends each call's branch, x > 0 on the CPU, to the list ``record``,
+    or, given ``follow`` (the branches another run recorded, call by
+    call), takes that run's branch where its own input lies within
+    RELU_TIE of 0 and the two differ. At such a tie both branches are
+    right; a different one moves the layer's weight gradient by up to
+    ~1/sqrt(B*T) of its max|g| (one flipped encoder unit in B*T = 256
+    text positions: 3.3 %), which is not a disagreement of the two
+    devices' arithmetic. Yields [the count of branches taken from
+    ``follow``, the largest |x| / max|x| among them]."""
+    real = torch.relu
+    calls = iter(follow or ())
+    forced = [0, 0.0]
+
+    def relu(x):
+        if record is not None:
+            record.append((x > 0).cpu())
+            return real(x)
+        other = next(calls).to(x.device)
+        check(other.shape == x.shape, "the ReLU calls of the two runs differ")
+        top = x.abs().amax()
+        take = (x.abs() <= RELU_TIE * top) & (other != (x > 0))
+        if bool(take.any()):
+            forced[0] += int(take.sum())
+            forced[1] = max(forced[1], float(x.abs()[take].max() / top))
+        return torch.where(take, x * other, real(x))
+
+    if record is None and follow is None:
+        yield forced
+        return
+    torch.relu = relu
+    try:
+        yield forced
+    finally:
+        torch.relu = real
+
+
 def ulp(x: torch.Tensor) -> torch.Tensor:
     a = x.abs()
     return torch.nextafter(a, torch.full_like(a, math.inf)) - a
@@ -1322,27 +1454,34 @@ def phase_card_vs_cpu(gen, kind):
     warmup_step 10 makes Adam's first update lr * g / (|g| + 1e-9) ~
     lr * sign(g) with lr = 1.6e-3, far above fp32's rounding of the
     weights, so the updates show every gradient's sign, however small the
-    gradient."""
+    gradient. The CPU's step follows the card's fp32 step at ReLU inputs
+    within rounding of 0 (``relu_branches``)."""
     spec = trainer(kind)
     b, text_len, mel_len, frames = CPU_STEP_BATCH
     fp32 = dict(spec["no_dropout"], amp=False, warmup_step=10)
-    hp = spec["hparams"](**fp32)
-    batch = spec["batch"](gen, hp, b, text_len, mel_len, frames, "cpu")
-    ref = spec["init"](hp, device="cpu")
+    hp32 = spec["hparams"](**fp32)
+    batch = spec["batch"](gen, hp32, b, text_len, mel_len, frames, "cpu")
+    ref = spec["init"](hp32, device="cpu")
     weights = {k: v.clone() for k, v in ref.model.state_dict().items()}
-    ref, ref_logs = spec["make_step"](hp, device="cpu")(ref, batch)
-    lr = ref.optimizer.schedule(0)
     counts = read_counts()
-    results, launched = {}, {}
+    results, launched, branches = {}, {}, []
     for amp in (False, True):
         hp = spec["hparams"](**dict(fp32, amp=amp))
         state = spec["init"](hp, device=DEVICE)
         state.model.load_state_dict(weights)
         before = read_counts()
-        state, logs = spec["make_step"](hp, device=DEVICE)(state, batch)
+        with relu_branches(record=None if amp else branches):
+            state, logs = spec["make_step"](hp, device=DEVICE)(state, batch)
         torch.cuda.synchronize()
         launched[amp] = {k: n - before[k] for k, n in read_counts().items()}
         results[amp] = (state, logs)
+    with relu_branches(follow=branches) as forced:
+        ref, ref_logs = spec["make_step"](hp32, device="cpu")(ref, batch)
+    lr = ref.optimizer.schedule(0)
+    check(forced[0] <= RELU_FLIPS,
+          f"{kind}: {forced[0]} ReLU inputs within rounding of 0 took "
+          f"another branch on the CPU than on the card (at most "
+          f"{RELU_FLIPS})")
     fwd, _, dq, dkdv = spec["kernels"]
     check(all(launched[False][k] > 0 for k in (fwd, dq, dkdv)),
           f"{kind}: the card's fp32 step did not take {fwd}, {dq} and "
@@ -1421,7 +1560,11 @@ def phase_card_vs_cpu(gen, kind):
           f"bound it below 1e-3, at least {attn_share:.1%} of each decoder "
           f"attention "
           f"weight; BatchNorm statistics {stats_rel:.3g} of their own "
-          f"max|ref| (tol 1e-3); card launches {json.dumps(launched)}")
+          f"max|ref| (tol 1e-3); ReLU inputs within {RELU_TIE:g} of their "
+          f"call's max|x| where the CPU took the card's branch: {forced[0]} "
+          f"(at most {RELU_FLIPS}) of {sum(x.numel() for x in branches)}, "
+          f"the largest at {forced[1]:.3g} of max|x|; card launches "
+          f"{json.dumps(launched)}")
     check(max(grad_rel.values()) <= GRAD_TOL
           and grad_rel[attn_worst] <= ATTN_GRAD_TOL
           and noise_peak <= 1e-5 * top,
@@ -2284,17 +2427,20 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
     step's seed, dO from its backward), with the bias of route 2.
 
     The path that launches K6 is chip_smoke's route A/B: route 2 once
-    forward at rate 0 (1 K6) and once forward and backward at the step's
-    rate (1 K6-d, 1 dq+dbias, 1 dk/dv), counted from 0, nothing else
-    launched. Then each entry against its fp32 plain version at that
-    input (``check_bias_kernels``), kernel, plain and library ms and the
-    bound: operations per attended (row, key) pair 4*H*d forward, 6*H*d
-    dq, 8*H*d dk/dv; bytes q, k, v (and dO) read once, the bias read over
-    the valid keys, o (dq, or dk and dv) written once, dbias written whole.
-    Library: SDPA with relpos_bias (the bias scaled and -inf-filled past
-    k_len) as its mask, with the step's dropout for K6-d; for the backward
-    entries SDPA's backward with the mask's gradient. Last the A/B of the
-    two routes, forward and forward+backward. That the routes compute the
+    forward at rate 0 (1 K6-90) and once forward and backward at the
+    step's rate (1 K6-d-90, 1 K6-bwd-90), counted from 0, nothing else
+    launched. Then each design against its fp32 plain version at that
+    input (``check_bias_kernels``) and its kernel, plain and library ms
+    and bound -- the Hopper design's K6-90, K6-d-90 and fused K6-bwd-90,
+    and on the same input the simple design's K6, K6-d, K6-dq and K6-dkdv
+    (the same-run A/B). Operations per attended (row, key) pair 4*H*d
+    forward, 10*H*d the fused backward, 6*H*d dq, 8*H*d dk/dv; bytes q,
+    k, v (and dO, lse, delta) read once, the bias read over the valid
+    keys, o (dq, dk and dv) written once, dbias written whole. Library:
+    SDPA with relpos_bias (the bias scaled and -inf-filled past k_len) as
+    its mask, with the step's dropout for K6-d; for the backward entries
+    SDPA's backward with the mask's gradient. Last the A/B of the two
+    routes, forward and forward+backward. That the routes compute the
     same function is held in fp32, both routes on the card on the input's
     values: O and all five gradients of route 2 within 2e-2 of route 1's
     own max|ref|. In bf16 each route's differences from route 1's fp32
@@ -2322,7 +2468,7 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
     torch.cuda.synchronize()
     launches = read_counts()                # and ends here
     want = {kid: 0 for kid in counters()}
-    want.update({kid: 1 for kid in bias_kernels()})
+    want.update({kid: 1 for kid in ("K6-90", "K6-d-90", "K6-bwd-90")})
     check(launches == want, f"the route A/B's K6 launches {launches}, "
                             f"expected {want}")
     counts = read_counts()
@@ -2342,50 +2488,70 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
     b, h, t, d = q_u.shape
     with torch.no_grad():
         bias = relpos_route_bias(q_v, p)
-        errs0, peaks0, _ = check_bias_kernels(
-            q_u, k, v, bias, do, k_len, 0.0, 0, " (conformer step input)")
-        errs, peaks, _ = check_bias_kernels(q_u, k, v, bias, do, k_len, rate,
-                                            seed, " (conformer step input)")
+        checked = {}
+        for design in ("sm90", "simple"):
+            for r, sd in ((0.0, 0), (rate, seed)):
+                checked[design, r] = check_bias_kernels(
+                    q_u, k, v, bias, do, k_len, r, sd,
+                    f" (conformer step input, {design})",
+                    design=None if design == "sm90" else "simple")
     pairs = attended_pairs(t, k_len, False)
     el = q_u.element_size()
     plane = q_u.numel() * el
     bias_in = h * pairs * el                # the bias over the valid keys
+    dbias_out = bias.numel() * el           # dbias written whole
     stats = b * h * t * 4
+    in_bytes = 4 * plane + 2 * stats + bias_in  # q, k, v, dO, lse, delta
+    fwd_bound = bound_ms(4 * h * pairs * d, 4 * plane + bias_in + stats,
+                         q_u.dtype)
     mask = relpos_bias(q_v, p, k_len, sm_scale)
     res = {}
     with torch.no_grad():
-        for kid, r, e, pk in (("K6", 0.0, errs0, peaks0),
-                              ("K6-d", rate, errs, peaks)):
-            res[kid] = {
-                "ms": time_ms(lambda: fa.flash_attention_with_bias(
-                    q_u, k, v, bias, k_len, dropout_rate=r,
-                    dropout_seed=seed)),
-                "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
-                    q_u, k, v, k_len, sm_scale, r, seed, bias=bias)),
-                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                    q_u, k, v, attn_mask=mask, dropout_p=r, scale=sm_scale)),
-                "max_abs_err": e["o"], "max_abs_ref": pk["o"]}
-            res[kid]["bound_ms"], res[kid]["bound_by"] = bound_ms(
-                4 * h * pairs * d, 4 * plane + bias_in + stats, q_u.dtype)
+        library_fwd = {r: time_ms(lambda: F.scaled_dot_product_attention(
+            q_u, k, v, attn_mask=mask, dropout_p=r, scale=sm_scale))
+            for r in (0.0, rate)}
+        plain_fwd = {r: time_ms(lambda: fa.flash_attention_fwd_reference(
+            q_u, k, v, k_len, sm_scale, r, seed, bias=bias))
+            for r in (0.0, rate)}
+        for design in ("sm90", "simple"):
+            for r in (0.0, rate):
+                kid = bias_kernel_ids(design, r)[0]
+                e, pk, _ = checked[design, r]
+                res[kid] = {
+                    "ms": time_ms(lambda: fa._forward(
+                        q_u, k, v, k_len, sm_scale, r, seed, False, bias,
+                        design=None if design == "sm90" else "simple")),
+                    "plain_ms": plain_fwd[r], "library_ms": library_fwd[r],
+                    "max_abs_err": e["o"], "max_abs_ref": pk["o"]}
+                res[kid]["bound_ms"], res[kid]["bound_by"] = fwd_bound
         o, lse = fa.flash_attention_with_bias(q_u, k, v, bias, k_len,
                                               dropout_rate=rate,
                                               dropout_seed=seed)
         args = (q_u, k, v, do, lse, fa.bwd_delta(o, do), k_len)
         kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
                   bias=bias)
-        in_bytes = 4 * plane + 2 * stats + bias_in
+        plain_dq = time_ms(lambda: fa.flash_attention_dq_reference(
+            *args, sm_scale, rate, seed, bias=bias))
+        plain_dkdv = time_ms(lambda: fa.flash_attention_dkdv_reference(
+            *args, sm_scale, rate, seed, bias=bias))
+        errs, peaks, _ = checked["sm90", rate]
+        res["K6-bwd-90"] = {
+            "ms": time_ms(lambda: fa.flash_attention_bwd_sm90(*args, **kw)),
+            "plain_ms": plain_dq + plain_dkdv,
+            **worst_err(errs, peaks, BIAS_GRADS)}
+        res["K6-bwd-90"]["bound_ms"], res["K6-bwd-90"]["bound_by"] = (
+            bound_ms(10 * h * pairs * d,
+                     in_bytes + 3 * plane + dbias_out, q_u.dtype))
+        errs, peaks, _ = checked["simple", rate]
         res["K6-dq"] = {
             "ms": time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_dq_reference(
-                *args, sm_scale, rate, seed, bias=bias)),
+            "plain_ms": plain_dq,
             **worst_err(errs, peaks, ("dq", "dbias"))}
         res["K6-dq"]["bound_ms"], res["K6-dq"]["bound_by"] = bound_ms(
-            6 * h * pairs * d, in_bytes + plane + bias.numel() * el,
-            q_u.dtype)
+            6 * h * pairs * d, in_bytes + plane + dbias_out, q_u.dtype)
         res["K6-dkdv"] = {
             "ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(*args, **kw)),
-            "plain_ms": time_ms(lambda: fa.flash_attention_dkdv_reference(
-                *args, sm_scale, rate, seed, bias=bias)),
+            "plain_ms": plain_dkdv,
             **worst_err(errs, peaks, ("dk", "dv"))}
         res["K6-dkdv"]["bound_ms"], res["K6-dkdv"]["bound_by"] = bound_ms(
             8 * h * pairs * d, in_bytes + 2 * plane, q_u.dtype)
@@ -2395,7 +2561,8 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
                                         dropout_p=rate, scale=sm_scale)
     library_bwd = time_ms(lambda: torch.autograd.grad(
         lo, (lq, lk, lv, lmask), do, retain_graph=True))
-    res["K6-dq"]["library_ms"] = res["K6-dkdv"]["library_ms"] = library_bwd
+    for kid in ("K6-bwd-90", "K6-dq", "K6-dkdv"):
+        res[kid]["library_ms"] = library_bwd
 
     ab = {}
     with torch.no_grad():
@@ -2407,9 +2574,9 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
         ab[f"route {route} forward+backward"] = time_ms(
             lambda: fwd_bwd(route))
     set_counts(counts)
-    for r, e, pk in ((0.0, errs0, peaks0), (rate, errs, peaks)):
-        print(f"K6 vs plain at the conformer train step's input, bias "
-              f"rel_shift(q_v P^T) {str(q_u.dtype)[6:]}, rate {r}: "
+    for (design, r), (e, pk, _) in checked.items():
+        print(f"K6 {design} vs plain at the conformer train step's input, "
+              f"bias rel_shift(q_v P^T) {str(q_u.dtype)[6:]}, rate {r}: "
               + " ".join(f"max|d{n}|={x:.3g} (max|ref| {pk[n]:.3g})"
                          for n, x in e.items()))
     print("conformer routes at that input, each difference a share of "
@@ -2418,12 +2585,23 @@ def bias_kernel_timings(fwd_inputs, bwd_inputs) -> tuple:
           + ", ".join(f"{n} {a:.2e} | {b1:.2e} {b2:.2e}"
                       for n, (a, b1, b2) in agree.items()))
     print("conformer route A/B (route 1: K4-d-90, K5-90 behind autograd; "
-          "route 2: the bias in device memory, K6-d, K6's backward, the "
+          "route 2: the bias in device memory, K6-d-90, K6-bwd-90, the "
           "rel_shift adjoint and the products by autograd), dropout "
           f"{rate}: " + ", ".join(f"{n} {v:.4f} ms" for n, v in ab.items()))
-    print(f"K6 backward as a pair at that input: "
-          f"{res['K6-dq']['ms'] + res['K6-dkdv']['ms']:.4f} ms; SDPA "
-          f"backward with the mask's gradient {library_bwd:.4f} ms")
+    simple_pair = res["K6-dq"]["ms"] + res["K6-dkdv"]["ms"]
+    print(f"A/B of K6 at that input: forward, K6-d-90 "
+          f"{res['K6-d-90']['ms']:.4f} ms against the simple K6-d "
+          f"{res['K6-d']['ms']:.4f} ms "
+          f"({res['K6-d']['ms'] / res['K6-d-90']['ms']:.2f}x), SDPA "
+          f"{library_fwd[rate]:.4f} ms; at rate 0 K6-90 "
+          f"{res['K6-90']['ms']:.4f} ms against K6 {res['K6']['ms']:.4f} ms, "
+          f"SDPA {library_fwd[0.0]:.4f} ms; bound {fwd_bound[0]:.4f} ms "
+          f"({fwd_bound[1]}); backward, fused K6-bwd-90 "
+          f"{res['K6-bwd-90']['ms']:.4f} ms against the simple pair "
+          f"{simple_pair:.4f} ms ({simple_pair / res['K6-bwd-90']['ms']:.2f}"
+          f"x), SDPA backward with the mask's gradient {library_bwd:.4f} "
+          f"ms, bound {res['K6-bwd-90']['bound_ms']:.4f} ms "
+          f"({res['K6-bwd-90']['bound_by']})")
     return res, launches
 
 

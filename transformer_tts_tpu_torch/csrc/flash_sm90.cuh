@@ -11,6 +11,14 @@
 // bits 7-8). A TMA load with CU_TENSOR_MAP_SWIZZLE_64B and a box of 32
 // columns writes one chunk; a wgmma descriptor with layout type 2 reads
 // it. Buffers start on 1024-byte boundaries, so the period lines up.
+//
+// The additive bias (K6) and its gradient are tiles of 64 bf16 keys a row,
+// 128 bytes, in the 128-byte swizzle (Swizzle<3,4,3>: address bits 4-6
+// XOR bits 7-9), the layout of a TMA box of 64 columns with
+// CU_TENSOR_MAP_SWIZZLE_128B. Threads read and write them with ldmatrix
+// and stmatrix, eight 16-byte rows at a time: eight consecutive rows put
+// their 16-byte pieces in eight different places of the 128 bytes, so
+// each of those accesses touches all 32 banks once.
 
 #pragma once
 
@@ -36,6 +44,14 @@ __host__ __device__ __forceinline__ uint32_t swizzled_offset(int rows,
                        (uint32_t)row * ROW_BYTES +
                        (uint32_t)(col % CHUNK_COLS) * 2;
   return off ^ ((off >> 3) & 0x30);
+}
+
+// byte offset of (row, col) in a tile of 128-byte rows (64 bf16 columns),
+// 128-byte swizzled; col a multiple of 8 names one 16-byte piece
+__host__ __device__ __forceinline__ uint32_t swizzled128_offset(int row,
+                                                                int col) {
+  const uint32_t off = (uint32_t)row * 128 + (uint32_t)col * 2;
+  return off ^ ((off >> 3) & 0x70);
 }
 
 // ---- mbarriers --------------------------------------------------------------
@@ -86,6 +102,75 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// the box at `src` to (c0, c1, c2) of a 3-D map, clipped at the tensor's
+// bounds; tracked by the issuing thread's bulk groups
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the issuing thread's stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ... and have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- ldmatrix / stmatrix -------------------------------------------------------
+
+// Four 8x8 bf16 matrices; lane l gives the address of row l%8 of matrix
+// l/8. Plain: register m of lane l holds row l/4, columns 2(l%4) and
+// 2(l%4)+1 of matrix m (low half first) -- an m16n8 accumulator's
+// fragment. Transposed: row 2(l%4) and 2(l%4)+1, column l/4.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+// the inverse of ldsm_x4_trans: register m of lane l goes to rows 2(l%4)
+// and 2(l%4)+1, column l/4, of matrix m
+__device__ __forceinline__ void stsm_x4_trans(void* p,
+                                              const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n"
+      :: "r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// the two bf16 of a packed pair as fp32, exactly
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xFFFF0000u);
 }
 
 // generic-proxy writes to shared memory made visible to wgmma's reads
@@ -284,6 +369,25 @@ inline CUresult make_map(CUtensorMap* map, const void* base, int d, int T,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A (BH, rows, cols) bf16 tensor -- K6's bias or its gradient, (B, H,
+// T_q, T_k) -- as a 3-D map whose box is 64 columns x `box_rows` rows of
+// one batch-head, 128-byte swizzled; loads read past the edges as zeros,
+// stores are clipped there. Needs cols % 8 == 0 (the row stride a
+// multiple of 16 bytes) and a 16-byte aligned base.
+inline CUresult make_plane_map(CUtensorMap* map, const void* base, int cols,
+                               int rows, int BH, int box_rows) {
+  cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)BH};
+  cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                           (cuuint64_t)rows * cols * 2};
+  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

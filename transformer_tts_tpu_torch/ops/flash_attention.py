@@ -54,22 +54,28 @@ over 64-row tiles of the other sequence staged in shared memory, fp32
 statistics and accumulators, WMMA tensor-core products for bf16 and FMA
 products for fp32; see the sources. PERF.md holds their measured times.
 
-The models' mode -- bf16, no bias, d in ``SM90_HEAD_DIMS``, 16-byte
-aligned inputs, causal or not -- has a second design written for Hopper
-(``select_design`` picks it; nothing falls back from one to the other):
+Every bf16 mode at d in ``SM90_HEAD_DIMS`` with 16-byte aligned inputs --
+causal or not, with a bias or not (a bias also needs T_k % 8 == 0) -- has
+a second design written for Hopper (``select_design`` picks it; nothing
+falls back from one to the other):
 
-* K1 and K1-d, with ``causal`` K3-f and K3-d, ``csrc/flash_fwd_sm90.cu``:
-  TMA loads into a ring of mbarrier-guarded stages, a producer warpgroup
-  and two consumer warpgroups, ``wgmma`` products with the softmax and O
-  in registers; causal, each warpgroup stops at its diagonal key tile.
-* K2, with ``causal`` K3's backward, ``csrc/flash_bwd_sm90.cu``: one fused
-  kernel per 128 keys, five products per tile pair, dK and dV in
-  registers, dq summed with fp32 atomics into a zeroed accumulator
-  (``flash_attention_bwd_sm90``); causal, the q-tile loop starts at the
-  tile holding the block's first key.
+* K1 and K1-d, with ``causal`` K3-f and K3-d, with a bias K6 and K6-d,
+  ``csrc/flash_fwd_sm90.cu``: TMA loads into a ring of mbarrier-guarded
+  stages, a producer warpgroup and two consumer warpgroups, ``wgmma``
+  products with the softmax and O in registers; causal, each warpgroup
+  stops at its diagonal key tile; the bias tile comes by TMA with its
+  K/V stage and is added to S from shared memory.
+* K2, with ``causal`` K3's backward, with a bias K6's,
+  ``csrc/flash_bwd_sm90.cu``: one fused kernel per 128 keys, five products
+  per tile pair, dK and dV in registers, dq summed with fp32 atomics into
+  a zeroed accumulator (``flash_attention_bwd_sm90``); causal, the q-tile
+  loop starts at the tile holding the block's first key; with a bias,
+  dbias = dS goes out through a shared-memory tile by TMA store, each
+  element once, with no atomics.
 
-fp32 and the bias (K6) stay on the simple design, which also stays
-reachable for the same-run A/B (``design="simple"``).
+fp32, other head dims and a bias whose T_k is not a multiple of 8 stay on
+the simple design, which also stays reachable for the same-run A/B
+(``design="simple"``).
 
 ``flash_attention`` is differentiable in q, k and v through
 ``FlashAttention``, ``flash_attention_with_bias`` in q, k, v and the bias
@@ -84,9 +90,11 @@ design's K1 and K1-d), ``.causal_launches`` (K3's forward at rate 0, K3-f) and
 and ``flash_attention_bwd_dkdv.launches`` (K2), the same functions'
 ``.causal_launches`` (K3's dq and dk/dv) and ``.bias_launches`` (K6's dq
 and dbias, K6's dk/dv); ``flash_attention_bwd_sm90.launches`` (the Hopper
-design's fused K2) and ``.causal_launches`` (its fused K3 backward);
+design's fused K2), ``.causal_launches`` (its fused K3 backward) and
+``.bias_launches`` (its fused K6 backward);
 ``flash_attention_with_bias.launches`` (K6) and
-``.dropout_launches`` (K6-d).
+``.dropout_launches`` (K6-d), ``.sm90_launches`` and
+``.sm90_dropout_launches`` (the Hopper design's K6 and K6-d).
 """
 
 from __future__ import annotations
@@ -411,12 +419,13 @@ def _ptr(x: Optional[torch.Tensor]):
 def select_design(dtype: torch.dtype, has_bias: bool, d: int,
                   aligned: bool = True) -> str:
     """The kernel design for a mode on the card: "sm90" (flash_fwd_sm90.cu
-    and flash_bwd_sm90.cu) for bf16, no bias, d in ``SM90_HEAD_DIMS`` and
-    16-byte aligned inputs (the TMA maps' rule), causal (K3) or not;
-    "simple" (flash_attention_fwd.cu and flash_attention_bwd.cu) for every
-    other mode: fp32, a bias (K6), another d."""
-    if (dtype == torch.bfloat16 and not has_bias and d in SM90_HEAD_DIMS
-            and aligned):
+    and flash_bwd_sm90.cu) for bf16, d in ``SM90_HEAD_DIMS`` and inputs
+    laid out for TMA (``aligned``: 16-byte aligned bases and, for a bias,
+    a row stride of a multiple of 16 bytes, so T_k % 8 == 0 in bf16),
+    causal (K3) or not, with a bias (K6) or not; "simple"
+    (flash_attention_fwd.cu and flash_attention_bwd.cu) for every other
+    mode: fp32, another d, inputs TMA cannot map."""
+    if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS and aligned:
         return "sm90"
     return "simple"
 
@@ -426,8 +435,10 @@ def _aligned(*tensors) -> bool:
 
 
 def _design(q, k, v, bias, extra=()) -> str:
+    held = (q, k, v, *extra) + (() if bias is None else (bias,))
+    rows = bias is None or bias.stride(-2) * bias.element_size() % 16 == 0
     return select_design(q.dtype, bias is not None, q.shape[-1],
-                         _aligned(q, k, v, *extra))
+                         rows and _aligned(*held))
 
 
 def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
@@ -453,10 +464,10 @@ def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if chosen == "sm90":
             err = _sm90_fwd()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
-                o.data_ptr(), lse.data_ptr(), b, h, t_q, k.shape[2], d,
-                float(sm_scale), flag, threshold, scale, seed, int(causal),
-                stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                k_len.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, t_q,
+                k.shape[2], d, float(sm_scale), flag, threshold, scale, seed,
+                int(causal), stream)
         else:
             err = _fwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 _ptr(bias), k_len.data_ptr(), o.data_ptr(),
@@ -547,44 +558,56 @@ for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
 
 
 def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                             dropout_rate=0.0, dropout_seed=0, causal=False
-                             ) -> Tuple[torch.Tensor, ...]:
+                             dropout_rate=0.0, dropout_seed=0, causal=False,
+                             bias=None) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) from the forward's lse and ``delta``: the Hopper
     design's fused K2 (with ``causal`` K3's backward; csrc/flash_bwd_sm90.cu,
-    bf16, no bias) on the card, the plain dq and dk/dv on the CPU. dq is
-    summed in an fp32 accumulator zeroed here, with atomics in the kernel,
-    then cast to q's dtype: unlike dk and dv it varies from run to run in
-    its last bits."""
+    bf16) on the card, the plain dq and dk/dv on the CPU. With ``bias``
+    K6's: (dq, dk, dv, dbias), dbias like the bias and written whole by
+    the kernel (zeros past ``k_len`` included), so it is allocated
+    uninitialised. dq is summed in an fp32 accumulator zeroed here, with
+    atomics in the kernel, then cast to q's dtype: unlike dk, dv and dbias
+    it varies from run to run in its last bits."""
     if not _on_card(q, "flash_attention_bwd_sm90"):
         dq = flash_attention_dq_reference(q, k, v, do, lse, delta, k_len,
                                           sm_scale, dropout_rate,
-                                          dropout_seed, causal)
-        return (dq, *flash_attention_dkdv_reference(
+                                          dropout_seed, causal, bias)
+        dk, dv = flash_attention_dkdv_reference(
             q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
-            dropout_seed, causal))
+            dropout_seed, causal, bias)
+        return (dq, dk, dv) if bias is None else (dq[0], dk, dv, dq[1])
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
-    if _design(q, k, v, None, (do,)) != "sm90":
+    if bias is not None:
+        check_bias(q, k, bias)
+        if causal:
+            raise ValueError("the bias (K6) is non-causal")
+    if _design(q, k, v, bias, (do,)) != "sm90":
         raise ValueError("flash_attention_bwd_sm90 takes bf16, d in "
-                         f"{SM90_HEAD_DIMS}, 16-byte aligned inputs")
+                         f"{SM90_HEAD_DIMS}, 16-byte aligned inputs and a "
+                         "bias only where T_k % 8 == 0")
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias = None if bias is None else torch.empty_like(bias)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _sm90_bwd()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), k_len.data_ptr(),
-            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t_q,
-            k.shape[2], d, float(sm_scale), flag, threshold, scale, seed,
-            int(causal), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            k_len.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _ptr(dbias), b, h, t_q, k.shape[2], d,
+            float(sm_scale), flag, threshold, scale, seed, int(causal),
+            stream)
     _raise_on(err, SM90_BWD_KERNEL)
-    _count_bwd(flash_attention_bwd_sm90, None, causal)
-    return dq_acc.to(q.dtype), dk, dv
+    _count_bwd(flash_attention_bwd_sm90, bias, causal)
+    grads = (dq_acc.to(q.dtype), dk, dv)
+    return grads if bias is None else (*grads, dbias)
 
 
 flash_attention_bwd_sm90.launches = 0           # K2, the Hopper design
 flash_attention_bwd_sm90.causal_launches = 0    # K3's, the Hopper design
+flash_attention_bwd_sm90.bias_launches = 0      # K6's, the Hopper design
 
 
 def flash_attention_bwd(
@@ -595,9 +618,10 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``:
     delta, then on the card the kernels of ``select_design``'s choice --
-    the Hopper design's fused K2 or K3 (``flash_attention_bwd_sm90``) or
-    the simple pair, K2's (with ``causal`` K3's) dq and dk/dv kernels; the
-    plain version on the CPU. With ``bias``, K6's: (dq, dk, dv, dbias)."""
+    the Hopper design's fused K2, K3 or K6 (``flash_attention_bwd_sm90``)
+    or the simple pair, K2's (with ``causal`` K3's, with ``bias`` K6's) dq
+    and dk/dv kernels; the plain version on the CPU. With ``bias``, K6's:
+    (dq, dk, dv, dbias)."""
     if not _on_card(q, "flash_attention_bwd"):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, k_len,
                                              sm_scale, dropout_rate,
@@ -610,7 +634,7 @@ def flash_attention_bwd(
                                         sm_scale=sm_scale,
                                         dropout_rate=dropout_rate,
                                         dropout_seed=dropout_seed,
-                                        causal=causal)
+                                        causal=causal, bias=bias)
     kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed, causal=causal, bias=bias)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, **kw)
@@ -730,6 +754,8 @@ def flash_attention_with_bias(
 
 flash_attention_with_bias.launches = 0          # K6
 flash_attention_with_bias.dropout_launches = 0  # K6-d
+flash_attention_with_bias.sm90_launches = 0     # K6, the Hopper design
+flash_attention_with_bias.sm90_dropout_launches = 0  # K6-d, the Hopper design
 
 
 def _fwd_kernel():
@@ -774,9 +800,9 @@ def _sm90_entry(name: str, pointers: int):
     return fn
 
 
-def _sm90_fwd():    # q, k, v, k_len, o, lse
-    return _sm90_entry(SM90_KERNEL, 6)
+def _sm90_fwd():    # q, k, v, bias (nullable), k_len, o, lse
+    return _sm90_entry(SM90_KERNEL, 7)
 
 
-def _sm90_bwd():    # q, k, v, do, lse, delta, k_len, dq_acc, dk, dv
-    return _sm90_entry(SM90_BWD_KERNEL, 10)
+def _sm90_bwd():    # q, k, v, bias, do, lse, delta, k_len, dq_acc, dk, dv,
+    return _sm90_entry(SM90_BWD_KERNEL, 12)     # dbias (bias, dbias nullable)
