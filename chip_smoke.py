@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FastSpeech 2 (transformer and conformer) and AR
-Transformer-TTS synthesis and training on one CUDA card.
+Transformer-TTS synthesis and training, its features and its vocoder on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -151,7 +152,40 @@ and each printing its wall time:
    decode step, the copies among them, the bf16 weight copies the graph
    reads) and 6(e), each on a state or model built anew, after every
    timed phase: a profiler pass slows the host work of the rest of its
-   process.
+   process; also 3 vocoder GAN steps (phase 13);
+10.-14. features and the vocoder, run after 6 and before 7, random
+   weights from seed 0 at full width (HiFi-GAN V1: 512 channels, rates
+   8·8·2·2, MRF kernels 3/7/11; the iSTFT vocoder: 8 ConvNeXt layers of
+   512; the discriminator's MPD periods 2, 3, 5, 7, 11 and MSD's three
+   scales), each printing its wall time:
+   10. log_mel_spectrogram, yin_f0 and energy_per_frame on 16 seeded
+       waveforms of 10 s (harmonic tones, noise, a silent stretch), card
+       against CPU: log-mel within 1e-3 (natural log), energy 1e-4 of
+       max|ref|, YIN's voicing the same at 99.9 % of frames and f0 within
+       0.1 Hz where both are voiced; ms per second of audio;
+   11. the three generators on a (1, 64, 80) mel and the discriminator's
+       logits and every feature map on a (2, 8192) waveform, card fp32
+       against CPU fp32 within 1e-3 of each output's max|ref|;
+   12. vocoded synthesis, the slice's main path: the transformer
+       flagship (K1-90, 6 launches per call, counted from 0, no other
+       kernel) then HiFi-GAN V1 at B=1 / 768 and B=8 / 2048 frames: ms of
+       the acoustic model and of the vocoder (fp32, fp32 with cuDNN's
+       TF32 as the CLI runs it, bf16 autocast), RTF, peak memory; then
+       Griffin-Lim (32 iterations) at B=1;
+   13. the vocoder GAN step, B=16 x 8192 samples, G under bf16 amp,
+       cuDNN TF32 on (the CLI's): ms per step (CUDA events, median of 10
+       after 3), samples/s, peak memory, queued profile; 20 steps on one
+       batch with loss_mel falling; a fine-tuning step
+       (predicted_mel_inputs); one fp32 step (TF32 off) at B=2 on the card
+       and the CPU from the same state: losses within 1e-4, each of D's
+       and G's gradients within 2e-2 of its own max|g|, the updates as
+       5(a);
+   14. cli/prepare_data.py on WAVs written there, cli/train_vocoder.py
+       for 3 steps with a save, and cli/synthesize.py --vocoder (its
+       export) and --wav on phase 4(c)'s transformer checkpoint, all with
+       --device cuda: every WAV of frames x 256 samples (Griffin-Lim's
+       (frames - 1) x 256) and finite; load_reference_checkpoint of a
+       ``module.``-prefixed copy of that checkpoint, bit for bit.
 
 It then prints the phases' wall times, the kernels line (JSON), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -205,6 +239,22 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def wall_ms(fn, reps: int, warmup: int = 0) -> tuple:
+    """(median host-clock ms of ``reps`` calls of ``fn`` after ``warmup``,
+    the first timed call's output); each call ends in a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    walls, first = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        first = out if first is None else first
+    return statistics.median(walls), first
 
 
 # a spin of ~2.5 ms at the H100's clock: the host enqueues the timed work
@@ -1109,18 +1159,9 @@ def phase_synthesis(gen, name, stacks, kid):
     main_inputs = captured[0][0]    # the B=8 / 2048-frame call's layer 0
 
     for text, pos, max_frames in batches:
-        def call():
-            out = synthesize_fastspeech2(model, text, pos, max_frames)
-            torch.cuda.synchronize()
-            return out
-        for _ in range(3):
-            call()
-        walls = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            _, mel_len, _ = call()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(walls)
+        ms, (_, mel_len, _) = wall_ms(
+            lambda: synthesize_fastspeech2(model, text, pos, max_frames), 10,
+            warmup=3)
         audio_s = mel_len.sum().item() * HOP_SECONDS
         rtf = ms / 1e3 / audio_s
         print(f"{name} synthesize_fastspeech2 B={text.shape[0]} L=128 "
@@ -1885,19 +1926,6 @@ def phase_ar_decode_vs_forward(gen):
                       "forward")
 
 
-def ar_call_ms(call, reps: int) -> tuple:
-    """(median ms of ``reps`` calls, the first call's output); each call
-    ends in a synchronize. The model and the graph are warm by then."""
-    walls, first = [], None
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        out = call()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        first = out if first is None else first
-    return statistics.median(walls), first
-
-
 @contextmanager
 def stop_logits(model, store: list):
     """While the block runs, append to ``store`` (once it ends) the
@@ -2034,10 +2062,10 @@ def phase_ar_synthesis(gen):
     results, logits = {}, []
     for text, pos in batches:
         b = text.shape[0]
-        results[b, "graph"] = ar_call_ms(
+        results[b, "graph"] = wall_ms(
             lambda: synthesize_transformer_tts(model, text, pos), 3)
         with stop_logits(model, logits):
-            results[b, "eager"] = ar_call_ms(
+            results[b, "eager"] = wall_ms(
                 lambda: synthesize_transformer_tts(model, text, pos,
                                                    eager=True), 1)
         (g_mel, g_len), (e_mel, e_len) = (results[b, n][1]
@@ -2735,6 +2763,496 @@ def phase_attention_paths(gen):
     set_counts(counts)
 
 
+# ---- phases 10-14: features and vocoder -------------------------------------
+
+SAMPLE_RATE = 22050
+FEATURE_BATCH = (16, 10.0)    # waveforms, seconds each
+VOCODER_MEL_T = 64            # frames of the forward's card-vs-CPU check
+DISC_N = 8192                 # samples of the discriminator's check
+VOCODED_CASES = ((1, 768), (8, 2048))
+GL_ITERS = 32
+GAN_BATCH = 16                # the timed GAN step, hp.vocoder_segment_size
+GAN_CPU_BATCH = 2
+CLI_WAVS = (2.0, 3.5, 2.7, 4.1)   # seconds
+VOCODER_TOL = 1e-3            # card fp32 against CPU fp32, of max|ref|
+
+
+def vocoder_hparams(**overrides):
+    from transformer_tts_tpu_torch.config import HParams
+    return HParams(**dict(FLAGSHIP, **overrides))
+
+
+def waveforms(gen, n: int, seconds: float) -> torch.Tensor:
+    """(n, seconds * 22050) fp32: a tone of 4 harmonics at random phases,
+    its f0 from 80 to 400 Hz by row, noise at 0.01, and a silent stretch
+    of 0.3 s in the middle."""
+    length = int(seconds * SAMPLE_RATE)
+    t = torch.arange(length, dtype=torch.float64) / SAMPLE_RATE
+    f0 = torch.linspace(80.0, 400.0, n, dtype=torch.float64)[:, None]
+    phase = torch.rand(n, 4, generator=gen, dtype=torch.float64) * 2 * math.pi
+    audio = sum(0.3 / (h + 1) * torch.sin(2 * math.pi * f0 * (h + 1) * t
+                                          + phase[:, h:h + 1])
+                for h in range(4))
+    audio = audio + 0.01 * torch.randn(n, length, generator=gen,
+                                       dtype=torch.float64)
+    mid = length // 2
+    audio[:, mid: mid + int(0.3 * SAMPLE_RATE)] = 0.0
+    return audio.float()
+
+
+def phase_features(gen):
+    """log_mel_spectrogram, yin_f0 and energy_per_frame on the card against
+    the same functions on the CPU, on 16 seeded waveforms of 10 s; times
+    per second of audio (CUDA events). Returns the log-mels' corpus
+    (mean, var), the de-normalization of the vocoded synthesis."""
+    from transformer_tts_tpu_torch.ops.features import energy_per_frame, yin_f0
+    from transformer_tts_tpu_torch.ops.melspectrogram import (
+        compute_corpus_stats, log_mel_spectrogram)
+    n, seconds = FEATURE_BATCH
+    audio = waveforms(gen, n, seconds)
+    card = audio.to(DEVICE)
+    audio_s = n * seconds
+    out = {}
+    for name, fn in (("log_mel", log_mel_spectrogram), ("yin_f0", yin_f0),
+                     ("energy", energy_per_frame)):
+        with torch.no_grad():
+            got, ref = fn(card).cpu(), fn(audio)
+            ms = time_ms(lambda: fn(card), reps=10)
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"{name}: card {tuple(got.shape)} against CPU "
+              f"{tuple(ref.shape)}, or not finite")
+        out[name] = (got, ref, ms)
+    got, ref, ms = out["log_mel"]
+    err, peak = max_err(got, ref)
+    print(f"features B={n} x {seconds} s at {SAMPLE_RATE} Hz, log-mel "
+          f"{tuple(got.shape)}: card vs CPU max abs err {err:.3g} (natural "
+          f"log, tol 1e-3; max|ref| {peak:.3g}), {ms:.3f} ms = "
+          f"{ms / audio_s:.4f} ms per second of audio")
+    check(err <= 1e-3, "log-mel: card disagrees with CPU")
+    got, ref, ms = out["energy"]
+    err, peak = max_err(got, ref)
+    print(f"features energy {tuple(got.shape)}: max abs err {err:.3g} "
+          f"(tol 1e-4 of max|ref| {peak:.3g}), {ms:.3f} ms = "
+          f"{ms / audio_s:.4f} ms per second of audio")
+    check(err <= 1e-4 * peak, "energy: card disagrees with CPU")
+    got, ref, ms = out["yin_f0"]
+    same = (got > 0) == (ref > 0)
+    both = (got > 0) & (ref > 0)
+    df0 = (got - ref)[both].abs().max().item() if both.any() else 0.0
+    print(f"features YIN f0 {tuple(got.shape)}: voicing the same at "
+          f"{same.float().mean().item():.5%} of frames (tol 99.9 %), "
+          f"{(ref > 0).float().mean().item():.1%} voiced on the CPU, "
+          f"max |d f0| {df0:.4g} Hz at frames voiced on both (tol 0.1; "
+          f"max f0 {ref.max().item():.1f} Hz), {ms:.3f} ms = "
+          f"{ms / audio_s:.4f} ms per second of audio")
+    check(same.float().mean().item() >= 0.999 and df0 <= 0.1,
+          "YIN: card disagrees with CPU")
+    mels = out["log_mel"][1]
+    return compute_corpus_stats(mels, torch.full((n,), mels.shape[1]))
+
+
+def vocoders(device):
+    """The three generators of the slice at full width, random weights
+    from seed 0, fp32: HiFi-GAN V1 subpixel and transposed, iSTFT."""
+    from transformer_tts_tpu_torch.vocoder.trainer import build_vocoder
+    kinds = {"HiFi-GAN V1 subpixel": {},
+             "HiFi-GAN V1 transposed": {"vocoder_upsample_mode":
+                                        "transposed"},
+             "iSTFT": {"vocoder_type": "istft"}}
+    return {name: build_vocoder(vocoder_hparams(**kw), amp=False,
+                                device=device).eval()
+            for name, kw in kinds.items()}
+
+
+def phase_vocoder_forward(gen):
+    """Each generator on a (1, 64, 80) mel and the discriminator on a
+    (2, 8192) waveform, card fp32 (TF32 off) against CPU fp32, within
+    VOCODER_TOL of each output's max|ref|."""
+    from transformer_tts_tpu_torch.vocoder.trainer import build_discriminator
+    hp = vocoder_hparams()
+    mel = torch.randn(1, VOCODER_MEL_T, hp.mel_dim, generator=gen) - 4.0
+    card = vocoders(DEVICE)
+    for name, cpu_model in vocoders("cpu").items():
+        with torch.no_grad():
+            ref = cpu_model(mel)
+            got = card[name](mel.to(DEVICE)).cpu()
+        err, peak = max_err(got, ref)
+        print(f"vocoder {name} forward {tuple(mel.shape)} -> "
+              f"{tuple(got.shape)}: card fp32 vs CPU fp32 max abs err "
+              f"{err:.3g} (tol {VOCODER_TOL:g} of max|ref| {peak:.3g})")
+        check(got.shape == (1, VOCODER_MEL_T * 256) and err <= VOCODER_TOL
+              * peak, f"vocoder {name}: card disagrees with CPU")
+    audio = waveforms(gen, 2, DISC_N / SAMPLE_RATE)[:, :DISC_N]
+    disc_cpu = build_discriminator(hp, device="cpu")
+    disc = build_discriminator(hp, device=DEVICE)
+    with torch.no_grad():
+        ref = disc_cpu(audio)
+        got = disc(audio.to(DEVICE))
+    worst, n_maps = 0.0, 0
+    for (logits, fmaps), (rlogits, rfmaps) in zip(got, ref):
+        for a, b in [(logits, rlogits)] + list(zip(fmaps, rfmaps)):
+            err, peak = max_err(a.cpu(), b)
+            worst = max(worst, err / max(peak, 1e-30))
+            n_maps += 1
+    print(f"discriminator MPD {hp.vocoder_periods} + MSD x"
+          f"{hp.vocoder_num_scales} on {tuple(audio.shape)}: logits and "
+          f"{n_maps - len(ref)} feature maps, card fp32 vs CPU fp32, worst "
+          f"err {worst:.3g} of its own max|ref| (tol {VOCODER_TOL:g})")
+    check(worst <= VOCODER_TOL, "discriminator: card disagrees with CPU")
+
+
+@contextmanager
+def cudnn_tf32(enabled: bool):
+    """cuDNN's TF32 for convolutions on or off inside (chip_smoke keeps
+    it off; the CLIs run with torch's default, on)."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def phase_vocoded_synthesis(gen, mean, var):
+    """The slice's main path as ``cli/synthesize.py --vocoder`` runs it:
+    the transformer FastSpeech 2 flagship (bf16 amp, K1-90) de-normalizes
+    its mel by the corpus ``mean`` and ``var``, then each utterance goes
+    through HiFi-GAN V1 alone (``vocode_utterance``: padded to a bucket of
+    ``hp.length_buckets``, fp32, cut to frames x 256 samples), with
+    cuDNN's default TF32 as in the CLI; at B=1 / 768 and B=8 / 2048
+    frames, every count set to 0 just before. Timed as one call (host
+    clock), and the vocoding alone on the same mels with TF32 off, with
+    TF32 and under bf16 autocast (as hp.amp trains it); the acoustic
+    model's share is the difference. Then Griffin-Lim at B=1."""
+    from transformer_tts_tpu_torch.data.batching import pick_bucket
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_fastspeech2, vocode_utterance)
+    from transformer_tts_tpu_torch.ops.melspectrogram import (
+        griffin_lim_from_log_mel)
+    from transformer_tts_tpu_torch.vocoder.trainer import build_vocoder
+    hp, model = flagship_model(DEVICE, amp=True, stacks={})
+    vocoder = build_vocoder(vocoder_hparams(), amp=False,
+                            device=DEVICE).eval()
+    mean, var = mean.to(DEVICE), var.to(DEVICE)
+    kid = PATHS["transformer"][1]
+    batches = []
+    for batch, max_frames in VOCODED_CASES:
+        text, pos = text_batch(gen, batch, 128, 48, hp.vocab_size)
+        batches.append((text.to(DEVICE), pos.to(DEVICE), max_frames))
+
+    def vocode(mel, mel_len):
+        return [vocode_utterance(vocoder, mel[j, :n], hp.length_buckets)
+                for j, n in enumerate(mel_len.tolist())]
+
+    def synthesize(text, pos, max_frames):
+        mel, mel_len, _ = synthesize_fastspeech2(model, text, pos,
+                                                 max_frames, mean, var)
+        return mel, mel_len, vocode(mel, mel_len)
+
+    set_counts({})                          # the main path starts here
+    per_call = []
+    outputs = []
+    with cudnn_tf32(True):
+        for text, pos, max_frames in batches:
+            before = read_counts()
+            mel, mel_len, wavs = synthesize(text, pos, max_frames)
+            torch.cuda.synchronize()
+            per_call.append({k: n - before[k]
+                             for k, n in read_counts().items()})
+            check(all(w.shape == (n * 256,) and bool(torch.isfinite(w).all())
+                      and bool((w.abs() <= 1).all())
+                      for w, n in zip(wavs, mel_len.tolist())),
+                  "vocoded synthesis: a waveform's length or values")
+            outputs.append((mel, mel_len))
+    print(f"vocoded synthesis main path: launches per call "
+          f"{json.dumps(per_call)} (expect {hp.n_layer_decoder} of {kid} "
+          f"each, none of the others)")
+    check(all(c[kid] == hp.n_layer_decoder and all(
+        n == 0 for k, n in c.items() if k != kid) for c in per_call),
+        "vocoded synthesis: kernel launches")
+
+    for (text, pos, max_frames), (mel, mel_len) in zip(batches, outputs):
+        b = text.shape[0]
+        lens = mel_len.tolist()
+        audio_s = sum(lens) * HOP_SECONDS
+        padded = sum(pick_bucket(n, hp.length_buckets) for n in lens)
+        with cudnn_tf32(True):
+            torch.cuda.reset_peak_memory_stats()
+            total_ms = wall_ms(lambda: synthesize(text, pos, max_frames), 10,
+                               warmup=3)[0]
+            total_gb = torch.cuda.max_memory_allocated() / 1e9
+        modes = {}
+        for label, tf32, amp in (("fp32", False, False),
+                                 ("fp32 with cuDNN TF32 (the CLI's)", True,
+                                  False), ("bf16 autocast", False, True)):
+            vocoder.amp = amp
+            with cudnn_tf32(tf32):
+                torch.cuda.reset_peak_memory_stats()
+                modes[label] = (wall_ms(lambda: vocode(mel, mel_len), 10,
+                                        warmup=3)[0],
+                                torch.cuda.max_memory_allocated() / 1e9)
+        vocoder.amp = False
+        voc_ms = modes["fp32 with cuDNN TF32 (the CLI's)"][0]
+        print(f"vocoded synthesis B={b} max_frames={max_frames}: "
+              f"{sum(lens)} frames = {audio_s:.3f} s audio, vocoded one "
+              f"utterance at a time in {padded} bucket-padded frames; "
+              f"acoustic model and vocoder as one call (the CLI's TF32) "
+              f"{total_ms:.3f} ms (peak {total_gb:.2f} GB), RTF "
+              f"{total_ms / 1e3 / audio_s:.6f}; the vocoding alone "
+              + ", ".join(f"{k} {ms:.3f} ms (peak {gb:.2f} GB)"
+                          for k, (ms, gb) in modes.items())
+              + f"; so the acoustic model {total_ms - voc_ms:.3f} ms, RTF "
+              f"{(total_ms - voc_ms) / 1e3 / audio_s:.6f}")
+    mel, mel_len = outputs[0]
+    one = mel[0, :int(mel_len[0])].float()
+    gl_ms, wav = wall_ms(
+        lambda: griffin_lim_from_log_mel(one, n_iter=GL_ITERS), 3, warmup=3)
+    check(wav.shape == ((one.shape[0] - 1) * 256,)
+          and bool(torch.isfinite(wav).all()), "Griffin-Lim waveform")
+    print(f"Griffin-Lim {GL_ITERS} iterations B=1, {one.shape[0]} frames: "
+          f"{gl_ms:.3f} ms (median of 3), RTF "
+          f"{gl_ms / 1e3 / ((one.shape[0] - 1) * HOP_SECONDS):.6f}")
+    del model, vocoder
+    torch.cuda.empty_cache()
+
+
+def gan_batch(gen, b: int, segment: int) -> torch.Tensor:
+    return waveforms(gen, b, segment / SAMPLE_RATE + 0.01)[:, :segment]
+
+
+def mel_config(hp, generator):
+    return dict(sample_rate=SAMPLE_RATE, n_fft=1024,
+                hop_length=generator.hop_length, n_mels=hp.mel_dim)
+
+
+def phase_vocoder_step(gen):
+    """The vocoder GAN step at B=16 x hp.vocoder_segment_size, bf16 amp for
+    G, with cuDNN's TF32 on as cli/train_vocoder.py runs it (torch's
+    default): ms per step by CUDA events (median of 10 after 3),
+    samples/s, peak memory; 20 steps on one batch with loss_mel falling;
+    one fine-tuning step; then one fp32 step (TF32 off) on card and CPU
+    from the same state."""
+    from transformer_tts_tpu_torch.vocoder import trainer as vt
+    hp = vocoder_hparams(amp=True)
+    seg = hp.vocoder_segment_size
+    audio = gan_batch(gen, GAN_BATCH, seg).to(DEVICE)
+    state = vt.init_vocoder_state(hp, seg, device=DEVICE)
+    step = vt.make_vocoder_train_step(hp, mel_config(hp, state.generator))
+    with cudnn_tf32(True):
+        for _ in range(3):
+            step(state, audio)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logs = step(state, audio)
+            end.record()
+            losses.append(torch.stack(list(logs.values())))
+            times.append((start, end))
+        torch.cuda.synchronize()
+    ms = statistics.median(s.elapsed_time(e) for s, e in times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(torch.stack(losses)).all()),
+          "vocoder step: non-finite loss")
+    print(f"vocoder GAN step B={GAN_BATCH} x {seg} samples, G bf16 amp, "
+          f"cuDNN TF32: "
+          f"{ms:.3f} ms/step (median of 10), "
+          f"{GAN_BATCH * seg / ms * 1e3:.0f} samples/s, peak memory "
+          f"{peak_gb:.2f} GB; last losses "
+          + ", ".join(f"{k} {float(v):.4f}" for k, v in logs.items()))
+    PROFILES.append(partial(profile_vocoder_step, audio, ms))
+    del state, step
+    torch.cuda.empty_cache()
+
+    state = vt.init_vocoder_state(hp, seg, device=DEVICE, seed=1)
+    step = vt.make_vocoder_train_step(hp, mel_config(hp, state.generator))
+    with cudnn_tf32(True):
+        curve = torch.stack([step(state, audio)["loss_mel"]
+                             for _ in range(20)]).cpu().tolist()
+    print(f"vocoder: 20 steps on one batch: loss_mel {curve[0]:.4f} -> "
+          f"{curve[-1]:.4f} ({[round(x, 3) for x in curve]})")
+    check(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0],
+          "vocoder: loss_mel did not fall over 20 steps")
+
+    ft = vt.make_vocoder_train_step(hp, mel_config(hp, state.generator),
+                                    predicted_mel_inputs=True)
+    mel = torch.randn(GAN_BATCH, seg // state.generator.hop_length,
+                      hp.mel_dim, generator=gen) - 4
+    with cudnn_tf32(True):
+        logs = ft(state, audio, mel.to(DEVICE))
+    check(all(math.isfinite(float(v)) for v in logs.values()),
+          "vocoder fine-tuning step: non-finite loss")
+    print("vocoder fine-tuning step (predicted_mel_inputs) B="
+          f"{GAN_BATCH}: " + ", ".join(f"{k} {float(v):.4f}"
+                                      for k, v in logs.items()))
+    del state, step, ft
+    torch.cuda.empty_cache()
+    phase_vocoder_card_vs_cpu(gen)
+
+
+def phase_vocoder_card_vs_cpu(gen):
+    """One fp32 GAN step (TF32 off) at B=2 on the card and on the CPU from
+    the same state: the losses within 1e-4 relative, each of D's and G's
+    gradients within GRAD_TOL of its own max|g|, each update within 1e-3
+    lr of the CPU's where the two gradients bound it below that (Adam's
+    first step, eps 1e-8, as phase 5a)."""
+    from transformer_tts_tpu_torch.vocoder import trainer as vt
+    hp = vocoder_hparams(amp=False)
+    seg = hp.vocoder_segment_size
+    audio = gan_batch(gen, GAN_CPU_BATCH, seg)
+    ref = vt.init_vocoder_state(hp, seg, device="cpu")
+    state = vt.init_vocoder_state(hp, seg, device=DEVICE)
+    old = {}
+    for role in ("generator", "discriminator"):
+        weights = getattr(ref, role).state_dict()
+        getattr(state, role).load_state_dict(weights)
+        old[role] = {k: v.detach().clone()
+                     for k, v in getattr(ref, role).named_parameters()}
+    mel_cfg = mel_config(hp, state.generator)
+    logs = vt.make_vocoder_train_step(hp, mel_cfg)(state, audio.to(DEVICE))
+    ref_logs = vt.make_vocoder_train_step(hp, mel_cfg)(ref, audio)
+    loss_rel = max(abs(float(logs[k]) - float(ref_logs[k]))
+                   / max(abs(float(ref_logs[k])), 1e-30) for k in logs)
+    lr = vt.vocoder_schedule(hp)(0)
+    grad_rel, update_rel = {}, 0.0
+    for role in ("generator", "discriminator"):
+        cpu_params = dict(getattr(ref, role).named_parameters())
+        for name, p in getattr(state, role).named_parameters():
+            g, g_ref = p.grad.cpu(), cpu_params[name].grad
+            err, peak = max_err(g, g_ref)
+            grad_rel[f"{role}.{name}"] = err / peak if peak else float(err)
+            step = p.detach().cpu() - old[role][name]
+            ref_step = cpu_params[name].detach() - old[role][name]
+            rounding = 2 * ulp(old[role][name].abs() + lr)
+            least = (g_ref.abs() - err).clamp(min=0.0)
+            settled = err * vt.ADAM_EPS / (least + vt.ADAM_EPS) ** 2 <= 1e-3
+            if settled.any():
+                update_rel = max(update_rel, ((step - ref_step).abs()
+                                              - rounding)[settled].max()
+                                 .item() / lr)
+    worst = sorted(grad_rel, key=grad_rel.get)[-3:]
+    print(f"vocoder GAN step B={GAN_CPU_BATCH} x {seg} card fp32 vs CPU "
+          f"fp32: losses within {loss_rel:.3g} relative (tol 1e-4: "
+          + ", ".join(f"{k} {float(logs[k]):.6f} vs {float(ref_logs[k]):.6f}"
+                      for k in logs)
+          + f"); {len(grad_rel)} gradients, each against its own max|g| "
+          f"(tol {GRAD_TOL}): worst "
+          + ", ".join(f"{n} {grad_rel[n]:.3g}" for n in worst)
+          + f"; updates at lr {lr:.4g}: worst |d update| / lr "
+          f"{update_rel:.3g} (tol 1e-3) where the gradients bound it")
+    check(loss_rel <= 1e-4, "vocoder step: card losses disagree with CPU")
+    check(max(grad_rel.values()) <= GRAD_TOL,
+          f"vocoder step: card gradients disagree with CPU: {worst}")
+    check(update_rel <= 1e-3, "vocoder step: card updates disagree")
+
+
+def profile_vocoder_step(audio, ms_per_step):
+    from transformer_tts_tpu_torch.vocoder import trainer as vt
+    hp = vocoder_hparams(amp=True)
+    state = vt.init_vocoder_state(hp, hp.vocoder_segment_size,
+                                  device=DEVICE)
+    step = vt.make_vocoder_train_step(hp, mel_config(hp, state.generator))
+    with cudnn_tf32(True):
+        for _ in range(3):
+            step(state, audio)
+        print_profile("the vocoder GAN step", partial(step, state, audio),
+                      3, ms_per_step)
+
+
+def run_cli(module: str, *args) -> str:
+    proc = subprocess.run(
+        [sys.executable, "-m", f"transformer_tts_tpu_torch.cli.{module}",
+         *map(str, args)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    tail = proc.stdout.strip().splitlines()[-3:]
+    print(f"cli.{module}: exit {proc.returncode}; " + " | ".join(tail))
+    check(proc.returncode == 0, f"cli.{module} exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def phase_vocoder_clis(gen):
+    """prepare_data on WAVs written here, train_vocoder for 3 steps with a
+    save, then synthesize --vocoder and --wav on the transformer
+    flagship's checkpoint of phase 4(c), all on the card; every WAV's
+    length and values checked. Then load_reference_checkpoint of a
+    ``module.``-prefixed file of that checkpoint."""
+    from transformer_tts_tpu_torch.compat.torch_import import (
+        load_reference_checkpoint)
+    from transformer_tts_tpu_torch.config import load_hparams
+    from transformer_tts_tpu_torch.ops.features import read_wav, write_wav
+    work = os.path.join(WORK, "vocoder")
+    os.makedirs(work, exist_ok=True)
+    lines = []
+    for i, seconds in enumerate(CLI_WAVS):
+        path = os.path.join(work, f"utt{i}.wav")
+        write_wav(path, waveforms(gen, 1, seconds)[0].numpy(), SAMPLE_RATE)
+        lines.append(f"{path}|{i + 1} 7 9")
+    wav_script = os.path.join(work, "wavs.txt")
+    with open(wav_script, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    feats = os.path.join(work, "features")
+    run_cli("prepare_data", "--wav_script", wav_script, "--out_dir", feats,
+            "--device", DEVICE)
+    for i, seconds in enumerate(CLI_WAVS):
+        frames = int(seconds * SAMPLE_RATE) // 256 + 1
+        arrays = [np.load(os.path.join(feats, f"utt{i}{s}.npy"))
+                  for s in ("", "_f0", "_energy")]
+        check(arrays[0].shape == (frames, 80) and arrays[1].shape
+              == arrays[2].shape == (frames,)
+              and all(np.isfinite(a).all() for a in arrays),
+              f"prepare_data: utterance {i}")
+    for name in ("mean.npy", "var.npy", "lengths.npy", "train_script.txt",
+                 "variance_stats.json"):
+        check(os.path.exists(os.path.join(feats, name)),
+              f"prepare_data wrote no {name}")
+
+    voc_dir = os.path.join(work, "train")
+    hp_file = os.path.join(work, "hparams.py")
+    with open(hp_file, "w") as fh:
+        for key, value in dict(FLAGSHIP, save_dir=voc_dir).items():
+            fh.write(f"{key} = {value!r}\n")
+    run_cli("train_vocoder", "--hp_file", hp_file, "--wav_script",
+            wav_script, "--max_steps", 3, "--save_every", 3,
+            "--batch_size", 4, "--device", DEVICE)
+    export = os.path.join(voc_dir, "generator")
+    check(os.path.exists(os.path.join(export, "generator.pt"))
+          and os.path.exists(os.path.join(voc_dir, "vocoder_3",
+                                          "train_state.pt")),
+          "train_vocoder wrote no checkpoint or export")
+
+    model_dir = os.path.join(WORK, "transformer", "model")
+    for flags, name, short in ((["--vocoder", export], "vocoded", 0),
+                               (["--wav"], "griffin_lim", 1)):
+        out_dir = os.path.join(work, name)
+        run_cli("synthesize", "--load_name", model_dir, "--save", out_dir,
+                "--max_frames", 2048, "--device", DEVICE, *flags)
+        for i in range(3):
+            n = np.load(os.path.join(out_dir, f"{i}.npy")).shape[0]
+            audio, rate = read_wav(os.path.join(out_dir, f"{i}.wav"))
+            check(rate == SAMPLE_RATE and audio.shape == ((n - short) * 256,)
+                  and bool(np.isfinite(audio).all()),
+                  f"synthesize {name}: wav {i} {audio.shape} for {n} frames")
+        print(f"synthesize {' '.join(flags[:1])}: 3 WAVs of frames x 256"
+              f"{' - 256' if short else ''} samples written and checked")
+
+    hp = load_hparams(os.path.join(model_dir, "hparams.py"))
+    state = torch.load(os.path.join(model_dir, "model.pt"),
+                       map_location="cpu", weights_only=True)
+    path = os.path.join(work, "network.epoch1")
+    torch.save({f"module.{k}": v for k, v in state.items()}, path)
+    model = load_reference_checkpoint(path, hp, device=DEVICE)
+    loaded = model.state_dict()
+    check(list(loaded) == list(state) and all(
+        torch.equal(loaded[k].cpu(), v) for k, v in state.items()),
+        "load_reference_checkpoint: the weights differ")
+    print(f"load_reference_checkpoint: {len(state)} tensors of a "
+          f"module.-prefixed file loaded on the card bit for bit")
+
+
 def worst_err(errs: dict, peaks: dict, names) -> dict:
     """The error of the entry's worst output among ``names``, the one
     with the largest err / max|ref|: its max abs error, its own max|ref|
@@ -2845,6 +3363,16 @@ def main():
         ar_launches, ar_fwd_inputs, ar_bwd_inputs = phase_train_step(
             ar_batch, "ar")
         phase_train_cli(gen, "ar")
+    with phase("features"):
+        corpus_stats = phase_features(gen)
+    with phase("vocoder forward"):
+        phase_vocoder_forward(gen)
+    with phase("vocoded synthesis"):
+        phase_vocoded_synthesis(gen, *corpus_stats)
+    with phase("vocoder training"):
+        phase_vocoder_step(gen)
+    with phase("vocoder CLIs"):
+        phase_vocoder_clis(gen)
 
     lines = []
     with phase("kernels at their main paths' inputs"):

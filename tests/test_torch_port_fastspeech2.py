@@ -183,7 +183,8 @@ def test_cli_raises_without_a_card(tmp_path):
 @pytest.mark.parametrize("hp_extra,flags,match", [
     ({"model": "Transformer", "gst": True}, [], "AR"),
     ({}, ["--post_model", "x"], "post-processing"),
-    ({}, ["--wav"], "vocoder")])
+    ({"model": "Transformer", "decoder_type": "tacotron2"}, ["--wav"],
+     "tacotron2")])
 def test_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags, match):
     load_dir, script = _write_model_dir(tmp_path, **hp_extra)
     with pytest.raises(NotImplementedError, match=match):

@@ -265,7 +265,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "models/prenets.py", "models/layers.py",
                    "infer/synthesize.py", "train/trainer.py", "utils.py",
                    "train/tb_writer.py", "cli/parse_hparams.py",
-                   "cli/train.py", "cli/synthesize.py"):
+                   "cli/train.py", "cli/synthesize.py",
+                   "ops/melspectrogram.py", "ops/features.py",
+                   "vocoder/generator.py", "vocoder/discriminator.py",
+                   "vocoder/trainer.py", "cli/prepare_data.py",
+                   "cli/train_vocoder.py", "compat/torch_import.py"):
         assert f"transformer_tts_tpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imported_roots(f)

@@ -5,7 +5,8 @@ synthesize.py).
 ``python -m transformer_tts_tpu_torch.cli.synthesize --load_name DIR
       [--hp_file h.py] [--epoch N] [--test_script s.txt] [--save out_dir]
       [--max_frames 2048] [--batch_size N] [--use_prenet]
-      [--pitch_perturbation] [--duration_perturbation] [--device cuda]``
+      [--pitch_perturbation] [--duration_perturbation] [--wav]
+      [--vocoder GEN_DIR] [--device cuda]``
 
 ``DIR`` and the hparams resolve as in the JAX CLI (:97-103, :122): an
 ``epoch_N`` or ``average_N`` directory is the checkpoint itself and takes
@@ -17,12 +18,20 @@ without them (``hparams.py`` beside ``model.pt``) is the checkpoint.
 port's (``model.pt``, see train/checkpoint.py); ``hp.model`` picks
 FastSpeech 2 or the AR Transformer-TTS (``--max_frames``,
 ``--use_prenet`` and the perturbations are FastSpeech 2's; the AR decode
-runs up to 500 frame groups). For each utterance of the script it writes ``<idx>.npy`` (the de-normalized mel,
-float32, cut to its length) and, for FastSpeech 2, ``<idx>_alignment.npy``
-(predicted durations), and prints the elapsed synthesis time. It runs on
-the CUDA device unless ``--device cpu`` is given, and raises when that
-device is missing. The integrate, post-model, vocoder and waveform paths
-come with later slices.
+runs up to 500 frame groups). For each utterance of the script it writes
+``<idx>.npy`` (the de-normalized mel, float32, cut to its length) and,
+for FastSpeech 2, ``<idx>_alignment.npy`` (predicted durations), and
+prints the elapsed synthesis time. ``--wav`` also writes ``<idx>.wav``
+(16-bit PCM at ``--sample_rate``) from the de-normalized log-mel by
+Griffin-Lim (32 iterations; ``--n_fft``, ``--hop_length``); ``--vocoder``
+(a ``generator`` export or a ``vocoder_<k>`` directory of
+cli/train_vocoder.py) vocodes it instead and implies ``--wav``: each mel
+goes through ``vocode_utterance`` (infer/synthesize.py), zero-padded to a
+bucket of ``hp.length_buckets``, the generator in fp32, the waveform cut
+to frames × hop samples. The waveforms are not part of the elapsed time,
+as in the JAX CLI. It runs on the CUDA device unless ``--device cpu`` is
+given, and raises when that device is missing. The
+integrate and post-model paths come with a later slice.
 """
 
 from __future__ import annotations
@@ -53,8 +62,16 @@ def main(argv=None):
     parser.add_argument("--duration_perturbation", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--post_model", type=str, default=None)
-    parser.add_argument("--vocoder", type=str, default=None)
-    parser.add_argument("--wav", action="store_true")
+    parser.add_argument("--vocoder", type=str, default=None,
+                        help="generator export or vocoder_<k> dir of "
+                             "cli.train_vocoder; implies --wav")
+    parser.add_argument("--wav", action="store_true",
+                        help="also write waveforms (Griffin-Lim unless "
+                             "--vocoder)")
+    parser.add_argument("--sample_rate", type=int, default=22050)
+    parser.add_argument("--hop_length", type=int, default=256)
+    parser.add_argument("--n_fft", type=int, default=1024,
+                        help="FFT size of the Griffin-Lim fallback")
     args = parser.parse_args(argv)
 
     import torch
@@ -74,8 +91,6 @@ def main(argv=None):
 
     if args.post_model is not None:
         later_slice("--post_model", "mel-to-mel post-processing")
-    if args.wav or args.vocoder is not None:
-        later_slice("--wav / --vocoder", "features and vocoder")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -99,6 +114,15 @@ def main(argv=None):
     model = (build_transformer_tts if is_ar else build_fastspeech2)(
         hp, device=device)
     load_checkpoint(model, resolve_checkpoint(load_dir, args.epoch))
+    vocoder = None
+    if args.vocoder is not None:
+        from transformer_tts_tpu_torch.vocoder.trainer import (
+            build_vocoder, restore_generator_params)
+        args.wav = True
+        vocoder = build_vocoder(hp, amp=False, device=device)
+        vocoder.load_state_dict(restore_generator_params(args.vocoder,
+                                                         device))
+        vocoder.eval()
     mean, var = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim).arrays()
     if mean is not None:
         mean = torch.as_tensor(mean, dtype=torch.float32, device=device)
@@ -140,11 +164,34 @@ def main(argv=None):
             if durations is not None:
                 np.save(os.path.join(args.save, f"{idx}_alignment.npy"),
                         durations[j])
+            if args.wav and lens[j] > 0:
+                _write_wav(os.path.join(args.save, f"{idx}.wav"),
+                           mel_np[j, :lens[j]], hp, args, vocoder, device)
             print(f"save {out_name} ({lens[j]} frames)")
         sys.stdout.flush()
 
     print(f"elapsed time = {elapsed}")
     print(f"total time = {time.time() - start_time}")
+
+
+def _write_wav(path, mel, hp, args, vocoder, device):
+    """Vocode one de-normalized (T, mel_dim) log-mel, by the generator
+    when given (``vocode_utterance``) or else by Griffin-Lim, and write it
+    as a 16-bit WAV."""
+    import torch
+    from transformer_tts_tpu_torch.infer.synthesize import vocode_utterance
+    from transformer_tts_tpu_torch.ops.features import write_wav
+    from transformer_tts_tpu_torch.ops.melspectrogram import (
+        griffin_lim_from_log_mel)
+    mel = torch.as_tensor(mel, dtype=torch.float32, device=device)
+    if vocoder is not None:
+        audio = vocode_utterance(vocoder, mel, hp.length_buckets)
+    else:
+        with torch.no_grad():
+            audio = griffin_lim_from_log_mel(
+                mel, sample_rate=args.sample_rate, n_fft=args.n_fft,
+                hop_length=args.hop_length, n_mels=hp.mel_dim)
+    write_wav(path, audio.cpu().numpy(), args.sample_rate)
 
 
 if __name__ == "__main__":

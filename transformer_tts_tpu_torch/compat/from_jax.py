@@ -15,6 +15,11 @@ for the AR model (``hp.model`` not a NAR family),
   flax LayerNorm/BatchNorm scale/bias -> weight/bias
   flax batch_stats mean/var          -> running_mean/running_var
   flax depthwise Conv kernel (k, 1, d) -> Conv1d(groups=d).weight (d, 1, k)
+
+``vocoder_state_dict_from_flax(params, hp)`` does the same for the JAX
+package's vocoder generator (HiFi-GAN, subpixel or transposed, and the
+iSTFT vocoder) and, with ``discriminator=True``, its MPD + MSD, under the
+flax module names; flax ``WeightNorm`` scales become weight norm's ``g``.
 """
 
 from __future__ import annotations
@@ -194,4 +199,105 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
         w.postnet_convs()
     else:
         w.linear(("out",), "out")
+    return w.out
+
+
+# ---- the vocoder ------------------------------------------------------------
+
+def _weight_norm_scales(scope: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``WeightNorm`` scales of one scope, by the inner conv's name:
+    ``WeightNorm_<i>/<conv>/kernel/scale`` (the index is call order)."""
+    out = {}
+    for key, sub in scope.items():
+        if key.startswith("WeightNorm_"):
+            for path, scale in sub.items():
+                conv, _, rest = path.partition("/")
+                if rest == "kernel/scale":
+                    out[conv] = np.asarray(scale, np.float32)
+    return out
+
+
+class _VocoderWriter:
+    """flax conv kernels -> torch weights (weight-normed or not):
+    Conv (k, in, out) -> Conv1d (out, in, k); Conv (kh, 1, in, out) ->
+    Conv2d (out, in, kh, 1); ConvTranspose (k, in, out) -> ConvTranspose1d
+    (in, out, k) flipped along k (lax.conv_transpose does not flip)."""
+
+    def __init__(self):
+        self.out: Dict[str, torch.Tensor] = {}
+
+    def _put(self, name: str, array: np.ndarray):
+        self.out[name] = torch.from_numpy(np.ascontiguousarray(array))
+
+    def conv(self, scope: Mapping, conv: str, name: str, kind: str = "1d"):
+        kernel = np.asarray(scope[conv]["kernel"], np.float32)
+        if kind == "1d":
+            w = kernel.transpose(2, 1, 0)
+        elif kind == "2d":
+            w = kernel.transpose(3, 2, 0, 1)
+        else:                                            # "transposed"
+            w = kernel[::-1].transpose(1, 2, 0)
+        self._put(f"{name}.bias", np.asarray(scope[conv]["bias"], np.float32))
+        scales = _weight_norm_scales(scope)
+        if conv not in scales:
+            self._put(f"{name}.weight", w)
+            return
+        g = scales[conv]
+        shape = [1] * w.ndim
+        shape[1 if kind == "transposed" else 0] = g.shape[0]
+        self._put(f"{name}.parametrizations.weight.original0",
+                  g.reshape(shape))
+        self._put(f"{name}.parametrizations.weight.original1", w)
+
+    def linear(self, scope: Mapping, name: str):
+        self._put(f"{name}.weight",
+                  np.asarray(scope["kernel"], np.float32).T)
+        self._put(f"{name}.bias", np.asarray(scope["bias"], np.float32))
+
+    def layer_norm(self, scope: Mapping, name: str):
+        self._put(f"{name}.weight", np.asarray(scope["scale"], np.float32))
+        self._put(f"{name}.bias", np.asarray(scope["bias"], np.float32))
+
+
+def vocoder_state_dict_from_flax(params: Mapping, hp, *,
+                                 discriminator: bool = False
+                                 ) -> Dict[str, torch.Tensor]:
+    """flax generator params (``hp.vocoder_type`` "hifigan", either
+    upsample mode, or "istft") -> the port's generator ``state_dict``; with
+    ``discriminator``, flax ``VocoderDiscriminator`` params -> the port's
+    discriminator ``state_dict``."""
+    w = _VocoderWriter()
+    if discriminator:
+        for p in hp.vocoder_periods:
+            scope, name = params["mpd"][f"period_{p}"], f"mpd.period_{p}"
+            for conv in [c for c in scope if not c.startswith("WeightNorm")]:
+                w.conv(scope, conv, f"{name}.{conv}", "2d")
+        for i in range(hp.vocoder_num_scales):
+            scope, name = params["msd"][f"scale_{i}"], f"msd.scale_{i}"
+            for conv in [c for c in scope if not c.startswith("WeightNorm")]:
+                w.conv(scope, conv, f"{name}.{conv}")
+        return w.out
+    if (hp.vocoder_type or "hifigan").lower() == "istft":
+        w.conv(params, "embed", "embed")
+        w.layer_norm(params["norm_pre"], "norm_pre")
+        for i in range(hp.vocoder_convnext_layers):
+            scope, name = params[f"block_{i}"], f"block_{i}"
+            w.conv(scope, "dwconv", f"{name}.dwconv")
+            w.layer_norm(scope["norm"], f"{name}.norm")
+            w.linear(scope["pw1"], f"{name}.pw1")
+            w.linear(scope["pw2"], f"{name}.pw2")
+            w._put(f"{name}.gamma", np.asarray(scope["gamma"], np.float32))
+        w.layer_norm(params["norm_post"], "norm_post")
+        w.linear(params["head"], "head")
+        return w.out
+    up_kind = ("transposed" if hp.vocoder_upsample_mode == "transposed"
+               else "1d")
+    w.conv(params, "conv_pre", "conv_pre")
+    for i in range(len(hp.vocoder_upsample_rates)):
+        w.conv(params, f"up_{i}", f"up_{i}", up_kind)
+        for j in range(len(hp.vocoder_resblock_kernel_sizes)):
+            scope, name = params[f"res_{i}_{j}"], f"res_{i}_{j}"
+            for conv in [c for c in scope if not c.startswith("WeightNorm")]:
+                w.conv(scope, conv, f"{name}.{conv}")
+    w.conv(params, "conv_post", "conv_post")
     return w.out

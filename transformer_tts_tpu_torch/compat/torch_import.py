@@ -1,0 +1,52 @@
+"""Load a reference PyTorch checkpoint into the port (the port of
+``load_reference_checkpoint`` and ``_strip_module_prefix``,
+transformer_tts_tpu/compat/torch_import.py:40-43, :197-201).
+
+The reference saves ``model.state_dict()`` as ``network.epoch{N}``, under
+DataParallel's ``module.`` prefix when it trained on several cards. The
+port's modules carry the reference's parameter names, so loading is
+``torch.load``, the prefix stripped, and a strict ``load_state_dict`` into
+the model that ``hp`` builds: FastSpeech 2 (transformer or conformer
+stacks) or the AR Transformer-TTS. Where the JAX package converts the
+tensors into flax trees (one ``convert_*_state_dict`` per family), the port
+renames nothing.
+
+The reference's AR postnet returns its input unchanged (its
+``prev_version=False`` branch); ``identity_compat=True`` makes the loaded
+AR model do the same, as the JAX package's ``postnet_identity_compat``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from transformer_tts_tpu_torch.config import HParams, is_nar_model
+
+
+def strip_module_prefix(state: Dict) -> Dict:
+    """Drop DataParallel's ``module.`` prefix, if the keys carry it."""
+    if state and next(iter(state)).startswith("module."):
+        return {k[len("module."):]: v for k, v in state.items()}
+    return dict(state)
+
+
+def load_reference_checkpoint(path: str, hp: HParams, *, device="cuda",
+                              identity_compat: bool = False) -> nn.Module:
+    """The model ``hp`` describes on ``device``, in eval mode, holding the
+    weights of the reference checkpoint at ``path``. A missing or an
+    unexpected key raises."""
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_fastspeech2)
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
+    is_ar = not is_nar_model(hp.model)
+    model = (build_transformer_tts if is_ar else build_fastspeech2)(
+        hp, device=device)
+    state = torch.load(path, map_location=device, weights_only=True)
+    model.load_state_dict(strip_module_prefix(state), strict=True)
+    if is_ar:
+        model.postnet.identity_compat = identity_compat
+    return model.eval()

@@ -6,7 +6,7 @@ The sampler comes from the hparams: ``batch_size`` gives a
 over the mel lengths; each batch is loaded and collated to bucket shapes
 with power-of-two batch padding. The JAX package's thread-pool prefetch,
 native mel reader (``data/native.py``) and host sharding are left out
-(ROADMAP Queue 1 item 10).
+(the slice "parallelism and remaining tools").
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ settings the loader uses).
 
 Both reshuffle the batch order every epoch from ``seed``, as the JAX
 package's do. Sharding batches across hosts comes with data parallelism
-(ROADMAP Queue 1 item 10).
+(the slice "parallelism and remaining tools").
 """
 
 from __future__ import annotations

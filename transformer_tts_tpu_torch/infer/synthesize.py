@@ -1,7 +1,9 @@
 """Synthesis (the port of ``denormalize``, ``sample_perturbation``,
 ``synthesize_fastspeech2`` and the AR decode of ``_ar_check``, ``_ar_init``,
 ``_ar_body`` and ``synthesize_transformer_tts``,
-transformer_tts_tpu/infer/synthesize.py:39-87 and :186-301).
+transformer_tts_tpu/infer/synthesize.py:39-87 and :186-301), and the
+synthesis CLI's per-utterance vocoding (``vocode_utterance``, the neural
+branch of ``_write_wav``, transformer_tts_tpu/cli/synthesize.py:247-262).
 
 FastSpeech 2: one non-autoregressive forward in eval mode; the optional
 pitch/duration perturbation factors come from {0.8, 0.9, 1.0, 1.1, 1.2};
@@ -25,11 +27,12 @@ from __future__ import annotations
 import random
 import weakref
 from contextlib import contextmanager
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from transformer_tts_tpu_torch.data.batching import pick_bucket
 from transformer_tts_tpu_torch.models.fastspeech2 import FastSpeech2
 from transformer_tts_tpu_torch.models.transformer_tts import TransformerTTS
 from transformer_tts_tpu_torch.ops.masks import pad_mask
@@ -47,6 +50,20 @@ def sample_perturbation(rng: Optional[random.Random] = None) -> float:
 def denormalize(mel: torch.Tensor, mean: torch.Tensor,
                 var: torch.Tensor) -> torch.Tensor:
     return mel * torch.sqrt(var) + mean
+
+
+@torch.inference_mode()
+def vocode_utterance(vocoder: nn.Module, mel: torch.Tensor,
+                     buckets: Sequence[int] = ()) -> torch.Tensor:
+    """One utterance's de-normalized (T, mel_dim) log-mel -> its
+    (T * hop,) waveform: T zero-padded to a bucket of ``buckets`` (so
+    repeated calls reuse a few shapes), the generator in its own
+    precision, the padding's samples cut off."""
+    n = mel.shape[0]
+    t = pick_bucket(n, buckets) if buckets else n
+    mel_pad = mel.new_zeros((1, t, mel.shape[1]), dtype=torch.float32)
+    mel_pad[0, :n] = mel
+    return vocoder(mel_pad)[0, :n * vocoder.hop_length]
 
 
 @torch.inference_mode()

@@ -8,7 +8,7 @@ on in train mode, off in eval mode, so synthesis runs the prenet without
 it, as the JAX package's ``train=False`` does. The discrete-token mode
 (``output_type``, an Embedding fc1) raises with the other model families;
 the JAX package's working ``EncoderPreNet``, which no model builds, is
-ROADMAP Queue 1 item 6.
+left to the slice "other model families".
 """
 
 from __future__ import annotations

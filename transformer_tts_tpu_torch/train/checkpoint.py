@@ -14,7 +14,8 @@ generator's state and, when ``with_optimizer``, the optimizer's state.
 optimizer keeps the fresh one, as in the JAX package.
 ``resolve_checkpoint`` picks the directory a synthesis ``--load_name``
 (with ``--epoch``) names, as the JAX package's ``_resolve_path``. Pruning and
-averaging come with ``cli/average_checkpoints`` (ROADMAP Queue 1 item 10).
+averaging come with ``cli/average_checkpoints``, in the slice
+"parallelism and remaining tools".
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@
   (n = 0, 1, ...) is ``noam(n)``, which evaluates the formula at n + 1, as
   optax reads the schedule at its count before incrementing it.
 
-RAdam comes with the remaining tools (ROADMAP Queue 1 item 10).
+RAdam comes with the slice "parallelism and remaining tools".
 """
 
 from __future__ import annotations
