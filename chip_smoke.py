@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FastSpeech 2 (transformer and conformer) and AR
-Transformer-TTS synthesis and training, its features and its vocoder on
-one CUDA card.
+"""Drive the PyTorch port's FastSpeech 2 (transformer and conformer), AR
+Transformer-TTS (with and without GST) and SQ-VAE FastSpeech 2 synthesis
+and training, checkpoint averaging, its features and its vocoder on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -150,9 +151,9 @@ and each printing its wall time:
    forward and forward with backward;
 9. the profiles of 5(b), 5(e), 6(c) (B=1 and B=8: device operations per
    decode step, the copies among them, the bf16 weight copies the graph
-   reads) and 6(e), each on a state or model built anew, after every
-   timed phase: a profiler pass slows the host work of the rest of its
-   process; also 3 vocoder GAN steps (phase 13);
+   reads), 6(e), 15(d) and 16(d), each on a state or model built anew,
+   after every timed phase: a profiler pass slows the host work of the
+   rest of its process; also 3 vocoder GAN steps (phase 13);
 10.-14. features and the vocoder, run after 6 and before 7, random
    weights from seed 0 at full width (HiFi-GAN V1: 512 channels, rates
    8·8·2·2, MRF kernels 3/7/11; the iSTFT vocoder: 8 ConvNeXt layers of
@@ -186,6 +187,41 @@ and each printing its wall time:
        --device cuda: every WAV of frames x 256 samples (Griffin-Lim's
        (frames - 1) x 256) and finite; load_reference_checkpoint of a
        ``module.``-prefixed copy of that checkpoint, bit for bit.
+15.-16. the two other families, run after 14 and before 7, random weights
+   from seed 0 at the flagship's widths, their data from a generator of
+   their own (seed 15), each path counted from 0:
+   15. the GST AR model (egs/transformer_tts_ljspeech.py with gst = True;
+       the style token attention's query weights and tokens scaled x10,
+       ``gst_model``, so the style follows the reference): (a) the eval
+       forward as 6(a) with a (1, 400, 80) reference mel, 6 K3-f or 6
+       K3-f-90 and nothing else; (b) synthesize_transformer_tts with the
+       reference at B=1 and B=8, 500 steps, no kernel, the graph bit for
+       bit the eager loop, a second reference (650 frames) another mel,
+       ms per step and RTF; (c) the card-vs-CPU step as 6(d), the token
+       attention's dropout at 0, every GST weight (conv, BatchNorm, GRU,
+       tokens, MHA) with a non-zero card gradient within 2e-2 of its own
+       max|g|, the BatchNorm2d statistics as the others; (d) the timed
+       bf16 step at the AR batch, 6 K3-d-90 and 6 K3-90 per step, the
+       loss falling over 20 steps, a queued profile; (e) cli/train.py
+       for 3 steps, then cli/synthesize.py --ref_mel on its checkpoint;
+   16. the SQ-VAE FastSpeech 2 (model = "SQFastSpeech2"): (a) the eval
+       forward (B=2, L=128, 768 frames, durations predicted from the
+       quantized encoder output) card fp32 against CPU fp32 at 1e-3 of
+       max(1, max|ref|), where the nearest code differs at a tie (two
+       distances within ARGMIN_TIE) the card takes the CPU's, those rows
+       counted and printed, any other difference fatal; (b)
+       synthesize_fastspeech2 as 4(b), 6 K1-90 per call; (c) the card-vs-
+       CPU step as 5(a), the Gumbel noise the same on both sides
+       (``fixed_gumbel``), every loss term (sq_vae_loss and the
+       perplexity among them) within 1e-4 of max(1, |CPU|), the codebook,
+       log_var_q_scalar and duration predictor with non-zero card
+       gradients; (d) the timed bf16 step at the FastSpeech 2 batch, 6
+       K1-d-90 and 6 K2-90 per step, as 5(b); (e) cli/train.py for two
+       epochs with a save each, the SQ model and the transformer
+       flagship, and one step of a use_sq_vae FastSpeech 2, at once; then
+       cli/average_checkpoints.py --last 2 on both, each average equal to
+       the float64 mean of its epochs' state_dicts; then
+       cli/synthesize.py on the transformer flagship's average.
 
 It then prints the phases' wall times, the kernels line (JSON), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -193,6 +229,7 @@ nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1046,11 +1083,10 @@ def kernel_timings(kid, tensors, k_len) -> dict:
 
 def flagship_model(device, amp: bool, stacks: dict, seed: int = 0):
     from transformer_tts_tpu_torch.config import HParams
-    from transformer_tts_tpu_torch.models.fastspeech2 import (
-        build_fastspeech2)
+    from transformer_tts_tpu_torch.models import build_model
     # d 384, 6+6 layers, 4 heads, vocab 152, mel 80
     hp = HParams(**dict(FLAGSHIP, **stacks, amp=amp))
-    model = build_fastspeech2(hp, device=device, seed=seed).eval()
+    model = build_model(hp, device=device, seed=seed).eval()
     with torch.no_grad():
         # random weights then give ~6 frames per phone
         model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(
@@ -1344,6 +1380,26 @@ def ar_train_batch(gen, hp, b, text_len, mel_len, frames, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
+def gst_hparams(**overrides):
+    """The AR flagship with GST (egs/transformer_tts_ljspeech.py,
+    ``gst = True``: a 6-conv reference encoder, a 128-unit GRU, 10 style
+    tokens of 384 attended by 4 heads), with overrides."""
+    return ar_hparams(**dict(overrides, gst=True))
+
+
+def sq_hparams(**overrides):
+    """The SQ-VAE FastSpeech 2 (``model = "SQFastSpeech2"``): the
+    transformer flagship's widths and training defaults, a codebook of 128
+    codes of 384, with overrides."""
+    return train_hparams(**dict(overrides, model="SQFastSpeech2"))
+
+
+def no_token_dropout(model):
+    """The GST style token attention's dropout (0.1, not an hparam) at 0,
+    for the card-vs-CPU step."""
+    model.style_embedding.style_token_layer.attention.dropout.p = 0.0
+
+
 def conformer_hparams(**overrides):
     """The conformer flagship of egs/fastspeech2_conformer_ljspeech.py:
     the transformer flagship's widths and training defaults with both
@@ -1386,14 +1442,28 @@ def trainer(kind: str) -> dict:
                     step_kernels=("K4-d-90", "K5-90"),
                     fwd_call=(attention, "flash_relpos_attention"),
                     bwd_call=(fr, "flash_relpos_attention_bwd"))
-    return dict(hparams=ar_hparams, init=tr.init_transformer_state,
-                make_step=tr.make_transformer_train_step,
-                batch=ar_train_batch, attn="attn_1",
-                no_dropout=dict(dropout=0.0, dropout_prenet=0.0,
-                                dropout_postnet=0.0),
-                kernels=("K3-f", "K3-d", "K3-dq", "K3-dkdv"),
-                bf16_kernels=("K3-f-90", "K3-90"),
-                step_kernels=("K3-d-90", "K3-90"), **calls)
+    if kind == "sq":
+        return dict(hparams=sq_hparams, init=tr.init_sq_fastspeech2_state,
+                    make_step=tr.make_sq_fastspeech2_train_step,
+                    batch=train_batch, attn="attn", no_dropout=fs2_no_dropout,
+                    kernels=("K1", "K1-d", "K2-dq", "K2-dkdv"),
+                    bf16_kernels=("K1-90", "K2-90"),
+                    step_kernels=("K1-d-90", "K2-90"), terms=True,
+                    live=("variance_adaptor.codebook.",
+                          "variance_adaptor.log_var_q_scalar",
+                          "variance_adaptor.duration_predictor."), **calls)
+    ar = dict(hparams=ar_hparams, init=tr.init_transformer_state,
+              make_step=tr.make_transformer_train_step,
+              batch=ar_train_batch, attn="attn_1",
+              no_dropout=dict(dropout=0.0, dropout_prenet=0.0,
+                              dropout_postnet=0.0),
+              kernels=("K3-f", "K3-d", "K3-dq", "K3-dkdv"),
+              bf16_kernels=("K3-f-90", "K3-90"),
+              step_kernels=("K3-d-90", "K3-90"), **calls)
+    if kind == "gst":
+        ar.update(hparams=gst_hparams, prepare=no_token_dropout,
+                  live=("style_embedding.",))
+    return ar
 
 
 ADAM_EPS = 1e-9
@@ -1465,7 +1535,8 @@ def relu_branches(record=None, follow=None):
         take = (x.abs() <= RELU_TIE * top) & (other != (x > 0))
         if bool(take.any()):
             forced[0] += int(take.sum())
-            forced[1] = max(forced[1], float(x.abs()[take].max() / top))
+            forced[1] = max(forced[1],
+                            float(x.detach().abs()[take].max() / top))
         return torch.where(take, x * other, real(x))
 
     if record is None and follow is None:
@@ -1476,6 +1547,59 @@ def relu_branches(record=None, follow=None):
         yield forced
     finally:
         torch.relu = real
+
+
+# a codebook row whose two nearest codes lie within this share of the
+# nearer's distance is a tie: card and CPU fp32 move a distance of ~40 by
+# ~1e-6 of it through six encoder layers
+ARGMIN_TIE = 1e-5
+
+
+@contextmanager
+def argmin_ties(record=None, follow=None):
+    """Within the block, ``torch.argmin`` (the SQ-VAE codebook's nearest
+    code, models/sq_vae.py) either appends each call's (distances,
+    indices) to the list ``record``, or, given ``follow`` (another run's
+    records, call by call), takes that run's index at rows where its own
+    argmin differs and the two codes' distances lie within ARGMIN_TIE of
+    each other: at such a tie either code is right, as at a ReLU's
+    (``relu_branches``). Yields [rows taken from ``follow``, the largest
+    gap / distance among them, rows that differ beyond a tie]."""
+    real = torch.argmin
+    calls = iter(follow or ())
+    forced = [0, 0.0, 0]
+
+    def argmin(d, dim=-1, *a, **kw):
+        idx = real(d, dim, *a, **kw)
+        if record is not None:
+            record.append((d.detach().float().cpu(), idx.cpu()))
+            return idx
+        _, other = next(calls)
+        other = other.to(idx.device)
+        check(other.shape == idx.shape, "the argmin calls of the runs differ")
+        rows = (other != idx).nonzero()[:, 0]
+        if rows.numel():
+            dd = d.detach().float()
+            near = dd[rows, idx[rows]]
+            gap = (dd[rows, other[rows]] - near).abs() / near.abs().clamp(
+                min=1e-30)
+            tie = gap <= ARGMIN_TIE
+            forced[0] += int(tie.sum())
+            forced[2] += int((~tie).sum())
+            if bool(tie.any()):
+                forced[1] = max(forced[1], float(gap[tie].max()))
+            idx = idx.clone()
+            idx[rows[tie]] = other[rows[tie]]
+        return idx
+
+    if record is None and follow is None:
+        yield forced
+        return
+    torch.argmin = argmin
+    try:
+        yield forced
+    finally:
+        torch.argmin = real
 
 
 def ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1504,20 +1628,27 @@ def phase_card_vs_cpu(gen, kind):
     batch = spec["batch"](gen, hp32, b, text_len, mel_len, frames, "cpu")
     ref = spec["init"](hp32, device="cpu")
     weights = {k: v.clone() for k, v in ref.model.state_dict().items()}
+    prepare = spec.get("prepare", lambda model: None)
+    prepare(ref.model)
     counts = read_counts()
-    results, launched, branches = {}, {}, []
+    results, launched, branches, codes = {}, {}, [], []
     for amp in (False, True):
         hp = spec["hparams"](**dict(fp32, amp=amp))
         state = spec["init"](hp, device=DEVICE)
         state.model.load_state_dict(weights)
+        prepare(state.model)
         before = read_counts()
-        with relu_branches(record=None if amp else branches):
+        with relu_branches(record=None if amp else branches), \
+                argmin_ties(record=None if amp else codes):
             state, logs = spec["make_step"](hp, device=DEVICE)(state, batch)
         torch.cuda.synchronize()
         launched[amp] = {k: n - before[k] for k, n in read_counts().items()}
         results[amp] = (state, logs)
-    with relu_branches(follow=branches) as forced:
+    with relu_branches(follow=branches) as forced, \
+            argmin_ties(follow=codes) as ties:
         ref, ref_logs = spec["make_step"](hp32, device="cpu")(ref, batch)
+    check(ties[2] == 0, f"{kind}: {ties[2]} codebook rows took another code "
+                        f"on the CPU than on the card, beyond a tie")
     lr = ref.optimizer.schedule(0)
     check(forced[0] <= RELU_FLIPS,
           f"{kind}: {forced[0]} ReLU inputs within rounding of 0 took "
@@ -1540,6 +1671,17 @@ def phase_card_vs_cpu(gen, kind):
     # fp32 on both sides (TF32 off): sums in other orders through 12 layers
     check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss),
           f"card fp32 loss {loss} vs CPU {ref_loss}")
+    if spec.get("terms"):
+        terms = {k: (float(logs[k]), float(v)) for k, v in ref_logs.items()}
+        print(f"{kind} train step card fp32 vs CPU fp32, each loss term "
+              f"(tol 1e-4 of max(1, |CPU|)): " + ", ".join(
+                  f"{k} {a:.6f} vs {b:.6f}" for k, (a, b) in terms.items())
+              + f"; codebook rows at a tie (within {ARGMIN_TIE:g} of the "
+              f"distance) where the CPU took the card's code: {ties[0]}, "
+              f"the largest gap {ties[1]:.3g}")
+        check(all(abs(a - b) <= 1e-4 * max(1.0, abs(b))
+                  for a, b in terms.values()),
+              f"{kind}: card loss terms disagree with the CPU's: {terms}")
     cpu_params = dict(ref.model.named_parameters())
     # the .grad the optimizer left: clipped in place, on both sides alike
     top = max(p.grad.abs().max().item() for p in cpu_params.values())
@@ -1584,6 +1726,14 @@ def phase_card_vs_cpu(gen, kind):
     dead = [n for n in attn if not bool((card_params[n].grad != 0).any())]
     check(not dead, f"{kind}: decoder attention weights with no card "
                     f"gradient: {dead}")
+    live = [n for n in card_params if n.startswith(spec.get("live", ()))]
+    dead = [n for n in live if not bool((card_params[n].grad != 0).any())]
+    check(not dead, f"{kind}: weights with no card gradient: {dead}")
+    if live:
+        print(f"{kind}: {len(live)} weights of {spec['live']}, each with a "
+              f"non-zero card gradient, within "
+              f"{max(grad_rel.get(n, 0.0) for n in live):.3g} of their own "
+              f"max|g| (tol {GRAD_TOL})")
     attn_share = min(settled_share[n] for n in attn)
     print(f"{kind} train step B={b} L={text_len} T={mel_len} card fp32 vs "
           f"CPU fp32:"
@@ -1636,11 +1786,14 @@ def phase_train_step(batch, kind):
     """The main path of a flagship's training at full width, bf16 amp,
     dropout 0.1, on a fixed batch (TRAIN_BATCH); 3 warm-up steps, then 10
     timed ones with every launch count set to 0 just before; then 20
-    steps with warmup_step 100 whose loss must fall. Returns the timed
-    run's launch counts and the kernel path's forward and backward inputs
-    of the first decoder layer in the last warm-up step."""
+    steps with warmup_step 100 whose loss must fall. The peak memory is
+    also given as the step's own, over what earlier phases hold. Returns
+    the timed run's launch counts and the kernel path's forward and
+    backward inputs of the first decoder layer in the last warm-up step."""
     spec = trainer(kind)
     b, text_len, mel_len, _ = TRAIN_BATCH
+    gc.collect()        # the models earlier checks left in reference cycles
+    resident = torch.cuda.memory_allocated()    # what earlier phases hold
     hp = spec["hparams"]()
     state = spec["init"](hp, device=DEVICE)
     step = spec["make_step"](hp, device=DEVICE)
@@ -1670,6 +1823,7 @@ def phase_train_step(batch, kind):
     torch.cuda.synchronize()
     launches = read_counts()                # it ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    own_gb = peak_gb - resident / 1e9
     ms = statistics.median(s.elapsed_time(e) for s, e in times)
     losses = torch.stack(losses).float().cpu()
     frames_valid = int((batch["pos_mel"] > 0).sum())
@@ -1677,7 +1831,10 @@ def phase_train_step(batch, kind):
           f"dropout 0.1: {ms:.3f} ms/step (median of 10), {frames_valid} "
           f"valid mel frames = {frames_valid / ms * 1e3:.0f} frames/s "
           f"({b * mel_len / ms * 1e3:.0f} bucket frames/s), peak memory "
-          f"{peak_gb:.2f} GB; losses {[round(x, 4) for x in losses.tolist()]}")
+          f"{peak_gb:.2f} GB = the step's own {own_gb:.3f} GB (weights, "
+          f"optimizer, activations) over {resident / 1e9:.3f} GB that "
+          f"earlier phases hold; losses "
+          f"{[round(x, 4) for x in losses.tolist()]}")
     want = {k: 0 for k in counters()}
     want.update({k: hp.n_layer_decoder for k in spec["step_kernels"]})
     print(f"{kind} train main path: launches per step "
@@ -1765,6 +1922,7 @@ def phase_train_cli(gen, kind):
         for key, value in dict(FLAGSHIP, model=hp.model,
                                encoder_type=hp.encoder_type,
                                decoder_type=hp.decoder_type,
+                               **({"gst": True} if hp.gst else {}),
                                train_script=script, save_dir=save_dir,
                                batch_size=CLI_CORPUS[2], max_epoch=1,
                                save_per_epoch=1).items():
@@ -1787,11 +1945,16 @@ def phase_train_cli(gen, kind):
     with open(script) as src, open(test_script, "w") as dst:
         dst.write("".join(src.readlines()[:3]))
     out_dir = os.path.join(work, "generated")
+    flags = []
+    if hp.gst:                  # the style of a reference mel
+        flags = ["--ref_mel", os.path.join(work, "ref.npy")]
+        np.save(flags[1], torch.randn(GST_REF_FRAMES[1], hp.mel_dim,
+                                      generator=gen).numpy())
     proc = subprocess.run(
         [sys.executable, "-m", "transformer_tts_tpu_torch.cli.synthesize",
          "--load_name", load_dir, "--test_script", test_script, "--save",
-         out_dir, "--max_frames", "2048", "--device", DEVICE], cwd=ROOT,
-        capture_output=True, text=True, timeout=600)
+         out_dir, "--max_frames", "2048", "--device", DEVICE, *flags],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"{kind} synthesis CLI on the trained "
           f"checkpoint exit {proc.returncode}: {proc.stderr[-2000:]}")
     frames = []
@@ -1803,8 +1966,9 @@ def phase_train_cli(gen, kind):
               f"{kind} synthesis from the trained checkpoint: mel {i} "
               f"{mel.shape}")
     print(f"{kind} train CLI: 3 steps, checkpoint "
-          f"{os.path.relpath(load_dir, ROOT)}; synthesis CLI read it and "
-          f"wrote 3 mels of {frames} frames")
+          f"{os.path.relpath(load_dir, ROOT)}; synthesis CLI "
+          f"{' '.join(flags[:1])} read it and wrote 3 mels of {frames} "
+          f"frames")
 
 
 # ---- phase 6: the AR Transformer-TTS ----------------------------------------
@@ -1827,28 +1991,34 @@ def group_positions(lengths, t: int):
     return torch.where(pos <= torch.as_tensor(lengths)[:, None], pos, 0)
 
 
-def phase_ar_teacher_forced(gen):
+def phase_ar_teacher_forced(gen, gst: bool = False):
     """The AR flagship's teacher-forced forward in eval mode over
     AR_TF's 300 decoder groups, whose masked self-attention takes K3 at
     rate 0: card fp32 against the CPU's fp32 at 1e-3 of max(1, max|ref|)
     on mel_post and the stop logits, card bf16 amp at 5e-2 of it; each
     forward a path of its own, counted from 0 (6 launches of the simple
     K3-f in fp32, of the Hopper design's K3-f-90 in bf16, nothing else).
-    Returns the bf16 forward's launches and its first decoder layer's
-    kernel input, the input K3-f-90 and K3-f are timed at."""
+    With ``gst``, the GST model (``gst_model``) styled by a reference mel
+    of GST_REF_FRAMES[0] frames. Returns the bf16 forward's launches and
+    its first decoder layer's kernel input, the input K3-f-90 and K3-f
+    are timed at."""
     from transformer_tts_tpu_torch.ops import attention
     from transformer_tts_tpu_torch.ops.masks import create_masks
     b, text_len, t = AR_TF
-    hp, cpu_model = ar_model("cpu", amp=False)
+    build = gst_model if gst else ar_model
+    hp, cpu_model = build("cpu", amp=False)
     text, pos_text = text_batch(gen, b, text_len, 100, hp.vocab_size)
     trg = torch.randn(b, t, hp.mel_dim, generator=gen)
     pos_mel = group_positions([t, t - 60], t)
     masks = create_masks(pos_text, pos_mel, model="transformer")
     inputs = (text.long(), trg, *masks)
+    if gst:
+        inputs += (torch.randn(1, GST_REF_FRAMES[0], hp.mel_dim,
+                               generator=gen),)
     with torch.no_grad():
         ref = cpu_model(*inputs)
     del cpu_model
-    _, model = ar_model(DEVICE, amp=False)
+    _, model = build(DEVICE, amp=False)
     cuda_inputs = [x.to(DEVICE) for x in inputs]
     captured = []
     for amp in (False, True):
@@ -1870,7 +2040,8 @@ def phase_ar_teacher_forced(gen):
         peak = max(p for _, p in errs.values())
         tol = (5e-2 if amp else 1e-3) * max(1.0, peak)
         label = "bf16 amp" if amp else "fp32"
-        print(f"AR teacher-forced forward B={b} L={text_len} T_dec={t}: "
+        print(f"{'GST ' if gst else ''}AR teacher-forced forward B={b} "
+              f"L={text_len} T_dec={t}: "
               f"card {label} vs CPU fp32: max|d mel_post| = "
               f"{errs['mel_post'][0]:.3g}, max|d stop| = "
               f"{errs['stop_token'][0]:.3g} (tol {tol:.3g}, max|ref| "
@@ -2134,6 +2305,250 @@ def profile_ar_synthesis(batch, ms_per_call):
           f"per decode step, {copies:.1f} of them copy kernels; the graph "
           f"reads {slots} bf16 weight copies (DecodeWeights) instead of "
           f"casting them at every step")
+
+
+# ---- phase 15: the GST AR Transformer-TTS -----------------------------------
+
+GST_REF_FRAMES = (400, 650)     # the reference mels' frames
+GST_SCALE = 10.0
+
+
+def gst_model(device, amp: bool, seed: int = 0):
+    """The GST AR flagship in eval mode, random weights from ``seed``, the
+    style token attention's query weights and the tokens scaled by
+    GST_SCALE: at the random init the ten tokens' scores lie within ~1e-3
+    of each other, so every reference would give one style to bf16's
+    precision; scaled, the style follows the reference."""
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
+    hp = gst_hparams(amp=amp)
+    model = build_transformer_tts(hp, device=device, seed=seed).eval()
+    with torch.no_grad():
+        tokens = model.style_embedding.style_token_layer
+        tokens.attention.q_linear.weight.mul_(GST_SCALE)
+        tokens.embeddings.mul_(GST_SCALE)
+    return hp, model
+
+
+def phase_gst_synthesis(gen):
+    """synthesize_transformer_tts of the GST flagship (bf16 amp, 500 decode
+    steps, the stop bias at AR_STOP_BIAS) at B=1 and B=8, styled by a
+    (1, 400, 80) reference mel that broadcasts over the batch, counted
+    from 0: no kernel launched (the reference goes into the encoder, the
+    decode replays its CUDA graph); the graph's mel and lengths bit for
+    bit the eager loop's; a second reference mel (650 frames) gives
+    another mel; ms per call (median of 3 after the capture) and per
+    decode step, RTF."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        MAX_AR_STEPS, synthesize_transformer_tts)
+    hp, model = gst_model(DEVICE, amp=True)
+    with torch.no_grad():
+        model.stop_token.bias.fill_(AR_STOP_BIAS)
+    refs = [torch.randn(1, n, hp.mel_dim, generator=gen).to(DEVICE)
+            for n in GST_REF_FRAMES]
+    frames = MAX_AR_STEPS * hp.reduction_rate
+    set_counts({})                          # the path starts here
+    for batch in AR_SYNTH_BATCHES:
+        text, pos = text_batch(gen, batch, 128, 48, hp.vocab_size)
+        call = partial(synthesize_transformer_tts, model,
+                       text.long().to(DEVICE), pos.to(DEVICE))
+        ms, (mel, lengths) = wall_ms(lambda: call(ref_mel=refs[0]), 3,
+                                     warmup=1)
+        e_mel, e_len = call(ref_mel=refs[0], eager=True)
+        other, _ = call(ref_mel=refs[1])
+        torch.cuda.synchronize()
+        check(mel.shape == (batch, frames, hp.mel_dim)
+              and bool(torch.isfinite(mel).all())
+              and bool((lengths == frames).all()),
+              f"GST synthesis: mel {tuple(mel.shape)}, lengths "
+              f"{lengths.tolist()}")
+        check(torch.equal(mel, e_mel) and torch.equal(lengths, e_len),
+              f"GST B={batch}: the graph's mel differs from the eager "
+              f"loop's")
+        moved = (mel - other).abs().max().item()
+        check(moved > 0, f"GST B={batch}: two reference mels gave one mel")
+        audio_s = lengths.sum().item() * HOP_SECONDS
+        print(f"GST synthesize_transformer_tts B={batch} L=128 ref_mel "
+              f"(1, {GST_REF_FRAMES[0]}, {hp.mel_dim}) max_steps "
+              f"{MAX_AR_STEPS} bf16 amp, graph: {ms:.3f} ms/call (median of "
+              f"3), {ms / MAX_AR_STEPS:.4f} ms per decode step, "
+              f"{lengths.sum().item()} frames = {audio_s:.3f} s audio, RTF "
+              f"{ms / 1e3 / audio_s:.6f}; bit for bit the eager loop's; the "
+              f"{GST_REF_FRAMES[1]}-frame reference moves the mel by up to "
+              f"{moved:.3g}")
+    launched = read_counts()                # and ends here
+    check(not any(launched.values()),
+          f"GST synthesis launched a kernel: {launched}")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---- phase 16: the SQ-VAE FastSpeech 2 --------------------------------------
+
+SQ_STACKS = {"model": "SQFastSpeech2"}
+
+
+def phase_sq_forward(gen):
+    """The SQ-VAE FastSpeech 2's eval forward (B=2, L=128, 768 frames,
+    durations predicted from the quantized encoder output, pitch and
+    energy targets): card fp32 against CPU fp32 at 1e-3 of max(1,
+    max|ref|) on mel_post and the log durations, mel_len equal. Where the
+    card's nearest code differs from the CPU's at a tie (``argmin_ties``)
+    it takes the CPU's; those rows are counted, and any other difference
+    fails."""
+    from transformer_tts_tpu_torch.ops.masks import pad_mask
+    hp, cpu_model = flagship_model("cpu", amp=False, stacks=SQ_STACKS)
+    text, pos = text_batch(gen, 2, 128, 100, hp.vocab_size)
+    t = 768
+    p = torch.rand(2, t, generator=gen) * 740 + 60
+    e = torch.rand(2, t, generator=gen) * 315
+    inputs = (text, pad_mask(pos), t, None, p, e)
+    codes = []
+    with torch.no_grad(), argmin_ties(record=codes):
+        ref = cpu_model(*inputs)
+    del cpu_model
+    _, model = flagship_model(DEVICE, amp=False, stacks=SQ_STACKS)
+    cuda_inputs = [x.to(DEVICE) if torch.is_tensor(x) else x for x in inputs]
+    with torch.no_grad(), argmin_ties(follow=codes) as ties:
+        out = model(*cuda_inputs)
+    check(ties[2] == 0, f"SQ eval forward: {ties[2]} codebook rows took "
+                        f"another code on the card, beyond a tie")
+    check(torch.equal(out.mel_len.cpu(), ref.mel_len),
+          f"SQ eval forward: mel_len {out.mel_len.tolist()} vs "
+          f"{ref.mel_len.tolist()}")
+    errs = {"mel_post": max(
+        (out.mel_post[b, :n].cpu() - ref.mel_post[b, :n]).abs().max().item()
+        for b, n in enumerate(ref.mel_len.tolist())),
+        "log_duration": max_err(out.log_duration.cpu(), ref.log_duration)[0]}
+    peak = max(ref.mel_post.abs().max().item(),
+               ref.log_duration.abs().max().item())
+    tol = 1e-3 * max(1.0, peak)
+    print(f"SQ eval forward B=2 L=128 T={t} card fp32 vs CPU fp32: "
+          + ", ".join(f"max|d {k}| = {v:.3g}" for k, v in errs.items())
+          + f" (tol {tol:.3g}, max|ref| {peak:.3g}, frames "
+          f"{ref.mel_len.tolist()}); codebook rows at a tie (within "
+          f"{ARGMIN_TIE:g} of the distance) where the card took the CPU's "
+          f"code: {ties[0]} of {sum(len(i) for _, i in codes)}, the largest "
+          f"gap {ties[1]:.3g}")
+    check(all(v <= tol for v in errs.values()),
+          "SQ: card fp32 eval forward disagrees with the CPU")
+    del model
+    torch.cuda.empty_cache()
+
+
+@contextmanager
+def fixed_gumbel(gen):
+    """The SQ-VAE's Gumbel noise drawn once per shape on the CPU from
+    ``gen`` and handed to every call, on any device, within the block: the
+    card's step and the CPU's see the same noise."""
+    from transformer_tts_tpu_torch.models import sq_vae
+    real, drawn = sq_vae.gumbel_noise, {}
+
+    def fixed(shape, device, generator):
+        key = tuple(shape)
+        if key not in drawn:
+            drawn[key] = real(key, "cpu", gen)
+        return drawn[key].to(device)
+
+    sq_vae.gumbel_noise = fixed
+    try:
+        yield
+    finally:
+        sq_vae.gumbel_noise = real
+
+
+def run_clis(runs: dict) -> dict:
+    """Start every ``name: argv`` (a module of the repo and its arguments)
+    at once, as subprocesses; wait for all; each must exit 0. Returns
+    {name: stdout}."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, argv in runs.items()}
+    outs = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"{name}: exit {proc.returncode}: "
+                                    f"{err[-2000:]}")
+        outs[name] = out
+    return outs
+
+
+def phase_sq_clis(gen):
+    """cli/train.py on a synthetic corpus (CLI_CORPUS) for two epochs, a
+    save each, for the SQ-VAE FastSpeech 2 and the transformer flagship,
+    and for one step of a use_sq_vae FastSpeech 2, the three at once; then
+    cli/average_checkpoints.py --last 2 on both two-epoch runs, each
+    average equal to the float64 mean of its two epochs' state_dicts (the
+    integer buffers the newest epoch's); then cli/synthesize.py on the
+    transformer flagship's average."""
+    work = os.path.join(WORK, "sq_clis")
+    hp = train_hparams()
+    script = write_train_corpus(gen, hp, os.path.join(work, "corpus"))
+    cases = {"sq": (SQ_STACKS, []), "transformer": ({}, []),
+             "use_sq_vae": ({"use_sq_vae": True}, ["--max_steps", "1"])}
+    runs = {}
+    for name, (extra, flags) in cases.items():
+        hp_file = os.path.join(work, f"{name}.py")
+        with open(hp_file, "w") as fh:
+            for key, value in dict(FLAGSHIP, **extra, train_script=script,
+                                   save_dir=os.path.join(work, name),
+                                   batch_size=CLI_CORPUS[2], max_epoch=2,
+                                   save_per_epoch=10).items():
+                fh.write(f"{key} = {value!r}\n")
+        runs[name] = ["transformer_tts_tpu_torch.cli.train", "--hp_file",
+                      hp_file, "--device", DEVICE, *flags]
+    outs = run_clis(runs)
+    for name, out in outs.items():
+        steps = [ln for ln in out.splitlines() if ln.startswith("epoch ")
+                 and " step " in ln]
+        check(steps and all("nan" not in ln for ln in steps),
+              f"{name} train CLI logged no step")
+        print(f"{name} train CLI: {len(steps)} steps, the last: "
+              f"{steps[-1][:160]}")
+    check("sq_vae_loss=" in outs["use_sq_vae"] and "sq_vae_loss=" in
+          outs["sq"], "the SQ train CLIs logged no sq_vae_loss")
+    outs = run_clis({name: ["transformer_tts_tpu_torch.cli."
+                            "average_checkpoints", "--save_dir",
+                            os.path.join(work, name), "--last", "2"]
+                     for name in ("sq", "transformer")})
+    for name in ("sq", "transformer"):
+        save_dir = os.path.join(work, name)
+        epochs = [torch.load(os.path.join(save_dir, f"epoch_{e}",
+                                          "model.pt"), weights_only=True)
+                  for e in (1, 2)]
+        avg = torch.load(os.path.join(save_dir, "average_epoch1-epoch2",
+                                      "model.pt"), weights_only=True)
+        check(sorted(avg) == sorted(epochs[1]),
+              f"{name}: the average's keys differ")
+        moved = 0
+        for key, value in avg.items():
+            a, b = epochs[0][key], epochs[1][key]
+            want = (((a.double() + b.double()) / 2).to(a.dtype)
+                    if a.is_floating_point() else b)
+            check(torch.equal(value, want), f"{name}: averaged {key} is not "
+                                            f"the mean of the two epochs'")
+            moved += a.is_floating_point() and not torch.equal(a, b)
+        print(f"{name}: {outs[name].strip()}; {len(avg)} tensors, each the "
+              f"float64 mean of epochs 1 and 2 ({moved} of them differ "
+              f"between the epochs), integer buffers epoch 2's")
+    test_script = os.path.join(work, "test.txt")
+    with open(script) as src, open(test_script, "w") as dst:
+        dst.write("".join(src.readlines()[:3]))
+    out_dir = os.path.join(work, "generated")
+    load_dir = os.path.join(work, "transformer", "average_epoch1-epoch2")
+    run_clis({"synthesis CLI on the average": [
+        "transformer_tts_tpu_torch.cli.synthesize", "--load_name", load_dir,
+        "--test_script", test_script, "--save", out_dir, "--max_frames",
+        "2048", "--device", DEVICE]})
+    frames = []
+    for i in range(3):
+        mel = np.load(os.path.join(out_dir, f"{i}.npy"))
+        frames.append(mel.shape[0])
+        check(mel.ndim == 2 and mel.shape[1] == hp.mel_dim
+              and mel.shape[0] > 0 and bool(np.isfinite(mel).all()),
+              f"synthesis from the average: mel {i} {mel.shape}")
+    print(f"synthesis CLI on {os.path.relpath(load_dir, ROOT)}: 3 mels of "
+          f"{frames} frames")
 
 
 # ---- phase 7: the kernels at their main paths' inputs -----------------------
@@ -3280,13 +3695,40 @@ def kernels_line_entry(name, source, replaces, launches, res) -> dict:
 PHASE_TIMES = []
 
 
+def print_resident(label: str, n: int = 8):
+    """The ``n`` largest card storages that Python objects hold at
+    ``label``, and what all of them sum to."""
+    storages = {}
+    for obj in gc.get_objects():
+        try:
+            if not (torch.is_tensor(obj) and obj.is_cuda):
+                continue
+            storage = obj.untyped_storage()
+        except Exception:       # objects that fail the type test
+            continue
+        storages[storage.data_ptr()] = (storage.nbytes(), tuple(obj.shape),
+                                        str(obj.dtype)[6:])
+    top = sorted(storages.values(), reverse=True)[:n]
+    print(f"resident {label}: {torch.cuda.memory_allocated() / 1e9:.3f} GB; "
+          f"{len(storages)} storages held from Python sum "
+          f"{sum(v[0] for v in storages.values()) / 1e9:.3f} GB; largest "
+          + ", ".join(f"{nb / 1e6:.1f} MB {shape} {dtype}"
+                      for nb, shape, dtype in top))
+
+
 @contextmanager
 def phase(name: str):
-    """Print the wall time of the phase ``name`` once it ends."""
+    """Print the wall time of the phase ``name`` once it ends, and the card
+    memory live tensors hold then, before and after a garbage collection
+    frees what the phase left in reference cycles."""
     t0 = time.perf_counter()
     yield
     PHASE_TIMES.append((name, time.perf_counter() - t0))
-    print(f"[phase {name}: {PHASE_TIMES[-1][1]:.1f} s]", flush=True)
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    print(f"[phase {name}: {PHASE_TIMES[-1][1]:.1f} s; resident after "
+          f"{held / 1e9:.3f} GB, {torch.cuda.memory_allocated() / 1e9:.3f} "
+          f"GB after gc]", flush=True)
 
 
 def main():
@@ -3358,6 +3800,7 @@ def main():
         phase_ar_decode_vs_forward(gen)
     with phase("AR synthesis"):
         phase_ar_synthesis(gen)
+    print_resident("before phase 6")
     with phase("AR training"):
         phase_card_vs_cpu(gen, "ar")
         ar_launches, ar_fwd_inputs, ar_bwd_inputs = phase_train_step(
@@ -3373,6 +3816,23 @@ def main():
         phase_vocoder_step(gen)
     with phase("vocoder CLIs"):
         phase_vocoder_clis(gen)
+    print_resident("before phases 15-16")
+    new_gen = torch.Generator().manual_seed(15)     # phases 15-16's data
+    with phase("GST AR"):
+        phase_ar_teacher_forced(new_gen, gst=True)
+        phase_gst_synthesis(new_gen)
+        phase_card_vs_cpu(new_gen, "gst")
+        phase_train_step(ar_batch, "gst")
+        phase_train_cli(new_gen, "gst")
+    with phase("SQ-VAE FastSpeech 2"):
+        phase_sq_forward(new_gen)
+        _, model, _, _ = phase_synthesis(new_gen, "sq", SQ_STACKS, "K1-90")
+        del model
+        torch.cuda.empty_cache()
+        with fixed_gumbel(new_gen):
+            phase_card_vs_cpu(new_gen, "sq")
+        phase_train_step(batch, "sq")
+        phase_sq_clis(new_gen)
 
     lines = []
     with phase("kernels at their main paths' inputs"):

@@ -660,6 +660,15 @@ def test_entry_points_default_to_the_card():
     {"output_type": "softmax"}])
 def test_ar_options_of_later_slices_raise(option):
     hp = HParams(**dict(CFG, **option))
+    if option == {"gst": True}:
+        # GST is ported (tests/test_torch_port_gst.py): the model builds
+        # with its style embedding and one train step runs
+        state = init_transformer_state(hp, device="cpu")
+        assert state.model.style_embedding is not None
+        state, logs = make_transformer_train_step(hp, device="cpu")(
+            state, _ar_batch(t=40, frames=(30, 21)))
+        assert state.step == 1 and np.isfinite(float(logs["loss_total"]))
+        return
     with pytest.raises(NotImplementedError, match="AR model"):
         build_transformer_tts(hp, device="cpu")
     with pytest.raises(NotImplementedError, match="AR model"):

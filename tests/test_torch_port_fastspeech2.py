@@ -23,6 +23,8 @@ from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.infer.synthesize import (
     synthesize_fastspeech2)
 from transformer_tts_tpu_torch.models.fastspeech2 import build_fastspeech2
+from transformer_tts_tpu_torch.models.transformer_tts import (
+    build_transformer_tts)
 from transformer_tts_tpu_torch.ops import attention as port_attention
 from transformer_tts_tpu_torch.ops.masks import pad_mask
 from transformer_tts_tpu_torch.train.checkpoint import save_checkpoint
@@ -150,6 +152,9 @@ def _write_model_dir(tmp_path, **extra):
     if extra.get("model", "Fastspeech2") == "Fastspeech2":
         save_checkpoint(build_fastspeech2(HParams(**cfg), device="cpu"),
                         str(hp_path.parent))
+    elif extra.get("gst"):
+        save_checkpoint(build_transformer_tts(HParams(**cfg), device="cpu"),
+                        str(hp_path.parent))
     script = tmp_path / "test.txt"
     script.write_text("a.npy|3 5 7 9\nb.npy|1 2 3 4 5 6 7 8 9 10\nc.npy|4\n")
     return str(hp_path.parent), str(script)
@@ -187,10 +192,21 @@ def test_cli_raises_without_a_card(tmp_path):
      "tacotron2")])
 def test_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags, match):
     load_dir, script = _write_model_dir(tmp_path, **hp_extra)
+    args = ["--load_name", load_dir, "--test_script", script, "--save",
+            str(tmp_path / "out"), "--device", "cpu", *flags]
+    if hp_extra.get("gst"):
+        # GST synthesis is ported (tests/test_torch_port_gst.py): the
+        # reference mel of --ref_mel styles every utterance
+        ref = tmp_path / "ref.npy"
+        np.save(ref, np.random.RandomState(0).randn(50, 16).astype(
+            np.float32))
+        cli.main([*args, "--ref_mel", str(ref)])
+        for idx in range(3):
+            mel = np.load(tmp_path / "out" / f"{idx}.npy")
+            assert mel.shape[1] == 16 and np.isfinite(mel).all()
+        return
     with pytest.raises(NotImplementedError, match=match):
-        cli.main(["--load_name", load_dir, "--test_script", script,
-                  "--save", str(tmp_path / "out"), "--device", "cpu",
-                  *flags])
+        cli.main(args)
 
 
 @pytest.mark.parametrize("option", [
@@ -199,8 +215,19 @@ def test_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags, match):
     {"is_multi_speaker": True, "spk_emb_architecture": "encoder"},
     {"CTC_training": True}, {"architecture": "text-mel-mel"}])
 def test_options_of_later_slices_raise(option):
+    hp = HParams(**dict(SMALL, **option))
+    if option == {"use_sq_vae": True}:
+        # the SQ-VAE bottleneck is ported (tests/test_torch_port_sq.py):
+        # the model builds with its codebook and synthesizes
+        model = build_fastspeech2(hp, device="cpu")
+        assert model.codebook.embedding.shape == (128, 32)
+        text = torch.tensor([[3, 5, 7, 9]])
+        mel, mel_len, _ = synthesize_fastspeech2(
+            model, text, torch.arange(1, 5)[None], 32)
+        assert mel.shape == (1, 32, 16) and bool(torch.isfinite(mel).all())
+        return
     with pytest.raises(NotImplementedError, match="slice"):
-        build_fastspeech2(HParams(**dict(SMALL, **option)), device="cpu")
+        build_fastspeech2(hp, device="cpu")
 
 
 def test_checkpoint_round_trip(tmp_path):

@@ -46,8 +46,8 @@ from transformer_tts_tpu_torch.ops.masks import create_masks
 from transformer_tts_tpu_torch.train import checkpoint, losses, schedule
 from transformer_tts_tpu_torch.train import trainer as trainer_module
 from transformer_tts_tpu_torch.train.trainer import (
-    TrainState, init_fastspeech2_state, make_fastspeech2_train_step,
-    make_transformer_train_step)
+    TrainState, init_fastspeech2_state, init_transformer_state,
+    make_fastspeech2_train_step, make_transformer_train_step)
 
 from torch_port_pair import SMALL, build_pair, to_np
 
@@ -83,8 +83,8 @@ def test_fastspeech2_loss_matches_jax(options):
                                  torch.as_tensor(pos_mel))
     j_out = types.SimpleNamespace(sq_vae_loss=None, **{
         k: jnp.asarray(v) for k, v in arrays.items()})
-    out = types.SimpleNamespace(**{k: torch.as_tensor(v)
-                                   for k, v in arrays.items()})
+    out = types.SimpleNamespace(sq_vae_loss=None, **{
+        k: torch.as_tensor(v) for k, v in arrays.items()})
     jt = {k: jnp.asarray(v) for k, v in targets.items()}
     tt = {k: torch.as_tensor(v) for k, v in targets.items()}
     _, ref = jax_losses.fastspeech2_loss(
@@ -105,8 +105,28 @@ def test_fastspeech2_loss_matches_jax(options):
                                     {"use_sq_vae": True}])
 def test_losses_of_later_slices_raise(option):
     arrays, targets, pos_text, pos_mel = _outputs(1)
-    out = types.SimpleNamespace(**{k: torch.as_tensor(v)
-                                   for k, v in arrays.items()})
+    if option == {"use_sq_vae": True}:
+        # the SQ-VAE loss is ported: the AR-ELBO MSE on mel_pre and the
+        # model's SQ-VAE loss added, as in the JAX package
+        sq = dict(sq_vae_loss=np.float32(3.25),
+                  sq_vae_perplexity=np.float32(17.5), **arrays)
+        _, ref = jax_losses.fastspeech2_loss(
+            types.SimpleNamespace(**{k: jnp.asarray(v)
+                                     for k, v in sq.items()}),
+            *(jnp.asarray(targets[k]) for k in ("mel", "d", "f0",
+                                                 "energy")), **option)
+        _, ours = losses.fastspeech2_loss(
+            types.SimpleNamespace(**{k: torch.as_tensor(v)
+                                     for k, v in sq.items()}),
+            *(torch.as_tensor(targets[k]) for k in ("mel", "d", "f0",
+                                                     "energy")), **option)
+        assert sorted(ours) == sorted(ref)
+        for key in ref:
+            np.testing.assert_allclose(float(ours[key]), float(ref[key]),
+                                       rtol=1e-5, err_msg=key)
+        return
+    out = types.SimpleNamespace(sq_vae_loss=None, **{
+        k: torch.as_tensor(v) for k, v in arrays.items()})
     with pytest.raises(NotImplementedError, match="other model families"):
         losses.fastspeech2_loss(out, torch.as_tensor(targets["mel"]),
                                 torch.as_tensor(targets["d"]), None, None,
@@ -403,6 +423,13 @@ def test_train_options_of_later_slices_raise(option, match):
     hp = HParams(**dict(SMALL, **option))
     make = (make_transformer_train_step if hp.model == "Transformer"
             else make_fastspeech2_train_step)
+    if hp.gst:
+        # GST training is ported (tests/test_torch_port_gst.py): the step
+        # builds and its model holds the style embedding
+        assert callable(make(hp, device="cpu"))
+        state = init_transformer_state(hp, device="cpu")
+        assert state.model.style_embedding is not None
+        return
     with pytest.raises(NotImplementedError, match=match):
         make(hp, device="cpu")
 
@@ -597,9 +624,19 @@ def test_train_cli_raises_without_a_card(tmp_path):
 def test_train_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags,
                                                match):
     script, _ = _corpus(tmp_path)
-    hp_path, _ = _write_hp(tmp_path, script, **hp_extra)
+    hp_path, save_dir = _write_hp(tmp_path, script, **hp_extra)
+    args = ["--hp_file", hp_path, "--device", "cpu", *flags]
+    if hp_extra.get("gst") or hp_extra.get("model") == "SQFastSpeech2":
+        # the GST and SQ-VAE trainers are ported (tests/test_torch_port_gst
+        # .py, tests/test_torch_port_sq.py): one step and its checkpoint
+        train_cli.main([*args, "--max_steps", "1"])
+        state = torch.load(os.path.join(save_dir, "epoch_1", "model.pt"))
+        assert any(k.startswith(("style_embedding.",
+                                 "variance_adaptor.codebook."))
+                   for k in state)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(["--hp_file", hp_path, "--device", "cpu", *flags])
+        train_cli.main(args)
 
 
 def test_train_cli_starts_from_pretrain_model(tmp_path, monkeypatch):

@@ -1,5 +1,5 @@
-"""A small FastSpeech 2, or AR Transformer-TTS, in both packages, on the
-same weights.
+"""A small FastSpeech 2, SQ-VAE FastSpeech 2 or AR Transformer-TTS, in both
+packages, on the same weights.
 
 Builds the JAX model in fp32, takes its parameter tree's shapes from
 ``jax.eval_shape`` (no compile), fills it with numpy random values in
@@ -21,10 +21,13 @@ from transformer_tts_tpu.models.transformer_tts import (
 from transformer_tts_tpu.ops.masks import (
     create_masks as jax_create_masks, pad_mask as jax_pad_mask)
 from transformer_tts_tpu.train.trainer import (
-    build_fastspeech2 as jax_build_fastspeech2)
+    build_fastspeech2 as jax_build_fastspeech2,
+    build_sq_fastspeech2 as jax_build_sq_fastspeech2)
 from transformer_tts_tpu_torch.compat.from_jax import state_dict_from_flax
-from transformer_tts_tpu_torch.config import HParams
+from transformer_tts_tpu_torch.config import HParams, is_sq_model
 from transformer_tts_tpu_torch.models.fastspeech2 import build_fastspeech2
+from transformer_tts_tpu_torch.models.fastspeech2_sq import (
+    build_sq_fastspeech2)
 from transformer_tts_tpu_torch.models.transformer_tts import (
     build_transformer_tts)
 
@@ -64,11 +67,14 @@ def _random_params(shapes, rs):
 
 
 def build_pair(seed=0, **overrides):
-    """-> (hp, jax_model, variables, port_model) on the same weights."""
+    """-> (hp, jax_model, variables, port_model) on the same weights; an
+    SQ-VAE FastSpeech 2 when ``overrides`` name it (``model``)."""
     cfg = dict(SMALL, **overrides)
     jhp = JaxHParams(**cfg)
     hp = HParams(**cfg)
-    jmodel = jax_build_fastspeech2(jhp)
+    is_sq = is_sq_model(hp.model)
+    jmodel = (jax_build_sq_fastspeech2 if is_sq
+              else jax_build_fastspeech2)(jhp)
     b, l, t = 2, 8, 32
     text = jnp.ones((b, l), jnp.int32)
     src_mask = jax_pad_mask(jnp.ones((b, l), jnp.int32))
@@ -86,7 +92,8 @@ def build_pair(seed=0, **overrides):
             va[f"{name}_predictor"]["linear_layer"]["bias"][:] = bias
     variables = {"params": params, "batch_stats": bstats}
 
-    model = build_fastspeech2(hp, device="cpu")
+    model = (build_sq_fastspeech2 if is_sq else build_fastspeech2)(
+        hp, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, bstats, hp))
     model.eval()
     return hp, jmodel, variables, model
@@ -104,10 +111,12 @@ def build_ar_pair(seed=0, **overrides):
     pos_mel = jnp.tile(jnp.arange(1, t + 1)[None], (b, 1))
     src_mask, trg_mask = jax_create_masks(pos_text, pos_mel,
                                           model="transformer")
+    # a GST model needs a reference mel at init (any length will do)
+    ref_mel = jnp.zeros((b, 24, cfg["mel_dim"])) if cfg.get("gst") else None
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(seed), jnp.ones((b, l), jnp.int32),
         jnp.zeros((b, t, cfg["mel_dim"])), src_mask, trg_mask,
-        train=False))
+        ref_mel=ref_mel, train=False))
     rs = np.random.RandomState(seed)
     params = _random_params(shapes["params"], rs)
     bstats = _random_params(shapes.get("batch_stats", {}), rs)

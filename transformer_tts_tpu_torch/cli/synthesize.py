@@ -5,8 +5,8 @@ synthesize.py).
 ``python -m transformer_tts_tpu_torch.cli.synthesize --load_name DIR
       [--hp_file h.py] [--epoch N] [--test_script s.txt] [--save out_dir]
       [--max_frames 2048] [--batch_size N] [--use_prenet]
-      [--pitch_perturbation] [--duration_perturbation] [--wav]
-      [--vocoder GEN_DIR] [--device cuda]``
+      [--pitch_perturbation] [--duration_perturbation] [--ref_mel r.npy]
+      [--wav] [--vocoder GEN_DIR] [--device cuda]``
 
 ``DIR`` and the hparams resolve as in the JAX CLI (:97-103, :122): an
 ``epoch_N`` or ``average_N`` directory is the checkpoint itself and takes
@@ -18,7 +18,9 @@ without them (``hparams.py`` beside ``model.pt``) is the checkpoint.
 port's (``model.pt``, see train/checkpoint.py); ``hp.model`` picks
 FastSpeech 2 or the AR Transformer-TTS (``--max_frames``,
 ``--use_prenet`` and the perturbations are FastSpeech 2's; the AR decode
-runs up to 500 frame groups). For each utterance of the script it writes
+runs up to 500 frame groups; a GST model takes its style from
+``--ref_mel``, a (T, mel) ``.npy`` normalized with the corpus statistics
+and styling every utterance). For each utterance of the script it writes
 ``<idx>.npy`` (the de-normalized mel, float32, cut to its length) and,
 for FastSpeech 2, ``<idx>_alignment.npy`` (predicted durations), and
 prints the elapsed synthesis time. ``--wav`` also writes ``<idx>.wav``
@@ -31,7 +33,10 @@ bucket of ``hp.length_buckets``, the generator in fp32, the waveform cut
 to frames × hop samples. The waveforms are not part of the elapsed time,
 as in the JAX CLI. It runs on the CUDA device unless ``--device cpu`` is
 given, and raises when that device is missing. The
-integrate and post-model paths come with a later slice.
+integrate and post-model paths come with a later slice. SQ-VAE
+hparams (``model = "SQFastSpeech2"``) are refused, as the JAX CLI cannot
+restore them either: such a model synthesizes through
+``infer.synthesize.synthesize_fastspeech2``.
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ def main(argv=None):
                         help="save the pre-postnet mel")
     parser.add_argument("--pitch_perturbation", action="store_true")
     parser.add_argument("--duration_perturbation", action="store_true")
+    parser.add_argument("--ref_mel", type=str, default=None,
+                        help="reference mel .npy (T, mel) of a GST model's "
+                             "style")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--post_model", type=str, default=None)
     parser.add_argument("--vocoder", type=str, default=None,
@@ -75,17 +83,16 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     import torch
-    from transformer_tts_tpu_torch.config import is_nar_model, load_hparams
+    from transformer_tts_tpu_torch.config import (
+        is_nar_model, is_sq_model, load_hparams)
     from transformer_tts_tpu_torch.data.batching import collate
     from transformer_tts_tpu_torch.data.dataset import ScriptDataset
     from transformer_tts_tpu_torch.data.readers import Normalizer
     from transformer_tts_tpu_torch.infer.synthesize import (
         sample_perturbation, synthesize_fastspeech2,
         synthesize_transformer_tts)
-    from transformer_tts_tpu_torch.models.fastspeech2 import (
-        build_fastspeech2, later_slice)
-    from transformer_tts_tpu_torch.models.transformer_tts import (
-        build_transformer_tts)
+    from transformer_tts_tpu_torch.models import build_model
+    from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
     from transformer_tts_tpu_torch.train.checkpoint import (
         load_checkpoint, resolve_checkpoint)
 
@@ -106,13 +113,19 @@ def main(argv=None):
     if args.test_script:
         hp.test_script = args.test_script
     is_ar = not is_nar_model(hp.model)
+    if is_sq_model(hp.model):
+        raise ValueError(
+            f"model={hp.model!r}: the synthesis CLI builds the plain "
+            "FastSpeech 2 or the AR model, as the JAX CLI does, and cannot "
+            "restore an SQ-VAE FastSpeech 2 checkpoint; synthesize it with "
+            "infer.synthesize.synthesize_fastspeech2 on "
+            "models.fastspeech2_sq.build_sq_fastspeech2's model")
     if hp.architecture == "text-mel-mel":
         later_slice("text-mel-mel integrate synthesis",
                     "mel-to-mel post-processing")
     os.makedirs(args.save, exist_ok=True)
 
-    model = (build_transformer_tts if is_ar else build_fastspeech2)(
-        hp, device=device)
+    model = build_model(hp, device=device)
     load_checkpoint(model, resolve_checkpoint(load_dir, args.epoch))
     vocoder = None
     if args.vocoder is not None:
@@ -123,7 +136,13 @@ def main(argv=None):
         vocoder.load_state_dict(restore_generator_params(args.vocoder,
                                                          device))
         vocoder.eval()
-    mean, var = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim).arrays()
+    normalizer = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim)
+    ref_mel = None
+    if args.ref_mel is not None:
+        ref = normalizer(np.load(args.ref_mel).astype(np.float32))
+        ref_mel = torch.as_tensor(ref, dtype=torch.float32,
+                                  device=device)[None]
+    mean, var = normalizer.arrays()
     if mean is not None:
         mean = torch.as_tensor(mean, dtype=torch.float32, device=device)
         var = torch.as_tensor(var, dtype=torch.float32, device=device)
@@ -144,8 +163,8 @@ def main(argv=None):
             if args.duration_perturbation else 1.0
         t0 = time.time()
         if is_ar:
-            mel, mel_len = synthesize_transformer_tts(model, text, pos_text,
-                                                      mean, var)
+            mel, mel_len = synthesize_transformer_tts(
+                model, text, pos_text, mean, var, ref_mel=ref_mel)
             durations = None
         else:
             mel, mel_len, durations = synthesize_fastspeech2(

@@ -16,9 +16,11 @@ The hparams (with the ``--set`` overrides) are written to
 ``save_dir/hparams.py`` at the start, and each checkpoint directory holds
 its own ``hparams.py`` beside ``model.pt``, so ``cli/synthesize.py
 --load_name`` reads either ``save_dir`` (with ``--epoch``) or an epoch's
-directory. ``hp.model`` picks the trainer: FastSpeech 2, or the AR
-Transformer-TTS (``model = "Transformer"``). It runs on the CUDA device
-unless ``--device cpu`` is given.
+directory. ``hp.model`` picks the trainer: FastSpeech 2 (with or without
+``use_sq_vae``), the SQ-VAE FastSpeech 2 (``model`` one of
+``SQFastSpeech2``, ``sq_fastspeech2``, ``fastspeech2_sq``), or the AR
+Transformer-TTS (``model = "Transformer"``, with or without ``gst``). It
+runs on the CUDA device unless ``--device cpu`` is given.
 
 Observability and safety, as the JAX CLI (:89-92, :176-232, :243-314):
 the logged steps' scalars (and steps/s) go to
@@ -34,9 +36,8 @@ checkpoint). ``debug_nans`` is the nearest counterpart of
 backward, and forward hooks on every module that raise
 ``FloatingPointError`` naming the first module whose output holds a NaN
 or an infinity (each hook waits for the card: a debugging mode). The
-SQ-VAE, mel-to-mel and text-mel-mel trainers, the AR model's later-slice
-options and ``--multihost`` raise ``NotImplementedError``, naming their
-slices.
+mel-to-mel and text-mel-mel trainers, the AR model's later-slice options
+and ``--multihost`` raise ``NotImplementedError``, naming their slices.
 """
 
 from __future__ import annotations
@@ -65,9 +66,10 @@ def _overrides(pairs) -> dict:
     return out
 
 
-def _check_branch(hp, args) -> bool:
-    """Raise for a trainer of a later slice; True for the AR trainer."""
-    from transformer_tts_tpu_torch.config import is_nar_model
+def _check_branch(hp, args) -> str:
+    """Raise for a trainer of a later slice; else the trainer's kind:
+    "sq", "fastspeech2" or "ar"."""
+    from transformer_tts_tpu_torch.config import is_nar_model, is_sq_model
     from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
     from transformer_tts_tpu_torch.models.transformer_tts import (
         check_supported)
@@ -81,14 +83,12 @@ def _check_branch(hp, args) -> bool:
                     "mel-to-mel post-processing")
     if hp.architecture != "text-mel":
         raise ValueError(f"unknown architecture {hp.architecture!r}")
-    if hp.model.lower() in ("sqfastspeech2", "sq_fastspeech2",
-                            "fastspeech2_sq"):
-        later_slice("the SQ-VAE FastSpeech 2 trainer",
-                    "other model families")
+    if is_sq_model(hp.model):
+        return "sq"
     if is_nar_model(hp.model):
-        return False
+        return "fastspeech2"
     check_supported(hp)
-    return True
+    return "ar"
 
 
 def _tensors(value):
@@ -216,7 +216,7 @@ def main(argv=None):
     from transformer_tts_tpu_torch.train import trainer
 
     hp = load_hparams(args.hp_file).override(**_overrides(args.set))
-    is_ar = _check_branch(hp, args)
+    kind = _check_branch(hp, args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device "
@@ -225,12 +225,15 @@ def main(argv=None):
     hp.snapshot(hp.save_dir)
 
     loader = DataLoader(TTSDataset(hp.train_script, hp), hp)
-    if is_ar:
-        state = trainer.init_transformer_state(hp, device=device)
-        step_fn = trainer.make_transformer_train_step(hp, device=device)
-    else:
-        state = trainer.init_fastspeech2_state(hp, device=device)
-        step_fn = trainer.make_fastspeech2_train_step(hp, device=device)
+    init, make_step = {
+        "ar": (trainer.init_transformer_state,
+               trainer.make_transformer_train_step),
+        "sq": (trainer.init_sq_fastspeech2_state,
+               trainer.make_sq_fastspeech2_train_step),
+        "fastspeech2": (trainer.init_fastspeech2_state,
+                        trainer.make_fastspeech2_train_step)}[kind]
+    state = init(hp, device=device)
+    step_fn = make_step(hp, device=device)
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"params = {n_params / 1e6:.2f}M")
 
@@ -250,7 +253,7 @@ def main(argv=None):
     metrics = MetricsLogger(os.path.join(hp.save_dir, hp.log_dir))
     timer = StepTimer()
     dump_images = (make_image_dump(hp, device, metrics)
-                   if hp.tb_images and not is_ar else None)
+                   if hp.tb_images and kind == "fastspeech2" else None)
 
     def emit(pending):
         """Print and record one step's logs; the float() calls wait for

@@ -15,6 +15,15 @@ for the AR model (``hp.model`` not a NAR family),
   flax LayerNorm/BatchNorm scale/bias -> weight/bias
   flax batch_stats mean/var          -> running_mean/running_var
   flax depthwise Conv kernel (k, 1, d) -> Conv1d(groups=d).weight (d, 1, k)
+  flax Conv kernel (3, 3, in, out)   -> Conv2d.weight (out, in, 3, 3)
+  flax GRUCell ir/iz/in, hr/hz/hn    -> GRU weight_ih_l0/weight_hh_l0 (r, z,
+                                        n along dim 0), bias_ih_l0 = [ir, iz,
+                                        in] biases, bias_hh_l0 = [0, 0, hn]
+
+The GST style embedding (``hp.gst``) inverts ``convert_style_embedding``
+(:247-264) and ``_map_gru`` (:220-244); the SQ-VAE codebook and
+``log_var_q_scalar`` (``SQFastSpeech2``, or ``use_sq_vae``) invert
+``convert_sq_fastspeech2_state_dict`` (:455-511).
 
 ``vocoder_state_dict_from_flax(params, hp)`` does the same for the JAX
 package's vocoder generator (HiFi-GAN, subpixel or transposed, and the
@@ -29,7 +38,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from transformer_tts_tpu_torch.config import is_nar_model
+from transformer_tts_tpu_torch.config import is_nar_model, is_sq_model
+from transformer_tts_tpu_torch.models.gst import CNN_DIMS
 
 
 def _get(tree: Mapping, path):
@@ -129,6 +139,43 @@ class _Writer:
         for part in ("q_linear", "k_linear", "v_linear", "out"):
             self.linear(path + (part,), f"{name}.{part}")
 
+    def style_embedding(self):
+        p, n = ("style_embedding",), "style_embedding"
+        re_p, re_n = p + ("reference_encoder",), f"{n}.reference_encoder"
+        for i in range(len(CNN_DIMS)):
+            self._put(f"{re_n}.conv_layers.{i}.weight",
+                      _get(self.params, re_p + (f"conv_{i}", "kernel"))
+                      .transpose(3, 2, 0, 1))
+            self.batch_norm(re_p + (f"norm_{i}",), f"{re_n}.norm.{i}")
+        self.gru(re_p + ("gru_cell",), f"{re_n}.gru")
+        st_p, st_n = p + ("style_token_layer",), f"{n}.style_token_layer"
+        self._put(f"{st_n}.embeddings",
+                  _get(self.params, st_p + ("embeddings",)))
+        self.mha(st_p + ("attention",), f"{st_n}.attention")
+
+    def gru(self, cell, name):
+        """flax ``GRUCell`` -> ``nn.GRU``: r/z's hidden biases are folded
+        into ``ir``/``iz``, so ``bias_hh_l0`` is [0, 0, hn.bias]."""
+        gate = {g: _get(self.params, cell + (g, "kernel")).T
+                for g in ("ir", "iz", "in", "hr", "hz", "hn")}
+        bias = {g: _get(self.params, cell + (g, "bias"))
+                for g in ("ir", "iz", "in", "hn")}
+        zero = np.zeros_like(bias["hn"])
+        self._put(f"{name}.weight_ih_l0",
+                  np.concatenate([gate["ir"], gate["iz"], gate["in"]]))
+        self._put(f"{name}.weight_hh_l0",
+                  np.concatenate([gate["hr"], gate["hz"], gate["hn"]]))
+        self._put(f"{name}.bias_ih_l0",
+                  np.concatenate([bias["ir"], bias["iz"], bias["in"]]))
+        self._put(f"{name}.bias_hh_l0",
+                  np.concatenate([zero, zero, bias["hn"]]))
+
+    def sq_codebook(self, path, prefix):
+        self._put(f"{prefix}log_var_q_scalar",
+                  _get(self.params, path + ("log_var_q_scalar",)))
+        self._put(f"{prefix}codebook.embedding",
+                  _get(self.params, path + ("codebook", "embedding")))
+
     def ar_decoder(self, n_layers: int):
         p = ("decoder",)
         self.linear(p + ("decoder_prenet", "fc1"),
@@ -169,6 +216,8 @@ def _transformer_tts(w: _Writer, hp) -> Dict[str, torch.Tensor]:
     w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True)
     if hp.d_model_encoder != hp.d_model_decoder:
         w.linear(("linear",), "linear")
+    if hp.gst:
+        w.style_embedding()
     w.ar_decoder(hp.n_layer_decoder)
     w.linear(("out",), "out")
     w.linear(("stop_token",), "stop_token")
@@ -178,14 +227,19 @@ def _transformer_tts(w: _Writer, hp) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
                          hp) -> Dict[str, torch.Tensor]:
-    """Flax FastSpeech 2 (transformer or conformer stacks) or AR
-    Transformer-TTS trees -> port ``state_dict``."""
+    """Flax FastSpeech 2 (transformer or conformer stacks, with or without
+    the SQ-VAE bottleneck), SQ-VAE FastSpeech 2 or AR Transformer-TTS (with
+    or without GST) trees -> port ``state_dict``."""
     w = _Writer(params, batch_stats)
     if not is_nar_model(hp.model):
         return _transformer_tts(w, hp)
     w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True)
     w.stack(hp.decoder_type, "decoder", hp.n_layer_decoder, embedding=False)
     va = ("variance_adaptor",)
+    if is_sq_model(hp.model):
+        w.sq_codebook(va, "variance_adaptor.")
+    elif hp.use_sq_vae:
+        w.sq_codebook((), "")
     w.variance_predictor(va + ("duration_predictor",),
                          "variance_adaptor.duration_predictor")
     for kind, on in (("pitch", hp.pitch_pred), ("energy", hp.energy_pred)):

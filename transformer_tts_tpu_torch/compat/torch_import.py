@@ -6,10 +6,11 @@ The reference saves ``model.state_dict()`` as ``network.epoch{N}``, under
 DataParallel's ``module.`` prefix when it trained on several cards. The
 port's modules carry the reference's parameter names, so loading is
 ``torch.load``, the prefix stripped, and a strict ``load_state_dict`` into
-the model that ``hp`` builds: FastSpeech 2 (transformer or conformer
-stacks) or the AR Transformer-TTS. Where the JAX package converts the
-tensors into flax trees (one ``convert_*_state_dict`` per family), the port
-renames nothing.
+the model that ``hp`` builds (``models.build_model``): FastSpeech 2
+(transformer or conformer stacks), the SQ-VAE FastSpeech 2 or the AR
+Transformer-TTS, with GST when ``hp.gst``. Where the JAX package converts
+the tensors into flax trees (one ``convert_*_state_dict`` per family),
+the port renames nothing.
 
 The reference's AR postnet returns its input unchanged (its
 ``prev_version=False`` branch); ``identity_compat=True`` makes the loaded
@@ -38,15 +39,10 @@ def load_reference_checkpoint(path: str, hp: HParams, *, device="cuda",
     """The model ``hp`` describes on ``device``, in eval mode, holding the
     weights of the reference checkpoint at ``path``. A missing or an
     unexpected key raises."""
-    from transformer_tts_tpu_torch.models.fastspeech2 import (
-        build_fastspeech2)
-    from transformer_tts_tpu_torch.models.transformer_tts import (
-        build_transformer_tts)
-    is_ar = not is_nar_model(hp.model)
-    model = (build_transformer_tts if is_ar else build_fastspeech2)(
-        hp, device=device)
+    from transformer_tts_tpu_torch.models import build_model
+    model = build_model(hp, device=device)
     state = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(strip_module_prefix(state), strict=True)
-    if is_ar:
+    if not is_nar_model(hp.model):
         model.postnet.identity_compat = identity_compat
     return model.eval()

@@ -327,6 +327,14 @@ NAR_MODEL_NAMES = ("fastspeech2", "lightspeech", "sqfastspeech2",
                    "sq_fastspeech2", "fastspeech2_sq")
 
 
+SQ_MODEL_NAMES = ("sqfastspeech2", "sq_fastspeech2", "fastspeech2_sq")
+
+
 def is_nar_model(name: str) -> bool:
     """Non-autoregressive model families."""
     return name.lower() in NAR_MODEL_NAMES
+
+
+def is_sq_model(name: str) -> bool:
+    """The SQ-VAE FastSpeech 2 (``SQFastSpeech2``) and its aliases."""
+    return name.lower() in SQ_MODEL_NAMES

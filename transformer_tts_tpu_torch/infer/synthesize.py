@@ -323,11 +323,14 @@ def ar_decode_graphed(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
 def synthesize_transformer_tts(
     model: TransformerTTS, text: torch.Tensor, pos_text: torch.Tensor,
     mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
-    *, max_steps: int = MAX_AR_STEPS, stop_threshold: float = 0.5,
+    *, ref_mel: Optional[torch.Tensor] = None,
+    max_steps: int = MAX_AR_STEPS, stop_threshold: float = 0.5,
     eager: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cached AR synthesis; returns (mel (B, max_steps*r, mel) fp32,
-    lengths (B,) in frames).
+    lengths (B,) in frames). A GST model takes its style from ``ref_mel``
+    (B or 1, T, mel), a normalized reference mel; one of (1, T, mel)
+    styles every row. It goes into the encoder only, before the decode.
 
     The encoder and the cross-attention K/V run once; then one
     ``decode_step`` per frame group, on static shapes, up to ``max_steps``
@@ -347,7 +350,7 @@ def synthesize_transformer_tts(
     model.eval()
     b, r, mel_dim = text.shape[0], model.reduction_rate, model.mel_dim
     src_mask = pad_mask(pos_text)
-    e_outputs, _ = model.encode(text, src_mask)
+    e_outputs, _ = model.encode(text, src_mask, ref_mel)
     cross_kvs = model.precompute_cross_kv(e_outputs)
     decode = (ar_decode if eager or text.device.type == "cpu"
               else ar_decode_graphed)

@@ -9,13 +9,21 @@ Linear head; ``encoder_type`` / ``decoder_type`` pick each stack. The
 caller gives ``max_frames``, the mel length the variance adaptor expands
 to; frames past the realized length are masked.
 
+``use_sq_vae`` adds the SQ-VAE bottleneck after the encoder (the JAX
+file's :172-184): the encoder output quantized by an ``SQEmbedding``
+codebook (models/sq_vae.py) under the top-level ``log_var_q_scalar``,
+stochastically at ``temperature`` in train mode (its ELBO loss and
+perplexity in ``sq_vae_loss``/``sq_vae_perplexity``), by argmin in eval,
+and added to the encoder output. The SQ-VAE FastSpeech 2 of
+models/fastspeech2_sq.py quantizes inside its variance adaptor instead.
+
 ``amp`` runs the forward under bf16 autocast (the JAX package's
 ``dtype=bfloat16`` with fp32 parameters). In train mode the caller's
-``generator`` seeds the kernel path's attention dropout and the scheduled
-sampling; the other dropouts draw from torch's default generators.
-Tacotron 2 decoders, speakers, SQ-VAE, hop-size embeddings, the mel-to-mel
-post model and the CTC tap raise ``NotImplementedError``: they come with
-later slices.
+``generator`` seeds the kernel path's attention dropout, the scheduled
+sampling and the SQ-VAE's Gumbel noise; the other dropouts draw from
+torch's default generators. Tacotron 2 decoders, speakers, hop-size
+embeddings, the mel-to-mel post model and the CTC tap raise
+``NotImplementedError``: they come with later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.models.encoder import (
     ConformerEncoder, Encoder)
 from transformer_tts_tpu_torch.models.postnets import PostConvNet
+from transformer_tts_tpu_torch.models.sq_vae import N_CODES, SQEmbedding
 from transformer_tts_tpu_torch.models.variance_adaptor import VarianceAdaptor
 
 
@@ -46,6 +55,8 @@ class FastSpeech2Output(NamedTuple):
     text_dur_predicted: torch.Tensor         # (B, T, D)
     attn_enc: Optional[torch.Tensor]
     attn_dec: Optional[torch.Tensor]
+    sq_vae_loss: Optional[torch.Tensor] = None
+    sq_vae_perplexity: Optional[torch.Tensor] = None
 
 
 def _stack(encoder_type: str, **kw) -> nn.Module:
@@ -75,6 +86,7 @@ class FastSpeech2(nn.Module):
                  energy_pred: bool = True, f0_stats: Optional[tuple] = None,
                  energy_stats: Optional[tuple] = None,
                  p_scheduled_sampling: float = 0.0,
+                 use_sq_vae: bool = False,
                  use_flash: bool = False, amp: bool = False):
         super().__init__()
         self.log_offset = log_offset
@@ -85,6 +97,11 @@ class FastSpeech2(nn.Module):
             ff_kernel_size=ff_conv_kernel_size_encoder,
             concat_after=concat_after_encoder, dropout=dropout,
             embedding=True, use_flash=use_flash)
+        self.codebook = None
+        if use_sq_vae:
+            self.log_var_q_scalar = nn.Parameter(
+                torch.full((1,), math.log(10.0)))
+            self.codebook = SQEmbedding(N_CODES, d_model_encoder)
         self.variance_adaptor = VarianceAdaptor(
             d_model_encoder, n_bins, f0_min, f0_max, energy_min, energy_max,
             log_offset, pitch_pred, energy_pred, dropout_variance_adaptor,
@@ -105,16 +122,28 @@ class FastSpeech2(nn.Module):
     def forward(self, text, src_mask, max_frames: int, d_target=None,
                 p_target=None, e_target=None, mel_mask=None, *,
                 collect_attn: bool = False, pitch_scale: float = 1.0,
-                duration_scale: float = 1.0,
+                duration_scale: float = 1.0, temperature=None,
                 generator: Optional[torch.Generator] = None
                 ) -> FastSpeech2Output:
         """``text`` (B, L) ids, ``src_mask`` (B, 1, L) bool; the targets
-        teacher-force durations (B, L), pitch and energy (B, T)."""
+        teacher-force durations (B, L), pitch and energy (B, T). With
+        ``use_sq_vae``, train mode takes the Gumbel-softmax
+        ``temperature``."""
+        sq_loss = sq_perplexity = None
         with torch.autocast(text.device.type, dtype=torch.bfloat16,
                             enabled=self.amp):
             e_outputs, attn_enc = self.encoder(text, src_mask,
                                                collect_attn=collect_attn,
                                                generator=generator)
+            if self.codebook is not None:
+                if self.training:
+                    z, sq_loss, sq_perplexity, _ = self.codebook(
+                        e_outputs, self.log_var_q_scalar, temperature,
+                        generator=generator)
+                else:
+                    z, _ = self.codebook.encode(e_outputs,
+                                                self.log_var_q_scalar)
+                e_outputs = z + e_outputs
             va = self.variance_adaptor(
                 e_outputs, src_mask, max_frames, d_target, p_target,
                 e_target, mel_mask, pitch_scale=pitch_scale,
@@ -132,7 +161,8 @@ class FastSpeech2(nn.Module):
             mel_pos=va.mel_pos, mel_mask=va.mel_mask,
             variance_adaptor_output=va.x,
             text_dur_predicted=va.text_dur_predicted,
-            attn_enc=attn_enc, attn_dec=attn_dec)
+            attn_enc=attn_enc, attn_dec=attn_dec, sq_vae_loss=sq_loss,
+            sq_vae_perplexity=sq_perplexity)
 
 
 def later_slice(feature: str, slice_name: str):
@@ -150,8 +180,6 @@ def _check_supported(hp: HParams) -> None:
     if hp.is_multi_speaker or hp.spk_emb_architecture or hp.accent_emb:
         later_slice("speaker and accent conditioning (spk)",
                     "other model families")
-    if hp.use_sq_vae:
-        later_slice("the SQ-VAE bottleneck (sq)", "other model families")
     if hp.use_hop:
         later_slice("hop-size embeddings (hop)", "other model families")
     if hp.architecture == "text-mel-mel" or hp.version is not None:
@@ -171,34 +199,47 @@ def _variance_stats(mean, std):
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: Linear/Conv weights uniform in
-    +-1/sqrt(fan_in) (torch's default range), embeddings N(0, 1), biases 0,
-    norm scales and ``alpha`` 1, the conformer's ``pos_bias_u/v``
-    Xavier-uniform as flax initialises them. BatchNorm running statistics
-    stay (0, 1).
+    """Random weights from ``generator``: Linear/Conv weights and the GRU's
+    uniform in +-1/sqrt(fan_in) (torch's default range), embeddings and
+    the SQ-VAE codebook N(0, 1), biases 0, norm scales and ``alpha`` 1,
+    the conformer's ``pos_bias_u/v`` and the GST tokens Xavier-uniform as
+    flax initialises them. BatchNorm running statistics stay (0, 1) and
+    ``log_var_q_scalar`` log 10.
     """
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Conv1d)):
+            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 w = module.weight
                 bound = 1.0 / math.sqrt(w[0].numel())
                 w.copy_(torch.rand(w.shape, generator=generator) * 2 * bound
                         - bound)
                 if module.bias is not None:
                     module.bias.zero_()
+            elif isinstance(module, nn.GRU):
+                for name, p in module.named_parameters():
+                    if name.startswith("bias"):
+                        p.zero_()
+                    else:
+                        bound = 1.0 / math.sqrt(p.shape[1])
+                        p.copy_(torch.rand(p.shape, generator=generator)
+                                * 2 * bound - bound)
             elif isinstance(module, nn.Embedding):
                 module.weight.copy_(torch.randn(module.weight.shape,
                                                 generator=generator))
-            elif isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
+            elif isinstance(module, (nn.LayerNorm,
+                                     nn.modules.batchnorm._BatchNorm)):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
         for name, p in model.named_parameters():
             if name.endswith("pe.alpha"):
                 p.fill_(1.0)
-            elif name.endswith(("pos_bias_u", "pos_bias_v")):
+            elif name.endswith(("pos_bias_u", "pos_bias_v",
+                                "style_token_layer.embeddings")):
                 bound = math.sqrt(6.0 / sum(p.shape))
                 p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
                         - bound)
+            elif name.endswith("codebook.embedding"):
+                p.copy_(torch.randn(p.shape, generator=generator))
 
 
 def build_fastspeech2(hp: HParams, *, device="cuda",
@@ -231,6 +272,7 @@ def build_fastspeech2(hp: HParams, *, device="cuda",
         f0_stats=_variance_stats(hp.f0_mean, hp.f0_std),
         energy_stats=_variance_stats(hp.energy_mean, hp.energy_std),
         p_scheduled_sampling=hp.p_scheduled_sampling,
+        use_sq_vae=hp.use_sq_vae,
         use_flash=hp.use_flash_attention,
         amp=hp.amp)
     init_parameters(model, torch.Generator().manual_seed(seed))

@@ -16,9 +16,13 @@ keep the grouped layout: mel (B, t, mel*r) and stop logits (B, t, r).
   in ``decode_step``, which reads no host value, so the loop captures it
   in a CUDA graph.
 
-``amp`` runs each under bf16 autocast, as FastSpeech 2 does. The
-Tacotron 2 decoder, GST, speakers and the discrete output mode raise
-``NotImplementedError`` with the other model families.
+``gst`` adds the style vector of a reference mel (models/gst.py,
+``StyleEmbedding``) to every encoder output, after the optional
+``linear``: the training target's decoder input in train mode unless a
+``ref_mel`` is given, the ``ref_mel`` otherwise; a (1, T, mel) reference
+broadcasts over the batch. ``amp`` runs each under bf16 autocast, as
+FastSpeech 2 does. The Tacotron 2 decoder, speakers and the discrete
+output mode raise ``NotImplementedError`` with the other model families.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.models.decoder import Decoder
 from transformer_tts_tpu_torch.models.fastspeech2 import (
     _stack, init_parameters, later_slice)
+from transformer_tts_tpu_torch.models.gst import StyleEmbedding
 from transformer_tts_tpu_torch.models.postnets import PostConvNet
 
 
@@ -55,7 +60,7 @@ class TransformerTTS(nn.Module):
                  concat_after_decoder: bool = False,
                  encoder_type: str = "transformer", reduction_rate: int = 2,
                  dropout: float = 0.1, dropout_prenet: float = 0.5,
-                 dropout_postnet: float = 0.5,
+                 dropout_postnet: float = 0.5, gst: bool = False,
                  use_flash: bool = False, amp: bool = False):
         super().__init__()
         self.mel_dim = mel_dim
@@ -73,6 +78,8 @@ class TransformerTTS(nn.Module):
             embedding=True, use_flash=use_flash)
         self.linear = (nn.Linear(d_model_encoder, d_model_decoder)
                        if d_model_encoder != d_model_decoder else None)
+        self.style_embedding = (StyleEmbedding(mel_dim, d_model_decoder)
+                                if gst else None)
         self.decoder = Decoder(
             mel_dim, d_model_decoder, n_layer_decoder, n_head_decoder,
             ff_conv_kernel_size_decoder, concat_after=concat_after_decoder,
@@ -97,15 +104,23 @@ class TransformerTTS(nn.Module):
         the projections' output dtype."""
         return torch.bfloat16 if self.amp else torch.float32
 
-    def encode(self, src, src_mask, *, collect_attn: bool = False,
+    def encode(self, src, src_mask, style_mel=None, *,
+               collect_attn: bool = False,
                generator: Optional[torch.Generator] = None):
-        """(e_outputs (B, L, d_model_decoder), encoder maps or None)."""
+        """(e_outputs (B, L, d_model_decoder), encoder maps or None).
+        With ``gst``, ``style_mel`` (B or 1, T, mel) gives the style
+        vector added to every output; it must be given."""
         with self._autocast(src):
             e_outputs, attn_enc = self.encoder(
                 src, src_mask, collect_attn=collect_attn,
                 generator=generator)
             if self.linear is not None:
                 e_outputs = self.linear(e_outputs)
+            if self.style_embedding is not None:
+                if style_mel is None:
+                    raise ValueError(
+                        "gst=True requires a style/reference mel")
+                e_outputs = e_outputs + self.style_embedding(style_mel)
         return e_outputs, attn_enc
 
     def precompute_cross_kv(self, e_outputs):
@@ -137,15 +152,19 @@ class TransformerTTS(nn.Module):
         with self._autocast(mel_pre):
             return self.postnet(mel_pre)
 
-    def forward(self, src, trg, src_mask, trg_mask, *,
+    def forward(self, src, trg, src_mask, trg_mask, ref_mel=None, *,
                 collect_attn: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> TransformerTTSOutput:
         """Teacher-forced forward. ``trg`` (B, t, mel) is the reduced
         decoder input (the go frame and every r-th frame), ``trg_mask``
         its (B, t, t) pad-and-causal mask; in train mode ``generator``
-        seeds the kernel path's attention dropout."""
-        e_outputs, attn_enc = self.encode(src, src_mask,
+        seeds the kernel path's attention dropout. With ``gst`` the style
+        comes from ``ref_mel``, or in train mode without one from
+        ``trg``."""
+        style_mel = (trg if self.style_embedding is not None
+                     and self.training and ref_mel is None else ref_mel)
+        e_outputs, attn_enc = self.encode(src, src_mask, style_mel,
                                           collect_attn=collect_attn,
                                           generator=generator)
         with self._autocast(src):
@@ -168,8 +187,6 @@ def check_supported(hp: HParams) -> None:
     if hp.encoder_type.lower() not in ("transformer", "conformer"):
         later_slice(f"encoder_type={hp.encoder_type!r} of the AR model",
                     "other model families")
-    if hp.gst:
-        later_slice("GST (gst) of the AR model", "other model families")
     if hp.is_multi_speaker or hp.spk_emb_architecture:
         later_slice("speaker conditioning of the AR model",
                     "other model families")
@@ -197,7 +214,7 @@ def build_transformer_tts(hp: HParams, *, device="cuda",
         concat_after_decoder=hp.concat_after_decoder,
         encoder_type=hp.encoder_type, reduction_rate=hp.reduction_rate,
         dropout=hp.dropout, dropout_prenet=hp.dropout_prenet,
-        dropout_postnet=hp.dropout_postnet,
+        dropout_postnet=hp.dropout_postnet, gst=hp.gst,
         use_flash=hp.use_flash_attention, amp=hp.amp)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device)

@@ -100,16 +100,19 @@ def relative_dot_attention(
 
 
 class MultiHeadAttention(nn.Module):
-    """Reference-compatible MHA with the flash-kernel dispatch rule."""
+    """Reference-compatible MHA with the flash-kernel dispatch rule.
+    ``q_dim`` is the query input's width when it is not ``d_model`` (the
+    GST style tokens' 128-d query; flax infers it)."""
 
     def __init__(self, heads: int, d_model: int, dropout: float = 0.1,
-                 concat_after: bool = False, use_flash: bool = False):
+                 concat_after: bool = False, use_flash: bool = False,
+                 q_dim: Optional[int] = None):
         super().__init__()
         self.heads = heads
         self.d_model = d_model
         self.concat_after = concat_after
         self.use_flash = use_flash
-        self.q_linear = nn.Linear(d_model, d_model)
+        self.q_linear = nn.Linear(q_dim or d_model, d_model)
         self.k_linear = nn.Linear(d_model, d_model)
         self.v_linear = nn.Linear(d_model, d_model)
         self.out = nn.Linear(2 * d_model if concat_after else d_model,

@@ -27,28 +27,46 @@ from torch import nn
 LN_EPS = 1e-6
 
 
+def _flax_train_norm(bn: nn.modules.batchnorm._BatchNorm,
+                     x: torch.Tensor) -> torch.Tensor:
+    """flax's train-mode BatchNorm on (B, C, ...): mean and variance in
+    fp32 over every axis but C, the variance as max(0, E[x^2] - E[x]^2)
+    (flax's fast variance, biased), and the running statistics moved by
+    ``momentum`` towards those values."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    shape = (-1,) + (1,) * (x.dim() - 2)
+    xf = x.float()
+    mean = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+        bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y.to(x.dtype)
+
+
 class FlaxBatchNorm1d(nn.BatchNorm1d):
-    """``nn.BatchNorm1d`` on (B, C, T) with flax's train-mode statistics:
-    mean and variance in fp32 over (B, T), the variance as
-    max(0, E[x^2] - E[x]^2) (flax's fast variance, biased), and the running
-    statistics moved by ``momentum`` towards those values. Eval mode is
-    torch's, with the running statistics."""
+    """``nn.BatchNorm1d`` on (B, C, T) with flax's train-mode statistics
+    (``_flax_train_norm``, over (B, T)). Eval mode is torch's, with the
+    running statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(
-                self.momentum * mean)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                self.momentum * var)
-            self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None]) * mul[:, None] + self.bias[:, None]
-        return y.to(x.dtype)
+        return _flax_train_norm(self, x)
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` on (B, C, H, W) with flax's train-mode
+    statistics (``_flax_train_norm``, over (B, H, W)); eval mode is
+    torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        return _flax_train_norm(self, x)
 
 
 def batch_norm(channels: int) -> nn.BatchNorm1d:

@@ -1,6 +1,7 @@
 """Port checkpoints (the port of transformer_tts_tpu/train/checkpoint.py:
 ``list_epochs``, ``should_save`` :36-62, ``save_checkpoint`` and
-``restore_checkpoint`` :87-155, in torch's format).
+``restore_checkpoint`` :87-155, ``prune_checkpoints`` and
+``average_checkpoints`` :252-316, in torch's format).
 
 ``save_checkpoint(model, dir)`` writes ``dir/model.pt`` (a ``torch.save``
 of the ``state_dict``, on the CPU) and ``load_checkpoint(model, dir)``
@@ -13,15 +14,24 @@ generator's state and, when ``with_optimizer``, the optimizer's state.
 ``restore_train_checkpoint`` resumes from one; an epoch saved without the
 optimizer keeps the fresh one, as in the JAX package.
 ``resolve_checkpoint`` picks the directory a synthesis ``--load_name``
-(with ``--epoch``) names, as the JAX package's ``_resolve_path``. Pruning and
-averaging come with ``cli/average_checkpoints``, in the slice
-"parallelism and remaining tools".
+(with ``--epoch``) names, as the JAX package's ``_resolve_path``.
+
+``average_checkpoints`` averages the saved ``state_dict``s of a range of
+epochs, as the reference's average_checkpoints.py averages every
+``state_dict`` key: each floating tensor (parameters and BatchNorm running
+statistics) as the float64 mean, cast back to its dtype, each integer
+buffer (``num_batches_tracked``) taken from the newest epoch. It writes
+``save_dir/average_epoch{a}-epoch{b}/`` with ``model.pt`` and an
+``hparams.py``, a synthesis ``--load_name`` (cli/average_checkpoints.py).
+``prune_checkpoints`` deletes the epochs the reference's retention rule
+would not have written, as the JAX package's.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
 from typing import List, Optional, Tuple
 
 import torch
@@ -116,3 +126,55 @@ def restore_train_checkpoint(save_dir: str, state,
     if "optimizer" in payload:
         state.optimizer.load_state_dict(payload["optimizer"])
     return state, payload["epoch"]
+
+
+def prune_checkpoints(save_dir: str, current_epoch: int, max_epoch: int,
+                      save_per_epoch: int) -> None:
+    """Delete every saved epoch but ``current_epoch``, the two before it
+    and those ``should_save`` keeps."""
+    for e in list_epochs(save_dir):
+        if e == current_epoch:
+            continue
+        if not (should_save(e, max_epoch, save_per_epoch)
+                or e > current_epoch - 2):
+            shutil.rmtree(epoch_dir(save_dir, e), ignore_errors=True)
+
+
+def average_checkpoints(save_dir: str, start_epoch: int, end_epoch: int, *,
+                        hp_file: Optional[str] = None):
+    """Average the ``state_dict``s of the saved epochs in [start_epoch,
+    end_epoch] into ``save_dir/average_epoch{start}-epoch{end}/``: its
+    ``model.pt`` and a copy of ``hp_file`` (default:
+    the newest epoch's ``hparams.py``, else ``save_dir``'s) as
+    ``hparams.py``. Returns (the averaged ``state_dict``, the directory).
+    """
+    epochs = [e for e in list_epochs(save_dir)
+              if start_epoch <= e <= end_epoch]
+    if not epochs:
+        raise FileNotFoundError(
+            f"no checkpoints in [{start_epoch}, {end_epoch}] under "
+            f"{save_dir}")
+    sums, newest = {}, None
+    for e in epochs:
+        newest = torch.load(os.path.join(epoch_dir(save_dir, e),
+                                         CHECKPOINT_NAME),
+                            map_location="cpu", weights_only=True)
+        for key, value in newest.items():
+            if value.is_floating_point():
+                sums[key] = sums.get(key, 0.0) + value.double()
+    avg = {key: (sums[key] / len(epochs)).to(value.dtype)
+           if value.is_floating_point() else value.clone()
+           for key, value in newest.items()}
+    out_path = os.path.join(os.path.abspath(save_dir),
+                            f"average_epoch{start_epoch}-epoch{end_epoch}")
+    if os.path.exists(out_path):
+        shutil.rmtree(out_path)
+    os.makedirs(out_path)
+    torch.save(avg, os.path.join(out_path, CHECKPOINT_NAME))
+    if hp_file is None:
+        hp_file = os.path.join(epoch_dir(save_dir, epochs[-1]), "hparams.py")
+        if not os.path.exists(hp_file):
+            hp_file = os.path.join(save_dir, "hparams.py")
+    if os.path.exists(hp_file):
+        shutil.copyfile(hp_file, os.path.join(out_path, "hparams.py"))
+    return avg, out_path

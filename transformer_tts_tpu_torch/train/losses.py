@@ -1,17 +1,20 @@
 """FastSpeech 2 and AR Transformer-TTS losses (the port of
 transformer_tts_tpu/train/losses.py: ``l1`` :24-31, ``channel_wise_l1``
 :34-40, ``duration_loss`` :43-48, ``stop_token_loss`` :51-68,
-``fastspeech2_loss`` :132-261 with the flagship's options and
-``transformer_tts_loss`` :264-281).
+``mse_loss_arelbo`` :89-93, ``fastspeech2_loss`` :132-261 with the
+flagship's options and the SQ-VAE's, and ``transformer_tts_loss``
+:264-281).
 
 L1 on mel_pre and mel_post, L1 of the predicted log durations against
 log(d + log_offset), and L1 on f0 and energy, all in fp32. ``masked=False``
 (the default, the reference's plain ``nn.L1Loss``) averages over padded
 frames too; ``f0_stats``/``energy_stats`` standardise those targets and
-average them over valid frames. The SSIM loss, the discrete
-(``output_type='softmax'``) mode and the SQ-VAE come with the other model
-families. The AR loss is L1 on the pre and post mel and the stop token's
-BCE with a positive-class weight, in the stable ``logaddexp`` form.
+average them over valid frames. ``use_sq_vae`` takes the AR-ELBO MSE for
+mel_pre and adds the output's ``sq_vae_loss`` (logging it and the
+perplexity). The SSIM loss and the discrete (``output_type='softmax'``)
+mode come with the other model families. The AR loss is L1 on the pre and
+post mel and the stop token's BCE with a positive-class weight, in the
+stable ``logaddexp`` form.
 """
 
 from __future__ import annotations
@@ -47,6 +50,15 @@ def duration_loss(log_d_pred: torch.Tensor, d_target: torch.Tensor,
                   log_offset: float = 1.0) -> torch.Tensor:
     """L1(log_d_pred, log(d_target + log_offset))."""
     return l1(log_d_pred, torch.log(d_target.float() + log_offset), mask)
+
+
+def mse_loss_arelbo(pred: torch.Tensor,
+                    target: torch.Tensor) -> torch.Tensor:
+    """The AR-ELBO surrogate 0.5 * n * log(mean((pred - target)^2)), n the
+    elements per batch row, in fp32."""
+    n = target.numel() // target.shape[0]
+    return 0.5 * n * torch.log(torch.mean(
+        (pred.float() - target.float()) ** 2))
 
 
 def stop_token_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -111,8 +123,6 @@ def fastspeech2_loss(out, mel: torch.Tensor, d_target: torch.Tensor,
     if output_type == "softmax":
         later_slice("the discrete output mode (output_type='softmax')",
                     "other model families")
-    if use_sq_vae:
-        later_slice("the SQ-VAE loss (use_sq_vae)", "other model families")
     use_mask = masked and mel_mask is not None
     fmask = mel_mask[:, 0, :, None] if use_mask else None
     vmask = mel_mask[:, 0, :] if use_mask else None
@@ -127,7 +137,9 @@ def fastspeech2_loss(out, mel: torch.Tensor, d_target: torch.Tensor,
             return channel_wise_l1(pred, mel, cw)
         return l1(pred, mel, fmask)
 
-    logs = {"loss_frame_before": mel_l1(out.mel_pre)}
+    logs = {"loss_frame_before": (
+        mse_loss_arelbo(out.mel_pre, mel) if use_sq_vae and not channel_wise
+        else mel_l1(out.mel_pre))}
     total = logs["loss_frame_before"]
     if out.mel_post is not None:
         logs["loss_frame_after"] = mel_l1(out.mel_post)
@@ -141,5 +153,9 @@ def fastspeech2_loss(out, mel: torch.Tensor, d_target: torch.Tensor,
     if out.energy is not None and energy is not None:
         logs["loss_energy"] = l1(out.energy, energy, energy_vmask)
         total = total + logs["loss_energy"]
+    if out.sq_vae_loss is not None:
+        logs["sq_vae_loss"] = out.sq_vae_loss
+        logs["sq_vae_perplexity"] = out.sq_vae_perplexity
+        total = total + out.sq_vae_loss
     logs["loss_total"] = total
     return total, logs

@@ -1,8 +1,11 @@
-"""Train states and train steps of FastSpeech 2 and the AR Transformer-TTS
-(the port of transformer_tts_tpu/train/trainer.py: ``init_fastspeech2_state``
-:122-162, ``make_fastspeech2_train_step`` :186-260,
-``init_transformer_state`` :294-329, ``_guided_attention_loss`` :332-354
-and ``make_transformer_train_step`` :357-428).
+"""Train states and train steps of FastSpeech 2, the AR Transformer-TTS
+and the SQ-VAE FastSpeech 2 (the port of transformer_tts_tpu/train/
+trainer.py: ``init_fastspeech2_state`` :122-162,
+``make_fastspeech2_train_step`` :186-260, ``init_transformer_state``
+:294-329, ``_guided_attention_loss`` :332-354,
+``make_transformer_train_step`` :357-428, ``init_sq_fastspeech2_state``
+and ``make_sq_fastspeech2_train_step`` :435-558; its
+``build_sq_fastspeech2`` is in models/fastspeech2_sq.py).
 
 The step: forward in train mode (bf16 autocast when ``hp.amp``, with no
 GradScaler, as the JAX package runs bf16 without loss scaling) -> the
@@ -24,11 +27,23 @@ predicts each next group of r frames against ``mel[:, r:]`` and
 ``stop_token[:, r:]``. Its masked self-attention takes K3 (the kernel
 path needs T_dec >= ``FLASH_MIN_KEY_LEN``);
 ``guided_attention_weight > 0`` asks for the attention maps, which puts
-every attention on the masked path, as in the JAX package.
+every attention on the masked path, as in the JAX package. With ``gst``
+the style comes from the same decoder input; the reference encoder's
+BatchNorm statistics move in the step, as flax's ``batch_stats`` do.
+
+The SQ-VAE steps (``make_sq_fastspeech2_train_step``, and
+``make_fastspeech2_train_step`` with ``use_sq_vae``) anneal the
+Gumbel-softmax temperature as exp(-1e-5 * step), ``step`` the optimizer's
+step count before the update, and draw the noise on the model's device
+(models/sq_vae.py). The SQ model learns durations without targets: its
+step drops the alignment and takes mean_b |sum_l exp(log_d) - mel_len|
+over valid phones as the duration loss, the AR-ELBO MSE on mel_pre, L1 on
+mel_post, f0 and energy, and the SQ-VAE loss.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -38,17 +53,20 @@ from torch import nn
 from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.models.fastspeech2 import (
     _variance_stats, build_fastspeech2, later_slice)
+from transformer_tts_tpu_torch.models.fastspeech2_sq import (
+    build_sq_fastspeech2)
 from transformer_tts_tpu_torch.models.transformer_tts import (
     build_transformer_tts, check_supported as check_ar_supported)
 from transformer_tts_tpu_torch.ops.masks import create_masks
 from transformer_tts_tpu_torch.train.losses import (
-    fastspeech2_loss, transformer_tts_loss)
+    fastspeech2_loss, l1, mse_loss_arelbo, transformer_tts_loss)
 from transformer_tts_tpu_torch.train.schedule import (
     Optimizer, apply_reference_init, build_optimizer)
 
 FS2_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "alignment", "f0",
                   "energy")
 AR_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "stop_token")
+SQ_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "f0", "energy")
 
 
 class TrainState:
@@ -96,6 +114,17 @@ def init_transformer_state(hp: HParams, *, device="cuda") -> TrainState:
     return _init_state(build_transformer_tts, hp, device)
 
 
+def init_sq_fastspeech2_state(hp: HParams, *, device="cuda") -> TrainState:
+    """The SQ-VAE FastSpeech 2 ``TrainState``, as
+    ``init_fastspeech2_state``."""
+    return _init_state(build_sq_fastspeech2, hp, device)
+
+
+def sq_temperature(step: int) -> float:
+    """The Gumbel-softmax temperature at optimizer step ``step``."""
+    return math.exp(-1e-5 * step)
+
+
 def batch_to(batch: Dict, device, keys) -> Dict[str, torch.Tensor]:
     """The step's arrays (``keys``) of a collated batch, as tensors on
     ``device``. Host arrays bound for the card go through pinned memory,
@@ -129,6 +158,8 @@ def make_fastspeech2_train_step(hp: HParams, *, device="cuda"):
         model = state.model.train()
         out = model(b["text"], src_mask, b["mel"].shape[1], b["alignment"],
                     b.get("f0"), b.get("energy"), mel_mask,
+                    temperature=(sq_temperature(state.step)
+                                 if hp.use_sq_vae else None),
                     generator=state.generator)
         total, logs = fastspeech2_loss(
             out, b["mel"], b["alignment"], b.get("f0"), b.get("energy"),
@@ -208,6 +239,46 @@ def make_transformer_train_step(hp: HParams, *, device="cuda"):
             logs["loss_guided_attention"] = ga
             total = total + ga_w * ga
             logs["loss_total"] = total
+        return _update(state, total, logs)
+
+    return step_fn
+
+
+def make_sq_fastspeech2_train_step(hp: HParams, *, device="cuda"):
+    """``step_fn(state, batch) -> (state, logs)`` of the SQ-VAE FastSpeech
+    2 for collated batches (text, pos_text, mel, pos_mel, f0, energy; an
+    alignment is ignored); the arrays go to ``device``."""
+    _check_supported(hp)
+
+    def step_fn(state: TrainState, batch: Dict):
+        b = batch_to(batch, device, SQ_BATCH_KEYS)
+        src_mask, mel_mask = create_masks(b["pos_text"], b["pos_mel"])
+        model = state.model.train()
+        mel = b["mel"]
+        out = model(b["text"], src_mask, mel.shape[1], None, b.get("f0"),
+                    b.get("energy"), mel_mask,
+                    temperature=sq_temperature(state.step),
+                    generator=state.generator)
+        logs = {"loss_frame_before": mse_loss_arelbo(out.mel_pre, mel)}
+        total = logs["loss_frame_before"]
+        if out.mel_post is not None:
+            logs["loss_frame_after"] = l1(out.mel_post, mel)
+            total = total + logs["loss_frame_after"]
+        pred_frames = (torch.exp(out.log_duration.float())
+                       * src_mask[:, 0, :]).sum(1)
+        mel_lengths = mel_mask[:, 0, :].sum(1).float()
+        logs["loss_duration"] = (pred_frames - mel_lengths).abs().mean()
+        total = total + logs["loss_duration"]
+        if out.pitch is not None and b.get("f0") is not None:
+            logs["loss_f0"] = l1(out.pitch, b["f0"])
+            total = total + logs["loss_f0"]
+        if out.energy is not None and b.get("energy") is not None:
+            logs["loss_energy"] = l1(out.energy, b["energy"])
+            total = total + logs["loss_energy"]
+        total = total + out.sq_vae_loss
+        logs["sq_vae_loss"] = out.sq_vae_loss
+        logs["sq_vae_perplexity"] = out.sq_vae_perplexity
+        logs["loss_total"] = total
         return _update(state, total, logs)
 
     return step_fn
