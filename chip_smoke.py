@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FastSpeech 2 (transformer and conformer), AR
 Transformer-TTS (with and without GST) and SQ-VAE FastSpeech 2 synthesis
-and training, checkpoint averaging, its features and its vocoder on one
-CUDA card.
+and training, checkpoint averaging, its features, its vocoder and its
+serving layer on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -223,8 +223,44 @@ and each printing its wall time:
        the float64 mean of its epochs' state_dicts; then
        cli/synthesize.py on the transformer flagship's average.
 
-It then prints the phases' wall times, the kernels line (JSON), the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+17. serving (infer/engine.py, infer/server.py, infer/streaming.py,
+   infer/quantize.py, cli/serve.py), run after 16 and before 7, random
+   weights from seed 0 at the flagships' full width, fatal on any failure:
+   (a) the transformer FastSpeech 2's TTSEngine (bf16 amp, batch 8, 8
+       frames per phone, text buckets 32/64/128, mel budgets
+       256/512/1024): warmup seconds per bucket; per bucket one call of 8
+       requests, counted from 0 (6 K1-90, no other kernel), each mel bit
+       for bit synthesize_fastspeech2 on the same padded tensors; ms per
+       call and audio-seconds per second;
+   (b) TTSServer on 127.0.0.1, port 0, batch_window_ms 5: 64 /synthesize
+       requests from 16 client threads (20-120 phones, ids 1-151, seed
+       0), first on an fp32 engine (amp off, TF32 off) whose every
+       response's durations and mel_frames equal the text's solo call at
+       the bucket its batch padded it to, mel within 1e-4 of max|ref|,
+       then on (a)'s engine: latency p50/p95/max, requests/s, /metrics;
+       then max_queue 4 under 32 simultaneous requests while the engine is
+       busy (its lock held): some 503, no other error;
+   (c) streams with HiFi-GAN V1 (fp32, TF32 off) on fp32 engines of batch
+       1 at bucket 64: FastSpeech 2 and the AR flagship (segments of 32
+       steps), time to first audio and total, the pcm within 1e-4 of
+       max|audio| of the one-shot audio; two AR streams advanced in turn
+       with server batch requests at the same graph key between their
+       segments, each equal to its one-shot audio; an AR stream that stops
+       inside a segment;
+   (d) int8: (a)'s engine with quantize="int8": max|dmel| / max|mel| and
+       mean|dmel| / mean|mel| at the bf16 engine's durations (beside the
+       fp32 engine's), requests with a changed duration, ms per call, card
+       weight bytes, each call's peak memory; one AR int8 call, its graph's
+       bf16 weight copies equal to the dequantized parameters;
+   (e) one conformer engine call (6 K4-90, no other kernel), one GST call
+       with a reference mel and the refusal without it, the AR engine's
+       warmup (a graph capture per bucket) and a batch call (no kernel);
+   (f) cli/serve.py --port 0 as a subprocess: a POST, a Griffin-Lim wav
+       request, /metrics, then SIGINT and exit 0 within 10 s.
+
+It then prints the phases' wall times, the engine calls' launch counts,
+the kernels line (JSON), the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3591,8 +3627,9 @@ def run_cli(module: str, *args) -> str:
 
 def phase_vocoder_clis(gen):
     """prepare_data on WAVs written here, train_vocoder for 3 steps with a
-    save, then synthesize --vocoder and --wav on the transformer
-    flagship's checkpoint of phase 4(c), all on the card; every WAV's
+    save and synthesize --wav on the transformer flagship's checkpoint of
+    phase 4(c), the three at once, then synthesize --vocoder on that
+    checkpoint with train_vocoder's export, all on the card; every WAV's
     length and values checked. Then load_reference_checkpoint of a
     ``module.``-prefixed file of that checkpoint."""
     from transformer_tts_tpu_torch.compat.torch_import import (
@@ -3610,8 +3647,29 @@ def phase_vocoder_clis(gen):
     with open(wav_script, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     feats = os.path.join(work, "features")
-    run_cli("prepare_data", "--wav_script", wav_script, "--out_dir", feats,
-            "--device", DEVICE)
+    voc_dir = os.path.join(work, "train")
+    hp_file = os.path.join(work, "hparams.py")
+    with open(hp_file, "w") as fh:
+        for key, value in dict(FLAGSHIP, save_dir=voc_dir).items():
+            fh.write(f"{key} = {value!r}\n")
+    model_dir = os.path.join(WORK, "transformer", "model")
+    cli = "transformer_tts_tpu_torch.cli."
+    # three CLIs that need none of the others' output, at once
+    outs = run_clis({
+        "cli.prepare_data": [
+            cli + "prepare_data", "--wav_script", wav_script, "--out_dir",
+            feats, "--device", DEVICE],
+        "cli.train_vocoder": [
+            cli + "train_vocoder", "--hp_file", hp_file, "--wav_script",
+            wav_script, "--max_steps", "3", "--save_every", "3",
+            "--batch_size", "4", "--device", DEVICE],
+        "cli.synthesize --wav": [
+            cli + "synthesize", "--load_name", model_dir, "--save",
+            os.path.join(work, "griffin_lim"), "--max_frames", "2048",
+            "--device", DEVICE, "--wav"]})
+    for name, out in outs.items():
+        print(f"{name}: exit 0; "
+              + " | ".join(out.strip().splitlines()[-3:]))
     for i, seconds in enumerate(CLI_WAVS):
         frames = int(seconds * SAMPLE_RATE) // 256 + 1
         arrays = [np.load(os.path.join(feats, f"utt{i}{s}.npy"))
@@ -3624,34 +3682,24 @@ def phase_vocoder_clis(gen):
                  "variance_stats.json"):
         check(os.path.exists(os.path.join(feats, name)),
               f"prepare_data wrote no {name}")
-
-    voc_dir = os.path.join(work, "train")
-    hp_file = os.path.join(work, "hparams.py")
-    with open(hp_file, "w") as fh:
-        for key, value in dict(FLAGSHIP, save_dir=voc_dir).items():
-            fh.write(f"{key} = {value!r}\n")
-    run_cli("train_vocoder", "--hp_file", hp_file, "--wav_script",
-            wav_script, "--max_steps", 3, "--save_every", 3,
-            "--batch_size", 4, "--device", DEVICE)
     export = os.path.join(voc_dir, "generator")
     check(os.path.exists(os.path.join(export, "generator.pt"))
           and os.path.exists(os.path.join(voc_dir, "vocoder_3",
                                           "train_state.pt")),
           "train_vocoder wrote no checkpoint or export")
-
-    model_dir = os.path.join(WORK, "transformer", "model")
-    for flags, name, short in ((["--vocoder", export], "vocoded", 0),
+    run_cli("synthesize", "--load_name", model_dir, "--save",
+            os.path.join(work, "vocoded"), "--max_frames", 2048, "--device",
+            DEVICE, "--vocoder", export)
+    for flags, name, short in ((["--vocoder"], "vocoded", 0),
                                (["--wav"], "griffin_lim", 1)):
         out_dir = os.path.join(work, name)
-        run_cli("synthesize", "--load_name", model_dir, "--save", out_dir,
-                "--max_frames", 2048, "--device", DEVICE, *flags)
         for i in range(3):
             n = np.load(os.path.join(out_dir, f"{i}.npy")).shape[0]
             audio, rate = read_wav(os.path.join(out_dir, f"{i}.wav"))
             check(rate == SAMPLE_RATE and audio.shape == ((n - short) * 256,)
                   and bool(np.isfinite(audio).all()),
                   f"synthesize {name}: wav {i} {audio.shape} for {n} frames")
-        print(f"synthesize {' '.join(flags[:1])}: 3 WAVs of frames x 256"
+        print(f"synthesize {flags[0]}: 3 WAVs of frames x 256"
               f"{' - 256' if short else ''} samples written and checked")
 
     hp = load_hparams(os.path.join(model_dir, "hparams.py"))
@@ -3666,6 +3714,656 @@ def phase_vocoder_clis(gen):
         "load_reference_checkpoint: the weights differ")
     print(f"load_reference_checkpoint: {len(state)} tensors of a "
           f"module.-prefixed file loaded on the card bit for bit")
+
+
+# ---- phase 17: serving ------------------------------------------------------
+
+SERVE_BUCKETS = (32, 64, 128)    # text buckets; mel budgets 256, 512, 1024
+SERVE = dict(batch_size=8, frames_per_phone=8, text_buckets=SERVE_BUCKETS)
+SERVE_REPS = 10
+SERVE_LOAD = (64, 16, (20, 120))  # requests, client threads, phones
+OVERLOAD = (32, 4)                # simultaneous requests, max_queue
+STREAM_BUCKET = 64
+STREAM_SEGMENT = 32               # AR decode steps per stream segment
+SERVE_TOL = 1e-4                  # of max|ref|: fp32 serving against solo,
+                                  # streamed against one-shot audio
+
+
+def serving_dir(name: str, net=None, **overrides) -> str:
+    """``WORK/serving/name`` with the port checkpoint of ``net`` (when
+    given) and an ``hparams.py`` of FLAGSHIP with ``overrides``."""
+    from transformer_tts_tpu_torch.train.checkpoint import save_checkpoint
+    path = os.path.join(WORK, "serving", name)
+    os.makedirs(path, exist_ok=True)
+    if net is not None:
+        save_checkpoint(net, path)
+    with open(os.path.join(path, "hparams.py"), "w") as fh:
+        for key, value in dict(FLAGSHIP, **overrides).items():
+            fh.write(f"{key} = {value!r}\n")
+    return path
+
+
+def serve_texts(rs, n: int, lo: int, hi: int, vocab: int) -> list:
+    """``n`` token-id lists, lengths uniform in [lo, hi], ids in [1,
+    vocab)."""
+    return [rs.randint(1, vocab, rs.randint(lo, hi + 1)).tolist()
+            for _ in range(n)]
+
+
+def engine_call_launches(engine, texts) -> tuple:
+    """(results, launch counts) of one ``engine.synthesize`` call, every
+    count set to 0 just before it and read just after."""
+    set_counts({})
+    results = engine.synthesize(texts)
+    torch.cuda.synchronize()
+    return results, read_counts()
+
+
+def check_only(launches: dict, kid, n: int, what: str):
+    check(launches.get(kid, 0) == n
+          and all(v == 0 for k, v in launches.items() if k != kid),
+          f"{what}: launches {json.dumps(launches)}, expected {n} of {kid} "
+          "and none of the others")
+
+
+def audio_rate(results, ms: float) -> float:
+    """Seconds of audio (frames x 256/22050) per second of wall."""
+    frames = sum(r["mel"].shape[0] for r in results)
+    return frames * HOP_SECONDS / (ms / 1e3)
+
+
+def phase_fastspeech2_engine(fs2_dir, texts_by_bucket) -> tuple:
+    """17(a): the transformer flagship's engine (bf16 amp, batch 8):
+    warmup per bucket; per bucket one call of 8 requests, 6 K1-90
+    launches and no other kernel, its mel bit for bit
+    synthesize_fastspeech2 on the same padded tensors; ms per call and
+    audio-seconds per second."""
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_fastspeech2)
+    engine = TTSEngine(fs2_dir, **SERVE, device=DEVICE)
+    for bucket, sec in engine.warmup().items():
+        print(f"17(a) FastSpeech 2 engine warmup bucket {bucket} (max_frames "
+              f"{engine.max_frames_for(bucket)}): {sec:.3f} s")
+    per_call = []
+    for bucket, texts in texts_by_bucket.items():
+        results, launches = engine_call_launches(engine, texts)
+        per_call.append(launches["K1-90"])
+        check_only(launches, "K1-90", engine.hp.n_layer_decoder,
+                   f"17(a) bucket {bucket}")
+        order = sorted(range(len(texts)), key=lambda i: len(texts[i]))
+        text, pos = engine._padded([texts[i] for i in order], len(texts),
+                                   bucket)
+        mel, mel_len, dur = synthesize_fastspeech2(
+            engine.model, text, pos, engine.max_frames_for(bucket),
+            engine._mean, engine._var)
+        mel, mel_len = mel.float().cpu().numpy(), mel_len.cpu().numpy()
+        dur = dur.cpu().numpy()
+        for row, i in enumerate(order):
+            n = int(mel_len[row])
+            check(np.array_equal(results[i]["mel"], mel[row, :n])
+                  and np.array_equal(results[i]["durations"],
+                                     dur[row, :len(texts[i])]),
+                  f"17(a) bucket {bucket}: request {i} differs from "
+                  "synthesize_fastspeech2 on the same padded tensors")
+        ms, _ = wall_ms(lambda: engine.synthesize(texts), SERVE_REPS,
+                        warmup=2)
+        frames = [r["mel"].shape[0] for r in results]
+        print(f"17(a) FastSpeech 2 engine bucket {bucket}, 8 requests of "
+              f"{min(len(t) for t in texts)}-{max(len(t) for t in texts)} "
+              f"phones, {sum(frames)} frames: {ms:.3f} ms/call (median of "
+              f"{SERVE_REPS}, host clock, results on the host), "
+              f"{audio_rate(results, ms):.1f} audio-s/s; launches "
+              f"{launches['K1-90']} K1-90, none other; mel bit for bit "
+              "synthesize_fastspeech2")
+    return engine, per_call
+
+
+def post_json(port: int, path: str, body=None, method="POST") -> tuple:
+    from http.client import HTTPConnection
+    conn = HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def load_run(engine, texts, threads: int, **server_kw) -> dict:
+    """``texts`` as single /synthesize requests from ``threads`` client
+    threads (each sends its share in turn) to a TTSServer on ``engine``:
+    statuses, responses, client latencies (ms), wall seconds, /metrics."""
+    import threading
+    from transformer_tts_tpu_torch.infer.server import TTSServer
+    server = TTSServer(engine, host="127.0.0.1", port=0, **server_kw)
+    server.start()
+    out = {"status": [None] * len(texts), "body": [None] * len(texts),
+           "ms": [None] * len(texts)}
+
+    def client(k):
+        for i in range(k, len(texts), threads):
+            t0 = time.perf_counter()
+            status, body = post_json(server.port, "/synthesize",
+                                     {"text_ids": texts[i]})
+            out["ms"][i] = (time.perf_counter() - t0) * 1e3
+            out["status"][i], out["body"][i] = status, body
+
+    workers = [threading.Thread(target=client, args=(k,))
+               for k in range(threads)]
+    try:
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        out["wall_s"] = time.perf_counter() - t0
+        check(not any(w.is_alive() for w in workers), "a client hung")
+        out["metrics"] = json.loads(post_json(server.port, "/metrics",
+                                              method="GET")[1])
+    finally:
+        server.stop()
+    return out
+
+
+def print_load(label: str, run: dict):
+    ms = np.asarray(run["ms"])
+    print(f"17(b) {label}: {len(ms)} requests from {SERVE_LOAD[1]} threads, "
+          f"batch_window_ms 5: latency p50 {np.percentile(ms, 50):.1f} ms, "
+          f"p95 {np.percentile(ms, 95):.1f}, max {ms.max():.1f}; "
+          f"{len(ms) / run['wall_s']:.2f} requests/s; /metrics "
+          f"{json.dumps(run['metrics'])}")
+
+
+def solo_at(engine, text, bucket: int) -> tuple:
+    """(mel, durations) of ``text`` alone, padded as the engine pads a
+    batch (``batch_size`` rows) to ``bucket``."""
+    with engine.lock:
+        mel, mel_len, dur = engine._run_padded(
+            *engine._padded([text], engine.batch_size, bucket))
+        n = int(mel_len[0])
+        return (mel[0, :n].float().cpu().numpy(),
+                dur[0, :len(text)].cpu().numpy())
+
+
+def phase_server_load(engine, fs2_dir, fp32_hp):
+    """17(b): the load of SERVE_LOAD through TTSServer, first on an fp32
+    engine (each response against its text's solo call at the bucket its
+    batch used), then on the bf16 engine of (a) (the numbers); then
+    overload."""
+    import threading
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    from transformer_tts_tpu_torch.infer.server import (
+        TTSServer, _result_to_json)
+    n, threads, (lo, hi) = SERVE_LOAD
+    texts = serve_texts(np.random.RandomState(0), n, lo, hi,
+                        engine.hp.vocab_size)
+    fp32 = TTSEngine(fs2_dir, fp32_hp, **SERVE, device=DEVICE)
+    fp32.warmup()
+    run = load_run(fp32, texts, threads, batch_window_ms=5.0)
+    check(run["status"] == [200] * n, f"17(b) fp32 statuses {run['status']}")
+    worst, own = 0.0, 0
+    for text, body in zip(texts, run["body"]):
+        resp = json.loads(body)
+        # a batch pads to the bucket of its longest text, and the model's
+        # SAME-padded convolutions read the padding: the reference is the
+        # solo call at that bucket, the text's own or a larger one
+        errs = {}
+        for bucket in [b for b in fp32.text_buckets
+                       if b >= fp32._bucket_of(len(text))]:
+            mel, dur = solo_at(fp32, text, bucket)
+            if (resp["mel_frames"] == mel.shape[0]
+                    and resp["durations"] == dur.tolist()):
+                got = np.asarray(resp["mel"], np.float32).reshape(mel.shape)
+                errs[bucket] = float(np.abs(got - mel).max(initial=0.0)
+                                     / max(np.abs(mel).max(initial=0.0),
+                                           1e-30))
+        check(bool(errs), f"17(b) a served response ({len(text)} phones, "
+                          f"{resp['mel_frames']} frames) matches no solo "
+                          "call")
+        bucket = min(errs, key=errs.get)
+        own += bucket == fp32._bucket_of(len(text))
+        worst = max(worst, errs[bucket])
+    check(worst <= SERVE_TOL, f"17(b) served mel off its solo call by "
+                              f"{worst:.3g} of max|ref|")
+    print_load("fp32 engine (amp off, TF32 off)", run)
+    print(f"17(b) fp32: every response's durations and mel_frames equal its "
+          f"text's solo call, {own} of {n} at the text's own bucket and the "
+          f"rest at the larger bucket of the batch that served it; mel "
+          f"within {worst:.3g} of max|ref| (limit {SERVE_TOL})")
+    del fp32
+    run = load_run(engine, texts, threads, batch_window_ms=5.0)
+    check(run["status"] == [200] * n, f"17(b) bf16 statuses {run['status']}")
+    print_load("bf16 engine of (a)", run)
+    results = engine.synthesize(texts[:8])
+    ms, _ = wall_ms(lambda: [json.dumps(_result_to_json(r))
+                             for r in results], 3)
+    print(f"17(b) the responses' JSON on the host: {ms / 8:.2f} ms per "
+          f"response ({np.mean([r['mel'].shape[0] for r in results]):.0f} "
+          "frames of 80 floats on average; median of 3, one thread)")
+
+    count, max_queue = OVERLOAD
+    server = TTSServer(engine, host="127.0.0.1", port=0,
+                       batch_window_ms=5.0, max_queue=max_queue)
+    server.start()
+    statuses, barrier = [], threading.Barrier(count)
+    long_text = serve_texts(np.random.RandomState(1), 1, hi, hi,
+                            engine.hp.vocab_size)[0]
+
+    def client():
+        barrier.wait()
+        statuses.append(post_json(server.port, "/synthesize",
+                                  {"text_ids": long_text})[0])
+
+    workers = [threading.Thread(target=client) for _ in range(count)]
+    try:
+        # the engine busy, as behind a long request: the batcher holds at
+        # most one batch, the queue max_queue, and the rest must get 503
+        with engine.lock:
+            for w in workers:
+                w.start()
+            deadline = time.perf_counter() + 120
+            while (len(statuses) < count - max_queue - SERVE["batch_size"]
+                   and time.perf_counter() < deadline):
+                time.sleep(0.01)
+        for w in workers:
+            w.join(timeout=600)
+    finally:
+        server.stop()
+    check(len(statuses) == count and set(statuses) <= {200, 503}
+          and 503 in statuses and 200 in statuses,
+          f"17(b) overload statuses {statuses}")
+    print(f"17(b) overload, max_queue {max_queue}, {count} simultaneous "
+          f"requests while the engine is busy: {statuses.count(200)} x 200, "
+          f"{statuses.count(503)} x 503, no other status")
+
+
+def stream_timed(engine, text, **kw) -> tuple:
+    """(events, ms to the first audio event, ms to the end) of one
+    stream."""
+    t0 = time.perf_counter()
+    events, first = [], None
+    for ev in engine.synthesize_streaming(text, **kw):
+        if first is None and ev["type"] == "audio":
+            first = (time.perf_counter() - t0) * 1e3
+        events.append(ev)
+    return events, first, (time.perf_counter() - t0) * 1e3
+
+
+def pcm_error(events, ref: dict, what: str) -> float:
+    """max|streamed pcm - one-shot audio| over max|audio|, checked."""
+    check(events[-1]["type"] == "end"
+          and events[-1]["mel_frames"] == ref["mel"].shape[0],
+          f"{what}: end {events[-1]}, one-shot {ref['mel'].shape[0]} frames")
+    pcm = np.concatenate([e["pcm"] for e in events if e["type"] == "audio"])
+    check(pcm.shape == ref["audio"].shape, f"{what}: {pcm.shape} samples, "
+                                           f"one-shot {ref['audio'].shape}")
+    err = float(np.abs(pcm - ref["audio"]).max()
+                / max(float(np.abs(ref["audio"]).max()), 1e-30))
+    check(err <= SERVE_TOL, f"{what}: streamed pcm off the one-shot audio by "
+                            f"{err:.3g} of max|audio|")
+    return err
+
+
+def phase_streaming(fs2_dir, fp32_hp, ar_dir, ar_fp32_hp, voc_dir):
+    """17(c): streams with HiFi-GAN V1 (fp32, TF32 off) on fp32 engines of
+    batch 1 at bucket STREAM_BUCKET: FastSpeech 2, then the AR model
+    (segments of STREAM_SEGMENT steps): time to first audio and total,
+    the pcm against the one-shot audio; two AR streams advanced in turn
+    with a server batch request between their segments; an AR stream
+    whose decode stops inside a segment."""
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    from transformer_tts_tpu_torch.infer.server import TTSServer
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_transformer_tts)
+    rs = np.random.RandomState(2)
+    kw = dict(batch_size=1, text_buckets=(STREAM_BUCKET,), vocoder=voc_dir,
+              device=DEVICE)
+    nar = TTSEngine(fs2_dir, fp32_hp, **kw)
+    nar.warmup(streaming=True)
+    text = serve_texts(rs, 1, STREAM_BUCKET - 14, STREAM_BUCKET - 14,
+                       nar.hp.vocab_size)[0]
+    ref = nar.synthesize([text])[0]
+    events, ttfa, total = stream_timed(nar, text)
+    err = pcm_error(events, ref, "17(c) FastSpeech 2 stream")
+    print(f"17(c) FastSpeech 2 stream, {len(text)} phones, "
+          f"{ref['mel'].shape[0]} frames: first audio {ttfa:.1f} ms, total "
+          f"{total:.1f} ms, {len(events) - 1} chunks; pcm within {err:.3g} "
+          f"of max|audio| of the one-shot audio (limit {SERVE_TOL})")
+    del nar
+
+    ar = TTSEngine(ar_dir, ar_fp32_hp, **kw)
+    ar.warmup(streaming=True)
+    texts = serve_texts(rs, 3, STREAM_BUCKET - 20, STREAM_BUCKET - 4,
+                        ar.hp.vocab_size)
+    refs = ar.synthesize(texts[:2])
+    events, ttfa, total = stream_timed(ar, texts[0],
+                                       segment_steps=STREAM_SEGMENT)
+    err = pcm_error(events, refs[0], "17(c) AR stream")
+    print(f"17(c) AR stream, {len(texts[0])} phones, "
+          f"{refs[0]['mel'].shape[0]} frames (no stop: the budget), "
+          f"segments of {STREAM_SEGMENT} steps: first audio {ttfa:.1f} ms, "
+          f"total {total:.1f} ms, {len(events) - 1} chunks; pcm within "
+          f"{err:.3g} of max|audio|")
+
+    server = TTSServer(ar, host="127.0.0.1", port=0)
+    server.start()
+    streams = [iter(ar.synthesize_streaming(t, segment_steps=STREAM_SEGMENT))
+               for t in texts[:2]]
+    got, done, batches = [[], []], [False, False], 0
+    try:
+        while not all(done):
+            for i in (0, 1):
+                if done[i]:
+                    continue
+                ev = next(streams[i], None)
+                if ev is None:
+                    done[i] = True
+                    continue
+                got[i].append(ev)
+                if i == 1 and len(got[1]) % 2 == 1:
+                    status, body = post_json(server.port, "/synthesize",
+                                             {"batch": texts[2:]})
+                    check(status == 200, f"17(c) server batch {status}")
+                    batches += 1
+    finally:
+        server.stop()
+    errs = [pcm_error(got[i], refs[i], f"17(c) interleaved AR stream {i}")
+            for i in (0, 1)]
+    print(f"17(c) two AR streams at bucket {STREAM_BUCKET} advanced in turn, "
+          f"{batches} server batch requests at the same graph key between "
+          f"their segments: each equals its one-shot audio within "
+          f"{max(errs):.3g} of max|audio|")
+
+    # a decode that stops inside a segment: the graph blocks overrun it
+    model, max_steps = ar.model, ar.max_frames_for(STREAM_BUCKET) // 2
+    store = []
+    with ar.lock:
+        t, p = ar._padded([texts[0]], 1, STREAM_BUCKET)
+        with stop_logits(model, store):
+            synthesize_transformer_tts(model, t, p, max_steps=max_steps,
+                                       eager=True)
+        bias = stopping_bias(store[0], max_steps)
+        with torch.no_grad():
+            model.stop_token.bias.fill_(bias)
+    ref = ar.synthesize([texts[0]])[0]
+    events, ttfa, total = stream_timed(ar, texts[0],
+                                       segment_steps=STREAM_SEGMENT)
+    err = pcm_error(events, ref, "17(c) stopping AR stream")
+    n = ref["mel"].shape[0]
+    check(n < 2 * max_steps, "17(c) the stop bias did not stop the decode")
+    print(f"17(c) AR stream stopping at {n} frames ({n // 2} steps; segment "
+          f"{n // 2 // STREAM_SEGMENT + 1} runs to step "
+          f"{min(max_steps, -(-(n // 2) // 8) * 8)}): end mel_frames = "
+          f"one-shot {n}, pcm within {err:.3g} of max|audio|, first audio "
+          f"{ttfa:.1f} ms, total {total:.1f} ms")
+
+
+def weight_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())
+
+
+def call_peak(engine, texts) -> tuple:
+    """(results, peak card bytes of one call over what was allocated
+    before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    results = engine.synthesize(texts)
+    torch.cuda.synchronize()
+    return results, torch.cuda.max_memory_allocated() - base
+
+
+def fixed_duration_errors(engine, others: dict, texts, bucket: int) -> dict:
+    """{name: (max|dmel| / max|mel|, mean|dmel| / mean|mel|)} of each of
+    ``others``' models against ``engine``'s, on the same padded batch with
+    the same durations (the engine's predictions), over the valid frames:
+    a rounded duration that another model moves does not shift the frames
+    compared."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_fastspeech2)
+    from transformer_tts_tpu_torch.ops.masks import pad_mask
+    text, pos = engine._padded(texts, len(texts), bucket)
+    max_frames = engine.max_frames_for(bucket)
+    _, mel_len, dur = synthesize_fastspeech2(engine.model, text, pos,
+                                             max_frames)
+    valid = (torch.arange(max_frames, device=mel_len.device)[None]
+             < mel_len[:, None])[:, :, None]
+
+    def mel_of(model):
+        with torch.inference_mode():
+            mel = model(text, pad_mask(pos), max_frames,
+                        d_target=dur).mel_post.float()
+        return torch.where(valid, mel, 0.0)
+
+    ref = mel_of(engine.model)
+    out = {}
+    for name, model in others.items():
+        diff = (mel_of(model) - ref).abs()
+        out[name] = (float(diff.max() / ref.abs().max()),
+                     float(diff.sum() / ref.abs().sum()))
+    return out
+
+
+def phase_int8(engine, fs2_dir, fp32_hp, ar_dir, texts_by_bucket):
+    """17(d): the FastSpeech 2 engine with int8 weights against (a)'s:
+    max|dmel| / max|mel| over common frames, ms per call, weight bytes,
+    each call's peak; one AR int8 call, its graph's bf16 weight copies
+    the dequantized weights."""
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    from transformer_tts_tpu_torch.infer.synthesize import _AR_GRAPHS
+    q8 = TTSEngine(fs2_dir, **SERVE, quantize="int8", device=DEVICE)
+    q8.warmup()
+    fp32 = TTSEngine(fs2_dir, fp32_hp, **SERVE, device=DEVICE)
+    s = q8.quantize_stats
+    print(f"17(d) int8 quantization: {s['n_quantized']} tensors quantized, "
+          f"{s['n_passthrough']} passed through; {s['bytes_fp']} bytes -> "
+          f"{s['bytes_q']} as int8 + scales ({s['compression']:.3f}x); card "
+          f"weight bytes (parameters and buffers) fp {weight_bytes(engine.model)}"
+          f", int8 engine {weight_bytes(q8.model)}: the parameters hold q * s "
+          "in fp32")
+    for bucket, texts in texts_by_bucket.items():
+        ref, ref_peak = call_peak(engine, texts)
+        got, q8_peak = call_peak(q8, texts)
+        changed = sum(not np.array_equal(a["durations"], b["durations"])
+                      for a, b in zip(ref, got))
+        check(all(np.isfinite(b["mel"]).all() for b in got),
+              "17(d) non-finite int8 mel")
+        errs = fixed_duration_errors(engine, {"int8": q8.model,
+                                              "fp32": fp32.model},
+                                     texts, bucket)
+        ms, _ = wall_ms(lambda: engine.synthesize(texts), SERVE_REPS,
+                        warmup=1)
+        q8_ms, _ = wall_ms(lambda: q8.synthesize(texts), SERVE_REPS,
+                           warmup=1)
+        print(f"17(d) bucket {bucket}: with the bf16 engine's durations, "
+              f"max|dmel| / max|mel| and mean|dmel| / mean|mel| against it:"
+              f" int8 {errs['int8'][0]:.4g}, {errs['int8'][1]:.4g}; fp32 (the "
+              f"precision's own) {errs['fp32'][0]:.4g}, "
+              f"{errs['fp32'][1]:.4g}; "
+              f"free-running, {changed} of {len(texts)} requests with a "
+              f"changed duration; ms/call bf16 {ms:.3f}, int8 {q8_ms:.3f}; "
+              f"call peak over what was allocated before: bf16 {ref_peak} "
+              f"bytes, int8 {q8_peak}")
+    del q8, fp32
+
+    ar_q8 = TTSEngine(ar_dir, batch_size=8, frames_per_phone=8,
+                      text_buckets=(STREAM_BUCKET,), quantize="int8",
+                      device=DEVICE)
+    texts = serve_texts(np.random.RandomState(3), 8, STREAM_BUCKET // 2 + 1,
+                        STREAM_BUCKET, ar_q8.hp.vocab_size)
+    ms, results = wall_ms(lambda: ar_q8.synthesize(texts), 1)
+    check(all(np.isfinite(r["mel"]).all() and r["mel"].shape[0] > 0
+              for r in results), "17(d) AR int8 output")
+    copies = [(mod, name, copy) for graph in _AR_GRAPHS[ar_q8.model].values()
+              for mod, name, copy in graph.weights.slots]
+    check(copies and all(torch.equal(
+        copy, mod._parameters[name].to(torch.bfloat16))
+        for mod, name, copy in copies),
+        "17(d) the AR graph reads other weights than the dequantized ones")
+    print(f"17(d) AR int8 engine, one call of 8 at bucket {STREAM_BUCKET}: "
+          f"{ms:.1f} ms, {sum(r['mel'].shape[0] for r in results)} frames; "
+          f"its graph reads {len(copies)} bf16 copies, each equal to its "
+          f"dequantized parameter ({ar_q8.quantize_stats['n_quantized']} "
+          "tensors int8)")
+
+
+def phase_other_engines(conf_dir, gst_dir, ref_path, ar_dir) -> dict:
+    """17(e): one conformer engine call (6 K4-90), one GST call with
+    ref_mel and the refusal without it, the AR engine's warmup with graph
+    capture per bucket and one batch call (no kernel)."""
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    rs = np.random.RandomState(4)
+    launches = {}
+    conf = TTSEngine(conf_dir, **SERVE, device=DEVICE)
+    texts = serve_texts(rs, 8, STREAM_BUCKET // 2 + 1, STREAM_BUCKET,
+                        conf.hp.vocab_size)
+    t0 = time.perf_counter()
+    results, counts = engine_call_launches(conf, texts)
+    ms = (time.perf_counter() - t0) * 1e3
+    check_only(counts, "K4-90", conf.hp.n_layer_decoder, "17(e) conformer")
+    launches["conformer engine call"] = counts["K4-90"]
+    print(f"17(e) conformer engine, one first call of 8 at bucket "
+          f"{STREAM_BUCKET}: {ms:.1f} ms, "
+          f"{sum(r['mel'].shape[0] for r in results)} frames, launches "
+          f"{counts['K4-90']} K4-90 and none other")
+    del conf
+
+    try:
+        TTSEngine(gst_dir, **SERVE, device=DEVICE)
+        fail("17(e) a GST engine without ref_mel was not refused")
+    except ValueError as e:
+        check("ref_mel" in str(e), f"17(e) GST refusal: {e}")
+    gst = TTSEngine(gst_dir, **SERVE, ref_mel=ref_path, device=DEVICE)
+    ms, results = wall_ms(lambda: gst.synthesize(texts), 1)
+    check(all(np.isfinite(r["mel"]).all() and r["mel"].shape[0] > 0
+              for r in results), "17(e) GST output")
+    print(f"17(e) GST engine with a reference mel, one first call of 8 at "
+          f"bucket {STREAM_BUCKET}: {ms:.1f} ms, lengths "
+          f"{[r['mel'].shape[0] for r in results]} (no stop); refused "
+          "without ref_mel")
+    del gst
+
+    ar = TTSEngine(ar_dir, **SERVE, device=DEVICE)
+    for bucket, sec in ar.warmup().items():
+        print(f"17(e) AR engine warmup bucket {bucket} (graph capture, "
+              f"{ar.max_frames_for(bucket) // 2} steps): {sec:.3f} s")
+    texts = serve_texts(rs, 8, SERVE_BUCKETS[-1] // 2 + 1, SERVE_BUCKETS[-1],
+                        ar.hp.vocab_size)
+    ms, (results, counts) = wall_ms(lambda: engine_call_launches(ar, texts), 3)
+    check(all(v == 0 for v in counts.values()),
+          f"17(e) the AR engine call launched {json.dumps(counts)}")
+    steps = ar.max_frames_for(SERVE_BUCKETS[-1]) // 2
+    check(all(r["mel"].shape[0] == 2 * steps for r in results),
+          "17(e) an AR row stopped at AR_STOP_BIAS")
+    print(f"17(e) AR engine batch call, 8 requests at bucket "
+          f"{SERVE_BUCKETS[-1]}, {steps} steps (no stop): {ms:.2f} ms "
+          f"(median of 3) = {ms / steps:.4f} ms/step, no kernel launched")
+    return launches
+
+
+def phase_serve_cli(fs2_dir):
+    """17(f): cli/serve.py --port 0 as a subprocess: a POST, /metrics, a
+    wav request on Griffin-Lim, then SIGINT and exit 0 within 10 s."""
+    import base64
+    import io
+    import signal
+    import wave
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "transformer_tts_tpu_torch.cli.serve",
+         "--load_name", fs2_dir, "--port", "0", "--buckets", "32,64",
+         "--device", DEVICE], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving on"):
+                break
+        check(lines and lines[-1].startswith("serving on"),
+              "17(f) serve CLI: " + " | ".join(lines[-20:]))
+        port = int(lines[-1].split()[2].rsplit(":", 1)[1])
+        text = serve_texts(np.random.RandomState(5), 1, 40, 40, 152)[0]
+        status, body = post_json(port, "/synthesize", {"text_ids": text})
+        resp = json.loads(body)
+        check(status == 200 and resp["mel_frames"] == len(resp["mel"]) > 0,
+              f"17(f) POST {status}")
+        status, wav_body = post_json(port, "/synthesize",
+                                     {"text_ids": text, "wav": True})
+        wav_resp = json.loads(wav_body)
+        with wave.open(io.BytesIO(base64.b64decode(
+                wav_resp["wav_base64"]))) as fh:
+            samples = fh.getnframes()
+        check(status == 200 and samples == (wav_resp["mel_frames"] - 1) * 256,
+              f"17(f) Griffin-Lim wav {status}, {samples} samples")
+        status, body = post_json(port, "/metrics", method="GET")
+        metrics = json.loads(body)
+        check(status == 200 and metrics["requests"] == 2,
+              f"17(f) /metrics {status} {metrics}")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=10)
+        check(rc == 0, f"17(f) serve CLI exit {rc} after SIGINT")
+        print(f"17(f) cli/serve.py: {' | '.join(lines)}; POST "
+              f"{resp['mel_frames']} frames in {resp['ms']} ms; Griffin-Lim "
+              f"wav {samples} samples in {wav_resp['ms']} ms; /metrics "
+              f"{json.dumps(metrics)}; SIGINT -> exit 0 in "
+              f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+
+
+def phase_serving(gen, smi: str) -> dict:
+    """Phase 17: the serving layer at the flagships' full width, random
+    weights from seed 0; returns the engine calls' launch counts."""
+    from transformer_tts_tpu_torch.vocoder.trainer import (
+        GENERATOR_NAME, build_vocoder)
+    print(smi)
+    fp32 = dict(amp=False)
+    _, model = flagship_model(DEVICE, amp=True, stacks={})
+    fs2_dir = serving_dir("fastspeech2", model)
+    fp32_hp = os.path.join(serving_dir("fastspeech2_fp32", **fp32),
+                           "hparams.py")
+    _, model = flagship_model(DEVICE, amp=True, stacks=PATHS["conformer"][0])
+    conf_dir = serving_dir("conformer", model, **PATHS["conformer"][0])
+    _, model = ar_model(DEVICE, amp=True)
+    with torch.no_grad():
+        model.stop_token.bias.fill_(AR_STOP_BIAS)
+    ar_dir = serving_dir("ar", model, model="Transformer")
+    ar_fp32_hp = os.path.join(serving_dir("ar_fp32", model="Transformer",
+                                          **fp32), "hparams.py")
+    _, model = gst_model(DEVICE, amp=True)
+    with torch.no_grad():
+        model.stop_token.bias.fill_(AR_STOP_BIAS)
+    gst_dir = serving_dir("gst", model, model="Transformer", gst=True)
+    ref_path = os.path.join(gst_dir, "ref_mel.npy")
+    np.save(ref_path, torch.randn(GST_REF_FRAMES[0], model.mel_dim,
+                                  generator=gen).numpy())
+    voc = build_vocoder(vocoder_hparams(), amp=False, device=DEVICE)
+    voc_dir = os.path.join(WORK, "serving", "vocoder")
+    os.makedirs(voc_dir, exist_ok=True)
+    torch.save({k: v.cpu() for k, v in voc.state_dict().items()},
+               os.path.join(voc_dir, GENERATOR_NAME))
+    del model, voc
+    torch.cuda.empty_cache()
+
+    rs = np.random.RandomState(17)
+    texts_by_bucket = {b: serve_texts(rs, 8, b // 2 + 1, b, 152)
+                       for b in SERVE_BUCKETS}
+    engine, per_call = phase_fastspeech2_engine(fs2_dir, texts_by_bucket)
+    launches = {"fastspeech2 engine calls (K1-90 each)": per_call}
+    phase_server_load(engine, fs2_dir, fp32_hp)
+    phase_streaming(fs2_dir, fp32_hp, ar_dir, ar_fp32_hp, voc_dir)
+    phase_int8(engine, fs2_dir, fp32_hp, ar_dir, texts_by_bucket)
+    del engine
+    launches.update(phase_other_engines(conf_dir, gst_dir, ref_path, ar_dir))
+    phase_serve_cli(fs2_dir)
+    return launches
 
 
 def worst_err(errs: dict, peaks: dict, names) -> dict:
@@ -3833,6 +4531,8 @@ def main():
             phase_card_vs_cpu(new_gen, "sq")
         phase_train_step(batch, "sq")
         phase_sq_clis(new_gen)
+    with phase("serving"):
+        engine_launches = phase_serving(new_gen, smi)
 
     lines = []
     with phase("kernels at their main paths' inputs"):
@@ -3915,6 +4615,8 @@ def main():
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in PHASE_TIMES)
         + f"; total {time.perf_counter() - t_start:.1f} s")
+    print("engine launches (phase 17, each call counted from 0): "
+          + json.dumps(engine_launches))
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -132,3 +132,116 @@ def to_np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+def write_engine_checkpoints(root, cfg, variables, model, *, stats_seed=None):
+    """The same weights as a JAX checkpoint (the JAX package's
+    ``save_checkpoint``, epoch 1, under ``root/jax``) and a port one
+    (``train.checkpoint.save_checkpoint``, ``root/port``), each beside an
+    ``hparams.py`` of ``cfg``; with ``stats_seed`` also corpus mean and
+    variance files that both name. -> (jax_dir, port_dir)."""
+    import os
+    import types
+
+    from transformer_tts_tpu.train import checkpoint as jax_ckpt
+    from transformer_tts_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = dict(cfg)
+    root = str(root)
+    if stats_seed is not None:
+        rs = np.random.RandomState(stats_seed)
+        for key, value in (("mean_file", rs.randn(cfg["mel_dim"])),
+                           ("var_file", rs.uniform(0.5, 2.0,
+                                                   cfg["mel_dim"]))):
+            cfg[key] = os.path.join(root, f"{key}.npy")
+            np.save(cfg[key], value.astype(np.float32))
+    jax_dir, port_dir = os.path.join(root, "jax"), os.path.join(root, "port")
+    state = types.SimpleNamespace(
+        params=variables["params"], batch_stats=variables["batch_stats"],
+        vq_stats={}, step=np.asarray(0, np.int32))
+    jax_ckpt.save_checkpoint(jax_dir, state, 1, with_optimizer=False)
+    save_checkpoint(model, port_dir)
+    for d in (jax_dir, port_dir):
+        with open(os.path.join(d, "hparams.py"), "w") as fh:
+            fh.write("".join(f"{k} = {v!r}\n" for k, v in cfg.items()))
+    return jax_dir, port_dir
+
+
+# the engine tests' buckets: text 8 and 16 at 4 frames per phone, so mel
+# budgets of 32 and 64 frames
+ENGINE_BUCKETS = dict(text_buckets=(8, 16), length_buckets=(32, 64, 128))
+ENGINE = dict(batch_size=2, frames_per_phone=4, text_buckets=(8, 16))
+# a stop-token bias at which the random AR models stop at different
+# steps, some within the budget and some not
+AR_STOP_BIAS = -0.7
+# a HiFi-GAN small enough for the CPU (hop 8, receptive field 7 frames)
+TINY_VOCODER = dict(vocoder_upsample_rates=(4, 2),
+                    vocoder_upsample_kernel_sizes=(8, 4),
+                    vocoder_channels=16, vocoder_resblock_kernel_sizes=(3,),
+                    vocoder_resblock_dilations=((1, 3),))
+ENGINE_FAMILIES = ("transformer", "conformer", "ar", "gst")
+# five requests in three batches of two: buckets 8, 8 and 16
+ENGINE_TEXTS = [[1, 2, 3, 4, 5], list(range(3, 10)), list(range(2, 14)),
+                [7] * 8, list(range(20, 36))]
+
+
+def _mel_close(got, ref):
+    assert got.shape == ref.shape and got.dtype == np.float32
+    peak = max(1.0, np.abs(ref).max(initial=0.0))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * peak)
+
+
+def assert_results_match(ours, ref):
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        _mel_close(a["mel"], b["mel"])
+        np.testing.assert_array_equal(a["durations"], b["durations"])
+
+
+def set_stop_bias(variables, model, bias):
+    """The AR pair's stop-token bias, in both packages."""
+    variables["params"]["stop_token"]["bias"][:] = bias
+    with torch.no_grad():
+        model.stop_token.bias.fill_(bias)
+
+
+def engine_pair(family, root, seed=0):
+    """A small model of ``family`` ("transformer" or "conformer"
+    FastSpeech 2, "ar", "gst") in both packages' checkpoints
+    (``write_engine_checkpoints``, with corpus statistics; the hparams
+    carry ``TINY_VOCODER``). -> (jax_dir, port_dir, engine keywords: a
+    GST model's ``ref_mel`` file)."""
+    import os
+
+    over = dict(ENGINE_BUCKETS, **TINY_VOCODER)
+    if family in ("transformer", "conformer"):
+        extra = CONFORMER if family == "conformer" else {}
+        _, _, variables, model = build_pair(seed, **extra, **over)
+        cfg = dict(SMALL, **extra, **over)
+    else:
+        extra = dict(gst=True) if family == "gst" else {}
+        _, _, variables, model = build_ar_pair(seed, **extra, **over)
+        cfg = dict(SMALL, **AR, **extra, **over)
+        set_stop_bias(variables, model, AR_STOP_BIAS)
+    jax_dir, port_dir = write_engine_checkpoints(root, cfg, variables, model,
+                                                 stats_seed=seed + 3)
+    kw = {}
+    if family == "gst":
+        kw["ref_mel"] = os.path.join(str(root), "ref_mel.npy")
+        np.save(kw["ref_mel"], np.random.RandomState(seed + 4).randn(
+            24, cfg["mel_dim"]).astype(np.float32))
+    return jax_dir, port_dir, kw
+
+
+def write_tiny_vocoder(root, mel_dim=SMALL["mel_dim"]):
+    """A ``TINY_VOCODER`` generator export (random weights) in ``root``."""
+    import os
+
+    from transformer_tts_tpu_torch.vocoder.trainer import (
+        GENERATOR_NAME, build_vocoder)
+
+    gen = build_vocoder(HParams(mel_dim=mel_dim, **TINY_VOCODER), amp=False,
+                        device="cpu", seed=5)
+    os.makedirs(root, exist_ok=True)
+    torch.save(gen.state_dict(), os.path.join(root, GENERATOR_NAME))
+    return str(root)

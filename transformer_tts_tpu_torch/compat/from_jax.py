@@ -29,17 +29,34 @@ The GST style embedding (``hp.gst``) inverts ``convert_style_embedding``
 package's vocoder generator (HiFi-GAN, subpixel or transposed, and the
 iSTFT vocoder) and, with ``discriminator=True``, its MPD + MSD, under the
 flax module names; flax ``WeightNorm`` scales become weight norm's ``g``.
+
+``flax_layouts(hp)`` and ``vocoder_flax_layouts(params, hp)`` give, for
+each parameter those write, the flax leaves it holds (``QLeaf``): their
+rank in flax and the port dim of their last axis, which the weight-only
+int8 of infer/quantize.py reduces along as the JAX package's does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from transformer_tts_tpu_torch.config import is_nar_model, is_sq_model
 from transformer_tts_tpu_torch.models.gst import CNN_DIMS
+
+
+class QLeaf(NamedTuple):
+    """One flax parameter leaf inside a port parameter: the leaf's rank in
+    flax, the port dim that holds the leaf's last axis (the axis the JAX
+    package's int8 scale runs along), and which of ``blocks`` equal row
+    blocks of the port tensor's dim 0 it fills (a GRU gate; 0 of 1 is the
+    whole tensor)."""
+    ndim: int
+    axis: int
+    block: int = 0
+    blocks: int = 1
 
 
 def _get(tree: Mapping, path):
@@ -50,37 +67,64 @@ def _get(tree: Mapping, path):
 
 
 class _Writer:
-    def __init__(self, params: Mapping, batch_stats: Mapping):
+    """Writes the port ``state_dict`` (``out``) from flax trees and, for
+    each parameter, its flax leaves (``layouts``). With ``params`` None it
+    reads no tree: every leaf is a dummy of its rank, and only the
+    layouts mean anything."""
+
+    def __init__(self, params: Optional[Mapping],
+                 batch_stats: Optional[Mapping]):
         self.params = params
         self.batch_stats = batch_stats
         self.out: Dict[str, torch.Tensor] = {}
+        self.layouts: Dict[str, List[QLeaf]] = {}
 
-    def _put(self, name: str, array: np.ndarray):
+    def _param(self, path, ndim: int) -> np.ndarray:
+        if self.params is None:
+            return np.zeros((1,) * ndim, np.float32)
+        return _get(self.params, path)
+
+    def _stat(self, path) -> np.ndarray:
+        if self.batch_stats is None:
+            return np.zeros((1,), np.float32)
+        return _get(self.batch_stats, path)
+
+    def _put(self, name: str, array: np.ndarray, *leaves: QLeaf):
         self.out[name] = torch.from_numpy(np.ascontiguousarray(array))
+        if leaves:
+            self.layouts[name] = list(leaves)
+
+    def vector(self, path, name):
+        """A 1-D flax leaf, the same in the port."""
+        self._put(name, self._param(path, 1), QLeaf(1, 0))
 
     def linear(self, path, name, bias=True):
-        self._put(f"{name}.weight", _get(self.params, path + ("kernel",)).T)
+        self._put(f"{name}.weight", self._param(path + ("kernel",), 2).T,
+                  QLeaf(2, 0))
         if bias:
-            self._put(f"{name}.bias", _get(self.params, path + ("bias",)))
+            self.vector(path + ("bias",), f"{name}.bias")
 
     def conv1d(self, path, name):
-        self._put(f"{name}.weight",
-                  _get(self.params, path + ("kernel",)).transpose(2, 1, 0))
-        self._put(f"{name}.bias", _get(self.params, path + ("bias",)))
+        self._put(f"{name}.weight", self._param(path + ("kernel",), 3)
+                  .transpose(2, 1, 0), QLeaf(3, 0))
+        self.vector(path + ("bias",), f"{name}.bias")
+
+    def table(self, path, name):
+        """A 2-D flax leaf kept as it is: its last axis is the port's
+        dim 1 (an ``Embed`` table's features, not its rows)."""
+        self._put(name, self._param(path, 2), QLeaf(2, 1))
 
     def embed(self, path, name):
-        self._put(f"{name}.weight", _get(self.params, path + ("embedding",)))
+        self.table(path + ("embedding",), f"{name}.weight")
 
     def layer_norm(self, path, name):
-        self._put(f"{name}.weight", _get(self.params, path + ("scale",)))
-        self._put(f"{name}.bias", _get(self.params, path + ("bias",)))
+        self.vector(path + ("scale",), f"{name}.weight")
+        self.vector(path + ("bias",), f"{name}.bias")
 
     def batch_norm(self, path, name):
         self.layer_norm(path, name)
-        self._put(f"{name}.running_mean",
-                  _get(self.batch_stats, path + ("mean",)))
-        self._put(f"{name}.running_var",
-                  _get(self.batch_stats, path + ("var",)))
+        self._put(f"{name}.running_mean", self._stat(path + ("mean",)))
+        self._put(f"{name}.running_var", self._stat(path + ("var",)))
         self.out[f"{name}.num_batches_tracked"] = torch.tensor(0)
 
     def encoder_stack(self, prefix: str, n_layers: int, embedding: bool):
@@ -89,7 +133,7 @@ class _Writer:
             self.embed(p + ("embed",), f"{prefix}.embed")
         else:
             self.linear(p + ("embed",), f"{prefix}.embed")
-        self._put(f"{prefix}.pe.alpha", _get(self.params, p + ("pe", "alpha")))
+        self.vector(p + ("pe", "alpha"), f"{prefix}.pe.alpha")
         for i in range(n_layers):
             lp, ln = p + (f"layers_{i}",), f"{prefix}.layers.{i}"
             self.layer_norm(lp + ("norm_1",), f"{ln}.norm_1")
@@ -119,7 +163,7 @@ class _Writer:
                 self.linear(a + (part,), f"{an}.{part}")
             self.linear(a + ("linear_pos",), f"{an}.linear_pos", bias=False)
             for bias in ("pos_bias_u", "pos_bias_v"):
-                self._put(f"{an}.{bias}", _get(self.params, a + (bias,)))
+                self.table(a + (bias,), f"{an}.{bias}")
             c, cn = lp + ("conv_module",), f"{ln}.conv_module"
             self.layer_norm(c + ("layer_norm",), f"{cn}.layer_norm")
             self.conv1d(c + ("pointwise_conv1",), f"{cn}.pointwise_conv1")
@@ -144,37 +188,41 @@ class _Writer:
         re_p, re_n = p + ("reference_encoder",), f"{n}.reference_encoder"
         for i in range(len(CNN_DIMS)):
             self._put(f"{re_n}.conv_layers.{i}.weight",
-                      _get(self.params, re_p + (f"conv_{i}", "kernel"))
-                      .transpose(3, 2, 0, 1))
+                      self._param(re_p + (f"conv_{i}", "kernel"), 4)
+                      .transpose(3, 2, 0, 1), QLeaf(4, 0))
             self.batch_norm(re_p + (f"norm_{i}",), f"{re_n}.norm.{i}")
         self.gru(re_p + ("gru_cell",), f"{re_n}.gru")
         st_p, st_n = p + ("style_token_layer",), f"{n}.style_token_layer"
-        self._put(f"{st_n}.embeddings",
-                  _get(self.params, st_p + ("embeddings",)))
+        self.table(st_p + ("embeddings",), f"{st_n}.embeddings")
         self.mha(st_p + ("attention",), f"{st_n}.attention")
 
     def gru(self, cell, name):
         """flax ``GRUCell`` -> ``nn.GRU``: r/z's hidden biases are folded
         into ``ir``/``iz``, so ``bias_hh_l0`` is [0, 0, hn.bias]."""
-        gate = {g: _get(self.params, cell + (g, "kernel")).T
+        gate = {g: self._param(cell + (g, "kernel"), 2).T
                 for g in ("ir", "iz", "in", "hr", "hz", "hn")}
-        bias = {g: _get(self.params, cell + (g, "bias"))
+        bias = {g: self._param(cell + (g, "bias"), 1)
                 for g in ("ir", "iz", "in", "hn")}
         zero = np.zeros_like(bias["hn"])
+        three = [QLeaf(2, 0, i, 3) for i in range(3)]
         self._put(f"{name}.weight_ih_l0",
-                  np.concatenate([gate["ir"], gate["iz"], gate["in"]]))
+                  np.concatenate([gate["ir"], gate["iz"], gate["in"]]),
+                  *three)
         self._put(f"{name}.weight_hh_l0",
-                  np.concatenate([gate["hr"], gate["hz"], gate["hn"]]))
+                  np.concatenate([gate["hr"], gate["hz"], gate["hn"]]),
+                  *three)
         self._put(f"{name}.bias_ih_l0",
-                  np.concatenate([bias["ir"], bias["iz"], bias["in"]]))
+                  np.concatenate([bias["ir"], bias["iz"], bias["in"]]),
+                  *(QLeaf(1, 0, i, 3) for i in range(3)))
+        # r's and z's slices are no flax leaf
         self._put(f"{name}.bias_hh_l0",
-                  np.concatenate([zero, zero, bias["hn"]]))
+                  np.concatenate([zero, zero, bias["hn"]]), QLeaf(1, 0, 2, 3))
 
     def sq_codebook(self, path, prefix):
-        self._put(f"{prefix}log_var_q_scalar",
-                  _get(self.params, path + ("log_var_q_scalar",)))
-        self._put(f"{prefix}codebook.embedding",
-                  _get(self.params, path + ("codebook", "embedding")))
+        self.vector(path + ("log_var_q_scalar",),
+                    f"{prefix}log_var_q_scalar")
+        self.table(path + ("codebook", "embedding"),
+                   f"{prefix}codebook.embedding")
 
     def ar_decoder(self, n_layers: int):
         p = ("decoder",)
@@ -182,7 +230,7 @@ class _Writer:
                     "decoder.decoder_prenet.layer.fc1")
         self.linear(p + ("decoder_prenet", "fc2"),
                     "decoder.decoder_prenet.layer.fc2")
-        self._put("decoder.pe.alpha", _get(self.params, p + ("pe", "alpha")))
+        self.vector(p + ("pe", "alpha"), "decoder.pe.alpha")
         for i in range(n_layers):
             lp, ln = p + (f"layers_{i}",), f"decoder.layers.{i}"
             for norm in ("norm_1", "norm_2", "norm_3"):
@@ -230,7 +278,18 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
     """Flax FastSpeech 2 (transformer or conformer stacks, with or without
     the SQ-VAE bottleneck), SQ-VAE FastSpeech 2 or AR Transformer-TTS (with
     or without GST) trees -> port ``state_dict``."""
-    w = _Writer(params, batch_stats)
+    return _write(_Writer(params, batch_stats), hp)
+
+
+def flax_layouts(hp) -> Dict[str, List[QLeaf]]:
+    """Each parameter of the port model ``hp`` names -> the flax leaves
+    ``state_dict_from_flax`` fills it from (infer/quantize.py reads them)."""
+    w = _Writer(None, None)
+    _write(w, hp)
+    return w.layouts
+
+
+def _write(w: _Writer, hp) -> Dict[str, torch.Tensor]:
     if not is_nar_model(hp.model):
         return _transformer_tts(w, hp)
     w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True)
@@ -279,9 +338,11 @@ class _VocoderWriter:
 
     def __init__(self):
         self.out: Dict[str, torch.Tensor] = {}
+        self.layouts: Dict[str, List[QLeaf]] = {}
 
-    def _put(self, name: str, array: np.ndarray):
+    def _put(self, name: str, array: np.ndarray, leaf: QLeaf = QLeaf(1, 0)):
         self.out[name] = torch.from_numpy(np.ascontiguousarray(array))
+        self.layouts[name] = [leaf]
 
     def conv(self, scope: Mapping, conv: str, name: str, kind: str = "1d"):
         kernel = np.asarray(scope[conv]["kernel"], np.float32)
@@ -291,21 +352,23 @@ class _VocoderWriter:
             w = kernel.transpose(3, 2, 0, 1)
         else:                                            # "transposed"
             w = kernel[::-1].transpose(1, 2, 0)
+        out_axis = 1 if kind == "transposed" else 0
         self._put(f"{name}.bias", np.asarray(scope[conv]["bias"], np.float32))
         scales = _weight_norm_scales(scope)
         if conv not in scales:
-            self._put(f"{name}.weight", w)
+            self._put(f"{name}.weight", w, QLeaf(kernel.ndim, out_axis))
             return
         g = scales[conv]
         shape = [1] * w.ndim
-        shape[1 if kind == "transposed" else 0] = g.shape[0]
+        shape[out_axis] = g.shape[0]
         self._put(f"{name}.parametrizations.weight.original0",
-                  g.reshape(shape))
-        self._put(f"{name}.parametrizations.weight.original1", w)
+                  g.reshape(shape), QLeaf(1, out_axis))
+        self._put(f"{name}.parametrizations.weight.original1", w,
+                  QLeaf(kernel.ndim, out_axis))
 
     def linear(self, scope: Mapping, name: str):
         self._put(f"{name}.weight",
-                  np.asarray(scope["kernel"], np.float32).T)
+                  np.asarray(scope["kernel"], np.float32).T, QLeaf(2, 0))
         self._put(f"{name}.bias", np.asarray(scope["bias"], np.float32))
 
     def layer_norm(self, scope: Mapping, name: str):
@@ -320,7 +383,20 @@ def vocoder_state_dict_from_flax(params: Mapping, hp, *,
     upsample mode, or "istft") -> the port's generator ``state_dict``; with
     ``discriminator``, flax ``VocoderDiscriminator`` params -> the port's
     discriminator ``state_dict``."""
+    return _write_vocoder(_VocoderWriter(), params, hp, discriminator)
+
+
+def vocoder_flax_layouts(params: Mapping, hp, *, discriminator: bool = False
+                         ) -> Dict[str, List[QLeaf]]:
+    """As ``flax_layouts``, for ``vocoder_state_dict_from_flax``: which
+    convolutions a flax vocoder holds is read from ``params``."""
     w = _VocoderWriter()
+    _write_vocoder(w, params, hp, discriminator)
+    return w.layouts
+
+
+def _write_vocoder(w: _VocoderWriter, params: Mapping, hp,
+                   discriminator: bool) -> Dict[str, torch.Tensor]:
     if discriminator:
         for p in hp.vocoder_periods:
             scope, name = params["mpd"][f"period_{p}"], f"mpd.period_{p}"

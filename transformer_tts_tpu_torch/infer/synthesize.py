@@ -20,6 +20,8 @@ and replayed, the counterpart of the JAX package's compiled
 runs on the CPU, and is the graph's reference on the card. Under bf16
 amp the graph reads bf16 copies of the step's matmul and conv weights
 (``DecodeWeights``), so it replays no cast of them at every step.
+``ar_segment`` runs a caller's own carry a few steps further, on the same
+graphs (the streaming decode of infer/streaming.ARStream).
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ from transformer_tts_tpu_torch.ops.masks import pad_mask
 PERTURBATION_CHOICES = (0.8, 0.9, 1.0, 1.1, 1.2)
 MAX_AR_STEPS = 500          # decode steps (frame groups) per utterance
 DONE_CHECK_EVERY = 8        # decode steps between the host's stop checks
+# The AR postnet is 5 causal convs of kernel 5 (left pad 4 each): output
+# group t reads groups [t - 20, t] only. Streaming applies it over a
+# window with this many groups of context (infer/streaming.ARStream).
+POSTNET_LOOKBACK = 20
 
 
 def sample_perturbation(rng: Optional[random.Random] = None) -> float:
@@ -161,16 +167,24 @@ def _ar_body(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
     return body
 
 
+def _copy_carry(dst: Dict[str, object], src: Dict[str, object]) -> None:
+    for key in ("step", "prev", "groups", "done", "length"):
+        dst[key].copy_(src[key])
+    for dst_kv, src_kv in zip(dst["caches"], src["caches"]):
+        for d, s in zip(dst_kv, src_kv):
+            d.copy_(s)
+
+
 def _run_blocks(run_block: Callable[[int], None], done: torch.Tensor,
-                max_steps: int) -> None:
-    """``max_steps`` decode steps as blocks of ``DONE_CHECK_EVERY`` (the
-    last one shorter when the block does not divide ``max_steps``), the
+                n_steps: int) -> None:
+    """``n_steps`` decode steps as blocks of ``DONE_CHECK_EVERY`` (the
+    last one shorter when the block does not divide ``n_steps``), the
     host reading ``done`` before every block but the first and stopping
     once every row is done."""
-    for first in range(0, max_steps, DONE_CHECK_EVERY):
+    for first in range(0, n_steps, DONE_CHECK_EVERY):
         if first and bool(done.all()):
             break
-        run_block(min(DONE_CHECK_EVERY, max_steps - first))
+        run_block(min(DONE_CHECK_EVERY, n_steps - first))
 
 
 def ar_decode(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
@@ -279,17 +293,34 @@ class _ARGraph:
             pool = graph.pool()
             self.graphs[n] = graph
 
-    def decode(self, e_outputs, src_mask, cross_kvs) -> Dict[str, object]:
+    def _load(self, e_outputs, src_mask, cross_kvs) -> None:
         self.e_outputs.copy_(e_outputs)
         self.src_mask.copy_(src_mask)
         for static, fresh in zip(self.cross_kvs, cross_kvs):
             for s, f in zip(static, fresh):
                 s.copy_(f)
         self.weights.refresh()
-        _ar_reset(self.carry, self.max_steps)
+
+    def _run(self, n_steps: int) -> None:
         _run_blocks(lambda n: self.graphs[n].replay(), self.carry["done"],
-                    self.max_steps)
+                    n_steps)
+
+    def decode(self, e_outputs, src_mask, cross_kvs) -> Dict[str, object]:
+        self._load(e_outputs, src_mask, cross_kvs)
+        _ar_reset(self.carry, self.max_steps)
+        self._run(self.max_steps)
         return self.carry
+
+    def segment(self, carry, e_outputs, src_mask, cross_kvs,
+                n_steps: int) -> None:
+        """``n_steps`` more steps of ``carry``, a carry of the caller's own
+        (its step a multiple of ``DONE_CHECK_EVERY``): copied into the
+        graph's carry, replayed, copied back, so that decodes and other
+        callers' segments in between at this key change nothing of it."""
+        self._load(e_outputs, src_mask, cross_kvs)
+        _copy_carry(self.carry, carry)
+        self._run(n_steps)
+        _copy_carry(carry, self.carry)
 
 
 # model -> {(B, text length, max_steps, dtype, threshold, device): graph}
@@ -306,6 +337,12 @@ def ar_decode_graphed(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
     ``max_steps``, dtype and stop threshold, as JAX keeps one compiled
     ``while_loop`` per shape. The returned carry is the graph's own, valid
     until the next decode at that key."""
+    return _graph(model, e_outputs, src_mask, cross_kvs, max_steps,
+                  stop_threshold).decode(e_outputs, src_mask, cross_kvs)
+
+
+def _graph(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
+           max_steps: int, stop_threshold: float) -> _ARGraph:
     if e_outputs.device.type != "cuda":
         raise ValueError(f"the graphed decode runs on CUDA tensors, not "
                          f"{e_outputs.device}")
@@ -316,7 +353,29 @@ def ar_decode_graphed(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
     if graph is None:
         graph = graphs[key] = _ARGraph(model, e_outputs, src_mask,
                                        cross_kvs, max_steps, stop_threshold)
-    return graph.decode(e_outputs, src_mask, cross_kvs)
+    return graph
+
+
+def ar_segment(model: TransformerTTS, carry, e_outputs, src_mask, cross_kvs,
+               n_steps: int, stop_threshold: float) -> None:
+    """``n_steps`` more decode steps of the caller's own ``carry``
+    (``_ar_init``'s, at a step that is a multiple of ``DONE_CHECK_EVERY``),
+    in place, as blocks under ``_run_blocks``: on a CUDA device replayed
+    from the graphs ``ar_decode_graphed`` keeps for this key (the carry
+    copied in and out, ``_ARGraph.segment``), on the CPU the eager loop."""
+    if e_outputs.device.type == "cpu":
+        body = _ar_body(model, e_outputs, src_mask, cross_kvs,
+                        stop_threshold)
+
+        def run_block(n):
+            for _ in range(n):
+                body(carry)
+
+        _run_blocks(run_block, carry["done"], n_steps)
+        return
+    _graph(model, e_outputs, src_mask, cross_kvs, carry["groups"].shape[1],
+           stop_threshold).segment(carry, e_outputs, src_mask, cross_kvs,
+                                   n_steps)
 
 
 @torch.inference_mode()

@@ -138,8 +138,13 @@ class HiFiGANGenerator(nn.Module):
         super().__init__()
         if upsample_mode not in ("subpixel", "transposed"):
             raise ValueError(f"bad upsample_mode {upsample_mode!r}")
+        self.mel_dim = mel_dim
         self.upsample_rates = tuple(upsample_rates)
+        self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
         self.upsample_mode = upsample_mode
+        self.subpixel_kernel_size = subpixel_kernel_size
+        self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
+        self.resblock_dilations = tuple(tuple(d) for d in resblock_dilations)
         self.n_res = len(resblock_kernel_sizes)
         self.amp = amp
         self.conv_pre = _wn(SameConv1d(mel_dim, upsample_initial_channel, 7),
@@ -214,9 +219,11 @@ class ISTFTVocoder(nn.Module):
                  kernel_size: int = 7, n_fft: int = 1024,
                  hop_length: int = 256, amp: bool = False):
         super().__init__()
+        self.mel_dim = mel_dim
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.num_layers = num_layers
+        self.kernel_size = kernel_size
         self.amp = amp
         self.embed = SameConv1d(mel_dim, channels, kernel_size)
         self.norm_pre = nn.LayerNorm(channels, eps=LN_EPS)
@@ -225,6 +232,15 @@ class ISTFTVocoder(nn.Module):
                 channels, mlp_dim, kernel_size))
         self.norm_post = nn.LayerNorm(channels, eps=LN_EPS)
         self.head = nn.Linear(channels, n_fft + 2)
+
+    @property
+    def receptive_field_radius_frames(self) -> int:
+        """Frames on each side that reach an output sample: the embed conv
+        and one depthwise conv per block at frame rate, plus the
+        overlap-add's span (the JAX generator's, :181-187); what
+        infer/streaming.StreamingVocoder overlaps its windows by."""
+        return ((self.kernel_size // 2) * (self.num_layers + 1)
+                + self.n_fft // self.hop_length)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         device = mel.device
