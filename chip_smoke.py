@@ -248,10 +248,12 @@ and each printing its wall time:
        segments, each equal to its one-shot audio; an AR stream that stops
        inside a segment;
    (d) int8: (a)'s engine with quantize="int8": max|dmel| / max|mel| and
-       mean|dmel| / mean|mel| at the bf16 engine's durations (beside the
-       fp32 engine's), requests with a changed duration, ms per call, card
-       weight bytes, each call's peak memory; one AR int8 call, its graph's
-       bf16 weight copies equal to the dequantized parameters;
+       mean|dmel| / mean|mel| at the bf16 engine's durations, and at its
+       durations, pitch and energy, with the share of frames whose pitch or
+       energy bin moves (beside the fp32 engine's), requests with a changed
+       duration, ms per call, card weight bytes, each call's peak memory;
+       one AR int8 call, its graph's bf16 weight copies equal to the
+       dequantized parameters;
    (e) one conformer engine call (6 K4-90, no other kernel), one GST call
        with a reference mel and the refusal without it, the AR engine's
        warmup (a graph capture per bucket) and a batch call (no kernel);
@@ -3627,9 +3629,8 @@ def run_cli(module: str, *args) -> str:
 
 def phase_vocoder_clis(gen):
     """prepare_data on WAVs written here, train_vocoder for 3 steps with a
-    save and synthesize --wav on the transformer flagship's checkpoint of
-    phase 4(c), the three at once, then synthesize --vocoder on that
-    checkpoint with train_vocoder's export, all on the card; every WAV's
+    save, then synthesize --vocoder and --wav on the transformer
+    flagship's checkpoint of phase 4(c), all on the card; every WAV's
     length and values checked. Then load_reference_checkpoint of a
     ``module.``-prefixed file of that checkpoint."""
     from transformer_tts_tpu_torch.compat.torch_import import (
@@ -3647,29 +3648,8 @@ def phase_vocoder_clis(gen):
     with open(wav_script, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     feats = os.path.join(work, "features")
-    voc_dir = os.path.join(work, "train")
-    hp_file = os.path.join(work, "hparams.py")
-    with open(hp_file, "w") as fh:
-        for key, value in dict(FLAGSHIP, save_dir=voc_dir).items():
-            fh.write(f"{key} = {value!r}\n")
-    model_dir = os.path.join(WORK, "transformer", "model")
-    cli = "transformer_tts_tpu_torch.cli."
-    # three CLIs that need none of the others' output, at once
-    outs = run_clis({
-        "cli.prepare_data": [
-            cli + "prepare_data", "--wav_script", wav_script, "--out_dir",
-            feats, "--device", DEVICE],
-        "cli.train_vocoder": [
-            cli + "train_vocoder", "--hp_file", hp_file, "--wav_script",
-            wav_script, "--max_steps", "3", "--save_every", "3",
-            "--batch_size", "4", "--device", DEVICE],
-        "cli.synthesize --wav": [
-            cli + "synthesize", "--load_name", model_dir, "--save",
-            os.path.join(work, "griffin_lim"), "--max_frames", "2048",
-            "--device", DEVICE, "--wav"]})
-    for name, out in outs.items():
-        print(f"{name}: exit 0; "
-              + " | ".join(out.strip().splitlines()[-3:]))
+    run_cli("prepare_data", "--wav_script", wav_script, "--out_dir", feats,
+            "--device", DEVICE)
     for i, seconds in enumerate(CLI_WAVS):
         frames = int(seconds * SAMPLE_RATE) // 256 + 1
         arrays = [np.load(os.path.join(feats, f"utt{i}{s}.npy"))
@@ -3682,24 +3662,34 @@ def phase_vocoder_clis(gen):
                  "variance_stats.json"):
         check(os.path.exists(os.path.join(feats, name)),
               f"prepare_data wrote no {name}")
+
+    voc_dir = os.path.join(work, "train")
+    hp_file = os.path.join(work, "hparams.py")
+    with open(hp_file, "w") as fh:
+        for key, value in dict(FLAGSHIP, save_dir=voc_dir).items():
+            fh.write(f"{key} = {value!r}\n")
+    run_cli("train_vocoder", "--hp_file", hp_file, "--wav_script",
+            wav_script, "--max_steps", 3, "--save_every", 3,
+            "--batch_size", 4, "--device", DEVICE)
     export = os.path.join(voc_dir, "generator")
     check(os.path.exists(os.path.join(export, "generator.pt"))
           and os.path.exists(os.path.join(voc_dir, "vocoder_3",
                                           "train_state.pt")),
           "train_vocoder wrote no checkpoint or export")
-    run_cli("synthesize", "--load_name", model_dir, "--save",
-            os.path.join(work, "vocoded"), "--max_frames", 2048, "--device",
-            DEVICE, "--vocoder", export)
-    for flags, name, short in ((["--vocoder"], "vocoded", 0),
+
+    model_dir = os.path.join(WORK, "transformer", "model")
+    for flags, name, short in ((["--vocoder", export], "vocoded", 0),
                                (["--wav"], "griffin_lim", 1)):
         out_dir = os.path.join(work, name)
+        run_cli("synthesize", "--load_name", model_dir, "--save", out_dir,
+                "--max_frames", 2048, "--device", DEVICE, *flags)
         for i in range(3):
             n = np.load(os.path.join(out_dir, f"{i}.npy")).shape[0]
             audio, rate = read_wav(os.path.join(out_dir, f"{i}.wav"))
             check(rate == SAMPLE_RATE and audio.shape == ((n - short) * 256,)
                   and bool(np.isfinite(audio).all()),
                   f"synthesize {name}: wav {i} {audio.shape} for {n} frames")
-        print(f"synthesize {flags[0]}: 3 WAVs of frames x 256"
+        print(f"synthesize {' '.join(flags[:1])}: 3 WAVs of frames x 256"
               f"{' - 256' if short else ''} samples written and checked")
 
     hp = load_hparams(os.path.join(model_dir, "hparams.py"))
@@ -3899,8 +3889,18 @@ def phase_server_load(engine, fs2_dir, fp32_hp):
     n, threads, (lo, hi) = SERVE_LOAD
     texts = serve_texts(np.random.RandomState(0), n, lo, hi,
                         engine.hp.vocab_size)
+    check(len({tuple(t) for t in texts}) == n, "17(b) repeated texts")
     fp32 = TTSEngine(fs2_dir, fp32_hp, **SERVE, device=DEVICE)
     fp32.warmup()
+    # the bucket each text's batch was padded to, as the engine reports it
+    served, synthesize = {}, fp32.synthesize
+
+    def recording(batch, speakers=None):
+        results = synthesize(batch, speakers)
+        served.update((tuple(t), r["bucket"]) for t, r in zip(batch, results))
+        return results
+
+    fp32.synthesize = recording
     run = load_run(fp32, texts, threads, batch_window_ms=5.0)
     check(run["status"] == [200] * n, f"17(b) fp32 statuses {run['status']}")
     worst, own = 0.0, 0
@@ -3908,29 +3908,25 @@ def phase_server_load(engine, fs2_dir, fp32_hp):
         resp = json.loads(body)
         # a batch pads to the bucket of its longest text, and the model's
         # SAME-padded convolutions read the padding: the reference is the
-        # solo call at that bucket, the text's own or a larger one
-        errs = {}
-        for bucket in [b for b in fp32.text_buckets
-                       if b >= fp32._bucket_of(len(text))]:
-            mel, dur = solo_at(fp32, text, bucket)
-            if (resp["mel_frames"] == mel.shape[0]
-                    and resp["durations"] == dur.tolist()):
-                got = np.asarray(resp["mel"], np.float32).reshape(mel.shape)
-                errs[bucket] = float(np.abs(got - mel).max(initial=0.0)
-                                     / max(np.abs(mel).max(initial=0.0),
-                                           1e-30))
-        check(bool(errs), f"17(b) a served response ({len(text)} phones, "
-                          f"{resp['mel_frames']} frames) matches no solo "
-                          "call")
-        bucket = min(errs, key=errs.get)
+        # solo call at the bucket that served the text
+        bucket = served[tuple(text)]
         own += bucket == fp32._bucket_of(len(text))
-        worst = max(worst, errs[bucket])
+        mel, dur = solo_at(fp32, text, bucket)
+        check(resp["mel_frames"] == mel.shape[0]
+              and resp["durations"] == dur.tolist(),
+              f"17(b) a served response ({len(text)} phones, bucket "
+              f"{bucket}, {resp['mel_frames']} frames) differs from its solo "
+              f"call's durations or length ({mel.shape[0]} frames)")
+        got = np.asarray(resp["mel"], np.float32).reshape(mel.shape)
+        worst = max(worst, float(np.abs(got - mel).max(initial=0.0)
+                                 / max(np.abs(mel).max(initial=0.0), 1e-30)))
     check(worst <= SERVE_TOL, f"17(b) served mel off its solo call by "
                               f"{worst:.3g} of max|ref|")
     print_load("fp32 engine (amp off, TF32 off)", run)
     print(f"17(b) fp32: every response's durations and mel_frames equal its "
-          f"text's solo call, {own} of {n} at the text's own bucket and the "
-          f"rest at the larger bucket of the batch that served it; mel "
+          f"text's solo call at the bucket the engine reports for it, "
+          f"{own} of {n} at the text's own bucket and the rest at the larger "
+          f"bucket of the batch that served it; mel "
           f"within {worst:.3g} of max|ref| (limit {SERVE_TOL})")
     del fp32
     run = load_run(engine, texts, threads, batch_window_ms=5.0)
@@ -4116,12 +4112,15 @@ def call_peak(engine, texts) -> tuple:
     return results, torch.cuda.max_memory_allocated() - base
 
 
-def fixed_duration_errors(engine, others: dict, texts, bucket: int) -> dict:
-    """{name: (max|dmel| / max|mel|, mean|dmel| / mean|mel|)} of each of
-    ``others``' models against ``engine``'s, on the same padded batch with
-    the same durations (the engine's predictions), over the valid frames:
-    a rounded duration that another model moves does not shift the frames
-    compared."""
+def fixed_variance_errors(engine, others: dict, texts, bucket: int) -> dict:
+    """{name: {"d": (max|dmel| / max|mel|, mean|dmel| / mean|mel|) with the
+    durations fixed, "dpe": the same with the pitch and energy fixed too,
+    "flips": the share of valid frames whose pitch or energy bin moves}}
+    of each of ``others``' models against ``engine``'s, on the same padded
+    batch, over the valid frames. The fixed values are the engine's own
+    predictions, so a rounded duration or a bin that another model moves
+    does not change what the embeddings add: "dpe" reads the weights'
+    error alone."""
     from transformer_tts_tpu_torch.infer.synthesize import (
         synthesize_fastspeech2)
     from transformer_tts_tpu_torch.ops.masks import pad_mask
@@ -4130,20 +4129,36 @@ def fixed_duration_errors(engine, others: dict, texts, bucket: int) -> dict:
     _, mel_len, dur = synthesize_fastspeech2(engine.model, text, pos,
                                              max_frames)
     valid = (torch.arange(max_frames, device=mel_len.device)[None]
-             < mel_len[:, None])[:, :, None]
+             < mel_len[:, None])
 
-    def mel_of(model):
+    def run(model, **targets):
+        """(mel on valid frames, raw pitch, raw energy, their bins)."""
+        va = model.variance_adaptor
         with torch.inference_mode():
-            mel = model(text, pad_mask(pos), max_frames,
-                        d_target=dur).mel_post.float()
-        return torch.where(valid, mel, 0.0)
+            out = model(text, pad_mask(pos), max_frames, d_target=dur,
+                        **targets)
+        p = va._destandardize(out.pitch, va.f0_stats).float()
+        e = va._destandardize(out.energy, va.energy_stats).float()
+        bins = (torch.bucketize(p, va.pitch_bins),
+                torch.bucketize(e, va.energy_bins))
+        return (torch.where(valid[:, :, None], out.mel_post.float(), 0.0),
+                p, e, bins)
 
-    ref = mel_of(engine.model)
+    def errors(mel, ref):
+        diff = (mel - ref).abs()
+        return (float(diff.max() / ref.abs().max()),
+                float(diff.sum() / ref.abs().sum()))
+
+    ref, p, e, ref_bins = run(engine.model)
+    fixed = dict(p_target=p, e_target=e)
+    ref_fixed = run(engine.model, **fixed)[0]
     out = {}
     for name, model in others.items():
-        diff = (mel_of(model) - ref).abs()
-        out[name] = (float(diff.max() / ref.abs().max()),
-                     float(diff.sum() / ref.abs().sum()))
+        mel, _, _, bins = run(model)
+        moved = ((bins[0] != ref_bins[0]) | (bins[1] != ref_bins[1])) & valid
+        out[name] = {"d": errors(mel, ref),
+                     "dpe": errors(run(model, **fixed)[0], ref_fixed),
+                     "flips": float(moved.sum() / valid.sum())}
     return out
 
 
@@ -4171,18 +4186,25 @@ def phase_int8(engine, fs2_dir, fp32_hp, ar_dir, texts_by_bucket):
                       for a, b in zip(ref, got))
         check(all(np.isfinite(b["mel"]).all() for b in got),
               "17(d) non-finite int8 mel")
-        errs = fixed_duration_errors(engine, {"int8": q8.model,
+        errs = fixed_variance_errors(engine, {"int8": q8.model,
                                               "fp32": fp32.model},
                                      texts, bucket)
         ms, _ = wall_ms(lambda: engine.synthesize(texts), SERVE_REPS,
                         warmup=1)
         q8_ms, _ = wall_ms(lambda: q8.synthesize(texts), SERVE_REPS,
                            warmup=1)
-        print(f"17(d) bucket {bucket}: with the bf16 engine's durations, "
-              f"max|dmel| / max|mel| and mean|dmel| / mean|mel| against it:"
-              f" int8 {errs['int8'][0]:.4g}, {errs['int8'][1]:.4g}; fp32 (the "
-              f"precision's own) {errs['fp32'][0]:.4g}, "
-              f"{errs['fp32'][1]:.4g}; "
+        print(f"17(d) bucket {bucket}: max|dmel| / max|mel| and "
+              f"mean|dmel| / mean|mel| against the bf16 engine, at its "
+              f"durations: int8 {errs['int8']['d'][0]:.4g}, "
+              f"{errs['int8']['d'][1]:.4g}, fp32 (the precision's own) "
+              f"{errs['fp32']['d'][0]:.4g}, {errs['fp32']['d'][1]:.4g}; "
+              f"at its durations, pitch and energy: int8 "
+              f"{errs['int8']['dpe'][0]:.4g}, {errs['int8']['dpe'][1]:.4g}, "
+              f"fp32 {errs['fp32']['dpe'][0]:.4g}, "
+              f"{errs['fp32']['dpe'][1]:.4g}; frames with a pitch or energy "
+              f"bin moved at its durations: int8 "
+              f"{errs['int8']['flips']:.4g}, fp32 "
+              f"{errs['fp32']['flips']:.4g}; "
               f"free-running, {changed} of {len(texts)} requests with a "
               f"changed duration; ms/call bf16 {ms:.3f}, int8 {q8_ms:.3f}; "
               f"call peak over what was allocated before: bf16 {ref_peak} "

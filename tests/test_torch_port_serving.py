@@ -64,6 +64,15 @@ def test_engine_matches_jax_engine(family, tmp_path):
     assert_results_match(engine.synthesize(TEXTS), ref)
 
 
+def test_engine_results_name_the_bucket_their_batch_padded_to(tmp_path):
+    _, port_dir, _ = engine_pair("transformer", tmp_path)
+    engine = TTSEngine(port_dir, **ENGINE, device="cpu")
+    # a batch pads to its longest text's bucket: 8 phones go to 16 beside 12
+    assert [r["bucket"] for r in engine.synthesize(TEXTS)] == [8, 8, 16, 16,
+                                                               16]
+    assert engine.synthesize([TEXTS[3]])[0]["bucket"] == 8
+
+
 def _write_hparams(root, **over):
     os.makedirs(root, exist_ok=True)
     with open(os.path.join(root, "hparams.py"), "w") as fh:

@@ -180,7 +180,8 @@ TINY_VOCODER = dict(vocoder_upsample_rates=(4, 2),
                     vocoder_channels=16, vocoder_resblock_kernel_sizes=(3,),
                     vocoder_resblock_dilations=((1, 3),))
 ENGINE_FAMILIES = ("transformer", "conformer", "ar", "gst")
-# five requests in three batches of two: buckets 8, 8 and 16
+# five requests in three batches of at most two, sorted by length:
+# (5, 7), (8, 12) and (16) phones, padded to buckets 8, 16 and 16
 ENGINE_TEXTS = [[1, 2, 3, 4, 5], list(range(3, 10)), list(range(2, 14)),
                 [7] * 8, list(range(20, 36))]
 

@@ -76,10 +76,11 @@ def main(argv=None):
         ref_mel=args.ref_mel, device=args.device)
     if engine.quantize_stats is not None:
         s = engine.quantize_stats
-        print(f"int8 weights: {s['n_quantized']} tensors quantized, "
-              f"{s['bytes_fp'] / 1e6:.1f} MB -> {s['bytes_q'] / 1e6:.1f} MB "
-              f"({s['compression']:.2f}x) stored; served as q * s in the "
-              "fp32 parameters", flush=True)
+        print(f"int8 weights: {s['n_quantized']} tensors quantized "
+              f"(an int8 copy would take {s['bytes_q'] / 1e6:.1f} MB "
+              f"against {s['bytes_fp'] / 1e6:.1f} MB); served as q * s "
+              "in the fp32 parameters, so the card holds as many weight "
+              "bytes as without --quantize", flush=True)
 
     print("warming up (every batch and bucket shape once)...", flush=True)
     for b, s in engine.warmup().items():

@@ -50,12 +50,11 @@ from transformer_tts_tpu_torch.models.gst import CNN_DIMS
 class QLeaf(NamedTuple):
     """One flax parameter leaf inside a port parameter: the leaf's rank in
     flax, the port dim that holds the leaf's last axis (the axis the JAX
-    package's int8 scale runs along), and which of ``blocks`` equal row
-    blocks of the port tensor's dim 0 it fills (a GRU gate; 0 of 1 is the
-    whole tensor)."""
+    package's int8 scale runs along), and into how many equal row blocks
+    of the port tensor's dim 0 its tensor is cut (a GRU gate is one of 3;
+    1 is the whole tensor)."""
     ndim: int
     axis: int
-    block: int = 0
     blocks: int = 1
 
 
@@ -204,7 +203,7 @@ class _Writer:
         bias = {g: self._param(cell + (g, "bias"), 1)
                 for g in ("ir", "iz", "in", "hn")}
         zero = np.zeros_like(bias["hn"])
-        three = [QLeaf(2, 0, i, 3) for i in range(3)]
+        three = [QLeaf(2, 0, blocks=3)] * 3
         self._put(f"{name}.weight_ih_l0",
                   np.concatenate([gate["ir"], gate["iz"], gate["in"]]),
                   *three)
@@ -213,10 +212,11 @@ class _Writer:
                   *three)
         self._put(f"{name}.bias_ih_l0",
                   np.concatenate([bias["ir"], bias["iz"], bias["in"]]),
-                  *(QLeaf(1, 0, i, 3) for i in range(3)))
+                  *[QLeaf(1, 0, blocks=3)] * 3)
         # r's and z's slices are no flax leaf
         self._put(f"{name}.bias_hh_l0",
-                  np.concatenate([zero, zero, bias["hn"]]), QLeaf(1, 0, 2, 3))
+                  np.concatenate([zero, zero, bias["hn"]]),
+                  QLeaf(1, 0, blocks=3))
 
     def sq_codebook(self, path, prefix):
         self.vector(path + ("log_var_q_scalar",),
@@ -386,12 +386,12 @@ def vocoder_state_dict_from_flax(params: Mapping, hp, *,
     return _write_vocoder(_VocoderWriter(), params, hp, discriminator)
 
 
-def vocoder_flax_layouts(params: Mapping, hp, *, discriminator: bool = False
-                         ) -> Dict[str, List[QLeaf]]:
-    """As ``flax_layouts``, for ``vocoder_state_dict_from_flax``: which
-    convolutions a flax vocoder holds is read from ``params``."""
+def vocoder_flax_layouts(params: Mapping, hp) -> Dict[str, List[QLeaf]]:
+    """As ``flax_layouts``, for a generator of
+    ``vocoder_state_dict_from_flax``: which convolutions a flax vocoder
+    holds is read from ``params``."""
     w = _VocoderWriter()
-    _write_vocoder(w, params, hp, discriminator)
+    _write_vocoder(w, params, hp, False)
     return w.layouts
 
 

@@ -13,7 +13,9 @@
 * ``synthesize(texts)`` sorts by length, pads each group to
   ``batch_size`` rows, runs it, vocodes the padded batch and trims: one
   dict per utterance, ``mel`` (T, mel_dim) float32, ``durations`` (L,)
-  int32 (empty for the AR model), ``audio`` (T * hop,) with a vocoder.
+  int32 (empty for the AR model), ``audio`` (T * hop,) with a vocoder,
+  and ``bucket``, the text bucket its batch was padded to (the longest
+  text's in the batch; not a field of the JAX engine's results).
 * ``synthesize_streaming(text)`` yields JAX's events: ``audio`` (with a
   vocoder) or ``mel`` chunks, then ``end`` (infer/streaming.py).
 
@@ -244,7 +246,8 @@ class TTSEngine:
                     out[i] = {"mel": mel[row, :n],
                               "durations": (durations[row, :len(texts[i])]
                                             if durations is not None
-                                            else np.zeros((0,), np.int32))}
+                                            else np.zeros((0,), np.int32)),
+                              "bucket": bucket}
                     if audio is not None:
                         out[i]["audio"] = audio[
                             row, :n * self._vocoder.hop_length]
