@@ -92,11 +92,14 @@ and each printing its wall time:
        warm-up steps, then 10 timed with CUDA events, every launch count
        set to 0 just before (6 K1-d-90 and 6 K2-90 per step, no other
        kernel); ms/step, mel frames/s, peak memory; the loss
-       finite; 3 steps under torch.profiler, printing the top 10 device
+       finite; one step under torch.profiler, printing the top 10 device
        operations (run in phase 9); then 20 steps with warmup_step 100
        whose loss must fall;
    (c) cli/train.py for 3 steps on a synthetic corpus (32 utterances of
-       300-900 frames) and cli/synthesize.py on the checkpoint it saved;
+       300-900 frames) and cli/synthesize.py on the checkpoint it saved
+       (the corpus written here; the CLIs of 5, 6 and 15 run after 15,
+       every training CLI at once with 16(e)'s, then every synthesis CLI
+       at once);
    (d)-(f) the conformer flagship's training likewise: the card-vs-CPU
        step (decoder on K4 and K5 in fp32, on K4-90 and K5-90 alone in
        bf16; its decoder self-attention weights,
@@ -117,8 +120,8 @@ and each printing its wall time:
        decode replayed from its CUDA graph, no kernel launched: the
        graph's mel and lengths bit for bit the eager loop's, with no row
        stopping and with a stop bias at which rows stop at different
-       steps; ms per call and per step and RTF of both; one graphed call
-       under the profiler (run in phase 9);
+       steps; ms per call and per step and RTF of both; a graphed call of
+       100 steps timed, then under the profiler (run in phase 9);
    (d)-(f) training as in 5: the card-vs-CPU step (383 decoder groups on
        the simple K3-f and K3's backward in fp32, on K3-f-90 and K3-90
        alone in bf16), the timed step (6 K3-d-90 and 6 K3-90 per step, no
@@ -149,11 +152,14 @@ and each printing its wall time:
    512, 1024, 2048} for the conformer's (K4-90), and for the AR
    decoder's causal self-attention at T in {128, 256, 511, 1024, 2048},
    forward and forward with backward;
-9. the profiles of 5(b), 5(e), 6(c) (B=1 and B=8: device operations per
-   decode step, the copies among them, the bf16 weight copies the graph
-   reads), 6(e), 15(d) and 16(d), each on a state or model built anew,
-   after every timed phase: a profiler pass slows the host work of the
-   rest of its process; also 3 vocoder GAN steps (phase 13);
+9. the profiles of one step of 5(b), 5(e), 6(e), 15(d), 16(d), 18(a)'s
+   two and 18(b)'s and of 6(c)'s graphed decode at B=1 and B=8 over
+   PROFILE_AR_STEPS groups (device operations per decode step, the
+   copies among them, the bf16 weight copies the graph reads), each on
+   the warm state or model its phase timed (kept for it, not built
+   again), after every timed phase: a profiler pass slows the host work
+   of the rest of its process; also one vocoder GAN step (phase 13);
+   each profile's wall time;
 10.-14. features and the vocoder, run after 6 and before 7, random
    weights from seed 0 at full width (HiFi-GAN V1: 512 channels, rates
    8·8·2·2, MRF kernels 3/7/11; the iSTFT vocoder: 8 ConvNeXt layers of
@@ -182,10 +188,11 @@ and each printing its wall time:
        and G's gradients within 2e-2 of its own max|g|, the updates as
        5(a);
    14. cli/prepare_data.py on WAVs written there, cli/train_vocoder.py
-       for 3 steps with a save, and cli/synthesize.py --vocoder (its
-       export) and --wav on phase 4(c)'s transformer checkpoint, all with
-       --device cuda: every WAV of frames x 256 samples (Griffin-Lim's
-       (frames - 1) x 256) and finite; load_reference_checkpoint of a
+       for 3 steps with a save and cli/synthesize.py --wav on phase 4(c)'s
+       transformer checkpoint, the three at once, then --vocoder (its
+       export) on that checkpoint, all with --device cuda: every WAV of
+       frames x 256 samples (Griffin-Lim's (frames - 1) x 256) and
+       finite; load_reference_checkpoint of a
        ``module.``-prefixed copy of that checkpoint, bit for bit.
 15.-16. the two other families, run after 14 and before 7, random weights
    from seed 0 at the flagship's widths, their data from a generator of
@@ -218,7 +225,9 @@ and each printing its wall time:
        gradients; (d) the timed bf16 step at the FastSpeech 2 batch, 6
        K1-d-90 and 6 K2-90 per step, as 5(b); (e) cli/train.py for two
        epochs with a save each, the SQ model and the transformer
-       flagship, and one step of a use_sq_vae FastSpeech 2, at once; then
+       flagship, and one step of a use_sq_vae FastSpeech 2, at once with
+       the training CLIs of 5, 6 and 15 (a phase of their own before
+       16); then
        cli/average_checkpoints.py --last 2 on both, each average equal to
        the float64 mean of its epochs' state_dicts; then
        cli/synthesize.py on the transformer flagship's average.
@@ -259,6 +268,36 @@ and each printing its wall time:
        warmup (a graph capture per bucket) and a batch call (no kernel);
    (f) cli/serve.py --port 0 as a subprocess: a POST, a Griffin-Lim wav
        request, /metrics, then SIGINT and exit 0 within 10 s.
+18. speaker, accent and hop-size conditioning, run after 17 and before 7,
+   random weights from seed 0 at the flagships' full width, data from a
+   generator of seed 18, fatal on any failure:
+   (a) the transformer flagship with 512-d x-vectors in the encoder, the
+       middle and the decoder, hop-size classes, the CTC tap and SSIM:
+       one train step card fp32 against CPU fp32 and its bf16 step (as
+       5(a)); its bf16 train step beside the plain flagship's on one
+       batch at TRAIN_BATCH, 10 timed steps of each in turn, twice
+       (ms/step over the 20, frames/s, own peak memory; 6 K1-d-90 and 6
+       K2-90 a step), both states kept for their profiles (phase 9);
+       CTC over (16, 1024, 152) and the LSTM over (16, 1024, 384),
+       forward and backward; synthesis at B=8 / 2048 frames with 8
+       x-vectors in bf16 (6 K1-90), timed in turn with the plain
+       flagship's call, and, in fp32, each row against its solo call
+       padded to the batch's shape, within 1e-6 of max|ref|;
+   (b) the conformer with 247 speaker ids in both stacks, accents,
+       use_pos and use_rnn_length: card fp32 against CPU fp32 and its
+       bf16 step (as 5(a)); 10 timed bf16 steps on (a)'s batch (6
+       K4-d-90 and 6 K5-90 a step), its state kept for its profile;
+       synthesis at B=1 / 768 (6 K4-90);
+   (c) the AR flagship with 247 speaker ids (spk_emb_vers 1): two graphed
+       B=8 calls with other speakers, each bit for bit its eager loop, ms
+       per decode step beside the plain AR model's; spk_emb_vers 2
+       teacher-forced, card fp32 against CPU fp32;
+   (d) (a)'s model in fp32 behind TTSEngine: a batch of 8 voices, 4
+       TTSServer requests with "speaker" and a stream with a speaker,
+       each against its solo call at its bucket, within 1e-4 of max|ref|.
+   The launches of its conditioned main paths (the timed steps and the
+   synthesis calls of (a) and (b), each counted from 0) are added to
+   the kernels line's; the card-vs-CPU checks' are not.
 
 It then prints the phases' wall times, the engine calls' launch counts,
 the kernels line (JSON), the nvidia-smi line, and last ``{"ok": true,
@@ -1287,10 +1326,12 @@ def phase_cli(name, stacks, hp, model):
 
 # CUPTI's own activity records, which are no work of the program
 CUPTI_OVERHEAD = ("Lazy Function Loading", "Activity Buffer Request")
-# profiles queued by the phases, each building what it profiles anew, run
-# after every timed phase: a profiler pass slows the host work of the rest
-# of its process (train_step_ab.py times steps before and after one), so
-# no timing may follow one, and nothing is held on the card meanwhile
+# profiles queued by the phases, run after every timed phase: a profiler
+# pass slows the host work of the rest of its process (train_step_ab.py
+# times steps before and after one), so no timing may follow one. Each
+# holds the warm state its phase timed (a train state and its step, the AR
+# model with its captured graphs), so none is built again; the card holds
+# them meanwhile (a few GB, inside each "resident" line)
 PROFILES = []
 
 
@@ -1463,6 +1504,8 @@ def trainer(kind: str) -> dict:
                           dropout_variance_adaptor=0.0)
     calls = dict(fwd_call=(attention, "flash_attention"),
                  bwd_call=(fa, "flash_attention_bwd"))
+    if kind in ("xvector", "spkconf"):
+        return conditioned_trainer(kind)
     if kind == "fastspeech2":
         return dict(hparams=train_hparams, init=tr.init_fastspeech2_state,
                     make_step=tr.make_fastspeech2_train_step,
@@ -1502,6 +1545,31 @@ def trainer(kind: str) -> dict:
         ar.update(hparams=gst_hparams, prepare=no_token_dropout,
                   live=("style_embedding.",))
     return ar
+
+
+def conditioned_trainer(kind: str) -> dict:
+    """Phase 18's kinds: "xvector", the transformer flagship with
+    XVECTOR_COND, and "spkconf", the conformer with SPKCONF_COND (its
+    adaptor's positional dropout at 0 for the card-vs-CPU step), on
+    batches with their conditioning; ``live`` the conditioning weights,
+    each of which must get a card gradient."""
+    if kind == "xvector":
+        spec, cond = trainer("fastspeech2"), XVECTOR_COND
+        live = ("spk_proj.", "hop_emb.", "decoder.ctc_linear.",
+                "encoder.layers.0.spk_bias.", "decoder.layers.0.spk_bias.")
+    else:
+        spec, cond = trainer("conformer"), SPKCONF_COND
+        live = ("encoder.acc_embed.", "encoder.layers.0.multi_emb.",
+                "decoder.layers.0.multi_emb.", "variance_adaptor.pos.",
+                "variance_adaptor.rnn_length.")
+        spec["prepare"] = no_pos_dropout
+
+    def batch(gen, hp, *args):
+        return conditioned(gen, hp, train_batch(gen, hp, *args))
+
+    spec.update(hparams=lambda **o: train_hparams(**dict(o, **cond)),
+                batch=batch, live=live)
+    return spec
 
 
 ADAM_EPS = 1e-9
@@ -1659,6 +1727,7 @@ def phase_card_vs_cpu(gen, kind):
     weights, so the updates show every gradient's sign, however small the
     gradient. The CPU's step follows the card's fp32 step at ReLU inputs
     within rounding of 0 (``relu_branches``)."""
+    t_start = time.perf_counter()
     spec = trainer(kind)
     b, text_len, mel_len, frames = CPU_STEP_BATCH
     fp32 = dict(spec["no_dropout"], amp=False, warmup_step=10)
@@ -1818,18 +1887,16 @@ def phase_card_vs_cpu(gen, kind):
           and abs(norm - ref_norm) <= 0.05 * ref_norm
           and norm_rel <= 0.05,
           f"{kind}: card bf16 amp step disagrees with the CPU's")
+    print(f"{kind} card-vs-CPU steps: {time.perf_counter() - t_start:.1f} s")
 
 
-def phase_train_step(batch, kind):
-    """The main path of a flagship's training at full width, bf16 amp,
-    dropout 0.1, on a fixed batch (TRAIN_BATCH); 3 warm-up steps, then 10
-    timed ones with every launch count set to 0 just before; then 20
-    steps with warmup_step 100 whose loss must fall. The peak memory is
-    also given as the step's own, over what earlier phases hold. Returns
-    the timed run's launch counts and the kernel path's forward and
-    backward inputs of the first decoder layer in the last warm-up step."""
+def train_run(kind, batch) -> dict:
+    """A bf16 train state of ``kind`` at full width, dropout 0.1, after 3
+    warm-up steps on ``batch``, the last one's kernel path calls captured
+    (the first decoder layer's forward, and its backward, which runs
+    last): {kind, hp, spec, state, step, batch, held: the card bytes it
+    holds, fwd_inputs, bwd_inputs}."""
     spec = trainer(kind)
-    b, text_len, mel_len, _ = TRAIN_BATCH
     gc.collect()        # the models earlier checks left in reference cycles
     resident = torch.cuda.memory_allocated()    # what earlier phases hold
     hp = spec["hparams"]()
@@ -1840,14 +1907,36 @@ def phase_train_step(batch, kind):
         if i == 2:      # the last warm-up step's kernel inputs
             with capture_calls(*spec["fwd_call"], fwd_calls), \
                     capture_calls(*spec["bwd_call"], bwd_calls):
-                state, logs = step(state, batch)
+                state, _ = step(state, batch)
         else:
-            state, logs = step(state, batch)
+            state, _ = step(state, batch)
     torch.cuda.synchronize()
+    check(len(fwd_calls) == hp.n_layer_decoder
+          and len(bwd_calls) == hp.n_layer_decoder,
+          f"{kind}: kernel path calls per step")
+    run = dict(kind=kind, hp=hp, spec=spec, state=state, step=step,
+               batch=batch, fwd_inputs=fwd_calls[0],
+               bwd_inputs=bwd_calls[-1])
+    del fwd_calls, bwd_calls            # the other layers' inputs
+    run["held"] = torch.cuda.memory_allocated() - resident
+    return run
 
+
+def time_train_steps(run) -> dict:
+    """10 timed steps of ``run`` (``train_run``'s, whose state they
+    advance), with the peak memory reset and every launch count set to 0
+    just before: each step must launch the kind's kernels once per
+    decoder layer and no other, the losses must be finite. Returns ms
+    (the median by CUDA events), step_ms (each), frames_s (valid mel
+    frames), own_gb (the peak over what the card holds besides the run:
+    weights, optimizer, activations), other_gb (that), launches (the
+    run's), per_step, want, losses and terms (the last step's logs)."""
+    kind, hp, step, batch = run["kind"], run["hp"], run["step"], run["batch"]
+    gc.collect()
+    other = torch.cuda.memory_allocated() - run["held"]
     torch.cuda.reset_peak_memory_stats()
     set_counts({})                          # the main path starts here
-    per_step, times, losses = [], [], []
+    state, per_step, times, losses = run["state"], [], [], []
     for _ in range(10):
         before = read_counts()
         start = torch.cuda.Event(enable_timing=True)
@@ -1856,38 +1945,56 @@ def phase_train_step(batch, kind):
         state, logs = step(state, batch)
         end.record()
         losses.append(logs["loss_total"])
-        per_step.append({k: n - before[k] for k, n in read_counts().items()})
+        per_step.append({k: c - before[k] for k, c in read_counts().items()})
         times.append((start, end))
     torch.cuda.synchronize()
     launches = read_counts()                # it ends here
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    own_gb = peak_gb - resident / 1e9
-    ms = statistics.median(s.elapsed_time(e) for s, e in times)
+    run["state"] = state
+    own_gb = (torch.cuda.max_memory_allocated() - other) / 1e9
+    step_ms = [s.elapsed_time(e) for s, e in times]
+    ms = statistics.median(step_ms)
     losses = torch.stack(losses).float().cpu()
-    frames_valid = int((batch["pos_mel"] > 0).sum())
-    print(f"{kind} train step B={b} L={text_len} T={mel_len} bf16 amp "
-          f"dropout 0.1: {ms:.3f} ms/step (median of 10), {frames_valid} "
-          f"valid mel frames = {frames_valid / ms * 1e3:.0f} frames/s "
-          f"({b * mel_len / ms * 1e3:.0f} bucket frames/s), peak memory "
-          f"{peak_gb:.2f} GB = the step's own {own_gb:.3f} GB (weights, "
-          f"optimizer, activations) over {resident / 1e9:.3f} GB that "
-          f"earlier phases hold; losses "
-          f"{[round(x, 4) for x in losses.tolist()]}")
     want = {k: 0 for k in counters()}
-    want.update({k: hp.n_layer_decoder for k in spec["step_kernels"]})
-    print(f"{kind} train main path: launches per step "
-          f"{json.dumps(per_step[0])} (expect {json.dumps(want)}), total "
-          f"{json.dumps(launches)}")
+    want.update({k: hp.n_layer_decoder for k in run["spec"]["step_kernels"]})
     check(all(c == want for c in per_step),
           f"{kind} train step launches {per_step} differ from {want}")
     check(bool(torch.isfinite(losses).all()), f"{kind}: non-finite loss")
-    check(len(fwd_calls) == hp.n_layer_decoder
-          and len(bwd_calls) == hp.n_layer_decoder,
-          f"{kind}: kernel path calls per step")
-    fwd_inputs = fwd_calls[0]         # the first decoder layer's forward
-    bwd_inputs = bwd_calls[-1]        # and its backward, which runs last
-    PROFILES.append(partial(profile_train_step, kind, batch, ms))
-    del state, step
+    return dict(ms=ms, step_ms=step_ms,
+                frames_s=int((batch["pos_mel"] > 0).sum()) / ms * 1e3,
+                own_gb=own_gb, other_gb=other / 1e9, launches=launches,
+                per_step=per_step, want=want, losses=losses,
+                terms={k: round(float(v), 4) for k, v in logs.items()})
+
+
+def phase_train_step(batch, kind):
+    """The main path of a flagship's training at full width, bf16 amp,
+    dropout 0.1, on a fixed batch (TRAIN_BATCH): ``train_run``'s 3
+    warm-up steps, then ``time_train_steps``' 10, kept for
+    ``profile_train_step``; then 20 steps from a new state with
+    warmup_step 100 whose loss must fall. The peak memory is also given as
+    the step's own, over what earlier phases hold. Returns the timed
+    run's launch counts and the kernel path's forward and backward inputs
+    of the first decoder layer in the last warm-up step."""
+    t_start = time.perf_counter()
+    b, text_len, mel_len, _ = TRAIN_BATCH
+    run = train_run(kind, batch)
+    r = time_train_steps(run)
+    ms, frames_valid = r["ms"], int((batch["pos_mel"] > 0).sum())
+    print(f"{kind} train step B={b} L={text_len} T={mel_len} bf16 amp "
+          f"dropout 0.1: {ms:.3f} ms/step (median of 10), {frames_valid} "
+          f"valid mel frames = {r['frames_s']:.0f} frames/s "
+          f"({b * mel_len / ms * 1e3:.0f} bucket frames/s), peak memory "
+          f"{r['own_gb'] + r['other_gb']:.2f} GB = the step's own "
+          f"{r['own_gb']:.3f} GB (weights, optimizer, activations) over "
+          f"{r['other_gb']:.3f} GB that earlier phases hold; losses "
+          f"{[round(x, 4) for x in r['losses'].tolist()]}")
+    print(f"{kind} train main path: launches per step "
+          f"{json.dumps(r['per_step'][0])} (expect {json.dumps(r['want'])}),"
+          f" total {json.dumps(r['launches'])}")
+    PROFILES.append(partial(profile_train_step, run, ms))
+    fwd_inputs, bwd_inputs = run["fwd_inputs"], run["bwd_inputs"]
+    spec = run["spec"]
+    del run
     torch.cuda.empty_cache()
 
     hp = spec["hparams"](warmup_step=100)
@@ -1905,19 +2012,15 @@ def phase_train_step(batch, kind):
           f"{kind}: the loss did not fall over 20 steps")
     del state, step
     torch.cuda.empty_cache()
-    return launches, fwd_inputs, bwd_inputs
+    print(f"{kind} train step phase: {time.perf_counter() - t_start:.1f} s")
+    return r["launches"], fwd_inputs, bwd_inputs
 
 
-def profile_train_step(kind, batch, ms_per_step):
-    """``print_profile`` of 3 train steps of ``kind`` on ``batch``, from a
-    fresh state after 3 warm-up steps."""
-    spec = trainer(kind)
-    hp = spec["hparams"]()
-    state = spec["init"](hp, device=DEVICE)
-    step = spec["make_step"](hp, device=DEVICE)
-    for _ in range(3):
-        state, _ = step(state, batch)
-    print_profile(f"the {kind} train step", partial(step, state, batch), 3,
+def profile_train_step(run, ms_per_step):
+    """``print_profile`` of one train step of ``run`` (``train_run``'s),
+    going on from the state its timed steps left (warm)."""
+    print_profile(f"the {run['kind']} train step",
+                  partial(run["step"], run["state"], run["batch"]), 1,
                   ms_per_step)
 
 
@@ -1948,9 +2051,12 @@ def write_train_corpus(gen, hp, root):
     return script
 
 
+TRAIN_CLIS = {}                 # kind -> what phase_train_clis runs
+
+
 def phase_train_cli(gen, kind):
-    """cli/train.py for 3 steps on a synthetic corpus, then cli/synthesize.py
-    on the checkpoint it saved."""
+    """Write ``kind``'s synthetic corpus, hparams and test script for
+    ``phase_train_clis``, which runs every kind's CLIs at once."""
     hp = trainer(kind)["hparams"]()
     work = os.path.join(WORK, f"train_{kind}")
     script = write_train_corpus(gen, hp, os.path.join(work, "corpus"))
@@ -1965,48 +2071,61 @@ def phase_train_cli(gen, kind):
                                batch_size=CLI_CORPUS[2], max_epoch=1,
                                save_per_epoch=1).items():
             fh.write(f"{key} = {value!r}\n")
-    proc = subprocess.run(
-        [sys.executable, "-m", "transformer_tts_tpu_torch.cli.train",
-         "--hp_file", hp_file, "--max_steps", "3", "--device", DEVICE],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    steps = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("epoch 1 step")]
-    print("\n".join(steps))
-    check(proc.returncode == 0, f"{kind} train CLI exit {proc.returncode}: "
-          f"{proc.stderr[-2000:]}")
-    check(len(steps) == 3, f"{kind} train CLI did not log 3 steps")
-    load_dir = os.path.join(save_dir, "epoch_1")
-    check(os.path.exists(os.path.join(load_dir, "model.pt"))
-          and os.path.exists(os.path.join(load_dir, "hparams.py")),
-          f"{kind} train CLI saved no checkpoint")
     test_script = os.path.join(work, "test.txt")
     with open(script) as src, open(test_script, "w") as dst:
         dst.write("".join(src.readlines()[:3]))
-    out_dir = os.path.join(work, "generated")
     flags = []
     if hp.gst:                  # the style of a reference mel
         flags = ["--ref_mel", os.path.join(work, "ref.npy")]
         np.save(flags[1], torch.randn(GST_REF_FRAMES[1], hp.mel_dim,
                                       generator=gen).numpy())
-    proc = subprocess.run(
-        [sys.executable, "-m", "transformer_tts_tpu_torch.cli.synthesize",
-         "--load_name", load_dir, "--test_script", test_script, "--save",
-         out_dir, "--max_frames", "2048", "--device", DEVICE, *flags],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"{kind} synthesis CLI on the trained "
-          f"checkpoint exit {proc.returncode}: {proc.stderr[-2000:]}")
-    frames = []
-    for i in range(3):
-        mel = np.load(os.path.join(out_dir, f"{i}.npy"))
-        frames.append(mel.shape[0])
-        check(mel.ndim == 2 and mel.shape[1] == hp.mel_dim
-              and mel.shape[0] > 0 and bool(np.isfinite(mel).all()),
-              f"{kind} synthesis from the trained checkpoint: mel {i} "
-              f"{mel.shape}")
-    print(f"{kind} train CLI: 3 steps, checkpoint "
-          f"{os.path.relpath(load_dir, ROOT)}; synthesis CLI "
-          f"{' '.join(flags[:1])} read it and wrote 3 mels of {frames} "
-          f"frames")
+    TRAIN_CLIS[kind] = dict(hp=hp, hp_file=hp_file, test_script=test_script,
+                            load_dir=os.path.join(save_dir, "epoch_1"),
+                            out_dir=os.path.join(work, "generated"),
+                            flags=flags)
+
+
+def phase_train_clis(extra: dict) -> dict:
+    """cli/train.py for 3 steps on each prepared kind's corpus, and the
+    ``extra`` runs ({name: argv}), all at once; then cli/synthesize.py on
+    each kind's checkpoint, all at once: each must exit 0, log 3 steps,
+    save its checkpoint and write 3 finite mels. Returns the extra runs'
+    output."""
+    outs = run_clis(dict({
+        f"{kind} train CLI": ["transformer_tts_tpu_torch.cli.train",
+                              "--hp_file", c["hp_file"], "--max_steps", "3",
+                              "--device", DEVICE]
+        for kind, c in TRAIN_CLIS.items()}, **extra))
+    for kind, c in TRAIN_CLIS.items():
+        steps = [ln for ln in outs[f"{kind} train CLI"].splitlines()
+                 if ln.startswith("epoch 1 step")]
+        print("\n".join(steps))
+        check(len(steps) == 3, f"{kind} train CLI did not log 3 steps")
+        check(os.path.exists(os.path.join(c["load_dir"], "model.pt"))
+              and os.path.exists(os.path.join(c["load_dir"], "hparams.py")),
+              f"{kind} train CLI saved no checkpoint")
+    run_clis({
+        f"{kind} synthesis CLI on the trained checkpoint": [
+            "transformer_tts_tpu_torch.cli.synthesize", "--load_name",
+            c["load_dir"], "--test_script", c["test_script"], "--save",
+            c["out_dir"], "--max_frames", "2048", "--device", DEVICE,
+            *c["flags"]]
+        for kind, c in TRAIN_CLIS.items()})
+    for kind, c in TRAIN_CLIS.items():
+        frames = []
+        for i in range(3):
+            mel = np.load(os.path.join(c["out_dir"], f"{i}.npy"))
+            frames.append(mel.shape[0])
+            check(mel.ndim == 2 and mel.shape[1] == c["hp"].mel_dim
+                  and mel.shape[0] > 0 and bool(np.isfinite(mel).all()),
+                  f"{kind} synthesis from the trained checkpoint: mel {i} "
+                  f"{mel.shape}")
+        print(f"{kind} train CLI: 3 steps, checkpoint "
+              f"{os.path.relpath(c['load_dir'], ROOT)}; synthesis CLI "
+              f"{' '.join(c['flags'][:1])} read it and wrote 3 mels of "
+              f"{frames} frames")
+    TRAIN_CLIS.clear()
+    return {name: outs[name] for name in extra}
 
 
 # ---- phase 6: the AR Transformer-TTS ----------------------------------------
@@ -2241,7 +2360,8 @@ def phase_ar_synthesis(gen):
     graph's mel and lengths must equal the eager loop's bit for bit. Times
     at AR_STOP_BIAS, the graph's the median of 3 calls, the eager loop's
     of one (~10 ms a step): ms per call and per decode step, RTF; then
-    one graphed B=8 call under the profiler."""
+    a graphed call of PROFILE_AR_STEPS at each batch size timed, for its
+    profile (run last)."""
     from transformer_tts_tpu_torch.infer.synthesize import (
         MAX_AR_STEPS, synthesize_transformer_tts)
     hp, model = ar_model(DEVICE, amp=True)
@@ -2312,33 +2432,40 @@ def phase_ar_synthesis(gen):
               f"{lengths.sum().item()} frames = {audio_s:.3f} s audio, RTF "
               f"{ms / 1e3 / audio_s:.6f}")
     for text, pos in batches:
-        PROFILES.append(partial(profile_ar_synthesis, (text, pos),
-                                results[text.shape[0], "graph"][0]))
+        # the profiled call: PROFILE_AR_STEPS groups, timed here (a
+        # timing may not follow a profile), its graphs captured here
+        ms, _ = wall_ms(lambda: synthesize_transformer_tts(
+            model, text, pos, max_steps=PROFILE_AR_STEPS), 3, warmup=1)
+        PROFILES.append(partial(profile_ar_synthesis, model, (text, pos),
+                                ms))
     del model
     torch.cuda.empty_cache()
 
 
-def profile_ar_synthesis(batch, ms_per_call):
+PROFILE_AR_STEPS = 100          # decode groups of the profiled AR calls
+
+
+def profile_ar_synthesis(model, batch, ms_per_call):
     """``print_profile`` of one graphed ``synthesize_transformer_tts`` call
-    on ``batch`` (text, positions) at AR_STOP_BIAS, after the call that
-    captures its graphs; then the device operations per decode step (all
-    of the call's over its MAX_AR_STEPS steps; the encoder and postnet add
-    a few dozen), the copy kernels among them, and the bf16 weight copies
-    the graph reads in place of as many per-step casts."""
+    of PROFILE_AR_STEPS groups, of ``model`` (the AR synthesis phase's,
+    its stop bias back at AR_STOP_BIAS, its graphs at that length captured
+    there) on ``batch`` (text, positions); then the device operations per
+    decode step (all of the call's over its PROFILE_AR_STEPS steps; the
+    encoder and postnet add a few dozen), the copy kernels among them, and
+    the bf16 weight copies the graph reads in place of as many per-step
+    casts."""
     from transformer_tts_tpu_torch.infer import synthesize as synth
-    _, model = ar_model(DEVICE, amp=True)
-    with torch.no_grad():
-        model.stop_token.bias.fill_(AR_STOP_BIAS)
-    call = partial(synth.synthesize_transformer_tts, model, *batch)
-    call()
+    steps = PROFILE_AR_STEPS
+    call = partial(synth.synthesize_transformer_tts, model, *batch,
+                   max_steps=steps)
     b = batch[0].shape[0]
-    ops = print_profile(f"AR graphed synthesis B={b}, one call", call, 1,
-                        ms_per_call)
-    steps = synth.MAX_AR_STEPS
+    ops = print_profile(f"AR graphed synthesis B={b}, one call of {steps} "
+                        f"steps", call, 1, ms_per_call)
     per_step = sum(e.count for e in ops) / steps
     copies = sum(e.count for e in ops if "copy" in e.key.lower()) / steps
     slots = sum(len(g.weights.slots)
-                for g in synth._AR_GRAPHS[model].values())
+                for key, g in synth._AR_GRAPHS[model].items()
+                if key[0] == b and key[2] == steps)
     print(f"AR graphed synthesis B={b}: {per_step:.1f} device operations "
           f"per decode step, {copies:.1f} of them copy kernels; the graph "
           f"reads {slots} bf16 weight copies (DecodeWeights) instead of "
@@ -2511,14 +2638,10 @@ def run_clis(runs: dict) -> dict:
     return outs
 
 
-def phase_sq_clis(gen):
-    """cli/train.py on a synthetic corpus (CLI_CORPUS) for two epochs, a
-    save each, for the SQ-VAE FastSpeech 2 and the transformer flagship,
-    and for one step of a use_sq_vae FastSpeech 2, the three at once; then
-    cli/average_checkpoints.py --last 2 on both two-epoch runs, each
-    average equal to the float64 mean of its two epochs' state_dicts (the
-    integer buffers the newest epoch's); then cli/synthesize.py on the
-    transformer flagship's average."""
+def prepare_sq_clis(gen) -> dict:
+    """The training CLIs of ``phase_sq_clis`` (a synthetic corpus of
+    CLI_CORPUS, their hparams): {"runs": {name: argv}, "work", "script",
+    "hp"}; ``phase_train_clis`` runs them with the others."""
     work = os.path.join(WORK, "sq_clis")
     hp = train_hparams()
     script = write_train_corpus(gen, hp, os.path.join(work, "corpus"))
@@ -2535,7 +2658,19 @@ def phase_sq_clis(gen):
                 fh.write(f"{key} = {value!r}\n")
         runs[name] = ["transformer_tts_tpu_torch.cli.train", "--hp_file",
                       hp_file, "--device", DEVICE, *flags]
-    outs = run_clis(runs)
+    return dict(runs=runs, work=work, script=script, hp=hp)
+
+
+def phase_sq_clis(sq: dict, outs: dict):
+    """Of the runs ``prepare_sq_clis`` made, ``outs`` their output:
+    cli/train.py on a synthetic corpus for two epochs, a save each, for
+    the SQ-VAE FastSpeech 2 and the transformer flagship, and for one step
+    of a use_sq_vae FastSpeech 2 (run at once with the other training
+    CLIs); then cli/average_checkpoints.py --last 2 on both two-epoch
+    runs, each average equal to the float64 mean of its two epochs'
+    state_dicts (the integer buffers the newest epoch's); then
+    cli/synthesize.py on the transformer flagship's average."""
+    work, script, hp = sq["work"], sq["script"], sq["hp"]
     for name, out in outs.items():
         steps = [ln for ln in out.splitlines() if ln.startswith("epoch ")
                  and " step " in ln]
@@ -3516,7 +3651,7 @@ def phase_vocoder_step(gen):
           f"{GAN_BATCH * seg / ms * 1e3:.0f} samples/s, peak memory "
           f"{peak_gb:.2f} GB; last losses "
           + ", ".join(f"{k} {float(v):.4f}" for k, v in logs.items()))
-    PROFILES.append(partial(profile_vocoder_step, audio, ms))
+    PROFILES.append(partial(profile_vocoder_step, audio, ms, state, step))
     del state, step
     torch.cuda.empty_cache()
 
@@ -3602,17 +3737,12 @@ def phase_vocoder_card_vs_cpu(gen):
     check(update_rel <= 1e-3, "vocoder step: card updates disagree")
 
 
-def profile_vocoder_step(audio, ms_per_step):
-    from transformer_tts_tpu_torch.vocoder import trainer as vt
-    hp = vocoder_hparams(amp=True)
-    state = vt.init_vocoder_state(hp, hp.vocoder_segment_size,
-                                  device=DEVICE)
-    step = vt.make_vocoder_train_step(hp, mel_config(hp, state.generator))
+def profile_vocoder_step(audio, ms_per_step, state, step):
+    """``print_profile`` of one GAN step going on from the timed run's
+    state."""
     with cudnn_tf32(True):
-        for _ in range(3):
-            step(state, audio)
         print_profile("the vocoder GAN step", partial(step, state, audio),
-                      3, ms_per_step)
+                      1, ms_per_step)
 
 
 def run_cli(module: str, *args) -> str:
@@ -3629,9 +3759,10 @@ def run_cli(module: str, *args) -> str:
 
 def phase_vocoder_clis(gen):
     """prepare_data on WAVs written here, train_vocoder for 3 steps with a
-    save, then synthesize --vocoder and --wav on the transformer
-    flagship's checkpoint of phase 4(c), all on the card; every WAV's
-    length and values checked. Then load_reference_checkpoint of a
+    save and synthesize --wav on the transformer flagship's checkpoint of
+    phase 4(c), the three at once, then synthesize --vocoder on it with
+    the vocoder trained, all on the card; every WAV's length and values
+    checked. Then load_reference_checkpoint of a
     ``module.``-prefixed file of that checkpoint."""
     from transformer_tts_tpu_torch.compat.torch_import import (
         load_reference_checkpoint)
@@ -3648,8 +3779,28 @@ def phase_vocoder_clis(gen):
     with open(wav_script, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     feats = os.path.join(work, "features")
-    run_cli("prepare_data", "--wav_script", wav_script, "--out_dir", feats,
-            "--device", DEVICE)
+    voc_dir = os.path.join(work, "train")
+    hp_file = os.path.join(work, "hparams.py")
+    with open(hp_file, "w") as fh:
+        for key, value in dict(FLAGSHIP, save_dir=voc_dir).items():
+            fh.write(f"{key} = {value!r}\n")
+    model_dir = os.path.join(WORK, "transformer", "model")
+    cli = "transformer_tts_tpu_torch.cli."
+    # the three that need nothing of each other at once
+    outs = run_clis({
+        "prepare_data": [cli + "prepare_data", "--wav_script", wav_script,
+                         "--out_dir", feats, "--device", DEVICE],
+        "train_vocoder": [cli + "train_vocoder", "--hp_file", hp_file,
+                          "--wav_script", wav_script, "--max_steps", "3",
+                          "--save_every", "3", "--batch_size", "4",
+                          "--device", DEVICE],
+        "synthesize --wav": [cli + "synthesize", "--load_name", model_dir,
+                             "--save", os.path.join(work, "griffin_lim"),
+                             "--max_frames", "2048", "--device", DEVICE,
+                             "--wav"]})
+    for name, out in outs.items():
+        print(f"cli.{name}: exit 0; "
+              + " | ".join(out.strip().splitlines()[-3:]))
     for i, seconds in enumerate(CLI_WAVS):
         frames = int(seconds * SAMPLE_RATE) // 256 + 1
         arrays = [np.load(os.path.join(feats, f"utt{i}{s}.npy"))
@@ -3663,26 +3814,18 @@ def phase_vocoder_clis(gen):
         check(os.path.exists(os.path.join(feats, name)),
               f"prepare_data wrote no {name}")
 
-    voc_dir = os.path.join(work, "train")
-    hp_file = os.path.join(work, "hparams.py")
-    with open(hp_file, "w") as fh:
-        for key, value in dict(FLAGSHIP, save_dir=voc_dir).items():
-            fh.write(f"{key} = {value!r}\n")
-    run_cli("train_vocoder", "--hp_file", hp_file, "--wav_script",
-            wav_script, "--max_steps", 3, "--save_every", 3,
-            "--batch_size", 4, "--device", DEVICE)
     export = os.path.join(voc_dir, "generator")
     check(os.path.exists(os.path.join(export, "generator.pt"))
           and os.path.exists(os.path.join(voc_dir, "vocoder_3",
                                           "train_state.pt")),
           "train_vocoder wrote no checkpoint or export")
 
-    model_dir = os.path.join(WORK, "transformer", "model")
+    run_cli("synthesize", "--load_name", model_dir, "--save",
+            os.path.join(work, "vocoded"), "--max_frames", 2048, "--device",
+            DEVICE, "--vocoder", export)
     for flags, name, short in ((["--vocoder", export], "vocoded", 0),
                                (["--wav"], "griffin_lim", 1)):
         out_dir = os.path.join(work, name)
-        run_cli("synthesize", "--load_name", model_dir, "--save", out_dir,
-                "--max_frames", 2048, "--device", DEVICE, *flags)
         for i in range(3):
             n = np.load(os.path.join(out_dir, f"{i}.npy")).shape[0]
             audio, rate = read_wav(os.path.join(out_dir, f"{i}.wav"))
@@ -4388,6 +4531,425 @@ def phase_serving(gen, smi: str) -> dict:
     return launches
 
 
+# ---- phase 18: speaker, accent and hop-size conditioning --------------------
+
+# the reference's speaker table (transformer_tts_tpu/models/encoder.py:196)
+N_SPEAKERS = 247
+XVECTOR_COND = dict(is_multi_speaker=True, spk_emb_type="x_vector",
+                    spk_emb_dim=512,
+                    spk_emb_architecture="encoder,middle,decoder",
+                    use_hop=True, CTC_training=True, use_ssim=True)
+SPKCONF_COND = dict(PATHS["conformer"][0], is_multi_speaker=True,
+                    spk_emb_type="speaker_id", spk_emb_dim=N_SPEAKERS,
+                    spk_emb_architecture="encoder,decoder", accent_emb=True,
+                    use_pos=True, use_rnn_length=True)
+AR_SPK_COND = dict(is_multi_speaker=True, spk_emb_type="speaker_id",
+                   spk_emb_dim=N_SPEAKERS,
+                   spk_emb_architecture="encoder,decoder", spk_emb_vers=1)
+AR_XVEC_V2 = dict(is_multi_speaker=True, spk_emb_type="x_vector",
+                  spk_emb_dim=512, spk_emb_vers=2)
+AR_SPK_STEPS = 200                # decode groups of the speaker AR calls
+ROW_TOL = 1e-6                    # of max|ref|: a batch row against its
+                                  # solo call at the batch's shape
+
+
+def conditioned(gen, hp, batch: dict) -> dict:
+    """``batch`` with the conditioning ``hp`` asks for, drawn from
+    ``gen``: x-vectors N(0, 1) or speaker ids, per-phone accents (0 on
+    padding) and hop-size classes."""
+    b, length = batch["text"].shape
+    device = batch["text"].device
+    out = dict(batch)
+    if hp.is_multi_speaker:
+        out["spk_emb"] = (torch.randn(b, 512, generator=gen)
+                          if hp.spk_emb_dim == 512 else
+                          torch.randint(0, hp.spk_emb_dim, (b,),
+                                        generator=gen)).to(device)
+    if hp.accent_emb:
+        n = 13 if hp.encoder_type == "conformer" else 5
+        acc = torch.randint(0, n, (b, length), generator=gen)
+        out["accent"] = (acc * (batch["text"].cpu() != 0)).to(device)
+    if hp.use_hop:
+        out["hop_size"] = torch.randint(0, 3, (b,), generator=gen).to(device)
+    return out
+
+
+def no_pos_dropout(model):
+    """The adaptor's positional encoding (a fixed dropout of 0.1, not an
+    hparam) at 0, for the card-vs-CPU step."""
+    model.variance_adaptor.pos.dropout.p = 0.0
+
+
+def speaker_rows(gen, hp, b: int) -> torch.Tensor:
+    return (torch.randn(b, 512, generator=gen) if hp.spk_emb_dim == 512
+            else torch.randperm(hp.spk_emb_dim, generator=gen)[:b])
+
+
+def phase_conditioned_training(gen, smi: str) -> tuple:
+    """18(a), training: the x-vector flagship (encoder, middle, decoder,
+    hop, CTC, SSIM) card fp32 against CPU fp32; then its bf16 step and
+    the plain flagship's on one batch at TRAIN_BATCH, 10 timed steps each
+    in turn, twice (plain, x-vector, plain, x-vector), both states kept
+    for their profiles; CTC (16 x 1024 frames, 152 classes) and the
+    conformer's LSTM (16 x 1024 x 384) forward+backward alone. Returns
+    the x-vector steps' launches and the plain batch."""
+    from transformer_tts_tpu_torch.models.variance_adaptor import UniLSTM
+    from transformer_tts_tpu_torch.train.losses import ctc_aux_loss
+    print(smi)
+    phase_card_vs_cpu(gen, "xvector")
+    b, text_len, mel_len, frames = TRAIN_BATCH
+    batch = train_batch(gen, train_hparams(), b, text_len, mel_len, frames,
+                        DEVICE)
+    cond = conditioned(gen, trainer("xvector")["hparams"](), batch)
+    runs, timed = {}, {"fastspeech2": [], "xvector": []}
+    for kind, kind_batch in (("fastspeech2", batch), ("xvector", cond)) * 2:
+        if kind not in runs:
+            runs[kind] = train_run(kind, kind_batch)
+        timed[kind].append(time_train_steps(runs[kind]))
+    ms = {kind: statistics.median(x for r in rs for x in r["step_ms"])
+          for kind, rs in timed.items()}
+    own = {kind: max(r["own_gb"] for r in rs) for kind, rs in timed.items()}
+    frames = int((batch["pos_mel"] > 0).sum())
+    for kind, rs in timed.items():
+        medians = ", ".join(f"{r['ms']:.3f}" for r in rs)
+        print(f"18(a) {kind} train step B={b} L={text_len} T={mel_len} bf16 "
+              f"amp dropout 0.1: {ms[kind]:.3f} ms/step (median of 2 x 10 "
+              f"in turn; each run's median {medians}), "
+              f"{frames / ms[kind] * 1e3:.0f} valid frames/s, the step's own "
+              f"peak memory {own[kind]:.3f} GB; last "
+              f"losses {json.dumps(rs[-1]['terms'])}; launches per step "
+              f"{json.dumps(rs[0]['per_step'][0])}")
+    print(f"18(a) conditioning costs {ms['xvector'] - ms['fastspeech2']:.3f} "
+          f"ms/step ({ms['xvector'] / ms['fastspeech2'] - 1:+.1%}) and "
+          f"{own['xvector'] - own['fastspeech2']:.3f} GB; {smi}")
+    for kind, run in runs.items():
+        PROFILES.append(partial(profile_train_step, run, ms[kind]))
+    del runs, run
+    torch.cuda.empty_cache()
+
+    logits = torch.randn(b, mel_len, 152, device=DEVICE, requires_grad=True)
+    mel_frames = (batch["pos_mel"] > 0).sum(1)
+    labels = batch["text"]
+    label_len = (labels != 0).sum(1)
+
+    def ctc_step():
+        logits.grad = None
+        ctc_aux_loss(logits, mel_frames, labels, label_len).backward()
+    ctc_ms = time_ms(ctc_step, reps=10)
+    lstm = UniLSTM(384, 384).to(DEVICE)
+    x = torch.randn(b, mel_len, 384, device=DEVICE, requires_grad=True)
+
+    def lstm_step():
+        lstm.zero_grad(set_to_none=True)
+        lstm(x).sum().backward()
+    lstm_ms = time_ms(lstm_step, reps=5)
+    print(f"18(a) CTC loss over ({b}, {mel_len}, 152) logits, forward and "
+          f"backward: {ctc_ms:.3f} ms (F.ctc_loss copies its lengths to the "
+          f"host, which waits for the stream: this includes host time); "
+          f"UniLSTM (cuDNN, fp32) over ({b}, {mel_len}, 384), forward and "
+          f"backward: {lstm_ms:.3f} ms (device time)")
+    return {f"timed steps {i + 1}": r["launches"]
+            for i, r in enumerate(timed["xvector"])}, batch
+
+
+def phase_conditioned_synthesis(gen) -> dict:
+    """18(a), synthesis: the x-vector flagship in bf16 at B=8 / 2048 frames
+    with 8 x-vectors (6 K1-90, counted from 0), timed; the same weights in
+    fp32, each of the 8 rows against its solo call padded to the batch's
+    shape (the engine's ``solo_at``), at ROW_TOL of max|ref|. Returns
+    the bf16 call's launches."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_fastspeech2)
+    hp, model = flagship_model(DEVICE, amp=True, stacks=XVECTOR_COND)
+    b, max_frames = 8, 2048
+    text, pos = text_batch(gen, b, 128, 48, hp.vocab_size)
+    text, pos = text.to(DEVICE), pos.to(DEVICE)
+    spk = speaker_rows(gen, hp, b).to(DEVICE)
+    hop = torch.randint(0, 3, (b,), generator=gen).to(DEVICE)
+
+    set_counts({})                          # this path starts here
+    mel, mel_len, _ = synthesize_fastspeech2(model, text, pos, max_frames,
+                                             spk_emb=spk, hop_size=hop)
+    torch.cuda.synchronize()
+    launches = read_counts()                # and ends here
+    check(launches["K1-90"] == hp.n_layer_decoder
+          and all(n == 0 for k, n in launches.items() if k != "K1-90"),
+          f"18(a) synthesis launches {json.dumps(launches)}")
+    check(mel.shape == (b, max_frames, hp.mel_dim)
+          and bool(torch.isfinite(mel.float()).all())
+          and int(mel_len.min()) > 0, "18(a) synthesis output")
+    _, plain = flagship_model(DEVICE, amp=True, stacks={})
+    calls = {"x-vector": lambda: synthesize_fastspeech2(
+                 model, text, pos, max_frames, spk_emb=spk, hop_size=hop),
+             "plain": lambda: synthesize_fastspeech2(plain, text, pos,
+                                                     max_frames)}
+    walls = {name: [] for name in calls}
+    for name in ("plain", "x-vector") * 2:     # in turn, for the host's drift
+        walls[name].append(wall_ms(calls[name], 5, warmup=2)[0])
+    ms = {name: statistics.median(v) for name, v in walls.items()}
+    audio_s = mel_len.sum().item() * HOP_SECONDS
+    print(f"18(a) x-vector synthesize_fastspeech2 B={b} L=128 max_frames="
+          f"{max_frames} bf16 amp, 8 x-vectors: {ms['x-vector']:.3f} ms/call "
+          f"(the mean of 2 runs' medians of 5, in turn with the plain "
+          f"flagship's call on the same text: {ms['plain']:.3f} ms, "
+          f"{ms['x-vector'] / ms['plain'] - 1:+.1%}), "
+          f"{mel_len.sum().item()} frames = {audio_s:.3f} s audio, RTF "
+          f"{ms['x-vector'] / 1e3 / audio_s:.6f}; launches "
+          f"{json.dumps(launches)}")
+    del model, plain, calls
+
+    _, model = flagship_model(DEVICE, amp=False, stacks=XVECTOR_COND)
+    with torch.no_grad():
+        ref, ref_len, _ = synthesize_fastspeech2(
+            model, text, pos, max_frames, spk_emb=spk, hop_size=hop)
+    worst = 0.0
+    for row in range(b):
+        solo_text = torch.zeros_like(text)
+        solo_pos = torch.zeros_like(pos)
+        solo_spk = torch.zeros_like(spk)
+        solo_hop = torch.zeros_like(hop)
+        solo_text[0], solo_pos[0] = text[row], pos[row]
+        solo_spk[0], solo_hop[0] = spk[row], hop[row]
+        got, got_len, _ = synthesize_fastspeech2(
+            model, solo_text, solo_pos, max_frames, spk_emb=solo_spk,
+            hop_size=solo_hop)
+        n = int(ref_len[row])
+        check(int(got_len[0]) == n, f"18(a) row {row}: {int(got_len[0])} "
+                                    f"frames alone, {n} in the batch")
+        peak = max(1.0, ref[row, :n].abs().max().item())
+        worst = max(worst, (got[0, :n] - ref[row, :n]).abs().max().item()
+                    / peak)
+    print(f"18(a) fp32 B={b} with 8 x-vectors: each row against its solo "
+          f"call padded to the batch's shape, max|d mel| {worst:.3g} of "
+          f"max|ref| (tol {ROW_TOL})")
+    check(worst <= ROW_TOL, "18(a) a row differs from its solo call")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_conditioned_conformer(gen, batch) -> dict:
+    """18(b): the conformer with 247 speaker ids in both stacks, accents,
+    use_pos and use_rnn_length: card fp32 against CPU fp32 (K4, K5), then
+    10 timed bf16 steps on ``batch`` (18(a)'s, at TRAIN_BATCH) with its
+    conditioning (6 K4-d-90 and 6 K5-90 a step; the state kept for its
+    profile), then synthesis at B=1 / 768 in bf16 (6 K4-90). Returns the
+    timed steps' and the synthesis call's launches."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_fastspeech2)
+    phase_card_vs_cpu(gen, "spkconf")
+    b, text_len, mel_len, _ = TRAIN_BATCH
+    run = train_run("spkconf", conditioned(
+        gen, trainer("spkconf")["hparams"](), batch))
+    r = time_train_steps(run)
+    PROFILES.append(partial(profile_train_step, run, r["ms"]))
+    del run
+    torch.cuda.empty_cache()
+    print(f"18(b) speaker-id conformer train step B={b} L={text_len} "
+          f"T={mel_len} bf16 amp dropout 0.1: {r['ms']:.3f} ms/step (median "
+          f"of 10), {r['frames_s']:.0f} valid frames/s, the step's own peak "
+          f"memory {r['own_gb']:.3f} GB; last losses {json.dumps(r['terms'])}"
+          f"; launches per step {json.dumps(r['per_step'][0])}")
+
+    hp, model = flagship_model(DEVICE, amp=True, stacks=SPKCONF_COND)
+    text, pos = text_batch(gen, 1, 128, 128, hp.vocab_size)
+    text, pos = text.to(DEVICE), pos.to(DEVICE)
+    spk = speaker_rows(gen, hp, 1).to(DEVICE)
+    accent = (torch.randint(0, 13, text.shape, generator=gen).to(DEVICE)
+              * (text != 0))
+    set_counts({})                          # this path starts here
+    mel, mel_len, _ = synthesize_fastspeech2(model, text, pos, 768,
+                                             spk_emb=spk, accent=accent)
+    torch.cuda.synchronize()
+    launches = read_counts()                # and ends here
+    check(launches["K4-90"] == hp.n_layer_decoder
+          and all(n == 0 for k, n in launches.items() if k != "K4-90"),
+          f"18(b) synthesis launches {json.dumps(launches)}")
+    check(bool(torch.isfinite(mel.float()).all()) and int(mel_len[0]) > 0,
+          "18(b) synthesis output")
+    ms, _ = wall_ms(lambda: synthesize_fastspeech2(
+        model, text, pos, 768, spk_emb=spk, accent=accent), 10, warmup=2)
+    print(f"18(b) speaker-id conformer synthesize_fastspeech2 B=1 L=128 "
+          f"max_frames=768 bf16 amp: {ms:.3f} ms/call (median of 10), "
+          f"{int(mel_len[0])} frames; launches {json.dumps(launches)}")
+    del model
+    torch.cuda.empty_cache()
+    return {"timed steps": r["launches"], "synthesis": launches}
+
+
+def phase_speaker_ar(gen):
+    """18(c): the AR flagship with 247 speaker ids (``spk_emb_vers`` 1 in
+    both stacks), bf16, max_steps AR_SPK_STEPS, no row stopping: graphed
+    B=8 synthesis with 8 speakers equal to the eager loop bit for bit, a
+    second graphed call with other speakers equal to its own eager call
+    (a replay that kept the first call's speakers would fail it), ms per
+    decode step beside the plain AR model's graph at the same shape; then
+    ``spk_emb_vers`` 2 (x-vectors, ``spk_proj``) teacher-forced over
+    AR_TF, card fp32 against CPU fp32 at 1e-3 of max(1, max|ref|)."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_transformer_tts)
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
+    from transformer_tts_tpu_torch.ops.masks import create_masks
+    hp = ar_hparams(amp=True, **AR_SPK_COND)
+    model = build_transformer_tts(hp, device=DEVICE).eval()
+    _, plain = ar_model(DEVICE, amp=True)
+    for m in (model, plain):
+        with torch.no_grad():
+            m.stop_token.bias.fill_(AR_STOP_BIAS)
+    text, pos = text_batch(gen, 8, 128, 48, hp.vocab_size)
+    text, pos = text.long().to(DEVICE), pos.to(DEVICE)
+    speakers = [speaker_rows(gen, hp, 8).to(DEVICE) for _ in range(2)]
+    set_counts({})                          # this path starts here
+    outs = []
+    for spk in speakers:
+        g = synthesize_transformer_tts(model, text, pos, spk_emb=spk,
+                                       max_steps=AR_SPK_STEPS)
+        g = tuple(x.clone() for x in g)
+        e = synthesize_transformer_tts(model, text, pos, spk_emb=spk,
+                                       max_steps=AR_SPK_STEPS, eager=True)
+        outs.append((g, e))
+    torch.cuda.synchronize()
+    launched = read_counts()                # and ends here
+    check(not any(launched.values()), f"18(c) launched {launched}")
+    for i, ((g_mel, g_len), (e_mel, e_len)) in enumerate(outs):
+        check(torch.equal(g_mel, e_mel) and torch.equal(g_len, e_len),
+              f"18(c) graphed call {i + 1} differs from its eager call")
+    d12 = (outs[0][0][0] - outs[1][0][0]).abs().max().item()
+    check(d12 > 1e-3, "18(c) two speaker sets gave the same mel")
+    runs = {"speakers": [], "plain": []}
+    for name in ("plain", "speakers") * 2:      # in turn, for the host's drift
+        m, kw = ((model, dict(spk_emb=speakers[0])) if name == "speakers"
+                 else (plain, {}))
+        runs[name].append(wall_ms(lambda: synthesize_transformer_tts(
+            m, text, pos, max_steps=AR_SPK_STEPS, **kw), 3, warmup=1)[0])
+    ms = {name: statistics.median(v) for name, v in runs.items()}
+    print(f"18(c) AR with {N_SPEAKERS} speaker ids B=8 max_steps "
+          f"{AR_SPK_STEPS} bf16: two graphed calls with other speakers, "
+          f"each bit for bit its eager call (the two differ by up to "
+          f"{d12:.3g}); median of 2 x 3 calls, in turn with the plain "
+          f"model: {ms['speakers']:.3f} ms/call = "
+          f"{ms['speakers'] / AR_SPK_STEPS:.4f} ms per decode step against "
+          f"the plain AR model's {ms['plain']:.3f} ms = "
+          f"{ms['plain'] / AR_SPK_STEPS:.4f} "
+          f"({ms['speakers'] / ms['plain'] - 1:+.1%})")
+    del model, plain
+    torch.cuda.empty_cache()
+
+    b, text_len, t = AR_TF
+    hp2 = ar_hparams(amp=False, **AR_XVEC_V2)
+    cpu_model = build_transformer_tts(hp2, device="cpu").eval()
+    text, pos_text = text_batch(gen, b, text_len, 100, hp2.vocab_size)
+    trg = torch.randn(b, t, hp2.mel_dim, generator=gen)
+    masks = create_masks(pos_text, group_positions([t, t - 60], t),
+                         model="transformer")
+    spk = torch.randn(b, 512, generator=gen)
+    with torch.no_grad():
+        ref = cpu_model(text.long(), trg, *masks, spk_emb=spk)
+    model = build_transformer_tts(hp2, device=DEVICE).eval()
+    with torch.no_grad():
+        out = model(text.long().to(DEVICE), trg.to(DEVICE),
+                    *(x.to(DEVICE) for x in masks), spk_emb=spk.to(DEVICE))
+    peak = max(1.0, ref.mel_post.abs().max().item())
+    err = max((out.mel_post.cpu() - ref.mel_post).abs().max().item(),
+              (out.stop_token.cpu() - ref.stop_token).abs().max().item())
+    print(f"18(c) AR spk_emb_vers 2 teacher-forced B={b} L={text_len} "
+          f"groups {t}: card fp32 vs CPU fp32 max|d| {err:.3g} (tol "
+          f"{1e-3 * peak:.3g})")
+    check(err <= 1e-3 * peak, "18(c) vers 2 card forward disagrees")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def solo_with_speaker(engine, text, speaker, bucket: int):
+    """The mel of ``text`` alone in ``speaker``'s voice, padded as the
+    engine pads a batch to ``bucket``."""
+    with engine.lock:
+        mel, mel_len, _ = engine._run_padded(
+            *engine._padded([text], engine.batch_size, bucket),
+            engine._speakers([0], [speaker], engine.batch_size))
+        return mel[0, :int(mel_len[0])].float().cpu().numpy()
+
+
+def phase_speaker_engine(gen):
+    """18(d): TTSEngine on 18(a)'s x-vector model in fp32 (SERVE): a
+    mixed batch of 8 voices, each result against its solo call at its
+    reported bucket; 4 requests through TTSServer with ``"speaker"``, each
+    against its solo call; one stream with a speaker against its one-shot
+    mel; all at SERVE_TOL of max|ref|."""
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    from transformer_tts_tpu_torch.infer.server import TTSServer
+    _, model = flagship_model(DEVICE, amp=False, stacks=XVECTOR_COND)
+    path = serving_dir("xvector_fp32", model, amp=False, **XVECTOR_COND)
+    del model
+    torch.cuda.empty_cache()
+    engine = TTSEngine(path, **SERVE, device=DEVICE)
+    engine.warmup()
+    rs = np.random.RandomState(18)
+    texts = serve_texts(rs, 8, 20, 60, 152)
+    voices = [rs.randn(512).astype(np.float32) for _ in texts]
+    t0 = time.perf_counter()
+    results = engine.synthesize(texts, voices)
+    ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for text, voice, res in zip(texts, voices, results):
+        ref = solo_with_speaker(engine, text, voice, res["bucket"])
+        check(ref.shape == res["mel"].shape, "18(d) solo length differs")
+        worst = max(worst, np.abs(res["mel"] - ref).max()
+                    / max(1.0, np.abs(ref).max()))
+
+    server = TTSServer(engine, host="127.0.0.1", port=0)
+    server.start()
+    served = 0.0
+    try:
+        for text, voice in zip(texts[:4], voices[:4]):
+            status, body = post_json(server.port, "/synthesize", {
+                "text_ids": text, "speaker": voice.tolist()})
+            check(status == 200, f"18(d) server status {status}")
+            mel = np.asarray(json.loads(body)["mel"], np.float32)
+            ref = solo_with_speaker(engine, text, voice,
+                                    engine._bucket_of(len(text)))
+            check(mel.shape == ref.shape, "18(d) served length differs")
+            served = max(served, np.abs(mel - ref).max()
+                         / max(1.0, np.abs(ref).max()))
+    finally:
+        server.stop()
+    events = list(engine.synthesize_streaming(texts[0], voices[0]))
+    mel = np.concatenate([e["mel"] for e in events if e["type"] == "mel"])
+    one = engine.synthesize([texts[0]], [voices[0]])[0]["mel"]
+    streamed = np.abs(mel - one).max() / max(1.0, np.abs(one).max())
+    print(f"18(d) x-vector engine fp32, 8 requests in 8 voices: "
+          f"{ms:.3f} ms for the call; each against its solo call at its "
+          f"bucket within {worst:.3g} of max|ref|; 4 served requests with "
+          f"\"speaker\" within {served:.3g}; a stream with a speaker within "
+          f"{streamed:.3g} of its one-shot mel (tol {SERVE_TOL})")
+    check(max(worst, served, streamed) <= SERVE_TOL,
+          "18(d) the speaker engine's results differ")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase_conditioning(smi: str) -> dict:
+    """Phase 18: speaker, accent and hop-size conditioning (data from a
+    generator of seed 18). Returns the launches of its conditioned main
+    paths (the timed train steps and the synthesis calls, each counted
+    from 0), by kernel id."""
+    gen = torch.Generator().manual_seed(18)
+    training, batch = phase_conditioned_training(gen, smi)
+    runs = [training, {"synthesis": phase_conditioned_synthesis(gen)},
+            phase_conditioned_conformer(gen, batch)]
+    phase_speaker_ar(gen)
+    phase_speaker_engine(gen)
+    total = {}
+    for run in runs:
+        for counts in run.values():
+            for kid, n in counts.items():
+                total[kid] = total.get(kid, 0) + n
+    for kid in ("K1-90", "K1-d-90", "K2-90", "K4-90", "K4-d-90", "K5-90"):
+        check(total.get(kid, 0) > 0, f"phase 18: {kid} did not launch")
+    return total
+
+
 def worst_err(errs: dict, peaks: dict, names) -> dict:
     """The error of the entry's worst output among ``names``, the one
     with the largest err / max|ref|: its max abs error, its own max|ref|
@@ -4544,6 +5106,9 @@ def main():
         phase_card_vs_cpu(new_gen, "gst")
         phase_train_step(ar_batch, "gst")
         phase_train_cli(new_gen, "gst")
+    sq_clis = prepare_sq_clis(new_gen)
+    with phase("train CLIs of 5, 6, 15 and 16"):
+        sq_outs = phase_train_clis(sq_clis["runs"])
     with phase("SQ-VAE FastSpeech 2"):
         phase_sq_forward(new_gen)
         _, model, _, _ = phase_synthesis(new_gen, "sq", SQ_STACKS, "K1-90")
@@ -4552,9 +5117,13 @@ def main():
         with fixed_gumbel(new_gen):
             phase_card_vs_cpu(new_gen, "sq")
         phase_train_step(batch, "sq")
-        phase_sq_clis(new_gen)
+        phase_sq_clis(sq_clis, sq_outs)
     with phase("serving"):
         engine_launches = phase_serving(new_gen, smi)
+    with phase("conditioning"):
+        cond_launches = phase_conditioning(smi)
+    print("phase 18 launches, each main path counted from 0, summed: "
+          + json.dumps(cond_launches))
 
     lines = []
     with phase("kernels at their main paths' inputs"):
@@ -4579,8 +5148,9 @@ def main():
                     print(f"{kid} library yardstick leaves out building its "
                           f"bias: {res['bias_ms']:.4f} ms")
                 _, _, name, source, replaces, _ = registry[kid]
-                lines.append(kernels_line_entry(name, source, replaces,
-                                                launches[kid], res))
+                lines.append(kernels_line_entry(
+                    name, source, replaces,
+                    launches[kid] + cond_launches.get(kid, 0), res))
             print(f"A/B at the B=8 synthesis call's first decoder "
                   f"layer: {path_kid} {ab[path_kid]['ms']:.4f} ms against "
                   f"the simple {simple} {ab[simple]['ms']:.4f} ms "
@@ -4610,8 +5180,9 @@ def main():
                   f"{res['max_abs_err']:.3g} (max|ref| "
                   f"{res['max_abs_ref']:.3g}{of_tensor(res)}), launches "
                   f"{launches}")
-            lines.append(kernels_line_entry(name, source, replaces,
-                                            launches, res))
+            lines.append(kernels_line_entry(
+                name, source, replaces,
+                launches + cond_launches.get(kid, 0), res))
         bias_res, bias_launches = bias_kernel_timings(conf_fwd_inputs,
                                                       conf_bwd_inputs)
         q, k_len = conf_fwd_inputs[0][0], conf_fwd_inputs[0][-1]
@@ -4631,8 +5202,13 @@ def main():
     with phase("attention paths"):
         phase_attention_paths(gen)
     with phase("profiles"):
-        for run_profile in PROFILES:
-            run_profile()
+        seconds = []
+        while PROFILES:
+            t0 = time.perf_counter()
+            PROFILES.pop(0)()           # each frees what it held once run
+            seconds.append(time.perf_counter() - t0)
+        print("profile wall times (s): " + ", ".join(
+            f"{sec:.1f}" for sec in seconds))
 
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in PHASE_TIMES)

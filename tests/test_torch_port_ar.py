@@ -669,6 +669,14 @@ def test_ar_options_of_later_slices_raise(option):
             state, _ar_batch(t=40, frames=(30, 21)))
         assert state.step == 1 and np.isfinite(float(logs["loss_total"]))
         return
+    if hp.is_multi_speaker:
+        # speakers are ported (tests/test_torch_port_speakers_serving.py);
+        # without spk_emb_dim there is no table
+        with pytest.raises(ValueError, match="spk_emb_dim"):
+            build_transformer_tts(hp, device="cpu")
+        with pytest.raises(ValueError, match="spk_emb_dim"):
+            make_transformer_train_step(hp, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="AR model"):
         build_transformer_tts(hp, device="cpu")
     with pytest.raises(NotImplementedError, match="AR model"):

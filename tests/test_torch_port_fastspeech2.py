@@ -226,6 +226,21 @@ def test_options_of_later_slices_raise(option):
             model, text, torch.arange(1, 5)[None], 32)
         assert mel.shape == (1, 32, 16) and bool(torch.isfinite(mel).all())
         return
+    if option.keys() & {"use_pos", "use_hop", "CTC_training"}:
+        # ported (tests/test_torch_port_conditioning.py): the model builds
+        # and synthesizes
+        model = build_fastspeech2(hp, device="cpu")
+        kw = {"hop_size": torch.tensor([2])} if hp.use_hop else {}
+        mel, _, _ = synthesize_fastspeech2(
+            model, torch.tensor([[3, 5, 7, 9]]), torch.arange(1, 5)[None],
+            32, **kw)
+        assert mel.shape == (1, 32, 16) and bool(torch.isfinite(mel).all())
+        return
+    if option.get("is_multi_speaker"):
+        # speakers are ported; without spk_emb_dim there is no table
+        with pytest.raises(ValueError, match="spk_emb_dim"):
+            build_fastspeech2(hp, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         build_fastspeech2(hp, device="cpu")
 

@@ -41,12 +41,23 @@ from torch_port_pair import (
     TINY_VOCODER, assert_results_match, build_ar_pair, build_pair,
     engine_pair)
 
+# speaker tables of 12 rows (384 values at d 32: quantized at SMALL_LEAF)
+SPEAKER_IDS = dict(is_multi_speaker=True, spk_emb_type="speaker_id",
+                   spk_emb_dim=12, spk_emb_architecture="encoder,decoder")
 MODELS = {
     "transformer": (build_pair, {}),
     "conformer": (build_pair, CONFORMER),
     "sq": (build_pair, dict(model="SQFastSpeech2")),
     "ar": (build_ar_pair, {}),
     "gst": (build_ar_pair, dict(gst=True)),
+    "speakers-transformer": (build_pair, dict(
+        is_multi_speaker=True, spk_emb_type="x_vector", spk_emb_dim=512,
+        spk_emb_architecture="encoder,middle,decoder", use_hop=True,
+        accent_emb=True, CTC_training=True, use_pos=True,
+        use_rnn_length=True)),
+    "speakers-conformer": (build_pair, dict(
+        SPEAKER_IDS, accent_emb=True, use_rnn_length=True, **CONFORMER)),
+    "speakers-ar": (build_ar_pair, SPEAKER_IDS),
 }
 SMALL_LEAF = 256          # below every table of the small models
 
@@ -155,6 +166,31 @@ def test_a_per_row_embedding_scale_fails():
     bad = dict(layouts, **{emb: [QLeaf(2, 0)]})
     with pytest.raises(AssertionError, match=emb):
         _assert_same_as_jax(params, convert, bad, SMALL_LEAF)
+
+
+@pytest.mark.parametrize("case,table", [
+    ("speakers-conformer", "encoder.layers.0.multi_emb.weight"),
+    ("speakers-conformer", "encoder.acc_embed.weight"),
+    ("speakers-ar", "decoder.layers.1.spk_bias.multi_emb.weight")])
+def test_a_per_row_speaker_or_accent_scale_fails(case, table):
+    """Speaker and accent tables scale per feature column, as JAX's
+    ``quantize_tree`` scales an ``Embed``; per row fails."""
+    _, params, convert, layouts = CASES[case]()
+    assert layouts[table] == [QLeaf(2, 1)]
+    _assert_same_as_jax(params, convert, layouts, SMALL_LEAF)
+    bad = dict(layouts, **{table: [QLeaf(2, 0)]})
+    with pytest.raises(AssertionError, match=table):
+        _assert_same_as_jax(params, convert, bad, SMALL_LEAF)
+
+
+def test_lstm_gates_quantize_per_gate_row():
+    """The LSTM's stacked gates hold four flax kernels each, scaled per
+    output row as JAX scales each kernel."""
+    _, params, convert, layouts = CASES["speakers-conformer"]()
+    name = "variance_adaptor.rnn_length.weight_ih_l0"
+    assert layouts[name] == [QLeaf(2, 0, blocks=4)] * 4
+    ours = quantize_state_dict(convert(params), layouts, min_size=SMALL_LEAF)
+    assert is_quantized(ours[name])
 
 
 def test_dequantized_values_are_within_half_a_step():

@@ -90,13 +90,15 @@ REFUSALS = {
     "ref_mel-without-gst": ({}, dict(ref_mel="r.npy"), ValueError,
                             "gst is off"),
     "sq-vae": (dict(model="SQFastSpeech2"), {}, ValueError, "SQ-VAE"),
+    # speakers are served (tests/test_torch_port_speakers_serving.py);
+    # these two hparams name no table the model could build
     "multi-speaker": (dict(is_multi_speaker=True, num_speakers=4,
                            spk_emb_type="speaker_id",
                            spk_emb_architecture=("encoder",)), {},
-                      NotImplementedError, "other model families"),
+                      ValueError, "spk_emb_dim"),
     "x-vector": (dict(is_multi_speaker=True, spk_emb_type="x_vector",
                       spk_emb_dim=16, spk_emb_architecture=("middle",)), {},
-                 NotImplementedError, "other model families"),
+                 ValueError, "must be 512"),
     "text-mel-mel": (dict(architecture="text-mel-mel", version=3), {},
                      NotImplementedError, "mel-to-mel post-processing"),
     "post_model": ({}, dict(post_model="post"), NotImplementedError,

@@ -125,6 +125,24 @@ def test_losses_of_later_slices_raise(option):
             np.testing.assert_allclose(float(ours[key]), float(ref[key]),
                                        rtol=1e-5, err_msg=key)
         return
+    if option == {"use_ssim": True}:
+        # SSIM is ported: -SSIM(mel_post, mel) is added, as in the JAX
+        # package (tests/test_torch_port_conditioning.py holds ssim itself)
+        _, ref = jax_losses.fastspeech2_loss(
+            types.SimpleNamespace(sq_vae_loss=None, **{
+                k: jnp.asarray(v) for k, v in arrays.items()}),
+            *(jnp.asarray(targets[k]) for k in ("mel", "d", "f0",
+                                                 "energy")), **option)
+        _, ours = losses.fastspeech2_loss(
+            types.SimpleNamespace(sq_vae_loss=None, **{
+                k: torch.as_tensor(v) for k, v in arrays.items()}),
+            *(torch.as_tensor(targets[k]) for k in ("mel", "d", "f0",
+                                                     "energy")), **option)
+        assert sorted(ours) == sorted(ref) and "loss_ssim" in ours
+        for key in ref:
+            np.testing.assert_allclose(float(ours[key]), float(ref[key]),
+                                       rtol=1e-5, err_msg=key)
+        return
     out = types.SimpleNamespace(sq_vae_loss=None, **{
         k: torch.as_tensor(v) for k, v in arrays.items()})
     with pytest.raises(NotImplementedError, match="other model families"):

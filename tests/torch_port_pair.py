@@ -66,9 +66,26 @@ def _random_params(shapes, rs):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def conditioning_inputs(hp, b, l):
+    """Dummy speaker, accent and hop-size inputs of a conditioned model's
+    init (the JAX trainer's ``init_fastspeech2_state`` gives the same)."""
+    kw = {}
+    if hp.is_multi_speaker:
+        kw["spk_emb"] = (jnp.zeros((b,), jnp.int32)
+                         if hp.spk_emb_type == "speaker_id"
+                         else jnp.zeros((b, hp.spk_emb_dim)))
+    if hp.accent_emb:
+        kw["accent"] = jnp.zeros((b, l), jnp.int32)
+    if hp.use_hop:
+        kw["hop_size"] = jnp.zeros((b,), jnp.int32)
+    return kw
+
+
 def build_pair(seed=0, **overrides):
     """-> (hp, jax_model, variables, port_model) on the same weights; an
-    SQ-VAE FastSpeech 2 when ``overrides`` name it (``model``)."""
+    SQ-VAE FastSpeech 2 when ``overrides`` name it (``model``); speakers,
+    accents, hop sizes, CTC, ``use_pos`` and ``use_rnn_length`` as the
+    hparams ask."""
     cfg = dict(SMALL, **overrides)
     jhp = JaxHParams(**cfg)
     hp = HParams(**cfg)
@@ -81,7 +98,7 @@ def build_pair(seed=0, **overrides):
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(seed), text, src_mask, t,
         jnp.full((b, l), 4, jnp.int32), jnp.zeros((b, t)),
-        jnp.zeros((b, t)), train=False))
+        jnp.zeros((b, t)), train=False, **conditioning_inputs(jhp, b, l)))
     rs = np.random.RandomState(seed)
     params = _random_params(shapes["params"], rs)
     bstats = _random_params(shapes.get("batch_stats", {}), rs)
@@ -101,7 +118,7 @@ def build_pair(seed=0, **overrides):
 
 def build_ar_pair(seed=0, **overrides):
     """-> (hp, jax_model, variables, port_model) of the AR model on the
-    same weights."""
+    same weights, with speakers as the hparams ask."""
     cfg = dict(SMALL, **AR, **overrides)
     jhp = JaxHParams(**cfg)
     hp = HParams(**cfg)
@@ -113,9 +130,10 @@ def build_ar_pair(seed=0, **overrides):
                                           model="transformer")
     # a GST model needs a reference mel at init (any length will do)
     ref_mel = jnp.zeros((b, 24, cfg["mel_dim"])) if cfg.get("gst") else None
+    spk = conditioning_inputs(jhp, b, l).get("spk_emb")
     shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(seed), jnp.ones((b, l), jnp.int32),
-        jnp.zeros((b, t, cfg["mel_dim"])), src_mask, trg_mask,
+        jnp.zeros((b, t, cfg["mel_dim"])), src_mask, trg_mask, spk,
         ref_mel=ref_mel, train=False))
     rs = np.random.RandomState(seed)
     params = _random_params(shapes["params"], rs)

@@ -31,7 +31,10 @@ cli/train_vocoder.py) vocodes it instead and implies ``--wav``: each mel
 goes through ``vocode_utterance`` (infer/synthesize.py), zero-padded to a
 bucket of ``hp.length_buckets``, the generator in fp32, the waveform cut
 to frames × hop samples. The waveforms are not part of the elapsed time,
-as in the JAX CLI. It runs on the CUDA device unless ``--device cpu`` is
+as in the JAX CLI. A conditioned model reads each line's conditioning as
+training does (data/dataset.py): the speaker id of column 2 or the
+``_xvector.npy`` beside the line's mel name, the accents of column 2 and
+the hop size of the mel name, so each line takes its own voice. It runs on the CUDA device unless ``--device cpu`` is
 given, and raises when that device is missing. The
 integrate and post-model paths come with a later slice. SQ-VAE
 hparams (``model = "SQFastSpeech2"``) are refused, as the JAX CLI cannot
@@ -157,6 +160,8 @@ def main(argv=None):
         batch = collate([dataset[i] for i in chunk], hp)
         text = torch.as_tensor(batch["text"], device=device)
         pos_text = torch.as_tensor(batch["pos_text"], device=device)
+        cond = {k: torch.as_tensor(batch[k], device=device)
+                for k in ("spk_emb", "accent", "hop_size") if k in batch}
         p_scale = sample_perturbation(prng) \
             if args.pitch_perturbation else 1.0
         d_scale = sample_perturbation(prng) \
@@ -164,13 +169,14 @@ def main(argv=None):
         t0 = time.time()
         if is_ar:
             mel, mel_len = synthesize_transformer_tts(
-                model, text, pos_text, mean, var, ref_mel=ref_mel)
+                model, text, pos_text, mean, var,
+                spk_emb=cond.get("spk_emb"), ref_mel=ref_mel)
             durations = None
         else:
             mel, mel_len, durations = synthesize_fastspeech2(
                 model, text, pos_text, args.max_frames, mean, var,
                 pitch_scale=p_scale, duration_scale=d_scale,
-                use_prenet=args.use_prenet)
+                use_prenet=args.use_prenet, **cond)
             durations = durations.cpu().numpy()
         # the copies to the host wait for the device
         mel_np = mel.float().cpu().numpy()

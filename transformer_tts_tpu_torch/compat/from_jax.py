@@ -19,6 +19,17 @@ for the AR model (``hp.model`` not a NAR family),
   flax GRUCell ir/iz/in, hr/hz/hn    -> GRU weight_ih_l0/weight_hh_l0 (r, z,
                                         n along dim 0), bias_ih_l0 = [ir, iz,
                                         in] biases, bias_hh_l0 = [0, 0, hn]
+  flax OptimizedLSTMCell ii/if/ig/io, hi/hf/hg/ho
+                                     -> UniLSTM weight_ih_l0/weight_hh_l0 (i,
+                                        f, g, o along dim 0), bias_hh_l0 =
+                                        the h* biases (the i* have none)
+
+Speaker conditioning (``SpeakerBias``'s ``multi_emb`` and
+``speaker_L_l1_es``, the conformer layers' ``multi_emb``, ``spk_proj``),
+``hop_emb``, the encoders' ``acc_embed``, the decoder's ``ctc_linear``
+and the variance adaptor's ``pos.alpha`` and ``rnn_length`` are written
+where the hparams build them (the JAX package's own torch converter maps
+none of them).
 
 The GST style embedding (``hp.gst``) inverts ``convert_style_embedding``
 (:247-264) and ``_map_gru`` (:220-244); the SQ-VAE codebook and
@@ -43,8 +54,10 @@ from typing import Dict, List, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
-from transformer_tts_tpu_torch.config import is_nar_model, is_sq_model
+from transformer_tts_tpu_torch.config import (
+    is_nar_model, is_sq_model, spk_arch)
 from transformer_tts_tpu_torch.models.gst import CNN_DIMS
+from transformer_tts_tpu_torch.models.layers import XVECTOR_DIM
 
 
 class QLeaf(NamedTuple):
@@ -126,13 +139,36 @@ class _Writer:
         self._put(f"{name}.running_var", self._stat(path + ("var",)))
         self.out[f"{name}.num_batches_tracked"] = torch.tensor(0)
 
-    def encoder_stack(self, prefix: str, n_layers: int, embedding: bool):
+    def speaker_embedding(self, path, name, spk_emb_dim):
+        """``multi_emb``: a Dense of x-vectors (dim 512) or an Embed of
+        speaker ids."""
+        if spk_emb_dim == XVECTOR_DIM:
+            self.linear(path, name)
+        else:
+            self.embed(path, name)
+
+    def speaker_bias(self, path, name, spk_emb_dim):
+        self.speaker_embedding(path + ("multi_emb",), f"{name}.multi_emb",
+                               spk_emb_dim)
+        self.linear(path + ("speaker_L_l1_es",), f"{name}.speaker_L_l1_es",
+                    bias=False)
+
+    def stack_extras(self, prefix: str, cond: dict):
+        p = (prefix,)
+        if cond.get("accent_emb"):
+            self.embed(p + ("acc_embed",), f"{prefix}.acc_embed")
+        if cond.get("ctc_out"):
+            self.linear(p + ("ctc_linear",), f"{prefix}.ctc_linear")
+
+    def encoder_stack(self, prefix: str, n_layers: int, embedding: bool,
+                      cond: dict):
         p = (prefix,)
         if embedding:
             self.embed(p + ("embed",), f"{prefix}.embed")
         else:
             self.linear(p + ("embed",), f"{prefix}.embed")
         self.vector(p + ("pe", "alpha"), f"{prefix}.pe.alpha")
+        spk = cond.get("spk_emb_dim")
         for i in range(n_layers):
             lp, ln = p + (f"layers_{i}",), f"{prefix}.layers.{i}"
             self.layer_norm(lp + ("norm_1",), f"{ln}.norm_1")
@@ -141,16 +177,24 @@ class _Writer:
             self.conv1d(lp + ("ff", "f_1"), f"{ln}.ff.f_1")
             self.conv1d(lp + ("ff", "f_2"), f"{ln}.ff.f_2")
             self.layer_norm(lp + ("ff", "layer_norm"), f"{ln}.ff.layer_norm")
+            if spk is not None:
+                self.speaker_bias(lp + ("spk_bias",), f"{ln}.spk_bias", spk)
         self.layer_norm(p + ("norm",), f"{prefix}.norm")
+        self.stack_extras(prefix, cond)
 
-    def conformer_stack(self, prefix: str, n_layers: int, embedding: bool):
+    def conformer_stack(self, prefix: str, n_layers: int, embedding: bool,
+                        cond: dict):
         p = (prefix,)
         if embedding:
             self.embed(p + ("embed",), f"{prefix}.embed")
         else:
             self.linear(p + ("embed",), f"{prefix}.embed")
+        spk = cond.get("spk_emb_dim")
         for i in range(n_layers):
             lp, ln = p + (f"layers_{i}",), f"{prefix}.layers.{i}"
+            if spk is not None:
+                self.speaker_embedding(lp + ("multi_emb",),
+                                       f"{ln}.multi_emb", spk)
             for ff in ("ff_1", "ff_2"):
                 self.layer_norm(lp + (ff, "layer_norm"),
                                 f"{ln}.{ff}.layer_norm")
@@ -171,12 +215,15 @@ class _Writer:
             self.batch_norm(c + ("batch_norm",), f"{cn}.batch_norm")
             self.conv1d(c + ("pointwise_conv2",), f"{cn}.pointwise_conv2")
         self.layer_norm(p + ("norm",), f"{prefix}.norm")
+        self.stack_extras(prefix, cond)
 
     def stack(self, stack_type: str, prefix: str, n_layers: int,
-              embedding: bool):
+              embedding: bool, **cond):
+        """One encoder stack; ``cond``: its ``spk_emb_dim`` (per-layer
+        speakers), ``accent_emb`` and ``ctc_out``."""
         writer = (self.conformer_stack if stack_type.lower() == "conformer"
                   else self.encoder_stack)
-        writer(prefix, n_layers, embedding)
+        writer(prefix, n_layers, embedding, cond)
 
     def mha(self, path, name):
         for part in ("q_linear", "k_linear", "v_linear", "out"):
@@ -218,13 +265,25 @@ class _Writer:
                   np.concatenate([zero, zero, bias["hn"]]),
                   QLeaf(1, 0, blocks=3))
 
+    def lstm(self, cell, name):
+        """flax ``OptimizedLSTMCell`` -> ``UniLSTM``: the gates i, f, g, o
+        stacked along dim 0; the input kernels have no bias."""
+        ih = [self._param(cell + (f"i{g}", "kernel"), 2).T for g in "ifgo"]
+        hh = [self._param(cell + (f"h{g}", "kernel"), 2).T for g in "ifgo"]
+        bias = [self._param(cell + (f"h{g}", "bias"), 1) for g in "ifgo"]
+        four = [QLeaf(2, 0, blocks=4)] * 4
+        self._put(f"{name}.weight_ih_l0", np.concatenate(ih), *four)
+        self._put(f"{name}.weight_hh_l0", np.concatenate(hh), *four)
+        self._put(f"{name}.bias_hh_l0", np.concatenate(bias),
+                  *[QLeaf(1, 0, blocks=4)] * 4)
+
     def sq_codebook(self, path, prefix):
         self.vector(path + ("log_var_q_scalar",),
                     f"{prefix}log_var_q_scalar")
         self.table(path + ("codebook", "embedding"),
                    f"{prefix}codebook.embedding")
 
-    def ar_decoder(self, n_layers: int):
+    def ar_decoder(self, n_layers: int, spk_emb_dim):
         p = ("decoder",)
         self.linear(p + ("decoder_prenet", "fc1"),
                     "decoder.decoder_prenet.layer.fc1")
@@ -240,6 +299,9 @@ class _Writer:
             self.conv1d(lp + ("ff", "f_1"), f"{ln}.ff.f_1")
             self.conv1d(lp + ("ff", "f_2"), f"{ln}.ff.f_2")
             self.layer_norm(lp + ("ff", "layer_norm"), f"{ln}.ff.layer_norm")
+            if spk_emb_dim is not None:
+                self.speaker_bias(lp + ("spk_bias",), f"{ln}.spk_bias",
+                                  spk_emb_dim)
         self.layer_norm(p + ("norm",), "decoder.norm")
 
     def postnet_convs(self):
@@ -260,13 +322,25 @@ class _Writer:
         self.linear(path + ("linear_layer",), f"{name}.linear_layer")
 
 
+def _speaker_dims(hp, per_layer: bool = True):
+    """(spk_emb_dim of the encoder's layers, of the decoder's): the dim
+    where ``spk_emb_architecture`` names the stack, else None."""
+    arch = spk_arch(hp) if per_layer else ()
+    return tuple(hp.spk_emb_dim if place in arch else None
+                 for place in ("encoder", "decoder"))
+
+
 def _transformer_tts(w: _Writer, hp) -> Dict[str, torch.Tensor]:
-    w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True)
+    enc_spk, dec_spk = _speaker_dims(hp, per_layer=hp.spk_emb_vers == 1)
+    w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True,
+            spk_emb_dim=enc_spk)
     if hp.d_model_encoder != hp.d_model_decoder:
         w.linear(("linear",), "linear")
     if hp.gst:
         w.style_embedding()
-    w.ar_decoder(hp.n_layer_decoder)
+    if hp.is_multi_speaker and hp.spk_emb_vers == 2:
+        w.linear(("spk_proj",), "spk_proj")
+    w.ar_decoder(hp.n_layer_decoder, dec_spk)
     w.linear(("out",), "out")
     w.linear(("stop_token",), "stop_token")
     w.postnet_convs()           # the AR postnet has no "out" Linear
@@ -292,13 +366,25 @@ def flax_layouts(hp) -> Dict[str, List[QLeaf]]:
 def _write(w: _Writer, hp) -> Dict[str, torch.Tensor]:
     if not is_nar_model(hp.model):
         return _transformer_tts(w, hp)
-    w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True)
-    w.stack(hp.decoder_type, "decoder", hp.n_layer_decoder, embedding=False)
+    enc_spk, dec_spk = _speaker_dims(hp)
+    w.stack(hp.encoder_type, "encoder", hp.n_layer_encoder, embedding=True,
+            spk_emb_dim=enc_spk, accent_emb=hp.accent_emb)
+    w.stack(hp.decoder_type, "decoder", hp.n_layer_decoder, embedding=False,
+            spk_emb_dim=dec_spk, ctc_out=hp.CTC_training)
+    if "middle" in spk_arch(hp):
+        w.linear(("spk_proj",), "spk_proj")
+    if hp.use_hop:
+        w.embed(("hop_emb",), "hop_emb")
     va = ("variance_adaptor",)
     if is_sq_model(hp.model):
         w.sq_codebook(va, "variance_adaptor.")
     elif hp.use_sq_vae:
         w.sq_codebook((), "")
+    if hp.use_pos:
+        w.vector(va + ("pos", "alpha"), "variance_adaptor.pos.alpha")
+    if hp.use_rnn_length:
+        w.lstm(va + ("rnn_length", "OptimizedLSTMCell_0"),
+               "variance_adaptor.rnn_length")
     w.variance_predictor(va + ("duration_predictor",),
                          "variance_adaptor.duration_predictor")
     for kind, on in (("pitch", hp.pitch_pred), ("energy", hp.energy_pred)):

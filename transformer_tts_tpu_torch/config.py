@@ -338,3 +338,11 @@ def is_nar_model(name: str) -> bool:
 def is_sq_model(name: str) -> bool:
     """The SQ-VAE FastSpeech 2 (``SQFastSpeech2``) and its aliases."""
     return name.lower() in SQ_MODEL_NAMES
+
+
+def spk_arch(hp) -> tuple:
+    """The places of ``encoder``, ``middle`` and ``decoder`` that
+    ``hp.spk_emb_architecture`` names (a string such as
+    "encoder,decoder" or a tuple), in that order."""
+    named = hp.spk_emb_architecture or ""
+    return tuple(s for s in ("encoder", "middle", "decoder") if s in named)

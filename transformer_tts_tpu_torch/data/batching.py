@@ -12,7 +12,9 @@ a row's mel frames and 1.0 past them. For the AR models the mel bucket is
 a multiple of ``reduction_rate`` and ``pos_mel`` covers the length
 rounded up to it. With ``pad_batch`` the batch grows to a power of two
 with empty rows; durations that overflow the mel bucket are cut at its
-edge.
+edge. Conditioning (for synthesis samples too): ``spk_emb`` (B,) int32
+ids or (B, dim) float32 x-vectors, ``accent`` (B, text bucket) int32
+padded with 0, ``gender`` and ``hop_size`` (B,) int32; pad rows hold 0.
 """
 
 from __future__ import annotations
@@ -55,11 +57,36 @@ def _clip_durations(alignment: np.ndarray, mel_len: int) -> None:
             d[edge] = mel_len - (cum[edge - 1] if edge > 0 else 0)
 
 
+def _conditioning(samples: List[dict], b: int,
+                  text_len: int) -> Dict[str, np.ndarray]:
+    out = {}
+    if "spk_emb" in samples[0]:
+        v0 = samples[0]["spk_emb"]
+        if np.ndim(v0) == 0:
+            arr = np.zeros((b,), np.int32)
+        else:
+            arr = np.zeros((b, len(v0)), np.float32)
+        for i, s in enumerate(samples):
+            arr[i] = s["spk_emb"]
+        out["spk_emb"] = arr
+    if "accent" in samples[0]:
+        arr = np.zeros((b, text_len), np.int32)
+        for i, s in enumerate(samples):
+            arr[i, :len(s["accent"])] = s["accent"]
+        out["accent"] = arr
+    for key in ("gender", "hop_size"):
+        if key in samples[0]:
+            out[key] = np.array([s[key] for s in samples]
+                                + [0] * (b - len(samples)), np.int32)
+    return out
+
+
 def collate(samples: List[dict], hp, *,
             pad_batch: bool = False) -> Dict[str, np.ndarray]:
-    """-> {text, pos_text, text_length} int32 arrays, and for training
-    samples also mel (B, T, mel_dim), pos_mel, mel_length, stop_token and
-    (FastSpeech 2) alignment, f0 and energy."""
+    """-> {text, pos_text, text_length} int32 arrays and the samples'
+    conditioning, and for training samples also mel (B, T, mel_dim),
+    pos_mel, mel_length, stop_token and (FastSpeech 2) alignment, f0 and
+    energy."""
     from transformer_tts_tpu_torch.config import is_nar_model
     r = 1 if is_nar_model(hp.model) else hp.reduction_rate
     n_real = len(samples)
@@ -75,6 +102,7 @@ def collate(samples: List[dict], hp, *,
     out = {"text": text, "pos_text": pos_text,
            "text_length": np.array([s["text_length"] for s in samples]
                                    + [0] * (b - n_real), np.int32)}
+    out.update(_conditioning(samples, b, text_len))
     if "mel" not in samples[0]:
         return out
 

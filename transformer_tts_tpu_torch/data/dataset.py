@@ -2,16 +2,27 @@
 transformer_tts_tpu/data/dataset.py:39-267, for FastSpeech 2 and the AR
 Transformer-TTS).
 
-Script format: ``mel_path|text_ids[|...]`` per line, pipe-separated, with
-space-separated integer ids. ``ScriptDataset`` gives the text of each line
-(synthesis); ``TTSDataset`` adds, for training, the normalised mel and,
+Script format: ``mel_path|text_ids[|spk_or_accent[|gender]]`` per line,
+pipe-separated, with space-separated integer ids. ``ScriptDataset`` gives
+the text of each line and its conditioning (synthesis); ``TTSDataset``
+adds, for training, the normalised mel and,
 for FastSpeech 2, the sibling files of ``X.npy``: ``X{tail_alignment}.npy``
 (per-phone durations), ``X_f0.npy`` and ``X_energy.npy``. For the AR
 models a zero go frame is put before the mel and the length is rounded up
 to a multiple of ``reduction_rate`` (the collate pads the rest); they read
 no sibling file, which the AR step would not use (the JAX package loads
 f0 and energy there when ``pitch_pred``/``energy_pred`` are set, and drops
-them). SentencePiece text, speakers and accents come with later slices.
+them).
+
+Conditioning, read as the JAX dataset reads it (its :110-131), for
+synthesis and training alike: ``hop_size`` (``use_hop``) from the mel's
+file name, 1 for ``hop256``, 2 for ``hop160``, else 0; ``spk_emb``
+(``is_multi_speaker``) the int speaker id of column 2
+(``spk_emb_type = "speaker_id"``) or the sibling ``X_xvector.npy``
+(``"x_vector"``); ``accent`` (``accent_emb``) the space-separated ids of
+column 2 too, the same column as the speaker id, as in the JAX package;
+``gender`` (``gender_emb``) the int of column 3. SentencePiece text comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -40,22 +51,45 @@ def encode_text(text: str) -> np.ndarray:
 
 
 class ScriptDataset:
-    """The utterances of a script, as {mel_name, text, text_length}."""
+    """The utterances of a script, as {mel_name, text, text_length} and
+    the conditioning the hparams ask for."""
 
     def __init__(self, script_path: str, hp):
         if hp.spm_model is not None:
             raise NotImplementedError(
                 "SentencePiece text comes with a later slice of the port; "
                 "give space-separated ids")
+        self.hp = hp
         self.rows = parse_script(script_path)
 
     def __len__(self) -> int:
         return len(self.rows)
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
+        hp = self.hp
         row = self.rows[idx]
+        mel_name = row[0]
         text = encode_text(row[1].strip())
-        return {"mel_name": row[0], "text": text, "text_length": len(text)}
+        sample = {"mel_name": mel_name, "text": text,
+                  "text_length": len(text)}
+        if hp.use_hop:
+            sample["hop_size"] = (1 if "hop256" in mel_name
+                                  else 2 if "hop160" in mel_name else 0)
+        if hp.is_multi_speaker:
+            if hp.spk_emb_type == "speaker_id":
+                sample["spk_emb"] = int(row[2])
+            elif hp.spk_emb_type == "x_vector":
+                sample["spk_emb"] = np.load(
+                    mel_name.replace(".npy", "_xvector.npy").strip())
+            else:
+                raise ValueError(
+                    f"unknown spk_emb_type: {hp.spk_emb_type}")
+        if hp.accent_emb:
+            sample["accent"] = np.asarray(
+                [int(t) for t in row[2].split(" ")], np.int32)
+        if hp.gender_emb:
+            sample["gender"] = int(row[3])
+        return sample
 
 
 def round_up(x: int, multiple: int) -> int:
@@ -69,12 +103,7 @@ class TTSDataset(ScriptDataset):
 
     def __init__(self, script_path: str, hp):
         super().__init__(script_path, hp)
-        from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
         self.is_ar = not is_nar_model(hp.model)
-        if hp.is_multi_speaker or hp.accent_emb or hp.use_hop:
-            later_slice("speaker, accent and hop-size inputs",
-                        "other model families")
-        self.hp = hp
         self.normalizer = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim)
 
     def _sibling(self, mel_name: str, tail: str, dtype) -> np.ndarray:

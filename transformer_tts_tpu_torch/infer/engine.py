@@ -16,17 +16,23 @@
   int32 (empty for the AR model), ``audio`` (T * hop,) with a vocoder,
   and ``bucket``, the text bucket its batch was padded to (the longest
   text's in the batch; not a field of the JAX engine's results).
-* ``synthesize_streaming(text)`` yields JAX's events: ``audio`` (with a
-  vocoder) or ``mel`` chunks, then ``end`` (infer/streaming.py).
+* ``synthesize_streaming(text, speaker)`` yields JAX's events: ``audio``
+  (with a vocoder) or ``mel`` chunks, then ``end`` (infer/streaming.py).
 
 Families: the transformer and conformer FastSpeech 2, the AR
 Transformer-TTS, and GST with ``ref_mel`` (a (T, mel) ``.npy``, normalized
-with the corpus statistics, styling every utterance). Refused as JAX
+with the corpus statistics, styling every utterance); each of them
+multi-speaker too. A multi-speaker model takes one speaker per request,
+as JAX's engine does (its :94-100, :239-269): an int id for a speaker-id
+model, a (``spk_emb_dim``,) float vector for an x-vector model; ``None``
+(or no ``speakers``) means speaker 0 or the zero vector, and a wrong
+shape raises JAX's error. Every call, warm-up included, passes a speaker
+array, so a multi-speaker model runs one shape per bucket. A ``use_hop``
+model is served at hop-size class 0 (JAX's engine passes no hop size). Refused as JAX
 refuses them: the Tacotron 2 decoder, a bare mel-to-mel snapshot, GST
 without ``ref_mel``; SQ-VAE hparams, as the port's synthesis CLI refuses
 them (JAX's engine cannot restore them either). Through ``later_slice``:
-speaker conditioning (multi-speaker and x-vector hparams), ``post_model=``
-and text-mel-mel snapshots, and ``export()``.
+``post_model=`` and text-mel-mel snapshots, and ``export()``.
 
 One card, many threads: the HTTP server runs batch requests and streams on
 its handler threads beside the micro-batcher's. The graph replays, the
@@ -99,9 +105,6 @@ def _check_servable(hp, *, post_model, ref_mel) -> None:
             "SQ-VAE FastSpeech 2 checkpoint; synthesize it with "
             "infer.synthesize.synthesize_fastspeech2 on "
             "models.fastspeech2_sq.build_sq_fastspeech2's model")
-    if hp.is_multi_speaker or hp.spk_emb_architecture:
-        later_slice("speaker conditioning in the engine (multi-speaker and "
-                    "x-vector hparams)", "other model families")
 
 
 class TTSEngine:
@@ -132,6 +135,12 @@ class TTSEngine:
         self.frames_per_phone = int(frames_per_phone)
         self.text_buckets = tuple(sorted(text_buckets or hp.text_buckets))
         self.lock = threading.RLock()
+        # x-vector models take (spk_emb_dim,) floats, speaker-id models ids
+        self.is_xvector = bool(
+            hp.is_multi_speaker
+            and (hp.spk_emb_type or "").lower() == "x_vector")
+        self.spk_emb_dim = (int(hp.spk_emb_dim or 0) if self.is_xvector
+                            else 0)
 
         self.model = build_model(hp, device=self.device)
         load_checkpoint(self.model, resolve_checkpoint(load_dir, epoch))
@@ -182,6 +191,37 @@ class TTSEngine:
         return (torch.as_tensor(text, device=self.device),
                 torch.as_tensor(pos, device=self.device))
 
+    def _speakers(self, idxs, speakers, rows: int) -> Optional[torch.Tensor]:
+        """The (rows,) ids or (rows, spk_emb_dim) x-vectors of a padded
+        batch whose row r holds request ``idxs[r]`` of ``speakers`` (None,
+        None entries and pad rows: speaker 0 or the zero vector); None for
+        a single-speaker model."""
+        if not self.hp.is_multi_speaker:
+            return None
+        if self.is_xvector:
+            spk = np.zeros((rows, self.spk_emb_dim), np.float32)
+        else:
+            spk = np.zeros((rows,), np.int64)
+        for row, i in enumerate(idxs):
+            s = speakers[i] if speakers is not None else None
+            if s is None:
+                continue
+            if self.is_xvector:
+                v = np.asarray(s, np.float32).reshape(-1)
+                if v.shape != (self.spk_emb_dim,):
+                    raise ValueError(
+                        f"x-vector model expects {self.spk_emb_dim}-d "
+                        f"float speaker embeddings, got shape {v.shape} "
+                        f"for request {i}")
+                spk[row] = v
+            else:
+                if np.ndim(s) != 0:
+                    raise ValueError(
+                        "speaker_id model expects integer speaker ids, "
+                        f"got array-shaped value for request {i}")
+                spk[row] = int(s)
+        return torch.as_tensor(spk, device=self.device)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -196,44 +236,58 @@ class TTSEngine:
             t0 = time.perf_counter()
             with self.lock:
                 self._run_padded(*self._padded([[1] * b] * self.batch_size,
-                                               self.batch_size, b))
+                                               self.batch_size, b),
+                                 self._speakers((), None, self.batch_size))
                 if self._vocoder is not None:
                     vocode_pinned(self._vocoder, torch.zeros(
                         self.batch_size, self.max_frames_for(b),
                         self.hp.mel_dim, device=self.device))
                 self._sync()
             if streaming:
-                for _ in self.synthesize_streaming([1] * b):
+                for _ in self.synthesize_streaming([1] * b, None):
                     pass
             times[b] = time.perf_counter() - t0
         return times
 
-    def _run_padded(self, text: torch.Tensor, pos_text: torch.Tensor):
+    def _run_padded(self, text: torch.Tensor, pos_text: torch.Tensor,
+                    spk_emb: Optional[torch.Tensor] = None):
         """(mel (B, T, mel) de-normalized, mel_len (B,), durations (B, L)
         or None for the AR model) of one padded batch; ``lock`` held."""
         max_frames = self.max_frames_for(text.shape[1])
         if self.is_ar:
             mel, mel_len = synthesize_transformer_tts(
                 self.model, text, pos_text, self._mean, self._var,
-                ref_mel=self._ref_mel,
+                spk_emb=spk_emb, ref_mel=self._ref_mel,
                 max_steps=max_frames // (self.hp.reduction_rate or 1))
             return mel, mel_len, None
+        return self._fastspeech2(text, pos_text, max_frames, spk_emb)
+
+    def _fastspeech2(self, text, pos_text, max_frames: int, spk_emb):
+        """``synthesize_fastspeech2``; a ``use_hop`` model gets hop-size
+        class 0 (the data layer's class of a mel named neither hop256 nor
+        hop160: JAX's engine passes none and cannot serve such a model)."""
+        hop = (torch.zeros(text.shape[0], dtype=torch.long,
+                           device=self.device) if self.hp.use_hop else None)
         return synthesize_fastspeech2(self.model, text, pos_text,
-                                      max_frames, self._mean, self._var)
+                                      max_frames, self._mean, self._var,
+                                      spk_emb=spk_emb, hop_size=hop)
 
     def synthesize(self, texts: List[Sequence[int]],
                    speakers: Optional[Sequence] = None) -> List[dict]:
         """Synthesize token-id sequences; one dict per utterance (see the
-        module docstring). ``speakers`` is accepted for the server's
-        signature and, as for JAX's single-speaker models, not read."""
+        module docstring). ``speakers``, one per text, conditions a
+        multi-speaker model (ids or x-vectors; None entries speaker 0 or
+        the zero vector); a single-speaker model does not read it, as in
+        JAX's engine."""
         out: List[Optional[dict]] = [None] * len(texts)
         order = sorted(range(len(texts)), key=lambda i: len(texts[i]))
         with self.lock:
             for lo in range(0, len(order), self.batch_size):
                 idxs = order[lo:lo + self.batch_size]
                 bucket = self._bucket_of(max(len(texts[i]) for i in idxs))
+                spk = self._speakers(idxs, speakers, self.batch_size)
                 mel, mel_len, durations = self._run_padded(*self._padded(
-                    [texts[i] for i in idxs], self.batch_size, bucket))
+                    [texts[i] for i in idxs], self.batch_size, bucket), spk)
                 audio = None
                 if self._vocoder is not None:
                     audio = vocode_pinned(self._vocoder, mel).cpu().numpy()
@@ -264,8 +318,12 @@ class TTSEngine:
         audio; else ``{"type": "mel", "start_frame": f, "mel": (t, mel)}``
         (AR: per decode segment, FastSpeech 2: one chunk); then ``{"type":
         "end", "mel_frames": L, "durations": (L_text,)}``. The AR model
-        decodes ``segment_steps`` steps (a multiple of 8) per segment."""
-        events = self._stream_events(list(text), chunk_frames, segment_steps)
+        decodes ``segment_steps`` steps (a multiple of 8) per segment.
+        ``speaker`` conditions a multi-speaker model, as in
+        ``synthesize``."""
+        spk = self._speakers([0], [speaker], 1)
+        events = self._stream_events(list(text), spk, chunk_frames,
+                                     segment_steps)
         while True:
             with self.lock:
                 try:
@@ -274,15 +332,16 @@ class TTSEngine:
                     return
             yield event
 
-    def _stream_events(self, ids, chunk_frames: int, segment_steps: int):
+    def _stream_events(self, ids, spk, chunk_frames: int,
+                       segment_steps: int):
         bucket = self._bucket_of(len(ids))
         text, pos = self._padded([ids], 1, bucket)
         max_frames = self.max_frames_for(bucket)
         sv = (StreamingVocoder(self._vocoder, chunk_frames=chunk_frames)
               if self._vocoder is not None else None)
         if not self.is_ar:
-            mel, mel_len, durations = synthesize_fastspeech2(
-                self.model, text, pos, max_frames, self._mean, self._var)
+            mel, mel_len, durations = self._fastspeech2(text, pos,
+                                                        max_frames, spk)
             n = int(mel_len[0])
             if sv is not None:
                 for s, wav in sv.stream(mel[0], length=n):
@@ -295,7 +354,7 @@ class TTSEngine:
             return
 
         stream = ARStream(
-            self.model, text, pos, self._mean, self._var,
+            self.model, text, pos, self._mean, self._var, spk_emb=spk,
             ref_mel=self._ref_mel,
             max_steps=max_frames // (self.hp.reduction_rate or 1),
             segment_steps=segment_steps)

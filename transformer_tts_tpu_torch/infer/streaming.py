@@ -28,7 +28,9 @@ one-shot output; streaming buys time to first audio, not other audio.
   segment may run up to 7 groups past the last row's stop, where JAX's
   loop stops at once; those groups are zero after masking and the
   stream's chunks end at the longest row's length, so a stream yields no
-  frame at or past it.
+  frame at or past it. A stream keeps its speaker with its carry: the
+  decoder layers' speaker biases, computed once when it starts and loaded
+  into the graph before each of its segments.
 """
 
 from __future__ import annotations
@@ -246,6 +248,7 @@ class ARStream:
     def __init__(self, model: TransformerTTS, text: torch.Tensor,
                  pos_text: torch.Tensor, mean: Optional[torch.Tensor] = None,
                  var: Optional[torch.Tensor] = None, *,
+                 spk_emb: Optional[torch.Tensor] = None,
                  ref_mel: Optional[torch.Tensor] = None,
                  max_steps: int = MAX_AR_STEPS, segment_steps: int = 32,
                  stop_threshold: float = 0.5):
@@ -258,6 +261,7 @@ class ARStream:
         self.model = model
         self.text, self.pos_text = text, pos_text
         self.mean, self.var, self.ref_mel = mean, var, ref_mel
+        self.spk_emb = spk_emb
         self.max_steps = int(max_steps)
         self.segment_steps = int(segment_steps)
         self.stop_threshold = float(stop_threshold)
@@ -269,8 +273,10 @@ class ARStream:
         r = model.reduction_rate
         with torch.inference_mode():
             src_mask = pad_mask(self.pos_text)
-            e_outputs, _ = model.encode(self.text, src_mask, self.ref_mel)
+            e_outputs, _ = model.encode(self.text, src_mask, self.ref_mel,
+                                        self.spk_emb)
             cross_kvs = model.precompute_cross_kv(e_outputs)
+            spk_biases = model.speaker_biases(self.spk_emb)
             carry = _ar_init(model, self.text.shape[0], self.max_steps,
                              self.text.device)
         window = min(self.segment_steps + POSTNET_LOOKBACK, self.max_steps)
@@ -279,7 +285,7 @@ class ARStream:
             with torch.inference_mode():
                 ar_segment(model, carry, e_outputs, src_mask, cross_kvs,
                            min(self.segment_steps, self.max_steps - step),
-                           self.stop_threshold)
+                           self.stop_threshold, spk_biases)
                 step = int(carry["step"])
                 end = min(step, int(carry["length"].max()))
                 frames, start = _postnet_window(

@@ -22,6 +22,13 @@ amp the graph reads bf16 copies of the step's matmul and conv weights
 (``DecodeWeights``), so it replays no cast of them at every step.
 ``ar_segment`` runs a caller's own carry a few steps further, on the same
 graphs (the streaming decode of infer/streaming.ARStream).
+
+A multi-speaker AR model's decoder layers add a speaker bias that is the
+same at every step: the call computes it once, before the decode
+(``TransformerTTS.speaker_biases``), and the steps read it. In the graph
+it is one more static input, copied in before every decode and segment
+like the encoder outputs, so a replay reads this call's speakers, never
+the speakers of the call that captured it.
 """
 
 from __future__ import annotations
@@ -76,18 +83,23 @@ def vocode_utterance(vocoder: nn.Module, mel: torch.Tensor,
 def synthesize_fastspeech2(
     model: FastSpeech2, text: torch.Tensor, pos_text: torch.Tensor,
     max_frames: int, mean: Optional[torch.Tensor] = None,
-    var: Optional[torch.Tensor] = None, *, pitch_scale: float = 1.0,
-    duration_scale: float = 1.0, use_prenet: bool = False,
+    var: Optional[torch.Tensor] = None, *, spk_emb=None, accent=None,
+    hop_size=None, pitch_scale: float = 1.0, duration_scale: float = 1.0,
+    use_prenet: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward; returns (mel (B, T, mel), mel_len (B,), durations (B, L)).
 
-    ``durations`` are the unscaled predictions, 0 on padded phones, as
-    the JAX function returns them.
+    A conditioned model takes ``spk_emb`` ((B,) ids or (B, 512)
+    x-vectors), ``accent`` (B, L) and ``hop_size`` (B,). ``durations``
+    are the unscaled predictions, 0 on padded phones, as the JAX function
+    returns them.
     """
     model.eval()
     src_mask = pad_mask(pos_text)
+    cond = {k: v for k, v in (("spk_emb", spk_emb), ("accent", accent),
+                              ("hop_size", hop_size)) if v is not None}
     out = model(text, src_mask, max_frames, pitch_scale=pitch_scale,
-                duration_scale=duration_scale)
+                duration_scale=duration_scale, **cond)
     mel = out.mel_pre if use_prenet or out.mel_post is None else out.mel_post
     if mean is not None and var is not None:
         mel = denormalize(mel, mean, var)
@@ -141,8 +153,9 @@ def _ar_reset(carry: Dict[str, object], max_steps: int) -> None:
 
 
 def _ar_body(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
-             stop_threshold: float):
-    """One decode step on the carry, in place: the group at ``step``, the
+             stop_threshold: float, spk_biases=None):
+    """One decode step on the carry, in place (``spk_biases``: the call's
+    ``model.speaker_biases``, or None): the group at ``step``, the
     stop rule (the mean of the r stop probabilities above
     ``stop_threshold``; ``length`` is set at a row's first stop), and the
     next input, the first frame of the predicted group. Every update
@@ -153,7 +166,8 @@ def _ar_body(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
     def body(c):
         step = c["step"]
         group, stop = model.decode_step(c["prev"], e_outputs, src_mask,
-                                        c["caches"], step, cross_kvs)
+                                        c["caches"], step, cross_kvs,
+                                        spk_biases)
         c["groups"].index_copy_(1, step.reshape(1), group.float())
         p_stop = torch.sigmoid(stop.float())[:, 0]            # (B, r)
         stop_now = p_stop.mean(dim=-1) > stop_threshold
@@ -188,11 +202,13 @@ def _run_blocks(run_block: Callable[[int], None], done: torch.Tensor,
 
 
 def ar_decode(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
-              max_steps: int, stop_threshold: float) -> Dict[str, object]:
+              max_steps: int, stop_threshold: float,
+              spk_biases=None) -> Dict[str, object]:
     """The eager decode loop: a fresh carry, then ``_ar_body`` step by step
     under ``_run_blocks``. Returns the carry (``groups``, ``length``)."""
     carry = _ar_init(model, e_outputs.shape[0], max_steps, e_outputs.device)
-    body = _ar_body(model, e_outputs, src_mask, cross_kvs, stop_threshold)
+    body = _ar_body(model, e_outputs, src_mask, cross_kvs, stop_threshold,
+                    spk_biases)
 
     def run_block(n):
         for _ in range(n):
@@ -205,7 +221,8 @@ def ar_decode(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
 class DecodeWeights:
     """bf16 copies of the weights and biases of every ``nn.Linear`` and
     ``nn.Conv1d`` that ``decode_step`` runs (the decoder, ``out``,
-    ``stop_token``), for a bf16-amp model: with them swapped in, autocast
+    ``stop_token``; not the layers' ``SpeakerBias``, which runs once per
+    call, before the decode), for a bf16-amp model: with them swapped in, autocast
     finds those operands in bf16 already and casts nothing, where it would
     otherwise cast each fp32 weight at every step. The copies round as
     autocast does (``Tensor.to``), so the results are the same bits.
@@ -218,9 +235,13 @@ class DecodeWeights:
     def __init__(self, model: TransformerTTS):
         self.slots: List[Tuple[nn.Module, str, torch.Tensor]] = []
         if model.amp:
+            once = {id(m) for layer in model.decoder.layers
+                    if layer.spk_bias is not None
+                    for m in layer.spk_bias.modules()}
             for part in (model.decoder, model.out, model.stop_token):
                 for mod in part.modules():
-                    if isinstance(mod, (nn.Linear, nn.Conv1d)):
+                    if (isinstance(mod, (nn.Linear, nn.Conv1d))
+                            and id(mod) not in once):
                         self.slots += [
                             (mod, name, p.detach().to(torch.bfloat16))
                             for name, p in mod._parameters.items()
@@ -263,16 +284,19 @@ class _ARGraph:
     capture raises."""
 
     def __init__(self, model: TransformerTTS, e_outputs, src_mask,
-                 cross_kvs, max_steps: int, stop_threshold: float):
+                 cross_kvs, max_steps: int, stop_threshold: float,
+                 spk_biases=None):
         self.max_steps = max_steps
         self.e_outputs = e_outputs.clone()
         self.src_mask = src_mask.clone()
         self.cross_kvs = tuple(tuple(x.clone() for x in kv)
                                for kv in cross_kvs)
+        self.spk_biases = (tuple(x.clone() for x in spk_biases)
+                           if spk_biases is not None else None)
         self.carry = _ar_init(model, e_outputs.shape[0], max_steps,
                               e_outputs.device)
         body = _ar_body(model, self.e_outputs, self.src_mask,
-                        self.cross_kvs, stop_threshold)
+                        self.cross_kvs, stop_threshold, self.spk_biases)
         self.weights = DecodeWeights(model)
         side = torch.cuda.Stream(e_outputs.device)
         side.wait_stream(torch.cuda.current_stream(e_outputs.device))
@@ -293,11 +317,14 @@ class _ARGraph:
             pool = graph.pool()
             self.graphs[n] = graph
 
-    def _load(self, e_outputs, src_mask, cross_kvs) -> None:
+    def _load(self, e_outputs, src_mask, cross_kvs, spk_biases) -> None:
         self.e_outputs.copy_(e_outputs)
         self.src_mask.copy_(src_mask)
         for static, fresh in zip(self.cross_kvs, cross_kvs):
             for s, f in zip(static, fresh):
+                s.copy_(f)
+        if self.spk_biases is not None:
+            for s, f in zip(self.spk_biases, spk_biases):
                 s.copy_(f)
         self.weights.refresh()
 
@@ -305,32 +332,36 @@ class _ARGraph:
         _run_blocks(lambda n: self.graphs[n].replay(), self.carry["done"],
                     n_steps)
 
-    def decode(self, e_outputs, src_mask, cross_kvs) -> Dict[str, object]:
-        self._load(e_outputs, src_mask, cross_kvs)
+    def decode(self, e_outputs, src_mask, cross_kvs,
+               spk_biases=None) -> Dict[str, object]:
+        self._load(e_outputs, src_mask, cross_kvs, spk_biases)
         _ar_reset(self.carry, self.max_steps)
         self._run(self.max_steps)
         return self.carry
 
     def segment(self, carry, e_outputs, src_mask, cross_kvs,
-                n_steps: int) -> None:
+                n_steps: int, spk_biases=None) -> None:
         """``n_steps`` more steps of ``carry``, a carry of the caller's own
         (its step a multiple of ``DONE_CHECK_EVERY``): copied into the
         graph's carry, replayed, copied back, so that decodes and other
-        callers' segments in between at this key change nothing of it."""
-        self._load(e_outputs, src_mask, cross_kvs)
+        callers' segments in between at this key change nothing of it;
+        ``spk_biases`` are the caller's speakers, loaded like the encoder
+        outputs."""
+        self._load(e_outputs, src_mask, cross_kvs, spk_biases)
         _copy_carry(self.carry, carry)
         self._run(n_steps)
         _copy_carry(carry, self.carry)
 
 
-# model -> {(B, text length, max_steps, dtype, threshold, device): graph}
+# model -> {(B, text length, max_steps, dtype, threshold, device,
+#           speakers or not): graph}
 _AR_GRAPHS: "weakref.WeakKeyDictionary[TransformerTTS, dict]" = \
     weakref.WeakKeyDictionary()
 
 
 def ar_decode_graphed(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
-                      max_steps: int, stop_threshold: float
-                      ) -> Dict[str, object]:
+                      max_steps: int, stop_threshold: float,
+                      spk_biases=None) -> Dict[str, object]:
     """``ar_decode`` replayed from CUDA graphs (CUDA tensors only): the
     same steps, the same host checks of ``done``, the same carry. The
     graphs are kept for later calls at the same batch size, text length,
@@ -338,26 +369,31 @@ def ar_decode_graphed(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
     ``while_loop`` per shape. The returned carry is the graph's own, valid
     until the next decode at that key."""
     return _graph(model, e_outputs, src_mask, cross_kvs, max_steps,
-                  stop_threshold).decode(e_outputs, src_mask, cross_kvs)
+                  stop_threshold, spk_biases).decode(e_outputs, src_mask,
+                                                     cross_kvs, spk_biases)
 
 
 def _graph(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
-           max_steps: int, stop_threshold: float) -> _ARGraph:
+           max_steps: int, stop_threshold: float,
+           spk_biases=None) -> _ARGraph:
     if e_outputs.device.type != "cuda":
         raise ValueError(f"the graphed decode runs on CUDA tensors, not "
                          f"{e_outputs.device}")
     key = (e_outputs.shape[0], e_outputs.shape[1], max_steps,
-           model.cache_dtype, float(stop_threshold), e_outputs.device)
+           model.cache_dtype, float(stop_threshold), e_outputs.device,
+           spk_biases is not None)
     graphs = _AR_GRAPHS.setdefault(model, {})
     graph = graphs.get(key)
     if graph is None:
         graph = graphs[key] = _ARGraph(model, e_outputs, src_mask,
-                                       cross_kvs, max_steps, stop_threshold)
+                                       cross_kvs, max_steps, stop_threshold,
+                                       spk_biases)
     return graph
 
 
 def ar_segment(model: TransformerTTS, carry, e_outputs, src_mask, cross_kvs,
-               n_steps: int, stop_threshold: float) -> None:
+               n_steps: int, stop_threshold: float,
+               spk_biases=None) -> None:
     """``n_steps`` more decode steps of the caller's own ``carry``
     (``_ar_init``'s, at a step that is a multiple of ``DONE_CHECK_EVERY``),
     in place, as blocks under ``_run_blocks``: on a CUDA device replayed
@@ -365,7 +401,7 @@ def ar_segment(model: TransformerTTS, carry, e_outputs, src_mask, cross_kvs,
     copied in and out, ``_ARGraph.segment``), on the CPU the eager loop."""
     if e_outputs.device.type == "cpu":
         body = _ar_body(model, e_outputs, src_mask, cross_kvs,
-                        stop_threshold)
+                        stop_threshold, spk_biases)
 
         def run_block(n):
             for _ in range(n):
@@ -374,15 +410,17 @@ def ar_segment(model: TransformerTTS, carry, e_outputs, src_mask, cross_kvs,
         _run_blocks(run_block, carry["done"], n_steps)
         return
     _graph(model, e_outputs, src_mask, cross_kvs, carry["groups"].shape[1],
-           stop_threshold).segment(carry, e_outputs, src_mask, cross_kvs,
-                                   n_steps)
+           stop_threshold, spk_biases).segment(carry, e_outputs, src_mask,
+                                               cross_kvs, n_steps,
+                                               spk_biases)
 
 
 @torch.inference_mode()
 def synthesize_transformer_tts(
     model: TransformerTTS, text: torch.Tensor, pos_text: torch.Tensor,
     mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
-    *, ref_mel: Optional[torch.Tensor] = None,
+    *, spk_emb: Optional[torch.Tensor] = None,
+    ref_mel: Optional[torch.Tensor] = None,
     max_steps: int = MAX_AR_STEPS, stop_threshold: float = 0.5,
     eager: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -390,6 +428,9 @@ def synthesize_transformer_tts(
     lengths (B,) in frames). A GST model takes its style from ``ref_mel``
     (B or 1, T, mel), a normalized reference mel; one of (1, T, mel)
     styles every row. It goes into the encoder only, before the decode.
+    A multi-speaker model takes ``spk_emb``, (B,) ids or (B, 512)
+    x-vectors: into the encoder, and into the decoder layers' biases,
+    computed once before the decode.
 
     The encoder and the cross-attention K/V run once; then one
     ``decode_step`` per frame group, on static shapes, up to ``max_steps``
@@ -409,12 +450,12 @@ def synthesize_transformer_tts(
     model.eval()
     b, r, mel_dim = text.shape[0], model.reduction_rate, model.mel_dim
     src_mask = pad_mask(pos_text)
-    e_outputs, _ = model.encode(text, src_mask, ref_mel)
+    e_outputs, _ = model.encode(text, src_mask, ref_mel, spk_emb)
     cross_kvs = model.precompute_cross_kv(e_outputs)
     decode = (ar_decode if eager or text.device.type == "cpu"
               else ar_decode_graphed)
     carry = decode(model, e_outputs, src_mask, cross_kvs, max_steps,
-                   stop_threshold)
+                   stop_threshold, model.speaker_biases(spk_emb))
     post = model.apply_postnet(carry["groups"].to(model.cache_dtype))
     mel = post.float().reshape(b, max_steps * r, mel_dim)
     lengths = carry["length"] * r

@@ -12,6 +12,11 @@ row in the cached mode) -> N x DecoderLayer -> LayerNorm. Two modes:
 * one decode step with per-layer KV caches (``caches``, ``cache_index``)
   and the cross-attention K/V of ``precompute_cross_kv``: no kernel, as
   the cache turns it off (the JAX package's rule).
+
+With ``spk_emb_dim`` every layer has a ``SpeakerBias``; the caller
+computes the layers' biases once (``speaker_biases``) and passes them to
+``forward``, so that a decode computes them once per call rather than at
+every step, as the JAX package does: the bias is the same at every step.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ class Decoder(nn.Module):
     def __init__(self, mel_dim: int, d_model: int, n_layers: int,
                  heads: int, ff_kernel_size: int, concat_after: bool = False,
                  dropout: float = 0.1, dropout_prenet: float = 0.5,
-                 use_flash: bool = False):
+                 use_flash: bool = False, spk_emb_dim: Optional[int] = None):
         super().__init__()
         self.use_flash = use_flash
         self.decoder_prenet = DecoderPreNet(mel_dim, d_model,
@@ -39,13 +44,21 @@ class Decoder(nn.Module):
         self.pe = PositionalEncoder(d_model, dropout)
         self.layers = nn.ModuleList(
             DecoderLayer(d_model, heads, ff_kernel_size, dropout,
-                         concat_after=concat_after, use_flash=use_flash)
+                         concat_after=concat_after, use_flash=use_flash,
+                         spk_emb_dim=spk_emb_dim)
             for _ in range(n_layers))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def precompute_cross_kv(self, e_outputs: torch.Tensor):
         """Per-layer (k, v) cross-attention tensors, computed once."""
         return tuple(layer.cross_kv(e_outputs) for layer in self.layers)
+
+    def speaker_biases(self, spk_emb: Optional[torch.Tensor]):
+        """Each layer's (B, 1, d) speaker bias of ``spk_emb``, or None for a
+        model without speaker layers or no speaker."""
+        if spk_emb is None or self.layers[0].spk_bias is None:
+            return None
+        return tuple(layer.spk_bias(spk_emb) for layer in self.layers)
 
     def _key_lengths(self, src_mask, trg_mask):
         """(self_k_len, cross_k_len) for the kernel paths, or None."""
@@ -60,13 +73,14 @@ class Decoder(nn.Module):
             self_len = trg_mask[:, -1, :].sum(-1).to(torch.int32)
         return self_len, cross
 
-    def forward(self, trg, e_outputs, src_mask, trg_mask, *,
-                collect_attn: bool = False, caches=None, cache_index=None,
+    def forward(self, trg, e_outputs, src_mask, trg_mask, spk_biases=None,
+                *, collect_attn: bool = False, caches=None, cache_index=None,
                 pos_offset=0, cross_kvs=None,
                 generator: Optional[torch.Generator] = None):
         """``trg`` (B, T, mel) -> (x (B, T, d_model), self-attention maps,
         cross-attention maps), the maps (B, N, H, T, T_k) only with
-        ``collect_attn``. With ``caches`` (a tuple of per-layer (k, v)
+        ``collect_attn``; ``spk_biases`` from ``speaker_biases``. With
+        ``caches`` (a tuple of per-layer (k, v)
         caches, updated in place; ``trg`` then the (B, 1, mel) step input
         and ``trg_mask`` hiding the cache rows past ``cache_index``) no
         kernel runs."""
@@ -76,7 +90,9 @@ class Decoder(nn.Module):
         attns_self, attns_cross = [], []
         for i, layer in enumerate(self.layers):
             x, a1, a2 = layer(
-                x, e_outputs, src_mask, trg_mask, collect_attn=collect_attn,
+                x, e_outputs, src_mask, trg_mask,
+                spk_biases[i] if spk_biases is not None else None,
+                collect_attn=collect_attn,
                 self_cache=caches[i] if caches is not None else None,
                 cross_cache=cross_kvs[i] if cross_kvs is not None else None,
                 cache_index=cache_index, self_k_len=self_k_len,

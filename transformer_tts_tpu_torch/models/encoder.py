@@ -6,8 +6,17 @@ Embedding (lookups of id 0 give zero vectors, as the JAX package does at
 call time; this is not torch's ``padding_idx``) or a Linear input ->
 positional encoding -> N layers -> LayerNorm. The transformer stack adds
 the alpha-scaled absolute encoding; the conformer stack hands the
-relative table to every layer's attention. Accent embeddings,
-intermediate taps and the CTC tap come with later slices.
+relative table to every layer's attention.
+
+Conditioning, as in the JAX stacks (encoder.py:104-109, :143-145,
+:167-169): ``spk_emb_dim`` gives every layer its speaker conditioning
+(models/layers.py); ``accent_emb`` adds a per-phone accent embedding
+``acc_embed`` ((B, L) ids, no padding row), after the layer loop and
+before the final norm in the transformer stack (5 accents), at the input
+in the conformer stack (13 accents); ``ctc_out`` taps ``ctc_linear`` (d
+-> ``ctc_classes``) after layer ``min(ctc_layer, n_layers - 1)`` and the
+stack returns its logits third. The JAX package's per-layer intermediate
+taps are not ported: no model of the port builds them.
 """
 
 from __future__ import annotations
@@ -24,11 +33,16 @@ from transformer_tts_tpu_torch.ops.positional import (
     PositionalEncoder, RelativePositionalEncoder)
 
 
+CTC_LAYER = 2
+
+
 class _Stack(nn.Module):
     """Input, key lengths and the layer loop shared by both stacks."""
 
     def __init__(self, vocab_size: int, d_model: int, embedding: bool,
-                 use_flash: bool, pe: nn.Module, layers):
+                 use_flash: bool, pe: nn.Module, layers,
+                 n_accents: Optional[int] = None, ctc_out: bool = False,
+                 ctc_classes: int = 152):
         super().__init__()
         self.embedding = embedding
         self.use_flash = use_flash
@@ -38,6 +52,11 @@ class _Stack(nn.Module):
         self.pe = pe
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.acc_embed = (nn.Embedding(n_accents, d_model)
+                          if n_accents is not None else None)
+        self.ctc_linear = (nn.Linear(d_model, ctc_classes) if ctc_out
+                           else None)
+        self.ctc_at = min(CTC_LAYER, len(self.layers) - 1)
 
     def _input(self, src: torch.Tensor) -> torch.Tensor:
         x = self.embed(src)
@@ -51,53 +70,88 @@ class _Stack(nn.Module):
             return mask[:, 0, :].sum(-1).to(torch.int32)
         return None
 
-    def _layers(self, x, mask, collect_attn, *pos, generator=None):
+    def _accent(self, accent):
+        return (self.acc_embed(accent)
+                if self.acc_embed is not None and accent is not None
+                else None)
+
+    def _layers(self, x, mask, collect_attn, *pos, spk_emb=None,
+                accent_emb=None, generator=None):
         k_len = self._key_lengths(mask)
         attns = []
-        for layer in self.layers:
-            x, attn = layer(x, *pos, mask, collect_attn=collect_attn,
-                            k_len=k_len, generator=generator)
+        ctc_logits = None
+        for i, layer in enumerate(self.layers):
+            x, attn = layer(x, *pos, mask, spk_emb,
+                            collect_attn=collect_attn, k_len=k_len,
+                            generator=generator)
             if collect_attn:
                 attns.append(attn)
+            if self.ctc_linear is not None and i == self.ctc_at:
+                ctc_logits = self.ctc_linear(x)
+        if accent_emb is not None:
+            x = x + accent_emb
         x = self.norm(x)
-        return x, (torch.stack(attns, dim=1) if collect_attn else None)
+        attn = torch.stack(attns, dim=1) if collect_attn else None
+        if self.ctc_linear is not None:
+            return x, attn, ctc_logits
+        return x, attn
 
 
 class Encoder(_Stack):
+    N_ACCENTS = 5
+
     def __init__(self, vocab_size: int, d_model: int, n_layers: int,
                  heads: int, ff_kernel_size: int, concat_after: bool = False,
                  dropout: float = 0.1, embedding: bool = True,
-                 use_flash: bool = False):
+                 use_flash: bool = False, spk_emb_dim: Optional[int] = None,
+                 accent_emb: bool = False, ctc_out: bool = False,
+                 ctc_classes: int = 152):
         super().__init__(
             vocab_size, d_model, embedding, use_flash,
             PositionalEncoder(d_model, dropout),
             (EncoderLayer(d_model, heads, ff_kernel_size, dropout,
-                          concat_after=concat_after, use_flash=use_flash)
-             for _ in range(n_layers)))
+                          concat_after=concat_after, use_flash=use_flash,
+                          spk_emb_dim=spk_emb_dim)
+             for _ in range(n_layers)),
+            self.N_ACCENTS if accent_emb else None, ctc_out, ctc_classes)
 
-    def forward(self, src, mask, *, collect_attn: bool = False,
+    def forward(self, src, mask, spk_emb=None, accent=None, *,
+                collect_attn: bool = False,
                 generator: Optional[torch.Generator] = None):
         """``src`` (B, T) ids or (B, T, C) features; ``mask`` (B, 1, T)
-        bool; ``generator`` seeds the kernel path's dropout. Returns
-        (x (B, T, d_model), attn (B, N, H, T, T) or None)."""
+        bool; ``spk_emb`` (B,) ids or (B, 512) x-vectors, ``accent``
+        (B, T) ids; ``generator`` seeds the kernel path's dropout. Returns
+        (x (B, T, d_model), attn (B, N, H, T, T) or None[, ctc_logits])."""
         return self._layers(self.pe(self._input(src)), mask, collect_attn,
+                            spk_emb=spk_emb, accent_emb=self._accent(accent),
                             generator=generator)
 
 
 class ConformerEncoder(_Stack):
+    N_ACCENTS = 13
+
     def __init__(self, vocab_size: int, d_model: int, n_layers: int,
                  heads: int, dropout: float = 0.1, embedding: bool = True,
-                 use_flash: bool = False):
+                 use_flash: bool = False, spk_emb_dim: Optional[int] = None,
+                 accent_emb: bool = False, ctc_out: bool = False,
+                 ctc_classes: int = 152):
         super().__init__(
             vocab_size, d_model, embedding, use_flash,
             RelativePositionalEncoder(d_model, dropout),
             (ConformerEncoderLayer(d_model, heads, dropout,
-                                   use_flash=use_flash)
-             for _ in range(n_layers)))
+                                   use_flash=use_flash,
+                                   spk_emb_dim=spk_emb_dim)
+             for _ in range(n_layers)),
+            self.N_ACCENTS if accent_emb else None, ctc_out, ctc_classes)
 
-    def forward(self, src, mask, *, collect_attn: bool = False,
+    def forward(self, src, mask, spk_emb=None, accent=None, *,
+                collect_attn: bool = False,
                 generator: Optional[torch.Generator] = None):
-        """As ``Encoder.forward``."""
-        x, pos_emb = self.pe(self._input(src))
-        return self._layers(x, mask, collect_attn, pos_emb,
+        """As ``Encoder.forward``; the accent goes in at the input."""
+        x = self._input(src)
+        accent_emb = self._accent(accent)
+        if accent_emb is not None:
+            x = x + accent_emb
+        x, pos_emb = self.pe(x)
+        return self._layers(x, mask, collect_attn, pos_emb, spk_emb=spk_emb,
                             generator=generator)

@@ -17,13 +17,22 @@ perplexity in ``sq_vae_loss``/``sq_vae_perplexity``), by argmin in eval,
 and added to the encoder output. The SQ-VAE FastSpeech 2 of
 models/fastspeech2_sq.py quantizes inside its variance adaptor instead.
 
+Conditioning (the JAX file's :141-222): ``spk_emb`` ((B,) speaker ids or
+(B, 512) x-vectors) reaches the encoder's and the decoder's layers that
+``spk_emb_architecture`` names (models/layers.py); ``middle`` adds
+``spk_proj`` of the L2-normalised x-vector (the norm clipped at 1e-12)
+to the encoder output, before the SQ-VAE; ``use_hop`` then adds
+``hop_emb`` of the (B,) hop-size class (0, 1 = hop 256, 2 = hop 160);
+``accent_emb`` gives the encoder per-phone accents; ``ctc_training``
+taps the decoder stack (``ctc_logits`` (B, T, vocab)); ``use_pos`` and
+``use_rnn_length`` go to the variance adaptor.
+
 ``amp`` runs the forward under bf16 autocast (the JAX package's
 ``dtype=bfloat16`` with fp32 parameters). In train mode the caller's
 ``generator`` seeds the kernel path's attention dropout, the scheduled
 sampling and the SQ-VAE's Gumbel noise; the other dropouts draw from
-torch's default generators. Tacotron 2 decoders, speakers, hop-size
-embeddings, the mel-to-mel post model and the CTC tap raise
-``NotImplementedError``: they come with later slices.
+torch's default generators. Tacotron 2 decoders and the mel-to-mel post
+model raise ``NotImplementedError``: they come with later slices.
 """
 
 from __future__ import annotations
@@ -34,12 +43,16 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from transformer_tts_tpu_torch.config import HParams
+from transformer_tts_tpu_torch.config import HParams, spk_arch
 from transformer_tts_tpu_torch.models.encoder import (
     ConformerEncoder, Encoder)
+from transformer_tts_tpu_torch.models.layers import XVECTOR_DIM
 from transformer_tts_tpu_torch.models.postnets import PostConvNet
 from transformer_tts_tpu_torch.models.sq_vae import N_CODES, SQEmbedding
-from transformer_tts_tpu_torch.models.variance_adaptor import VarianceAdaptor
+from transformer_tts_tpu_torch.models.variance_adaptor import (
+    UniLSTM, VarianceAdaptor)
+
+N_HOP_SIZES = 3
 
 
 class FastSpeech2Output(NamedTuple):
@@ -57,6 +70,13 @@ class FastSpeech2Output(NamedTuple):
     attn_dec: Optional[torch.Tensor]
     sq_vae_loss: Optional[torch.Tensor] = None
     sq_vae_perplexity: Optional[torch.Tensor] = None
+    ctc_logits: Optional[torch.Tensor] = None   # (B, T, vocab)
+
+
+def l2_normalised(spk_emb: torch.Tensor) -> torch.Tensor:
+    """x / max(|x|, 1e-12) over the last axis."""
+    return spk_emb / torch.linalg.vector_norm(
+        spk_emb, dim=-1, keepdim=True).clamp(min=1e-12)
 
 
 def _stack(encoder_type: str, **kw) -> nn.Module:
@@ -86,32 +106,47 @@ class FastSpeech2(nn.Module):
                  energy_pred: bool = True, f0_stats: Optional[tuple] = None,
                  energy_stats: Optional[tuple] = None,
                  p_scheduled_sampling: float = 0.0,
-                 use_sq_vae: bool = False,
+                 use_sq_vae: bool = False, use_pos: bool = False,
+                 use_rnn_length: bool = False, accent_emb: bool = False,
+                 spk_emb_dim: Optional[int] = None,
+                 spk_emb_architecture: tuple = (), use_hop: bool = False,
+                 ctc_training: bool = False,
                  use_flash: bool = False, amp: bool = False):
         super().__init__()
         self.log_offset = log_offset
         self.amp = amp
+        self.spk_emb_architecture = tuple(spk_emb_architecture)
         self.encoder = _stack(
             encoder_type, vocab_size=vocab_size, d_model=d_model_encoder,
             n_layers=n_layer_encoder, heads=n_head_encoder,
             ff_kernel_size=ff_conv_kernel_size_encoder,
             concat_after=concat_after_encoder, dropout=dropout,
-            embedding=True, use_flash=use_flash)
+            embedding=True, use_flash=use_flash,
+            spk_emb_dim=self._spk_dim("encoder", spk_emb_dim),
+            accent_emb=accent_emb)
+        self.spk_proj = (nn.Linear(spk_emb_dim, d_model_decoder)
+                         if "middle" in self.spk_emb_architecture else None)
         self.codebook = None
         if use_sq_vae:
             self.log_var_q_scalar = nn.Parameter(
                 torch.full((1,), math.log(10.0)))
             self.codebook = SQEmbedding(N_CODES, d_model_encoder)
+        self.hop_emb = (nn.Embedding(N_HOP_SIZES, d_model_encoder)
+                        if use_hop else None)
         self.variance_adaptor = VarianceAdaptor(
             d_model_encoder, n_bins, f0_min, f0_max, energy_min, energy_max,
             log_offset, pitch_pred, energy_pred, dropout_variance_adaptor,
-            f0_stats, energy_stats, p_scheduled_sampling)
+            f0_stats, energy_stats, p_scheduled_sampling, use_pos,
+            use_rnn_length)
+        self.ctc_training = ctc_training
         self.decoder = _stack(
             decoder_type, vocab_size=d_model_encoder,
             d_model=d_model_decoder, n_layers=n_layer_decoder,
             heads=n_head_decoder, ff_kernel_size=ff_conv_kernel_size_decoder,
             concat_after=concat_after_decoder, dropout=dropout,
-            embedding=False, use_flash=use_flash)
+            embedding=False, use_flash=use_flash,
+            spk_emb_dim=self._spk_dim("decoder", spk_emb_dim),
+            ctc_out=ctc_training, ctc_classes=vocab_size)
         if postnet_pred:
             self.postnet = PostConvNet(d_model_decoder, mel_dim,
                                        reduction_rate, dropout_postnet)
@@ -119,22 +154,32 @@ class FastSpeech2(nn.Module):
             self.out = nn.Linear(d_model_decoder, mel_dim * reduction_rate)
         self.postnet_pred = postnet_pred
 
+    def _spk_dim(self, place: str, spk_emb_dim):
+        return spk_emb_dim if place in self.spk_emb_architecture else None
+
     def forward(self, text, src_mask, max_frames: int, d_target=None,
                 p_target=None, e_target=None, mel_mask=None, *,
+                spk_emb=None, accent=None, hop_size=None,
                 collect_attn: bool = False, pitch_scale: float = 1.0,
                 duration_scale: float = 1.0, temperature=None,
                 generator: Optional[torch.Generator] = None
                 ) -> FastSpeech2Output:
         """``text`` (B, L) ids, ``src_mask`` (B, 1, L) bool; the targets
-        teacher-force durations (B, L), pitch and energy (B, T). With
+        teacher-force durations (B, L), pitch and energy (B, T). A
+        conditioned model takes ``spk_emb`` ((B,) ids or (B, 512)
+        x-vectors), ``accent`` (B, L) and ``hop_size`` (B,). With
         ``use_sq_vae``, train mode takes the Gumbel-softmax
         ``temperature``."""
-        sq_loss = sq_perplexity = None
+        sq_loss = sq_perplexity = ctc_logits = None
         with torch.autocast(text.device.type, dtype=torch.bfloat16,
                             enabled=self.amp):
-            e_outputs, attn_enc = self.encoder(text, src_mask,
+            e_outputs, attn_enc = self.encoder(text, src_mask, spk_emb,
+                                               accent,
                                                collect_attn=collect_attn,
                                                generator=generator)
+            if self.spk_proj is not None and spk_emb is not None:
+                e_outputs = e_outputs + self.spk_proj(
+                    l2_normalised(spk_emb.float()))[:, None, :]
             if self.codebook is not None:
                 if self.training:
                     z, sq_loss, sq_perplexity, _ = self.codebook(
@@ -144,13 +189,19 @@ class FastSpeech2(nn.Module):
                     z, _ = self.codebook.encode(e_outputs,
                                                 self.log_var_q_scalar)
                 e_outputs = z + e_outputs
+            if self.hop_emb is not None:
+                e_outputs = e_outputs + self.hop_emb(hop_size)[:, None, :]
             va = self.variance_adaptor(
                 e_outputs, src_mask, max_frames, d_target, p_target,
                 e_target, mel_mask, pitch_scale=pitch_scale,
                 duration_scale=duration_scale, generator=generator)
-            d_output, attn_dec = self.decoder(va.x, va.mel_mask,
-                                              collect_attn=collect_attn,
-                                              generator=generator)
+            dec = self.decoder(va.x, va.mel_mask, spk_emb,
+                               collect_attn=collect_attn,
+                               generator=generator)
+            if self.ctc_training:
+                d_output, attn_dec, ctc_logits = dec
+            else:
+                d_output, attn_dec = dec
             if self.postnet_pred:
                 mel_pre, mel_post = self.postnet(d_output)
             else:
@@ -162,7 +213,7 @@ class FastSpeech2(nn.Module):
             variance_adaptor_output=va.x,
             text_dur_predicted=va.text_dur_predicted,
             attn_enc=attn_enc, attn_dec=attn_dec, sq_vae_loss=sq_loss,
-            sq_vae_perplexity=sq_perplexity)
+            sq_vae_perplexity=sq_perplexity, ctc_logits=ctc_logits)
 
 
 def later_slice(feature: str, slice_name: str):
@@ -177,19 +228,23 @@ def _check_supported(hp: HParams) -> None:
         if getattr(hp, key).lower() not in ("transformer", "conformer"):
             later_slice(f"{key}={getattr(hp, key)!r}",
                         "other model families")
-    if hp.is_multi_speaker or hp.spk_emb_architecture or hp.accent_emb:
-        later_slice("speaker and accent conditioning (spk)",
-                    "other model families")
-    if hp.use_hop:
-        later_slice("hop-size embeddings (hop)", "other model families")
     if hp.architecture == "text-mel-mel" or hp.version is not None:
         later_slice("the mel-to-mel post model (post_model)",
                     "mel-to-mel post-processing")
-    if hp.CTC_training:
-        later_slice("the CTC tap (ctc)", "other model families")
-    if hp.use_pos or hp.use_rnn_length:
-        later_slice("use_pos / use_rnn_length in the variance adaptor",
-                    "other model families")
+    check_speakers(hp)
+
+
+def check_speakers(hp: HParams) -> None:
+    """Raise for speaker hparams the model cannot run: a multi-speaker
+    model without ``spk_emb_dim`` (the JAX model silently builds no
+    speaker layer), or ``middle`` (an L2-normalised vector) with speaker
+    ids (the JAX model fails on them)."""
+    if hp.is_multi_speaker and hp.spk_emb_dim is None:
+        raise ValueError("a multi-speaker model needs spk_emb_dim: 512 for "
+                         "x-vectors, else the speaker-id table's rows")
+    if "middle" in spk_arch(hp) and hp.spk_emb_dim != XVECTOR_DIM:
+        raise ValueError("spk_emb_architecture 'middle' projects an "
+                         f"x-vector: spk_emb_dim must be {XVECTOR_DIM}")
 
 
 def _variance_stats(mean, std):
@@ -200,7 +255,8 @@ def _variance_stats(mean, std):
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``: Linear/Conv weights and the GRU's
-    uniform in +-1/sqrt(fan_in) (torch's default range), embeddings and
+    and LSTM's uniform in +-1/sqrt(fan_in) (torch's default range) with
+    zero biases, embeddings and
     the SQ-VAE codebook N(0, 1), biases 0, norm scales and ``alpha`` 1,
     the conformer's ``pos_bias_u/v`` and the GST tokens Xavier-uniform as
     flax initialises them. BatchNorm running statistics stay (0, 1) and
@@ -215,7 +271,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                         - bound)
                 if module.bias is not None:
                     module.bias.zero_()
-            elif isinstance(module, nn.GRU):
+            elif isinstance(module, (nn.GRU, UniLSTM)):
                 for name, p in module.named_parameters():
                     if name.startswith("bias"):
                         p.zero_()
@@ -272,7 +328,10 @@ def build_fastspeech2(hp: HParams, *, device="cuda",
         f0_stats=_variance_stats(hp.f0_mean, hp.f0_std),
         energy_stats=_variance_stats(hp.energy_mean, hp.energy_std),
         p_scheduled_sampling=hp.p_scheduled_sampling,
-        use_sq_vae=hp.use_sq_vae,
+        use_sq_vae=hp.use_sq_vae, use_pos=hp.use_pos,
+        use_rnn_length=hp.use_rnn_length, accent_emb=hp.accent_emb,
+        spk_emb_dim=hp.spk_emb_dim, spk_emb_architecture=spk_arch(hp),
+        use_hop=hp.use_hop, ctc_training=hp.CTC_training,
         use_flash=hp.use_flash_attention,
         amp=hp.amp)
     init_parameters(model, torch.Generator().manual_seed(seed))

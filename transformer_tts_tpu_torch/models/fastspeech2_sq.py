@@ -33,7 +33,8 @@ from torch import nn
 
 from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.models.fastspeech2 import (
-    FastSpeech2Output, _check_supported, _stack, init_parameters)
+    FastSpeech2Output, _check_supported, _stack, init_parameters,
+    later_slice)
 from transformer_tts_tpu_torch.models.postnets import PostConvNet
 from transformer_tts_tpu_torch.models.sq_vae import N_CODES, SQEmbedding
 from transformer_tts_tpu_torch.models.variance_adaptor import (
@@ -217,6 +218,12 @@ def build_sq_fastspeech2(hp: HParams, *, device="cuda",
     """SQFastSpeech2 from the hparams contract, with random weights from
     ``seed``, on ``device``."""
     _check_supported(hp)
+    if (hp.is_multi_speaker or hp.spk_emb_architecture or hp.accent_emb
+            or hp.use_hop or hp.CTC_training or hp.use_pos
+            or hp.use_rnn_length):
+        later_slice("speaker, accent, hop-size, CTC, use_pos and "
+                    "use_rnn_length options of the SQ-VAE FastSpeech 2",
+                    "other model families")
     model = SQFastSpeech2(
         vocab_size=hp.vocab_size, mel_dim=hp.mel_dim,
         d_model_encoder=hp.d_model_encoder,

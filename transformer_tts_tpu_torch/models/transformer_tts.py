@@ -21,8 +21,16 @@ keep the grouped layout: mel (B, t, mel*r) and stop logits (B, t, r).
 ``linear``: the training target's decoder input in train mode unless a
 ``ref_mel`` is given, the ``ref_mel`` otherwise; a (1, T, mel) reference
 broadcasts over the batch. ``amp`` runs each under bf16 autocast, as
-FastSpeech 2 does. The Tacotron 2 decoder, speakers and the discrete
-output mode raise ``NotImplementedError`` with the other model families.
+FastSpeech 2 does.
+
+Speakers (the JAX file's :84-111, :148-164): ``spk_emb`` is (B,) ids or
+(B, 512) x-vectors. ``spk_emb_vers`` 1 gives the encoder's and the
+decoder's layers that ``spk_emb_architecture`` names a ``SpeakerBias``;
+the decoder's biases are computed once per call (``speaker_biases``)
+and the decode steps read them. ``spk_emb_vers`` 2 adds ``spk_proj`` of
+the L2-normalised speaker vector to every encoder output instead, with
+no per-layer bias. The Tacotron 2 decoder and the discrete output mode
+raise ``NotImplementedError`` with the other model families.
 """
 
 from __future__ import annotations
@@ -33,10 +41,10 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from transformer_tts_tpu_torch.config import HParams
+from transformer_tts_tpu_torch.config import HParams, spk_arch
 from transformer_tts_tpu_torch.models.decoder import Decoder
 from transformer_tts_tpu_torch.models.fastspeech2 import (
-    _stack, init_parameters, later_slice)
+    _stack, check_speakers, init_parameters, l2_normalised, later_slice)
 from transformer_tts_tpu_torch.models.gst import StyleEmbedding
 from transformer_tts_tpu_torch.models.postnets import PostConvNet
 
@@ -61,8 +69,12 @@ class TransformerTTS(nn.Module):
                  encoder_type: str = "transformer", reduction_rate: int = 2,
                  dropout: float = 0.1, dropout_prenet: float = 0.5,
                  dropout_postnet: float = 0.5, gst: bool = False,
+                 spk_emb_dim: Optional[int] = None,
+                 spk_emb_architecture: tuple = (), spk_emb_vers: int = 1,
+                 multi_speaker: bool = False,
                  use_flash: bool = False, amp: bool = False):
         super().__init__()
+        per_layer = spk_emb_dim if spk_emb_vers == 1 else None
         self.mel_dim = mel_dim
         self.reduction_rate = reduction_rate
         self.n_layer_decoder = n_layer_decoder
@@ -75,16 +87,22 @@ class TransformerTTS(nn.Module):
             n_layers=n_layer_encoder, heads=n_head_encoder,
             ff_kernel_size=ff_conv_kernel_size_encoder,
             concat_after=concat_after_encoder, dropout=dropout,
-            embedding=True, use_flash=use_flash)
+            embedding=True, use_flash=use_flash,
+            spk_emb_dim=(per_layer if "encoder" in spk_emb_architecture
+                         else None))
         self.linear = (nn.Linear(d_model_encoder, d_model_decoder)
                        if d_model_encoder != d_model_decoder else None)
         self.style_embedding = (StyleEmbedding(mel_dim, d_model_decoder)
                                 if gst else None)
+        self.spk_proj = (nn.Linear(spk_emb_dim, d_model_decoder)
+                         if multi_speaker and spk_emb_vers == 2 else None)
         self.decoder = Decoder(
             mel_dim, d_model_decoder, n_layer_decoder, n_head_decoder,
             ff_conv_kernel_size_decoder, concat_after=concat_after_decoder,
             dropout=dropout, dropout_prenet=dropout_prenet,
-            use_flash=use_flash)
+            use_flash=use_flash,
+            spk_emb_dim=(per_layer if "decoder" in spk_emb_architecture
+                         else None))
         self.out = nn.Linear(d_model_decoder, mel_dim * reduction_rate)
         self.stop_token = nn.Linear(d_model_decoder, reduction_rate)
         self.postnet = PostConvNet(d_model_decoder, mel_dim, reduction_rate,
@@ -104,7 +122,7 @@ class TransformerTTS(nn.Module):
         the projections' output dtype."""
         return torch.bfloat16 if self.amp else torch.float32
 
-    def encode(self, src, src_mask, style_mel=None, *,
+    def encode(self, src, src_mask, style_mel=None, spk_emb=None, *,
                collect_attn: bool = False,
                generator: Optional[torch.Generator] = None):
         """(e_outputs (B, L, d_model_decoder), encoder maps or None).
@@ -112,7 +130,7 @@ class TransformerTTS(nn.Module):
         vector added to every output; it must be given."""
         with self._autocast(src):
             e_outputs, attn_enc = self.encoder(
-                src, src_mask, collect_attn=collect_attn,
+                src, src_mask, spk_emb, collect_attn=collect_attn,
                 generator=generator)
             if self.linear is not None:
                 e_outputs = self.linear(e_outputs)
@@ -121,7 +139,18 @@ class TransformerTTS(nn.Module):
                     raise ValueError(
                         "gst=True requires a style/reference mel")
                 e_outputs = e_outputs + self.style_embedding(style_mel)
+            if self.spk_proj is not None and spk_emb is not None:
+                e_outputs = e_outputs + self.spk_proj(
+                    l2_normalised(spk_emb.float()))[:, None, :]
         return e_outputs, attn_enc
+
+    def speaker_biases(self, spk_emb):
+        """The decoder layers' speaker biases of ``spk_emb`` (see
+        ``Decoder.speaker_biases``), under the model's autocast."""
+        if spk_emb is None:
+            return None
+        with self._autocast(spk_emb):
+            return self.decoder.speaker_biases(spk_emb)
 
     def precompute_cross_kv(self, e_outputs):
         """Per-decoder-layer cross-attention (k, v), constant over a
@@ -130,12 +159,13 @@ class TransformerTTS(nn.Module):
             return self.decoder.precompute_cross_kv(e_outputs)
 
     def decode_step(self, prev_frame, e_outputs, src_mask, caches,
-                    cache_index, cross_kvs=None):
+                    cache_index, cross_kvs=None, spk_biases=None):
         """One AR step: (B, 1, mel) input frame -> (group (B, 1, mel*r),
         stop logits (B, 1, r)). ``caches``: per layer (k, v), each
         (B, H, max_steps, d_k), written in place at ``cache_index`` (an int
         or a 0-d integer tensor on the caches' device); the step attends to
-        cache rows <= ``cache_index``."""
+        cache rows <= ``cache_index``. ``spk_biases``: the call's
+        ``speaker_biases``."""
         max_steps = caches[0][0].shape[2]
         device = caches[0][0].device
         index = torch.as_tensor(cache_index, device=device).reshape(1)
@@ -144,7 +174,8 @@ class TransformerTTS(nn.Module):
             prev_frame.shape[0], 1, max_steps)
         with self._autocast(prev_frame):
             d, _, _ = self.decoder(
-                prev_frame, e_outputs, src_mask, trg_mask, caches=caches,
+                prev_frame, e_outputs, src_mask, trg_mask, spk_biases,
+                caches=caches,
                 cache_index=index, pos_offset=index, cross_kvs=cross_kvs)
             return self.out(d), self.stop_token(d)
 
@@ -153,23 +184,25 @@ class TransformerTTS(nn.Module):
             return self.postnet(mel_pre)
 
     def forward(self, src, trg, src_mask, trg_mask, ref_mel=None, *,
-                collect_attn: bool = False,
+                spk_emb=None, collect_attn: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> TransformerTTSOutput:
         """Teacher-forced forward. ``trg`` (B, t, mel) is the reduced
         decoder input (the go frame and every r-th frame), ``trg_mask``
         its (B, t, t) pad-and-causal mask; in train mode ``generator``
-        seeds the kernel path's attention dropout. With ``gst`` the style
-        comes from ``ref_mel``, or in train mode without one from
+        seeds the kernel path's attention dropout. ``spk_emb`` (B,) ids or
+        (B, 512) x-vectors for a multi-speaker model. With ``gst`` the
+        style comes from ``ref_mel``, or in train mode without one from
         ``trg``."""
         style_mel = (trg if self.style_embedding is not None
                      and self.training and ref_mel is None else ref_mel)
-        e_outputs, attn_enc = self.encode(src, src_mask, style_mel,
+        e_outputs, attn_enc = self.encode(src, src_mask, style_mel, spk_emb,
                                           collect_attn=collect_attn,
                                           generator=generator)
         with self._autocast(src):
             d_output, attn_dd, attn_de = self.decoder(
                 trg, e_outputs, src_mask, trg_mask,
+                self.decoder.speaker_biases(spk_emb),
                 collect_attn=collect_attn, generator=generator)
             mel_pre = self.out(d_output)
             stop = self.stop_token(d_output)
@@ -187,9 +220,7 @@ def check_supported(hp: HParams) -> None:
     if hp.encoder_type.lower() not in ("transformer", "conformer"):
         later_slice(f"encoder_type={hp.encoder_type!r} of the AR model",
                     "other model families")
-    if hp.is_multi_speaker or hp.spk_emb_architecture:
-        later_slice("speaker conditioning of the AR model",
-                    "other model families")
+    check_speakers(hp)
     if hp.output_type:
         later_slice("the discrete output mode (output_type) of the AR "
                     "model", "other model families")
@@ -215,6 +246,8 @@ def build_transformer_tts(hp: HParams, *, device="cuda",
         encoder_type=hp.encoder_type, reduction_rate=hp.reduction_rate,
         dropout=hp.dropout, dropout_prenet=hp.dropout_prenet,
         dropout_postnet=hp.dropout_postnet, gst=hp.gst,
+        spk_emb_dim=hp.spk_emb_dim, spk_emb_architecture=spk_arch(hp),
+        spk_emb_vers=hp.spk_emb_vers, multi_speaker=hp.is_multi_speaker,
         use_flash=hp.use_flash_attention, amp=hp.amp)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device)

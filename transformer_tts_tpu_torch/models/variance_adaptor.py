@@ -1,7 +1,6 @@
 """Variance adaptor: duration, pitch and energy prediction plus length
 regulation (the port of transformer_tts_tpu/models/variance_adaptor.py:
-36-189, without ``use_pos``/``use_rnn_length``, which come with the other
-model families).
+36-217).
 
 * ``VariancePredictor``: (Conv1d(k=3) -> ReLU -> LayerNorm -> dropout) x 2
   -> Linear -> one value per position, 0 where the mask is False.
@@ -29,6 +28,41 @@ from torch import nn
 from transformer_tts_tpu_torch.ops.feedforward import Conv1dBTC, LN_EPS
 from transformer_tts_tpu_torch.ops.length_regulator import (
     durations_from_log, length_regulate)
+from transformer_tts_tpu_torch.ops.positional import PositionalEncoder
+
+POS_DROPOUT = 0.1
+
+
+class UniLSTM(nn.Module):
+    """flax's ``OptimizedLSTMCell`` scanned over time from a zero carry, as
+    ``nn.RNN`` scans it: the gates i, f, g, o (input, forget, cell,
+    output) along dim 0 of ``weight_ih_l0`` (4H, in) and ``weight_hh_l0``
+    (4H, H), torch's ``nn.LSTM`` layout and names. flax's input kernels
+    have no bias and its hidden ones do: ``bias_hh_l0`` holds the hidden
+    biases and the input bias is a zero buffer, outside the
+    ``state_dict`` and the gradient. Runs in fp32 (autocast off), cuDNN's
+    LSTM on the card."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih_l0 = nn.Parameter(torch.empty(4 * hidden, in_dim))
+        self.weight_hh_l0 = nn.Parameter(torch.empty(4 * hidden, hidden))
+        self.bias_hh_l0 = nn.Parameter(torch.zeros(4 * hidden))
+        self.register_buffer("bias_ih_l0", torch.zeros(4 * hidden),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, in) -> (B, T, H) fp32, the hidden state after each
+        frame."""
+        with torch.autocast(x.device.type, enabled=False):
+            h0 = x.new_zeros((1, x.shape[0], self.hidden),
+                             dtype=torch.float32)
+            out, _, _ = torch.lstm(
+                x.float(), (h0, h0),
+                (self.weight_ih_l0, self.weight_hh_l0, self.bias_ih_l0,
+                 self.bias_hh_l0), True, 1, 0.0, self.training, False, True)
+        return out
 
 
 class VariancePredictor(nn.Module):
@@ -81,9 +115,14 @@ class VarianceAdaptor(nn.Module):
                  pitch_pred: bool = True, energy_pred: bool = True,
                  dropout: float = 0.5, f0_stats: Optional[tuple] = None,
                  energy_stats: Optional[tuple] = None,
-                 p_scheduled_sampling: float = 0.0):
+                 p_scheduled_sampling: float = 0.0, use_pos: bool = False,
+                 use_rnn_length: bool = False):
         super().__init__()
         self.log_offset = log_offset
+        self.pos = (PositionalEncoder(d_model, POS_DROPOUT) if use_pos
+                    else None)
+        self.rnn_length = (UniLSTM(d_model, d_model) if use_rnn_length
+                           else None)
         self.p_scheduled_sampling = p_scheduled_sampling
         # optional (mean, std): the predictors then work in standardized
         # units and are de-standardized before the bucketized embeddings
@@ -131,6 +170,10 @@ class VarianceAdaptor(nn.Module):
         x, mel_len, mel_pos = length_regulate(x, durations, max_frames)
         if mel_mask is None:
             mel_mask = (mel_pos != 0)[:, None, :]
+        if self.pos is not None:
+            x = self.pos(x)
+        if self.rnn_length is not None:
+            x = self.rnn_length(x)
 
         # both predictors read the expanded features without the
         # pitch/energy embeddings, which are added only at the end

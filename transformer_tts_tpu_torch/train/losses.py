@@ -1,9 +1,9 @@
 """FastSpeech 2 and AR Transformer-TTS losses (the port of
 transformer_tts_tpu/train/losses.py: ``l1`` :24-31, ``channel_wise_l1``
 :34-40, ``duration_loss`` :43-48, ``stop_token_loss`` :51-68,
-``mse_loss_arelbo`` :89-93, ``fastspeech2_loss`` :132-261 with the
-flagship's options and the SQ-VAE's, and ``transformer_tts_loss``
-:264-281).
+``ctc_aux_loss`` :71-86, ``mse_loss_arelbo`` :89-93, ``ssim`` :96-129,
+``fastspeech2_loss`` :132-261 with the flagship's options, SSIM and the
+SQ-VAE's, and ``transformer_tts_loss`` :264-281).
 
 L1 on mel_pre and mel_post, L1 of the predicted log durations against
 log(d + log_offset), and L1 on f0 and energy, all in fp32. ``masked=False``
@@ -11,8 +11,9 @@ log(d + log_offset), and L1 on f0 and energy, all in fp32. ``masked=False``
 frames too; ``f0_stats``/``energy_stats`` standardise those targets and
 average them over valid frames. ``use_sq_vae`` takes the AR-ELBO MSE for
 mel_pre and adds the output's ``sq_vae_loss`` (logging it and the
-perplexity). The SSIM loss and the discrete (``output_type='softmax'``)
-mode come with the other model families. The AR loss is L1 on the pre and
+perplexity). ``use_ssim`` adds -SSIM of mel_post against the mel
+(``loss_ssim``). The discrete (``output_type='softmax'``) mode comes with
+the other model families. The AR loss is L1 on the pre and
 post mel and the stop token's BCE with a positive-class weight, in the
 stable ``logaddexp`` form.
 """
@@ -22,6 +23,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
 
@@ -50,6 +52,57 @@ def duration_loss(log_d_pred: torch.Tensor, d_target: torch.Tensor,
                   log_offset: float = 1.0) -> torch.Tensor:
     """L1(log_d_pred, log(d_target + log_offset))."""
     return l1(log_d_pred, torch.log(d_target.float() + log_offset), mask)
+
+
+def ctc_aux_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
+                 labels: torch.Tensor, label_lengths: torch.Tensor,
+                 blank_id: int = 0) -> torch.Tensor:
+    """The CTC auxiliary loss of (B, T, K) raw ``logits`` (log-softmax in
+    fp32 inside, autocast off) against (B, L) ``labels``, each row valid
+    over its first ``logit_lengths`` frames and ``label_lengths`` labels:
+    each utterance's negative log-likelihood divided by its label length
+    (at least 1), then the batch mean (``F.ctc_loss``'s
+    ``reduction='mean'``, which is what the JAX package computes with
+    optax). A row with fewer frames than its labels need has an infinite
+    loss, in both packages (no ``zero_infinity``)."""
+    with torch.autocast(logits.device.type, enabled=False):
+        log_probs = F.log_softmax(logits.float(), dim=-1)
+        return F.ctc_loss(log_probs.transpose(0, 1), labels.long(),
+                          logit_lengths.long(), label_lengths.long(),
+                          blank=blank_id, reduction="mean",
+                          zero_infinity=False)
+
+
+def gaussian_window(size: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    x = torch.arange(size, dtype=torch.float32) - (size - 1) / 2.0
+    g = torch.exp(-(x ** 2) / (2 * sigma ** 2))
+    return g / g.sum()
+
+
+def ssim(x: torch.Tensor, y: torch.Tensor, data_range=None,
+         window_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    """Gaussian-window SSIM (k1 0.01, k2 0.03) of (B, H, W) images, VALID
+    windows, averaged, in fp32; ``data_range`` defaults to the larger of
+    max - min of ``x`` and of ``y`` over the batch."""
+    with torch.autocast(x.device.type, enabled=False):
+        x, y = x.float(), y.float()
+        if data_range is None:
+            data_range = torch.maximum(x.max() - x.min(), y.max() - y.min())
+        win = gaussian_window(window_size, sigma).to(x.device)
+        kernel = torch.outer(win, win)[None, None]
+
+        def filt(img):
+            return F.conv2d(img[:, None], kernel)[:, 0]
+
+        mu_x, mu_y = filt(x), filt(y)
+        sxx = filt(x * x) - mu_x ** 2
+        syy = filt(y * y) - mu_y ** 2
+        sxy = filt(x * y) - mu_x * mu_y
+        c1 = (0.01 * data_range) ** 2
+        c2 = (0.03 * data_range) ** 2
+        num = (2 * mu_x * mu_y + c1) * (2 * sxy + c2)
+        den = (mu_x ** 2 + mu_y ** 2 + c1) * (sxx + syy + c2)
+        return (num / den).mean()
 
 
 def mse_loss_arelbo(pred: torch.Tensor,
@@ -117,9 +170,7 @@ def fastspeech2_loss(out, mel: torch.Tensor, d_target: torch.Tensor,
                      output_type=None, f0_stats=None, energy_stats=None):
     """(total, logs) for a ``FastSpeech2Output``; the logs carry the JAX
     package's keys: loss_frame_before, loss_frame_after, loss_duration,
-    loss_f0, loss_energy and loss_total."""
-    if use_ssim:
-        later_slice("the SSIM loss (use_ssim)", "other model families")
+    loss_f0, loss_energy, loss_ssim and loss_total."""
     if output_type == "softmax":
         later_slice("the discrete output mode (output_type='softmax')",
                     "other model families")
@@ -153,6 +204,9 @@ def fastspeech2_loss(out, mel: torch.Tensor, d_target: torch.Tensor,
     if out.energy is not None and energy is not None:
         logs["loss_energy"] = l1(out.energy, energy, energy_vmask)
         total = total + logs["loss_energy"]
+    if use_ssim and out.mel_post is not None:
+        logs["loss_ssim"] = -ssim(out.mel_post, mel)
+        total = total + logs["loss_ssim"]
     if out.sq_vae_loss is not None:
         logs["sq_vae_loss"] = out.sq_vae_loss
         logs["sq_vae_perplexity"] = out.sq_vae_perplexity

@@ -31,6 +31,13 @@ every attention on the masked path, as in the JAX package. With ``gst``
 the style comes from the same decoder input; the reference encoder's
 BatchNorm statistics move in the step, as flax's ``batch_stats`` do.
 
+Conditioned batches carry ``spk_emb`` ((B,) ids or (B, 512) x-vectors),
+``accent`` (B, L) and ``hop_size`` (B,); the steps pass them to the
+model (the AR step the speakers only). With ``CTC_training`` the
+FastSpeech 2 step adds 0.2 x the CTC loss (``loss_ctc``) of the decoder's
+tap against the text ids, over each row's mel frames and its phones
+(blank and padding id 0), as the JAX step does (:207-248).
+
 The SQ-VAE steps (``make_sq_fastspeech2_train_step``, and
 ``make_fastspeech2_train_step`` with ``use_sq_vae``) anneal the
 Gumbel-softmax temperature as exp(-1e-5 * step), ``step`` the optimizer's
@@ -59,13 +66,17 @@ from transformer_tts_tpu_torch.models.transformer_tts import (
     build_transformer_tts, check_supported as check_ar_supported)
 from transformer_tts_tpu_torch.ops.masks import create_masks
 from transformer_tts_tpu_torch.train.losses import (
-    fastspeech2_loss, l1, mse_loss_arelbo, transformer_tts_loss)
+    ctc_aux_loss, fastspeech2_loss, l1, mse_loss_arelbo,
+    transformer_tts_loss)
 from transformer_tts_tpu_torch.train.schedule import (
     Optimizer, apply_reference_init, build_optimizer)
 
+CONDITIONING_KEYS = ("spk_emb", "accent", "hop_size")
 FS2_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "alignment", "f0",
-                  "energy")
-AR_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "stop_token")
+                  "energy") + CONDITIONING_KEYS
+AR_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "stop_token",
+                 "spk_emb")
+CTC_WEIGHT = 0.2
 SQ_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "f0", "energy")
 
 
@@ -158,6 +169,8 @@ def make_fastspeech2_train_step(hp: HParams, *, device="cuda"):
         model = state.model.train()
         out = model(b["text"], src_mask, b["mel"].shape[1], b["alignment"],
                     b.get("f0"), b.get("energy"), mel_mask,
+                    spk_emb=b.get("spk_emb"), accent=b.get("accent"),
+                    hop_size=b.get("hop_size"),
                     temperature=(sq_temperature(state.step)
                                  if hp.use_sq_vae else None),
                     generator=state.generator)
@@ -168,6 +181,12 @@ def make_fastspeech2_train_step(hp: HParams, *, device="cuda"):
             log_offset=hp.log_offset, channel_wise=hp.channel_wise,
             channel_weight=hp.channel_weight, output_type=hp.output_type,
             f0_stats=f0_stats, energy_stats=energy_stats)
+        if hp.CTC_training:
+            logs["loss_ctc"] = ctc_aux_loss(
+                out.ctc_logits, mel_mask[:, 0, :].sum(1), b["text"],
+                (b["text"] != 0).sum(1))
+            total = total + CTC_WEIGHT * logs["loss_ctc"]
+            logs["loss_total"] = total
         return _update(state, total, logs)
 
     return step_fn
@@ -224,7 +243,8 @@ def make_transformer_train_step(hp: HParams, *, device="cuda"):
                                           model="transformer")
         model = state.model.train()
         out = model(b["text"], mel[:, :-r:r], src_mask, trg_mask,
-                    collect_attn=ga_w > 0, generator=state.generator)
+                    spk_emb=b.get("spk_emb"), collect_attn=ga_w > 0,
+                    generator=state.generator)
         t = out.mel_pre.shape[1]
         total, logs = transformer_tts_loss(
             out.mel_pre.reshape(n, t * r, mel_dim),
