@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FastSpeech 2 (transformer and conformer), AR
-Transformer-TTS (with and without GST) and SQ-VAE FastSpeech 2 synthesis
-and training, checkpoint averaging, its features, its vocoder and its
-serving layer on one CUDA card.
+"""Drive the PyTorch port's FastSpeech 2 (transformer and conformer, and
+its discrete mode), AR Transformer-TTS (with and without GST, and with
+the Tacotron 2 decoder) and SQ-VAE FastSpeech 2 synthesis and training,
+checkpoint averaging, its features, its vocoder and its serving layer on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -298,6 +299,31 @@ and each printing its wall time:
    The launches of its conditioned main paths (the timed steps and the
    synthesis calls of (a) and (b), each counted from 0) are added to
    the kernels line's; the card-vs-CPU checks' are not.
+19. the other model families, run after 18 and before 7, random weights
+   from seed 0 at full width, data from a
+   generator of seed 19, fatal on any failure:
+   (a) the AR flagship with the Tacotron 2 decoder (d 384, r 2, LSTM
+       cells 1536 wide): one train step card fp32 against CPU fp32 with
+       zoneout and the prenet dropout off (as 5(a), at mel bucket 128:
+       63 decoder steps; no kernel launches, the decoder's attention
+       weights at 2e-2 of their max|g|); its bf16 step at TRAIN_BATCH
+       (511 eager decoder steps; 10 timed, the state kept for its
+       profile, which records the card alone); synthesize_tacotron2 at
+       B=1 and B=8,
+       500 steps, replaying CUDA graphs of 8 steps, bit for bit the eager
+       loop's with and without the stop rule firing (ms per step, RTF);
+       its training then synthesis CLIs run with phase 5's;
+   (b) the transformer flagship in the discrete mode (640 outputs, two
+       streams of 320 codes, pad 320): card fp32 against CPU fp32 (K1,
+       K2) and its bf16 step (K1-90, K2-90); its bf16 step at TRAIN_BATCH
+       (6 K1-d-90 and 6 K2-90 a step); the LSTM language model (vocab
+       320, hidden 512, 4 layers) forward, card against CPU;
+   (c) the SQ-VAE FastSpeech 2 with 247 speaker ids in both stacks and
+       accents: card fp32 against CPU fp32 (the Gumbel noise drawn once);
+       synthesis at B=8 / 2048 in bf16 (6 K1-90), and in fp32 each row
+       against its solo call within 1e-6 of max|ref|.
+   The launches of its main paths ((b)'s timed steps, (c)'s synthesis
+   call) are added to the kernels line's.
 
 It then prints the phases' wall times, the engine calls' launch counts,
 the kernels line (JSON), the nvidia-smi line, and last ``{"ok": true,
@@ -1335,7 +1361,8 @@ CUPTI_OVERHEAD = ("Lazy Function Loading", "Activity Buffer Request")
 PROFILES = []
 
 
-def print_profile(label: str, fn, n: int, ms_per_run: float):
+def print_profile(label: str, fn, n: int, ms_per_run: float,
+                  host: bool = True):
     """Run ``fn`` ``n`` times under torch.profiler (CPU and CUDA activity)
     and print the ten device operations (kernels, copies, memsets) with
     the most self time on the card, each with its share of the device
@@ -1343,7 +1370,9 @@ def print_profile(label: str, fn, n: int, ms_per_run: float):
     covers kernels counted already) and CUPTI's overhead records are left
     out. The device's busy time per run stands against ``ms_per_run``,
     the same work's time measured without the profiler in this run, for
-    the idle share."""
+    the idle share. ``host=False`` records the card's activity alone: for
+    a step of ~10^5 launches the host's events make the trace's
+    processing the cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1352,8 +1381,9 @@ def print_profile(label: str, fn, n: int, ms_per_run: float):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host else []) \
+        + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -1506,6 +1536,8 @@ def trainer(kind: str) -> dict:
                  bwd_call=(fa, "flash_attention_bwd"))
     if kind in ("xvector", "spkconf"):
         return conditioned_trainer(kind)
+    if kind in ("tacotron2", "discrete", "sqspk"):
+        return other_trainer(kind)
     if kind == "fastspeech2":
         return dict(hparams=train_hparams, init=tr.init_fastspeech2_state,
                     make_step=tr.make_fastspeech2_train_step,
@@ -1598,6 +1630,10 @@ def decoder_attention(hp, attn: str) -> tuple:
     gradients come through K2 (FastSpeech 2), K3 (the AR model) or K5 (the
     conformer, whose relative attention adds linear_pos and the two
     position biases)."""
+    if hp.decoder_type.lower() == "tacotron2":      # no kernel: GRAD_TOL
+        return tuple(f"decoder.{m}.weight" for m in (
+            "AttentionConv", "AttentionConvProj", "AttentionEncoderProj",
+            "AttentionDecoderProj", "AttentionSelfProj"))
     members = ["q_linear.weight", "k_linear.weight", "v_linear.weight",
                "out.weight"]
     if hp.decoder_type.lower() == "conformer":
@@ -1729,7 +1765,7 @@ def phase_card_vs_cpu(gen, kind):
     within rounding of 0 (``relu_branches``)."""
     t_start = time.perf_counter()
     spec = trainer(kind)
-    b, text_len, mel_len, frames = CPU_STEP_BATCH
+    b, text_len, mel_len, frames = spec.get("cpu_batch", CPU_STEP_BATCH)
     fp32 = dict(spec["no_dropout"], amp=False, warmup_step=10)
     hp32 = spec["hparams"](**fp32)
     batch = spec["batch"](gen, hp32, b, text_len, mel_len, frames, "cpu")
@@ -1761,10 +1797,14 @@ def phase_card_vs_cpu(gen, kind):
           f"{kind}: {forced[0]} ReLU inputs within rounding of 0 took "
           f"another branch on the CPU than on the card (at most "
           f"{RELU_FLIPS})")
-    fwd, _, dq, dkdv = spec["kernels"]
-    check(all(launched[False][k] > 0 for k in (fwd, dq, dkdv)),
-          f"{kind}: the card's fp32 step did not take {fwd}, {dq} and "
-          f"{dkdv}: {launched[False]}")
+    if not spec["kernels"]:       # a decoder with no kernel (Tacotron 2)
+        check(not any(n for run in launched.values() for n in run.values()),
+              f"{kind}: a kernel launched: {launched}")
+    else:
+        fwd, _, dq, dkdv = spec["kernels"]
+        check(all(launched[False][k] > 0 for k in (fwd, dq, dkdv)),
+              f"{kind}: the card's fp32 step did not take {fwd}, {dq} and "
+              f"{dkdv}: {launched[False]}")
     if spec["bf16_kernels"]:      # bf16, no dropout: the Hopper design
         h_fwd, h_bwd = spec["bf16_kernels"]
         check(launched[True][h_fwd] > 0 and launched[True][h_bwd] > 0
@@ -1847,7 +1887,8 @@ def phase_card_vs_cpu(gen, kind):
           f" loss {loss:.6f} vs {ref_loss:.6f}; gradients, each against its "
           f"own max|g| (tol {GRAD_TOL}): worst "
           + ", ".join(f"{n} {grad_rel[n]:.3g}" for n in worst)
-          + f"; of the decoder attention weights (tol {ATTN_GRAD_TOL}) "
+          + f"; of the decoder attention weights (tol "
+          f"{spec.get('attn_tol', ATTN_GRAD_TOL)}) "
           f"{attn_worst} {grad_rel[attn_worst]:.3g}, their max|g| "
           f"{min(attn_peaks):.3g}"
           f"..{max(attn_peaks):.3g} (largest gradient {top:.3g}); "
@@ -1864,7 +1905,7 @@ def phase_card_vs_cpu(gen, kind):
           f"the largest at {forced[1]:.3g} of max|x|; card launches "
           f"{json.dumps(launched)}")
     check(max(grad_rel.values()) <= GRAD_TOL
-          and grad_rel[attn_worst] <= ATTN_GRAD_TOL
+          and grad_rel[attn_worst] <= spec.get("attn_tol", ATTN_GRAD_TOL)
           and noise_peak <= 1e-5 * top,
           f"{kind}: card gradients disagree with the CPU's: worst {worst}")
     check(max(update_rel.values()) <= 1e-3 and attn_share >= 0.5,
@@ -1903,20 +1944,21 @@ def train_run(kind, batch) -> dict:
     state = spec["init"](hp, device=DEVICE)
     step = spec["make_step"](hp, device=DEVICE)
     fwd_calls, bwd_calls = [], []
+    kernel_path = bool(spec["step_kernels"])     # Tacotron 2's has none
     for i in range(3):
-        if i == 2:      # the last warm-up step's kernel inputs
+        if i == 2 and kernel_path:      # the last warm-up step's inputs
             with capture_calls(*spec["fwd_call"], fwd_calls), \
                     capture_calls(*spec["bwd_call"], bwd_calls):
                 state, _ = step(state, batch)
         else:
             state, _ = step(state, batch)
     torch.cuda.synchronize()
-    check(len(fwd_calls) == hp.n_layer_decoder
-          and len(bwd_calls) == hp.n_layer_decoder,
+    n_calls = hp.n_layer_decoder if kernel_path else 0
+    check(len(fwd_calls) == n_calls and len(bwd_calls) == n_calls,
           f"{kind}: kernel path calls per step")
     run = dict(kind=kind, hp=hp, spec=spec, state=state, step=step,
-               batch=batch, fwd_inputs=fwd_calls[0],
-               bwd_inputs=bwd_calls[-1])
+               batch=batch, fwd_inputs=fwd_calls[0] if kernel_path else None,
+               bwd_inputs=bwd_calls[-1] if kernel_path else None)
     del fwd_calls, bwd_calls            # the other layers' inputs
     run["held"] = torch.cuda.memory_allocated() - resident
     return run
@@ -2016,12 +2058,12 @@ def phase_train_step(batch, kind):
     return r["launches"], fwd_inputs, bwd_inputs
 
 
-def profile_train_step(run, ms_per_step):
+def profile_train_step(run, ms_per_step, host: bool = True):
     """``print_profile`` of one train step of ``run`` (``train_run``'s),
     going on from the state its timed steps left (warm)."""
     print_profile(f"the {run['kind']} train step",
                   partial(run["step"], run["state"], run["batch"]), 1,
-                  ms_per_step)
+                  ms_per_step, host)
 
 
 def write_train_corpus(gen, hp, root):
@@ -4950,6 +4992,319 @@ def phase_conditioning(smi: str) -> dict:
     return total
 
 
+# ---- phase 19: the other model families -------------------------------------
+
+# two streams of vq-wav2vec's 320 codes, padded with 320 (the loss ignores
+# it): the FastSpeech 2 head's 640 outputs are their logits
+DISCRETE = dict(output_type="softmax", mel_dim=640)
+CODE_PAD = 320
+SQ_SPK_COND = dict(SQ_STACKS, is_multi_speaker=True,
+                   spk_emb_type="speaker_id", spk_emb_dim=N_SPEAKERS,
+                   spk_emb_architecture="encoder,decoder", accent_emb=True)
+TACO_SYNTH_BATCHES = (1, 8)
+# the card-vs-CPU step's batch: 63 decoder steps, each a few launches on
+# the card and a few GEMMs on the CPU, in an eager loop
+TACO_CPU_STEP_BATCH = (2, 128, 128, (100, 124))
+TACO_STOP_BIAS = 30.0           # the stop rule fires at step 11: 15 groups
+LM_TOKENS = (4, 400)            # B, T of the language model's forward
+
+
+def taco_hparams(**overrides):
+    """The AR flagship (egs/transformer_tts_ljspeech.py) with
+    ``decoder_type = "tacotron2"``: d 384 for both stacks, r 2, LSTM cells
+    1536 wide (gates 6144), prenet dropout 0.5, zoneout 0.1, with
+    overrides."""
+    return ar_hparams(**dict(overrides, decoder_type="tacotron2"))
+
+
+def no_zoneout(model):
+    """Zoneout (0.1, a constructor field, not an hparam) at 0, for the
+    card-vs-CPU step."""
+    model.decoder.zoneout_rate = 0.0
+
+
+def discrete_hparams(**overrides):
+    """The transformer flagship in the discrete mode (DISCRETE)."""
+    return train_hparams(**dict(overrides, **DISCRETE))
+
+
+def discrete_batch(gen, hp, b, text_len, mel_len, frames, device):
+    """``train_batch``'s, its mel replaced by (B, T, 2) int32 codes drawn
+    from ``gen`` (mel_dim / 2 classes), CODE_PAD past each row's frames,
+    as the collate pads."""
+    batch = train_batch(gen, hp, b, text_len, mel_len, frames, "cpu")
+    codes = torch.randint(0, hp.mel_dim // 2, (b, mel_len, 2),
+                          generator=gen, dtype=torch.int32)
+    valid = (batch["pos_mel"] > 0)[..., None]
+    batch["mel"] = torch.where(valid, codes, CODE_PAD)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def other_trainer(kind: str) -> dict:
+    """Phase 19's kinds: "tacotron2" (the AR flagship with the Tacotron 2
+    decoder: no kernel, its attention weights held at GRAD_TOL, zoneout
+    off in the card-vs-CPU step, at TACO_CPU_STEP_BATCH), "discrete" (the
+    transformer flagship in the discrete mode, on code batches) and
+    "sqspk" (the SQ-VAE FastSpeech 2 with SQ_SPK_COND, on batches with
+    speakers and accents)."""
+    if kind == "tacotron2":
+        spec = trainer("ar")
+        spec.update(hparams=taco_hparams, prepare=no_zoneout, kernels=(),
+                    bf16_kernels=(), step_kernels=(), attn_tol=GRAD_TOL,
+                    cpu_batch=TACO_CPU_STEP_BATCH,
+                    live=("decoder.L_l1_", "decoder.L_l2_",
+                          "decoder.Attention"))
+    elif kind == "discrete":
+        spec = trainer("fastspeech2")
+        spec.update(hparams=discrete_hparams, batch=discrete_batch)
+    else:
+        spec = trainer("sq")
+
+        def batch(gen, hp, *args):
+            return conditioned(gen, hp, train_batch(gen, hp, *args))
+
+        spec.update(hparams=lambda **o: train_hparams(**dict(o,
+                                                             **SQ_SPK_COND)),
+                    batch=batch,
+                    live=spec["live"] + ("encoder.acc_embed.",
+                                         "encoder.layers.0.spk_bias.",
+                                         "decoder.layers.5.spk_bias."))
+    return spec
+
+
+def timed_other_step(kind, batch, smi, label) -> dict:
+    """``train_run`` and ``time_train_steps`` of ``kind`` on ``batch`` at
+    TRAIN_BATCH (kept for its profile, which gives the device's idle
+    share); prints the step. Returns its launches."""
+    b, text_len, mel_len, _ = TRAIN_BATCH
+    run = train_run(kind, batch)
+    r = time_train_steps(run)
+    # Tacotron 2's step launches ~10^5 kernels: its profile records the
+    # card alone
+    PROFILES.append(partial(profile_train_step, run, r["ms"],
+                            host=kind != "tacotron2"))
+    del run
+    torch.cuda.empty_cache()
+    print(f"19{label} {kind} train step B={b} L={text_len} T={mel_len} "
+          f"bf16 amp dropout 0.1: {r['ms']:.3f} ms/step (median of 10; "
+          f"each {[round(x, 3) for x in r['step_ms']]}), "
+          f"{r['frames_s']:.0f} valid frames/s, the step's own peak memory "
+          f"{r['own_gb']:.3f} GB over {r['other_gb']:.3f} GB held besides; "
+          f"last losses {json.dumps(r['terms'])}; launches per step "
+          f"{json.dumps(r['per_step'][0])}; {smi}")
+    return r["launches"]
+
+
+def taco_graph_steps(model, b: int) -> int:
+    """The steps the last graphed Tacotron 2 decode of batch ``b`` ran."""
+    from transformer_tts_tpu_torch.infer import synthesize as synth
+    return max(int(g.carry["step"])
+               for key, g in synth._TACOTRON2_GRAPHS[model].items()
+               if key[0] == b)
+
+
+def phase_taco_synthesis(gen):
+    """19(a), synthesis: ``synthesize_tacotron2`` of the Tacotron 2
+    flagship, bf16 amp, max_steps 500, B=1 and B=8, no kernel launched:
+    the loop replays CUDA graphs of 8 steps. The stop head's bias at
+    AR_STOP_BIAS leaves the stop to the alignment rule (or the budget); the
+    graph's mel and lengths must equal the eager loop's bit for bit, then
+    again at TACO_STOP_BIAS, where the rule fires at step 11 and every
+    row has 15 groups. Times (graph: median of 3; eager: one call): ms
+    per call and per step run, RTF."""
+    from transformer_tts_tpu_torch.infer import synthesize as synth
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
+    hp = taco_hparams(amp=True)
+    model = build_transformer_tts(hp, device=DEVICE, seed=0).eval()
+    r = hp.reduction_rate
+    with torch.no_grad():
+        model.decoder.TokenProj.bias.fill_(AR_STOP_BIAS)
+    batches = []
+    for b in TACO_SYNTH_BATCHES:
+        text, pos = text_batch(gen, b, 128, 48, hp.vocab_size)
+        batches.append((text.long().to(DEVICE), pos.to(DEVICE)))
+    set_counts({})                          # the path starts here
+    for text, pos in batches:
+        t0 = time.perf_counter()
+        mel, lengths = synth.synthesize_tacotron2(model, text, pos)
+        torch.cuda.synchronize()
+        print(f"19(a) Tacotron 2 synthesis B={text.shape[0]}: first graphed "
+              f"call (warm-up and capture) "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        check(mel.shape == (text.shape[0], synth.MAX_AR_STEPS * r,
+                            hp.mel_dim)
+              and bool(torch.isfinite(mel).all())
+              and len(set(lengths.tolist())) == 1 and int(lengths[0]) > 0,
+              f"19(a) Tacotron 2 synthesis: mel {tuple(mel.shape)}, "
+              f"lengths {lengths.tolist()}")
+    launched = read_counts()                # and ends here
+    check(not any(launched.values()),
+          f"19(a) Tacotron 2 synthesis launched a kernel: {launched}")
+    results, steps = {}, {}
+    for text, pos in batches:
+        b = text.shape[0]
+        results[b, "graph"] = wall_ms(
+            lambda: synth.synthesize_tacotron2(model, text, pos), 3)
+        steps[b] = taco_graph_steps(model, b)
+        results[b, "eager"] = wall_ms(
+            lambda: synth.synthesize_tacotron2(model, text, pos,
+                                               eager=True), 1)
+        (g_mel, g_len), (e_mel, e_len) = (results[b, n][1]
+                                          for n in ("graph", "eager"))
+        check(torch.equal(g_mel, e_mel) and torch.equal(g_len, e_len),
+              f"19(a) Tacotron 2 B={b}: the graph's mel or lengths differ "
+              f"from the eager loop's")
+    with torch.no_grad():
+        model.decoder.TokenProj.bias.fill_(TACO_STOP_BIAS)
+    for text, pos in batches:
+        g_mel, g_len = synth.synthesize_tacotron2(model, text, pos)
+        e_mel, e_len = synth.synthesize_tacotron2(model, text, pos,
+                                                  eager=True)
+        check(torch.equal(g_mel, e_mel) and torch.equal(g_len, e_len)
+              and bool((g_len == 15 * r).all()),
+              f"19(a) Tacotron 2 B={text.shape[0]} with the stop rule "
+              f"firing: lengths graph {g_len.tolist()}, eager "
+              f"{e_len.tolist()}")
+    print(f"19(a) Tacotron 2, stop bias {TACO_STOP_BIAS}: every row "
+          f"{15 * r} frames, the graph bit for bit the eager loop's")
+    for (b, name), (ms, (_, lengths)) in sorted(results.items()):
+        audio_s = lengths.sum().item() * HOP_SECONDS
+        print(f"19(a) Tacotron 2 synthesize_tacotron2 B={b} L=128 max_steps "
+              f"{synth.MAX_AR_STEPS} bf16 amp, {name}: {ms:.3f} ms/call "
+              f"({'median of 3' if name == 'graph' else 'one call'}), "
+              f"{steps[b]} steps run, {ms / steps[b]:.4f} ms per step, "
+              f"{lengths.sum().item()} frames = {audio_s:.3f} s audio, RTF "
+              f"{ms / 1e3 / audio_s:.6f}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_language_model(gen):
+    """19(b), the LSTM language model at its defaults (vocab 320, hidden
+    512, 4 layers; cuDNN's fp32 LSTM on the card): the forward on the card
+    against the CPU on the same weights and LM_TOKENS tokens, and its
+    time."""
+    from transformer_tts_tpu_torch.models.lm import (
+        build_lstm_language_model)
+    cpu = build_lstm_language_model(device="cpu", seed=0).eval()
+    card = build_lstm_language_model(device=DEVICE, seed=0).eval()
+    tokens = [torch.randint(0, cpu.out1.out_features, LM_TOKENS,
+                            generator=gen) for _ in range(2)]
+    with torch.no_grad():
+        ref = cpu(*tokens)
+        out = card(*(t.to(DEVICE) for t in tokens))
+    err = max((o.cpu() - r).abs().max().item() for o, r in zip(out, ref))
+    peak = max(r.abs().max().item() for r in ref)
+    ms = time_ms(lambda: card(*(t.to(DEVICE) for t in tokens)), reps=10)
+    print(f"19(b) LSTMLanguageModel (320, 512, 4 layers) forward over "
+          f"{LM_TOKENS} tokens: card fp32 vs CPU fp32 max|d logits| "
+          f"{err:.3g} (tol {1e-4 * max(1.0, peak):.3g}, max|ref| "
+          f"{peak:.3g}); {ms:.3f} ms on the card")
+    check(err <= 1e-4 * max(1.0, peak), "19(b) the LM's card forward "
+                                        "disagrees with the CPU's")
+
+
+def phase_sq_speaker_synthesis(gen) -> dict:
+    """19(c), synthesis: the speaker SQ-VAE FastSpeech 2 in bf16 at B=8 /
+    2048 frames with 8 speakers and accents (6 K1-90, counted from 0),
+    timed; the same weights in fp32, each row against its solo call padded
+    to the batch's shape, at ROW_TOL of max|ref|. Returns the bf16 call's
+    launches."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_fastspeech2)
+    hp, model = flagship_model(DEVICE, amp=True, stacks=SQ_SPK_COND)
+    b, max_frames = 8, 2048
+    text, pos = text_batch(gen, b, 128, 48, hp.vocab_size)
+    text, pos = text.to(DEVICE), pos.to(DEVICE)
+    spk = speaker_rows(gen, hp, b).to(DEVICE)
+    accent = (torch.randint(0, 5, text.shape, generator=gen).to(DEVICE)
+              * (text != 0))
+    cond = dict(spk_emb=spk, accent=accent)
+    set_counts({})                          # this path starts here
+    mel, mel_len, _ = synthesize_fastspeech2(model, text, pos, max_frames,
+                                             **cond)
+    torch.cuda.synchronize()
+    launches = read_counts()                # and ends here
+    check(launches["K1-90"] == hp.n_layer_decoder
+          and all(n == 0 for k, n in launches.items() if k != "K1-90"),
+          f"19(c) synthesis launches {json.dumps(launches)}")
+    check(bool(torch.isfinite(mel.float()).all())
+          and int(mel_len.min()) > 0, "19(c) synthesis output")
+    ms, _ = wall_ms(lambda: synthesize_fastspeech2(
+        model, text, pos, max_frames, **cond), 10, warmup=2)
+    audio_s = mel_len.sum().item() * HOP_SECONDS
+    del model
+    _, model = flagship_model(DEVICE, amp=False, stacks=SQ_SPK_COND)
+    with torch.no_grad():
+        ref, ref_len, _ = synthesize_fastspeech2(model, text, pos,
+                                                 max_frames, **cond)
+    worst = 0.0
+    for row in range(b):
+        solo = [torch.zeros_like(x) for x in (text, pos, spk, accent)]
+        for x, full in zip(solo, (text, pos, spk, accent)):
+            x[0] = full[row]
+        got, got_len, _ = synthesize_fastspeech2(
+            model, solo[0], solo[1], max_frames, spk_emb=solo[2],
+            accent=solo[3])
+        n = int(ref_len[row])
+        check(int(got_len[0]) == n, f"19(c) row {row}: {int(got_len[0])} "
+                                    f"frames alone, {n} in the batch")
+        peak = max(1.0, ref[row, :n].abs().max().item())
+        worst = max(worst, (got[0, :n] - ref[row, :n]).abs().max().item()
+                    / peak)
+    print(f"19(c) speaker SQ-VAE synthesize_fastspeech2 B={b} L=128 "
+          f"max_frames={max_frames} bf16 amp, 8 speakers and accents: "
+          f"{ms:.3f} ms/call (median of 10), {mel_len.sum().item()} frames "
+          f"= {audio_s:.3f} s audio, RTF {ms / 1e3 / audio_s:.6f}; "
+          f"launches {json.dumps(launches)}; fp32: each row against its "
+          f"solo call, max|d mel| {worst:.3g} of max|ref| (tol {ROW_TOL})")
+    check(worst <= ROW_TOL, "19(c) a row differs from its solo call")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_other_families(smi: str) -> dict:
+    """Phase 19 (data from a generator of seed 19): (a) the Tacotron 2
+    decoder: card fp32 against CPU fp32, the bf16 step at TRAIN_BATCH
+    (511 eager decoder steps, no kernel), graphed synthesis; (b) the
+    discrete FastSpeech 2: card fp32 against CPU fp32, the bf16 step
+    (K1-d-90, K2-90), the LSTM language model; (c) the SQ-VAE FastSpeech 2
+    with 247 speaker ids and accents: card fp32 against CPU fp32 (the
+    Gumbel noise drawn once), synthesis (K1-90). Its training CLIs run
+    with phase 5's. Returns the launches of its main paths (the timed
+    steps and the synthesis call), by kernel id."""
+    gen = torch.Generator().manual_seed(19)
+    b, text_len, mel_len, frames = TRAIN_BATCH
+    t0 = time.perf_counter()
+    phase_card_vs_cpu(gen, "tacotron2")
+    batch = ar_train_batch(gen, taco_hparams(), b, text_len, mel_len,
+                           frames, DEVICE)
+    launches = [timed_other_step("tacotron2", batch, smi, "(a)")]
+    phase_taco_synthesis(gen)
+    t1 = time.perf_counter()
+    phase_card_vs_cpu(gen, "discrete")
+    batch = discrete_batch(gen, discrete_hparams(), b, text_len, mel_len,
+                           frames, DEVICE)
+    launches.append(timed_other_step("discrete", batch, smi, "(b)"))
+    phase_language_model(gen)
+    t2 = time.perf_counter()
+    with fixed_gumbel(gen):
+        phase_card_vs_cpu(gen, "sqspk")
+    launches.append(phase_sq_speaker_synthesis(gen))
+    print(f"phase 19 parts: (a) Tacotron 2 {t1 - t0:.1f} s, (b) discrete "
+          f"{t2 - t1:.1f} s, (c) SQ speakers {time.perf_counter() - t2:.1f} "
+          f"s")
+    total = {}
+    for counts in launches:
+        for kid, n in counts.items():
+            total[kid] = total.get(kid, 0) + n
+    for kid in ("K1-90", "K1-d-90", "K2-90"):
+        check(total.get(kid, 0) > 0, f"phase 19: {kid} did not launch")
+    return total
+
+
 def worst_err(errs: dict, peaks: dict, names) -> dict:
     """The error of the entry's worst output among ``names``, the one
     with the largest err / max|ref|: its max abs error, its own max|ref|
@@ -5107,7 +5462,8 @@ def main():
         phase_train_step(ar_batch, "gst")
         phase_train_cli(new_gen, "gst")
     sq_clis = prepare_sq_clis(new_gen)
-    with phase("train CLIs of 5, 6, 15 and 16"):
+    phase_train_cli(torch.Generator().manual_seed(19), "tacotron2")
+    with phase("train CLIs of 5, 6, 15, 16 and 19"):
         sq_outs = phase_train_clis(sq_clis["runs"])
     with phase("SQ-VAE FastSpeech 2"):
         phase_sq_forward(new_gen)
@@ -5124,6 +5480,12 @@ def main():
         cond_launches = phase_conditioning(smi)
     print("phase 18 launches, each main path counted from 0, summed: "
           + json.dumps(cond_launches))
+    with phase("other families"):
+        other_launches = phase_other_families(smi)
+    print("phase 19 launches, each main path counted from 0, summed: "
+          + json.dumps(other_launches))
+    for kid, n in other_launches.items():
+        cond_launches[kid] = cond_launches.get(kid, 0) + n
 
     lines = []
     with phase("kernels at their main paths' inputs"):

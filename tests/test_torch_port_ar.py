@@ -677,10 +677,23 @@ def test_ar_options_of_later_slices_raise(option):
         with pytest.raises(ValueError, match="spk_emb_dim"):
             make_transformer_train_step(hp, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="AR model"):
-        build_transformer_tts(hp, device="cpu")
-    with pytest.raises(NotImplementedError, match="AR model"):
-        make_transformer_train_step(hp, device="cpu")
+    if hp.output_type:
+        # the discrete mode is ported (tests/test_torch_port_discrete.py):
+        # the model builds with an embedding prenet; the AR step, which
+        # fails in the JAX package, is refused
+        model = build_transformer_tts(hp, device="cpu")
+        assert isinstance(model.decoder.decoder_prenet.layer["fc1"],
+                          torch.nn.Embedding)
+        with pytest.raises(ValueError, match="int codes"):
+            make_transformer_train_step(hp, device="cpu")
+        return
+    # the Tacotron 2 decoder is ported (tests/test_torch_port_tacotron2.py):
+    # the model builds with it and one train step runs
+    state = init_transformer_state(hp, device="cpu")
+    assert state.model.stop_token is None
+    state, logs = make_transformer_train_step(hp, device="cpu")(
+        state, _ar_batch(t=40, frames=(30, 21)))
+    assert state.step == 1 and np.isfinite(float(logs["loss_total"]))
 
 
 # ---- attention dispatch -----------------------------------------------------
@@ -741,8 +754,12 @@ def _corpus(tmp_path, n=6, mel_dim=16, normalise=False):
     for i in range(n):
         t_text = rs.randint(4, 14)
         base = tmp_path / f"utt{i}.npy"
-        np.save(base, rs.randn(2 * t_text + i % 2, mel_dim)
-                .astype(np.float32))
+        t_mel = 2 * t_text + i % 2
+        np.save(base, rs.randn(t_mel, mel_dim).astype(np.float32))
+        # the f0 and energy siblings the default pitch_pred/energy_pred read
+        for tail in ("_f0.npy", "_energy.npy"):
+            np.save(str(base).replace(".npy", tail),
+                    rs.rand(t_mel).astype(np.float32))
         ids = " ".join(str(x) for x in rs.randint(1, 40, t_text))
         lines.append(f"{base}|{ids}")
     (tmp_path / "train.txt").write_text("\n".join(lines) + "\n")
@@ -761,10 +778,9 @@ def test_ar_dataset_and_collate_match_jax(tmp_path):
     cfg = dict(mel_dim=16, model="Transformer", reduction_rate=2,
                text_buckets=(8, 16), length_buckets=(16, 25, 32), **extra)
     ours_ds = TTSDataset(script, HParams(**cfg))
-    # as the JAX training CLI reads an AR corpus: no sibling files (the
-    # f0 and energy it would load the AR step drops)
-    ref_ds = JaxTTSDataset(script, JaxHParams(**cfg), alignment_pred=False,
-                           pitch_pred=False, energy_pred=False)
+    # as the JAX training CLI reads an AR corpus: no alignment, and the
+    # f0 and energy siblings (which the AR step drops)
+    ref_ds = JaxTTSDataset(script, JaxHParams(**cfg), alignment_pred=False)
     samples = [ours_ds[i] for i in range(3)]
     for i, s in enumerate(samples):
         r = ref_ds[i]

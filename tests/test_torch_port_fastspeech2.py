@@ -152,7 +152,7 @@ def _write_model_dir(tmp_path, **extra):
     if extra.get("model", "Fastspeech2") == "Fastspeech2":
         save_checkpoint(build_fastspeech2(HParams(**cfg), device="cpu"),
                         str(hp_path.parent))
-    elif extra.get("gst"):
+    elif extra.get("gst") or extra.get("decoder_type") == "tacotron2":
         save_checkpoint(build_transformer_tts(HParams(**cfg), device="cpu"),
                         str(hp_path.parent))
     script = tmp_path / "test.txt"
@@ -205,6 +205,16 @@ def test_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags, match):
             mel = np.load(tmp_path / "out" / f"{idx}.npy")
             assert mel.shape[1] == 16 and np.isfinite(mel).all()
         return
+    if hp_extra.get("decoder_type") == "tacotron2":
+        # the Tacotron 2 decoder is ported (tests/test_torch_port_tacotron2
+        # .py): its synthesis loop, then Griffin-Lim's waveform
+        cli.main(args)
+        for idx in range(3):
+            mel = np.load(tmp_path / "out" / f"{idx}.npy")
+            assert mel.shape[1] == 16 and np.isfinite(mel).all()
+            assert (tmp_path / "out" / f"{idx}.wav").exists() == (
+                len(mel) > 0)
+        return
     with pytest.raises(NotImplementedError, match=match):
         cli.main(args)
 
@@ -239,6 +249,12 @@ def test_options_of_later_slices_raise(option):
     if option.get("is_multi_speaker"):
         # speakers are ported; without spk_emb_dim there is no table
         with pytest.raises(ValueError, match="spk_emb_dim"):
+            build_fastspeech2(hp, device="cpu")
+        return
+    if option == {"decoder_type": "tacotron2"}:
+        # the Tacotron 2 decoder is ported as the AR model's
+        # (tests/test_torch_port_tacotron2.py); FastSpeech 2 refuses it
+        with pytest.raises(ValueError, match="AR model's decoder"):
             build_fastspeech2(hp, device="cpu")
         return
     with pytest.raises(NotImplementedError, match="slice"):

@@ -434,7 +434,12 @@ def _corpus(tmp_path, n=4, mel_dim=16):
     for i in range(n):
         t_text = rs.randint(4, 10)
         base = tmp_path / f"utt{i}.npy"
-        np.save(base, rs.randn(2 * t_text + 3, mel_dim).astype(np.float32))
+        t_mel = 2 * t_text + 3
+        np.save(base, rs.randn(t_mel, mel_dim).astype(np.float32))
+        # the f0 and energy siblings the default pitch_pred/energy_pred read
+        for tail in ("_f0.npy", "_energy.npy"):
+            np.save(str(base).replace(".npy", tail),
+                    rs.rand(t_mel).astype(np.float32))
         ids = " ".join(str(x) for x in rs.randint(1, 40, t_text))
         lines.append(f"{base}|{ids}")
     (tmp_path / "train.txt").write_text("\n".join(lines) + "\n")

@@ -143,12 +143,24 @@ def test_losses_of_later_slices_raise(option):
             np.testing.assert_allclose(float(ours[key]), float(ref[key]),
                                        rtol=1e-5, err_msg=key)
         return
-    out = types.SimpleNamespace(sq_vae_loss=None, **{
-        k: torch.as_tensor(v) for k, v in arrays.items()})
-    with pytest.raises(NotImplementedError, match="other model families"):
-        losses.fastspeech2_loss(out, torch.as_tensor(targets["mel"]),
-                                torch.as_tensor(targets["d"]), None, None,
-                                **option)
+    # the discrete mode is ported (tests/test_torch_port_discrete.py): the
+    # cross-entropy of the (B, T, 2) codes, 320 on padding, as in JAX
+    codes = np.random.RandomState(2).randint(
+        0, 8, targets["mel"].shape[:2] + (2,)).astype(np.int32)
+    codes[1, 13:] = 320
+    _, ref = jax_losses.fastspeech2_loss(
+        types.SimpleNamespace(sq_vae_loss=None, **{
+            k: jnp.asarray(v) for k, v in arrays.items()}),
+        jnp.asarray(codes), jnp.asarray(targets["d"]), None, None, **option)
+    _, ours = losses.fastspeech2_loss(
+        types.SimpleNamespace(sq_vae_loss=None, **{
+            k: torch.as_tensor(v) for k, v in arrays.items()}),
+        torch.as_tensor(codes), torch.as_tensor(targets["d"]), None, None,
+        **option)
+    assert sorted(ours) == sorted(ref) and "accuracy_1" in ours
+    for key in ref:
+        np.testing.assert_allclose(float(ours[key]), float(ref[key]),
+                                   rtol=1e-5, err_msg=key)
 
 
 # ---- schedule and optimizer -------------------------------------------------

@@ -18,7 +18,9 @@ without them (``hparams.py`` beside ``model.pt``) is the checkpoint.
 port's (``model.pt``, see train/checkpoint.py); ``hp.model`` picks
 FastSpeech 2 or the AR Transformer-TTS (``--max_frames``,
 ``--use_prenet`` and the perturbations are FastSpeech 2's; the AR decode
-runs up to 500 frame groups; a GST model takes its style from
+runs up to 500 frame groups, through the KV-cached transformer decode or,
+for ``decoder_type = "tacotron2"``, the Tacotron 2 loop
+(``synthesize_tacotron2``); a GST model takes its style from
 ``--ref_mel``, a (T, mel) ``.npy`` normalized with the corpus statistics
 and styling every utterance). For each utterance of the script it writes
 ``<idx>.npy`` (the de-normalized mel, float32, cut to its length) and,
@@ -92,7 +94,7 @@ def main(argv=None):
     from transformer_tts_tpu_torch.data.dataset import ScriptDataset
     from transformer_tts_tpu_torch.data.readers import Normalizer
     from transformer_tts_tpu_torch.infer.synthesize import (
-        sample_perturbation, synthesize_fastspeech2,
+        sample_perturbation, synthesize_fastspeech2, synthesize_tacotron2,
         synthesize_transformer_tts)
     from transformer_tts_tpu_torch.models import build_model
     from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
@@ -168,7 +170,11 @@ def main(argv=None):
             if args.duration_perturbation else 1.0
         t0 = time.time()
         if is_ar:
-            mel, mel_len = synthesize_transformer_tts(
+            # decoder_type picks the AR loop (the JAX CLI's :174-180)
+            synth_ar = (synthesize_tacotron2
+                        if hp.decoder_type.lower() == "tacotron2"
+                        else synthesize_transformer_tts)
+            mel, mel_len = synth_ar(
                 model, text, pos_text, mean, var,
                 spk_emb=cond.get("spk_emb"), ref_mel=ref_mel)
             durations = None

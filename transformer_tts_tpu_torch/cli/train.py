@@ -19,8 +19,10 @@ its own ``hparams.py`` beside ``model.pt``, so ``cli/synthesize.py
 directory. ``hp.model`` picks the trainer: FastSpeech 2 (with or without
 ``use_sq_vae``), the SQ-VAE FastSpeech 2 (``model`` one of
 ``SQFastSpeech2``, ``sq_fastspeech2``, ``fastspeech2_sq``), or the AR
-Transformer-TTS (``model = "Transformer"``, with or without ``gst``). It
-runs on the CUDA device unless ``--device cpu`` is given.
+Transformer-TTS (``model = "Transformer"``, with or without ``gst``, its
+decoder a transformer stack or, with ``decoder_type = "tacotron2"``,
+the Tacotron 2 decoder). It runs on the CUDA device unless ``--device
+cpu`` is given.
 
 Observability and safety, as the JAX CLI (:89-92, :176-232, :243-314):
 the logged steps' scalars (and steps/s) go to
@@ -36,8 +38,9 @@ checkpoint). ``debug_nans`` is the nearest counterpart of
 backward, and forward hooks on every module that raise
 ``FloatingPointError`` naming the first module whose output holds a NaN
 or an infinity (each hook waits for the card: a debugging mode). The
-mel-to-mel and text-mel-mel trainers, the AR model's later-slice options
-and ``--multihost`` raise ``NotImplementedError``, naming their slices.
+mel-to-mel and text-mel-mel trainers and ``--multihost`` raise
+``NotImplementedError``, naming their slices; the AR step in the
+discrete mode raises ``ValueError``, as the JAX step fails there.
 """
 
 from __future__ import annotations

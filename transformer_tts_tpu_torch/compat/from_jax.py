@@ -31,6 +31,20 @@ and the variance adaptor's ``pos.alpha`` and ``rnn_length`` are written
 where the hparams build them (the JAX package's own torch converter maps
 none of them).
 
+The Tacotron 2 decoder (``decoder_type = "tacotron2"``) inverts
+``_map_tacotron2_decoder`` (:282-297): every flax Dense under its own
+name, ``AttentionConv``'s (31, 1, 32) kernel as Conv1d's (32, 1, 31). In
+the discrete mode (``output_type``) the AR prenet's fc1 is an ``Embed``
+table.
+
+``lm_state_dict_from_flax`` carries ``LSTMLanguageModel``
+(models/lm.py), each ``OptimizedLSTMCell_<i>`` into ``lstms.<i>`` as for
+``rnn_length``; ``encoder_prenet_state_dict_from_flax``,
+``aligner_state_dict_from_flax`` and
+``encoder_postprocessing_state_dict_from_flax`` carry the three modules
+that no model builds (models/prenets.py, models/variance_adaptor.py,
+models/encoder.py).
+
 The GST style embedding (``hp.gst``) inverts ``convert_style_embedding``
 (:247-264) and ``_map_gru`` (:220-244); the SQ-VAE codebook and
 ``log_var_q_scalar`` (``SQFastSpeech2``, or ``use_sq_vae``) invert
@@ -116,10 +130,11 @@ class _Writer:
         if bias:
             self.vector(path + ("bias",), f"{name}.bias")
 
-    def conv1d(self, path, name):
+    def conv1d(self, path, name, bias=True):
         self._put(f"{name}.weight", self._param(path + ("kernel",), 3)
                   .transpose(2, 1, 0), QLeaf(3, 0))
-        self.vector(path + ("bias",), f"{name}.bias")
+        if bias:
+            self.vector(path + ("bias",), f"{name}.bias")
 
     def table(self, path, name):
         """A 2-D flax leaf kept as it is: its last axis is the port's
@@ -283,10 +298,11 @@ class _Writer:
         self.table(path + ("codebook", "embedding"),
                    f"{prefix}codebook.embedding")
 
-    def ar_decoder(self, n_layers: int, spk_emb_dim):
+    def ar_decoder(self, n_layers: int, spk_emb_dim, output_type=False):
         p = ("decoder",)
-        self.linear(p + ("decoder_prenet", "fc1"),
-                    "decoder.decoder_prenet.layer.fc1")
+        fc1 = self.embed if output_type else self.linear
+        fc1(p + ("decoder_prenet", "fc1"),
+            "decoder.decoder_prenet.layer.fc1")
         self.linear(p + ("decoder_prenet", "fc2"),
                     "decoder.decoder_prenet.layer.fc2")
         self.vector(p + ("pe", "alpha"), "decoder.pe.alpha")
@@ -304,6 +320,13 @@ class _Writer:
                                   spk_emb_dim)
         self.layer_norm(p + ("norm",), "decoder.norm")
 
+    def tacotron2_decoder(self):
+        p = ("decoder",)
+        for name, bias in TACOTRON2_LINEARS:
+            self.linear(p + (name,), f"decoder.{name}", bias=bias)
+        self.conv1d(p + ("AttentionConv",), "decoder.AttentionConv",
+                    bias=False)
+
     def postnet_convs(self):
         pn = ("postnet",)
         self.conv1d(pn + ("conv1",), "postnet.conv1")
@@ -320,6 +343,16 @@ class _Writer:
         self.layer_norm(path + ("layer_norm1",), f"{name}.layer_norm1")
         self.layer_norm(path + ("layer_norm2",), f"{name}.layer_norm2")
         self.linear(path + ("linear_layer",), f"{name}.linear_layer")
+
+
+# the Tacotron 2 decoder's Dense layers (the reference's names) and
+# whether each has a bias
+TACOTRON2_LINEARS = (
+    ("L_l1_ys", False), ("L_l1_ss", False), ("L_l1_gs", True),
+    ("L_l2_is", False), ("L_l2_ss", True), ("FrameProj", True),
+    ("TokenProj", True), ("Prenet1", True), ("Prenet2", True),
+    ("AttentionConvProj", False), ("AttentionEncoderProj", True),
+    ("AttentionDecoderProj", False), ("AttentionSelfProj", False))
 
 
 def _speaker_dims(hp, per_layer: bool = True):
@@ -340,9 +373,12 @@ def _transformer_tts(w: _Writer, hp) -> Dict[str, torch.Tensor]:
         w.style_embedding()
     if hp.is_multi_speaker and hp.spk_emb_vers == 2:
         w.linear(("spk_proj",), "spk_proj")
-    w.ar_decoder(hp.n_layer_decoder, dec_spk)
-    w.linear(("out",), "out")
-    w.linear(("stop_token",), "stop_token")
+    if hp.decoder_type.lower() == "tacotron2":
+        w.tacotron2_decoder()   # its frame and stop heads are its own
+    else:
+        w.ar_decoder(hp.n_layer_decoder, dec_spk, bool(hp.output_type))
+        w.linear(("out",), "out")
+        w.linear(("stop_token",), "stop_token")
     w.postnet_convs()           # the AR postnet has no "out" Linear
     return w.out
 
@@ -399,6 +435,61 @@ def _write(w: _Writer, hp) -> Dict[str, torch.Tensor]:
     else:
         w.linear(("out",), "out")
     return w.out
+
+
+# ---- the LM and the modules that no model builds ---------------------------
+
+def lm_state_dict_from_flax(params: Mapping,
+                            num_layers: int) -> Dict[str, torch.Tensor]:
+    """flax ``LSTMLanguageModel`` params -> models/lm.py's
+    ``LSTMLanguageModel`` ``state_dict``."""
+    w = _Writer(params, None)
+    for name in ("embed1", "embed2"):
+        w.embed((name,), name)
+    for i in range(num_layers):
+        w.lstm((f"OptimizedLSTMCell_{i}",), f"lstms.{i}")
+    for name in ("out1", "out2"):
+        w.linear((name,), name)
+    return w.out
+
+
+def encoder_prenet_state_dict_from_flax(params: Mapping,
+                                        batch_stats: Mapping
+                                        ) -> Dict[str, torch.Tensor]:
+    """flax ``EncoderPreNet`` trees -> models/prenets.py's."""
+    w = _Writer(params, batch_stats)
+    w.embed(("embed",), "embed")
+    for i in range(3):
+        w.conv1d((f"conv_{i + 1}",), f"convs.{i}")
+        w.batch_norm((f"batch_norm_{i + 1}",), f"batch_norms.{i}")
+    w.linear(("final_out",), "final_out")
+    return w.out
+
+
+def aligner_state_dict_from_flax(params: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """flax ``Aligner`` params -> models/variance_adaptor.py's."""
+    w = _Writer(params, None)
+    for i in range(3):
+        w.conv1d((f"conv_{i}",), f"convs.{i}")
+        w.layer_norm((f"ln_{i}",), f"norms.{i}")
+    w.linear(("out",), "out")
+    return w.out
+
+
+def encoder_postprocessing_state_dict_from_flax(
+        params: Mapping, n_layers: int, *, embedding: bool = True
+) -> Dict[str, torch.Tensor]:
+    """flax ``EncoderPostprocessing`` params -> models/encoder.py's; the
+    optional tables and the CTC tap where ``params`` holds them."""
+    w = _Writer({"": params}, None)         # the stack's paths under ""
+    w.encoder_stack("", n_layers, embedding, {})
+    for name in ("acc_embed", "gender_embed", "speaker_embed"):
+        if name in params:
+            w.embed(("", name), f".{name}")
+    if "ctc_linear" in params:
+        w.linear(("", "ctc_linear"), ".ctc_linear")
+    return {k[1:]: v for k, v in w.out.items()}
 
 
 # ---- the vocoder ------------------------------------------------------------

@@ -8,7 +8,10 @@ port's modules carry the reference's parameter names, so loading is
 ``torch.load``, the prefix stripped, and a strict ``load_state_dict`` into
 the model that ``hp`` builds (``models.build_model``): FastSpeech 2
 (transformer or conformer stacks), the SQ-VAE FastSpeech 2 or the AR
-Transformer-TTS, with GST when ``hp.gst``. Where the JAX package converts
+Transformer-TTS, with GST when ``hp.gst`` and the Tacotron 2 decoder when
+``hp.decoder_type`` is "tacotron2" (its ``L_l1_ys`` ... ``AttentionSelfProj``
+and ``AttentionConv`` under the reference's names, as the JAX package's
+``_map_tacotron2_decoder`` maps them). Where the JAX package converts
 the tensors into flax trees (one ``convert_*_state_dict`` per family),
 the port renames nothing.
 

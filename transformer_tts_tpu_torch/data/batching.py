@@ -7,7 +7,8 @@ longest utterance and, in training, mels pad to the smallest of
 ``hp.length_buckets``, as the JAX package pads them, so shapes repeat from
 step to step and both packages see the same padded lengths. ``pos_text``
 and ``pos_mel`` are 1-based and 0 on padding. Pad values: mel -0.5 when
-normalised, else -5.0; f0, energy and alignment 0; the stop token is 0 on
+normalised, else -5.0, and discrete codes (int mels) 320 in int32; f0,
+energy and alignment 0; the stop token is 0 on
 a row's mel frames and 1.0 past them. For the AR models the mel bucket is
 a multiple of ``reduction_rate`` and ``pos_mel`` covers the length
 rounded up to it. With ``pad_batch`` the batch grows to a power of two
@@ -25,6 +26,7 @@ import numpy as np
 
 MEL_PAD_NORMALIZED = -0.5
 MEL_PAD_RAW = -5.0
+CODE_PAD = 320              # the discrete codes' pad (the loss ignores it)
 
 
 def pick_bucket(value: int, buckets: Sequence[int], *,
@@ -109,9 +111,14 @@ def collate(samples: List[dict], hp, *,
     mel_len = pick_bucket(max(s["mel_length"] for s in samples),
                           hp.length_buckets, multiple=r)
     mel_len = -(-mel_len // r) * r
-    mel_pad = MEL_PAD_NORMALIZED if hp.mean_file is not None else MEL_PAD_RAW
+    if np.issubdtype(samples[0]["mel"].dtype, np.integer):
+        mel_pad, mel_dtype = CODE_PAD, np.int32
+    else:
+        mel_dtype = np.float32
+        mel_pad = (MEL_PAD_NORMALIZED if hp.mean_file is not None
+                   else MEL_PAD_RAW)
     mel = np.full((b, mel_len, samples[0]["mel"].shape[1]), mel_pad,
-                  np.float32)
+                  mel_dtype)
     pos_mel = np.zeros((b, mel_len), np.int32)
     stop = np.ones((b, mel_len), np.float32)
     for i, s in enumerate(samples):

@@ -5,14 +5,16 @@ Transformer-TTS).
 Script format: ``mel_path|text_ids[|spk_or_accent[|gender]]`` per line,
 pipe-separated, with space-separated integer ids. ``ScriptDataset`` gives
 the text of each line and its conditioning (synthesis); ``TTSDataset``
-adds, for training, the normalised mel and,
-for FastSpeech 2, the sibling files of ``X.npy``: ``X{tail_alignment}.npy``
-(per-phone durations), ``X_f0.npy`` and ``X_energy.npy``. For the AR
-models a zero go frame is put before the mel and the length is rounded up
-to a multiple of ``reduction_rate`` (the collate pads the rest); they read
-no sibling file, which the AR step would not use (the JAX package loads
-f0 and energy there when ``pitch_pred``/``energy_pred`` are set, and drops
-them).
+adds, for training, the normalised mel and the sibling files of
+``X.npy``: ``X_f0.npy`` and ``X_energy.npy`` when ``pitch_pred`` and
+``energy_pred`` ask for them, and for FastSpeech 2 ``X{tail_alignment}
+.npy`` (per-phone durations). For the AR models a zero go frame is put
+before the mel and the length is rounded up to a multiple of
+``reduction_rate`` (the collate pads the rest); they read no alignment,
+and the AR step ignores f0 and energy, as in the JAX package. In the
+discrete mode (``output_type``) ``X.npy`` holds (T, 2) int codes (a
+(T,) file is one stream): loaded as int32 with no normalization and no
+go frame, their length T; the siblings load as for mels.
 
 Conditioning, read as the JAX dataset reads it (its :110-131), for
 synthesis and training alike: ``hop_size`` (``use_hop``) from the mel's
@@ -113,18 +115,23 @@ class TTSDataset(ScriptDataset):
         hp = self.hp
         sample = super().__getitem__(idx)
         mel_name = sample["mel_name"]
-        mel = self.normalizer(load_mel(mel_name, hp.mel_dim))
-        if self.is_ar:
-            mel = np.concatenate([np.zeros((1, hp.mel_dim), np.float32),
-                                  mel], axis=0)
+        if hp.output_type:
+            tokens = np.load(mel_name).astype(np.int32)
+            sample["mel"] = tokens[:, None] if tokens.ndim == 1 else tokens
+            sample["mel_length"] = sample["mel"].shape[0]
+        else:
+            mel = self.normalizer(load_mel(mel_name, hp.mel_dim))
+            if self.is_ar:
+                mel = np.concatenate(
+                    [np.zeros((1, hp.mel_dim), np.float32), mel], axis=0)
+                sample["mel_length"] = round_up(mel.shape[0],
+                                                hp.reduction_rate)
+            else:
+                sample["mel_length"] = mel.shape[0]
             sample["mel"] = mel.astype(np.float32)
-            sample["mel_length"] = round_up(mel.shape[0],
-                                            hp.reduction_rate)
-            return sample
-        sample["mel"] = mel.astype(np.float32)
-        sample["mel_length"] = mel.shape[0]
-        sample["alignment"] = self._sibling(
-            mel_name, hp.tail_alignment + ".npy", np.int32)
+        if not self.is_ar:
+            sample["alignment"] = self._sibling(
+                mel_name, hp.tail_alignment + ".npy", np.int32)
         if hp.pitch_pred:
             sample["f0"] = self._sibling(mel_name, "_f0.npy", np.float32)
         if hp.energy_pred:
@@ -144,7 +151,8 @@ class TTSDataset(ScriptDataset):
             return lengths
         lengths = np.array([np.load(row[0], mmap_mode="r").shape[0]
                             for row in self.rows])
-        if self.is_ar:          # the go frame, rounded up to r
+        if self.is_ar and not self.hp.output_type:
+            # the go frame, rounded up to r
             lengths = round_up(lengths + 1, self.hp.reduction_rate)
         if cache_file:
             np.save(cache_file, lengths)

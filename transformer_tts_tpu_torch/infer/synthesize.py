@@ -23,6 +23,17 @@ amp the graph reads bf16 copies of the step's matmul and conv weights
 ``ar_segment`` runs a caller's own carry a few steps further, on the same
 graphs (the streaming decode of infer/streaming.ARStream).
 
+The Tacotron 2 decoder (``synthesize_tacotron2``, the port of the JAX
+file's :305-334, and ``tacotron2_decode``) runs its zoneout-LSTM loop the
+same way: the eager loop on the CPU, CUDA graphs of ``DONE_CHECK_EVERY``
+steps on the card, the carry (both cells' states, the fed-back frame, the
+cumulative alignment, the step, the stop tail, ``done`` and the length)
+in static buffers, and ``AttentionEncoderProj`` of the encoder output a
+static input computed once per call. Steps run past the stop inside a
+block change neither the length nor ``done``, and never run past
+``max_steps``; the causal postnet lets no later frame reach an earlier
+one, and the frames past the length are zeroed.
+
 A multi-speaker AR model's decoder layers add a speaker bias that is the
 same at every step: the call computes it once, before the decode
 (``TransformerTTS.speaker_biases``), and the steps read it. In the graph
@@ -43,6 +54,7 @@ from torch import nn
 
 from transformer_tts_tpu_torch.data.batching import pick_bucket
 from transformer_tts_tpu_torch.models.fastspeech2 import FastSpeech2
+from transformer_tts_tpu_torch.models.tacotron2_decoder import text_mask
 from transformer_tts_tpu_torch.models.transformer_tts import TransformerTTS
 from transformer_tts_tpu_torch.ops.masks import pad_mask
 
@@ -111,8 +123,12 @@ def synthesize_fastspeech2(
 
 
 def _ar_check(model: TransformerTTS) -> None:
-    """The incremental decode is causal only with a 1-wide decoder FFN
-    (its conv is SAME-padded)."""
+    """The incremental decode is the transformer decoder's, and causal
+    only with a 1-wide decoder FFN (its conv is SAME-padded)."""
+    if model.is_tacotron2:
+        raise ValueError("decoder_type='tacotron2' uses "
+                         "synthesize_tacotron2 (zoneout-LSTM loop), not "
+                         "the KV-cached transformer decode")
     if model.ff_conv_kernel_size_decoder != 1:
         raise ValueError(
             "incremental decode requires ff_conv_kernel_size_decoder == 1 "
@@ -201,6 +217,34 @@ def _run_blocks(run_block: Callable[[int], None], done: torch.Tensor,
         run_block(min(DONE_CHECK_EVERY, n_steps - first))
 
 
+def _capture_blocks(body: Callable[[], None], reset: Callable[[], None],
+                    max_steps: int, device, swapped_in) -> Dict[int, object]:
+    """CUDA graphs of a decode loop's ``body`` (one in-place step on a
+    carry): a block of ``DONE_CHECK_EVERY`` steps and, when that does not
+    divide ``max_steps``, the tail block, sharing one memory pool, each
+    captured from the ``reset`` carry after a warm-up of three steps on a
+    side stream, all with ``swapped_in()`` (the bf16 weight copies) in
+    place. -> {steps: graph}; a failed capture raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side), swapped_in():
+        for _ in range(min(3, max_steps)):
+            body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+    pool = None
+    for n in sorted({min(DONE_CHECK_EVERY, max_steps),
+                     max_steps % DONE_CHECK_EVERY} - {0}, reverse=True):
+        reset()
+        graph = torch.cuda.CUDAGraph()
+        with swapped_in(), torch.cuda.graph(graph, pool=pool):
+            for _ in range(n):
+                body()
+        pool = graph.pool()
+        graphs[n] = graph
+    return graphs
+
+
 def ar_decode(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
               max_steps: int, stop_threshold: float,
               spk_biases=None) -> Dict[str, object]:
@@ -222,7 +266,8 @@ class DecodeWeights:
     """bf16 copies of the weights and biases of every ``nn.Linear`` and
     ``nn.Conv1d`` that ``decode_step`` runs (the decoder, ``out``,
     ``stop_token``; not the layers' ``SpeakerBias``, which runs once per
-    call, before the decode), for a bf16-amp model: with them swapped in, autocast
+    call, before the decode; for a Tacotron 2 decoder, the decoder's), for
+    a bf16-amp model: with them swapped in, autocast
     finds those operands in bf16 already and casts nothing, where it would
     otherwise cast each fp32 weight at every step. The copies round as
     autocast does (``Tensor.to``), so the results are the same bits.
@@ -235,10 +280,12 @@ class DecodeWeights:
     def __init__(self, model: TransformerTTS):
         self.slots: List[Tuple[nn.Module, str, torch.Tensor]] = []
         if model.amp:
-            once = {id(m) for layer in model.decoder.layers
+            once = {id(m) for layer in getattr(model.decoder, "layers", ())
                     if layer.spk_bias is not None
                     for m in layer.spk_bias.modules()}
             for part in (model.decoder, model.out, model.stop_token):
+                if part is None:            # the Tacotron 2 decoder's heads
+                    continue
                 for mod in part.modules():
                     if (isinstance(mod, (nn.Linear, nn.Conv1d))
                             and id(mod) not in once):
@@ -298,24 +345,10 @@ class _ARGraph:
         body = _ar_body(model, self.e_outputs, self.src_mask,
                         self.cross_kvs, stop_threshold, self.spk_biases)
         self.weights = DecodeWeights(model)
-        side = torch.cuda.Stream(e_outputs.device)
-        side.wait_stream(torch.cuda.current_stream(e_outputs.device))
-        with torch.cuda.stream(side), self.weights.swapped_in():
-            for _ in range(min(3, max_steps)):
-                body(self.carry)
-        torch.cuda.current_stream(e_outputs.device).wait_stream(side)
-        self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
-        pool = None
-        for n in sorted({min(DONE_CHECK_EVERY, max_steps),
-                         max_steps % DONE_CHECK_EVERY} - {0}, reverse=True):
-            _ar_reset(self.carry, max_steps)
-            graph = torch.cuda.CUDAGraph()
-            with self.weights.swapped_in(), \
-                    torch.cuda.graph(graph, pool=pool):
-                for _ in range(n):
-                    body(self.carry)
-            pool = graph.pool()
-            self.graphs[n] = graph
+        self.graphs = _capture_blocks(
+            lambda: body(self.carry),
+            lambda: _ar_reset(self.carry, max_steps), max_steps,
+            e_outputs.device, self.weights.swapped_in)
 
     def _load(self, e_outputs, src_mask, cross_kvs, spk_biases) -> None:
         self.e_outputs.copy_(e_outputs)
@@ -460,6 +493,119 @@ def synthesize_transformer_tts(
     mel = post.float().reshape(b, max_steps * r, mel_dim)
     lengths = carry["length"] * r
     valid = (torch.arange(max_steps * r, device=mel.device)[None, :]
+             < lengths[:, None])[:, :, None]
+    if mean is not None and var is not None:
+        mel = denormalize(mel, mean, var)
+    mel = torch.where(valid, mel, torch.zeros((), device=mel.device))
+    return mel, lengths
+
+
+# ---- the Tacotron 2 decoder ------------------------------------------------
+
+class _Tacotron2Graph:
+    """The Tacotron 2 synthesis loop as CUDA graphs on one carry
+    (``_capture_blocks``); the encoder output, its ``AttentionEncoderProj``
+    and the text mask are copied into static tensors before each decode
+    and the bf16 weight copies refreshed, as ``_ARGraph`` does."""
+
+    def __init__(self, model: TransformerTTS, e_outputs, enc_proj, e_mask,
+                 max_steps: int):
+        dec = model.decoder
+        b, input_len = e_outputs.shape[:2]
+        self.max_steps = max_steps
+        self.e_outputs = e_outputs.clone()
+        self.enc_proj = enc_proj.clone()
+        self.e_mask = e_mask.clone() if e_mask is not None else None
+        self.initial = dec.synthesis_carry(b, input_len, max_steps,
+                                           e_outputs.device)
+        self.carry = {k: v.clone() for k, v in self.initial.items()}
+        self.weights = DecodeWeights(model)
+
+        def body():
+            with model._autocast(self.e_outputs):
+                dec.synthesis_step(self.carry, self.e_outputs,
+                                   self.enc_proj, self.e_mask)
+
+        self.graphs = _capture_blocks(body, self._reset, max_steps,
+                                      e_outputs.device,
+                                      self.weights.swapped_in)
+
+    def _reset(self) -> None:
+        for key, value in self.initial.items():
+            self.carry[key].copy_(value)
+
+    def decode(self, e_outputs, enc_proj, e_mask) -> Dict[str, torch.Tensor]:
+        self.e_outputs.copy_(e_outputs)
+        self.enc_proj.copy_(enc_proj)
+        if self.e_mask is not None:
+            self.e_mask.copy_(e_mask)
+        self.weights.refresh()
+        self._reset()
+        _run_blocks(lambda n: self.graphs[n].replay(), self.carry["done"],
+                    self.max_steps)
+        return self.carry
+
+
+# model -> {(B, text length, max_steps, dtype, device, masked): graph}
+_TACOTRON2_GRAPHS: "weakref.WeakKeyDictionary[TransformerTTS, dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def tacotron2_decode(model: TransformerTTS, e_outputs,
+                     text_lengths: Optional[torch.Tensor], max_steps: int,
+                     *, eager: bool = False) -> Dict[str, torch.Tensor]:
+    """The Tacotron 2 synthesis loop over ``e_outputs`` (B, L, d), the
+    attention masked past ``text_lengths`` when given: ``max_steps`` steps
+    at most, as blocks under ``_run_blocks``, the host reading ``done``
+    before each block. On a CUDA device (unless ``eager``) replayed from
+    CUDA graphs kept per (B, L, ``max_steps``, dtype, mask or not), else
+    the eager loop. Returns the carry (``groups`` (B, max_steps, mel*r)
+    fp32, ``length`` (B,) in groups)."""
+    dec = model.decoder
+    e_mask = text_mask(text_lengths, e_outputs.shape[1])
+    with model._autocast(e_outputs):
+        enc_proj = dec.AttentionEncoderProj(e_outputs)
+    if eager or e_outputs.device.type != "cuda":
+        carry = dec.synthesis_carry(e_outputs.shape[0], e_outputs.shape[1],
+                                    max_steps, e_outputs.device)
+
+        def run_block(n):
+            with model._autocast(e_outputs):
+                for _ in range(n):
+                    dec.synthesis_step(carry, e_outputs, enc_proj, e_mask)
+
+        _run_blocks(run_block, carry["done"], max_steps)
+        return carry
+    key = (e_outputs.shape[0], e_outputs.shape[1], max_steps,
+           model.cache_dtype, e_outputs.device, e_mask is not None)
+    graphs = _TACOTRON2_GRAPHS.setdefault(model, {})
+    graph = graphs.get(key)
+    if graph is None:
+        graph = graphs[key] = _Tacotron2Graph(model, e_outputs, enc_proj,
+                                              e_mask, max_steps)
+    return graph.decode(e_outputs, enc_proj, e_mask)
+
+
+@torch.inference_mode()
+def synthesize_tacotron2(
+    model: TransformerTTS, text: torch.Tensor, pos_text: torch.Tensor,
+    mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
+    *, spk_emb: Optional[torch.Tensor] = None,
+    ref_mel: Optional[torch.Tensor] = None,
+    max_steps: int = MAX_AR_STEPS, eager: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Synthesis through the Tacotron 2 decoder
+    (``TransformerTTS.tacotron2_synthesize``, its attention masked by
+    the text lengths of ``pos_text``); returns (mel (B, max_steps*r, mel)
+    fp32 after the postnet, lengths (B,) in frames, every row's the same:
+    the stop rule reads row 0). Frames past the length are 0; with
+    ``mean``/``var`` the rest are de-normalized."""
+    model.eval()
+    src_mask = pad_mask(pos_text)
+    mel, lengths = model.tacotron2_synthesize(
+        text, src_mask, src_mask[:, 0, :].sum(-1), spk_emb, ref_mel,
+        max_steps, eager=eager)
+    valid = (torch.arange(mel.shape[1], device=mel.device)[None, :]
              < lengths[:, None])[:, :, None]
     if mean is not None and var is not None:
         mel = denormalize(mel, mean, var)

@@ -17,6 +17,11 @@ With ``spk_emb_dim`` every layer has a ``SpeakerBias``; the caller
 computes the layers' biases once (``speaker_biases``) and passes them to
 ``forward``, so that a decode computes them once per call rather than at
 every step, as the JAX package does: the bias is the same at every step.
+
+``output_type`` (the discrete mode) gives the prenet an embedding fc1
+over ``mel_dim`` codes: the (B, T, S) int code streams become (B, T, S,
+d) and are summed over the streams before the positional encoding
+(the JAX file's :72-73).
 """
 
 from __future__ import annotations
@@ -36,11 +41,14 @@ class Decoder(nn.Module):
     def __init__(self, mel_dim: int, d_model: int, n_layers: int,
                  heads: int, ff_kernel_size: int, concat_after: bool = False,
                  dropout: float = 0.1, dropout_prenet: float = 0.5,
-                 use_flash: bool = False, spk_emb_dim: Optional[int] = None):
+                 use_flash: bool = False, spk_emb_dim: Optional[int] = None,
+                 output_type: bool = False):
         super().__init__()
         self.use_flash = use_flash
+        self.output_type = output_type
         self.decoder_prenet = DecoderPreNet(mel_dim, d_model,
-                                            dropout=dropout_prenet)
+                                            dropout=dropout_prenet,
+                                            output_type=output_type)
         self.pe = PositionalEncoder(d_model, dropout)
         self.layers = nn.ModuleList(
             DecoderLayer(d_model, heads, ff_kernel_size, dropout,
@@ -84,7 +92,10 @@ class Decoder(nn.Module):
         caches, updated in place; ``trg`` then the (B, 1, mel) step input
         and ``trg_mask`` hiding the cache rows past ``cache_index``) no
         kernel runs."""
-        x = self.pe(self.decoder_prenet(trg), offset=pos_offset)
+        x = self.decoder_prenet(trg)
+        if self.output_type:
+            x = x.sum(dim=2)
+        x = self.pe(x, offset=pos_offset)
         self_k_len, cross_k_len = (None, None) if caches is not None \
             else self._key_lengths(src_mask, trg_mask)
         attns_self, attns_cross = [], []

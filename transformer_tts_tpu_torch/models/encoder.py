@@ -155,3 +155,47 @@ class ConformerEncoder(_Stack):
         x, pos_emb = self.pe(x)
         return self._layers(x, mask, collect_attn, pos_emb, spk_emb=spk_emb,
                             generator=generator)
+
+
+class EncoderPostprocessing(_Stack):
+    """The JAX package's ``EncoderPostprocessing`` (its encoder.py:
+    177-236), the reference's encoder with gender, speaker-id and accent
+    tables added to the input and a CTC tap after layer ``ctc_layer``;
+    no model builds it. -> (x, ctc logits or None, attention maps or
+    None)."""
+    N_ACCENTS = 5
+
+    def __init__(self, vocab_size: int, d_model: int, n_layers: int,
+                 heads: int, ff_kernel_size: int, concat_after: bool = False,
+                 dropout: float = 0.1, embedding: bool = True,
+                 accent_emb: bool = False, gender_emb: bool = False,
+                 speaker_emb: bool = False, n_speakers: int = 247,
+                 ctc_out: bool = False, ctc_classes: int = 152,
+                 ctc_layer: int = CTC_LAYER):
+        super().__init__(
+            vocab_size, d_model, embedding, False,
+            PositionalEncoder(d_model, dropout),
+            (EncoderLayer(d_model, heads, ff_kernel_size, dropout,
+                          concat_after=concat_after)
+             for _ in range(n_layers)),
+            self.N_ACCENTS if accent_emb else None, ctc_out, ctc_classes)
+        self.ctc_at = ctc_layer
+        self.gender_embed = nn.Embedding(2, d_model) if gender_emb else None
+        self.speaker_embed = (nn.Embedding(n_speakers, d_model)
+                              if speaker_emb else None)
+
+    def forward(self, src, mask, spk_emb=None, accent=None, gender=None, *,
+                collect_attn: bool = False):
+        x = self._input(src)
+        accent_emb = self._accent(accent)
+        if accent_emb is not None:
+            x = x + accent_emb
+        if self.gender_embed is not None:
+            if gender is None:
+                raise ValueError("gender_emb=True requires gender ids")
+            x = x + self.gender_embed(gender)[:, None, :]
+        if self.speaker_embed is not None:
+            x = x + self.speaker_embed(spk_emb)[:, None, :]
+        out = self._layers(self.pe(x), mask, collect_attn)
+        x, attn = out[:2]
+        return x, (out[2] if self.ctc_linear is not None else None), attn

@@ -31,8 +31,12 @@ taps the decoder stack (``ctc_logits`` (B, T, vocab)); ``use_pos`` and
 ``dtype=bfloat16`` with fp32 parameters). In train mode the caller's
 ``generator`` seeds the kernel path's attention dropout, the scheduled
 sampling and the SQ-VAE's Gumbel noise; the other dropouts draw from
-torch's default generators. Tacotron 2 decoders and the mel-to-mel post
-model raise ``NotImplementedError``: they come with later slices.
+torch's default generators. A stack type other than "transformer" or
+"conformer" (the AR model's "tacotron2" among them) raises ``ValueError``;
+the mel-to-mel post model raises ``NotImplementedError``: it comes with a
+later slice. The discrete mode (``output_type``) changes no layer here:
+the (B, T, mel_dim) head's halves are the two code streams' logits
+(train/losses.softmax_output_loss).
 """
 
 from __future__ import annotations
@@ -223,11 +227,23 @@ def later_slice(feature: str, slice_name: str):
         "slice of the PyTorch port (ROADMAP.md Queue 1)")
 
 
+STACK_TYPES = ("transformer", "conformer")
+
+
+def check_stack_type(key: str, value: str) -> None:
+    """Raise ``ValueError`` for a stack type that is neither a transformer
+    nor a conformer stack, which the JAX package builds as a transformer
+    stack without a word."""
+    if value.lower() not in STACK_TYPES:
+        raise ValueError(
+            f"{key}={value!r}: the stacks are 'transformer' or 'conformer' "
+            "('tacotron2' is the AR model's decoder, model='Transformer'); "
+            "the JAX package builds a transformer stack for any other name")
+
+
 def _check_supported(hp: HParams) -> None:
-    for key in ("encoder_type", "decoder_type"):
-        if getattr(hp, key).lower() not in ("transformer", "conformer"):
-            later_slice(f"{key}={getattr(hp, key)!r}",
-                        "other model families")
+    check_stack_type("encoder_type", hp.encoder_type)
+    check_stack_type("decoder_type", hp.decoder_type)
     if hp.architecture == "text-mel-mel" or hp.version is not None:
         later_slice("the mel-to-mel post model (post_model)",
                     "mel-to-mel post-processing")

@@ -21,6 +21,15 @@ and ``codebook.embedding`` sit in ``variance_adaptor``, under the
 reference's names. The encoder and decoder are the FastSpeech 2 stacks,
 so the decoder's self-attention takes the same kernels (K1 at eval, K1-d
 and K2 in training). ``amp`` and ``generator`` as in models/fastspeech2.py.
+
+Speakers and accents, as the JAX model reads them (its :150-200):
+``spk_emb`` ((B,) ids or (B, 512) x-vectors) reaches the ``SpeakerBias``
+of the encoder's and the decoder's layers where ``spk_emb_architecture``
+names the stack, and ``accent_emb`` gives the encoder its per-phone
+``acc_embed``. The JAX model reads no other conditioning option:
+``build_sq_fastspeech2`` raises ``ValueError`` for ``middle``,
+``use_hop``, ``CTC_training``, ``use_pos`` and ``use_rnn_length``,
+which it would silently ignore.
 """
 
 from __future__ import annotations
@@ -31,10 +40,9 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from transformer_tts_tpu_torch.config import HParams
+from transformer_tts_tpu_torch.config import HParams, spk_arch
 from transformer_tts_tpu_torch.models.fastspeech2 import (
-    FastSpeech2Output, _check_supported, _stack, init_parameters,
-    later_slice)
+    FastSpeech2Output, _check_supported, _stack, init_parameters)
 from transformer_tts_tpu_torch.models.postnets import PostConvNet
 from transformer_tts_tpu_torch.models.sq_vae import N_CODES, SQEmbedding
 from transformer_tts_tpu_torch.models.variance_adaptor import (
@@ -146,7 +154,9 @@ class SQFastSpeech2(nn.Module):
                  f0_min: float = 71.0, f0_max: float = 795.8,
                  energy_min: float = 0.0, energy_max: float = 315.0,
                  log_offset: float = 1.0, pitch_pred: bool = True,
-                 energy_pred: bool = True, use_flash: bool = False,
+                 energy_pred: bool = True, accent_emb: bool = False,
+                 spk_emb_dim: Optional[int] = None,
+                 spk_emb_architecture: tuple = (), use_flash: bool = False,
                  amp: bool = False):
         super().__init__()
         self.log_offset = log_offset
@@ -156,7 +166,10 @@ class SQFastSpeech2(nn.Module):
             n_layers=n_layer_encoder, heads=n_head_encoder,
             ff_kernel_size=ff_conv_kernel_size_encoder,
             concat_after=concat_after_encoder, dropout=dropout,
-            embedding=True, use_flash=use_flash)
+            embedding=True, use_flash=use_flash,
+            spk_emb_dim=(spk_emb_dim if "encoder" in spk_emb_architecture
+                         else None),
+            accent_emb=accent_emb)
         self.variance_adaptor = SQVarianceAdaptor(
             d_model_encoder, n_bins, f0_min, f0_max, energy_min, energy_max,
             log_offset, pitch_pred, energy_pred, dropout_variance_adaptor)
@@ -165,7 +178,9 @@ class SQFastSpeech2(nn.Module):
             d_model=d_model_decoder, n_layers=n_layer_decoder,
             heads=n_head_decoder, ff_kernel_size=ff_conv_kernel_size_decoder,
             concat_after=concat_after_decoder, dropout=dropout,
-            embedding=False, use_flash=use_flash)
+            embedding=False, use_flash=use_flash,
+            spk_emb_dim=(spk_emb_dim if "decoder" in spk_emb_architecture
+                         else None))
         if postnet_pred:
             self.postnet = PostConvNet(d_model_decoder, mel_dim, 1,
                                        dropout_postnet)
@@ -175,12 +190,14 @@ class SQFastSpeech2(nn.Module):
 
     def forward(self, text, src_mask, max_frames: int, d_target=None,
                 p_target=None, e_target=None, mel_mask=None, *,
+                spk_emb=None, accent=None,
                 temperature=None, collect_attn: bool = False,
                 generator: Optional[torch.Generator] = None,
                 pitch_scale: float = 1.0, duration_scale: float = 1.0
                 ) -> FastSpeech2Output:
         """As ``FastSpeech2.forward``; train mode takes the Gumbel-softmax
-        ``temperature``.
+        ``temperature``; ``spk_emb`` and ``accent`` as the stacks take
+        them.
         ``pitch_scale``/``duration_scale`` must stay 1: the SQ adaptor has
         no perturbation."""
         if pitch_scale != 1.0 or duration_scale != 1.0:
@@ -188,14 +205,15 @@ class SQFastSpeech2(nn.Module):
                              "duration scale")
         with torch.autocast(text.device.type, dtype=torch.bfloat16,
                             enabled=self.amp):
-            e_outputs, attn_enc = self.encoder(text, src_mask,
+            e_outputs, attn_enc = self.encoder(text, src_mask, spk_emb,
+                                               accent,
                                                collect_attn=collect_attn,
                                                generator=generator)
             va = self.variance_adaptor(
                 e_outputs, src_mask, max_frames, d_target, p_target,
                 e_target, mel_mask, temperature=temperature,
                 generator=generator)
-            d_output, attn_dec = self.decoder(va.x, va.mel_mask,
+            d_output, attn_dec = self.decoder(va.x, va.mel_mask, spk_emb,
                                               collect_attn=collect_attn,
                                               generator=generator)
             if self.postnet_pred:
@@ -213,17 +231,27 @@ class SQFastSpeech2(nn.Module):
             sq_vae_perplexity=va.sq_vae_perplexity)
 
 
+def check_sq_options(hp: HParams) -> None:
+    """Raise ``ValueError`` for the conditioning options that the JAX
+    package's ``SQFastSpeech2`` silently ignores."""
+    ignored = [name for name, on in (
+        ("spk_emb_architecture 'middle'", "middle" in spk_arch(hp)),
+        ("use_hop", hp.use_hop), ("CTC_training", hp.CTC_training),
+        ("use_pos", hp.use_pos), ("use_rnn_length", hp.use_rnn_length))
+        if on]
+    if ignored:
+        raise ValueError(
+            f"{', '.join(ignored)}: the JAX package's SQ-VAE FastSpeech 2 "
+            "ignores these options (it reads speakers in the encoder and "
+            "decoder layers and accents only), so the port refuses them")
+
+
 def build_sq_fastspeech2(hp: HParams, *, device="cuda",
                          seed: int = 0) -> SQFastSpeech2:
     """SQFastSpeech2 from the hparams contract, with random weights from
     ``seed``, on ``device``."""
     _check_supported(hp)
-    if (hp.is_multi_speaker or hp.spk_emb_architecture or hp.accent_emb
-            or hp.use_hop or hp.CTC_training or hp.use_pos
-            or hp.use_rnn_length):
-        later_slice("speaker, accent, hop-size, CTC, use_pos and "
-                    "use_rnn_length options of the SQ-VAE FastSpeech 2",
-                    "other model families")
+    check_sq_options(hp)
     model = SQFastSpeech2(
         vocab_size=hp.vocab_size, mel_dim=hp.mel_dim,
         d_model_encoder=hp.d_model_encoder,
@@ -243,7 +271,8 @@ def build_sq_fastspeech2(hp: HParams, *, device="cuda",
         n_bins=hp.nbins, f0_min=hp.f0_min, f0_max=hp.f0_max,
         energy_min=hp.energy_min, energy_max=hp.energy_max,
         log_offset=hp.log_offset, pitch_pred=hp.pitch_pred,
-        energy_pred=hp.energy_pred, use_flash=hp.use_flash_attention,
-        amp=hp.amp)
+        energy_pred=hp.energy_pred, accent_emb=hp.accent_emb,
+        spk_emb_dim=hp.spk_emb_dim, spk_emb_architecture=spk_arch(hp),
+        use_flash=hp.use_flash_attention, amp=hp.amp)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device)

@@ -34,13 +34,22 @@ from torch import nn
 N_CODES = 128
 
 
+def device_generator(generator: Optional[torch.Generator],
+                     device) -> Optional[torch.Generator]:
+    """``generator`` itself when it lies on ``device`` (or is None), else a
+    generator on ``device`` seeded by one draw of it, so that a CPU
+    train-state generator never waits for the card."""
+    device = torch.device(device)
+    if generator is None or generator.device.type == device.type:
+        return generator
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def gumbel_noise(shape, device, generator: Optional[torch.Generator]
                  ) -> torch.Tensor:
     """-log(-log(U)) of ``shape`` on ``device``, U in [tiny, 1) fp32."""
-    device = torch.device(device)
-    if generator is not None and generator.device.type != device.type:
-        seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
-        generator = torch.Generator(device=device).manual_seed(seed)
+    generator = device_generator(generator, device)
     tiny = torch.finfo(torch.float32).tiny
     u = torch.rand(shape, device=device, generator=generator)
     u = u * (1.0 - tiny) + tiny

@@ -29,8 +29,22 @@ decoder's layers that ``spk_emb_architecture`` names a ``SpeakerBias``;
 the decoder's biases are computed once per call (``speaker_biases``)
 and the decode steps read them. ``spk_emb_vers`` 2 adds ``spk_proj`` of
 the L2-normalised speaker vector to every encoder output instead, with
-no per-layer bias. The Tacotron 2 decoder and the discrete output mode
-raise ``NotImplementedError`` with the other model families.
+no per-layer bias.
+
+``decoder_type = "tacotron2"`` (the JAX file's :112-124, :209-227,
+:240-262) replaces the decoder stack with the zoneout-LSTM
+``Tacotron2Decoder`` (models/tacotron2_decoder.py), which makes the
+frames and the stop logits itself: no ``out`` or ``stop_token`` head.
+Its teacher-forced forward reads the full-rate target and returns the
+same grouped layout; ``tacotron2_synthesize`` runs its synthesis loop
+(infer/synthesize.tacotron2_decode) and the causal postnet.
+
+``output_type`` (the discrete mode) makes the decoder prenet's fc1 an
+embedding over ``mel_dim`` codes and sums its two streams
+(models/decoder.py). The JAX AR step fails in this mode: it reshapes the
+(B, t, mel*r) output by the targets' 2 code streams and takes an L1 of
+float frames against int codes; the port's AR step refuses it
+(train/trainer.py).
 """
 
 from __future__ import annotations
@@ -44,7 +58,10 @@ from torch import nn
 from transformer_tts_tpu_torch.config import HParams, spk_arch
 from transformer_tts_tpu_torch.models.decoder import Decoder
 from transformer_tts_tpu_torch.models.fastspeech2 import (
-    _stack, check_speakers, init_parameters, l2_normalised, later_slice)
+    _stack, check_speakers, check_stack_type, init_parameters,
+    l2_normalised)
+from transformer_tts_tpu_torch.models.tacotron2_decoder import (
+    Tacotron2Decoder)
 from transformer_tts_tpu_torch.models.gst import StyleEmbedding
 from transformer_tts_tpu_torch.models.postnets import PostConvNet
 
@@ -66,12 +83,13 @@ class TransformerTTS(nn.Module):
                  d_model_decoder: int = 384, n_layer_decoder: int = 6,
                  n_head_decoder: int = 4, ff_conv_kernel_size_decoder: int = 1,
                  concat_after_decoder: bool = False,
-                 encoder_type: str = "transformer", reduction_rate: int = 2,
+                 encoder_type: str = "transformer",
+                 decoder_type: str = "transformer", reduction_rate: int = 2,
                  dropout: float = 0.1, dropout_prenet: float = 0.5,
                  dropout_postnet: float = 0.5, gst: bool = False,
                  spk_emb_dim: Optional[int] = None,
                  spk_emb_architecture: tuple = (), spk_emb_vers: int = 1,
-                 multi_speaker: bool = False,
+                 multi_speaker: bool = False, output_type: bool = False,
                  use_flash: bool = False, amp: bool = False):
         super().__init__()
         per_layer = spk_emb_dim if spk_emb_vers == 1 else None
@@ -96,15 +114,22 @@ class TransformerTTS(nn.Module):
                                 if gst else None)
         self.spk_proj = (nn.Linear(spk_emb_dim, d_model_decoder)
                          if multi_speaker and spk_emb_vers == 2 else None)
-        self.decoder = Decoder(
-            mel_dim, d_model_decoder, n_layer_decoder, n_head_decoder,
-            ff_conv_kernel_size_decoder, concat_after=concat_after_decoder,
-            dropout=dropout, dropout_prenet=dropout_prenet,
-            use_flash=use_flash,
-            spk_emb_dim=(per_layer if "decoder" in spk_emb_architecture
-                         else None))
-        self.out = nn.Linear(d_model_decoder, mel_dim * reduction_rate)
-        self.stop_token = nn.Linear(d_model_decoder, reduction_rate)
+        self.is_tacotron2 = decoder_type.lower() == "tacotron2"
+        if self.is_tacotron2:
+            self.decoder = Tacotron2Decoder(
+                mel_dim, d_model_decoder, reduction_rate,
+                dropout_prenet=dropout_prenet)
+            self.out = self.stop_token = None
+        else:
+            self.decoder = Decoder(
+                mel_dim, d_model_decoder, n_layer_decoder, n_head_decoder,
+                ff_conv_kernel_size_decoder,
+                concat_after=concat_after_decoder, dropout=dropout,
+                dropout_prenet=dropout_prenet, use_flash=use_flash,
+                spk_emb_dim=(per_layer if "decoder" in spk_emb_architecture
+                             else None), output_type=output_type)
+            self.out = nn.Linear(d_model_decoder, mel_dim * reduction_rate)
+            self.stop_token = nn.Linear(d_model_decoder, reduction_rate)
         self.postnet = PostConvNet(d_model_decoder, mel_dim, reduction_rate,
                                    dropout_postnet, prev_version=False)
 
@@ -147,7 +172,7 @@ class TransformerTTS(nn.Module):
     def speaker_biases(self, spk_emb):
         """The decoder layers' speaker biases of ``spk_emb`` (see
         ``Decoder.speaker_biases``), under the model's autocast."""
-        if spk_emb is None:
+        if spk_emb is None or self.is_tacotron2:
             return None
         with self._autocast(spk_emb):
             return self.decoder.speaker_biases(spk_emb)
@@ -193,12 +218,24 @@ class TransformerTTS(nn.Module):
         seeds the kernel path's attention dropout. ``spk_emb`` (B,) ids or
         (B, 512) x-vectors for a multi-speaker model. With ``gst`` the
         style comes from ``ref_mel``, or in train mode without one from
-        ``trg``."""
+        ``trg``. A Tacotron 2 decoder takes the full-rate target (B, T,
+        mel), T a multiple of r, as ``trg`` and no ``trg_mask``, and
+        returns its alignments as ``attn_dec_enc`` (B, T/r, L); in train
+        mode ``generator`` also draws its prenet dropout and zoneout."""
         style_mel = (trg if self.style_embedding is not None
                      and self.training and ref_mel is None else ref_mel)
         e_outputs, attn_enc = self.encode(src, src_mask, style_mel, spk_emb,
                                           collect_attn=collect_attn,
                                           generator=generator)
+        if self.is_tacotron2:
+            with self._autocast(src):
+                mel_pre, stop, attention = self.decoder(
+                    trg, e_outputs, generator=generator)
+                mel_post = self.postnet(mel_pre)
+            return TransformerTTSOutput(
+                mel_pre=mel_pre, mel_post=mel_post, stop_token=stop,
+                attn_enc=attn_enc, attn_dec_dec=None,
+                attn_dec_enc=attention)
         with self._autocast(src):
             d_output, attn_dd, attn_de = self.decoder(
                 trg, e_outputs, src_mask, trg_mask,
@@ -212,18 +249,44 @@ class TransformerTTS(nn.Module):
             attn_enc=attn_enc, attn_dec_dec=attn_dd, attn_dec_enc=attn_de)
 
 
+    def tacotron2_synthesize(self, src, src_mask, text_lengths=None,
+                             spk_emb=None, ref_mel=None,
+                             max_steps: int = 500, *, eager: bool = False):
+        """Greedy synthesis through the Tacotron 2 decoder and the causal
+        postnet -> (mel (B, max_steps*r, mel) post-postnet fp32, lengths
+        (B,) in frames); the frames past a row's length are whatever the
+        loop left there (``infer.synthesize.synthesize_tacotron2`` zeroes
+        them). ``text_lengths`` (B,) masks the attention. On a CUDA device
+        the loop replays CUDA graphs unless ``eager``."""
+        from transformer_tts_tpu_torch.infer.synthesize import (
+            tacotron2_decode)
+        if not self.is_tacotron2:
+            raise ValueError("tacotron2_synthesize requires "
+                             "decoder_type='tacotron2'")
+        e_outputs, _ = self.encode(src, src_mask, ref_mel, spk_emb)
+        carry = tacotron2_decode(self, e_outputs, text_lengths, max_steps,
+                                 eager=eager)
+        b, r = src.shape[0], self.reduction_rate
+        post = self.apply_postnet(carry["groups"].to(self.cache_dtype))
+        mel = post.float().reshape(b, max_steps * r, self.mel_dim)
+        return mel, carry["length"] * r
+
+
 def check_supported(hp: HParams) -> None:
-    """Raise for the AR options that later slices bring."""
-    if hp.decoder_type.lower() == "tacotron2":
-        later_slice("decoder_type='tacotron2' of the AR model",
-                    "other model families")
-    if hp.encoder_type.lower() not in ("transformer", "conformer"):
-        later_slice(f"encoder_type={hp.encoder_type!r} of the AR model",
-                    "other model families")
+    """Raise ``ValueError`` for an encoder type that is not a stack and for
+    a Tacotron 2 decoder with per-layer decoder speakers, which the JAX
+    package cannot run."""
+    check_stack_type("encoder_type", hp.encoder_type)
     check_speakers(hp)
-    if hp.output_type:
-        later_slice("the discrete output mode (output_type) of the AR "
-                    "model", "other model families")
+    if (hp.decoder_type.lower() == "tacotron2" and hp.is_multi_speaker
+            and hp.spk_emb_vers == 1 and "decoder" in spk_arch(hp)):
+        raise ValueError(
+            "decoder_type='tacotron2' with decoder speakers "
+            "(spk_emb_architecture 'decoder', spk_emb_vers 1): the JAX "
+            "package's Tacotron2Decoder adds speaker_L_l1_es's 4*d_model "
+            "output to its 16*d_model gates and fails on the shapes, so "
+            "there is no result to port; use spk_emb_vers 2 or encoder "
+            "speakers")
 
 
 def build_transformer_tts(hp: HParams, *, device="cuda",
@@ -243,11 +306,13 @@ def build_transformer_tts(hp: HParams, *, device="cuda",
         n_head_decoder=hp.n_head_decoder,
         ff_conv_kernel_size_decoder=hp.ff_conv_kernel_size_decoder,
         concat_after_decoder=hp.concat_after_decoder,
-        encoder_type=hp.encoder_type, reduction_rate=hp.reduction_rate,
+        encoder_type=hp.encoder_type, decoder_type=hp.decoder_type,
+        reduction_rate=hp.reduction_rate,
         dropout=hp.dropout, dropout_prenet=hp.dropout_prenet,
         dropout_postnet=hp.dropout_postnet, gst=hp.gst,
         spk_emb_dim=hp.spk_emb_dim, spk_emb_architecture=spk_arch(hp),
         spk_emb_vers=hp.spk_emb_vers, multi_speaker=hp.is_multi_speaker,
-        use_flash=hp.use_flash_attention, amp=hp.amp)
+        output_type=bool(hp.output_type), use_flash=hp.use_flash_attention,
+        amp=hp.amp)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device)

@@ -15,6 +15,11 @@ regulation (the port of transformer_tts_tpu/models/variance_adaptor.py:
   utterance, with probability p, the pitch embedding reads the
   prediction instead of the target; the draws come from the caller's
   ``generator`` (a CPU generator), as ``uniform(B, 1) < p``.
+* ``Aligner``: the JAX package's working version of the reference's
+  differentiable duration sketch (no model builds it): 3 x (Conv1d(k=9)
+  SAME -> LayerNorm -> dropout) -> Linear to ``max_duration`` logits,
+  Gaussian noise added in train mode (from the caller's generator), a
+  sigmoid.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from transformer_tts_tpu_torch.models.sq_vae import device_generator
 from transformer_tts_tpu_torch.ops.feedforward import Conv1dBTC, LN_EPS
 from transformer_tts_tpu_torch.ops.length_regulator import (
     durations_from_log, length_regulate)
@@ -206,3 +212,30 @@ class VarianceAdaptor(nn.Module):
             x=out, log_duration=log_d, pitch=pitch, energy=energy,
             mel_len=mel_len, mel_pos=mel_pos, mel_mask=mel_mask,
             text_dur_predicted=x)
+
+
+class Aligner(nn.Module):
+    def __init__(self, d_model: int, max_duration: int,
+                 kernel_size: int = 9, dropout: float = 0.1):
+        super().__init__()
+        self.convs = nn.ModuleList(Conv1dBTC(d_model, d_model, kernel_size)
+                                   for _ in range(3))
+        self.norms = nn.ModuleList(nn.LayerNorm(d_model, eps=LN_EPS)
+                                   for _ in range(3))
+        self.out = nn.Linear(d_model, max_duration)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, encoded: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, L, d) -> (B, L, max_duration) in (0, 1); in train mode the
+        logits get N(0, 1) noise drawn from ``generator``."""
+        x = encoded
+        for conv, norm in zip(self.convs, self.norms):
+            x = self.dropout(norm(conv(x)))
+        out = self.out(x)
+        if self.training:
+            out = out + torch.randn(
+                out.shape, device=out.device,
+                generator=device_generator(generator, out.device)
+            ).to(out.dtype)
+        return torch.sigmoid(out)

@@ -2,8 +2,9 @@
 transformer_tts_tpu/train/losses.py: ``l1`` :24-31, ``channel_wise_l1``
 :34-40, ``duration_loss`` :43-48, ``stop_token_loss`` :51-68,
 ``ctc_aux_loss`` :71-86, ``mse_loss_arelbo`` :89-93, ``ssim`` :96-129,
-``fastspeech2_loss`` :132-261 with the flagship's options, SSIM and the
-SQ-VAE's, and ``transformer_tts_loss`` :264-281).
+``fastspeech2_loss`` :132-261 with the flagship's options, SSIM, the
+SQ-VAE's and the discrete mode, ``transformer_tts_loss`` :264-281 and
+``softmax_output_loss`` :312-343).
 
 L1 on mel_pre and mel_post, L1 of the predicted log durations against
 log(d + log_offset), and L1 on f0 and energy, all in fp32. ``masked=False``
@@ -12,8 +13,12 @@ frames too; ``f0_stats``/``energy_stats`` standardise those targets and
 average them over valid frames. ``use_sq_vae`` takes the AR-ELBO MSE for
 mel_pre and adds the output's ``sq_vae_loss`` (logging it and the
 perplexity). ``use_ssim`` adds -SSIM of mel_post against the mel
-(``loss_ssim``). The discrete (``output_type='softmax'``) mode comes with
-the other model families. The AR loss is L1 on the pre and
+(``loss_ssim``). The discrete mode (``output_type='softmax'``) reads the
+(B, T, 2*C) output as two streams of C-class logits against (B, T, 2)
+int codes: cross-entropy per stream in fp32 over the codes that are not
+the pad 320, the two summed, for mel_pre and mel_post, with
+``accuracy_1``/``accuracy_2`` of mel_post in the logs; the duration, f0
+and energy losses still apply. The AR loss is L1 on the pre and
 post mel and the stop token's BCE with a positive-class weight, in the
 stable ``logaddexp`` form.
 """
@@ -25,7 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
+from transformer_tts_tpu_torch.data.batching import CODE_PAD
 
 
 def l1(pred: torch.Tensor, target: torch.Tensor,
@@ -148,6 +153,28 @@ def transformer_tts_loss(mel_pre: torch.Tensor, mel_post: torch.Tensor,
                    "loss_token": stop, "loss_total": total}
 
 
+def softmax_output_loss(pred: torch.Tensor, targets: torch.Tensor,
+                        num_classes: int, ignore_index: int = CODE_PAD):
+    """(loss, {accuracy_1, accuracy_2}) of (B, T, 2*num_classes) logits,
+    the first and second half one stream each, against (B, T, 2) int
+    codes: each stream's mean fp32 cross-entropy over its codes that are
+    not ``ignore_index`` (at least 1 counted), the two summed; the
+    accuracies of the argmax over the same codes."""
+    logs = {}
+    total = 0.0
+    for k in range(2):
+        logits = pred[:, :, k * num_classes:(k + 1) * num_classes].float()
+        t = targets[:, :, k].long()
+        valid = t != ignore_index
+        n = valid.sum().clamp(min=1)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, torch.where(valid, t, 0)[..., None])
+        total = total + torch.where(valid, nll[..., 0], 0.0).sum() / n
+        logs[f"accuracy_{k + 1}"] = (
+            (valid & (logits.argmax(-1) == t)).sum() / n.float())
+    return total, logs
+
+
 def _standardise(values, stats, mel_mask, vmask):
     """(values in standard units, 0 on padded frames; their mask)."""
     if values is None or stats is None:
@@ -170,10 +197,8 @@ def fastspeech2_loss(out, mel: torch.Tensor, d_target: torch.Tensor,
                      output_type=None, f0_stats=None, energy_stats=None):
     """(total, logs) for a ``FastSpeech2Output``; the logs carry the JAX
     package's keys: loss_frame_before, loss_frame_after, loss_duration,
-    loss_f0, loss_energy, loss_ssim and loss_total."""
-    if output_type == "softmax":
-        later_slice("the discrete output mode (output_type='softmax')",
-                    "other model families")
+    loss_f0, loss_energy, loss_ssim and loss_total (and accuracy_1,
+    accuracy_2 in the discrete mode)."""
     use_mask = masked and mel_mask is not None
     fmask = mel_mask[:, 0, :, None] if use_mask else None
     vmask = mel_mask[:, 0, :] if use_mask else None
@@ -188,13 +213,24 @@ def fastspeech2_loss(out, mel: torch.Tensor, d_target: torch.Tensor,
             return channel_wise_l1(pred, mel, cw)
         return l1(pred, mel, fmask)
 
-    logs = {"loss_frame_before": (
-        mse_loss_arelbo(out.mel_pre, mel) if use_sq_vae and not channel_wise
-        else mel_l1(out.mel_pre))}
-    total = logs["loss_frame_before"]
-    if out.mel_post is not None:
-        logs["loss_frame_after"] = mel_l1(out.mel_post)
-        total = total + logs["loss_frame_after"]
+    if output_type == "softmax":
+        num_classes = out.mel_pre.shape[-1] // 2
+        logs = {"loss_frame_before": softmax_output_loss(
+            out.mel_pre, mel, num_classes)[0]}
+        total = logs["loss_frame_before"]
+        if out.mel_post is not None:
+            logs["loss_frame_after"], acc = softmax_output_loss(
+                out.mel_post, mel, num_classes)
+            logs.update(acc)
+            total = total + logs["loss_frame_after"]
+    else:
+        logs = {"loss_frame_before": (
+            mse_loss_arelbo(out.mel_pre, mel)
+            if use_sq_vae and not channel_wise else mel_l1(out.mel_pre))}
+        total = logs["loss_frame_before"]
+        if out.mel_post is not None:
+            logs["loss_frame_after"] = mel_l1(out.mel_post)
+            total = total + logs["loss_frame_after"]
     logs["loss_duration"] = duration_loss(out.log_duration, d_target, smask,
                                           log_offset)
     total = total + logs["loss_duration"]
@@ -204,6 +240,9 @@ def fastspeech2_loss(out, mel: torch.Tensor, d_target: torch.Tensor,
     if out.energy is not None and energy is not None:
         logs["loss_energy"] = l1(out.energy, energy, energy_vmask)
         total = total + logs["loss_energy"]
+    if output_type == "softmax":
+        logs["loss_total"] = total
+        return total, logs
     if use_ssim and out.mel_post is not None:
         logs["loss_ssim"] = -ssim(out.mel_post, mel)
         total = total + logs["loss_ssim"]

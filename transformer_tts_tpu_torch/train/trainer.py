@@ -30,6 +30,14 @@ path needs T_dec >= ``FLASH_MIN_KEY_LEN``);
 every attention on the masked path, as in the JAX package. With ``gst``
 the style comes from the same decoder input; the reference encoder's
 BatchNorm statistics move in the step, as flax's ``batch_stats`` do.
+With ``decoder_type = "tacotron2"`` the decoder reads the full-rate
+``mel[:, r:]`` (the JAX file's :372-386), the masks are the text's only,
+and the loss targets are the same; its T/r steps run as an eager Python
+loop (the JAX package's ``lax.scan``), each drawing its prenet dropout
+and zoneout from the state's generator. The AR step refuses the discrete
+mode (``output_type``), where the JAX step fails: it reshapes the (B, t,
+mel*r) output by the targets' 2 code streams and takes an L1 of float
+frames against int codes.
 
 Conditioned batches carry ``spk_emb`` ((B,) ids or (B, 512) x-vectors),
 ``accent`` (B, L) and ``hop_size`` (B,); the steps pass them to the
@@ -77,7 +85,8 @@ FS2_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "alignment", "f0",
 AR_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "stop_token",
                  "spk_emb")
 CTC_WEIGHT = 0.2
-SQ_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "f0", "energy")
+SQ_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "f0", "energy",
+                 "spk_emb", "accent")
 
 
 class TrainState:
@@ -230,19 +239,32 @@ def make_transformer_train_step(hp: HParams, *, device="cuda"):
     frames), padded to bucket shapes; the arrays go to ``device``."""
     check_ar_supported(hp)
     _check_supported(hp)
+    if hp.output_type:
+        raise ValueError(
+            f"output_type={hp.output_type!r} in the AR train step: the JAX "
+            "package's step reshapes the (B, t, mel_dim*r) output by the "
+            "targets' 2 code streams and takes an L1 of float frames "
+            "against (B, T, 2) int codes, so it has no result to port")
     r = hp.reduction_rate
     ga_w = float(hp.guided_attention_weight or 0.0)
     ga_sigma = float(hp.guided_attention_sigma)
+    is_taco = hp.decoder_type.lower() == "tacotron2"
 
     def step_fn(state: TrainState, batch: Dict):
         b = batch_to(batch, device, AR_BATCH_KEYS)
         mel = b["mel"]
         n, _, mel_dim = mel.shape
-        src_mask, trg_mask = create_masks(b["pos_text"],
-                                          b["pos_mel"][:, :-r:r],
-                                          model="transformer")
+        if is_taco:
+            mel_input = mel[:, r:]
+            src_mask, trg_mask = create_masks(b["pos_text"], None,
+                                              model="transformer")
+        else:
+            mel_input = mel[:, :-r:r]
+            src_mask, trg_mask = create_masks(b["pos_text"],
+                                              b["pos_mel"][:, :-r:r],
+                                              model="transformer")
         model = state.model.train()
-        out = model(b["text"], mel[:, :-r:r], src_mask, trg_mask,
+        out = model(b["text"], mel_input, src_mask, trg_mask,
                     spk_emb=b.get("spk_emb"), collect_attn=ga_w > 0,
                     generator=state.generator)
         t = out.mel_pre.shape[1]
@@ -266,8 +288,9 @@ def make_transformer_train_step(hp: HParams, *, device="cuda"):
 
 def make_sq_fastspeech2_train_step(hp: HParams, *, device="cuda"):
     """``step_fn(state, batch) -> (state, logs)`` of the SQ-VAE FastSpeech
-    2 for collated batches (text, pos_text, mel, pos_mel, f0, energy; an
-    alignment is ignored); the arrays go to ``device``."""
+    2 for collated batches (text, pos_text, mel, pos_mel, f0, energy and
+    the speakers and accents the hparams ask for; an alignment is
+    ignored); the arrays go to ``device``."""
     _check_supported(hp)
 
     def step_fn(state: TrainState, batch: Dict):
@@ -276,7 +299,8 @@ def make_sq_fastspeech2_train_step(hp: HParams, *, device="cuda"):
         model = state.model.train()
         mel = b["mel"]
         out = model(b["text"], src_mask, mel.shape[1], None, b.get("f0"),
-                    b.get("energy"), mel_mask,
+                    b.get("energy"), mel_mask, spk_emb=b.get("spk_emb"),
+                    accent=b.get("accent"),
                     temperature=sq_temperature(state.step),
                     generator=state.generator)
         logs = {"loss_frame_before": mse_loss_arelbo(out.mel_pre, mel)}
