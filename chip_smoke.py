@@ -191,13 +191,15 @@ and each printing its wall time:
    14. cli/prepare_data.py on WAVs written there, cli/train_vocoder.py
        for 3 steps with a save and cli/synthesize.py --wav on phase 4(c)'s
        transformer checkpoint, the three at once, then --vocoder (its
-       export) on that checkpoint, all with --device cuda: every WAV of
+       export) on that checkpoint, all with --device cuda, all in the one
+       phase that runs every CLI at once (after 15): every WAV of
        frames x 256 samples (Griffin-Lim's (frames - 1) x 256) and
        finite; load_reference_checkpoint of a
        ``module.``-prefixed copy of that checkpoint, bit for bit.
 15.-16. the two other families, run after 14 and before 7, random weights
-   from seed 0 at the flagship's widths, their data from a generator of
-   their own (seed 15), each path counted from 0:
+   from seed 0 at the flagship's widths (15 at LATER_DEPTH, 3 + 3
+   layers, for the run's time; 16 at full depth), their data from a
+   generator of their own (seed 15), each path counted from 0:
    15. the GST AR model (egs/transformer_tts_ljspeech.py with gst = True;
        the style token attention's query weights and tokens scaled x10,
        ``gst_model``, so the style follows the reference): (a) the eval
@@ -227,15 +229,16 @@ and each printing its wall time:
        K1-d-90 and 6 K2-90 per step, as 5(b); (e) cli/train.py for two
        epochs with a save each, the SQ model and the transformer
        flagship, and one step of a use_sq_vae FastSpeech 2, at once with
-       the training CLIs of 5, 6 and 15 (a phase of their own before
-       16); then
+       every other CLI of the run (4(c), 5, 6, 14, 15 and 19; a phase of
+       their own before 16); then
        cli/average_checkpoints.py --last 2 on both, each average equal to
        the float64 mean of its epochs' state_dicts; then
        cli/synthesize.py on the transformer flagship's average.
 
 17. serving (infer/engine.py, infer/server.py, infer/streaming.py,
    infer/quantize.py, cli/serve.py), run after 16 and before 7, random
-   weights from seed 0 at the flagships' full width, fatal on any failure:
+   weights from seed 0 at the flagships' full width and LATER_DEPTH
+   (phases 17-19 alike), fatal on any failure:
    (a) the transformer FastSpeech 2's TTSEngine (bf16 amp, batch 8, 8
        frames per phone, text buckets 32/64/128, mel budgets
        256/512/1024): warmup seconds per bucket; per bucket one call of 8
@@ -324,6 +327,29 @@ and each printing its wall time:
        against its solo call within 1e-6 of max|ref|.
    The launches of its main paths ((b)'s timed steps, (c)'s synthesis
    call) are added to the kernels line's.
+20. the kernels as custom ops and serving export, run after 19 and
+   before 7: torch.library.opcheck of every tts_port op
+   on the card (bf16: plain with dropout, causal, a bias with dropout;
+   fp32: plain with dropout; the relative ops alike); the host µs of a
+   K1-90 launch through its op against its CUDA implementation called
+   directly; TTSEngine.export of the transformer flagship at full depth
+   (bf16 amp, B=8, bucket 128: 1024 frames, with HiFi-GAN V1) and of the
+   AR flagship at LATER_DEPTH (B=8, bucket 32: a budget of 128 decode steps, a stop
+   bias at which its rows stop at different steps before it), each artifact
+   loaded and called in a fresh python3 that imports only torch and the
+   two ops modules, on the engine's inputs: lengths and durations equal,
+   the mel and the samples within EXPORT_TOL of max(1, max|ref|), the
+   FastSpeech 2 artifact's call 6 K1-90 launches (its process's counter);
+   each artifact's ms beside the engine's, the AR one's per decode step
+   beside the graphed decode's.
+   In 5's and 18(b)'s conformer card-vs-CPU steps the same step runs
+   again from the same weights through the plain masked attention
+   (kernel counters 0): in 5 the fp32 update coverage must be at least
+   COVERAGE_OF_CONTROL of that control's (18(b)'s keeps its 50 %), and
+   in both the bf16 attention gradient norms within max(5 %,
+   NORM_OF_CONTROL x the control's distance) of the CPU's fp32 and
+   within KERNEL_VS_CONTROL of the control's own (flax's initial draw:
+   see COVERAGE_OF_CONTROL).
 
 It then prints the phases' wall times, the engine calls' launch counts,
 the kernels line (JSON), the nvidia-smi line, and last ``{"ok": true,
@@ -354,6 +380,10 @@ PEAK_BYTES = 3.35e12          # HBM3
 HOP_SECONDS = 256 / 22050     # one mel frame of audio
 DEVICE = "cuda"
 FLAGSHIP = {}                 # HParams overrides; empty = the defaults
+# the depth of phases 15 and 17-19 (GST, serving, conditioning, the other
+# families): fewer layers than the flagships' 6 + 6, for the run's time;
+# phases 3-14, 16 and 20 run the flagships at full depth
+LATER_DEPTH = dict(n_layer_encoder=3, n_layer_decoder=3)
 # the two flagships: HParams overrides of the stacks, and the kernel that
 # carries each one's decoder attention
 PATHS = {
@@ -1310,7 +1340,13 @@ def phase_synthesis(gen, name, stacks, kid):
     return hp, model, launches, main_inputs
 
 
+SYNTH_CLIS = {}                 # name -> what 4(c)'s synthesis CLI reads
+
+
 def phase_cli(name, stacks, hp, model):
+    """4(c): the flagship's checkpoint, hparams and a 3-line script for
+    cli/synthesize.py, which runs with the other CLIs, all at once
+    (``phase_clis``; ``check_synth_cli`` then reads what it wrote)."""
     from transformer_tts_tpu_torch.train.checkpoint import save_checkpoint
     work = os.path.join(WORK, name)
     model_dir = os.path.join(work, "model")
@@ -1327,19 +1363,22 @@ def phase_cli(name, stacks, hp, model):
         for key, value in dict(FLAGSHIP, **stacks,
                                test_script=script).items():
             fh.write(f"{key} = {value!r}\n")
-    proc = subprocess.run(
-        [sys.executable, "-m", "transformer_tts_tpu_torch.cli.synthesize",
-         "--load_name", model_dir, "--save", out_dir, "--max_frames",
-         "2048", "--device", DEVICE], cwd=ROOT, capture_output=True,
-        text=True, timeout=600)
-    print(proc.stdout.strip())
-    check(proc.returncode == 0, f"{name} CLI exit {proc.returncode}: "
-          f"{proc.stderr[-2000:]}")
+    SYNTH_CLIS[name] = dict(hp=hp, out_dir=out_dir, argv=[
+        "transformer_tts_tpu_torch.cli.synthesize", "--load_name",
+        model_dir, "--save", out_dir, "--max_frames", "2048", "--device",
+        DEVICE])
+
+
+def check_synth_cli(name, out: str):
+    """What 4(c)'s synthesis CLI of ``name`` wrote: 3 finite mels, each
+    as long as its alignment's frames."""
+    c = SYNTH_CLIS.pop(name)
+    print(out.strip())
     for i, n_text in enumerate((40, 90, 128)):
-        mel = np.load(os.path.join(out_dir, f"{i}.npy"))
-        align = np.load(os.path.join(out_dir, f"{i}_alignment.npy"))
+        mel = np.load(os.path.join(c["out_dir"], f"{i}.npy"))
+        align = np.load(os.path.join(c["out_dir"], f"{i}_alignment.npy"))
         check(mel.dtype == np.float32 and mel.ndim == 2
-              and mel.shape[1] == hp.mel_dim
+              and mel.shape[1] == c["hp"].mel_dim
               and 0 < mel.shape[0] <= 2048
               and bool(np.isfinite(mel).all()),
               f"{name} CLI mel {i} {mel.shape}")
@@ -1361,18 +1400,16 @@ CUPTI_OVERHEAD = ("Lazy Function Loading", "Activity Buffer Request")
 PROFILES = []
 
 
-def print_profile(label: str, fn, n: int, ms_per_run: float,
-                  host: bool = True):
-    """Run ``fn`` ``n`` times under torch.profiler (CPU and CUDA activity)
-    and print the ten device operations (kernels, copies, memsets) with
-    the most self time on the card, each with its share of the device
-    time and its launches per run; user annotations (whose device range
-    covers kernels counted already) and CUPTI's overhead records are left
-    out. The device's busy time per run stands against ``ms_per_run``,
-    the same work's time measured without the profiler in this run, for
-    the idle share. ``host=False`` records the card's activity alone: for
-    a step of ~10^5 launches the host's events make the trace's
-    processing the cost."""
+def print_profile(label: str, fn, n: int, ms_per_run: float):
+    """Run ``fn`` ``n`` times under torch.profiler (the card's activity
+    alone: the host's events, which nothing here reads, would make the
+    trace's processing the cost) and print the ten device operations
+    (kernels, copies, memsets) with the most self time on the card, each
+    with its share of the device time and its launches per run; user
+    annotations (whose device range covers kernels counted already) and
+    CUPTI's overhead records are left out. The device's busy time per run
+    stands against ``ms_per_run``, the same work's time measured without
+    the profiler in this run, for the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1381,9 +1418,7 @@ def print_profile(label: str, fn, n: int, ms_per_run: float,
                        getattr(e, "self_cuda_time_total", 0.0))
 
     torch.cuda.synchronize()
-    activities = ([ProfilerActivity.CPU] if host else []) \
-        + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -1553,6 +1588,7 @@ def trainer(kind: str) -> dict:
                     kernels=("K4", "K4-d", "K5-dq", "K5-dkdv"),
                     bf16_kernels=("K4-90", "K5-90"),
                     step_kernels=("K4-d-90", "K5-90"),
+                    control=("coverage", "norms"),
                     fwd_call=(attention, "flash_relpos_attention"),
                     bwd_call=(fr, "flash_relpos_attention_bwd"))
     if kind == "sq":
@@ -1595,6 +1631,9 @@ def conditioned_trainer(kind: str) -> dict:
                 "decoder.layers.0.multi_emb.", "variance_adaptor.pos.",
                 "variance_adaptor.rnn_length.")
         spec["prepare"] = no_pos_dropout
+        # only the bf16 norm check is re-derived here: the fp32 update
+        # coverage keeps its floor of 50 %
+        spec["control"] = ("norms",)
 
     def batch(gen, hp, *args):
         return conditioned(gen, hp, train_batch(gen, hp, *args))
@@ -1611,6 +1650,18 @@ ADAM_EPS = 1e-9
 # layer's weight gradient by up to ~1/sqrt(B*T) of max|g| (B*T = 1536
 # here). The decoder attention weights, fed by K2 directly, hold tighter.
 GRAD_TOL, ATTN_GRAD_TOL = 2e-2, 5e-3
+# the conformer's re-derived checks, each against the same step through the
+# plain masked attention (``control_steps``): under flax's draw the padded
+# rows' LayerNorm gradient (1/sqrt(eps) on exact zeros, JAX's conformer
+# has it too) sets the clip, leaving the decoder attention gradients near
+# Adam's eps, and bf16 moves this model's attention gradient norms by
+# 7-17 % from fp32 with no kernel in the path. So phase 5's fp32 update
+# coverage must be at least this share of the control's (18(b)'s keeps its
+# absolute floor), and the bf16 attention gradient norms of both within
+# this multiple of the control's distance from the CPU's fp32 and each
+# within KERNEL_VS_CONTROL of the control's own
+COVERAGE_OF_CONTROL, NORM_OF_CONTROL = 0.5, 1.25
+KERNEL_VS_CONTROL = 0.05
 
 
 def zero_in_exact_arithmetic(name: str) -> bool:
@@ -1749,6 +1800,53 @@ def ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.nextafter(a, torch.full_like(a, math.inf)) - a
 
 
+def settled_share_of(g: torch.Tensor, g_ref: torch.Tensor) -> tuple:
+    """(settled mask, its share): where two gradients within their max abs
+    difference err of each other bound Adam's first updates within 1e-3
+    lr of each other (see ``phase_card_vs_cpu``)."""
+    err, _ = max_err(g, g_ref)
+    least = (g_ref.abs() - err).clamp(min=0.0)
+    settled = err * ADAM_EPS / (least + ADAM_EPS) ** 2 <= 1e-3
+    return settled, settled.float().mean().item()
+
+
+def attention_norms(model, cpu_params, attn) -> dict:
+    """name -> (card gradient norm, CPU gradient norm) of each decoder
+    attention weight."""
+    params = dict(model.named_parameters())
+    return {n: (params[n].grad.float().norm().item(),
+                cpu_params[n].grad.norm().item()) for n in attn}
+
+
+def norm_rel(norms: dict) -> float:
+    return max(abs(x - y) / y for x, y in norms.values())
+
+
+def control_steps(spec, fp32, weights, batch, prepare) -> dict:
+    """amp -> the train state after the same step from the same weights on
+    the card through the plain masked attention (``use_flash_attention``
+    off), every kernel counter at 0 and still 0 after it: the same-run
+    control of the conformer's re-derived checks (``spec["control"]``:
+    "coverage" the fp32 step's, "norms" the bf16 step's)."""
+    states = {}
+    for amp, check_name in ((False, "coverage"), (True, "norms")):
+        if check_name not in spec["control"]:
+            continue
+        hp = spec["hparams"](**dict(fp32, amp=amp,
+                                    use_flash_attention=False))
+        state = spec["init"](hp, device=DEVICE)
+        state.model.load_state_dict(weights)
+        prepare(state.model)
+        set_counts({})
+        state, _ = spec["make_step"](hp, device=DEVICE)(state, batch)
+        torch.cuda.synchronize()
+        check(not any(read_counts().values()),
+              f"the plain masked control launched a kernel: "
+              f"{read_counts()}")
+        states[amp] = state
+    return states
+
+
 def phase_card_vs_cpu(gen, kind):
     """One train step on the card and on the CPU from the same weights:
     the flagship in fp32 with every dropout 0, where the decoder takes K1
@@ -1811,6 +1909,8 @@ def phase_card_vs_cpu(gen, kind):
               and not any(launched[True][k] for k in (fwd, dq, dkdv)),
               f"{kind}: the card's bf16 step did not take {h_fwd} and "
               f"{h_bwd} alone: {launched[True]}")
+    control = (control_steps(spec, fp32, weights, batch, prepare)
+               if spec.get("control") else {})
     set_counts(counts)
 
     state, logs = results[False]
@@ -1854,9 +1954,7 @@ def phase_card_vs_cpu(gen, kind):
         # 0), so their updates lie within lr * err * eps / (m + eps)^2.
         # Where that bound is <= 1e-3 lr (a gradient far above err, or err
         # far below eps), the updates must agree to 1e-3 lr.
-        least = (g_ref.abs() - err).clamp(min=0.0)
-        settled = err * ADAM_EPS / (least + ADAM_EPS) ** 2 <= 1e-3
-        settled_share[name] = settled.float().mean().item()
+        settled, settled_share[name] = settled_share_of(g, g_ref)
         update_rel[name] = ((step - ref_step).abs() - rounding)[
             settled].max().item() / lr if settled.any() else 0.0
     stats_rel = 0.0
@@ -1908,27 +2006,54 @@ def phase_card_vs_cpu(gen, kind):
           and grad_rel[attn_worst] <= spec.get("attn_tol", ATTN_GRAD_TOL)
           and noise_peak <= 1e-5 * top,
           f"{kind}: card gradients disagree with the CPU's: worst {worst}")
-    check(max(update_rel.values()) <= 1e-3 and attn_share >= 0.5,
+    stats = {"shares": {n: settled_share[n] for n in attn}}
+    share_floor = 0.5
+    if False in control:
+        c_params = dict(control[False].model.named_parameters())
+        stats["control_shares"] = {
+            n: settled_share_of(c_params[n].grad.cpu(),
+                                cpu_params[n].grad)[1] for n in attn}
+        control_share = min(stats["control_shares"].values())
+        share_floor = COVERAGE_OF_CONTROL * control_share
+        print(f"{kind} fp32 update coverage, re-derived: the kernel path's "
+              f"{attn_share:.1%} of each decoder attention weight against "
+              f"the plain masked path's {control_share:.1%} in the same "
+              f"step from the same weights (kernel counters 0); needed "
+              f"{COVERAGE_OF_CONTROL:g} of the control's, {share_floor:.1%}")
+    check(max(update_rel.values()) <= 1e-3 and attn_share >= share_floor,
           f"{kind}: card updates disagree with the CPU's")
     check(stats_rel <= 1e-3, f"{kind}: card BatchNorm statistics disagree")
 
     state, logs = results[True]
     loss, norm = float(logs["loss_total"]), float(logs["grad_norm"])
     ref_norm = float(ref_logs["grad_norm"])
-    norms = {n: (dict(state.model.named_parameters())[n].grad.float()
-                 .norm().item(), cpu_params[n].grad.norm().item())
-             for n in attn}
-    norm_rel = max(abs(x - y) / y for x, y in norms.values())
+    norms = stats["norms"] = attention_norms(state.model, cpu_params, attn)
+    rel, norm_tol = norm_rel(norms), 0.05
     print(f"{kind} train step card bf16 amp vs CPU fp32: loss {loss:.6f} vs "
           f"{ref_loss:.6f} (tol 2e-2 relative), grad_norm {norm:.6f} vs "
           f"{ref_norm:.6f} (tol 5 %), the decoder attention weights' "
-          f"gradient norms within {norm_rel:.3g} (tol 5 %)")
+          f"gradient norms within {rel:.3g}")
+    vs_control = 0.0
+    if True in control:
+        c_norms = stats["control_norms"] = attention_norms(
+            control[True].model, cpu_params, attn)
+        norm_tol = max(0.05, NORM_OF_CONTROL * norm_rel(c_norms))
+        vs_control = max(abs(norms[n][0] - c_norms[n][0]) / c_norms[n][0]
+                         for n in attn)
+        print(f"{kind} bf16 attention gradient norms, re-derived: the "
+              f"kernel path within {rel:.3g} of the CPU's fp32, the plain "
+              f"masked path in the same step from the same weights "
+              f"(kernel counters 0) within {norm_rel(c_norms):.3g}, needed "
+              f"max(0.05, {NORM_OF_CONTROL:g} x the control's) = "
+              f"{norm_tol:.3g}; the kernel path within {vs_control:.3g} of "
+              f"the control's, each weight's (tol {KERNEL_VS_CONTROL:g})")
     # bf16 keeps ~3 significant digits through 12 layers and the postnet
     check(abs(loss - ref_loss) <= 2e-2 * abs(ref_loss)
           and abs(norm - ref_norm) <= 0.05 * ref_norm
-          and norm_rel <= 0.05,
+          and rel <= norm_tol and vs_control <= KERNEL_VS_CONTROL,
           f"{kind}: card bf16 amp step disagrees with the CPU's")
     print(f"{kind} card-vs-CPU steps: {time.perf_counter() - t_start:.1f} s")
+    return stats
 
 
 def train_run(kind, batch) -> dict:
@@ -2058,12 +2183,12 @@ def phase_train_step(batch, kind):
     return r["launches"], fwd_inputs, bwd_inputs
 
 
-def profile_train_step(run, ms_per_step, host: bool = True):
+def profile_train_step(run, ms_per_step):
     """``print_profile`` of one train step of ``run`` (``train_run``'s),
     going on from the state its timed steps left (warm)."""
     print_profile(f"the {run['kind']} train step",
                   partial(run["step"], run["state"], run["batch"]), 1,
-                  ms_per_step, host)
+                  ms_per_step)
 
 
 def write_train_corpus(gen, hp, root):
@@ -2127,11 +2252,12 @@ def phase_train_cli(gen, kind):
                             flags=flags)
 
 
-def phase_train_clis(extra: dict) -> dict:
+def phase_train_clis(extra: dict, second: dict) -> dict:
     """cli/train.py for 3 steps on each prepared kind's corpus, and the
     ``extra`` runs ({name: argv}), all at once; then cli/synthesize.py on
-    each kind's checkpoint, all at once: each must exit 0, log 3 steps,
-    save its checkpoint and write 3 finite mels. Returns the extra runs'
+    each kind's checkpoint and the ``second`` runs, all at once: each must
+    exit 0, each training log 3 steps and save its checkpoint, each
+    synthesis write 3 finite mels. Returns the extra and second runs'
     output."""
     outs = run_clis(dict({
         f"{kind} train CLI": ["transformer_tts_tpu_torch.cli.train",
@@ -2146,13 +2272,13 @@ def phase_train_clis(extra: dict) -> dict:
         check(os.path.exists(os.path.join(c["load_dir"], "model.pt"))
               and os.path.exists(os.path.join(c["load_dir"], "hparams.py")),
               f"{kind} train CLI saved no checkpoint")
-    run_clis({
+    outs.update(run_clis(dict({
         f"{kind} synthesis CLI on the trained checkpoint": [
             "transformer_tts_tpu_torch.cli.synthesize", "--load_name",
             c["load_dir"], "--test_script", c["test_script"], "--save",
             c["out_dir"], "--max_frames", "2048", "--device", DEVICE,
             *c["flags"]]
-        for kind, c in TRAIN_CLIS.items()})
+        for kind, c in TRAIN_CLIS.items()}, **second)))
     for kind, c in TRAIN_CLIS.items():
         frames = []
         for i in range(3):
@@ -2167,7 +2293,7 @@ def phase_train_clis(extra: dict) -> dict:
               f"{' '.join(c['flags'][:1])} read it and wrote 3 mels of "
               f"{frames} frames")
     TRAIN_CLIS.clear()
-    return {name: outs[name] for name in extra}
+    return {name: outs[name] for name in (*extra, *second)}
 
 
 # ---- phase 6: the AR Transformer-TTS ----------------------------------------
@@ -2301,14 +2427,16 @@ def stop_logits(model, store: list):
     """While the block runs, append to ``store`` (once it ends) the
     (steps, B, r) stop logits, without the stop head's bias, of the eager
     decode steps it runs: the head's input times its weight, both in the
-    dtype the head computes in, in float64. A row's stop changes nothing
-    the loop feeds back, so the trajectory holds for any bias. (The hooks
-    fire in the eager loop only; a graph replays no Python.)"""
+    dtype the head computes in, in float64, with the weight the head has
+    when the block ends. The block gets the list of the head's inputs, (B,
+    d) a step. A row's stop changes nothing the loop feeds back, so the
+    trajectory holds for any stop head. (The hooks fire in the eager loop
+    only; a graph replays no Python.)"""
     seen = []
     hook = model.stop_token.register_forward_hook(
         lambda mod, inp, out: seen.append(inp[0][:, 0]))
     try:
-        yield
+        yield seen
     finally:
         hook.remove()
     dtype = model.cache_dtype           # what the head computes in
@@ -2317,24 +2445,55 @@ def stop_logits(model, store: list):
     store.append(torch.einsum("sbd,rd->sbr", x, w).cpu().numpy())
 
 
+# the relative rounding of a bf16 logit, doubled: a stop-head output within
+# this of 0 may round to either side
+STOP_ROUNDING = 2.0 ** -7
+
+
+def staggered_stop_weight(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """A stop-head weight (d,) under which the rows of a decode whose head
+    inputs were ``x`` (steps, B, d) cross logit 0 at different steps,
+    spread over the middle half of ``steps``: the ridge fit (1e-3 of the
+    mean eigenvalue added) of logit (s - stop_b) / 8 at step s of row b.
+    For a random draw whose stop logit peaks in the first steps of every
+    row, where no bias alone staggers the stops."""
+    n, b, d = x.shape
+    stops = torch.linspace(steps // 4, 3 * steps // 4, b, dtype=torch.float64)
+    target = (torch.arange(1, n + 1, dtype=torch.float64)[:, None]
+              - stops[None, :]) / 8
+    xs = x.reshape(n * b, d).double().cpu()
+    gram = xs.T @ xs
+    gram += 1e-3 * torch.trace(gram) / d * torch.eye(d, dtype=torch.float64)
+    return torch.linalg.solve(gram, xs.T @ target.reshape(-1))
+
+
 def stopping_bias(logits: np.ndarray, max_steps: int) -> float:
     """A stop-head bias at which every row stops before ``max_steps``, at
     as many different steps as the candidates offer, preferring none in
     the first block: a row stops at its first step whose mean stop
     probability, sigmoid(logit + bias) over the r frames, is above 0.5.
     The candidates lie midway between the levels at which a step's mean
-    logit crosses 0, so rounding does not move a stop."""
+    logit crosses 0, and a candidate counts only where no step up to a
+    row's stop lies within ``STOP_ROUNDING`` of each logit's size from
+    the other side of 0.5 (the head rounds logit + bias to its dtype), so
+    rounding does not move a stop."""
     levels = np.unique(-logits.mean(-1))
     mids = (levels[1:] + levels[:-1]) / 2
     mids = mids[np.linspace(0, len(mids) - 1, min(len(mids), 1000))
                 .round().astype(int)]
     best, best_key = None, None
+
+    def stops(z):
+        over = (1.0 / (1.0 + np.exp(-z))).mean(-1) > 0.5    # (steps, B)
+        return over.any(0).all(), over.argmax(0) + 1
+
     for beta in mids:
-        p = (1.0 / (1.0 + np.exp(-(logits + beta)))).mean(-1)  # (steps, B)
-        over = p > 0.5
-        if not over.any(0).all():
+        z = logits + beta
+        slack = STOP_ROUNDING * np.maximum(np.abs(z), 1.0)
+        (low_all, low), (high_all, high) = stops(z - slack), stops(z + slack)
+        if not (low_all and high_all) or not np.array_equal(low, high):
             continue
-        first = over.argmax(0) + 1
+        first = low
         key = (len(set(first.tolist())), first.min() > 8)
         if best_key is None or key > best_key:
             best, best_key = float(beta), key
@@ -2666,24 +2825,34 @@ def fixed_gumbel(gen):
 
 def run_clis(runs: dict) -> dict:
     """Start every ``name: argv`` (a module of the repo and its arguments)
-    at once, as subprocesses; wait for all; each must exit 0. Returns
-    {name: stdout}."""
+    at once, as subprocesses, each with its share of the CPU cores as its
+    OpenMP threads; wait for all; each must exit 0. Returns {name:
+    stdout}."""
+    t0 = time.perf_counter()
+    # the cores shared out, so no process's CPU threads spin on another's
+    env = dict(os.environ, OMP_NUM_THREADS=str(
+        max(1, (os.cpu_count() or 1) // len(runs))))
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", *argv], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for name, argv in runs.items()}
-    outs = {}
+        stderr=subprocess.PIPE, text=True, env=env)
+        for name, argv in runs.items()}
+    outs, walls = {}, {}
     for name, proc in procs.items():
         out, err = proc.communicate(timeout=600)
+        walls[name] = time.perf_counter() - t0
         check(proc.returncode == 0, f"{name}: exit {proc.returncode}: "
                                     f"{err[-2000:]}")
         outs[name] = out
+    print(f"{len(runs)} CLIs at once, seconds until each was collected: "
+          + ", ".join(f"{name} {sec:.1f}" for name, sec in walls.items()))
     return outs
 
 
 def prepare_sq_clis(gen) -> dict:
-    """The training CLIs of ``phase_sq_clis`` (a synthetic corpus of
-    CLI_CORPUS, their hparams): {"runs": {name: argv}, "work", "script",
-    "hp"}; ``phase_train_clis`` runs them with the others."""
+    """The training and averaging CLIs of ``phase_sq_clis`` (a synthetic
+    corpus of CLI_CORPUS, their hparams): {"runs": {name: argv},
+    "average": {name: argv}, "work", "script", "hp"}; ``phase_clis`` runs
+    them with the others."""
     work = os.path.join(WORK, "sq_clis")
     hp = train_hparams()
     script = write_train_corpus(gen, hp, os.path.join(work, "corpus"))
@@ -2700,7 +2869,11 @@ def prepare_sq_clis(gen) -> dict:
                 fh.write(f"{key} = {value!r}\n")
         runs[name] = ["transformer_tts_tpu_torch.cli.train", "--hp_file",
                       hp_file, "--device", DEVICE, *flags]
-    return dict(runs=runs, work=work, script=script, hp=hp)
+    average = {f"{name} average": [
+        "transformer_tts_tpu_torch.cli.average_checkpoints", "--save_dir",
+        os.path.join(work, name), "--last", "2"]
+        for name in ("sq", "transformer")}
+    return dict(runs=runs, average=average, work=work, script=script, hp=hp)
 
 
 def phase_sq_clis(sq: dict, outs: dict):
@@ -2709,23 +2882,20 @@ def phase_sq_clis(sq: dict, outs: dict):
     the SQ-VAE FastSpeech 2 and the transformer flagship, and for one step
     of a use_sq_vae FastSpeech 2 (run at once with the other training
     CLIs); then cli/average_checkpoints.py --last 2 on both two-epoch
-    runs, each average equal to the float64 mean of its two epochs'
-    state_dicts (the integer buffers the newest epoch's); then
-    cli/synthesize.py on the transformer flagship's average."""
+    runs (with the other synthesis CLIs), each average equal to the
+    float64 mean of its two epochs' state_dicts (the integer buffers the
+    newest epoch's); then cli/synthesize.py on the transformer flagship's
+    average, started here and collected by ``finish_sq_clis``."""
     work, script, hp = sq["work"], sq["script"], sq["hp"]
-    for name, out in outs.items():
-        steps = [ln for ln in out.splitlines() if ln.startswith("epoch ")
-                 and " step " in ln]
+    for name in sq["runs"]:
+        steps = [ln for ln in outs[name].splitlines()
+                 if ln.startswith("epoch ") and " step " in ln]
         check(steps and all("nan" not in ln for ln in steps),
               f"{name} train CLI logged no step")
         print(f"{name} train CLI: {len(steps)} steps, the last: "
               f"{steps[-1][:160]}")
     check("sq_vae_loss=" in outs["use_sq_vae"] and "sq_vae_loss=" in
           outs["sq"], "the SQ train CLIs logged no sq_vae_loss")
-    outs = run_clis({name: ["transformer_tts_tpu_torch.cli."
-                            "average_checkpoints", "--save_dir",
-                            os.path.join(work, name), "--last", "2"]
-                     for name in ("sq", "transformer")})
     for name in ("sq", "transformer"):
         save_dir = os.path.join(work, name)
         epochs = [torch.load(os.path.join(save_dir, f"epoch_{e}",
@@ -2743,7 +2913,8 @@ def phase_sq_clis(sq: dict, outs: dict):
             check(torch.equal(value, want), f"{name}: averaged {key} is not "
                                             f"the mean of the two epochs'")
             moved += a.is_floating_point() and not torch.equal(a, b)
-        print(f"{name}: {outs[name].strip()}; {len(avg)} tensors, each the "
+        print(f"{name}: {outs[f'{name} average'].strip()}; {len(avg)} "
+              f"tensors, each the "
               f"float64 mean of epochs 1 and 2 ({moved} of them differ "
               f"between the epochs), integer buffers epoch 2's")
     test_script = os.path.join(work, "test.txt")
@@ -2751,19 +2922,31 @@ def phase_sq_clis(sq: dict, outs: dict):
         dst.write("".join(src.readlines()[:3]))
     out_dir = os.path.join(work, "generated")
     load_dir = os.path.join(work, "transformer", "average_epoch1-epoch2")
-    run_clis({"synthesis CLI on the average": [
-        "transformer_tts_tpu_torch.cli.synthesize", "--load_name", load_dir,
-        "--test_script", test_script, "--save", out_dir, "--max_frames",
-        "2048", "--device", DEVICE]})
+    # its process runs beside 16(a)-(d); ``finish_sq_clis`` collects it
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "transformer_tts_tpu_torch.cli.synthesize",
+         "--load_name", load_dir, "--test_script", test_script, "--save",
+         out_dir, "--max_frames", "2048", "--device", DEVICE], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return dict(proc=proc, out_dir=out_dir, load_dir=load_dir, hp=hp)
+
+
+def finish_sq_clis(run: dict):
+    """The synthesis CLI on the transformer flagship's average that
+    ``phase_sq_clis`` started: exit 0 and 3 finite mels."""
+    out, err = run["proc"].communicate(timeout=600)
+    check(run["proc"].returncode == 0, f"synthesis CLI on the average: exit "
+                                       f"{run['proc'].returncode}: "
+                                       f"{err[-2000:]}")
     frames = []
     for i in range(3):
-        mel = np.load(os.path.join(out_dir, f"{i}.npy"))
+        mel = np.load(os.path.join(run["out_dir"], f"{i}.npy"))
         frames.append(mel.shape[0])
-        check(mel.ndim == 2 and mel.shape[1] == hp.mel_dim
+        check(mel.ndim == 2 and mel.shape[1] == run["hp"].mel_dim
               and mel.shape[0] > 0 and bool(np.isfinite(mel).all()),
               f"synthesis from the average: mel {i} {mel.shape}")
-    print(f"synthesis CLI on {os.path.relpath(load_dir, ROOT)}: 3 mels of "
-          f"{frames} frames")
+    print(f"synthesis CLI on {os.path.relpath(run['load_dir'], ROOT)}: 3 "
+          f"mels of {frames} frames")
 
 
 # ---- phase 7: the kernels at their main paths' inputs -----------------------
@@ -3799,17 +3982,13 @@ def run_cli(module: str, *args) -> str:
     return proc.stdout
 
 
-def phase_vocoder_clis(gen):
-    """prepare_data on WAVs written here, train_vocoder for 3 steps with a
-    save and synthesize --wav on the transformer flagship's checkpoint of
-    phase 4(c), the three at once, then synthesize --vocoder on it with
-    the vocoder trained, all on the card; every WAV's length and values
-    checked. Then load_reference_checkpoint of a
-    ``module.``-prefixed file of that checkpoint."""
-    from transformer_tts_tpu_torch.compat.torch_import import (
-        load_reference_checkpoint)
-    from transformer_tts_tpu_torch.config import load_hparams
-    from transformer_tts_tpu_torch.ops.features import read_wav, write_wav
+def prepare_vocoder_clis(gen) -> dict:
+    """Phase 14's CLIs, which run with the other CLIs (``phase_clis``):
+    WAVs written here; the first wave prepare_data on them, train_vocoder
+    for 3 steps with a save and synthesize --wav on the transformer
+    flagship's checkpoint of phase 4(c); the second synthesize --vocoder
+    on it with the vocoder trained, all on the card."""
+    from transformer_tts_tpu_torch.ops.features import write_wav
     work = os.path.join(WORK, "vocoder")
     os.makedirs(work, exist_ok=True)
     lines = []
@@ -3827,9 +4006,9 @@ def phase_vocoder_clis(gen):
         for key, value in dict(FLAGSHIP, save_dir=voc_dir).items():
             fh.write(f"{key} = {value!r}\n")
     model_dir = os.path.join(WORK, "transformer", "model")
+    export = os.path.join(voc_dir, "generator")
     cli = "transformer_tts_tpu_torch.cli."
-    # the three that need nothing of each other at once
-    outs = run_clis({
+    first = {
         "prepare_data": [cli + "prepare_data", "--wav_script", wav_script,
                          "--out_dir", feats, "--device", DEVICE],
         "train_vocoder": [cli + "train_vocoder", "--hp_file", hp_file,
@@ -3839,10 +4018,28 @@ def phase_vocoder_clis(gen):
         "synthesize --wav": [cli + "synthesize", "--load_name", model_dir,
                              "--save", os.path.join(work, "griffin_lim"),
                              "--max_frames", "2048", "--device", DEVICE,
-                             "--wav"]})
-    for name, out in outs.items():
+                             "--wav"]}
+    second = {"synthesize --vocoder": [
+        cli + "synthesize", "--load_name", model_dir, "--save",
+        os.path.join(work, "vocoded"), "--max_frames", "2048", "--device",
+        DEVICE, "--vocoder", export]}
+    return dict(first=first, second=second, work=work, feats=feats,
+                voc_dir=voc_dir, model_dir=model_dir)
+
+
+def check_vocoder_clis(v: dict, outs: dict):
+    """What phase 14's CLIs wrote: every feature file and WAV's shape and
+    values, the vocoder's checkpoint and export. Then
+    load_reference_checkpoint of a ``module.``-prefixed file of the
+    flagship's checkpoint."""
+    from transformer_tts_tpu_torch.compat.torch_import import (
+        load_reference_checkpoint)
+    from transformer_tts_tpu_torch.config import load_hparams
+    from transformer_tts_tpu_torch.ops.features import read_wav
+    work, feats, voc_dir = v["work"], v["feats"], v["voc_dir"]
+    for name in (*v["first"], *v["second"]):
         print(f"cli.{name}: exit 0; "
-              + " | ".join(out.strip().splitlines()[-3:]))
+              + " | ".join(outs[name].strip().splitlines()[-3:]))
     for i, seconds in enumerate(CLI_WAVS):
         frames = int(seconds * SAMPLE_RATE) // 256 + 1
         arrays = [np.load(os.path.join(feats, f"utt{i}{s}.npy"))
@@ -3855,17 +4052,11 @@ def phase_vocoder_clis(gen):
                  "variance_stats.json"):
         check(os.path.exists(os.path.join(feats, name)),
               f"prepare_data wrote no {name}")
-
-    export = os.path.join(voc_dir, "generator")
-    check(os.path.exists(os.path.join(export, "generator.pt"))
+    check(os.path.exists(os.path.join(voc_dir, "generator", "generator.pt"))
           and os.path.exists(os.path.join(voc_dir, "vocoder_3",
                                           "train_state.pt")),
           "train_vocoder wrote no checkpoint or export")
-
-    run_cli("synthesize", "--load_name", model_dir, "--save",
-            os.path.join(work, "vocoded"), "--max_frames", 2048, "--device",
-            DEVICE, "--vocoder", export)
-    for flags, name, short in ((["--vocoder", export], "vocoded", 0),
+    for flags, name, short in ((["--vocoder"], "vocoded", 0),
                                (["--wav"], "griffin_lim", 1)):
         out_dir = os.path.join(work, name)
         for i in range(3):
@@ -3877,6 +4068,7 @@ def phase_vocoder_clis(gen):
         print(f"synthesize {' '.join(flags[:1])}: 3 WAVs of frames x 256"
               f"{' - 256' if short else ''} samples written and checked")
 
+    model_dir = v["model_dir"]
     hp = load_hparams(os.path.join(model_dir, "hparams.py"))
     state = torch.load(os.path.join(model_dir, "model.pt"),
                        map_location="cpu", weights_only=True)
@@ -3889,6 +4081,21 @@ def phase_vocoder_clis(gen):
         "load_reference_checkpoint: the weights differ")
     print(f"load_reference_checkpoint: {len(state)} tensors of a "
           f"module.-prefixed file loaded on the card bit for bit")
+
+
+def phase_clis(sq: dict, vocoder: dict) -> dict:
+    """Every CLI of the run at once: the training CLIs of 5, 6, 15, 16 and
+    19 with 16's SQ runs, 4(c)'s synthesis CLIs and 14's first wave;
+    then the synthesis CLIs on the trained checkpoints with 14's second
+    and 16's averages; each checked but 16's. Returns 16's output."""
+    synth = {f"{name} synthesis CLI": c["argv"]
+             for name, c in SYNTH_CLIS.items()}
+    outs = phase_train_clis(dict(sq["runs"], **synth, **vocoder["first"]),
+                            dict(vocoder["second"], **sq["average"]))
+    for name in list(SYNTH_CLIS):
+        check_synth_cli(name, outs[f"{name} synthesis CLI"])
+    check_vocoder_clis(vocoder, outs)
+    return {name: outs[name] for name in (*sq["runs"], *sq["average"])}
 
 
 # ---- phase 17: serving ------------------------------------------------------
@@ -4471,18 +4678,23 @@ def phase_other_engines(conf_dir, gst_dir, ref_path, ar_dir) -> dict:
     return launches
 
 
-def phase_serve_cli(fs2_dir):
-    """17(f): cli/serve.py --port 0 as a subprocess: a POST, /metrics, a
-    wav request on Griffin-Lim, then SIGINT and exit 0 within 10 s."""
-    import base64
-    import io
-    import signal
-    import wave
-    proc = subprocess.Popen(
+def start_serve_cli(fs2_dir):
+    """17(f)'s cli/serve.py --port 0 as a subprocess, started when the
+    checkpoint is written so that it warms up while 17(a)-(e) run."""
+    return subprocess.Popen(
         [sys.executable, "-m", "transformer_tts_tpu_torch.cli.serve",
          "--load_name", fs2_dir, "--port", "0", "--buckets", "32,64",
          "--device", DEVICE], cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
+
+
+def phase_serve_cli(proc):
+    """17(f): ``start_serve_cli``'s server: a POST, /metrics, a wav
+    request on Griffin-Lim, then SIGINT and exit 0 within 10 s."""
+    import base64
+    import io
+    import signal
+    import wave
     lines = []
     try:
         for line in proc.stdout:
@@ -4534,6 +4746,7 @@ def phase_serving(gen, smi: str) -> dict:
     fp32 = dict(amp=False)
     _, model = flagship_model(DEVICE, amp=True, stacks={})
     fs2_dir = serving_dir("fastspeech2", model)
+    serve_cli = start_serve_cli(fs2_dir)
     fp32_hp = os.path.join(serving_dir("fastspeech2_fp32", **fp32),
                            "hparams.py")
     _, model = flagship_model(DEVICE, amp=True, stacks=PATHS["conformer"][0])
@@ -4562,14 +4775,21 @@ def phase_serving(gen, smi: str) -> dict:
     rs = np.random.RandomState(17)
     texts_by_bucket = {b: serve_texts(rs, 8, b // 2 + 1, b, 152)
                        for b in SERVE_BUCKETS}
-    engine, per_call = phase_fastspeech2_engine(fs2_dir, texts_by_bucket)
-    launches = {"fastspeech2 engine calls (K1-90 each)": per_call}
-    phase_server_load(engine, fs2_dir, fp32_hp)
-    phase_streaming(fs2_dir, fp32_hp, ar_dir, ar_fp32_hp, voc_dir)
-    phase_int8(engine, fs2_dir, fp32_hp, ar_dir, texts_by_bucket)
-    del engine
-    launches.update(phase_other_engines(conf_dir, gst_dir, ref_path, ar_dir))
-    phase_serve_cli(fs2_dir)
+    try:
+        engine, per_call = phase_fastspeech2_engine(fs2_dir,
+                                                    texts_by_bucket)
+        launches = {"fastspeech2 engine calls (K1-90 each)": per_call}
+        phase_server_load(engine, fs2_dir, fp32_hp)
+        phase_streaming(fs2_dir, fp32_hp, ar_dir, ar_fp32_hp, voc_dir)
+        phase_int8(engine, fs2_dir, fp32_hp, ar_dir, texts_by_bucket)
+        del engine
+        launches.update(phase_other_engines(conf_dir, gst_dir, ref_path,
+                                            ar_dir))
+        phase_serve_cli(serve_cli)
+    finally:
+        if serve_cli.poll() is None:
+            serve_cli.kill()
+            serve_cli.wait()
     return launches
 
 
@@ -5079,10 +5299,7 @@ def timed_other_step(kind, batch, smi, label) -> dict:
     b, text_len, mel_len, _ = TRAIN_BATCH
     run = train_run(kind, batch)
     r = time_train_steps(run)
-    # Tacotron 2's step launches ~10^5 kernels: its profile records the
-    # card alone
-    PROFILES.append(partial(profile_train_step, run, r["ms"],
-                            host=kind != "tacotron2"))
+    PROFILES.append(partial(profile_train_step, run, r["ms"]))
     del run
     torch.cuda.empty_cache()
     print(f"19{label} {kind} train step B={b} L={text_len} T={mel_len} "
@@ -5305,6 +5522,345 @@ def phase_other_families(smi: str) -> dict:
     return total
 
 
+# ---- phase 20: the kernels as custom ops, serving export -------------------
+
+# an artifact's outputs against the engine's on the same inputs, of
+# max(1, max|ref|): the artifact runs the engine's ops on the same kernels
+EXPORT_TOL = 0.0
+EXPORT_BUCKET = 128             # the flagship artifact's text bucket (1024
+EXPORT_AR_BUCKET = 32           # frames); the AR one's (256 frames)
+EXPORT_REPS = 3                 # timed calls of each artifact (the AR one's:
+EXPORT_AR_REPS = 1              # its decode runs op by op, ~40 ms a step)
+DISPATCH_CALLS = 2000
+# artifacts in a fresh process: torch and the two ops modules only; the
+# inputs and outputs go through .npz files, the timings and the kernel
+# counters' deltas through its last line
+ARTIFACT_LOADER = """
+import json, statistics, sys, time
+import numpy as np
+import torch
+import transformer_tts_tpu_torch.ops.flash_attention as fa
+import transformer_tts_tpu_torch.ops.flash_relpos as fr
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+counters = ((fa.flash_attention, "sm90_launches"), (fa.flash_attention, "launches"),
+            (fr.flash_relpos_attention, "sm90_launches"))
+results = []
+for path, inputs, outputs, reps in json.loads(sys.argv[1]):
+    program = torch.export.load(path).module()
+    args = [torch.from_numpy(x).cuda() for x in np.load(inputs).values()]
+    with torch.no_grad():
+        before = [getattr(o, a) for o, a in counters]
+        out = program(*args)
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        torch.cuda.synchronize()
+        launched = [getattr(o, a) - b for (o, a), b in zip(counters, before)]
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            program(*args)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    np.savez(outputs, *[(o.float() if o.is_floating_point() else o).cpu().numpy()
+                        for o in out])
+    results.append({"ms": statistics.median(walls), "K1-90": launched[0],
+                    "K1": launched[1], "K4-90": launched[2]})
+print(json.dumps(results))
+"""
+
+
+# what opcheck tests of the backward ops, which no autograd runs through
+# (their forward ops get every test, aot_dispatch_dynamic included)
+BWD_OPCHECKS = ("test_schema", "test_faketensor")
+
+
+def opcheck_ops(gen) -> int:
+    """``torch.library.opcheck`` of every ``tts_port`` op on the card, at
+    one small bf16 shape (the Hopper design, the fused backwards too:
+    plain with dropout, causal, and with a bias and dropout) and one fp32
+    shape (the simple design, with dropout); the relative ops alike; each
+    backward op with every value of its ``kernel`` argument that the
+    dtype takes. Returns the number of checks; the launches they make are not
+    counted."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
+    saved, n = read_counts(), 0
+    b, h, t, d = 2, 2, 64, 64
+    cases = {torch.bfloat16: ((False, False, 0.1), (True, False, 0.0),
+                              (False, True, 0.1)),
+             torch.float32: ((False, False, 0.1),)}
+    for dtype, modes in cases.items():
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen).to(DEVICE, dtype)
+        k_len = torch.tensor([t, 40], dtype=torch.int32, device=DEVICE)
+        kernels = ("auto", "simple", "dq", "dkdv") + (
+            ("sm90",) if dtype == torch.bfloat16 else ())
+        for causal, with_bias, rate in modes:
+            q, k, v, do = (rnd(b, h, t, d) for _ in range(4))
+            bias = rnd(b, h, t, t) if with_bias else None
+            args = (q.requires_grad_(), k.requires_grad_(),
+                    v.requires_grad_(), k_len, bias, d ** -0.5, rate,
+                    DROPOUT_SEED, causal, "auto")
+            torch.library.opcheck(fa._flash_fwd_op, args)
+            o, lse = (x.detach() for x in fa._flash_fwd_op(*args))
+            plain = [x.detach() for x in (q, k, v)]
+            delta = fa.bwd_delta(o, do)
+            for kernel in kernels:
+                torch.library.opcheck(fa._flash_bwd_op, (
+                    *plain, do, lse, delta, k_len, bias, d ** -0.5, rate,
+                    DROPOUT_SEED, causal, kernel), test_utils=BWD_OPCHECKS)
+            n += 1 + len(kernels)
+        xs = [rnd(b, h, t, d) for _ in range(5)]
+        p = rnd(h, t, d)
+        args = (*(x.requires_grad_() for x in xs[:4]), p.requires_grad_(),
+                k_len, d ** -0.5, 0.1, DROPOUT_SEED, "auto")
+        torch.library.opcheck(fr._relpos_fwd_op, args)
+        o, lse = (x.detach() for x in fr._relpos_fwd_op(*args))
+        plain = [x.detach() for x in (*xs[:4], p)]
+        delta = fr.bwd_delta(o, xs[4])
+        for kernel in kernels:
+            torch.library.opcheck(fr._relpos_bwd_op, (
+                *plain, xs[4], lse, delta, k_len, d ** -0.5, 0.1,
+                DROPOUT_SEED, kernel), test_utils=BWD_OPCHECKS)
+        n += 1 + len(kernels)
+    set_counts(saved)
+    return n
+
+
+def dispatch_us() -> tuple:
+    """Host µs per K1-90 launch through ``tts_port::flash_fwd`` and through
+    its CUDA implementation called directly, on a (1, 1, 256, 64) bf16
+    input, each the mean of DISPATCH_CALLS calls ended by one
+    synchronize."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    saved = read_counts()
+    q = torch.randn(1, 1, 256, 64, device=DEVICE, dtype=torch.bfloat16)
+    k_len = torch.tensor([256], dtype=torch.int32, device=DEVICE)
+    out = []
+    for call in (lambda: fa._forward(q, q, q, k_len, 0.125, 0.0, 0, False),
+                 lambda: fa._forward_cuda(q, q, q, k_len, None, 0.125, 0.0,
+                                          0, False, "auto")):
+        for _ in range(50):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            call()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / DISPATCH_CALLS * 1e6)
+    set_counts(saved)
+    return tuple(out)
+
+
+def start_artifacts(items: list) -> tuple:
+    """Each (path, inputs, reps) of ``items`` loaded and called in one
+    fresh ``python3`` (ARTIFACT_LOADER) on its inputs, started here:
+    (the process, what ``finish_artifacts`` reads)."""
+    spec = []
+    for path, inputs, reps in items:
+        stem = os.path.splitext(path)[0]
+        np.savez(stem + "_in.npz", *[x.cpu().numpy() for x in inputs])
+        spec.append((path, stem + "_in.npz", stem + "_out.npz", reps))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", ARTIFACT_LOADER, json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    return proc, spec
+
+
+def finish_artifacts(started: tuple) -> list:
+    """``start_artifacts``' process waited for: [(each artifact's
+    outputs, {"ms": median of its ``reps`` calls after one counted, the
+    K1-90, K1 and K4-90 launches of that one})]."""
+    proc, spec = started
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"loading {[s[0] for s in spec]} in a "
+                                f"fresh process failed: {err[-3000:]}")
+    stats = json.loads(out.strip().splitlines()[-1])
+    return [([torch.from_numpy(x) for x in np.load(o).values()], st)
+            for (_, _, o, _), st in zip(spec, stats)]
+
+
+def exported_engine(name: str, model, overrides: dict, bucket: int, **kw):
+    """A TTSEngine at batch 8 on ``model``'s checkpoint (written under
+    ``WORK/serving/name`` with FLAGSHIP's hparams and ``overrides``), its
+    one bucket's artifact (and a vocoder's) exported into
+    ``WORK/export/name``: (engine, manifest, out dir, export seconds)."""
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    engine = TTSEngine(serving_dir(name, model, **overrides), batch_size=8,
+                       frames_per_phone=8, text_buckets=(bucket,),
+                       device=DEVICE, **kw)
+    out_dir = os.path.join(WORK, "export", name)
+    t0 = time.perf_counter()
+    manifest = engine.export(out_dir)
+    return engine, manifest, out_dir, time.perf_counter() - t0
+
+
+def export_ar_engine(texts) -> tuple:
+    """``exported_engine`` of the AR flagship at LATER_DEPTH at bucket
+    EXPORT_AR_BUCKET, exported after its stop head was set on the eager
+    decode of ``texts`` (``staggered_stop_weight``, then
+    ``stopping_bias``; at this depth the draw's stop logit peaks in every
+    row's first steps) so that its rows stop at different steps before the
+    bucket's budget: the artifact's while_loop then ends at the last row's
+    stop, the engine's decode at the end of that block of DONE_CHECK_EVERY
+    steps."""
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_transformer_tts)
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
+    model = build_transformer_tts(ar_hparams(amp=True, **LATER_DEPTH),
+                                  device=DEVICE).eval()
+    with torch.no_grad():
+        model.stop_token.bias.fill_(AR_STOP_BIAS)
+    engine = TTSEngine(serving_dir("export_ar", model, model="Transformer",
+                                   **LATER_DEPTH),
+                       batch_size=8, frames_per_phone=8,
+                       text_buckets=(EXPORT_AR_BUCKET,), device=DEVICE)
+    steps = (engine.max_frames_for(EXPORT_AR_BUCKET)
+             // engine.hp.reduction_rate)
+    store = []
+    head = engine.model.stop_token
+    with engine.lock, torch.no_grad():
+        with stop_logits(engine.model, store) as seen:
+            synthesize_transformer_tts(
+                engine.model, *engine._padded(texts, 8, EXPORT_AR_BUCKET),
+                max_steps=steps, eager=True)
+            head.weight.copy_(staggered_stop_weight(torch.stack(seen), steps)
+                              .to(head.weight)[None].expand_as(head.weight))
+        # every row stops in the first three quarters of the budget
+        head.bias.fill_(stopping_bias(store[0][:3 * steps // 4], steps))
+    out_dir = os.path.join(WORK, "export", "export_ar")
+    t0 = time.perf_counter()
+    manifest = engine.export(out_dir)
+    return engine, manifest, out_dir, time.perf_counter() - t0
+
+
+def phase_export(gen, smi: str):
+    """Phase 20: every ``tts_port`` op through opcheck on the card; the
+    op's host cost per launch; the flagship FastSpeech 2 engine (B=8,
+    bucket 128, 1024 frames, with HiFi-GAN V1) and the AR engine (B=8,
+    bucket 32, a budget of 128 decode steps, its rows stopping at
+    different steps before it: ``export_ar_engine``) exported, each engine's
+    artifacts loaded and called in a fresh process on the engine's inputs
+    and held against the engine: shapes, lengths and durations equal, the
+    mel and the samples within EXPORT_TOL of max(1, max|ref|), the
+    flagship artifact on K1-90 (its process's counter: one launch per
+    decoder layer); call times beside the engine's. The AR engine runs at
+    LATER_DEPTH: its artifact's decode runs op by op (~40 ms a step at
+    full depth)."""
+    from transformer_tts_tpu_torch.infer.streaming import vocode_pinned
+    print(smi)
+    t0 = time.perf_counter()
+    n = opcheck_ops(gen)
+    print(f"20 opcheck: {n} checks of the four tts_port ops on the card "
+          f"(bf16: plain, causal, bias; fp32: plain; the relative ops; "
+          f"each backward op with every kernel argument) "
+          f"passed in {time.perf_counter() - t0:.1f} s")
+    op_us, direct_us = dispatch_us()
+    print(f"20 dispatch: K1-90 through tts_port::flash_fwd {op_us:.2f} us "
+          f"per launch on the host, its CUDA implementation called "
+          f"directly {direct_us:.2f} us: the op adds "
+          f"{op_us - direct_us:.2f} us")
+
+    _, model = flagship_model(DEVICE, amp=True, stacks={})
+    voc_dir = os.path.join(WORK, "serving", "vocoder")
+    fs2, manifest, out_dir, seconds = exported_engine(
+        "export_fastspeech2", model, {}, EXPORT_BUCKET, vocoder=voc_dir)
+    rs = np.random.RandomState(20)
+    texts = serve_texts(rs, 8, EXPORT_BUCKET // 2 + 1, EXPORT_BUCKET, 152)
+    ar_texts = serve_texts(rs, 8, EXPORT_AR_BUCKET // 2 + 1,
+                           EXPORT_AR_BUCKET, 152)
+    inputs = fs2._padded(texts, 8, EXPORT_BUCKET)
+    ms, want = wall_ms(lambda: fs2._run_padded(*inputs), EXPORT_REPS,
+                       warmup=1)
+    (budget, entry), = manifest["vocoder"]["budgets"].items()
+    check(manifest["vocoder"]["allow_tf32"] is False, "20: vocoder manifest")
+    mel = want[0].float()           # the vocoder's input (B, T, mel) fp32
+    v_ms, v_want = wall_ms(lambda: vocode_pinned(fs2._vocoder, mel),
+                           EXPORT_REPS, warmup=1)
+    # the fresh process runs beside the AR engine's export (host work)
+    started = start_artifacts([
+        (os.path.join(out_dir, manifest["buckets"][str(EXPORT_BUCKET)][
+            "file"]), inputs, EXPORT_REPS),
+        (os.path.join(out_dir, entry["file"]), [mel], EXPORT_REPS)])
+    try:
+        ar_export = export_ar_engine(ar_texts)
+        (got, stats), (v_got, v_stats) = finish_artifacts(started)
+    finally:
+        if started[0].poll() is None:
+            started[0].kill()
+            started[0].wait()
+    err = max_err(got[0], want[0].cpu())
+    print(f"20 fastspeech2 artifact B=8 bucket {EXPORT_BUCKET} "
+          f"({fs2.max_frames_for(EXPORT_BUCKET)} frames), exported in "
+          f"{seconds:.1f} s with its vocoder: a fresh process's call "
+          f"{stats['ms']:.3f} ms against the engine's {ms:.3f} ms (median "
+          f"of {EXPORT_REPS}); mel max|d| {err[0]:.3g} of max|ref| "
+          f"{err[1]:.3g} (bit for bit: "
+          f"{torch.equal(got[0], want[0].cpu().float())}); lengths and "
+          f"durations equal: "
+          f"{[torch.equal(g, w.cpu()) for g, w in zip(got[1:], want[1:])]}"
+          f"; launches in the artifact's call {json.dumps(stats)}")
+    check(got[0].shape == want[0].shape
+          and err[0] <= EXPORT_TOL * max(1.0, err[1])
+          and all(torch.equal(g, w.cpu()) for g, w in zip(got[1:], want[1:])),
+          "20: the fastspeech2 artifact differs from the engine")
+    check(stats["K1-90"] == fs2.hp.n_layer_decoder and stats["K1"] == 0,
+          f"20: the fastspeech2 artifact did not run K1-90 once per "
+          f"decoder layer: {stats}")
+
+    v_err = max_err(v_got[0], v_want.cpu())
+    print(f"20 vocoder artifact B=8 at {budget} frames, TF32 off: a fresh "
+          f"process's call {v_stats['ms']:.3f} ms against vocode_pinned's "
+          f"{v_ms:.3f} ms; samples max|d| {v_err[0]:.3g} of max|ref| "
+          f"{v_err[1]:.3g} (bit for bit: "
+          f"{torch.equal(v_got[0], v_want.cpu())})")
+    check(v_got[0].shape == v_want.shape
+          and v_err[0] <= EXPORT_TOL * max(1.0, v_err[1]),
+          "20: the vocoder artifact differs from vocode_pinned")
+    del fs2, model
+    torch.cuda.empty_cache()
+
+    from transformer_tts_tpu_torch.infer.synthesize import DONE_CHECK_EVERY
+    ar, manifest, out_dir, seconds = ar_export
+    inputs = ar._padded(ar_texts, 8, EXPORT_AR_BUCKET)
+    budget = ar.max_frames_for(EXPORT_AR_BUCKET) // ar.hp.reduction_rate
+    ms, want = wall_ms(lambda: ar._run_padded(*inputs), EXPORT_REPS,
+                       warmup=1)
+    (got, stats), = finish_artifacts(start_artifacts([(os.path.join(
+        out_dir, manifest["buckets"][str(EXPORT_AR_BUCKET)]["file"]),
+        inputs, EXPORT_AR_REPS)]))
+    err = max_err(got[0], want[0].cpu())
+    # the steps each decode ran: the loop to the last row's stop, the
+    # engine's graphs to the end of that block
+    steps = -(-int(want[1].max()) // ar.hp.reduction_rate)
+    blocks = min(budget, -(-steps // DONE_CHECK_EVERY) * DONE_CHECK_EVERY)
+    print(f"20 transformer_tts artifact B=8 bucket {EXPORT_AR_BUCKET} "
+          f"(a budget of {budget} decode steps, one torch.while_loop; "
+          f"{ar.hp.n_layer_encoder} + {ar.hp.n_layer_decoder} layers), "
+          f"exported in {seconds:.1f} s; rows stopping at lengths "
+          f"{want[1].tolist()}: a fresh process's call {stats['ms']:.3f} "
+          f"ms (median of {EXPORT_AR_REPS}) = "
+          f"{stats['ms'] / steps:.4f} ms per step over its {steps} steps "
+          f"against the engine's graphed decode {ms:.3f} ms = "
+          f"{ms / blocks:.4f} ms per step over its {blocks}; mel "
+          f"max|d| {err[0]:.3g} of max|ref| {err[1]:.3g} (bit for bit: "
+          f"{torch.equal(got[0], want[0].cpu().float())}); lengths "
+          f"{got[1].tolist()} against {want[1].tolist()}; launches "
+          f"{json.dumps(stats)}")
+    check(steps < budget and len(set(want[1].tolist())) > 1,
+          f"20: the stop bias did not stop the AR rows early at different "
+          f"steps: {want[1].tolist()}")
+    check(got[0].shape == want[0].shape
+          and err[0] <= EXPORT_TOL * max(1.0, err[1])
+          and torch.equal(got[1], want[1].cpu()),
+          "20: the transformer_tts artifact differs from the engine")
+    del ar
+    torch.cuda.empty_cache()
+
+
 def worst_err(errs: dict, peaks: dict, names) -> dict:
     """The error of the entry's worst output among ``names``, the one
     with the largest err / max|ref|: its max abs error, its own max|ref|
@@ -5451,9 +6007,11 @@ def main():
         phase_vocoded_synthesis(gen, *corpus_stats)
     with phase("vocoder training"):
         phase_vocoder_step(gen)
-    with phase("vocoder CLIs"):
-        phase_vocoder_clis(gen)
+    vocoder_clis = prepare_vocoder_clis(gen)
     print_resident("before phases 15-16")
+    # phases 15 and 17-19 at LATER_DEPTH, for the run's time
+    full_depth = dict(FLAGSHIP)
+    FLAGSHIP.update(LATER_DEPTH)
     new_gen = torch.Generator().manual_seed(15)     # phases 15-16's data
     with phase("GST AR"):
         phase_ar_teacher_forced(new_gen, gst=True)
@@ -5461,19 +6019,29 @@ def main():
         phase_card_vs_cpu(new_gen, "gst")
         phase_train_step(ar_batch, "gst")
         phase_train_cli(new_gen, "gst")
+    FLAGSHIP.clear()
+    FLAGSHIP.update(full_depth)
     sq_clis = prepare_sq_clis(new_gen)
     phase_train_cli(torch.Generator().manual_seed(19), "tacotron2")
-    with phase("train CLIs of 5, 6, 15, 16 and 19"):
-        sq_outs = phase_train_clis(sq_clis["runs"])
+    with phase("CLIs of 4, 5, 6, 14, 15, 16 and 19"):
+        sq_outs = phase_clis(sq_clis, vocoder_clis)
     with phase("SQ-VAE FastSpeech 2"):
-        phase_sq_forward(new_gen)
-        _, model, _, _ = phase_synthesis(new_gen, "sq", SQ_STACKS, "K1-90")
-        del model
-        torch.cuda.empty_cache()
-        with fixed_gumbel(new_gen):
-            phase_card_vs_cpu(new_gen, "sq")
-        phase_train_step(batch, "sq")
-        phase_sq_clis(sq_clis, sq_outs)
+        average_synthesis = phase_sq_clis(sq_clis, sq_outs)
+        try:
+            phase_sq_forward(new_gen)
+            _, model, _, _ = phase_synthesis(new_gen, "sq", SQ_STACKS,
+                                             "K1-90")
+            del model
+            torch.cuda.empty_cache()
+            with fixed_gumbel(new_gen):
+                phase_card_vs_cpu(new_gen, "sq")
+            phase_train_step(batch, "sq")
+            finish_sq_clis(average_synthesis)
+        finally:
+            if average_synthesis["proc"].poll() is None:
+                average_synthesis["proc"].kill()
+                average_synthesis["proc"].wait()
+    FLAGSHIP.update(LATER_DEPTH)
     with phase("serving"):
         engine_launches = phase_serving(new_gen, smi)
     with phase("conditioning"):
@@ -5486,6 +6054,10 @@ def main():
           + json.dumps(other_launches))
     for kid, n in other_launches.items():
         cond_launches[kid] = cond_launches.get(kid, 0) + n
+    FLAGSHIP.clear()
+    FLAGSHIP.update(full_depth)
+    with phase("export"):
+        phase_export(torch.Generator().manual_seed(20), smi)
 
     lines = []
     with phase("kernels at their main paths' inputs"):

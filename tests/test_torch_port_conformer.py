@@ -377,7 +377,7 @@ def _attention_grads(attn, k_len, generator=None):
 
 def test_kernel_path_in_train_mode_gives_the_masked_paths_gradients(
         monkeypatch):
-    # the kernel path's gradient comes from FlashRelposAttention's backward
+    # the kernel path's gradient comes from the tts_port::relpos_fwd op's backward
     # (K5's plain version here, the kernels on the card), not from autograd
     # through the forward: every decoder self-attention parameter gets the
     # masked path's gradient
@@ -573,9 +573,10 @@ def test_cli_synthesizes_conformer_on_cpu(tmp_path, monkeypatch):
     (load_dir / "hparams.py").write_text(
         "".join(f"{k} = {v!r}\n" for k, v in cfg.items()))
     model = build_fastspeech2(HParams(**cfg), device="cpu")
-    with torch.no_grad():       # ~3 frames per phone
-        model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(
-            np.log(4.0))
+    with torch.no_grad():       # 3 frames per phone
+        head = model.variance_adaptor.duration_predictor.linear_layer
+        head.weight.zero_()
+        head.bias.fill_(np.log(4.0))
     save_checkpoint(model, str(load_dir))
     script = tmp_path / "test.txt"
     script.write_text("a.npy|3 5 7 9\nb.npy|1 2 3 4 5 6 7 8 9 10\n")

@@ -5,7 +5,7 @@ On a CPU tensor the wrappers take the kernels' plain versions, so these
 tests hold ``flash_attention_with_bias`` against the JAX package's
 ``flash_attention_with_bias(..., interpret=True)`` on the same numpy
 inputs: O at 2e-5 and the q, k, v and bias gradients (through
-``FlashAttentionBias``, whose CPU backward is the plain K6 backward, not
+the ``tts_port::flash_fwd`` op's autograd, whose CPU backward is the plain K6 backward, not
 autograd) against ``jax.grad`` of the interpret-mode kernel at 1e-4, the
 tolerances tests/test_flash_attention.py holds JAX's own kernel to, at
 dropout 0 and 0.1 (the hash bit for bit ``_keep_mask``). The conformer's
@@ -46,7 +46,7 @@ def _data(t_q, t_k, k_len, b=2, h=2, d=32, seed=0):
 
 
 def _port(inputs, kl, g, rate=0.0, seed=0):
-    """o and the four gradients of sum(o * g) through FlashAttentionBias."""
+    """o and the four gradients of sum(o * g) through the tts_port::flash_fwd op."""
     xs = [torch.tensor(x, requires_grad=True) for x in inputs]
     o, _ = fa.flash_attention_with_bias(*xs, torch.as_tensor(kl),
                                         dropout_rate=rate, dropout_seed=seed)
@@ -115,19 +115,30 @@ def test_cpu_backward_is_the_plain_k6_backward(monkeypatch):
     calls = []
     real = fa.flash_attention_bwd_reference
 
-    def recording(*args, **kw):
-        calls.append(kw.get("bias", args[11] if len(args) > 11 else None))
-        return real(*args, **kw)
+    def recording(name):
+        plain = getattr(fa, name)
 
-    monkeypatch.setattr(fa, "flash_attention_bwd_reference", recording)
+        def record(*args, **kw):
+            calls.append((name, kw.get("bias", args[11] if len(args) > 11
+                                        else None)))
+            return plain(*args, **kw)
+        return record
+
+    # the op's CPU backward: the plain dq (and dbias) and dk/dv, from delta
+    for name in ("flash_attention_dq_reference",
+                 "flash_attention_dkdv_reference"):
+        monkeypatch.setattr(fa, name, recording(name))
     inputs, kl, g = _data(20, 28, [28, 5], d=8, seed=5)
     xs = [torch.tensor(x, requires_grad=True) for x in inputs]
     o, lse = fa.flash_attention_with_bias(*xs, torch.as_tensor(kl),
                                           dropout_rate=0.1, dropout_seed=3)
-    assert type(o.grad_fn).__name__ == "FlashAttentionBiasBackward"
+    # the gradient comes from the tts_port::flash_fwd op's autograd
+    assert "tts_port_flash_fwd" in type(o.grad_fn).__name__
     assert not lse.requires_grad
     grads = torch.autograd.grad((o * torch.as_tensor(g)).sum(), xs)
-    assert len(calls) == 1 and calls[0] is not None
+    assert [name for name, _ in calls] == [
+        "flash_attention_dq_reference", "flash_attention_dkdv_reference"]
+    assert all(bias is not None for _, bias in calls)
     with torch.no_grad():
         o2, lse2 = fa.flash_attention_with_bias(*xs, torch.as_tensor(kl),
                                                 dropout_rate=0.1,

@@ -5,7 +5,8 @@ On a CPU tensor the wrappers take the kernels' plain versions, so these
 tests hold those plain versions against the JAX package's Pallas kernels
 in interpret mode: the dropout hash bit for bit against ``_keep_mask``, the
 dropout forward against ``flash_attention(interpret=True)`` at 1e-5, and
-the ``FlashAttention`` gradients against ``jax.grad`` of the interpret-mode
+the ``flash_attention`` gradients (the ``tts_port::flash_fwd`` op's
+autograd) against ``jax.grad`` of the interpret-mode
 kernel at 1e-4 (the tolerance of tests/test_flash_attention.py). The CUDA
 kernels are held against the same plain versions on the card by
 chip_smoke.py.

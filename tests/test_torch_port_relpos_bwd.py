@@ -3,7 +3,7 @@ the CPU.
 
 On a CPU tensor the wrappers take the kernels' plain versions, so these
 tests hold those plain versions against the JAX package: all five
-gradients of ``FlashRelposAttention`` (whose CPU backward is the plain
+gradients of the ``tts_port::relpos_fwd`` op (whose CPU backward is the plain
 K5, not autograd through the plain forward) against ``jax.grad`` of the
 interpret-mode Pallas kernel and of ``reference_relpos_attention`` at the
 block configurations of tests/test_flash_relpos.py (the two-kernel and the
@@ -45,7 +45,7 @@ def _data(t, b=2, h=2, d=8, seed=0, k_len=None):
 
 
 def _port_grads(inputs, kl, g, rate=0.0, seed=0):
-    """o and the five gradients of sum(o * g) through FlashRelposAttention
+    """o and the five gradients of sum(o * g) through the tts_port::relpos_fwd op
     on the CPU."""
     xs = [torch.tensor(x, requires_grad=True) for x in inputs]
     o, _ = fr.flash_relpos_attention(*xs, torch.as_tensor(kl),

@@ -115,16 +115,6 @@ def test_engine_refuses_as_jax_or_by_later_slice(case, tmp_path):
         TTSEngine(load_dir, device="cpu", **kw)
 
 
-def test_export_comes_with_a_later_slice(tmp_path):
-    _, port_dir, _ = engine_pair("transformer", tmp_path)
-    engine = TTSEngine(port_dir, **ENGINE, device="cpu")
-    with pytest.raises(NotImplementedError, match="serving export"):
-        engine.export(str(tmp_path / "exported"))
-    with pytest.raises(NotImplementedError, match="serving export"):
-        serve_cli.main(["--load_name", port_dir, "--export",
-                        str(tmp_path / "exported"), "--device", "cpu"])
-
-
 def test_the_card_is_the_default_device(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, port_dir, _ = engine_pair("transformer", tmp_path)

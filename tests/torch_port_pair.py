@@ -264,3 +264,57 @@ def write_tiny_vocoder(root, mel_dim=SMALL["mel_dim"]):
     os.makedirs(root, exist_ok=True)
     torch.save(gen.state_dict(), os.path.join(root, GENERATOR_NAME))
     return str(root)
+
+
+# ---- serving export (tests/test_torch_port_export*.py) ----------------------
+
+EXPORT_ENGINE = dict(ENGINE, text_buckets=(8,))
+XVECTOR_ENGINE = dict(is_multi_speaker=True, spk_emb_type="x_vector",
+                      spk_emb_dim=512,
+                      spk_emb_architecture="encoder,middle,decoder",
+                      use_hop=True)
+
+
+def export_engine(family, root, port_dir=None, **kw):
+    """A port ``TTSEngine`` at ``EXPORT_ENGINE`` (one bucket, 8) on the CPU
+    of ``family``: an ``engine_pair`` family, "xvector" (x-vectors and hop
+    sizes) or "int8" (the transformer with int8 weights); ``port_dir`` a
+    checkpoint of it written already."""
+    import os
+
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+
+    extra = {}
+    if port_dir is None and family == "xvector":
+        os.makedirs(root, exist_ok=True)
+        _, _, variables, model = build_pair(**XVECTOR_ENGINE,
+                                            **ENGINE_BUCKETS)
+        _, port_dir = write_engine_checkpoints(
+            root, dict(SMALL, **XVECTOR_ENGINE, **ENGINE_BUCKETS), variables,
+            model, stats_seed=3)
+    elif port_dir is None:
+        _, port_dir, extra = engine_pair(
+            "transformer" if family == "int8" else family, root)
+    if family == "int8":
+        kw["quantize"] = "int8"
+    return TTSEngine(port_dir, device="cpu", **dict(EXPORT_ENGINE, **kw),
+                     **extra)
+
+
+def export_inputs(engine, bucket, texts=None):
+    """``engine``'s padded inputs of ``texts`` (the first two
+    ``ENGINE_TEXTS`` by default) at ``bucket``, with a speaker array for
+    an x-vector model."""
+    texts = ENGINE_TEXTS[:2] if texts is None else texts
+    inputs = engine._padded(texts, engine.batch_size, bucket)
+    if not engine.is_xvector:
+        return inputs
+    voice = np.linspace(-1, 1, engine.spk_emb_dim, dtype=np.float32)
+    return (*inputs, engine._speakers(range(len(texts)),
+                                      [voice] * len(texts),
+                                      engine.batch_size))
+
+
+def load_artifact(out_dir, entry):
+    import os
+    return torch.export.load(os.path.join(out_dir, entry["file"])).module()

@@ -13,14 +13,17 @@ micro-batching HTTP server.
 /metrics`` (infer/server.py) until SIGINT, which stops it with exit code
 0. ``--port 0`` binds a free port; the "serving on" line names the port
 bound. ``--quantize int8`` prints the quantization's stats line.
-``--export`` (``torch.export`` artifacts) and ``--post_model`` come with
-later slices and raise. It runs on the CUDA device unless ``--device
+``--export DIR`` writes the engine's ``torch.export`` artifacts and
+``manifest.json`` into ``DIR`` (``TTSEngine.export``), prints the
+manifest and exits, as the JAX CLI does. ``--post_model`` comes with a
+later slice and raises. It runs on the CUDA device unless ``--device
 cpu`` is given, and raises when that device is missing.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -41,7 +44,9 @@ def main(argv=None):
                         help="admission bound; past it requests get 503 "
                              "instead of unbounded queueing")
     parser.add_argument("--export", type=str, default=None,
-                        help="torch.export artifacts (a later slice)")
+                        help="write torch.export artifacts and "
+                             "manifest.json into this directory, then "
+                             "exit")
     parser.add_argument("--vocoder", type=str, default=None,
                         help="generator export or vocoder_<k> dir of "
                              "cli.train_vocoder; wav responses use it "
@@ -59,12 +64,7 @@ def main(argv=None):
 
     from transformer_tts_tpu_torch.infer.engine import TTSEngine
     from transformer_tts_tpu_torch.infer.server import TTSServer
-    from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
 
-    if args.export:
-        later_slice("--export (torch.export artifacts; the kernels must "
-                    "first be registered as torch.library custom ops)",
-                    "serving export")
     buckets = None
     if args.buckets:
         buckets = tuple(int(b) for b in args.buckets.split(","))
@@ -81,6 +81,10 @@ def main(argv=None):
               f"against {s['bytes_fp'] / 1e6:.1f} MB); served as q * s "
               "in the fp32 parameters, so the card holds as many weight "
               "bytes as without --quantize", flush=True)
+
+    if args.export:
+        print(json.dumps(engine.export(args.export), indent=2))
+        return
 
     print("warming up (every batch and bucket shape once)...", flush=True)
     for b, s in engine.warmup().items():

@@ -32,7 +32,11 @@ model is served at hop-size class 0 (JAX's engine passes no hop size). Refused a
 refuses them: the Tacotron 2 decoder, a bare mel-to-mel snapshot, GST
 without ``ref_mel``; SQ-VAE hparams, as the port's synthesis CLI refuses
 them (JAX's engine cannot restore them either). Through ``later_slice``:
-``post_model=`` and text-mel-mel snapshots, and ``export()``.
+``post_model=`` and text-mel-mel snapshots.
+
+``export(out_dir)`` writes ``torch.export`` artifacts, one per text
+bucket and one per vocoder mel budget, and a ``manifest.json`` (see
+``TTSEngine.export``).
 
 One card, many threads: the HTTP server runs batch requests and streams on
 its handler threads beside the micro-batcher's. The graph replays, the
@@ -52,6 +56,7 @@ raises when there is none).
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -59,6 +64,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from transformer_tts_tpu_torch.compat.from_jax import flax_layouts
 from transformer_tts_tpu_torch.config import (
@@ -255,22 +261,15 @@ class TTSEngine:
         or None for the AR model) of one padded batch; ``lock`` held."""
         max_frames = self.max_frames_for(text.shape[1])
         if self.is_ar:
-            mel, mel_len = synthesize_transformer_tts(
-                self.model, text, pos_text, self._mean, self._var,
-                spk_emb=spk_emb, ref_mel=self._ref_mel,
-                max_steps=max_frames // (self.hp.reduction_rate or 1))
+            mel, mel_len = _ar_synthesis(self.model, text, pos_text,
+                                         spk_emb, max_frames, self._mean,
+                                         self._var, self._ref_mel)
             return mel, mel_len, None
         return self._fastspeech2(text, pos_text, max_frames, spk_emb)
 
     def _fastspeech2(self, text, pos_text, max_frames: int, spk_emb):
-        """``synthesize_fastspeech2``; a ``use_hop`` model gets hop-size
-        class 0 (the data layer's class of a mel named neither hop256 nor
-        hop160: JAX's engine passes none and cannot serve such a model)."""
-        hop = (torch.zeros(text.shape[0], dtype=torch.long,
-                           device=self.device) if self.hp.use_hop else None)
-        return synthesize_fastspeech2(self.model, text, pos_text,
-                                      max_frames, self._mean, self._var,
-                                      spk_emb=spk_emb, hop_size=hop)
+        return _fastspeech2_synthesis(self.model, text, pos_text, spk_emb,
+                                      max_frames, self._mean, self._var)
 
     def synthesize(self, texts: List[Sequence[int]],
                    speakers: Optional[Sequence] = None) -> List[dict]:
@@ -388,7 +387,130 @@ class TTSEngine:
         yield {"type": "end", "mel_frames": n,
                "durations": np.zeros((0,), np.int32)}
 
+    # ---------------- export ----------------
+
     def export(self, out_dir: str) -> dict:
-        later_slice("TTSEngine.export (torch.export artifacts; the kernels "
-                    "must first be registered as torch.library custom ops)",
-                    "serving export")
+        """Serialize one ``torch.export`` artifact per text bucket, and with
+        a vocoder one per mel budget; returns the manifest (also written as
+        ``manifest.json``), with the JAX engine's keys.
+
+        ``{stem}_b{B}_l{bucket}.pt2`` (stem ``fastspeech2`` or
+        ``transformer_tts``) takes ``(text, pos_text)`` (B, bucket) int64
+        and, for a multi-speaker model, ``spk`` ((B,) int64 ids or (B,
+        spk_emb_dim) float32 x-vectors), and returns ``_run_padded``'s
+        outputs: (mel, mel_len, durations), the AR model's (mel, mel_len).
+        The weights are baked in (an int8 engine's dequantized ones, as it
+        serves them), so are the corpus statistics and a GST engine's
+        ``ref_mel``. The AR artifact holds the whole decode as one
+        ``torch.while_loop`` (``infer.synthesize.ar_decode_loop``), which
+        stops where JAX's does. ``vocoder_b{B}_f{budget}.pt2`` maps a (B,
+        budget, mel_dim) float32 mel to its (B, budget * hop) waveform; the
+        engine vocodes with TF32 off (``vocode_pinned``), a global switch
+        that an artifact cannot hold, so the manifest's
+        ``vocoder.allow_tf32`` (false) says how to call it.
+
+        A loader needs ``torch.export.load(path).module()`` after
+        importing ``transformer_tts_tpu_torch.ops.flash_attention`` and
+        ``transformer_tts_tpu_torch.ops.flash_relpos``, which register the
+        kernels' ``tts_port`` ops. ``platforms`` names the device the
+        artifact was exported on and runs on.
+        """
+        os.makedirs(out_dir, exist_ok=True)
+        manifest = {"model": self.hp.model, "mel_dim": self.hp.mel_dim,
+                    "batch_size": self.batch_size, "buckets": {},
+                    "speaker_input": (
+                        None if not self.hp.is_multi_speaker else
+                        ("x_vector" if self.is_xvector else "speaker_id"))}
+        stem = "transformer_tts" if self.is_ar else "fastspeech2"
+        platforms = [self.device.type]
+        with self.lock:
+            for bucket in self.text_buckets:
+                max_frames = self.max_frames_for(bucket)
+                inputs = self._padded([], self.batch_size, bucket)
+                spk = self._speakers((), None, self.batch_size)
+                if spk is not None:
+                    inputs = (*inputs, spk)
+                name = f"{stem}_b{self.batch_size}_l{bucket}.pt2"
+                _save(SynthesisProgram(self, max_frames), inputs,
+                      os.path.join(out_dir, name))
+                manifest["buckets"][str(bucket)] = {
+                    "file": name, "max_frames": max_frames,
+                    "platforms": platforms}
+            if self._vocoder is not None:
+                budgets = sorted({self.max_frames_for(b)
+                                  for b in self.text_buckets})
+                manifest["vocoder"] = {
+                    "hop_length": self._vocoder.hop_length, "budgets": {},
+                    "allow_tf32": False}
+                for mf in budgets:
+                    name = f"vocoder_b{self.batch_size}_f{mf}.pt2"
+                    mel = torch.zeros(self.batch_size, mf, self.hp.mel_dim,
+                                      device=self.device)
+                    _save(VocoderProgram(self._vocoder), (mel,),
+                          os.path.join(out_dir, name))
+                    manifest["vocoder"]["budgets"][str(mf)] = {
+                        "file": name, "platforms": platforms}
+        with open(os.path.join(out_dir, "manifest.json"), "w") as fh:
+            json.dump(manifest, fh, indent=2)
+        return manifest
+
+
+def _fastspeech2_synthesis(model, text, pos_text, spk_emb, max_frames: int,
+                           mean, var):
+    """``synthesize_fastspeech2`` as the engine runs it: a ``use_hop``
+    model gets hop-size class 0 (the data layer's class of a mel named
+    neither hop256 nor hop160: JAX's engine passes none and cannot serve
+    such a model)."""
+    hop = (torch.zeros(text.shape[0], dtype=torch.long, device=text.device)
+           if model.hop_emb is not None else None)
+    return synthesize_fastspeech2(model, text, pos_text, max_frames, mean,
+                                  var, spk_emb=spk_emb, hop_size=hop)
+
+
+def _ar_synthesis(model, text, pos_text, spk_emb, max_frames: int, mean,
+                  var, ref_mel, loop: bool = False):
+    """``synthesize_transformer_tts`` as the engine runs it: ``max_frames``
+    // r decode steps; with ``loop`` as one ``torch.while_loop``."""
+    return synthesize_transformer_tts(
+        model, text, pos_text, mean, var, spk_emb=spk_emb, ref_mel=ref_mel,
+        max_steps=max_frames // model.reduction_rate, loop=loop)
+
+
+class SynthesisProgram(nn.Module):
+    """What one bucket's artifact runs: the engine's ``_run_padded`` at
+    ``max_frames``, its model, corpus statistics and style reference held
+    as this module's own, the AR decode as one ``torch.while_loop``."""
+
+    def __init__(self, engine: TTSEngine, max_frames: int):
+        super().__init__()
+        self.model = engine.model
+        self.is_ar = engine.is_ar
+        self.max_frames = max_frames
+        self.register_buffer("mean", engine._mean)
+        self.register_buffer("var", engine._var)
+        self.register_buffer("ref_mel", engine._ref_mel)
+
+    def forward(self, text, pos_text, spk=None):
+        if self.is_ar:
+            return _ar_synthesis(self.model, text, pos_text, spk,
+                                 self.max_frames, self.mean, self.var,
+                                 self.ref_mel, loop=True)
+        return _fastspeech2_synthesis(self.model, text, pos_text, spk,
+                                      self.max_frames, self.mean, self.var)
+
+
+class VocoderProgram(nn.Module):
+    """What a vocoder artifact runs: the generator on an fp32 mel."""
+
+    def __init__(self, vocoder: nn.Module):
+        super().__init__()
+        self.vocoder = vocoder
+
+    def forward(self, mel):
+        return self.vocoder(mel.float())
+
+
+def _save(program: nn.Module, inputs: tuple, path: str) -> None:
+    with torch.no_grad():
+        exported = torch.export.export(program.eval(), tuple(inputs))
+    torch.export.save(exported, path)

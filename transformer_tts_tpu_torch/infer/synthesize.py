@@ -262,6 +262,42 @@ def ar_decode(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
     return carry
 
 
+def _flat_carry(carry: Dict[str, object]) -> Tuple[torch.Tensor, ...]:
+    return (carry["step"], carry["prev"], carry["groups"], carry["done"],
+            carry["length"], *(x for kv in carry["caches"] for x in kv))
+
+
+def _carry_of(flat) -> Dict[str, object]:
+    step, prev, groups, done, length, *caches = flat
+    return dict(step=step, prev=prev, groups=groups, done=done,
+                length=length,
+                caches=tuple(zip(caches[0::2], caches[1::2])))
+
+
+def ar_decode_loop(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
+                   max_steps: int, stop_threshold: float,
+                   spk_biases=None) -> Dict[str, object]:
+    """The decode as one ``torch.while_loop``, the form ``torch.export``
+    captures (``infer/engine.TTSEngine.export``): it stops when every row
+    is done or at ``max_steps``, as the JAX package's ``while_loop`` does,
+    with no block of ``DONE_CHECK_EVERY`` steps past the last stop. Each
+    step is ``_ar_body`` on a copy of the loop's carry, so the step's
+    arithmetic is the eager loop's while the loop itself writes no tensor
+    it was given. Returns the final carry."""
+    body = _ar_body(model, e_outputs, src_mask, cross_kvs, stop_threshold,
+                    spk_biases)
+
+    def cond_fn(*flat):
+        carry = _carry_of(flat)
+        return (carry["step"] < max_steps) & ~carry["done"].all()
+
+    def body_fn(*flat):
+        return _flat_carry(body(_carry_of([x.clone() for x in flat])))
+
+    init = _ar_init(model, e_outputs.shape[0], max_steps, e_outputs.device)
+    return _carry_of(torch.while_loop(cond_fn, body_fn, _flat_carry(init)))
+
+
 class DecodeWeights:
     """bf16 copies of the weights and biases of every ``nn.Linear`` and
     ``nn.Conv1d`` that ``decode_step`` runs (the decoder, ``out``,
@@ -455,7 +491,7 @@ def synthesize_transformer_tts(
     *, spk_emb: Optional[torch.Tensor] = None,
     ref_mel: Optional[torch.Tensor] = None,
     max_steps: int = MAX_AR_STEPS, stop_threshold: float = 0.5,
-    eager: bool = False,
+    eager: bool = False, loop: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cached AR synthesis; returns (mel (B, max_steps*r, mel) fp32,
     lengths (B,) in frames). A GST model takes its style from ``ref_mel``
@@ -477,7 +513,9 @@ def synthesize_transformer_tts(
     first stop, the frames past it are zeroed, and the causal postnet (run
     once over all ``max_steps`` groups, as in JAX) lets no later frame
     reach an earlier one. Frames past a row's length are 0; with
-    ``mean``/``var`` the rest are de-normalized.
+    ``mean``/``var`` the rest are de-normalized. ``loop=True`` runs the
+    decode as one ``torch.while_loop`` instead (``ar_decode_loop``: JAX's
+    stop, no step past it), the form an exported artifact holds.
     """
     _ar_check(model)
     model.eval()
@@ -485,7 +523,8 @@ def synthesize_transformer_tts(
     src_mask = pad_mask(pos_text)
     e_outputs, _ = model.encode(text, src_mask, ref_mel, spk_emb)
     cross_kvs = model.precompute_cross_kv(e_outputs)
-    decode = (ar_decode if eager or text.device.type == "cpu"
+    decode = (ar_decode_loop if loop
+              else ar_decode if eager or text.device.type == "cpu"
               else ar_decode_graphed)
     carry = decode(model, e_outputs, src_mask, cross_kvs, max_steps,
                    stop_threshold, model.speaker_biases(spk_emb))

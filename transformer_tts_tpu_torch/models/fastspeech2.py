@@ -269,35 +269,62 @@ def _variance_stats(mean, std):
     return (float(mean), float(std))
 
 
+# flax's ``variance_scaling(..., "truncated_normal")`` draws from N(0, 1)
+# cut at +-2 and divides the target std by this, the std of that cut normal
+TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: std 1/sqrt(fan_in) after a normal cut at
+    +-2 of its own std, which is 1/sqrt(fan_in) / TRUNCATED_STD."""
+    std = 1.0 / math.sqrt(fan_in) / TRUNCATED_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+def orthogonal_gates_(w: torch.Tensor, gates: int,
+                      generator: torch.Generator) -> None:
+    """flax's ``orthogonal`` recurrent kernel of each gate: ``w``
+    (gates * H, H) in torch's layout, one random orthogonal (H, H) block
+    per gate (the transpose of flax's (in, out) kernel, orthogonal
+    alike)."""
+    for block in w.chunk(gates, dim=0):
+        nn.init.orthogonal_(block, generator=generator)
+
+
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: Linear/Conv weights and the GRU's
-    and LSTM's uniform in +-1/sqrt(fan_in) (torch's default range) with
-    zero biases, embeddings and
-    the SQ-VAE codebook N(0, 1), biases 0, norm scales and ``alpha`` 1,
-    the conformer's ``pos_bias_u/v`` and the GST tokens Xavier-uniform as
-    flax initialises them. BatchNorm running statistics stay (0, 1) and
+    """Random weights from ``generator``, drawn as flax's ``init`` draws
+    the JAX package's modules: Linear and Conv kernels LeCun truncated
+    normal (``lecun_normal_``, fan_in the inputs times the kernel's
+    taps), embeddings N(0, 1/d), the GRU's and LSTM's input kernels LeCun
+    truncated normal per gate and their hidden kernels orthogonal per
+    gate, every bias 0, norm scales and ``alpha`` 1, the conformer's
+    ``pos_bias_u/v`` and the GST tokens Xavier-uniform, the SQ-VAE
+    codebook N(0, 1). BatchNorm running statistics stay (0, 1) and
     ``log_var_q_scalar`` log 10.
     """
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
-                w = module.weight
-                bound = 1.0 / math.sqrt(w[0].numel())
-                w.copy_(torch.rand(w.shape, generator=generator) * 2 * bound
-                        - bound)
+                lecun_normal_(module.weight, module.weight[0].numel(),
+                              generator)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, (nn.GRU, UniLSTM)):
+                gates = 3 if isinstance(module, nn.GRU) else 4
                 for name, p in module.named_parameters():
                     if name.startswith("bias"):
                         p.zero_()
+                    elif name.startswith("weight_hh"):
+                        orthogonal_gates_(p, gates, generator)
                     else:
-                        bound = 1.0 / math.sqrt(p.shape[1])
-                        p.copy_(torch.rand(p.shape, generator=generator)
-                                * 2 * bound - bound)
+                        lecun_normal_(p, p.shape[1], generator)
             elif isinstance(module, nn.Embedding):
+                d = module.weight.shape[1]
                 module.weight.copy_(torch.randn(module.weight.shape,
-                                                generator=generator))
+                                                generator=generator)
+                                    / math.sqrt(d))
             elif isinstance(module, (nn.LayerNorm,
                                      nn.modules.batchnorm._BatchNorm)):
                 module.weight.fill_(1.0)

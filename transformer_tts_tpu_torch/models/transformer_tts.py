@@ -136,8 +136,11 @@ class TransformerTTS(nn.Module):
     def _autocast(self, x: torch.Tensor) -> AbstractContextManager:
         """bf16 autocast when ``amp``. While a CUDA graph is being captured
         (the decode loop's), autocast keeps no cache of cast weights: a
-        cast made in the capture must be replayed, not reused."""
-        capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+        cast made in the capture must be replayed, not reused. Under
+        tracing (``torch.export``'s ``while_loop`` decode) no capture runs,
+        and the query would not trace."""
+        capturing = (x.is_cuda and not torch.compiler.is_compiling()
+                     and torch.cuda.is_current_stream_capturing())
         return torch.autocast(x.device.type, dtype=torch.bfloat16,
                               enabled=self.amp, cache_enabled=not capturing)
 

@@ -77,9 +77,16 @@ fp32, other head dims and a bias whose T_k is not a multiple of 8 stay on
 the simple design, which also stays reachable for the same-run A/B
 (``design="simple"``).
 
-``flash_attention`` is differentiable in q, k and v through
-``FlashAttention``, ``flash_attention_with_bias`` in q, k, v and the bias
-through ``FlashAttentionBias``. On a CPU tensor every wrapper computes the
+Every kernel is reached through a ``torch.library`` custom op of the
+``tts_port`` namespace: ``tts_port::flash_fwd`` (K1/K1-d, K3-f/K3-d,
+K6/K6-d, both designs) and ``tts_port::flash_bwd`` (from delta, the
+backward of ``select_design``'s choice, the simple pair, or one kernel:
+the simple dq, the simple dk/dv or the fused Hopper one). Each has a fake implementation (shapes and dtypes only), so ``torch.export``
+traces through it; its CPU implementation is the plain version and its
+CUDA one the launch, which picks the design and checks alignment where the
+tensors are real. ``flash_attention`` is differentiable in q, k and v,
+``flash_attention_with_bias`` in q, k, v and the bias, through the forward
+op's registered autograd. On a CPU tensor every wrapper computes the
 plain version; on a CUDA tensor it launches its kernel or raises. The
 launch counts are ``flash_attention.launches`` (K1), ``.dropout_launches``
 (K1-d), ``.sm90_launches`` and ``.sm90_dropout_launches`` (the Hopper
@@ -397,16 +404,6 @@ def check_bias(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("bias must be contiguous")
 
 
-def _on_card(q: torch.Tensor, name: str) -> bool:
-    """False for a CPU tensor (the plain version runs); True for a CUDA
-    one (the kernel runs); raises for any other device."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
-    return True
-
-
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
@@ -441,16 +438,14 @@ def _design(q, k, v, bias, extra=()) -> str:
                          rows and _aligned(*held))
 
 
-def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
-             bias=None, design=None):
-    """(o, lse): K1 (rate 0) or K1-d, with ``causal`` K3-f or K3-d, with
-    ``bias`` K6 or K6-d, on the card; the plain version on the CPU. The
-    design is ``select_design``'s; ``design="simple"`` forces the simple
-    kernel in the Hopper design's mode (the same-run A/B's baseline)."""
-    if not _on_card(q, "flash_attention"):
-        return flash_attention_fwd_reference(q, k, v, k_len, sm_scale,
-                                             dropout_rate, dropout_seed,
-                                             causal, bias)
+# ---- the kernel launches (CUDA tensors; called from the ops below) ------
+
+def _forward_cuda(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed,
+                  causal, design):
+    """(o, lse) of K1 (rate 0) or K1-d, with ``causal`` K3-f or K3-d, with
+    ``bias`` K6 or K6-d, launched on the card. The design is
+    ``select_design``'s; ``design="simple"`` forces the simple kernel in the
+    Hopper design's mode (the same-run A/B's baseline)."""
     _check_cuda_inputs(q, k, v, k_len)
     if bias is not None:
         check_bias(q, k, bias)
@@ -507,17 +502,9 @@ def _count_bwd(wrapper, bias, causal):
     setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                           dropout_rate=0.0, dropout_seed=0, causal=False,
-                           bias=None):
-    """dq from the forward's lse and ``delta``: K2's dq kernel (K3's with
-    ``causal``) on the card, its plain version on the CPU. With ``bias``
-    K6's: (dq, dbias), dbias like the bias, written whole by the kernel
-    (zeros past ``k_len`` included), so it is allocated uninitialised."""
-    if not _on_card(q, "flash_attention_bwd_dq"):
-        return flash_attention_dq_reference(q, k, v, do, lse, delta, k_len,
-                                            sm_scale, dropout_rate,
-                                            dropout_seed, causal, bias)
+def _bwd_dq_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
+                 dropout_rate, dropout_seed, causal):
+    """[dq] (with ``bias`` [dq, dbias]) of the simple dq kernel."""
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
     dq = torch.empty_like(q)
     dbias = None
@@ -528,19 +515,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, *, sm_scale,
                 k_len, (dq, dbias), sm_scale, dropout_rate, dropout_seed,
                 causal)
     _count_bwd(flash_attention_bwd_dq, bias, causal)
-    return dq if bias is None else (dq, dbias)
+    return [dq] if bias is None else [dq, dbias]
 
 
-def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                             dropout_rate=0.0, dropout_seed=0, causal=False,
-                             bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) from the forward's lse and ``delta``: K2's dk/dv kernel
-    (K3's with ``causal``, K6's with ``bias``) on the card, its plain
-    version on the CPU."""
-    if not _on_card(q, "flash_attention_bwd_dkdv"):
-        return flash_attention_dkdv_reference(q, k, v, do, lse, delta, k_len,
-                                              sm_scale, dropout_rate,
-                                              dropout_seed, causal, bias)
+def _bwd_dkdv_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
+                   dropout_rate, dropout_seed, causal):
+    """[dk, dv] of the simple dk/dv kernel."""
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
     if bias is not None:
         check_bias(q, k, bias)
@@ -548,34 +528,13 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, *, sm_scale,
     _bwd_launch("flash_attention_bwd_dkdv", q, k, v, bias, do, lse, delta,
                 k_len, (dk, dv), sm_scale, dropout_rate, dropout_seed, causal)
     _count_bwd(flash_attention_bwd_dkdv, bias, causal)
-    return dk, dv
+    return [dk, dv]
 
 
-for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
-    _wrapper.launches = 0           # K2
-    _wrapper.causal_launches = 0    # K3
-    _wrapper.bias_launches = 0      # K6
-
-
-def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
-                             dropout_rate=0.0, dropout_seed=0, causal=False,
-                             bias=None) -> Tuple[torch.Tensor, ...]:
-    """(dq, dk, dv) from the forward's lse and ``delta``: the Hopper
-    design's fused K2 (with ``causal`` K3's backward; csrc/flash_bwd_sm90.cu,
-    bf16) on the card, the plain dq and dk/dv on the CPU. With ``bias``
-    K6's: (dq, dk, dv, dbias), dbias like the bias and written whole by
-    the kernel (zeros past ``k_len`` included), so it is allocated
-    uninitialised. dq is summed in an fp32 accumulator zeroed here, with
-    atomics in the kernel, then cast to q's dtype: unlike dk, dv and dbias
-    it varies from run to run in its last bits."""
-    if not _on_card(q, "flash_attention_bwd_sm90"):
-        dq = flash_attention_dq_reference(q, k, v, do, lse, delta, k_len,
-                                          sm_scale, dropout_rate,
-                                          dropout_seed, causal, bias)
-        dk, dv = flash_attention_dkdv_reference(
-            q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
-            dropout_seed, causal, bias)
-        return (dq, dk, dv) if bias is None else (dq[0], dk, dv, dq[1])
+def _bwd_sm90_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
+                   dropout_rate, dropout_seed, causal):
+    """[dq, dk, dv] (with ``bias`` and dbias) of the Hopper design's fused
+    backward; raises for inputs that design does not take."""
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
     if bias is not None:
         check_bias(q, k, bias)
@@ -601,8 +560,190 @@ def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
             stream)
     _raise_on(err, SM90_BWD_KERNEL)
     _count_bwd(flash_attention_bwd_sm90, bias, causal)
-    grads = (dq_acc.to(q.dtype), dk, dv)
-    return grads if bias is None else (*grads, dbias)
+    grads = [dq_acc.to(q.dtype), dk, dv]
+    return grads if bias is None else [*grads, dbias]
+
+
+_BWD_KERNELS = {"dq": _bwd_dq_cuda, "dkdv": _bwd_dkdv_cuda,
+                "sm90": _bwd_sm90_cuda}
+
+
+def _bwd_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
+              dropout_seed, causal, kernel):
+    """The backward kernels from delta: with ``kernel="auto"`` those of
+    ``select_design``'s choice, with "simple" the simple pair ([dq, dk, dv]
+    and with ``bias`` dbias, in both cases); "dq", "dkdv" or "sm90" the one
+    kernel of that name."""
+    args = (q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
+            dropout_seed, causal)
+    if kernel == "auto":
+        kernel = ("sm90" if _design(q, k, v, bias, (do,)) == "sm90"
+                  else "simple")
+    if kernel != "simple":
+        return _BWD_KERNELS[kernel](*args)
+    dq = _bwd_dq_cuda(*args)
+    dk, dv = _bwd_dkdv_cuda(*args)
+    return [dq[0], dk, dv, *dq[1:]]
+
+
+# ---- the custom ops ---------------------------------------------------------
+#
+# Every kernel of this file is reached through one of two ops of the
+# ``tts_port`` namespace, so that autograd, torch.export and opcheck see
+# one operator each: a fake implementation (shapes and dtypes only), a CPU
+# implementation (the plain version) and a CUDA one (the launch; no path to
+# the plain version). Design choice and alignment checks read data
+# pointers, so they sit inside the CUDA implementations.
+
+def _plain(tensors):
+    return [t.contiguous() for t in tensors]
+
+
+def _fwd_cpu(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed,
+             causal, design):
+    return tuple(_plain(flash_attention_fwd_reference(
+        q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal, bias)))
+
+
+_flash_fwd_op = torch.library.custom_op(
+    "tts_port::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor k_len, Tensor? bias, "
+           "float sm_scale, float dropout_rate, int dropout_seed, "
+           "bool causal, str design) -> (Tensor, Tensor)")(_fwd_cpu)
+_flash_fwd_op.register_kernel("cuda")(_forward_cuda)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed, causal,
+      design):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed, causal, _ = \
+        inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, bias, o, lse, k_len)
+    ctx.args = (sm_scale, dropout_rate, dropout_seed, causal)
+    ctx.mark_non_differentiable(lse)
+
+
+def _fwd_backward(ctx, do, _dlse):
+    """Gradients for q, k, v (and the bias) from the backward op,
+    recomputing P and the keep mask; none for k_len, the scale, the rate,
+    the seed or the causal flag, and none through lse."""
+    q, k, v, bias, o, lse, k_len = ctx.saved_tensors
+    sm_scale, dropout_rate, dropout_seed, causal = ctx.args
+    grads = flash_attention_bwd(
+        q, k, v, o, lse, do.to(q.dtype).contiguous(), k_len,
+        sm_scale=sm_scale, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed, causal=causal, bias=bias)
+    dbias = grads[3] if bias is not None else None
+    return (*grads[:3], None, dbias, None, None, None, None, None)
+
+
+_flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+def _bwd_cpu(q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
+             dropout_seed, causal, kernel):
+    args = (q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
+            dropout_seed, causal, bias)
+    dq = dkdv = ()
+    if kernel != "dkdv":
+        dq = flash_attention_dq_reference(*args)
+        dq = (dq,) if bias is None else dq
+    if kernel != "dq":
+        dkdv = flash_attention_dkdv_reference(*args)
+    return _plain((*dq[:1], *dkdv, *dq[1:]))
+
+
+_flash_bwd_op = torch.library.custom_op(
+    "tts_port::flash_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+           "Tensor delta, Tensor k_len, Tensor? bias, float sm_scale, "
+           "float dropout_rate, int dropout_seed, bool causal, "
+           "str kernel) -> Tensor[]")(_bwd_cpu)
+_flash_bwd_op.register_kernel("cuda")(_bwd_cuda)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
+      dropout_seed, causal, kernel):
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    dbias = [] if bias is None else [torch.empty_like(bias)]
+    if kernel == "dq":
+        return grads[:1] + dbias
+    if kernel == "dkdv":
+        return grads[1:]
+    return grads + dbias
+
+
+# ---- the public wrappers ----------------------------------------------------
+
+def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
+             bias=None, design=None):
+    """(o, lse) through ``tts_port::flash_fwd``: K1 (rate 0) or K1-d, with
+    ``causal`` K3-f or K3-d, with ``bias`` K6 or K6-d, on the card; the
+    plain version on the CPU. ``design="simple"`` forces the simple kernel
+    in the Hopper design's mode (the same-run A/B's baseline)."""
+    return _flash_fwd_op(q, k, v, k_len, bias, float(sm_scale),
+                         float(dropout_rate), int(dropout_seed),
+                         bool(causal), design or "auto")
+
+
+def _bwd_kernel(kernel, q, k, v, do, lse, delta, k_len, sm_scale,
+                dropout_rate, dropout_seed, causal, bias):
+    """The gradients of ``tts_port::flash_bwd`` with ``kernel``."""
+    return _flash_bwd_op(q, k, v, do, lse, delta, k_len, bias,
+                         float(sm_scale), float(dropout_rate),
+                         int(dropout_seed), bool(causal), kernel)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, *, sm_scale,
+                           dropout_rate=0.0, dropout_seed=0, causal=False,
+                           bias=None):
+    """dq from the forward's lse and ``delta``: K2's dq kernel (K3's with
+    ``causal``) on the card, its plain version on the CPU. With ``bias``
+    K6's: (dq, dbias), dbias like the bias, written whole by the kernel
+    (zeros past ``k_len`` included), so it is allocated uninitialised."""
+    out = _bwd_kernel("dq", q, k, v, do, lse, delta, k_len, sm_scale,
+                      dropout_rate, dropout_seed, causal, bias)
+    return out[0] if bias is None else tuple(out)
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, *, sm_scale,
+                             dropout_rate=0.0, dropout_seed=0, causal=False,
+                             bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) from the forward's lse and ``delta``: K2's dk/dv kernel
+    (K3's with ``causal``, K6's with ``bias``) on the card, its plain
+    version on the CPU."""
+    return tuple(_bwd_kernel("dkdv", q, k, v, do, lse, delta, k_len,
+                             sm_scale, dropout_rate, dropout_seed, causal,
+                             bias))
+
+
+for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
+    _wrapper.launches = 0           # K2
+    _wrapper.causal_launches = 0    # K3
+    _wrapper.bias_launches = 0      # K6
+
+
+def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
+                             dropout_rate=0.0, dropout_seed=0, causal=False,
+                             bias=None) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) from the forward's lse and ``delta``: the Hopper
+    design's fused K2 (with ``causal`` K3's backward; csrc/flash_bwd_sm90.cu,
+    bf16) on the card, the plain dq and dk/dv on the CPU. With ``bias``
+    K6's: (dq, dk, dv, dbias), dbias like the bias and written whole by
+    the kernel (zeros past ``k_len`` included), so it is allocated
+    uninitialised. dq is summed in an fp32 accumulator zeroed in the op,
+    with atomics in the kernel, then cast to q's dtype: unlike dk, dv and
+    dbias it varies from run to run in its last bits."""
+    return tuple(_bwd_kernel("sm90", q, k, v, do, lse, delta, k_len,
+                             sm_scale, dropout_rate, dropout_seed, causal,
+                             bias))
 
 
 flash_attention_bwd_sm90.launches = 0           # K2, the Hopper design
@@ -617,59 +758,16 @@ def flash_attention_bwd(
     causal: bool = False, bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``:
-    delta, then on the card the kernels of ``select_design``'s choice --
-    the Hopper design's fused K2, K3 or K6 (``flash_attention_bwd_sm90``)
-    or the simple pair, K2's (with ``causal`` K3's, with ``bias`` K6's) dq
+    delta, then ``tts_port::flash_bwd`` -- on the card the kernels of
+    ``select_design``'s choice, the Hopper design's fused K2, K3 or K6 or
+    the simple pair, K2's (with ``causal`` K3's, with ``bias`` K6's) dq
     and dk/dv kernels; the plain version on the CPU. With ``bias``, K6's:
     (dq, dk, dv, dbias)."""
-    if not _on_card(q, "flash_attention_bwd"):
-        return flash_attention_bwd_reference(q, k, v, o, lse, do, k_len,
-                                             sm_scale, dropout_rate,
-                                             dropout_seed, causal, bias)
     if o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o must match q: {tuple(o.shape)} {o.dtype}")
-    delta = bwd_delta(o, do)
-    if _design(q, k, v, bias, (do,)) == "sm90":
-        return flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len,
-                                        sm_scale=sm_scale,
-                                        dropout_rate=dropout_rate,
-                                        dropout_seed=dropout_seed,
-                                        causal=causal, bias=bias)
-    kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed, causal=causal, bias=bias)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, **kw)
-    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, **kw)
-    if bias is None:
-        return dq, dk, dv
-    dq, dbias = dq
-    return dq, dk, dv, dbias
-
-
-class FlashAttention(torch.autograd.Function):
-    """(o, lse) with gradients for q, k and v from K2 or K3 (their plain
-    versions on the CPU), recomputing P and the keep mask; no gradient for
-    k_len, the scale, the rate, the seed or the causal flag, and none
-    through lse."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, k_len, sm_scale, dropout_rate, dropout_seed,
-                causal):
-        o, lse = _forward(q, k, v, k_len, sm_scale, dropout_rate,
-                          dropout_seed, causal)
-        ctx.save_for_backward(q, k, v, o, lse, k_len)
-        ctx.args = (sm_scale, dropout_rate, dropout_seed, causal)
-        ctx.mark_non_differentiable(lse)
-        return o, lse
-
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, o, lse, k_len = ctx.saved_tensors
-        sm_scale, dropout_rate, dropout_seed, causal = ctx.args
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, lse, do.to(q.dtype).contiguous(), k_len,
-            sm_scale=sm_scale, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, causal=causal)
-        return dq, dk, dv, None, None, None, None, None
+    return tuple(_bwd_kernel("auto", q, k, v, do, lse, bwd_delta(o, do),
+                             k_len, sm_scale, dropout_rate, dropout_seed,
+                             causal, bias))
 
 
 def flash_attention(
@@ -684,13 +782,13 @@ def flash_attention(
     ``sm_scale`` defaults to 1/sqrt(d). ``dropout_rate`` > 0 drops
     attention probabilities with the hash seeded by ``dropout_seed`` (an
     int32; the backward rebuilds the same mask). ``o`` has q's dtype and
-    carries gradients to q, k and v; ``lse`` (B, H, T_q) is fp32.
+    carries gradients to q, k and v (the backward op); ``lse`` (B, H, T_q)
+    is fp32 and carries none.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return FlashAttention.apply(q, k, v, k_len, float(sm_scale),
-                                float(dropout_rate), int(dropout_seed),
-                                bool(causal))
+    return _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed,
+                    causal)
 
 
 flash_attention.launches = 0                    # K1
@@ -703,33 +801,6 @@ flash_attention.sm90_causal_launches = 0        # K3-f, the Hopper design
 flash_attention.sm90_causal_dropout_launches = 0  # K3-d, the Hopper design
 
 
-class FlashAttentionBias(torch.autograd.Function):
-    """(o, lse) of K6/K6-d with gradients for q, k, v and the bias from
-    K6's backward (its plain backward, not autograd, on the CPU), as
-    ``_flash_b``'s VJP: dbias in the bias's dtype; none for k_len, the
-    scale, the rate or the seed, and none through lse."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, bias, k_len, sm_scale, dropout_rate,
-                dropout_seed):
-        o, lse = _forward(q, k, v, k_len, sm_scale, dropout_rate,
-                          dropout_seed, False, bias)
-        ctx.save_for_backward(q, k, v, bias, o, lse, k_len)
-        ctx.args = (sm_scale, dropout_rate, dropout_seed)
-        ctx.mark_non_differentiable(lse)
-        return o, lse
-
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, bias, o, lse, k_len = ctx.saved_tensors
-        sm_scale, dropout_rate, dropout_seed = ctx.args
-        dq, dk, dv, dbias = flash_attention_bwd(
-            q, k, v, o, lse, do.to(q.dtype).contiguous(), k_len,
-            sm_scale=sm_scale, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, bias=bias)
-        return dq, dk, dv, dbias, None, None, None, None
-
-
 def flash_attention_with_bias(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     k_len: torch.Tensor, *, sm_scale: Optional[float] = None,
@@ -737,7 +808,8 @@ def flash_attention_with_bias(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of softmax((q k^T + bias) * sm_scale, keys c < k_len[b]) v,
     differentiable in q, k, v and ``bias`` (the port of
-    ``flash_attention_with_bias``; non-causal).
+    ``flash_attention_with_bias``; non-causal), as ``_flash_b``'s VJP:
+    dbias in the bias's dtype.
 
     ``bias`` (B, H, T_q, T_k), contiguous, in q's dtype, is added in fp32
     before the scale (the relative-position term of the conformer's
@@ -748,8 +820,8 @@ def flash_attention_with_bias(
     check_bias(q, k, bias)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return FlashAttentionBias.apply(q, k, v, bias, k_len, float(sm_scale),
-                                    float(dropout_rate), int(dropout_seed))
+    return _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed,
+                    False, bias)
 
 
 flash_attention_with_bias.launches = 0          # K6

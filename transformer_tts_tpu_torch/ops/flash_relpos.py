@@ -57,8 +57,13 @@ picks it, as for K1/K2; nothing falls back from one to the other):
 fp32 stays on the simple design, which also stays reachable for the
 same-run A/B (``design="simple"``).
 
+The kernels are reached through two ``tts_port`` custom ops, as in
+ops/flash_attention.py: ``tts_port::relpos_fwd`` (K4/K4-d) and
+``tts_port::relpos_bwd`` (from delta, K5 of ``select_design``'s choice,
+the simple pair, or one K5 kernel).
 ``flash_relpos_attention`` is differentiable in q_u, q_v, k, v and p
-through ``FlashRelposAttention``. On a CPU tensor every wrapper computes
+through the forward op's registered autograd. On a CPU tensor every
+wrapper computes
 the plain version; on a CUDA tensor it launches its kernel or raises. The
 launch counts are ``flash_relpos_attention.launches`` (K4),
 ``.dropout_launches`` (K4-d), ``.sm90_launches`` and
@@ -79,8 +84,8 @@ import torch
 
 from transformer_tts_tpu_torch.ops.flash_attention import (
     _DTYPE_CODE, _aligned, _check_bwd_inputs, _check_cuda_inputs,
-    _dropout_args, _full_keep_mask, _on_card, _raise_on, _valid_keys,
-    bwd_delta, masked_softmax_pv, select_design)
+    _dropout_args, _full_keep_mask, _plain, _raise_on,
+    _valid_keys, bwd_delta, masked_softmax_pv, select_design)
 
 KERNEL = "flash_relpos_fwd"
 BWD_KERNEL = "flash_relpos_bwd"
@@ -270,15 +275,13 @@ def _design(q_u, q_v, k, v, p, extra=()) -> str:
                          _aligned(q_u, q_v, k, v, p, *extra))
 
 
-def _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-             dropout_seed, design=None):
-    """(o, lse): K4 (rate 0) or K4-d on the card, the plain version on the
-    CPU. The design is ``select_design``'s; ``design="simple"`` forces the
-    simple kernel in the Hopper design's mode (the same-run A/B's
-    baseline)."""
-    if not _on_card(q_u, "flash_relpos_attention"):
-        return flash_relpos_attention_fwd_reference(
-            q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed)
+# ---- the kernel launches (CUDA tensors; called from the ops below) ------
+
+def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
+                  dropout_seed, design):
+    """(o, lse) of K4 (rate 0) or K4-d launched on the card. The design is
+    ``select_design``'s; ``design="simple"`` forces the simple kernel in
+    the Hopper design's mode (the same-run A/B's baseline)."""
     check_relpos_inputs(q_u, q_v, k, v, p, k_len)
     chosen = ("simple" if design == "simple"
               else _design(q_u, q_v, k, v, p))
@@ -323,18 +326,13 @@ def _bwd_launch(name, args, outs, sm_scale, dropout_rate, dropout_seed):
     _raise_on(err, name)
 
 
-def flash_relpos_attention_bwd_dq(q_u, q_v, k, v, p, do, lse, delta, k_len,
-                                  *, sm_scale, dropout_rate=0.0,
-                                  dropout_seed=0):
-    """(dq_u, dq_v): K5's dq kernel on the card, its plain version on the
-    CPU. The kernel writes q_v's own share and its shifted copy's share
-    (dq_vs, row i standing for q_v row i + 1) in fp32; the wrapper adds
-    the second one row down, as JAX's pad and slice of ``q_vs`` do."""
-    args = (q_u, q_v, k, v, p, do, lse, delta, k_len)
-    if not _on_card(q_u, "flash_relpos_attention_bwd_dq"):
-        return flash_relpos_dq_reference(*args, sm_scale, dropout_rate,
-                                         dropout_seed)
+def _bwd_dq_cuda(args, sm_scale, dropout_rate, dropout_seed):
+    """[dq_u, dq_v] of K5's simple dq kernel. The kernel writes q_v's own
+    share and its shifted copy's share (dq_vs, row i standing for q_v row
+    i + 1) in fp32; the second is added one row down, as JAX's pad and
+    slice of ``q_vs`` do."""
     _check_relpos_bwd_inputs(*args)
+    q_u, q_v = args[:2]
     dq_u = torch.empty_like(q_u)
     dq_v = torch.empty(q_v.shape, dtype=torch.float32, device=q_v.device)
     dq_vs = torch.empty_like(dq_v)
@@ -342,50 +340,30 @@ def flash_relpos_attention_bwd_dq(q_u, q_v, k, v, p, do, lse, delta, k_len,
                 dropout_rate, dropout_seed)
     flash_relpos_attention_bwd_dq.launches += 1
     dq_v[:, :, 1:] += dq_vs[:, :, :-1]
-    return dq_u, dq_v.to(q_v.dtype)
+    return [dq_u, dq_v.to(q_v.dtype)]
 
 
-def flash_relpos_attention_bwd_dkdv(q_u, q_v, k, v, p, do, lse, delta,
-                                    k_len, *, sm_scale, dropout_rate=0.0,
-                                    dropout_seed=0):
-    """(dk, dv, dp): K5's dk/dv/dP kernel on the card, its plain version
-    on the CPU. dP (H, T, d) is summed over the batch in fp32 with atomics
-    and cast to p's dtype."""
-    args = (q_u, q_v, k, v, p, do, lse, delta, k_len)
-    if not _on_card(q_u, "flash_relpos_attention_bwd_dkdv"):
-        return flash_relpos_dkdv_reference(*args, sm_scale, dropout_rate,
-                                           dropout_seed)
+def _bwd_dkdv_cuda(args, sm_scale, dropout_rate, dropout_seed):
+    """[dk, dv, dp] of K5's simple dk/dv/dP kernel: dP (H, T, d) summed
+    over the batch in fp32 with atomics, cast to p's dtype."""
     _check_relpos_bwd_inputs(*args)
+    k, v, p = args[2:5]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dp = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     _bwd_launch("flash_relpos_bwd_dkdv", args, (dk, dv, dp), sm_scale,
                 dropout_rate, dropout_seed)
     flash_relpos_attention_bwd_dkdv.launches += 1
-    return dk, dv, dp.to(p.dtype)
+    return [dk, dv, dp.to(p.dtype)]
 
 
-flash_relpos_attention_bwd_dq.launches = 0
-flash_relpos_attention_bwd_dkdv.launches = 0
-
-
-def flash_relpos_attention_bwd_sm90(q_u, q_v, k, v, p, do, lse, delta,
-                                    k_len, *, sm_scale, dropout_rate=0.0,
-                                    dropout_seed=0
-                                    ) -> Tuple[torch.Tensor, ...]:
-    """(dq_u, dq_v, dk, dv, dp): the Hopper design's fused K5
-    (csrc/flash_relpos_bwd_sm90.cu, bf16) on the card, the plain dq and
-    dk/dv/dP on the CPU. dq_u, dq_v and dE (the gradient of
-    ``position_table``'s E) are summed in fp32 accumulators zeroed here,
-    with atomics in the kernel, then cast: unlike dk and dv they vary from
-    run to run in their last bits. dE is one plane per head that the whole
-    batch adds into."""
-    args = (q_u, q_v, k, v, p, do, lse, delta, k_len)
-    if not _on_card(q_u, "flash_relpos_attention_bwd_sm90"):
-        return (*flash_relpos_dq_reference(*args, sm_scale, dropout_rate,
-                                           dropout_seed),
-                *flash_relpos_dkdv_reference(*args, sm_scale, dropout_rate,
-                                             dropout_seed))
+def _bwd_sm90_cuda(args, sm_scale, dropout_rate, dropout_seed):
+    """[dq_u, dq_v, dk, dv, dp] of the Hopper design's fused K5; raises
+    for inputs that design does not take. dq_u, dq_v and dE (the gradient
+    of ``position_table``'s E, one plane per head that the whole batch adds
+    into) are summed in zeroed fp32 accumulators with atomics, then
+    cast."""
     _check_relpos_bwd_inputs(*args)
+    q_u, q_v, k, v, p, do, lse, delta, k_len = args
     if _design(q_u, q_v, k, v, p, (do,)) != "sm90":
         raise ValueError("flash_relpos_attention_bwd_sm90 takes bf16, d in "
                          "(64, 96), 16-byte aligned inputs")
@@ -407,8 +385,161 @@ def flash_relpos_attention_bwd_sm90(q_u, q_v, k, v, p, do, lse, delta,
             float(sm_scale), flag, threshold, scale, seed, stream)
     _raise_on(err, SM90_BWD_KERNEL)
     flash_relpos_attention_bwd_sm90.launches += 1
-    return (dqu_acc.to(q_u.dtype), dqv_acc.to(q_v.dtype), dk, dv,
-            dp_from_table(de_acc).to(p.dtype))
+    return [dqu_acc.to(q_u.dtype), dqv_acc.to(q_v.dtype), dk, dv,
+            dp_from_table(de_acc).to(p.dtype)]
+
+
+_BWD_KERNELS = {"dq": _bwd_dq_cuda, "dkdv": _bwd_dkdv_cuda,
+                "sm90": _bwd_sm90_cuda}
+
+
+def _bwd_cuda(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
+              dropout_rate, dropout_seed, kernel):
+    """The K5 kernels from delta: with ``kernel="auto"`` those of
+    ``select_design``'s choice, with "simple" the simple pair ([dq_u, dq_v,
+    dk, dv, dp] in both cases); "dq", "dkdv" or "sm90" the one kernel of
+    that name."""
+    args = (q_u, q_v, k, v, p, do, lse, delta, k_len)
+    kw = (sm_scale, dropout_rate, dropout_seed)
+    if kernel == "auto":
+        kernel = ("sm90" if _design(q_u, q_v, k, v, p, (do,)) == "sm90"
+                  else "simple")
+    if kernel != "simple":
+        return _BWD_KERNELS[kernel](args, *kw)
+    return _bwd_dq_cuda(args, *kw) + _bwd_dkdv_cuda(args, *kw)
+
+
+# ---- the custom ops ---------------------------------------------------------
+#
+# As in ops/flash_attention.py: every kernel of this file is reached through
+# one op of the ``tts_port`` namespace, with a fake implementation, the
+# plain version as its CPU implementation and the launch as its CUDA one.
+
+def _fwd_cpu(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
+             dropout_seed, design):
+    return tuple(_plain(flash_relpos_attention_fwd_reference(
+        q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed)))
+
+
+_relpos_fwd_op = torch.library.custom_op(
+    "tts_port::relpos_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q_u, Tensor q_v, Tensor k, Tensor v, Tensor p, "
+           "Tensor k_len, float sm_scale, float dropout_rate, "
+           "int dropout_seed, str design) -> (Tensor, Tensor)")(_fwd_cpu)
+_relpos_fwd_op.register_kernel("cuda")(_forward_cuda)
+
+
+@_relpos_fwd_op.register_fake
+def _(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed,
+      design):
+    return (torch.empty_like(q_u),
+            q_u.new_empty(q_u.shape[:3], dtype=torch.float32))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed, _ = \
+        inputs
+    o, lse = output
+    ctx.save_for_backward(q_u, q_v, k, v, p, o, lse, k_len)
+    ctx.args = (sm_scale, dropout_rate, dropout_seed)
+    ctx.mark_non_differentiable(lse)
+
+
+def _fwd_backward(ctx, do, _dlse):
+    """Gradients for q_u, q_v, k, v and p from the backward op,
+    recomputing P and the keep mask; none for k_len, the scale, the rate
+    or the seed, and none through lse."""
+    q_u, q_v, k, v, p, o, lse, k_len = ctx.saved_tensors
+    sm_scale, dropout_rate, dropout_seed = ctx.args
+    grads = flash_relpos_attention_bwd(
+        q_u, q_v, k, v, p, o, lse, do.to(q_u.dtype).contiguous(), k_len,
+        sm_scale=sm_scale, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed)
+    return (*grads, None, None, None, None, None)
+
+
+_relpos_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+def _bwd_cpu(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
+             dropout_rate, dropout_seed, kernel):
+    args = (q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
+            dropout_rate, dropout_seed)
+    out = []
+    if kernel != "dkdv":
+        out += flash_relpos_dq_reference(*args)
+    if kernel != "dq":
+        out += flash_relpos_dkdv_reference(*args)
+    return _plain(out)
+
+
+_relpos_bwd_op = torch.library.custom_op(
+    "tts_port::relpos_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q_u, Tensor q_v, Tensor k, Tensor v, Tensor p, "
+           "Tensor do, Tensor lse, Tensor delta, Tensor k_len, "
+           "float sm_scale, float dropout_rate, int dropout_seed, "
+           "str kernel) -> Tensor[]")(_bwd_cpu)
+_relpos_bwd_op.register_kernel("cuda")(_bwd_cuda)
+
+
+@_relpos_bwd_op.register_fake
+def _(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale, dropout_rate,
+      dropout_seed, kernel):
+    grads = [torch.empty_like(x) for x in (q_u, q_v, k, v, p)]
+    return {"dq": grads[:2], "dkdv": grads[2:]}.get(kernel, grads)
+
+
+# ---- the public wrappers ----------------------------------------------------
+
+def _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
+             dropout_seed, design=None):
+    """(o, lse) through ``tts_port::relpos_fwd``: K4 (rate 0) or K4-d on
+    the card, the plain version on the CPU. ``design="simple"`` forces the
+    simple kernel in the Hopper design's mode (the same-run A/B's
+    baseline)."""
+    return _relpos_fwd_op(q_u, q_v, k, v, p, k_len, float(sm_scale),
+                          float(dropout_rate), int(dropout_seed),
+                          design or "auto")
+
+
+def _bwd_kernel(kernel, args, sm_scale, dropout_rate, dropout_seed):
+    """The gradients of ``tts_port::relpos_bwd`` with ``kernel``."""
+    return tuple(_relpos_bwd_op(*args, float(sm_scale), float(dropout_rate),
+                                int(dropout_seed), kernel))
+
+
+def flash_relpos_attention_bwd_dq(q_u, q_v, k, v, p, do, lse, delta, k_len,
+                                  *, sm_scale, dropout_rate=0.0,
+                                  dropout_seed=0):
+    """(dq_u, dq_v): K5's dq kernel on the card, its plain version on the
+    CPU."""
+    return _bwd_kernel("dq", (q_u, q_v, k, v, p, do, lse, delta, k_len),
+                       sm_scale, dropout_rate, dropout_seed)
+
+
+def flash_relpos_attention_bwd_dkdv(q_u, q_v, k, v, p, do, lse, delta,
+                                    k_len, *, sm_scale, dropout_rate=0.0,
+                                    dropout_seed=0):
+    """(dk, dv, dp): K5's dk/dv/dP kernel on the card, its plain version
+    on the CPU. dP (H, T, d) is summed over the batch."""
+    return _bwd_kernel("dkdv", (q_u, q_v, k, v, p, do, lse, delta, k_len),
+                       sm_scale, dropout_rate, dropout_seed)
+
+
+flash_relpos_attention_bwd_dq.launches = 0
+flash_relpos_attention_bwd_dkdv.launches = 0
+
+
+def flash_relpos_attention_bwd_sm90(q_u, q_v, k, v, p, do, lse, delta,
+                                    k_len, *, sm_scale, dropout_rate=0.0,
+                                    dropout_seed=0
+                                    ) -> Tuple[torch.Tensor, ...]:
+    """(dq_u, dq_v, dk, dv, dp): the Hopper design's fused K5
+    (csrc/flash_relpos_bwd_sm90.cu, bf16) on the card, the plain dq and
+    dk/dv/dP on the CPU. dq_u, dq_v and dP come from fp32 atomics: unlike
+    dk and dv they vary from run to run in their last bits."""
+    return _bwd_kernel("sm90", (q_u, q_v, k, v, p, do, lse, delta, k_len),
+                       sm_scale, dropout_rate, dropout_seed)
 
 
 flash_relpos_attention_bwd_sm90.launches = 0    # K5, the Hopper design
@@ -421,51 +552,16 @@ def flash_relpos_attention_bwd(
     dropout_seed: int = 0, design: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dq_u, dq_v, dk, dv, dp) of ``flash_relpos_attention`` for the
-    output gradient ``do``: delta, then on the card the kernels of
-    ``select_design``'s choice -- the Hopper design's fused K5
-    (``flash_relpos_attention_bwd_sm90``) or the simple pair, K5's dq and
-    dk/dv/dP kernels (``design="simple"`` forces the pair); the plain
-    version on the CPU."""
-    if not _on_card(q_u, "flash_relpos_attention_bwd"):
-        return flash_relpos_attention_bwd_reference(
-            q_u, q_v, k, v, p, o, lse, do, k_len, sm_scale, dropout_rate,
-            dropout_seed)
+    output gradient ``do``: delta, then ``tts_port::relpos_bwd`` -- on the
+    card the kernels of ``select_design``'s choice, the Hopper design's
+    fused K5 or the simple pair, K5's dq and dk/dv/dP kernels
+    (``design="simple"`` forces the pair); the plain version on the
+    CPU."""
     if o.shape != q_u.shape or o.dtype != q_u.dtype:
         raise ValueError(f"o must match q_u: {tuple(o.shape)} {o.dtype}")
-    args = (q_u, q_v, k, v, p, do, lse, bwd_delta(o, do), k_len)
-    kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed)
-    if design != "simple" and _design(q_u, q_v, k, v, p, (do,)) == "sm90":
-        return flash_relpos_attention_bwd_sm90(*args, **kw)
-    dq_u, dq_v = flash_relpos_attention_bwd_dq(*args, **kw)
-    dk, dv, dp = flash_relpos_attention_bwd_dkdv(*args, **kw)
-    return dq_u, dq_v, dk, dv, dp
-
-
-class FlashRelposAttention(torch.autograd.Function):
-    """(o, lse) with gradients for q_u, q_v, k, v and p from K5 (its plain
-    backward on the CPU), recomputing P and the keep mask; no gradient for
-    k_len, the scale, the rate or the seed, and none through lse."""
-
-    @staticmethod
-    def forward(ctx, q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-                dropout_seed):
-        o, lse = _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-                          dropout_seed)
-        ctx.save_for_backward(q_u, q_v, k, v, p, o, lse, k_len)
-        ctx.args = (sm_scale, dropout_rate, dropout_seed)
-        ctx.mark_non_differentiable(lse)
-        return o, lse
-
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q_u, q_v, k, v, p, o, lse, k_len = ctx.saved_tensors
-        sm_scale, dropout_rate, dropout_seed = ctx.args
-        grads = flash_relpos_attention_bwd(
-            q_u, q_v, k, v, p, o, lse, do.to(q_u.dtype).contiguous(), k_len,
-            sm_scale=sm_scale, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed)
-        return (*grads, None, None, None, None)
+    return _bwd_kernel(design or "auto",
+                       (q_u, q_v, k, v, p, do, lse, bwd_delta(o, do), k_len),
+                       sm_scale, dropout_rate, dropout_seed)
 
 
 def flash_relpos_attention(
@@ -480,13 +576,12 @@ def flash_relpos_attention(
     ``dropout_rate`` > 0 drops attention probabilities with the hash
     seeded by ``dropout_seed`` (an int32; the backward rebuilds the same
     mask). ``o`` has q_u's dtype and carries gradients to q_u, q_v, k, v
-    and p; ``lse`` (B, H, T) is fp32.
+    and p (the backward op); ``lse`` (B, H, T) is fp32 and carries none.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q_u.shape[-1])
-    return FlashRelposAttention.apply(q_u, q_v, k, v, p, k_len,
-                                      float(sm_scale), float(dropout_rate),
-                                      int(dropout_seed))
+    return _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
+                    dropout_seed)
 
 
 flash_relpos_attention.launches = 0             # K4
