@@ -342,6 +342,31 @@ and each printing its wall time:
    FastSpeech 2 artifact's call 6 K1-90 launches (its process's counter);
    each artifact's ms beside the engine's, the AR one's per decode step
    beside the graphed decode's.
+21. data and sequence parallelism, RAdam and remat, run after 20 and
+   before 7, the flagships at full depth, fatal on any failure:
+   (a) two ranks over gloo on the one card (two processes: NCCL takes one
+       rank per card), the transformer flagship (bf16 amp, dropout 0)
+       wrapped by train.trainer.distribute, TRAIN_BATCH split 8 + 8 with
+       unequal valid frames: 3 DDP steps against one process's steps on
+       the whole batch, the losses and grad norms within DDP_OF_CONTROL
+       times a same-run control (the single process run twice: K2-90's
+       dq atomics) and never tighter than DDP_FLOOR; each rank's counter
+       shows K1-90 and K2-90 once per decoder layer and step;
+   (b) cli/train.py --multihost under NCCL at world size 1 (with the CLIs
+       of phase 5: 3 steps, rank 0's checkpoint, the synthesis CLI on
+       it), and the DDP wrapper's wall and device ms per step beside the
+       plain step's, in turn in one process (NCCL at world size 1);
+   (c) K1-90 and K2-90 at sequence parallelism's per-rank shapes (T_q =
+       1024 against T_k = 2048, k_len from 1024 to 2048) against their
+       plain versions, rates 0 and 0.1, and the two halves' O against
+       the whole sequence's; their ms beside their bounds;
+   (d) the remat step with dropout 0.1 against the plain step on the same
+       seeds (first loss equal, later losses and grad norms within the
+       control's bound, the running statistics moved once a step, the
+       own peak below the plain step's) and RAdam's first step (lr x the
+       clipped gradient) and 6 more.
+   The launches of its main paths ((a)'s ranks, (b)'s and (d)'s steps)
+   are added to the kernels line's.
    In 5's and 18(b)'s conformer card-vs-CPU steps the same step runs
    again from the same weights through the plain masked attention
    (kernel counters 0): in 5 the fp32 update coverage must be at least
@@ -382,7 +407,7 @@ DEVICE = "cuda"
 FLAGSHIP = {}                 # HParams overrides; empty = the defaults
 # the depth of phases 15 and 17-19 (GST, serving, conditioning, the other
 # families): fewer layers than the flagships' 6 + 6, for the run's time;
-# phases 3-14, 16 and 20 run the flagships at full depth
+# phases 3-14, 16, 20 and 21 run the flagships at full depth
 LATER_DEPTH = dict(n_layer_encoder=3, n_layer_decoder=3)
 # the two flagships: HParams overrides of the stacks, and the kernel that
 # carries each one's decoder attention
@@ -1446,6 +1471,9 @@ TRAIN_BATCH = (16, 128, 1024, (600, 1000))   # B, text bucket, mel bucket,
                                              # range of frames per row
 CPU_STEP_BATCH = (2, 128, 768, (500, 760))
 CLI_CORPUS = (32, (300, 900), 8)             # utterances, frames, batch
+# the loader threads of each training CLI: up to 14 CLIs run at once on
+# the host's 8 cores, so each takes 2 (hp.num_workers defaults to 8)
+CLI_WORKERS = 2
 
 
 def train_batch(gen, hp, b, text_len, mel_len, frames, device):
@@ -2221,11 +2249,13 @@ def write_train_corpus(gen, hp, root):
 TRAIN_CLIS = {}                 # kind -> what phase_train_clis runs
 
 
-def phase_train_cli(gen, kind):
+def phase_train_cli(gen, kind, name=None, train_flags=()):
     """Write ``kind``'s synthetic corpus, hparams and test script for
-    ``phase_train_clis``, which runs every kind's CLIs at once."""
+    ``phase_train_clis``, which runs every kind's CLIs at once (under
+    ``name``, default the kind, its training CLI with ``train_flags``)."""
     hp = trainer(kind)["hparams"]()
-    work = os.path.join(WORK, f"train_{kind}")
+    name = name or kind
+    work = os.path.join(WORK, f"train_{name.replace(' --', '_')}")
     script = write_train_corpus(gen, hp, os.path.join(work, "corpus"))
     save_dir = os.path.join(work, "checkpoints")
     hp_file = os.path.join(work, "hparams.py")
@@ -2236,7 +2266,8 @@ def phase_train_cli(gen, kind):
                                **({"gst": True} if hp.gst else {}),
                                train_script=script, save_dir=save_dir,
                                batch_size=CLI_CORPUS[2], max_epoch=1,
-                               save_per_epoch=1).items():
+                               save_per_epoch=1,
+                               num_workers=CLI_WORKERS).items():
             fh.write(f"{key} = {value!r}\n")
     test_script = os.path.join(work, "test.txt")
     with open(script) as src, open(test_script, "w") as dst:
@@ -2246,10 +2277,10 @@ def phase_train_cli(gen, kind):
         flags = ["--ref_mel", os.path.join(work, "ref.npy")]
         np.save(flags[1], torch.randn(GST_REF_FRAMES[1], hp.mel_dim,
                                       generator=gen).numpy())
-    TRAIN_CLIS[kind] = dict(hp=hp, hp_file=hp_file, test_script=test_script,
+    TRAIN_CLIS[name] = dict(hp=hp, hp_file=hp_file, test_script=test_script,
                             load_dir=os.path.join(save_dir, "epoch_1"),
                             out_dir=os.path.join(work, "generated"),
-                            flags=flags)
+                            flags=flags, train_flags=list(train_flags))
 
 
 def phase_train_clis(extra: dict, second: dict) -> dict:
@@ -2262,7 +2293,7 @@ def phase_train_clis(extra: dict, second: dict) -> dict:
     outs = run_clis(dict({
         f"{kind} train CLI": ["transformer_tts_tpu_torch.cli.train",
                               "--hp_file", c["hp_file"], "--max_steps", "3",
-                              "--device", DEVICE]
+                              "--device", DEVICE, *c["train_flags"]]
         for kind, c in TRAIN_CLIS.items()}, **extra))
     for kind, c in TRAIN_CLIS.items():
         steps = [ln for ln in outs[f"{kind} train CLI"].splitlines()
@@ -2865,7 +2896,8 @@ def prepare_sq_clis(gen) -> dict:
             for key, value in dict(FLAGSHIP, **extra, train_script=script,
                                    save_dir=os.path.join(work, name),
                                    batch_size=CLI_CORPUS[2], max_epoch=2,
-                                   save_per_epoch=10).items():
+                                   save_per_epoch=10,
+                                   num_workers=CLI_WORKERS).items():
                 fh.write(f"{key} = {value!r}\n")
         runs[name] = ["transformer_tts_tpu_torch.cli.train", "--hp_file",
                       hp_file, "--device", DEVICE, *flags]
@@ -5861,6 +5893,539 @@ def phase_export(gen, smi: str):
     torch.cuda.empty_cache()
 
 
+# ---- phase 21: data parallelism, sequence parallelism, RAdam, remat --------
+
+DDP_WORLD = 2
+DDP_STEPS = 3
+# each logged term of the DDP steps (the losses, the grad norm) against
+# one process's on the whole batch: within this many times the same-run
+# control (the single process run twice: K2-90's dq atomics add in
+# another order each run), and never held tighter than DDP_FLOOR of the
+# value (the ranks' fp32 sums and the cuBLAS kernels picked for 8 rows
+# instead of 16 round otherwise: grad norms 6e-5 to 4.3e-4 off in my
+# first card run, losses 1e-7 to 2e-6). The planted fault (each rank's
+# BatchNorms on its own rows) moves loss_frame_after by ~5e-3 at small
+# sizes on the CPU; whether the card's check sees it is printed.
+DDP_OF_CONTROL = 10.0
+DDP_FLOOR = 1e-3
+SP_T = 2048                     # the sequence split over 2 ranks: T_q 1024
+REMAT_STEPS = 2
+# each rank's runs: DDP, the planted per-rank statistics, DDP with remat
+RANK_RUNS = ("ddp", "fault", "remat")
+RADAM_STEPS = 7                 # the first 5 degenerate to momentum SGD
+
+DDP_RANK = """
+import json, sys
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+rank, port, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=cs.DDP_WORLD, rank=rank)
+try:
+    settings = json.loads(sys.argv[4])
+    cs.FLAGSHIP.update(settings["flagship"])
+    cs.DEVICE = settings["device"]
+    print(json.dumps(cs.ddp_rank(rank, work)))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_hparams(**overrides):
+    """The transformer flagship with every dropout 0 (the comparison's)."""
+    return train_hparams(**dict(dict(dropout=0.0, dropout_postnet=0.0,
+                                     dropout_variance_adaptor=0.0),
+                                **overrides))
+
+
+def ddp_batch(gen) -> dict:
+    """TRAIN_BATCH on the CPU, its rows sorted by valid frames, so rank 0's
+    8 rows hold more of them than rank 1's."""
+    b, text_len, mel_len, frames = TRAIN_BATCH
+    batch = train_batch(gen, ddp_hparams(), b, text_len, mel_len, frames,
+                        "cpu")
+    order = torch.argsort((batch["pos_mel"] > 0).sum(1), descending=True)
+    return {k: v[order] for k, v in batch.items()}
+
+
+def running_moves(model, before: dict) -> dict:
+    """{name: how far each BatchNorm running statistic moved} (fp32, on
+    the CPU) since ``before``, the initial ``state_dict``."""
+    return {k: v.float().cpu() - before[k].float()
+            for k, v in model.state_dict().items()
+            if "running_mean" in k or "running_var" in k}
+
+
+def ddp_steps(state, step, batch, before: dict) -> dict:
+    """DDP_STEPS steps of ``state`` on ``batch``, the launch counts set to
+    0 before: {logs: every logged term per step, launches, moves: the
+    running statistics' moves from ``before``}."""
+    set_counts({})
+    logs = []
+    for _ in range(DDP_STEPS):
+        state, out = step(state, batch)
+        logs.append({k: float(v) for k, v in out.items()})
+    if DEVICE != "cpu":         # a CPU rehearsal's rank process
+        torch.cuda.synchronize()
+    return dict(logs=logs, launches=read_counts(),
+                moves=running_moves(state.model, before))
+
+
+def ddp_rank(rank: int, work: str) -> dict:
+    """A rank of 21(a), in its own process: the flagship from the saved
+    initial weights, wrapped by ``train.trainer.distribute`` over the
+    gloo group, DDP_STEPS steps on its half of the saved batch; then the
+    same from the same weights with the planted fault (each rank's
+    BatchNorms on its own rows' statistics), and with ``remat`` (the
+    checkpoint inside the module DDP wraps)."""
+    from transformer_tts_tpu_torch.parallel import set_norm_group
+    from transformer_tts_tpu_torch.train import trainer as tr
+    batch = torch.load(os.path.join(work, "batch.pt"))
+    init = torch.load(os.path.join(work, "init.pt"))
+    half = batch["text"].shape[0] // DDP_WORLD
+    mine = {k: v[rank * half:(rank + 1) * half].to(DEVICE)
+            for k, v in batch.items()}
+    out = {"valid_frames": int((mine["pos_mel"] > 0).sum())}
+    for name in RANK_RUNS:
+        hp = ddp_hparams(remat=name == "remat")
+        state = tr.init_fastspeech2_state(hp, device=DEVICE)
+        state.model.load_state_dict(init)
+        state = tr.distribute(state, DEVICE)
+        if name == "fault":
+            set_norm_group(state.model, None)
+        out[name] = ddp_steps(
+            state, tr.make_fastspeech2_train_step(hp, device=DEVICE), mine,
+            init)
+        del state
+    # the moves go through a file: JSON would round them
+    torch.save({name: out[name].pop("moves") for name in RANK_RUNS},
+               os.path.join(work, f"moves{rank}.pt"))
+    return out
+
+
+def start_ranks(work: str) -> list:
+    """The DDP_WORLD rank processes of 21(a), on the one card."""
+    port = str(free_port())
+    settings = json.dumps({"flagship": FLAGSHIP, "device": DEVICE})
+    return [subprocess.Popen([sys.executable, "-c", DDP_RANK, str(r), port,
+                              work, settings], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+            for r in range(DDP_WORLD)]
+
+
+def finish_ranks(procs: list) -> list:
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"21(a) rank {r}: exit "
+                                        f"{proc.returncode}: {err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+# the least allowance of the running statistics' moves, of the largest
+# move of each buffer (bf16 activations round the statistics)
+MOVES_FLOOR = 1e-3
+
+
+def moves_off(got: dict, ref: dict) -> float:
+    """The largest |got - ref| of a BatchNorm buffer's moves over that
+    buffer's largest move in ``ref``."""
+    return max(float((got[k] - ref[k]).abs().max())
+               / max(float(ref[k].abs().max()), 1e-30) for k in ref)
+
+
+def phase_ddp_vs_single(gen) -> dict:
+    """21(a): two gloo ranks on the one card (separate processes: NCCL
+    takes one rank per card) against one process on the whole batch;
+    (c)'s checks and (d) run meanwhile, (c)'s times once the ranks have
+    ended. Returns the launches of the ranks' and (d)'s main paths,
+    summed."""
+    from transformer_tts_tpu_torch.train import trainer as tr
+    work = os.path.join(WORK, "ddp")
+    os.makedirs(work, exist_ok=True)
+    batch = ddp_batch(gen)
+    hp = ddp_hparams()
+    init = tr.init_fastspeech2_state(hp, device=DEVICE)
+    torch.save({k: v.cpu() for k, v in init.model.state_dict().items()},
+               os.path.join(work, "init.pt"))
+    torch.save(batch, os.path.join(work, "batch.pt"))
+    del init
+    t0 = time.perf_counter()
+    procs = start_ranks(work)
+    try:
+        single = []
+        init = torch.load(os.path.join(work, "init.pt"))
+        for _ in range(2):          # the run and its same-run control
+            state = tr.init_fastspeech2_state(hp, device=DEVICE)
+            state.model.load_state_dict(init)
+            single.append(ddp_steps(
+                state, tr.make_fastspeech2_train_step(hp, device=DEVICE),
+                {k: v.to(DEVICE) for k, v in batch.items()}, init))
+            del state
+        torch.cuda.empty_cache()
+        extra = ddp_remaining()
+    finally:
+        ranks = finish_ranks(procs)
+    seconds = time.perf_counter() - t0
+    extra["time_sp"]()          # on the card the ranks have left
+    a, b = single
+    print(f"21(a) {DDP_WORLD} gloo ranks on one card, the flagship "
+          f"({hp.n_layer_encoder} + {hp.n_layer_decoder} layers, bf16 amp, "
+          f"dropout 0), TRAIN_BATCH split 8 + 8 with "
+          f"{[r['valid_frames'] for r in ranks]} valid frames, "
+          f"{DDP_STEPS} steps, {seconds:.1f} s with the ranks' start; "
+          f"rank launches " + json.dumps(
+              [{k: v for k, v in r["ddp"]["launches"].items() if v}
+               for r in ranks]))
+    worst = {name: 0.0 for name in RANK_RUNS}
+    for i in range(DDP_STEPS):
+        for key in sorted(a["logs"][i]):
+            ref = a["logs"][i][key]
+            control = rel(b["logs"][i][key], ref)
+            tol = max(DDP_OF_CONTROL * control, DDP_FLOOR)
+            got = {name: max(rel(r[name]["logs"][i][key], ref)
+                             for r in ranks) for name in worst}
+            for name in worst:
+                worst[name] = max(worst[name], got[name] / tol)
+            print(f"21(a) step {i + 1} {key}: one process {ref:.7g}, "
+                  f"control {control:.3g}; the ranks "
+                  f"{ranks[0]['ddp']['logs'][i][key]:.7g} ({got['ddp']:.3g}"
+                  f"), per-rank statistics "
+                  f"{ranks[0]['fault']['logs'][i][key]:.7g} "
+                  f"({got['fault']:.3g}), remat "
+                  f"{ranks[0]['remat']['logs'][i][key]:.7g} "
+                  f"({got['remat']:.3g}); allowed {tol:.3g}")
+    print(f"21(a) the worst term over its allowance: DDP {worst['ddp']:.3g}, "
+          f"the planted per-rank statistics {worst['fault']:.3g}, DDP with "
+          f"remat {worst['remat']:.3g}")
+    check(worst["ddp"] <= 1.0, "21(a): the DDP steps differ from one "
+                               "process's past their allowance")
+    check(worst["remat"] <= 1.0, "21(a): the DDP remat steps differ from "
+                                 "one process's past their allowance")
+    print(f"21(a) the planted per-rank statistics "
+          f"{'fail' if worst['fault'] > 1.0 else 'pass'} the logs' check")
+    # the statistics the BatchNorms used, read off their running
+    # averages: the same on both ranks, and one process's moves
+    moves = [torch.load(os.path.join(work, f"moves{r}.pt"))
+             for r in range(DDP_WORLD)]
+    same = {name: all(torch.equal(moves[0][name][k], moves[1][name][k])
+                      for k in moves[0][name]) for name in worst}
+    control = max(moves_off(b["moves"], a["moves"]), MOVES_FLOOR)
+    off = {name: max(moves_off(m[name], a["moves"]) for m in moves)
+           for name in worst}
+    print(f"21(a) BatchNorm running statistics after {DDP_STEPS} steps "
+          f"({len(a['moves'])} buffers): the ranks' equal bit for bit: "
+          f"DDP {same['ddp']}, per-rank statistics {same['fault']}, remat "
+          f"{same['remat']}; their moves off one process's by "
+          f"{off['ddp']:.3g} (DDP), {off['fault']:.3g} (per-rank "
+          f"statistics) and {off['remat']:.3g} (remat) of its largest move, "
+          f"the control by {moves_off(b['moves'], a['moves']):.3g}; allowed "
+          f"{DDP_OF_CONTROL * control:.3g}")
+    for name in ("ddp", "remat"):
+        check(same[name] and off[name] <= DDP_OF_CONTROL * control,
+              f"21(a): the {name} ranks' BatchNorm statistics are not the "
+              "global batch's")
+    check(not same["fault"] and off["fault"] > DDP_OF_CONTROL * control,
+          "21(a): the planted per-rank statistics pass the BatchNorm "
+          "statistics' check: it cannot see them")
+    n = DDP_STEPS * hp.n_layer_decoder
+    for r, out in enumerate(ranks):
+        got = out["ddp"]["launches"]
+        check(got["K1-90"] == n and got["K2-90"] == n,
+              f"21(a): rank {r} launched {got}, not {n} K1-90 and K2-90")
+    summed = {}
+    for counts in [r["ddp"]["launches"] for r in ranks] + [
+            extra["launches"]]:
+        for k, v in counts.items():
+            summed[k] = summed.get(k, 0) + v
+    return summed
+
+
+def ddp_remaining() -> dict:
+    """21(d) and (c)'s checks, run in the main process while the ranks of
+    21(a) work: {launches of (d)'s main paths, time_sp: (c)'s timing, to
+    run once the ranks have ended}."""
+    launches = phase_remat_and_radam()
+    return {"launches": launches, "time_sp": phase_sp_kernels()}
+
+
+def phase_sp_kernels():
+    """21(c): K1-90 and K2-90 at sequence parallelism's per-rank shapes
+    (T_q = SP_T / 2 against T_k = SP_T, a batch's k_len) against their
+    plain versions, and the two halves' O against the whole sequence's.
+    Returns the function that times them, to be called on a card that
+    nothing else uses."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(21)
+    b, h, d = TRAIN_BATCH[0], 4, 96
+    k_len = torch.randint(SP_T // 2, SP_T + 1, (b,), generator=gen,
+                          dtype=torch.int32).to(DEVICE)
+    q, k, v, do = (torch.randn(b, h, SP_T, d, generator=gen).to(DEVICE)
+                   .to(torch.bfloat16) for _ in range(4))
+    n = SP_T // DDP_WORLD
+    for rate in (0.0, 0.1):
+        for r in range(DDP_WORLD):
+            rows = slice(r * n, (r + 1) * n)
+            errs, peaks, _ = check_train_kernels(
+                q[:, :, rows].contiguous(), k, v,
+                do[:, :, rows].contiguous(), k_len, rate,
+                label=f" at SP rank {r}'s shape")
+            print(f"21(c) K1{'-d' if rate else ''}-90/K2-90 at rank {r}'s "
+                  f"shape ({b},{h},{n},{SP_T},{d}) bf16 rate {rate}: "
+                  + " ".join(f"max|d{m}|={e:.3g} (max|ref| {peaks[m]:.3g})"
+                             for m, e in errs.items()))
+    counts = read_counts()
+    with torch.no_grad():
+        whole, _ = fa.flash_attention(q, k, v, k_len)
+        halves = torch.cat([fa.flash_attention(
+            q[:, :, r * n:(r + 1) * n].contiguous(), k, v, k_len)[0]
+            for r in range(DDP_WORLD)], dim=2)
+    torch.cuda.synchronize()
+    set_counts(counts)
+    err, peak = max_err(halves, whole)
+    print(f"21(c) the {DDP_WORLD} halves' O concatenated against the whole "
+          f"sequence's: max|d| {err:.3g} of max|ref| {peak:.3g} (bit for "
+          f"bit: {torch.equal(halves, whole)})")
+    check(err <= REL_TOL[torch.bfloat16] * peak,
+          "21(c): the halves' O differ from the whole sequence's")
+    q_half = q[:, :, :n].contiguous()
+    do_half = do[:, :, :n].contiguous()
+    del q, do, whole, halves     # the timing keeps what it reads
+
+    def timing():
+        counts = read_counts()
+        fwd_ms = time_ms(lambda: fa.flash_attention(q_half, k, v, k_len))
+        o, lse = fa.flash_attention(q_half, k, v, k_len)
+        bwd_ms = time_ms(lambda: fa.flash_attention_bwd(
+            q_half, k, v, o, lse, do_half, k_len, sm_scale=d ** -0.5))
+        keys = k_len.double().sum().item()
+        nbytes = (q_half.numel() * 2 + k.numel() * 2) * 2
+        fwd_bound = bound_ms(4 * h * n * keys * d, nbytes + b * h * n * 4,
+                             torch.bfloat16)
+        bwd_bound = bound_ms(10 * h * n * keys * d,
+                             nbytes * 2 + b * h * n * 8, torch.bfloat16)
+        set_counts(counts)
+        print(f"21(c) at ({b},{h},{n},{SP_T},{d}) bf16, the ranks of 21(a) "
+              f"ended: K1-90 {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f}, "
+              f"{fwd_bound[1]}), K2-90 {bwd_ms:.4f} ms (bound "
+              f"{bwd_bound[0]:.4f}, {bwd_bound[1]})")
+
+    return timing
+
+
+def step_peak(state, step, batch, n: int) -> tuple:
+    """(losses, grad norms, the steps' own peak GB) of ``n`` steps."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms = [], []
+    for _ in range(n):
+        state, logs = step(state, batch)
+        losses.append(float(logs["loss_total"]))
+        norms.append(float(logs["grad_norm"]))
+    torch.cuda.synchronize()
+    return losses, norms, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def phase_remat_and_radam() -> dict:
+    """21(d): the flagship's remat step with dropout 0.1 against the plain
+    step on the same seeds (and a second plain run, the control), its
+    peak memory beside the plain step's and the running statistics moved
+    once a step; then RAdam's steps, the first an SGD step of lr x the
+    clipped gradient. Returns the launches of these main paths."""
+    from transformer_tts_tpu_torch.train import trainer as tr
+    gen = torch.Generator().manual_seed(210)
+    b, text_len, mel_len, frames = TRAIN_BATCH
+    batch = train_batch(gen, train_hparams(), b, text_len, mel_len, frames,
+                        DEVICE)
+    launches = {}
+
+    def add(counts):
+        for key, value in counts.items():
+            launches[key] = launches.get(key, 0) + value
+
+    runs = {}
+    for name, remat in (("plain", False), ("control", False),
+                        ("remat", True)):
+        hp = train_hparams(remat=remat)
+        state = tr.init_fastspeech2_state(hp, device=DEVICE)
+        step = tr.make_fastspeech2_train_step(hp, device=DEVICE)
+        set_counts({})
+        losses, norms, peak = step_peak(state, step, batch, REMAT_STEPS)
+        add(read_counts())
+        runs[name] = dict(losses=losses, norms=norms, peak=peak,
+                          stats={k: v.float().clone() for k, v in
+                                 state.model.state_dict().items()
+                                 if "running" in k or "num_batches" in k})
+        del state, step
+        torch.cuda.empty_cache()
+    plain, control, remat = runs["plain"], runs["control"], runs["remat"]
+    print(f"21(d) remat step, the flagship at B={b} T={mel_len} bf16 "
+          f"dropout 0.1, {REMAT_STEPS} steps: losses {remat['losses']}, "
+          f"grad norms {remat['norms']}, own peak {remat['peak']:.3f} GB; "
+          f"plain {plain['losses']}, {plain['norms']}, {plain['peak']:.3f} "
+          f"GB; control {control['losses']}, {control['norms']}")
+    check(rel(remat["losses"][0], plain["losses"][0]) <= 1e-6,
+          "21(d): the remat step's first loss differs from the plain one's")
+    for key in ("losses", "norms"):
+        for i in range(REMAT_STEPS):
+            tol = max(DDP_OF_CONTROL * rel(control[key][i], plain[key][i]),
+                      DDP_FLOOR)
+            check(rel(remat[key][i], plain[key][i]) <= tol,
+                  f"21(d): remat {key} step {i + 1} "
+                  f"{remat[key][i]} against plain {plain[key][i]}")
+    check(remat["peak"] < plain["peak"],
+          "21(d): the remat step's peak is not below the plain step's")
+    worst = 0.0
+    for key, value in remat["stats"].items():
+        if key.endswith("num_batches_tracked"):
+            check(int(value) == REMAT_STEPS, f"21(d): {key} moved "
+                                             f"{int(value)} times")
+            continue
+        ref = plain["stats"][key]
+        worst = max(worst, float((value - ref).abs().max())
+                    / max(1.0, float(ref.abs().max())))
+    print(f"21(d) running statistics after {REMAT_STEPS} remat steps: moved "
+          f"{REMAT_STEPS} times; max|d| from the plain steps' {worst:.3g} of "
+          f"max(1, max|ref|)")
+    check(worst <= REL_TOL[torch.bfloat16],
+          "21(d): the remat steps' running statistics differ")
+
+    hp = train_hparams(optimizer="RAdam")
+    state = tr.init_fastspeech2_state(hp, device=DEVICE)
+    step = tr.make_fastspeech2_train_step(hp, device=DEVICE)
+    before = [p.detach().clone() for p in state.optimizer.params]
+    set_counts({})
+    state, logs = step(state, batch)
+    worst = 0.0
+    for p, old in zip(state.optimizer.params, before):
+        # the first RAdam step is momentum SGD: m / (1 - b1) = g exactly
+        want = -hp.learning_rate * p.grad
+        room = 2 * torch.finfo(torch.float32).eps * old.abs() + 1e-5 * (
+            want.abs())
+        worst = max(worst, float(((p.detach() - old - want).abs()
+                                  / (room + 1e-30)).max()))
+    losses = [float(logs["loss_total"])]
+    for _ in range(RADAM_STEPS - 1):
+        state, logs = step(state, batch)
+        losses.append(float(logs["loss_total"]))
+    add(read_counts())
+    print(f"21(d) RAdam (lr {hp.learning_rate}): the first step moved "
+          f"every weight by -lr x its clipped gradient within "
+          f"{worst:.3g} of the rounding room; losses over {RADAM_STEPS} "
+          f"steps {losses}")
+    check(worst <= 1.0, "21(d): RAdam's first step is not lr x the "
+                        "clipped gradient")
+    check(all(math.isfinite(x) for x in losses), "21(d): RAdam loss")
+    del state, step, before
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ddp_wrapper_cost() -> dict:
+    """21(b): DDP at world size 1 under NCCL in this process: the DDP
+    step's wall and CUDA-event ms beside the plain step's, in turn
+    (plain, DDP, DDP, plain, ...), and one profiled step of each for
+    their device time, run with the other profiles (the process group
+    lives until then: ``end_parallel``). Returns the launches of these
+    main paths."""
+    import torch.distributed as dist
+    from transformer_tts_tpu_torch.parallel import init_distributed
+    from transformer_tts_tpu_torch.train import trainer as tr
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    gen = torch.Generator().manual_seed(211)
+    b, text_len, mel_len, frames = TRAIN_BATCH
+    hp = train_hparams()
+    batch = train_batch(gen, hp, b, text_len, mel_len, frames, DEVICE)
+    states = {"plain": tr.init_fastspeech2_state(hp, device=DEVICE),
+              "ddp": tr.init_fastspeech2_state(hp, device=DEVICE)}
+    states["ddp"] = tr.distribute(states["ddp"], DEVICE)
+    step = tr.make_fastspeech2_train_step(hp, device=DEVICE)
+    for name in states:                 # warm-up
+        for _ in range(3):
+            states[name], _ = step(states[name], batch)
+    torch.cuda.synchronize()
+    set_counts({})
+    walls = {"plain": [], "ddp": []}
+    events = {"plain": [], "ddp": []}
+    for name in ["plain", "ddp", "ddp", "plain"] * 5:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        states[name], logs = step(states[name], batch)
+        end.record()
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+        events[name].append(start.elapsed_time(end))
+        check(math.isfinite(float(logs["loss_total"])), "21(b): loss")
+    launches = read_counts()
+    ms = {name: statistics.median(walls[name]) for name in walls}
+    print(f"21(b) DDP at world size 1 ({dist.get_backend()}), the flagship "
+          f"B={b} T={mel_len} bf16 dropout 0.1, 10 steps each in turn: "
+          f"wall {ms['ddp']:.3f} ms against the plain step's "
+          f"{ms['plain']:.3f} ms, CUDA events (the host's gaps included) "
+          f"{statistics.median(events['ddp']):.3f} against "
+          f"{statistics.median(events['plain']):.3f} ms (medians); the "
+          f"device time is in the profiles' phase")
+    for name, label in (("plain", "the plain step beside 21(b)'s DDP"),
+                        ("ddp", "21(b)'s DDP step at world size 1")):
+        PROFILES.append(partial(print_profile, label,
+                                partial(step, states[name], batch), 1,
+                                ms[name]))
+    return launches
+
+
+def end_parallel():
+    """Leave 21(b)'s process group, once its profiles ran."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def phase_parallel(gen) -> dict:
+    """Phase 21. Returns the launches of its main paths: (a)'s ranks',
+    (b)'s and (d)'s steps."""
+    launches = phase_ddp_vs_single(gen)
+    for key, value in phase_ddp_wrapper_cost().items():
+        launches[key] = launches.get(key, 0) + value
+    return launches
+
+
+def prepare_multihost_cli():
+    """21(b)'s training CLI: ``cli/train.py --multihost`` under NCCL at
+    world size 1 on the transformer flagship's corpus, run with phase
+    5's CLIs; its synthesis CLI reads rank 0's checkpoint."""
+    phase_train_cli(torch.Generator().manual_seed(21), "fastspeech2",
+                    name="fastspeech2 --multihost",
+                    train_flags=["--multihost", "--coordinator",
+                                 f"127.0.0.1:{free_port()}",
+                                 "--num_processes", "1", "--process_id",
+                                 "0"])
+
+
 def worst_err(errs: dict, peaks: dict, names) -> dict:
     """The error of the entry's worst output among ``names``, the one
     with the largest err / max|ref|: its max abs error, its own max|ref|
@@ -6023,7 +6588,8 @@ def main():
     FLAGSHIP.update(full_depth)
     sq_clis = prepare_sq_clis(new_gen)
     phase_train_cli(torch.Generator().manual_seed(19), "tacotron2")
-    with phase("CLIs of 4, 5, 6, 14, 15, 16 and 19"):
+    prepare_multihost_cli()
+    with phase("CLIs of 4, 5, 6, 14, 15, 16, 19 and 21"):
         sq_outs = phase_clis(sq_clis, vocoder_clis)
     with phase("SQ-VAE FastSpeech 2"):
         average_synthesis = phase_sq_clis(sq_clis, sq_outs)
@@ -6058,6 +6624,12 @@ def main():
     FLAGSHIP.update(full_depth)
     with phase("export"):
         phase_export(torch.Generator().manual_seed(20), smi)
+    with phase("data and sequence parallelism, RAdam, remat"):
+        parallel_launches = phase_parallel(torch.Generator().manual_seed(21))
+    print("phase 21 launches, each main path counted from 0, summed: "
+          + json.dumps(parallel_launches))
+    for kid, n in parallel_launches.items():
+        cond_launches[kid] = cond_launches.get(kid, 0) + n
 
     lines = []
     with phase("kernels at their main paths' inputs"):
@@ -6143,6 +6715,7 @@ def main():
             seconds.append(time.perf_counter() - t0)
         print("profile wall times (s): " + ", ".join(
             f"{sec:.1f}" for sec in seconds))
+        end_parallel()
 
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in PHASE_TIMES)

@@ -207,8 +207,16 @@ def test_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags, match):
         return
     if hp_extra.get("decoder_type") == "tacotron2":
         # the Tacotron 2 decoder is ported (tests/test_torch_port_tacotron2
-        # .py): its synthesis loop, then Griffin-Lim's waveform
-        cli.main(args)
+        # .py): its synthesis loop, then Griffin-Lim's waveform; untrained
+        # weights rarely stop, so the loop is held to 64 frames, on one
+        # intra-op thread (its small steps would otherwise spin against
+        # the other test workers for the host's cores)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            cli.main([*args, "--max_frames", "64"])
+        finally:
+            torch.set_num_threads(threads)
         for idx in range(3):
             mel = np.load(tmp_path / "out" / f"{idx}.npy")
             assert mel.shape[1] == 16 and np.isfinite(mel).all()

@@ -11,6 +11,7 @@ sampling, the reference init, the data layer, checkpoints and the training
 CLI with the synthesis CLI on its checkpoint.
 """
 
+import copy
 import inspect
 import os
 import types
@@ -195,8 +196,10 @@ def _opt_steps(params, tx, tparams, opt, n):
         g = _grads(i)
         updates, state = tx.update(g, state, params)
         params = optax.apply_updates(params, updates)
-        for k, p in tparams.items():
-            p.grad = torch.tensor(g[k])
+        opt.zero_grad()
+        for k, p in tparams.items():     # as a backward adds to .grad
+            grad = torch.tensor(g[k])
+            p.grad = grad if p.grad is None else p.grad + grad
         norm = opt.step()
         yield params, tparams, float(norm), float(optax.global_norm(g))
 
@@ -238,9 +241,16 @@ def test_accumulation_matches_multisteps():
 
 
 def test_radam_comes_later():
-    with pytest.raises(NotImplementedError, match="remaining tools"):
-        schedule.build_optimizer([torch.nn.Parameter(torch.zeros(2))],
-                                 "RAdam", 16)
+    # RAdam is ported (tests/test_torch_port_parallel.py holds it step for
+    # step against reference_radam): build_optimizer's clip then the
+    # reference's RAdam match the JAX chain's, degenerate steps included
+    params, tx, tparams, opt = _opt_pair("RAdam")
+    assert isinstance(opt.inner, schedule.ReferenceRAdam)
+    for ref, ours, norm, ref_norm in _opt_steps(params, tx, tparams, opt, 7):
+        np.testing.assert_allclose(norm, ref_norm, rtol=1e-6)
+        for k in OPT_SHAPES:
+            np.testing.assert_allclose(ours[k].detach().numpy(), ref[k],
+                                       rtol=1e-6, atol=1e-7)
 
 
 def test_reference_init_statistics_and_zeros():
@@ -460,8 +470,31 @@ def test_train_options_of_later_slices_raise(option, match):
         state = init_transformer_state(hp, device="cpu")
         assert state.model.style_embedding is not None
         return
-    with pytest.raises(NotImplementedError, match=match):
-        make(hp, device="cpu")
+    # remat is ported (tests/test_torch_port_parallel.py holds it against
+    # the plain step with dropout on): the step recomputes the forward in
+    # the backward and gives the plain step's loss and weights
+    batch = _train_batch()
+    plain = build_pair(warmup_step=10)[3]
+    remat = copy.deepcopy(plain)
+    logs = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)            # small steps: one intra-op thread
+    try:
+        for name, model in (("plain", plain), ("remat", remat)):
+            opt = schedule.build_optimizer(model.parameters(), "Noam", 32,
+                                           1.0, 10)
+            state = TrainState(model, opt, torch.Generator().manual_seed(0))
+            _, logs[name] = make_fastspeech2_train_step(
+                hp if name == "remat" else HParams(**SMALL), device="cpu")(
+                    state, batch)
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_allclose(float(logs["remat"]["loss_total"]),
+                               float(logs["plain"]["loss_total"]), rtol=1e-6)
+    for (name, a), b in zip(plain.state_dict().items(),
+                            remat.state_dict().values()):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
 
 
 def test_fix_mask_train_step_loss_matches_jax():
@@ -656,6 +689,21 @@ def test_train_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags,
     script, _ = _corpus(tmp_path)
     hp_path, save_dir = _write_hp(tmp_path, script, **hp_extra)
     args = ["--hp_file", hp_path, "--device", "cpu", *flags]
+    if flags == ["--multihost"]:
+        # --multihost is ported (tests/test_torch_port_parallel.py runs it
+        # at two ranks): one gloo rank steps through DDP and saves
+        port = _free_port()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)        # a small model: one thread
+        try:
+            train_cli.main([*args, "--coordinator", f"127.0.0.1:{port}",
+                            "--num_processes", "1", "--process_id", "0",
+                            "--max_steps", "1"])
+        finally:
+            torch.set_num_threads(threads)
+        state = torch.load(os.path.join(save_dir, "epoch_1", "model.pt"))
+        assert not any(k.startswith("module.") for k in state)
+        return
     if hp_extra.get("gst") or hp_extra.get("model") == "SQFastSpeech2":
         # the GST and SQ-VAE trainers are ported (tests/test_torch_port_gst
         # .py, tests/test_torch_port_sq.py): one step and its checkpoint
@@ -667,6 +715,13 @@ def test_train_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags,
         return
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(args)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def test_train_cli_starts_from_pretrain_model(tmp_path, monkeypatch):

@@ -2,7 +2,9 @@
 and AR Transformer-TTS branches of transformer_tts_tpu/cli/train.py:29-317).
 
 ``python -m transformer_tts_tpu_torch.cli.train --hp_file hparams.py
-      [--set KEY=VALUE ...] [--max_steps N] [--device cuda]``
+      [--set KEY=VALUE ...] [--max_steps N] [--device cuda]
+      [--multihost [--coordinator HOST:PORT --num_processes N
+                    --process_id I]]``
 
 An epoch loop over the script's bucketed batches with one log line per
 step (printed one step late, so the print does not hold the card back),
@@ -38,9 +40,23 @@ checkpoint). ``debug_nans`` is the nearest counterpart of
 backward, and forward hooks on every module that raise
 ``FloatingPointError`` naming the first module whose output holds a NaN
 or an infinity (each hook waits for the card: a debugging mode). The
-mel-to-mel and text-mel-mel trainers and ``--multihost`` raise
-``NotImplementedError``, naming their slices; the AR step in the
-discrete mode raises ``ValueError``, as the JAX step fails there.
+mel-to-mel and text-mel-mel trainers raise ``NotImplementedError``,
+naming their slice; the AR step in the discrete mode raises
+``ValueError``, as the JAX step fails there.
+
+``--multihost`` (the JAX CLI's :38-67, :100-107, :166-170, :278,
+:296-307) trains data-parallel, one process per card: under ``torchrun
+--nproc_per_node=N`` from its environment, or with ``--coordinator``,
+``--num_processes`` and ``--process_id`` given to each process. Each rank
+runs on ``cuda:LOCAL_RANK`` (gloo on the CPU with ``--device cpu``, NCCL
+on the card), reads its shard of every epoch's batches padded to one
+shape, and steps through DDP (train/trainer.py ``distribute``); rank 0
+alone prints the logs, writes the metrics, TensorBoard, the profile and
+the checkpoints, and every rank waits at a barrier before a resume and at
+the exit. The ranks agree on the step to stop at after a SIGTERM through
+an all-reduced flag on a gloo group of the CPU (no wait for the card),
+since a rank that stopped alone would leave DDP's next all-reduce
+hanging.
 """
 
 from __future__ import annotations
@@ -76,9 +92,6 @@ def _check_branch(hp, args) -> str:
     from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
     from transformer_tts_tpu_torch.models.transformer_tts import (
         check_supported)
-    if args.multihost:
-        later_slice("--multihost (multi-process data parallelism)",
-                    "parallelism")
     if hp.architecture == "mel-mel":
         later_slice("the mel-to-mel trainer", "mel-to-mel post-processing")
     if hp.architecture == "text-mel-mel":
@@ -208,15 +221,19 @@ def main(argv=None):
     parser.add_argument("--set", action="append", default=[],
                         metavar="KEY=VALUE", help="hparams override")
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--multihost", action="store_true")
+    parser.add_argument("--multihost", action="store_true",
+                        help="data-parallel training, one process per card "
+                             "(torchrun, or the three flags below)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="rank 0's host:port (default: torchrun's "
+                             "MASTER_ADDR:MASTER_PORT)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     args = parser.parse_args(argv)
 
     import torch
     from transformer_tts_tpu_torch.config import load_hparams
-    from transformer_tts_tpu_torch.data.dataset import TTSDataset
-    from transformer_tts_tpu_torch.data.loader import DataLoader
-    from transformer_tts_tpu_torch.train import checkpoint as ckpt
-    from transformer_tts_tpu_torch.train import trainer
+    from transformer_tts_tpu_torch.parallel import mesh
 
     hp = load_hparams(args.hp_file).override(**_overrides(args.set))
     kind = _check_branch(hp, args)
@@ -224,10 +241,31 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device "
                            "(pass --device cpu to train on the CPU)")
-    hp.log_config()
-    hp.snapshot(hp.save_dir)
+    if args.multihost:
+        device = mesh.init_distributed(args.coordinator, args.num_processes,
+                                       args.process_id, device=device.type)
+    rank, world = mesh.process_index(), mesh.process_count()
+    try:
+        _train(hp, args, kind, device, rank, world)
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
 
-    loader = DataLoader(TTSDataset(hp.train_script, hp), hp)
+
+def _train(hp, args, kind, device, rank, world):
+    """Everything after the process group: the state, the loop, the
+    logs (rank 0's)."""
+    import torch
+    from transformer_tts_tpu_torch.data.dataset import TTSDataset
+    from transformer_tts_tpu_torch.data.loader import DataLoader
+    from transformer_tts_tpu_torch.train import checkpoint as ckpt
+    from transformer_tts_tpu_torch.train import trainer
+    if rank == 0:
+        hp.log_config()
+        hp.snapshot(hp.save_dir)
+    loader = DataLoader(TTSDataset(hp.train_script, hp), hp,
+                        num_workers=hp.num_workers, shard=rank,
+                        num_shards=world)
     init, make_step = {
         "ar": (trainer.init_transformer_state,
                trainer.make_transformer_train_step),
@@ -238,7 +276,8 @@ def main(argv=None):
     state = init(hp, device=device)
     step_fn = make_step(hp, device=device)
     n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"params = {n_params / 1e6:.2f}M")
+    if rank == 0:
+        print(f"params = {n_params / 1e6:.2f}M")
 
     start_epoch = 0
     if hp.pretrain_model is not None:
@@ -248,54 +287,93 @@ def main(argv=None):
         load_dir = hp.loaded_dir or hp.save_dir
         state, start_epoch = ckpt.restore_train_checkpoint(
             load_dir, state, epoch=hp.loaded_epoch)
-        print(f"resumed from {load_dir} epoch {start_epoch} "
-              f"(step {state.step})")
+        if rank == 0:
+            print(f"resumed from {load_dir} epoch {start_epoch} "
+                  f"(step {state.step})")
+    if args.multihost:
+        state = trainer.distribute(state, device)
+        if rank == 0:
+            print(f"data parallel over {world} processes "
+                  f"({torch.distributed.get_backend()})")
 
     from transformer_tts_tpu_torch.utils import (
         MetricsLogger, StepTimer, start_profiler, stop_profiler)
-    metrics = MetricsLogger(os.path.join(hp.save_dir, hp.log_dir))
+    metrics = (MetricsLogger(os.path.join(hp.save_dir, hp.log_dir))
+               if rank == 0 else None)
     timer = StepTimer()
     dump_images = (make_image_dump(hp, device, metrics)
-                   if hp.tb_images and kind == "fastspeech2" else None)
+                   if hp.tb_images and kind == "fastspeech2" and rank == 0
+                   else None)
 
     def emit(pending):
-        """Print and record one step's logs; the float() calls wait for
-        the card, so this runs after the next step has been queued."""
+        """Print and record one step's logs (rank 0) and check the loss
+        (every rank: the logs are the global batch's); the float() calls
+        wait for the card, so this runs after the next step has been
+        queued."""
         epoch, step, t0, logs = pending
         values = {k: float(v) for k, v in sorted(logs.items())}
-        parts = " ".join(f"{k}={v:.4f}" for k, v in values.items())
-        print(f"epoch {epoch + 1} step {step} {parts} "
-              f"({time.time() - t0:.3f}s)")
-        sys.stdout.flush()
-        metrics.log(step, steps_per_sec=timer.steps_per_sec, **values)
+        if metrics is not None:
+            parts = " ".join(f"{k}={v:.4f}" for k, v in values.items())
+            print(f"epoch {epoch + 1} step {step} {parts} "
+                  f"({time.time() - t0:.3f}s)")
+            sys.stdout.flush()
+            metrics.log(step, steps_per_sec=timer.steps_per_sec, **values)
         if not math.isfinite(values["loss_total"]):
             raise AssertionError("loss is nan")
 
     with (debug_nans(state.model) if hp.debug_nans else nullcontext()), \
             preemption_guard() as preempted:
-        prof = start_profiler(hp.profile_dir) if hp.profile_dir else None
+        prof = (start_profiler(hp.profile_dir)
+                if hp.profile_dir and rank == 0 else None)
         try:
             _epochs(hp, args, loader, state, step_fn, start_epoch, emit,
-                    timer, dump_images, preempted)
+                    timer, dump_images, stop_agreement(preempted, world))
         finally:
             if prof is not None:
                 path = stop_profiler(prof, hp.profile_dir)
                 print(f"profile written to {path}")
-            metrics.close()
-    print("training finished")
+            if metrics is not None:
+                metrics.close()
+            if world > 1:
+                ckpt.barrier()
+    if rank == 0:
+        print("training finished")
+
+
+def stop_agreement(preempted: dict, world: int):
+    """``stop()``: whether to stop after this step. With more than one
+    process, every rank's flag is all-reduced (max) on a gloo group of
+    the CPU, so all stop at the same step and none waits for the card."""
+    if world == 1:
+        return lambda: preempted["stop"]
+    import torch
+    import torch.distributed as dist
+    group = dist.new_group(backend="gloo")
+
+    def stop() -> bool:
+        flag = torch.tensor([1 if preempted["stop"] else 0])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        return bool(flag.item())
+    return stop
 
 
 def _epochs(hp, args, loader, state, step_fn, start_epoch, emit, timer,
-            dump_images, preempted):
+            dump_images, stop):
     """The epoch loop: steps, one-step-lagged logs, images, the epoch's
     checkpoint, and the preemption checkpoint when a signal came."""
+    from transformer_tts_tpu_torch.parallel.mesh import check_local_batch
     from transformer_tts_tpu_torch.train import checkpoint as ckpt
     pending = None
     done = False
+    stopping = False
+    first = True
     for epoch in range(start_epoch, hp.max_epoch):
         t_epoch = time.time()
         for batch in loader:
             t0 = time.time()
+            if first and state.ddp is not None:
+                check_local_batch(batch)
+                first = False
             state, logs = step_fn(state, batch)
             timer.tick()
             if (dump_images is not None
@@ -306,21 +384,26 @@ def _epochs(hp, args, loader, state, step_fn, start_epoch, emit, timer,
             pending = ((epoch, state.step, t0, logs)
                        if state.step % hp.log_every == 0 else None)
             done = bool(args.max_steps) and state.step >= args.max_steps
-            if done or preempted["stop"]:
+            stopping = stop()
+            if done or stopping:
                 break
         if pending is not None:
             emit(pending)
             pending = None
+        writer = ckpt.is_writer()
         if ckpt.should_save(epoch + 1, hp.max_epoch, hp.save_per_epoch):
             path = ckpt.save_train_checkpoint(
                 hp.save_dir, state, epoch + 1, hp,
                 with_optimizer=(epoch + 1) % hp.save_per_epoch == 0)
-            print(f"saved {path}")
-        print(f"epoch {epoch + 1} done in {time.time() - t_epoch:.1f}s")
-        if preempted["stop"]:
+            if writer:
+                print(f"saved {path}")
+        if writer:
+            print(f"epoch {epoch + 1} done in {time.time() - t_epoch:.1f}s")
+        if stopping:
             ckpt.save_train_checkpoint(hp.save_dir, state, epoch + 1, hp)
-            print(f"preemption checkpoint saved at epoch {epoch + 1} "
-                  f"(step {state.step})")
+            if writer:
+                print(f"preemption checkpoint saved at epoch {epoch + 1} "
+                      f"(step {state.step})")
             break
         if done:
             break

@@ -5,8 +5,8 @@ The port's own copy of the JAX package's config contract
 (``from_file``, ``override``, ``as_dict``, ``snapshot``), ``load_hparams`` and
 ``is_nar_model``, so an ``hparams.py`` written for one package loads in
 the other. Keys that only the JAX package reads (``mesh_shape``,
-``prng_impl``, ``remat``, ...) are kept so such files load unchanged; the
-port ignores them. ``log_config`` reports torch and the CUDA device.
+``prng_impl``, ...) are kept so such files load unchanged; the port
+ignores them. ``log_config`` reports torch and the CUDA device.
 """
 
 from __future__ import annotations
@@ -212,10 +212,11 @@ _DEFAULTS: Dict[str, Any] = {
     # flash-attention kernel: attention over at least FLASH_MIN_KEY_LEN
     # keys goes to it (ops/attention.py); O(T) score storage, not O(T^2)
     "use_flash_attention": True,
-    # kept so the JAX package's hparams files load here: the port's
-    # training CLI reads log_every, debug_nans (anomaly detection and
-    # non-finite-output hooks) and profile_dir (a torch.profiler trace),
-    # and raises for remat when set (its slice comes later)
+    # the port's training reads remat (the FastSpeech 2 forward
+    # recomputed in the backward), log_every, debug_nans (anomaly
+    # detection and non-finite-output hooks), profile_dir (a
+    # torch.profiler trace) and num_workers (the loader's threads);
+    # mesh_shape is kept so the JAX package's hparams files load here
     "mesh_shape": None,
     "remat": False,
     "debug_nans": False,

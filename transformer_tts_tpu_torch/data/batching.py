@@ -20,7 +20,7 @@ padded with 0, ``gender`` and ``hop_size`` (B,) int32; pad rows hold 0.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -41,11 +41,15 @@ def pick_bucket(value: int, buckets: Sequence[int], *,
 
 
 def pick_batch_bucket(n: int, buckets: Sequence[int] = (1, 2, 4, 8, 16, 32,
-                                                        64, 128)) -> int:
+                                                        64, 128),
+                      multiple: int = 1) -> int:
+    """Smallest bucket >= n that is a multiple of ``multiple``; past the
+    largest, round up to a multiple of max(128, multiple)."""
     for b in buckets:
-        if n <= b:
+        if n <= b and b % multiple == 0:
             return b
-    return -(-n // 128) * 128
+    step = max(128, multiple)
+    return -(-n // step) * step
 
 
 def _clip_durations(alignment: np.ndarray, mel_len: int) -> None:
@@ -83,18 +87,27 @@ def _conditioning(samples: List[dict], b: int,
     return out
 
 
-def collate(samples: List[dict], hp, *,
-            pad_batch: bool = False) -> Dict[str, np.ndarray]:
+def collate(samples: List[dict], hp, *, text_len: Optional[int] = None,
+            mel_len: Optional[int] = None, batch: Optional[int] = None,
+            pad_batch: bool = False,
+            batch_multiple: int = 1) -> Dict[str, np.ndarray]:
     """-> {text, pos_text, text_length} int32 arrays and the samples'
     conditioning, and for training samples also mel (B, T, mel_dim),
     pos_mel, mel_length, stop_token and (FastSpeech 2) alignment, f0 and
-    energy."""
+    energy. ``text_len``, ``mel_len`` and ``batch`` fix the padded shape
+    (the loader's ``fixed_shapes``); else the buckets pick it, the batch a
+    multiple of ``batch_multiple`` with ``pad_batch``."""
     from transformer_tts_tpu_torch.config import is_nar_model
     r = 1 if is_nar_model(hp.model) else hp.reduction_rate
     n_real = len(samples)
-    b = pick_batch_bucket(n_real) if pad_batch else n_real
-    text_len = pick_bucket(max(s["text_length"] for s in samples),
-                           hp.text_buckets)
+    if batch is not None:
+        b = batch
+    elif pad_batch:
+        b = pick_batch_bucket(n_real, multiple=batch_multiple)
+    else:
+        b = n_real
+    text_len = text_len or pick_bucket(
+        max(s["text_length"] for s in samples), hp.text_buckets)
     text = np.zeros((b, text_len), np.int32)
     pos_text = np.zeros((b, text_len), np.int32)
     for i, s in enumerate(samples):
@@ -108,8 +121,9 @@ def collate(samples: List[dict], hp, *,
     if "mel" not in samples[0]:
         return out
 
-    mel_len = pick_bucket(max(s["mel_length"] for s in samples),
-                          hp.length_buckets, multiple=r)
+    mel_len = mel_len or pick_bucket(
+        max(s["mel_length"] for s in samples), hp.length_buckets,
+        multiple=r)
     mel_len = -(-mel_len // r) * r
     if np.issubdtype(samples[0]["mel"].dtype, np.integer):
         mel_pad, mel_dtype = CODE_PAD, np.int32

@@ -24,7 +24,8 @@ file name, 1 for ``hop256``, 2 for ``hop160``, else 0; ``spk_emb``
 (``"x_vector"``); ``accent`` (``accent_emb``) the space-separated ids of
 column 2 too, the same column as the speaker id, as in the JAX package;
 ``gender`` (``gender_emb``) the int of column 3. SentencePiece text comes
-with a later slice.
+with a later slice. ``load_batch_samples`` reads a batch's mels with the
+native reader (data/native.py).
 """
 
 from __future__ import annotations
@@ -103,19 +104,29 @@ class TTSDataset(ScriptDataset):
     FastSpeech 2 the alignment, f0 and energy targets the hparams ask
     for."""
 
-    def __init__(self, script_path: str, hp):
+    def __init__(self, script_path: str, hp, *,
+                 pitch_pred: Optional[bool] = None,
+                 energy_pred: Optional[bool] = None):
         super().__init__(script_path, hp)
         self.is_ar = not is_nar_model(hp.model)
+        self.pitch_pred = hp.pitch_pred if pitch_pred is None else pitch_pred
+        self.energy_pred = (hp.energy_pred if energy_pred is None
+                            else energy_pred)
         self.normalizer = Normalizer(hp.mean_file, hp.var_file, hp.mel_dim)
 
     def _sibling(self, mel_name: str, tail: str, dtype) -> np.ndarray:
         return np.load(mel_name.replace(".npy", tail)).astype(dtype)
 
-    def __getitem__(self, idx: int) -> Dict[str, Any]:
+    def __getitem__(self, idx: int, *,
+                    _preloaded_mel: Optional[np.ndarray] = None
+                    ) -> Dict[str, Any]:
         hp = self.hp
         sample = super().__getitem__(idx)
         mel_name = sample["mel_name"]
-        if hp.output_type:
+        if _preloaded_mel is not None:
+            sample["mel"] = _preloaded_mel
+            sample["mel_length"] = _preloaded_mel.shape[0]
+        elif hp.output_type:
             tokens = np.load(mel_name).astype(np.int32)
             sample["mel"] = tokens[:, None] if tokens.ndim == 1 else tokens
             sample["mel_length"] = sample["mel"].shape[0]
@@ -132,12 +143,36 @@ class TTSDataset(ScriptDataset):
         if not self.is_ar:
             sample["alignment"] = self._sibling(
                 mel_name, hp.tail_alignment + ".npy", np.int32)
-        if hp.pitch_pred:
+        if self.pitch_pred:
             sample["f0"] = self._sibling(mel_name, "_f0.npy", np.float32)
-        if hp.energy_pred:
+        if self.energy_pred:
             sample["energy"] = self._sibling(mel_name, "_energy.npy",
                                              np.float32)
         return sample
+
+    def load_batch_samples(self, indices, n_threads: int = 8):
+        """The samples of ``indices``, their mels read and normalised by
+        the native reader in one call (data/native.py) and the rest by
+        ``__getitem__``. The AR models (the go frame), the discrete mode
+        and containers other than npy and HTK go through ``__getitem__``
+        whole, as does a row the reader refuses or one that fills its
+        buffer (it may be cut). The mels are views of the reader's buffer
+        for this thread, valid until its next call: ``collate`` copies
+        them."""
+        from transformer_tts_tpu_torch.data import native
+        paths = [self.rows[i][0] for i in indices]
+        if (self.is_ar or self.hp.output_type
+                or not all(p.endswith(".npy") or ".htk" in p
+                           for p in paths)):
+            return [self[i] for i in indices]
+        mean, var = self.normalizer.arrays()
+        max_len = max(max(self.hp.length_buckets), 4096)
+        buf, lengths = native.load_mel_batch(
+            paths, max_len, self.hp.mel_dim, mean, var,
+            n_threads=n_threads)
+        return [self[i] if n < 0 or n >= max_len
+                else self.__getitem__(i, _preloaded_mel=buf[row, :n])
+                for row, (i, n) in enumerate(zip(indices, lengths))]
 
     def mel_lengths(self, cache_file: Optional[str] = None) -> np.ndarray:
         """Per-utterance mel lengths, from the .npy headers alone (cached

@@ -9,14 +9,15 @@ settings the loader uses).
 * ``NumBatchSampler``: a fixed batch size and a remainder batch.
 
 Both reshuffle the batch order every epoch from ``seed``, as the JAX
-package's do. Sharding batches across hosts comes with data parallelism
-(the slice "parallelism and remaining tools").
+package's do. ``shard_batches`` (:128-135) deals each data-parallel rank
+every n-th batch of the epoch, the list first padded from its start to a
+multiple of n, so the ranks take the same number of steps.
 """
 
 from __future__ import annotations
 
 import random
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
@@ -78,3 +79,13 @@ class NumBatchSampler:
 
     def __len__(self) -> int:
         return len(self.all_indices)
+
+
+def shard_batches(batches: Sequence[Sequence[int]], shard: int,
+                  num_shards: int) -> List[List[int]]:
+    """Rank ``shard``'s batches of ``num_shards``: disjoint, and as many
+    on every rank (the list padded with its first batches)."""
+    batches = [list(b) for b in batches]
+    per = -(-len(batches) // num_shards)
+    padded = batches + batches[:per * num_shards - len(batches)]
+    return padded[shard::num_shards]

@@ -13,10 +13,22 @@ BatchNorm, ReLU, pointwise conv, dropout). BatchNorm follows flax: eps
 with the batch's statistics over every frame, padded ones included, and
 moves the running variance towards the *biased* batch variance, as flax
 does (torch's own BatchNorm moves it towards the unbiased one).
+
+Under data parallelism (``parallel/mesh.data_parallel`` sets each norm's
+``stats_group``) the per-channel sums of x and x^2 and the count are
+all-reduced in fp32 through a differentiable collective, so every rank
+normalises with the global batch's mean and biased variance and moves its
+running statistics by the same values: what pjit gives flax over the
+logical global batch. ``nn.SyncBatchNorm`` is not used: its running
+variance moves towards the unbiased variance, and it refuses CPU tensors.
+``frozen_statistics`` keeps the running statistics still (a remat
+recompute runs the forward a second time).
 """
 
 from __future__ import annotations
 
+import warnings
+from contextlib import contextmanager
 from typing import Tuple, Union
 
 import torch
@@ -27,21 +39,45 @@ from torch import nn
 LN_EPS = 1e-6
 
 
+def differentiable_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``; its backward sums
+    the ranks' gradients the same way."""
+    from torch.distributed.nn.functional import all_reduce
+    with warnings.catch_warnings():
+        # deprecated in newer torch for _functional_collectives, whose
+        # autograd older versions lack
+        warnings.simplefilter("ignore", FutureWarning)
+        return all_reduce(x, group=group)
+
+
 def _flax_train_norm(bn: nn.modules.batchnorm._BatchNorm,
                      x: torch.Tensor) -> torch.Tensor:
     """flax's train-mode BatchNorm on (B, C, ...): mean and variance in
-    fp32 over every axis but C, the variance as max(0, E[x^2] - E[x]^2)
-    (flax's fast variance, biased), and the running statistics moved by
-    ``momentum`` towards those values."""
+    fp32 over every axis but C (and over the ranks of ``bn.stats_group``),
+    the variance as max(0, E[x^2] - E[x]^2) (flax's fast variance,
+    biased), and the running statistics moved by ``momentum`` towards
+    those values unless ``bn.frozen``."""
     dims = (0,) + tuple(range(2, x.dim()))
     shape = (-1,) + (1,) * (x.dim() - 2)
     xf = x.float()
-    mean = xf.mean(dim=dims)
-    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
-    with torch.no_grad():
-        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
-        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
-        bn.num_batches_tracked.add_(1)
+    group = getattr(bn, "stats_group", None)
+    if group is None:
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    else:
+        count = torch.full((1,), float(xf.numel() // xf.shape[1]),
+                           device=xf.device)
+        sums = differentiable_all_reduce(
+            torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]),
+            group)
+        c = xf.shape[1]
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+    if not getattr(bn, "frozen", False):
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+            bn.num_batches_tracked.add_(1)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
     return y.to(x.dtype)
@@ -67,6 +103,23 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         return _flax_train_norm(self, x)
+
+
+FLAX_NORMS = (FlaxBatchNorm1d, FlaxBatchNorm2d)
+
+
+@contextmanager
+def frozen_statistics(model: nn.Module):
+    """The running statistics of ``model``'s flax-style BatchNorms stay
+    still inside the block."""
+    norms = [m for m in model.modules() if isinstance(m, FLAX_NORMS)]
+    for m in norms:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen = False
 
 
 def batch_norm(channels: int) -> nn.BatchNorm1d:

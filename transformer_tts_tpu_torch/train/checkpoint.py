@@ -12,7 +12,13 @@ Training saves one directory per epoch, ``save_dir/epoch_N/``, holding
 synthesis ``--load_name``) and ``train_state.pt``: the step, the epoch, the
 generator's state and, when ``with_optimizer``, the optimizer's state.
 ``restore_train_checkpoint`` resumes from one; an epoch saved without the
-optimizer keeps the fresh one, as in the JAX package.
+optimizer keeps the fresh one, as in the JAX package. Under data
+parallelism rank 0 alone writes (the ranks hold the same weights), and
+every rank waits at a ``barrier`` before a resume reads, so none reads a
+checkpoint that is still being written (the JAX CLI's :296-307). An
+optimizer saved mid-accumulation keeps the partial sum of the gradients;
+under data parallelism that is the ranks' mean (``share_partial_sums``),
+so a resume goes on as the uninterrupted run would.
 ``resolve_checkpoint`` picks the directory a synthesis ``--load_name``
 (with ``--epoch``) names, as the JAX package's ``_resolve_path``.
 
@@ -94,10 +100,44 @@ def should_save(epoch: int, max_epoch: int, save_per_epoch: int) -> bool:
     return m >= save_per_epoch - 10 or m == 0
 
 
+def is_writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or the only one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    """Wait for every rank of the default group (none outside one)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def share_partial_sums(optimizer) -> None:
+    """Mid-accumulation under DDP each rank's ``.grad`` holds its own
+    partial sum (those micro-steps ran under ``no_sync``): replace it on
+    every rank by the mean over the ranks, which rank 0 then saves.
+    Training goes on as it would have: the last micro-step's all-reduce
+    averages the sums, and the average is linear."""
+    import torch.distributed as dist
+    if not optimizer.mini_step:
+        return
+    world = dist.get_world_size()
+    for p in optimizer.params:     # step() gave each a .grad
+        dist.all_reduce(p.grad)
+        p.grad.div_(world)
+
+
 def save_train_checkpoint(save_dir: str, state, epoch: int, hp, *,
                           with_optimizer: bool = True) -> str:
-    """Save a ``TrainState`` as ``save_dir/epoch_<epoch>/``."""
+    """Save a ``TrainState`` as ``save_dir/epoch_<epoch>/`` (on rank 0
+    alone under data parallelism; the other ranks only return the
+    path)."""
     path = epoch_dir(save_dir, epoch)
+    if with_optimizer and state.ddp is not None:
+        share_partial_sums(state.optimizer)
+    if not is_writer():
+        return path
     save_checkpoint(state.model, path)
     hp.snapshot(path)
     payload = {"step": state.step, "epoch": epoch,
@@ -112,7 +152,8 @@ def restore_train_checkpoint(save_dir: str, state,
                              epoch: Optional[int] = None) -> Tuple[object,
                                                                    int]:
     """Load ``epoch`` (default: the newest) into ``state``; returns
-    (state, epoch)."""
+    (state, epoch). Every rank waits at ``barrier`` first."""
+    barrier()
     epochs = list_epochs(save_dir)
     if not epochs:
         raise FileNotFoundError(f"no checkpoints under {save_dir}")

@@ -21,16 +21,61 @@ the pad 320, the two summed, for mel_pre and mel_post, with
 and energy losses still apply. The AR loss is L1 on the pre and
 post mel and the stop token's BCE with a positive-class weight, in the
 stable ``logaddexp`` form.
+
+Data parallelism: a plain mean over a rank's fixed-shape batch averages
+under DDP to the global batch's mean, but a mean over valid elements does
+not when the ranks hold different numbers of them. Inside
+``global_means(group)`` every mean over a mask (``l1`` and
+``stop_token_loss`` with one, ``softmax_output_loss``'s valid codes,
+``masked_mean``) divides the rank's sum by the group's count (all-reduced,
+no gradient) over the group's size, so DDP's average of the ranks' losses
+is the global batch's masked mean, as JAX computes it on the logical
+global batch.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from transformer_tts_tpu_torch.data.batching import CODE_PAD
+
+_GROUP = []                  # the data-parallel group of global_means
+
+
+@contextmanager
+def global_means(group):
+    """Masked means inside the block are the global batch's over the
+    ranks of ``group`` (None: this process's)."""
+    _GROUP.append(group)
+    try:
+        yield
+    finally:
+        _GROUP.pop()
+
+
+def mean_count(count: torch.Tensor) -> torch.Tensor:
+    """The denominator of a masked mean of ``count`` (fp32) valid
+    elements, at least 1: the group's count over its size inside
+    ``global_means``."""
+    count = count.float()
+    if _GROUP and _GROUP[-1] is not None:
+        import torch.distributed as dist
+        group = _GROUP[-1]
+        count = count.detach().clone()
+        dist.all_reduce(count, group=group)
+        return count.clamp(min=1.0) / dist.get_world_size(group)
+    return count.clamp(min=1.0)
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """sum(values * mask) / ``mean_count``(sum(mask)); ``mask`` broadcasts
+    to ``values``."""
+    mask = mask.expand(values.shape).float()
+    return (values * mask).sum() / mean_count(mask.sum())
 
 
 def l1(pred: torch.Tensor, target: torch.Tensor,
@@ -40,8 +85,7 @@ def l1(pred: torch.Tensor, target: torch.Tensor,
     err = (pred.float() - target.float()).abs()
     if mask is None:
         return err.mean()
-    mask = mask.expand(err.shape).float()
-    return (err * mask).sum() / mask.sum().clamp(min=1.0)
+    return masked_mean(err, mask)
 
 
 def channel_wise_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -132,8 +176,7 @@ def stop_token_loss(logits: torch.Tensor, target: torch.Tensor,
            + (1.0 - z) * torch.logaddexp(zero, x))
     if mask is None:
         return per.mean()
-    mask = mask.expand(per.shape).float()
-    return (per * mask).sum() / mask.sum().clamp(min=1.0)
+    return masked_mean(per, mask)
 
 
 def transformer_tts_loss(mel_pre: torch.Tensor, mel_post: torch.Tensor,
@@ -166,12 +209,12 @@ def softmax_output_loss(pred: torch.Tensor, targets: torch.Tensor,
         logits = pred[:, :, k * num_classes:(k + 1) * num_classes].float()
         t = targets[:, :, k].long()
         valid = t != ignore_index
-        n = valid.sum().clamp(min=1)
+        n = mean_count(valid.sum())
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, torch.where(valid, t, 0)[..., None])
         total = total + torch.where(valid, nll[..., 0], 0.0).sum() / n
         logs[f"accuracy_{k + 1}"] = (
-            (valid & (logits.argmax(-1) == t)).sum() / n.float())
+            (valid & (logits.argmax(-1) == t)).sum() / n)
     return total, logs
 
 

@@ -54,12 +54,34 @@ step count before the update, and draw the noise on the model's device
 step drops the alignment and takes mean_b |sum_l exp(log_d) - mel_len|
 over valid phones as the duration loss, the AR-ELBO MSE on mel_pre, L1 on
 mel_post, f0 and energy, and the SQ-VAE loss.
+
+``remat`` (the FastSpeech 2 step, JAX :219-222) runs the whole forward
+under ``torch.utils.checkpoint`` (``use_reentrant=False``), so the
+backward recomputes it. The recompute must draw what the first run drew:
+the state's generator (the attention kernels' dropout seeds, the SQ-VAE's
+Gumbel noise) is set back to its state before the forward at the start
+of each run, torch's default generators (the plain dropouts) are kept by
+the checkpoint's ``preserve_rng_state``, and the recompute leaves the
+BatchNorm running statistics still, so they move once per step, as
+flax's ``batch_stats`` do under ``jax.checkpoint``. The checkpoint sits
+inside the module the step calls (``StepModule``), the one DDP wraps, so
+the recompute runs the model alone and never DDP's forward a second time.
+
+Data parallelism (``distribute``): the step module runs through a DDP
+wrapper (``state.ddp``) while ``state.model`` stays the bare module; the
+BatchNorms take the global batch's statistics and the losses' masked
+means the global counts (train/losses.py ``global_means``); the logs are
+averaged over the ranks, so they are the global batch's; the rank is
+folded into the dropout streams after the initial draw, so rows of
+different ranks draw different masks; with ``accum_grad`` > 1 the
+non-final micro-steps run under DDP's ``no_sync``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from contextlib import nullcontext
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -67,15 +89,16 @@ from torch import nn
 
 from transformer_tts_tpu_torch.config import HParams
 from transformer_tts_tpu_torch.models.fastspeech2 import (
-    _variance_stats, build_fastspeech2, later_slice)
+    _variance_stats, build_fastspeech2)
 from transformer_tts_tpu_torch.models.fastspeech2_sq import (
     build_sq_fastspeech2)
 from transformer_tts_tpu_torch.models.transformer_tts import (
     build_transformer_tts, check_supported as check_ar_supported)
+from transformer_tts_tpu_torch.ops.feedforward import frozen_statistics
 from transformer_tts_tpu_torch.ops.masks import create_masks
 from transformer_tts_tpu_torch.train.losses import (
-    ctc_aux_loss, fastspeech2_loss, l1, mse_loss_arelbo,
-    transformer_tts_loss)
+    ctc_aux_loss, fastspeech2_loss, global_means, l1, mean_count,
+    mse_loss_arelbo, transformer_tts_loss)
 from transformer_tts_tpu_torch.train.schedule import (
     Optimizer, apply_reference_init, build_optimizer)
 
@@ -89,8 +112,26 @@ SQ_BATCH_KEYS = ("text", "pos_text", "mel", "pos_mel", "f0", "energy",
                  "spk_emb", "accent")
 
 
+class StepModule(nn.Module):
+    """The module a train step calls, and the one DDP wraps: the model,
+    whose forward runs under ``remat_forward`` when the step asks
+    (``remat=True``). So the backward's recompute stays inside DDP's
+    forward and calls the model alone."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args, remat: bool = False, **kwargs):
+        if remat:
+            return remat_forward(self.model, *args, **kwargs)
+        return self.model(*args, **kwargs)
+
+
 class TrainState:
-    """The model, its optimizer, the step count and the generator."""
+    """The model, its optimizer, the step count and the generator; under
+    data parallelism also the DDP wrapper of its ``StepModule`` (``ddp``,
+    over the default process group)."""
 
     def __init__(self, model: nn.Module, optimizer: Optimizer,
                  generator: torch.Generator, step: int = 0):
@@ -98,16 +139,53 @@ class TrainState:
         self.optimizer = optimizer
         self.generator = generator
         self.step = step
+        self.step_module = StepModule(model)
+        self.ddp: Optional[nn.Module] = None
+
+    @property
+    def forward_module(self) -> nn.Module:
+        """The module a train step calls: the DDP wrapper, if any, else
+        the ``StepModule``."""
+        return self.ddp if self.ddp is not None else self.step_module
+
+    def sync_context(self):
+        """DDP's ``no_sync`` for a micro-step whose gradients stay local
+        (not the last of an accumulation), else nothing."""
+        if self.ddp is None or self.optimizer.syncs:
+            return nullcontext()
+        return self.ddp.no_sync()
+
+    def means(self):
+        """The losses' masked means over the data-parallel group."""
+        import torch.distributed as dist
+        return global_means(dist.group.WORLD if self.ddp is not None
+                            else None)
 
 
-def _check_supported(hp: HParams) -> None:
-    if hp.remat:
-        later_slice("whole-forward rematerialisation (remat)",
-                    "remaining tools")
+def fold_rank(state: TrainState, rank: int) -> None:
+    """Fold ``rank`` into the state's generator and torch's default
+    generators: one draw from the state's generator, the same on every
+    rank (every rank built the same state), then each stream reseeded
+    from it and the rank."""
+    base = int(torch.randint(0, 2 ** 62, (), generator=state.generator))
+    state.generator.manual_seed((base * 1_000_003 + 2 * rank) % 2 ** 63)
+    torch.manual_seed((base * 1_000_003 + 2 * rank + 1) % 2 ** 63)
+
+
+def distribute(state: TrainState, device=None) -> TrainState:
+    """Make ``state`` a data-parallel rank's (after
+    ``parallel.init_distributed``): the model wrapped in DDP over the
+    default group (rank 0's weights broadcast), the BatchNorms'
+    statistics global and the rank folded into the dropout streams.
+    ``state.model`` stays the bare module."""
+    import torch.distributed as dist
+    from transformer_tts_tpu_torch.parallel.mesh import data_parallel
+    state.ddp = data_parallel(state.step_module, device)
+    fold_rank(state, dist.get_rank())
+    return state
 
 
 def _init_state(build, hp: HParams, device) -> TrainState:
-    _check_supported(hp)
     torch.manual_seed(hp.seed)
     model = build(hp, device=device, seed=hp.seed)
     generator = torch.Generator().manual_seed(hp.seed)
@@ -163,11 +241,31 @@ def batch_to(batch: Dict, device, keys) -> Dict[str, torch.Tensor]:
     return out
 
 
+def remat_forward(model: nn.Module, *args, generator: torch.Generator,
+                  **kwargs):
+    """``model(*args, generator=generator, **kwargs)`` under a
+    non-reentrant checkpoint: the backward recomputes it with the same
+    draws from ``generator`` and torch's default ones, and with the
+    BatchNorm running statistics still (they moved in the first run)."""
+    from torch.utils.checkpoint import checkpoint
+    before = generator.get_state()
+    runs = []
+
+    def run(*args, **kwargs):
+        generator.set_state(before)
+        again = bool(runs)
+        runs.append(1)
+        with frozen_statistics(model) if again else nullcontext():
+            return model(*args, generator=generator, **kwargs)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=True, **kwargs)
+
+
 def make_fastspeech2_train_step(hp: HParams, *, device="cuda"):
     """``step_fn(state, batch) -> (state, logs)`` for collated batches
     (numpy arrays or tensors: text, pos_text, mel, pos_mel, alignment, f0,
     energy) padded to bucket shapes; the arrays go to ``device``."""
-    _check_supported(hp)
     f0_stats = _variance_stats(hp.f0_mean, hp.f0_std)
     energy_stats = _variance_stats(hp.energy_mean, hp.energy_std)
 
@@ -175,39 +273,61 @@ def make_fastspeech2_train_step(hp: HParams, *, device="cuda"):
         b = batch_to(batch, device, FS2_BATCH_KEYS)
         src_mask, mel_mask = create_masks(b["pos_text"], b["pos_mel"],
                                           fix_mask=hp.fix_mask)
-        model = state.model.train()
-        out = model(b["text"], src_mask, b["mel"].shape[1], b["alignment"],
-                    b.get("f0"), b.get("energy"), mel_mask,
-                    spk_emb=b.get("spk_emb"), accent=b.get("accent"),
-                    hop_size=b.get("hop_size"),
-                    temperature=(sq_temperature(state.step)
-                                 if hp.use_sq_vae else None),
-                    generator=state.generator)
-        total, logs = fastspeech2_loss(
-            out, b["mel"], b["alignment"], b.get("f0"), b.get("energy"),
-            src_mask=src_mask, mel_mask=mel_mask, masked=False,
-            use_ssim=hp.use_ssim, use_sq_vae=hp.use_sq_vae,
-            log_offset=hp.log_offset, channel_wise=hp.channel_wise,
-            channel_weight=hp.channel_weight, output_type=hp.output_type,
-            f0_stats=f0_stats, energy_stats=energy_stats)
-        if hp.CTC_training:
-            logs["loss_ctc"] = ctc_aux_loss(
-                out.ctc_logits, mel_mask[:, 0, :].sum(1), b["text"],
-                (b["text"] != 0).sum(1))
-            total = total + CTC_WEIGHT * logs["loss_ctc"]
-            logs["loss_total"] = total
-        return _update(state, total, logs)
+        state.model.train()
+        model = state.forward_module
+        temperature = (sq_temperature(state.step) if hp.use_sq_vae
+                       else None)
+
+        with state.sync_context(), state.means():
+            out = model(b["text"], src_mask, b["mel"].shape[1],
+                        b.get("alignment"), b.get("f0"), b.get("energy"),
+                        mel_mask, spk_emb=b.get("spk_emb"),
+                        accent=b.get("accent"), hop_size=b.get("hop_size"),
+                        temperature=temperature, generator=state.generator,
+                        remat=hp.remat)
+            total, logs = fastspeech2_loss(
+                out, b["mel"], b["alignment"], b.get("f0"), b.get("energy"),
+                src_mask=src_mask, mel_mask=mel_mask, masked=False,
+                use_ssim=hp.use_ssim, use_sq_vae=hp.use_sq_vae,
+                log_offset=hp.log_offset, channel_wise=hp.channel_wise,
+                channel_weight=hp.channel_weight, output_type=hp.output_type,
+                f0_stats=f0_stats, energy_stats=energy_stats)
+            if hp.CTC_training:
+                logs["loss_ctc"] = ctc_aux_loss(
+                    out.ctc_logits, mel_mask[:, 0, :].sum(1), b["text"],
+                    (b["text"] != 0).sum(1))
+                total = total + CTC_WEIGHT * logs["loss_ctc"]
+                logs["loss_total"] = total
+            return _update(state, total, logs)
 
     return step_fn
 
 
+def _in_contexts(body):
+    """``body(state, batch)`` under the state's ``sync_context`` and
+    ``means``."""
+    def step_fn(state: TrainState, batch: Dict):
+        with state.sync_context(), state.means():
+            return body(state, batch)
+    return step_fn
+
+
 def _update(state: TrainState, total: torch.Tensor, logs: Dict):
-    """Backward, clip and optimizer update; ``step += 1``."""
+    """Backward, clip and optimizer update; ``step += 1``. Under data
+    parallelism the logs are averaged over the ranks (the global batch's
+    values, as every loss's average over the ranks is)."""
     state.optimizer.zero_grad()
     total.backward()
     logs = {k: v.detach() for k, v in logs.items()}
     logs["grad_norm"] = state.optimizer.step()
     state.step += 1
+    if state.ddp is not None:
+        import torch.distributed as dist
+        keys = sorted(logs)
+        flat = torch.stack([logs[k].float().reshape(()) for k in keys])
+        dist.all_reduce(flat)
+        flat = flat / dist.get_world_size()
+        logs = dict(zip(keys, flat.unbind()))
     return state, logs
 
 
@@ -229,7 +349,7 @@ def _guided_attention_loss(attn: torch.Tensor, text_len: torch.Tensor,
     w = 1.0 - torch.exp(-((l_idx / tl - t_idx / ql) ** 2)
                         / (2.0 * sigma ** 2))
     valid = (t_idx <= ql) & (l_idx <= tl)
-    return (a * w * valid).sum() / valid.sum().clamp(min=1).float()
+    return (a * w * valid).sum() / mean_count(valid.sum())
 
 
 def make_transformer_train_step(hp: HParams, *, device="cuda"):
@@ -238,7 +358,6 @@ def make_transformer_train_step(hp: HParams, *, device="cuda"):
     length a multiple of r, pos_mel, stop_token 1.0 past each row's
     frames), padded to bucket shapes; the arrays go to ``device``."""
     check_ar_supported(hp)
-    _check_supported(hp)
     if hp.output_type:
         raise ValueError(
             f"output_type={hp.output_type!r} in the AR train step: the JAX "
@@ -263,7 +382,8 @@ def make_transformer_train_step(hp: HParams, *, device="cuda"):
             src_mask, trg_mask = create_masks(b["pos_text"],
                                               b["pos_mel"][:, :-r:r],
                                               model="transformer")
-        model = state.model.train()
+        state.model.train()
+        model = state.forward_module
         out = model(b["text"], mel_input, src_mask, trg_mask,
                     spk_emb=b.get("spk_emb"), collect_attn=ga_w > 0,
                     generator=state.generator)
@@ -283,7 +403,7 @@ def make_transformer_train_step(hp: HParams, *, device="cuda"):
             logs["loss_total"] = total
         return _update(state, total, logs)
 
-    return step_fn
+    return _in_contexts(step_fn)
 
 
 def make_sq_fastspeech2_train_step(hp: HParams, *, device="cuda"):
@@ -291,12 +411,12 @@ def make_sq_fastspeech2_train_step(hp: HParams, *, device="cuda"):
     2 for collated batches (text, pos_text, mel, pos_mel, f0, energy and
     the speakers and accents the hparams ask for; an alignment is
     ignored); the arrays go to ``device``."""
-    _check_supported(hp)
 
     def step_fn(state: TrainState, batch: Dict):
         b = batch_to(batch, device, SQ_BATCH_KEYS)
         src_mask, mel_mask = create_masks(b["pos_text"], b["pos_mel"])
-        model = state.model.train()
+        state.model.train()
+        model = state.forward_module
         mel = b["mel"]
         out = model(b["text"], src_mask, mel.shape[1], None, b.get("f0"),
                     b.get("energy"), mel_mask, spk_emb=b.get("spk_emb"),
@@ -325,4 +445,4 @@ def make_sq_fastspeech2_train_step(hp: HParams, *, device="cuda"):
         logs["loss_total"] = total
         return _update(state, total, logs)
 
-    return step_fn
+    return _in_contexts(step_fn)

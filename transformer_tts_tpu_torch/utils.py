@@ -1,6 +1,12 @@
-"""Training observability of the port (the port of ``StepTimer``,
-``MetricsLogger``, ``start_profiler`` and ``stop_profiler``,
-transformer_tts_tpu/utils.py:96-176).
+"""Training observability and auxiliary tools of the port (the port of
+transformer_tts_tpu/utils.py: ``freq_mask``, ``time_mask``,
+``spec_augment`` and ``plot_mel_and_alignment`` :21-95, ``StepTimer``,
+``MetricsLogger``, ``start_profiler`` and ``stop_profiler`` :96-176).
+
+SpecAugment masks run in numpy on the host, drawing from the
+``np.random.RandomState`` they are given (numpy's global one without),
+as the JAX package's do; ``plot_mel_and_alignment`` saves a mel with its
+duration boundaries through matplotlib's Agg backend.
 
 ``MetricsLogger`` writes one JSON line per logged step and the same
 scalars (and, on request, grayscale images) as TensorBoard events through
@@ -18,7 +24,84 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
+
+
+# -- SpecAugment (numpy, on the host) ------------------------------------
+
+def freq_mask(spec: np.ndarray, F: int = 10, num_masks: int = 1,
+              replace_with_zero: bool = False,
+              rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    rng = rng or np.random
+    cloned = spec.copy()
+    num_channels = cloned.shape[1]
+    for _ in range(num_masks):
+        f = rng.randint(0, F)
+        if f == 0 or num_channels - f <= 0:
+            continue
+        f_zero = rng.randint(0, num_channels - f)
+        fill = 0.0 if replace_with_zero else cloned.mean()
+        cloned[:, f_zero:f_zero + f] = fill
+    return cloned
+
+
+def time_mask(spec: np.ndarray, T: int = 50, num_masks: int = 1,
+              replace_with_zero: bool = False,
+              rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    rng = rng or np.random
+    cloned = spec.copy()
+    length = cloned.shape[0]
+    for _ in range(num_masks):
+        t = rng.randint(0, min(T, max(length - 1, 1)))
+        if t == 0 or length - t <= 0:
+            continue
+        t_zero = rng.randint(0, length - t)
+        fill = 0.0 if replace_with_zero else cloned.mean()
+        cloned[t_zero:t_zero + t, :] = fill
+    return cloned
+
+
+def spec_augment(spec: np.ndarray, T: int = 50, F: int = 20,
+                 num_T: int = 1, num_F: int = 1,
+                 rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """(B, T, F) batch SpecAugment with zero fill: per row a time mask,
+    then a frequency mask."""
+    out = spec.copy()
+    for i in range(out.shape[0]):
+        out[i] = time_mask(out[i], T=T, num_masks=num_T,
+                           replace_with_zero=True, rng=rng)
+        out[i] = freq_mask(out[i], F=F, num_masks=num_F,
+                           replace_with_zero=True, rng=rng)
+    return out
+
+
+# -- Alignment plot ---------------------------------------------------------
+
+def plot_mel_and_alignment(mel: np.ndarray, durations: np.ndarray,
+                           path: str, *, text_labels=None) -> str:
+    """Save a mel image with vertical duration boundaries."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(12, 4))
+    ax.imshow(np.asarray(mel).T, origin="lower", aspect="auto",
+              interpolation="none")
+    boundaries = np.cumsum(np.asarray(durations))
+    for x in boundaries[:-1]:
+        ax.axvline(x=x - 0.5, color="white", linewidth=0.5)
+    if text_labels is not None:
+        starts = np.concatenate([[0], boundaries[:-1]])
+        for s, e, lab in zip(starts, boundaries, text_labels):
+            ax.text((s + e) / 2, mel.shape[1] - 4, str(lab),
+                    ha="center", color="white", fontsize=6)
+    ax.set_xlabel("frames")
+    ax.set_ylabel("mel bin")
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
 
 
 class StepTimer:
