@@ -375,6 +375,36 @@ and each printing its wall time:
    NORM_OF_CONTROL x the control's distance) of the CPU's fp32 and
    within KERNEL_VS_CONTROL of the control's own (flax's initial draw:
    see COVERAGE_OF_CONTROL).
+22. the mel-to-mel post-processing line, run after 21 and before 7, at
+   full width (the flagship's 6 + 6 layers, students of 6 layers, FFN
+   kernel 5), random weights from seeds 22 and 23, on TRAIN_BATCH:
+   (a) the frozen teacher (the flagship restored from a checkpoint the
+       phase writes, eval, no gradients) and a v2 phone_embed student,
+       bf16 amp, dropout 0.1: 3 warm-up and 10 timed steps, each launching
+       6 K1-90 (the teacher), 6 K1-d-90 and 6 K2-90 (the student) and
+       nothing else (ms, frames/s, own peak); the residual v3 student
+       with the VQ likewise (5 steps; its EMA must move); one fp32 student
+       step at dropout 0 on CPU_STEP_BATCH, card (the simple K1/K2)
+       against CPU: the loss within 1e-4, every gradient within GRAD_TOL
+       of its own max|g|;
+   (b) the pregenerated route: the same student step on the teacher's
+       mel and phone features (6 K1-d-90, 6 K2-90), its ms beside (a)'s;
+   (c) the text-mel-mel v8 step with semantic_mask: 18 K1-d-90 and 18
+       K2-90 a step;
+   (d) a post_conformer student on the frozen teacher: 6 K1-90, 6
+       K4-d-90, 6 K5-90 a step;
+   (e) synthesize_integrate (18 K1-90 a call) and
+       synthesize_fastspeech2_post (12 K1-90) at B=1 / 768 and B=8 / 2048
+       frames, bf16: ms and RTF against RTF_LIMIT;
+   (f) TTSEngine(post_model=) and the text-mel-mel engine (B=8, bucket
+       128: 1024 frames): one call each, then each exported and its
+       artifact run in a fresh process, bit for bit the engine's;
+   (g) with the CLIs of phase 5: cli/teacher_forcing --save_phone, cli/
+       train mel-mel on a frozen teacher and on the teacher_suffix corpus,
+       cli/train text-mel-mel then cli/synthesize --save_prenet, and cli/
+       synthesize --post_model.
+   The launches of (a)-(f)'s main paths are added to the kernels line's;
+   the fp32 check's are not.
 
 It then prints the phases' wall times, the engine calls' launch counts,
 the kernels line (JSON), the nvidia-smi line, and last ``{"ok": true,
@@ -4116,14 +4146,19 @@ def check_vocoder_clis(v: dict, outs: dict):
 
 
 def phase_clis(sq: dict, vocoder: dict) -> dict:
-    """Every CLI of the run at once: the training CLIs of 5, 6, 15, 16 and
-    19 with 16's SQ runs, 4(c)'s synthesis CLIs and 14's first wave;
-    then the synthesis CLIs on the trained checkpoints with 14's second
-    and 16's averages; each checked but 16's. Returns 16's output."""
+    """Every CLI of the run at once: the training CLIs of 5, 6, 15, 16, 19
+    and 22 with 16's SQ runs, 4(c)'s synthesis CLIs and the first waves
+    of 14 and 22; then the synthesis CLIs on the trained checkpoints with
+    the second waves of 14 and 22 and 16's averages; each checked but
+    16's and 22's (their outputs: the return value, and
+    ``POST_CLIS["outs"]``). Returns 16's output."""
     synth = {f"{name} synthesis CLI": c["argv"]
              for name, c in SYNTH_CLIS.items()}
-    outs = phase_train_clis(dict(sq["runs"], **synth, **vocoder["first"]),
-                            dict(vocoder["second"], **sq["average"]))
+    outs = phase_train_clis(
+        dict(sq["runs"], **synth, **vocoder["first"], **POST_CLIS["first"]),
+        dict(vocoder["second"], **sq["average"], **POST_CLIS["second"]))
+    POST_CLIS["outs"] = {name: outs[name] for name in (
+        *POST_CLIS.pop("first"), *POST_CLIS.pop("second"))}
     for name in list(SYNTH_CLIS):
         check_synth_cli(name, outs[f"{name} synthesis CLI"])
     check_vocoder_clis(vocoder, outs)
@@ -6426,6 +6461,511 @@ def prepare_multihost_cli():
                                  "0"])
 
 
+# ---- phase 22: the mel-to-mel post-processing line -------------------------
+
+POST_STEPS = (3, 10)              # warm-up and timed steps of each step
+POST_VQ_STEPS = (2, 5)            # the residual v3 step with the VQ
+POST_SYNTH_CASES = ((1, 768), (8, 2048))
+POST_SYNTH_REPS = 10
+RTF_LIMIT = 0.01                  # PERF.md section 2
+DURATION_BIAS = math.log(1.0 + 6.0)     # ~6 frames per phone
+
+
+def post_hparams(**overrides):
+    """The transformer flagship with a mel-to-mel student (architecture
+    mel-mel): v2 with phone_embed, the defaults' 6 layers of FFN kernel 5,
+    bf16 amp, dropout 0.1, with overrides."""
+    return train_hparams(**dict(dict(architecture="mel-mel", version=2,
+                                     phone_embed=True), **overrides))
+
+
+def integrate_hparams(**overrides):
+    """The text-mel-mel flagship: version 8 (a residual and a replace
+    student of 6 layers each on the mel_pre) with semantic_mask, bf16
+    amp, dropout 0.1, with overrides."""
+    return train_hparams(**dict(dict(
+        architecture="text-mel-mel", version=8, postnet_pred=False,
+        phone_embed=True, semantic_mask=True), **overrides))
+
+
+def post_teacher(hp):
+    """22's frozen FastSpeech 2 (the flagship at ``hp``'s widths, weights
+    from seed 22, duration bias for ~6 frames per phone): written as a
+    checkpoint with FLAGSHIP's hparams (``serving_dir("post_teacher")``,
+    which 22(f)'s engine serves), then built anew and restored from it, as
+    cli/train.py restores hp.pretrain_model."""
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_fastspeech2)
+    from transformer_tts_tpu_torch.train.checkpoint import load_checkpoint
+    net = build_fastspeech2(hp, device="cpu", seed=22)
+    with torch.no_grad():
+        net.variance_adaptor.duration_predictor.linear_layer.bias.fill_(
+            DURATION_BIAS)
+    path = serving_dir("post_teacher", net)
+    teacher = build_fastspeech2(hp, device=DEVICE)
+    return load_checkpoint(teacher, path).eval()
+
+
+def timed_post_steps(label, state, step, batch, want: dict,
+                     resident: int, steps=POST_STEPS) -> dict:
+    """``steps`` warm-up then timed steps of ``step`` on ``batch``, every
+    count set to 0 just before the timed ones: each step must launch
+    ``want`` and nothing else, the losses must be finite. Returns ms (the
+    median by CUDA events), frames_s (valid mel frames), own_gb (the peak
+    over ``resident``, what the card held before the state was built:
+    weights, optimizer, teacher, activations), launches, state, logs."""
+    warm, n = steps
+    for _ in range(warm):
+        state, logs = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts({})                          # the main path starts here
+    per_step, times, losses = [], [], []
+    for _ in range(n):
+        before = read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs = step(state, batch)
+        end.record()
+        losses.append(logs["loss_total"])
+        per_step.append({k: c - before[k] for k, c in read_counts().items()})
+        times.append((start, end))
+    torch.cuda.synchronize()
+    launches = read_counts()                # it ends here
+    own_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    ms = statistics.median(s.elapsed_time(e) for s, e in times)
+    frames = int((batch["pos_mel"] > 0).sum())
+    losses = torch.stack(losses).float().cpu()
+    full = {k: 0 for k in counters()}
+    full.update(want)
+    print(f"22 {label}: {ms:.3f} ms/step (median of {n}), {frames} valid "
+          f"mel frames = {frames / ms * 1e3:.0f} frames/s, own peak "
+          f"{own_gb:.3f} GB; launches per step {json.dumps(per_step[0])}; "
+          f"losses {[round(x, 4) for x in losses.tolist()]}")
+    check(all(c == full for c in per_step),
+          f"22 {label}: launches per step {per_step[0]} differ from {want}")
+    check(bool(torch.isfinite(losses).all()), f"22 {label}: non-finite loss")
+    return dict(ms=ms, frames_s=frames / ms * 1e3, own_gb=own_gb,
+                launches=launches, state=state, logs=logs)
+
+
+def add_launches(total: dict, launches: dict):
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def post_card_vs_cpu(gen, teacher_state: dict):
+    """22(a)'s fp32 check: one frozen-teacher student step at dropout 0
+    on CPU_STEP_BATCH, on the card (the simple kernels: fp32) and on the
+    CPU from the same weights: the losses within 1e-4, each student
+    gradient within GRAD_TOL of its own max|g|, the key biases' (0 in
+    exact arithmetic) below 1e-5 of the largest. Its launches are put
+    back: no main path."""
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_fastspeech2)
+    from transformer_tts_tpu_torch.train.post_trainers import (
+        init_post_state, make_meltomel_train_step)
+    saved = read_counts()
+    hp = post_hparams(amp=False, dropout=0.0, dropout_postnet=0.0,
+                      dropout_variance_adaptor=0.0)
+    b, text_len, mel_len, frames = CPU_STEP_BATCH
+    batch = train_batch(gen, hp, b, text_len, mel_len, frames, "cpu")
+    runs = {}
+    for device in ("cpu", DEVICE):
+        teacher = build_fastspeech2(hp, device=device)
+        teacher.load_state_dict(teacher_state)
+        state = init_post_state(hp, device=device)
+        step = make_meltomel_train_step(teacher, hp, device=device)
+        set_counts({})
+        state, logs = step(state, {k: v.to(device)
+                                   for k, v in batch.items()})
+        runs[device] = (float(logs["loss_total"]),
+                        {n: p.grad.detach().float().cpu()
+                         for n, p in state.model.named_parameters()},
+                        read_counts())
+        del teacher, state, step
+    (ref_loss, ref_g, _), (loss, grads, launched) = runs["cpu"], runs[DEVICE]
+    # the key biases' gradients cancel to rounding noise on both sides
+    noise = max(max(grads[n].abs().max().item(), g.abs().max().item())
+                for n, g in ref_g.items() if zero_in_exact_arithmetic(n))
+    top = max(g.abs().max().item() for g in ref_g.values())
+    rel = {n: (grads[n] - g).abs().max().item()
+           / max(g.abs().max().item(), 1e-30) for n, g in ref_g.items()
+           if not zero_in_exact_arithmetic(n)}
+    worst = max(rel, key=rel.get)
+    used = {k: n for k, n in launched.items() if n}
+    print(f"22(a) fp32 student step card vs CPU, B={b} T={mel_len}, "
+          f"dropout 0: loss {loss:.6f} vs {ref_loss:.6f}; gradients within "
+          f"{rel[worst]:.3g} of their own max|g| (tol {GRAD_TOL}; worst "
+          f"{worst}); the key biases' noise {noise:.3g} against the top "
+          f"max|g| {top:.3g}; card launches (simple kernels) "
+          f"{json.dumps(used)}")
+    check(noise <= 1e-5 * top, "22(a): a key bias's gradient is not noise")
+    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss),
+          "22(a): the fp32 student loss differs between card and CPU")
+    check(rel[worst] <= GRAD_TOL,
+          "22(a): an fp32 student gradient differs between card and CPU")
+    check(used and all(k in ("K1", "K2-dq", "K2-dkdv") for k in used),
+          f"22(a): the fp32 step took other kernels than the simple "
+          f"K1/K2: {used}")
+    set_counts(saved)
+
+
+def phase_post_training(gen, batch) -> tuple:
+    """22(a)-(d): the frozen-teacher student step (v2, then a residual v3
+    with the VQ), its fp32 card-vs-CPU check, the pregenerated route, the
+    integrate step and the conformer student, each at full width on
+    ``batch`` (TRAIN_BATCH). Returns (launches summed, the teacher, the
+    v2 student's state, the integrate model)."""
+    from transformer_tts_tpu_torch.train.post_trainers import (
+        init_post_state, make_integrate_train_step,
+        make_meltomel_pregen_train_step, make_meltomel_train_step)
+    from transformer_tts_tpu_torch.train.trainer import (
+        init_fastspeech2_state)
+    total = {}
+    gc.collect()
+    resident = torch.cuda.memory_allocated()
+    hp = post_hparams()
+    n, n_dec = hp.n_layer_post_model, hp.n_layer_decoder
+    shape = f"B={batch['mel'].shape[0]} T={batch['mel'].shape[1]}"
+    teacher = post_teacher(hp)
+    state = init_post_state(hp, device=DEVICE)
+    a = timed_post_steps(
+        f"(a) frozen teacher + v2 student step {shape} bf16 dropout 0.1",
+        state, make_meltomel_train_step(teacher, hp, device=DEVICE), batch,
+        {"K1-90": n_dec, "K1-d-90": n, "K2-90": n}, resident)
+    add_launches(total, a["launches"])
+
+    vq_hp = post_hparams(version=3, vq_code=True)
+    vq = timed_post_steps(
+        "(a) residual v3 student with the VQ", init_post_state(
+            vq_hp, device=DEVICE),
+        make_meltomel_train_step(teacher, vq_hp, device=DEVICE), batch,
+        {"K1-90": n_dec, "K1-d-90": n, "K2-90": n}, resident,
+        steps=POST_VQ_STEPS)
+    add_launches(total, vq["launches"])
+    print(f"22(a) v3 logs: loss_vq {float(vq['logs']['loss_vq']):.5f}, "
+          f"codebook moved: "
+          f"{bool(vq['state'].model.quantize_lmfb.cluster_size.any())}")
+    check(bool(vq["state"].model.quantize_lmfb.cluster_size.any()),
+          "22(a): the VQ's EMA did not move")
+    del vq
+    post_card_vs_cpu(gen, {k: v.cpu() for k, v in
+                           teacher.state_dict().items()})
+
+    # (b) the pregenerated corpus: the teacher's output, once
+    from transformer_tts_tpu_torch.ops.masks import create_masks
+    with torch.no_grad():
+        src_mask, mel_mask = create_masks(batch["pos_text"],
+                                          batch["pos_mel"])
+        t_out = teacher(batch["text"], src_mask, batch["mel"].shape[1],
+                        batch["alignment"], batch["f0"], batch["energy"],
+                        mel_mask)
+    pregen = dict(batch, teacher_mel=t_out.mel_post.float(),
+                  teacher_phone=t_out.variance_adaptor_output.float())
+    del t_out
+    pg_hp = post_hparams(teacher_suffix="_gen")
+    b = timed_post_steps(
+        "(b) pregenerated v2 student step", init_post_state(
+            pg_hp, device=DEVICE),
+        make_meltomel_pregen_train_step(pg_hp, device=DEVICE), pregen,
+        {"K1-d-90": n, "K2-90": n}, resident)
+    add_launches(total, b["launches"])
+    print(f"22(b) the pregenerated route: {b['ms']:.3f} ms/step against the "
+          f"frozen teacher's {a['ms']:.3f} ms/step "
+          f"({a['ms'] / b['ms']:.2f}x)")
+    del b, pregen
+
+    # (d) the conformer student
+    conf_hp = post_hparams(post_conformer=True)
+    d = timed_post_steps(
+        "(d) frozen teacher + post_conformer student step",
+        init_post_state(conf_hp, device=DEVICE),
+        make_meltomel_train_step(teacher, conf_hp, device=DEVICE), batch,
+        {"K1-90": n_dec, "K4-d-90": n, "K5-90": n}, resident)
+    add_launches(total, d["launches"])
+    del d
+    torch.cuda.empty_cache()
+
+    # (c) the integrate step
+    gc.collect()
+    resident = torch.cuda.memory_allocated()
+    i_hp = integrate_hparams()
+    i_state = init_fastspeech2_state(i_hp, device=DEVICE)
+    c = timed_post_steps(
+        "(c) text-mel-mel v8 step with semantic_mask", i_state,
+        make_integrate_train_step(i_hp, device=DEVICE), batch,
+        {"K1-d-90": n_dec + 2 * n, "K2-90": n_dec + 2 * n}, resident)
+    add_launches(total, c["launches"])
+    print(f"22(c) logs: " + ", ".join(
+        f"{k} {float(v):.4f}" for k, v in sorted(c["logs"].items())))
+    integrate = c["state"].model.eval()
+    del c, i_state
+    torch.cuda.empty_cache()
+    return total, teacher, a["state"].model.eval(), integrate
+
+
+def phase_post_synthesis(gen, teacher, student, integrate) -> dict:
+    """22(e): ``synthesize_integrate`` and ``synthesize_fastspeech2_post``
+    at B=1 / 768 and B=8 / 2048 frames (bf16): each call launches K1-90
+    once per decoder and student layer and nothing else; ms (median of
+    POST_SYNTH_REPS) and RTF, against RTF_LIMIT."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_fastspeech2_post, synthesize_integrate)
+    hp = post_hparams()
+    n = hp.n_layer_post_model
+    with torch.no_grad():
+        integrate.variance_adaptor.duration_predictor.linear_layer.bias \
+            .fill_(DURATION_BIAS)
+    calls = {
+        "synthesize_integrate": (
+            lambda t, p, mf: synthesize_integrate(integrate, t, p, mf)[::2],
+            hp.n_layer_decoder + 2 * n),
+        "synthesize_fastspeech2_post": (
+            lambda t, p, mf: synthesize_fastspeech2_post(
+                teacher, student, t, p, mf, version=hp.version,
+                mel_dim_post=hp.mel_dim_post)[:2],
+            hp.n_layer_decoder + n)}
+    total = {}
+    for name, (call, want) in calls.items():
+        for b, max_frames in POST_SYNTH_CASES:
+            text, pos = text_batch(gen, b, 128, 48, hp.vocab_size)
+            text, pos = text.to(DEVICE), pos.to(DEVICE)
+            set_counts({})
+            mel, mel_len = call(text, pos, max_frames)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            add_launches(total, launches)
+            check_only(launches, "K1-90", want,
+                       f"22(e) {name} B={b} at {max_frames} frames")
+            check(mel.shape == (b, max_frames, hp.mel_dim)
+                  and bool(torch.isfinite(mel.float()).all())
+                  and int(mel_len.min()) > 0,
+                  f"22(e) {name}: mel {tuple(mel.shape)}")
+            saved = read_counts()
+            ms, (_, mel_len) = wall_ms(lambda: call(text, pos, max_frames),
+                                       POST_SYNTH_REPS, warmup=2)
+            set_counts(saved)
+            audio_s = mel_len.sum().item() * HOP_SECONDS
+            print(f"22(e) {name} B={b} L=128 max_frames={max_frames} bf16: "
+                  f"{ms:.3f} ms/call (median of {POST_SYNTH_REPS}), "
+                  f"{mel_len.sum().item()} frames = {audio_s:.3f} s audio, "
+                  f"RTF {ms / 1e3 / audio_s:.6f} (limit {RTF_LIMIT}); "
+                  f"{want} K1-90 per call")
+    return total
+
+
+def phase_post_engines(student) -> dict:
+    """22(f): the flagship FastSpeech 2 engine with ``post_model=`` (22(a)'s
+    v2 student) and the text-mel-mel engine (a fresh integrate flagship),
+    B=8 at bucket EXPORT_BUCKET: one ``synthesize`` call each (K1-90 once
+    per decoder and student layer), then each exported and its artifact
+    run in a fresh process on the engine's inputs, held bit for bit
+    against the engine (EXPORT_TOL), its K1-90 counted there."""
+    from transformer_tts_tpu_torch.infer.engine import TTSEngine
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_fastspeech2)
+    from transformer_tts_tpu_torch.train.checkpoint import save_checkpoint
+    hp = post_hparams()
+    teacher_dir = os.path.join(WORK, "serving", "post_teacher")
+    student_dir = os.path.join(WORK, "serving", "post_student")
+    save_checkpoint(student, student_dir)
+    with open(os.path.join(student_dir, "hparams.py"), "w") as fh:
+        for key, value in dict(FLAGSHIP, architecture="mel-mel",
+                               version=hp.version,
+                               phone_embed=True).items():
+            fh.write(f"{key} = {value!r}\n")
+    i_hp = integrate_hparams()
+    net = build_fastspeech2(i_hp, device="cpu", seed=23)
+    with torch.no_grad():
+        net.variance_adaptor.duration_predictor.linear_layer.bias.fill_(
+            DURATION_BIAS)
+    integrate_dir = serving_dir(
+        "post_integrate", net, architecture="text-mel-mel",
+        version=i_hp.version, postnet_pred=False, phone_embed=True,
+        semantic_mask=True)
+    rs = np.random.RandomState(22)
+    texts = serve_texts(rs, 8, EXPORT_BUCKET // 2 + 1, EXPORT_BUCKET,
+                        hp.vocab_size)
+    n = hp.n_layer_post_model
+    total, started, wants = {}, [], []
+    kw = dict(batch_size=8, frames_per_phone=8,
+              text_buckets=(EXPORT_BUCKET,), device=DEVICE)
+    for name, engine, want in (
+            ("fastspeech2_post", TTSEngine(teacher_dir,
+                                           post_model=student_dir, **kw),
+             hp.n_layer_decoder + n),
+            ("integrate", TTSEngine(integrate_dir, **kw),
+             i_hp.n_layer_decoder + 2 * n)):
+        results, launches = engine_call_launches(engine, texts)
+        add_launches(total, launches)
+        check_only(launches, "K1-90", want, f"22(f) the {name} engine")
+        check(all(r["mel"].shape[0] > 0 and np.isfinite(r["mel"]).all()
+                  for r in results), f"22(f) the {name} engine's mels")
+        out_dir = os.path.join(WORK, "export", f"post_{name}")
+        t0 = time.perf_counter()
+        manifest = engine.export(out_dir)
+        seconds = time.perf_counter() - t0
+        entry = manifest["buckets"][str(EXPORT_BUCKET)]
+        check(entry["file"].startswith(name + "_b8_"),
+              f"22(f) {name} manifest {entry}")
+        inputs = engine._padded(texts, 8, EXPORT_BUCKET)
+        saved = read_counts()
+        ms, ref = wall_ms(lambda: engine._run_padded(*inputs), EXPORT_REPS,
+                          warmup=1)
+        set_counts(saved)
+        started.append(start_artifacts([(os.path.join(out_dir,
+                                                      entry["file"]),
+                                         inputs, EXPORT_REPS)]))
+        wants.append((name, want, ms, [x.cpu() for x in ref], seconds))
+        del engine
+        torch.cuda.empty_cache()
+    for proc, (name, want, ms, ref, seconds) in zip(started, wants):
+        (got, stats), = finish_artifacts(proc)
+        err = max_err(got[0], ref[0])
+        same = [torch.equal(g, r.float() if i == 0 else r)
+                for i, (g, r) in enumerate(zip(got, ref))]
+        print(f"22(f) {name} artifact B=8 bucket {EXPORT_BUCKET}, exported "
+              f"in {seconds:.1f} s: a fresh process's call "
+              f"{stats['ms']:.3f} ms against the engine's {ms:.3f} ms; mel "
+              f"max|d| {err[0]:.3g} of max|ref| {err[1]:.3g}; bit for bit "
+              f"(mel, lengths, durations): {same}; launches "
+              f"{json.dumps(stats)}")
+        check(got[0].shape == ref[0].shape
+              and err[0] <= EXPORT_TOL * max(1.0, err[1])
+              and all(same[1:]),
+              f"22(f): the {name} artifact differs from the engine")
+        check(stats["K1-90"] == want and stats["K1"] == 0,
+              f"22(f): the {name} artifact's K1-90 launches {stats}")
+    return total
+
+
+POST_CLIS = {}                  # what phase_clis runs for 22(g)
+
+
+def prepare_post_clis(gen):
+    """22(g)'s CLIs, run with the other CLIs (``phase_clis``): in the
+    first wave cli/teacher_forcing --save_phone of 4(c)'s transformer
+    flagship checkpoint over a synthetic corpus, cli/train mel-mel on that
+    checkpoint as the frozen teacher, and cli/train text-mel-mel (a
+    TRAIN_CLIS kind: its synthesis CLI in the second wave takes
+    --save_prenet); in the second cli/train mel-mel on the corpus that
+    teacher_forcing wrote (teacher_suffix) and cli/synthesize
+    --post_model with the first mel-mel run's student."""
+    hp = train_hparams()
+    work = os.path.join(WORK, "post_clis")
+    script = write_train_corpus(gen, hp, os.path.join(work, "corpus"))
+    test_script = os.path.join(work, "test.txt")
+    with open(script) as src, open(test_script, "w") as dst:
+        dst.write("".join(src.readlines()[:3]))
+    model_dir = os.path.join(WORK, "transformer", "model")
+
+    def hp_file(name, **overrides):
+        path = os.path.join(work, f"{name}.py")
+        with open(path, "w") as fh:
+            for key, value in dict(
+                    FLAGSHIP, train_script=script,
+                    save_dir=os.path.join(work, name),
+                    batch_size=CLI_CORPUS[2], max_epoch=1, save_per_epoch=1,
+                    num_workers=CLI_WORKERS, **overrides).items():
+                fh.write(f"{key} = {value!r}\n")
+        return path
+
+    melmel = dict(architecture="mel-mel", version=2, phone_embed=True)
+    cli = "transformer_tts_tpu_torch.cli."
+    POST_CLIS.update(
+        work=work, script=script, hp=hp,
+        first={
+            "teacher_forcing --save_phone": [
+                cli + "teacher_forcing", "--load_name", model_dir,
+                "--hp_file", hp_file("teacher"), "--save_phone",
+                "--device", DEVICE],
+            "train mel-mel (frozen teacher)": [
+                cli + "train", "--hp_file", hp_file(
+                    "melmel", pretrain_model=model_dir, **melmel),
+                "--max_steps", "3", "--device", DEVICE]},
+        second={
+            "train mel-mel (teacher_suffix)": [
+                cli + "train", "--hp_file", hp_file(
+                    "pregen", teacher_suffix="_gen", **melmel),
+                "--max_steps", "3", "--device", DEVICE],
+            "synthesize --post_model": [
+                cli + "synthesize", "--load_name", model_dir,
+                "--test_script", test_script, "--save",
+                os.path.join(work, "post_out"), "--max_frames", "2048",
+                "--device", DEVICE, "--post_model",
+                os.path.join(work, "melmel", "epoch_1")]})
+    i_hp = integrate_hparams()
+    i_file = hp_file("integrate", architecture="text-mel-mel",
+                     version=i_hp.version, postnet_pred=False,
+                     phone_embed=True, semantic_mask=True)
+    TRAIN_CLIS["text-mel-mel"] = dict(
+        hp=i_hp, hp_file=i_file, test_script=test_script,
+        load_dir=os.path.join(work, "integrate", "epoch_1"),
+        out_dir=os.path.join(work, "integrate_out"),
+        flags=["--save_prenet"], train_flags=[])
+
+
+def check_post_clis(outs: dict):
+    """What 22(g)'s CLIs wrote: teacher_forcing a mel and phone features
+    per utterance, each mel-mel run 3 steps and a student checkpoint,
+    --post_model 3 finite mels; and the --save_prenet run's _prenet.npy
+    files are its mels."""
+    work, script, hp = POST_CLIS["work"], POST_CLIS["script"], POST_CLIS["hp"]
+    for name, out in outs.items():
+        print(f"22(g) {name}: " + " | ".join(out.strip().splitlines()[-2:]))
+    with open(script) as fh:
+        names = [ln.split("|")[0] for ln in fh if ln.strip()]
+    for path in names:
+        n = np.load(path).shape[0]
+        mel = np.load(path.replace(".npy", "_gen.npy"))
+        phone = np.load(path.replace(".npy", "_gen_phone.npy"))
+        check(mel.shape == (n, hp.mel_dim) and mel.dtype == np.float32
+              and phone.shape == (n, hp.d_model_encoder)
+              and np.isfinite(mel).all(), f"22(g) teacher_forcing {path}")
+    for name, sub in (("train mel-mel (frozen teacher)", "melmel"),
+                      ("train mel-mel (teacher_suffix)", "pregen")):
+        steps = [ln for ln in outs[name].splitlines()
+                 if ln.startswith("epoch 1 step")]
+        check(len(steps) == 3 and all("skipped_nan=0.0000" in ln
+                                      for ln in steps),
+              f"22(g) {name}: {steps}")
+        check(os.path.exists(os.path.join(work, sub, "epoch_1", "model.pt")),
+              f"22(g) {name} saved no student")
+    for i in range(3):
+        mel = np.load(os.path.join(work, "post_out", f"{i}.npy"))
+        check(mel.ndim == 2 and mel.shape[1] == hp.mel_dim
+              and mel.shape[0] > 0 and np.isfinite(mel).all(),
+              f"22(g) synthesize --post_model mel {i}")
+        out = os.path.join(work, "integrate_out")
+        check(np.array_equal(np.load(os.path.join(out, f"{i}.npy")),
+                             np.load(os.path.join(out, f"{i}_prenet.npy"))),
+              f"22(g) synthesize --save_prenet mel {i}")
+    print(f"22(g) teacher_forcing wrote {len(names)} mels and phone "
+          "features; both mel-mel CLIs took 3 steps and saved a student; "
+          "--post_model wrote 3 mels; --save_prenet's mels are its "
+          "_prenet.npy files")
+
+
+def phase_post(gen, batch, smi: str) -> dict:
+    """Phase 22, the mel-to-mel post-processing line at full width:
+    training (a)-(d), synthesis (e), the engines and their export (f),
+    and the checks of its CLIs (g, run in the CLI phase). Returns the
+    launches of its main paths, summed."""
+    print(smi)
+    check_post_clis(POST_CLIS.pop("outs"))
+    launches, teacher, student, integrate = phase_post_training(gen, batch)
+    add_launches(launches, phase_post_synthesis(gen, teacher, student,
+                                                integrate))
+    del integrate
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_post_engines(student))
+    del teacher, student
+    torch.cuda.empty_cache()
+    return launches
+
+
 def worst_err(errs: dict, peaks: dict, names) -> dict:
     """The error of the entry's worst output among ``names``, the one
     with the largest err / max|ref|: its max abs error, its own max|ref|
@@ -6589,7 +7129,8 @@ def main():
     sq_clis = prepare_sq_clis(new_gen)
     phase_train_cli(torch.Generator().manual_seed(19), "tacotron2")
     prepare_multihost_cli()
-    with phase("CLIs of 4, 5, 6, 14, 15, 16, 19 and 21"):
+    prepare_post_clis(torch.Generator().manual_seed(22))
+    with phase("CLIs of 4, 5, 6, 14, 15, 16, 19, 21 and 22"):
         sq_outs = phase_clis(sq_clis, vocoder_clis)
     with phase("SQ-VAE FastSpeech 2"):
         average_synthesis = phase_sq_clis(sq_clis, sq_outs)
@@ -6630,6 +7171,12 @@ def main():
           + json.dumps(parallel_launches))
     for kid, n in parallel_launches.items():
         cond_launches[kid] = cond_launches.get(kid, 0) + n
+    with phase("mel-to-mel post-processing"):
+        post_launches = phase_post(torch.Generator().manual_seed(22), batch,
+                                   smi)
+    print("phase 22 launches, each main path counted from 0, summed: "
+          + json.dumps(post_launches))
+    add_launches(cond_launches, post_launches)
 
     lines = []
     with phase("kernels at their main paths' inputs"):

@@ -22,6 +22,16 @@ from transformer_tts_tpu_torch.infer import synthesize as synth
 from transformer_tts_tpu_torch.ops.masks import pad_mask
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     return build_ar_pair()[3]

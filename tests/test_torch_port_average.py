@@ -21,6 +21,17 @@ from transformer_tts_tpu_torch.train import checkpoint
 
 from torch_port_pair import CONFORMER, SMALL
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the conformer model: BatchNorm in every conv module and the postnet
 CFG = dict(SMALL, **CONFORMER)
 

@@ -30,6 +30,16 @@ from transformer_tts_tpu_torch.train import checkpoint
 from transformer_tts_tpu_torch.train import trainer as trainer_module
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _train(hp_path, *extra):
     train_cli.main(["--hp_file", hp_path, "--device", "cpu", *extra])
 

@@ -47,6 +47,17 @@ from transformer_tts_tpu_torch.train.trainer import (
 
 from torch_port_pair import CONFORMER, SMALL, _random_params, build_pair, to_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 N_SPEAKERS = 7
 # every option of the slice at once, in the two speaker conventions

@@ -64,6 +64,17 @@ from test_torch_port_train import (
     _corpus, _jax_grads, _train_batch, _write_hp)
 from torch_port_pair import CONFORMER, SMALL, build_pair, to_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -26,6 +26,16 @@ from torch_port_pair import (
     write_tiny_vocoder)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def transformer_dir(tmp_path_factory):
     """The transformer FastSpeech 2's port checkpoint, written once."""

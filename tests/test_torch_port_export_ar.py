@@ -22,6 +22,16 @@ from torch_port_pair import (
     load_artifact, set_stop_bias)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("family", ["ar", "gst"])
 def test_ar_bucket_artifacts_equal_the_engine(family, tmp_path):
     engine = export_engine(family, tmp_path)

@@ -17,6 +17,17 @@ import torch
 from transformer_tts_tpu_torch.ops import flash_attention as fa
 from transformer_tts_tpu_torch.ops import flash_relpos as fr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEED = 7
 SCALE = 0.3
 FLASH_MODES = {"plain": (False, False), "causal": (True, False),

@@ -31,6 +31,17 @@ from transformer_tts_tpu_torch.train.checkpoint import save_checkpoint
 
 from torch_port_pair import SMALL, build_pair, to_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -223,8 +234,24 @@ def test_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags, match):
             assert (tmp_path / "out" / f"{idx}.wav").exists() == (
                 len(mel) > 0)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(args)
+    # --post_model is ported (tests/test_torch_port_post_cli.py holds it
+    # against JAX's engine): a v1 student refines every mel
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_post_model)
+    student_dir = tmp_path / "x"
+    student_hp = HParams(**dict(SMALL, version=1, n_layer_post_model=1))
+    save_checkpoint(build_post_model(student_hp, device="cpu"),
+                    str(student_dir))
+    (student_dir / "hparams.py").write_text("version = 1\nmel_dim = 16\n"
+                                            "d_model_encoder = 32\n"
+                                            "n_head_encoder = 2\n"
+                                            "n_layer_post_model = 1\n"
+                                            "amp = False\n")
+    args[args.index("x")] = str(student_dir)
+    cli.main(args)
+    for idx in range(3):
+        mel = np.load(tmp_path / "out" / f"{idx}.npy")
+        assert mel.shape[1] == 16 and np.isfinite(mel).all()
 
 
 @pytest.mark.parametrize("option", [
@@ -265,8 +292,17 @@ def test_options_of_later_slices_raise(option):
         with pytest.raises(ValueError, match="AR model's decoder"):
             build_fastspeech2(hp, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_fastspeech2(hp, device="cpu")
+    # the text-mel-mel integrate model is ported
+    # (tests/test_torch_port_post.py): it builds with its post model and
+    # synthesizes the refined mel
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_integrate)
+    model = build_fastspeech2(hp, device="cpu")
+    assert model.post_model is not None
+    refined, prenet, _, _ = synthesize_integrate(
+        model, torch.tensor([[3, 5, 7, 9]]), torch.arange(1, 5)[None], 32)
+    assert refined.shape == prenet.shape == (1, 32, 16)
+    assert bool(torch.isfinite(refined).all())
 
 
 def test_checkpoint_round_trip(tmp_path):

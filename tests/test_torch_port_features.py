@@ -29,6 +29,17 @@ from transformer_tts_tpu_torch.data.readers import load_htk, load_mel
 from transformer_tts_tpu_torch.ops import features as pf
 from transformer_tts_tpu_torch.ops import melspectrogram as pm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SR = 22050
 
 

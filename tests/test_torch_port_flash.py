@@ -21,6 +21,17 @@ from transformer_tts_tpu_torch.ops import attention as port_attention
 from transformer_tts_tpu_torch.ops.flash_attention import (
     _check_cuda_inputs, flash_attention, flash_attention_fwd_reference)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

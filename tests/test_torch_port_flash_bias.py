@@ -29,6 +29,17 @@ from transformer_tts_tpu_torch.ops import cuda_build
 from transformer_tts_tpu_torch.ops import flash_attention as fa
 from transformer_tts_tpu_torch.ops import flash_relpos as fr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 ROUTE_TOL = dict(rtol=0, atol=1e-5)

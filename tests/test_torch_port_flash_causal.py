@@ -29,6 +29,17 @@ from transformer_tts_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq, flash_attention_bwd_reference,
     flash_attention_fwd_reference)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 RATE_SEED = 2 ** 31 - 5
 

@@ -46,6 +46,17 @@ from transformer_tts_tpu_torch.models.variance_adaptor import UniLSTM
 
 from torch_port_pair import AR, CONFORMER, SMALL
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WIDE = dict(SMALL, d_model_encoder=64, d_model_decoder=64)
 FAMILIES = {
     "fastspeech2": {},

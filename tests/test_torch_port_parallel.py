@@ -11,9 +11,12 @@ port step on the whole batch at fp32 tightness and JAX's jitted
 global-batch step at the tolerances of tests/test_torch_port_train.py;
 per-rank BatchNorm statistics or per-rank denominators fail that check
 by at least 10x. The same ranks run an accumulation of two micro-steps
-(the first under ``no_sync``), draw their dropout streams and run
-sequence-parallel attention, and the training CLI's ``--multihost`` runs
-at two ranks. Beside them: ``shard_batches``, the fixed-shape and
+(the first under ``no_sync``), draw their dropout streams, run
+sequence-parallel attention and the mel-to-mel student's step (its EMA
+codebook moved by the global batch, the NaN guard deciding over both
+ranks, with and without accumulation, and the semantic mask's
+time-weighted L1 over the group's counts), and the training CLI's
+``--multihost`` runs at two ranks. Beside them: ``shard_batches``, the fixed-shape and
 prefetching loader and the native mel reader against the JAX package's
 data layer, RAdam against ``reference_radam``, the remat step against
 the plain one with dropout on, every family's step giving every
@@ -62,6 +65,17 @@ VARIANTS = {"per_rank_statistics": "transformer",
 # of the same additions); JAX's, tests/test_torch_port_train.py's
 TIGHT = dict(logs=1e-6, grad=2e-6, rtol=1e-6, atol=5e-7)
 JAX_TOL = dict(logs=1e-4, grad=1e-4, rtol=1e-5, atol=1e-6)
+# the mel-to-mel students on the pregenerated corpus: the EMA codebook
+# (vq_code), and the NaN guard (v1, with and without accumulation)
+POST = {"post_vq": dict(version=3, phone_embed=True, vq_code=True),
+        "post_nan": dict(version=1),
+        "post_nan_accum": dict(version=1, accum_grad=2)}
+# post_nan_accum: the first accumulation's last micro-step and the next
+# one's first skip, so the weights moved once (past one update Adam's
+# normalised steps of rounding-noise gradients part any two sums)
+POST_BATCHES = {"post_vq": (0, 1), "post_nan": (0, 1),
+                "post_nan_accum": (0, 1, 2)}
+NAN_BATCHES = (1, 2)        # a NaN planted in rank 1's half of these
 SP_SHAPE = (2, 2, 64, 16)
 SP_K_LEN = (64, 40)
 
@@ -113,6 +127,44 @@ def rows(batch, lo, hi):
     return {k: v[lo:hi] for k, v in batch.items()}
 
 
+def post_hparams(job):
+    return HParams(**dict(SMALL, architecture="mel-mel",
+                          teacher_suffix="_gen", mel_dim_post=16,
+                          n_layer_post_model=1, warmup_step=WARMUP,
+                          **POST[job]))
+
+
+def post_batches(job):
+    """``global_batch``es with a teacher mel and phone features, a NaN in
+    the teacher mel of row 3 (rank 1's) for the NaN jobs."""
+    out = []
+    for seed in POST_BATCHES[job]:
+        b = global_batch(seed=seed)
+        rs = np.random.RandomState(100 + seed)
+        valid = (b["pos_mel"] > 0)[..., None]
+        b["teacher_mel"] = np.where(valid, rs.randn(*b["mel"].shape),
+                                    -5.0).astype(np.float32)
+        b["teacher_phone"] = np.where(valid, rs.randn(*valid.shape[:2], 32),
+                                      0.0).astype(np.float32)
+        if job != "post_vq" and seed in NAN_BATCHES:
+            b["teacher_mel"][3, 5, 2] = np.nan
+        out.append(b)
+    return out
+
+
+def post_state(job, weights):
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_post_model)
+    hp = post_hparams(job)
+    model = build_post_model(hp, device="cpu")
+    model.load_state_dict(weights)
+    opt = schedule.build_optimizer(
+        model.parameters(), hp.optimizer, hp.d_model_decoder,
+        hp.warmup_factor, hp.warmup_step, hp.learning_rate, hp.clip,
+        hp.accum_grad)
+    return hp, TrainState(model, opt, torch.Generator().manual_seed(0))
+
+
 def port_state(cfg, weights, accum_grad=1):
     hp = HParams(**dict(SMALL, **cfg, accum_grad=accum_grad))
     model = build_fastspeech2(hp, device="cpu")
@@ -150,6 +202,41 @@ def _ddp_scenario(rank, world, cfg, weights, batches, variant=None,
         state, logs = step(state, rows(batch, rank * half,
                                        (rank + 1) * half))
     return snapshot(state, logs)
+
+
+def _post_scenario(rank, world, job, weights, variant=None):
+    """A distributed mel-to-mel student's steps on the halves of
+    ``post_batches(job)``; ``per_rank_codebook`` moves the EMA codebook by
+    the rank's batch alone."""
+    from transformer_tts_tpu_torch.parallel import set_norm_group
+    from transformer_tts_tpu_torch.train import post_trainers, trainer
+    hp, state = post_state(job, weights)
+    state = trainer.distribute(state, "cpu")
+    if variant == "per_rank_codebook":
+        set_norm_group(state.model, None)
+    step = post_trainers.make_meltomel_pregen_train_step(hp, device="cpu")
+    out = {"skipped": []}
+    for i, batch in enumerate(post_batches(job)):
+        half = batch["mel"].shape[0] // world
+        state, logs = step(state, rows(batch, rank * half,
+                                       (rank + 1) * half))
+        out["skipped"].append(bool(logs["skipped_nan"]))
+        out["first" if i == 0 else "last"] = snapshot(state, logs)
+    return out
+
+
+def _time_weighted_l1(rank, world, pred, target, mask):
+    """The rank's half of ``time_weighted_l1`` over the group's counts:
+    its value and its gradient."""
+    from transformer_tts_tpu_torch.train import losses
+    half = pred.shape[0] // world
+    part = pred[rank * half:(rank + 1) * half].clone().requires_grad_(True)
+    with losses.global_means(dist.group.WORLD):
+        loss = losses.time_weighted_l1(
+            part, target[rank * half:(rank + 1) * half],
+            mask[rank * half:(rank + 1) * half], (0.7, 0.3), 16)
+    loss.backward()
+    return {"loss": float(loss), "grad": part.grad}
 
 
 def _resume_scenario(rank, world, cfg, weights, batches, save_dir):
@@ -251,6 +338,10 @@ def _rank_main(rank, port, jobs, out_dir):
                 results[name] = _stop_agreement(rank)
             elif kind == "replication":
                 results[name] = _replication(rank, **job)
+            elif kind == "post":
+                results[name] = _post_scenario(rank, 2, **job)
+            elif kind == "time_weighted_l1":
+                results[name] = _time_weighted_l1(rank, 2, **job)
             else:
                 results[name] = _sp(rank, 2, **job)
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -279,7 +370,30 @@ def sp_inputs():
 
 
 @pytest.fixture(scope="module")
-def two_ranks(pairs, sp_inputs, tmp_path_factory):
+def post_weights():
+    """job -> the student's weights and codebook (the port's draw)."""
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_post_model)
+    return {job: build_post_model(post_hparams(job), device="cpu",
+                                  seed=1).state_dict()
+            for job in POST}
+
+
+@pytest.fixture(scope="module")
+def twl1_inputs():
+    """(pred, target, mask) of 4 rows whose halves mask different numbers
+    of frames."""
+    rs = np.random.RandomState(3)
+    pred, target = (torch.from_numpy(rs.randn(4, 40, 16).astype(np.float32))
+                    for _ in range(2))
+    mask = torch.from_numpy(rs.rand(4, 40, 1) < np.array(
+        [0.2, 0.3, 0.6, 0.7])[:, None, None])
+    return pred, target, mask
+
+
+@pytest.fixture(scope="module")
+def two_ranks(pairs, sp_inputs, post_weights, twl1_inputs,
+              tmp_path_factory):
     """Every job of the two gloo ranks in one spawn: rank -> name ->
     result."""
     batch = global_batch()
@@ -311,6 +425,14 @@ def two_ranks(pairs, sp_inputs, tmp_path_factory):
     jobs["replication"] = dict(kind="replication",
                                cfg=FAMILIES["transformer"],
                                weights=pairs["transformer"][3])
+    for job in POST:
+        jobs[job] = dict(kind="post", job=job, weights=post_weights[job])
+    jobs["post_vq_per_rank"] = dict(kind="post", job="post_vq",
+                                    weights=post_weights["post_vq"],
+                                    variant="per_rank_codebook")
+    pred, target, mask = twl1_inputs
+    jobs["time_weighted_l1"] = dict(kind="time_weighted_l1", pred=pred,
+                                    target=target, mask=mask)
     out_dir = str(tmp_path_factory.mktemp("ranks"))
     mp.spawn(_rank_main, args=(free_port(), jobs, out_dir), nprocs=2,
              join=True)
@@ -473,6 +595,84 @@ def test_distribute_replicates_rank_0_and_checks_shapes(two_ranks):
 
 def test_ranks_agree_to_stop_when_one_is_signalled(two_ranks):
     assert [two_ranks[r]["stop"]["stop"] for r in range(2)] == [True, True]
+
+
+def single_post(job, weights):
+    from transformer_tts_tpu_torch.train import post_trainers
+    hp, state = post_state(job, weights)
+    step = post_trainers.make_meltomel_pregen_train_step(hp, device="cpu")
+    out = {"skipped": []}
+    for i, batch in enumerate(post_batches(job)):
+        state, logs = step(state, batch)
+        out["skipped"].append(bool(logs["skipped_nan"]))
+        out["first" if i == 0 else "last"] = snapshot(state, logs)
+    return out
+
+
+CODEBOOK = ("quantize_lmfb.embed", "quantize_lmfb.cluster_size",
+            "quantize_lmfb.embed_avg")
+
+
+def test_ddp_vq_student_moves_one_codebook_by_the_global_batch(
+        two_ranks, post_weights):
+    # the first step's loss, gradients, weights and EMA codebook on every
+    # rank equal one process's on the whole batch (past one update Adam's
+    # normalised steps of rounding-noise gradients part any two sums);
+    # after the second (DDP would refuse it had a parameter no gradient)
+    # the ranks hold one codebook
+    ref = single_post("post_vq", post_weights["post_vq"])["first"]
+    for rank in range(2):
+        assert worst(two_ranks[rank]["post_vq"]["first"], ref,
+                     TIGHT) <= 1.0, rank
+    for name in CODEBOOK:
+        assert torch.equal(two_ranks[0]["post_vq"]["last"]["weights"][name],
+                           two_ranks[1]["post_vq"]["last"]["weights"][name]
+                           ), name
+    # a codebook moved by each rank's batch alone parts the ranks
+    per_rank = [two_ranks[r]["post_vq_per_rank"]["first"]["weights"]
+                for r in range(2)]
+    assert not torch.equal(per_rank[0]["quantize_lmfb.embed_avg"],
+                           per_rank[1]["quantize_lmfb.embed_avg"])
+    assert worst(two_ranks[0]["post_vq_per_rank"]["first"], ref,
+                 TIGHT) >= 10.0
+
+
+@pytest.mark.parametrize("job", ["post_nan", "post_nan_accum"])
+def test_ddp_nan_guard_zeroes_every_rank_together(two_ranks, post_weights,
+                                                  job):
+    # the NaN lies in rank 1's half only: rank 0's own loss is finite, yet
+    # both ranks skip, as JAX's global-batch test and one process on the
+    # whole batch do, and hold the same finite weights; with accumulation
+    # the skipped micro-steps' partial sums stay, averaged over the ranks
+    ref = single_post(job, post_weights[job])
+    want = [i in NAN_BATCHES for i in POST_BATCHES[job]]
+    assert ref["skipped"] == want
+    ref = dict(ref["last"], logs={})          # the loss is NaN
+    for rank in range(2):
+        got = two_ranks[rank][job]
+        assert got["skipped"] == want, rank
+        assert worst(got["last"], ref, TIGHT) <= 1.0, rank
+        assert all(bool(torch.isfinite(w).all())
+                   for w in got["last"]["weights"].values()), rank
+    for name, w in two_ranks[0][job]["last"]["weights"].items():
+        assert torch.equal(w, two_ranks[1][job]["last"]["weights"][name]
+                           ), name
+
+
+def test_time_weighted_l1_takes_the_group_counts(two_ranks, twl1_inputs):
+    # the ranks' mean loss and their gradients, averaged as DDP averages
+    # them, are the whole batch's
+    from transformer_tts_tpu_torch.train import losses
+    pred, target, mask = twl1_inputs
+    pred = pred.clone().requires_grad_(True)
+    whole = losses.time_weighted_l1(pred, target, mask, (0.7, 0.3), 16)
+    whole.backward()
+    got = [two_ranks[r]["time_weighted_l1"] for r in range(2)]
+    np.testing.assert_allclose((got[0]["loss"] + got[1]["loss"]) / 2,
+                               float(whole.detach()), rtol=1e-6)
+    np.testing.assert_allclose(
+        torch.cat([g["grad"] for g in got]).numpy() / 2,
+        pred.grad.numpy(), rtol=1e-6, atol=1e-9)
 
 
 # ---- the training CLI at two ranks -------------------------------------------

@@ -41,6 +41,17 @@ from torch_port_pair import (
     TINY_VOCODER, assert_results_match, build_ar_pair, build_pair,
     engine_pair)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # speaker tables of 12 rows (384 values at d 32: quantized at SMALL_LEAF)
 SPEAKER_IDS = dict(is_multi_speaker=True, spk_emb_type="speaker_id",
                    spk_emb_dim=12, spk_emb_architecture="encoder,decoder")

@@ -28,6 +28,17 @@ from transformer_tts_tpu.ops.flash_relpos import (
 from transformer_tts_tpu_torch.ops import cuda_build
 from transformer_tts_tpu_torch.ops import flash_relpos as fr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GRAD_TOL = dict(rtol=0, atol=5e-6)
 FWD_TOL = dict(rtol=0, atol=2e-6)
 SEED = -123456789                   # an int32 whose uint32 bits wrap

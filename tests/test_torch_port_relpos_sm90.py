@@ -40,6 +40,17 @@ from transformer_tts_tpu.ops.flash_relpos import (
 from transformer_tts_tpu_torch.ops import cuda_build
 from transformer_tts_tpu_torch.ops import flash_relpos as fr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 TILE = 64                       # rows of a tile, a warpgroup and a slice

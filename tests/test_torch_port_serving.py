@@ -39,6 +39,17 @@ from torch_port_pair import (
     ENGINE, ENGINE_FAMILIES, ENGINE_TEXTS, SMALL, assert_results_match,
     engine_pair, write_tiny_vocoder)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXTS = ENGINE_TEXTS
 
@@ -99,10 +110,14 @@ REFUSALS = {
     "x-vector": (dict(is_multi_speaker=True, spk_emb_type="x_vector",
                       spk_emb_dim=16, spk_emb_architecture=("middle",)), {},
                  ValueError, "must be 512"),
-    "text-mel-mel": (dict(architecture="text-mel-mel", version=3), {},
-                     NotImplementedError, "mel-to-mel post-processing"),
-    "post_model": ({}, dict(post_model="post"), NotImplementedError,
-                   "mel-to-mel post-processing"),
+    # a text-mel-mel snapshot and post_model= are served
+    # (tests/test_torch_port_post_cli.py); JAX's engine refuses the two
+    # together, and a post model on an AR model
+    "text-mel-mel": (dict(architecture="text-mel-mel", version=3),
+                     dict(post_model="post"), ValueError,
+                     "carry their post-model"),
+    "post_model": (dict(model="Transformer"), dict(post_model="post"),
+                   ValueError, "refines FastSpeech2"),
     "int4": ({}, dict(quantize="int4"), ValueError, "only 'int8'"),
 }
 

@@ -48,6 +48,17 @@ from torch_port_pair import (
     build_ar_pair, build_pair, set_stop_bias, to_np,
     write_engine_checkpoints)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 N_SPEAKERS = 5
 AR_IDS = dict(is_multi_speaker=True, spk_emb_type="speaker_id",

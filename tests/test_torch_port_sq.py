@@ -50,6 +50,17 @@ from transformer_tts_tpu_torch.train.trainer import (
 
 from torch_port_pair import SMALL, build_pair, to_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 SQ = dict(model="SQFastSpeech2")

@@ -35,6 +35,17 @@ from torch_port_pair import (
     AR_STOP_BIAS, ENGINE, build_ar_pair, engine_pair, set_stop_bias,
     write_tiny_vocoder)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MEL_DIM = 8
 TINY = dict(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
             upsample_initial_channel=16, resblock_kernel_sizes=(3,),

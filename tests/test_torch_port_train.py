@@ -52,6 +52,17 @@ from transformer_tts_tpu_torch.train.trainer import (
 
 from torch_port_pair import SMALL, build_pair, to_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -713,8 +724,23 @@ def test_train_cli_paths_of_later_slices_raise(tmp_path, hp_extra, flags,
                                  "variance_adaptor.codebook."))
                    for k in state)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(args)
+    # the mel-to-mel trainers are ported (tests/test_torch_port_post.py,
+    # tests/test_torch_port_post_cli.py): one step and its checkpoint
+    extra = dict(hp_extra)
+    if hp_extra["architecture"] == "mel-mel":
+        teacher = str(tmp_path / "teacher")
+        checkpoint.save_checkpoint(
+            build_fastspeech2(HParams(**SMALL), device="cpu"), teacher)
+        extra.update(version=2, phone_embed=True, pretrain_model=teacher,
+                     n_layer_post_model=1)
+    hp_path, save_dir = _write_hp(tmp_path, script, **extra)
+    train_cli.main(["--hp_file", hp_path, "--device", "cpu",
+                    "--max_steps", "1"])
+    state = torch.load(os.path.join(save_dir, "epoch_1", "model.pt"))
+    if hp_extra["architecture"] == "mel-mel":
+        assert "linear2.weight" in state and "out.weight" in state
+    else:
+        assert any(k.startswith("post_model.") for k in state)
 
 
 def _free_port() -> int:

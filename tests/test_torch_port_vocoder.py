@@ -46,6 +46,17 @@ from transformer_tts_tpu_torch.vocoder.generator import (
 
 from torch_port_pair import SMALL
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The models here are small: one intra-op thread, so the module does
+    not spin against the other test workers for the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TINY = dict(amp=False, mel_dim=8, vocoder_upsample_rates=(4, 2),
             vocoder_upsample_kernel_sizes=(8, 4), vocoder_channels=16,
             vocoder_resblock_kernel_sizes=(3, 5),

@@ -15,9 +15,12 @@ micro-batching HTTP server.
 bound. ``--quantize int8`` prints the quantization's stats line.
 ``--export DIR`` writes the engine's ``torch.export`` artifacts and
 ``manifest.json`` into ``DIR`` (``TTSEngine.export``), prints the
-manifest and exits, as the JAX CLI does. ``--post_model`` comes with a
-later slice and raises. It runs on the CUDA device unless ``--device
-cpu`` is given, and raises when that device is missing.
+manifest and exits, as the JAX CLI does. ``--post_model STUDENT_DIR``
+serves a FastSpeech 2 checkpoint refined by a mel-mel student (its own
+``hparams.py`` beside it), and a text-mel-mel checkpoint serves its
+refined mel; their ``--export`` artifacts are ``fastspeech2_post_*`` and
+``integrate_*``. It runs on the CUDA device unless ``--device cpu`` is
+given, and raises when that device is missing.
 """
 
 from __future__ import annotations
@@ -55,7 +58,9 @@ def main(argv=None):
                         choices=("int8",),
                         help="weight-only int8 of the acoustic model "
                              "(infer/quantize.py)")
-    parser.add_argument("--post_model", type=str, default=None)
+    parser.add_argument("--post_model", type=str, default=None,
+                        help="mel-mel student checkpoint dir refining the "
+                             "FastSpeech 2 mel")
     parser.add_argument("--ref_mel", type=str, default=None,
                         help="style reference mel .npy for GST models "
                              "(required when hp.gst)")

@@ -1,11 +1,11 @@
-"""Synthesis CLI of the PyTorch port (the port of the FastSpeech 2 and
-KV-cached AR Transformer-TTS branches of transformer_tts_tpu/cli/
-synthesize.py).
+"""Synthesis CLI of the PyTorch port (the port of
+transformer_tts_tpu/cli/synthesize.py).
 
 ``python -m transformer_tts_tpu_torch.cli.synthesize --load_name DIR
       [--hp_file h.py] [--epoch N] [--test_script s.txt] [--save out_dir]
       [--max_frames 2048] [--batch_size N] [--use_prenet]
       [--pitch_perturbation] [--duration_perturbation] [--ref_mel r.npy]
+      [--post_model STUDENT_DIR] [--save_prenet]
       [--wav] [--vocoder GEN_DIR] [--device cuda]``
 
 ``DIR`` and the hparams resolve as in the JAX CLI (:97-103, :122): an
@@ -37,11 +37,25 @@ as in the JAX CLI. A conditioned model reads each line's conditioning as
 training does (data/dataset.py): the speaker id of column 2 or the
 ``_xvector.npy`` beside the line's mel name, the accents of column 2 and
 the hop size of the mel name, so each line takes its own voice. It runs on the CUDA device unless ``--device cpu`` is
-given, and raises when that device is missing. The
-integrate and post-model paths come with a later slice. SQ-VAE
+given, and raises when that device is missing. SQ-VAE
 hparams (``model = "SQFastSpeech2"``) are refused, as the JAX CLI cannot
 restore them either: such a model synthesizes through
 ``infer.synthesize.synthesize_fastspeech2``.
+
+The mel-to-mel line (the JAX CLI's :111-119, :184-200, :277-300):
+``--post_model STUDENT_DIR`` (a mel-mel training's ``save_dir``,
+``epoch_N`` or checkpoint directory, resolved as ``--load_name``; its own
+``hparams.py`` gives the student's version and options, else the
+resolved hparams do) refines each FastSpeech 2 mel by the student in the
+same call (``synthesize_fastspeech2_post``): added to dims
+``:mel_dim_post`` at versions 3, 5 and 6, in their place at the others;
+the whole checkpoint loads, the VQ codebook included, where the JAX CLI
+restores the student's parameters only. With a perturbation the port
+refines the perturbed forward; the JAX CLI refines a second, unperturbed
+forward, cut to the perturbed lengths. A text-mel-mel checkpoint
+synthesizes through ``synthesize_integrate``: ``<idx>.npy`` is the
+refined mel, or with ``--save_prenet`` the mel_pre, and ``<idx>_prenet
+.npy`` the mel_pre always, as in the reference.
 """
 
 from __future__ import annotations
@@ -74,7 +88,11 @@ def main(argv=None):
                         help="reference mel .npy (T, mel) of a GST model's "
                              "style")
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--post_model", type=str, default=None)
+    parser.add_argument("--post_model", type=str, default=None,
+                        help="mel-mel student checkpoint dir")
+    parser.add_argument("--save_prenet", action="store_true",
+                        help="text-mel-mel: save the mel_pre as the main "
+                             "mel")
     parser.add_argument("--vocoder", type=str, default=None,
                         help="generator export or vocoder_<k> dir of "
                              "cli.train_vocoder; implies --wav")
@@ -94,15 +112,13 @@ def main(argv=None):
     from transformer_tts_tpu_torch.data.dataset import ScriptDataset
     from transformer_tts_tpu_torch.data.readers import Normalizer
     from transformer_tts_tpu_torch.infer.synthesize import (
-        sample_perturbation, synthesize_fastspeech2, synthesize_tacotron2,
+        sample_perturbation, synthesize_fastspeech2,
+        load_post_model, synthesize_fastspeech2_post,
+        synthesize_integrate, synthesize_tacotron2,
         synthesize_transformer_tts)
     from transformer_tts_tpu_torch.models import build_model
-    from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
     from transformer_tts_tpu_torch.train.checkpoint import (
         load_checkpoint, resolve_checkpoint)
-
-    if args.post_model is not None:
-        later_slice("--post_model", "mel-to-mel post-processing")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -125,13 +141,17 @@ def main(argv=None):
             "restore an SQ-VAE FastSpeech 2 checkpoint; synthesize it with "
             "infer.synthesize.synthesize_fastspeech2 on "
             "models.fastspeech2_sq.build_sq_fastspeech2's model")
-    if hp.architecture == "text-mel-mel":
-        later_slice("text-mel-mel integrate synthesis",
-                    "mel-to-mel post-processing")
+    is_integrate = hp.architecture == "text-mel-mel"
+    if args.post_model is not None and (is_ar or is_integrate):
+        raise ValueError("--post_model refines a FastSpeech 2 mel; the AR "
+                         "models and text-mel-mel checkpoints take none")
     os.makedirs(args.save, exist_ok=True)
 
     model = build_model(hp, device=device)
     load_checkpoint(model, resolve_checkpoint(load_dir, args.epoch))
+    post = None
+    if args.post_model is not None:
+        post = load_post_model(args.post_model, hp, device)
     vocoder = None
     if args.vocoder is not None:
         from transformer_tts_tpu_torch.vocoder.trainer import (
@@ -178,6 +198,27 @@ def main(argv=None):
                 model, text, pos_text, mean, var,
                 spk_emb=cond.get("spk_emb"), ref_mel=ref_mel)
             durations = None
+        elif is_integrate:
+            refined, prenet, mel_len, durations = synthesize_integrate(
+                model, text, pos_text, args.max_frames, mean, var,
+                spk_emb_post=(torch.as_tensor(batch["spk_emb_post"],
+                                              device=device)
+                              if "spk_emb_post" in batch else None),
+                **cond)
+            mel = prenet if args.save_prenet else refined
+            durations = durations.cpu().numpy()
+            prenet_np = prenet.float().cpu().numpy()
+            for j, idx in enumerate(chunk):
+                np.save(os.path.join(args.save, f"{idx}_prenet.npy"),
+                        prenet_np[j, :int(mel_len[j])])
+        elif post is not None:
+            post_model, p_hp = post
+            mel, mel_len, durations = synthesize_fastspeech2_post(
+                model, post_model, text, pos_text, args.max_frames, mean,
+                var, version=p_hp.version, mel_dim_post=p_hp.mel_dim_post,
+                pitch_scale=p_scale, duration_scale=d_scale,
+                spk_emb=cond.get("spk_emb"), hop_size=cond.get("hop_size"))
+            durations = durations.cpu().numpy()
         else:
             mel, mel_len, durations = synthesize_fastspeech2(
                 model, text, pos_text, args.max_frames, mean, var,

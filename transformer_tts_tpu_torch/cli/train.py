@@ -1,5 +1,5 @@
-"""Training CLI of the PyTorch port (the port of the text-mel FastSpeech 2
-and AR Transformer-TTS branches of transformer_tts_tpu/cli/train.py:29-317).
+"""Training CLI of the PyTorch port (the port of
+transformer_tts_tpu/cli/train.py:29-317).
 
 ``python -m transformer_tts_tpu_torch.cli.train --hp_file hparams.py
       [--set KEY=VALUE ...] [--max_steps N] [--device cuda]
@@ -23,8 +23,16 @@ directory. ``hp.model`` picks the trainer: FastSpeech 2 (with or without
 ``SQFastSpeech2``, ``sq_fastspeech2``, ``fastspeech2_sq``), or the AR
 Transformer-TTS (``model = "Transformer"``, with or without ``gst``, its
 decoder a transformer stack or, with ``decoder_type = "tacotron2"``,
-the Tacotron 2 decoder). It runs on the CUDA device unless ``--device
-cpu`` is given.
+the Tacotron 2 decoder). ``hp.architecture`` picks the mel-to-mel line
+(train/post_trainers.py): "mel-mel" trains a PostLowEnergy student of
+``hp.version`` on a frozen FastSpeech 2 teacher restored from
+``hp.pretrain_model`` (a port checkpoint directory, or a ``save_dir``
+whose newest epoch is taken; the teacher is built from the same
+hparams) or, with ``hp.teacher_suffix``, on the pregenerated corpus of
+cli/teacher_forcing.py; "text-mel-mel" trains the integrate FastSpeech 2
+with its post model (``hp.pretrain_model`` then starts the whole model, as
+for FastSpeech 2). It runs on the CUDA device unless ``--device cpu`` is
+given.
 
 Observability and safety, as the JAX CLI (:89-92, :176-232, :243-314):
 the logged steps' scalars (and steps/s) go to
@@ -35,14 +43,17 @@ attention maps and the predicted and target mels as images;
 ``profile_dir`` traces the whole run with ``torch.profiler`` into a Chrome
 trace there; SIGTERM or SIGINT stops the loop after the current step and
 saves a checkpoint of that epoch with its optimizer (the preemption
-checkpoint). ``debug_nans`` is the nearest counterpart of
+checkpoint). A mel-mel step whose loss is not finite was taken with
+zeroed gradients (the JAX NaN guard): the CLI prints each such step with
+the total and the consecutive count and aborts with ``AssertionError``
+at the 50th in a row; any other trainer asserts on its first non-finite
+loss. ``debug_nans`` is the nearest counterpart of
 ``jax_debug_nans``: ``torch.autograd.set_detect_anomaly(True)`` for the
 backward, and forward hooks on every module that raise
 ``FloatingPointError`` naming the first module whose output holds a NaN
-or an infinity (each hook waits for the card: a debugging mode). The
-mel-to-mel and text-mel-mel trainers raise ``NotImplementedError``,
-naming their slice; the AR step in the discrete mode raises
-``ValueError``, as the JAX step fails there.
+or an infinity (each hook waits for the card: a debugging mode). The AR
+step in the discrete mode raises ``ValueError``, as the JAX step fails
+there.
 
 ``--multihost`` (the JAX CLI's :38-67, :100-107, :166-170, :278,
 :296-307) trains data-parallel, one process per card: under ``torchrun
@@ -85,18 +96,25 @@ def _overrides(pairs) -> dict:
     return out
 
 
+NAN_ABORT = 50              # consecutive non-finite mel-mel steps
+
+
 def _check_branch(hp, args) -> str:
-    """Raise for a trainer of a later slice; else the trainer's kind:
-    "sq", "fastspeech2" or "ar"."""
+    """The trainer's kind: "melmel", "pregen", "integrate", "sq",
+    "fastspeech2" or "ar"."""
     from transformer_tts_tpu_torch.config import is_nar_model, is_sq_model
-    from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
     from transformer_tts_tpu_torch.models.transformer_tts import (
         check_supported)
     if hp.architecture == "mel-mel":
-        later_slice("the mel-to-mel trainer", "mel-to-mel post-processing")
+        if hp.teacher_suffix:
+            return "pregen"
+        if hp.pretrain_model is None:
+            raise ValueError(
+                "mel-mel training needs hp.pretrain_model (the frozen "
+                "teacher) or hp.teacher_suffix (a pregenerated corpus)")
+        return "melmel"
     if hp.architecture == "text-mel-mel":
-        later_slice("the text-mel-mel integrate trainer",
-                    "mel-to-mel post-processing")
+        return "integrate"
     if hp.architecture != "text-mel":
         raise ValueError(f"unknown architecture {hp.architecture!r}")
     if is_sq_model(hp.model):
@@ -259,6 +277,7 @@ def _train(hp, args, kind, device, rank, world):
     from transformer_tts_tpu_torch.data.dataset import TTSDataset
     from transformer_tts_tpu_torch.data.loader import DataLoader
     from transformer_tts_tpu_torch.train import checkpoint as ckpt
+    from transformer_tts_tpu_torch.train import post_trainers as post
     from transformer_tts_tpu_torch.train import trainer
     if rank == 0:
         hp.log_config()
@@ -266,21 +285,30 @@ def _train(hp, args, kind, device, rank, world):
     loader = DataLoader(TTSDataset(hp.train_script, hp), hp,
                         num_workers=hp.num_workers, shard=rank,
                         num_shards=world)
-    init, make_step = {
-        "ar": (trainer.init_transformer_state,
-               trainer.make_transformer_train_step),
-        "sq": (trainer.init_sq_fastspeech2_state,
-               trainer.make_sq_fastspeech2_train_step),
-        "fastspeech2": (trainer.init_fastspeech2_state,
-                        trainer.make_fastspeech2_train_step)}[kind]
-    state = init(hp, device=device)
-    step_fn = make_step(hp, device=device)
+    if kind == "melmel":
+        state = post.init_post_state(hp, device=device)
+        step_fn = post.make_meltomel_train_step(
+            _teacher(hp, device), hp, device=device)
+    else:
+        init, make_step = {
+            "ar": (trainer.init_transformer_state,
+                   trainer.make_transformer_train_step),
+            "sq": (trainer.init_sq_fastspeech2_state,
+                   trainer.make_sq_fastspeech2_train_step),
+            "pregen": (post.init_post_state,
+                       post.make_meltomel_pregen_train_step),
+            "integrate": (trainer.init_fastspeech2_state,
+                          post.make_integrate_train_step),
+            "fastspeech2": (trainer.init_fastspeech2_state,
+                            trainer.make_fastspeech2_train_step)}[kind]
+        state = init(hp, device=device)
+        step_fn = make_step(hp, device=device)
     n_params = sum(p.numel() for p in state.model.parameters())
     if rank == 0:
         print(f"params = {n_params / 1e6:.2f}M")
 
     start_epoch = 0
-    if hp.pretrain_model is not None:
+    if hp.pretrain_model is not None and kind != "melmel":
         ckpt.load_checkpoint(state.model, hp.pretrain_model)
         print(f"loaded pretrain params from {hp.pretrain_model}")
     if hp.loaded_epoch is not None:
@@ -305,6 +333,8 @@ def _train(hp, args, kind, device, rank, world):
                    if hp.tb_images and kind == "fastspeech2" and rank == 0
                    else None)
 
+    nan_skips = {"total": 0, "consecutive": 0}
+
     def emit(pending):
         """Print and record one step's logs (rank 0) and check the loss
         (every rank: the logs are the global batch's); the float() calls
@@ -318,8 +348,20 @@ def _train(hp, args, kind, device, rank, world):
                   f"({time.time() - t0:.3f}s)")
             sys.stdout.flush()
             metrics.log(step, steps_per_sec=timer.steps_per_sec, **values)
-        if not math.isfinite(values["loss_total"]):
+        if math.isfinite(values["loss_total"]):
+            nan_skips["consecutive"] = 0
+            return
+        if hp.architecture != "mel-mel":
             raise AssertionError("loss is nan")
+        nan_skips["total"] += 1
+        nan_skips["consecutive"] += 1
+        if metrics is not None:
+            print(f"skipped NaN step ({nan_skips['total']} total, "
+                  f"{nan_skips['consecutive']} consecutive)")
+        if nan_skips["consecutive"] >= NAN_ABORT:
+            raise AssertionError(
+                f"{nan_skips['consecutive']} consecutive NaN steps: the run "
+                "is permanently non-finite")
 
     with (debug_nans(state.model) if hp.debug_nans else nullcontext()), \
             preemption_guard() as preempted:
@@ -338,6 +380,20 @@ def _train(hp, args, kind, device, rank, world):
                 ckpt.barrier()
     if rank == 0:
         print("training finished")
+
+
+def _teacher(hp, device):
+    """The mel-mel step's frozen FastSpeech 2: built from ``hp`` and
+    restored, weights and BatchNorm statistics, from
+    ``hp.pretrain_model``."""
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_fastspeech2)
+    from transformer_tts_tpu_torch.train.checkpoint import (
+        load_checkpoint, resolve_checkpoint)
+    teacher = build_fastspeech2(hp, device=device)
+    load_checkpoint(teacher, resolve_checkpoint(hp.pretrain_model))
+    print(f"loaded the frozen teacher from {hp.pretrain_model}")
+    return teacher.eval()
 
 
 def stop_agreement(preempted: dict, world: int):

@@ -50,6 +50,16 @@ The GST style embedding (``hp.gst``) inverts ``convert_style_embedding``
 ``log_var_q_scalar`` (``SQFastSpeech2``, or ``use_sq_vae``) invert
 ``convert_sq_fastspeech2_state_dict`` (:455-511).
 
+The mel-to-mel line: ``post_state_dict_from_flax(params, batch_stats,
+vq_stats, hp)`` carries a PostLowEnergy student of ``hp.version`` (the
+JAX train/post_trainers.build_post_model's), and
+``state_dict_from_flax`` of ``architecture = "text-mel-mel"`` hparams
+carries the integrate model's ``post_model`` (and, at versions 8 and 9,
+``post_model_replace_mask``), given the ``vq_stats`` tree: the EMA VQ's
+``quantize_lmfb`` ``embed``, ``cluster_size`` and ``embed_avg`` become
+the port's buffers of those names, the encoder's taps
+``intermediate_<i>`` its ``intermediate.<i>``.
+
 ``vocoder_state_dict_from_flax(params, hp)`` does the same for the JAX
 package's vocoder generator (HiFi-GAN, subpixel or transposed, and the
 iSTFT vocoder) and, with ``discriminator=True``, its MPD + MSD, under the
@@ -99,9 +109,11 @@ class _Writer:
     layouts mean anything."""
 
     def __init__(self, params: Optional[Mapping],
-                 batch_stats: Optional[Mapping]):
+                 batch_stats: Optional[Mapping],
+                 vq_stats: Optional[Mapping] = None):
         self.params = params
         self.batch_stats = batch_stats
+        self.vq_stats = vq_stats
         self.out: Dict[str, torch.Tensor] = {}
         self.layouts: Dict[str, List[QLeaf]] = {}
 
@@ -169,15 +181,19 @@ class _Writer:
                     bias=False)
 
     def stack_extras(self, prefix: str, cond: dict):
-        p = (prefix,)
+        p = tuple(prefix.split("."))
         if cond.get("accent_emb"):
             self.embed(p + ("acc_embed",), f"{prefix}.acc_embed")
         if cond.get("ctc_out"):
             self.linear(p + ("ctc_linear",), f"{prefix}.ctc_linear")
+        for i in cond.get("taps") or ():
+            if i < cond["n_layers"]:
+                self.linear(p + (f"intermediate_{i}",),
+                            f"{prefix}.intermediate.{i}")
 
     def encoder_stack(self, prefix: str, n_layers: int, embedding: bool,
                       cond: dict):
-        p = (prefix,)
+        p = tuple(prefix.split("."))
         if embedding:
             self.embed(p + ("embed",), f"{prefix}.embed")
         else:
@@ -199,7 +215,7 @@ class _Writer:
 
     def conformer_stack(self, prefix: str, n_layers: int, embedding: bool,
                         cond: dict):
-        p = (prefix,)
+        p = tuple(prefix.split("."))
         if embedding:
             self.embed(p + ("embed",), f"{prefix}.embed")
         else:
@@ -235,10 +251,44 @@ class _Writer:
     def stack(self, stack_type: str, prefix: str, n_layers: int,
               embedding: bool, **cond):
         """One encoder stack; ``cond``: its ``spk_emb_dim`` (per-layer
-        speakers), ``accent_emb`` and ``ctc_out``."""
+        speakers), ``accent_emb``, ``ctc_out`` and ``taps`` (the
+        transformer stack's intermediate layers)."""
         writer = (self.conformer_stack if stack_type.lower() == "conformer"
                   else self.encoder_stack)
-        writer(prefix, n_layers, embedding, cond)
+        writer(prefix, n_layers, embedding, dict(cond, n_layers=n_layers))
+
+    def vq_buffer(self, path, name):
+        """An EMA VQ buffer from the ``vq_stats`` tree (no int8 leaf)."""
+        value = (np.zeros((1,), np.float32) if self.vq_stats is None
+                 else _get(self.vq_stats, path))
+        self._put(name, value)
+
+    def post_low_energy(self, prefix: str, hp, v1: bool):
+        """A PostLowEnergy student under ``prefix`` ("" for the student
+        alone): v1 (``v1``) or v2 of ``hp``'s options."""
+        p = tuple(prefix.split(".")) if prefix else ()
+        n = f"{prefix}." if prefix else ""
+        if not v1:
+            if not hp.concat:
+                self.linear(p + ("linear1",), f"{n}linear1")
+                if hp.phone_embed:
+                    self.linear(p + ("linear2",), f"{n}linear2")
+                if hp.spk_emb_postprocess_type == "speaker_id":
+                    self.embed(p + ("linear_xvector",), f"{n}linear_xvector")
+                elif hp.spk_emb_postprocess_type == "x_vector":
+                    self.linear(p + ("linear_xvector",),
+                                f"{n}linear_xvector")
+            if hp.vq_code:
+                self.conv1d(p + ("vq_encoder_lmfb",), f"{n}vq_encoder_lmfb")
+                for buf in ("embed", "cluster_size", "embed_avg"):
+                    self.vq_buffer(p + ("quantize_lmfb", buf),
+                                   f"{n}quantize_lmfb.{buf}")
+        conformer = hp.post_conformer and not v1
+        self.stack("conformer" if conformer else "transformer",
+                   f"{n}encoder", hp.n_layer_post_model, embedding=False,
+                   taps=None if (v1 or conformer)
+                   else hp.intermediate_layers_out)
+        self.linear(p + ("out",), f"{n}out")
 
     def mha(self, path, name):
         for part in ("q_linear", "k_linear", "v_linear", "out"):
@@ -383,12 +433,24 @@ def _transformer_tts(w: _Writer, hp) -> Dict[str, torch.Tensor]:
     return w.out
 
 
-def state_dict_from_flax(params: Mapping, batch_stats: Mapping,
-                         hp) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(params: Mapping, batch_stats: Mapping, hp,
+                         vq_stats: Optional[Mapping] = None
+                         ) -> Dict[str, torch.Tensor]:
     """Flax FastSpeech 2 (transformer or conformer stacks, with or without
-    the SQ-VAE bottleneck), SQ-VAE FastSpeech 2 or AR Transformer-TTS (with
-    or without GST) trees -> port ``state_dict``."""
-    return _write(_Writer(params, batch_stats), hp)
+    the SQ-VAE bottleneck, with the integrate post model for text-mel-mel
+    hparams), SQ-VAE FastSpeech 2 or AR Transformer-TTS (with or without
+    GST) trees -> port ``state_dict``."""
+    return _write(_Writer(params, batch_stats, vq_stats), hp)
+
+
+def post_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
+                              vq_stats: Mapping,
+                              hp) -> Dict[str, torch.Tensor]:
+    """A flax PostLowEnergy student's trees (``hp.version`` 1 or 5: v1,
+    else v2) -> the port's ``build_post_model(hp)`` ``state_dict``."""
+    w = _Writer(params, batch_stats, vq_stats)
+    w.post_low_energy("", hp, v1=hp.version in (1, 5))
+    return w.out
 
 
 def flax_layouts(hp) -> Dict[str, List[QLeaf]]:
@@ -434,6 +496,10 @@ def _write(w: _Writer, hp) -> Dict[str, torch.Tensor]:
         w.postnet_convs()
     else:
         w.linear(("out",), "out")
+    if hp.architecture == "text-mel-mel":
+        w.post_low_energy("post_model", hp, v1=False)
+        if hp.version in (8, 9):
+            w.post_low_energy("post_model_replace_mask", hp, v1=False)
     return w.out
 
 

@@ -18,6 +18,14 @@ the port renames nothing.
 The reference's AR postnet returns its input unchanged (its
 ``prev_version=False`` branch); ``identity_compat=True`` makes the loaded
 AR model do the same, as the JAX package's ``postnet_identity_compat``.
+
+``load_post_low_energy_checkpoint`` is the counterpart of
+``convert_post_low_energy_state_dict`` (:413-452): a reference
+PostLowEnergy v1/v2 student (``hp.version``; ``linear1``, ``linear2``,
+``linear_xvector``, the EMA VQ's ``vq_encoder_lmfb`` and
+``quantize_lmfb`` buffers, ``encoder``, ``out``) loads strictly into
+models/fastspeech2.build_post_model's student. A ``post_conformer``
+student raises ``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,4 +56,21 @@ def load_reference_checkpoint(path: str, hp: HParams, *, device="cuda",
     model.load_state_dict(strip_module_prefix(state), strict=True)
     if not is_nar_model(hp.model):
         model.postnet.identity_compat = identity_compat
+    return model.eval()
+
+
+def load_post_low_energy_checkpoint(path: str, hp: HParams, *,
+                                    device="cuda") -> nn.Module:
+    """The mel-to-mel student ``hp`` describes on ``device``, in eval mode,
+    holding the reference checkpoint at ``path``. A missing or an
+    unexpected key raises."""
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_post_model)
+    if hp.post_conformer:
+        raise NotImplementedError(
+            "post_conformer student: the reference's conformer students "
+            "have no converter in the JAX package either")
+    model = build_post_model(hp, device=device)
+    state = torch.load(path, map_location=device, weights_only=True)
+    model.load_state_dict(strip_module_prefix(state), strict=True)
     return model.eval()

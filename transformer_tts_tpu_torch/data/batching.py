@@ -13,9 +13,12 @@ a row's mel frames and 1.0 past them. For the AR models the mel bucket is
 a multiple of ``reduction_rate`` and ``pos_mel`` covers the length
 rounded up to it. With ``pad_batch`` the batch grows to a power of two
 with empty rows; durations that overflow the mel bucket are cut at its
-edge. Conditioning (for synthesis samples too): ``spk_emb`` (B,) int32
-ids or (B, dim) float32 x-vectors, ``accent`` (B, text bucket) int32
-padded with 0, ``gender`` and ``hop_size`` (B,) int32; pad rows hold 0.
+edge. Conditioning (for synthesis samples too): ``spk_emb`` and the
+mel-to-mel student's ``spk_emb_post``, each (B,) int32 ids or (B, dim)
+float32 x-vectors, ``accent`` (B, text bucket) int32 padded with 0,
+``gender`` and ``hop_size`` (B,) int32; pad rows hold 0. The
+pregenerated teacher corpus's ``teacher_mel`` and ``teacher_phone`` pad
+to the mel bucket like ``mel``, with the mel pad and 0.
 """
 
 from __future__ import annotations
@@ -66,15 +69,17 @@ def _clip_durations(alignment: np.ndarray, mel_len: int) -> None:
 def _conditioning(samples: List[dict], b: int,
                   text_len: int) -> Dict[str, np.ndarray]:
     out = {}
-    if "spk_emb" in samples[0]:
-        v0 = samples[0]["spk_emb"]
+    for key in ("spk_emb", "spk_emb_post"):
+        if key not in samples[0]:
+            continue
+        v0 = samples[0][key]
         if np.ndim(v0) == 0:
             arr = np.zeros((b,), np.int32)
         else:
             arr = np.zeros((b, len(v0)), np.float32)
         for i, s in enumerate(samples):
-            arr[i] = s["spk_emb"]
-        out["spk_emb"] = arr
+            arr[i] = s[key]
+        out[key] = arr
     if "accent" in samples[0]:
         arr = np.zeros((b, text_len), np.int32)
         for i, s in enumerate(samples):
@@ -143,6 +148,14 @@ def collate(samples: List[dict], hp, *, text_len: Optional[int] = None,
         pos_mel[i, :n] = np.arange(1, n + 1)
     out.update(mel=mel, pos_mel=pos_mel, stop_token=stop, mel_length=np.array(
         [s["mel_length"] for s in samples] + [0] * (b - n_real), np.int32))
+    for key, pad in (("teacher_mel", mel_pad), ("teacher_phone", 0.0)):
+        if key in samples[0]:
+            arr = np.full((b, mel_len, samples[0][key].shape[1]), pad,
+                          np.float32)
+            for i, s in enumerate(samples):
+                v = s[key][:mel_len]
+                arr[i, :len(v)] = v
+            out[key] = arr
     for key, dtype in (("alignment", np.int32), ("f0", np.float32),
                        ("energy", np.float32)):
         if key in samples[0]:

@@ -23,9 +23,17 @@ file name, 1 for ``hop256``, 2 for ``hop160``, else 0; ``spk_emb``
 (``spk_emb_type = "speaker_id"``) or the sibling ``X_xvector.npy``
 (``"x_vector"``); ``accent`` (``accent_emb``) the space-separated ids of
 column 2 too, the same column as the speaker id, as in the JAX package;
-``gender`` (``gender_emb``) the int of column 3. SentencePiece text comes
-with a later slice. ``load_batch_samples`` reads a batch's mels with the
-native reader (data/native.py).
+``gender`` (``gender_emb``) the int of column 3; ``spk_emb_post`` (the
+mel-to-mel student's ``spk_emb_postprocess_type``, the JAX file's
+:130-134) the sibling ``X_xvector.npy`` (``"x_vector"``) or the int of
+column 2 (``"speaker_id"``). SentencePiece text comes with a later slice.
+For ``architecture = "mel-mel"`` with ``teacher_suffix`` (the
+pregenerated teacher corpus of cli/teacher_forcing.py, the JAX file's
+:163-172), a training sample also holds ``teacher_mel``, the normalised
+``X{teacher_suffix}.npy``, and ``teacher_phone``,
+``X{teacher_suffix}_phone.npy``, where that file exists.
+``load_batch_samples`` reads a batch's mels with the native reader
+(data/native.py).
 """
 
 from __future__ import annotations
@@ -92,6 +100,11 @@ class ScriptDataset:
                 [int(t) for t in row[2].split(" ")], np.int32)
         if hp.gender_emb:
             sample["gender"] = int(row[3])
+        if hp.spk_emb_postprocess_type == "x_vector":
+            sample["spk_emb_post"] = np.load(
+                mel_name.replace(".npy", "_xvector.npy"))
+        elif hp.spk_emb_postprocess_type == "speaker_id":
+            sample["spk_emb_post"] = int(row[2])
         return sample
 
 
@@ -140,6 +153,13 @@ class TTSDataset(ScriptDataset):
             else:
                 sample["mel_length"] = mel.shape[0]
             sample["mel"] = mel.astype(np.float32)
+        if hp.architecture == "mel-mel" and hp.teacher_suffix:
+            stem = mel_name.replace(".npy", hp.teacher_suffix)
+            sample["teacher_mel"] = self.normalizer(
+                load_mel(stem + ".npy", hp.mel_dim)).astype(np.float32)
+            if os.path.exists(stem + "_phone.npy"):
+                sample["teacher_phone"] = self._sibling(
+                    mel_name, hp.teacher_suffix + "_phone.npy", np.float32)
         if not self.is_ar:
             sample["alignment"] = self._sibling(
                 mel_name, hp.tail_alignment + ".npy", np.int32)

@@ -28,11 +28,19 @@ model, a (``spk_emb_dim``,) float vector for an x-vector model; ``None``
 (or no ``speakers``) means speaker 0 or the zero vector, and a wrong
 shape raises JAX's error. Every call, warm-up included, passes a speaker
 array, so a multi-speaker model runs one shape per bucket. A ``use_hop``
-model is served at hop-size class 0 (JAX's engine passes no hop size). Refused as JAX
-refuses them: the Tacotron 2 decoder, a bare mel-to-mel snapshot, GST
-without ``ref_mel``; SQ-VAE hparams, as the port's synthesis CLI refuses
-them (JAX's engine cannot restore them either). Through ``later_slice``:
-``post_model=`` and text-mel-mel snapshots.
+model is served at hop-size class 0 (JAX's engine passes no hop size).
+The mel-to-mel line (JAX's :80-84, :148-166, :288-301): a text-mel-mel
+snapshot serves its refined mel (``synthesize_integrate``), and
+``post_model=`` (a mel-mel student's directory, built from its own
+``hparams.py``) refines the FastSpeech 2 mel in the same call
+(``synthesize_fastspeech2_post``); the student loads whole, its VQ
+codebook included (JAX's engine restores its parameters only), and is
+not quantized by ``quantize``, as in JAX's engine. Neither streams
+(``NotImplementedError``: the refinement needs the whole mel). Refused
+as JAX refuses them: the Tacotron 2 decoder, a bare mel-to-mel snapshot,
+``post_model=`` with a text-mel-mel snapshot or an AR model, GST without
+``ref_mel``; SQ-VAE hparams, as the port's synthesis CLI refuses them
+(JAX's engine cannot restore them either).
 
 ``export(out_dir)`` writes ``torch.export`` artifacts, one per text
 bucket and one per vocoder mel budget, and a ``manifest.json`` (see
@@ -75,9 +83,9 @@ from transformer_tts_tpu_torch.infer.quantize import quantize_parameters_
 from transformer_tts_tpu_torch.infer.streaming import (
     ARStream, StreamingVocoder, vocode_pinned)
 from transformer_tts_tpu_torch.infer.synthesize import (
-    synthesize_fastspeech2, synthesize_transformer_tts)
+    load_post_model, synthesize_fastspeech2, synthesize_fastspeech2_post,
+    synthesize_integrate, synthesize_transformer_tts)
 from transformer_tts_tpu_torch.models import build_model
-from transformer_tts_tpu_torch.models.fastspeech2 import later_slice
 from transformer_tts_tpu_torch.train.checkpoint import (
     load_checkpoint, resolve_checkpoint)
 
@@ -92,11 +100,14 @@ def _check_servable(hp, *, post_model, ref_mel) -> None:
             "a bare mel-mel PostLowEnergy snapshot is not a text-to-speech "
             "model; serve its FastSpeech2 teacher with post_model=<this "
             "dir>, or use cli/synthesize --post_model")
-    if hp.architecture == "text-mel-mel":
-        later_slice("serving a text-mel-mel snapshot",
-                    "mel-to-mel post-processing")
-    if post_model is not None:
-        later_slice("TTSEngine(post_model=)", "mel-to-mel post-processing")
+    if hp.architecture == "text-mel-mel" and post_model is not None:
+        raise ValueError(
+            "text-mel-mel snapshots carry their post-model inside the joint "
+            "checkpoint; drop post_model=")
+    if post_model is not None and not is_nar_model(hp.model):
+        raise ValueError(
+            "post_model refines FastSpeech2 outputs; the AR families have "
+            "their own causal postnet")
     if hp.gst and ref_mel is None:
         raise ValueError(
             "GST models need a style reference per session: pass "
@@ -137,6 +148,7 @@ class TTSEngine:
         _check_servable(hp, post_model=post_model, ref_mel=ref_mel)
         self.hp = hp
         self.is_ar = not is_nar_model(hp.model)
+        self.is_integrate = hp.architecture == "text-mel-mel"
         self.batch_size = int(batch_size)
         self.frames_per_phone = int(frames_per_phone)
         self.text_buckets = tuple(sorted(text_buckets or hp.text_buckets))
@@ -169,6 +181,9 @@ class TTSEngine:
             ref = normalizer(np.load(ref_mel).astype(np.float32))
             self._ref_mel = torch.as_tensor(ref, dtype=torch.float32,
                                             device=self.device)[None]
+        self._post = None
+        if post_model is not None:
+            self._post = load_post_model(post_model, hp, self.device)
         self._vocoder = None
         if vocoder is not None:
             from transformer_tts_tpu_torch.vocoder.trainer import (
@@ -269,7 +284,8 @@ class TTSEngine:
 
     def _fastspeech2(self, text, pos_text, max_frames: int, spk_emb):
         return _fastspeech2_synthesis(self.model, text, pos_text, spk_emb,
-                                      max_frames, self._mean, self._var)
+                                      max_frames, self._mean, self._var,
+                                      self.is_integrate, self._post)
 
     def synthesize(self, texts: List[Sequence[int]],
                    speakers: Optional[Sequence] = None) -> List[dict]:
@@ -320,6 +336,11 @@ class TTSEngine:
         decodes ``segment_steps`` steps (a multiple of 8) per segment.
         ``speaker`` conditions a multi-speaker model, as in
         ``synthesize``."""
+        if self.is_integrate or self._post is not None:
+            raise NotImplementedError(
+                "streaming does not run the mel-mel refinement stage (it "
+                "needs the full mel); use synthesize() for post-processed "
+                "models")
         spk = self._speakers([0], [speaker], 1)
         events = self._stream_events(list(text), spk, chunk_frames,
                                      segment_steps)
@@ -394,8 +415,10 @@ class TTSEngine:
         a vocoder one per mel budget; returns the manifest (also written as
         ``manifest.json``), with the JAX engine's keys.
 
-        ``{stem}_b{B}_l{bucket}.pt2`` (stem ``fastspeech2`` or
-        ``transformer_tts``) takes ``(text, pos_text)`` (B, bucket) int64
+        ``{stem}_b{B}_l{bucket}.pt2`` (stem ``fastspeech2``,
+        ``transformer_tts``, ``integrate`` for a text-mel-mel snapshot or
+        ``fastspeech2_post`` with a mel-to-mel student, whose weights are
+        baked in too) takes ``(text, pos_text)`` (B, bucket) int64
         and, for a multi-speaker model, ``spk`` ((B,) int64 ids or (B,
         spk_emb_dim) float32 x-vectors), and returns ``_run_padded``'s
         outputs: (mel, mel_len, durations), the AR model's (mel, mel_len).
@@ -421,7 +444,9 @@ class TTSEngine:
                     "speaker_input": (
                         None if not self.hp.is_multi_speaker else
                         ("x_vector" if self.is_xvector else "speaker_id"))}
-        stem = "transformer_tts" if self.is_ar else "fastspeech2"
+        stem = ("transformer_tts" if self.is_ar else "integrate"
+                if self.is_integrate else "fastspeech2_post"
+                if self._post is not None else "fastspeech2")
         platforms = [self.device.type]
         with self.lock:
             for bucket in self.text_buckets:
@@ -456,13 +481,26 @@ class TTSEngine:
 
 
 def _fastspeech2_synthesis(model, text, pos_text, spk_emb, max_frames: int,
-                           mean, var):
-    """``synthesize_fastspeech2`` as the engine runs it: a ``use_hop``
-    model gets hop-size class 0 (the data layer's class of a mel named
-    neither hop256 nor hop160: JAX's engine passes none and cannot serve
-    such a model)."""
+                           mean, var, integrate: bool = False, post=None):
+    """``synthesize_fastspeech2`` as the engine runs it, or
+    ``synthesize_integrate`` (``integrate``) or
+    ``synthesize_fastspeech2_post`` (``post``: the student and its
+    hparams): (mel, mel_len, durations). A ``use_hop`` model gets hop-size
+    class 0 (the data layer's class of a mel named neither hop256 nor
+    hop160: JAX's engine passes none and cannot serve such a model)."""
     hop = (torch.zeros(text.shape[0], dtype=torch.long, device=text.device)
            if model.hop_emb is not None else None)
+    if integrate:
+        refined, _, mel_len, durations = synthesize_integrate(
+            model, text, pos_text, max_frames, mean, var, spk_emb=spk_emb,
+            hop_size=hop)
+        return refined, mel_len, durations
+    if post is not None:
+        student, p_hp = post
+        return synthesize_fastspeech2_post(
+            model, student, text, pos_text, max_frames, mean, var,
+            version=p_hp.version, mel_dim_post=p_hp.mel_dim_post,
+            spk_emb=spk_emb, hop_size=hop)
     return synthesize_fastspeech2(model, text, pos_text, max_frames, mean,
                                   var, spk_emb=spk_emb, hop_size=hop)
 
@@ -485,6 +523,9 @@ class SynthesisProgram(nn.Module):
         super().__init__()
         self.model = engine.model
         self.is_ar = engine.is_ar
+        self.is_integrate = engine.is_integrate
+        self.student = None if engine._post is None else engine._post[0]
+        self.post_hp = None if engine._post is None else engine._post[1]
         self.max_frames = max_frames
         self.register_buffer("mean", engine._mean)
         self.register_buffer("var", engine._var)
@@ -495,8 +536,11 @@ class SynthesisProgram(nn.Module):
             return _ar_synthesis(self.model, text, pos_text, spk,
                                  self.max_frames, self.mean, self.var,
                                  self.ref_mel, loop=True)
+        post = (None if self.student is None
+                else (self.student, self.post_hp))
         return _fastspeech2_synthesis(self.model, text, pos_text, spk,
-                                      self.max_frames, self.mean, self.var)
+                                      self.max_frames, self.mean, self.var,
+                                      self.is_integrate, post)
 
 
 class VocoderProgram(nn.Module):

@@ -1,13 +1,19 @@
 """Synthesis (the port of ``denormalize``, ``sample_perturbation``,
-``synthesize_fastspeech2`` and the AR decode of ``_ar_check``, ``_ar_init``,
-``_ar_body`` and ``synthesize_transformer_tts``,
-transformer_tts_tpu/infer/synthesize.py:39-87 and :186-301), and the
+``synthesize_fastspeech2``, the mel-to-mel line's ``synthesize_integrate``
+and ``synthesize_fastspeech2_post``, and the AR decode of ``_ar_check``,
+``_ar_init``, ``_ar_body`` and ``synthesize_transformer_tts``,
+transformer_tts_tpu/infer/synthesize.py:39-183 and :186-301), and the
 synthesis CLI's per-utterance vocoding (``vocode_utterance``, the neural
 branch of ``_write_wav``, transformer_tts_tpu/cli/synthesize.py:247-262).
 
 FastSpeech 2: one non-autoregressive forward in eval mode; the optional
 pitch/duration perturbation factors come from {0.8, 0.9, 1.0, 1.1, 1.2};
 the mel is de-normalized as ``mel * sqrt(var) + mean`` on the device.
+The text-mel-mel model's post output (a pair's first at versions 8-10)
+is added to its mel_post (mel_pre without the postnet); a FastSpeech 2
+with a mel-to-mel student adds the student's output to dims
+``:mel_dim_post`` of that mel at versions 3, 5 and 6 and puts it in
+their place at the others. Both run in one call, without a host sync.
 
 AR Transformer-TTS: the KV-cached decode loop (see
 ``synthesize_transformer_tts``); the cache keeps every attention of the
@@ -120,6 +126,109 @@ def synthesize_fastspeech2(
     durations = torch.where(src_mask[:, 0, :], durations,
                             torch.zeros_like(durations))
     return mel, out.mel_len, durations.to(torch.int32)
+
+
+def _durations(model, out, src_mask) -> torch.Tensor:
+    durations = torch.round(
+        torch.exp(out.log_duration.float()) - model.log_offset).clamp(min=0)
+    return torch.where(src_mask[:, 0, :], durations,
+                       torch.zeros_like(durations)).to(torch.int32)
+
+
+@torch.inference_mode()
+def synthesize_integrate(
+    model: FastSpeech2, text: torch.Tensor, pos_text: torch.Tensor,
+    max_frames: int, mean: Optional[torch.Tensor] = None,
+    var: Optional[torch.Tensor] = None, *, spk_emb=None, spk_emb_post=None,
+    accent=None, hop_size=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One forward of the text-mel-mel model; returns (refined (B, T,
+    mel), prenet (the mel_pre) (B, T, mel), mel_len (B,), durations (B,
+    L)), both mels de-normalized when ``mean``/``var`` are given."""
+    model.eval()
+    src_mask = pad_mask(pos_text)
+    cond = {k: v for k, v in (("spk_emb", spk_emb),
+                              ("spk_emb_post", spk_emb_post),
+                              ("accent", accent), ("hop_size", hop_size))
+            if v is not None}
+    out = model(text, src_mask, max_frames, **cond)
+    post = out.post_output
+    if isinstance(post, tuple):
+        post = post[0]
+    base = out.mel_post if model.postnet_pred else out.mel_pre
+    refined = base + post.to(base.dtype)
+    prenet = out.mel_pre
+    if mean is not None and var is not None:
+        refined = denormalize(refined, mean, var)
+        prenet = denormalize(prenet, mean, var)
+    return refined, prenet, out.mel_len, _durations(model, out, src_mask)
+
+
+RESIDUAL_POST_VERSIONS = (3, 5, 6)
+
+
+@torch.inference_mode()
+def synthesize_fastspeech2_post(
+    model: FastSpeech2, post_model: nn.Module, text: torch.Tensor,
+    pos_text: torch.Tensor, max_frames: int,
+    mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
+    *, version: Optional[int], mel_dim_post: int, spk_emb=None,
+    hop_size=None, pitch_scale: float = 1.0, duration_scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FastSpeech 2 then the mel-to-mel student of ``version`` on its mel
+    and phone feature (``text_dur_predicted`` at versions 4 and 6, the
+    variance adaptor's output at the others; none at 1 and 5); returns
+    (refined mel (B, T, mel), mel_len (B,), durations (B, L))."""
+    model.eval()
+    post_model.eval()
+    src_mask = pad_mask(pos_text)
+    cond = {k: v for k, v in (("spk_emb", spk_emb), ("hop_size", hop_size))
+            if v is not None}
+    out = model(text, src_mask, max_frames, pitch_scale=pitch_scale,
+                duration_scale=duration_scale, **cond)
+    input_mel = out.mel_post if model.postnet_pred else out.mel_pre
+    if version in (1, 5):
+        post = post_model(input_mel, out.mel_mask)
+    else:
+        phone = (out.text_dur_predicted if version in (4, 6)
+                 else out.variance_adaptor_output)
+        post = post_model(input_mel, out.mel_mask, phone)[0]
+    head = input_mel[:, :, :mel_dim_post]
+    post = post.to(input_mel.dtype)
+    if version in RESIDUAL_POST_VERSIONS:
+        post = head + post
+    refined = torch.cat([post, input_mel[:, :, mel_dim_post:]], dim=-1)
+    if mean is not None and var is not None:
+        refined = denormalize(refined, mean, var)
+    return refined, out.mel_len, _durations(model, out, src_mask)
+
+
+def post_hparams(post_dir: str):
+    """The hparams beside a mel-to-mel student's checkpoint: ``post_dir``'s
+    ``hparams.py``, or its parent's for an ``epoch_N``/``average_N``
+    directory without one; None when there is none."""
+    import os
+    from transformer_tts_tpu_torch.config import load_hparams
+    path = os.path.normpath(post_dir)
+    if (os.path.basename(path).startswith(("epoch_", "average_"))
+            and not os.path.exists(os.path.join(path, "hparams.py"))):
+        path = os.path.dirname(path)
+    hp_file = os.path.join(path, "hparams.py")
+    return load_hparams(hp_file) if os.path.exists(hp_file) else None
+
+
+def load_post_model(post_dir: str, hp, device):
+    """(the mel-to-mel student of ``post_dir`` on ``device`` in eval mode,
+    its hparams): those of ``post_hparams(post_dir)``, else ``hp``; the
+    checkpoint resolved as a synthesis ``--load_name``."""
+    from transformer_tts_tpu_torch.models.fastspeech2 import (
+        build_post_model)
+    from transformer_tts_tpu_torch.train.checkpoint import (
+        load_checkpoint, resolve_checkpoint)
+    p_hp = post_hparams(post_dir) or hp
+    student = build_post_model(p_hp, device=device)
+    load_checkpoint(student, resolve_checkpoint(post_dir))
+    return student.eval(), p_hp
 
 
 def _ar_check(model: TransformerTTS) -> None:

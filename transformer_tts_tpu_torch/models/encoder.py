@@ -15,8 +15,11 @@ Conditioning, as in the JAX stacks (encoder.py:104-109, :143-145,
 before the final norm in the transformer stack (5 accents), at the input
 in the conformer stack (13 accents); ``ctc_out`` taps ``ctc_linear`` (d
 -> ``ctc_classes``) after layer ``min(ctc_layer, n_layers - 1)`` and the
-stack returns its logits third. The JAX package's per-layer intermediate
-taps are not ported: no model of the port builds them.
+stack returns its logits third. The transformer stack's
+``intermediate_layers_out`` (the JAX file's :62-63, :76-77, :87-113)
+taps ``intermediate[i]`` (d -> 80) after each named layer i and returns
+the list of taps, in layer order, third; it excludes ``ctc_out``
+(``ValueError``). The mel-to-mel students build it (models/postnets.py).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from transformer_tts_tpu_torch.ops.positional import (
 
 
 CTC_LAYER = 2
+INTERMEDIATE_DIM = 80
 
 
 class _Stack(nn.Module):
@@ -42,8 +46,12 @@ class _Stack(nn.Module):
     def __init__(self, vocab_size: int, d_model: int, embedding: bool,
                  use_flash: bool, pe: nn.Module, layers,
                  n_accents: Optional[int] = None, ctc_out: bool = False,
-                 ctc_classes: int = 152):
+                 ctc_classes: int = 152,
+                 intermediate_layers_out: Optional[tuple] = None):
         super().__init__()
+        if ctc_out and intermediate_layers_out:
+            raise ValueError("ctc_out and intermediate_layers_out taps are "
+                             "exclusive")
         self.embedding = embedding
         self.use_flash = use_flash
         # vocab_size is the input width when embedding is False
@@ -57,6 +65,11 @@ class _Stack(nn.Module):
         self.ctc_linear = (nn.Linear(d_model, ctc_classes) if ctc_out
                            else None)
         self.ctc_at = min(CTC_LAYER, len(self.layers) - 1)
+        self.intermediate = (
+            nn.ModuleDict({str(i): nn.Linear(d_model, INTERMEDIATE_DIM)
+                           for i in range(len(self.layers))
+                           if i in intermediate_layers_out})
+            if intermediate_layers_out else None)
 
     def _input(self, src: torch.Tensor) -> torch.Tensor:
         x = self.embed(src)
@@ -79,6 +92,7 @@ class _Stack(nn.Module):
                 accent_emb=None, generator=None):
         k_len = self._key_lengths(mask)
         attns = []
+        taps = []
         ctc_logits = None
         for i, layer in enumerate(self.layers):
             x, attn = layer(x, *pos, mask, spk_emb,
@@ -86,12 +100,16 @@ class _Stack(nn.Module):
                             generator=generator)
             if collect_attn:
                 attns.append(attn)
+            if self.intermediate is not None and str(i) in self.intermediate:
+                taps.append(self.intermediate[str(i)](x))
             if self.ctc_linear is not None and i == self.ctc_at:
                 ctc_logits = self.ctc_linear(x)
         if accent_emb is not None:
             x = x + accent_emb
         x = self.norm(x)
         attn = torch.stack(attns, dim=1) if collect_attn else None
+        if self.intermediate is not None:
+            return x, attn, taps
         if self.ctc_linear is not None:
             return x, attn, ctc_logits
         return x, attn
@@ -105,7 +123,8 @@ class Encoder(_Stack):
                  dropout: float = 0.1, embedding: bool = True,
                  use_flash: bool = False, spk_emb_dim: Optional[int] = None,
                  accent_emb: bool = False, ctc_out: bool = False,
-                 ctc_classes: int = 152):
+                 ctc_classes: int = 152,
+                 intermediate_layers_out: Optional[tuple] = None):
         super().__init__(
             vocab_size, d_model, embedding, use_flash,
             PositionalEncoder(d_model, dropout),
@@ -113,7 +132,8 @@ class Encoder(_Stack):
                           concat_after=concat_after, use_flash=use_flash,
                           spk_emb_dim=spk_emb_dim)
              for _ in range(n_layers)),
-            self.N_ACCENTS if accent_emb else None, ctc_out, ctc_classes)
+            self.N_ACCENTS if accent_emb else None, ctc_out, ctc_classes,
+            intermediate_layers_out)
 
     def forward(self, src, mask, spk_emb=None, accent=None, *,
                 collect_attn: bool = False,
@@ -121,7 +141,8 @@ class Encoder(_Stack):
         """``src`` (B, T) ids or (B, T, C) features; ``mask`` (B, 1, T)
         bool; ``spk_emb`` (B,) ids or (B, 512) x-vectors, ``accent``
         (B, T) ids; ``generator`` seeds the kernel path's dropout. Returns
-        (x (B, T, d_model), attn (B, N, H, T, T) or None[, ctc_logits])."""
+        (x (B, T, d_model), attn (B, N, H, T, T) or None[, ctc_logits or
+        the list of taps])."""
         return self._layers(self.pe(self._input(src)), mask, collect_attn,
                             spk_emb=spk_emb, accent_emb=self._accent(accent),
                             generator=generator)

@@ -1,5 +1,5 @@
 """FastSpeech 2, non-autoregressive text -> mel (the port of
-transformer_tts_tpu/models/fastspeech2.py:39-256 with transformer or
+transformer_tts_tpu/models/fastspeech2.py:39-327 with transformer or
 conformer stacks, and of ``build_fastspeech2``,
 transformer_tts_tpu/train/trainer.py:55-119).
 
@@ -30,13 +30,27 @@ taps the decoder stack (``ctc_logits`` (B, T, vocab)); ``use_pos`` and
 ``amp`` runs the forward under bf16 autocast (the JAX package's
 ``dtype=bfloat16`` with fp32 parameters). In train mode the caller's
 ``generator`` seeds the kernel path's attention dropout, the scheduled
-sampling and the SQ-VAE's Gumbel noise; the other dropouts draw from
-torch's default generators. A stack type other than "transformer" or
-"conformer" (the AR model's "tacotron2" among them) raises ``ValueError``;
-the mel-to-mel post model raises ``NotImplementedError``: it comes with a
-later slice. The discrete mode (``output_type``) changes no layer here:
+sampling, the SQ-VAE's Gumbel noise and the semantic mask's draws; the
+other dropouts draw from torch's default generators. A stack type other
+than "transformer" or "conformer" (the AR model's "tacotron2" among them)
+raises ``ValueError``. The discrete mode (``output_type``) changes no
+layer here:
 the (B, T, mel_dim) head's halves are the two code streams' logits
 (train/losses.softmax_output_loss).
+
+The text-mel-mel integrate model (``enable_post_model``, the JAX file's
+:117-122, :259-298; ``build_fastspeech2`` builds it for
+``architecture = "text-mel-mel"``) attaches ``post_model``, a
+``PostLowEnergyv2`` of ``post_model_cfg`` over the mel_post (mel_pre
+without the postnet) and the variance adaptor's output, and returns its
+output in ``post_output``. In train mode with duration targets,
+``semantic_mask`` first fills the frames of random interior phones with
+1e-4 in that mel (and the phone feature with ``semantic_mask_phone``),
+and ``mask_frames`` (B, T, 1) says which. Versions 8 and 9 add
+``post_model_replace_mask``, a second student on the masked input (the
+first reads mel_pre and the unmasked phone feature at 8, the masked ones
+at 9), and return both outputs as a pair; version 10 with taps returns
+(output, its first tap). ``spk_emb_post`` conditions the student.
 """
 
 from __future__ import annotations
@@ -51,7 +65,8 @@ from transformer_tts_tpu_torch.config import HParams, spk_arch
 from transformer_tts_tpu_torch.models.encoder import (
     ConformerEncoder, Encoder)
 from transformer_tts_tpu_torch.models.layers import XVECTOR_DIM
-from transformer_tts_tpu_torch.models.postnets import PostConvNet
+from transformer_tts_tpu_torch.models.postnets import (
+    PostConvNet, PostLowEnergyv1, PostLowEnergyv2, Quantize)
 from transformer_tts_tpu_torch.models.sq_vae import N_CODES, SQEmbedding
 from transformer_tts_tpu_torch.models.variance_adaptor import (
     UniLSTM, VarianceAdaptor)
@@ -75,6 +90,8 @@ class FastSpeech2Output(NamedTuple):
     sq_vae_loss: Optional[torch.Tensor] = None
     sq_vae_perplexity: Optional[torch.Tensor] = None
     ctc_logits: Optional[torch.Tensor] = None   # (B, T, vocab)
+    post_output: Optional[object] = None        # a tensor or a pair
+    mask_frames: Optional[torch.Tensor] = None  # (B, T, 1) bool
 
 
 def l2_normalised(spk_emb: torch.Tensor) -> torch.Tensor:
@@ -115,7 +132,12 @@ class FastSpeech2(nn.Module):
                  spk_emb_dim: Optional[int] = None,
                  spk_emb_architecture: tuple = (), use_hop: bool = False,
                  ctc_training: bool = False,
-                 use_flash: bool = False, amp: bool = False):
+                 use_flash: bool = False, amp: bool = False,
+                 enable_post_model: bool = False,
+                 post_model_cfg: Optional[dict] = None,
+                 version: Optional[int] = None, semantic_mask: bool = False,
+                 semantic_mask_phone: bool = False,
+                 mask_probability: float = 0.06):
         super().__init__()
         self.log_offset = log_offset
         self.amp = amp
@@ -157,6 +179,16 @@ class FastSpeech2(nn.Module):
         else:
             self.out = nn.Linear(d_model_decoder, mel_dim * reduction_rate)
         self.postnet_pred = postnet_pred
+        self.version = version
+        self.semantic_mask = semantic_mask
+        self.semantic_mask_phone = semantic_mask_phone
+        self.mask_probability = mask_probability
+        self.post_model = self.post_model_replace_mask = None
+        if enable_post_model:
+            cfg = dict(post_model_cfg or {}, in_dim=mel_dim, amp=amp)
+            self.post_model = PostLowEnergyv2(**cfg)
+            if version in (8, 9):
+                self.post_model_replace_mask = PostLowEnergyv2(**cfg)
 
     def _spk_dim(self, place: str, spk_emb_dim):
         return spk_emb_dim if place in self.spk_emb_architecture else None
@@ -164,6 +196,7 @@ class FastSpeech2(nn.Module):
     def forward(self, text, src_mask, max_frames: int, d_target=None,
                 p_target=None, e_target=None, mel_mask=None, *,
                 spk_emb=None, accent=None, hop_size=None,
+                spk_emb_post=None,
                 collect_attn: bool = False, pitch_scale: float = 1.0,
                 duration_scale: float = 1.0, temperature=None,
                 generator: Optional[torch.Generator] = None
@@ -171,10 +204,12 @@ class FastSpeech2(nn.Module):
         """``text`` (B, L) ids, ``src_mask`` (B, 1, L) bool; the targets
         teacher-force durations (B, L), pitch and energy (B, T). A
         conditioned model takes ``spk_emb`` ((B,) ids or (B, 512)
-        x-vectors), ``accent`` (B, L) and ``hop_size`` (B,). With
+        x-vectors), ``accent`` (B, L) and ``hop_size`` (B,), the
+        integrate model's student ``spk_emb_post``. With
         ``use_sq_vae``, train mode takes the Gumbel-softmax
         ``temperature``."""
         sq_loss = sq_perplexity = ctc_logits = None
+        post_output = mask_frames = None
         with torch.autocast(text.device.type, dtype=torch.bfloat16,
                             enabled=self.amp):
             e_outputs, attn_enc = self.encoder(text, src_mask, spk_emb,
@@ -210,6 +245,9 @@ class FastSpeech2(nn.Module):
                 mel_pre, mel_post = self.postnet(d_output)
             else:
                 mel_pre, mel_post = self.out(d_output), None
+            if self.post_model is not None:
+                post_output, mask_frames = self._run_post_model(
+                    mel_pre, mel_post, va, d_target, spk_emb_post, generator)
         return FastSpeech2Output(
             mel_pre=mel_pre, mel_post=mel_post, log_duration=va.log_duration,
             pitch=va.pitch, energy=va.energy, mel_len=va.mel_len,
@@ -217,14 +255,83 @@ class FastSpeech2(nn.Module):
             variance_adaptor_output=va.x,
             text_dur_predicted=va.text_dur_predicted,
             attn_enc=attn_enc, attn_dec=attn_dec, sq_vae_loss=sq_loss,
-            sq_vae_perplexity=sq_perplexity, ctc_logits=ctc_logits)
+            sq_vae_perplexity=sq_perplexity, ctc_logits=ctc_logits,
+            post_output=post_output, mask_frames=mask_frames)
+
+    def _run_post_model(self, mel_pre, mel_post, va, d_target,
+                        spk_emb_post, generator):
+        """(post_output, mask_frames) of the integrate model (see the
+        module docstring)."""
+        input_meltomel = mel_post if self.postnet_pred else mel_pre
+        phone_feature = va.x
+        mask_frames = None
+        if self.semantic_mask and self.training and d_target is not None:
+            input_meltomel, masked_phone, mask_frames = semantic_mask(
+                input_meltomel, va.x if self.semantic_mask_phone else None,
+                d_target, self.mask_probability, generator=generator)
+            if masked_phone is not None:
+                phone_feature = masked_phone
+        if self.version in (8, 9):
+            first_in = mel_pre if self.version == 8 else input_meltomel
+            first_phone = va.x if self.version == 8 else phone_feature
+            out_a = self.post_model(first_in, va.mel_mask, first_phone,
+                                    spk_emb_post, generator=generator)[0]
+            out_b = self.post_model_replace_mask(
+                input_meltomel, va.mel_mask, phone_feature, spk_emb_post,
+                generator=generator)[0]
+            return (out_a, out_b), mask_frames
+        out, taps, _ = self.post_model(input_meltomel, va.mel_mask,
+                                       phone_feature, spk_emb_post,
+                                       generator=generator)
+        if self.version == 10 and taps:
+            return (out, taps[0]), mask_frames
+        return out, mask_frames
 
 
-def later_slice(feature: str, slice_name: str):
-    """Raise for a feature that a later slice of the port brings."""
-    raise NotImplementedError(
-        f"{feature} is not ported yet: it comes with the {slice_name} "
-        "slice of the PyTorch port (ROADMAP.md Queue 1)")
+SEMANTIC_MASK_FILL = 1e-4
+
+
+def mask_uniform(b: int, n_phones: int, device,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The semantic mask's (B, n_phones) uniform draws in [0, 1), from the
+    CPU ``generator``, then moved to ``device``."""
+    return torch.rand((b, n_phones), generator=generator).to(
+        device, non_blocking=True)
+
+
+def semantic_mask(mel, phone_feature, d_target, p: float, *,
+                  uniform: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  eps: float = SEMANTIC_MASK_FILL):
+    """Phone-span masking (the JAX file's :301-327): each interior phone
+    (not the first or last column) is masked where its (B, n_phones)
+    ``uniform`` draw (default ``mask_uniform`` from ``generator``) is
+    below ``p``, and every frame of a masked phone's duration span, inside
+    the row's total, is filled with ``eps`` in ``mel`` (B, T, C) and
+    ``phone_feature``. -> (mel, phone_feature or None, mask_frames (B, T,
+    1) bool)."""
+    b, n_frames = mel.shape[:2]
+    n_phones = d_target.shape[1]
+    if uniform is None:
+        uniform = mask_uniform(b, n_phones, mel.device, generator)
+    sample = uniform.to(mel.device) < p
+    interior = torch.ones(n_phones, dtype=torch.bool, device=mel.device)
+    interior[0] = interior[-1] = False
+    sample = sample & interior
+    ends = torch.cumsum(d_target.long(), dim=1)
+    t = torch.arange(n_frames, device=mel.device)
+    phone_idx = torch.searchsorted(ends, t.expand(b, n_frames).contiguous(),
+                                   right=True).clamp(max=n_phones - 1)
+    mask_frames = (torch.gather(sample, 1, phone_idx)
+                   & (t[None, :] < ends[:, -1:]))
+    fill = mask_frames[:, :, None]
+    mel = torch.where(fill, torch.full((), eps, dtype=mel.dtype,
+                                       device=mel.device), mel)
+    if phone_feature is not None:
+        phone_feature = torch.where(
+            fill, torch.full((), eps, dtype=phone_feature.dtype,
+                             device=mel.device), phone_feature)
+    return mel, phone_feature, fill
 
 
 STACK_TYPES = ("transformer", "conformer")
@@ -244,9 +351,6 @@ def check_stack_type(key: str, value: str) -> None:
 def _check_supported(hp: HParams) -> None:
     check_stack_type("encoder_type", hp.encoder_type)
     check_stack_type("decoder_type", hp.decoder_type)
-    if hp.architecture == "text-mel-mel" or hp.version is not None:
-        later_slice("the mel-to-mel post model (post_model)",
-                    "mel-to-mel post-processing")
     check_speakers(hp)
 
 
@@ -302,11 +406,17 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     gate, every bias 0, norm scales and ``alpha`` 1, the conformer's
     ``pos_bias_u/v`` and the GST tokens Xavier-uniform, the SQ-VAE
     codebook N(0, 1). BatchNorm running statistics stay (0, 1) and
-    ``log_var_q_scalar`` log 10.
+    ``log_var_q_scalar`` log 10. The EMA VQ's ``embed`` is N(0, 1), its
+    ``embed_avg`` a copy and its cluster sizes 0.
     """
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            if isinstance(module, Quantize):
+                module.embed.copy_(torch.randn(module.embed.shape,
+                                               generator=generator))
+                module.embed_avg.copy_(module.embed)
+                module.cluster_size.zero_()
+            elif isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 lecun_normal_(module.weight, module.weight[0].numel(),
                               generator)
                 if module.bias is not None:
@@ -341,11 +451,50 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 p.copy_(torch.randn(p.shape, generator=generator))
 
 
-def build_fastspeech2(hp: HParams, *, device="cuda",
-                      seed: int = 0) -> FastSpeech2:
-    """FastSpeech2 from the hparams contract, with random weights from
+def post_model_config(hp: HParams) -> dict:
+    """The student's ``PostLowEnergyv2`` arguments from the hparams (the
+    JAX ``build_fastspeech2``'s ``post_cfg``), its input width aside."""
+    return dict(
+        out_size=hp.mel_dim_post, d_model=hp.d_model_encoder,
+        n_layers=hp.n_layer_post_model, heads=hp.n_head_encoder,
+        ff_kernel_size=hp.ff_conv_kernel_size_post,
+        concat_after=hp.concat_after_post, dropout=hp.dropout,
+        phone_embed=hp.phone_embed, concat=hp.concat,
+        spk_emb_postprocess_type=hp.spk_emb_postprocess_type,
+        spk_emb_dim=hp.spk_emb_dim_postprocess,
+        num_speakers=hp.num_speakers, vq_code=hp.vq_code,
+        post_conformer=hp.post_conformer,
+        intermediate_layers_out=(tuple(hp.intermediate_layers_out)
+                                 if hp.intermediate_layers_out else None),
+        use_flash=hp.use_flash_attention)
+
+
+def build_post_model(hp: HParams, *, device="cuda", seed: int = 0
+                     ) -> nn.Module:
+    """The mel-to-mel student of ``hp.version`` (the JAX
+    train/post_trainers.py:41-63): ``PostLowEnergyv1`` at versions 1 and
+    5, else ``PostLowEnergyv2``, over ``hp.mel_dim`` mels, with random
+    weights from
     ``seed``, on ``device``."""
+    cfg = post_model_config(hp)
+    if hp.version in (1, 5):
+        model = PostLowEnergyv1(
+            hp.mel_dim, cfg["out_size"], cfg["d_model"], cfg["n_layers"],
+            cfg["heads"], cfg["ff_kernel_size"], cfg["concat_after"],
+            cfg["dropout"], use_flash=cfg["use_flash"], amp=hp.amp)
+    else:
+        model = PostLowEnergyv2(in_dim=hp.mel_dim, amp=hp.amp, **cfg)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def build_fastspeech2(hp: HParams, *, device="cuda", seed: int = 0
+                      ) -> FastSpeech2:
+    """FastSpeech2 from the hparams contract, with random weights from
+    ``seed``, on ``device``; with the integrate model's post model when
+    ``architecture`` is "text-mel-mel"."""
     _check_supported(hp)
+    enable_post_model = hp.architecture == "text-mel-mel"
     model = FastSpeech2(
         vocab_size=hp.vocab_size, mel_dim=hp.mel_dim,
         d_model_encoder=hp.d_model_encoder,
@@ -376,6 +525,10 @@ def build_fastspeech2(hp: HParams, *, device="cuda",
         spk_emb_dim=hp.spk_emb_dim, spk_emb_architecture=spk_arch(hp),
         use_hop=hp.use_hop, ctc_training=hp.CTC_training,
         use_flash=hp.use_flash_attention,
-        amp=hp.amp)
+        amp=hp.amp, enable_post_model=enable_post_model,
+        post_model_cfg=post_model_config(hp) if enable_post_model else None,
+        version=hp.version, semantic_mask=hp.semantic_mask,
+        semantic_mask_phone=hp.semantic_mask_phone,
+        mask_probability=hp.mask_probability)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device)

@@ -94,13 +94,14 @@ def process_count() -> int:
 
 
 def set_norm_group(model: nn.Module, group) -> int:
-    """Give every flax-style BatchNorm of ``model`` the group over which
-    its train-mode statistics are reduced (None: this process's batch);
-    returns how many there are."""
+    """Give every flax-style BatchNorm and EMA VQ codebook of ``model``
+    the group over which its train-mode statistics are reduced (None:
+    this process's batch); returns how many there are."""
+    from transformer_tts_tpu_torch.models.postnets import Quantize
     from transformer_tts_tpu_torch.ops.feedforward import FLAX_NORMS
     n = 0
     for m in model.modules():
-        if isinstance(m, FLAX_NORMS):
+        if isinstance(m, FLAX_NORMS + (Quantize,)):
             m.stats_group = group
             n += 1
     return n
@@ -110,8 +111,8 @@ def data_parallel(model: nn.Module,
                   device=None) -> nn.parallel.DistributedDataParallel:
     """``model`` wrapped in DDP over the default group: rank 0's
     parameters and buffers broadcast to every rank, gradients averaged in
-    the backward, and its BatchNorms' statistics reduced over a group of
-    the same ranks (its own, so its collectives never interleave with
+    the backward, and its BatchNorms' and VQ codebooks' statistics
+    reduced over a group of the same ranks (its own, so its collectives never interleave with
     DDP's buckets). Every family's train step gives every parameter a
     gradient, so DDP searches for no unused one. The wrapper's
     ``state_dict`` is not saved: checkpoints hold the bare model's

@@ -4,7 +4,8 @@ transformer_tts_tpu/train/losses.py: ``l1`` :24-31, ``channel_wise_l1``
 ``ctc_aux_loss`` :71-86, ``mse_loss_arelbo`` :89-93, ``ssim`` :96-129,
 ``fastspeech2_loss`` :132-261 with the flagship's options, SSIM, the
 SQ-VAE's and the discrete mode, ``transformer_tts_loss`` :264-281 and
-``softmax_output_loss`` :312-343).
+``softmax_output_loss`` :312-343), and the integrate trainer's
+``time_weighted_l1`` :284-298 and ``cosine_embedding_loss`` :301-309).
 
 L1 on mel_pre and mel_post, L1 of the predicted log durations against
 log(d + log_offset), and L1 on f0 and energy, all in fp32. ``masked=False``
@@ -120,6 +121,34 @@ def ctc_aux_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
                           logit_lengths.long(), label_lengths.long(),
                           blank=blank_id, reduction="mean",
                           zero_infinity=False)
+
+
+def time_weighted_l1(pred: torch.Tensor, target: torch.Tensor,
+                     time_mask: torch.Tensor, time_weight,
+                     mel_dim: int) -> torch.Tensor:
+    """The semantic mask's time-weighted L1: ``time_weight[0]`` x the L1
+    summed over the masked frames ((B, T, 1) bool ``time_mask``) / their
+    count / ``mel_dim``, plus ``time_weight[1]`` x the same over the
+    others, in fp32; the counts are ``mean_count``'s."""
+    err = (pred.float() - target.float()).abs()
+    m = time_mask.float()
+    inv = 1.0 - m
+    loss_mask = (err * m).sum() / mean_count(m.sum()) / mel_dim
+    loss_unmask = (err * inv).sum() / mean_count(inv.sum()) / mel_dim
+    return time_weight[0] * loss_mask + time_weight[1] * loss_unmask
+
+
+def cosine_embedding_loss(x1: torch.Tensor, x2: torch.Tensor
+                          ) -> torch.Tensor:
+    """``F.cosine_embedding_loss`` with target +1: the mean over rows of
+    1 - cos of the flattened rows, the norms' product held at 1e-8 or
+    more, in fp32."""
+    a = x1.reshape(x1.shape[0], -1).float()
+    b = x2.reshape(x2.shape[0], -1).float()
+    cos = (a * b).sum(-1) / (torch.linalg.vector_norm(a, dim=-1)
+                             * torch.linalg.vector_norm(b, dim=-1)
+                             ).clamp(min=1e-8)
+    return (1.0 - cos).mean()
 
 
 def gaussian_window(size: int = 11, sigma: float = 1.5) -> torch.Tensor:

@@ -4,8 +4,10 @@ trainer.py: ``init_fastspeech2_state`` :122-162,
 ``make_fastspeech2_train_step`` :186-260, ``init_transformer_state``
 :294-329, ``_guided_attention_loss`` :332-354,
 ``make_transformer_train_step`` :357-428, ``init_sq_fastspeech2_state``
-and ``make_sq_fastspeech2_train_step`` :435-558; its
-``build_sq_fastspeech2`` is in models/fastspeech2_sq.py).
+and ``make_sq_fastspeech2_train_step`` :435-558,
+``make_fastspeech2_eval_step`` :263-287; its ``build_sq_fastspeech2`` is
+in models/fastspeech2_sq.py; the mel-to-mel trainers are
+train/post_trainers.py).
 
 The step: forward in train mode (bf16 autocast when ``hp.amp``, with no
 GradScaler, as the JAX package runs bf16 without loss scaling) -> the
@@ -312,13 +314,61 @@ def _in_contexts(body):
     return step_fn
 
 
-def _update(state: TrainState, total: torch.Tensor, logs: Dict):
+def _group_sum(state: TrainState, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the data-parallel ranks (``x`` without DDP)."""
+    if state.ddp is None:
+        return x
+    import torch.distributed as dist
+    x = x.float().clone()
+    dist.all_reduce(x)
+    return x
+
+
+def _group_mean_(tensors) -> None:
+    """Average ``tensors`` over the data-parallel ranks, in place."""
+    import torch.distributed as dist
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    for t, f in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(f.view_as(t))
+
+
+def _update(state: TrainState, total: torch.Tensor, logs: Dict, *,
+            nan_guard: bool = False):
     """Backward, clip and optimizer update; ``step += 1``. Under data
     parallelism the logs are averaged over the ranks (the global batch's
-    values, as every loss's average over the ranks is)."""
-    state.optimizer.zero_grad()
+    values, as every loss's average over the ranks is). ``nan_guard``
+    (the mel-to-mel steps) zeroes this micro-step's gradients when
+    ``total`` is not finite and still takes the update, as the JAX steps
+    do: the moments decay, the parameters move by them and the schedule
+    advances; the logs gain ``skipped_nan``. Mid-accumulation the partial
+    sum of the earlier micro-steps stays (optax's MultiSteps keeps it).
+    Under data parallelism ``total`` is tested over the group, as JAX
+    tests the global batch's loss, so every rank zeroes together. No host
+    sync, except on the last micro-step of an accumulation under data
+    parallelism, where a skipped micro-step's kept sum is averaged over
+    the ranks as DDP averaged the whole sum."""
+    opt = state.optimizer
+    opt.zero_grad()
+    partial = None
+    if nan_guard and opt.mini_step > 0:
+        partial = [p.grad.detach().clone() for p in opt.params]
+    last = opt.syncs
     total.backward()
     logs = {k: v.detach() for k, v in logs.items()}
+    if nan_guard:
+        finite = torch.isfinite(_group_sum(state, total.detach()))
+        if partial is None:
+            partial = [None] * len(opt.params)
+        elif state.ddp is not None and last and not bool(finite):
+            _group_mean_(partial)
+        for p, kept in zip(opt.params, partial):
+            if p.grad is not None:
+                p.grad = torch.where(
+                    finite, p.grad,
+                    kept if kept is not None else torch.zeros_like(p.grad))
+        logs["skipped_nan"] = ~finite
     logs["grad_norm"] = state.optimizer.step()
     state.step += 1
     if state.ddp is not None:
@@ -446,3 +496,32 @@ def make_sq_fastspeech2_train_step(hp: HParams, *, device="cuda"):
         return _update(state, total, logs)
 
     return _in_contexts(step_fn)
+
+
+def make_fastspeech2_eval_step(hp: HParams, *, device="cuda"):
+    """``eval_fn(state, batch) -> (out, logs)``: the teacher-forced
+    forward of ``state.model`` in eval mode, without gradients, on a
+    collated batch (durations, f0 and energy as given; with no f0 or
+    energy the model embeds its own predictions) and the FastSpeech 2
+    losses of it (for a dev loss and cli/teacher_forcing.py)."""
+    f0_stats = _variance_stats(hp.f0_mean, hp.f0_std)
+    energy_stats = _variance_stats(hp.energy_mean, hp.energy_std)
+
+    @torch.no_grad()
+    def eval_fn(state: TrainState, batch: Dict):
+        b = batch_to(batch, device, FS2_BATCH_KEYS)
+        src_mask, mel_mask = create_masks(b["pos_text"], b["pos_mel"])
+        model = state.model
+        model.eval()
+        out = model(b["text"], src_mask, b["mel"].shape[1],
+                    b["alignment"], b.get("f0"), b.get("energy"), mel_mask,
+                    spk_emb=b.get("spk_emb"), accent=b.get("accent"),
+                    hop_size=b.get("hop_size"))
+        _, logs = fastspeech2_loss(
+            out, b["mel"], b["alignment"], b.get("f0"), b.get("energy"),
+            src_mask=src_mask, mel_mask=mel_mask, masked=False,
+            log_offset=hp.log_offset, f0_stats=f0_stats,
+            energy_stats=energy_stats)
+        return out, logs
+
+    return eval_fn
