@@ -405,6 +405,37 @@ and each printing its wall time:
        synthesize --post_model.
    The launches of (a)-(f)'s main paths are added to the kernels line's;
    the fp32 check's are not.
+23. tensor parallelism and the meshes, run after 22 and before 7, at full
+   width (6 + 6 layers, 4 heads of 96) on TRAIN_BATCH, random weights
+   from seed 23 (phase_tp):
+   (a) the transformer flagship split over model = 2 (parallel/tp.py:
+       each rank 2 heads and half the FFN channels) on two gloo ranks on
+       the one card, bf16 amp, dropout 0.1, TP_STEPS steps on the whole
+       batch, against one process on the same weights, batch and dropout
+       streams, run twice (the second the same-run control): every
+       logged term, the BatchNorm statistics' moves (equal on both
+       ranks) and the gathered weights' updates within DDP_OF_CONTROL x
+       the control's or the TP_* floors; each rank launching 6 K1-d-90
+       and 6 K2-90 a step at (16, 2, 1024, 96), head offset 0 or 2, as
+       one process does; the ranks' wall and profiled device ms a step
+       beside one process's; an fp32 step (the simple K1-d, K2-dq,
+       K2-dkdv at the head offsets) within TP_FP32_RTOL of one process's
+       loss. Before them, in the main process: K1-d-90, K2-90, K4-d-90
+       and K5-90 at (16, 2, 1024, 96) bf16 with head offset 2 of 4: each
+       kernel's keep bits (read out with q = k = 0 and a one-hot v or dO
+       over 96-key windows) bit for bit the whole-head mask's slice, a
+       planted fault (head offset 0) caught, and each kernel against its
+       plain version on random inputs at 2e-2 of max|ref|;
+   (b) the conformer flagship likewise (6 K4-d-90, 6 K5-90 a step);
+   (c) four gloo ranks on the card, the transformer flagship at dropout
+       0: the (data 2, model 2) mesh (8 rows a rank) and the (dcn 2,
+       data 2) multislice mesh (4 rows a rank), each against one process
+       on the whole batch as in (a), the multislice DDP hook's dcn
+       all-reduce carrying half of the gradient's elements;
+   (d) cli/flash_ab.py fwd, bwd and drop at (32, 4, 1024, 96) bf16:
+       kernel, plain and SDPA device ms.
+   The launches of the ranks' main paths (a)-(c) are added to the
+   kernels line's.
 
 It then prints the phases' wall times, the engine calls' launch counts,
 the kernels line (JSON), the nvidia-smi line, and last ``{"ok": true,
@@ -6966,6 +6997,530 @@ def phase_post(gen, batch, smi: str) -> dict:
     return launches
 
 
+# ---- phase 23: tensor parallelism, the meshes, flash_ab --------------------
+
+TP_STEPS = 3
+TP_FP32_RTOL = 1e-5             # (a)/(b)'s fp32 step loss (simple kernels)
+# the kinds of (a) and (b), and the kernels each one's decoder launches
+TP_KINDS = {"fastspeech2": ("K1-d-90", "K2-90"),
+            "conformer": ("K4-d-90", "K5-90")}
+# (c): the meshes on four ranks (dims, sizes), the flagship at dropout 0
+MESH_RUNS = {"data2_model2": ("data", (2, 2)),
+             "dcn2_data2": ("dcn", (2, 2, 1))}
+# the keep masks drawn on a rank of model = 2: heads [2, 4) of 4
+TP_MASK = dict(seed=1234, rate=0.1, heads=4, offset=2, local=2)
+# (a)-(c)'s bf16 steps against one process's, after the first step: each
+# logged term, the BatchNorm statistics' moves and the share of weight
+# updates apart (by UPDATE_APART of the tensor's largest update) within
+# DDP_OF_CONTROL x the same-run control's, never held tighter than these
+# floors. A split block rounds each rank's bf16 partial product before
+# their fp32 sum, where one process rounds the whole product once; Adam
+# then carries that round-off into the next steps' terms, which are
+# printed, not held. The conformer's grad norm is set by its padded
+# rows' LayerNorm gradients (1/sqrt(eps) on exact zeros, PERF.md 7),
+# which round-off moves by percents, and its clip then scales the
+# gradients to Adam's eps, where the first update reads their size: a
+# CPU rehearsal at d 64 in bf16 moved its grad norm 5.6 % at the first
+# step and 7.1 % of its updates apart (the transformer's 0.9 %), every
+# loss term under 6e-4, and moved its 32 BatchNorm buffers (whose
+# smallest moves are nearly 0) up to 4.8 % of their largest moves (6.1 %
+# on the card, the transformer's 8 buffers 1.0 %); the fp32 steps of
+# (a)/(b) match to 1e-5 (TP_FP32_RTOL).
+TP_LOG_FLOOR = 5e-3
+TP_CONFORMER_NORM_FLOOR = 0.1
+TP_MOVES_FLOOR = {"fastspeech2": 5e-2, "conformer": 0.15}
+UPDATE_APART = 0.1
+TP_UPDATE_FLOOR = {"fastspeech2": 5e-2, "conformer": 0.15}
+
+TP_RANK = """
+import json, sys
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+rank, world, port, work = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank)
+try:
+    settings = json.loads(sys.argv[5])
+    cs.FLAGSHIP.update(settings["flagship"])
+    cs.DEVICE = settings["device"]
+    print(json.dumps(cs.tp_rank(rank, world, work)))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def tp_hparams(kind: str, **overrides):
+    """The flagship of ``kind`` (bf16 amp, dropout 0.1) with overrides."""
+    if kind == "conformer":
+        return conformer_hparams(**overrides)
+    return train_hparams(**overrides)
+
+
+def tp_jobs(world: int) -> list:
+    """(name, kind, hparams overrides, steps, mesh) of a rank's runs: on
+    two ranks (a)'s and (b)'s bf16 steps and their fp32 step, on four
+    (c)'s meshes."""
+    if world == 2:
+        split = ("data", (1, 2))
+        return ([(kind, kind, {}, TP_STEPS, split) for kind in TP_KINDS]
+                + [(f"{kind} fp32", kind, {"amp": False}, 1, split)
+                   for kind in TP_KINDS])
+    zero = dict(dropout=0.0, dropout_postnet=0.0,
+                dropout_variance_adaptor=0.0)
+    return [(name, "fastspeech2", zero, TP_STEPS, mesh)
+            for name, mesh in MESH_RUNS.items()]
+
+
+def tp_mesh(spec):
+    from transformer_tts_tpu_torch.parallel import (make_mesh,
+                                                    make_multislice_mesh)
+    dims, sizes = spec
+    if dims == "dcn":
+        return make_multislice_mesh(sizes[0], sizes[2], device=DEVICE)
+    return make_mesh(*sizes, device=DEVICE)
+
+
+def busy_ms(ops) -> float:
+    """The device's busy ms in ``print_profile``'s operations of one run."""
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in ops) / 1e3
+
+
+def sync():
+    if DEVICE != "cpu":         # a CPU rehearsal's rank process
+        torch.cuda.synchronize()
+
+
+def step_busy_ms(label, step, state, batch, walls) -> float:
+    """The profiled device ms of one more step (0 in a CPU rehearsal)."""
+    if DEVICE == "cpu":
+        return 0.0
+    return busy_ms(print_profile(label, partial(step, state, batch), 1,
+                                 statistics.median(walls)))
+
+
+def tp_steps(state, step, batch, n: int, after_first) -> tuple:
+    """``n`` steps from launch counts of 0, ``after_first(state)`` called
+    after the first: (state, {logs, per_step: each step's nonzero
+    launches, walls: each step's host ms, ended by a synchronize,
+    launches})."""
+    set_counts({})
+    logs, per_step, walls = [], [], []
+    for i in range(n):
+        before = read_counts()
+        sync()
+        t0 = time.perf_counter()
+        state, out = step(state, batch)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: c - before[k] for k, c in read_counts().items()
+                         if c != before[k]})
+        logs.append({k: float(v) for k, v in out.items()})
+        if i == 0:
+            after_first(state)
+    return state, dict(logs=logs, per_step=per_step, walls=walls,
+                       launches=read_counts())
+
+
+def tp_state(kind, overrides, work):
+    from transformer_tts_tpu_torch.train import trainer as tr
+    hp = tp_hparams(kind, **overrides)
+    state = tr.init_fastspeech2_state(hp, device=DEVICE)
+    state.model.load_state_dict(torch.load(os.path.join(work,
+                                                        f"init_{kind}.pt")))
+    return hp, state, tr.make_fastspeech2_train_step(hp, device=DEVICE)
+
+
+def tp_rank(rank: int, world: int, work: str) -> dict:
+    """A rank of 23(a)-(c), in its own process: each of ``tp_jobs``' runs
+    from the saved initial weights, split over the mesh's ``model`` group
+    and wrapped in DDP over its data group (``train.trainer.distribute``),
+    on its data coordinate's rows of the saved batch. Saves the BatchNorm
+    statistics' moves and (rank 0) the gathered weights after the first
+    step; returns the logs,
+    launches, step walls, the profiled device ms of a bf16 step and the
+    multislice hook's counts."""
+    from transformer_tts_tpu_torch.parallel import (batch_rows,
+                                                    gather_state_dict)
+    from transformer_tts_tpu_torch.train import trainer as tr
+    batch = torch.load(os.path.join(work, "batch.pt"))
+    out = {}
+    for name, kind, overrides, n, spec in tp_jobs(world):
+        hp, state, step = tp_state(kind, overrides, work)
+        init = {k: v.cpu().clone()
+                for k, v in state.model.state_dict().items()}
+        mesh = tp_mesh(spec)
+        state = tr.distribute(state, DEVICE, mesh)
+        rows = batch_rows(mesh, batch["text"].shape[0])
+        mine = {k: v[rows].to(DEVICE) for k, v in batch.items()}
+
+        def after_first(state, name=name, init=init):
+            torch.save(running_moves(state.model, init),
+                       os.path.join(work, f"moves {name} {rank}.pt"))
+            weights = (gather_state_dict(state.model, state.model_group)
+                       if state.model_group is not None
+                       else state.model.state_dict())
+            if rank == 0:
+                torch.save({k: v.float().cpu() for k, v in weights.items()},
+                           os.path.join(work, f"weights {name} {world}.pt"))
+        state, res = tp_steps(state, step, mine, n, after_first)
+        res["rows"] = [rows.start, rows.stop]
+        hook = getattr(state.ddp, "comm_state", None)
+        if hook is not None:
+            res["hook"] = {k: getattr(hook, k) for k in
+                           ("buckets", "elements", "dcn_elements")}
+        if n == TP_STEPS and world == 2:
+            res["busy_ms"] = step_busy_ms(f"23 rank {rank} {name} step",
+                                          step, state, mine, res["walls"])
+        out[name] = res
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def start_tp_ranks(world: int, work: str) -> list:
+    port = str(free_port())
+    settings = json.dumps({"flagship": FLAGSHIP, "device": DEVICE})
+    return [subprocess.Popen([sys.executable, "-c", TP_RANK, str(r),
+                              str(world), port, work, settings], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+            for r in range(world)]
+
+
+def tp_single(work: str, world: int) -> dict:
+    """One process's runs of ``tp_jobs(world)`` on the whole batch, from
+    the same weights with its streams folded as data coordinate 0's:
+    each bf16 run twice (the second the same-run control), the fp32 run
+    once; each run's statistics' moves and weights after its first step
+    kept beside."""
+    from transformer_tts_tpu_torch.train import trainer as tr
+    batch = {k: v.to(DEVICE) for k, v in
+             torch.load(os.path.join(work, "batch.pt")).items()}
+    out = {}
+    for name, kind, overrides, n, _ in tp_jobs(world):
+        runs = []
+        for _ in range(2 if n > 1 else 1):
+            hp, state, step = tp_state(kind, overrides, work)
+            init = {k: v.cpu().clone()
+                    for k, v in state.model.state_dict().items()}
+            tr.fold_rank(state, 0)
+            first = {}
+
+            def after_first(state, init=init, first=first):
+                first["moves"] = running_moves(state.model, init)
+                first["weights"] = {k: v.float().cpu().clone() for k, v in
+                                    state.model.state_dict().items()}
+            state, res = tp_steps(state, step, batch, n, after_first)
+            res.update(first)
+            if n == TP_STEPS and world == 2 and not runs:
+                res["busy_ms"] = step_busy_ms(f"23 one process {name} step",
+                                              step, state, batch,
+                                              res["walls"])
+            runs.append(res)
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[name] = runs
+    return out
+
+
+def update_share(got: dict, ref: dict, init: dict) -> float:
+    """The share of parameter elements whose update (weights minus
+    ``init``) differs from ``ref``'s by more than UPDATE_APART of that
+    tensor's largest ``ref`` update."""
+    apart = total = 0
+    for k, w in ref.items():
+        if "running" in k or "num_batches" in k:
+            continue
+        d_ref, d_got = w - init[k].float(), got[k] - init[k].float()
+        scale = float(d_ref.abs().max())
+        apart += int(((d_got - d_ref).abs() > UPDATE_APART * scale).sum())
+        total += w.numel()
+    return apart / max(total, 1)
+
+
+def tp_compare(label: str, name: str, kind: str, ranks: list, single: list,
+               world: int, work: str) -> dict:
+    """Check one run of the ranks against one process's (and its control)
+    after the first step: every logged term, the BatchNorm statistics'
+    moves, the weight updates; and the launches of every step; returns
+    the ranks' summed launches."""
+    ref, control = single
+    worst = 0.0
+    for i in range(len(ref["logs"])):
+        for key, value in sorted(ref["logs"][i].items()):
+            ctl = rel(control["logs"][i][key], value)
+            floor = (TP_CONFORMER_NORM_FLOOR
+                     if kind == "conformer" and key == "grad_norm"
+                     else TP_LOG_FLOOR)
+            tol = max(DDP_OF_CONTROL * ctl, floor)
+            got = max(rel(r[name]["logs"][i][key], value) for r in ranks)
+            if i == 0:
+                worst = max(worst, got / tol)
+            print(f"{label} step {i + 1} {key}: one process {value:.7g}, "
+                  f"control {ctl:.3g}; ranks "
+                  f"{[round(r[name]['logs'][i][key], 7) for r in ranks]} "
+                  f"({got:.3g})"
+                  + (f"; allowed {tol:.3g}" if i == 0 else ", not held"))
+    check(worst <= 1.0, f"{label}: a logged term differs from one "
+                        f"process's past its allowance ({worst:.3g})")
+    moves = [torch.load(os.path.join(work, f"moves {name} {r}.pt"))
+             for r in range(world)]
+    same = all(torch.equal(moves[0][k], m[k]) for m in moves[1:]
+               for k in moves[0])
+    allowed = max(DDP_OF_CONTROL * moves_off(control["moves"],
+                                             ref["moves"]),
+                  TP_MOVES_FLOOR[kind])
+    off = max(moves_off(m, ref["moves"]) for m in moves)
+    print(f"{label} BatchNorm running statistics after the first step "
+          f"({len(ref['moves'])} buffers): equal on every rank {same}; "
+          f"moves off one process's by {off:.3g} of its largest move, "
+          f"allowed {allowed:.3g}")
+    check(same and off <= allowed,
+          f"{label}: the BatchNorm statistics are not the global batch's")
+    init = torch.load(os.path.join(work, f"init_{kind}.pt"))
+    gathered = torch.load(os.path.join(work, f"weights {name} {world}.pt"))
+    check(sorted(gathered) == sorted(ref["weights"]),
+          f"{label}: the gathered state's keys are not the model's")
+    ctl_share = update_share(control["weights"], ref["weights"], init)
+    share = update_share(gathered, ref["weights"], init)
+    allowed = max(DDP_OF_CONTROL * ctl_share, TP_UPDATE_FLOOR[kind])
+    print(f"{label} gathered weights after the first step: "
+          f"{share:.3g} of the elements' updates apart from one process's "
+          f"(control {ctl_share:.3g}, allowed {allowed:.3g})")
+    check(share <= allowed, f"{label}: the gathered updates differ from "
+                            "one process's")
+    summed = {}
+    for r, res in enumerate(ranks):
+        check(res[name]["per_step"] == ref["per_step"],
+              f"{label}: rank {r} launched {res[name]['per_step']} a step, "
+              f"one process {ref['per_step']}")
+        add_launches(summed, {k: v for k, v in res[name]["launches"].items()
+                              if v})
+    print(f"{label} launches a step on each rank "
+          f"{ranks[0][name]['per_step'][0]} = one process's")
+    return summed
+
+
+def tp_keep_bits(relative: bool, backward: bool, head_offset: int,
+                 b: int, t: int) -> torch.Tensor:
+    """(b, 2, t, t) bool keep bits that K1-d-90 (``backward``: K2-90's dv;
+    ``relative``: K4-d-90, K5-90's dv) draws on a tensor of 2 heads at
+    ``head_offset`` of TP_MASK["heads"]: with q = k (= p) = 0 every
+    probability is 1/t, so a one-hot v (or dO) over a window of 96 keys
+    (query rows) puts each keep bit in its own output element, nonzero
+    iff kept."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
+    d, h = 96, TP_MASK["local"]
+    z = torch.zeros(b, h, t, d, device=DEVICE, dtype=torch.bfloat16)
+    p = torch.zeros(h, t, d, device=DEVICE, dtype=torch.bfloat16)
+    k_len = torch.full((b,), t, dtype=torch.int32, device=DEVICE)
+    kw = dict(dropout_rate=TP_MASK["rate"], dropout_seed=TP_MASK["seed"],
+              head_offset=head_offset, heads_total=TP_MASK["heads"])
+
+    def fwd(v):
+        if relative:
+            return fr.flash_relpos_attention(z, z, z, v, p, k_len, **kw)
+        return fa.flash_attention(z, z, v, k_len, **kw)
+
+    bits = torch.empty(b, h, t, t, dtype=torch.bool, device=DEVICE)
+    o, lse = fwd(z)
+    for j in range(0, t, d):
+        w = min(d, t - j)
+        onehot = torch.zeros_like(z)
+        onehot[:, :, j:j + w, :w] = torch.eye(w, device=DEVICE,
+                                              dtype=z.dtype)
+        if not backward:
+            bits[..., j:j + w] = fwd(onehot)[0][..., :w] != 0
+            continue
+        delta = fa.bwd_delta(o, onehot)
+        if relative:
+            dv = fr.flash_relpos_attention_bwd_sm90(
+                z, z, z, z, p, onehot, lse, delta, k_len, sm_scale=d ** -0.5,
+                **kw)[3]
+        else:
+            dv = fa.flash_attention_bwd_sm90(
+                z, z, z, onehot, lse, delta, k_len, sm_scale=d ** -0.5,
+                **kw)[2]
+        bits[:, :, j:j + w, :] = (dv[..., :w] != 0).transpose(-1, -2)
+    return bits
+
+
+def tp_kernel_checks(gen, k_len):
+    """23(a)/(b)'s kernel checks at a rank's shapes, (16, 2, 1024, 96) bf16
+    with head offset 2 of 4 (launches kept off the main path's counts):
+    each kernel's keep bits bit for bit the whole-head mask's slice, and
+    a planted fault (head offset 0 on heads [2, 4)) caught; each kernel
+    against its plain version on random inputs with the batch's k_len."""
+    from transformer_tts_tpu_torch.ops import flash_attention as fa
+    from transformer_tts_tpu_torch.ops import flash_relpos as fr
+    saved = read_counts()
+    b, t = TRAIN_BATCH[0], TRAIN_BATCH[2]
+    off, local, heads = TP_MASK["offset"], TP_MASK["local"], TP_MASK["heads"]
+    whole = fa._full_keep_mask(b, heads, t, t, TP_MASK["seed"],
+                               TP_MASK["rate"], DEVICE)
+    want = whole[:, off:off + local] != 0
+    del whole
+    for (relative, backward), kid in (((False, False), "K1-d-90"),
+                                      ((False, True), "K2-90"),
+                                      ((True, False), "K4-d-90"),
+                                      ((True, True), "K5-90")):
+        got = tp_keep_bits(relative, backward, off, b, t)
+        fault = tp_keep_bits(relative, backward, 0, b, t)
+        apart = float((fault != want).float().mean())
+        print(f"23 {kid} keep bits at ({b}, {local}, {t}, 96) bf16, heads "
+              f"[{off}, {off + local}) of {heads}: equal to the whole-head "
+              f"mask's slice {bool(torch.equal(got, want))} (kept "
+              f"{float(got.float().mean()):.4f}); the planted fault (head "
+              f"offset 0) differs in {apart:.4f} of the bits: "
+              f"{'caught' if apart > 0 else 'NOT caught'}")
+        check(torch.equal(got, want), f"23: {kid}'s keep mask at a head "
+                                      "offset is not the whole mask's slice")
+        check(apart > 0, f"23: {kid}'s mask check misses the planted fault")
+    g = torch.Generator().manual_seed(23)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(DEVICE, torch.bfloat16)
+    kl = k_len.to(DEVICE, torch.int32)
+    kw = dict(dropout_rate=TP_MASK["rate"], dropout_seed=TP_MASK["seed"],
+              head_offset=off, heads_total=heads)
+    scale = 96 ** -0.5
+    for relative in (False, True):
+        names = ("q_u", "q_v", "k", "v") if relative else ("q", "k", "v")
+        xs = [rnd(b, local, t, 96) for _ in names]
+        if relative:
+            xs.append(rnd(local, t, 96))
+        do = rnd(b, local, t, 96)
+        leaves = [x.clone().requires_grad_() for x in xs]
+        fn = fr.flash_relpos_attention if relative else fa.flash_attention
+        o, lse = fn(*leaves, kl, **kw)
+        grads = torch.autograd.grad(o, leaves, do)
+        o = o.detach()
+        if relative:
+            ref_o, _ = fr.flash_relpos_attention_fwd_reference(
+                *xs, kl, scale, TP_MASK["rate"], TP_MASK["seed"], off, heads)
+            ref_g = fr.flash_relpos_attention_bwd_reference(
+                *xs, ref_o, lse, do, kl, scale, TP_MASK["rate"],
+                TP_MASK["seed"], off, heads)
+            ids, gnames = ("K4-d-90", "K5-90"), ("dq_u", "dq_v", "dk", "dv",
+                                                  "dp")
+        else:
+            ref_o, _ = fa.flash_attention_fwd_reference(
+                *xs, kl, scale, TP_MASK["rate"], TP_MASK["seed"], False,
+                None, off, heads)
+            ref_g = fa.flash_attention_bwd_reference(
+                *xs, ref_o, lse, do, kl, scale, TP_MASK["rate"],
+                TP_MASK["seed"], False, None, off, heads)
+            ids, gnames = ("K1-d-90", "K2-90"), ("dq", "dk", "dv")
+        errs = {"o": float((o.float() - ref_o.float()).abs().max()) / max(
+            float(ref_o.float().abs().max()), 1e-30)}
+        for n, got, want in zip(gnames, grads, ref_g):
+            errs[n] = float((got.float() - want.float()).abs().max()) / max(
+                float(want.float().abs().max()), 1e-30)
+        errs = {k: float(v) for k, v in errs.items()}
+        print(f"23 {ids[0]} and {ids[1]} at heads [{off}, {off + local}) of "
+              f"{heads} against their plain versions, rate "
+              f"{TP_MASK['rate']}: max abs err over max|ref| "
+              + json.dumps({k: round(v, 5) for k, v in errs.items()})
+              + f"; allowed {TOLS[torch.bfloat16][0]}")
+        check(max(errs.values()) <= TOLS[torch.bfloat16][0],
+              f"23: {ids} at a head offset differ from their plain versions")
+    set_counts(saved)
+
+
+def phase_tp(gen, smi: str) -> dict:
+    """Phase 23: (a) the transformer flagship and (b) the conformer
+    flagship on two gloo ranks of model = 2 at full width, each against
+    one process on the same weights and batch; (c) the (data 2, model 2)
+    and (dcn 2, data 2) meshes on four gloo ranks; (d) flash_ab's fwd,
+    bwd and drop modes. Returns the launches of the ranks' main paths."""
+    from transformer_tts_tpu_torch.cli import flash_ab
+    from transformer_tts_tpu_torch.train import trainer as tr
+    print(smi)
+    work = os.path.join(WORK, "tp")
+    os.makedirs(work, exist_ok=True)
+    b, text_len, mel_len, frames = TRAIN_BATCH
+    batch = train_batch(gen, train_hparams(), b, text_len, mel_len, frames,
+                        "cpu")
+    torch.save(batch, os.path.join(work, "batch.pt"))
+    for kind in TP_KINDS:
+        state = tr.init_fastspeech2_state(tp_hparams(kind), device=DEVICE)
+        torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+                   os.path.join(work, f"init_{kind}.pt"))
+        del state
+    tp_kernel_checks(gen, (batch["pos_mel"] > 0).sum(1))
+    launches = {}
+    for world, label in ((2, "23(a)/(b)"), (4, "23(c)")):
+        single = tp_single(work, world)
+        t0 = time.perf_counter()
+        ranks = finish_ranks(start_tp_ranks(world, work))
+        print(f"{label}: {world} gloo ranks on one card, "
+              f"{time.perf_counter() - t0:.1f} s with their start")
+        for name, kind, overrides, n, spec in tp_jobs(world):
+            tag = {"fastspeech2": "23(a)", "conformer": "23(b)"}.get(
+                kind if world == 2 else None, "23(c)")
+            tag = f"{tag} {name} on {spec[0]} {spec[1]}"
+            if n == 1:              # the fp32 step, the simple kernels
+                ref = single[name][0]["logs"][0]
+                for key in ("loss_total", "grad_norm"):
+                    got = [r[name]["logs"][0][key] for r in ranks]
+                    print(f"{tag} {key}: one process {ref[key]:.8g}, ranks "
+                          f"{got}, rel "
+                          f"{max(rel(x, ref[key]) for x in got):.3g}")
+                check(max(rel(r[name]["logs"][0]["loss_total"],
+                              ref["loss_total"]) for r in ranks)
+                      <= TP_FP32_RTOL, f"{tag}: the loss is off one "
+                                       f"process's past {TP_FP32_RTOL}")
+                continue
+            add_launches(launches, tp_compare(tag, name, kind, ranks,
+                                              single[name], world, work))
+            if world == 2:
+                one = single[name][0]
+                walls = [round(statistics.median(r[name]["walls"]), 3)
+                         for r in ranks]
+                busy = [round(r[name]["busy_ms"], 3) for r in ranks]
+                print(f"{tag} step times (the two ranks share the card): "
+                      f"wall ms per rank {walls}, profiled device ms per "
+                      f"rank {busy}; one process wall "
+                      f"{statistics.median(one['walls']):.3f} ms, device "
+                      f"{one['busy_ms']:.3f} ms")
+                for r, res in enumerate(ranks):
+                    for kid in TP_KINDS[kind]:
+                        check(res[name]["per_step"][0].get(kid) ==
+                              train_hparams().n_layer_decoder,
+                              f"{tag}: rank {r} launched "
+                              f"{res[name]['per_step'][0]}")
+            else:
+                print(f"{tag}: rows per rank "
+                      f"{[r[name]['rows'] for r in ranks]}")
+            if spec[0] == "dcn":
+                hook = ranks[0][name]["hook"]
+                print(f"{tag} the DDP hook: {hook['buckets']} buckets, "
+                      f"{hook['elements']} gradient elements, "
+                      f"{hook['dcn_elements']} across the slices "
+                      f"({hook['dcn_elements'] / hook['elements']:.4f})")
+                check(0 <= 2 * hook["dcn_elements"] - hook["elements"]
+                      <= hook["buckets"],
+                      f"{tag}: the dcn all-reduce did not carry half the "
+                      "gradient")
+        del single
+        torch.cuda.empty_cache()
+    saved = read_counts()
+    print(f"23(d) flash_ab at (32, {flash_ab.HEADS}, 1024, "
+          f"{flash_ab.HEAD_DIM}) bf16, device ms (CUDA events), {smi}:")
+    flash_ab.main(["fwd", "bwd", "drop", "1024", "--device", DEVICE])
+    set_counts(saved)
+    return launches
+
+
 def worst_err(errs: dict, peaks: dict, names) -> dict:
     """The error of the entry's worst output among ``names``, the one
     with the largest err / max|ref|: its max abs error, its own max|ref|
@@ -7177,6 +7732,11 @@ def main():
     print("phase 22 launches, each main path counted from 0, summed: "
           + json.dumps(post_launches))
     add_launches(cond_launches, post_launches)
+    with phase("tensor parallelism and the meshes"):
+        tp_launches = phase_tp(torch.Generator().manual_seed(23), smi)
+    print("phase 23 launches, each main path counted from 0, summed: "
+          + json.dumps(tp_launches))
+    add_launches(cond_launches, tp_launches)
 
     lines = []
     with phase("kernels at their main paths' inputs"):

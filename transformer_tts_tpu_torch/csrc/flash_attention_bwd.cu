@@ -75,6 +75,7 @@ namespace {
 using flash::add_bias;
 using flash::BT;
 using flash::from_float;
+using flash::hash_head;
 using flash::keep_bit;
 using flash::load_tile;
 using flash::NTHREADS;
@@ -155,6 +156,8 @@ struct Dropout {
   uint32_t threshold;
   float keep_scale;
   uint32_t seed;
+  int head_offset;   // the hash's batch-head: flash_common.cuh hash_head
+  int heads_total;
 };
 
 // key `col` counts for query `row` (global indices)
@@ -190,6 +193,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BT;
   const int bh = blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, drop.head_offset, drop.heads_total);
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
 
@@ -229,7 +233,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = expf(sS[r * g.ld_s + c] * sm_scale - sLse[r]);
         float dp = sDP[r * g.ld_s + c];
         if (drop.on)
-          dp = keep_bit(drop.seed, (uint32_t)bh, (uint32_t)(q0 + r),
+          dp = keep_bit(drop.seed, hbh, (uint32_t)(q0 + r),
                         (uint32_t)(k0 + c), drop.threshold)
                    ? dp * drop.keep_scale
                    : 0.f;
@@ -281,6 +285,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BT;
   const int bh = blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, drop.head_offset, drop.heads_total);
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
 
@@ -331,7 +336,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float dp = sDP[r * g.ld_s + c];
         pk = p;
         if (drop.on) {
-          const bool kept = keep_bit(drop.seed, (uint32_t)bh,
+          const bool kept = keep_bit(drop.seed, hbh,
                                      (uint32_t)(q0 + r), (uint32_t)(k0 + c),
                                      drop.threshold);
           pk = kept ? p * drop.keep_scale : 0.f;
@@ -412,7 +417,8 @@ extern "C" {
 // K3) or the forward's (B,H,T_q,T_k) additive term in q's dtype (K6);
 // dbias, null or like bias, receives dS. Each returns the cudaError_t of
 // its launch (0 = success), including a refusal of the shared memory it
-// needs.
+// needs. head_offset and heads_total set the hash's batch-head, as in the
+// forward (0 and H for the whole tensor).
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* bias, const void* dout,
                            const void* lse, const void* delta,
@@ -420,10 +426,11 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            int H, int T_q, int T_k, int d,
                            float sm_scale, int dropout,
                            unsigned int threshold, float keep_scale,
-                           unsigned int seed, int causal, int dtype,
-                           void* stream) {
+                           unsigned int seed, int causal, int head_offset,
+                           int heads_total, int dtype, void* stream) {
   if (bad_sizes(d, T_q, T_k)) return (int)cudaErrorInvalidValue;
-  const Dropout drop{dropout, threshold, keep_scale, seed};
+  const Dropout drop{dropout, threshold, keep_scale, seed, head_offset,
+                     heads_total};
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   auto dl = static_cast<const float*>(delta);
@@ -445,10 +452,11 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                              void* dv, int B, int H, int T_q, int T_k, int d,
                              float sm_scale, int dropout,
                              unsigned int threshold, float keep_scale,
-                             unsigned int seed, int causal, int dtype,
-                             void* stream) {
+                             unsigned int seed, int causal, int head_offset,
+                             int heads_total, int dtype, void* stream) {
   if (bad_sizes(d, T_q, T_k)) return (int)cudaErrorInvalidValue;
-  const Dropout drop{dropout, threshold, keep_scale, seed};
+  const Dropout drop{dropout, threshold, keep_scale, seed, head_offset,
+                     heads_total};
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   auto dl = static_cast<const float*>(delta);

@@ -67,6 +67,7 @@ namespace {
 
 using flash::add_bias;
 using flash::from_float;
+using flash::hash_head;
 using flash::keep_bit;
 using flash::load_tile;
 using flash::NTHREADS;
@@ -115,7 +116,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ o, float* __restrict__ lse, int H, int T_q,
                  int T_k, int d, float sm_scale, int dropout,
                  uint32_t threshold, float keep_scale, uint32_t seed,
-                 int causal) {
+                 int causal, int head_offset, int heads_total) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geom<T> g(d);
   T* sQ = reinterpret_cast<T*>(smem);
@@ -131,6 +132,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, head_offset, heads_total);
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
 
@@ -196,7 +198,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = valid ? expf(s - m_new) : 0.f;
         sum += p;
         if (dropout) {
-          const bool kept = keep_bit(seed, (uint32_t)bh, (uint32_t)grow,
+          const bool kept = keep_bit(seed, hbh, (uint32_t)grow,
                                      (uint32_t)col, threshold);
           prow[c] = from_float<T>(kept ? p * keep_scale : 0.f);
         } else {
@@ -244,7 +246,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const int32_t* k_len, void* o, float* lse, int B, int H, int T_q,
            int T_k, int d, float sm_scale, int dropout, uint32_t threshold,
-           float keep_scale, uint32_t seed, int causal, cudaStream_t stream) {
+           float keep_scale, uint32_t seed, int causal, int head_offset,
+           int heads_total, cudaStream_t stream) {
   const Geom<T> g(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -255,7 +258,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(bias), k_len,
       static_cast<T*>(o), lse, H, T_q, T_k, d, sm_scale, dropout, threshold,
-      keep_scale, seed, causal);
+      keep_scale, seed, causal, head_offset, heads_total);
   return (int)cudaGetLastError();
 }
 
@@ -269,14 +272,18 @@ extern "C" {
 // (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and `seed` (the
 // int32 seed's bits). causal != 0 masks keys past the query row (K3).
 // bias is null (K1, K1-d, K3) or a contiguous (B,H,T_q,T_k) additive term
-// in q's dtype, added before sm_scale (K6, K6-d).
+// in q's dtype, added before sm_scale (K6, K6-d). The keep mask hashes the
+// batch-head b*heads_total + head_offset + h (flash_common.cuh
+// `hash_head`): 0 and H for the whole tensor, a rank's first head and the
+// model's heads under tensor parallelism.
 // Returns the cudaError_t of the launch (0 = success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, const void* k_len, void* o,
                         void* lse, int B, int H, int T_q, int T_k, int d,
                         float sm_scale, int dropout, unsigned int threshold,
                         float keep_scale, unsigned int seed, int causal,
-                        int dtype, void* stream) {
+                        int head_offset, int heads_total, int dtype,
+                        void* stream) {
   if (d <= 0 || d > 128 || d % 8 != 0 || T_q <= 0 || T_k <= 0)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -285,11 +292,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch<float>(q, k, v, bias, kl, o, l, B, H, T_q, T_k, d,
                          sm_scale, dropout, threshold, keep_scale, seed,
-                         causal, s);
+                         causal, head_offset, heads_total, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, bias, kl, o, l, B, H, T_q, T_k, d,
                                  sm_scale, dropout, threshold, keep_scale,
-                                 seed, causal, s);
+                                 seed, causal, head_offset, heads_total, s);
   return (int)cudaErrorInvalidValue;
 }
 

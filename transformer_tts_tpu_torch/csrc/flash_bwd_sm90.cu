@@ -100,6 +100,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using flash::hash_head;
 using flash::keep_bit;
 using namespace sm90;
 
@@ -155,11 +156,13 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       float* __restrict__ dq_acc, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, bf16* __restrict__ dbias,
                       int H, int T_q, int T_k, float sm_scale, int dropout,
-                      uint32_t threshold, float keep_scale, uint32_t seed) {
+                      uint32_t threshold, float keep_scale, uint32_t seed,
+                      int head_offset, int heads_total) {
   using G = Geom<D, HAS_BIAS>;
   // causal: grid (bh, key block), so the longest CTAs start first
   const int k0 = (CAUSAL ? (int)blockIdx.y : (int)blockIdx.x) * BKC;
   const int bh = CAUSAL ? (int)blockIdx.x : (int)blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, head_offset, heads_total);
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
   const size_t kv_base = (size_t)bh * T_k;
@@ -364,7 +367,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         float dp = dpt[i + e];
         pk[e] = st[i + e];
         if (dropout) {
-          const float keep = keep_bit(seed, (uint32_t)bh, (uint32_t)(q0 + qc),
+          const float keep = keep_bit(seed, hbh, (uint32_t)(q0 + qc),
                                       (uint32_t)key, threshold)
                                  ? keep_scale : 0.f;
           dp *= keep;
@@ -482,7 +485,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
            const int32_t* k_len, float* dq_acc, void* dk, void* dv,
            void* dbias, int B, int H, int T_q, int T_k, float sm_scale,
            int dropout, uint32_t threshold, float keep_scale, uint32_t seed,
-           cudaStream_t stream) {
+           int head_offset, int heads_total, cudaStream_t stream) {
   using G = Geom<D, HAS_BIAS>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_bias{}, tm_dbias{};
   CUresult r = make_map(&tm_q, q, D, T_q, B * H, BQ);
@@ -506,7 +509,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
           tm_q, tm_k, tm_v, tm_do, tm_bias, tm_dbias, lse, delta, k_len,
           dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           static_cast<bf16*>(dbias), H, T_q, T_k, sm_scale, dropout,
-          threshold, keep_scale, seed);
+          threshold, keep_scale, seed, head_offset, heads_total);
   return (int)cudaGetLastError();
 }
 
@@ -519,23 +522,24 @@ int launch_mode(const void* q, const void* k, const void* v,
                 void* dk, void* dv, void* dbias, int B, int H, int T_q,
                 int T_k, float sm_scale, int dropout, uint32_t threshold,
                 float keep_scale, uint32_t seed, int causal,
-                cudaStream_t s) {
+                int head_offset, int heads_total, cudaStream_t s) {
   if (bias != nullptr) {
     if (causal || dbias == nullptr || T_k % 8 != 0)
       return (int)cudaErrorInvalidValue;
     return launch<D, false, true>(q, k, v, bias, dout, lse, delta, k_len,
                                   dq_acc, dk, dv, dbias, B, H, T_q, T_k,
                                   sm_scale, dropout, threshold, keep_scale,
-                                  seed, s);
+                                  seed, head_offset, heads_total, s);
   }
   return causal
       ? launch<D, true, false>(q, k, v, bias, dout, lse, delta, k_len, dq_acc,
                                dk, dv, dbias, B, H, T_q, T_k, sm_scale,
-                               dropout, threshold, keep_scale, seed, s)
+                               dropout, threshold, keep_scale, seed,
+                               head_offset, heads_total, s)
       : launch<D, false, false>(q, k, v, bias, dout, lse, delta, k_len,
                                 dq_acc, dk, dv, dbias, B, H, T_q, T_k,
                                 sm_scale, dropout, threshold, keep_scale,
-                                seed, s);
+                                seed, head_offset, heads_total, s);
 }
 
 }  // namespace
@@ -547,7 +551,7 @@ extern "C" {
 // bases; d in {64, 96}. dq_acc (B,H,T_q,d) fp32 must hold zeros: the
 // kernel adds dq into it. dk, dv like k, written whole. bias, nullable:
 // (B,H,T_q,T_k) bf16 as flash_fwd_sm90's, with dbias like it, written
-// whole. Dropout and causal arguments as flash_fwd_sm90's. Returns the
+// whole. Dropout, head and causal arguments as flash_fwd_sm90's. Returns the
 // cudaError_t of the launch (0 = success), or MAP_ERROR + the CUresult
 // of a map that could not be encoded.
 int flash_bwd_sm90(const void* q, const void* k, const void* v,
@@ -556,7 +560,8 @@ int flash_bwd_sm90(const void* q, const void* k, const void* v,
                    void* dk, void* dv, void* dbias, int B, int H, int T_q,
                    int T_k, int d, float sm_scale, int dropout,
                    unsigned int threshold, float keep_scale,
-                   unsigned int seed, int causal, void* stream) {
+                   unsigned int seed, int causal, int head_offset,
+                   int heads_total, void* stream) {
   if (T_q <= 0 || T_k <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
@@ -566,11 +571,13 @@ int flash_bwd_sm90(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch_mode<64>(q, k, v, bias, dout, l, dl, kl, acc, dk, dv,
                            dbias, B, H, T_q, T_k, sm_scale, dropout,
-                           threshold, keep_scale, seed, causal, s);
+                           threshold, keep_scale, seed, causal, head_offset,
+                           heads_total, s);
   if (d == 96)
     return launch_mode<96>(q, k, v, bias, dout, l, dl, kl, acc, dk, dv,
                            dbias, B, H, T_q, T_k, sm_scale, dropout,
-                           threshold, keep_scale, seed, causal, s);
+                           threshold, keep_scale, seed, causal, head_offset,
+                           heads_total, s);
   return (int)cudaErrorInvalidValue;
 }
 

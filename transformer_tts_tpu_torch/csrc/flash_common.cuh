@@ -131,6 +131,17 @@ __device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t bh,
   return x >= threshold;
 }
 
+// The batch-head that `keep_bit` hashes for the local batch-head bh of a
+// tensor of H heads that holds heads [head_offset, head_offset + H) of
+// heads_total (a rank's heads under tensor parallelism): the global
+// b*heads_total + head_offset + h, so every rank draws its slice of the
+// unsharded mask. With head_offset 0 and heads_total H it is bh. Only the
+// hash reads it; every address keeps the local bh.
+__device__ __forceinline__ uint32_t hash_head(int bh, int H, int head_offset,
+                                              int heads_total) {
+  return (uint32_t)((bh / H) * heads_total + head_offset + bh % H);
+}
+
 // rows [row0, row0+BT) x columns [0, width) of a (rows_valid, d) matrix into
 // shared memory; zero past rows_valid and past d
 template <typename T>

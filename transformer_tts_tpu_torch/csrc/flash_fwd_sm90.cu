@@ -83,6 +83,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using flash::hash_head;
 using flash::keep_bit;
 using namespace sm90;
 
@@ -138,7 +139,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const int32_t* __restrict__ k_len,
                       bf16* __restrict__ o, float* __restrict__ lse, int H,
                       int T_q, int T_k, float scale_log2, int dropout,
-                      uint32_t threshold, float keep_scale, uint32_t seed) {
+                      uint32_t threshold, float keep_scale, uint32_t seed,
+                      int head_offset, int heads_total) {
   using G = Geom<D, HAS_BIAS>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -154,6 +156,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 =
       (CAUSAL ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.x) * BQ;
   const int bh = CAUSAL ? (int)blockIdx.x : (int)blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, head_offset, heads_total);
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_k ? T_k : klen);
   const int n_tiles = wg_tiles<CAUSAL>(1, q0, T_q, klen);
@@ -293,7 +296,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         p[e] = col + e < lim[h] ? exp2f(acc_s[i + e] - m[h]) : 0.f;
         l[h] += p[e];
         if (dropout)
-          p[e] = keep_bit(seed, (uint32_t)bh, (uint32_t)(row0 + 8 * h),
+          p[e] = keep_bit(seed, hbh, (uint32_t)(row0 + 8 * h),
                           (uint32_t)(col + e), threshold)
                      ? p[e] * keep_scale : 0.f;
       }
@@ -351,7 +354,8 @@ template <int D, bool CAUSAL, bool HAS_BIAS>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const int32_t* k_len, void* o, float* lse, int B, int H, int T_q,
            int T_k, float sm_scale, int dropout, uint32_t threshold,
-           float keep_scale, uint32_t seed, cudaStream_t stream) {
+           float keep_scale, uint32_t seed, int head_offset, int heads_total,
+           cudaStream_t stream) {
   using G = Geom<D, HAS_BIAS>;
   CUtensorMap tm_q, tm_k, tm_v, tm_bias{};
   CUresult r = make_map(&tm_q, q, D, T_q, B * H, WG_ROWS);
@@ -370,7 +374,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   flash_fwd_sm90_kernel<D, CAUSAL, HAS_BIAS>
       <<<grid, NTHREADS, G::ALLOC, stream>>>(
           tm_q, tm_k, tm_v, tm_bias, k_len, static_cast<bf16*>(o), lse, H,
-          T_q, T_k, sm_scale * LOG2E, dropout, threshold, keep_scale, seed);
+          T_q, T_k, sm_scale * LOG2E, dropout, threshold, keep_scale, seed,
+          head_offset, heads_total);
   return (int)cudaGetLastError();
 }
 
@@ -381,20 +386,22 @@ int launch_mode(const void* q, const void* k, const void* v,
                 const void* bias, const int32_t* k_len, void* o, float* lse,
                 int B, int H, int T_q, int T_k, float sm_scale, int dropout,
                 uint32_t threshold, float keep_scale, uint32_t seed,
-                int causal, cudaStream_t s) {
+                int causal, int head_offset, int heads_total,
+                cudaStream_t s) {
   if (bias != nullptr) {
     if (causal || T_k % 8 != 0) return (int)cudaErrorInvalidValue;
     return launch<D, false, true>(q, k, v, bias, k_len, o, lse, B, H, T_q,
                                   T_k, sm_scale, dropout, threshold,
-                                  keep_scale, seed, s);
+                                  keep_scale, seed, head_offset, heads_total,
+                                  s);
   }
   return causal
       ? launch<D, true, false>(q, k, v, bias, k_len, o, lse, B, H, T_q, T_k,
                                sm_scale, dropout, threshold, keep_scale,
-                               seed, s)
+                               seed, head_offset, heads_total, s)
       : launch<D, false, false>(q, k, v, bias, k_len, o, lse, B, H, T_q, T_k,
                                 sm_scale, dropout, threshold, keep_scale,
-                                seed, s);
+                                seed, head_offset, heads_total, s);
 }
 
 }  // namespace
@@ -407,14 +414,17 @@ extern "C" {
 // the scale, non-causal only, T_k % 8 == 0. dropout != 0 turns on the
 // keep mask with `threshold` (int(rate * 2^32)), `keep_scale` (1/(1 -
 // rate) in fp32) and `seed` (the int32 seed's bits). causal != 0 also
-// masks keys past the query row. Returns the cudaError_t of the launch
+// masks keys past the query row. The keep mask hashes the batch-head
+// b*heads_total + head_offset + h (flash_common.cuh `hash_head`). Returns
+// the cudaError_t of the launch
 // (0 = success), or MAP_ERROR + the CUresult of a tensor map that could
 // not be encoded.
 int flash_fwd_sm90(const void* q, const void* k, const void* v,
                    const void* bias, const void* k_len, void* o, void* lse,
                    int B, int H, int T_q, int T_k, int d, float sm_scale,
                    int dropout, unsigned int threshold, float keep_scale,
-                   unsigned int seed, int causal, void* stream) {
+                   unsigned int seed, int causal, int head_offset,
+                   int heads_total, void* stream) {
   if (T_q <= 0 || T_k <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto kl = static_cast<const int32_t*>(k_len);
@@ -422,11 +432,11 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v,
   if (d == 64)
     return launch_mode<64>(q, k, v, bias, kl, o, l, B, H, T_q, T_k,
                            sm_scale, dropout, threshold, keep_scale, seed,
-                           causal, s);
+                           causal, head_offset, heads_total, s);
   if (d == 96)
     return launch_mode<96>(q, k, v, bias, kl, o, l, B, H, T_q, T_k,
                            sm_scale, dropout, threshold, keep_scale, seed,
-                           causal, s);
+                           causal, head_offset, heads_total, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -64,6 +64,7 @@
 namespace {
 
 using flash::from_float;
+using flash::hash_head;
 using flash::keep_bit;
 using flash::round_up;
 
@@ -78,6 +79,8 @@ struct Dropout {
   uint32_t threshold;
   float keep_scale;
   uint32_t seed;
+  int head_offset;   // the hash's batch-head: flash_common.cuh hash_head
+  int heads_total;
 };
 
 // Tile products, specialised by type. op(A) is A (M x K, row stride lda)
@@ -427,11 +430,13 @@ __device__ void scatter_ds(const Geom<T>& g, const T* sDS, T* sDA, int br,
   }
 }
 
-// dS (and P keep) of the tile from the score tile sS and dO V^T in sA
+// dS (and P keep) of the tile from the score tile sS and dO V^T in sA; hbh
+// is the batch-head the keep mask hashes
 template <typename T>
 __device__ void ds_tile(const Geom<T>& g, const float* sS, const float* sA,
                         const float* sLse, const float* sDelta, T* sDS,
-                        T* sPK, int bh, int q0, int k0, int T_len, int klen,
+                        T* sPK, uint32_t hbh, int q0, int k0, int T_len,
+                        int klen,
                         float sm_scale, const Dropout& drop) {
   for (int idx = threadIdx.x; idx < BQ * BK; idx += NTHREADS) {
     const int r = idx / BK, c = idx - r * BK;
@@ -442,7 +447,7 @@ __device__ void ds_tile(const Geom<T>& g, const float* sS, const float* sA,
       float dpa = sA[r * g.ld_a + c];
       pk = p;
       if (drop.on) {
-        const bool kept = keep_bit(drop.seed, (uint32_t)bh, (uint32_t)row,
+        const bool kept = keep_bit(drop.seed, hbh, (uint32_t)row,
                                    (uint32_t)col, drop.threshold);
         pk = kept ? p * drop.keep_scale : 0.f;
         dpa = kept ? dpa * drop.keep_scale : 0.f;
@@ -484,6 +489,7 @@ relpos_bwd_dq_kernel(Inputs in, T* __restrict__ dq_u,
 
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, drop.head_offset, drop.heads_total);
   int klen = in.k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_len ? T_len : klen);
 
@@ -514,7 +520,7 @@ relpos_bwd_dq_kernel(Inputs in, T* __restrict__ dq_u,
     Mm<T>::template store<false, true>(sDO, g.ld_in, sPw, g.ld_in, sA,
                                        g.ld_a, BQ, BK, g.dp);   // dO V^T
     __syncthreads();
-    ds_tile(g, sS, sA, sLse, sDelta, sDS, static_cast<T*>(nullptr), bh, q0,
+    ds_tile(g, sS, sA, sLse, sDelta, sDS, static_cast<T*>(nullptr), hbh, q0,
             k0, T_len, klen, sm_scale, drop);
     __syncthreads();
     Mm<T>::template accumulate<false, false>(sDS, g.ld_p, sK, g.ld_in,
@@ -574,6 +580,7 @@ relpos_bwd_dkdv_kernel(Inputs in, T* __restrict__ dk, T* __restrict__ dv,
   const int k0 = blockIdx.x * BK;
   const int bh = blockIdx.y;
   const int h = bh % H;
+  const uint32_t hbh = hash_head(bh, H, drop.head_offset, drop.heads_total);
   int klen = in.k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_len ? T_len : klen);
 
@@ -619,7 +626,7 @@ relpos_bwd_dkdv_kernel(Inputs in, T* __restrict__ dk, T* __restrict__ dv,
     Mm<T>::template store<false, true>(sDO, g.ld_in, sV, g.ld_in, sA,
                                        g.ld_a, BQ, BK, g.dp);   // dO V^T
     __syncthreads();
-    ds_tile(g, sS, sA, sLse, sDelta, sDS, sPK, bh, q0, k0, T_len, klen,
+    ds_tile(g, sS, sA, sLse, sDelta, sDS, sPK, hbh, q0, k0, T_len, klen,
             sm_scale, drop);
     __syncthreads();
     // dv += (P keep)^T dO, dk += dS^T q_u
@@ -705,7 +712,8 @@ extern "C" {
 // dk and dv like k; dp is an fp32 (H,T,d) buffer that the caller zeroes
 // and the kernel adds the batch's dP into. dropout != 0 turns on the keep
 // mask with `threshold` (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in
-// fp32) and `seed` (the int32 seed's bits), the forward's values. Each
+// fp32), `seed` (the int32 seed's bits), `head_offset` and `heads_total`,
+// the forward's values. Each
 // returns the cudaError_t of its launch (0 = success), including a refusal
 // of the shared memory it needs.
 int flash_relpos_bwd_dq(const void* q_u, const void* q_v, const void* k,
@@ -714,14 +722,15 @@ int flash_relpos_bwd_dq(const void* q_u, const void* q_v, const void* k,
                         const void* k_len, void* dq_u, void* dq_v,
                         void* dq_vs, int B, int H, int T_len, int d,
                         float sm_scale, int dropout, unsigned int threshold,
-                        float keep_scale, unsigned int seed, int dtype,
-                        void* stream) {
+                        float keep_scale, unsigned int seed, int head_offset,
+                        int heads_total, int dtype, void* stream) {
   if (bad_sizes(B, H, T_len, d)) return (int)cudaErrorInvalidValue;
   const Inputs in{q_u, q_v, k, v, p, dout,
                   static_cast<const float*>(lse),
                   static_cast<const float*>(delta),
                   static_cast<const int32_t*>(k_len)};
-  const Dropout drop{dropout, threshold, keep_scale, seed};
+  const Dropout drop{dropout, threshold, keep_scale, seed, head_offset,
+                     heads_total};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_dq<float>(in, dq_u, dq_v, dq_vs, B, H, T_len, d, sm_scale,
@@ -738,14 +747,16 @@ int flash_relpos_bwd_dkdv(const void* q_u, const void* q_v, const void* k,
                           const void* k_len, void* dk, void* dv, void* dp,
                           int B, int H, int T_len, int d, float sm_scale,
                           int dropout, unsigned int threshold,
-                          float keep_scale, unsigned int seed, int dtype,
+                          float keep_scale, unsigned int seed,
+                          int head_offset, int heads_total, int dtype,
                           void* stream) {
   if (bad_sizes(B, H, T_len, d)) return (int)cudaErrorInvalidValue;
   const Inputs in{q_u, q_v, k, v, p, dout,
                   static_cast<const float*>(lse),
                   static_cast<const float*>(delta),
                   static_cast<const int32_t*>(k_len)};
-  const Dropout drop{dropout, threshold, keep_scale, seed};
+  const Dropout drop{dropout, threshold, keep_scale, seed, head_offset,
+                     heads_total};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_dkdv<float>(in, dk, dv, dp, B, H, T_len, d, sm_scale, drop,

@@ -91,6 +91,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using flash::hash_head;
 using flash::keep_bit;
 using namespace sm90;
 
@@ -165,10 +166,11 @@ relpos_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
                        float* __restrict__ de_acc, bf16* __restrict__ dk,
                        bf16* __restrict__ dv, int H, int T, float sm_scale,
                        int dropout, uint32_t threshold, float keep_scale,
-                       uint32_t seed) {
+                       uint32_t seed, int head_offset, int heads_total) {
   using G = Geom<D>;
   const int k0 = blockIdx.x * BKC;
   const int bh = blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, head_offset, heads_total);
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T ? T : klen);
   const size_t kv_base = (size_t)bh * T;
@@ -410,7 +412,7 @@ relpos_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
         pk[e] = st[i + e];
         if (dropout) {
           const float keep =
-              keep_bit(seed, (uint32_t)bh, (uint32_t)(q0 + qc),
+              keep_bit(seed, hbh, (uint32_t)(q0 + qc),
                        (uint32_t)key, threshold) ? keep_scale : 0.f;
           dp *= keep;
           pk[e] *= keep;
@@ -597,7 +599,8 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
            const float* delta, const int32_t* k_len, float* dqu_acc,
            float* dqv_acc, float* de_acc, void* dk, void* dv, int B, int H,
            int T, float sm_scale, int dropout, uint32_t threshold,
-           float keep_scale, uint32_t seed, cudaStream_t stream) {
+           float keep_scale, uint32_t seed, int head_offset, int heads_total,
+           cudaStream_t stream) {
   using G = Geom<D>;
   CUtensorMap tm_qu, tm_qv, tm_k, tm_v, tm_do, tm_e;
   CUresult r = make_map(&tm_qu, q_u, D, T, B * H, BQ);
@@ -615,7 +618,8 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
   relpos_bwd_sm90_kernel<D><<<grid, NTHREADS, G::ALLOC, stream>>>(
       tm_qu, tm_qv, tm_k, tm_v, tm_do, tm_e, lse, delta, k_len, dqu_acc,
       dqv_acc, de_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T,
-      sm_scale, dropout, threshold, keep_scale, seed);
+      sm_scale, dropout, threshold, keep_scale, seed, head_offset,
+      heads_total);
   return (int)cudaGetLastError();
 }
 
@@ -628,7 +632,7 @@ extern "C" {
 // with 16-byte aligned bases; d in {64, 96}. dqu_acc and dqv_acc (B,H,T,d)
 // fp32 and de_acc (H,2T+1,d) fp32 must hold zeros: the kernel adds into
 // them. dk, dv like k,
-// written whole. Dropout arguments as flash_relpos_fwd_sm90's. Returns the
+// written whole. Dropout and head arguments as flash_relpos_fwd_sm90's. Returns the
 // cudaError_t of the launch (0 = success), or MAP_ERROR + the CUresult of a
 // map that could not be encoded.
 int flash_relpos_bwd_sm90(const void* q_u, const void* q_v, const void* k,
@@ -638,7 +642,8 @@ int flash_relpos_bwd_sm90(const void* q_u, const void* q_v, const void* k,
                           void* de_acc, void* dk, void* dv, int B, int H,
                           int T, int d, float sm_scale, int dropout,
                           unsigned int threshold, float keep_scale,
-                          unsigned int seed, void* stream) {
+                          unsigned int seed, int head_offset,
+                          int heads_total, void* stream) {
   if (T <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
@@ -650,11 +655,11 @@ int flash_relpos_bwd_sm90(const void* q_u, const void* q_v, const void* k,
   if (d == 64)
     return launch<64>(q_u, q_v, k, v, e, dout, l, dl, kl, aqu, aqv, ae, dk,
                       dv, B, H, T, sm_scale, dropout, threshold,
-                      keep_scale, seed, s);
+                      keep_scale, seed, head_offset, heads_total, s);
   if (d == 96)
     return launch<96>(q_u, q_v, k, v, e, dout, l, dl, kl, aqu, aqv, ae, dk,
                       dv, B, H, T, sm_scale, dropout, threshold,
-                      keep_scale, seed, s);
+                      keep_scale, seed, head_offset, heads_total, s);
   return (int)cudaErrorInvalidValue;
 }
 

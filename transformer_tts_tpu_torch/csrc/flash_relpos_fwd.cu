@@ -56,6 +56,7 @@
 namespace {
 
 using flash::from_float;
+using flash::hash_head;
 using flash::keep_bit;
 using flash::round_up;
 
@@ -231,7 +232,8 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
                   const T* __restrict__ p, const int32_t* __restrict__ k_len,
                   T* __restrict__ o, float* __restrict__ lse, int H,
                   int T_len, int d, float sm_scale, int dropout,
-                  uint32_t threshold, float keep_scale, uint32_t seed) {
+                  uint32_t threshold, float keep_scale, uint32_t seed,
+                  int head_offset, int heads_total) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geom<T> g(d);
   T* sQu = reinterpret_cast<T*>(smem);
@@ -249,6 +251,7 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, head_offset, heads_total);
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T_len ? T_len : klen);
 
@@ -324,7 +327,7 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
         const float pr = (cbase + c < klen) ? expf(s - m_new) : 0.f;
         sum += pr;
         if (dropout) {
-          const bool kept = keep_bit(seed, (uint32_t)bh, (uint32_t)(q0 + srow),
+          const bool kept = keep_bit(seed, hbh, (uint32_t)(q0 + srow),
                                      (uint32_t)(cbase + c), threshold);
           prow[c] = from_float<T>(kept ? pr * keep_scale : 0.f);
         } else {
@@ -373,7 +376,7 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
            const void* p, const int32_t* k_len, void* o, float* lse, int B,
            int H, int T_len, int d, float sm_scale, int dropout,
            uint32_t threshold, float keep_scale, uint32_t seed,
-           cudaStream_t stream) {
+           int head_offset, int heads_total, cudaStream_t stream) {
   const Geom<T> g(d);
   cudaError_t err = cudaFuncSetAttribute(
       relpos_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -384,7 +387,8 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
       static_cast<const T*>(q_u), static_cast<const T*>(q_v),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(p), k_len, static_cast<T*>(o), lse, H, T_len, d,
-      sm_scale, dropout, threshold, keep_scale, seed);
+      sm_scale, dropout, threshold, keep_scale, seed, head_offset,
+      heads_total);
   return (int)cudaGetLastError();
 }
 
@@ -396,7 +400,8 @@ extern "C" {
 // lse (B,H,T) fp32, k_len (B,) int32, all contiguous on the device.
 // dropout != 0 turns on the keep mask (K4-d) with `threshold`
 // (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and `seed` (the
-// int32 seed's bits), as flash_attention_fwd takes them. Returns the
+// int32 seed's bits), and the hash's `head_offset` and `heads_total`, as
+// flash_attention_fwd takes them. Returns the
 // cudaError_t of the launch (0 = success); a launch that needs more shared
 // memory than a block may have (fp32 with d > 104) is refused
 // with the error of cudaFuncSetAttribute.
@@ -404,7 +409,8 @@ int flash_relpos_fwd(const void* q_u, const void* q_v, const void* k,
                      const void* v, const void* p, const void* k_len, void* o,
                      void* lse, int B, int H, int T_len, int d, float sm_scale,
                      int dropout, unsigned int threshold, float keep_scale,
-                     unsigned int seed, int dtype, void* stream) {
+                     unsigned int seed, int head_offset, int heads_total,
+                     int dtype, void* stream) {
   if (d <= 0 || d > 128 || d % 8 != 0 || T_len <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -412,11 +418,12 @@ int flash_relpos_fwd(const void* q_u, const void* q_v, const void* k,
   auto l = static_cast<float*>(lse);
   if (dtype == 0)
     return launch<float>(q_u, q_v, k, v, p, kl, o, l, B, H, T_len, d,
-                         sm_scale, dropout, threshold, keep_scale, seed, s);
+                         sm_scale, dropout, threshold, keep_scale, seed,
+                         head_offset, heads_total, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q_u, q_v, k, v, p, kl, o, l, B, H, T_len, d,
                                  sm_scale, dropout, threshold, keep_scale,
-                                 seed, s);
+                                 seed, head_offset, heads_total, s);
   return (int)cudaErrorInvalidValue;
 }
 

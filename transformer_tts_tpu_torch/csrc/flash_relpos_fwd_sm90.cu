@@ -83,6 +83,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using flash::hash_head;
 using flash::keep_bit;
 using namespace sm90;
 
@@ -142,7 +143,8 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
                        const int32_t* __restrict__ k_len,
                        bf16* __restrict__ o, float* __restrict__ lse, int H,
                        int T, float scale_log2, int dropout,
-                       uint32_t threshold, float keep_scale, uint32_t seed) {
+                       uint32_t threshold, float keep_scale, uint32_t seed,
+                       int head_offset, int heads_total) {
   using G = Geom<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -160,6 +162,7 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
 
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
+  const uint32_t hbh = hash_head(bh, H, head_offset, heads_total);
   int klen = k_len[bh / H];
   klen = klen < 0 ? 0 : (klen > T ? T : klen);
   const int n_tiles = (klen + BK - 1) / BK;
@@ -333,7 +336,7 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
         p[e] = col + e < klen ? exp2f(acc_s[i + e] - m[h]) : 0.f;
         l[h] += p[e];
         if (dropout)
-          p[e] = keep_bit(seed, (uint32_t)bh, (uint32_t)(row0 + 8 * h),
+          p[e] = keep_bit(seed, hbh, (uint32_t)(row0 + 8 * h),
                           (uint32_t)(col + e), threshold)
                      ? p[e] * keep_scale : 0.f;
       }
@@ -393,7 +396,8 @@ template <int D>
 int launch(const void* q_u, const void* q_v, const void* k, const void* v,
            const void* e, const int32_t* k_len, void* o, float* lse, int B,
            int H, int T, float sm_scale, int dropout, uint32_t threshold,
-           float keep_scale, uint32_t seed, cudaStream_t stream) {
+           float keep_scale, uint32_t seed, int head_offset, int heads_total,
+           cudaStream_t stream) {
   using G = Geom<D>;
   CUtensorMap tm_qu, tm_qv, tm_k, tm_v, tm_e;
   CUresult r = make_map(&tm_qu, q_u, D, T, B * H, WG_ROWS);
@@ -409,7 +413,8 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
   dim3 grid((T + BQ - 1) / BQ, B * H);
   relpos_fwd_sm90_kernel<D><<<grid, NTHREADS, G::ALLOC, stream>>>(
       tm_qu, tm_qv, tm_k, tm_v, tm_e, k_len, static_cast<bf16*>(o), lse, H,
-      T, sm_scale * LOG2E, dropout, threshold, keep_scale, seed);
+      T, sm_scale * LOG2E, dropout, threshold, keep_scale, seed, head_offset,
+      heads_total);
   return (int)cudaGetLastError();
 }
 
@@ -421,7 +426,9 @@ extern "C" {
 // lse (B,H,T) fp32, k_len (B,) int32, all contiguous on the device with
 // 16-byte aligned bases; d in {64, 96}. dropout != 0 turns on the keep
 // mask (K4-d) with `threshold` (int(rate * 2^32)), `keep_scale`
-// (1/(1 - rate) in fp32) and `seed` (the int32 seed's bits). Returns the
+// (1/(1 - rate) in fp32) and `seed` (the int32 seed's bits); it hashes the
+// batch-head b*heads_total + head_offset + h (flash_common.cuh
+// `hash_head`). Returns the
 // cudaError_t of the launch (0 = success), or MAP_ERROR + the CUresult of
 // a tensor map that could not be encoded.
 int flash_relpos_fwd_sm90(const void* q_u, const void* q_v, const void* k,
@@ -429,17 +436,19 @@ int flash_relpos_fwd_sm90(const void* q_u, const void* q_v, const void* k,
                           void* o, void* lse, int B, int H, int T, int d,
                           float sm_scale, int dropout, unsigned int threshold,
                           float keep_scale, unsigned int seed,
-                          void* stream) {
+                          int head_offset, int heads_total, void* stream) {
   if (T <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto kl = static_cast<const int32_t*>(k_len);
   auto l = static_cast<float*>(lse);
   if (d == 64)
     return launch<64>(q_u, q_v, k, v, e, kl, o, l, B, H, T, sm_scale,
-                      dropout, threshold, keep_scale, seed, s);
+                      dropout, threshold, keep_scale, seed, head_offset,
+                      heads_total, s);
   if (d == 96)
     return launch<96>(q_u, q_v, k, v, e, kl, o, l, B, H, T, sm_scale,
-                      dropout, threshold, keep_scale, seed, s);
+                      dropout, threshold, keep_scale, seed, head_offset,
+                      heads_total, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,7 +22,14 @@ precomputed K/V and causal dispatch, and the conformer's
 * relative-position self-attention under the same rule goes to K4, or
   in train mode with dropout to K4-d, and back through K5
   (ops/flash_relpos.py), its seed drawn as for ``MultiHeadAttention``; its
-  masked path fills with -2^15 after scaling.
+  masked path fills with -2^15 after scaling;
+* under tensor parallelism (parallel/tp.py sets ``tp``) a module holds a
+  slice of the heads: it reads their number from the width of its
+  projections, passes the kernels its first head and the model's head
+  count (the dropout hash's batch-heads), enters the projections through
+  ``tp.enter`` and sums ``out``'s partial products over the group, and
+  its masked path keeps its heads' slice of the whole dropout mask; maps
+  asked for are gathered over the group, every head's on each rank.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from transformer_tts_tpu_torch.ops.flash_attention import flash_attention
@@ -118,11 +126,11 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(2 * d_model if concat_after else d_model,
                              d_model)
         self.dropout = nn.Dropout(dropout)
+        self.tp = None          # parallel/tp.py, once the heads are split
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
-        b = x.shape[0]
-        return x.reshape(b, -1, self.heads,
-                         self.d_model // self.heads).transpose(1, 2)
+        """(B, T, H_local * d_k) -> (B, H_local, T, d_k)."""
+        return _split_heads(x, self.d_model // self.heads).transpose(1, 2)
 
     def project_kv(self, k_in: torch.Tensor, v_in: torch.Tensor):
         """(k, v) head tensors (B, H, T, d_k): the cross-attention K/V that
@@ -150,8 +158,10 @@ class MultiHeadAttention(nn.Module):
         runs over the whole static cache, ``mask`` hiding the rows past the
         index. ``precomputed_kv`` replaces the k/v projections.
         """
-        b = q_in.shape[0]
-        q = self._heads(self.q_linear(q_in))
+        tp = self.tp
+        q_proj, k_in, v_in = (q_in, k_in, v_in) if tp is None else \
+            tp.enter(q_in, k_in, v_in)
+        q = self._heads(self.q_linear(q_proj))
         if precomputed_kv is not None:
             k, v = precomputed_kv
         else:
@@ -182,13 +192,17 @@ class MultiHeadAttention(nn.Module):
                                          v.contiguous(),
                                          k_len.to(torch.int32).contiguous(),
                                          dropout_rate=rate,
-                                         dropout_seed=seed, causal=causal)
+                                         dropout_seed=seed, causal=causal,
+                                         **_head_args(self, q))
             probs = None
         else:
-            context, probs = scaled_dot_attention(q, k, v, mask,
-                                                  dropout=self.dropout)
+            context, probs = scaled_dot_attention(
+                q, k, v, mask, dropout=_masked_dropout(self))
 
-        concat = context.transpose(1, 2).reshape(b, -1, self.d_model)
+        concat = _merge_heads(context)
+        if tp is not None:
+            return _row_out(self, concat, q_in), _maps(self, probs,
+                                                       collect_attn)
         if self.concat_after:
             concat = torch.cat([q_in.to(concat.dtype), concat], dim=-1)
         return self.out(concat), (probs if collect_attn else None)
@@ -215,11 +229,11 @@ class RelativeMultiHeadAttention(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.zeros(heads, d_k))
         self.out = nn.Linear(d_model, d_model)
         self.dropout = nn.Dropout(dropout)
+        self.tp = None          # parallel/tp.py, once the heads are split
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, d_model) -> (B, T, H, d_k)."""
-        return x.reshape(x.shape[0], -1, self.heads,
-                         self.d_model // self.heads)
+        """(B, T, H_local * d_k) -> (B, T, H_local, d_k)."""
+        return _split_heads(x, self.d_model // self.heads)
 
     def forward(self, q_in, k_in, v_in, pos_emb, mask=None, *,
                 collect_attn: bool = False,
@@ -228,7 +242,9 @@ class RelativeMultiHeadAttention(nn.Module):
         """``pos_emb`` (1 or B, T, d_model); ``generator`` seeds the kernel
         path's dropout, as in ``MultiHeadAttention``. Returns (output (B,
         T_q, d_model), probs or None)."""
-        b = q_in.shape[0]
+        tp = self.tp
+        if tp is not None:
+            q_in, k_in, v_in, pos_emb = tp.enter(q_in, k_in, v_in, pos_emb)
         q = self._split(self.q_linear(q_in))
         k = self._split(self.k_linear(k_in)).transpose(1, 2)
         v = self._split(self.v_linear(v_in)).transpose(1, 2)
@@ -253,11 +269,64 @@ class RelativeMultiHeadAttention(nn.Module):
                 q_u.contiguous(), q_v.contiguous(), k.contiguous(),
                 v.contiguous(), p[0].contiguous(),
                 k_len.to(torch.int32).contiguous(), dropout_rate=rate,
-                dropout_seed=seed)
+                dropout_seed=seed, **_head_args(self, q_u))
             probs = None
         else:
             context, probs = relative_dot_attention(
-                q_u, q_v, k, v, p, mask, dropout=self.dropout)
+                q_u, q_v, k, v, p, mask, dropout=_masked_dropout(self))
 
-        concat = context.transpose(1, 2).reshape(b, -1, self.d_model)
+        concat = _merge_heads(context)
+        if tp is not None:
+            return _row_out(self, concat), _maps(self, probs, collect_attn)
         return self.out(concat), (probs if collect_attn else None)
+
+
+def _split_heads(x: torch.Tensor, d_k: int) -> torch.Tensor:
+    """(B, T, n * d_k) -> (B, T, n, d_k): as many heads as the width holds
+    (all of them, or a tensor-parallel rank's)."""
+    return x.reshape(x.shape[0], -1, x.shape[-1] // d_k, d_k)
+
+
+def _merge_heads(context: torch.Tensor) -> torch.Tensor:
+    """(B, n, T, d_k) -> (B, T, n * d_k)."""
+    b, n, _, d_k = context.shape
+    return context.transpose(1, 2).reshape(b, -1, n * d_k)
+
+
+def _head_args(module: nn.Module, q: torch.Tensor) -> dict:
+    """The kernels' dropout-hash heads: this rank's first head and the
+    model's head count under tensor parallelism, else none."""
+    if module.tp is None:
+        return {}
+    return module.tp.heads(q.shape[1], module.heads)
+
+
+def _masked_dropout(module: nn.Module):
+    """The masked path's dropout of the probabilities: the module's, or
+    under tensor parallelism its heads' slice of the whole mask."""
+    if module.tp is None:
+        return module.dropout
+    return lambda probs: module.tp.dropout(module.dropout, probs, 1)
+
+
+def _maps(module: nn.Module, probs: Optional[torch.Tensor],
+          collect_attn: bool) -> Optional[torch.Tensor]:
+    """The attention maps asked for, every head's on each
+    tensor-parallel rank."""
+    if not collect_attn:
+        return None
+    return module.tp.gather(probs, 1)
+
+
+def _row_out(module: nn.Module, concat: torch.Tensor,
+             q_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out`` of a tensor-parallel rank's heads: its context columns'
+    product summed over the group, then (``concat_after``) the ``q_in``
+    columns' product and the bias, added once."""
+    w = module.out.weight
+    front = w.shape[1] - concat.shape[-1]
+    extra = None
+    if front:
+        extra = F.linear(q_in.to(concat.dtype), w[:, :front])
+    return module.tp.reduce(F.linear(concat, w[:, front:]), module.out.bias,
+                            extra)

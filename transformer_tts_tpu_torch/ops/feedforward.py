@@ -23,6 +23,12 @@ logical global batch. ``nn.SyncBatchNorm`` is not used: its running
 variance moves towards the unbiased variance, and it refuses CPU tensors.
 ``frozen_statistics`` keeps the running statistics still (a remat
 recompute runs the forward a second time).
+
+Under tensor parallelism (parallel/tp.py sets ``tp``) a feed-forward block
+holds a slice of its hidden channels: its input enters through
+``tp.enter``, the second product's partial sums are summed over the group
+before its bias is added, and the conformer block's hidden dropout keeps
+the slice of the whole mask.
 """
 
 from __future__ import annotations
@@ -141,11 +147,14 @@ class Conv1dBTC(nn.Conv1d):
                          padding=left if left == right else 0)
         self.pad = None if left == right else (left, right)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """The convolution; with ``bias=False`` without the bias (a
+        tensor-parallel rank's partial sum)."""
         x = x.transpose(1, 2)
         if self.pad is not None:
             x = F.pad(x, self.pad)
-        return super().forward(x).transpose(1, 2)
+        return self._conv_forward(x, self.weight,
+                                  self.bias if bias else None).transpose(1, 2)
 
 
 class ConvFeedForward(nn.Module):
@@ -156,9 +165,15 @@ class ConvFeedForward(nn.Module):
         self.f_2 = Conv1dBTC(d_model * 4, d_model, kernel_size)
         self.dropout = nn.Dropout(dropout)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.tp = None          # parallel/tp.py, once the channels are split
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.f_2(torch.relu(self.f_1(x)))
+        if self.tp is None:
+            h = self.f_2(torch.relu(self.f_1(x)))
+        else:
+            h = self.tp.reduce(
+                self.f_2(torch.relu(self.f_1(self.tp.enter(x))), bias=False),
+                self.f_2.bias)
         return self.layer_norm(self.dropout(h + x))
 
 
@@ -169,11 +184,18 @@ class ConformerFeedForward(nn.Module):
         self.linear1 = nn.Linear(d_model, d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
         self.dropout = nn.Dropout(dropout)
+        self.tp = None          # parallel/tp.py, once the channels are split
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.linear1(self.layer_norm(x))
-        x = self.dropout(x * torch.sigmoid(x))
-        return self.dropout(self.linear2(x))
+        x = self.layer_norm(x)
+        if self.tp is None:
+            x = self.linear1(x)
+            x = self.dropout(x * torch.sigmoid(x))
+            return self.dropout(self.linear2(x))
+        x = self.linear1(self.tp.enter(x))
+        x = self.tp.dropout(self.dropout, x * torch.sigmoid(x), -1)
+        return self.dropout(self.tp.reduce(F.linear(x, self.linear2.weight),
+                                           self.linear2.bias))
 
 
 class DepthwiseConv(nn.Module):

@@ -16,7 +16,11 @@ row (r >= k_len[b]) still sees every valid key.
 ``keep`` is ``keep_mask``: a murmur3 hash of the global (batch-head, query,
 key) coordinates and a per-call seed, kept with probability 1 - rate and
 scaled by 1/(1 - rate); the softmax normaliser sums the probabilities
-before dropout. Keys at or past ``k_len[b]`` are excluded exactly; a row
+before dropout. The batch-head hashed for head h of batch row b is
+b * heads_total + head_offset + h: the tensor's own b * H + h by default,
+and under tensor parallelism (parallel/tp.py), where a rank holds heads
+[head_offset, head_offset + H) of the model's heads_total, the unsharded
+model's, so each rank draws its slice of the unsharded mask. Keys at or past ``k_len[b]`` are excluded exactly; a row
 with no valid key gives o = 0 and lse = -1e30 (the TPU kernel's
 convention; the masked-fill path of ``ops/attention.scaled_dot_attention``
 gives the uniform average there instead, on query rows that only padding
@@ -168,15 +172,39 @@ def keep_mask(seed: int, bh: int, q_offset: int, k_offset: int, shape,
     return keep.to(torch.float32) / (1.0 - dropout_rate)
 
 
+def hash_heads(b: int, h: int, head_offset: int = 0,
+               heads_total: Optional[int] = None, device=None
+               ) -> torch.Tensor:
+    """(B, H) int64 batch-heads the dropout hash reads for a tensor of H
+    heads that holds heads [head_offset, head_offset + H) of
+    ``heads_total`` (default H): b * heads_total + head_offset + h, the
+    kernels' ``hash_head`` (csrc/flash_common.cuh)."""
+    head_offset, total = _head_args(h, head_offset, heads_total)
+    rows = torch.arange(b, dtype=torch.int64, device=device)[:, None]
+    heads = torch.arange(h, dtype=torch.int64, device=device)[None, :]
+    return rows * total + head_offset + heads
+
+
 def _full_keep_mask(b: int, h: int, t_q: int, t_k: int, seed: int,
-                    dropout_rate: float, device) -> torch.Tensor:
-    """(B, H, T_q, T_k) keep scale with bh = b*H + h."""
-    bh = torch.arange(b * h, dtype=torch.int64, device=device)
+                    dropout_rate: float, device, head_offset: int = 0,
+                    heads_total: Optional[int] = None) -> torch.Tensor:
+    """(B, H, T_q, T_k) keep scale at the batch-heads of ``hash_heads``."""
+    bh = hash_heads(b, h, head_offset, heads_total, device)
     rows = torch.arange(t_q, dtype=torch.int64, device=device)
     cols = torch.arange(t_k, dtype=torch.int64, device=device)
     keep = keep_bits(seed, bh.view(b, h, 1, 1), rows.view(t_q, 1),
                      cols.view(1, t_k), dropout_rate)
     return keep.to(torch.float32) / (1.0 - dropout_rate)
+
+
+def _head_args(h: int, head_offset: int, heads_total: Optional[int]):
+    """(head_offset, heads_total) as the kernels take them, checked; a
+    heads_total of None or 0 stands for the tensor's H."""
+    total = int(heads_total) if heads_total else h
+    if not 0 <= head_offset <= total - h:
+        raise ValueError(f"heads [{head_offset}, {head_offset + h}) are "
+                         f"not heads of {total}")
+    return int(head_offset), total
 
 
 def _dropout_args(dropout_rate: float, dropout_seed: int):
@@ -219,9 +247,11 @@ def flash_attention_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
     causal: bool = False, bias: Optional[torch.Tensor] = None,
+    head_offset: int = 0, heads_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1 and K1-d, with ``causal`` of K3's
-    forward and with ``bias`` of K6 and K6-d: the same (o, lse).
+    forward and with ``bias`` of K6 and K6-d: the same (o, lse); the keep
+    mask at the batch-heads of ``hash_heads``.
 
     Products take the inputs' values in fp32 (a bf16 product is exact in
     fp32) and the probabilities, times the keep scale, are cast to the
@@ -234,7 +264,8 @@ def flash_attention_fwd_reference(
         if dropout_rate > 0.0:
             b, h, t_q, t_k = s.shape
             keep = _full_keep_mask(b, h, t_q, t_k, dropout_seed,
-                                   dropout_rate, s.device)
+                                   dropout_rate, s.device, head_offset,
+                                   heads_total)
         return masked_softmax_pv(s, v, k_len, q.dtype, keep=keep,
                                  causal=causal)
 
@@ -264,7 +295,8 @@ def masked_softmax_pv(
 
 
 def _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
-               dropout_seed, causal, bias=None):
+               dropout_seed, causal, bias=None, head_offset=0,
+               heads_total=None):
     """(dS, P keep) in fp32, each rounded through the dtype the TPU kernels
     cast it to before its products (q's and dO's). dS is also K6's dbias,
     the gradient of the pre-scale logits: 0 wherever P is."""
@@ -279,7 +311,8 @@ def _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
         if dropout_rate > 0.0:
             b, h, t_q, t_k = s.shape
             keep = _full_keep_mask(b, h, t_q, t_k, dropout_seed,
-                                   dropout_rate, s.device)
+                                   dropout_rate, s.device, head_offset,
+                                   heads_total)
             dp = dp * keep
             p_kept = p * keep
         ds = p * (dp - delta[..., None]) * sm_scale
@@ -294,11 +327,13 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_dq_reference(q, k, v, do, lse, delta, k_len, sm_scale,
                                  dropout_rate=0.0, dropout_seed=0,
-                                 causal=False, bias=None):
+                                 causal=False, bias=None, head_offset=0,
+                                 heads_total=None):
     """Plain version of K2's (with ``causal`` K3's) dq kernel: dq = dS K;
     with ``bias``, K6's: (dq, dbias = dS in the bias's dtype)."""
     ds, _ = _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale,
-                       dropout_rate, dropout_seed, causal, bias)
+                       dropout_rate, dropout_seed, causal, bias,
+                       head_offset, heads_total)
     with torch.autocast(q.device.type, enabled=False):
         dq = torch.matmul(ds, k.float()).to(q.dtype)
     return dq if bias is None else (dq, ds.to(bias.dtype))
@@ -306,11 +341,13 @@ def flash_attention_dq_reference(q, k, v, do, lse, delta, k_len, sm_scale,
 
 def flash_attention_dkdv_reference(q, k, v, do, lse, delta, k_len, sm_scale,
                                    dropout_rate=0.0, dropout_seed=0,
-                                   causal=False, bias=None):
+                                   causal=False, bias=None, head_offset=0,
+                                   heads_total=None):
     """Plain version of K2's (with ``causal`` K3's, with ``bias`` K6's)
     dk/dv kernel: dk = dS^T Q, dv = (P keep)^T dO."""
     ds, p_kept = _bwd_terms(q, k, v, do, lse, delta, k_len, sm_scale,
-                            dropout_rate, dropout_seed, causal, bias)
+                            dropout_rate, dropout_seed, causal, bias,
+                            head_offset, heads_total)
     with torch.autocast(q.device.type, enabled=False):
         dk = torch.matmul(ds.transpose(-1, -2), q.float())
         dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
@@ -322,6 +359,7 @@ def flash_attention_bwd_reference(
     lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
     causal: bool = False, bias: Optional[torch.Tensor] = None,
+    head_offset: int = 0, heads_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K2 (with ``causal`` of K3's backward):
     (dq, dk, dv) in the inputs' dtypes; with ``bias`` of K6's backward:
@@ -336,7 +374,7 @@ def flash_attention_bwd_reference(
     """
     ds, p_kept = _bwd_terms(q, k, v, do, lse, bwd_delta(o, do), k_len,
                             sm_scale, dropout_rate, dropout_seed, causal,
-                            bias)
+                            bias, head_offset, heads_total)
     with torch.autocast(q.device.type, enabled=False):
         dq = torch.matmul(ds, k.float())
         dk = torch.matmul(ds.transpose(-1, -2), q.float())
@@ -441,7 +479,7 @@ def _design(q, k, v, bias, extra=()) -> str:
 # ---- the kernel launches (CUDA tensors; called from the ops below) ------
 
 def _forward_cuda(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed,
-                  causal, design):
+                  causal, design, head_offset=0, heads_total=0):
     """(o, lse) of K1 (rate 0) or K1-d, with ``causal`` K3-f or K3-d, with
     ``bias`` K6 or K6-d, launched on the card. The design is
     ``select_design``'s; ``design="simple"`` forces the simple kernel in the
@@ -453,6 +491,7 @@ def _forward_cuda(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed,
               else _design(q, k, v, bias))
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
+    heads = _head_args(h, head_offset, heads_total)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -462,14 +501,14 @@ def _forward_cuda(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                 k_len.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, t_q,
                 k.shape[2], d, float(sm_scale), flag, threshold, scale, seed,
-                int(causal), stream)
+                int(causal), *heads, stream)
         else:
             err = _fwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 _ptr(bias), k_len.data_ptr(), o.data_ptr(),
                                 lse.data_ptr(), b, h, t_q, k.shape[2], d,
                                 float(sm_scale), flag, threshold, scale,
-                                seed, int(causal), _DTYPE_CODE[q.dtype],
-                                stream)
+                                seed, int(causal), *heads,
+                                _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, SM90_KERNEL if chosen == "sm90" else KERNEL)
     wrapper = flash_attention if bias is None else flash_attention_with_bias
     counter = (("sm90_" if chosen == "sm90" else "")
@@ -480,10 +519,11 @@ def _forward_cuda(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed,
 
 
 def _bwd_launch(name, q, k, v, bias, do, lse, delta, k_len, outs, sm_scale,
-                dropout_rate, dropout_seed, causal):
+                dropout_rate, dropout_seed, causal, heads):
     """Launch one backward kernel; ``outs`` may hold None (no dbias)."""
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
+    heads = _head_args(h, *heads)
     fn = getattr(_bwd_kernels(), name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -491,7 +531,7 @@ def _bwd_launch(name, q, k, v, bias, do, lse, delta, k_len, outs, sm_scale,
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  k_len.data_ptr(), *(_ptr(x) for x in outs), b, h, t_q,
                  k.shape[2], d, float(sm_scale), flag, threshold, scale,
-                 seed, int(causal), _DTYPE_CODE[q.dtype], stream)
+                 seed, int(causal), *heads, _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, name)
 
 
@@ -503,7 +543,7 @@ def _count_bwd(wrapper, bias, causal):
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
-                 dropout_rate, dropout_seed, causal):
+                 dropout_rate, dropout_seed, causal, heads=(0, 0)):
     """[dq] (with ``bias`` [dq, dbias]) of the simple dq kernel."""
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
     dq = torch.empty_like(q)
@@ -513,26 +553,27 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
         dbias = torch.empty_like(bias)
     _bwd_launch("flash_attention_bwd_dq", q, k, v, bias, do, lse, delta,
                 k_len, (dq, dbias), sm_scale, dropout_rate, dropout_seed,
-                causal)
+                causal, heads)
     _count_bwd(flash_attention_bwd_dq, bias, causal)
     return [dq] if bias is None else [dq, dbias]
 
 
 def _bwd_dkdv_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
-                   dropout_rate, dropout_seed, causal):
+                   dropout_rate, dropout_seed, causal, heads=(0, 0)):
     """[dk, dv] of the simple dk/dv kernel."""
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
     if bias is not None:
         check_bias(q, k, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("flash_attention_bwd_dkdv", q, k, v, bias, do, lse, delta,
-                k_len, (dk, dv), sm_scale, dropout_rate, dropout_seed, causal)
+                k_len, (dk, dv), sm_scale, dropout_rate, dropout_seed, causal,
+                heads)
     _count_bwd(flash_attention_bwd_dkdv, bias, causal)
     return [dk, dv]
 
 
 def _bwd_sm90_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
-                   dropout_rate, dropout_seed, causal):
+                   dropout_rate, dropout_seed, causal, heads=(0, 0)):
     """[dq, dk, dv] (with ``bias`` and dbias) of the Hopper design's fused
     backward; raises for inputs that design does not take."""
     _check_bwd_inputs(q, k, v, do, lse, delta, k_len)
@@ -546,6 +587,7 @@ def _bwd_sm90_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
                          "bias only where T_k % 8 == 0")
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t_q, d = q.shape
+    heads = _head_args(h, *heads)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = None if bias is None else torch.empty_like(bias)
@@ -557,7 +599,7 @@ def _bwd_sm90_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale,
             k_len.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _ptr(dbias), b, h, t_q, k.shape[2], d,
             float(sm_scale), flag, threshold, scale, seed, int(causal),
-            stream)
+            *heads, stream)
     _raise_on(err, SM90_BWD_KERNEL)
     _count_bwd(flash_attention_bwd_sm90, bias, causal)
     grads = [dq_acc.to(q.dtype), dk, dv]
@@ -569,13 +611,13 @@ _BWD_KERNELS = {"dq": _bwd_dq_cuda, "dkdv": _bwd_dkdv_cuda,
 
 
 def _bwd_cuda(q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
-              dropout_seed, causal, kernel):
+              dropout_seed, causal, kernel, head_offset=0, heads_total=0):
     """The backward kernels from delta: with ``kernel="auto"`` those of
     ``select_design``'s choice, with "simple" the simple pair ([dq, dk, dv]
     and with ``bias`` dbias, in both cases); "dq", "dkdv" or "sm90" the one
     kernel of that name."""
     args = (q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
-            dropout_seed, causal)
+            dropout_seed, causal, (head_offset, heads_total))
     if kernel == "auto":
         kernel = ("sm90" if _design(q, k, v, bias, (do,)) == "sm90"
                   else "simple")
@@ -600,56 +642,63 @@ def _plain(tensors):
 
 
 def _fwd_cpu(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed,
-             causal, design):
+             causal, design, head_offset=0, heads_total=0):
     return tuple(_plain(flash_attention_fwd_reference(
-        q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal, bias)))
+        q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal, bias,
+        *_head_args(q.shape[1], head_offset, heads_total))))
 
 
 _flash_fwd_op = torch.library.custom_op(
     "tts_port::flash_fwd", mutates_args=(), device_types="cpu",
     schema="(Tensor q, Tensor k, Tensor v, Tensor k_len, Tensor? bias, "
            "float sm_scale, float dropout_rate, int dropout_seed, "
-           "bool causal, str design) -> (Tensor, Tensor)")(_fwd_cpu)
+           "bool causal, str design, int head_offset=0, "
+           "int heads_total=0) -> (Tensor, Tensor)")(_fwd_cpu)
 _flash_fwd_op.register_kernel("cuda")(_forward_cuda)
 
 
 @_flash_fwd_op.register_fake
 def _(q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed, causal,
-      design):
+      design, head_offset=0, heads_total=0):
     return (torch.empty_like(q),
             q.new_empty(q.shape[:3], dtype=torch.float32))
 
 
 def _fwd_setup(ctx, inputs, output):
-    q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed, causal, _ = \
-        inputs
+    (q, k, v, k_len, bias, sm_scale, dropout_rate, dropout_seed, causal, _,
+     head_offset, heads_total) = inputs
     o, lse = output
     ctx.save_for_backward(q, k, v, bias, o, lse, k_len)
-    ctx.args = (sm_scale, dropout_rate, dropout_seed, causal)
+    ctx.args = (sm_scale, dropout_rate, dropout_seed, causal, head_offset,
+                heads_total)
     ctx.mark_non_differentiable(lse)
 
 
 def _fwd_backward(ctx, do, _dlse):
     """Gradients for q, k, v (and the bias) from the backward op,
     recomputing P and the keep mask; none for k_len, the scale, the rate,
-    the seed or the causal flag, and none through lse."""
+    the seed, the causal flag or the heads, and none through lse."""
     q, k, v, bias, o, lse, k_len = ctx.saved_tensors
-    sm_scale, dropout_rate, dropout_seed, causal = ctx.args
+    (sm_scale, dropout_rate, dropout_seed, causal, head_offset,
+     heads_total) = ctx.args
     grads = flash_attention_bwd(
         q, k, v, o, lse, do.to(q.dtype).contiguous(), k_len,
         sm_scale=sm_scale, dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed, causal=causal, bias=bias)
+        dropout_seed=dropout_seed, causal=causal, bias=bias,
+        head_offset=head_offset, heads_total=heads_total)
     dbias = grads[3] if bias is not None else None
-    return (*grads[:3], None, dbias, None, None, None, None, None)
+    return (*grads[:3], None, dbias, None, None, None, None, None, None,
+            None)
 
 
 _flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def _bwd_cpu(q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
-             dropout_seed, causal, kernel):
+             dropout_seed, causal, kernel, head_offset=0, heads_total=0):
     args = (q, k, v, do, lse, delta, k_len, sm_scale, dropout_rate,
-            dropout_seed, causal, bias)
+            dropout_seed, causal, bias,
+            *_head_args(q.shape[1], head_offset, heads_total))
     dq = dkdv = ()
     if kernel != "dkdv":
         dq = flash_attention_dq_reference(*args)
@@ -664,13 +713,14 @@ _flash_bwd_op = torch.library.custom_op(
     schema="(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
            "Tensor delta, Tensor k_len, Tensor? bias, float sm_scale, "
            "float dropout_rate, int dropout_seed, bool causal, "
-           "str kernel) -> Tensor[]")(_bwd_cpu)
+           "str kernel, int head_offset=0, int heads_total=0) -> Tensor[]"
+           )(_bwd_cpu)
 _flash_bwd_op.register_kernel("cuda")(_bwd_cuda)
 
 
 @_flash_bwd_op.register_fake
 def _(q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
-      dropout_seed, causal, kernel):
+      dropout_seed, causal, kernel, head_offset=0, heads_total=0):
     grads = [torch.empty_like(x) for x in (q, k, v)]
     dbias = [] if bias is None else [torch.empty_like(bias)]
     if kernel == "dq":
@@ -683,45 +733,52 @@ def _(q, k, v, do, lse, delta, k_len, bias, sm_scale, dropout_rate,
 # ---- the public wrappers ----------------------------------------------------
 
 def _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed, causal,
-             bias=None, design=None):
+             bias=None, design=None, head_offset=0, heads_total=None):
     """(o, lse) through ``tts_port::flash_fwd``: K1 (rate 0) or K1-d, with
     ``causal`` K3-f or K3-d, with ``bias`` K6 or K6-d, on the card; the
     plain version on the CPU. ``design="simple"`` forces the simple kernel
-    in the Hopper design's mode (the same-run A/B's baseline)."""
+    in the Hopper design's mode (the same-run A/B's baseline);
+    ``head_offset`` and ``heads_total`` set the dropout hash's batch-heads
+    (``hash_heads``)."""
     return _flash_fwd_op(q, k, v, k_len, bias, float(sm_scale),
                          float(dropout_rate), int(dropout_seed),
-                         bool(causal), design or "auto")
+                         bool(causal), design or "auto", int(head_offset),
+                         int(heads_total or 0))
 
 
 def _bwd_kernel(kernel, q, k, v, do, lse, delta, k_len, sm_scale,
-                dropout_rate, dropout_seed, causal, bias):
+                dropout_rate, dropout_seed, causal, bias, head_offset=0,
+                heads_total=None):
     """The gradients of ``tts_port::flash_bwd`` with ``kernel``."""
     return _flash_bwd_op(q, k, v, do, lse, delta, k_len, bias,
                          float(sm_scale), float(dropout_rate),
-                         int(dropout_seed), bool(causal), kernel)
+                         int(dropout_seed), bool(causal), kernel,
+                         int(head_offset), int(heads_total or 0))
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, k_len, *, sm_scale,
                            dropout_rate=0.0, dropout_seed=0, causal=False,
-                           bias=None):
+                           bias=None, head_offset=0, heads_total=None):
     """dq from the forward's lse and ``delta``: K2's dq kernel (K3's with
     ``causal``) on the card, its plain version on the CPU. With ``bias``
     K6's: (dq, dbias), dbias like the bias, written whole by the kernel
     (zeros past ``k_len`` included), so it is allocated uninitialised."""
     out = _bwd_kernel("dq", q, k, v, do, lse, delta, k_len, sm_scale,
-                      dropout_rate, dropout_seed, causal, bias)
+                      dropout_rate, dropout_seed, causal, bias, head_offset,
+                      heads_total)
     return out[0] if bias is None else tuple(out)
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, k_len, *, sm_scale,
                              dropout_rate=0.0, dropout_seed=0, causal=False,
-                             bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                             bias=None, head_offset=0, heads_total=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from the forward's lse and ``delta``: K2's dk/dv kernel
     (K3's with ``causal``, K6's with ``bias``) on the card, its plain
     version on the CPU."""
     return tuple(_bwd_kernel("dkdv", q, k, v, do, lse, delta, k_len,
                              sm_scale, dropout_rate, dropout_seed, causal,
-                             bias))
+                             bias, head_offset, heads_total))
 
 
 for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
@@ -732,7 +789,8 @@ for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkdv):
 
 def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
                              dropout_rate=0.0, dropout_seed=0, causal=False,
-                             bias=None) -> Tuple[torch.Tensor, ...]:
+                             bias=None, head_offset=0, heads_total=None
+                             ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) from the forward's lse and ``delta``: the Hopper
     design's fused K2 (with ``causal`` K3's backward; csrc/flash_bwd_sm90.cu,
     bf16) on the card, the plain dq and dk/dv on the CPU. With ``bias``
@@ -743,7 +801,7 @@ def flash_attention_bwd_sm90(q, k, v, do, lse, delta, k_len, *, sm_scale,
     dbias it varies from run to run in its last bits."""
     return tuple(_bwd_kernel("sm90", q, k, v, do, lse, delta, k_len,
                              sm_scale, dropout_rate, dropout_seed, causal,
-                             bias))
+                             bias, head_offset, heads_total))
 
 
 flash_attention_bwd_sm90.launches = 0           # K2, the Hopper design
@@ -756,6 +814,7 @@ def flash_attention_bwd(
     lse: torch.Tensor, do: torch.Tensor, k_len: torch.Tensor, *,
     sm_scale: float, dropout_rate: float = 0.0, dropout_seed: int = 0,
     causal: bool = False, bias: Optional[torch.Tensor] = None,
+    head_offset: int = 0, heads_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``:
     delta, then ``tts_port::flash_bwd`` -- on the card the kernels of
@@ -767,13 +826,14 @@ def flash_attention_bwd(
         raise ValueError(f"o must match q: {tuple(o.shape)} {o.dtype}")
     return tuple(_bwd_kernel("auto", q, k, v, do, lse, bwd_delta(o, do),
                              k_len, sm_scale, dropout_rate, dropout_seed,
-                             causal, bias))
+                             causal, bias, head_offset, heads_total))
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
     *, sm_scale: Optional[float] = None, dropout_rate: float = 0.0,
-    dropout_seed: int = 0, causal: bool = False,
+    dropout_seed: int = 0, causal: bool = False, head_offset: int = 0,
+    heads_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of masked attention; q (B,H,T_q,d), k/v (B,H,T_k,d).
 
@@ -781,14 +841,17 @@ def flash_attention(
     ``causal`` also masks keys past the query row (K3);
     ``sm_scale`` defaults to 1/sqrt(d). ``dropout_rate`` > 0 drops
     attention probabilities with the hash seeded by ``dropout_seed`` (an
-    int32; the backward rebuilds the same mask). ``o`` has q's dtype and
-    carries gradients to q, k and v (the backward op); ``lse`` (B, H, T_q)
-    is fp32 and carries none.
+    int32; the backward rebuilds the same mask). A tensor that holds heads
+    [``head_offset``, ``head_offset`` + H) of a model's ``heads_total``
+    (tensor parallelism; default the tensor's own H) draws the unsharded
+    mask's slice (``hash_heads``). ``o`` has q's dtype and carries
+    gradients to q, k and v (the backward op); ``lse`` (B, H, T_q) is fp32
+    and carries none.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _forward(q, k, v, k_len, sm_scale, dropout_rate, dropout_seed,
-                    causal)
+                    causal, head_offset=head_offset, heads_total=heads_total)
 
 
 flash_attention.launches = 0                    # K1
@@ -837,7 +900,8 @@ def _fwd_kernel():
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -847,7 +911,8 @@ def _bwd_kernels():
     lib = cuda_build.load(BWD_KERNEL)
     tail = ([ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
-               ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+               ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p])
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
         fn = getattr(lib, name)
         if fn.argtypes is None:   # 8 inputs (bias nullable), 2 outputs
@@ -860,14 +925,14 @@ def _sm90_entry(name: str, pointers: int):
     """The Hopper design's entry point ``name`` (its library built on first
     use): ``pointers`` device pointers, then B, H, T_q, T_k and d, then the
     scale, the dropout flag, threshold, keep scale and seed, the causal
-    flag, and the stream."""
+    flag, the hash's head offset and heads total, and the stream."""
     from transformer_tts_tpu_torch.ops import cuda_build
     fn = getattr(cuda_build.load(name), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 

@@ -84,7 +84,7 @@ import torch
 
 from transformer_tts_tpu_torch.ops.flash_attention import (
     _DTYPE_CODE, _aligned, _check_bwd_inputs, _check_cuda_inputs,
-    _dropout_args, _full_keep_mask, _plain, _raise_on,
+    _dropout_args, _full_keep_mask, _head_args, _plain, _raise_on,
     _valid_keys, bwd_delta, masked_softmax_pv, select_design)
 
 KERNEL = "flash_relpos_fwd"
@@ -138,20 +138,23 @@ def _scores(q_u, q_v, k, p, sm_scale):
     return (ac + bd) * sm_scale
 
 
-def _keep(shape, dropout_rate, dropout_seed, device):
+def _keep(shape, dropout_rate, dropout_seed, device, head_offset=0,
+          heads_total=None):
     if dropout_rate <= 0.0:
         return None
     b, h, t_q, t_k = shape
     return _full_keep_mask(b, h, t_q, t_k, dropout_seed, dropout_rate,
-                           device)
+                           device, head_offset, heads_total)
 
 
 def flash_relpos_attention_fwd_reference(
     q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p: torch.Tensor, k_len: torch.Tensor, sm_scale: float,
-    dropout_rate: float = 0.0, dropout_seed: int = 0,
+    dropout_rate: float = 0.0, dropout_seed: int = 0, head_offset: int = 0,
+    heads_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K4 and K4-d: the same (o, lse).
+    """Plain PyTorch version of K4 and K4-d: the same (o, lse), the keep
+    mask at ``flash_attention.hash_heads``'s batch-heads.
 
     The bias is ``rel_shift`` of the full q_v P^T, not the kernel's
     per-tile three-branch identity, so each checks the other. Products
@@ -161,12 +164,13 @@ def flash_relpos_attention_fwd_reference(
     """
     with torch.autocast(q_u.device.type, enabled=False):
         s = _scores(q_u, q_v, k, p, sm_scale)
-        keep = _keep(s.shape, dropout_rate, dropout_seed, s.device)
+        keep = _keep(s.shape, dropout_rate, dropout_seed, s.device,
+                     head_offset, heads_total)
         return masked_softmax_pv(s, v, k_len, q_u.dtype, keep=keep)
 
 
 def _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
-               dropout_rate, dropout_seed):
+               dropout_rate, dropout_seed, head_offset=0, heads_total=None):
     """(dS, P keep) in fp32, each rounded through the input dtype as the
     kernels cast it before its products: dS = P (dO V^T keep - delta)
     sm_scale with P = exp(s - lse) on valid keys."""
@@ -176,7 +180,8 @@ def _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
                        torch.zeros((), device=s.device))
     dp_attn = torch.matmul(do.float(), v.float().transpose(-1, -2))
     p_kept = prob
-    keep = _keep(s.shape, dropout_rate, dropout_seed, s.device)
+    keep = _keep(s.shape, dropout_rate, dropout_seed, s.device, head_offset,
+                 heads_total)
     if keep is not None:
         dp_attn = dp_attn * keep
         p_kept = prob * keep
@@ -185,24 +190,28 @@ def _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
 
 
 def flash_relpos_dq_reference(q_u, q_v, k, v, p, do, lse, delta, k_len,
-                              sm_scale, dropout_rate=0.0, dropout_seed=0):
+                              sm_scale, dropout_rate=0.0, dropout_seed=0,
+                              head_offset=0, heads_total=None):
     """Plain version of K5's dq kernel: dq_u = dS K, dq_v = G P with
     G = rel_shift_adjoint(dS) (q_v's shifted copy's share included)."""
     with torch.autocast(q_u.device.type, enabled=False):
         ds, _ = _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len,
-                           sm_scale, dropout_rate, dropout_seed)
+                           sm_scale, dropout_rate, dropout_seed, head_offset,
+                           heads_total)
         dq_u = torch.matmul(ds, k.float())
         dq_v = torch.matmul(rel_shift_adjoint(ds), p.float())
     return dq_u.to(q_u.dtype), dq_v.to(q_v.dtype)
 
 
 def flash_relpos_dkdv_reference(q_u, q_v, k, v, p, do, lse, delta, k_len,
-                                sm_scale, dropout_rate=0.0, dropout_seed=0):
+                                sm_scale, dropout_rate=0.0, dropout_seed=0,
+                                head_offset=0, heads_total=None):
     """Plain version of K5's dk/dv/dP kernel: dk = dS^T q_u,
     dv = (P keep)^T dO, dP = sum_b G^T q_v."""
     with torch.autocast(q_u.device.type, enabled=False):
         ds, p_kept = _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len,
-                                sm_scale, dropout_rate, dropout_seed)
+                                sm_scale, dropout_rate, dropout_seed,
+                                head_offset, heads_total)
         dk = torch.matmul(ds.transpose(-1, -2), q_u.float())
         dv = torch.matmul(p_kept.transpose(-1, -2), do.float())
         dp = torch.einsum("bhij,bhid->hjd", rel_shift_adjoint(ds),
@@ -214,7 +223,8 @@ def flash_relpos_attention_bwd_reference(
     q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
     k_len: torch.Tensor, sm_scale: float, dropout_rate: float = 0.0,
-    dropout_seed: int = 0,
+    dropout_seed: int = 0, head_offset: int = 0,
+    heads_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K5: (dq_u, dq_v, dk, dv, dp), dp (H, T, d)
     summed over the batch, in the inputs' dtypes.
@@ -230,7 +240,8 @@ def flash_relpos_attention_bwd_reference(
     with torch.autocast(q_u.device.type, enabled=False):
         ds, p_kept = _bwd_terms(q_u, q_v, k, v, p, do, lse,
                                 bwd_delta(o, do), k_len, sm_scale,
-                                dropout_rate, dropout_seed)
+                                dropout_rate, dropout_seed, head_offset,
+                                heads_total)
         g = rel_shift_adjoint(ds)
         dq_u = torch.matmul(ds, k.float())
         dq_v = torch.matmul(g, p.float())
@@ -278,7 +289,7 @@ def _design(q_u, q_v, k, v, p, extra=()) -> str:
 # ---- the kernel launches (CUDA tensors; called from the ops below) ------
 
 def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-                  dropout_seed, design):
+                  dropout_seed, design, head_offset=0, heads_total=0):
     """(o, lse) of K4 (rate 0) or K4-d launched on the card. The design is
     ``select_design``'s; ``design="simple"`` forces the simple kernel in
     the Hopper design's mode (the same-run A/B's baseline)."""
@@ -287,6 +298,7 @@ def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
               else _design(q_u, q_v, k, v, p))
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t, d = q_u.shape
+    heads = _head_args(h, head_offset, heads_total)
     o = torch.empty_like(q_u)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q_u.device)
     with torch.cuda.device(q_u.device):
@@ -297,13 +309,13 @@ def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
                               v.data_ptr(), e.data_ptr(), k_len.data_ptr(),
                               o.data_ptr(), lse.data_ptr(), b, h, t, d,
                               float(sm_scale), flag, threshold, scale, seed,
-                              stream)
+                              *heads, stream)
         else:
             err = _kernel()(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(),
                             v.data_ptr(), p.data_ptr(), k_len.data_ptr(),
                             o.data_ptr(), lse.data_ptr(), b, h, t, d,
                             float(sm_scale), flag, threshold, scale, seed,
-                            _DTYPE_CODE[q_u.dtype], stream)
+                            *heads, _DTYPE_CODE[q_u.dtype], stream)
     _raise_on(err, SM90_KERNEL if chosen == "sm90" else KERNEL)
     counter = (("sm90_" if chosen == "sm90" else "")
                + ("dropout_launches" if flag else "launches"))
@@ -312,21 +324,23 @@ def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
     return o, lse
 
 
-def _bwd_launch(name, args, outs, sm_scale, dropout_rate, dropout_seed):
+def _bwd_launch(name, args, outs, sm_scale, dropout_rate, dropout_seed,
+                heads):
     q_u = args[0]
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t, d = q_u.shape
+    heads = _head_args(h, *heads)
     fn = getattr(_bwd_kernels(), name)
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
         err = fn(*(x.data_ptr() for x in args),
                  *(x.data_ptr() for x in outs), b, h, t, d,
-                 float(sm_scale), flag, threshold, scale, seed,
+                 float(sm_scale), flag, threshold, scale, seed, *heads,
                  _DTYPE_CODE[q_u.dtype], stream)
     _raise_on(err, name)
 
 
-def _bwd_dq_cuda(args, sm_scale, dropout_rate, dropout_seed):
+def _bwd_dq_cuda(args, sm_scale, dropout_rate, dropout_seed, heads=(0, 0)):
     """[dq_u, dq_v] of K5's simple dq kernel. The kernel writes q_v's own
     share and its shifted copy's share (dq_vs, row i standing for q_v row
     i + 1) in fp32; the second is added one row down, as JAX's pad and
@@ -337,13 +351,14 @@ def _bwd_dq_cuda(args, sm_scale, dropout_rate, dropout_seed):
     dq_v = torch.empty(q_v.shape, dtype=torch.float32, device=q_v.device)
     dq_vs = torch.empty_like(dq_v)
     _bwd_launch("flash_relpos_bwd_dq", args, (dq_u, dq_v, dq_vs), sm_scale,
-                dropout_rate, dropout_seed)
+                dropout_rate, dropout_seed, heads)
     flash_relpos_attention_bwd_dq.launches += 1
     dq_v[:, :, 1:] += dq_vs[:, :, :-1]
     return [dq_u, dq_v.to(q_v.dtype)]
 
 
-def _bwd_dkdv_cuda(args, sm_scale, dropout_rate, dropout_seed):
+def _bwd_dkdv_cuda(args, sm_scale, dropout_rate, dropout_seed,
+                   heads=(0, 0)):
     """[dk, dv, dp] of K5's simple dk/dv/dP kernel: dP (H, T, d) summed
     over the batch in fp32 with atomics, cast to p's dtype."""
     _check_relpos_bwd_inputs(*args)
@@ -351,12 +366,13 @@ def _bwd_dkdv_cuda(args, sm_scale, dropout_rate, dropout_seed):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dp = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     _bwd_launch("flash_relpos_bwd_dkdv", args, (dk, dv, dp), sm_scale,
-                dropout_rate, dropout_seed)
+                dropout_rate, dropout_seed, heads)
     flash_relpos_attention_bwd_dkdv.launches += 1
     return [dk, dv, dp.to(p.dtype)]
 
 
-def _bwd_sm90_cuda(args, sm_scale, dropout_rate, dropout_seed):
+def _bwd_sm90_cuda(args, sm_scale, dropout_rate, dropout_seed,
+                   heads=(0, 0)):
     """[dq_u, dq_v, dk, dv, dp] of the Hopper design's fused K5; raises
     for inputs that design does not take. dq_u, dq_v and dE (the gradient
     of ``position_table``'s E, one plane per head that the whole batch adds
@@ -369,6 +385,7 @@ def _bwd_sm90_cuda(args, sm_scale, dropout_rate, dropout_seed):
                          "(64, 96), 16-byte aligned inputs")
     flag, threshold, scale, seed = _dropout_args(dropout_rate, dropout_seed)
     b, h, t, d = q_u.shape
+    heads = _head_args(h, *heads)
     e = position_table(p)
     f32 = dict(dtype=torch.float32, device=q_u.device)
     dqu_acc = torch.zeros(q_u.shape, **f32)
@@ -382,7 +399,7 @@ def _bwd_sm90_cuda(args, sm_scale, dropout_rate, dropout_seed):
             e.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             k_len.data_ptr(), dqu_acc.data_ptr(), dqv_acc.data_ptr(),
             de_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
-            float(sm_scale), flag, threshold, scale, seed, stream)
+            float(sm_scale), flag, threshold, scale, seed, *heads, stream)
     _raise_on(err, SM90_BWD_KERNEL)
     flash_relpos_attention_bwd_sm90.launches += 1
     return [dqu_acc.to(q_u.dtype), dqv_acc.to(q_v.dtype), dk, dv,
@@ -394,13 +411,14 @@ _BWD_KERNELS = {"dq": _bwd_dq_cuda, "dkdv": _bwd_dkdv_cuda,
 
 
 def _bwd_cuda(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
-              dropout_rate, dropout_seed, kernel):
+              dropout_rate, dropout_seed, kernel, head_offset=0,
+              heads_total=0):
     """The K5 kernels from delta: with ``kernel="auto"`` those of
     ``select_design``'s choice, with "simple" the simple pair ([dq_u, dq_v,
     dk, dv, dp] in both cases); "dq", "dkdv" or "sm90" the one kernel of
     that name."""
     args = (q_u, q_v, k, v, p, do, lse, delta, k_len)
-    kw = (sm_scale, dropout_rate, dropout_seed)
+    kw = (sm_scale, dropout_rate, dropout_seed, (head_offset, heads_total))
     if kernel == "auto":
         kernel = ("sm90" if _design(q_u, q_v, k, v, p, (do,)) == "sm90"
                   else "simple")
@@ -416,55 +434,61 @@ def _bwd_cuda(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
 # plain version as its CPU implementation and the launch as its CUDA one.
 
 def _fwd_cpu(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-             dropout_seed, design):
+             dropout_seed, design, head_offset=0, heads_total=0):
     return tuple(_plain(flash_relpos_attention_fwd_reference(
-        q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed)))
+        q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed,
+        *_head_args(q_u.shape[1], head_offset, heads_total))))
 
 
 _relpos_fwd_op = torch.library.custom_op(
     "tts_port::relpos_fwd", mutates_args=(), device_types="cpu",
     schema="(Tensor q_u, Tensor q_v, Tensor k, Tensor v, Tensor p, "
            "Tensor k_len, float sm_scale, float dropout_rate, "
-           "int dropout_seed, str design) -> (Tensor, Tensor)")(_fwd_cpu)
+           "int dropout_seed, str design, int head_offset=0, "
+           "int heads_total=0) -> (Tensor, Tensor)")(_fwd_cpu)
 _relpos_fwd_op.register_kernel("cuda")(_forward_cuda)
 
 
 @_relpos_fwd_op.register_fake
 def _(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed,
-      design):
+      design, head_offset=0, heads_total=0):
     return (torch.empty_like(q_u),
             q_u.new_empty(q_u.shape[:3], dtype=torch.float32))
 
 
 def _fwd_setup(ctx, inputs, output):
-    q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed, _ = \
-        inputs
+    (q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed, _,
+     head_offset, heads_total) = inputs
     o, lse = output
     ctx.save_for_backward(q_u, q_v, k, v, p, o, lse, k_len)
-    ctx.args = (sm_scale, dropout_rate, dropout_seed)
+    ctx.args = (sm_scale, dropout_rate, dropout_seed, head_offset,
+                heads_total)
     ctx.mark_non_differentiable(lse)
 
 
 def _fwd_backward(ctx, do, _dlse):
     """Gradients for q_u, q_v, k, v and p from the backward op,
     recomputing P and the keep mask; none for k_len, the scale, the rate
-    or the seed, and none through lse."""
+    the seed or the heads, and none through lse."""
     q_u, q_v, k, v, p, o, lse, k_len = ctx.saved_tensors
-    sm_scale, dropout_rate, dropout_seed = ctx.args
+    sm_scale, dropout_rate, dropout_seed, head_offset, heads_total = ctx.args
     grads = flash_relpos_attention_bwd(
         q_u, q_v, k, v, p, o, lse, do.to(q_u.dtype).contiguous(), k_len,
         sm_scale=sm_scale, dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed)
-    return (*grads, None, None, None, None, None)
+        dropout_seed=dropout_seed, head_offset=head_offset,
+        heads_total=heads_total)
+    return (*grads, None, None, None, None, None, None, None)
 
 
 _relpos_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def _bwd_cpu(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
-             dropout_rate, dropout_seed, kernel):
+             dropout_rate, dropout_seed, kernel, head_offset=0,
+             heads_total=0):
     args = (q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
-            dropout_rate, dropout_seed)
+            dropout_rate, dropout_seed,
+            *_head_args(q_u.shape[1], head_offset, heads_total))
     out = []
     if kernel != "dkdv":
         out += flash_relpos_dq_reference(*args)
@@ -478,13 +502,14 @@ _relpos_bwd_op = torch.library.custom_op(
     schema="(Tensor q_u, Tensor q_v, Tensor k, Tensor v, Tensor p, "
            "Tensor do, Tensor lse, Tensor delta, Tensor k_len, "
            "float sm_scale, float dropout_rate, int dropout_seed, "
-           "str kernel) -> Tensor[]")(_bwd_cpu)
+           "str kernel, int head_offset=0, int heads_total=0) -> Tensor[]"
+           )(_bwd_cpu)
 _relpos_bwd_op.register_kernel("cuda")(_bwd_cuda)
 
 
 @_relpos_bwd_op.register_fake
 def _(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale, dropout_rate,
-      dropout_seed, kernel):
+      dropout_seed, kernel, head_offset=0, heads_total=0):
     grads = [torch.empty_like(x) for x in (q_u, q_v, k, v, p)]
     return {"dq": grads[:2], "dkdv": grads[2:]}.get(kernel, grads)
 
@@ -492,38 +517,46 @@ def _(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale, dropout_rate,
 # ---- the public wrappers ----------------------------------------------------
 
 def _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-             dropout_seed, design=None):
+             dropout_seed, design=None, head_offset=0, heads_total=None):
     """(o, lse) through ``tts_port::relpos_fwd``: K4 (rate 0) or K4-d on
     the card, the plain version on the CPU. ``design="simple"`` forces the
     simple kernel in the Hopper design's mode (the same-run A/B's
-    baseline)."""
+    baseline); ``head_offset`` and ``heads_total`` as in
+    ``flash_attention``."""
     return _relpos_fwd_op(q_u, q_v, k, v, p, k_len, float(sm_scale),
                           float(dropout_rate), int(dropout_seed),
-                          design or "auto")
+                          design or "auto", int(head_offset),
+                          int(heads_total or 0))
 
 
-def _bwd_kernel(kernel, args, sm_scale, dropout_rate, dropout_seed):
+def _bwd_kernel(kernel, args, sm_scale, dropout_rate, dropout_seed,
+                head_offset=0, heads_total=None):
     """The gradients of ``tts_port::relpos_bwd`` with ``kernel``."""
     return tuple(_relpos_bwd_op(*args, float(sm_scale), float(dropout_rate),
-                                int(dropout_seed), kernel))
+                                int(dropout_seed), kernel, int(head_offset),
+                                int(heads_total or 0)))
 
 
 def flash_relpos_attention_bwd_dq(q_u, q_v, k, v, p, do, lse, delta, k_len,
                                   *, sm_scale, dropout_rate=0.0,
-                                  dropout_seed=0):
+                                  dropout_seed=0, head_offset=0,
+                                  heads_total=None):
     """(dq_u, dq_v): K5's dq kernel on the card, its plain version on the
     CPU."""
     return _bwd_kernel("dq", (q_u, q_v, k, v, p, do, lse, delta, k_len),
-                       sm_scale, dropout_rate, dropout_seed)
+                       sm_scale, dropout_rate, dropout_seed, head_offset,
+                       heads_total)
 
 
 def flash_relpos_attention_bwd_dkdv(q_u, q_v, k, v, p, do, lse, delta,
                                     k_len, *, sm_scale, dropout_rate=0.0,
-                                    dropout_seed=0):
+                                    dropout_seed=0, head_offset=0,
+                                    heads_total=None):
     """(dk, dv, dp): K5's dk/dv/dP kernel on the card, its plain version
     on the CPU. dP (H, T, d) is summed over the batch."""
     return _bwd_kernel("dkdv", (q_u, q_v, k, v, p, do, lse, delta, k_len),
-                       sm_scale, dropout_rate, dropout_seed)
+                       sm_scale, dropout_rate, dropout_seed, head_offset,
+                       heads_total)
 
 
 flash_relpos_attention_bwd_dq.launches = 0
@@ -532,14 +565,16 @@ flash_relpos_attention_bwd_dkdv.launches = 0
 
 def flash_relpos_attention_bwd_sm90(q_u, q_v, k, v, p, do, lse, delta,
                                     k_len, *, sm_scale, dropout_rate=0.0,
-                                    dropout_seed=0
+                                    dropout_seed=0, head_offset=0,
+                                    heads_total=None
                                     ) -> Tuple[torch.Tensor, ...]:
     """(dq_u, dq_v, dk, dv, dp): the Hopper design's fused K5
     (csrc/flash_relpos_bwd_sm90.cu, bf16) on the card, the plain dq and
     dk/dv/dP on the CPU. dq_u, dq_v and dP come from fp32 atomics: unlike
     dk and dv they vary from run to run in their last bits."""
     return _bwd_kernel("sm90", (q_u, q_v, k, v, p, do, lse, delta, k_len),
-                       sm_scale, dropout_rate, dropout_seed)
+                       sm_scale, dropout_rate, dropout_seed, head_offset,
+                       heads_total)
 
 
 flash_relpos_attention_bwd_sm90.launches = 0    # K5, the Hopper design
@@ -550,6 +585,7 @@ def flash_relpos_attention_bwd(
     p: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
     k_len: torch.Tensor, *, sm_scale: float, dropout_rate: float = 0.0,
     dropout_seed: int = 0, design: Optional[str] = None,
+    head_offset: int = 0, heads_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """(dq_u, dq_v, dk, dv, dp) of ``flash_relpos_attention`` for the
     output gradient ``do``: delta, then ``tts_port::relpos_bwd`` -- on the
@@ -561,13 +597,15 @@ def flash_relpos_attention_bwd(
         raise ValueError(f"o must match q_u: {tuple(o.shape)} {o.dtype}")
     return _bwd_kernel(design or "auto",
                        (q_u, q_v, k, v, p, do, lse, bwd_delta(o, do), k_len),
-                       sm_scale, dropout_rate, dropout_seed)
+                       sm_scale, dropout_rate, dropout_seed, head_offset,
+                       heads_total)
 
 
 def flash_relpos_attention(
     q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p: torch.Tensor, k_len: torch.Tensor, *, sm_scale: Optional[float] = None,
-    dropout_rate: float = 0.0, dropout_seed: int = 0,
+    dropout_rate: float = 0.0, dropout_seed: int = 0, head_offset: int = 0,
+    heads_total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of relative-position self-attention.
 
@@ -575,13 +613,16 @@ def flash_relpos_attention(
     int32 valid keys per batch row; ``sm_scale`` defaults to 1/sqrt(d).
     ``dropout_rate`` > 0 drops attention probabilities with the hash
     seeded by ``dropout_seed`` (an int32; the backward rebuilds the same
-    mask). ``o`` has q_u's dtype and carries gradients to q_u, q_v, k, v
-    and p (the backward op); ``lse`` (B, H, T) is fp32 and carries none.
+    mask); ``head_offset`` and ``heads_total`` place the tensor's heads
+    among a model's for the hash, as in ``flash_attention``. ``o`` has
+    q_u's dtype and carries gradients to q_u, q_v, k, v and p (the
+    backward op); ``lse`` (B, H, T) is fp32 and carries none.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q_u.shape[-1])
     return _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-                    dropout_seed)
+                    dropout_seed, head_offset=head_offset,
+                    heads_total=heads_total)
 
 
 flash_relpos_attention.launches = 0             # K4
@@ -597,7 +638,7 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -607,7 +648,8 @@ def _bwd_kernels():
     lib = cuda_build.load(BWD_KERNEL)
     tail = ([ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
-               ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
+               ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p])
     for name in ("flash_relpos_bwd_dq", "flash_relpos_bwd_dkdv"):
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -619,14 +661,15 @@ def _bwd_kernels():
 def _sm90_entry(name: str, pointers: int):
     """The Hopper design's entry point ``name`` (its library built on first
     use): ``pointers`` device pointers, then B, H, T and d, then the
-    scale, the dropout flag, threshold, keep scale and seed, and the
-    stream."""
+    scale, the dropout flag, threshold, keep scale and seed, the hash's
+    head offset and heads total, and the stream."""
     from transformer_tts_tpu_torch.ops import cuda_build
     fn = getattr(cuda_build.load(name), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-                          ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p])
+                          ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 

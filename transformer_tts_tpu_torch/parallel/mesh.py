@@ -1,5 +1,5 @@
-"""The process-group layer of data-parallel training (the port of
-transformer_tts_tpu/parallel/mesh.py:28-128, on ``torch.distributed``).
+"""The process-group layer of data- and tensor-parallel training (the port
+of transformer_tts_tpu/parallel/mesh.py, on ``torch.distributed``).
 
 The JAX package shards each global batch over a ``data`` mesh and lets
 pjit insert the gradient all-reduce; here every rank is one process with
@@ -10,20 +10,32 @@ the CPU, never as a fallback):
 * ``init_distributed`` joins the group: explicit (coordinator, number of
   processes, process id) or torchrun's environment (``RANK``,
   ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``);
-* ``data_parallel`` wraps a model in DDP, whose constructor broadcasts
-  rank 0's parameters and buffers (JAX's ``replicate_global`` :110-128:
+* ``data_parallel`` wraps a model in DDP over the data-parallel group
+  (default: every rank), whose constructor broadcasts the group's first
+  rank's parameters and buffers (JAX's ``replicate_global`` :110-128:
   every process built the same state from one seed; the broadcast makes
-  that so), and gives every flax-style BatchNorm the group, so its train-
-  mode statistics are the global batch's as pjit gives them to flax
-  (ops/feedforward.py);
+  that so), and gives every flax-style BatchNorm a group of the same
+  ranks, so its train-mode statistics are the global batch's as pjit
+  gives them to flax (ops/feedforward.py);
 * ``check_local_batch`` is ``make_global_batch``'s (:88-107) contract:
   every rank's local arrays have the same shapes (the loader's
   ``fixed_shapes``).
 
-``make_mesh``'s ``model`` axis is tensor parallelism's, a later slice.
-``make_multislice_mesh`` (:52-79) has no counterpart: across nodes NCCL
-picks its own hierarchical all-reduce (ring or tree over NVLink within a
-node and the network between nodes).
+* ``make_mesh`` (:31-42) lays the ranks out as a ``DeviceMesh`` of dims
+  (``data``, ``model``), data-major: rank = d * model + m. The ``model``
+  dim is tensor parallelism's (parallel/tp.py): the ranks of one
+  ``model`` group hold the same rows and split the heads and FFN
+  channels; the ``data`` groups (one per ``model`` coordinate, so each
+  holds one shard of every split weight) average the gradients;
+* ``make_multislice_mesh`` (:53-79) adds an outer ``dcn`` dim (slices,
+  joined by the slower network): dims (``dcn``, ``data``, ``model``),
+  slice-major. Its data-parallel group is (``dcn``, ``data``), and
+  ``hierarchical_hook`` makes DDP's all-reduce JAX's "whole design": a
+  reduce-scatter over ``data``, an all-reduce of the 1/data shard over
+  ``dcn``, an all-gather over ``data``;
+* ``batch_rows`` gives a rank its rows of a global batch: those of its
+  (``dcn``, ``data``) coordinate (``batch_sharding`` :45-50), the same
+  on every rank of a ``model`` group.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ from __future__ import annotations
 import datetime
 import os
 import warnings
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,31 +119,154 @@ def set_norm_group(model: nn.Module, group) -> int:
     return n
 
 
-def data_parallel(model: nn.Module,
-                  device=None) -> nn.parallel.DistributedDataParallel:
-    """``model`` wrapped in DDP over the default group: rank 0's
-    parameters and buffers broadcast to every rank, gradients averaged in
-    the backward, and its BatchNorms' and VQ codebooks' statistics
-    reduced over a group of the same ranks (its own, so its collectives never interleave with
-    DDP's buckets). Every family's train step gives every parameter a
-    gradient, so DDP searches for no unused one. The wrapper's
-    ``state_dict`` is not saved: checkpoints hold the bare model's
-    (``TrainState.model``), whose keys carry no prefix."""
+def data_parallel(model: nn.Module, device=None, mesh=None
+                  ) -> nn.parallel.DistributedDataParallel:
+    """``model`` wrapped in DDP over the data-parallel group (every rank,
+    or ``mesh``'s ``data_group``): the group's first rank's parameters and
+    buffers broadcast to its other ranks, gradients averaged in the
+    backward (on a multislice mesh through ``hierarchical_hook``), and its
+    BatchNorms' and VQ codebooks' statistics reduced over a group of the
+    same ranks (its own, so its collectives never interleave with DDP's
+    buckets). Every family's train step gives every parameter a gradient,
+    so DDP searches for no unused one. The wrapper's ``state_dict`` is
+    not saved: checkpoints hold the bare model's (``TrainState.model``),
+    whose keys carry no prefix."""
     if not dist.is_initialized():
         raise RuntimeError("data_parallel needs init_distributed first")
-    set_norm_group(model, dist.new_group())
+    if mesh is None:
+        group, stats = None, dist.new_group()
+    else:
+        group, stats = data_group(mesh), data_group(mesh, own=True)
+    set_norm_group(model, stats)
     dev = torch.device(device) if device is not None else next(
         model.parameters()).device
+    first = 0 if group is None else dist.get_global_rank(group, 0)
     with torch.no_grad():
         for buf in model.buffers():     # DDP broadcasts the parameters
-            dist.broadcast(buf, 0)
+            dist.broadcast(buf, first, group=group)
     with warnings.catch_warnings():
         # newer torch renames broadcast_buffers; the buffers were
         # broadcast above and move alike on every rank after that
         warnings.simplefilter("ignore", FutureWarning)
-        return nn.parallel.DistributedDataParallel(
+        ddp = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev] if dev.type == "cuda" else None,
-            broadcast_buffers=False)
+            broadcast_buffers=False, process_group=group)
+    if mesh is not None and "dcn" in mesh.mesh_dim_names:
+        ddp.comm_state = HierarchicalState(mesh)
+        ddp.register_comm_hook(ddp.comm_state, hierarchical_hook)
+    return ddp
+
+
+# ---- meshes -----------------------------------------------------------------
+
+def make_mesh(data: Optional[int] = None, model: int = 1, *,
+              device="cuda"):
+    """A ``DeviceMesh`` of dims (``data``, ``model``) over every rank,
+    data-major (JAX ``make_mesh``); ``data`` defaults to the world size
+    over ``model``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    n = process_count()
+    if data is None:
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} ranks")
+    return init_device_mesh(torch.device(device).type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_multislice_mesh(n_slices: int, model: int = 1, *, device="cuda"):
+    """A ``DeviceMesh`` of dims (``dcn``, ``data``, ``model``) over every
+    rank, slice-major (JAX ``make_multislice_mesh``): the ranks of a slice
+    are consecutive, ``data`` = world / (n_slices * model)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    n = process_count()
+    if n % (n_slices * model):
+        raise ValueError(f"{n} ranks not divisible by {n_slices} slices x "
+                         f"model={model}")
+    return init_device_mesh(
+        torch.device(device).type,
+        (n_slices, n // (n_slices * model), model),
+        mesh_dim_names=("dcn", "data", "model"))
+
+
+def data_group(mesh, own: bool = False):
+    """This rank's data-parallel group of ``mesh``: the ranks of its
+    ``model`` coordinate, over (``dcn``,) ``data``. Every rank creates
+    every such group, in one order (``new_group`` is collective), once
+    per mesh (kept on the mesh); ``own`` gives a second group of the same
+    ranks (the statistics' own)."""
+    groups = mesh.__dict__.setdefault("data_groups", {})
+    if own not in groups:
+        layout = mesh.mesh.reshape(-1, mesh.size(
+            mesh.mesh_dim_names.index("model"))).T.tolist()
+        for ranks in layout:
+            group = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                groups[own] = group
+    return groups[own]
+
+
+def data_coordinate(mesh) -> Tuple[int, int]:
+    """(this rank's index among the data-parallel coordinates, their
+    number): (dcn, data) flattened slice-major."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    index, count = 0, 1
+    for dim in mesh.mesh_dim_names[:-1]:         # (dcn,) data
+        size = mesh.size(mesh.mesh_dim_names.index(dim))
+        index, count = index * size + coord[dim], count * size
+    return index, count
+
+
+def batch_rows(mesh, batch_size: int) -> slice:
+    """The rows of a global batch of ``batch_size`` that this rank holds:
+    its data coordinate's equal part (``batch_sharding``)."""
+    index, count = data_coordinate(mesh)
+    if batch_size % count:
+        raise ValueError(f"a batch of {batch_size} rows does not split "
+                         f"over {count} data-parallel ranks")
+    part = batch_size // count
+    return slice(index * part, (index + 1) * part)
+
+
+class HierarchicalState:
+    """``hierarchical_hook``'s groups and its counts: the buckets DDP
+    handed it, their gradient elements (``elements``) and the elements the
+    ``dcn`` all-reduce carried (``dcn_elements``). DDP keeps it as
+    ``comm_state``."""
+
+    def __init__(self, mesh):
+        self.data = mesh.get_group("data")
+        self.dcn = mesh.get_group("dcn")
+        self.data_size = dist.get_world_size(self.data)
+        self.world = self.data_size * dist.get_world_size(self.dcn)
+        self.buckets = 0
+        self.elements = 0
+        self.dcn_elements = 0
+
+
+def hierarchical_hook(state: HierarchicalState, bucket):
+    """DDP's all-reduce of a gradient bucket as JAX's multislice mesh
+    decomposes it: a reduce-scatter over ``data`` (within a slice), an
+    all-reduce of this rank's 1/data shard over ``dcn`` (across slices:
+    the slow network carries the reduced shard only), an all-gather over
+    ``data``; then the mean over every data-parallel rank."""
+    flat = bucket.buffer()
+    n = flat.numel()
+    part = -(-n // state.data_size)
+    padded = torch.zeros(part * state.data_size, dtype=flat.dtype,
+                         device=flat.device)
+    padded[:n] = flat
+    shard = torch.empty(part, dtype=flat.dtype, device=flat.device)
+    dist.reduce_scatter_tensor(shard, padded, group=state.data)
+    dist.all_reduce(shard, group=state.dcn)
+    dist.all_gather_into_tensor(padded, shard, group=state.data)
+    state.buckets += 1
+    state.elements += n
+    state.dcn_elements += part
+    flat.copy_(padded[:n]).div_(state.world)
+    fut = torch.futures.Future()
+    fut.set_result(flat)
+    return fut
 
 
 def check_local_batch(batch: Dict) -> None:

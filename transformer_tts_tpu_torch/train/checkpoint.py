@@ -18,7 +18,11 @@ every rank waits at a ``barrier`` before a resume reads, so none reads a
 checkpoint that is still being written (the JAX CLI's :296-307). An
 optimizer saved mid-accumulation keeps the partial sum of the gradients;
 under data parallelism that is the ranks' mean (``share_partial_sums``),
-so a resume goes on as the uninterrupted run would.
+so a resume goes on as the uninterrupted run would. Under tensor
+parallelism (``state.model_group``, parallel/tp.py) every rank takes part
+in gathering the split weights and moments, and global rank 0 writes them
+whole, under the unsharded names and shapes: the checkpoint an unsharded
+run writes. A resume into a split state loads each rank's parts.
 ``resolve_checkpoint`` picks the directory a synthesis ``--load_name``
 (with ``--epoch``) names, as the JAX package's ``_resolve_path``.
 
@@ -113,7 +117,7 @@ def barrier() -> None:
         dist.barrier()
 
 
-def share_partial_sums(optimizer) -> None:
+def share_partial_sums(optimizer, group=None) -> None:
     """Mid-accumulation under DDP each rank's ``.grad`` holds its own
     partial sum (those micro-steps ran under ``no_sync``): replace it on
     every rank by the mean over the ranks, which rank 0 then saves.
@@ -122,9 +126,9 @@ def share_partial_sums(optimizer) -> None:
     import torch.distributed as dist
     if not optimizer.mini_step:
         return
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
     for p in optimizer.params:     # step() gave each a .grad
-        dist.all_reduce(p.grad)
+        dist.all_reduce(p.grad, group=group)
         p.grad.div_(world)
 
 
@@ -133,17 +137,29 @@ def save_train_checkpoint(save_dir: str, state, epoch: int, hp, *,
     """Save a ``TrainState`` as ``save_dir/epoch_<epoch>/`` (on rank 0
     alone under data parallelism; the other ranks only return the
     path)."""
+    from transformer_tts_tpu_torch.parallel import tp
     path = epoch_dir(save_dir, epoch)
     if with_optimizer and state.ddp is not None:
-        share_partial_sums(state.optimizer)
+        share_partial_sums(state.optimizer, state.data_group)
+    group = state.model_group
+    if group is not None:       # every rank gathers; rank 0 writes
+        weights = tp.gather_state_dict(state.model, group)
+        optimizer = (tp.gather_optimizer_state(state.optimizer, group)
+                     if with_optimizer else None)
     if not is_writer():
         return path
-    save_checkpoint(state.model, path)
+    if group is None:
+        save_checkpoint(state.model, path)
+    else:
+        os.makedirs(path, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in weights.items()},
+                   os.path.join(path, CHECKPOINT_NAME))
     hp.snapshot(path)
     payload = {"step": state.step, "epoch": epoch,
                "generator": state.generator.get_state()}
     if with_optimizer:
-        payload["optimizer"] = state.optimizer.state_dict()
+        payload["optimizer"] = (state.optimizer.state_dict()
+                                if group is None else optimizer)
     torch.save(payload, os.path.join(path, TRAIN_STATE_NAME))
     return path
 
@@ -159,13 +175,23 @@ def restore_train_checkpoint(save_dir: str, state,
         raise FileNotFoundError(f"no checkpoints under {save_dir}")
     epoch = epoch if epoch is not None else epochs[-1]
     path = epoch_dir(save_dir, epoch)
-    load_checkpoint(state.model, path)
+    group = state.model_group
+    if group is None:
+        load_checkpoint(state.model, path)
+    else:
+        from transformer_tts_tpu_torch.parallel import tp
+        device = next(state.model.parameters()).device
+        tp.load_full_state(state.model, torch.load(
+            os.path.join(path, CHECKPOINT_NAME), map_location=device,
+            weights_only=True), group)
     payload = torch.load(os.path.join(path, TRAIN_STATE_NAME),
                          map_location="cpu", weights_only=False)
     state.step = payload["step"]
     state.generator.set_state(payload["generator"])
     if "optimizer" in payload:
         state.optimizer.load_state_dict(payload["optimizer"])
+        if group is not None:
+            tp.shard_optimizer_state(state.optimizer, group)
     return state, payload["epoch"]
 
 

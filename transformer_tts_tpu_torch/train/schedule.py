@@ -48,11 +48,23 @@ def noam_schedule(d_model: int, warmup_factor: float = 1.0,
     return schedule
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: List[torch.Tensor], split=None,
+                group=None) -> torch.Tensor:
     """sqrt of the sum of squares over every element, in fp32, as a tensor
-    on the tensors' device (no sync)."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+    on the tensors' device (no sync). Under tensor parallelism ``split``
+    marks the tensors that are one rank's part of a parameter split over
+    ``group`` (parallel/tp.py): their squares are summed over the group's
+    ranks, the others' (the same on every rank) counted once, so the norm
+    is the unsharded model's."""
+    norms = torch.stack([torch.linalg.vector_norm(t.float())
+                         for t in tensors])
+    if group is None:
+        return torch.linalg.vector_norm(norms)
+    import torch.distributed as dist
+    mask = torch.tensor(split, device=norms.device)
+    split_sum = (norms[mask] ** 2).sum()
+    dist.all_reduce(split_sum, group=group)
+    return torch.sqrt(split_sum + (norms[~mask] ** 2).sum())
 
 
 class Optimizer:
@@ -73,6 +85,10 @@ class Optimizer:
         self.accum_grad = accum_grad
         self.count = 0          # inner updates so far
         self.mini_step = 0      # calls since the last inner update
+        # tensor parallelism (parallel/tp.shard_optimizer_state): the
+        # model group and which parameters are split over it
+        self.norm_group = None
+        self.split = None
 
     @property
     def syncs(self) -> bool:
@@ -99,11 +115,11 @@ class Optimizer:
         grads = self._grads()
         self.mini_step += 1
         if self.mini_step < self.accum_grad:
-            return global_norm(grads) / self.mini_step
+            return self.norm(grads) / self.mini_step
         if self.accum_grad > 1:
             torch._foreach_div_(grads, float(self.accum_grad))
         self.mini_step = 0
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         if self.clip is not None:
             factor = self.clip / torch.clamp(norm, min=self.clip)
             torch._foreach_mul_(grads, factor)
@@ -113,6 +129,11 @@ class Optimizer:
         self.inner.step()
         self.count += 1
         return norm
+
+    def norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of ``grads``, the unsharded model's under tensor
+        parallelism."""
+        return global_norm(grads, self.split, self.norm_group)
 
     def state_dict(self) -> dict:
         """The inner optimizer's state, the counts and, mid-accumulation,

@@ -77,6 +77,15 @@ averaged over the ranks, so they are the global batch's; the rank is
 folded into the dropout streams after the initial draw, so rows of
 different ranks draw different masks; with ``accum_grad`` > 1 the
 non-final micro-steps run under DDP's ``no_sync``.
+
+On a mesh (``distribute(state, device, mesh)``, parallel/mesh.py) the
+model is first split over the ``model`` group (parallel/tp.py: heads and
+FFN channels; the optimizer's moments and its global norm follow), then
+wrapped in DDP over the data-parallel group, and every reduction above
+(the statistics, the means, the logs, the NaN guard) runs over that group
+and not the world; the data coordinate, not the rank, is folded into the
+dropout streams, so the ranks of one ``model`` group draw the same seeds
+and masks.
 """
 
 from __future__ import annotations
@@ -132,8 +141,10 @@ class StepModule(nn.Module):
 
 class TrainState:
     """The model, its optimizer, the step count and the generator; under
-    data parallelism also the DDP wrapper of its ``StepModule`` (``ddp``,
-    over the default process group)."""
+    data parallelism also the DDP wrapper of its ``StepModule`` (``ddp``)
+    and the group it averages over (``data_group``: None for the default
+    group), under tensor parallelism the ``model`` group (``model_group``)
+    its weights are split over."""
 
     def __init__(self, model: nn.Module, optimizer: Optimizer,
                  generator: torch.Generator, step: int = 0):
@@ -143,6 +154,8 @@ class TrainState:
         self.step = step
         self.step_module = StepModule(model)
         self.ddp: Optional[nn.Module] = None
+        self.data_group = None
+        self.model_group = None
 
     @property
     def forward_module(self) -> nn.Module:
@@ -160,8 +173,9 @@ class TrainState:
     def means(self):
         """The losses' masked means over the data-parallel group."""
         import torch.distributed as dist
-        return global_means(dist.group.WORLD if self.ddp is not None
-                            else None)
+        if self.ddp is None:
+            return global_means(None)
+        return global_means(self.data_group or dist.group.WORLD)
 
 
 def fold_rank(state: TrainState, rank: int) -> None:
@@ -174,16 +188,30 @@ def fold_rank(state: TrainState, rank: int) -> None:
     torch.manual_seed((base * 1_000_003 + 2 * rank + 1) % 2 ** 63)
 
 
-def distribute(state: TrainState, device=None) -> TrainState:
+def distribute(state: TrainState, device=None, mesh=None) -> TrainState:
     """Make ``state`` a data-parallel rank's (after
     ``parallel.init_distributed``): the model wrapped in DDP over the
     default group (rank 0's weights broadcast), the BatchNorms'
     statistics global and the rank folded into the dropout streams.
-    ``state.model`` stays the bare module."""
+    ``state.model`` stays the bare module. On a ``mesh``
+    (parallel/mesh.py) the model is first split over its ``model`` group
+    (``tensor_parallel``; the optimizer's moments sliced alike), DDP runs
+    over the data-parallel group, whose first rank broadcasts its shards,
+    and the data coordinate is folded into the dropout streams."""
     import torch.distributed as dist
-    from transformer_tts_tpu_torch.parallel.mesh import data_parallel
-    state.ddp = data_parallel(state.step_module, device)
-    fold_rank(state, dist.get_rank())
+    from transformer_tts_tpu_torch.parallel import mesh as pm
+    if mesh is None:
+        state.ddp = pm.data_parallel(state.step_module, device)
+        fold_rank(state, dist.get_rank())
+        return state
+    from transformer_tts_tpu_torch.parallel import tp
+    group = mesh.get_group("model")
+    if tp.tensor_parallel(state.model, group):
+        state.model_group = group
+        tp.shard_optimizer_state(state.optimizer, group)
+    state.data_group = pm.data_group(mesh)
+    state.ddp = pm.data_parallel(state.step_module, device, mesh)
+    fold_rank(state, pm.data_coordinate(mesh)[0])
     return state
 
 
@@ -320,16 +348,17 @@ def _group_sum(state: TrainState, x: torch.Tensor) -> torch.Tensor:
         return x
     import torch.distributed as dist
     x = x.float().clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=state.data_group)
     return x
 
 
-def _group_mean_(tensors) -> None:
-    """Average ``tensors`` over the data-parallel ranks, in place."""
+def _group_mean_(tensors, group) -> None:
+    """Average ``tensors`` over the data-parallel ranks of ``group`` (None:
+    every rank), in place."""
     import torch.distributed as dist
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
     for t, f in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(f.view_as(t))
 
@@ -362,7 +391,7 @@ def _update(state: TrainState, total: torch.Tensor, logs: Dict, *,
         if partial is None:
             partial = [None] * len(opt.params)
         elif state.ddp is not None and last and not bool(finite):
-            _group_mean_(partial)
+            _group_mean_(partial, state.data_group)
         for p, kept in zip(opt.params, partial):
             if p.grad is not None:
                 p.grad = torch.where(
@@ -375,8 +404,8 @@ def _update(state: TrainState, total: torch.Tensor, logs: Dict, *,
         import torch.distributed as dist
         keys = sorted(logs)
         flat = torch.stack([logs[k].float().reshape(()) for k in keys])
-        dist.all_reduce(flat)
-        flat = flat / dist.get_world_size()
+        dist.all_reduce(flat, group=state.data_group)
+        flat = flat / dist.get_world_size(state.data_group)
         logs = dict(zip(keys, flat.unbind()))
     return state, logs
 
