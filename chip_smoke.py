@@ -413,9 +413,11 @@ and each printing its wall time:
        the one card, bf16 amp, dropout 0.1, TP_STEPS steps on the whole
        batch, against one process on the same weights, batch and dropout
        streams, run twice (the second the same-run control): every
-       logged term, the BatchNorm statistics' moves (equal on both
-       ranks) and the gathered weights' updates within DDP_OF_CONTROL x
-       the control's or the TP_* floors; each rank launching 6 K1-d-90
+       logged term, the BatchNorm statistics' moves (equal on both ranks)
+       and the gathered weights' updates within DDP_OF_CONTROL x the
+       control's or the TP_* floors (the same run's fp32 split step's
+       gaps printed beside: the order of fp32 sums); each rank launching
+       6 K1-d-90
        and 6 K2-90 a step at (16, 2, 1024, 96), head offset 0 or 2, as
        one process does; the ranks' wall and profiled device ms a step
        beside one process's; an fp32 step (the simple K1-d, K2-dq,
@@ -433,7 +435,27 @@ and each printing its wall time:
        on the whole batch as in (a), the multislice DDP hook's dcn
        all-reduce carrying half of the gradient's elements;
    (d) cli/flash_ab.py fwd, bwd and drop at (32, 4, 1024, 96) bf16:
-       kernel, plain and SDPA device ms.
+       kernel, plain and SDPA device ms;
+   (e) on (a)'s two ranks, the AR flagship at LATER_DEPTH (seed 21) split
+       over model = 2, decoded by the eager loop (TP_DECODE_BATCH rows,
+       TP_DECODE_STEPS groups, a stop-head bias at which the rows stop
+       early at different steps): fp32 (TF32 off) mels within
+       TP_DECODE_TOL of one process's and its lengths; the bf16 split
+       decode's gap printed beside one process's eager-against-graphed
+       gap; the graphed decode refused (ValueError) on both ranks;
+   (f) on (a)'s two ranks, before its steps, each kind of split product
+       under bf16 amp at the transformer flagship's width on
+       TP_LAYER_SHAPE (TP_LAYERS: a column-split Linear as q_linear, a
+       row-split one as out, with and without concat_after's whole
+       columns, on cuBLAS; f_1 and f_2 of ConvFeedForward, on cuDNN)
+       through TensorParallel.column / .row, against one process's layer
+       on the same inputs and output gradient: the output and the
+       input's, weight's and bias's gradients, at most TP_LAYER_APART of
+       each tensor's elements differing and none by more than one bf16
+       ulp (plus the fp32 sums' order bound, and on cuDNN the ulp of
+       the product it rounds before adding the bias); f_1 and f_2 with their
+       bias added where the library does not (a planted fault) more
+       than TP_LAYER_APART apart.
    The launches of the ranks' main paths (a)-(c) are added to the
    kernels line's.
 
@@ -6090,14 +6112,19 @@ def start_ranks(work: str) -> list:
             for r in range(DDP_WORLD)]
 
 
-def finish_ranks(procs: list) -> list:
+def finish_ranks(procs: list, echo: bool = False) -> list:
+    """Each rank's result, the last line of its output (with ``echo``,
+    rank 0's lines before it printed: its profiles)."""
     outs = []
     try:
         for r, proc in enumerate(procs):
             out, err = proc.communicate(timeout=600)
             check(proc.returncode == 0, f"21(a) rank {r}: exit "
                                         f"{proc.returncode}: {err[-3000:]}")
-            outs.append(json.loads(out.strip().splitlines()[-1]))
+            lines = out.strip().splitlines()
+            if echo and r == 0:
+                print("\n".join(lines[:-1]))
+            outs.append(json.loads(lines[-1]))
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -6999,7 +7026,7 @@ def phase_post(gen, batch, smi: str) -> dict:
 
 # ---- phase 23: tensor parallelism, the meshes, flash_ab --------------------
 
-TP_STEPS = 3
+TP_STEPS = 2
 TP_FP32_RTOL = 1e-5             # (a)/(b)'s fp32 step loss (simple kernels)
 # the kinds of (a) and (b), and the kernels each one's decoder launches
 TP_KINDS = {"fastspeech2": ("K1-d-90", "K2-90"),
@@ -7012,25 +7039,42 @@ TP_MASK = dict(seed=1234, rate=0.1, heads=4, offset=2, local=2)
 # (a)-(c)'s bf16 steps against one process's, after the first step: each
 # logged term, the BatchNorm statistics' moves and the share of weight
 # updates apart (by UPDATE_APART of the tensor's largest update) within
-# DDP_OF_CONTROL x the same-run control's, never held tighter than these
-# floors. A split block rounds each rank's bf16 partial product before
-# their fp32 sum, where one process rounds the whole product once; Adam
-# then carries that round-off into the next steps' terms, which are
-# printed, not held. The conformer's grad norm is set by its padded
-# rows' LayerNorm gradients (1/sqrt(eps) on exact zeros, PERF.md 7),
-# which round-off moves by percents, and its clip then scales the
-# gradients to Adam's eps, where the first update reads their size: a
-# CPU rehearsal at d 64 in bf16 moved its grad norm 5.6 % at the first
-# step and 7.1 % of its updates apart (the transformer's 0.9 %), every
-# loss term under 6e-4, and moved its 32 BatchNorm buffers (whose
-# smallest moves are nearly 0) up to 4.8 % of their largest moves (6.1 %
-# on the card, the transformer's 8 buffers 1.0 %); the fp32 steps of
-# (a)/(b) match to 1e-5 (TP_FP32_RTOL).
+# DDP_OF_CONTROL x the same-run control's (one process run again: K2's
+# and K5's fp32 atomics), never held tighter than these floors. The split
+# rounds each product once where one process does, so it differs from one
+# process by the order of fp32 sums alone; but that order decides the
+# elements at a bf16 rounding edge (the encoder FFNs' ReLU edges, the
+# conformer's padded rows' LayerNorm gradients, 1/sqrt(eps) on exact
+# zeros, PERF.md 7), and the first Adam update reads their sign: one
+# process taking the split's fp32 products on one rank moved the updates
+# 0.83 % / 5.2 % apart and the statistics 1.2e-2 / 3.7e-2 of their largest
+# move on an H100 (700 W), the split 0.83 % / 5.1 % (transformer / conformer;
+# the control 0.037 % / 0.21 %). So the rounding itself is held by (f),
+# product by product at one bf16 ulp, and these floors only catch a
+# larger fault.
 TP_LOG_FLOOR = 5e-3
 TP_CONFORMER_NORM_FLOOR = 0.1
 TP_MOVES_FLOOR = {"fastspeech2": 5e-2, "conformer": 0.15}
 UPDATE_APART = 0.1
 TP_UPDATE_FLOOR = {"fastspeech2": 5e-2, "conformer": 0.15}
+
+# (f): the split products against one process's layers under bf16 amp,
+# (B, T), the products, and the share of a tensor's elements that may
+# differ (each by at most one bf16 ulp), the bound of
+# tests/test_torch_port_tp_amp.py. A product is held alone, on the same
+# inputs: through a whole block a flip of one ulp (the order of fp32
+# sums) moves the next roundings, and the attention's weight gradients
+# then differ in a few % of their elements with no fault
+TP_LAYER_SHAPE = (4, 1024)
+TP_LAYERS = ("q_linear", "out", "out concat_after", "f_1", "f_2")
+TP_LAYER_APART = 0.01
+
+# (e): the AR flagship at LATER_DEPTH split over model = 2, decoded by the
+# eager loop (the graphed decode refuses a split model: gloo's collectives
+# cannot be captured), TP_DECODE_BATCH rows of TP_DECODE_STEPS groups
+TP_DECODE_STEPS = 64
+TP_DECODE_BATCH = 8
+TP_DECODE_TOL = 1e-5            # fp32 mels, of max|ref|
 
 TP_RANK = """
 import json, sys
@@ -7150,6 +7194,8 @@ def tp_rank(rank: int, world: int, work: str) -> dict:
     from transformer_tts_tpu_torch.train import trainer as tr
     batch = torch.load(os.path.join(work, "batch.pt"))
     out = {}
+    if world == 2:
+        tp_layers(work, rank)
     for name, kind, overrides, n, spec in tp_jobs(world):
         hp, state, step = tp_state(kind, overrides, work)
         init = {k: v.cpu().clone()
@@ -7181,7 +7227,288 @@ def tp_rank(rank: int, world: int, work: str) -> dict:
         del state, step
         gc.collect()
         torch.cuda.empty_cache()
+    if world == 2:
+        out["decode"] = tp_decode_rank(rank, work)
     return out
+
+
+def tp_decode_model(amp: bool, weights: dict):
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
+    model = build_transformer_tts(ar_hparams(amp=amp, **LATER_DEPTH),
+                                  device=DEVICE)
+    model.load_state_dict(weights)
+    return model.eval()
+
+
+def tp_decode_rank(rank: int, work: str) -> dict:
+    """23(e) on a rank: the saved AR model split over the world, decoded
+    by the eager loop in fp32 and in bf16 amp (mels and lengths saved);
+    then the graphed decode, which must refuse the split model. Returns
+    each decode's host ms and the refusal's message."""
+    import torch.distributed as dist
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_transformer_tts)
+    from transformer_tts_tpu_torch.parallel import tensor_parallel
+    saved = torch.load(os.path.join(work, "decode.pt"))
+    text, pos = saved["text"].to(DEVICE), saved["pos"].to(DEVICE)
+    out = {}
+    for amp in (False, True):
+        model = tp_decode_model(amp, saved["weights"])
+        out["split"] = tensor_parallel(model, dist.group.WORLD)
+        sync()
+        t0 = time.perf_counter()
+        mel, lengths = synthesize_transformer_tts(
+            model, text, pos, max_steps=TP_DECODE_STEPS, eager=True)
+        sync()
+        out[f"ms {'bf16' if amp else 'fp32'}"] = (time.perf_counter()
+                                                  - t0) * 1e3
+        torch.save({"mel": mel.cpu(), "lengths": lengths.cpu()},
+                   os.path.join(work, f"decode {amp} {rank}.pt"))
+    try:
+        synthesize_transformer_tts(model, text, pos,
+                                   max_steps=TP_DECODE_STEPS)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
+
+
+def tp_decode_single(gen, work: str) -> dict:
+    """23(e) in one process: the AR model at LATER_DEPTH (seed 21), its
+    stop head's bias set so that the rows stop early at different steps
+    (``stopping_bias`` on an fp32 eager decode's stop logits), saved with
+    the text for the ranks; then its eager decodes in fp32 (TF32 off) and
+    bf16 and its graphed bf16 decode: {name: (mel, lengths)} on the
+    host."""
+    from transformer_tts_tpu_torch.infer.synthesize import (
+        synthesize_transformer_tts)
+    from transformer_tts_tpu_torch.models.transformer_tts import (
+        build_transformer_tts)
+    hp = ar_hparams(amp=False, **LATER_DEPTH)
+    text, pos = text_batch(gen, TP_DECODE_BATCH, 128, 48, hp.vocab_size)
+    text, pos = text.long().to(DEVICE), pos.to(DEVICE)
+    model = build_transformer_tts(hp, device=DEVICE, seed=21).eval()
+    logits = []
+    with cudnn_tf32(False):
+        with torch.no_grad():
+            model.stop_token.bias.fill_(AR_STOP_BIAS)
+        with stop_logits(model, logits):
+            synthesize_transformer_tts(model, text, pos,
+                                       max_steps=TP_DECODE_STEPS, eager=True)
+        with torch.no_grad():
+            model.stop_token.bias.fill_(
+                stopping_bias(logits[0], TP_DECODE_STEPS))
+        weights = {k: v.cpu() for k, v in model.state_dict().items()}
+        torch.save({"weights": weights, "text": text.cpu(),
+                    "pos": pos.cpu()}, os.path.join(work, "decode.pt"))
+        out = {"fp32": synthesize_transformer_tts(
+            model, text, pos, max_steps=TP_DECODE_STEPS, eager=True)}
+    model = tp_decode_model(True, weights)
+    for name, eager in (("bf16", True), ("bf16 graph", False)):
+        out[name] = synthesize_transformer_tts(
+            model, text, pos, max_steps=TP_DECODE_STEPS, eager=eager)
+    return {k: (mel.cpu(), lengths.cpu()) for k, (mel, lengths) in
+            out.items()}
+
+
+def tp_decode_compare(single: dict, ranks: list, work: str):
+    """23(e)'s checks: each rank's fp32 split decode against one process's
+    (mels within TP_DECODE_TOL of max|ref|, lengths equal, rows stopping
+    at different steps), the graphed decode refused on every rank; the
+    bf16 split decode's gap printed beside one process's eager-against-
+    graphed gap."""
+    ref, ref_len = single["fp32"]
+    frames = TP_DECODE_STEPS * 2
+    check(int(ref_len.max()) < frames and len(set(ref_len.tolist())) > 1,
+          f"23(e): the stop bias did not stop the rows early at different "
+          f"steps: {ref_len.tolist()}")
+    scale = float(ref.abs().max())
+
+    def gap(mel, want):
+        return float((mel - want).abs().max()) / scale
+    b16, b16_len = single["bf16"]
+    graph, graph_len = single["bf16 graph"]
+    for r, res in enumerate(ranks):
+        dec = res["decode"]
+        fp32 = torch.load(os.path.join(work, f"decode False {r}.pt"))
+        bf16 = torch.load(os.path.join(work, f"decode True {r}.pt"))
+        err = gap(fp32["mel"], ref)
+        print(f"23(e) rank {r}: {dec['split']} blocks split; fp32 eager "
+              f"decode of {TP_DECODE_BATCH} x {TP_DECODE_STEPS} groups, "
+              f"{dec['ms fp32']:.1f} ms (one process's lengths "
+              f"{ref_len.tolist()}): lengths equal "
+              f"{torch.equal(fp32['lengths'], ref_len)}, mel off by "
+              f"{err:.3g} of max|ref| (allowed {TP_DECODE_TOL:g}); bf16 "
+              f"eager {dec['ms bf16']:.1f} ms, lengths "
+              f"{bf16['lengths'].tolist()}, mel off one process's eager "
+              f"bf16 by {gap(bf16['mel'], b16):.3g} of max|ref| (one "
+              f"process's graph against its eager loop: "
+              f"{gap(graph, b16):.3g}, lengths equal "
+              f"{torch.equal(graph_len, b16_len)}); the graphed decode: "
+              f"{dec['refused']!r}")
+        check(torch.equal(fp32["lengths"], ref_len) and err <= TP_DECODE_TOL,
+              f"23(e) rank {r}: the split fp32 decode differs from one "
+              f"process's ({err:.3g} of max|ref|)")
+        check(dec["refused"] is not None
+              and "cannot be captured" in dec["refused"],
+              f"23(e) rank {r}: the graphed decode did not refuse the "
+              f"split model")
+
+
+def tp_layer_spec(name: str) -> tuple:
+    """(convolution, split, input and output channels, the input channels
+    every rank holds whole) of (f)'s product ``name`` at the transformer
+    flagship's width."""
+    hp = train_hparams()
+    d = hp.d_model_encoder
+    return {"q_linear": (False, "column", d, d, 0),
+            "out": (False, "row", d, d, 0),
+            "out concat_after": (False, "row", 2 * d, d, d),
+            "f_1": (True, "column", d, 4 * d, 0),
+            "f_2": (True, "row", 4 * d, d, 0)}[name]
+
+
+def tp_layer_run(name: str, rank=None, planted: bool = False) -> dict:
+    """One forward and backward of (f)'s product ``name`` under bf16 amp
+    on TP_LAYER_SHAPE, its weights, input and output gradient from seed
+    7: in one process (``rank`` None) the layer's own call, on a rank of
+    the world ``TensorParallel.column`` or ``.row`` on the rank's slices as
+    the split modules call them; ``planted``: a convolution's bias added
+    where the library does not add it (``Conv1dBTC.bias_apart`` negated).
+    The output and the input's, weight's and bias's gradients, whole (the
+    ranks' slices gathered), on the host."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from transformer_tts_tpu_torch.ops.feedforward import Conv1dBTC
+    from transformer_tts_tpu_torch.parallel.tp import TensorParallel
+    conv, split, c_in, c_out, front = tp_layer_spec(name)
+    k = train_hparams().ff_conv_kernel_size_encoder if conv else 1
+    b, t = TP_LAYER_SHAPE
+    gen = torch.Generator().manual_seed(7)
+    w = torch.randn(c_out, c_in, *((k,) if conv else ()), generator=gen)
+    w = (w * (c_in * k) ** -0.5).to(DEVICE)
+    bias = (torch.randn(c_out, generator=gen) * 0.1).to(DEVICE)
+    x = torch.randn(b, t, c_in, generator=gen).to(DEVICE)
+    grad = torch.randn(b, t, c_out, generator=gen).bfloat16().to(DEVICE)
+    op = Conv1dBTC(c_in, c_out, k).conv if conv else F.linear
+    apart = conv and Conv1dBTC.bias_apart(x) != planted
+    amp = partial(torch.autocast, torch.device(DEVICE).type,
+                  dtype=torch.bfloat16)
+
+    def leaf(v):
+        return v.detach().clone().requires_grad_()
+
+    def whole(v, dim):
+        parts = [torch.empty_like(v) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, v.contiguous())
+        return torch.cat(parts, dim)
+
+    if rank is None:
+        xs, ws, bs = leaf(x), leaf(w), leaf(bias)
+        with amp():
+            y = op(xs, ws, bs)
+        y.backward(grad)
+        got = {"out": y, "dx": xs.grad, "dw": ws.grad, "db": bs.grad}
+        # each element's sum of its terms' magnitudes, and the terms' count
+        xs, ws = leaf(x.abs()), leaf(w.abs())
+        op(xs, ws, None).backward(grad.float().abs())
+        terms = {"out": c_in * k, "dx": c_out * k, "dw": b * t, "db": b * t}
+        sums = {"out": op(x.abs(), w.abs(), None).detach(), "dx": xs.grad,
+                "dw": ws.grad, "db": grad.float().abs().sum((0, 1))}
+        got.update({f"{key} order": 2 * terms[key] * 2.0 ** -24 * v
+                    for key, v in sums.items()})
+        if apart:       # the product rounded, then its sum with the bias
+            with amp():
+                product = op(x, w, None).float()
+            got["out order"] = got["out order"] + bf16_ulp(product)
+    elif split == "column":
+        tp = TensorParallel(dist.group.WORLD)
+        own = slice(rank * c_out // tp.size, (rank + 1) * c_out // tp.size)
+        xs, ws, bs = leaf(x), leaf(w[own]), leaf(bias[own])
+        with amp():
+            y, = tp.column(op, [(xs, ws, bs)], bias_apart=apart)
+        y.backward(grad[..., own])
+        got = {"out": whole(y, -1), "dx": xs.grad, "dw": whole(ws.grad, 0),
+               "db": whole(bs.grad, 0)}
+    else:
+        tp = TensorParallel(dist.group.WORLD)
+        per = (c_in - front) // tp.size
+        own = slice(front + rank * per, front + (rank + 1) * per)
+        xs, ws, bs = leaf(x[..., own]), leaf(w[:, own]), leaf(bias)
+        fx, fw = leaf(x[..., :front]), leaf(w[:, :front])
+        with amp():
+            y = tp.row(op, xs, ws, bs, (fx, fw) if front else None,
+                       bias_apart=apart)
+        y.backward(grad)
+        dx, dw = whole(xs.grad, -1), whole(ws.grad, 1)
+        if front:
+            dx, dw = torch.cat([fx.grad, dx], -1), torch.cat([fw.grad, dw], 1)
+        got = {"out": y, "dx": dx, "dw": dw, "db": bs.grad}
+    return {key: v.detach().float().cpu() for key, v in got.items()}
+
+
+def tp_layers(work: str, rank=None):
+    """(f)'s products: in one process (``rank`` None) returned, on a rank
+    saved to ``work`` with the convolutions' planted fault beside."""
+    out = {name: tp_layer_run(name, rank) for name in TP_LAYERS}
+    if rank is None:
+        return out
+    out["planted"] = {name: tp_layer_run(name, rank, planted=True)
+                      for name in TP_LAYERS if tp_layer_spec(name)[0]}
+    torch.save(out, os.path.join(work, f"layers {rank}.pt"))
+    return None
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element's magnitude."""
+    mag = t.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def bf16_apart(got: torch.Tensor, want: torch.Tensor,
+               order: torch.Tensor) -> tuple:
+    """(the share of elements that differ, the largest difference in
+    units of one bf16 ulp, at the larger of the two magnitudes, plus
+    ``order``: the fp32 sums' bound on the element's order error, and
+    where the library rounds twice the first rounding's ulp)."""
+    diff = (got - want).abs()
+    ulp = bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    return (float((diff > 0).float().mean()),
+            float((diff / (ulp + order)).max()))
+
+
+def tp_layer_compare(want: dict, work: str):
+    """(f)'s checks: each rank's split products against one process's
+    layers, every tensor at most TP_LAYER_APART of its elements apart and
+    none by more than one bf16 ulp, where the order of the fp32 sums
+    allows no more (``bf16_apart``)."""
+    for r in range(2):
+        got = torch.load(os.path.join(work, f"layers {r}.pt"))
+        for name in TP_LAYERS:
+            apart = {key: bf16_apart(got[name][key], value,
+                                     want[name][f"{key} order"])
+                     for key, value in want[name].items()
+                     if not key.endswith("order")}
+            share = max(apart, key=lambda n: apart[n][0])
+            ulps = max(apart, key=lambda n: apart[n][1])
+            print(f"23(f) rank {r} {name} ({tp_layer_spec(name)[1]}-split), "
+                  f"bf16 amp at {TP_LAYER_SHAPE}, against one process: "
+                  f"most elements apart {apart[share][0]:.4g} ({share}), "
+                  f"most off {apart[ulps][1]:.3g} ({ulps}) of one bf16 ulp "
+                  f"and the fp32 order bound (allowed {TP_LAYER_APART:g}, "
+                  f"1)")
+            check(apart[share][0] <= TP_LAYER_APART and apart[ulps][1] <= 1,
+                  f"23(f) rank {r} {name}: the split product differs from "
+                  f"one process's")
+        for name, res in got["planted"].items():
+            share = bf16_apart(res["out"], want[name]["out"],
+                               want[name]["out order"])[0]
+            print(f"23(f) rank {r} {name} with a planted fault (its bias "
+                  f"added where the library does not): {share:.4g} of the "
+                  f"outputs apart")
+            check(share > TP_LAYER_APART, f"23(f) rank {r} {name}: the "
+                                          f"planted bias fault went unseen")
 
 
 def start_tp_ranks(world: int, work: str) -> list:
@@ -7203,9 +7530,13 @@ def tp_single(work: str, world: int) -> dict:
     from transformer_tts_tpu_torch.train import trainer as tr
     batch = {k: v.to(DEVICE) for k, v in
              torch.load(os.path.join(work, "batch.pt")).items()}
-    out = {}
+    out, done = {}, {}
     for name, kind, overrides, n, _ in tp_jobs(world):
-        runs = []
+        key = (kind, json.dumps(overrides, sort_keys=True), n)
+        if key in done:             # (c)'s meshes share one process's runs
+            out[name] = done[key]
+            continue
+        runs = done[key] = []
         for _ in range(2 if n > 1 else 1):
             hp, state, step = tp_state(kind, overrides, work)
             init = {k: v.cpu().clone()
@@ -7246,13 +7577,38 @@ def update_share(got: dict, ref: dict, init: dict) -> float:
     return apart / max(total, 1)
 
 
+def tp_apart(name: str, ranks: list, ref: dict, world: int,
+             work: str) -> dict:
+    """The ranks' first step of ``name`` against one process's ``ref``:
+    each logged term's largest relative gap over the ranks, the
+    statistics' moves off (the worst rank, and whether every rank's are
+    equal), the share of the gathered weights' updates apart."""
+    kind = next(k for n, k, *_ in tp_jobs(world) if n == name)
+    moves = [torch.load(os.path.join(work, f"moves {name} {r}.pt"))
+             for r in range(world)]
+    gathered = torch.load(os.path.join(work, f"weights {name} {world}.pt"))
+    check(sorted(gathered) == sorted(ref["weights"]),
+          f"23 {name}: the gathered state's keys are not the model's")
+    init = torch.load(os.path.join(work, f"init_{kind}.pt"))
+    return dict(
+        logs={key: max(rel(r[name]["logs"][0][key], value) for r in ranks)
+              for key, value in ref["logs"][0].items()},
+        moves=max(moves_off(m, ref["moves"]) for m in moves),
+        same=all(torch.equal(moves[0][k], m[k]) for m in moves[1:]
+                 for k in moves[0]),
+        updates=update_share(gathered, ref["weights"], init))
+
+
 def tp_compare(label: str, name: str, kind: str, ranks: list, single: list,
-               world: int, work: str) -> dict:
-    """Check one run of the ranks against one process's (and its control)
-    after the first step: every logged term, the BatchNorm statistics'
-    moves, the weight updates; and the launches of every step; returns
-    the ranks' summed launches."""
+               world: int, work: str, fp32: dict) -> dict:
+    """Check one run of the ranks against one process's after the first
+    step, each within DDP_OF_CONTROL x its same-run control's (one process
+    again) or its TP_* floor (``tp_apart``; the same run's fp32 split
+    step's gaps, ``fp32``, printed beside): every logged term, the
+    BatchNorm statistics' moves, the weight updates; and the launches of
+    every step; returns the ranks' summed launches."""
     ref, control = single
+    got = tp_apart(name, ranks, ref, world, work)
     worst = 0.0
     for i in range(len(ref["logs"])):
         for key, value in sorted(ref["logs"][i].items()):
@@ -7261,42 +7617,35 @@ def tp_compare(label: str, name: str, kind: str, ranks: list, single: list,
                      if kind == "conformer" and key == "grad_norm"
                      else TP_LOG_FLOOR)
             tol = max(DDP_OF_CONTROL * ctl, floor)
-            got = max(rel(r[name]["logs"][i][key], value) for r in ranks)
+            gap = max(rel(r[name]["logs"][i][key], value) for r in ranks)
             if i == 0:
-                worst = max(worst, got / tol)
+                worst = max(worst, gap / tol)
             print(f"{label} step {i + 1} {key}: one process {value:.7g}, "
                   f"control {ctl:.3g}; ranks "
                   f"{[round(r[name]['logs'][i][key], 7) for r in ranks]} "
-                  f"({got:.3g})"
-                  + (f"; allowed {tol:.3g}" if i == 0 else ", not held"))
+                  f"({gap:.3g})"
+                  + (f"; fp32 {fp32['logs'].get(key, 0.0):.3g}, allowed "
+                     f"{tol:.3g}" if i == 0 else ", not held"))
     check(worst <= 1.0, f"{label}: a logged term differs from one "
                         f"process's past its allowance ({worst:.3g})")
-    moves = [torch.load(os.path.join(work, f"moves {name} {r}.pt"))
-             for r in range(world)]
-    same = all(torch.equal(moves[0][k], m[k]) for m in moves[1:]
-               for k in moves[0])
-    allowed = max(DDP_OF_CONTROL * moves_off(control["moves"],
-                                             ref["moves"]),
-                  TP_MOVES_FLOOR[kind])
-    off = max(moves_off(m, ref["moves"]) for m in moves)
+    ctl = moves_off(control["moves"], ref["moves"])
+    allowed = max(DDP_OF_CONTROL * ctl, TP_MOVES_FLOOR[kind])
     print(f"{label} BatchNorm running statistics after the first step "
-          f"({len(ref['moves'])} buffers): equal on every rank {same}; "
-          f"moves off one process's by {off:.3g} of its largest move, "
-          f"allowed {allowed:.3g}")
-    check(same and off <= allowed,
+          f"({len(ref['moves'])} buffers): equal on every rank "
+          f"{got['same']}; moves off one process's by {got['moves']:.3g} "
+          f"of its largest move (control {ctl:.3g}, fp32 "
+          f"{fp32['moves']:.3g}, allowed {allowed:.3g})")
+    check(got["same"] and got["moves"] <= allowed,
           f"{label}: the BatchNorm statistics are not the global batch's")
     init = torch.load(os.path.join(work, f"init_{kind}.pt"))
-    gathered = torch.load(os.path.join(work, f"weights {name} {world}.pt"))
-    check(sorted(gathered) == sorted(ref["weights"]),
-          f"{label}: the gathered state's keys are not the model's")
-    ctl_share = update_share(control["weights"], ref["weights"], init)
-    share = update_share(gathered, ref["weights"], init)
-    allowed = max(DDP_OF_CONTROL * ctl_share, TP_UPDATE_FLOOR[kind])
+    ctl = update_share(control["weights"], ref["weights"], init)
+    allowed = max(DDP_OF_CONTROL * ctl, TP_UPDATE_FLOOR[kind])
     print(f"{label} gathered weights after the first step: "
-          f"{share:.3g} of the elements' updates apart from one process's "
-          f"(control {ctl_share:.3g}, allowed {allowed:.3g})")
-    check(share <= allowed, f"{label}: the gathered updates differ from "
-                            "one process's")
+          f"{got['updates']:.3g} of the elements' updates apart from one "
+          f"process's (control {ctl:.3g}, fp32 {fp32['updates']:.3g}, "
+          f"allowed {allowed:.3g})")
+    check(got["updates"] <= allowed, f"{label}: the gathered updates "
+                                     "differ from one process's")
     summed = {}
     for r, res in enumerate(ranks):
         check(res[name]["per_step"] == ref["per_step"],
@@ -7439,9 +7788,11 @@ def tp_kernel_checks(gen, k_len):
 def phase_tp(gen, smi: str) -> dict:
     """Phase 23: (a) the transformer flagship and (b) the conformer
     flagship on two gloo ranks of model = 2 at full width, each against
-    one process on the same weights and batch; (c) the (data 2, model 2)
-    and (dcn 2, data 2) meshes on four gloo ranks; (d) flash_ab's fwd,
-    bwd and drop modes. Returns the launches of the ranks' main paths."""
+    one process on the same weights and batch; (e) on the same ranks, the
+    AR flagship at LATER_DEPTH split, decoded by the eager loop; (c) the
+    (data 2, model 2) and (dcn 2, data 2) meshes on four gloo ranks; (d)
+    flash_ab's fwd, bwd and drop modes. Returns the launches of the
+    ranks' main paths."""
     from transformer_tts_tpu_torch.cli import flash_ab
     from transformer_tts_tpu_torch.train import trainer as tr
     print(smi)
@@ -7457,13 +7808,22 @@ def phase_tp(gen, smi: str) -> dict:
                    os.path.join(work, f"init_{kind}.pt"))
         del state
     tp_kernel_checks(gen, (batch["pos_mel"] > 0).sum(1))
-    launches = {}
-    for world, label in ((2, "23(a)/(b)"), (4, "23(c)")):
+    launches, fp32_gaps = {}, {}
+    for world, label in ((2, "23(a)/(b)/(e)/(f)"), (4, "23(c)")):
         single = tp_single(work, world)
+        if world == 2:
+            decode = tp_decode_single(gen, work)
+            layers = tp_layers(work)
         t0 = time.perf_counter()
-        ranks = finish_ranks(start_tp_ranks(world, work))
+        ranks = finish_ranks(start_tp_ranks(world, work), echo=world == 2)
         print(f"{label}: {world} gloo ranks on one card, "
               f"{time.perf_counter() - t0:.1f} s with their start")
+        if world == 2:
+            tp_layer_compare(layers, work)
+            tp_decode_compare(decode, ranks, work)
+            fp32_gaps = {kind: tp_apart(f"{kind} fp32", ranks,
+                                        single[f"{kind} fp32"][0], 2, work)
+                         for kind in TP_KINDS}
         for name, kind, overrides, n, spec in tp_jobs(world):
             tag = {"fastspeech2": "23(a)", "conformer": "23(b)"}.get(
                 kind if world == 2 else None, "23(c)")
@@ -7479,9 +7839,15 @@ def phase_tp(gen, smi: str) -> dict:
                               ref["loss_total"]) for r in ranks)
                       <= TP_FP32_RTOL, f"{tag}: the loss is off one "
                                        f"process's past {TP_FP32_RTOL}")
+                fp32 = fp32_gaps[kind]
+                worst = max(fp32["logs"].values())
+                print(f"{tag}: largest term off {worst:.3g}, statistics "
+                      f"off {fp32['moves']:.3g}, updates apart "
+                      f"{fp32['updates']:.3g} (the order of fp32 sums)")
                 continue
             add_launches(launches, tp_compare(tag, name, kind, ranks,
-                                              single[name], world, work))
+                                              single[name], world, work,
+                                              fp32_gaps[kind]))
             if world == 2:
                 one = single[name][0]
                 walls = [round(statistics.median(r[name]["walls"]), 3)

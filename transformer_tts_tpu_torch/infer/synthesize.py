@@ -27,7 +27,11 @@ runs on the CPU, and is the graph's reference on the card. Under bf16
 amp the graph reads bf16 copies of the step's matmul and conv weights
 (``DecodeWeights``), so it replays no cast of them at every step.
 ``ar_segment`` runs a caller's own carry a few steps further, on the same
-graphs (the streaming decode of infer/streaming.ARStream).
+graphs (the streaming decode of infer/streaming.ARStream). A
+tensor-parallel model (parallel/tp.py) decodes through the eager loop
+only, each rank's caches holding its heads: the graphed decode and
+``ar_segment`` on the card refuse it before any capture, since its gloo
+collectives cannot be captured.
 
 The Tacotron 2 decoder (``synthesize_tacotron2``, the port of the JAX
 file's :305-334, and ``tacotron2_decode``) runs its zoneout-LSTM loop the
@@ -248,14 +252,15 @@ def _ar_init(model: TransformerTTS, b: int, max_steps: int,
              device) -> Dict[str, object]:
     """The decode loop's carry: the step (a device scalar), the input
     frame, per-layer (k, v) caches (B, H, max_steps, d_k) in the
-    projections' dtype, the fp32 frame groups, ``done`` and ``length``."""
-    heads = model.n_head_decoder
-    d_k = model.d_model_decoder // heads
+    projections' dtype (H the heads a layer's self-attention computes: a
+    tensor-parallel rank's), the fp32 frame groups, ``done`` and
+    ``length``."""
+    d_k = model.d_model_decoder // model.n_head_decoder
     dtype = model.cache_dtype
     caches = tuple(
-        tuple(torch.zeros(b, heads, max_steps, d_k, dtype=dtype,
-                          device=device) for _ in range(2))
-        for _ in range(model.n_layer_decoder))
+        tuple(torch.zeros(b, layer.attn_1.local_heads, max_steps, d_k,
+                          dtype=dtype, device=device) for _ in range(2))
+        for layer in model.decoder.layers)
     return dict(
         step=torch.zeros((), dtype=torch.long, device=device),
         prev=torch.zeros(b, 1, model.mel_dim, dtype=dtype, device=device),
@@ -554,6 +559,11 @@ def ar_decode_graphed(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
 def _graph(model: TransformerTTS, e_outputs, src_mask, cross_kvs,
            max_steps: int, stop_threshold: float,
            spk_biases=None) -> _ARGraph:
+    if any(getattr(m, "tp", None) is not None for m in model.modules()):
+        raise ValueError(
+            "a tensor-parallel model decodes through the eager loop only: "
+            "its gloo collectives cannot be captured in a CUDA graph; call "
+            "synthesize_transformer_tts(..., eager=True)")
     if e_outputs.device.type != "cuda":
         raise ValueError(f"the graphed decode runs on CUDA tensors, not "
                          f"{e_outputs.device}")

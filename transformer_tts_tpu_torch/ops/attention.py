@@ -26,9 +26,10 @@ precomputed K/V and causal dispatch, and the conformer's
 * under tensor parallelism (parallel/tp.py sets ``tp``) a module holds a
   slice of the heads: it reads their number from the width of its
   projections, passes the kernels its first head and the model's head
-  count (the dropout hash's batch-heads), enters the projections through
-  ``tp.enter`` and sums ``out``'s partial products over the group, and
-  its masked path keeps its heads' slice of the whole dropout mask; maps
+  count (the dropout hash's batch-heads), takes its projections as
+  column-split products (``tp.column``) and ``out`` as a row-split one
+  (``tp.row``, its partial products summed over the group), and its
+  masked path keeps its heads' slice of the whole dropout mask; maps
   asked for are gathered over the group, every head's on each rank.
 """
 
@@ -132,11 +133,17 @@ class MultiHeadAttention(nn.Module):
         """(B, T, H_local * d_k) -> (B, H_local, T, d_k)."""
         return _split_heads(x, self.d_model // self.heads).transpose(1, 2)
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this module computes: all of them, or a
+        tensor-parallel rank's."""
+        return self.k_linear.weight.shape[0] // (self.d_model // self.heads)
+
     def project_kv(self, k_in: torch.Tensor, v_in: torch.Tensor):
         """(k, v) head tensors (B, H, T, d_k): the cross-attention K/V that
         the AR decode loop computes once."""
-        return self._heads(self.k_linear(k_in)), self._heads(
-            self.v_linear(v_in))
+        k, v = _project(self, (self.k_linear, k_in), (self.v_linear, v_in))
+        return self._heads(k), self._heads(v)
 
     def forward(self, q_in, k_in, v_in, mask=None, *,
                 collect_attn: bool = False,
@@ -159,13 +166,14 @@ class MultiHeadAttention(nn.Module):
         index. ``precomputed_kv`` replaces the k/v projections.
         """
         tp = self.tp
-        q_proj, k_in, v_in = (q_in, k_in, v_in) if tp is None else \
-            tp.enter(q_in, k_in, v_in)
-        q = self._heads(self.q_linear(q_proj))
         if precomputed_kv is not None:
+            q, = _project(self, (self.q_linear, q_in))
             k, v = precomputed_kv
         else:
-            k, v = self.project_kv(k_in, v_in)
+            q, k, v = _project(self, (self.q_linear, q_in),
+                               (self.k_linear, k_in), (self.v_linear, v_in))
+            k, v = self._heads(k), self._heads(v)
+        q = self._heads(q)
         if cache is not None:
             if cache_index is None:
                 raise ValueError("a cache needs cache_index")
@@ -243,12 +251,10 @@ class RelativeMultiHeadAttention(nn.Module):
         path's dropout, as in ``MultiHeadAttention``. Returns (output (B,
         T_q, d_model), probs or None)."""
         tp = self.tp
-        if tp is not None:
-            q_in, k_in, v_in, pos_emb = tp.enter(q_in, k_in, v_in, pos_emb)
-        q = self._split(self.q_linear(q_in))
-        k = self._split(self.k_linear(k_in)).transpose(1, 2)
-        v = self._split(self.v_linear(v_in)).transpose(1, 2)
-        p = self._split(self.linear_pos(pos_emb)).transpose(1, 2)
+        q, k, v, p = (self._split(t) for t in _project(
+            self, (self.q_linear, q_in), (self.k_linear, k_in),
+            (self.v_linear, v_in), (self.linear_pos, pos_emb)))
+        k, v, p = k.transpose(1, 2), v.transpose(1, 2), p.transpose(1, 2)
         # the biases take q's dtype, so under autocast q_u and q_v stay
         # bf16 beside k and v, as in the JAX package
         q_u = (q + self.pos_bias_u.to(q.dtype)).transpose(1, 2)
@@ -293,6 +299,16 @@ def _merge_heads(context: torch.Tensor) -> torch.Tensor:
     return context.transpose(1, 2).reshape(b, -1, n * d_k)
 
 
+def _project(module: nn.Module, *pairs) -> list:
+    """``linear(x)`` for each (linear, x) pair; under tensor parallelism
+    the column-split products of the module's heads, their inputs'
+    gradients summed over the group in one all-reduce."""
+    if module.tp is None:
+        return [linear(x) for linear, x in pairs]
+    return module.tp.column(F.linear, [(x, linear.weight, linear.bias)
+                                       for linear, x in pairs])
+
+
 def _head_args(module: nn.Module, q: torch.Tensor) -> dict:
     """The kernels' dropout-hash heads: this rank's first head and the
     model's head count under tensor parallelism, else none."""
@@ -322,11 +338,8 @@ def _row_out(module: nn.Module, concat: torch.Tensor,
              q_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out`` of a tensor-parallel rank's heads: its context columns'
     product summed over the group, then (``concat_after``) the ``q_in``
-    columns' product and the bias, added once."""
+    columns' product and the bias, rounded once (``tp.row``)."""
     w = module.out.weight
     front = w.shape[1] - concat.shape[-1]
-    extra = None
-    if front:
-        extra = F.linear(q_in.to(concat.dtype), w[:, :front])
-    return module.tp.reduce(F.linear(concat, w[:, front:]), module.out.bias,
-                            extra)
+    return module.tp.row(F.linear, concat, w[:, front:], module.out.bias,
+                         (q_in, w[:, :front]) if front else None)

@@ -25,17 +25,20 @@ variance moves towards the unbiased variance, and it refuses CPU tensors.
 recompute runs the forward a second time).
 
 Under tensor parallelism (parallel/tp.py sets ``tp``) a feed-forward block
-holds a slice of its hidden channels: its input enters through
-``tp.enter``, the second product's partial sums are summed over the group
-before its bias is added, and the conformer block's hidden dropout keeps
-the slice of the whole mask.
+holds a slice of its hidden channels: its first product is column-split
+(``tp.column``), its second row-split (``tp.row``: the partial products
+summed over the group before the bias is added), and the conformer
+block's hidden dropout keeps the slice of the whole mask. Under autocast
+on the card a convolution's bias is added to its rounded product, as
+cuDNN's convolution adds it (``Conv1dBTC.bias_apart``); on the CPU
+oneDNN's convolution and every GEMM add it before the one rounding.
 """
 
 from __future__ import annotations
 
 import warnings
 from contextlib import contextmanager
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -147,14 +150,25 @@ class Conv1dBTC(nn.Conv1d):
                          padding=left if left == right else 0)
         self.pad = None if left == right else (left, right)
 
-    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
-        """The convolution; with ``bias=False`` without the bias (a
-        tensor-parallel rank's partial sum)."""
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.weight, self.bias)
+
+    def conv(self, x: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """This layer's convolution of ``x`` with the given ``weight`` and
+        ``bias`` (a tensor-parallel rank's slices)."""
         x = x.transpose(1, 2)
         if self.pad is not None:
             x = F.pad(x, self.pad)
-        return self._conv_forward(x, self.weight,
-                                  self.bias if bias else None).transpose(1, 2)
+        return self._conv_forward(x, weight, bias).transpose(1, 2)
+
+    @staticmethod
+    def bias_apart(x: torch.Tensor) -> bool:
+        """Whether torch's convolution of ``x`` under autocast adds the bias
+        to the rounded product (cuDNN's, on the card) rather than before
+        its one rounding (oneDNN's, on the CPU): a tensor-parallel rank's
+        split product rounds as this layer does."""
+        return x.is_cuda
 
 
 class ConvFeedForward(nn.Module):
@@ -168,13 +182,18 @@ class ConvFeedForward(nn.Module):
         self.tp = None          # parallel/tp.py, once the channels are split
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.tp is None:
-            h = self.f_2(torch.relu(self.f_1(x)))
-        else:
-            h = self.tp.reduce(
-                self.f_2(torch.relu(self.f_1(self.tp.enter(x))), bias=False),
-                self.f_2.bias)
-        return self.layer_norm(self.dropout(h + x))
+        return self.layer_norm(self.dropout(self.inner(x) + x))
+
+    def inner(self, x: torch.Tensor) -> torch.Tensor:
+        """The two convolutions, without the residual and the norm."""
+        tp = self.tp
+        if tp is None:
+            return self.f_2(torch.relu(self.f_1(x)))
+        apart = self.f_1.bias_apart(x)
+        h, = tp.column(self.f_1.conv, [(x, self.f_1.weight, self.f_1.bias)],
+                       bias_apart=apart)
+        return tp.row(self.f_2.conv, torch.relu(h), self.f_2.weight,
+                      self.f_2.bias, bias_apart=apart)
 
 
 class ConformerFeedForward(nn.Module):
@@ -192,10 +211,12 @@ class ConformerFeedForward(nn.Module):
             x = self.linear1(x)
             x = self.dropout(x * torch.sigmoid(x))
             return self.dropout(self.linear2(x))
-        x = self.linear1(self.tp.enter(x))
-        x = self.tp.dropout(self.dropout, x * torch.sigmoid(x), -1)
-        return self.dropout(self.tp.reduce(F.linear(x, self.linear2.weight),
-                                           self.linear2.bias))
+        tp = self.tp
+        x, = tp.column(F.linear, [(x, self.linear1.weight,
+                                   self.linear1.bias)])
+        x = tp.dropout(self.dropout, x * torch.sigmoid(x), -1)
+        return self.dropout(tp.row(F.linear, x, self.linear2.weight,
+                                   self.linear2.bias))
 
 
 class DepthwiseConv(nn.Module):

@@ -20,13 +20,25 @@ weights' slices, and rank r of n holds
   ``ConformerFeedForward`` the same of ``linear1`` and ``linear2``;
 * everything else whole (replicated).
 
-A split block's input passes through ``copy_to_group`` (identity
-forward, all-reduce of the gradient backward) and its row-split output
-through ``reduce_from_group`` (all-reduce forward in fp32, identity
-backward), after which the output's bias and, under ``concat_after``, the
+A block's column-split products (``TensorParallel.column``: q/k/v,
+``linear_pos``, ``f_1``, ``linear1``) take their inputs through
+``copy_to_group`` (identity forward, one all-reduce of the inputs'
+gradients backward), a row-split one
+(``TensorParallel.row``: ``out``, ``f_2``, ``linear2``) sums its partial
+products through ``reduce_from_group`` (all-reduce forward in fp32,
+identity backward) before its bias and, under ``concat_after``, the
 ``q_in`` term are added on every rank. So every replicated activation and
 every replicated parameter's gradient is the same on each rank of the
-group, and equal to the unsharded model's. The attention kernels run on a
+group, and equal to the unsharded model's. Under autocast both take
+their products in fp32 over the values autocast multiplies (bf16 values,
+whose products fp32 holds exactly; on the card in TF32, which holds
+bf16 values exactly too) and round them where one process's
+layer rounds them: a row-split output once, after the fp32 sum over the
+group, and a column-split layer's input gradient once, after its own
+fp32 sum over the group, before autograd adds the q, k and v layers'
+gradients; every other product's contraction is whole on each rank and
+is rounded once, as one process's is. So the split step differs from one
+process's only by the order of fp32 sums. The attention kernels run on a
 rank's H/n heads with ``head_offset`` r H/n and ``heads_total`` H, so
 their in-kernel dropout hashes the unsharded model's batch-heads; the
 masked path's and the conformer FFN's plain dropouts draw torch's mask for
@@ -42,6 +54,7 @@ a whole checkpoint into a sharded model.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -50,6 +63,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.graph import get_gradient_edge
 
 
 @dataclass(frozen=True)
@@ -65,15 +79,21 @@ class Shard:
 
 class _CopyToGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, group, *xs):
         ctx.group = group
-        return x.view_as(x)
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+    def backward(ctx, *grads):
+        live = [g for g in grads if g is not None]
+        if live:
+            flat = torch.cat([g.reshape(-1) for g in live])
+            dist.all_reduce(flat, group=ctx.group)
+            parts = iter(flat.split([g.numel() for g in live]))
+            grads = tuple(None if g is None else next(parts).view_as(g)
+                          for g in grads)
+        return (None,) + tuple(grads)
 
 
 class _ReduceFromGroup(torch.autograd.Function):
@@ -104,9 +124,13 @@ class _GatherFromGroup(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
-def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` unchanged; its gradient summed over ``group``'s ranks."""
-    return _CopyToGroup.apply(x, group)
+def copy_to_group(xs, group) -> list:
+    """The tensors ``xs`` unchanged; the gradients of those that require
+    one summed over ``group``'s ranks in one all-reduce (a tensor given
+    twice passes once, its gradients added before the sum)."""
+    unique = {id(x): x for x in xs if x.requires_grad}
+    copied = dict(zip(unique, _CopyToGroup.apply(group, *unique.values())))
+    return [copied.get(id(x), x) for x in xs]
 
 
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
@@ -115,40 +139,138 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromGroup.apply(x, group)
 
 
+def _amp_dtype(x: torch.Tensor) -> Optional[torch.dtype]:
+    """The dtype autocast takes products in on ``x``'s device, or None
+    outside autocast."""
+    device = x.device.type
+    if not torch.is_autocast_enabled(device):
+        return None
+    return torch.get_autocast_dtype(device)
+
+
+def _operand(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` as the fp32 tensor of the values autocast multiplies (None:
+    ``x``). Its gradient is rounded to ``dtype`` once on the way back, as
+    the gradient of autocast's cast is."""
+    return x if dtype is None else x.to(dtype).float()
+
+
+@contextmanager
+def _tf32(on: bool):
+    """cuBLAS and cuDNN take fp32 products in TF32 while ``on``."""
+    if not on:
+        yield
+        return
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
+class _Product(torch.autograd.Function):
+    """``op(x, weight, None)`` of fp32 tensors that hold bf16 values, its
+    forward and backward in TF32 on the card. TF32 holds a bf16 value
+    exactly, so the tensor cores take the exact products and fp32 sums
+    that an fp32 product takes. The op's own graph is kept by its
+    gradient edge (not its output) and differentiated in the backward."""
+
+    @staticmethod
+    def forward(ctx, op, x, weight):
+        need = ctx.needs_input_grad[1:]
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip((x, weight), need)]
+        with torch.enable_grad(), _tf32(x.is_cuda):
+            y = op(*leaves, None)
+        ctx.graph = (get_gradient_edge(y), leaves) if any(need) else None
+        return y.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        edge, leaves = ctx.graph
+        with _tf32(grad.is_cuda):
+            grads = iter(torch.autograd.grad(
+                [edge], [t for t in leaves if t.requires_grad], [grad]))
+        return (None,) + tuple(next(grads) if t.requires_grad else None
+                               for t in leaves)
+
+
+def _product(op, x: torch.Tensor, weight: torch.Tensor,
+             dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``op(x, weight, None)``; under autocast (``dtype``) in fp32 over the
+    values autocast multiplies (``_Product``)."""
+    if dtype is None:
+        return op(x, weight, None)
+    return _Product.apply(op, _operand(x, dtype), _operand(weight, dtype))
+
+
+def _rounded(product: torch.Tensor, bias: Optional[torch.Tensor],
+             dtype: torch.dtype, apart: bool) -> torch.Tensor:
+    """An fp32 ``product`` plus ``bias`` in ``dtype``, rounded where the
+    library's layer rounds them: once, the bias (in ``dtype``) added in
+    fp32 (cuBLAS's and oneDNN's GEMMs and oneDNN's convolution), or with
+    ``apart`` the product first and then its sum with the bias (cuDNN's
+    convolution adds its bias to the rounded output)."""
+    if bias is None:
+        return product.to(dtype)
+    bias = bias.to(dtype)
+    if apart:
+        return product.to(dtype) + bias
+    return (product + bias.float()).to(dtype)
+
+
 class TensorParallel:
     """A rank's place in the ``model`` group, held by every split module
     as ``module.tp`` (None when unsplit): its rank, the group's size and
-    the collectives the modules call."""
+    the split products and collectives the modules call."""
 
     def __init__(self, group):
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
 
-    def enter(self, *xs):
-        """The inputs of a column-split block, each through
-        ``copy_to_group`` once (the same tensor given twice is one
-        input); None passes."""
-        seen: Dict[int, torch.Tensor] = {}
-        out = []
-        for x in xs:
-            if x is not None and id(x) not in seen:
-                seen[id(x)] = copy_to_group(x, self.group)
-            out.append(None if x is None else seen[id(x)])
-        return out[0] if len(out) == 1 else out
+    def column(self, op, layers, *, bias_apart: bool = False) -> list:
+        """``op(x, weight, bias)`` for each (x, weight, bias) of a block's
+        column-split layers: this rank's slice of each output, whose
+        contraction is whole, and each ``x``'s gradient, this rank's part
+        of a contraction over the group's slices, summed over the group
+        (``copy_to_group``: one all-reduce for the block). Under autocast
+        each product is taken in fp32 over the values autocast multiplies
+        and rounded as one process's layer rounds it (``_rounded``), and
+        each layer's input gradient is summed over the group in fp32 before
+        its one rounding, the layer's own; the weights' and biases'
+        gradients are rounded once."""
+        dtype = _amp_dtype(layers[0][0])
+        xs = copy_to_group([_operand(x, dtype) for x, _, _ in layers],
+                           self.group)
+        if dtype is None:
+            return [op(x, w, b) for x, (_, w, b) in zip(xs, layers)]
+        with torch.autocast(xs[0].device.type, enabled=False):
+            return [_rounded(_Product.apply(op, x, _operand(w, dtype)), b,
+                             dtype, bias_apart)
+                    for x, (_, w, b) in zip(xs, layers)]
 
-    def reduce(self, partial: torch.Tensor,
-               bias: Optional[torch.Tensor] = None,
-               extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """A row-split output: the ranks' partial sums summed in fp32, then
-        ``extra`` (a replicated term) and the bias added, rounded once to
-        the partial's dtype."""
-        total = reduce_from_group(partial, self.group)
-        if extra is not None:
-            total = total + extra.float()
-        if bias is not None:
-            total = total + bias.float()
-        return total.to(partial.dtype)
+    def row(self, op, x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor] = None, front=None, *,
+            bias_apart: bool = False) -> torch.Tensor:
+        """``op(x, weight) + bias`` of a row-split layer, ``x`` and
+        ``weight``'s inputs this rank's slice: the ranks' partial products
+        summed over the group in fp32, then ``front`` (an (input, weight)
+        pair every rank holds whole: the ``concat_after`` query columns
+        of the same contraction) added in fp32, then the bias, rounded as
+        one process's layer rounds its whole contraction (``_rounded``).
+        Under autocast the products are taken in fp32 over the values
+        autocast multiplies; their gradients, whose contractions are whole
+        on each rank, are rounded once."""
+        dtype = _amp_dtype(x)
+        with torch.autocast(x.device.type, enabled=False):
+            total = reduce_from_group(_product(op, x, weight, dtype),
+                                      self.group)
+            if front is not None:
+                total = total + _product(op, *front, dtype)
+            return _rounded(total, bias, dtype or x.dtype, bias_apart)
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The ranks' slices of a tensor split along ``dim``, whole on
