@@ -458,6 +458,26 @@ and each printing its wall time:
        than TP_LAYER_APART apart.
    The launches of the ranks' main paths (a)-(c) are added to the
    kernels line's.
+24. the learning demonstration, started before the CLIs of 4-22 (after
+   14), run beside them and phases 15-23 (whose timings share the card
+   and the host with it), joined after 23 and before 7: the recipe
+   transformer_tts_tpu_torch/egs/synthetic_overfit.py --family conformer
+   at its defaults through the port's CLIs (cli/train,
+   cli/average_checkpoints, cli/synthesize) on the card, in a process of
+   its own with every launch count from 0 (start_learning,
+   phase_learning): the conformer at the flagship width, 400 epochs of
+   its 64-utterance synthetic corpus (3200 steps at bucket 384, bf16 amp:
+   the decoder's relative attention on K4-d-90 and K5-90, K4-90 in
+   synthesis), the last ten epochs averaged, synthesis from predicted
+   durations. It reaches mel-L1 < 0.05 or a > 20x collapse against its
+   untrained baseline, and its K4-d-90 and K5-90 launches are at least
+   the steps x the decoder's 6 layers; it prints the baseline's and the
+   trained model's mel-L1 and MCD, the collapse, the loss curve's tail,
+   the steps, the wall seconds and steps/s. The launches are added to the
+   kernels line's. The FastSpeech 2 run of the same recipe is not run
+   here: at its default seed it misses the bar on the card (PERF.md,
+   "Learning demonstrations"), and a run that is not held proves
+   nothing.
 
 It then prints the phases' wall times, the engine calls' launch counts,
 the kernels line (JSON), the nvidia-smi line, and last ``{"ok": true,
@@ -466,6 +486,7 @@ the kernels line (JSON), the nvidia-smi line, and last ``{"ok": true,
 
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -746,7 +767,8 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 def kernel_bound_ms(kid, tensors, k_len) -> tuple:
     """K1: 4*H*T_q*sum_b(k_len[b])*d operations, q, k, v, o moved once;
     K4: 6*H*T*sum_b(k_len[b])*d operations (q_u.K^T, q_v.P^T, P.V), q_u,
-    q_v, k, v, o and p moved once; both also lse and k_len."""
+    q_v, k, v, o and p moved once (no o32: nothing takes a gradient
+    here); both also lse and k_len."""
     relpos = kid.startswith("K4")
     q, k = tensors[0], tensors[2 if relpos else 1]
     b, h, t_q, d = q.shape
@@ -845,6 +867,10 @@ DROPOUT_SEED = -123456789       # an int32 whose uint32 bits wrap
 # fp32: products in FMAs, sums in another order; bf16: dS and P keep
 # rounded to bf16 before their products, as the TPU kernels do
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# o32, the relative forward's fp32 output for delta, against the plain
+# version over the unrounded probabilities: P's two bf16 parts hold it to
+# ~2^-17 of max|ref| in bf16; o widened from bf16 misses by ~2^-9
+O32_REL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -13}
 
 
 def max_err(got, ref) -> tuple:
@@ -1038,13 +1064,16 @@ def check_relpos_train_kernels(q_u, q_v, k, v, p, do, k_len, rate,
     """K4 (rate 0) or K4-d and K5 on (q_u, q_v, k, v, p, do) against their
     plain versions in fp32 on the same inputs, on the design
     ``flash_relpos_attention`` picks for the mode, or with
-    ``design="simple"`` on the simple kernels (the A/B's baseline): the
-    launches must have gone to that design's kernels (the forward twice,
-    each backward kernel once); O, dq_u, dq_v, dk, dv and dp each within
-    REL_TOL of its own max|ref|, lse within TOLS' absolute limit; dk and
-    dv exactly 0 for keys at or past k_len; O bit for bit the same on a
-    second call with the same seed. Returns ({name: max abs err}, {name:
-    max|ref|}, o). Launch counts are left as they were."""
+    ``design="simple"`` on the simple kernels (the A/B's baseline), as
+    training runs them: the forward op with its fp32 output o32, the
+    backward's delta from o32. The launches must have gone to that
+    design's kernels (the forward twice, each backward kernel once); O,
+    dq_u, dq_v, dk, dv and dp each within REL_TOL of its own max|ref|,
+    o32 within O32_REL of its own (a widened bf16 O misses it), lse
+    within TOLS' absolute limit; dk and dv exactly 0 for keys at or past
+    k_len; O and o32 bit for bit the same on a second call with the same
+    seed. Returns ({name: max abs err}, {name: max|ref|}, o). Launch
+    counts are left as they were."""
     from transformer_tts_tpu_torch.ops import flash_relpos as fr
     chosen = design or fr._design(q_u, q_v, k, v, p, (do,))
     fwd, bwd_ids = relpos_kernel_ids(chosen, rate)
@@ -1052,13 +1081,13 @@ def check_relpos_train_kernels(q_u, q_v, k, v, p, do, k_len, rate,
     counts = read_counts()
     sm_scale = q_u.shape[-1] ** -0.5
     kw = dict(dropout_rate=rate, dropout_seed=seed)
-    call = (partial(simple_flash_relpos_attention, sm_scale=sm_scale)
-            if design == "simple" else fr.flash_relpos_attention)
+    op = partial(fr._relpos_fwd_op, q_u, q_v, k, v, p, k_len, sm_scale,
+                 float(rate), int(seed), design or "auto", 0, 0, True)
     with torch.no_grad():
-        o, lse = call(q_u, q_v, k, v, p, k_len, **kw)
-        o_again, _ = call(q_u, q_v, k, v, p, k_len, **kw)
-        grads = fr.flash_relpos_attention_bwd(q_u, q_v, k, v, p, o, lse, do,
-                                              k_len, sm_scale=sm_scale,
+        o, lse, o32 = op()
+        o_again, _, o32_again = op()
+        grads = fr.flash_relpos_attention_bwd(q_u, q_v, k, v, p, o32, lse,
+                                              do, k_len, sm_scale=sm_scale,
                                               design=design, **kw)
         torch.cuda.synchronize()
         moved = {kid: n - counts[kid] for kid, n in read_counts().items()
@@ -1067,21 +1096,24 @@ def check_relpos_train_kernels(q_u, q_v, k, v, p, do, k_len, rate,
         check(moved == want, f"{fwd}/{bwd}{label}: launches {moved}, not "
                              f"{want}")
         f = [x.float() for x in (q_u, q_v, k, v, p)]
-        ro, rlse = fr.flash_relpos_attention_fwd_reference(
-            *f, k_len, sm_scale, rate, seed)
+        ro, rlse, ro32 = fr.flash_relpos_attention_fwd_reference(
+            *f, k_len, sm_scale, rate, seed, with_fp32=True)
         ref = fr.flash_relpos_attention_bwd_reference(
-            *f, o.float(), lse, do.float(), k_len, sm_scale, rate, seed)
+            *f, o32, lse, do.float(), k_len, sm_scale, rate, seed)
     set_counts(counts)
-    check(torch.equal(o, o_again), f"{fwd}{label}: another O on a second "
-                                   f"call with the same seed")
+    check(torch.equal(o, o_again) and torch.equal(o32, o32_again),
+          f"{fwd}{label}: another O or o32 on a second call with the same "
+          f"seed")
     empty = k_len == 0
-    check(bool((o[empty] == 0).all()), f"{fwd}{label}: a row with no valid "
-                                       f"key is not 0")
+    check(bool((o[empty] == 0).all()) and bool((o32[empty] == 0).all()),
+          f"{fwd}{label}: a row with no valid key is not 0")
     errs, peaks = {}, {}
     errs["o"], peaks["o"] = max_err(o[~empty], ro[~empty])
+    errs["o32"], peaks["o32"] = max_err(o32[~empty], ro32[~empty])
     errs["lse"], peaks["lse"] = max_err(lse[~empty], rlse[~empty])
     rel = REL_TOL[q_u.dtype]
-    check(errs["o"] <= rel * peaks["o"] and errs["lse"] <= TOLS[q_u.dtype][1],
+    check(errs["o"] <= rel * peaks["o"] and errs["lse"] <= TOLS[q_u.dtype][1]
+          and errs["o32"] <= O32_REL[q_u.dtype] * peaks["o32"],
           f"{fwd}{label} disagrees with its plain version: {errs} against "
           f"max|ref| {peaks}")
     for name, got, want in zip(RELPOS_GRADS, grads, ref):
@@ -3258,9 +3290,15 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
             q_u, q_v, k, v, p, do, k_len, rate, seed,
             f" (train step input, {design})",
             design=None if design == "sm90" else "simple")
-    check(torch.equal(checked["sm90"][2], o), "K4-d-90 gave another O on "
-                                              "the same input and seed "
-                                              "than in the train step")
+    # the step's backward took the forward op's o32 (delta's fp32 output):
+    # the op again on the same input and seed gives it bit for bit
+    with torch.no_grad():
+        again = fr._relpos_fwd_op(q_u, q_v, k, v, p, k_len,
+                                  q_u.shape[-1] ** -0.5, rate, seed, "auto")
+    check(torch.equal(checked["sm90"][2], again[0])
+          and torch.equal(again[2], o),
+          "K4-d-90 gave another O on the same input and seed than in the "
+          "train step")
     sm_scale = q_u.shape[-1] ** -0.5
     b, h, t, d = q_u.shape
     pairs = attended_pairs(t, k_len, False)
@@ -3270,8 +3308,8 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
     bias = relpos_bias(q_v, p, k_len, sm_scale)
     kw = dict(sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed)
     fwd_bound = bound_ms(6 * h * pairs * d,
-                         5 * plane + p.numel() * el + b * h * t * 4,
-                         q_u.dtype)
+                         5 * plane + p.numel() * el + b * h * t * 4
+                         + q_u.numel() * 4, q_u.dtype)          # o32
     pair_bound = bound_ms(16 * h * pairs * d,
                           in_bytes + 4 * plane + p.numel() * el, q_u.dtype)
     res = {}
@@ -3286,10 +3324,11 @@ def relpos_train_kernel_timings(fwd_inputs, bwd_inputs) -> dict:
                 ("K4-d", "simple", partial(simple_flash_relpos_attention,
                                            sm_scale=sm_scale))):
             errs, peaks, _ = checked[design]
+            # as the train step runs it: o32 written for the backward
             res[kid] = {
-                "ms": time_ms(lambda: call(q_u, q_v, k, v, p, k_len,
-                                           dropout_rate=rate,
-                                           dropout_seed=seed)),
+                "ms": time_ms(lambda: fr._relpos_fwd_op(
+                    q_u, q_v, k, v, p, k_len, sm_scale, rate, seed, design,
+                    0, 0, True)),
                 "plain_ms": plain_fwd, "library_ms": library_fwd,
                 "max_abs_err": errs["o"], "max_abs_ref": peaks["o"]}
             res[kid]["bound_ms"], res[kid]["bound_by"] = fwd_bound
@@ -5735,14 +5774,22 @@ def opcheck_ops(gen) -> int:
         args = (*(x.requires_grad_() for x in xs[:4]), p.requires_grad_(),
                 k_len, d ** -0.5, 0.1, DROPOUT_SEED, "auto")
         torch.library.opcheck(fr._relpos_fwd_op, args)
-        o, lse = (x.detach() for x in fr._relpos_fwd_op(*args))
+        o, lse, _ = (x.detach() for x in fr._relpos_fwd_op(*args))
         plain = [x.detach() for x in (*xs[:4], p)]
+        # without o32 (synthesis): no gradient, the same o and lse
+        torch.library.opcheck(fr._relpos_fwd_op,
+                              (*plain, *args[5:], 0, 0, False))
+        no32 = fr._relpos_fwd_op(*plain, *args[5:], 0, 0, False)
+        check(no32[2].numel() == 0 and torch.equal(no32[0], o)
+              and torch.equal(no32[1], lse),
+              "tts_port::relpos_fwd without o32 gave another o or lse, or "
+              "an o32")
         delta = fr.bwd_delta(o, xs[4])
         for kernel in kernels:
             torch.library.opcheck(fr._relpos_bwd_op, (
                 *plain, xs[4], lse, delta, k_len, d ** -0.5, 0.1,
                 DROPOUT_SEED, kernel), test_utils=BWD_OPCHECKS)
-        n += 1 + len(kernels)
+        n += 2 + len(kernels)
     set_counts(saved)
     return n
 
@@ -7887,6 +7934,101 @@ def phase_tp(gen, smi: str) -> dict:
     return launches
 
 
+LEARN_RUNS = {"conformer": ("--family", "conformer")}
+LEARN_FLAGS = ()                # the recipe's defaults: 400 epochs
+LEARN_KERNELS = {"conformer": ("K4-d-90", "K5-90")}
+LEARN_LAYERS = 6                # the decoder's layers, each one launch a step
+LEARN_TIMEOUT = 1000            # seconds from their start to their end
+LEARN_RUN = """
+import json, sys
+import chip_smoke as cs
+from transformer_tts_tpu_torch.egs import synthetic_overfit
+cs.set_counts({})
+try:
+    synthetic_overfit.main(sys.argv[1:])
+    missed = None
+except AssertionError as err:   # the bar, raised after the summary's line
+    missed = str(err)
+print(json.dumps({"missed": missed, "launches": cs.read_counts()}))
+"""
+
+
+def start_learning(work: str) -> dict:
+    """24, started: synthetic_overfit's runs of LEARN_RUNS, each in a
+    process of its own (its output under ``work``, one intra-op thread:
+    the recipes are host-bound), beside the phases that follow until
+    ``phase_learning`` joins them; stopped at exit if still running."""
+    os.makedirs(work, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {}
+    for name, flags in LEARN_RUNS.items():
+        argv = ["--workdir", os.path.join(work, name), "--device", DEVICE,
+                *flags, *LEARN_FLAGS]
+        log = open(os.path.join(work, f"{name}.log"), "w")
+        procs[name] = (time.perf_counter(), log, subprocess.Popen(
+            [sys.executable, "-c", LEARN_RUN, *argv], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, text=True, env=env))
+    atexit.register(stop_learning, procs)
+    print("24 started: " + ", ".join(procs), flush=True)
+    return procs
+
+
+def stop_learning(procs: dict):
+    for _, log, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def phase_learning(procs: dict) -> dict:
+    """24: the runs ``start_learning`` began, joined; their summaries,
+    their bars, the kernels' launches. -> the launches summed."""
+    from transformer_tts_tpu_torch.egs.synthetic_overfit import learned
+    total = {}
+    try:
+        for name, (t0, log, proc) in procs.items():
+            proc.wait(timeout=max(1.0, LEARN_TIMEOUT
+                                  - (time.perf_counter() - t0)))
+            wall = time.perf_counter() - t0
+            log.close()
+            with open(log.name) as fh:
+                lines = fh.read().strip().splitlines()
+            check(proc.returncode == 0, f"24 {name}: exit {proc.returncode}"
+                  f" after {wall:.1f} s: " + "\n".join(lines[-12:]))
+            res = json.loads(lines[-1])
+            summary = json.loads([ln for ln in lines
+                                  if ln.startswith('{"baseline_mel_l1"')][-1])
+            launches, steps = res["launches"], summary["steps"]
+            reached = learned(summary["trained_mel_l1"],
+                              summary["baseline_mel_l1"], tiny=False)
+            print(f"24 {name}: {summary['epochs']} epochs, {steps} steps in "
+                  f"{summary['train_seconds']} s of training "
+                  f"({summary['steps_per_sec']} steps/s), {wall:.1f} s of "
+                  f"recipe beside phases 15-23; mel-L1 "
+                  f"{summary['baseline_mel_l1']} untrained -> "
+                  f"{summary['trained_mel_l1']} trained "
+                  f"({summary['mel_l1_collapse_x']}x), MCD "
+                  f"{summary['baseline_mcd']} -> {summary['trained_mcd']} "
+                  f"dB; bar (mel-L1 < 0.05 or > 20x) "
+                  f"{'reached' if reached else 'missed'}; loss "
+                  f"curve's tail {json.dumps(summary['loss_curve'][-3:])}")
+            check(reached == (res["missed"] is None),
+                  f"24 {name}: the recipe's verdict {res['missed']!r} is "
+                  f"not the bar's")
+            check(reached, f"24 {name} did not learn: {summary}")
+            ran = {kid: n for kid, n in launches.items() if n}
+            print(f"24 {name} launches: {json.dumps(ran)}")
+            for kid in LEARN_KERNELS.get(name, ()):
+                check(launches[kid] >= steps * LEARN_LAYERS,
+                      f"24 {name}: {kid} launched {launches[kid]} times "
+                      f"in {steps} steps of {LEARN_LAYERS} layers")
+            add_launches(total, ran)
+    finally:
+        stop_learning(procs)
+    return total
+
+
 def worst_err(errs: dict, peaks: dict, names) -> dict:
     """The error of the entry's worst output among ``names``, the one
     with the largest err / max|ref|: its max abs error, its own max|ref|
@@ -8051,6 +8193,9 @@ def main():
     phase_train_cli(torch.Generator().manual_seed(19), "tacotron2")
     prepare_multihost_cli()
     prepare_post_clis(torch.Generator().manual_seed(22))
+    # 24's recipes, host-bound for ~10 minutes, run beside the CLIs and
+    # phases 15-23 (whose timings they share the card and host with)
+    learning = start_learning(os.path.join(WORK, "learning"))
     with phase("CLIs of 4, 5, 6, 14, 15, 16, 19, 21 and 22"):
         sq_outs = phase_clis(sq_clis, vocoder_clis)
     with phase("SQ-VAE FastSpeech 2"):
@@ -8103,6 +8248,11 @@ def main():
     print("phase 23 launches, each main path counted from 0, summed: "
           + json.dumps(tp_launches))
     add_launches(cond_launches, tp_launches)
+    with phase("learning demonstrations (the wait for 24)"):
+        learn_launches = phase_learning(learning)
+    print("phase 24 launches, each main path counted from 0, summed: "
+          + json.dumps(learn_launches))
+    add_launches(cond_launches, learn_launches)
 
     lines = []
     with phase("kernels at their main paths' inputs"):

@@ -56,7 +56,7 @@ from transformer_tts_tpu_torch.train.trainer import (
     TrainState, _guided_attention_loss, init_transformer_state,
     make_transformer_train_step)
 
-from torch_port_pair import AR, SMALL, build_ar_pair, to_np
+from torch_port_pair import AR, SMALL, build_ar_pair, settled_update, to_np
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -629,7 +629,7 @@ def test_train_step_matches_jax(monkeypatch):
         # where g is rounding noise around 0 (key biases, biases before a
         # BatchNorm) it is any value in [-lr, lr] in either package
         new, ref = p.detach().numpy(), jnew[name].numpy()
-        settled = np.abs(want) > 1e-7
+        settled = settled_update(p.grad.numpy(), want, lr)
         np.testing.assert_allclose(new[settled], ref[settled], rtol=1e-5,
                                    atol=1e-6, err_msg=name)
         moved = np.abs(new - old[name].numpy())

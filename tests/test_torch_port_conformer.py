@@ -62,7 +62,7 @@ from transformer_tts_tpu_torch.train.trainer import (
 
 from test_torch_port_train import (
     _corpus, _jax_grads, _train_batch, _write_hp)
-from torch_port_pair import CONFORMER, SMALL, build_pair, to_np
+from torch_port_pair import CONFORMER, SMALL, build_pair, settled_update, to_np
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -201,13 +201,23 @@ def _rows(x, row0, n):
     return out
 
 
-def _kernel_tiling(qu, qv, k, v, p, k_len, sm_scale, bq, bk):
+def _bf16(x):
+    """x rounded to bf16's values, in float64."""
+    return torch.as_tensor(x).bfloat16().double().numpy()
+
+
+def _kernel_tiling(qu, qv, k, v, p, k_len, sm_scale, bq, bk,
+                   split_p=False):
     """numpy float64 emulation of csrc/flash_relpos_fwd.cu: q tiles of
     bq rows, k tiles of bk keys, the bias of each tile from one P window
     per branch read along the skew, branches and k tiles skipped by the
-    kernel's rules, online softmax."""
+    kernel's rules, online softmax. ``split_p``: the bf16 kernel with an
+    o32, P cast to bf16 (hi) before P.V for o and its lo part, bf16(P -
+    hi), through a second P.V into an accumulator of its own; also
+    returns o32 = (acc + acc_lo) / l."""
     b, h, t, d = qu.shape
     o = np.zeros(qu.shape)
+    o32 = np.zeros(qu.shape)
     lse = np.zeros((b, h, t))
     r = np.arange(bq)[:, None]
     c = np.arange(bk)[None, :]
@@ -220,6 +230,7 @@ def _kernel_tiling(qu, qv, k, v, p, k_len, sm_scale, bq, bk):
                 m = np.full(bq, -1e30)
                 l = np.zeros(bq)
                 acc = np.zeros((bq, d))
+                acc_lo = np.zeros((bq, d))
                 for k0 in range(0, klen, bk):
                     s = tqu @ _rows(k[bi, hi], k0, bk).T
                     rel = (k0 + c) - (q0 + r)
@@ -239,13 +250,22 @@ def _kernel_tiling(qu, qv, k, v, p, k_len, sm_scale, bq, bk):
                     pr = np.where(valid, np.exp(s - m_new[:, None]), 0.0)
                     alpha = np.exp(m - m_new)
                     l = alpha * l + pr.sum(1)
-                    acc = alpha[:, None] * acc + pr @ _rows(v[bi, hi], k0,
-                                                            bk)
+                    vt = _rows(v[bi, hi], k0, bk)
+                    if split_p:
+                        hi_p = _bf16(pr)
+                        acc_lo = (alpha[:, None] * acc_lo
+                                  + _bf16(pr - hi_p) @ vt)
+                        pr = hi_p
+                    acc = alpha[:, None] * acc + pr @ vt
                     m = m_new
                 safe_l = np.where(l > 0, l, 1.0)
                 n = min(bq, t - q0)
                 o[bi, hi, q0:q0 + n] = (acc / safe_l[:, None])[:n]
+                o32[bi, hi, q0:q0 + n] = ((acc + acc_lo)
+                                          / safe_l[:, None])[:n]
                 lse[bi, hi, q0:q0 + n] = (m + np.log(safe_l))[:n]
+    if split_p:
+        return o, lse, o32
     return o, lse
 
 
@@ -262,6 +282,21 @@ def test_kernel_tiling_matches_plain_version(t, k_len, block):
         *(torch.as_tensor(a) for a in (qu, qv, k, v, p, kl)), sm_scale)
     np.testing.assert_allclose(o, ro.numpy(), **KERNEL_TOL)
     np.testing.assert_allclose(lse, rlse.numpy(), **KERNEL_TOL)
+
+
+def test_kernel_tiling_gives_o32_over_both_parts_of_p():
+    # the bf16 kernel's o32 (the backward's delta) within ~2^-16 of the
+    # output over the unrounded P, where o, P cast once, is ~2^-9 off
+    qu, qv, k, v, p, kl = _relpos_inputs(100, [100, 37], d=8, seed=5)
+    xs = [_bf16(a) for a in (qu, qv, k, v, p)]
+    sm_scale = 8 ** -0.5
+    o, _, o32 = _kernel_tiling(*xs, kl, sm_scale, 16, 16, split_p=True)
+    _, _, ro32 = flash_relpos_attention_fwd_reference(
+        *(torch.as_tensor(a).bfloat16() for a in xs), torch.as_tensor(kl),
+        sm_scale, with_fp32=True)
+    peak = ro32.abs().max().item()
+    assert np.abs(o32 - ro32.numpy()).max() <= 2 ** -14 * peak
+    assert np.abs(o - ro32.numpy()).max() > 2 ** -12 * peak
 
 
 def test_wrapper_on_cpu_takes_plain_version_and_launches_nothing():
@@ -658,7 +693,7 @@ def test_conformer_train_step_matches_jax(monkeypatch):
         # Adam's first step on gradients that are rounding noise (key
         # biases, conv biases before a BatchNorm) is any value in [-lr, lr]
         new, ref = p.detach().numpy(), jnew[name].numpy()
-        settled = np.abs(want) > 1e-7
+        settled = settled_update(p.grad.numpy(), want, lr)
         np.testing.assert_allclose(new[settled], ref[settled], rtol=1e-5,
                                    atol=1e-6, err_msg=name)
         moved = np.abs(new - old[name].numpy())

@@ -71,7 +71,8 @@ from transformer_tts_tpu_torch.train.trainer import (
     TrainState, init_transformer_state, make_fastspeech2_train_step,
     make_sq_fastspeech2_train_step, make_transformer_train_step)
 
-from torch_port_pair import AR, SMALL, _random_params, build_pair, to_np
+from torch_port_pair import (
+    AR, SMALL, _random_params, build_pair, settled_update, to_np)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -122,7 +123,7 @@ def _assert_step_matches(model, jgrads, jnew, old, clip, lr):
                                        atol=1e-4 * scale + 1e-8,
                                        err_msg=name)
         new, ref = p.detach().numpy(), jnew[name].numpy()
-        settled = np.abs(want) > 1e-7
+        settled = settled_update(p.grad.numpy(), want, lr)
         np.testing.assert_allclose(new[settled], ref[settled], rtol=1e-5,
                                    atol=1e-6, err_msg=name)
         moved = np.abs(new - old[name].numpy())

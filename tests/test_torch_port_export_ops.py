@@ -79,12 +79,29 @@ def test_relpos_ops_pass_opcheck(rate):
     grads = [x.clone().requires_grad_() for x in (q_u, q_v, k, v, p)]
     args = (*grads, k_len, SCALE, rate, SEED, "auto")
     torch.library.opcheck(fr._relpos_fwd_op, args)
-    o, lse = fr._relpos_fwd_op(*args)
+    o, lse, _ = fr._relpos_fwd_op(*args)
     delta = fr.bwd_delta(o.detach(), do)
     for kernel in BWD_KERNELS:
         torch.library.opcheck(fr._relpos_bwd_op,
                               (q_u, q_v, k, v, p, do, lse, delta, k_len,
                                SCALE, rate, SEED, kernel))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_relpos_op_without_o32_passes_opcheck_and_keeps_o(rate):
+    q_u, q_v, k, v, p, k_len, _ = _relpos_inputs()
+    args = (q_u, q_v, k, v, p, k_len, SCALE, rate, SEED, "auto", 0, 0)
+    torch.library.opcheck(fr._relpos_fwd_op, (*args, False))
+    o, lse, o32 = fr._relpos_fwd_op(*args, False)
+    want = fr._relpos_fwd_op(*args, True)
+    assert o32.numel() == 0
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+    # the wrapper asks for o32 only where autograd keeps it
+    with torch.no_grad():
+        got = fr.flash_relpos_attention(q_u, q_v, k, v, p, k_len,
+                                        sm_scale=SCALE, dropout_rate=rate,
+                                        dropout_seed=SEED)
+    assert all(torch.equal(x, y) for x, y in zip(got, want[:2]))
 
 
 @pytest.mark.parametrize("mode", sorted(FLASH_MODES))

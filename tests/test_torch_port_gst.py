@@ -44,7 +44,8 @@ from transformer_tts_tpu_torch.train import schedule
 from transformer_tts_tpu_torch.train.trainer import (
     TrainState, make_transformer_train_step)
 
-from torch_port_pair import AR, SMALL, _random_params, build_ar_pair, to_np
+from torch_port_pair import (
+    AR, SMALL, _random_params, build_ar_pair, settled_update, to_np)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -375,6 +376,8 @@ def test_gst_train_step_matches_jax(monkeypatch):
         np.testing.assert_allclose(float(logs[key]), float(value),
                                    rtol=1e-5, err_msg=key)
     clip = min(1.0, 1.0 / float(jlogs["grad_norm"]))
+    lr = schedule.noam_schedule(hp.d_model_decoder, hp.warmup_factor,
+                                warmup)(0)
     style = [n for n, _ in model.named_parameters()
              if n.startswith("style_embedding.")]
     assert len(style) == 6 + 12 + 4 + 1 + 8     # conv, BN, GRU, tokens, MHA
@@ -386,9 +389,12 @@ def test_gst_train_step_matches_jax(monkeypatch):
         np.testing.assert_allclose(p.grad.numpy(), want, rtol=0,
                                    atol=1e-4 * scale + 1e-8, err_msg=name)
         new, ref = p.detach().numpy(), jnew[name].numpy()
-        settled = np.abs(want) > 1e-7
+        settled = settled_update(p.grad.numpy(), want, lr)
         np.testing.assert_allclose(new[settled], ref[settled], rtol=1e-5,
                                    atol=1e-6, err_msg=name)
+        moved = np.abs(new - old[name].numpy())
+        ulp = np.spacing(np.abs(old[name].numpy()))
+        assert np.all(moved <= lr * 1.0001 + 2 * ulp), name
     for name, value in model.state_dict().items():
         if "running" in name:
             np.testing.assert_allclose(value.numpy(), jnew[name].numpy(),

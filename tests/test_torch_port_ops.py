@@ -280,7 +280,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "ops/melspectrogram.py", "ops/features.py",
                    "vocoder/generator.py", "vocoder/discriminator.py",
                    "vocoder/trainer.py", "cli/prepare_data.py",
-                   "cli/train_vocoder.py", "compat/torch_import.py"):
+                   "cli/train_vocoder.py", "compat/torch_import.py",
+                   "egs/synthetic_overfit.py", "egs/full_pipeline.py"):
         assert f"transformer_tts_tpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imported_roots(f)

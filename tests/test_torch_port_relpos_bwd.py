@@ -269,3 +269,55 @@ def test_kernel_tiling_with_a_window_off_by_one_row_fails(offset):
     dq_v, dp = _kernel_tiling(ds, q_v, p, kl, 32, 64, window_offset=offset)
     assert not np.allclose(dq_v, want_dqv, rtol=0, atol=1e-3)
     assert not np.allclose(dp, want_dp, rtol=0, atol=1e-3)
+
+
+def _bf16_case():
+    """bf16 inputs with sharp attention (|s| ~ 600) and keys that share a
+    large mean: the regime that the conformer's bf16 training reached."""
+    g = torch.Generator().manual_seed(3)
+    b, h, t, d = 2, 2, 64, 32
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    mean_k = rnd(d, scale=20.0)
+    xs = [rnd(b, h, t, d, scale=10.0), rnd(b, h, t, d, scale=10.0),
+          rnd(b, h, t, d) + mean_k, rnd(b, h, t, d), rnd(h, t, d)]
+    return ([x.bfloat16() for x in xs], rnd(b, h, t, d, scale=1e-3).bfloat16(),
+            torch.tensor([t, 50], dtype=torch.int32), d ** -0.5)
+
+
+def test_bf16_backward_keeps_the_softmax_invariance_of_the_masked_path():
+    """dS = P (dP - delta) sums to 0 over a row only if delta is sum_j P dP:
+    the forward op's fp32 o (P.V over the unrounded P) gives the masked
+    path's gradients, where delta from a bf16 o (the TPU kernel's rounding)
+    turns dq_u and the keys' summed gradient (a direction softmax gives
+    none) away from them."""
+    from transformer_tts_tpu_torch.ops.attention import relative_dot_attention
+    xs, do, k_len, sm = _bf16_case()
+    leaves = [x.clone().requires_grad_() for x in xs]
+    o, _ = fr.flash_relpos_attention(*leaves, k_len, sm_scale=sm)
+    assert o.dtype == torch.bfloat16
+    new = torch.autograd.grad((o.float() * do.float()).sum(), leaves)
+    o_b, lse_b = fr.flash_relpos_attention_fwd_reference(*xs, k_len, sm)
+    old = fr.flash_relpos_attention_bwd(*xs, o_b, lse_b, do, k_len,
+                                        sm_scale=sm)
+    masked = [x.clone().requires_grad_() for x in xs]
+    t = xs[0].shape[2]
+    mask = torch.arange(t)[None, None, :] < k_len[:, None, None]
+    ctx, _ = relative_dot_attention(*masked[:4], masked[4][None], mask)
+    want = torch.autograd.grad((ctx.float() * do.float()).sum(), masked)
+
+    def cos(a, b):
+        a, b = a.float(), b.float()
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    assert cos(new[0], want[0]) > 0.999          # dq_u
+    assert cos(old[0], want[0]) < 0.995
+    valid = (torch.arange(t)[None, :] < k_len[:, None])[:, None, :, None]
+
+    def summed(dk):                               # sum over the valid keys
+        return float((dk.float() * valid).sum(2).norm() / dk.float().norm())
+
+    assert summed(new[2]) < 0.5 * summed(old[2])
+    assert summed(new[2]) < 2 * summed(want[2])

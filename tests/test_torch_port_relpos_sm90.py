@@ -98,7 +98,7 @@ def bwd_slice_start(k0, t, n):
 
 
 def emulate_forward(q_u, q_v, k, v, p, k_len, sm_scale, rate=0.0, seed=0,
-                    window_shift=0):
+                    window_shift=0, with_fp32=False):
     """flash_relpos_fwd_sm90.cu's schedule in torch fp32: per (128-row
     block, bh) two warpgroups of 64 rows; on key tile kt warpgroup w reads
     slices kt + lam + h (lam = 1 - w) of E for the halves h of its window,
@@ -106,11 +106,14 @@ def emulate_forward(q_u, q_v, k, v, p, k_len, sm_scale, rate=0.0, seed=0,
     q0w + 64h > 0), else with Q_v; S = Q_u K^T + A[r][c - r + 63]; the
     online softmax in log2 units, P (times keep) cast to v's dtype before
     P V, the row sum before dropout. ``window_shift`` moves every window
-    by that many rows (a wrong kernel)."""
+    by that many rows (a wrong kernel). ``with_fp32`` also returns o32:
+    the lo part of P (P - bf16(P), cast again) through a second P V into
+    an accumulator of its own, (acc + acc_lo) / l in fp32."""
     b, h, t, d = q_u.shape
     e = fr.position_table(p).float()
     q_vs = _shifted(q_v)
     o = torch.zeros(b, h, t, d)
+    o32 = torch.zeros(b, h, t, d)
     lse = torch.full((b, h, t), NEG_INF)
     scale_log2 = sm_scale * LOG2E
     cols0 = torch.arange(TILE)
@@ -130,6 +133,7 @@ def emulate_forward(q_u, q_v, k, v, p, k_len, sm_scale, rate=0.0, seed=0,
                     m = torch.full((TILE,), NEG_INF)
                     l = torch.zeros(TILE)
                     acc = torch.zeros(TILE, d)
+                    acc_lo = torch.zeros(TILE, d)
                     for kt in range(-(-klen // TILE)):
                         k0 = kt * TILE
                         halves = []
@@ -153,17 +157,24 @@ def emulate_forward(q_u, q_v, k, v, p, k_len, sm_scale, rate=0.0, seed=0,
                         l = l * alpha + pr.sum(dim=1)
                         if rate > 0.0:
                             pr = pr * _keep(seed, bh, rows, cols, rate)
-                        acc = acc * alpha[:, None] + (
-                            pr.to(v.dtype).float() @ vt)
+                        p_hi = pr.to(v.dtype).float()
+                        acc = acc * alpha[:, None] + p_hi @ vt
+                        acc_lo = acc_lo * alpha[:, None] + (
+                            (pr - p_hi).to(v.dtype).float() @ vt)
                         m = m_new
                     n = min(TILE, t - r0)
                     safe = torch.where(l > 0, l, torch.ones(()))
                     o[bi, hi, r0:r0 + n] = torch.where(
                         (l > 0)[:, None], acc / safe[:, None],
                         torch.zeros(()))[:n]
+                    o32[bi, hi, r0:r0 + n] = torch.where(
+                        (l > 0)[:, None], (acc + acc_lo) / safe[:, None],
+                        torch.zeros(()))[:n]
                     lse[bi, hi, r0:r0 + n] = torch.where(
                         l > 0, (m + torch.log2(safe)) / LOG2E,
                         torch.tensor(NEG_INF))[:n]
+    if with_fp32:
+        return o.to(q_u.dtype), lse, o32
     return o.to(q_u.dtype), lse
 
 
@@ -363,6 +374,26 @@ def test_forward_schedule_casts_p_before_pv():
         *(x.float() for x in xs), kl, 16 ** -0.5)
     err = (o.float() - ro).abs().max().item()
     assert 0 < err <= 2e-2 * ro.abs().max().item()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_forward_schedule_gives_o32_over_both_parts_of_p(rate):
+    # o32 (delta's output) within ~2^-16 of the unrounded P's output, where
+    # o, P cast once as the TPU kernel does, is ~2^-9 off; o unchanged
+    inputs, _ = _data(96, b=1, h=2, seed=4)
+    xs = [torch.as_tensor(x).bfloat16() for x in inputs]
+    kl = torch.tensor([90], dtype=torch.int32)
+    o, lse, o32 = emulate_forward(*xs, kl, 16 ** -0.5, rate, seed=-77,
+                                  with_fp32=True)
+    ro, _, ro32 = fr.flash_relpos_attention_fwd_reference(
+        *xs, kl, 16 ** -0.5, rate, -77, with_fp32=True)
+    assert o32.dtype == torch.float32 and ro32.dtype == torch.float32
+    peak = ro32.abs().max().item()
+    err = (o32 - ro32).abs().max().item()
+    assert err <= 2 ** -14 * peak
+    assert err * 16 < (o.float() - ro32).abs().max().item()
+    assert torch.equal(o, emulate_forward(*xs, kl, 16 ** -0.5, rate,
+                                          seed=-77)[0])
 
 
 # ---- the fused backward's schedule ----------------------------------------
@@ -653,7 +684,8 @@ def test_the_conformer_mode_takes_the_hopper_design():
 
 @pytest.mark.parametrize("name,getter", [
     ("flash_relpos_fwd_sm90", "_sm90_fwd"),
-    ("flash_relpos_bwd_sm90", "_sm90_bwd")])
+    ("flash_relpos_bwd_sm90", "_sm90_bwd"),
+    ("flash_relpos_fwd", "_kernel")])
 def test_entry_point_argtypes_match_the_c_signature(name, getter,
                                                     monkeypatch):
     monkeypatch.setattr(cuda_build, "load", lambda n: _FakeLib(n))

@@ -60,7 +60,7 @@ from transformer_tts_tpu_torch.train.trainer import (
     TrainState, init_transformer_state, make_transformer_train_step)
 
 from test_torch_port_quantize import SMALL_LEAF, _assert_same_as_jax
-from torch_port_pair import AR, SMALL, build_ar_pair, to_np
+from torch_port_pair import AR, SMALL, build_ar_pair, settled_update, to_np
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -394,7 +394,7 @@ def test_train_step_matches_jax(no_zoneout):
                                        atol=1e-4 * scale + 1e-8,
                                        err_msg=name)
         new, ref = p.detach().numpy(), jnew[name].numpy()
-        settled = np.abs(want) > 1e-7
+        settled = settled_update(p.grad.numpy(), want, lr)
         np.testing.assert_allclose(new[settled], ref[settled], rtol=1e-5,
                                    atol=1e-6, err_msg=name)
         moved = np.abs(new - old[name].numpy())

@@ -50,7 +50,7 @@ from transformer_tts_tpu_torch.train.trainer import (
     TrainState, init_fastspeech2_state, init_transformer_state,
     make_fastspeech2_train_step, make_transformer_train_step)
 
-from torch_port_pair import SMALL, build_pair, to_np
+from torch_port_pair import SMALL, build_pair, settled_update, to_np
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -446,7 +446,7 @@ def test_train_step_matches_jax(monkeypatch):
         # where g is rounding noise around 0 (key biases, biases before a
         # BatchNorm) it is any value in [-lr, lr] in either package
         new, ref = p.detach().numpy(), jnew[name].numpy()
-        settled = np.abs(want) > 1e-7
+        settled = settled_update(p.grad.numpy(), want, lr)
         np.testing.assert_allclose(new[settled], ref[settled], rtol=1e-5,
                                    atol=1e-6, err_msg=name)
         moved = np.abs(new - old[name].numpy())

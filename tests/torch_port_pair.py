@@ -152,6 +152,26 @@ def to_np(x):
     return np.asarray(x, np.float32)
 
 
+NOAM_EPS = 1e-9             # Adam's eps under the Noam schedule, both packages
+UPDATE_ATOL = 1e-6          # the train-step tests' bound on an update
+
+
+def settled_update(got, want, lr):
+    """The elements of one parameter whose first Adam update the train-step
+    tests hold the two packages to UPDATE_ATOL on. The update is
+    lr * g / (|g| + eps), whose slope lr * eps / (|g| + eps)^2 is steep
+    where |g| is small, so an element counts only where the JAX gradient
+    ``want`` is well above its disagreement with the port's ``got`` (past
+    1e-7 and 10x that disagreement) and the disagreement moves the update
+    by at most half of it. Elsewhere the update is any value in
+    [-lr, lr] in either package, which the tests bound apart."""
+    diff = np.abs(got - want)
+    least = np.maximum(np.abs(want) - diff, 0.0)
+    return ((np.abs(want) > np.maximum(1e-7, 10 * diff))
+            & (lr * NOAM_EPS * diff / (least + NOAM_EPS) ** 2
+               <= UPDATE_ATOL / 2))
+
+
 def write_engine_checkpoints(root, cfg, variables, model, *, stats_seed=None):
     """The same weights as a JAX checkpoint (the JAX package's
     ``save_checkpoint``, epoch 1, under ``root/jax``) and a port one

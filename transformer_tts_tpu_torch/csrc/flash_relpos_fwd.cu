@@ -9,6 +9,7 @@
 // What it computes, per batch-head bh = b*H + h and query row i < T:
 //   s[j]   = (q_u[i] . k[j] + bd[i, j]) * sm_scale   for keys j < k_len[b]
 //   o[i]   = sum_j softmax(s)[j] * v[j]               (input dtype)
+//   o32[i] = the same in fp32, when asked for (the training forward's)
 //   lse[i] = max_j s[j] + log(sum_j exp(s[j] - max))  (fp32)
 // where bd = rel_shift(q_v P^T) with P = p[h] (T, d), shared over the
 // batch. rel_shift gives, for each (i, j) (flash_relpos.py:17-23):
@@ -23,6 +24,13 @@
 // normaliser sums the probabilities before dropout; only the numerator's
 // probability tile is dropped, after the row sum and before P.V. With
 // dropout off the kernel takes K4's code path unchanged.
+//
+// o32 is for the backward's delta = rowsum(dO * o32) (flash_relpos_bwd.cu;
+// flash_relpos_fwd_sm90.cu says why a delta from the bf16 o fails bf16
+// training). In bf16 the probability tile goes into it as two bf16 parts,
+// hi = bf16(P), the tile o is taken from, and lo = bf16(P - hi), whose
+// product goes into an accumulator of its own; in fp32 it is o. A null
+// o32 skips both.
 //
 // Bound on the card: 6*H*T*sum_b(k_len[b])*d operations (q_u.K^T, the bias
 // product and P.V over the valid keys) against q_u, q_v, k, v, o and P
@@ -59,6 +67,7 @@ using flash::from_float;
 using flash::hash_head;
 using flash::keep_bit;
 using flash::round_up;
+using flash::to_float;
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per k tile
@@ -75,11 +84,14 @@ constexpr float NEG_INF = -1e30f;
 //   ld_a : row stride of the fp32 bias product A (BQ x WP)
 //   ld_p : row stride of the probability tile (elements of T), kept in
 //          the A buffer once the bias is added
-//   ld_o : row stride of the fp32 accumulator
+//   ld_o : row stride of the fp32 accumulators
+// With `lo` (bf16 and o32) the lo probability tile follows the hi one in
+// the A buffer and o32's lo accumulator follows the statistics.
 template <typename T> struct Geom {
   int dp, ld_in, ld_s, ld_a, ld_p, ld_o;
-  size_t off_qv, off_kp, off_v, off_s, off_a, off_o, off_stats, bytes;
-  __host__ __device__ explicit Geom(int d) {
+  size_t off_qv, off_kp, off_v, off_s, off_a, off_plo, off_o, off_stats,
+      off_o32, bytes;
+  __host__ __device__ Geom(int d, bool lo) {
     const bool wmma = sizeof(T) == 2;
     dp = wmma ? round_up(d, 16) : d;
     ld_in = wmma ? round_up(dp + 8, 16) : d + 1;
@@ -94,9 +106,11 @@ template <typename T> struct Geom {
     off_v = off_kp + round_up(WP * ld_in * sz, 128);
     off_s = off_v + round_up(BK * ld_in * sz, 128);
     off_a = off_s + round_up(BQ * ld_s * 4, 128);
+    off_plo = off_a + round_up(BQ * ld_p * sz, 128);
     off_o = off_a + round_up(BQ * ld_a * 4, 128);
     off_stats = off_o + round_up(BQ * ld_o * 4, 128);
-    bytes = off_stats + 3 * BQ * 4;
+    off_o32 = off_stats + round_up(3 * BQ * 4, 128);
+    bytes = lo ? off_o32 + BQ * ld_o * 4 : off_stats + 3 * BQ * 4;
   }
 };
 
@@ -230,12 +244,14 @@ __global__ void __launch_bounds__(NTHREADS)
 relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
                   const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ p, const int32_t* __restrict__ k_len,
-                  T* __restrict__ o, float* __restrict__ lse, int H,
+                  T* __restrict__ o, float* __restrict__ o32,
+                  float* __restrict__ lse, int H,
                   int T_len, int d, float sm_scale, int dropout,
                   uint32_t threshold, float keep_scale, uint32_t seed,
                   int head_offset, int heads_total) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Geom<T> g(d);
+  const bool lo = sizeof(T) == 2 && o32 != nullptr;
+  const Geom<T> g(d, lo);
   T* sQu = reinterpret_cast<T*>(smem);
   T* sQv = reinterpret_cast<T*>(smem + g.off_qv);
   T* sKP = reinterpret_cast<T*>(smem + g.off_kp);   // K tile, then P window
@@ -243,7 +259,9 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
   float* sS = reinterpret_cast<float*>(smem + g.off_s);
   float* sA = reinterpret_cast<float*>(smem + g.off_a);
   T* sP = reinterpret_cast<T*>(smem + g.off_a);     // after the bias is used
+  T* sPlo = reinterpret_cast<T*>(smem + g.off_plo);
   float* sO = reinterpret_cast<float*>(smem + g.off_o);
+  float* sO32 = reinterpret_cast<float*>(smem + g.off_o32);
   float* sM = reinterpret_cast<float*>(smem + g.off_stats);
   float* sL = sM + BQ;
   float* sAlpha = sL + BQ;
@@ -267,6 +285,7 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
   for (int idx = tid; idx < BQ * d; idx += NTHREADS) {
     const int r = idx / d, c = idx - r * d;
     sO[r * g.ld_o + c] = 0.f;
+    if (lo) sO32[r * g.ld_o + c] = 0.f;
   }
   if (tid < BQ) {
     sM[tid] = NEG_INF;
@@ -322,17 +341,20 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
       const float m_new = fmaxf(m_prev, tmax);
       float sum = 0.f;
       T* prow = sP + srow * g.ld_p + shalf * 32;
+      T* plo_row = sPlo + srow * g.ld_p + shalf * 32;
       for (int c = 0; c < 32; ++c) {
         const float s = srow_s[c] * sm_scale;
         const float pr = (cbase + c < klen) ? expf(s - m_new) : 0.f;
         sum += pr;
+        float val = pr;
         if (dropout) {
           const bool kept = keep_bit(seed, hbh, (uint32_t)(q0 + srow),
                                      (uint32_t)(cbase + c), threshold);
-          prow[c] = from_float<T>(kept ? pr * keep_scale : 0.f);
-        } else {
-          prow[c] = from_float<T>(pr);
+          val = kept ? pr * keep_scale : 0.f;
         }
+        const T hi = from_float<T>(val);
+        prow[c] = hi;
+        if (lo) plo_row[c] = from_float<T>(val - to_float<T>(hi));
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       const float alpha = expf(m_prev - m_new);
@@ -352,6 +374,16 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
       const int r = idx / d, c = idx - r * d;
       sO[r * g.ld_o + c] = sAlpha[r] * sO[r * g.ld_o + c] + sS[r * g.ld_s + c];
     }
+    if (lo) {
+      __syncthreads();  // readers of sS are done
+      Products<T>::pv(sPlo, sV, sS, g, d);
+      __syncthreads();
+      for (int idx = tid; idx < BQ * d; idx += NTHREADS) {
+        const int r = idx / d, c = idx - r * d;
+        sO32[r * g.ld_o + c] =
+            sAlpha[r] * sO32[r * g.ld_o + c] + sS[r * g.ld_s + c];
+      }
+    }
   }
   __syncthreads();
 
@@ -362,6 +394,9 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
       const float l = sL[r];
       const float safe_l = l > 0.f ? l : 1.f;
       ob[(size_t)(q0 + r) * d + c] = from_float<T>(sO[r * g.ld_o + c] / safe_l);
+      if (o32)
+        o32[bh * plane + (size_t)(q0 + r) * d + c] =
+            (sO[r * g.ld_o + c] + (lo ? sO32[r * g.ld_o + c] : 0.f)) / safe_l;
     }
   }
   if (tid < BQ && q0 + tid < T_len) {
@@ -373,11 +408,11 @@ relpos_fwd_kernel(const T* __restrict__ q_u, const T* __restrict__ q_v,
 
 template <typename T>
 int launch(const void* q_u, const void* q_v, const void* k, const void* v,
-           const void* p, const int32_t* k_len, void* o, float* lse, int B,
-           int H, int T_len, int d, float sm_scale, int dropout,
-           uint32_t threshold, float keep_scale, uint32_t seed,
+           const void* p, const int32_t* k_len, void* o, float* o32,
+           float* lse, int B, int H, int T_len, int d, float sm_scale,
+           int dropout, uint32_t threshold, float keep_scale, uint32_t seed,
            int head_offset, int heads_total, cudaStream_t stream) {
-  const Geom<T> g(d);
+  const Geom<T> g(d, sizeof(T) == 2 && o32 != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       relpos_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)g.bytes);
@@ -386,8 +421,8 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
   relpos_fwd_kernel<T><<<grid, NTHREADS, g.bytes, stream>>>(
       static_cast<const T*>(q_u), static_cast<const T*>(q_v),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(p), k_len, static_cast<T*>(o), lse, H, T_len, d,
-      sm_scale, dropout, threshold, keep_scale, seed, head_offset,
+      static_cast<const T*>(p), k_len, static_cast<T*>(o), o32, lse, H,
+      T_len, d, sm_scale, dropout, threshold, keep_scale, seed, head_offset,
       heads_total);
   return (int)cudaGetLastError();
 }
@@ -397,7 +432,8 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q_u, q_v, k, v, o (B,H,T,d), p (H,T,d),
-// lse (B,H,T) fp32, k_len (B,) int32, all contiguous on the device.
+// o32 (B,H,T,d) fp32 or null (not written), lse (B,H,T) fp32, k_len (B,)
+// int32, all contiguous on the device.
 // dropout != 0 turns on the keep mask (K4-d) with `threshold`
 // (int(rate * 2^32)), `keep_scale` (1/(1 - rate) in fp32) and `seed` (the
 // int32 seed's bits), and the hash's `head_offset` and `heads_total`, as
@@ -407,23 +443,25 @@ extern "C" {
 // with the error of cudaFuncSetAttribute.
 int flash_relpos_fwd(const void* q_u, const void* q_v, const void* k,
                      const void* v, const void* p, const void* k_len, void* o,
-                     void* lse, int B, int H, int T_len, int d, float sm_scale,
-                     int dropout, unsigned int threshold, float keep_scale,
-                     unsigned int seed, int head_offset, int heads_total,
+                     void* o32, void* lse, int B, int H, int T_len, int d,
+                     float sm_scale, int dropout, unsigned int threshold,
+                     float keep_scale, unsigned int seed, int head_offset, int heads_total,
                      int dtype, void* stream) {
   if (d <= 0 || d > 128 || d % 8 != 0 || T_len <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto kl = static_cast<const int32_t*>(k_len);
   auto l = static_cast<float*>(lse);
+  auto o2 = static_cast<float*>(o32);
   if (dtype == 0)
-    return launch<float>(q_u, q_v, k, v, p, kl, o, l, B, H, T_len, d,
+    return launch<float>(q_u, q_v, k, v, p, kl, o, o2, l, B, H, T_len, d,
                          sm_scale, dropout, threshold, keep_scale, seed,
                          head_offset, heads_total, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q_u, q_v, k, v, p, kl, o, l, B, H, T_len, d,
-                                 sm_scale, dropout, threshold, keep_scale,
-                                 seed, head_offset, heads_total, s);
+    return launch<__nv_bfloat16>(q_u, q_v, k, v, p, kl, o, o2, l, B, H,
+                                 T_len, d, sm_scale, dropout, threshold,
+                                 keep_scale, seed, head_offset, heads_total,
+                                 s);
   return (int)cudaErrorInvalidValue;
 }
 

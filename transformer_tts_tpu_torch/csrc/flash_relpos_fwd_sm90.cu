@@ -12,6 +12,8 @@
 // and query row i < T:
 //   s[j]   = (q_u[i] . k[j] + bd[i, j]) * sm_scale   for keys j < k_len[b]
 //   o[i]   = sum_j softmax(s)[j] * keep(i, j) * v[j]  (bf16)
+//   o32[i] = the same in fp32 over the unrounded probabilities (when
+//            asked for: the training forward's)
 //   lse[i] = max_j s[j] + log(sum_j exp(s[j] - max))  (fp32)
 // with bd = rel_shift(q_v P^T), P = p[h]. Put m = j - i + T - 1 and
 // E = [P; 0; P], an (H, 2T+1, d) table the wrapper builds once per call:
@@ -20,17 +22,30 @@
 // and E[T] = 0 gives the j = i+1 zero (flash_relpos.py:17-23). A row with
 // no valid key gives o = 0 and lse = -1e30; keep is `keep_bit`
 // (flash_common.cuh), the normaliser sums before dropout, and P times the
-// keep scale is cast to bf16 before P.V, as the TPU kernel does.
+// keep scale is cast to bf16 before P.V, as the TPU kernel does. o32 is
+// for the backward's delta = rowsum(dO * o32) (flash_relpos_bwd_sm90.cu):
+// P goes into it as two bf16 parts, hi = bf16(P) and lo = bf16(P - hi),
+// the lo product into an accumulator of its own. A delta from the bf16 o
+// misses sum_j P dP by ~2^-9 of |dO||o|, so dS = P (dP - delta) no longer
+// sums to 0 over a row; that adds a term along K's mean to dq_u and along
+// q_u's to dK's sum over the keys, directions softmax gives no gradient,
+// which Adam moves by lr a step all the same, and the conformer's bf16
+// training diverged (its logits grew until the backward's recomputed P
+// broke, by step ~400 on egs/synthetic_overfit.py's corpus). o32 holds
+// delta to ~2^-16, and o stays bit for bit the TPU kernel's rounding.
+// With a null o32 (no gradient to take: synthesis, eval) the FP32 = false
+// instance skips the lo part, its product and the fp32 write.
 // Deterministic: a second call on the same inputs and seed gives the same
 // bits.
 //
 // Bound on the card: 6*H*T*sum_b(k_len[b])*d operations (q_u.K^T, the bias
 // product and P.V over the valid keys) against q_u, q_v, k, v, o and P
 // moved once: the tensor cores bound it at the conformer's shapes. The
-// design does 8 units of work per tile where the function needs 6: the
+// design does 10 units of work per tile where the function needs 6: the
 // window of E a 64 x 64 tile needs is 127 rows, so the bias product is 64
-// x 128. The simple kernel (one 4-warp WMMA block per SM, S, the bias
-// product and O through shared memory) ran at 1/113 of the bound.
+// x 128, and with o32 P.V is taken twice, for its lo part. The simple
+// kernel (one 4-warp WMMA block per SM, S, the bias product and O through
+// shared memory) ran at 1/113 of the bound.
 //
 // Design (flash_fwd_sm90.cu's shape, with the same helpers,
 // flash_sm90.cuh):
@@ -71,7 +86,9 @@
 //     trip; 64 x 64 fp32 = 16 KB of it per warpgroup, not the whole A;
 //   * S = Q_u K^T, the online softmax, dropout and O += P V as in K1-d-90:
 //     in registers, exp2 with the scale folded in, P the A operand of the
-//     P.V wgmma, O in registers; the epilogue writes O / l and lse.
+//     P.V wgmma, O in registers, and P's lo part the A operand of a second
+//     P.V into an accumulator of its own; the epilogue writes O / l (bf16),
+//     (O + O_lo) / l (fp32) and lse.
 //
 // Shared memory at d = 96: Q_u, Q_v, Q_vs 3 x 24 KB, K/V 2 stages x 24 KB,
 // E 4 slices x 12 KB, the band 2 x 18 KB: 209,000 bytes of the 232,448 a
@@ -133,7 +150,7 @@ __device__ __forceinline__ void release_range(int t, int n_tiles, int lam,
   hi = t == n_tiles - 1 ? n_tiles + 1 : t + lam;
 }
 
-template <int D>
+template <int D, bool FP32>
 __global__ void __launch_bounds__(NTHREADS, 1)
 relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
                        const __grid_constant__ CUtensorMap tm_qv,
@@ -141,7 +158,8 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_e,
                        const int32_t* __restrict__ k_len,
-                       bf16* __restrict__ o, float* __restrict__ lse, int H,
+                       bf16* __restrict__ o, float* __restrict__ o32,
+                       float* __restrict__ lse, int H,
                        int T, float scale_log2, int dropout,
                        uint32_t threshold, float keep_scale, uint32_t seed,
                        int head_offset, int heads_total) {
@@ -233,9 +251,9 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
   const uint8_t* qvs_base = sQvs + w * G::Q_WG;
   float* band = reinterpret_cast<float*>(smem + G::OFF_BAND + w * G::BAND);
 
-  float acc_o[D / 2];
+  float acc_o[D / 2], acc_lo[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc_o[i] = acc_lo[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};      // running max, log2 units
   float l[2] = {0.f, 0.f};              // this thread's share of the sum
 
@@ -325,7 +343,7 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
       m[h] = mx[h];
       l[h] *= alpha[h];
     }
-    uint32_t frag[BK / 16][4];
+    uint32_t frag[BK / 16][4], frag_lo[BK / 16][4];
 #pragma unroll
     for (int i = 0; i < BK / 2; i += 2) {
       const int h = (i / 2) % 2;
@@ -341,9 +359,16 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
                      ? p[e] * keep_scale : 0.f;
       }
       frag[i / 8][(i % 8) / 2] = pack_bf16(p[0], p[1]);
+      if constexpr (FP32)
+        frag_lo[i / 8][(i % 8) / 2] =
+            pack_bf16(p[0] - __bfloat162float(__float2bfloat16_rn(p[0])),
+                      p[1] - __bfloat162float(__float2bfloat16_rn(p[1])));
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_o[i] *= alpha[(i / 2) % 2];
+    for (int i = 0; i < D / 2; ++i) {
+      acc_o[i] *= alpha[(i / 2) % 2];
+      if constexpr (FP32) acc_lo[i] *= alpha[(i / 2) % 2];
+    }
 
     wgmma_fence();
 #pragma unroll
@@ -351,10 +376,21 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
       WgmmaRS<D, 1>::mma(acc_o, frag[kk],
                          desc(v_tile + kk * 16 * ROW_BYTES, BK * ROW_BYTES,
                               512), 1);
+    if constexpr (FP32) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        WgmmaRS<D, 1>::mma(acc_lo, frag_lo[kk],
+                           desc(v_tile + kk * 16 * ROW_BYTES,
+                                BK * ROW_BYTES, 512), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_o);
     fence_regs(frag);
+    if constexpr (FP32) {
+      fence_regs(acc_lo);
+      fence_regs(frag_lo);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
 
@@ -369,7 +405,8 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
     }
   }
 
-  // epilogue: o = acc / l in bf16, lse = (m + log2 l) ln 2
+  // epilogue: o = acc / l in bf16, o32 = (acc + acc_lo) / l (FP32), lse =
+  // (m + log2 l) ln 2
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -383,18 +420,25 @@ relpos_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_qu,
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
     bf16* orow = o + (base + row) * D + quad_col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j) {
+      const float a = acc_o[4 * j + 2 * h], b = acc_o[4 * j + 2 * h + 1];
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(acc_o[4 * j + 2 * h] * inv,
-                                acc_o[4 * j + 2 * h + 1] * inv);
+          __floats2bfloat162_rn(a * inv, b * inv);
+      if constexpr (FP32)
+        *reinterpret_cast<float2*>(o32 + (base + row) * D + quad_col +
+                                   8 * j) =
+            make_float2((a + acc_lo[4 * j + 2 * h]) * inv,
+                        (b + acc_lo[4 * j + 2 * h + 1]) * inv);
+    }
     if (lane % 4 == 0)
       lse[base + row] = l[h] > 0.f ? (m[h] + log2f(l[h])) * LN2 : NEG_INF;
   }
 }
 
-template <int D>
+template <int D, bool FP32>
 int launch(const void* q_u, const void* q_v, const void* k, const void* v,
-           const void* e, const int32_t* k_len, void* o, float* lse, int B,
+           const void* e, const int32_t* k_len, void* o, float* o32,
+           float* lse, int B,
            int H, int T, float sm_scale, int dropout, uint32_t threshold,
            float keep_scale, uint32_t seed, int head_offset, int heads_total,
            cudaStream_t stream) {
@@ -407,13 +451,13 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
   if (r == CUDA_SUCCESS) r = make_map(&tm_e, e, D, 2 * T + 1, H, SLICE);
   if (r != CUDA_SUCCESS) return MAP_ERROR + (int)r;
   cudaError_t err = cudaFuncSetAttribute(
-      relpos_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::ALLOC);
+      relpos_fwd_sm90_kernel<D, FP32>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::ALLOC);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + BQ - 1) / BQ, B * H);
-  relpos_fwd_sm90_kernel<D><<<grid, NTHREADS, G::ALLOC, stream>>>(
-      tm_qu, tm_qv, tm_k, tm_v, tm_e, k_len, static_cast<bf16*>(o), lse, H,
-      T, sm_scale * LOG2E, dropout, threshold, keep_scale, seed, head_offset,
+  relpos_fwd_sm90_kernel<D, FP32><<<grid, NTHREADS, G::ALLOC, stream>>>(
+      tm_qu, tm_qv, tm_k, tm_v, tm_e, k_len, static_cast<bf16*>(o), o32, lse,
+      H, T, sm_scale * LOG2E, dropout, threshold, keep_scale, seed, head_offset,
       heads_total);
   return (int)cudaGetLastError();
 }
@@ -423,8 +467,9 @@ int launch(const void* q_u, const void* q_v, const void* k, const void* v,
 extern "C" {
 
 // bf16 q_u, q_v, k, v (B,H,T,d), e (H,2T+1,d) = [P; 0; P], o like q_u,
-// lse (B,H,T) fp32, k_len (B,) int32, all contiguous on the device with
-// 16-byte aligned bases; d in {64, 96}. dropout != 0 turns on the keep
+// o32 (B,H,T,d) fp32 or null (not written), lse (B,H,T) fp32, k_len (B,)
+// int32, all contiguous on the device with 16-byte aligned bases; d in
+// {64, 96}. dropout != 0 turns on the keep
 // mask (K4-d) with `threshold` (int(rate * 2^32)), `keep_scale`
 // (1/(1 - rate) in fp32) and `seed` (the int32 seed's bits); it hashes the
 // batch-head b*heads_total + head_offset + h (flash_common.cuh
@@ -433,7 +478,8 @@ extern "C" {
 // a tensor map that could not be encoded.
 int flash_relpos_fwd_sm90(const void* q_u, const void* q_v, const void* k,
                           const void* v, const void* e, const void* k_len,
-                          void* o, void* lse, int B, int H, int T, int d,
+                          void* o, void* o32, void* lse, int B, int H,
+                          int T, int d,
                           float sm_scale, int dropout, unsigned int threshold,
                           float keep_scale, unsigned int seed,
                           int head_offset, int heads_total, void* stream) {
@@ -441,15 +487,12 @@ int flash_relpos_fwd_sm90(const void* q_u, const void* q_v, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   auto kl = static_cast<const int32_t*>(k_len);
   auto l = static_cast<float*>(lse);
-  if (d == 64)
-    return launch<64>(q_u, q_v, k, v, e, kl, o, l, B, H, T, sm_scale,
-                      dropout, threshold, keep_scale, seed, head_offset,
-                      heads_total, s);
-  if (d == 96)
-    return launch<96>(q_u, q_v, k, v, e, kl, o, l, B, H, T, sm_scale,
-                      dropout, threshold, keep_scale, seed, head_offset,
-                      heads_total, s);
-  return (int)cudaErrorInvalidValue;
+  auto o2 = static_cast<float*>(o32);
+  auto run = o2 ? (d == 64 ? launch<64, true> : launch<96, true>)
+                : (d == 64 ? launch<64, false> : launch<96, false>);
+  if (d != 64 && d != 96) return (int)cudaErrorInvalidValue;
+  return run(q_u, q_v, k, v, e, kl, o, o2, l, B, H, T, sm_scale, dropout,
+             threshold, keep_scale, seed, head_offset, heads_total, s);
 }
 
 }  // extern "C"

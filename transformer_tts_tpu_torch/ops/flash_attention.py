@@ -273,12 +273,13 @@ def flash_attention_fwd_reference(
 def masked_softmax_pv(
     s: torch.Tensor, v: torch.Tensor, k_len: torch.Tensor,
     out_dtype: torch.dtype, keep: Optional[torch.Tensor] = None,
-    causal: bool = False,
+    causal: bool = False, round_p: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) from fp32 scaled logits ``s`` (B, H, T_q, T_k): keys at or
     past ``k_len[b]`` (and with ``causal`` past the row) excluded exactly,
     a row with no valid key giving o = 0 and lse = -1e30; ``keep`` (the
-    dropout scale) multiplies the normalised probabilities. Shared by the
+    dropout scale) multiplies the normalised probabilities, which are cast
+    to v's dtype before P.V unless ``round_p`` is False. Shared by the
     kernels' plain versions."""
     valid = _valid_keys(s.shape[-2], s.shape[-1], k_len, causal, s.device)
     s = s.masked_fill(~valid, NEG_INF)
@@ -289,7 +290,9 @@ def masked_softmax_pv(
     p = p / safe_l
     if keep is not None:
         p = p * keep
-    o = torch.matmul(p.to(v.dtype).float(), v.float()).to(out_dtype)
+    if round_p:
+        p = p.to(v.dtype).float()
+    o = torch.matmul(p, v.float()).to(out_dtype)
     lse = (m + torch.log(safe_l))[..., 0]
     return o, lse
 

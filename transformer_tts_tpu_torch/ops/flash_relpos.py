@@ -49,6 +49,16 @@ picks it, as for K1/K2; nothing falls back from one to the other):
   table E = [P; 0; P], ``position_table``), a producer warpgroup and two
   consumer warpgroups, ``wgmma`` products; the bias of a tile is one
   product against a 128-row window of E, skewed through shared memory.
+  Beside o (bf16, P cast once, as the TPU kernel does) it writes o32, the
+  output in fp32 over P's two bf16 parts, and the backward's delta =
+  rowsum(dO * o32) holds to ~2^-16 of sum_j P dP: from the bf16 o it
+  missed by ~2^-9, dS = P (dP - delta) no longer summed to 0 over a row,
+  and in bf16 training that drove the mean of K, and q_u along it
+  (directions softmax gives no gradient), until the logits broke the
+  backward (the conformer of ``egs/synthetic_overfit.py`` diverged by
+  step ~400; the masked path and fp32 did not). o32 is written only
+  where autograd will keep it (``_forward``): synthesis and eval skip its
+  second P.V. The simple kernel writes it too, from the same two parts.
 * K5, ``csrc/flash_relpos_bwd_sm90.cu``: one fused kernel per 128 keys,
   dK and dV in registers, dq_u, dq_v and dE summed with fp32 atomics into
   zeroed accumulators (``flash_relpos_attention_bwd_sm90``); dP =
@@ -151,10 +161,12 @@ def flash_relpos_attention_fwd_reference(
     q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p: torch.Tensor, k_len: torch.Tensor, sm_scale: float,
     dropout_rate: float = 0.0, dropout_seed: int = 0, head_offset: int = 0,
-    heads_total: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    heads_total: Optional[int] = None, with_fp32: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K4 and K4-d: the same (o, lse), the keep
-    mask at ``flash_attention.hash_heads``'s batch-heads.
+    mask at ``flash_attention.hash_heads``'s batch-heads; with
+    ``with_fp32`` also o32, o in fp32 over the unrounded probabilities
+    (the kernels' third output, the backward's delta).
 
     The bias is ``rel_shift`` of the full q_v P^T, not the kernel's
     per-tile three-branch identity, so each checks the other. Products
@@ -166,7 +178,12 @@ def flash_relpos_attention_fwd_reference(
         s = _scores(q_u, q_v, k, p, sm_scale)
         keep = _keep(s.shape, dropout_rate, dropout_seed, s.device,
                      head_offset, heads_total)
-        return masked_softmax_pv(s, v, k_len, q_u.dtype, keep=keep)
+        o, lse = masked_softmax_pv(s, v, k_len, q_u.dtype, keep=keep)
+        if not with_fp32:
+            return o, lse
+        o32, _ = masked_softmax_pv(s, v, k_len, torch.float32, keep=keep,
+                                   round_p=False)
+        return o, lse, o32
 
 
 def _bwd_terms(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
@@ -288,9 +305,16 @@ def _design(q_u, q_v, k, v, p, extra=()) -> str:
 
 # ---- the kernel launches (CUDA tensors; called from the ops below) ------
 
+def _no_o32(q_u):
+    """The op's third output when o32 was not asked for."""
+    return q_u.new_empty((0,), dtype=torch.float32)
+
+
 def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-                  dropout_seed, design, head_offset=0, heads_total=0):
-    """(o, lse) of K4 (rate 0) or K4-d launched on the card. The design is
+                  dropout_seed, design, head_offset=0, heads_total=0,
+                  with_fp32=True):
+    """(o, lse, o32) of K4 (rate 0) or K4-d launched on the card; o32
+    empty and not computed unless ``with_fp32``. The design is
     ``select_design``'s; ``design="simple"`` forces the simple kernel in
     the Hopper design's mode (the same-run A/B's baseline)."""
     check_relpos_inputs(q_u, q_v, k, v, p, k_len)
@@ -300,6 +324,9 @@ def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
     b, h, t, d = q_u.shape
     heads = _head_args(h, head_offset, heads_total)
     o = torch.empty_like(q_u)
+    o32 = (torch.empty(q_u.shape, dtype=torch.float32, device=q_u.device)
+           if with_fp32 else _no_o32(q_u))
+    o32_ptr = o32.data_ptr() if with_fp32 else None
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q_u.device)
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
@@ -307,13 +334,15 @@ def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
             e = position_table(p)
             err = _sm90_fwd()(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(),
                               v.data_ptr(), e.data_ptr(), k_len.data_ptr(),
-                              o.data_ptr(), lse.data_ptr(), b, h, t, d,
+                              o.data_ptr(), o32_ptr, lse.data_ptr(),
+                              b, h, t, d,
                               float(sm_scale), flag, threshold, scale, seed,
                               *heads, stream)
         else:
             err = _kernel()(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(),
                             v.data_ptr(), p.data_ptr(), k_len.data_ptr(),
-                            o.data_ptr(), lse.data_ptr(), b, h, t, d,
+                            o.data_ptr(), o32_ptr, lse.data_ptr(), b, h,
+                            t, d,
                             float(sm_scale), flag, threshold, scale, seed,
                             *heads, _DTYPE_CODE[q_u.dtype], stream)
     _raise_on(err, SM90_KERNEL if chosen == "sm90" else KERNEL)
@@ -321,7 +350,7 @@ def _forward_cuda(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
                + ("dropout_launches" if flag else "launches"))
     setattr(flash_relpos_attention, counter,
             getattr(flash_relpos_attention, counter) + 1)
-    return o, lse
+    return o, lse, o32
 
 
 def _bwd_launch(name, args, outs, sm_scale, dropout_rate, dropout_seed,
@@ -434,10 +463,13 @@ def _bwd_cuda(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale,
 # plain version as its CPU implementation and the launch as its CUDA one.
 
 def _fwd_cpu(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
-             dropout_seed, design, head_offset=0, heads_total=0):
-    return tuple(_plain(flash_relpos_attention_fwd_reference(
+             dropout_seed, design, head_offset=0, heads_total=0,
+             with_fp32=True):
+    out = _plain(flash_relpos_attention_fwd_reference(
         q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed,
-        *_head_args(q_u.shape[1], head_offset, heads_total))))
+        *_head_args(q_u.shape[1], head_offset, heads_total),
+        with_fp32=with_fp32))
+    return tuple(out) if with_fp32 else (*out, _no_o32(q_u))
 
 
 _relpos_fwd_op = torch.library.custom_op(
@@ -445,39 +477,45 @@ _relpos_fwd_op = torch.library.custom_op(
     schema="(Tensor q_u, Tensor q_v, Tensor k, Tensor v, Tensor p, "
            "Tensor k_len, float sm_scale, float dropout_rate, "
            "int dropout_seed, str design, int head_offset=0, "
-           "int heads_total=0) -> (Tensor, Tensor)")(_fwd_cpu)
+           "int heads_total=0, bool with_fp32=True) "
+           "-> (Tensor, Tensor, Tensor)")(_fwd_cpu)
 _relpos_fwd_op.register_kernel("cuda")(_forward_cuda)
 
 
 @_relpos_fwd_op.register_fake
 def _(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed,
-      design, head_offset=0, heads_total=0):
+      design, head_offset=0, heads_total=0, with_fp32=True):
     return (torch.empty_like(q_u),
-            q_u.new_empty(q_u.shape[:3], dtype=torch.float32))
+            q_u.new_empty(q_u.shape[:3], dtype=torch.float32),
+            q_u.new_empty(q_u.shape, dtype=torch.float32) if with_fp32
+            else _no_o32(q_u))
 
 
 def _fwd_setup(ctx, inputs, output):
     (q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate, dropout_seed, _,
-     head_offset, heads_total) = inputs
-    o, lse = output
-    ctx.save_for_backward(q_u, q_v, k, v, p, o, lse, k_len)
+     head_offset, heads_total, _) = inputs
+    _, lse, o32 = output
+    ctx.save_for_backward(q_u, q_v, k, v, p, o32, lse, k_len)
     ctx.args = (sm_scale, dropout_rate, dropout_seed, head_offset,
                 heads_total)
-    ctx.mark_non_differentiable(lse)
+    ctx.mark_non_differentiable(lse, o32)
 
 
-def _fwd_backward(ctx, do, _dlse):
+def _fwd_backward(ctx, do, _dlse, _do32):
     """Gradients for q_u, q_v, k, v and p from the backward op,
-    recomputing P and the keep mask; none for k_len, the scale, the rate
-    the seed or the heads, and none through lse."""
+    recomputing P and the keep mask, delta from o32; none for k_len, the
+    scale, the rate the seed or the heads, and none through lse or o32."""
     q_u, q_v, k, v, p, o, lse, k_len = ctx.saved_tensors
     sm_scale, dropout_rate, dropout_seed, head_offset, heads_total = ctx.args
+    if o.shape != q_u.shape:
+        raise RuntimeError("tts_port::relpos_fwd was called with "
+                           "with_fp32=False: no o32 for the backward")
     grads = flash_relpos_attention_bwd(
         q_u, q_v, k, v, p, o, lse, do.to(q_u.dtype).contiguous(), k_len,
         sm_scale=sm_scale, dropout_rate=dropout_rate,
         dropout_seed=dropout_seed, head_offset=head_offset,
         heads_total=heads_total)
-    return (*grads, None, None, None, None, None, None, None)
+    return (*grads, None, None, None, None, None, None, None, None)
 
 
 _relpos_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
@@ -519,14 +557,19 @@ def _(q_u, q_v, k, v, p, do, lse, delta, k_len, sm_scale, dropout_rate,
 def _forward(q_u, q_v, k, v, p, k_len, sm_scale, dropout_rate,
              dropout_seed, design=None, head_offset=0, heads_total=None):
     """(o, lse) through ``tts_port::relpos_fwd``: K4 (rate 0) or K4-d on
-    the card, the plain version on the CPU. ``design="simple"`` forces the
+    the card, the plain version on the CPU. The op computes o32 only where
+    autograd records it (grad mode on and an input that requires grad),
+    and keeps it there for the backward. ``design="simple"`` forces the
     simple kernel in the Hopper design's mode (the same-run A/B's
     baseline); ``head_offset`` and ``heads_total`` as in
     ``flash_attention``."""
-    return _relpos_fwd_op(q_u, q_v, k, v, p, k_len, float(sm_scale),
-                          float(dropout_rate), int(dropout_seed),
-                          design or "auto", int(head_offset),
-                          int(heads_total or 0))
+    with_fp32 = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q_u, q_v, k, v, p))
+    o, lse, _ = _relpos_fwd_op(q_u, q_v, k, v, p, k_len, float(sm_scale),
+                               float(dropout_rate), int(dropout_seed),
+                               design or "auto", int(head_offset),
+                               int(heads_total or 0), with_fp32)
+    return o, lse
 
 
 def _bwd_kernel(kernel, args, sm_scale, dropout_rate, dropout_seed,
@@ -593,8 +636,9 @@ def flash_relpos_attention_bwd(
     fused K5 or the simple pair, K5's dq and dk/dv/dP kernels
     (``design="simple"`` forces the pair); the plain version on the
     CPU."""
-    if o.shape != q_u.shape or o.dtype != q_u.dtype:
-        raise ValueError(f"o must match q_u: {tuple(o.shape)} {o.dtype}")
+    if o.shape != q_u.shape or o.dtype not in (q_u.dtype, torch.float32):
+        raise ValueError(f"o must match q_u, or be its fp32 o32: "
+                         f"{tuple(o.shape)} {o.dtype}")
     return _bwd_kernel(design or "auto",
                        (q_u, q_v, k, v, p, do, lse, bwd_delta(o, do), k_len),
                        sm_scale, dropout_rate, dropout_seed, head_offset,
@@ -635,7 +679,7 @@ def _kernel():
     from transformer_tts_tpu_torch.ops import cuda_build
     fn = cuda_build.load(KERNEL).flash_relpos_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float, ctypes.c_uint32, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -674,8 +718,8 @@ def _sm90_entry(name: str, pointers: int):
     return fn
 
 
-def _sm90_fwd():    # q_u, q_v, k, v, e, k_len, o, lse
-    return _sm90_entry(SM90_KERNEL, 8)
+def _sm90_fwd():    # q_u, q_v, k, v, e, k_len, o, o32 (nullable), lse
+    return _sm90_entry(SM90_KERNEL, 9)
 
 
 def _sm90_bwd():    # q_u, q_v, k, v, e, do, lse, delta, k_len, dq_u, dq_v,
